@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA engine from ``mjhmc_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch version on the card, checks the
-engine's statistics against analytic and quadrature variances, drives the
-main path once through the CLI (``sample --config rough_well --engine
-cuda``) and times the kernels beside their plain versions. One line per
-phase; any failed check raises, so the exit code is non-zero. The second
-to last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-and prints no result.
+Builds the hand-written CUDA kernels from ``mjhmc_tpu_torch/csrc``, holds
+each against its plain PyTorch version on the card, checks the engine's
+statistics against analytic, quadrature and plain-sampler variances, drives
+the main paths once through the CLI (``sample --engine cuda`` on
+``rough_well`` for the elementwise kernel, on ``product_of_t`` and
+``sparse_coding`` for the matmul kernel) and times the kernels beside their
+plain versions. One line per phase; any failed check raises, so the exit
+code is non-zero. The second to last line is the kernels' JSON record, the
+last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -27,7 +29,16 @@ import torch
 M, EPS, BETA = 10, 1.0, 0.1  # the rough_well preset
 RUN_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1451"
 STREAM_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1494"
+MM_RUN_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1265"
+MM_STREAM_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1596"
 KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_engine.cu"
+MM_KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_mm_engine.cu"
+# matmul presets: iterations after which single chains are held at rtol 1e-4.
+# Product of t's preset ε=0.2 makes the leapfrog unstable along W's stiffest
+# direction near y = 0, so last-ulp differences of two f32 summation orders
+# pass 1e-4 on many chains by iteration 5 (a one-ulp nudge of x does the same
+# to the JAX kernel against itself); by iteration 3 they stay well inside.
+MM_STATE_ITERS = {"product_of_t": 3, "sparse_coding": 5}
 
 
 def phase(name: str, msg: str) -> None:
@@ -67,6 +78,149 @@ def initial_state(dist, n, seed):
     return x, v, g, u, z, z.clone()
 
 
+def ptxas_report(log: str):
+    """(kernel, registers, spill bytes stored) per entry function of the
+    nvcc ``-Xptxas -v`` log."""
+    rows, name, spill = [], None, 0
+    for ln in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", ln):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores", ln):
+            spill = int(m.group(1))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return rows
+
+
+def run_cli(cli, argv, counters):
+    """Drive ``python -m mjhmc_tpu_torch`` in process with the launch
+    counters set to 0 just before; returns (record, launches, seconds)."""
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), launches, seconds
+
+
+def mm_kernel_checks(cm, cname, cfg, dist, n):
+    """Matmul kernel vs its plain version on the card at a preset's shape;
+    returns (max |dx| of the run, of the stream)."""
+    spec = cm.energy_spec_for(dist)
+    eps, m = cfg.epsilon, cfg.num_leapfrog_steps
+    ts = MM_STATE_ITERS[cname]
+    args = (spec, *initial_state(dist, n, seed=1), 7, eps, BETA)
+    k100 = cm.cuda_mjhmc_mm_run(*args, 100, m, fixed_uniform=True)
+    r100 = cm.mjhmc_run_reference(*args, 100, m, fixed_uniform=True)
+    check(bool((k100.evals == m * 100 + m).all()) and bool((r100.evals == m * 100 + m).all()),
+          f"{cname}: fixed-uniform evals must be exactly M*100 + M on every chain")
+    w_rel = abs(float(k100.w.double().sum() / r100.w.double().sum()) - 1)
+    if cname == "sparse_coding":
+        assert_close(k100.w.sum(), r100.w.sum(), 1e-4, 0.0, f"{cname} sum of w after 100")
+    kt = cm.cuda_mjhmc_mm_run(*args, ts, m, fixed_uniform=True)
+    rt = cm.mjhmc_run_reference(*args, ts, m, fixed_uniform=True)
+    check(torch.equal(kt.evals, rt.evals) and torch.equal(kt.back_valid, rt.back_valid),
+          f"{cname}: counters or cache flags differ after {ts}")
+    assert_close(kt.w.sum(), rt.w.sum(), 1e-4, 0.0, f"{cname} sum of w after {ts}")
+    errs = {f: assert_close(getattr(kt, f), getattr(rt, f), 1e-4,
+                            1e-4 * float(getattr(rt, f).abs().max()), f"{cname} {f} after {ts}")
+            for f in ("x", "v", "grad", "u", "h_back")}
+    run_err = errs["x"]
+    for name in ("wx", "wx2"):
+        a, b = getattr(kt, name).double().sum(1), getattr(rt, name).double().sum(1)
+        assert_close(a, b, 1e-4, 1e-4 * float(b.abs().max()), f"{cname} sum of {name} after {ts}")
+    k5 = cm.cuda_mjhmc_mm_run(*args, 5, m, fixed_uniform=True)
+    r5 = cm.mjhmc_run_reference(*args, 5, m, fixed_uniform=True)
+    check(torch.equal(k5.evals, r5.evals), f"{cname}: counters differ after 5")
+    tol = 1e-4 * r5.x.abs().max() + 1e-4 * r5.x.abs()
+    share5 = float(((k5.x - r5.x).abs() <= tol).all(dim=0).double().mean())
+    xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_mm_stream_run(*args, 5, 1, m, fixed_uniform=True)
+    xs_r, ws_r, es_r, _ = cm.mjhmc_stream_reference(*args, 5, 1, m, fixed_uniform=True)
+    check(torch.equal(es_k[-1], so_k.evals), f"{cname}: stream es[-1] must equal evals")
+    check(torch.equal(es_k, es_r), f"{cname}: stream es must equal the plain version's")
+    check(xs_k.shape == (5, dist.ndims, n), f"{cname}: stream xs shape {tuple(xs_k.shape)}")
+    stream_err = assert_close(xs_k[:ts], xs_r[:ts], 1e-4, 1e-4 * float(xs_r.abs().max()),
+                              f"{cname} stream xs")
+    assert_close(ws_k.sum(1), ws_r.sum(1), 1e-4, 0.0, f"{cname} stream sum of ws")
+    phase("3 mm fixed-uniform", f"{cname} ({n} chains, eps {eps}, M {m}): evals exact "
+          f"(M*100 + M); sum of w after 100 rel diff {w_rel:.3g}; after {ts}: x,v,g,u,h_back "
+          f"rtol 1e-4 on every chain (max|dx| {run_err:.3g}), sums of w, wx, wx2 rtol 1e-4; "
+          f"after 5: x within rtol 1e-4 on {share5:.4f} of chains; stream es exact, "
+          f"xs max|dx| {stream_err:.3g}")
+    return run_err, stream_err
+
+
+def mm_philox_checks(cm, cname, cfg, dist, n):
+    spec = cm.energy_spec_for(dist)
+    m = cfg.num_leapfrog_steps
+    args = (spec, *initial_state(dist, n, seed=2), 12345, cfg.epsilon, BETA)
+    kp = cm.cuda_mjhmc_mm_run(*args, 5, m)
+    rp = cm.mjhmc_run_reference(*args, 5, m)
+    same = float((kp.evals == rp.evals).double().mean())
+    refreshed = int((rp.evals > 6 * m).sum())
+    check(same >= 0.999, f"{cname}: Philox-mode counters match on {same:.5f} of chains (< 0.999)")
+    check(refreshed >= 10, f"{cname}: only {refreshed} chains refreshed: draws not exercised")
+    # a refreshed chain's v is 128 (36) Box-Muller normals from words 1..2d
+    ts = MM_STATE_ITERS[cname]
+    kt, rt = cm.cuda_mjhmc_mm_run(*args, ts, m), cm.mjhmc_run_reference(*args, ts, m)
+    tol = 1e-4 * rt.v.abs().max() + 1e-4 * rt.v.abs()
+    v_same = float(((kt.v - rt.v).abs() <= tol).all(dim=0).double().mean())
+    check(v_same >= 0.999, f"{cname}: Philox-mode v within rtol 1e-4 on {v_same:.5f} (< 0.999)")
+    phase("4 mm philox", f"{cname}: counters equal on {same:.5f} of chains, {refreshed} "
+          f"chains refreshed; v after {ts} within rtol 1e-4 on {v_same:.5f} of chains")
+
+
+def mm_stats(cm, cname, dist, n):
+    """Dwell-weighted variances through CudaMJHMC: product of t against the
+    analytic values, sparse coding against the plain sampler, with the
+    settings tests/test_pallas_engine.py:300-369 hold the TPU engine to."""
+    from mjhmc_tpu_torch.samplers import MarkovJumpHMC
+
+    eps, m = (0.12, 5) if cname == "product_of_t" else (0.02, 5)
+    eng = cm.CudaMJHMC(dist, epsilon=eps, beta=BETA, num_leapfrog_steps=m, nbatch=n,
+                       seed=0, device="cuda")
+    eng.run(400)
+    xs, ws = eng.sample(600)
+    wsum = ws.double().sum()
+    mean = (ws[:, None, :] * xs).double().sum(dim=(0, 2)) / wsum
+    var = (ws[:, None, :] * xs * xs).double().sum(dim=(0, 2)) / wsum - mean**2
+    _, acc_var = cm.CudaMJHMC.moments(eng.last_out)
+    assert_close(acc_var.double(), var, 1e-3, 0.0, f"{cname} accumulator var")
+    assert_close(ws.sum(dim=0), eng.last_out.w, 1e-5, 0.0, f"{cname} sum of ws vs w")
+    extra = eng.evals - m * 1000
+    check(bool((extra >= 0).all()) and bool((extra % m == 0).all()),
+          f"{cname}: evals - M*steps must be a non-negative multiple of M")
+    dwell_e = float(wsum) / ws.numel()
+    if cname == "product_of_t":
+        target = dist.analytic_var().double().cuda()
+        ratio = (var / target).median()
+        check(abs(float(ratio) - 1) < 0.15, f"{cname}: median var/analytic {float(ratio):.4f}")
+        phase("5 mm stats", f"{cname} ({n} chains, eps {eps}, M {m}, 400 + 600): median "
+              f"var/analytic {float(ratio):.5f}; mean dwell {dwell_e:.5f}; sum(ws) == w")
+        return
+    ref = MarkovJumpHMC(dist, epsilon=eps, beta=BETA, num_leapfrog_steps=m, nbatch=2048,
+                        seed=1, device="cuda")
+    ref.burn_in(400)
+    rout = ref.sample(600)
+    rw = rout["dwell"].double()
+    rx = rout["x"].double()
+    rmean = (rw[:, None, :] * rx).sum(dim=(0, 2)) / rw.sum()
+    rvar = (rw[:, None, :] * rx * rx).sum(dim=(0, 2)) / rw.sum() - rmean**2
+    ratio = float((var / rvar).median())
+    dwell_r = float(rw.mean())
+    check(abs(ratio - 1) < 0.15, f"{cname}: median var ratio engine/plain {ratio:.4f}")
+    check(abs(dwell_e - dwell_r) < 0.05 * dwell_r,
+          f"{cname}: mean dwell {dwell_e:.5f} vs plain sampler {dwell_r:.5f}")
+    phase("5 mm stats", f"{cname} ({n} chains vs 2048 in the plain sampler, eps {eps}, M {m}, "
+          f"400 + 600): median var ratio {ratio:.5f}; mean dwell {dwell_e:.5f} vs "
+          f"{dwell_r:.5f}; sum(ws) == w")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -75,7 +229,7 @@ def main() -> int:
     # ---- 1. device -------------------------------------------------------
     from mjhmc_tpu_torch.bench import bench_cuda, gpu_name_and_power_limit
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
-    from mjhmc_tpu_torch.models import Gaussian, RoughWell
+    from mjhmc_tpu_torch.models import Gaussian, ProductOfT, RoughWell, SparseCoding
     from mjhmc_tpu_torch.ops import _build
     from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
 
@@ -91,11 +245,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     phase("2 build", f"{time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
-    for ln in _build.build_log().splitlines():
-        if "registers" in ln or "spill" in ln:
-            phase("2 build", "ptxas " + ln.strip())
+    for kernel, regs, spill in ptxas_report(_build.build_log()):
+        phase("2 build", f"ptxas {kernel}: {regs} registers, {spill} bytes spill stores")
 
-    # ---- 3. kernel vs plain version, fixed-uniform mode ------------------
+    # ---- 3. kernels vs plain version, fixed-uniform mode -----------------
     rw = RoughWell()
     spec = cm.energy_spec_for(rw)
     st = initial_state(rw, 4096, seed=1)
@@ -112,8 +265,8 @@ def main() -> int:
     r5 = cm.mjhmc_run_reference(*args, 5, M, fixed_uniform=True)
     atol = 1e-4 * float(r5.x.abs().max())
     run_err = assert_close(k5.x, r5.x, 1e-4, atol, "x after 5")
-    for name in ("v", "grad", "u"):
-        assert_close(getattr(k5, name), getattr(r5, name), 1e-4, atol, f"{name} after 5")
+    for fname in ("v", "grad", "u"):
+        assert_close(getattr(k5, fname), getattr(r5, fname), 1e-4, atol, f"{fname} after 5")
     xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_stream_run(*args, 5, 1, M, fixed_uniform=True)
     xs_r, ws_r, es_r, _ = cm.mjhmc_stream_reference(*args, 5, 1, M, fixed_uniform=True)
     check(torch.equal(es_k[-1], so_k.evals), "stream es[-1] must equal evals")
@@ -132,9 +285,17 @@ def main() -> int:
     r50 = cm.mjhmc_run_reference(*args50, 5, M, fixed_uniform=True)
     check(torch.equal(k50.evals, r50.evals), "gauss50d fixed-uniform evals differ")
     atol50 = 1e-4 * float(r50.x.abs().max())
-    for name in ("x", "v", "grad", "u", "wx2"):
-        assert_close(getattr(k50, name), getattr(r50, name), 1e-4, atol50, f"gauss50d {name}")
+    for fname in ("x", "v", "grad", "u", "wx2"):
+        assert_close(getattr(k50, fname), getattr(r50, fname), 1e-4, atol50, f"gauss50d {fname}")
     phase("3 fixed-uniform", f"gauss50d (D=50): evals exact; x,v,g,u,wx2 rtol 1e-4 atol {atol50:.3g}")
+
+    # the matmul kernel at the product_of_t and sparse_coding presets
+    mm_cases = []
+    for cname in ("product_of_t", "sparse_coding"):
+        cfg = BENCHMARK_CONFIGS[cname]
+        dist = cfg.make_distribution()
+        mm_cases.append((cname, cfg, dist, cfg.nbatch))
+    mm_err = {c[0]: mm_kernel_checks(cm, *c) for c in mm_cases}
 
     # ---- 4. Philox mode, identical draws ---------------------------------
     st = initial_state(rw, 10_000, seed=2)
@@ -152,6 +313,8 @@ def main() -> int:
                     == cm.mjhmc_run_reference(*args50, 5, M).evals).double().mean())
     check(same50 >= 0.999, f"gauss50d Philox-mode counters match on {same50:.5f} (< 0.999)")
     phase("4 philox", f"gauss50d (D=50): counters equal on {same50:.5f} of chains")
+    for c in mm_cases:
+        mm_philox_checks(cm, *c)
 
     # ---- 5. statistics through CudaMJHMC ---------------------------------
     for cname in ("gauss2d", "rough_well"):
@@ -178,27 +341,45 @@ def main() -> int:
         assert_close(ws.sum(dim=0), eng.last_out.w, 1e-5, 0.0, f"{cname} sum of ws vs w")
         phase("5 stats", f"{cname}: var/target {[round(r, 5) for r in ratio.tolist()]}; "
               f"evals exact multiples of M; sum(ws) == w")
+    mm_stats(cm, "product_of_t", ProductOfT(), 4096)
+    mm_stats(cm, "sparse_coding", SparseCoding(), 8192)
 
-    # ---- 6. the CLI path (main path; launches counted here only) ----------
+    # ---- 6. the CLI paths (main paths; launches counted here only) -------
     from mjhmc_tpu_torch.__main__ import main as cli
 
-    cm.cuda_mjhmc_run.launches = 0
-    cm.cuda_mjhmc_stream_run.launches = 0
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        cli(["sample", "--config", "rough_well", "--engine", "cuda",
-             "--steps", "1000", "--burn", "500"])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = {"run": cm.cuda_mjhmc_run.launches, "stream": cm.cuda_mjhmc_stream_run.launches}
-    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
-    check(launches["run"] > 0 and launches["stream"] > 0, f"kernels not launched: {launches}")
+    counters = {"run": cm.cuda_mjhmc_run, "stream": cm.cuda_mjhmc_stream_run,
+                "mm_run": cm.cuda_mjhmc_mm_run, "mm_stream": cm.cuda_mjhmc_mm_stream_run}
+    rec, rw_launches, cli_s = run_cli(cli, ["sample", "--config", "rough_well", "--engine",
+                                            "cuda", "--steps", "1000", "--burn", "500"],
+                                      counters)
+    check(rw_launches["run"] > 0 and rw_launches["stream"] > 0,
+          f"kernels not launched: {rw_launches}")
     target = RoughWell().analytic_var().tolist()
     check(all(abs(v / t - 1) < 0.05 for v, t in zip(rec["var"], target)),
           f"CLI var {rec['var']} vs {target}: outside 5%")
     check(rec["chains"] == 10_000 and rec["ess"] > 0, f"bad CLI record {rec}")
-    phase("6 cli", f"{json.dumps(rec)}; launches {launches}; {cli_s:.4g} s host clock")
+    phase("6 cli", f"{json.dumps(rec)}; launches {rw_launches}; {cli_s:.4g} s host clock")
+
+    mm_launches = {"mm_run": 0, "mm_stream": 0}
+    mm_cli_s = {}
+    mm_cli = {"product_of_t": (500, 1000), "sparse_coding": (200, 200)}  # burn, steps
+    for cname, (burn, steps) in mm_cli.items():
+        cfg = BENCHMARK_CONFIGS[cname]
+        rec, launches, mm_cli_s[cname] = run_cli(
+            cli, ["sample", "--config", cname, "--engine", "cuda", "--burn", str(burn),
+                  "--steps", str(steps)], counters)
+        check(launches["mm_run"] > 0 and launches["mm_stream"] > 0,
+              f"{cname}: matmul kernels not launched: {launches}")
+        for k in mm_launches:
+            mm_launches[k] += launches[k]
+        m, n = cfg.num_leapfrog_steps, cfg.nbatch
+        ge = rec["grad_evals"]
+        check(rec["chains"] == n and rec["steps"] == steps and rec["ess"] > 0
+              and ge >= m * (burn + steps) * n and ge % m == 0
+              and all(v > 0 and v == v for v in rec["var"])
+              and all(abs(x) < 1e6 for x in rec["mean"]), f"{cname}: bad CLI record {rec}")
+        phase("6 cli", f"{cname}: {json.dumps(rec)}; launches {launches}; "
+              f"{mm_cli_s[cname]:.4g} s host clock")
 
     # ---- 7. timings ------------------------------------------------------
     cfg = BENCHMARK_CONFIGS["rough_well"]
@@ -230,13 +411,46 @@ def main() -> int:
           f"run {plain_ms:.6g} ms/iteration, stream {plain_stream_ms:.6g} ms/iteration "
           f"[{card}]")
 
+    mm_ms = {}
+    for cname, cfg, dist, n in mm_cases:
+        m = cfg.num_leapfrog_steps
+        iters = 2000 if cname == "product_of_t" else 500
+        rate = bench_cuda(cfg, nbatch=n, steps_per_call=iters)
+        k_ms = n * m / rate * 1e3
+        eng = cm.CudaMJHMC(dist, epsilon=cfg.epsilon, beta=cfg.beta, num_leapfrog_steps=m,
+                           nbatch=n, seed=4, device="cuda")
+        eng.sample(20)
+        s_ms = events_ms(lambda: eng.sample(iters)) / iters
+        args = (cm.energy_spec_for(dist), *initial_state(dist, n, seed=5), 99,
+                cfg.epsilon, BETA)
+        cm.mjhmc_run_reference(*args, 5, m)
+        p_ms = events_ms(lambda: cm.mjhmc_run_reference(*args, 50, m)) / 50
+        ps_ms = events_ms(lambda: cm.mjhmc_stream_reference(*args, 50, 1, m)) / 50
+        mm_ms[cname] = (k_ms, s_ms, p_ms, ps_ms)
+        burn, steps = mm_cli[cname]
+        kern_s = (burn * k_ms + steps * s_ms) / 1e3
+        phase("7 timing", f"matmul kernel, {cname}, {n} chains: run {k_ms:.6g} ms/iteration "
+              f"({rate:.6g} credited steps/s), stream (thin 1) {s_ms:.6g} ms/iteration; "
+              f"plain version run {p_ms:.6g}, stream {ps_ms:.6g} ms/iteration; CLI kernels "
+              f"~{kern_s:.4g} s of {mm_cli_s[cname]:.4g} s host clock [{card}]")
+
+    def mm_entry(kname, src, launches, idx_ms, idx_plain, err_idx):
+        sc = mm_ms["sparse_coding"]
+        return {"name": kname, "route": "cuda", "source": MM_KERNEL_SRC, "replaces": src,
+                "launches": launches, "max_abs_err": max(e[err_idx] for e in mm_err.values()),
+                "ms": sc[idx_ms], "plain_ms": sc[idx_plain], "shape": "sparse_coding, 8192 chains",
+                "per_config_ms": {c: {"ms": v[idx_ms], "plain_ms": v[idx_plain]}
+                                  for c, v in mm_ms.items()}}
+
     print(json.dumps({"kernels": [
         {"name": "mjhmc_run", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": RUN_SRC, "launches": launches["run"], "max_abs_err": run_err,
+         "replaces": RUN_SRC, "launches": rw_launches["run"], "max_abs_err": run_err,
          "ms": run_ms, "plain_ms": plain_ms},
         {"name": "mjhmc_stream", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": STREAM_SRC, "launches": launches["stream"],
+         "replaces": STREAM_SRC, "launches": rw_launches["stream"],
          "max_abs_err": stream_err, "ms": stream_ms, "plain_ms": plain_stream_ms},
+        mm_entry("mjhmc_mm_run", MM_RUN_SRC, mm_launches["mm_run"], 0, 2, 0),
+        mm_entry("mjhmc_mm_stream", MM_STREAM_SRC, mm_launches["mm_stream"], 1, 3, 1),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

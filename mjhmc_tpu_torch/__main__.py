@@ -1,11 +1,14 @@
 """Command-line entry points of the port.
 
     python -m mjhmc_tpu_torch sample --config rough_well --engine cuda --steps 1000
+    python -m mjhmc_tpu_torch sample --config sparse_coding --engine cuda
     python -m mjhmc_tpu_torch bench
 
 ``sample`` runs MJHMC and prints the JSON record of ``mjhmc_tpu``'s
 ``sample``; ``--engine cuda`` is the fused engine (its plain version when
-``--device cpu``), ``--engine torch`` the plain sampler. The JAX package's
+``--device cpu``), ``--engine torch`` the plain sampler. The configs ported
+so far are gauss2d, gauss50d, rough_well, rough_well_a3 (elementwise
+kernel), product_of_t and sparse_coding (matmul kernel). The JAX package's
 other subcommands are not ported yet (ROADMAP.md, slice H).
 """
 

@@ -38,7 +38,9 @@ def gpu_name_and_power_limit() -> tuple:
 
 
 def bench_cuda(cfg, nbatch: int, steps_per_call: int = 10_000, trials: int = 3) -> float:
-    """Credited leapfrog steps/s of the engine run kernel (best of ``trials``)."""
+    """Credited leapfrog steps/s of the engine run kernel (best of ``trials``)
+    for any config the engine takes: the elementwise kernel for rough_well
+    and the Gaussians, the matmul kernel for product_of_t and sparse_coding."""
     eng = CudaMJHMC(
         cfg.make_distribution(), epsilon=cfg.epsilon, beta=cfg.beta,
         num_leapfrog_steps=cfg.num_leapfrog_steps, nbatch=nbatch, seed=0,

@@ -2,7 +2,8 @@
 
 The presets are the same values as the JAX package's; only
 ``make_distribution`` resolves to this package's model registry, which so
-far holds the rough well and the Gaussian.
+far holds the rough well, the Gaussian, the product of t experts and the
+sparse-coding posterior.
 """
 
 from __future__ import annotations

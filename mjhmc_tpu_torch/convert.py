@@ -10,10 +10,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mjhmc_tpu_torch.models import Gaussian, RoughWell
+from mjhmc_tpu_torch.models import Gaussian, ProductOfT, RoughWell, SparseCoding
 from mjhmc_tpu_torch.samplers.state import ChainState, MJState
 
-_PORTED = {"RoughWell": RoughWell, "Gaussian": Gaussian}
+_PORTED = {
+    "RoughWell": RoughWell,
+    "Gaussian": Gaussian,
+    "ProductOfT": ProductOfT,
+    "SparseCoding": SparseCoding,
+}
 
 
 def distribution_from_jax(config_dict: dict):
@@ -22,9 +27,12 @@ def distribution_from_jax(config_dict: dict):
     name = cfg.pop("__class__")
     if name not in _PORTED:
         raise NotImplementedError(
-            f"distribution {name} is not ported yet "
-            "(ROADMAP.md, 'Modules to port', slices C and D)"
+            f"distribution {name} is not ported yet: the zoo models (Funnel, "
+            "Banana, GaussianMixture, EightSchools, LogisticRegression) come "
+            "with slice D (ROADMAP.md, 'Modules to port')"
         )
+    if cfg.get("custom_patch") is not None:  # config_dict makes tuples lists
+        cfg["custom_patch"] = tuple(cfg["custom_patch"])
     return _PORTED[name](**cfg)
 
 

@@ -32,6 +32,18 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
   return ctr;
 }
 
+// Word k of a (chain, iteration) draw: output k % 4 of block k / 4.
+__device__ __forceinline__ uint32_t philox_word(uint32_t chain, uint32_t t,
+                                                uint32_t k, uint2 key) {
+  const uint4 r = philox4x32_10(make_uint4(chain, t, k >> 2, 0u), key);
+  switch (k & 3u) {
+    case 0: return r.x;
+    case 1: return r.y;
+    case 2: return r.z;
+    default: return r.w;
+  }
+}
+
 // U(0,1) from one word, built as the TPU kernel's _uniform builds it: the
 // top 24 bits times 2^-24, plus 2^-25, so it is always > 0 (safe for log).
 __device__ __forceinline__ float philox_uniform(uint32_t word) {

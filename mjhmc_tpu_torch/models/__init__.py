@@ -1,4 +1,5 @@
-"""Benchmark distributions ported so far: the rough well and the Gaussian."""
+"""Benchmark distributions ported so far: the rough well, the Gaussian, the
+product of Student-t experts and the sparse-coding posterior."""
 
 from mjhmc_tpu_torch.models.base import (
     Distribution,
@@ -7,7 +8,9 @@ from mjhmc_tpu_torch.models.base import (
     registry,
 )
 from mjhmc_tpu_torch.models.gaussian import Gaussian
+from mjhmc_tpu_torch.models.product_of_t import ProductOfT
 from mjhmc_tpu_torch.models.rough_well import RoughWell
+from mjhmc_tpu_torch.models.sparse_coding import SparseCoding
 
 __all__ = [
     "Distribution",
@@ -15,5 +18,7 @@ __all__ = [
     "register",
     "registry",
     "Gaussian",
+    "ProductOfT",
     "RoughWell",
+    "SparseCoding",
 ]

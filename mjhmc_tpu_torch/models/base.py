@@ -132,8 +132,9 @@ def get_distribution(name: str, **kwargs) -> Distribution:
     """Instantiate a registered distribution by name."""
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"distribution {name!r} is not ported yet "
-            "(ROADMAP.md, 'Modules to port', slices C and D)"
+            f"distribution {name!r} is not ported yet: the zoo models (funnel, "
+            "banana, mog, eight_schools, logreg) come with slice D "
+            "(ROADMAP.md, 'Modules to port')"
         )
     return _REGISTRY[name](**kwargs)
 

@@ -1,10 +1,12 @@
 """Build the engine's CUDA library from ``csrc/`` with nvcc and load it with
 ctypes.
 
-The library has a plain C interface, so nvcc compiles it in seconds (no
-PyTorch headers). It is built at first use into ``build/mjhmc_tpu_torch/``
-beside the package, under a name keyed by a hash of the sources and flags,
-so an edited source builds anew and an unchanged one is reused.
+The library has a plain C interface, so nvcc compiles it without PyTorch's
+headers. Each kernel source is compiled to an object by its own nvcc, all
+started together, and one more nvcc links the objects into one shared
+library. It is built at first use into ``build/mjhmc_tpu_torch/`` beside
+the package, under a name keyed by a hash of the sources and flags, so an
+edited source builds anew and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -18,23 +20,31 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("mjhmc_engine.cu", "philox.cuh")
+#: the compiled units, one object each
+KERNEL_SOURCES = ("mjhmc_engine.cu", "mjhmc_mm_engine.cu")
+SOURCES = KERNEL_SOURCES + ("philox.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mjhmc_tpu_torch"
-# no --use_fast_math: the rough well's sin/cos arguments reach ~100 rad
+# no --use_fast_math: the rough well's sin/cos arguments reach ~100 rad, and
+# the Kahan sums need IEEE arithmetic
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: argument types of ``mjhmc_engine_launch`` (csrc/mjhmc_engine.cu)
-LAUNCH_ARGTYPES = (
-    [_I, _I, _P] + [_F] * 5  # ndims, energy, params, k0..k4
-    + [_P] * 6  # x, v, g, u, h_back, valid
+_STATE_AND_RUN = (
+    [_P] * 6  # x, v, g, u, h_back, valid
     + [_P] * 10  # xo, vo, go, uo, hbo, valido, w, wx, wx2, evals
     + [_P] * 3  # xs, ws, es
     + [_I] * 4  # n, num_iters, thin, m
     + [ctypes.c_uint, _F, _F, _I, _P]  # seed, eps, beta, fixed_uniform, stream
+)
+#: argument types of ``mjhmc_engine_launch`` (csrc/mjhmc_engine.cu)
+LAUNCH_ARGTYPES = [_I, _I, _P] + [_F] * 5 + _STATE_AND_RUN  # ndims, energy, params, k0..k4
+#: argument types of ``mjhmc_mm_engine_launch`` (csrc/mjhmc_mm_engine.cu)
+MM_LAUNCH_ARGTYPES = (
+    [_I, _I, _I, _P, _P] + [_F] * 4  # energy, ndims, krows, p0, p1, k0..k3
+    + _STATE_AND_RUN
 )
 
 
@@ -62,13 +72,27 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.parent / f"{path.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "mjhmc_engine.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    stem = path.parent / f"{path.name}.{os.getpid()}"
+    objs = [Path(f"{stem}.{name}.o") for name in KERNEL_SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, obj in zip(KERNEL_SOURCES, objs)
+    ]
+    log = "".join(p.communicate()[0] for p in procs)
+    rcs = [p.returncode for p in procs]
+    if not any(rcs):
+        tmp = Path(f"{stem}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        rcs.append(link.returncode)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     path.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+    if any(rcs):
+        raise RuntimeError(f"nvcc failed with exit codes {rcs}:\n{log}")
     os.replace(tmp, path)
     return path
 
@@ -80,8 +104,10 @@ def build_log() -> str:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """Build (first use) and load the library; typed ``mjhmc_engine_launch``."""
+    """Build (first use) and load the library; typed launch functions."""
     lib = ctypes.CDLL(str(build()))
-    lib.mjhmc_engine_launch.argtypes = LAUNCH_ARGTYPES
-    lib.mjhmc_engine_launch.restype = ctypes.c_int
+    for fn, argtypes in ((lib.mjhmc_engine_launch, LAUNCH_ARGTYPES),
+                         (lib.mjhmc_mm_engine_launch, MM_LAUNCH_ARGTYPES)):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

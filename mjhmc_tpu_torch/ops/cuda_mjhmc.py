@@ -8,11 +8,16 @@ the backward-energy cache; it accumulates Kahan sums of Σw, Σw·x, Σw·x²
 and the exact int32 eval counters. The stream form also emits every
 ``thin``-th iteration's pre-transition x, dwell weight and cumulative evals.
 
-The kernel is hand-written CUDA C++ (``csrc/mjhmc_engine.cu``), built by
-``ops._build``. Beside it this module holds its plain PyTorch version
-(``mjhmc_run_reference`` / ``mjhmc_stream_reference``) with the same
-contract. The wrappers ``cuda_mjhmc_run`` / ``cuda_mjhmc_stream_run`` launch
-the kernel for CUDA tensors and call the plain version for CPU tensors.
+There are two hand-written CUDA C++ kernels, built by ``ops._build``:
+``csrc/mjhmc_engine.cu`` for the elementwise energies (rough well,
+Gaussian; one thread per chain) and ``csrc/mjhmc_mm_engine.cu`` for the
+matmul energies (product of t, sparse coding; tiles of chains per block,
+the parameter matrix in shared memory). Beside them this module holds
+their plain PyTorch version (``mjhmc_run_reference`` /
+``mjhmc_stream_reference``, one for both kinds) with the same contract. The
+wrappers ``cuda_mjhmc_run`` / ``cuda_mjhmc_stream_run`` (elementwise) and
+``cuda_mjhmc_mm_run`` / ``cuda_mjhmc_mm_stream_run`` (matmul) launch their
+kernel for CUDA tensors and call the plain version for CPU tensors.
 
 Random numbers come from Philox4x32-10 keyed by the run seed with counter
 (chain, iteration, block, 0): 1 + 2·d words per iteration (word 0 picks the
@@ -27,6 +32,7 @@ Public layout is the JAX one without the TPU's (d, 8, L) fold: states
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import math
@@ -37,7 +43,9 @@ import torch
 
 from mjhmc_tpu_torch.models.base import randn
 from mjhmc_tpu_torch.models.gaussian import Gaussian
+from mjhmc_tpu_torch.models.product_of_t import ProductOfT
 from mjhmc_tpu_torch.models.rough_well import RoughWell
+from mjhmc_tpu_torch.models.sparse_coding import SparseCoding
 from mjhmc_tpu_torch.samplers.state import MJState
 
 Tensor = torch.Tensor
@@ -47,7 +55,8 @@ NEG_INF = -1e30
 #: the uniform every draw takes in fixed-uniform mode (Pallas interpret mode
 #: returns zero bits, and _uniform turns those into 2⁻²⁵)
 FIXED_UNIFORM = 2.0**-25
-#: state dimensions the kernel is instantiated for (csrc/mjhmc_engine.cu)
+#: state dimensions the elementwise kernel is instantiated for
+#: (csrc/mjhmc_engine.cu)
 KERNEL_DIMS = (2, 50)
 
 
@@ -99,18 +108,105 @@ class GaussianSpec:
         return 0.5 * (x * x * params).sum(dim=-2)
 
 
+# matmul energies: the state is (..., d, n) and the parameters are whole
+# matrices. On the GPU the forward and backward trajectories are simply
+# more columns of the same product, so the TPU's block-diagonal pair
+# operands, sublane pads and dot-precision knob have no counterpart here.
+@dataclasses.dataclass(frozen=True)
+class ProductOfTSpec:
+    """y = Wᵀx, g = W·(ν+1)y/(ν+y²), U = ½(ν+1)·Σ log1p(y²/ν)."""
+
+    dist: ProductOfT
+    energy_id: ClassVar[int] = 0
+
+    def param_arrays(self) -> list:
+        return [np.asarray(self.dist._basis, np.float32)]  # W: (d, k)
+
+    def aux_rows(self) -> int:
+        return self.dist.nbasis
+
+    def constants(self) -> tuple:
+        """(ν+1, ν, ½(ν+1), 1/ν): the kernel's k0..k3."""
+        nu = self.dist.nu
+        return (nu + 1.0, nu, 0.5 * (nu + 1.0), 1.0 / nu)
+
+    def du(self, x, w):
+        nu = self.dist.nu
+        y = torch.matmul(w.T, x)
+        return torch.matmul(w, (nu + 1.0) * y / (nu + y * y))
+
+    def u_sum(self, x, w):
+        nu = self.dist.nu
+        y = torch.matmul(w.T, x)
+        return 0.5 * (nu + 1.0) * torch.log1p(y * y * (1.0 / nu)).sum(dim=-2)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseCodingSpec:
+    """r = patch − Φa, g = λa/√(a²+ε) − σ⁻²Φᵀr, U = λΣ√(a²+ε) + ½σ⁻²‖r‖²."""
+
+    dist: SparseCoding
+    energy_id: ClassVar[int] = 1
+
+    def param_arrays(self) -> list:
+        d = self.dist
+        return [np.asarray(d._phi, np.float32), d.patch_array()]  # Φ (p, b), (p,)
+
+    def aux_rows(self) -> int:
+        return self.dist.npixels
+
+    def constants(self) -> tuple:
+        """(λ, σ⁻², ½σ⁻², ε): the kernel's k0..k3."""
+        d = self.dist
+        return (d.lam, 1.0 / d.sigma**2, 0.5 / d.sigma**2, d.smooth_eps)
+
+    def _resid(self, a, phi, patch):
+        return patch[:, None] - torch.matmul(phi, a)
+
+    def du(self, a, phi, patch):
+        d = self.dist
+        s = torch.sqrt(a * a + d.smooth_eps)
+        r = self._resid(a, phi, patch)
+        return d.lam * (a / s) - (1.0 / d.sigma**2) * torch.matmul(phi.T, r)
+
+    def u_sum(self, a, phi, patch):
+        d = self.dist
+        s = torch.sqrt(a * a + d.smooth_eps)
+        r = self._resid(a, phi, patch)
+        return d.lam * s.sum(dim=-2) + (0.5 / d.sigma**2) * (r * r).sum(dim=-2)
+
+
+ELEMENTWISE_SPECS = (RoughWellSpec, GaussianSpec)
+MATMUL_SPECS = (ProductOfTSpec, SparseCodingSpec)
+#: (ndims, aux rows) the matmul kernel is instantiated for, per spec
+#: (csrc/mjhmc_mm_engine.cu): the product_of_t and sparse_coding presets
+MM_KERNEL_SHAPES = {ProductOfTSpec: (36, 36), SparseCodingSpec: (128, 64)}
+
+_UNPORTED_ENERGIES = (
+    "the engine has the rough_well, gaussian, product_of_t and sparse_coding "
+    "energies; LogregSpec (matmul kernel) and the Funnel, Banana, Mog and "
+    "EightSchools specs (elementwise kernel) are not ported yet "
+    "(ROADMAP.md, 'TPU kernels to port', item 8)"
+)
+
+
 def energy_spec_for(dist):
     if isinstance(dist, RoughWell):
         return RoughWellSpec(dist.scale1, dist.scale2, dist.amplitude)
     if isinstance(dist, Gaussian):
         return GaussianSpec(tuple(float(v) for v in 1.0 / dist.variances))
+    if isinstance(dist, ProductOfT):
+        return ProductOfTSpec(dist)
+    if isinstance(dist, SparseCoding):
+        return SparseCodingSpec(dist)
     raise NotImplementedError(
-        f"no fused CUDA energy for {type(dist).__name__} yet "
-        "(ROADMAP.md, 'TPU kernels to port', items 5 and 8)"
+        f"no fused CUDA energy for {type(dist).__name__}: {_UNPORTED_ENERGIES}"
     )
 
 
-def _check_slice(spec, variant, integrator, inv_mass):
+def _check_slice(spec, variant, integrator, inv_mass, kinds):
+    """Refuse what the kernels do not cover; ``kinds`` are the spec types
+    of the calling wrapper's kernel."""
     if variant != "mjhmc":
         raise NotImplementedError(
             f"engine variant {variant!r} is not ported yet "
@@ -121,10 +217,15 @@ def _check_slice(spec, variant, integrator, inv_mass):
             "the two-stage integrator and inv_mass are not ported yet "
             "(ROADMAP.md, 'TPU kernels to port', item 4)"
         )
-    if not isinstance(spec, (RoughWellSpec, GaussianSpec)):
+    if not isinstance(spec, ELEMENTWISE_SPECS + MATMUL_SPECS):
         raise NotImplementedError(
-            f"no fused CUDA energy for {type(spec).__name__} yet "
-            "(ROADMAP.md, 'TPU kernels to port', items 5 and 8)"
+            f"no fused CUDA energy for {type(spec).__name__}: {_UNPORTED_ENERGIES}"
+        )
+    if not isinstance(spec, kinds):
+        raise ValueError(
+            f"{type(spec).__name__} belongs to the other kernel: elementwise "
+            "specs take cuda_mjhmc_run/_stream_run, matmul specs "
+            "cuda_mjhmc_mm_run/_stream_run"
         )
 
 
@@ -218,11 +319,35 @@ def _halfsq(v):
 _DRAW_CHUNK = 64
 
 
+def _param_tensors(spec, ndims: int, device) -> tuple:
+    """The spec's parameters as tensors: a matmul spec's matrices, or an
+    elementwise spec's per-dim vector as a (d, 1) column."""
+    if isinstance(spec, MATMUL_SPECS):
+        arrays = spec.param_arrays()
+    else:
+        arrays = [spec.param_vector(ndims)[:, None]]
+    return tuple(torch.as_tensor(a, device=device) for a in arrays)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """The plain version sets ``torch.backends.cuda.matmul.allow_tf32 =
+    False`` while it runs, so its products on the card are full float32
+    (the kernel's FP32 FMA contractions are held against them)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@_full_f32_matmul()
 def _reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                num_iters, m, thin, emit, fixed_uniform):
     d, n = x.shape
     dev = x.device
-    params = torch.as_tensor(spec.param_vector(d), device=dev)[:, None]
+    params = _param_tensors(spec, d, dev)
     w = wc = torch.zeros_like(u)
     wx = wxc = wx2 = wx2c = torch.zeros_like(x)
     evals = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -235,9 +360,9 @@ def _reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         for _ in range(m):
             vh = vs2 - he * gs2
             xs2 = xs2 + epsilon * vh
-            gs2 = spec.du(xs2, params)
+            gs2 = spec.du(xs2, *params)
             vs2 = vh - he * gs2
-        us2 = spec.u_sum(xs2, params)
+        us2 = spec.u_sum(xs2, *params)
         h2 = us2 + _halfsq(vs2)
         h_l = h2[0]
         h_b = torch.where(valid > 0.5, h_back, h2[1])
@@ -305,7 +430,7 @@ def mjhmc_stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
 # --------------------------------------------------------------------------
 def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             num_iters, m, thin, num_emits, fixed_uniform):
-    """Check the state, allocate the outputs and launch the kernel."""
+    """Check the state, allocate the outputs and launch the spec's kernel."""
     from mjhmc_tpu_torch.ops import _build
 
     if x.device.type != "cuda":
@@ -316,13 +441,25 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     if x.dim() != 2:
         raise ValueError(f"x must be (ndims, nbatch), got {tuple(x.shape)}")
     d, n = x.shape
-    if d not in KERNEL_DIMS:
+    matmul = isinstance(spec, MATMUL_SPECS)
+    if matmul:
+        shape = (d, spec.aux_rows())
+        if shape != MM_KERNEL_SHAPES[type(spec)]:
+            raise NotImplementedError(
+                f"the matmul kernel is instantiated for {type(spec).__name__} at "
+                f"(ndims, aux rows) = {MM_KERNEL_SHAPES[type(spec)]}, not {shape} "
+                "(ROADMAP.md, 'TPU kernels to port', item 5)"
+            )
+    elif d not in KERNEL_DIMS:
         raise NotImplementedError(
-            f"the kernel is instantiated for ndims in {KERNEL_DIMS}, not {d} "
-            "(ROADMAP.md, 'TPU kernels to port', item 1)"
+            f"the elementwise kernel is instantiated for ndims in {KERNEL_DIMS}, "
+            f"not {d} (ROADMAP.md, 'TPU kernels to port': other D instances of "
+            "items 1-2)"
         )
     if n == 0 or thin < 1 or num_iters < 0:
         raise ValueError(f"need nbatch > 0, thin >= 1, steps >= 0 (got {n}, {thin}, {num_iters})")
+    if matmul and m < 1:  # the endpoint energies reuse the last step's product
+        raise ValueError(f"the matmul kernel needs leapfrog steps >= 1, got {m}")
     for name, t, shape in (
         ("x", x, (d, n)), ("v", v, (d, n)), ("g", g, (d, n)), ("u", u, (n,)),
         ("h_back", h_back, (n,)), ("back_valid", back_valid, (n,)),
@@ -334,7 +471,6 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     lib = _build.load()
-    params = torch.as_tensor(spec.param_vector(d), device=x.device).contiguous()
     out = RunOut(
         torch.empty_like(x), torch.empty_like(x), torch.empty_like(x),
         torch.empty_like(u), torch.empty_like(u), torch.empty_like(u),
@@ -351,31 +487,65 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         )
     ptrs = [t.data_ptr() for t in (x, v, g, u, h_back, back_valid, *out)]
     ptrs += [None if t is None else t.data_ptr() for t in emits]
-    rc = lib.mjhmc_engine_launch(
-        d, spec.energy_id, params.data_ptr(), *spec.constants(), *ptrs,
-        n, num_iters, thin, m, int(seed) & _MASK32, float(epsilon), float(beta),
-        int(fixed_uniform), ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
+    tail = (n, num_iters, thin, m, int(seed) & _MASK32, float(epsilon), float(beta),
+            int(fixed_uniform),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if matmul:
+        params = [t.contiguous() for t in _param_tensors(spec, d, x.device)]
+        p0, p1 = (params + [None])[:2]
+        rc = lib.mjhmc_mm_engine_launch(
+            spec.energy_id, d, spec.aux_rows(), p0.data_ptr(),
+            None if p1 is None else p1.data_ptr(), *spec.constants(), *ptrs, *tail,
+        )
+    else:
+        params = torch.as_tensor(spec.param_vector(d), device=x.device).contiguous()
+        rc = lib.mjhmc_engine_launch(
+            d, spec.energy_id, params.data_ptr(), *spec.constants(), *ptrs, *tail,
+        )
     if rc != 0:
-        raise RuntimeError(f"mjhmc_engine_launch failed: CUDA error {rc}")
+        kernel = "mjhmc_mm_engine_launch" if matmul else "mjhmc_engine_launch"
+        raise RuntimeError(f"{kernel} failed: CUDA error {rc}")
     return out, emits
 
 
-def cuda_mjhmc_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-                   num_steps, num_leapfrog, *, inv_mass=None, variant="mjhmc",
-                   integrator="leapfrog", fixed_uniform=False) -> RunOut:
-    """Engine run (counterpart of ``pallas_mjhmc_run``): ``num_steps`` jump
-    iterations in one launch. CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
-    _check_slice(spec, variant, integrator, inv_mass)
+def _run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed, epsilon,
+         beta, num_steps, num_leapfrog, inv_mass, variant, integrator,
+         fixed_uniform) -> RunOut:
+    _check_slice(spec, variant, integrator, inv_mass, kinds)
     if x.device.type == "cpu":
         return mjhmc_run_reference(spec, x, v, g, u, h_back, back_valid, seed,
                                    epsilon, beta, num_steps, num_leapfrog,
                                    fixed_uniform)
     out, _ = _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                      num_steps, num_leapfrog, 1, None, fixed_uniform)
-    cuda_mjhmc_run.launches += 1
+    wrapper.launches += 1
     return out
+
+
+def _stream_run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed,
+                epsilon, beta, num_emits, thin, num_leapfrog, inv_mass, variant,
+                integrator, fixed_uniform):
+    _check_slice(spec, variant, integrator, inv_mass, kinds)
+    if x.device.type == "cpu":
+        return mjhmc_stream_reference(spec, x, v, g, u, h_back, back_valid, seed,
+                                      epsilon, beta, num_emits, thin,
+                                      num_leapfrog, fixed_uniform)
+    out, (xs, ws, es) = _launch(spec, x, v, g, u, h_back, back_valid, seed,
+                                epsilon, beta, num_emits * thin, num_leapfrog,
+                                thin, num_emits, fixed_uniform)
+    wrapper.launches += 1
+    return xs, ws, es, out
+
+
+def cuda_mjhmc_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                   num_steps, num_leapfrog, *, inv_mass=None, variant="mjhmc",
+                   integrator="leapfrog", fixed_uniform=False) -> RunOut:
+    """Engine run for the elementwise energies (counterpart of
+    ``pallas_mjhmc_run``): ``num_steps`` jump iterations in one launch. CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    return _run(cuda_mjhmc_run, ELEMENTWISE_SPECS, spec, x, v, g, u, h_back,
+                back_valid, seed, epsilon, beta, num_steps, num_leapfrog,
+                inv_mass, variant, integrator, fixed_uniform)
 
 
 cuda_mjhmc_run.launches = 0
@@ -385,21 +555,44 @@ def cuda_mjhmc_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
                           beta, num_emits, thin, num_leapfrog, *, inv_mass=None,
                           variant="mjhmc", integrator="leapfrog",
                           fixed_uniform=False):
-    """Streaming engine run (counterpart of ``pallas_mjhmc_stream_run``):
-    returns (xs (E, d, n), ws (E, n), es (E, n) int32, RunOut)."""
-    _check_slice(spec, variant, integrator, inv_mass)
-    if x.device.type == "cpu":
-        return mjhmc_stream_reference(spec, x, v, g, u, h_back, back_valid, seed,
-                                      epsilon, beta, num_emits, thin,
-                                      num_leapfrog, fixed_uniform)
-    out, (xs, ws, es) = _launch(spec, x, v, g, u, h_back, back_valid, seed,
-                                epsilon, beta, num_emits * thin, num_leapfrog,
-                                thin, num_emits, fixed_uniform)
-    cuda_mjhmc_stream_run.launches += 1
-    return xs, ws, es, out
+    """Streaming engine run for the elementwise energies (counterpart of
+    ``pallas_mjhmc_stream_run``): returns (xs (E, d, n), ws (E, n), es (E, n)
+    int32, RunOut)."""
+    return _stream_run(cuda_mjhmc_stream_run, ELEMENTWISE_SPECS, spec, x, v, g,
+                       u, h_back, back_valid, seed, epsilon, beta, num_emits,
+                       thin, num_leapfrog, inv_mass, variant, integrator,
+                       fixed_uniform)
 
 
 cuda_mjhmc_stream_run.launches = 0
+
+
+def cuda_mjhmc_mm_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                      num_steps, num_leapfrog, *, inv_mass=None, variant="mjhmc",
+                      integrator="leapfrog", fixed_uniform=False) -> RunOut:
+    """Engine run for the matmul energies (counterpart of
+    ``pallas_mjhmc_mm_run``), same contract as ``cuda_mjhmc_run``."""
+    return _run(cuda_mjhmc_mm_run, MATMUL_SPECS, spec, x, v, g, u, h_back,
+                back_valid, seed, epsilon, beta, num_steps, num_leapfrog,
+                inv_mass, variant, integrator, fixed_uniform)
+
+
+cuda_mjhmc_mm_run.launches = 0
+
+
+def cuda_mjhmc_mm_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
+                             beta, num_emits, thin, num_leapfrog, *, inv_mass=None,
+                             variant="mjhmc", integrator="leapfrog",
+                             fixed_uniform=False):
+    """Streaming engine run for the matmul energies (counterpart of
+    ``pallas_mjhmc_mm_stream_run``), same contract as
+    ``cuda_mjhmc_stream_run``; the emissions carry no row padding."""
+    return _stream_run(cuda_mjhmc_mm_stream_run, MATMUL_SPECS, spec, x, v, g, u,
+                       h_back, back_valid, seed, epsilon, beta, num_emits, thin,
+                       num_leapfrog, inv_mass, variant, integrator, fixed_uniform)
+
+
+cuda_mjhmc_mm_stream_run.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -409,8 +602,10 @@ cuda_mjhmc_stream_run.launches = 0
 class CudaMJHMC:
     """High-throughput MJHMC engine (counterpart of ``PallasMJHMC``).
 
-    Takes any ``nbatch``. ``device="cpu"`` runs the kernel's plain version;
-    ``fixed_uniform`` pins every uniform at 2⁻²⁵ (test mode).
+    Takes any ``nbatch``. Matmul energies (product of t, sparse coding) go
+    through the matmul kernel, the others through the elementwise one, as
+    ``PallasMJHMC`` picks its kernels. ``device="cpu"`` runs the kernels'
+    plain version; ``fixed_uniform`` pins every uniform at 2⁻²⁵ (test mode).
     """
 
     distribution: object
@@ -427,7 +622,13 @@ class CudaMJHMC:
 
     def __post_init__(self):
         self.spec = energy_spec_for(self.distribution)
-        _check_slice(self.spec, self.variant, self.integrator, self.inv_mass)
+        self._matmul = isinstance(self.spec, MATMUL_SPECS)
+        if self._matmul:
+            self._run_fn, self._stream_fn = cuda_mjhmc_mm_run, cuda_mjhmc_mm_stream_run
+        else:
+            self._run_fn, self._stream_fn = cuda_mjhmc_run, cuda_mjhmc_stream_run
+        _check_slice(self.spec, self.variant, self.integrator, self.inv_mass,
+                     MATMUL_SPECS if self._matmul else ELEMENTWISE_SPECS)
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CudaMJHMC(device='cuda') needs a CUDA device")
@@ -470,7 +671,7 @@ class CudaMJHMC:
         self.last_out = out
 
     def run(self, num_steps: int) -> RunOut:
-        out = cuda_mjhmc_run(
+        out = self._run_fn(
             self.spec, *self._state(), self._next_seed(), self.epsilon,
             self.beta, num_steps, self.num_leapfrog_steps,
             inv_mass=self.inv_mass, variant=self.variant,
@@ -483,7 +684,7 @@ class CudaMJHMC:
         """Streaming run: (xs (num_emits, d, nbatch), dwell (num_emits, nbatch)),
         plus the exact cumulative int32 eval counters when ``return_evals``.
         The run's accumulators are kept in ``last_out``."""
-        xs, ws, es, out = cuda_mjhmc_stream_run(
+        xs, ws, es, out = self._stream_fn(
             self.spec, *self._state(), self._next_seed(), self.epsilon,
             self.beta, num_emits, thin, self.num_leapfrog_steps,
             inv_mass=self.inv_mass, variant=self.variant,
