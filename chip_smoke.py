@@ -7,9 +7,11 @@ each against its plain PyTorch version on the card, checks the engine's
 statistics against analytic, quadrature and plain-sampler variances, drives
 the main paths once through the CLI (``sample --engine cuda`` on
 ``rough_well`` for the elementwise kernel, on ``product_of_t`` and
-``sparse_coding`` for the matmul kernel) and times the kernels beside their
-plain versions. One line per phase; any failed check raises, so the exit
-code is non-zero. The second to last line is the kernels' JSON record, the
+``sparse_coding`` for the matmul kernel, ``--sampler nuts`` on ``gauss2d``
+for the NUTS kernel) and the roofline dossier (``bench_mfu.main`` with its
+ceiling probes, at a reduced ``--steps``), and times the kernels beside
+their plain versions. One line per phase; any failed check raises, so the
+exit code is non-zero. The second to last line is the kernels' JSON record, the
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -39,6 +41,16 @@ MM_KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_mm_engine.cu"
 # pass 1e-4 on many chains by iteration 5 (a one-ulp nudge of x does the same
 # to the JAX kernel against itself); by iteration 3 they stay well inside.
 MM_STATE_ITERS = {"product_of_t": 3, "sparse_coding": 5}
+CEIL_SRC = "mjhmc_tpu_torch/csrc/ceilings.cu"
+FMA_SRC = "bench_mfu.py:159"  # measure_vpu_ceiling's kernel
+TC_SRC = "bench_mfu.py:94"  # measure_mxu_ceiling's kernel
+NUTS_VARIANT = "nuts (_make_step_nuts, mjhmc_tpu/ops/pallas_mjhmc.py:1011)"
+STUB_VARIANT = "stub_dots (MatmulEnergySpec._dot, mjhmc_tpu/ops/pallas_mjhmc.py:282)"
+NUTS_EPS, NUTS_DEPTH = 0.3, 7  # the dossier's gauss2d NUTS row
+CLI_NUTS_DEPTH = 8  # max_depth of `sample --sampler nuts` (at the config's eps)
+#: the dossier's --steps here (its default is 20,000): the engine rows time
+#: 2,000 and 10,000 jump iterations
+DOSSIER_STEPS = 2000
 
 
 def phase(name: str, msg: str) -> None:
@@ -93,18 +105,19 @@ def ptxas_report(log: str):
     return rows
 
 
-def run_cli(cli, argv, counters):
-    """Drive ``python -m mjhmc_tpu_torch`` in process with the launch
-    counters set to 0 just before; returns (record, launches, seconds)."""
+def run_cli(cli, argv, counters, attr="launches"):
+    """Drive ``python -m mjhmc_tpu_torch`` in process with the wrappers'
+    launch counters ``attr`` set to 0 just before; returns (record,
+    launches, seconds)."""
     for fn in counters.values():
-        fn.launches = 0
+        setattr(fn, attr, 0)
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         cli(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: getattr(fn, attr) for k, fn in counters.items()}
     return json.loads(buf.getvalue().strip().splitlines()[-1]), launches, seconds
 
 
@@ -221,6 +234,235 @@ def mm_stats(cm, cname, dist, n):
           f"{dwell_r:.5f}; sum(ws) == w")
 
 
+def ceiling_checks(ce):
+    """Both ceiling probes vs their plain versions at the dossier's inputs;
+    returns (fma max|err|, fma plain ms/iteration, tc max|err|, tc plain
+    ms/iteration at depth 128)."""
+    import numpy as np
+
+    from mjhmc_tpu_torch.bench_mfu import TC_DEPTHS
+
+    rng = np.random.default_rng(1)
+    a = torch.as_tensor(0.5 + 0.01 * rng.random((256, 1024)), dtype=torch.float32).cuda()
+    b = torch.as_tensor(0.1 * rng.random((256, 1024)), dtype=torch.float32).cuda()
+    fma_err = max(assert_close(ce.fma_chain(a, b, 50, sin), ce.fma_chain_reference(a, b, 50, sin),
+                               1e-5, 0.0, f"fma_chain (sin={sin}) after 50")
+                  for sin in (False, True))
+    fma_plain_ms = events_ms(lambda: ce.fma_chain_reference(a, b, 50)) / 50
+    tc_err, rel = 0.0, []
+    for depth in TC_DEPTHS:
+        lanes = ce.tc_chain_lanes(depth)
+        rng = np.random.default_rng(0)
+        w = torch.as_tensor(rng.normal(size=(depth, depth)) / np.sqrt(depth),
+                            dtype=torch.float32).cuda()
+        bb = torch.as_tensor(rng.normal(size=(depth, lanes)), dtype=torch.float32).cuda()
+        for iters in (1, 3):
+            k, r = ce.tc_chain(w, bb, iters), ce.tc_chain_reference(w, bb, iters)
+            top = float(r.abs().max())
+            err = assert_close(k, r, 0.0, 1e-3 * top, f"tc_chain depth {depth} after {iters}")
+            tc_err = max(tc_err, err)
+            rel.append(err / top)
+    tc_plain_ms = events_ms(lambda: ce.tc_chain_reference(w, bb, 3)) / 3
+    phase("8 ceilings", f"fma_chain (256, 1024) x 4 chains, both branches, 50 iterations: "
+          f"rtol 1e-5 (max|err| {fma_err:.3g}); tc_chain at depths {list(TC_DEPTHS)}, 1 and 3 "
+          f"iterations: within 1e-3 of the max (largest {max(rel):.3g} of the max)")
+    return fma_err, fma_plain_ms, tc_err, tc_plain_ms
+
+
+def round_directions(cm, seed, n, iters, depth):
+    """(iters, depth, n) bool: round jj of iteration t goes right, from the
+    NUTS kernel's Philox words (tag 2, word 0)."""
+    return torch.stack([torch.stack([
+        cm._uniform_of(cm.philox_block(seed, n, t, jj, cm.TAG_NUTS_ROUND, "cuda")[0]) < 0.5
+        for jj in range(depth)]) for t in range(iters)])
+
+
+def chains_within(k, r, fields=("x", "v", "grad", "u")):
+    """(n,) bool: the chain's fields all lie within rtol 1e-4 (atol 1e-4 of
+    each field's largest value) of the plain version's."""
+    ok = None
+    for f in fields:
+        a, b = getattr(k, f).double(), getattr(r, f).double()
+        good = (a - b).abs() <= 1e-4 * float(b.abs().max()) + 1e-4 * b.abs()
+        good = good.all(dim=0) if good.dim() == 2 else good
+        ok = good if ok is None else ok & good
+    return ok
+
+
+def nuts_checks(cm):
+    """The NUTS run and stream kernels vs their plain version, in
+    fixed-uniform mode and in Philox mode, at the main path's shapes (the
+    dossier's gauss2d row and the CLI's, both at 10,240 chains), on the
+    rough well and on the D=50 instances; returns (max|dx| run, stream)."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.models import Gaussian, RoughWell
+
+    g2 = Gaussian(ndims=2, log_conditioning=2.0)
+    cases = (  # name, distribution, eps, max_depth, chains, fixed-uniform iterations
+        ("gauss2d", g2, NUTS_EPS, NUTS_DEPTH, 10_240, 5),
+        ("gauss2d", g2, BENCHMARK_CONFIGS["gauss2d"].epsilon, CLI_NUTS_DEPTH, 10_240, 5),
+        ("rough_well", RoughWell(), 1.0, NUTS_DEPTH, 4096, 1),
+        # the D=50 instance as `sample --config gauss50d --sampler nuts` runs it
+        ("gauss50d", Gaussian(ndims=50, log_conditioning=4.0),
+         BENCHMARK_CONFIGS["gauss50d"].epsilon, CLI_NUTS_DEPTH, 4096, 5),
+    )
+    run_err = stream_err = 0.0
+    for cname, dist, eps, depth, n, iters in cases:
+        spec = cm.energy_spec_for(dist)
+        what = f"NUTS {cname} ({n} chains, eps {eps}, max_depth {depth})"
+        nuts = dict(variant="nuts")
+
+        # fixed-uniform: every round goes right
+        args = (spec, *initial_state(dist, n, seed=1), 7, eps, 0.0)
+        k = cm.cuda_mjhmc_run(*args, iters, depth, fixed_uniform=True, **nuts)
+        xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_stream_run(*args, iters, 1, depth,
+                                                          fixed_uniform=True, **nuts)
+        xs_r, _, es_r, r = cm.nuts_stream_reference(*args, iters, 1, depth, fixed_uniform=True)
+        check(torch.equal(k.evals, r.evals), f"{what}: fixed-uniform leaf counts differ")
+        check(torch.equal(es_k, es_r) and torch.equal(es_k[-1], so_k.evals),
+              f"{what}: stream es differ from the plain version's or es[-1] != evals")
+        check(bool((k.w == iters).all()) and bool((r.w == iters).all())
+              and bool((ws_k == 1).all()), f"{what}: w must equal the number of steps, ws 1")
+        for f in ("x", "v", "grad", "u"):
+            err = assert_close(getattr(k, f), getattr(r, f), 1e-4,
+                               1e-4 * float(getattr(r, f).abs().max()), f"{what} {f}")
+            run_err = max(run_err, err) if f == "x" else run_err
+        stream_err = max(stream_err, assert_close(xs_k, xs_r, 1e-4, 1e-4 * float(xs_r.abs().max()),
+                                                  f"{what} stream xs"))
+        leaves = float(r.evals.double().mean()) / iters
+        phase("9 nuts fixed-uniform", f"{what}, {iters} iterations, {leaves:.4g} "
+              f"leaves/iteration: leaf counts and stream es exact; w == steps, ws == 1; "
+              f"x,v,g,u and stream xs rtol 1e-4 on every chain")
+
+        # Philox mode: rounds go both ways; every iteration's tree compared
+        seed = 12345
+        args = (spec, *initial_state(dist, n, seed=2), seed, eps, 0.0)
+        kp = cm.cuda_mjhmc_run(*args, 5, depth, **nuts)
+        xs_k, _, es_k, _ = cm.cuda_mjhmc_stream_run(*args, 5, 1, depth, **nuts)
+        xs_r, _, es_r, rp = cm.nuts_stream_reference(*args, 5, 1, depth)
+        counts = (kp.evals == rp.evals) & (es_k == es_r).all(dim=0)
+        tol = 1e-4 * float(xs_r.abs().max()) + 1e-4 * xs_r.abs()
+        agree = counts & chains_within(kp, rp) & ((xs_k - xs_r).abs() <= tol).all(dim=1).all(dim=0)
+        identical = torch.ones_like(agree)
+        for f in ("x", "v", "grad", "u"):
+            eq = getattr(kp, f) == getattr(rp, f)
+            identical &= eq.all(dim=0) if eq.dim() == 2 else eq
+        same, share_agree = float(counts.double().mean()), float(agree.double().mean())
+        check(same >= 0.999, f"{what}: Philox-mode leaf counts equal on {same:.5f} (< 0.999)")
+        check(share_agree >= 0.999,
+              f"{what}: Philox-mode x,v,g,u and xs within rtol 1e-4 on {share_agree:.5f} (< 0.999)")
+        # rounds each iteration began, and their directions; a chain whose
+        # every emitted x agrees with the plain version's took the same trees
+        per_iter = torch.diff(es_r.long(), dim=0, prepend=torch.zeros_like(es_r[:1]).long())
+        started = torch.floor(torch.log2(per_iter.double())).long() + 1
+        right = round_directions(cm, seed, n, 5, depth)
+        live = torch.arange(depth, device="cuda")[None, :, None] < started[:, None, :]
+        both = ((right & live).any(dim=1) & (~right & live).any(dim=1)).any(dim=0) & agree
+        share = float(both.double().mean())
+        check(share > 0.01, f"{what}: only {share:.4f} of chains built rounds both ways "
+              "and agree with the plain version")
+        phase("10 nuts philox", f"{what}, 5 iterations: leaf counts and stream es equal on "
+              f"{same:.5f} of chains; x,v,g,u and every emitted x within rtol 1e-4 on "
+              f"{share_agree:.5f} (bit-identical on {float(identical.double().mean()):.5f}); "
+              f"{share:.4f} of chains built rounds in both directions and agree")
+    return run_err, stream_err
+
+
+def nuts_timing_and_stats(cm, card):
+    """CudaNUTS on gauss2d at the dossier's settings: variances within 5% of
+    [1, 100]; returns (run, stream, plain run, plain stream) ms/iteration."""
+    from mjhmc_tpu_torch.models import Gaussian
+
+    dist = Gaussian(ndims=2, log_conditioning=2.0)
+    eng = cm.CudaNUTS(dist, epsilon=NUTS_EPS, num_leapfrog_steps=NUTS_DEPTH, nbatch=10_240,
+                      seed=3)
+    eng.run(100)
+    run_ms = events_ms(lambda: eng.run(1000)) / 1000
+    out = eng.last_out
+    check(bool((out.w == 1000).all()), "NUTS: w must equal the number of steps")
+    _, var = cm.CudaMJHMC.moments(out)
+    ratio = var.double() / torch.tensor([1.0, 100.0], dtype=torch.float64, device="cuda")
+    check(bool(((ratio - 1).abs() < 0.05).all()), f"NUTS gauss2d var {var.tolist()}: outside 5%")
+    leaves = float(out.evals.double().mean()) / 1000
+    stream_ms = events_ms(lambda: eng.sample(1000)) / 1000
+    args = (cm.energy_spec_for(dist), *initial_state(dist, 10_240, seed=5), 99, NUTS_EPS, 0.0)
+    cm.nuts_run_reference(*args, 1, NUTS_DEPTH)
+    plain_ms = events_ms(lambda: cm.nuts_run_reference(*args, 3, NUTS_DEPTH)) / 3
+    plain_stream_ms = events_ms(lambda: cm.nuts_stream_reference(*args, 3, 1, NUTS_DEPTH)) / 3
+    phase("11 nuts stats", f"CudaNUTS gauss2d (10,240 chains, eps {NUTS_EPS}, max_depth "
+          f"{NUTS_DEPTH}, 100 + 1000): var/analytic {[round(x, 5) for x in ratio.tolist()]}; "
+          f"{leaves:.5g} leaves/iteration")
+    phase("11 nuts stats", f"NUTS run kernel {run_ms:.6g} ms/iteration "
+          f"({leaves * 10_240 / run_ms * 1e3:.6g} leaves/s), stream {stream_ms:.6g}; plain "
+          f"version run {plain_ms:.6g}, stream {plain_stream_ms:.6g} ms/iteration [{card}]")
+    return run_ms, stream_ms, plain_ms, plain_stream_ms
+
+
+def stub_checks(cm):
+    """The stubbed product-of-t kernel vs its plain version (fixed-uniform);
+    returns (max|dx|, plain ms/iteration at the dossier's settings)."""
+    from mjhmc_tpu_torch.models import ProductOfT
+
+    pot = ProductOfT()
+    spec = cm.ProductOfTSpec(pot, stub_dots=True)
+    args = (spec, *initial_state(pot, 4096, seed=1), 7, 0.12, BETA)
+    k = cm.cuda_mjhmc_mm_run(*args, 3, 10, fixed_uniform=True)
+    r = cm.mjhmc_run_reference(*args, 3, 10, fixed_uniform=True)
+    check(torch.equal(k.evals, r.evals), "stubbed product_of_t: counters differ after 3")
+    err = {f: assert_close(getattr(k, f), getattr(r, f), 1e-4, 1e-4 * float(getattr(r, f).abs().max()),
+                           f"stubbed product_of_t {f} after 3") for f in ("x", "v", "grad", "u")}
+    plain_ms = events_ms(lambda: cm.mjhmc_run_reference(*args, 3, 10)) / 3
+    phase("12 stub", f"stubbed product_of_t kernel (4096 chains, eps 0.12, M 10): evals exact, "
+          f"x,v,g,u rtol 1e-4 after 3 (max|dx| {err['x']:.3g})")
+    return err["x"], plain_ms
+
+
+def run_dossier(cm, ce, card):
+    """The roofline dossier in process at DOSSIER_STEPS, its launch counts
+    set to 0 just before; every mfu must lie in (0, 1.05]."""
+    from mjhmc_tpu_torch import bench_mfu
+
+    counted = [(ce.fma_chain, "launches"), (ce.tc_chain, "launches"),
+               (cm.cuda_mjhmc_mm_run, "stub_launches"), (cm.cuda_mjhmc_run, "nuts_launches")]
+    for fn, attr in counted:
+        setattr(fn, attr, 0)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_mfu.main(["--steps", str(DOSSIER_STEPS)])
+    seconds = time.perf_counter() - t0
+    launches = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counted}
+    check(rc == 0, f"bench_mfu.main returned {rc}")
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.strip()]
+    head, rows = lines[0], lines[1:]
+    ceil = head["ceilings"]
+    names = [r["engine"] for r in rows]
+    want = ["mjhmc_roughwell_elementwise", "mjhmc_product_of_t[full]",
+            "mjhmc_product_of_t[dots=stubbed]", "mjhmc_product_of_t[ablation_verdict]",
+            "mjhmc_sparse_coding[fp32]", "nuts_gauss2d_elementwise"]
+    check(names == want, f"dossier rows {names}")
+    check(all(v > 0 for v in launches.values()), f"dossier kernels not launched: {launches}")
+    for r in rows:
+        flops = (r.get("achieved_matmul_flops_per_s") or r.get("achieved_flops_per_s")
+                 or r.get("achieved_matmul_flops_per_s_executed"))
+        if flops:
+            check("mfu" in r and 0 < r["mfu"] <= 1.05, f"{r['engine']}: mfu {r.get('mfu')}")
+    probes = ceil["probes"]
+    phase("14 dossier", f"--steps {DOSSIER_STEPS} (the default is 20,000), {seconds:.4g} s host "
+          f"clock; launches {launches}")
+    phase("14 dossier", "ceilings: " + json.dumps(
+        {k: v for k, v in ceil.items() if k != "probes"}) + f" [{card}]")
+    phase("14 dossier", "probe iterations (lo, hi) and lanes: " + json.dumps(
+        {k: {kk: v[kk] for kk in ("iters", "lanes", "elements") if kk in v}
+         for k, v in probes.items()}))
+    for r in rows:
+        phase("14 dossier", json.dumps(r))
+    stub_row = rows[2]
+    return {"launches": launches, "fma_ms": probes["fp32_fma"]["s_per_iter"] * 1e3,
+            "tc_ms": probes["tc_depth_128"]["s_per_iter"] * 1e3,
+            "stub_ms": 4096 / stub_row["iterations_per_s"] * 1e3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -231,6 +473,7 @@ def main() -> int:
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
     from mjhmc_tpu_torch.models import Gaussian, ProductOfT, RoughWell, SparseCoding
     from mjhmc_tpu_torch.ops import _build
+    from mjhmc_tpu_torch.ops import ceilings as ce
     from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
 
     name, limit = gpu_name_and_power_limit()
@@ -434,6 +677,28 @@ def main() -> int:
               f"plain version run {p_ms:.6g}, stream {ps_ms:.6g} ms/iteration; CLI kernels "
               f"~{kern_s:.4g} s of {mm_cli_s[cname]:.4g} s host clock [{card}]")
 
+    # ---- 8-12. ceiling probes, NUTS and the stub vs their plain versions --
+    fma_err, fma_plain_ms, tc_err, tc_plain_ms = ceiling_checks(ce)
+    nuts_run_err, nuts_stream_err = nuts_checks(cm)
+    nuts_ms = nuts_timing_and_stats(cm, card)
+    stub_err, stub_plain_ms = stub_checks(cm)
+
+    # ---- 13. the NUTS CLI path (launches counted here only) -------------
+    nuts_counters = {"nuts_run": cm.cuda_mjhmc_run, "nuts_stream": cm.cuda_mjhmc_stream_run}
+    rec, nuts_launches, nuts_cli_s = run_cli(
+        cli, ["sample", "--config", "gauss2d", "--engine", "cuda", "--sampler", "nuts",
+              "--nbatch", "10240"], nuts_counters, attr="nuts_launches")
+    check(nuts_launches["nuts_run"] > 0 and nuts_launches["nuts_stream"] > 0,
+          f"NUTS kernels not launched: {nuts_launches}")
+    check(all(abs(v / t - 1) < 0.05 for v, t in zip(rec["var"], (1.0, 100.0)))
+          and rec["chains"] == 10_240 and rec["sampler"] == "nuts",
+          f"NUTS CLI record {rec}: var outside 5% of [1, 100]")
+    phase("13 cli nuts", f"{json.dumps(rec)}; launches {nuts_launches}; {nuts_cli_s:.4g} s "
+          f"host clock [{card}]")
+
+    # ---- 14. the roofline dossier (main path of the ceiling probes) -------
+    dossier = run_dossier(cm, ce, card)
+
     def mm_entry(kname, src, launches, idx_ms, idx_plain, err_idx):
         sc = mm_ms["sparse_coding"]
         return {"name": kname, "route": "cuda", "source": MM_KERNEL_SRC, "replaces": src,
@@ -451,6 +716,27 @@ def main() -> int:
          "max_abs_err": stream_err, "ms": stream_ms, "plain_ms": plain_stream_ms},
         mm_entry("mjhmc_mm_run", MM_RUN_SRC, mm_launches["mm_run"], 0, 2, 0),
         mm_entry("mjhmc_mm_stream", MM_STREAM_SRC, mm_launches["mm_stream"], 1, 3, 1),
+        {"name": "fma_chain", "route": "cuda", "source": CEIL_SRC, "replaces": FMA_SRC,
+         "launches": dossier["launches"]["fma_chain.launches"], "max_abs_err": fma_err,
+         "ms": dossier["fma_ms"], "plain_ms": fma_plain_ms,
+         "shape": "(256, 1024) x 4 chains, ms per iteration"},
+        {"name": "tc_chain", "route": "cuda", "source": CEIL_SRC, "replaces": TC_SRC,
+         "launches": dossier["launches"]["tc_chain.launches"], "max_abs_err": tc_err,
+         "ms": dossier["tc_ms"], "plain_ms": tc_plain_ms,
+         "shape": "depth 128 x 4 chains, ms per iteration"},
+        {"name": "nuts_run", "route": "cuda", "source": KERNEL_SRC, "replaces": RUN_SRC,
+         "variant": NUTS_VARIANT, "launches": nuts_launches["nuts_run"],
+         "max_abs_err": nuts_run_err, "ms": nuts_ms[0], "plain_ms": nuts_ms[2],
+         "shape": "gauss2d, 10,240 chains, max_depth 7, ms per iteration"},
+        {"name": "nuts_stream", "route": "cuda", "source": KERNEL_SRC, "replaces": STREAM_SRC,
+         "variant": NUTS_VARIANT, "launches": nuts_launches["nuts_stream"],
+         "max_abs_err": nuts_stream_err, "ms": nuts_ms[1], "plain_ms": nuts_ms[3],
+         "shape": "gauss2d, 10,240 chains, max_depth 7, thin 1, ms per iteration"},
+        {"name": "mjhmc_mm_run_stub", "route": "cuda", "source": MM_KERNEL_SRC,
+         "replaces": MM_RUN_SRC, "variant": STUB_VARIANT,
+         "launches": dossier["launches"]["cuda_mjhmc_mm_run.stub_launches"],
+         "max_abs_err": stub_err, "ms": dossier["stub_ms"], "plain_ms": stub_plain_ms,
+         "shape": "product_of_t, 4,096 chains, M 10, ms per iteration"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,16 @@
 
     python -m mjhmc_tpu_torch sample --config rough_well --engine cuda --steps 1000
     python -m mjhmc_tpu_torch sample --config sparse_coding --engine cuda
+    python -m mjhmc_tpu_torch sample --config gauss2d --engine cuda --sampler nuts
     python -m mjhmc_tpu_torch bench
 
-``sample`` runs MJHMC and prints the JSON record of ``mjhmc_tpu``'s
+``sample`` runs MJHMC (or, with ``--engine cuda --sampler nuts``, the fused
+NUTS engine at max_depth 8) and prints the JSON record of ``mjhmc_tpu``'s
 ``sample``; ``--engine cuda`` is the fused engine (its plain version when
 ``--device cpu``), ``--engine torch`` the plain sampler. The configs ported
 so far are gauss2d, gauss50d, rough_well, rough_well_a3 (elementwise
-kernel), product_of_t and sparse_coding (matmul kernel). The JAX package's
-other subcommands are not ported yet (ROADMAP.md, slice H).
+kernel), product_of_t and sparse_coding (matmul kernel; MJHMC only). The
+JAX package's other subcommands are not ported yet (ROADMAP.md, slice H).
 """
 
 from __future__ import annotations
@@ -35,17 +37,23 @@ def cmd_sample(args):
     evals = None
 
     if args.engine == "cuda":
-        from mjhmc_tpu_torch.ops.cuda_mjhmc import CudaMJHMC
+        from mjhmc_tpu_torch.ops.cuda_mjhmc import CudaMJHMC, CudaNUTS
 
-        eng = CudaMJHMC(
+        # the NUTS engine's num_leapfrog slot is max_depth, not M
+        nuts = args.sampler == "nuts"
+        eng = (CudaNUTS if nuts else CudaMJHMC)(
             dist, epsilon=cfg.epsilon, beta=cfg.beta,
-            num_leapfrog_steps=cfg.num_leapfrog_steps, nbatch=nbatch,
+            num_leapfrog_steps=8 if nuts else cfg.num_leapfrog_steps, nbatch=nbatch,
             seed=args.seed, device=device,
         )
         eng.run(args.burn)
         xs_t, ws_t = eng.sample(args.steps)
         grad_evals, evals = eng.grad_evals, eng.evals.cpu().numpy()
     else:
+        if args.sampler == "nuts":
+            raise SystemExit("--engine torch --sampler nuts needs the plain NUTS "
+                             "sampler, which is not ported yet (ROADMAP.md, slice D); "
+                             "use --engine cuda")
         from mjhmc_tpu_torch.samplers import MarkovJumpHMC
 
         s = MarkovJumpHMC(
@@ -96,7 +104,7 @@ def main(argv=None):
     sp.add_argument("--config", default="rough_well")
     sp.add_argument("--nbatch", type=int, default=None)
     sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--sampler", choices=["mjhmc"], default="mjhmc")
+    sp.add_argument("--sampler", choices=["mjhmc", "nuts"], default="mjhmc")
     sp.add_argument("--steps", type=int, default=1000)
     sp.add_argument("--burn", type=int, default=500)
     sp.add_argument("--save", default=None,

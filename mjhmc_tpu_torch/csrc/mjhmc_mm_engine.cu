@@ -92,24 +92,34 @@ struct Layout {
 
 // out[r][col] = Σ_k A[k][r]·B[k][col] for r < R, col < NC: A is [KD][R],
 // B is [KD][NC], both row-major in shared memory. Each task sums a 4×4
-// tile in registers and hands it to epi(r0, c0, acc).
-template <int KD, int R, int NC, int T, class Epi>
+// tile in registers and hands it to epi(r0, c0, acc). With STUB the sum is
+// replaced by 1e-3·B[0][col] on every row (MatmulEnergySpec._dot's
+// stub_dots ablation): the tiles, epilogues and barriers stay, the
+// multiply-adds go.
+template <int KD, int R, int NC, int T, bool STUB, class Epi>
 __device__ __forceinline__ void contract(const float* __restrict__ A,
                                          const float* __restrict__ B, Epi epi) {
   constexpr int CG = NC / 4, TASKS = (R / 4) * CG;
   for (int task = threadIdx.x; task < TASKS; task += T) {
     const int r0 = (task / CG) * 4, c0 = (task % CG) * 4;
     float acc[4][4] = {};
-#pragma unroll 4
-    for (int k = 0; k < KD; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(A + k * R + r0);
-      const float4 b = *reinterpret_cast<const float4*>(B + k * NC + c0);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    if constexpr (STUB) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = B[c0 + j] * 1e-3f;
+    } else {
+#pragma unroll 4
+      for (int k = 0; k < KD; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(A + k * R + r0);
+        const float4 b = *reinterpret_cast<const float4*>(B + k * NC + c0);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
     }
     epi(r0, c0, acc);
   }
@@ -129,7 +139,7 @@ __device__ __forceinline__ void kadd(float& s, float& c, float inc) {
   s = t;
 }
 
-template <int E, int D, int K, int C, int T, bool EMIT>
+template <int E, int D, int K, int C, int T, bool EMIT, bool STUB>
 __global__ void __launch_bounds__(T) mm_kernel(Args a) {
   using L = Layout<E, D, K, C>;
   constexpr int NC = L::NC;
@@ -235,7 +245,7 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
       __syncthreads();
       if constexpr (E == kProductOfT) {
         // y = Wᵀx; keep y (for the endpoint energy) and dU/dy
-        contract<D, K, NC, T>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
+        contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -247,7 +257,7 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
         });
         __syncthreads();
         // g = W·dU/dy, and the closing half kick
-        contract<K, D, NC, T>(A2, Z, [&](int r0, int c0, float (&acc)[4][4]) {
+        contract<K, D, NC, T, STUB>(A2, Z, [&](int r0, int c0, float (&acc)[4][4]) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -259,7 +269,7 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
         });
       } else {
         // r = patch − Φa
-        contract<D, K, NC, T>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
+        contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -268,7 +278,7 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
         });
         __syncthreads();
         // g = λ·a/√(a²+ε) − σ⁻²·Φᵀr, and the closing half kick
-        contract<K, D, NC, T>(A2, Y, [&](int r0, int c0, float (&acc)[4][4]) {
+        contract<K, D, NC, T, STUB>(A2, Y, [&](int r0, int c0, float (&acc)[4][4]) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -405,11 +415,10 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
   }
 }
 
-template <int E, int D, int K, int C, int T>
-cudaError_t launch(const Args& a, bool emit, cudaStream_t stream) {
+template <int E, int D, int K, int C, int T, bool EMIT, bool STUB = false>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t bytes = Layout<E, D, K, C>::kFloats * sizeof(float);
-  void (*kernel)(Args) = emit ? mm_kernel<E, D, K, C, T, true>
-                              : mm_kernel<E, D, K, C, T, false>;
+  void (*kernel)(Args) = mm_kernel<E, D, K, C, T, EMIT, STUB>;
   // above 48 KB a block's shared memory must be asked for
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -421,12 +430,13 @@ cudaError_t launch(const Args& a, bool emit, cudaStream_t stream) {
 }  // namespace mm
 }  // namespace mjhmc
 
-// Plain C entry for ctypes. xs/ws/es == NULL runs without emissions.
-// Instances: product of t (d, k) = (36, 36) and sparse coding (d, p) =
-// (128, 64), the presets' shapes. Returns cudaGetLastError() after the
-// launch (0 on success).
+// Plain C entry for ctypes. xs/ws/es == NULL runs without emissions; stub
+// != 0 runs the stub_dots ablation. Instances: product of t (d, k) =
+// (36, 36) and sparse coding (d, p) = (128, 64), the presets' shapes, and
+// the stubbed product-of-t run (the roofline dossier's ablation row).
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mjhmc_mm_engine_launch(
-    int energy, int ndims, int krows, const float* p0, const float* p1,
+    int energy, int ndims, int krows, int stub, const float* p0, const float* p1,
     float k0, float k1, float k2, float k3, const float* x, const float* v,
     const float* g, const float* u, const float* h_back, const float* valid,
     float* xo, float* vo, float* go, float* uo, float* hbo, float* valido,
@@ -440,9 +450,15 @@ extern "C" int mjhmc_mm_engine_launch(
          n, num_iters, thin, m, fixed_uniform, seed, eps, beta};
   const bool emit = xs != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (energy == kProductOfT && ndims == 36 && krows == 36)
-    return launch<kProductOfT, 36, 36, 16, 96>(a, emit, s);
-  if (energy == kSparseCoding && ndims == 128 && krows == 64 && p1 != nullptr)
-    return launch<kSparseCoding, 128, 64, 16, 256>(a, emit, s);
+  if (energy == kProductOfT && ndims == 36 && krows == 36) {
+    if (stub)
+      return emit ? cudaErrorInvalidValue
+                  : launch<kProductOfT, 36, 36, 16, 96, false, true>(a, s);
+    return emit ? launch<kProductOfT, 36, 36, 16, 96, true>(a, s)
+                : launch<kProductOfT, 36, 36, 16, 96, false>(a, s);
+  }
+  if (energy == kSparseCoding && ndims == 128 && krows == 64 && p1 != nullptr && !stub)
+    return emit ? launch<kSparseCoding, 128, 64, 16, 256, true>(a, s)
+                : launch<kSparseCoding, 128, 64, 16, 256, false>(a, s);
   return cudaErrorInvalidValue;
 }

@@ -3,8 +3,18 @@
 // plain PyTorch version (mjhmc_tpu_torch/ops/cuda_mjhmc.py::philox4x32)
 // produce the same words bit for bit.
 //
-// The engine keys it with the run seed and counts (chain, iteration,
-// block, 0); one block gives four 32-bit words.
+// The engines key it with the run seed and count (chain, iteration, slot,
+// tag); one counter gives four 32-bit words. The tag word keeps the
+// samplers' draws apart, and each draw is keyed by its position in the
+// iteration, never by how many draws a chain has made, so a vectorised
+// plain version reproduces every word:
+// - tag 0, MJHMC: slot b holds words 4b..4b+3 of the iteration's 1 + 2d;
+// - tag 1, NUTS momentum: slot b holds words 4b..4b+3 of 2d (dim i's
+//   Box-Muller normal takes words i and d+i);
+// - tag 2, NUTS round: slot jj (the doubling round), word 0 picks the
+//   direction, word 1 the merge;
+// - tag 3, NUTS leaf: the leaf at tree position k = 2^jj - 1 + i (leaf i
+//   of round jj) takes word k % 4 of slot k / 4.
 #pragma once
 
 #include <stdint.h>
@@ -15,6 +25,13 @@ constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
 constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
 constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
 constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+
+enum PhiloxTag : uint32_t {
+  kTagMjhmc = 0,
+  kTagNutsMomentum = 1,
+  kTagNutsRound = 2,
+  kTagNutsLeaf = 3,
+};
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
 #pragma unroll
@@ -32,16 +49,19 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
   return ctr;
 }
 
-// Word k of a (chain, iteration) draw: output k % 4 of block k / 4.
-__device__ __forceinline__ uint32_t philox_word(uint32_t chain, uint32_t t,
-                                                uint32_t k, uint2 key) {
-  const uint4 r = philox4x32_10(make_uint4(chain, t, k >> 2, 0u), key);
-  switch (k & 3u) {
+__device__ __forceinline__ uint32_t word_of(uint4 r, uint32_t j) {
+  switch (j & 3u) {
     case 0: return r.x;
     case 1: return r.y;
     case 2: return r.z;
     default: return r.w;
   }
+}
+
+// Word k of a (chain, iteration) MJHMC draw: output k % 4 of block k / 4.
+__device__ __forceinline__ uint32_t philox_word(uint32_t chain, uint32_t t,
+                                                uint32_t k, uint2 key) {
+  return word_of(philox4x32_10(make_uint4(chain, t, k >> 2, kTagMjhmc), key), k);
 }
 
 // U(0,1) from one word, built as the TPU kernel's _uniform builds it: the

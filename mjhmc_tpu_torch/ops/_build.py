@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: the compiled units, one object each
-KERNEL_SOURCES = ("mjhmc_engine.cu", "mjhmc_mm_engine.cu")
+KERNEL_SOURCES = ("mjhmc_engine.cu", "mjhmc_mm_engine.cu", "ceilings.cu")
 SOURCES = KERNEL_SOURCES + ("philox.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mjhmc_tpu_torch"
 # no --use_fast_math: the rough well's sin/cos arguments reach ~100 rad, and
@@ -40,12 +40,18 @@ _STATE_AND_RUN = (
     + [ctypes.c_uint, _F, _F, _I, _P]  # seed, eps, beta, fixed_uniform, stream
 )
 #: argument types of ``mjhmc_engine_launch`` (csrc/mjhmc_engine.cu)
-LAUNCH_ARGTYPES = [_I, _I, _P] + [_F] * 5 + _STATE_AND_RUN  # ndims, energy, params, k0..k4
-#: argument types of ``mjhmc_mm_engine_launch`` (csrc/mjhmc_mm_engine.cu)
-MM_LAUNCH_ARGTYPES = (
-    [_I, _I, _I, _P, _P] + [_F] * 4  # energy, ndims, krows, p0, p1, k0..k3
+LAUNCH_ARGTYPES = (
+    [_I, _I, _I, _P] + [_F] * 5  # variant, ndims, energy, params, k0..k4
     + _STATE_AND_RUN
 )
+#: argument types of ``mjhmc_mm_engine_launch`` (csrc/mjhmc_mm_engine.cu)
+MM_LAUNCH_ARGTYPES = (
+    [_I, _I, _I, _I, _P, _P] + [_F] * 4  # energy, ndims, krows, stub, p0, p1, k0..k3
+    + _STATE_AND_RUN
+)
+#: argument types of the ceiling probes (csrc/ceilings.cu)
+FMA_CHAIN_ARGTYPES = [_P, _P, _P, _I, ctypes.c_longlong, _I, _P]  # a, b, out, n, iters, sin, stream
+TC_CHAIN_ARGTYPES = [_P, _P, _P, _I, _I, _I, _F, _P]  # w, b, out, depth, lanes, iters, c, stream
 
 
 def _nvcc() -> str:
@@ -107,7 +113,10 @@ def load() -> ctypes.CDLL:
     """Build (first use) and load the library; typed launch functions."""
     lib = ctypes.CDLL(str(build()))
     for fn, argtypes in ((lib.mjhmc_engine_launch, LAUNCH_ARGTYPES),
-                         (lib.mjhmc_mm_engine_launch, MM_LAUNCH_ARGTYPES)):
+                         (lib.mjhmc_mm_engine_launch, MM_LAUNCH_ARGTYPES),
+                         (lib.fma_chain_launch, FMA_CHAIN_ARGTYPES),
+                         (lib.tc_chain_launch, TC_CHAIN_ARGTYPES),
+                         (lib.tc_chain_lanes, [_I])):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

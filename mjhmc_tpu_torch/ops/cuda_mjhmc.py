@@ -19,12 +19,24 @@ wrappers ``cuda_mjhmc_run`` / ``cuda_mjhmc_stream_run`` (elementwise) and
 ``cuda_mjhmc_mm_run`` / ``cuda_mjhmc_mm_stream_run`` (matmul) launch their
 kernel for CUDA tensors and call the plain version for CPU tensors.
 
+The elementwise kernel also runs the NUTS step body (``variant="nuts"``
+of ``cuda_mjhmc_run`` / ``cuda_mjhmc_stream_run``, counterpart of
+``_make_step_nuts``; plain version ``nuts_run_reference`` /
+``nuts_stream_reference``, engine ``CudaNUTS``): per chain a fresh
+momentum, up to max_depth doubling rounds with progressive multinomial
+sampling and the binary-counter U-turn stack, the post-transition x
+emitted with weight 1 and the integrated leaves counted as evals.
+
 Random numbers come from Philox4x32-10 keyed by the run seed with counter
-(chain, iteration, block, 0): 1 + 2·d words per iteration (word 0 picks the
-clock, words 1+i and 1+d+i make dim i's Box-Muller normal). The plain
-version computes the same words bit for bit. ``fixed_uniform=True`` makes
-every uniform 2⁻²⁵ in both, which is what the TPU kernel gives in Pallas
-interpret mode, so the CPU tests can hold this engine against it.
+(chain, iteration, slot, tag). MJHMC (tag 0): 1 + 2·d words per iteration
+in slots of four (word 0 picks the clock, words 1+i and 1+d+i make dim i's
+Box-Muller normal). NUTS keys every draw by its position in the tree: tag 1
+holds the momentum's 2·d words (dim i from words i and d+i), tag 2 slot jj
+the round's direction (word 0) and merge (word 1) uniforms, tag 3 the leaf
+uniform of tree position k = 2^jj − 1 + i as word k % 4 of slot k // 4. The
+plain versions compute the same words bit for bit. ``fixed_uniform=True``
+makes every uniform 2⁻²⁵ in both, which is what the TPU kernel gives in
+Pallas interpret mode, so the CPU tests can hold this engine against it.
 
 Public layout is the JAX one without the TPU's (d, 8, L) fold: states
 (d, nbatch), per-chain scalars (nbatch,), any nbatch.
@@ -58,11 +70,28 @@ FIXED_UNIFORM = 2.0**-25
 #: state dimensions the elementwise kernel is instantiated for
 #: (csrc/mjhmc_engine.cu)
 KERNEL_DIMS = (2, 50)
+#: deepest tree the NUTS kernel holds a U-turn stack for (csrc/mjhmc_engine.cu)
+NUTS_MAX_DEPTH = 10
+NUTS_DIV_THRESHOLD = 1000.0
+#: Philox counter tags (csrc/philox.cuh)
+TAG_NUTS_MOMENTUM, TAG_NUTS_ROUND, TAG_NUTS_LEAF = 1, 2, 3
+#: the elementwise kernel's variants (csrc/mjhmc_engine.cu)
+KERNEL_VARIANTS = {"mjhmc": 0, "nuts": 1}
 
 
 # --------------------------------------------------------------------------
 # energy specs: an energy id for the kernel, scalar constants, per-dim params
 # --------------------------------------------------------------------------
+def _sum_dims_in_order(t: Tensor) -> Tensor:
+    """Σ over dim −2 row after row, the elementwise kernels' order. Torch's
+    reduction rounds in another order from three rows on, and a last-ulp
+    difference in an energy or a U-turn dot product changes a NUTS tree."""
+    s = t[..., 0, :]
+    for i in range(1, t.shape[-2]):
+        s = s + t[..., i, :]
+    return s
+
+
 @dataclasses.dataclass(frozen=True)
 class RoughWellSpec:
     scale1: float
@@ -84,10 +113,10 @@ class RoughWellSpec:
         )
 
     def u_sum(self, x, params):
-        return (
+        return _sum_dims_in_order(
             x * x * (0.5 / self.scale1**2)
             + self.amplitude * torch.cos(x * (1.0 / self.scale2))
-        ).sum(dim=-2)
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,18 +134,30 @@ class GaussianSpec:
         return x * params
 
     def u_sum(self, x, params):
-        return 0.5 * (x * x * params).sum(dim=-2)
+        return 0.5 * _sum_dims_in_order(x * x * params)
 
 
 # matmul energies: the state is (..., d, n) and the parameters are whole
 # matrices. On the GPU the forward and backward trajectories are simply
 # more columns of the same product, so the TPU's block-diagonal pair
 # operands, sublane pads and dot-precision knob have no counterpart here.
+def _contract(stub: bool, m: Tensor, b: Tensor) -> Tensor:
+    """m @ b; with ``stub`` (the ``stub_dots`` ablation of
+    ``MatmulEnergySpec._dot``) 1e-3·(row 0 of b) on each of m's rows, for
+    each trajectory on its own (JAX's ``has_pair=False`` form)."""
+    if not stub:
+        return torch.matmul(m, b)
+    row = b[..., :1, :] * torch.tensor(1e-3, dtype=b.dtype, device=b.device)
+    return row.expand(*b.shape[:-2], m.shape[-2], b.shape[-1])
+
+
 @dataclasses.dataclass(frozen=True)
 class ProductOfTSpec:
     """y = Wᵀx, g = W·(ν+1)y/(ν+y²), U = ½(ν+1)·Σ log1p(y²/ν)."""
 
     dist: ProductOfT
+    #: ablation: stub both contractions (the dossier's non-matmul floor)
+    stub_dots: bool = False
     energy_id: ClassVar[int] = 0
 
     def param_arrays(self) -> list:
@@ -132,12 +173,12 @@ class ProductOfTSpec:
 
     def du(self, x, w):
         nu = self.dist.nu
-        y = torch.matmul(w.T, x)
-        return torch.matmul(w, (nu + 1.0) * y / (nu + y * y))
+        y = _contract(self.stub_dots, w.T, x)
+        return _contract(self.stub_dots, w, (nu + 1.0) * y / (nu + y * y))
 
     def u_sum(self, x, w):
         nu = self.dist.nu
-        y = torch.matmul(w.T, x)
+        y = _contract(self.stub_dots, w.T, x)
         return 0.5 * (nu + 1.0) * torch.log1p(y * y * (1.0 / nu)).sum(dim=-2)
 
 
@@ -146,6 +187,8 @@ class SparseCodingSpec:
     """r = patch − Φa, g = λa/√(a²+ε) − σ⁻²Φᵀr, U = λΣ√(a²+ε) + ½σ⁻²‖r‖²."""
 
     dist: SparseCoding
+    #: ablation: stub both contractions
+    stub_dots: bool = False
     energy_id: ClassVar[int] = 1
 
     def param_arrays(self) -> list:
@@ -161,13 +204,13 @@ class SparseCodingSpec:
         return (d.lam, 1.0 / d.sigma**2, 0.5 / d.sigma**2, d.smooth_eps)
 
     def _resid(self, a, phi, patch):
-        return patch[:, None] - torch.matmul(phi, a)
+        return patch[:, None] - _contract(self.stub_dots, phi, a)
 
     def du(self, a, phi, patch):
         d = self.dist
         s = torch.sqrt(a * a + d.smooth_eps)
         r = self._resid(a, phi, patch)
-        return d.lam * (a / s) - (1.0 / d.sigma**2) * torch.matmul(phi.T, r)
+        return d.lam * (a / s) - (1.0 / d.sigma**2) * _contract(self.stub_dots, phi.T, r)
 
     def u_sum(self, a, phi, patch):
         d = self.dist
@@ -207,10 +250,10 @@ def energy_spec_for(dist):
 def _check_slice(spec, variant, integrator, inv_mass, kinds):
     """Refuse what the kernels do not cover; ``kinds`` are the spec types
     of the calling wrapper's kernel."""
-    if variant != "mjhmc":
+    if variant not in ("mjhmc", "nuts"):
         raise NotImplementedError(
             f"engine variant {variant!r} is not ported yet "
-            "(ROADMAP.md, 'TPU kernels to port', items 3, 6 and 7)"
+            "(ROADMAP.md, 'TPU kernels to port', items 3 and 6)"
         )
     if integrator != "leapfrog" or inv_mass is not None:
         raise NotImplementedError(
@@ -226,6 +269,12 @@ def _check_slice(spec, variant, integrator, inv_mass, kinds):
             f"{type(spec).__name__} belongs to the other kernel: elementwise "
             "specs take cuda_mjhmc_run/_stream_run, matmul specs "
             "cuda_mjhmc_mm_run/_stream_run"
+        )
+    if variant == "nuts" and isinstance(spec, MATMUL_SPECS):
+        raise NotImplementedError(
+            "the NUTS variant is ported for the elementwise kernel only; NUTS "
+            "on the matmul kernel is queued (ROADMAP.md, 'TPU kernels to "
+            "port', item 7)"
         )
 
 
@@ -262,6 +311,18 @@ def philox4x32(counter, key) -> tuple:
     return c0, c1, c2, c3
 
 
+def _uniform_of(words: Tensor) -> Tensor:
+    """f32 uniforms in (0, 1) from 32-bit words: top 24 bits × 2⁻²⁴ + 2⁻²⁵."""
+    return (words >> 8).to(torch.float32) * 2.0**-24 + 2.0**-25
+
+
+def philox_block(seed: int, nbatch: int, t: int, slot: int, tag: int, device) -> tuple:
+    """The four words (int64 tensors of shape (nbatch,)) of counter
+    (chain, t, slot, tag) for every chain."""
+    chains = torch.arange(nbatch, dtype=torch.int64, device=device)
+    return philox4x32((chains, t, slot, tag), (int(seed) & _MASK32, 0))
+
+
 def philox_uniforms(seed: int, iterations: range, nbatch: int, nwords: int,
                     device) -> Tensor:
     """(len(iterations), nwords, nbatch) float32 uniforms in (0, 1), built as
@@ -277,7 +338,7 @@ def philox_uniforms(seed: int, iterations: range, nbatch: int, nwords: int,
     )
     words = philox4x32(counter, (int(seed) & _MASK32, 0))  # each (T, nblocks, n)
     words = torch.stack(words, dim=2).reshape(len(iterations), 4 * nblocks, nbatch)
-    return (words[:, :nwords] >> 8).to(torch.float32) * 2.0**-24 + 2.0**-25
+    return _uniform_of(words[:, :nwords])
 
 
 # --------------------------------------------------------------------------
@@ -425,11 +486,160 @@ def mjhmc_stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
                       num_emits * thin, num_leapfrog, thin, True, fixed_uniform)
 
 
+def _logaddexp(a: Tensor, b: Tensor) -> Tensor:
+    """jnp.logaddexp: max + log1p(exp(−|Δ|)), or a + b where Δ is NaN."""
+    d = a - b
+    return torch.where(torch.isnan(d), a + b,
+                       torch.maximum(a, b) + torch.log1p(torch.exp(-d.abs())))
+
+
+def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, max_depth,
+                    num_iters, thin, emit, fixed_uniform):
+    """The NUTS step body of ``_make_step_nuts``, vectorised over chains
+    with masks as the JAX body is: a round or a leaf runs while any chain
+    is live in it, and a chain that is done or stopped keeps its state.
+    Sums over dims run in the kernel's order, so its roundings are the
+    kernel's at any D."""
+    d, n = x.shape
+    dev = x.device
+    params = _param_tensors(spec, d, dev)
+    he = 0.5 * epsilon
+
+    def halfsq(v):
+        return 0.5 * _sum_dims_in_order(v * v)
+
+    def cdot(a, b):
+        return _sum_dims_in_order(a * b)
+
+    def unif(word):
+        return torch.full((n,), FIXED_UNIFORM, device=dev) if fixed_uniform else _uniform_of(word)
+
+    def draw(t, slot, tag):
+        if fixed_uniform:
+            return (None,) * 4
+        return philox_block(seed, n, t, slot, tag, dev)
+
+    w = wc = torch.zeros_like(u)
+    wx = wxc = wx2 = wx2c = torch.zeros_like(x)
+    evals = torch.zeros(n, dtype=torch.int32, device=dev)
+    emits = []
+    v0 = v
+    for t in range(num_iters):
+        if fixed_uniform:
+            un = torch.full((2 * d, n), FIXED_UNIFORM, device=dev)
+        else:
+            words = [wd for b in range((2 * d + 3) // 4)
+                     for wd in draw(t, b, TAG_NUTS_MOMENTUM)]
+            un = _uniform_of(torch.stack(words[: 2 * d]))
+        v0 = torch.sqrt(-2.0 * torch.log(un[:d])) * torch.cos((2.0 * math.pi) * un[d:])
+        h0 = u + halfsq(v0)
+
+        xm = xp = x
+        vm = vp = v0
+        gm = gp = g
+        log_w_tree = torch.zeros_like(u)
+        done = torch.zeros(n, dtype=torch.bool, device=dev)
+        nl = torch.zeros(n, dtype=torch.int32, device=dev)
+        for jj in range(max_depth):
+            if not bool((~done).any()):
+                break
+            rr = draw(t, jj, TAG_NUTS_ROUND)
+            right = unif(rr[0]) < 0.5
+            # integration frame: outward from the chosen endpoint
+            xc = torch.where(right, xp, xm)
+            vc = torch.where(right, vp, -vm)
+            gc = torch.where(right, gp, gm)
+            xs, us, gs = xc, torch.zeros_like(u), gc
+            log_w_sub = torch.full_like(u, NEG_INF)
+            stop = torch.zeros_like(done)
+            sx, sv = [None] * jj, [None] * jj
+            for i in range(1 << jj):
+                act = ~done & ~stop
+                if not bool(act.any()):
+                    break
+                vh = vc - he * gc
+                xn = xc + epsilon * vh
+                gn = spec.du(xn, *params)
+                vn = vh - he * gn
+                ul = spec.u_sum(xn, *params)
+                xc, vc, gc = (torch.where(act, a, b) for a, b in ((xn, xc), (vn, vc), (gn, gc)))
+                nl = nl + act.to(torch.int32)
+                h = ul + halfsq(vc)
+                dh = h - h0
+                div = act & ((h.abs() >= 1e30) | (h != h) | (dh > NUTS_DIV_THRESHOLD))
+
+                # progressive multinomial sampling inside the subtree
+                lw_leaf = torch.where(act & ~div, -dh, NEG_INF)
+                lw_new = _logaddexp(log_w_sub, lw_leaf)
+                k = (1 << jj) - 1 + i
+                if i == 0 or k % 4 == 0:
+                    bits = draw(t, k // 4, TAG_NUTS_LEAF)
+                lu = torch.log(unif(bits[k % 4]))
+                take = act & ~div & (lu < lw_leaf - lw_new)
+                xs, us, gs = (torch.where(take, a, b) for a, b in ((xc, xs), (ul, us), (gc, gs)))
+                log_w_sub = torch.where(act, lw_new, log_w_sub)
+
+                # binary-counter U-turn stack (rows above jj never complete
+                # a span inside this round)
+                turning = torch.zeros_like(done)
+                for mm in range(1, jj + 1):
+                    mask = (1 << mm) - 1
+                    if i & mask == 0:
+                        sx[mm - 1], sv[mm - 1] = xc, vc
+                    if (i + 1) & mask == 0:
+                        dx = xc - sx[mm - 1]
+                        turning = turning | (cdot(dx, sv[mm - 1]) < 0) | (cdot(dx, vc) < 0)
+                stop = stop | div | (act & turning)
+
+            ok = ~done & ~stop
+            merge = ok & (torch.log(unif(rr[1])) < log_w_sub - log_w_tree)
+            x, u, g = (torch.where(merge, a, b) for a, b in ((xs, x), (us, u), (gs, g)))
+            log_w_tree = torch.where(ok, _logaddexp(log_w_tree, log_w_sub), log_w_tree)
+            # extend the tree (back to the trajectory frame), then the
+            # U-turn test between its endpoints
+            rt, lt = ok & right, ok & ~right
+            xp, vp, gp = (torch.where(rt, a, b) for a, b in ((xc, xp), (vc, vp), (gc, gp)))
+            xm, vm, gm = (torch.where(lt, a, b) for a, b in ((xc, xm), (-vc, vm), (gc, gm)))
+            dx = xp - xm
+            done = done | stop | (ok & ((cdot(dx, vm) < 0) | (cdot(dx, vp) < 0)))
+
+        # the post-transition x, weight 1
+        evals = evals + nl
+        w, wc = _kadd(w, wc, torch.ones_like(u))
+        wx, wxc = _kadd(wx, wxc, x)
+        wx2, wx2c = _kadd(wx2, wx2c, x * x)
+        if emit and (t + 1) % thin == 0:
+            emits.append((x, torch.ones_like(u), evals))
+    out = RunOut(x, v0, g, u, h_back, back_valid, w, wx, wx2, evals)
+    if not emit:
+        return out
+    if not emits:
+        return x.new_empty((0, d, n)), u.new_empty((0, n)), evals.new_empty((0, n)), out
+    xs, ws, es = (torch.stack(c) for c in zip(*emits))
+    return xs, ws, es, out
+
+
+def nuts_run_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                       num_steps, max_depth, fixed_uniform=False):
+    """Plain PyTorch version of the NUTS run kernel (``beta`` unused, the
+    ``num_leapfrog`` slot is max_depth; any device)."""
+    return _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
+                           max_depth, num_steps, 1, False, fixed_uniform)
+
+
+def nuts_stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                          num_emits, thin, max_depth, fixed_uniform=False):
+    """Plain PyTorch version of the NUTS stream kernel: (xs (E, d, n) of
+    post-transition x, ws (E, n) ones, es (E, n) int32, RunOut)."""
+    return _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
+                           max_depth, num_emits * thin, thin, True, fixed_uniform)
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-            num_iters, m, thin, num_emits, fixed_uniform):
+            num_iters, m, thin, num_emits, fixed_uniform, variant):
     """Check the state, allocate the outputs and launch the spec's kernel."""
     from mjhmc_tpu_torch.ops import _build
 
@@ -460,6 +670,15 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         raise ValueError(f"need nbatch > 0, thin >= 1, steps >= 0 (got {n}, {thin}, {num_iters})")
     if matmul and m < 1:  # the endpoint energies reuse the last step's product
         raise ValueError(f"the matmul kernel needs leapfrog steps >= 1, got {m}")
+    if variant == "nuts" and not 1 <= m <= NUTS_MAX_DEPTH:
+        raise NotImplementedError(
+            f"the NUTS kernel holds trees of max_depth 1..{NUTS_MAX_DEPTH}, not {m}")
+    if getattr(spec, "stub_dots", False) and (num_emits is not None
+                                              or not isinstance(spec, ProductOfTSpec)):
+        raise NotImplementedError(
+            "the stub_dots kernel is instantiated for the product-of-t run only, "
+            "the roofline dossier's ablation row (its plain version takes any spec)"
+        )
     for name, t, shape in (
         ("x", x, (d, n)), ("v", v, (d, n)), ("g", g, (d, n)), ("u", u, (n,)),
         ("h_back", h_back, (n,)), ("back_valid", back_valid, (n,)),
@@ -494,18 +713,28 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         params = [t.contiguous() for t in _param_tensors(spec, d, x.device)]
         p0, p1 = (params + [None])[:2]
         rc = lib.mjhmc_mm_engine_launch(
-            spec.energy_id, d, spec.aux_rows(), p0.data_ptr(),
+            spec.energy_id, d, spec.aux_rows(), int(spec.stub_dots), p0.data_ptr(),
             None if p1 is None else p1.data_ptr(), *spec.constants(), *ptrs, *tail,
         )
     else:
         params = torch.as_tensor(spec.param_vector(d), device=x.device).contiguous()
-        rc = lib.mjhmc_engine_launch(
-            d, spec.energy_id, params.data_ptr(), *spec.constants(), *ptrs, *tail,
-        )
+        rc = lib.mjhmc_engine_launch(KERNEL_VARIANTS[variant], d, spec.energy_id,
+                                     params.data_ptr(), *spec.constants(), *ptrs, *tail)
     if rc != 0:
         kernel = "mjhmc_mm_engine_launch" if matmul else "mjhmc_engine_launch"
-        raise RuntimeError(f"{kernel} failed: CUDA error {rc}")
+        raise RuntimeError(f"{kernel} (variant {variant}) failed: CUDA error {rc}")
     return out, emits
+
+
+def _count(wrapper, spec, variant) -> None:
+    """One launch of the wrapper's kernel: the NUTS kernel counts in
+    ``nuts_launches``, the stubbed matmul kernel in ``stub_launches``."""
+    if variant == "nuts":
+        wrapper.nuts_launches += 1
+    elif getattr(spec, "stub_dots", False):
+        wrapper.stub_launches += 1
+    else:
+        wrapper.launches += 1
 
 
 def _run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed, epsilon,
@@ -513,12 +742,12 @@ def _run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed, epsilon,
          fixed_uniform) -> RunOut:
     _check_slice(spec, variant, integrator, inv_mass, kinds)
     if x.device.type == "cpu":
-        return mjhmc_run_reference(spec, x, v, g, u, h_back, back_valid, seed,
-                                   epsilon, beta, num_steps, num_leapfrog,
-                                   fixed_uniform)
+        ref = nuts_run_reference if variant == "nuts" else mjhmc_run_reference
+        return ref(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                   num_steps, num_leapfrog, fixed_uniform)
     out, _ = _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-                     num_steps, num_leapfrog, 1, None, fixed_uniform)
-    wrapper.launches += 1
+                     num_steps, num_leapfrog, 1, None, fixed_uniform, variant)
+    _count(wrapper, spec, variant)
     return out
 
 
@@ -527,13 +756,13 @@ def _stream_run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed,
                 integrator, fixed_uniform):
     _check_slice(spec, variant, integrator, inv_mass, kinds)
     if x.device.type == "cpu":
-        return mjhmc_stream_reference(spec, x, v, g, u, h_back, back_valid, seed,
-                                      epsilon, beta, num_emits, thin,
-                                      num_leapfrog, fixed_uniform)
+        ref = nuts_stream_reference if variant == "nuts" else mjhmc_stream_reference
+        return ref(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                   num_emits, thin, num_leapfrog, fixed_uniform)
     out, (xs, ws, es) = _launch(spec, x, v, g, u, h_back, back_valid, seed,
                                 epsilon, beta, num_emits * thin, num_leapfrog,
-                                thin, num_emits, fixed_uniform)
-    wrapper.launches += 1
+                                thin, num_emits, fixed_uniform, variant)
+    _count(wrapper, spec, variant)
     return xs, ws, es, out
 
 
@@ -542,13 +771,17 @@ def cuda_mjhmc_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                    integrator="leapfrog", fixed_uniform=False) -> RunOut:
     """Engine run for the elementwise energies (counterpart of
     ``pallas_mjhmc_run``): ``num_steps`` jump iterations in one launch. CUDA
-    tensors launch the kernel; CPU tensors take the plain version."""
+    tensors launch the kernel; CPU tensors take the plain version.
+    ``variant="nuts"`` runs ``num_steps`` NUTS iterations (the NUTS kernel,
+    or ``nuts_run_reference`` for CPU tensors): ``beta`` is unused and the
+    ``num_leapfrog`` slot is max_depth."""
     return _run(cuda_mjhmc_run, ELEMENTWISE_SPECS, spec, x, v, g, u, h_back,
                 back_valid, seed, epsilon, beta, num_steps, num_leapfrog,
                 inv_mass, variant, integrator, fixed_uniform)
 
 
 cuda_mjhmc_run.launches = 0
+cuda_mjhmc_run.nuts_launches = 0
 
 
 def cuda_mjhmc_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
@@ -557,7 +790,9 @@ def cuda_mjhmc_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
                           fixed_uniform=False):
     """Streaming engine run for the elementwise energies (counterpart of
     ``pallas_mjhmc_stream_run``): returns (xs (E, d, n), ws (E, n), es (E, n)
-    int32, RunOut)."""
+    int32, RunOut). With ``variant="nuts"`` the emissions are every
+    ``thin``-th iteration's post-transition x, weight 1 and cumulative leaf
+    count."""
     return _stream_run(cuda_mjhmc_stream_run, ELEMENTWISE_SPECS, spec, x, v, g,
                        u, h_back, back_valid, seed, epsilon, beta, num_emits,
                        thin, num_leapfrog, inv_mass, variant, integrator,
@@ -565,6 +800,7 @@ def cuda_mjhmc_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
 
 
 cuda_mjhmc_stream_run.launches = 0
+cuda_mjhmc_stream_run.nuts_launches = 0
 
 
 def cuda_mjhmc_mm_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
@@ -578,6 +814,7 @@ def cuda_mjhmc_mm_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
 
 
 cuda_mjhmc_mm_run.launches = 0
+cuda_mjhmc_mm_run.stub_launches = 0
 
 
 def cuda_mjhmc_mm_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
@@ -705,3 +942,16 @@ class CudaMJHMC:
         mean = out.wx.sum(dim=1) / w
         var = out.wx2.sum(dim=1) / w - mean * mean
         return mean, var
+
+
+@dataclasses.dataclass
+class CudaNUTS(CudaMJHMC):
+    """Fused NUTS engine (counterpart of ``PallasNUTS``) for the elementwise
+    energies: ``num_leapfrog_steps`` is max_depth (default 8, at most
+    ``NUTS_MAX_DEPTH``), ``beta`` is unused. Emissions are post-transition
+    positions with weight 1; ``evals`` counts the integrated leaves of each
+    chain exactly. ``from_warmup`` waits for the adaptation of slice D."""
+
+    beta: float = 0.0  # unused scalar slot
+    num_leapfrog_steps: int = 8  # max_depth
+    variant: str = "nuts"
