@@ -33,8 +33,8 @@ RUN_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1451"
 STREAM_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1494"
 MM_RUN_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1265"
 MM_STREAM_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1596"
-KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_engine.cu"
-MM_KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_mm_engine.cu"
+KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_engine.cuh"
+MM_KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_mm_engine.cuh"
 # matmul presets: iterations after which single chains are held at rtol 1e-4.
 # Product of t's preset ε=0.2 makes the leapfrog unstable along W's stiffest
 # direction near y = 0, so last-ulp differences of two f32 summation orders
@@ -51,6 +51,23 @@ CLI_NUTS_DEPTH = 8  # max_depth of `sample --sampler nuts` (at the config's eps)
 #: the dossier's --steps here (its default is 20,000): the engine rows time
 #: 2,000 and 10,000 jump iterations
 DOSSIER_STEPS = 2000
+CONTROL_VARIANT = "control (_make_step_control, mjhmc_tpu/ops/pallas_mjhmc.py:863)"
+MALT_VARIANT = "malt (_make_step_malt, mjhmc_tpu/ops/pallas_mjhmc.py:938)"
+TWO_STAGE_BRANCH = "two_stage (_two_stage_half, mjhmc_tpu/ops/pallas_mjhmc.py:745)"
+MASS_BRANCH = "inv_mass (_make_step, mjhmc_tpu/ops/pallas_mjhmc.py:738, :793, :848)"
+
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its operations over the FP32 peak and its bytes (each input read
+# once, each output written once) over the memory rate, H100 SXM data sheet
+# (the bf16 tensor-core peak for tc_chain). Operations are counted per chain
+# from the shapes and this run's counters: each multiply, add or fused
+# multiply-add step of the algorithm as written (an FMA as two), each
+# transcendental as one, and a Philox4x32-10 block (four words) as 100
+# integer operations at the same rate. It is a floor, not a model of the
+# kernels' instruction mix.
+FP32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
+PHILOX_OPS = 100
+NORMAL_OPS = 6 + PHILOX_OPS / 2  # log, sqrt, cos, three products; two words
 
 
 def phase(name: str, msg: str) -> None:
@@ -81,10 +98,13 @@ def events_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def initial_state(dist, n, seed):
+def initial_state(dist, n, seed, inv_mass=None):
+    """(x, v, g, u, h_back, valid) on the card; v ~ N(0, M) with a mass."""
     gen = torch.Generator().manual_seed(seed)
     x = dist.init_x(gen, n, "cuda")
     v = torch.randn(x.shape, generator=gen).cuda()
+    if inv_mass is not None:
+        v = v / torch.sqrt(torch.tensor(inv_mass, device="cuda"))[:, None]
     u, g = dist.potential_and_grad(x)
     z = torch.zeros(n, device="cuda")
     return x, v, g, u, z, z.clone()
@@ -129,14 +149,14 @@ def mm_kernel_checks(cm, cname, cfg, dist, n):
     ts = MM_STATE_ITERS[cname]
     args = (spec, *initial_state(dist, n, seed=1), 7, eps, BETA)
     k100 = cm.cuda_mjhmc_mm_run(*args, 100, m, fixed_uniform=True)
-    r100 = cm.mjhmc_run_reference(*args, 100, m, fixed_uniform=True)
+    r100 = cm.run_reference(*args, 100, m, fixed_uniform=True)
     check(bool((k100.evals == m * 100 + m).all()) and bool((r100.evals == m * 100 + m).all()),
           f"{cname}: fixed-uniform evals must be exactly M*100 + M on every chain")
     w_rel = abs(float(k100.w.double().sum() / r100.w.double().sum()) - 1)
     if cname == "sparse_coding":
         assert_close(k100.w.sum(), r100.w.sum(), 1e-4, 0.0, f"{cname} sum of w after 100")
     kt = cm.cuda_mjhmc_mm_run(*args, ts, m, fixed_uniform=True)
-    rt = cm.mjhmc_run_reference(*args, ts, m, fixed_uniform=True)
+    rt = cm.run_reference(*args, ts, m, fixed_uniform=True)
     check(torch.equal(kt.evals, rt.evals) and torch.equal(kt.back_valid, rt.back_valid),
           f"{cname}: counters or cache flags differ after {ts}")
     assert_close(kt.w.sum(), rt.w.sum(), 1e-4, 0.0, f"{cname} sum of w after {ts}")
@@ -148,12 +168,12 @@ def mm_kernel_checks(cm, cname, cfg, dist, n):
         a, b = getattr(kt, name).double().sum(1), getattr(rt, name).double().sum(1)
         assert_close(a, b, 1e-4, 1e-4 * float(b.abs().max()), f"{cname} sum of {name} after {ts}")
     k5 = cm.cuda_mjhmc_mm_run(*args, 5, m, fixed_uniform=True)
-    r5 = cm.mjhmc_run_reference(*args, 5, m, fixed_uniform=True)
+    r5 = cm.run_reference(*args, 5, m, fixed_uniform=True)
     check(torch.equal(k5.evals, r5.evals), f"{cname}: counters differ after 5")
     tol = 1e-4 * r5.x.abs().max() + 1e-4 * r5.x.abs()
     share5 = float(((k5.x - r5.x).abs() <= tol).all(dim=0).double().mean())
     xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_mm_stream_run(*args, 5, 1, m, fixed_uniform=True)
-    xs_r, ws_r, es_r, _ = cm.mjhmc_stream_reference(*args, 5, 1, m, fixed_uniform=True)
+    xs_r, ws_r, es_r, _ = cm.stream_reference(*args, 5, 1, m, fixed_uniform=True)
     check(torch.equal(es_k[-1], so_k.evals), f"{cname}: stream es[-1] must equal evals")
     check(torch.equal(es_k, es_r), f"{cname}: stream es must equal the plain version's")
     check(xs_k.shape == (5, dist.ndims, n), f"{cname}: stream xs shape {tuple(xs_k.shape)}")
@@ -173,14 +193,14 @@ def mm_philox_checks(cm, cname, cfg, dist, n):
     m = cfg.num_leapfrog_steps
     args = (spec, *initial_state(dist, n, seed=2), 12345, cfg.epsilon, BETA)
     kp = cm.cuda_mjhmc_mm_run(*args, 5, m)
-    rp = cm.mjhmc_run_reference(*args, 5, m)
+    rp = cm.run_reference(*args, 5, m)
     same = float((kp.evals == rp.evals).double().mean())
     refreshed = int((rp.evals > 6 * m).sum())
     check(same >= 0.999, f"{cname}: Philox-mode counters match on {same:.5f} of chains (< 0.999)")
     check(refreshed >= 10, f"{cname}: only {refreshed} chains refreshed: draws not exercised")
     # a refreshed chain's v is 128 (36) Box-Muller normals from words 1..2d
     ts = MM_STATE_ITERS[cname]
-    kt, rt = cm.cuda_mjhmc_mm_run(*args, ts, m), cm.mjhmc_run_reference(*args, ts, m)
+    kt, rt = cm.cuda_mjhmc_mm_run(*args, ts, m), cm.run_reference(*args, ts, m)
     tol = 1e-4 * rt.v.abs().max() + 1e-4 * rt.v.abs()
     v_same = float(((kt.v - rt.v).abs() <= tol).all(dim=0).double().mean())
     check(v_same >= 0.999, f"{cname}: Philox-mode v within rtol 1e-4 on {v_same:.5f} (< 0.999)")
@@ -317,7 +337,8 @@ def nuts_checks(cm):
         k = cm.cuda_mjhmc_run(*args, iters, depth, fixed_uniform=True, **nuts)
         xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_stream_run(*args, iters, 1, depth,
                                                           fixed_uniform=True, **nuts)
-        xs_r, _, es_r, r = cm.nuts_stream_reference(*args, iters, 1, depth, fixed_uniform=True)
+        xs_r, _, es_r, r = cm.stream_reference(*args, iters, 1, depth, fixed_uniform=True,
+                                               **nuts)
         check(torch.equal(k.evals, r.evals), f"{what}: fixed-uniform leaf counts differ")
         check(torch.equal(es_k, es_r) and torch.equal(es_k[-1], so_k.evals),
               f"{what}: stream es differ from the plain version's or es[-1] != evals")
@@ -339,7 +360,7 @@ def nuts_checks(cm):
         args = (spec, *initial_state(dist, n, seed=2), seed, eps, 0.0)
         kp = cm.cuda_mjhmc_run(*args, 5, depth, **nuts)
         xs_k, _, es_k, _ = cm.cuda_mjhmc_stream_run(*args, 5, 1, depth, **nuts)
-        xs_r, _, es_r, rp = cm.nuts_stream_reference(*args, 5, 1, depth)
+        xs_r, _, es_r, rp = cm.stream_reference(*args, 5, 1, depth, **nuts)
         counts = (kp.evals == rp.evals) & (es_k == es_r).all(dim=0)
         tol = 1e-4 * float(xs_r.abs().max()) + 1e-4 * xs_r.abs()
         agree = counts & chains_within(kp, rp) & ((xs_k - xs_r).abs() <= tol).all(dim=1).all(dim=0)
@@ -386,16 +407,17 @@ def nuts_timing_and_stats(cm, card):
     leaves = float(out.evals.double().mean()) / 1000
     stream_ms = events_ms(lambda: eng.sample(1000)) / 1000
     args = (cm.energy_spec_for(dist), *initial_state(dist, 10_240, seed=5), 99, NUTS_EPS, 0.0)
-    cm.nuts_run_reference(*args, 1, NUTS_DEPTH)
-    plain_ms = events_ms(lambda: cm.nuts_run_reference(*args, 3, NUTS_DEPTH)) / 3
-    plain_stream_ms = events_ms(lambda: cm.nuts_stream_reference(*args, 3, 1, NUTS_DEPTH)) / 3
+    cm.run_reference(*args, 1, NUTS_DEPTH, variant="nuts")
+    plain_ms = events_ms(lambda: cm.run_reference(*args, 3, NUTS_DEPTH, variant="nuts")) / 3
+    plain_stream_ms = events_ms(
+        lambda: cm.stream_reference(*args, 3, 1, NUTS_DEPTH, variant="nuts")) / 3
     phase("11 nuts stats", f"CudaNUTS gauss2d (10,240 chains, eps {NUTS_EPS}, max_depth "
           f"{NUTS_DEPTH}, 100 + 1000): var/analytic {[round(x, 5) for x in ratio.tolist()]}; "
           f"{leaves:.5g} leaves/iteration")
     phase("11 nuts stats", f"NUTS run kernel {run_ms:.6g} ms/iteration "
           f"({leaves * 10_240 / run_ms * 1e3:.6g} leaves/s), stream {stream_ms:.6g}; plain "
           f"version run {plain_ms:.6g}, stream {plain_stream_ms:.6g} ms/iteration [{card}]")
-    return run_ms, stream_ms, plain_ms, plain_stream_ms
+    return run_ms, stream_ms, plain_ms, plain_stream_ms, leaves
 
 
 def stub_checks(cm):
@@ -407,11 +429,11 @@ def stub_checks(cm):
     spec = cm.ProductOfTSpec(pot, stub_dots=True)
     args = (spec, *initial_state(pot, 4096, seed=1), 7, 0.12, BETA)
     k = cm.cuda_mjhmc_mm_run(*args, 3, 10, fixed_uniform=True)
-    r = cm.mjhmc_run_reference(*args, 3, 10, fixed_uniform=True)
+    r = cm.run_reference(*args, 3, 10, fixed_uniform=True)
     check(torch.equal(k.evals, r.evals), "stubbed product_of_t: counters differ after 3")
     err = {f: assert_close(getattr(k, f), getattr(r, f), 1e-4, 1e-4 * float(getattr(r, f).abs().max()),
                            f"stubbed product_of_t {f} after 3") for f in ("x", "v", "grad", "u")}
-    plain_ms = events_ms(lambda: cm.mjhmc_run_reference(*args, 3, 10)) / 3
+    plain_ms = events_ms(lambda: cm.run_reference(*args, 3, 10)) / 3
     phase("12 stub", f"stubbed product_of_t kernel (4096 chains, eps 0.12, M 10): evals exact, "
           f"x,v,g,u rtol 1e-4 after 3 (max|dx| {err['x']:.3g})")
     return err["x"], plain_ms
@@ -463,6 +485,390 @@ def run_dossier(cm, ce, card):
             "stub_ms": 4096 / stub_row["iterations_per_s"] * 1e3}
 
 
+def energy_ops(cname, d, k):
+    """(operations of one gradient with its kick-drift-kick, of one energy
+    U) per chain, for a config's energy (d dims, k rows of y or r)."""
+    if cname.startswith("rough_well"):
+        return 11 * d, 7 * d
+    if cname.startswith("gauss"):
+        return 7 * d, 3 * d
+    if cname.startswith("product_of_t"):
+        return 4 * d * k + 5 * k + 6 * d, 4 * k
+    return 4 * d * k + 8 * d + k, 3 * d + 2 * k  # sparse coding
+
+
+def bound(cname, variant, d, k, n, iters, grads, emits=0, stub=False):
+    """(bound_ms per iteration, "operations" or "bytes") of a run of
+    ``iters`` iterations of ``n`` chains that evaluated ``grads`` gradients
+    (the run's counters: MJHMC's backward rebuilds, two-stage's two per
+    step and NUTS's leaves included) and streamed ``emits`` emissions."""
+    g, u_ops = energy_ops(cname, d, k)
+    if stub:
+        g -= 4 * d * k
+    kahan = 8 * d + 4
+    if variant == "mjhmc":
+        m = grads / (n * iters)  # gradients per chain and iteration
+        refresh = 0.05  # refreshes per chain and iteration (β·dwell), a floor
+        per_iter = 2 * u_ops + 6 * d + kahan + 30 + PHILOX_OPS / 4 + refresh * d * NORMAL_OPS
+        ops = grads * g + n * iters * per_iter
+    elif variant == "control":
+        per_iter = u_ops + 7 * d + kahan + 20 + d * NORMAL_OPS + PHILOX_OPS
+        ops = grads * g + n * iters * per_iter
+    elif variant == "malt":
+        m = grads / (n * iters)
+        per_iter = m * (u_ops + 10 * d) + kahan + 20 + (2 * m + 1) * d * NORMAL_OPS + PHILOX_OPS
+        ops = grads * g + n * iters * per_iter
+    else:  # nuts: every leaf one gradient, its energy and ~40 of tree work
+        ops = grads * (g + u_ops + 2 * d + 40) + n * iters * (d * NORMAL_OPS + kahan)
+    nbytes = 4 * (n * (3 * d + 3) + d * k + k + n * (5 * d + 5) + emits * n * (d + 2))
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) / iters * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def wrappers_for(cm, spec):
+    if isinstance(spec, cm.MATMUL_SPECS):
+        return cm.cuda_mjhmc_mm_run, cm.cuda_mjhmc_mm_stream_run
+    return cm.cuda_mjhmc_run, cm.cuda_mjhmc_stream_run
+
+
+def moves(xs, x0, x_end=None):
+    """(iterations, n) bool: the chain's x moved in the iteration. Control
+    and MALT emit the post-transition x (``x0`` the start); MJHMC the
+    pre-transition x, so ``x_end`` (the run's final x) closes the last
+    iteration. Control and MALT keep x exactly on reject, MJHMC on F and R."""
+    if x_end is None:
+        return (xs != torch.cat([x0[None], xs[:-1]])).any(dim=1)
+    traj = torch.cat([xs, x_end[None]])
+    return (traj[1:] != traj[:-1]).any(dim=1)
+
+
+def stream_within(xs_k, xs_r):
+    """(n,) bool: every emitted x of the chain lies within rtol 1e-4 (atol
+    1e-4 of the largest) of the plain version's."""
+    tol = 1e-4 * float(xs_r.abs().max()) + 1e-4 * xs_r.abs()
+    return ((xs_k - xs_r).abs() <= tol).all(dim=1).all(dim=0)
+
+
+def slice_cases(cm):
+    """The slice's bodies and branches at the main paths' widths: (label,
+    config, distribution, chains, ε, β, M, iterations held, options)."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    cfg = {c: BENCHMARK_CONFIGS[c] for c in ("rough_well", "gauss50d", "product_of_t",
+                                              "sparse_coding")}
+    dist = {c: v.make_distribution() for c, v in cfg.items()}
+    var50 = tuple(float(v) for v in dist["gauss50d"].analytic_var())
+    var_pot = tuple(float(v) for v in dist["product_of_t"].analytic_var())
+    sc_mass = tuple(float(v) for v in torch.linspace(0.8, 1.25, 128))
+    rows = []
+    for label, c, n, beta, kw in (
+        ("control", "rough_well", 10_000, 0.2, dict(variant="control")),
+        ("malt", "rough_well", 10_000, 1.0, dict(variant="malt")),
+        ("mjhmc two_stage", "rough_well", 10_000, 0.1, dict(integrator="two_stage")),
+        ("control two_stage", "rough_well", 10_000, 0.2,
+         dict(variant="control", integrator="two_stage")),
+        ("mjhmc inv_mass", "gauss50d", 4096, 0.1, dict(inv_mass=var50)),
+        ("control inv_mass", "gauss50d", 4096, 0.2, dict(variant="control", inv_mass=var50)),
+        ("malt inv_mass", "gauss50d", 4096, 1.0, dict(variant="malt", inv_mass=var50)),
+        ("control", "product_of_t", 4096, 0.2, dict(variant="control")),
+        ("malt", "product_of_t", 4096, 1.0, dict(variant="malt")),
+        ("mjhmc two_stage", "product_of_t", 4096, 0.1, dict(integrator="two_stage")),
+        ("control two_stage inv_mass", "product_of_t", 4096, 0.2,
+         dict(variant="control", integrator="two_stage", inv_mass=var_pot)),
+        ("control", "sparse_coding", 8192, 0.2, dict(variant="control")),
+        ("malt", "sparse_coding", 8192, 1.0, dict(variant="malt")),
+        ("mjhmc inv_mass", "sparse_coding", 8192, 0.1, dict(inv_mass=sc_mass)),
+        ("control two_stage inv_mass", "sparse_coding", 8192, 0.2,
+         dict(variant="control", integrator="two_stage", inv_mass=sc_mass)),
+    ):
+        # two-stage rough-well trajectories take 2M sin-laden gradients per
+        # half: their single chains are held after 3 iterations, not 5
+        held = 3 if c == "rough_well" and "two_stage" in label else MM_STATE_ITERS.get(c, 5)
+        rows.append((f"{c} {label}", c, dist[c], n, cfg[c].epsilon, beta,
+                     cfg[c].num_leapfrog_steps, held, kw))
+    return rows
+
+
+def slice_kernel_checks(cm):
+    """Phases 15-16: every body and branch of the slice, run and stream
+    kernels, against the plain version on the card, from v ~ N(0, M), in
+    fixed-uniform mode (15) and in Philox mode (16). Both: Σw = steps and
+    evals = M·steps (2M two-stage) for control and MALT; the decisions (x
+    moved or not, each iteration; MJHMC also its counters and stream es)
+    equal on >= 0.999 of chains; x, v, g, u and every emitted x within rtol
+    1e-4 of the plain version's on all but 0.1% of the chains whose
+    decisions agree (MJHMC: Σw over those chains rtol 1e-4). Fixed-uniform
+    mode: counters and stream es exact. Philox mode: the share of
+    iterations that moved x, and what a one-ulp nudge of x does to the
+    plain version alone (decisions changed, chains moved past rtol 1e-4),
+    which also bounds the chains allowed outside when it exceeds 0.1%.
+    Returns {label: max |dx| on the fixed-uniform chains within}."""
+    errs = {}
+    for label, cname, dist, n, eps, beta, m, held, kw in slice_cases(cm):
+        spec = cm.energy_spec_for(dist)
+        run, stream = wrappers_for(cm, spec)
+        variant = kw.get("variant", "mjhmc")
+        cost = (2 if kw.get("integrator") == "two_stage" else 1) * m
+        for fixed, seed in ((True, 7), (False, 12345)):
+            st = initial_state(dist, n, seed=1 if fixed else 2, inv_mass=kw.get("inv_mass"))
+            args = (spec, *st, seed, eps, beta)
+            k = run(*args, held, m, fixed_uniform=fixed, **kw)
+            xs_k, ws_k, es_k, so_k = stream(*args, held, 1, m, fixed_uniform=fixed, **kw)
+            xs_r, ws_r, es_r, r = cm.stream_reference(*args, held, 1, m, fixed, **kw)
+            mj = variant == "mjhmc"
+            moved_k = moves(xs_k, st[0], so_k.x if mj else None)
+            moved_r = moves(xs_r, st[0], r.x if mj else None)
+            same = (moved_k == moved_r).all(dim=0)
+            if mj:
+                same &= (k.evals == r.evals) & (es_k == es_r).all(dim=0)
+            else:
+                check(bool((k.evals == held * cost).all()) and bool((k.w == held).all())
+                      and bool((ws_k == 1).all()), f"{label}: evals must be M*steps, w steps")
+            share = float(same.double().mean())
+            mode = "fixed-uniform" if fixed else "Philox"
+            check(share >= 0.999, f"{label} ({mode}): decisions equal on {share:.5f} of "
+                  "chains (< 0.999)")
+            if fixed:
+                check(torch.equal(k.evals, r.evals) and torch.equal(es_k, es_r)
+                      and torch.equal(es_k[-1], k.evals), f"{label}: fixed-uniform counters differ")
+            # chaotic energies (the rough well's sin, product of t at its
+            # preset ε) move single chains past 1e-4 from a last-ulp
+            # difference. Fixed-uniform mode holds all but 0.1% of the
+            # chains; Philox mode, whose draws spread the chains over the
+            # chaotic region, all but 0.1% or as many as a one-ulp nudge of
+            # x moves in the plain version alone, if more
+            within = chains_within(k, r) & stream_within(xs_k, xs_r)
+            outside = int((~within & same).sum())
+            allowed, ulp = 0.001 * n, ""
+            if not fixed:
+                nudged = (torch.nextafter(st[0], torch.full_like(st[0], float("inf"))), *st[1:])
+                xs_n, _, es_n, r_n = cm.stream_reference(spec, *nudged, seed, eps, beta, held, 1,
+                                                         m, False, **kw)
+                moved_n = moves(xs_n, nudged[0], r_n.x if mj else None)
+                same_n = (moved_n == moved_r).all(dim=0)
+                if mj:
+                    same_n &= (r_n.evals == r.evals) & (es_n == es_r).all(dim=0)
+                drift = int((~(chains_within(r_n, r) & stream_within(xs_n, xs_r)) & same_n).sum())
+                allowed = max(allowed, drift)
+                ulp = (f"; a one-ulp nudge of x changes {int((~same_n).sum())} chains' decisions "
+                       f"and moves {drift} more past rtol 1e-4 in the plain version alone")
+            check(outside <= allowed, f"{label} ({mode}): {outside} chains with equal "
+                  f"decisions outside rtol 1e-4 (states or stream xs), {allowed:g} allowed")
+            ok = within & same
+            if mj:  # dwell weights: their sum over those chains
+                assert_close(k.w[ok].sum(), r.w[ok].sum(), 1e-4, 0.0, f"{label} sum of w")
+            err = float((k.x - r.x).abs()[:, ok].max())
+            what = (f"{label} ({n} chains, eps {eps}, beta {beta}, M {m}, {held} iterations): "
+                    f"decisions equal on {share:.5f} ({int((~same).sum())} chains differ); "
+                    f"x,v,g,u and stream xs rtol 1e-4 on all but {outside} of the chains "
+                    f"with equal decisions (max|dx| {err:.3g} on the others)")
+            if fixed:
+                errs[label] = err
+                phase("15 slice fixed-uniform", f"{what}; evals and stream es exact")
+            else:
+                phase("16 slice philox", f"{what}; x moved on "
+                      f"{float(moved_r.double().mean()):.4f} of chain-iterations{ulp}")
+    return errs
+
+
+def nuts_mass_checks(cm):
+    """The NUTS body with an inverse mass, bit-identical to its plain
+    version in both modes (gauss2d at the CLI's width, gauss50d)."""
+    from mjhmc_tpu_torch.models import Gaussian
+
+    for cname, dist, eps, n, mass in (
+        ("gauss2d", Gaussian(ndims=2, log_conditioning=2.0), 0.5, 10_240, (1.0, 100.0)),
+        ("gauss50d", Gaussian(ndims=50, log_conditioning=4.0), 0.5, 4096, None),
+    ):
+        mass = mass or tuple(float(v) for v in dist.analytic_var())
+        spec = cm.energy_spec_for(dist)
+        for fixed in (True, False):
+            args = (spec, *initial_state(dist, n, seed=8), 99, eps, 0.0)
+            kw = dict(variant="nuts", inv_mass=mass)
+            k = cm.cuda_mjhmc_run(*args, 3, CLI_NUTS_DEPTH, fixed_uniform=fixed, **kw)
+            xs_k, _, es_k, _ = cm.cuda_mjhmc_stream_run(*args, 3, 1, CLI_NUTS_DEPTH,
+                                                        fixed_uniform=fixed, **kw)
+            xs_r, _, es_r, r = cm.stream_reference(*args, 3, 1, CLI_NUTS_DEPTH, fixed,
+                                                   inv_mass=mass, variant="nuts")
+            identical = torch.equal(es_k, es_r) and torch.equal(xs_k, xs_r) and all(
+                torch.equal(getattr(k, f), getattr(r, f)) for f in ("x", "v", "grad", "u", "evals"))
+            check(identical, f"NUTS inv_mass {cname} (fixed={fixed}): not bit-identical")
+            phase("17 nuts inv_mass", f"{cname} ({n} chains, eps {eps}, max_depth "
+                  f"{CLI_NUTS_DEPTH}, M^-1 = the variances, fixed={fixed}): leaf counts, x, v, "
+                  f"g, u and stream bit-identical ({float(r.evals.double().mean()) / 3:.4g} "
+                  "leaves/iteration)")
+
+
+def counts(cm, attr, mm=False):
+    fns = (cm.cuda_mjhmc_mm_run, cm.cuda_mjhmc_mm_stream_run) if mm else \
+        (cm.cuda_mjhmc_run, cm.cuda_mjhmc_stream_run)
+    return tuple(getattr(f, attr) for f in fns)
+
+
+def slice_stats(cm, card):
+    """Phase 18: the engines' statistics. Control and MALT on gauss2d within
+    5% of [1, 100] with Σw = steps and evals = M·steps exactly; MALT at γ=0
+    against control at β=1; control, two-stage MJHMC and two-stage control
+    on rough_well within 5% of quadrature; MJHMC with M⁻¹ = the variances on
+    gauss50d (elementwise) within 5% and on product_of_t (matmul kernel)
+    with the median within 15% of analytic. Returns the inverse-mass runs'
+    launches and gradients per chain and iteration."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    def run(ecls, cname, n, burn, steps, **kw):
+        cfg = BENCHMARK_CONFIGS[cname]
+        dist = cfg.make_distribution()
+        kw = {"epsilon": cfg.epsilon, "num_leapfrog_steps": cfg.num_leapfrog_steps, **kw}
+        eng = ecls(dist, nbatch=n, seed=5, device="cuda", **kw)
+        eng.run(burn)
+        out = eng.run(steps)
+        _, var = cm.CudaMJHMC.moments(out)
+        return eng, out, var.double() / dist.analytic_var().double().cuda()
+
+    res = {}
+    for ecls, beta in ((cm.CudaControlHMC, 0.2), (cm.CudaMALT, 1.0)):
+        eng, out, ratio = run(ecls, "gauss2d", 10_240, 200, 2000, beta=beta)
+        m = eng.num_leapfrog_steps
+        check(bool((out.w == 2000).all()) and bool((out.evals == m * 2000).all()),
+              f"{ecls.__name__} gauss2d: w must be steps, evals M*steps")
+        check(bool(((ratio - 1).abs() < 0.05).all()), f"{ecls.__name__} gauss2d var/analytic "
+              f"{ratio.tolist()}: outside 5%")
+        phase("18 slice stats", f"{ecls.__name__} gauss2d (10,240 chains, beta {beta}, 200 + "
+              f"2000): var/analytic {[round(x, 5) for x in ratio.tolist()]}; w == steps, "
+              "evals == M*steps")
+    _, _, r_malt = run(cm.CudaMALT, "gauss2d", 10_240, 200, 2000, beta=0.0)
+    _, _, r_hmc = run(cm.CudaControlHMC, "gauss2d", 10_240, 200, 2000, beta=1.0)
+    check(bool(((r_malt - 1).abs() < 0.05).all()) and bool(((r_malt / r_hmc - 1).abs() < 0.05).all()),
+          f"MALT gamma 0 {r_malt.tolist()} vs control beta 1 {r_hmc.tolist()}: outside 5%")
+    phase("18 slice stats", f"gauss2d MALT gamma=0 var/analytic {[round(x, 5) for x in r_malt.tolist()]}"
+          f", control beta=1 {[round(x, 5) for x in r_hmc.tolist()]}")
+    for ecls, beta, integrator in ((cm.CudaControlHMC, 0.1, "leapfrog"),
+                                   (cm.CudaMJHMC, 0.1, "two_stage"),
+                                   (cm.CudaControlHMC, 0.1, "two_stage")):
+        eng, out, ratio = run(ecls, "rough_well", 10_000, 200, 2000, beta=beta,
+                              integrator=integrator)
+        m = (2 if integrator == "two_stage" else 1) * eng.num_leapfrog_steps
+        extra = out.evals - m * 2000
+        ok = bool((extra == 0).all()) if ecls is cm.CudaControlHMC else \
+            bool((extra >= 0).all()) and bool((extra % m == 0).all())
+        check(ok, f"{ecls.__name__} {integrator} rough_well: evals not exact")
+        check(bool(((ratio - 1).abs() < 0.05).all()), f"{ecls.__name__} {integrator} rough_well "
+              f"var/quadrature {ratio.tolist()}: outside 5%")
+        phase("18 slice stats", f"{ecls.__name__} {integrator} rough_well (10,000 chains, beta "
+              f"{beta}, 200 + 2000): var/quadrature {[round(x, 5) for x in ratio.tolist()]}; "
+              f"evals exact ({'M' if integrator == 'leapfrog' else '2M'} per half)")
+    # the inverse-mass main paths: the engine as from_warmup would hand it
+    # M⁻¹; launch counts set to 0 just before
+    for cname, n, eps, tol in (("gauss50d", 4096, 0.5, 0.05), ("product_of_t", 4096, 0.06, 0.15)):
+        dist = BENCHMARK_CONFIGS[cname].make_distribution()
+        mm = cname == "product_of_t"
+        cm.reset_counts()
+        eng, out, ratio = run(cm.CudaMJHMC, cname, n, 200, 1000, epsilon=eps, beta=0.1,
+                              inv_mass=tuple(float(v) for v in dist.analytic_var()))
+        res[cname] = (counts(cm, "mass_launches", mm), float(out.evals.double().mean()) / 1000)
+        bad = (ratio - 1).abs() >= tol if not mm else (ratio.median() - 1).abs() >= tol
+        check(not bool(bad.any()), f"{cname} inv_mass var/analytic {ratio.tolist()}: outside "
+              f"{tol:.0%}")
+        phase("18 slice stats", f"CudaMJHMC {cname} with M^-1 = the variances ({n} chains, eps "
+              f"{eps}, 200 + 1000): var/analytic {'median ' if mm else 'max dev '}"
+              f"{float(ratio.median() if mm else (ratio - 1).abs().max()):.5f}; launches "
+              f"(run, stream) {res[cname][0]}")
+    return res
+
+
+def slice_cli(cm, cli):
+    """Phase 19: `sample --sampler control|malt` on rough_well, product_of_t
+    and sparse_coding, `--integrator two_stage` (MJHMC and control) on
+    rough_well and product_of_t; every count set to 0 just before each call.
+    Returns {(sampler, config, integrator): (record, counts, seconds)}."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    out = {}
+    calls = [(s, c, "leapfrog") for s in ("control", "malt")
+             for c in ("rough_well", "product_of_t", "sparse_coding")]
+    calls += [(s, c, "two_stage") for s in ("mjhmc", "control") for c in ("rough_well", "product_of_t")]
+    for sampler, cname, integrator in calls:
+        cfg = BENCHMARK_CONFIGS[cname]
+        burn, steps = (200, 200) if cname == "sparse_coding" else (500, 1000)
+        cm.reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli(["sample", "--config", cname, "--engine", "cuda", "--sampler", sampler,
+                 "--integrator", integrator, "--burn", str(burn), "--steps", str(steps)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        mm = cname != "rough_well"
+        attr = "launches" if sampler == "mjhmc" else f"{sampler}_launches"
+        c = {"body": counts(cm, attr, mm), "two_stage": counts(cm, "two_stage_launches", mm)}
+        check(all(v > 0 for v in c["body"]) and (integrator == "leapfrog" or all(c["two_stage"])),
+              f"{sampler} {cname} {integrator}: kernels not launched: {c}")
+        m = (2 if integrator == "two_stage" else 1) * cfg.num_leapfrog_steps
+        n = cfg.nbatch
+        ge = rec["grad_evals"]
+        exact = ge == m * (burn + steps) * n if sampler != "mjhmc" else \
+            ge >= m * (burn + steps) * n and ge % m == 0
+        check(exact and rec["chains"] == n and rec["ess"] > 0
+              and all(v > 0 and v == v for v in rec["var"]), f"bad CLI record {rec}")
+        if cname == "rough_well":
+            target = BENCHMARK_CONFIGS[cname].make_distribution().analytic_var().tolist()
+            check(all(abs(v / t - 1) < 0.05 for v, t in zip(rec["var"], target)),
+                  f"{sampler} {integrator} rough_well CLI var {rec['var']}: outside 5%")
+        out[(sampler, cname, integrator)] = (rec, c, seconds)
+        phase("19 slice cli", f"{json.dumps(rec)}; launches {c}; {seconds:.4g} s host clock")
+    return out
+
+
+def slice_timing(cm, card):
+    """Phase 20: ms per iteration (CUDA events) of each new body and branch,
+    run and stream kernels, beside the plain version, at the main paths'
+    widths; with the gradients per chain and iteration of the timed run."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    rows = {}
+    mass_of = {c: tuple(float(v) for v in BENCHMARK_CONFIGS[c].make_distribution().analytic_var())
+               for c in ("gauss50d", "product_of_t")}
+    for key, cname, n, beta, kw in (
+        ("control", "rough_well", 10_000, 0.1, dict(variant="control")),
+        ("malt", "rough_well", 10_000, 1.0, dict(variant="malt")),
+        ("control", "product_of_t", 4096, 0.1, dict(variant="control")),
+        ("malt", "product_of_t", 4096, 1.0, dict(variant="malt")),
+        ("control", "sparse_coding", 8192, 0.1, dict(variant="control")),
+        ("malt", "sparse_coding", 8192, 1.0, dict(variant="malt")),
+        ("two_stage", "rough_well", 10_000, 0.1, dict(integrator="two_stage")),
+        ("two_stage", "product_of_t", 4096, 0.1, dict(integrator="two_stage")),
+        ("inv_mass", "gauss50d", 4096, 0.1, dict(inv_mass=mass_of["gauss50d"])),
+        ("inv_mass", "product_of_t", 4096, 0.1, dict(inv_mass=mass_of["product_of_t"])),
+    ):
+        cfg = BENCHMARK_CONFIGS[cname]
+        dist = cfg.make_distribution()
+        m = cfg.num_leapfrog_steps
+        iters = {"rough_well": 2000, "gauss50d": 200, "product_of_t": 500}.get(cname, 100)
+        if kw.get("variant") == "malt" and cname != "rough_well":
+            iters //= 4
+        eng = cm.CudaMJHMC(dist, epsilon=cfg.epsilon, beta=beta, num_leapfrog_steps=m,
+                           nbatch=n, seed=4, device="cuda", **kw)
+        eng.run(10)
+        before = eng.grad_evals
+        run_ms = events_ms(lambda: eng.run(iters)) / iters
+        grads = eng.grad_evals - before
+        stream_ms = events_ms(lambda: eng.sample(iters)) / iters
+        args = (cm.energy_spec_for(dist), *initial_state(dist, n, seed=5), 99, cfg.epsilon, beta)
+        cm.run_reference(*args, 1, m, **kw)
+        plain_ms = events_ms(lambda: cm.run_reference(*args, 3, m, **kw)) / 3
+        plain_stream_ms = events_ms(lambda: cm.stream_reference(*args, 3, 1, m, **kw)) / 3
+        rows[(key, cname)] = (run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n)
+        phase("20 slice timing", f"{key} {cname} ({n} chains, eps {cfg.epsilon}, beta {beta}, "
+              f"M {m}): run {run_ms:.6g} ms/iteration, stream (thin 1) {stream_ms:.6g}; plain "
+              f"version run {plain_ms:.6g}, stream {plain_stream_ms:.6g} ms/iteration; "
+              f"{grads / (n * iters):.4g} gradients per chain and iteration [{card}]")
+    return rows
+
+
+T0 = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -488,8 +894,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     phase("2 build", f"{time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
-    for kernel, regs, spill in ptxas_report(_build.build_log()):
+    log = _build.build_log()
+    for kernel, regs, spill in ptxas_report(log):
         phase("2 build", f"ptxas {kernel}: {regs} registers, {spill} bytes spill stores")
+    phase("2 build", "sources, one nvcc each (seconds from the start of the build): " + "; ".join(
+        ln[len("nvcc "):] for ln in log.splitlines() if re.match(r"nvcc \S+\.cu: ", ln)))
 
     # ---- 3. kernels vs plain version, fixed-uniform mode -----------------
     rw = RoughWell()
@@ -497,7 +906,7 @@ def main() -> int:
     st = initial_state(rw, 4096, seed=1)
     args = (spec, *st, 7, EPS, BETA)
     k100 = cm.cuda_mjhmc_run(*args, 100, M, fixed_uniform=True)
-    r100 = cm.mjhmc_run_reference(*args, 100, M, fixed_uniform=True)
+    r100 = cm.run_reference(*args, 100, M, fixed_uniform=True)
     check(bool((k100.evals == M * 100 + M).all()) and bool((r100.evals == M * 100 + M).all()),
           "fixed-uniform evals must be exactly M*100 + M on every chain")
     # Σw over all chains: single chains may drift apart over 100 chaotic
@@ -505,13 +914,13 @@ def main() -> int:
     assert_close(k100.w.sum(), r100.w.sum(), 1e-4, 0.0, "sum of w after 100 iterations")
     w_rel = float(((k100.w - r100.w).abs() / r100.w).max())
     k5 = cm.cuda_mjhmc_run(*args, 5, M, fixed_uniform=True)
-    r5 = cm.mjhmc_run_reference(*args, 5, M, fixed_uniform=True)
+    r5 = cm.run_reference(*args, 5, M, fixed_uniform=True)
     atol = 1e-4 * float(r5.x.abs().max())
     run_err = assert_close(k5.x, r5.x, 1e-4, atol, "x after 5")
     for fname in ("v", "grad", "u"):
         assert_close(getattr(k5, fname), getattr(r5, fname), 1e-4, atol, f"{fname} after 5")
     xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_stream_run(*args, 5, 1, M, fixed_uniform=True)
-    xs_r, ws_r, es_r, _ = cm.mjhmc_stream_reference(*args, 5, 1, M, fixed_uniform=True)
+    xs_r, ws_r, es_r, _ = cm.stream_reference(*args, 5, 1, M, fixed_uniform=True)
     check(torch.equal(es_k[-1], so_k.evals), "stream es[-1] must equal evals")
     check(torch.equal(es_k, es_r), "stream es must equal the plain version's")
     stream_err = assert_close(xs_k, xs_r, 1e-4, atol, "stream xs")
@@ -525,7 +934,7 @@ def main() -> int:
     spec50 = cm.energy_spec_for(g50)
     args50 = (spec50, *initial_state(g50, 4096, seed=6), 7, 0.1, BETA)
     k50 = cm.cuda_mjhmc_run(*args50, 5, M, fixed_uniform=True)
-    r50 = cm.mjhmc_run_reference(*args50, 5, M, fixed_uniform=True)
+    r50 = cm.run_reference(*args50, 5, M, fixed_uniform=True)
     check(torch.equal(k50.evals, r50.evals), "gauss50d fixed-uniform evals differ")
     atol50 = 1e-4 * float(r50.x.abs().max())
     for fname in ("x", "v", "grad", "u", "wx2"):
@@ -544,7 +953,7 @@ def main() -> int:
     st = initial_state(rw, 10_000, seed=2)
     args = (spec, *st, 12345, EPS, BETA)
     kp = cm.cuda_mjhmc_run(*args, 5, M)
-    rp = cm.mjhmc_run_reference(*args, 5, M)
+    rp = cm.run_reference(*args, 5, M)
     same = float((kp.evals == rp.evals).double().mean())
     rebuilt = float((rp.evals > 6 * M).double().mean())
     check(same >= 0.999, f"Philox-mode counters match on {same:.5f} of chains (< 0.999)")
@@ -553,13 +962,14 @@ def main() -> int:
           f"{rebuilt:.3f} of chains refreshed at least once")
     args50 = (spec50, *initial_state(g50, 4096, seed=7), 12345, 0.1, BETA)
     same50 = float((cm.cuda_mjhmc_run(*args50, 5, M).evals
-                    == cm.mjhmc_run_reference(*args50, 5, M).evals).double().mean())
+                    == cm.run_reference(*args50, 5, M).evals).double().mean())
     check(same50 >= 0.999, f"gauss50d Philox-mode counters match on {same50:.5f} (< 0.999)")
     phase("4 philox", f"gauss50d (D=50): counters equal on {same50:.5f} of chains")
     for c in mm_cases:
         mm_philox_checks(cm, *c)
 
     # ---- 5. statistics through CudaMJHMC ---------------------------------
+    grads_per_iter = {}  # gradients per chain and iteration of the runs below
     for cname in ("gauss2d", "rough_well"):
         cfg = BENCHMARK_CONFIGS[cname]
         dist = cfg.make_distribution()
@@ -581,6 +991,7 @@ def main() -> int:
         extra = eng.evals - m * 2200
         check(bool((extra >= 0).all()) and bool((extra % m == 0).all()),
               f"{cname}: evals - M*steps must be a non-negative multiple of M")
+        grads_per_iter[cname] = float(eng.evals.double().mean()) / 2200
         assert_close(ws.sum(dim=0), eng.last_out.w, 1e-5, 0.0, f"{cname} sum of ws vs w")
         phase("5 stats", f"{cname}: var/target {[round(r, 5) for r in ratio.tolist()]}; "
               f"evals exact multiples of M; sum(ws) == w")
@@ -647,9 +1058,9 @@ def main() -> int:
 
     st = initial_state(rw, 10_000, seed=5)
     args = (spec, *st, 99, EPS, BETA)
-    cm.mjhmc_run_reference(*args, 5, M)
-    plain_ms = events_ms(lambda: cm.mjhmc_run_reference(*args, 300, M)) / 300
-    plain_stream_ms = events_ms(lambda: cm.mjhmc_stream_reference(*args, 300, 1, M)) / 300
+    cm.run_reference(*args, 5, M)
+    plain_ms = events_ms(lambda: cm.run_reference(*args, 300, M)) / 300
+    plain_stream_ms = events_ms(lambda: cm.stream_reference(*args, 300, 1, M)) / 300
     phase("7 timing", f"plain version on the card, rough_well, 10,000 chains: "
           f"run {plain_ms:.6g} ms/iteration, stream {plain_stream_ms:.6g} ms/iteration "
           f"[{card}]")
@@ -664,11 +1075,12 @@ def main() -> int:
                            nbatch=n, seed=4, device="cuda")
         eng.sample(20)
         s_ms = events_ms(lambda: eng.sample(iters)) / iters
+        grads_per_iter[cname] = float(eng.evals.double().mean()) / eng.steps_total
         args = (cm.energy_spec_for(dist), *initial_state(dist, n, seed=5), 99,
                 cfg.epsilon, BETA)
-        cm.mjhmc_run_reference(*args, 5, m)
-        p_ms = events_ms(lambda: cm.mjhmc_run_reference(*args, 50, m)) / 50
-        ps_ms = events_ms(lambda: cm.mjhmc_stream_reference(*args, 50, 1, m)) / 50
+        cm.run_reference(*args, 5, m)
+        p_ms = events_ms(lambda: cm.run_reference(*args, 50, m)) / 50
+        ps_ms = events_ms(lambda: cm.stream_reference(*args, 50, 1, m)) / 50
         mm_ms[cname] = (k_ms, s_ms, p_ms, ps_ms)
         burn, steps = mm_cli[cname]
         kern_s = (burn * k_ms + steps * s_ms) / 1e3
@@ -699,45 +1111,126 @@ def main() -> int:
     # ---- 14. the roofline dossier (main path of the ceiling probes) -------
     dossier = run_dossier(cm, ce, card)
 
+    # ---- 15-20. control, MALT, two-stage and inverse mass ------------------
+    slice_err = slice_kernel_checks(cm)
+    nuts_mass_checks(cm)
+    mass_res = slice_stats(cm, card)
+    cli_res = slice_cli(cm, cli)
+    slice_ms = slice_timing(cm, card)
+
+    # ---- the kernels' record ----------------------------------------------
+    from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
+
+    def entry(kname, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
+        return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None, **extra}
+
+    shapes = {"rough_well": (2, 0), "gauss50d": (50, 0), "gauss2d": (2, 0),
+              "product_of_t": (36, 36), "sparse_coding": (128, 64)}
+
+    def mjhmc_bound(cname, n, emit, iters=1000):
+        d, k = shapes[cname]
+        return bound(cname, "mjhmc", d, k, n, iters, grads_per_iter[cname] * n * iters,
+                     iters if emit else 0)
+
+    def slice_entry(kname, key, cnames, src, replaces, launches, err, stream, variant):
+        run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n = slice_ms[(key, cnames[-1])]
+        d, k = shapes[cnames[-1]]
+        body = {"two_stage": "mjhmc", "inv_mass": "mjhmc"}.get(key, key)
+        bnd = bound(cnames[-1], body, d, k, n, iters, grads, iters if stream else 0)
+        extra = {"variant": variant, "shape": f"{cnames[-1]}, {n} chains, ms per iteration"}
+        if len(cnames) > 1:
+            extra["per_config_ms"] = {c: {"ms": slice_ms[(key, c)][1 if stream else 0],
+                                          "plain_ms": slice_ms[(key, c)][3 if stream else 2]}
+                                      for c in cnames}
+        return entry(kname, src, replaces, launches, err,
+                     stream_ms if stream else run_ms, plain_stream_ms if stream else plain_ms,
+                     bnd, **extra)
+
+    def cli_counts(sampler, cnames, attr, integrator="leapfrog", idx=0):
+        return sum(cli_res[(sampler, c, integrator)][1][attr][idx] for c in cnames)
+
     def mm_entry(kname, src, launches, idx_ms, idx_plain, err_idx):
         sc = mm_ms["sparse_coding"]
-        return {"name": kname, "route": "cuda", "source": MM_KERNEL_SRC, "replaces": src,
-                "launches": launches, "max_abs_err": max(e[err_idx] for e in mm_err.values()),
-                "ms": sc[idx_ms], "plain_ms": sc[idx_plain], "shape": "sparse_coding, 8192 chains",
-                "per_config_ms": {c: {"ms": v[idx_ms], "plain_ms": v[idx_plain]}
-                                  for c, v in mm_ms.items()}}
+        return entry(kname, MM_KERNEL_SRC, src, launches,
+                     max(e[err_idx] for e in mm_err.values()), sc[idx_ms], sc[idx_plain],
+                     mjhmc_bound("sparse_coding", 8192, idx_ms == 1),
+                     shape="sparse_coding, 8192 chains",
+                     per_config_ms={c: {"ms": v[idx_ms], "plain_ms": v[idx_plain]}
+                                    for c, v in mm_ms.items()})
 
-    print(json.dumps({"kernels": [
-        {"name": "mjhmc_run", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": RUN_SRC, "launches": rw_launches["run"], "max_abs_err": run_err,
-         "ms": run_ms, "plain_ms": plain_ms},
-        {"name": "mjhmc_stream", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": STREAM_SRC, "launches": rw_launches["stream"],
-         "max_abs_err": stream_err, "ms": stream_ms, "plain_ms": plain_stream_ms},
+    tc_lanes = tc_chain_lanes(128)
+    nuts_leaves = nuts_ms[4]
+    nuts_bound = bound("gauss2d", "nuts", 2, 0, 10_240, 1000, nuts_leaves * 10_240 * 1000)
+    kernels = [
+        entry("mjhmc_run", KERNEL_SRC, RUN_SRC, rw_launches["run"], run_err, run_ms, plain_ms,
+              mjhmc_bound("rough_well", 10_000, False)),
+        entry("mjhmc_stream", KERNEL_SRC, STREAM_SRC, rw_launches["stream"], stream_err,
+              stream_ms, plain_stream_ms, mjhmc_bound("rough_well", 10_000, True)),
         mm_entry("mjhmc_mm_run", MM_RUN_SRC, mm_launches["mm_run"], 0, 2, 0),
         mm_entry("mjhmc_mm_stream", MM_STREAM_SRC, mm_launches["mm_stream"], 1, 3, 1),
-        {"name": "fma_chain", "route": "cuda", "source": CEIL_SRC, "replaces": FMA_SRC,
-         "launches": dossier["launches"]["fma_chain.launches"], "max_abs_err": fma_err,
-         "ms": dossier["fma_ms"], "plain_ms": fma_plain_ms,
-         "shape": "(256, 1024) x 4 chains, ms per iteration"},
-        {"name": "tc_chain", "route": "cuda", "source": CEIL_SRC, "replaces": TC_SRC,
-         "launches": dossier["launches"]["tc_chain.launches"], "max_abs_err": tc_err,
-         "ms": dossier["tc_ms"], "plain_ms": tc_plain_ms,
-         "shape": "depth 128 x 4 chains, ms per iteration"},
-        {"name": "nuts_run", "route": "cuda", "source": KERNEL_SRC, "replaces": RUN_SRC,
-         "variant": NUTS_VARIANT, "launches": nuts_launches["nuts_run"],
-         "max_abs_err": nuts_run_err, "ms": nuts_ms[0], "plain_ms": nuts_ms[2],
-         "shape": "gauss2d, 10,240 chains, max_depth 7, ms per iteration"},
-        {"name": "nuts_stream", "route": "cuda", "source": KERNEL_SRC, "replaces": STREAM_SRC,
-         "variant": NUTS_VARIANT, "launches": nuts_launches["nuts_stream"],
-         "max_abs_err": nuts_stream_err, "ms": nuts_ms[1], "plain_ms": nuts_ms[3],
-         "shape": "gauss2d, 10,240 chains, max_depth 7, thin 1, ms per iteration"},
-        {"name": "mjhmc_mm_run_stub", "route": "cuda", "source": MM_KERNEL_SRC,
-         "replaces": MM_RUN_SRC, "variant": STUB_VARIANT,
-         "launches": dossier["launches"]["cuda_mjhmc_mm_run.stub_launches"],
-         "max_abs_err": stub_err, "ms": dossier["stub_ms"], "plain_ms": stub_plain_ms,
-         "shape": "product_of_t, 4,096 chains, M 10, ms per iteration"},
-    ]}))
+        entry("fma_chain", CEIL_SRC, FMA_SRC, dossier["launches"]["fma_chain.launches"],
+              fma_err, dossier["fma_ms"], fma_plain_ms,
+              (2.0 * 256 * 1024 * 4 / FP32_PEAK * 1e3, "operations"),
+              shape="(256, 1024) x 4 chains, ms per iteration"),
+        entry("tc_chain", CEIL_SRC, TC_SRC, dossier["launches"]["tc_chain.launches"], tc_err,
+              dossier["tc_ms"], tc_plain_ms,
+              (tc_flops_per_iteration(128, tc_lanes) / BF16_PEAK * 1e3, "operations"),
+              shape="depth 128 x 4 chains, ms per iteration"),
+        entry("nuts_run", KERNEL_SRC, RUN_SRC, nuts_launches["nuts_run"], nuts_run_err,
+              nuts_ms[0], nuts_ms[2], nuts_bound, variant=NUTS_VARIANT,
+              shape="gauss2d, 10,240 chains, max_depth 7, ms per iteration"),
+        entry("nuts_stream", KERNEL_SRC, STREAM_SRC, nuts_launches["nuts_stream"],
+              nuts_stream_err, nuts_ms[1], nuts_ms[3],
+              bound("gauss2d", "nuts", 2, 0, 10_240, 1000, nuts_leaves * 10_240 * 1000, 1000),
+              variant=NUTS_VARIANT,
+              shape="gauss2d, 10,240 chains, max_depth 7, thin 1, ms per iteration"),
+        entry("mjhmc_mm_run_stub", MM_KERNEL_SRC, MM_RUN_SRC,
+              dossier["launches"]["cuda_mjhmc_mm_run.stub_launches"], stub_err,
+              dossier["stub_ms"], stub_plain_ms,
+              bound("product_of_t", "mjhmc", 36, 36, 4096, 1000, 10 * 4096 * 1000, stub=True),
+              variant=STUB_VARIANT, shape="product_of_t, 4,096 chains, M 10, ms per iteration"),
+    ]
+    mm = ("product_of_t", "sparse_coding")
+    for body, variant in (("control", CONTROL_VARIANT), ("malt", MALT_VARIANT)):
+        err = slice_err[f"rough_well {body}"]
+        mm_err_b = max(slice_err[f"{c} {body}"] for c in mm)
+        for idx, (suffix, src) in enumerate((("run", RUN_SRC), ("stream", STREAM_SRC))):
+            kernels.append(slice_entry(
+                f"{body}_{suffix}", body, ("rough_well",), KERNEL_SRC, src,
+                cli_counts(body, ("rough_well",), "body", idx=idx), err, idx == 1, variant))
+        for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
+            kernels.append(slice_entry(
+                f"{body}_mm_{suffix}", body, mm, MM_KERNEL_SRC, src,
+                cli_counts(body, mm, "body", idx=idx), mm_err_b, idx == 1, variant))
+    kernels += [
+        slice_entry("mjhmc_run_two_stage", "two_stage", ("rough_well",), KERNEL_SRC, RUN_SRC,
+                    sum(cli_counts(s, ("rough_well",), "two_stage", "two_stage")
+                        for s in ("mjhmc", "control")),
+                    max(slice_err["rough_well mjhmc two_stage"],
+                        slice_err["rough_well control two_stage"]), False, TWO_STAGE_BRANCH),
+        slice_entry("mjhmc_mm_run_two_stage", "two_stage", ("product_of_t",), MM_KERNEL_SRC,
+                    MM_RUN_SRC, sum(cli_counts(s, ("product_of_t",), "two_stage", "two_stage")
+                                    for s in ("mjhmc", "control")),
+                    max(slice_err[c] for c in (
+                        "product_of_t mjhmc two_stage", "product_of_t control two_stage inv_mass",
+                        "sparse_coding control two_stage inv_mass")), False, TWO_STAGE_BRANCH),
+        slice_entry("mjhmc_run_inv_mass", "inv_mass", ("gauss50d",), KERNEL_SRC, RUN_SRC,
+                    mass_res["gauss50d"][0][0],
+                    max(slice_err[f"gauss50d {b} inv_mass"] for b in ("mjhmc", "control", "malt")),
+                    False, MASS_BRANCH),
+        slice_entry("mjhmc_mm_run_inv_mass", "inv_mass", ("product_of_t",), MM_KERNEL_SRC,
+                    MM_RUN_SRC, mass_res["product_of_t"][0][0],
+                    max(slice_err[c] for c in (
+                        "product_of_t control two_stage inv_mass", "sparse_coding mjhmc inv_mass",
+                        "sparse_coding control two_stage inv_mass")), False, MASS_BRANCH),
+    ]
+    check(all(kern["launches"] > 0 for kern in kernels),
+          f"kernels not launched on their main paths: "
+          f"{[kern['name'] for kern in kernels if not kern['launches'] > 0]}")
+    phase("21 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,15 +3,19 @@
     python -m mjhmc_tpu_torch sample --config rough_well --engine cuda --steps 1000
     python -m mjhmc_tpu_torch sample --config sparse_coding --engine cuda
     python -m mjhmc_tpu_torch sample --config gauss2d --engine cuda --sampler nuts
+    python -m mjhmc_tpu_torch sample --config rough_well --sampler control --integrator two_stage
+    python -m mjhmc_tpu_torch sample --config product_of_t --sampler malt --gamma 1.0
     python -m mjhmc_tpu_torch bench
 
-``sample`` runs MJHMC (or, with ``--engine cuda --sampler nuts``, the fused
-NUTS engine at max_depth 8) and prints the JSON record of ``mjhmc_tpu``'s
-``sample``; ``--engine cuda`` is the fused engine (its plain version when
-``--device cpu``), ``--engine torch`` the plain sampler. The configs ported
-so far are gauss2d, gauss50d, rough_well, rough_well_a3 (elementwise
-kernel), product_of_t and sparse_coding (matmul kernel; MJHMC only). The
-JAX package's other subcommands are not ported yet (ROADMAP.md, slice H).
+``sample`` runs MJHMC, control HMC or MALT (``--gamma`` is MALT's friction,
+carried in the engine's β slot; ``--integrator two_stage`` for MJHMC and
+control), or, with ``--engine cuda --sampler nuts``, the fused NUTS engine
+at max_depth 8, and prints the JSON record of ``mjhmc_tpu``'s ``sample``.
+``--engine cuda`` is the fused engine (its plain version when ``--device
+cpu``), ``--engine torch`` the plain sampler. The configs ported so far are
+gauss2d, gauss50d, rough_well, rough_well_a3 (elementwise kernel),
+product_of_t and sparse_coding (matmul kernel; no NUTS). The JAX package's
+other subcommands and samplers are not ported yet (ROADMAP.md, slice H).
 """
 
 from __future__ import annotations
@@ -35,38 +39,46 @@ def cmd_sample(args):
     dist = cfg.make_distribution()
     nbatch = args.nbatch or cfg.nbatch
     evals = None
+    common = dict(epsilon=cfg.epsilon, nbatch=nbatch, seed=args.seed, device=device)
 
     if args.engine == "cuda":
-        from mjhmc_tpu_torch.ops.cuda_mjhmc import CudaMJHMC, CudaNUTS
+        from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
 
-        # the NUTS engine's num_leapfrog slot is max_depth, not M
-        nuts = args.sampler == "nuts"
-        eng = (CudaNUTS if nuts else CudaMJHMC)(
-            dist, epsilon=cfg.epsilon, beta=cfg.beta,
-            num_leapfrog_steps=8 if nuts else cfg.num_leapfrog_steps, nbatch=nbatch,
-            seed=args.seed, device=device,
-        )
+        ecls = {"mjhmc": cm.CudaMJHMC, "control": cm.CudaControlHMC,
+                "malt": cm.CudaMALT, "nuts": cm.CudaNUTS}[args.sampler]
+        # MALT's friction rides in the β slot; the NUTS engine's
+        # num_leapfrog slot is max_depth, not M
+        beta = args.gamma if args.sampler == "malt" else cfg.beta
+        nlf = 8 if args.sampler == "nuts" else cfg.num_leapfrog_steps
+        try:
+            eng = ecls(dist, beta=beta, num_leapfrog_steps=nlf,
+                       integrator=args.integrator, **common)
+        except NotImplementedError as e:
+            raise SystemExit(f"--sampler {args.sampler}: {e}") from e
         eng.run(args.burn)
         xs_t, ws_t = eng.sample(args.steps)
         grad_evals, evals = eng.grad_evals, eng.evals.cpu().numpy()
     else:
+        from mjhmc_tpu_torch import samplers
+
         if args.sampler == "nuts":
             raise SystemExit("--engine torch --sampler nuts needs the plain NUTS "
                              "sampler, which is not ported yet (ROADMAP.md, slice D); "
                              "use --engine cuda")
-        from mjhmc_tpu_torch.samplers import MarkovJumpHMC
-
-        s = MarkovJumpHMC(
-            dist, epsilon=cfg.epsilon, beta=cfg.beta,
-            num_leapfrog_steps=cfg.num_leapfrog_steps, nbatch=nbatch,
-            seed=args.seed, device=device,
-        )
+        m = cfg.num_leapfrog_steps
+        if args.sampler == "malt":  # the plain MALT takes no integrator, as in JAX
+            s = samplers.MALT(dist, gamma=args.gamma, num_leapfrog_steps=m, **common)
+        else:
+            cls = samplers.ControlHMC if args.sampler == "control" else samplers.MarkovJumpHMC
+            s = cls(dist, beta=cfg.beta, num_leapfrog_steps=m, integrator=args.integrator,
+                    **common)
         s.burn_in(args.burn)
         out = s.sample(args.steps)
-        xs_t, ws_t = out["x"], out["dwell"]
+        xs_t, ws_t = out["x"], out.get("dwell")
         grad_evals = s.grad_evals
 
-    xs, w = xs_t.cpu().numpy(), ws_t.cpu().numpy()
+    xs = xs_t.cpu().numpy()
+    w = np.ones(xs[:, 0].shape, np.float32) if ws_t is None else ws_t.cpu().numpy()
     ww = w[:, None, :]
     mean = (ww * xs).sum(axis=(0, 2)) / ww.sum()
     var = (ww * xs**2).sum(axis=(0, 2)) / ww.sum() - mean**2
@@ -85,7 +97,9 @@ def cmd_sample(args):
     }
     if args.save:
         extra = {} if evals is None else {"evals": evals}
-        np.savez(args.save, x=xs, dwell=w, **extra)
+        if ws_t is not None:
+            extra["dwell"] = w
+        np.savez(args.save, x=xs, **extra)
         rec["saved"] = args.save
     print(json.dumps(rec))
 
@@ -104,7 +118,13 @@ def main(argv=None):
     sp.add_argument("--config", default="rough_well")
     sp.add_argument("--nbatch", type=int, default=None)
     sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--sampler", choices=["mjhmc", "nuts"], default="mjhmc")
+    sp.add_argument("--sampler", choices=["mjhmc", "control", "malt", "nuts"],
+                    default="mjhmc")
+    sp.add_argument("--gamma", type=float, default=1.0,
+                    help="MALT friction (per unit time)")
+    sp.add_argument("--integrator", choices=["leapfrog", "two_stage"], default="leapfrog",
+                    help="two_stage: the BCSS minimal-error splitting, 2 gradients "
+                         "per step (mjhmc and control)")
     sp.add_argument("--steps", type=int, default=1000)
     sp.add_argument("--burn", type=int, default=500)
     sp.add_argument("--save", default=None,

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from mjhmc_tpu_torch.models import Gaussian, ProductOfT, RoughWell, SparseCoding
-from mjhmc_tpu_torch.samplers.state import ChainState, MJState
+from mjhmc_tpu_torch.samplers.state import ChainState, HMCState, MJState
 
 _PORTED = {
     "RoughWell": RoughWell,
@@ -43,6 +43,22 @@ def _chains_last(a, per_dim: bool) -> np.ndarray:
     return a.reshape(a.shape[0], -1) if per_dim else a.reshape(-1)
 
 
+def _chain_from_jax(x, v, grad, u, device):
+    f32 = np.float32
+
+    def state(a):
+        return torch.as_tensor(_chains_last(a, True).astype(f32), device=device)
+
+    return ChainState(x=state(x), v=state(v),
+                      u=torch.as_tensor(_chains_last(u, False).astype(f32), device=device),
+                      grad=state(grad))
+
+
+def _scalar(a, n, dtype, device):
+    a = np.zeros((n,)) if a is None else _chains_last(a, False)
+    return torch.as_tensor(a.astype(dtype), device=device)
+
+
 def state_from_jax(x, v, grad, u, h_back=None, back_valid=None,
                    grad_evals=None, dwell_sum=None, device="cpu") -> MJState:
     """Turn NumPy arrays of a JAX chain state into the port's ``MJState``.
@@ -50,21 +66,23 @@ def state_from_jax(x, v, grad, u, h_back=None, back_valid=None,
     Takes either JAX layout: ``MJState``'s (d, n) / (n,) or the Pallas
     engine's (d, 8, L) / (8, L). Missing cache and counters start empty.
     """
-    f32 = np.float32
     n = _chains_last(x, True).shape[1]
-
-    def state(a):
-        return torch.as_tensor(_chains_last(a, True).astype(f32), device=device)
-
-    def scalar(a, dtype):
-        a = np.zeros((n,)) if a is None else _chains_last(a, False)
-        return torch.as_tensor(a.astype(dtype), device=device)
-
-    chain = ChainState(x=state(x), v=state(v), u=scalar(u, f32), grad=state(grad))
     return MJState(
-        chain=chain,
-        h_back=scalar(h_back, f32),
-        back_valid=scalar(back_valid, bool),
-        grad_evals=scalar(grad_evals, np.int32),
-        dwell_sum=scalar(dwell_sum, f32),
+        chain=_chain_from_jax(x, v, grad, u, device),
+        h_back=_scalar(h_back, n, np.float32, device),
+        back_valid=_scalar(back_valid, n, bool, device),
+        grad_evals=_scalar(grad_evals, n, np.int32, device),
+        dwell_sum=_scalar(dwell_sum, n, np.float32, device),
+    )
+
+
+def hmc_state_from_jax(x, v, grad, u, grad_evals=None, n_accept=None,
+                       device="cpu") -> HMCState:
+    """Turn NumPy arrays of a JAX ``HMCState`` (control HMC, MALT) into the
+    port's ``HMCState``; missing counters start at 0."""
+    n = _chains_last(x, True).shape[1]
+    return HMCState(
+        chain=_chain_from_jax(x, v, grad, u, device),
+        grad_evals=_scalar(grad_evals, n, np.int32, device),
+        n_accept=_scalar(n_accept, n, np.int32, device),
     )

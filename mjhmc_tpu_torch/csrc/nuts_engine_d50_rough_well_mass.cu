@@ -1,0 +1,9 @@
+// The D=50 rough-well instance of the NUTS body with a mass
+// (nuts::nuts_kernel in mjhmc_engine.cuh), compiled by its own nvcc.
+#include "mjhmc_engine.cuh"
+
+namespace mjhmc {
+
+template Launch launch_instance<kNuts, 50, kRoughWell, true>;
+
+}  // namespace mjhmc

@@ -14,7 +14,16 @@
 // - tag 2, NUTS round: slot jj (the doubling round), word 0 picks the
 //   direction, word 1 the merge;
 // - tag 3, NUTS leaf: the leaf at tree position k = 2^jj - 1 + i (leaf i
-//   of round jj) takes word k % 4 of slot k / 4.
+//   of round jj) takes word k % 4 of slot k / 4;
+// - tag 4, control HMC: slot b holds words 4b..4b+3 of the iteration's
+//   2d + 1: dim i's corruption normal xi takes words i and d+i, the
+//   Metropolis uniform word 2d;
+// - tag 5, MALT refresh: the same layout, dim i's fresh momentum from words
+//   i and d+i, the Metropolis uniform word 2d;
+// - tag 6, MALT O-step noise: O-step o (0..2M-1, two per leapfrog step)
+//   takes slots o*B..o*B+B-1, B = ceil(2d/4), dim i's normal from words i
+//   and d+i of its 2d.
+// Every normal is Box-Muller's cosine branch, sqrt(-2 ln u1)*cos(2 pi u2).
 #pragma once
 
 #include <stdint.h>
@@ -31,6 +40,9 @@ enum PhiloxTag : uint32_t {
   kTagNutsMomentum = 1,
   kTagNutsRound = 2,
   kTagNutsLeaf = 3,
+  kTagControl = 4,
+  kTagMaltRefresh = 5,
+  kTagMaltNoise = 6,
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
@@ -58,10 +70,13 @@ __device__ __forceinline__ uint32_t word_of(uint4 r, uint32_t j) {
   }
 }
 
-// Word k of a (chain, iteration) MJHMC draw: output k % 4 of block k / 4.
+// Word k of a (chain, iteration) draw of family tag whose words start at
+// slot slot0: output k % 4 of slot slot0 + k / 4 (MJHMC: slot0 0, tag 0).
 __device__ __forceinline__ uint32_t philox_word(uint32_t chain, uint32_t t,
-                                                uint32_t k, uint2 key) {
-  return word_of(philox4x32_10(make_uint4(chain, t, k >> 2, kTagMjhmc), key), k);
+                                                uint32_t k, uint2 key,
+                                                uint32_t tag = kTagMjhmc,
+                                                uint32_t slot0 = 0) {
+  return word_of(philox4x32_10(make_uint4(chain, t, slot0 + (k >> 2), tag), key), k);
 }
 
 // U(0,1) from one word, built as the TPU kernel's _uniform builds it: the

@@ -2,11 +2,14 @@
 ctypes.
 
 The library has a plain C interface, so nvcc compiles it without PyTorch's
-headers. Each kernel source is compiled to an object by its own nvcc, all
-started together, and one more nvcc links the objects into one shared
-library. It is built at first use into ``build/mjhmc_tpu_torch/`` beside
-the package, under a name keyed by a hash of the sources and flags, so an
-edited source builds anew and an unchanged one is reused.
+headers. Every ``.cu`` source of ``csrc/`` is compiled to an object by its
+own nvcc, all started together (the kernels are templates in the ``.cuh``
+headers, and the slow D=50 instances have sources of their own), and one
+more nvcc links the objects into one shared library, refusing undefined
+symbols. The compiler's report and each source's wall time go to the
+build's ``.log``. It is built at first use into ``build/mjhmc_tpu_torch/``
+beside the package, under a name keyed by a hash of the sources and flags,
+so an edited source builds anew and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -17,12 +20,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-#: the compiled units, one object each
-KERNEL_SOURCES = ("mjhmc_engine.cu", "mjhmc_mm_engine.cu", "ceilings.cu")
-SOURCES = KERNEL_SOURCES + ("philox.cuh",)
+#: the compiled sources, one object each, and every file the build reads
+KERNEL_SOURCES = tuple(sorted(p.name for p in CSRC.glob("*.cu")))
+SOURCES = KERNEL_SOURCES + tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mjhmc_tpu_torch"
 # no --use_fast_math: the rough well's sin/cos arguments reach ~100 rad, and
 # the Kahan sums need IEEE arithmetic
@@ -42,11 +46,13 @@ _STATE_AND_RUN = (
 #: argument types of ``mjhmc_engine_launch`` (csrc/mjhmc_engine.cu)
 LAUNCH_ARGTYPES = (
     [_I, _I, _I, _P] + [_F] * 5  # variant, ndims, energy, params, k0..k4
+    + [_P, _I]  # mass, two_stage
     + _STATE_AND_RUN
 )
 #: argument types of ``mjhmc_mm_engine_launch`` (csrc/mjhmc_mm_engine.cu)
 MM_LAUNCH_ARGTYPES = (
-    [_I, _I, _I, _I, _P, _P] + [_F] * 4  # energy, ndims, krows, stub, p0, p1, k0..k3
+    [_I, _I, _I, _I, _I, _P, _P] + [_F] * 4  # energy, ndims, krows, stub, variant, p0, p1, k0..k3
+    + [_P, _I]  # mass, two_stage
     + _STATE_AND_RUN
 )
 #: argument types of the ceiling probes (csrc/ceilings.cu)
@@ -81,17 +87,30 @@ def build() -> Path:
     nvcc = _nvcc()
     stem = path.parent / f"{path.name}.{os.getpid()}"
     objs = [Path(f"{stem}.{name}.o") for name in KERNEL_SOURCES]
-    procs = [
-        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, obj in zip(KERNEL_SOURCES, objs)
-    ]
-    log = "".join(p.communicate()[0] for p in procs)
+    logs = [obj.with_suffix(".log") for obj in objs]
+    t0 = time.perf_counter()
+    procs = []
+    for name, obj, lg in zip(KERNEL_SOURCES, objs, logs):
+        with open(lg, "w") as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                stdout=f, stderr=subprocess.STDOUT))
+    seconds = {}
+    while len(seconds) < len(procs):
+        for i, proc in enumerate(procs):
+            if i not in seconds and proc.poll() is not None:
+                seconds[i] = time.perf_counter() - t0
+        time.sleep(0.1)
+    log = ""
+    for i, (name, lg) in enumerate(zip(KERNEL_SOURCES, logs)):
+        log += lg.read_text() + f"nvcc {name}: {seconds[i]:.1f} s\n"
+        lg.unlink()
     rcs = [p.returncode for p in procs]
     if not any(rcs):
         tmp = Path(f"{stem}.tmp")
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
+        # an instance a header declares and no source compiles fails here
+        link = subprocess.run([nvcc, "-shared", "-Xlinker", "--no-undefined", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
         log += link.stdout + link.stderr
         rcs.append(link.returncode)
     for obj in objs:

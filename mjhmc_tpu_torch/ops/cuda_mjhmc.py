@@ -1,42 +1,49 @@
-"""Fused MJHMC engine on CUDA (counterpart of ``mjhmc_tpu.ops.pallas_mjhmc``).
+"""Fused MJHMC, control HMC, MALT and NUTS engines on CUDA (counterpart of
+``mjhmc_tpu.ops.pallas_mjhmc``).
 
-One kernel launch runs a whole sampling run: per chain, ``num_steps`` jump
-iterations, each integrating the forward and backward M-step leapfrog
-trajectories, computing the clipped rates and the dwell weight, choosing
-L, F or R by inverse CDF, refreshing momentum by Box-Muller and updating
-the backward-energy cache; it accumulates Kahan sums of Σw, Σw·x, Σw·x²
-and the exact int32 eval counters. The stream form also emits every
-``thin``-th iteration's pre-transition x, dwell weight and cumulative evals.
+One kernel launch runs a whole sampling run of one step body, chosen by
+``variant`` as the TPU kernels choose from ``_STEP_BUILDERS``:
+
+- ``"mjhmc"``: per chain, ``num_steps`` jump iterations, each integrating
+  the forward and backward M-step trajectories, computing the clipped
+  rates and the dwell weight, choosing L, F or R by inverse CDF, refreshing
+  momentum by Box-Muller and updating the backward-energy cache;
+- ``"control"``: partial momentum corruption, one forward trajectory,
+  Metropolis accept, momentum flip on reject (``beta`` is the corruption
+  fraction);
+- ``"malt"``: a full refresh, M OBABO steps, one trajectory-level accept
+  (``beta`` carries the friction γ);
+- ``"nuts"`` (elementwise kernel only): up to max_depth doubling rounds
+  with progressive multinomial sampling and the binary-counter U-turn
+  stack (the ``num_leapfrog`` slot is max_depth).
+
+Every body takes a diagonal inverse mass (``inv_mass``), and MJHMC and
+control the BCSS two-stage integrator (``integrator="two_stage"``, two
+gradients per step, counted). Each run accumulates Kahan sums of Σw, Σw·x,
+Σw·x² and the exact int32 eval counters; the stream form also emits every
+``thin``-th iteration's x (MJHMC: pre-transition with its dwell weight; the
+others: post-transition with weight 1) and cumulative evals.
 
 There are two hand-written CUDA C++ kernels, built by ``ops._build``:
-``csrc/mjhmc_engine.cu`` for the elementwise energies (rough well,
-Gaussian; one thread per chain) and ``csrc/mjhmc_mm_engine.cu`` for the
-matmul energies (product of t, sparse coding; tiles of chains per block,
-the parameter matrix in shared memory). Beside them this module holds
-their plain PyTorch version (``mjhmc_run_reference`` /
-``mjhmc_stream_reference``, one for both kinds) with the same contract. The
-wrappers ``cuda_mjhmc_run`` / ``cuda_mjhmc_stream_run`` (elementwise) and
-``cuda_mjhmc_mm_run`` / ``cuda_mjhmc_mm_stream_run`` (matmul) launch their
-kernel for CUDA tensors and call the plain version for CPU tensors.
-
-The elementwise kernel also runs the NUTS step body (``variant="nuts"``
-of ``cuda_mjhmc_run`` / ``cuda_mjhmc_stream_run``, counterpart of
-``_make_step_nuts``; plain version ``nuts_run_reference`` /
-``nuts_stream_reference``, engine ``CudaNUTS``): per chain a fresh
-momentum, up to max_depth doubling rounds with progressive multinomial
-sampling and the binary-counter U-turn stack, the post-transition x
-emitted with weight 1 and the integrated leaves counted as evals.
+``csrc/mjhmc_engine.cuh`` for the elementwise energies (rough well,
+Gaussian; one thread per chain; C entry ``csrc/mjhmc_engine.cu``) and
+``csrc/mjhmc_mm_engine.cuh`` for the matmul energies (product of t, sparse
+coding; tiles of chains per block, the parameter matrix in shared memory;
+C entry ``csrc/mjhmc_mm_engine.cu``). Beside them this module holds
+their plain PyTorch versions (``run_reference`` / ``stream_reference``, one
+for both kinds) with the same contract. The wrappers ``cuda_mjhmc_run`` /
+``cuda_mjhmc_stream_run`` (elementwise) and ``cuda_mjhmc_mm_run`` /
+``cuda_mjhmc_mm_stream_run`` (matmul) launch their kernel for CUDA tensors
+and call the plain version for CPU tensors; the engines ``CudaMJHMC``,
+``CudaControlHMC``, ``CudaMALT`` and ``CudaNUTS`` hold the chains.
 
 Random numbers come from Philox4x32-10 keyed by the run seed with counter
-(chain, iteration, slot, tag). MJHMC (tag 0): 1 + 2·d words per iteration
-in slots of four (word 0 picks the clock, words 1+i and 1+d+i make dim i's
-Box-Muller normal). NUTS keys every draw by its position in the tree: tag 1
-holds the momentum's 2·d words (dim i from words i and d+i), tag 2 slot jj
-the round's direction (word 0) and merge (word 1) uniforms, tag 3 the leaf
-uniform of tree position k = 2^jj − 1 + i as word k % 4 of slot k // 4. The
-plain versions compute the same words bit for bit. ``fixed_uniform=True``
-makes every uniform 2⁻²⁵ in both, which is what the TPU kernel gives in
-Pallas interpret mode, so the CPU tests can hold this engine against it.
+(chain, iteration, slot, tag), each draw keyed by its position, never by
+how many draws a chain has made (``csrc/philox.cuh`` lays the tags out:
+MJHMC 0, NUTS 1-3, control 4, MALT 5-6). The plain versions compute the
+same words bit for bit. ``fixed_uniform=True`` makes every uniform 2⁻²⁵ in
+both, which is what the TPU kernels give in Pallas interpret mode, so the
+CPU tests can hold this engine against them.
 
 Public layout is the JAX one without the TPU's (d, 8, L) fold: states
 (d, nbatch), per-chain scalars (nbatch,), any nbatch.
@@ -58,7 +65,8 @@ from mjhmc_tpu_torch.models.gaussian import Gaussian
 from mjhmc_tpu_torch.models.product_of_t import ProductOfT
 from mjhmc_tpu_torch.models.rough_well import RoughWell
 from mjhmc_tpu_torch.models.sparse_coding import SparseCoding
-from mjhmc_tpu_torch.samplers.state import MJState
+from mjhmc_tpu_torch.ops.leapfrog import TWO_STAGE_B
+from mjhmc_tpu_torch.samplers.state import MJState, checked_device
 
 Tensor = torch.Tensor
 
@@ -68,15 +76,27 @@ NEG_INF = -1e30
 #: returns zero bits, and _uniform turns those into 2⁻²⁵)
 FIXED_UNIFORM = 2.0**-25
 #: state dimensions the elementwise kernel is instantiated for
-#: (csrc/mjhmc_engine.cu)
+#: (csrc/mjhmc_engine.cu and the *_d50.cu sources)
 KERNEL_DIMS = (2, 50)
-#: deepest tree the NUTS kernel holds a U-turn stack for (csrc/mjhmc_engine.cu)
+#: deepest tree the NUTS kernel holds a U-turn stack for (csrc/mjhmc_engine.cuh)
 NUTS_MAX_DEPTH = 10
 NUTS_DIV_THRESHOLD = 1000.0
 #: Philox counter tags (csrc/philox.cuh)
 TAG_NUTS_MOMENTUM, TAG_NUTS_ROUND, TAG_NUTS_LEAF = 1, 2, 3
-#: the elementwise kernel's variants (csrc/mjhmc_engine.cu)
-KERNEL_VARIANTS = {"mjhmc": 0, "nuts": 1}
+TAG_CONTROL, TAG_MALT_REFRESH, TAG_MALT_NOISE = 4, 5, 6
+#: the step bodies and their numbers in both kernels (csrc/mjhmc_engine.cuh;
+#: the matmul kernel has all but NUTS)
+KERNEL_VARIANTS = {"mjhmc": 0, "nuts": 1, "control": 2, "malt": 3}
+INTEGRATORS = ("leapfrog", "two_stage")
+_MALT_LEAPFROG_ONLY = (
+    "the MALT body's OBABO splitting is leapfrog-structured, as the JAX "
+    "engine's is (mjhmc_tpu/ops/pallas_mjhmc.py:959): use the plain "
+    "samplers.malt for other integrators"
+)
+_NUTS_LEAPFROG_ONLY = (
+    "the NUTS tree's reversibility bookkeeping assumes the leapfrog "
+    "integrator, as the JAX engine's does (mjhmc_tpu/ops/pallas_mjhmc.py:1042)"
+)
 
 
 # --------------------------------------------------------------------------
@@ -222,7 +242,8 @@ class SparseCodingSpec:
 ELEMENTWISE_SPECS = (RoughWellSpec, GaussianSpec)
 MATMUL_SPECS = (ProductOfTSpec, SparseCodingSpec)
 #: (ndims, aux rows) the matmul kernel is instantiated for, per spec
-#: (csrc/mjhmc_mm_engine.cu): the product_of_t and sparse_coding presets
+#: (csrc/mjhmc_mm_engine.cu, mm_engine_sparse_coding.cu): the product_of_t
+#: and sparse_coding presets
 MM_KERNEL_SHAPES = {ProductOfTSpec: (36, 36), SparseCodingSpec: (128, 64)}
 
 _UNPORTED_ENERGIES = (
@@ -250,16 +271,14 @@ def energy_spec_for(dist):
 def _check_slice(spec, variant, integrator, inv_mass, kinds):
     """Refuse what the kernels do not cover; ``kinds`` are the spec types
     of the calling wrapper's kernel."""
-    if variant not in ("mjhmc", "nuts"):
+    if variant not in KERNEL_VARIANTS:
+        raise ValueError(f"unknown engine variant {variant!r}; the kernels run "
+                         f"{sorted(KERNEL_VARIANTS)}")
+    if integrator not in INTEGRATORS:
+        raise ValueError(f"unknown integrator {integrator!r}; the kernels run {INTEGRATORS}")
+    if integrator == "two_stage" and variant in ("malt", "nuts"):
         raise NotImplementedError(
-            f"engine variant {variant!r} is not ported yet "
-            "(ROADMAP.md, 'TPU kernels to port', items 3 and 6)"
-        )
-    if integrator != "leapfrog" or inv_mass is not None:
-        raise NotImplementedError(
-            "the two-stage integrator and inv_mass are not ported yet "
-            "(ROADMAP.md, 'TPU kernels to port', item 4)"
-        )
+            _MALT_LEAPFROG_ONLY if variant == "malt" else _NUTS_LEAPFROG_ONLY)
     if not isinstance(spec, ELEMENTWISE_SPECS + MATMUL_SPECS):
         raise NotImplementedError(
             f"no fused CUDA energy for {type(spec).__name__}: {_UNPORTED_ENERGIES}"
@@ -276,6 +295,11 @@ def _check_slice(spec, variant, integrator, inv_mass, kinds):
             "on the matmul kernel is queued (ROADMAP.md, 'TPU kernels to "
             "port', item 7)"
         )
+    if getattr(spec, "stub_dots", False) and (variant != "mjhmc" or integrator != "leapfrog"
+                                              or inv_mass is not None):
+        raise NotImplementedError(
+            "the stub_dots ablation runs the MJHMC leapfrog body without a mass "
+            "(the roofline dossier's row)")
 
 
 # --------------------------------------------------------------------------
@@ -324,8 +348,9 @@ def philox_block(seed: int, nbatch: int, t: int, slot: int, tag: int, device) ->
 
 
 def philox_uniforms(seed: int, iterations: range, nbatch: int, nwords: int,
-                    device) -> Tensor:
-    """(len(iterations), nwords, nbatch) float32 uniforms in (0, 1), built as
+                    device, tag: int = 0) -> Tensor:
+    """(len(iterations), nwords, nbatch) float32 uniforms in (0, 1) of the
+    draw family ``tag`` (word k from output k % 4 of slot k // 4), built as
     the TPU kernel's ``_uniform``: top 24 bits × 2⁻²⁴ + 2⁻²⁵. The draws do
     not depend on the state, so many iterations are made in one pass."""
     nblocks = (nwords + 3) // 4
@@ -334,7 +359,7 @@ def philox_uniforms(seed: int, iterations: range, nbatch: int, nwords: int,
         torch.arange(nbatch, **kw)[None, None, :],  # chain
         torch.tensor(list(iterations), **kw)[:, None, None],  # iteration
         torch.arange(nblocks, **kw)[None, :, None],  # block
-        torch.zeros((), **kw),
+        torch.full((), tag, **kw),
     )
     words = philox4x32(counter, (int(seed) & _MASK32, 0))  # each (T, nblocks, n)
     words = torch.stack(words, dim=2).reshape(len(iterations), 4 * nblocks, nbatch)
@@ -342,7 +367,7 @@ def philox_uniforms(seed: int, iterations: range, nbatch: int, nwords: int,
 
 
 # --------------------------------------------------------------------------
-# plain PyTorch version of the kernel
+# plain PyTorch versions of the kernels
 # --------------------------------------------------------------------------
 class RunOut(NamedTuple):
     """Counterpart of ``PallasRunOut`` on the (d, n) / (n,) layout."""
@@ -366,18 +391,83 @@ def _kadd(s, c, inc):
     return t, (t - s) - y
 
 
+class _Acc:
+    """The kernels' accumulators: Kahan sums of the emitted x with its
+    weight (Σw, Σw·x, Σw·x²), the exact int32 counters, and every
+    ``thin``-th (x, weight, cumulative evals) when emitting."""
+
+    def __init__(self, x, u, thin, emit):
+        self.w = self.wc = torch.zeros_like(u)
+        self.wx = self.wxc = self.wx2 = self.wx2c = torch.zeros_like(x)
+        self.evals = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
+        self.thin, self.emit, self.emits = thin, emit, []
+
+    def add(self, t, x, weight, inc):
+        self.evals = self.evals + inc
+        self.w, self.wc = _kadd(self.w, self.wc, weight)
+        self.wx, self.wxc = _kadd(self.wx, self.wxc, weight * x)
+        self.wx2, self.wx2c = _kadd(self.wx2, self.wx2c, weight * x * x)
+        if self.emit and (t + 1) % self.thin == 0:
+            self.emits.append((x, weight, self.evals))
+
+    def out(self, x, v, g, u, h_back, valid):
+        """The run's ``RunOut``; emitting, (xs, ws, es, RunOut)."""
+        out = RunOut(x, v, g, u, h_back, valid, self.w, self.wx, self.wx2, self.evals)
+        if not self.emit:
+            return out
+        if not self.emits:
+            d, n = x.shape
+            return x.new_empty((0, d, n)), u.new_empty((0, n)), self.evals.new_empty((0, n)), out
+        xs, ws, es = (torch.stack(c) for c in zip(*self.emits))
+        return xs, ws, es, out
+
+
 def _log_rate(h_to, h_cur):
     raw = -0.5 * (h_to - h_cur)
     ok = (h_to.abs() < 1e30) & (h_to == h_to)
     return torch.where(ok, raw.clamp(max=LOG_RATE_MAX), NEG_INF)
 
 
-def _halfsq(v):
-    return 0.5 * (v * v).sum(dim=-2)
+def _halfsq(v, im=None):
+    """½ Σ (v·v)·M⁻¹ per chain."""
+    return 0.5 * (v * v if im is None else v * v * im).sum(dim=-2)
+
+
+def _accept(log_ratio, h):
+    """Metropolis probability min(1, exp(log_ratio)); 0 where ``h`` is
+    non-finite, and a NaN ratio stays NaN so that it rejects (the kernels'
+    divergence guard)."""
+    ok = (h.abs() < 1e30) & (h == h)
+    return torch.where(ok, torch.exp(log_ratio.clamp(max=0.0)), 0.0)
+
+
+def _box_muller(un: Tensor, d: int) -> Tensor:
+    """Dim i's normal from uniforms i (radius) and d+i (angle) of ``un``."""
+    return torch.sqrt(-2.0 * torch.log(un[:d])) * torch.cos((2.0 * math.pi) * un[d:2 * d])
 
 
 #: iterations whose Philox draws the plain version makes in one pass
 _DRAW_CHUNK = 64
+
+
+class _Draws:
+    """Uniforms of one Philox draw family, ``nwords`` per chain and
+    iteration, made ``_DRAW_CHUNK`` iterations at a time (or every one 2⁻²⁵
+    in fixed-uniform mode)."""
+
+    def __init__(self, seed, num_iters, n, nwords, device, fixed_uniform, tag=0):
+        self.args = (seed, num_iters, n, nwords, device, tag)
+        self.fixed = (torch.full((nwords, n), FIXED_UNIFORM, device=device)
+                      if fixed_uniform else None)
+
+    def __call__(self, t: int) -> Tensor:
+        if self.fixed is not None:
+            return self.fixed
+        seed, num_iters, n, nwords, device, tag = self.args
+        if t % _DRAW_CHUNK == 0:
+            its = range(t, min(t + _DRAW_CHUNK, num_iters))
+            self.chunk = philox_uniforms(seed, its, n, nwords, device, tag=tag)
+        return self.chunk[t % _DRAW_CHUNK]
 
 
 def _param_tensors(spec, ndims: int, device) -> tuple:
@@ -388,6 +478,63 @@ def _param_tensors(spec, ndims: int, device) -> tuple:
     else:
         arrays = [spec.param_vector(ndims)[:, None]]
     return tuple(torch.as_tensor(a, device=device) for a in arrays)
+
+
+def _mass_tensor(inv_mass, d: int, device) -> Tensor | None:
+    """The (2, d) float32 (M⁻¹, √M) the kernels take, or None: √M is
+    ``torch.rsqrt`` of M⁻¹, computed once here, so the kernel and the plain
+    version scale by the same values (the JAX body's ``jax.lax.rsqrt``
+    rounds on its own: held at the tests' rtol)."""
+    if inv_mass is None:
+        return None
+    if isinstance(inv_mass, Tensor):
+        im = inv_mass.to(device=device, dtype=torch.float32).reshape(-1)
+    else:
+        im = torch.tensor(np.asarray(inv_mass, np.float32).reshape(-1), device=device)
+    if im.numel() != d:
+        raise ValueError(f"inv_mass must have {d} entries, got {im.numel()}")
+    return torch.stack([im, torch.rsqrt(im)]).contiguous()
+
+
+def _mass_columns(inv_mass, d, device):
+    """(M⁻¹, √M) as (d, 1) columns, or (None, None)."""
+    mass = _mass_tensor(inv_mass, d, device)
+    return (None, None) if mass is None else (mass[0][:, None], mass[1][:, None])
+
+
+def _two_stage_coefficients(epsilon) -> tuple:
+    """(bε, (1−2b)ε, ε/2) rounded to float32 as the JAX body (weak-typed
+    constants times the f32 step size) and the kernels form them."""
+    e = np.float32(epsilon)
+    return tuple(float(np.float32(c) * e)
+                 for c in (TWO_STAGE_B, 1.0 - 2.0 * TWO_STAGE_B, 0.5))
+
+
+def _integrate(spec, params, x, v, g, epsilon, m, im, two_stage):
+    """M leapfrog or BCSS two-stage steps of one trajectory (or a stack of
+    them), in the kernels' order of operations; returns (x, v, g)."""
+
+    def drift(x, v, c):
+        return x + c * (v if im is None else im * v)
+
+    if not two_stage:
+        he = 0.5 * epsilon
+        for _ in range(m):
+            vh = v - he * g
+            x = drift(x, vh, epsilon)
+            g = spec.du(x, *params)
+            v = vh - he * g
+        return x, v, g
+    cb, cm, ch = _two_stage_coefficients(epsilon)
+    for _ in range(m):
+        v1 = v - cb * g
+        x = drift(x, v1, ch)
+        g1 = spec.du(x, *params)
+        v2 = v1 - cm * g1
+        x = drift(x, v2, ch)
+        g = spec.du(x, *params)
+        v = v2 - cb * g
+    return x, v, g
 
 
 @contextlib.contextmanager
@@ -405,26 +552,23 @@ def _full_f32_matmul():
 
 @_full_f32_matmul()
 def _reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-               num_iters, m, thin, emit, fixed_uniform):
+               num_iters, m, thin, emit, fixed_uniform, inv_mass, integrator):
+    """The MJHMC step body ``_make_step``."""
     d, n = x.shape
     dev = x.device
     params = _param_tensors(spec, d, dev)
-    w = wc = torch.zeros_like(u)
-    wx = wxc = wx2 = wx2c = torch.zeros_like(x)
-    evals = torch.zeros(n, dtype=torch.int32, device=dev)
+    im, sm = _mass_columns(inv_mass, d, dev)
+    two_stage = integrator == "two_stage"
+    m_cost = (2 if two_stage else 1) * m
+    acc = _Acc(x, u, thin, emit)
+    draws = _Draws(seed, num_iters, n, 1 + 2 * d, dev, fixed_uniform)
     valid = back_valid
-    emits = []
-    he = 0.5 * epsilon
     for t in range(num_iters):
-        h_cur = u + _halfsq(v)
-        xs2, vs2, gs2 = torch.stack([x, x]), torch.stack([v, -v]), torch.stack([g, g])
-        for _ in range(m):
-            vh = vs2 - he * gs2
-            xs2 = xs2 + epsilon * vh
-            gs2 = spec.du(xs2, *params)
-            vs2 = vh - he * gs2
+        h_cur = u + _halfsq(v, im)
+        xs2, vs2, gs2 = _integrate(spec, params, torch.stack([x, x]), torch.stack([v, -v]),
+                                   torch.stack([g, g]), epsilon, m, im, two_stage)
         us2 = spec.u_sum(xs2, *params)
-        h2 = us2 + _halfsq(vs2)
+        h2 = us2 + _halfsq(vs2, im)
         h_l = h2[0]
         h_b = torch.where(valid > 0.5, h_back, h2[1])
 
@@ -433,57 +577,111 @@ def _reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         total = gamma_l + gamma_f + beta
         dwell = 1.0 / total
 
-        if fixed_uniform:
-            unif = torch.full((1 + 2 * d, n), FIXED_UNIFORM, device=dev)
-        else:
-            if t % _DRAW_CHUNK == 0:
-                its = range(t, min(t + _DRAW_CHUNK, num_iters))
-                draws = philox_uniforms(seed, its, n, 1 + 2 * d, dev)
-            unif = draws[t % _DRAW_CHUNK]
+        unif = draws(t)
         u_sel = unif[0] * total
         is_l = u_sel < gamma_l
         is_f = ~is_l & (u_sel < gamma_l + gamma_f)
         is_r = ~is_l & ~is_f
 
-        evals = evals + torch.where(valid > 0.5, m, 2 * m).to(torch.int32)
-        w, wc = _kadd(w, wc, dwell)
-        wx, wxc = _kadd(wx, wxc, dwell * x)
-        wx2, wx2c = _kadd(wx2, wx2c, dwell * x * x)
-        if emit and (t + 1) % thin == 0:
-            emits.append((x, dwell, evals))
-
-        v_fresh = torch.sqrt(-2.0 * torch.log(unif[1 : 1 + d])) * torch.cos(
-            (2.0 * math.pi) * unif[1 + d :]
-        )
+        acc.add(t, x, dwell, torch.where(valid > 0.5, m_cost, 2 * m_cost).to(torch.int32))
+        v_fresh = _box_muller(unif[1:], d)
+        if sm is not None:
+            v_fresh = v_fresh * sm  # N(0, M) refresh
         x = torch.where(is_l, xs2[0], x)
         v = torch.where(is_l, vs2[0], torch.where(is_f, -v, v_fresh))
         g = torch.where(is_l, gs2[0], g)
         u = torch.where(is_l, us2[0], u)
         h_back = torch.where(is_l, h_cur, torch.where(is_f, h_l, h_back))
         valid = torch.where(is_r, 0.0, 1.0)
-    out = RunOut(x, v, g, u, h_back, valid, w, wx, wx2, evals)
-    if not emit:
-        return out
-    if not emits:
-        return x.new_empty((0, d, n)), u.new_empty((0, n)), evals.new_empty((0, n)), out
-    xs, ws, es = (torch.stack(c) for c in zip(*emits))
-    return xs, ws, es, out
+    return acc.out(x, v, g, u, h_back, valid)
 
 
-def mjhmc_run_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
-                        beta, num_steps, num_leapfrog, fixed_uniform=False):
-    """Plain PyTorch version of the run kernel (same contract, any device)."""
-    return _reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-                      num_steps, num_leapfrog, 1, False, fixed_uniform)
+@_full_f32_matmul()
+def _reference_control(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                       num_iters, m, thin, emit, fixed_uniform, inv_mass, integrator):
+    """The control HMC step body ``_make_step_control``: ``beta`` is the
+    corruption fraction; H₀ and the first kick use the carried u and g."""
+    d, n = x.shape
+    dev = x.device
+    params = _param_tensors(spec, d, dev)
+    im, sm = _mass_columns(inv_mass, d, dev)
+    two_stage = integrator == "two_stage"
+    inc = torch.full((n,), (2 if two_stage else 1) * m, dtype=torch.int32, device=dev)
+    b = np.float32(beta)
+    sb, sb1 = float(np.sqrt(b)), float(np.sqrt(max(np.float32(1.0) - b, np.float32(0.0))))
+    acc = _Acc(x, u, thin, emit)
+    ones = torch.ones_like(u)
+    draws = _Draws(seed, num_iters, n, 2 * d + 1, dev, fixed_uniform, TAG_CONTROL)
+    for t in range(num_iters):
+        unif = draws(t)
+        xi = _box_muller(unif, d)
+        if sm is not None:
+            xi = xi * sm  # ξ ~ N(0, M)
+        v = sb1 * v + sb * xi
+        h0 = u + _halfsq(v, im)
+        xf, vf, gf = _integrate(spec, params, x, v, g, epsilon, m, im, two_stage)
+        uf = spec.u_sum(xf, *params)
+        h_l = uf + _halfsq(vf, im)
+        accept = unif[2 * d] < _accept(h0 - h_l, h_l)
+        x = torch.where(accept, xf, x)
+        v = torch.where(accept, vf, -v)  # flip on reject
+        u = torch.where(accept, uf, u)
+        g = torch.where(accept, gf, g)
+        acc.add(t, x, ones, inc)
+    return acc.out(x, v, g, u, h_back, back_valid)
 
 
-def mjhmc_stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
-                           beta, num_emits, thin, num_leapfrog,
-                           fixed_uniform=False):
-    """Plain PyTorch version of the stream kernel: returns (xs (E, d, n),
-    ws (E, n), es (E, n) int32, RunOut)."""
-    return _reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-                      num_emits * thin, num_leapfrog, thin, True, fixed_uniform)
+@_full_f32_matmul()
+def _reference_malt(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                    num_iters, m, thin, emit, fixed_uniform, inv_mass, integrator):
+    """The MALT step body ``_make_step_malt``: ``beta`` is the friction γ."""
+    if integrator != "leapfrog":
+        raise NotImplementedError(_MALT_LEAPFROG_ONLY)
+    d, n = x.shape
+    dev = x.device
+    params = _param_tensors(spec, d, dev)
+    im, sm = _mass_columns(inv_mass, d, dev)
+    eps = torch.tensor(epsilon, dtype=torch.float32, device=dev)
+    eta = torch.exp(-torch.tensor(beta, dtype=torch.float32, device=dev) * eps * 0.5)
+    sig = torch.sqrt((1.0 - eta * eta).clamp(min=0.0))
+    he = 0.5 * epsilon
+    inc = torch.full((n,), m, dtype=torch.int32, device=dev)
+    acc = _Acc(x, u, thin, emit)
+    ones = torch.ones_like(u)
+    refresh = _Draws(seed, num_iters, n, 2 * d + 1, dev, fixed_uniform, TAG_MALT_REFRESH)
+    nblocks = (2 * d + 3) // 4  # slots of one O-step's 2d words
+
+    def noise(un):
+        z = _box_muller(un, d)
+        return z if sm is None else z * sm
+
+    for t in range(num_iters):
+        unif = refresh(t)
+        if fixed_uniform:
+            o_unif = unif[None, :2 * d].expand(2 * m, 2 * d, n)
+        else:
+            o_unif = philox_uniforms(seed, range(t, t + 1), n, 2 * m * 4 * nblocks, dev,
+                                     tag=TAG_MALT_NOISE)[0].reshape(2 * m, 4 * nblocks, n)
+        v0 = noise(unif)
+        xl, vl, gl, ul = x, v0, g, u
+        delta = torch.zeros_like(u)
+        for k in range(m):
+            vl = eta * vl + sig * noise(o_unif[2 * k])  # O
+            h_in = ul + _halfsq(vl, im)
+            vh = vl - he * gl  # B
+            xl = xl + epsilon * (vh if im is None else im * vh)  # A
+            gl = spec.du(xl, *params)
+            vl = vh - he * gl  # B
+            ul = spec.u_sum(xl, *params)
+            delta = delta + (ul + _halfsq(vl, im) - h_in)
+            vl = eta * vl + sig * noise(o_unif[2 * k + 1])  # O
+        accept = unif[2 * d] < _accept(-delta, delta)
+        x = torch.where(accept, xl, x)
+        v = torch.where(accept, vl, -v0)
+        u = torch.where(accept, ul, u)
+        g = torch.where(accept, gl, g)
+        acc.add(t, x, ones, inc)
+    return acc.out(x, v, g, u, h_back, back_valid)
 
 
 def _logaddexp(a: Tensor, b: Tensor) -> Tensor:
@@ -493,23 +691,26 @@ def _logaddexp(a: Tensor, b: Tensor) -> Tensor:
                        torch.maximum(a, b) + torch.log1p(torch.exp(-d.abs())))
 
 
-def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, max_depth,
-                    num_iters, thin, emit, fixed_uniform):
-    """The NUTS step body of ``_make_step_nuts``, vectorised over chains
-    with masks as the JAX body is: a round or a leaf runs while any chain
-    is live in it, and a chain that is done or stopped keeps its state.
-    Sums over dims run in the kernel's order, so its roundings are the
-    kernel's at any D."""
+def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                    num_iters, max_depth, thin, emit, fixed_uniform, inv_mass, integrator):
+    """The NUTS step body of ``_make_step_nuts`` (``beta`` unused),
+    vectorised over chains with masks as the JAX body is: a round or a leaf
+    runs while any chain is live in it, and a chain that is done or stopped
+    keeps its state. Sums over dims run in the kernel's order, so its
+    roundings are the kernel's at any D."""
+    if integrator != "leapfrog":
+        raise NotImplementedError(_NUTS_LEAPFROG_ONLY)
     d, n = x.shape
     dev = x.device
     params = _param_tensors(spec, d, dev)
+    im, sm = _mass_columns(inv_mass, d, dev)
     he = 0.5 * epsilon
 
     def halfsq(v):
-        return 0.5 * _sum_dims_in_order(v * v)
+        return 0.5 * _sum_dims_in_order(v * v if im is None else v * v * im)
 
     def cdot(a, b):
-        return _sum_dims_in_order(a * b)
+        return _sum_dims_in_order(a * b if im is None else a * b * im)
 
     def unif(word):
         return torch.full((n,), FIXED_UNIFORM, device=dev) if fixed_uniform else _uniform_of(word)
@@ -519,10 +720,8 @@ def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, max_dep
             return (None,) * 4
         return philox_block(seed, n, t, slot, tag, dev)
 
-    w = wc = torch.zeros_like(u)
-    wx = wxc = wx2 = wx2c = torch.zeros_like(x)
-    evals = torch.zeros(n, dtype=torch.int32, device=dev)
-    emits = []
+    acc = _Acc(x, u, thin, emit)
+    ones = torch.ones_like(u)
     v0 = v
     for t in range(num_iters):
         if fixed_uniform:
@@ -531,7 +730,9 @@ def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, max_dep
             words = [wd for b in range((2 * d + 3) // 4)
                      for wd in draw(t, b, TAG_NUTS_MOMENTUM)]
             un = _uniform_of(torch.stack(words[: 2 * d]))
-        v0 = torch.sqrt(-2.0 * torch.log(un[:d])) * torch.cos((2.0 * math.pi) * un[d:])
+        v0 = _box_muller(un, d)
+        if sm is not None:
+            v0 = v0 * sm  # v ~ N(0, M)
         h0 = u + halfsq(v0)
 
         xm = xp = x
@@ -558,7 +759,7 @@ def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, max_dep
                 if not bool(act.any()):
                     break
                 vh = vc - he * gc
-                xn = xc + epsilon * vh
+                xn = xc + epsilon * (vh if im is None else im * vh)
                 gn = spec.du(xn, *params)
                 vn = vh - he * gn
                 ul = spec.u_sum(xn, *params)
@@ -603,43 +804,40 @@ def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, max_dep
             dx = xp - xm
             done = done | stop | (ok & ((cdot(dx, vm) < 0) | (cdot(dx, vp) < 0)))
 
-        # the post-transition x, weight 1
-        evals = evals + nl
-        w, wc = _kadd(w, wc, torch.ones_like(u))
-        wx, wxc = _kadd(wx, wxc, x)
-        wx2, wx2c = _kadd(wx2, wx2c, x * x)
-        if emit and (t + 1) % thin == 0:
-            emits.append((x, torch.ones_like(u), evals))
-    out = RunOut(x, v0, g, u, h_back, back_valid, w, wx, wx2, evals)
-    if not emit:
-        return out
-    if not emits:
-        return x.new_empty((0, d, n)), u.new_empty((0, n)), evals.new_empty((0, n)), out
-    xs, ws, es = (torch.stack(c) for c in zip(*emits))
-    return xs, ws, es, out
+        acc.add(t, x, ones, nl)  # the post-transition x, weight 1
+    return acc.out(x, v0, g, u, h_back, back_valid)
 
 
-def nuts_run_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-                       num_steps, max_depth, fixed_uniform=False):
-    """Plain PyTorch version of the NUTS run kernel (``beta`` unused, the
-    ``num_leapfrog`` slot is max_depth; any device)."""
-    return _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
-                           max_depth, num_steps, 1, False, fixed_uniform)
+_REFERENCES = {"mjhmc": _reference, "control": _reference_control,
+               "malt": _reference_malt, "nuts": _reference_nuts}
 
 
-def nuts_stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-                          num_emits, thin, max_depth, fixed_uniform=False):
-    """Plain PyTorch version of the NUTS stream kernel: (xs (E, d, n) of
-    post-transition x, ws (E, n) ones, es (E, n) int32, RunOut)."""
-    return _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
-                           max_depth, num_emits * thin, thin, True, fixed_uniform)
+def run_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                  num_steps, num_leapfrog, fixed_uniform=False, *, variant="mjhmc",
+                  inv_mass=None, integrator="leapfrog") -> RunOut:
+    """Plain PyTorch version of the run kernels, any variant (the wrappers'
+    contract, any device)."""
+    return _REFERENCES[variant](spec, x, v, g, u, h_back, back_valid, seed, epsilon,
+                                beta, num_steps, num_leapfrog, 1, False, fixed_uniform,
+                                inv_mass, integrator)
+
+
+def stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                     num_emits, thin, num_leapfrog, fixed_uniform=False, *,
+                     variant="mjhmc", inv_mass=None, integrator="leapfrog"):
+    """Plain PyTorch version of the stream kernels, any variant: returns
+    (xs (E, d, n), ws (E, n), es (E, n) int32, RunOut)."""
+    return _REFERENCES[variant](spec, x, v, g, u, h_back, back_valid, seed, epsilon,
+                                beta, num_emits * thin, num_leapfrog, thin, True,
+                                fixed_uniform, inv_mass, integrator)
 
 
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-            num_iters, m, thin, num_emits, fixed_uniform, variant):
+            num_iters, m, thin, num_emits, fixed_uniform, variant, inv_mass,
+            integrator):
     """Check the state, allocate the outputs and launch the spec's kernel."""
     from mjhmc_tpu_torch.ops import _build
 
@@ -689,6 +887,7 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                 f"{name} must be a contiguous float32 {shape} tensor on "
                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
+    mass = _mass_tensor(inv_mass, d, x.device)
     lib = _build.load()
     out = RunOut(
         torch.empty_like(x), torch.empty_like(x), torch.empty_like(x),
@@ -704,6 +903,7 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             torch.empty((num_emits, n), dtype=torch.float32, device=x.device),
             torch.empty((num_emits, n), dtype=torch.int32, device=x.device),
         )
+    branches = (None if mass is None else mass.data_ptr(), int(integrator == "two_stage"))
     ptrs = [t.data_ptr() for t in (x, v, g, u, h_back, back_valid, *out)]
     ptrs += [None if t is None else t.data_ptr() for t in emits]
     tail = (n, num_iters, thin, m, int(seed) & _MASK32, float(epsilon), float(beta),
@@ -713,28 +913,49 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         params = [t.contiguous() for t in _param_tensors(spec, d, x.device)]
         p0, p1 = (params + [None])[:2]
         rc = lib.mjhmc_mm_engine_launch(
-            spec.energy_id, d, spec.aux_rows(), int(spec.stub_dots), p0.data_ptr(),
-            None if p1 is None else p1.data_ptr(), *spec.constants(), *ptrs, *tail,
+            spec.energy_id, d, spec.aux_rows(), int(spec.stub_dots), KERNEL_VARIANTS[variant],
+            p0.data_ptr(), None if p1 is None else p1.data_ptr(), *spec.constants(),
+            *branches, *ptrs, *tail,
         )
     else:
         params = torch.as_tensor(spec.param_vector(d), device=x.device).contiguous()
         rc = lib.mjhmc_engine_launch(KERNEL_VARIANTS[variant], d, spec.energy_id,
-                                     params.data_ptr(), *spec.constants(), *ptrs, *tail)
+                                     params.data_ptr(), *spec.constants(), *branches,
+                                     *ptrs, *tail)
     if rc != 0:
         kernel = "mjhmc_mm_engine_launch" if matmul else "mjhmc_engine_launch"
         raise RuntimeError(f"{kernel} (variant {variant}) failed: CUDA error {rc}")
     return out, emits
 
 
-def _count(wrapper, spec, variant) -> None:
-    """One launch of the wrapper's kernel: the NUTS kernel counts in
-    ``nuts_launches``, the stubbed matmul kernel in ``stub_launches``."""
-    if variant == "nuts":
-        wrapper.nuts_launches += 1
-    elif getattr(spec, "stub_dots", False):
+#: each wrapper's launch counts: one per step body (``launches`` is MJHMC's,
+#: ``stub_launches`` the stubbed matmul kernel's), and the launches that
+#: took the two-stage integrator or an inverse mass, counted besides
+COUNTS = ("launches", "control_launches", "malt_launches", "nuts_launches",
+          "stub_launches", "two_stage_launches", "mass_launches")
+
+
+def _count(wrapper, spec, variant, integrator, inv_mass) -> None:
+    """One launch of the wrapper's kernel, counted under its step body and
+    its branches."""
+    if getattr(spec, "stub_dots", False):
         wrapper.stub_launches += 1
-    else:
+    elif variant == "mjhmc":
         wrapper.launches += 1
+    else:
+        name = f"{variant}_launches"
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
+    if integrator == "two_stage":
+        wrapper.two_stage_launches += 1
+    if inv_mass is not None:
+        wrapper.mass_launches += 1
+
+
+def reset_counts() -> None:
+    """Set every launch count of the four engine wrappers to 0."""
+    for fn in WRAPPERS:
+        for name in COUNTS:
+            setattr(fn, name, 0)
 
 
 def _run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed, epsilon,
@@ -742,12 +963,13 @@ def _run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed, epsilon,
          fixed_uniform) -> RunOut:
     _check_slice(spec, variant, integrator, inv_mass, kinds)
     if x.device.type == "cpu":
-        ref = nuts_run_reference if variant == "nuts" else mjhmc_run_reference
-        return ref(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-                   num_steps, num_leapfrog, fixed_uniform)
+        return run_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                             num_steps, num_leapfrog, fixed_uniform, variant=variant,
+                             inv_mass=inv_mass, integrator=integrator)
     out, _ = _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-                     num_steps, num_leapfrog, 1, None, fixed_uniform, variant)
-    _count(wrapper, spec, variant)
+                     num_steps, num_leapfrog, 1, None, fixed_uniform, variant,
+                     inv_mass, integrator)
+    _count(wrapper, spec, variant, integrator, inv_mass)
     return out
 
 
@@ -756,13 +978,14 @@ def _stream_run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed,
                 integrator, fixed_uniform):
     _check_slice(spec, variant, integrator, inv_mass, kinds)
     if x.device.type == "cpu":
-        ref = nuts_stream_reference if variant == "nuts" else mjhmc_stream_reference
-        return ref(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
-                   num_emits, thin, num_leapfrog, fixed_uniform)
+        return stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+                                num_emits, thin, num_leapfrog, fixed_uniform,
+                                variant=variant, inv_mass=inv_mass, integrator=integrator)
     out, (xs, ws, es) = _launch(spec, x, v, g, u, h_back, back_valid, seed,
                                 epsilon, beta, num_emits * thin, num_leapfrog,
-                                thin, num_emits, fixed_uniform, variant)
-    _count(wrapper, spec, variant)
+                                thin, num_emits, fixed_uniform, variant, inv_mass,
+                                integrator)
+    _count(wrapper, spec, variant, integrator, inv_mass)
     return xs, ws, es, out
 
 
@@ -770,18 +993,16 @@ def cuda_mjhmc_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                    num_steps, num_leapfrog, *, inv_mass=None, variant="mjhmc",
                    integrator="leapfrog", fixed_uniform=False) -> RunOut:
     """Engine run for the elementwise energies (counterpart of
-    ``pallas_mjhmc_run``): ``num_steps`` jump iterations in one launch. CUDA
+    ``pallas_mjhmc_run``): ``num_steps`` iterations in one launch. CUDA
     tensors launch the kernel; CPU tensors take the plain version.
-    ``variant="nuts"`` runs ``num_steps`` NUTS iterations (the NUTS kernel,
-    or ``nuts_run_reference`` for CPU tensors): ``beta`` is unused and the
-    ``num_leapfrog`` slot is max_depth."""
+    ``variant``: "mjhmc" (jump process; ``beta`` the refresh rate),
+    "control" (``beta`` the corruption fraction), "malt" (``beta`` the
+    friction γ) or "nuts" (``beta`` unused, the ``num_leapfrog`` slot is
+    max_depth). ``inv_mass``: a diagonal M⁻¹ (d entries); ``integrator``:
+    "leapfrog" or "two_stage" (MJHMC and control)."""
     return _run(cuda_mjhmc_run, ELEMENTWISE_SPECS, spec, x, v, g, u, h_back,
                 back_valid, seed, epsilon, beta, num_steps, num_leapfrog,
                 inv_mass, variant, integrator, fixed_uniform)
-
-
-cuda_mjhmc_run.launches = 0
-cuda_mjhmc_run.nuts_launches = 0
 
 
 def cuda_mjhmc_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
@@ -790,31 +1011,23 @@ def cuda_mjhmc_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
                           fixed_uniform=False):
     """Streaming engine run for the elementwise energies (counterpart of
     ``pallas_mjhmc_stream_run``): returns (xs (E, d, n), ws (E, n), es (E, n)
-    int32, RunOut). With ``variant="nuts"`` the emissions are every
-    ``thin``-th iteration's post-transition x, weight 1 and cumulative leaf
-    count."""
+    int32, RunOut). MJHMC emits every ``thin``-th iteration's
+    pre-transition x with its dwell weight; control, MALT and NUTS the
+    post-transition x with weight 1."""
     return _stream_run(cuda_mjhmc_stream_run, ELEMENTWISE_SPECS, spec, x, v, g,
                        u, h_back, back_valid, seed, epsilon, beta, num_emits,
                        thin, num_leapfrog, inv_mass, variant, integrator,
                        fixed_uniform)
 
 
-cuda_mjhmc_stream_run.launches = 0
-cuda_mjhmc_stream_run.nuts_launches = 0
-
-
 def cuda_mjhmc_mm_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                       num_steps, num_leapfrog, *, inv_mass=None, variant="mjhmc",
                       integrator="leapfrog", fixed_uniform=False) -> RunOut:
     """Engine run for the matmul energies (counterpart of
-    ``pallas_mjhmc_mm_run``), same contract as ``cuda_mjhmc_run``."""
+    ``pallas_mjhmc_mm_run``), same contract as ``cuda_mjhmc_run`` (no NUTS)."""
     return _run(cuda_mjhmc_mm_run, MATMUL_SPECS, spec, x, v, g, u, h_back,
                 back_valid, seed, epsilon, beta, num_steps, num_leapfrog,
                 inv_mass, variant, integrator, fixed_uniform)
-
-
-cuda_mjhmc_mm_run.launches = 0
-cuda_mjhmc_mm_run.stub_launches = 0
 
 
 def cuda_mjhmc_mm_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon,
@@ -829,11 +1042,13 @@ def cuda_mjhmc_mm_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon
                        num_leapfrog, inv_mass, variant, integrator, fixed_uniform)
 
 
-cuda_mjhmc_mm_stream_run.launches = 0
+WRAPPERS = (cuda_mjhmc_run, cuda_mjhmc_stream_run, cuda_mjhmc_mm_run,
+            cuda_mjhmc_mm_stream_run)
+reset_counts()
 
 
 # --------------------------------------------------------------------------
-# engine
+# engines
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class CudaMJHMC:
@@ -843,6 +1058,9 @@ class CudaMJHMC:
     through the matmul kernel, the others through the elementwise one, as
     ``PallasMJHMC`` picks its kernels. ``device="cpu"`` runs the kernels'
     plain version; ``fixed_uniform`` pins every uniform at 2⁻²⁵ (test mode).
+    ``inv_mass``: a per-dim diagonal M⁻¹ (Stan convention: the target's
+    variances); the initial momenta are then drawn from N(0, M).
+    ``integrator``: "leapfrog" or "two_stage" (2 gradients per step).
     """
 
     distribution: object
@@ -866,12 +1084,13 @@ class CudaMJHMC:
             self._run_fn, self._stream_fn = cuda_mjhmc_run, cuda_mjhmc_stream_run
         _check_slice(self.spec, self.variant, self.integrator, self.inv_mass,
                      MATMUL_SPECS if self._matmul else ELEMENTWISE_SPECS)
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("CudaMJHMC(device='cuda') needs a CUDA device")
+        self.device = checked_device(self.device, type(self).__name__)
         gen = torch.Generator().manual_seed(self.seed)
         x = self.distribution.init_x(gen, self.nbatch, self.device)
         v = randn(gen, x.shape, self.device)
+        if self.inv_mass is not None:  # momenta live in N(0, M)
+            self.inv_mass = np.asarray(self.inv_mass, np.float32).reshape(x.shape[0])
+            v = v / torch.sqrt(torch.as_tensor(self.inv_mass, device=self.device))[:, None]
         u, g = self.distribution.potential_and_grad(x)
         zeros = torch.zeros(self.nbatch, dtype=torch.float32, device=self.device)
         self.x, self.v, self.g, self.u = x, v, g, u
@@ -955,3 +1174,26 @@ class CudaNUTS(CudaMJHMC):
     beta: float = 0.0  # unused scalar slot
     num_leapfrog_steps: int = 8  # max_depth
     variant: str = "nuts"
+
+
+@dataclasses.dataclass
+class CudaControlHMC(CudaMJHMC):
+    """Fused control HMC engine (counterpart of ``PallasControlHMC``), the
+    engine-class baseline: partial momentum corruption with ``beta`` (β=1
+    is full-refresh HMC), an M-step forward trajectory, Metropolis accept,
+    momentum flip on reject. Emissions are post-transition positions with
+    weight 1; ``evals`` counts exactly M per iteration (2M two-stage)."""
+
+    beta: float = 0.2
+    variant: str = "control"
+
+
+@dataclasses.dataclass
+class CudaMALT(CudaMJHMC):
+    """Fused MALT engine (counterpart of ``PallasMALT``): ``beta`` carries
+    the friction γ (γ=0 is full-refresh HMC). Emissions are post-transition
+    positions with weight 1; ``evals`` counts exactly M per iteration.
+    Leapfrog only."""
+
+    beta: float = 1.0  # friction γ
+    variant: str = "malt"

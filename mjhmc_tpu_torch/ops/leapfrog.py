@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -99,3 +100,12 @@ def momentum_scale(inv_mass: Tensor | None) -> Tensor | float:
     if inv_mass is None:
         return 1.0
     return torch.sqrt(1.0 / inv_mass)
+
+
+def inv_mass_of(mass_diag, device) -> Tensor | None:
+    """(ndims, 1) float32 diagonal M⁻¹ from a per-dim mass diagonal M (the
+    samplers' ``mass_diag``; Stan convention: pass 1/variance), or None."""
+    if mass_diag is None:
+        return None
+    im = 1.0 / np.asarray(mass_diag, np.float32)
+    return torch.as_tensor(im, dtype=torch.float32, device=device)[:, None]

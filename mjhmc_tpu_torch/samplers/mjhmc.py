@@ -23,8 +23,13 @@ from typing import NamedTuple, Tuple
 import torch
 
 from mjhmc_tpu_torch.models.base import Distribution, randn
-from mjhmc_tpu_torch.ops.leapfrog import INTEGRATORS, momentum_scale, total_energy
-from mjhmc_tpu_torch.samplers.state import MJState, make_mj_state
+from mjhmc_tpu_torch.ops.leapfrog import (
+    INTEGRATORS,
+    inv_mass_of,
+    momentum_scale,
+    total_energy,
+)
+from mjhmc_tpu_torch.samplers.state import MJState, checked_device, make_mj_state
 
 Tensor = torch.Tensor
 
@@ -225,7 +230,9 @@ def mjhmc_run(
 @dataclasses.dataclass
 class MarkovJumpHMC:
     """Reference-style sampler object: ``sample(n)``, ``sampling_iteration()``,
-    ``burn_in()``, on the plain PyTorch path."""
+    ``burn_in()``, on the plain PyTorch path. Runs on the card unless
+    ``device="cpu"`` is asked for. ``mass_diag``: per-dim diagonal mass M
+    (Stan convention: pass 1/variance); momenta then start in N(0, M)."""
 
     distribution: Distribution
     epsilon: float = 1.0
@@ -234,18 +241,25 @@ class MarkovJumpHMC:
     nbatch: int = 128
     seed: int = 0
     integrator: str = "leapfrog"
-    device: str = "cpu"
+    device: str = "cuda"
+    mass_diag: tuple | None = None
 
     def __post_init__(self):
+        self.device = checked_device(self.device, type(self).__name__)
         self.generator = torch.Generator().manual_seed(self.seed)
         self.state = make_mj_state(self.distribution, self.generator,
                                    self.nbatch, self.device)
+        self.inv_mass = inv_mass_of(self.mass_diag, self.device)
+        if self.inv_mass is not None:  # momenta start in N(0, M)
+            ch = self.state.chain
+            self.state = self.state._replace(
+                chain=ch._replace(v=ch.v / torch.sqrt(self.inv_mass)))
 
     def _run(self, num_steps: int, collect: str) -> dict:
         self.state, outs = mjhmc_run(
             self.distribution, self.state, self.generator, num_steps,
             self.epsilon, self.beta, self.num_leapfrog_steps, collect,
-            integrator=self.integrator,
+            inv_mass=self.inv_mass, integrator=self.integrator,
         )
         return outs
 

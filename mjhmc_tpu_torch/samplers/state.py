@@ -47,6 +47,24 @@ class MJState(NamedTuple):
     dwell_sum: Tensor  # (nbatch,) f32 — Σ dwell weights (Rao-Blackwell mass)
 
 
+class HMCState(NamedTuple):
+    """Control/standard HMC (and MALT) carry."""
+
+    chain: ChainState
+    grad_evals: Tensor  # (nbatch,) int32
+    n_accept: Tensor  # (nbatch,) int32
+
+
+def checked_device(device, owner: str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card raises
+    rather than running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{owner}(device='cuda') needs a CUDA device "
+                           "(pass device='cpu' to run on the CPU)")
+    return device
+
+
 def make_chain_state(dist, generator: torch.Generator, nbatch: int,
                      device="cpu") -> ChainState:
     """Fresh chain state: x ~ dist.init_x, v ~ N(0, I), caches filled."""
@@ -66,4 +84,15 @@ def make_mj_state(dist, generator: torch.Generator, nbatch: int,
         back_valid=torch.zeros(nbatch, dtype=torch.bool, device=dev),
         grad_evals=torch.zeros(nbatch, dtype=torch.int32, device=dev),
         dwell_sum=torch.zeros(nbatch, dtype=torch.float32, device=dev),
+    )
+
+
+def make_hmc_state(dist, generator: torch.Generator, nbatch: int,
+                   device="cpu") -> HMCState:
+    chain = make_chain_state(dist, generator, nbatch, device)
+    dev = chain.x.device
+    return HMCState(
+        chain=chain,
+        grad_evals=torch.zeros(nbatch, dtype=torch.int32, device=dev),
+        n_accept=torch.zeros(nbatch, dtype=torch.int32, device=dev),
     )

@@ -79,8 +79,8 @@ def test_run_matches_interpret_kernel(name, kw):
     for steps in (100, 5):
         out_j = pallas_mjhmc_run(jspec, *js, jnp.int32(7), jnp.float32(EPS),
                                  jnp.float32(BETA), steps, M, interpret=ip)
-        out_t = cm.mjhmc_run_reference(tspec, *ts, 7, EPS, BETA, steps, M,
-                                       fixed_uniform=True)
+        out_t = cm.run_reference(tspec, *ts, 7, EPS, BETA, steps, M,
+                                 fixed_uniform=True)
         np.testing.assert_array_equal(out_t.evals.numpy(), _flat(out_j.evals))
         np.testing.assert_array_equal(out_t.back_valid.numpy(), _flat(out_j.back_valid))
         _close_sum(out_t.w, out_j.w, f"w after {steps}")
@@ -101,14 +101,14 @@ def test_stream_matches_interpret_kernel(name, kw):
     args_t = (tspec, *ts, 7, EPS, BETA)
     # 100 iterations, every 5th emitted: counters exact
     _, _, es_j, out_j = pallas_mjhmc_stream_run(*args_j, 20, 5, M, interpret=ip)
-    _, _, es_t, out_t = cm.mjhmc_stream_reference(*args_t, 20, 5, M, fixed_uniform=True)
+    _, _, es_t, out_t = cm.stream_reference(*args_t, 20, 5, M, fixed_uniform=True)
     assert es_t.dtype == torch.int32 and es_t.shape == (20, N)
     np.testing.assert_array_equal(es_t.numpy(), np.asarray(es_j).reshape(20, N))
     np.testing.assert_array_equal(es_t[-1].numpy(), out_t.evals.numpy())
     _close_sum(out_t.w, out_j.w, "w after 100")
     # 5 iterations, each emitted: emissions within tolerance
     xs_j, ws_j, _, _ = pallas_mjhmc_stream_run(*args_j, 5, 1, M, interpret=ip)
-    xs_t, ws_t, _, _ = cm.mjhmc_stream_reference(*args_t, 5, 1, M, fixed_uniform=True)
+    xs_t, ws_t, _, _ = cm.stream_reference(*args_t, 5, 1, M, fixed_uniform=True)
     atol = 1e-4 * float(np.abs(np.asarray(xs_j)).max())
     np.testing.assert_allclose(xs_t.numpy(), np.asarray(xs_j).reshape(5, jd.ndims, N),
                                rtol=1e-4, atol=atol)
@@ -171,7 +171,7 @@ def test_wrappers_route_cpu_to_plain_version():
     ts = _port_state(_jax_state(jd))
     before = (cm.cuda_mjhmc_run.launches, cm.cuda_mjhmc_stream_run.launches)
     a = cm.cuda_mjhmc_run(tspec, *ts, 5, EPS, BETA, 7, M)
-    b = cm.mjhmc_run_reference(tspec, *ts, 5, EPS, BETA, 7, M)
+    b = cm.run_reference(tspec, *ts, 5, EPS, BETA, 7, M)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     xs, ws, es, out = cm.cuda_mjhmc_stream_run(tspec, *ts, 5, EPS, BETA, 3, 2, M)
@@ -181,9 +181,12 @@ def test_wrappers_route_cpu_to_plain_version():
     meta = tuple(t.to("meta") for t in ts)
     with pytest.raises(ValueError, match="cuda tensors"):
         cm.cuda_mjhmc_run(tspec, *meta, 5, EPS, BETA, 7, M)
-    for kw in (dict(variant="control"), dict(integrator="two_stage"),
-               dict(inv_mass=(1.0, 1.0))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the step bodies and branches that are not kernels refuse
+    with pytest.raises(NotImplementedError, match="leapfrog"):
+        cm.cuda_mjhmc_run(tspec, *ts, 5, EPS, BETA, 7, M, variant="malt",
+                          integrator="two_stage")
+    for kw in (dict(variant="hmc"), dict(integrator="yoshida"), dict(inv_mass=(1.0,) * 3)):
+        with pytest.raises(ValueError):
             cm.cuda_mjhmc_run(tspec, *ts, 5, EPS, BETA, 7, M, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cm.cuda_mjhmc_run(jspec, *ts, 5, EPS, BETA, 7, M)

@@ -102,7 +102,8 @@ def test_counters_follow_cost_model():
     """Per chain: evals = M·steps + M·(1 + #R before the last step), and
     cache_err stays at float roundoff wherever the cache claims validity."""
     td = tmodels.Gaussian(ndims=2, log_conditioning=2.0)
-    s = MarkovJumpHMC(td, epsilon=1.0, beta=0.3, num_leapfrog_steps=5, nbatch=128, seed=2)
+    s = MarkovJumpHMC(td, epsilon=1.0, beta=0.3, num_leapfrog_steps=5, nbatch=128, seed=2,
+                      device="cpu")
     out = s.sample(40)
     sel = out["sel"].numpy()
     n_r = (sel[:-1] == 2).sum(axis=0)
@@ -131,7 +132,8 @@ def test_run_modes_agree_and_burn_in_resets():
     with pytest.raises(ValueError):
         mjhmc_run(td, st, None, 1, 1.0, 0.1, 10, collect="bogus")
 
-    s = MarkovJumpHMC(td, epsilon=1.0, beta=0.1, num_leapfrog_steps=10, nbatch=32, seed=0)
+    s = MarkovJumpHMC(td, epsilon=1.0, beta=0.1, num_leapfrog_steps=10, nbatch=32, seed=0,
+                      device="cpu")
     s.burn_in(5)
     assert s.grad_evals == 0 and float(s.dwelling_times.sum()) == 0.0
     out = s.sampling_iteration()
@@ -154,7 +156,8 @@ def test_mjhmc_matches_numpy_reference():
     x0 = np.sqrt(np.asarray(dist.variances))[:, None] * rng.standard_normal((2, n))
     xs_np, w_np, sel_np = numpy_mjhmc(u_fn, grad_u, x0, eps, beta, m, steps, rng)
 
-    s = MarkovJumpHMC(dist, epsilon=eps, beta=beta, num_leapfrog_steps=m, nbatch=n, seed=1)
+    s = MarkovJumpHMC(dist, epsilon=eps, beta=beta, num_leapfrog_steps=m, nbatch=n, seed=1,
+                      device="cpu")
     out = s.sample(steps)
     xs_t, w_t, sel_t = (out[k].numpy() for k in ("x", "dwell", "sel"))
 
@@ -183,3 +186,17 @@ def test_mjhmc_matches_numpy_reference():
 
     diff = (rho(xs_t[burn:], w_t[burn:]) - rho(xs_np[burn:], w_np[burn:])).abs().max()
     assert float(diff) < 0.1, float(diff)
+
+
+@pytest.mark.parametrize("name", ["MarkovJumpHMC", "ControlHMC", "MALT", "CudaMJHMC",
+                                  "CudaControlHMC", "CudaMALT", "CudaNUTS"])
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """Without ``device`` the samplers and engines run on the card: on a
+    machine without one they refuse rather than run on the CPU."""
+    from mjhmc_tpu_torch import samplers
+    from mjhmc_tpu_torch.ops import cuda_mjhmc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cls = getattr(samplers, name, None) or getattr(cuda_mjhmc, name)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        cls(tmodels.Gaussian(ndims=2, log_conditioning=2.0), nbatch=8)

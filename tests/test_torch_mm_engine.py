@@ -111,8 +111,8 @@ def test_mm_run_matches_interpret_kernel(name, scale, eps, m, t_states):
     scal = (jnp.int32(7), jnp.float32(eps), jnp.float32(0.1))
     for steps in sorted({5, t_states}):
         out_j = pallas_mjhmc_mm_run(jspec, *_jax(st), *scal, steps, m, interpret=IP)
-        out_t = cm.mjhmc_run_reference(tspec, *_port(st), 7, eps, 0.1, steps, m,
-                                       fixed_uniform=True)
+        out_t = cm.run_reference(tspec, *_port(st), 7, eps, 0.1, steps, m,
+                                 fixed_uniform=True)
         _counters(out_t, out_j, f"{name} after {steps}")
         if steps == t_states:
             _states(out_t, out_j, f"{name} after {steps}")
@@ -129,8 +129,8 @@ def test_mm_stream_matches_interpret_kernel(name, scale, eps, m, t_states):
     xs_j, ws_j, es_j, out_j = pallas_mjhmc_mm_stream_run(
         jspec, *_jax(st), jnp.int32(11), jnp.float32(eps), jnp.float32(0.1), 5, 1, m,
         interpret=IP)
-    xs_t, ws_t, es_t, out_t = cm.mjhmc_stream_reference(tspec, *_port(st), 11, eps, 0.1,
-                                                        5, 1, m, fixed_uniform=True)
+    xs_t, ws_t, es_t, out_t = cm.stream_reference(tspec, *_port(st), 11, eps, 0.1,
+                                                  5, 1, m, fixed_uniform=True)
     assert xs_t.shape == (5, jd.ndims, N) and ws_t.shape == es_t.shape == (5, N)
     assert es_t.dtype == torch.int32
     np.testing.assert_array_equal(es_t.numpy(), np.asarray(es_j).reshape(5, N))
@@ -145,8 +145,8 @@ def test_sparse_coding_matches_bf16x3_default():
     st = _state(jd, 0.1, seed=5)
     out_j = pallas_mjhmc_mm_run(jspec, *_jax(st), jnp.int32(7), jnp.float32(0.02),
                                 jnp.float32(0.1), 5, 10, interpret=IP)
-    out_t = cm.mjhmc_run_reference(tspec, *_port(st), 7, 0.02, 0.1, 5, 10,
-                                   fixed_uniform=True)
+    out_t = cm.run_reference(tspec, *_port(st), 7, 0.02, 0.1, 5, 10,
+                             fixed_uniform=True)
     _counters(out_t, out_j, "bf16x3", w_rtol=1e-3)
     _states(out_t, out_j, "bf16x3", ("x", "v", "grad", "u"), w_rtol=1e-3)
 
@@ -184,7 +184,7 @@ def test_mm_wrappers_route_and_refuse():
     jd, jspec, tspec = _specs("ProductOfT")
     ts = _port(_state(jd, 2.0))
     a = cm.cuda_mjhmc_mm_run(tspec, *ts, 5, 0.2, 0.1, 3, 5)
-    b = cm.mjhmc_run_reference(tspec, *ts, 5, 0.2, 0.1, 3, 5)
+    b = cm.run_reference(tspec, *ts, 5, 0.2, 0.1, 3, 5)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     xs, ws, es, _ = cm.cuda_mjhmc_mm_stream_run(tspec, *ts, 5, 0.2, 0.1, 3, 2, 5)
@@ -197,7 +197,13 @@ def test_mm_wrappers_route_and_refuse():
     with pytest.raises(NotImplementedError, match="LogregSpec"):
         cm.cuda_mjhmc_mm_run(jspec, *ts, 5, 0.2, 0.1, 3, 5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cm.cuda_mjhmc_mm_run(tspec, *ts, 5, 0.2, 0.1, 3, 5, variant="control")
+        cm.cuda_mjhmc_mm_run(tspec, *ts, 5, 0.2, 0.1, 3, 5, variant="nuts")
+    with pytest.raises(NotImplementedError, match="leapfrog"):
+        cm.cuda_mjhmc_mm_run(tspec, *ts, 5, 0.2, 0.1, 3, 5, variant="malt",
+                             integrator="two_stage")
+    with pytest.raises(NotImplementedError, match="stub_dots"):
+        cm.cuda_mjhmc_mm_run(cm.ProductOfTSpec(tmodels.ProductOfT(), stub_dots=True), *ts,
+                             5, 0.2, 0.1, 3, 5, variant="control")
     with pytest.raises(ValueError, match="cuda tensors"):
         cm.cuda_mjhmc_mm_run(tspec, *(t.to("meta") for t in ts), 5, 0.2, 0.1, 3, 5)
 

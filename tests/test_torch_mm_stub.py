@@ -51,8 +51,8 @@ def test_stub_matches_interpret_kernel(name, scale, eps, m):
     out_j = pallas_mjhmc_mm_run(jspec, x, v, g, u[None], hb[None], bv[None], jnp.int32(7),
                                 jnp.float32(eps), jnp.float32(0.1), 3, m,
                                 interpret=pltpu.InterpretParams())
-    out_t = cm.mjhmc_run_reference(tspec, *(torch.as_tensor(a) for a in st), 7, eps, 0.1, 3, m,
-                                   fixed_uniform=True)
+    out_t = cm.run_reference(tspec, *(torch.as_tensor(a) for a in st), 7, eps, 0.1, 3, m,
+                             fixed_uniform=True)
     np.testing.assert_array_equal(out_t.evals.numpy(), np.asarray(out_j.evals).ravel())
     np.testing.assert_array_equal(out_t.back_valid.numpy(), np.asarray(out_j.back_valid).ravel())
     for f in ("x", "v", "grad", "u", "h_back"):
@@ -60,8 +60,8 @@ def test_stub_matches_interpret_kernel(name, scale, eps, m):
         np.testing.assert_allclose(getattr(out_t, f).double().numpy(), want, rtol=1e-5,
                                    atol=1e-5 * np.abs(want).max(), err_msg=f"{name} {f}")
     # the stub changes the trajectories: the full energy lands elsewhere
-    full = cm.mjhmc_run_reference(cm.energy_spec_for(td), *(torch.as_tensor(a) for a in st),
-                                  7, eps, 0.1, 3, m, fixed_uniform=True)
+    full = cm.run_reference(cm.energy_spec_for(td), *(torch.as_tensor(a) for a in st),
+                            7, eps, 0.1, 3, m, fixed_uniform=True)
     assert not torch.allclose(full.x, out_t.x, rtol=1e-3)
 
 
@@ -82,7 +82,7 @@ def test_stub_wrapper_counts_apart_and_cpu_takes_plain_version():
     ts = tuple(torch.as_tensor(a) for a in _state(jmodels.ProductOfT(), 2.0, seed=3))
     before = (cm.cuda_mjhmc_mm_run.launches, cm.cuda_mjhmc_mm_run.stub_launches)
     a = cm.cuda_mjhmc_mm_run(spec, *ts, 5, 0.12, 0.1, 2, 10)
-    b = cm.mjhmc_run_reference(spec, *ts, 5, 0.12, 0.1, 2, 10)
+    b = cm.run_reference(spec, *ts, 5, 0.12, 0.1, 2, 10)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert (cm.cuda_mjhmc_mm_run.launches, cm.cuda_mjhmc_mm_run.stub_launches) == before

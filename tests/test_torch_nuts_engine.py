@@ -73,7 +73,8 @@ def test_nuts_run_matches_interpret_kernel(name, kw, eps, steps, rtol=1e-5):
     jspec, tspec, js, ts = _case(name, **kw)
     out_j = pallas_mjhmc_run(jspec, *js, jnp.int32(7), jnp.float32(eps), jnp.float32(0.0),
                              steps, DEPTH, interpret=IP, variant="nuts")
-    out_t = cm.nuts_run_reference(tspec, *ts, 7, eps, 0.0, steps, DEPTH, fixed_uniform=True)
+    out_t = cm.run_reference(tspec, *ts, 7, eps, 0.0, steps, DEPTH, fixed_uniform=True,
+                             variant="nuts")
     assert out_t.evals.dtype == torch.int32
     np.testing.assert_array_equal(out_t.evals.numpy(), np.asarray(out_j.evals).ravel())
     assert int(out_t.evals.min()) >= steps and int(out_t.evals.max()) <= steps * (2**DEPTH - 1)
@@ -92,8 +93,8 @@ def test_nuts_stream_matches_interpret_kernel():
     xs_j, ws_j, es_j, out_j = pallas_mjhmc_stream_run(
         jspec, *js, jnp.int32(11), jnp.float32(EPS), jnp.float32(0.0), 3, 2, DEPTH,
         interpret=IP, variant="nuts")
-    xs_t, ws_t, es_t, out_t = cm.nuts_stream_reference(tspec, *ts, 11, EPS, 0.0, 3, 2, DEPTH,
-                                                       fixed_uniform=True)
+    xs_t, ws_t, es_t, out_t = cm.stream_reference(tspec, *ts, 11, EPS, 0.0, 3, 2, DEPTH,
+                                                  fixed_uniform=True, variant="nuts")
     assert xs_t.shape == (3, 2, N) and ws_t.shape == es_t.shape == (3, N)
     np.testing.assert_array_equal(es_t.numpy(), np.asarray(es_j).reshape(3, N))
     np.testing.assert_array_equal(es_t[-1].numpy(), out_t.evals.numpy())
@@ -164,23 +165,27 @@ def test_cuda_nuts_engine_on_cpu():
 def test_nuts_routing_and_refusals():
     jspec, tspec, js, ts = _case()
     a = cm.cuda_mjhmc_run(tspec, *ts, 5, EPS, 0.0, 2, DEPTH, variant="nuts")
-    b = cm.nuts_run_reference(tspec, *ts, 5, EPS, 0.0, 2, DEPTH)
+    b = cm.run_reference(tspec, *ts, 5, EPS, 0.0, 2, DEPTH, variant="nuts")
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     xs, ws, es, _ = cm.cuda_mjhmc_stream_run(tspec, *ts, 5, EPS, 0.0, 2, 1, DEPTH,
                                              variant="nuts")
-    assert torch.equal(es, cm.nuts_stream_reference(tspec, *ts, 5, EPS, 0.0, 2, 1, DEPTH)[2])
+    assert torch.equal(es, cm.stream_reference(tspec, *ts, 5, EPS, 0.0, 2, 1, DEPTH,
+                                               variant="nuts")[2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cm.CudaNUTS(tmodels.ProductOfT(), device="cpu")
     pot = cm.energy_spec_for(tmodels.ProductOfT())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cm.cuda_mjhmc_mm_run(pot, *ts, 5, EPS, 0.0, 2, DEPTH, variant="nuts")
-    for variant in ("control", "malt"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cm.cuda_mjhmc_run(tspec, *ts, 5, EPS, 0.0, 2, DEPTH, variant=variant)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for variant in ("control", "malt"):  # ported: the CPU takes their plain versions
+        a = cm.cuda_mjhmc_run(tspec, *ts, 5, EPS, 0.5, 2, DEPTH, variant=variant)
+        b = cm.run_reference(tspec, *ts, 5, EPS, 0.5, 2, DEPTH, variant=variant)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(NotImplementedError, match="leapfrog"):
         cm.cuda_mjhmc_run(tspec, *ts, 5, EPS, 0.0, 2, DEPTH, variant="nuts",
                           integrator="two_stage")
+    with pytest.raises(NotImplementedError, match="leapfrog"):
+        cm.run_reference(tspec, *ts, 5, EPS, 0.0, 2, DEPTH, integrator="two_stage", variant="nuts")
     with pytest.raises(ValueError, match="cuda tensors"):
         cm.cuda_mjhmc_run(tspec, *(t.to("meta") for t in ts), 5, EPS, 0.0, 2, DEPTH,
                           variant="nuts")
