@@ -4,16 +4,18 @@
 
 Builds the hand-written CUDA kernels from ``mjhmc_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card, checks the engine's
-statistics against analytic, quadrature and plain-sampler variances, drives
-the main paths once through the CLI (``sample --engine cuda`` on
-``rough_well`` for the elementwise kernel, on ``product_of_t`` and
-``sparse_coding`` for the matmul kernel, ``--sampler nuts`` on ``gauss2d``
-for the NUTS kernel) and the roofline dossier (``bench_mfu.main`` with its
-ceiling probes, at a reduced ``--steps``), and times the kernels beside
-their plain versions. One line per phase; any failed check raises, so the
-exit code is non-zero. The second to last line is the kernels' JSON record, the
-last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero and prints no result.
+statistics against analytic, quadrature, Laplace and plain-sampler
+variances, drives the main paths once through the CLI (``sample --engine
+cuda`` on ``rough_well`` for the elementwise kernel, on ``product_of_t``,
+``sparse_coding`` and ``logreg`` for the matmul kernel, ``--sampler nuts`` on
+``gauss2d`` and on the matmul presets for the NUTS bodies, ``--sampler
+control|malt`` and ``--integrator two_stage``), the engines' ``from_warmup``
+and the roofline dossier (``bench_mfu.main`` with its ceiling probes, at a
+reduced ``--steps``), and times the kernels beside their plain versions.
+One line per phase; any failed check raises, so the exit code is non-zero.
+The second to last line is the kernels' JSON record, the last line
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ CONTROL_VARIANT = "control (_make_step_control, mjhmc_tpu/ops/pallas_mjhmc.py:86
 MALT_VARIANT = "malt (_make_step_malt, mjhmc_tpu/ops/pallas_mjhmc.py:938)"
 TWO_STAGE_BRANCH = "two_stage (_two_stage_half, mjhmc_tpu/ops/pallas_mjhmc.py:745)"
 MASS_BRANCH = "inv_mass (_make_step, mjhmc_tpu/ops/pallas_mjhmc.py:738, :793, :848)"
+MM_ENERGIES = {"product_of_t": "ProductOfTSpec (mjhmc_tpu/ops/pallas_mjhmc.py:379)",
+               "sparse_coding": "SparseCodingSpec (mjhmc_tpu/ops/pallas_mjhmc.py:468)",
+               "logreg": "LogregSpec (mjhmc_tpu/ops/pallas_mjhmc.py:519)"}
+MM_NUTS_DEPTH = 8  # max_depth of the matmul NUTS checks and of `sample --sampler nuts`
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its operations over the FP32 peak and its bytes (each input read
@@ -71,7 +77,7 @@ NORMAL_OPS = 6 + PHILOX_OPS / 2  # log, sqrt, cos, three products; two words
 
 
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    print(f"[{name}] {msg} ({time.perf_counter() - T0:.1f} s since start)", flush=True)
 
 
 def check(ok, msg: str) -> None:
@@ -494,6 +500,8 @@ def energy_ops(cname, d, k):
         return 7 * d, 3 * d
     if cname.startswith("product_of_t"):
         return 4 * d * k + 5 * k + 6 * d, 4 * k
+    if cname.startswith("logreg"):  # σ(z): exp, add, divide; softplus: max, abs, exp, log1p, add
+        return 4 * d * k + 3 * k + 7 * d, 5 * k + 2 * d
     return 4 * d * k + 8 * d + k, 3 * d + 2 * k  # sparse coding
 
 
@@ -555,11 +563,12 @@ def slice_cases(cm):
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 
     cfg = {c: BENCHMARK_CONFIGS[c] for c in ("rough_well", "gauss50d", "product_of_t",
-                                              "sparse_coding")}
+                                              "sparse_coding", "logreg")}
     dist = {c: v.make_distribution() for c, v in cfg.items()}
     var50 = tuple(float(v) for v in dist["gauss50d"].analytic_var())
     var_pot = tuple(float(v) for v in dist["product_of_t"].analytic_var())
     sc_mass = tuple(float(v) for v in torch.linspace(0.8, 1.25, 128))
+    lr_mass = tuple(float(v) for v in dist["logreg"].laplace_var())
     rows = []
     for label, c, n, beta, kw in (
         ("control", "rough_well", 10_000, 0.2, dict(variant="control")),
@@ -580,6 +589,15 @@ def slice_cases(cm):
         ("mjhmc inv_mass", "sparse_coding", 8192, 0.1, dict(inv_mass=sc_mass)),
         ("control two_stage inv_mass", "sparse_coding", 8192, 0.2,
          dict(variant="control", integrator="two_stage", inv_mass=sc_mass)),
+        # slice K: the logreg energy on every body and branch
+        ("mjhmc", "logreg", 2048, 0.1, {}),
+        ("control", "logreg", 2048, 0.2, dict(variant="control")),
+        ("malt", "logreg", 2048, 1.0, dict(variant="malt")),
+        ("mjhmc two_stage inv_mass", "logreg", 2048, 0.1,
+         dict(integrator="two_stage", inv_mass=lr_mass)),
+        ("control two_stage inv_mass", "logreg", 2048, 0.2,
+         dict(variant="control", integrator="two_stage", inv_mass=lr_mass)),
+        ("malt inv_mass", "logreg", 2048, 1.0, dict(variant="malt", inv_mass=lr_mass)),
     ):
         # two-stage rough-well trajectories take 2M sin-laden gradients per
         # half: their single chains are held after 3 iterations, not 5
@@ -866,6 +884,306 @@ def slice_timing(cm, card):
     return rows
 
 
+def mm_nuts_cases():
+    """The matmul NUTS body at the presets' widths: (label, config,
+    distribution, chains, ε, max_depth, (fixed-uniform, Philox) iterations,
+    M⁻¹). Product of t at ε 0.12 (ε·ω ≈ 1.2 < 2; its preset 0.2 is
+    unstable). Fixed-uniform mode gives every chain the momentum 5.9 in every
+    dim and takes every leaf, so product of t and sparse coding run full
+    trees (255 and ~243 leaves) far out from the bulk: one iteration. There
+    last-ulp differences carry nearly every product-of-t chain past rtol
+    1e-4 (as one-ulp nudges do to the plain version alone), so its states
+    are also held at max_depth 4 (15 leaves), with and without a mass."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    dist = {c: BENCHMARK_CONFIGS[c].make_distribution()
+            for c in ("product_of_t", "sparse_coding", "logreg")}
+    lr_mass = tuple(float(v) for v in dist["logreg"].laplace_var())
+    pot_mass = tuple(float(v) for v in dist["product_of_t"].analytic_var())
+    return (
+        ("product_of_t", "product_of_t", dist["product_of_t"], 4096, 0.12, MM_NUTS_DEPTH, (1, 2),
+         None),
+        ("product_of_t max_depth 4", "product_of_t", dist["product_of_t"], 4096, 0.12, 4, (2, 3),
+         None),
+        ("product_of_t max_depth 4 inv_mass", "product_of_t", dist["product_of_t"], 4096, 0.12,
+         4, (2, 3), pot_mass),
+        ("sparse_coding", "sparse_coding", dist["sparse_coding"], 8192, 0.02, MM_NUTS_DEPTH,
+         (1, 2), None),
+        ("logreg", "logreg", dist["logreg"], 2048, 0.15, MM_NUTS_DEPTH, (3, 3), None),
+        ("logreg inv_mass", "logreg", dist["logreg"], 2048, 0.15, MM_NUTS_DEPTH, (3, 3),
+         lr_mass),
+    )
+
+
+def mm_nuts_checks(cm):
+    """Phase 21: the matmul kernel's NUTS body, run and stream, against its
+    plain version on the card, in fixed-uniform mode and in Philox mode.
+    The contractions sum in another order than torch.matmul and a tree
+    decision flips with the last ulp of H, so: per-chain leaf counts (and
+    stream es) equal on all but 0.1% of the chains, or as many as one-ulp
+    nudges of x (up, down) change in the plain version alone, if more; x, v,
+    g, u and every emitted x within rtol 1e-4 (atol 1e-4 of the field's
+    largest value) on the chains whose counts agree, all but 0.1% or as
+    many as the nudges move past it; w = steps, ws = 1, es[-1] = evals.
+    Returns {label: max |dx| on the chains within}."""
+    errs = {}
+    for label, _, dist, n, eps, depth, both_iters, mass in mm_nuts_cases():
+        spec = cm.energy_spec_for(dist)
+        kw = dict(variant="nuts", inv_mass=mass)
+        for fixed, seed, iters in ((True, 7, both_iters[0]), (False, 12345, both_iters[1])):
+            st = initial_state(dist, n, seed=1 if fixed else 2, inv_mass=mass)
+            args = (spec, *st, seed, eps, 0.0)
+            k = cm.cuda_mjhmc_mm_run(*args, iters, depth, fixed_uniform=fixed, **kw)
+            xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_mm_stream_run(*args, iters, 1, depth,
+                                                                 fixed_uniform=fixed, **kw)
+            xs_r, _, es_r, r = cm.stream_reference(*args, iters, 1, depth, fixed, **kw)
+            mode = "fixed-uniform" if fixed else "Philox"
+            what = f"NUTS {label} ({n} chains, eps {eps}, max_depth {depth}, {mode})"
+            check(bool((k.w == iters).all()) and bool((ws_k == 1).all())
+                  and torch.equal(es_k[-1], so_k.evals), f"{what}: w, ws or es[-1]")
+            same = (k.evals == r.evals) & (es_k == es_r).all(dim=0)
+            within = chains_within(k, r) & stream_within(xs_k, xs_r)
+            flips, drift = torch.zeros_like(same), torch.zeros_like(same)
+            for to in (float("inf"), float("-inf")):
+                nudged = (torch.nextafter(st[0], torch.full_like(st[0], to)), *st[1:])
+                xs_n, _, es_n, r_n = cm.stream_reference(spec, *nudged, seed, eps, 0.0, iters, 1,
+                                                         depth, fixed, **kw)
+                same_n = (r_n.evals == r.evals) & (es_n == es_r).all(dim=0)
+                flips |= ~same_n
+                drift |= same_n & ~(chains_within(r_n, r) & stream_within(xs_n, xs_r))
+            differ, outside = int((~same).sum()), int((same & ~within).sum())
+            allow_counts = max(0.001 * n, int(flips.sum()))
+            allow_states = max(0.001 * n, int(drift.sum()))
+            check(differ <= allow_counts, f"{what}: leaf counts differ on {differ} chains, "
+                  f"{allow_counts:g} allowed")
+            check(outside <= allow_states, f"{what}: {outside} chains with equal counts outside "
+                  f"rtol 1e-4, {allow_states:g} allowed")
+            ok = same & within
+            dx = (k.x - r.x).abs()
+            err = float(dx[:, ok].max()) if bool(ok.any()) else float(dx.max())
+            errs[label] = max(errs.get(label, 0.0), err)
+            leaves = float(r.evals.double().mean()) / iters
+            phase("21 mm nuts", f"{what}, {iters} iterations, {leaves:.4g} leaves/iteration: "
+                  f"leaf counts and stream es equal on {1 - differ / n:.5f} of chains; x,v,g,u "
+                  f"and stream xs rtol 1e-4 on all but {outside} of those (max|dx| {err:.3g}); "
+                  f"one-ulp nudges of x change {int(flips.sum())} chains' counts and move "
+                  f"{int(drift.sum())} more past rtol 1e-4 in the plain version alone")
+    return errs
+
+
+def leaf_slot_share(es, depth, tile=32):
+    """Share of the leaf slots a tile of ``tile`` chains ran that were live,
+    from a stream's cumulative leaf counts ``es`` (E, n): round j of a tile
+    runs as many leaf steps as its chain with the most leaves in that round
+    (a chain with nl leaves in the iteration spent clamp(nl − 2^j + 1, 0,
+    2^j) of them in round j), every column each step."""
+    nl = torch.diff(es.long(), dim=0, prepend=torch.zeros_like(es[:1]).long())
+    n = nl.shape[1]
+    nl = torch.nn.functional.pad(nl, (0, (-n) % tile)).reshape(nl.shape[0], -1, tile)
+    steps = sum((nl - (2**j - 1)).clamp(0, 2**j).amax(dim=-1) for j in range(depth))
+    return float(nl.sum()) / float(tile * steps.sum())
+
+
+def slice_k_stats(cm):
+    """Phase 22: the statistics of slice K. CudaNUTS on product_of_t (the
+    settings of tests/test_pallas_engine.py:892-923): the median of
+    var/analytic within 15% and mean leaves per iteration within 12% of the
+    plain NUTS sampler on the card; CudaMJHMC (ε 0.25, β 0.15, M 10, 2,048
+    chains, 400 + 1500, as :548-557) and CudaNUTS on logreg: the median of
+    var/laplace_var within 25%; both from_warmup engines: ε > 0, M⁻¹ > 0
+    and the same bounds after a short run. Product of t's ν = 2.5 leaves
+    x² without a finite variance, so a 400-iteration window's median
+    var/analytic swings with single excursions into the tails (one such
+    window of the warmed engine read 1.16); the warmed engine is read over
+    2,000 iterations."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.samplers import NUTS
+
+    pot = BENCHMARK_CONFIGS["product_of_t"].make_distribution()
+    lr = BENCHMARK_CONFIGS["logreg"].make_distribution()
+    target = {"product_of_t": pot.analytic_var().double().cuda(),
+              "logreg": torch.as_tensor(lr.laplace_var(), device="cuda")}
+
+    def median_ratio(cname, out):
+        _, var = cm.CudaMJHMC.moments(out)
+        return float((var.double() / target[cname]).median())
+
+    def held(what, cname, out, tol):
+        ratio = median_ratio(cname, out)
+        oracle = "analytic" if cname == "product_of_t" else "laplace_var"
+        check(abs(ratio - 1) < tol, f"{what}: median var/{oracle} {ratio:.4f}, outside {tol:.0%}")
+        return f"median var/{oracle} {ratio:.5f}"
+
+    eng = cm.CudaNUTS(pot, epsilon=0.12, num_leapfrog_steps=7, nbatch=2048, seed=0)
+    eng.run(100)
+    out = eng.run(400)
+    check(bool((out.w == 400).all()), "CudaNUTS product_of_t: w must equal the steps")
+    got = held("CudaNUTS product_of_t", "product_of_t", out, 0.15)
+    leaves = float(out.evals.double().mean()) / 400
+    t0 = time.perf_counter()
+    ref = NUTS(pot, epsilon=0.12, max_depth=7, nbatch=512, seed=1, device="cuda")
+    ref.burn_in(20)
+    ev = ref.sample(100)["evals_mean"].double()
+    plain_s = time.perf_counter() - t0
+    leaves_ref = float(ev[-1] - ev[0]) / 99
+    check(abs(leaves / leaves_ref - 1) < 0.12,
+          f"CudaNUTS product_of_t {leaves:.4g} leaves/iteration vs the plain NUTS {leaves_ref:.4g}")
+    phase("22 slice K stats", f"CudaNUTS product_of_t (2,048 chains, eps 0.12, max_depth 7, "
+          f"100 + 400): {got}; {leaves:.5g} leaves/iteration vs {leaves_ref:.5g} in the plain "
+          f"NUTS (512 chains, 20 + 100, {plain_s:.3g} s host clock)")
+
+    eng = cm.CudaMJHMC(lr, epsilon=0.25, beta=0.15, num_leapfrog_steps=10, nbatch=2048, seed=0)
+    eng.run(400)
+    got = held("CudaMJHMC logreg", "logreg", eng.run(1500), 0.25)
+    phase("22 slice K stats", f"CudaMJHMC logreg (2,048 chains, eps 0.25, beta 0.15, M 10, "
+          f"400 + 1500): {got}")
+    eng = cm.CudaNUTS(lr, epsilon=0.15, num_leapfrog_steps=MM_NUTS_DEPTH, nbatch=2048, seed=0)
+    eng.run(200)
+    out = eng.run(1000)
+    got = held("CudaNUTS logreg", "logreg", out, 0.25)
+    phase("22 slice K stats", f"CudaNUTS logreg (2,048 chains, eps 0.15, max_depth "
+          f"{MM_NUTS_DEPTH}, 200 + 1000): {got}; "
+          f"{float(out.evals.double().mean()) / 1000:.5g} leaves/iteration")
+
+    res = {}
+    for ecls, dist, cname, kw, burn, steps, tol in (
+            (cm.CudaNUTS, pot, "product_of_t", dict(nbatch=4096, max_depth=MM_NUTS_DEPTH), 100,
+             2000, 0.15),
+            (cm.CudaMJHMC, lr, "logreg", dict(nbatch=2048, beta=0.15, num_leapfrog_steps=10), 0,
+             1500, 0.25)):
+        cm.reset_counts()
+        t0 = time.perf_counter()
+        eng = ecls.from_warmup(dist, seed=0, **kw)
+        warm_s = time.perf_counter() - t0
+        im = torch.as_tensor(eng.inv_mass)
+        check(eng.epsilon > 0 and bool((im > 0).all()) and im.numel() == dist.ndims,
+              f"{ecls.__name__}.from_warmup({cname}): eps {eng.epsilon}, M^-1 {im.tolist()}")
+        if burn:
+            eng.run(burn)
+        got = held(f"{ecls.__name__}.from_warmup({cname})", cname, eng.run(steps), tol)
+        mm = (cm.cuda_mjhmc_mm_run, cm.cuda_mjhmc_mm_stream_run)
+        res[cname] = sum(f.mass_launches for f in mm)
+        phase("22 slice K stats", f"{ecls.__name__}.from_warmup({cname}, {kw}): warmup "
+              f"{warm_s:.3g} s host clock, eps {eng.epsilon:.5g}, M^-1 in [{float(im.min()):.4g}, "
+              f"{float(im.max()):.4g}]; {burn} + {steps}: {got}; launches with the mass {res[cname]}")
+    return res
+
+
+def slice_k_cli(cm, cli):
+    """Phase 23: `sample --sampler nuts` on product_of_t and sparse_coding,
+    every sampler on logreg (--engine cuda), and the plain NUTS sampler on
+    logreg (--engine torch), at the presets' widths; every count set to 0
+    just before each call. Returns {(sampler, config, engine): (record,
+    (run, stream) launches, seconds)}."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    out = {}
+    for sampler, cname, engine, burn, steps in (
+            ("nuts", "product_of_t", "cuda", 200, 400), ("nuts", "sparse_coding", "cuda", 100, 100),
+            ("mjhmc", "logreg", "cuda", 500, 1000), ("control", "logreg", "cuda", 500, 1000),
+            ("malt", "logreg", "cuda", 500, 1000), ("nuts", "logreg", "cuda", 500, 1000),
+            ("nuts", "logreg", "torch", 20, 50)):
+        cfg = BENCHMARK_CONFIGS[cname]
+        cm.reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli(["sample", "--config", cname, "--engine", engine, "--sampler", sampler,
+                 "--burn", str(burn), "--steps", str(steps)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        attr = "launches" if sampler == "mjhmc" else f"{sampler}_launches"
+        launches = counts(cm, attr, mm=True)
+        n, m, ge = cfg.nbatch, cfg.num_leapfrog_steps, rec["grad_evals"]
+        iters = steps if engine == "torch" else burn + steps  # the plain burn-in resets
+        if engine == "cuda":
+            check(all(v > 0 for v in launches), f"{sampler} {cname}: kernels not launched")
+        else:
+            check(not any(v for a in cm.COUNTS for mm in (False, True) for v in counts(cm, a, mm)),
+                  "--engine torch launched a kernel")
+        if sampler == "nuts":
+            good = iters * n <= ge <= iters * n * (2**MM_NUTS_DEPTH - 1)
+        elif sampler == "mjhmc":
+            good = ge >= m * iters * n and ge % m == 0
+        else:
+            good = ge == m * iters * n
+        check(good and rec["chains"] == n and rec["steps"] == steps and rec["ess"] > 0
+              and all(v > 0 and v == v for v in rec["var"]), f"bad CLI record {rec}")
+        out[(sampler, cname, engine)] = (rec, launches, seconds)
+        phase("23 slice K cli", f"{json.dumps(rec)}; launches (run, stream) {launches}; "
+              f"{seconds:.4g} s host clock")
+    return out
+
+
+def slice_k_timing(cm, card):
+    """Phase 24: ms per iteration (CUDA events) of every slice-K instance,
+    run and stream, beside the plain version, at the presets' widths; NUTS
+    also leaves/s and the share of its tiles' leaf slots that were live.
+    The instances with a mass (and logreg MJHMC's with the two-stage
+    integrator) are timed as "<body> inv_mass". Returns {(key, config): (run
+    ms, stream ms, plain run ms, plain stream ms, gradients, iterations,
+    chains, live share)}."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    dists = {c: BENCHMARK_CONFIGS[c].make_distribution()
+             for c in ("product_of_t", "sparse_coding", "logreg")}
+    mass = {"product_of_t": tuple(float(v) for v in dists["product_of_t"].analytic_var()),
+            "sparse_coding": tuple(float(v) for v in torch.linspace(0.8, 1.25, 128)),
+            "logreg": tuple(float(v) for v in dists["logreg"].laplace_var())}
+    rows = {}
+    for key, cname, n, eps, beta, iters in (
+            ("nuts", "product_of_t", 4096, 0.12, 0.0, 200),
+            ("nuts", "sparse_coding", 8192, 0.02, 0.0, 30),
+            ("nuts", "logreg", 2048, 0.15, 0.0, 300),
+            ("nuts inv_mass", "product_of_t", 4096, 0.12, 0.0, 200),
+            ("nuts inv_mass", "sparse_coding", 8192, 0.02, 0.0, 30),
+            ("nuts inv_mass", "logreg", 2048, 0.15, 0.0, 300),
+            ("mjhmc", "logreg", 2048, 0.15, 0.1, 1000),
+            ("mjhmc inv_mass", "logreg", 2048, 0.15, 0.1, 1000),
+            ("control", "logreg", 2048, 0.15, 0.2, 1000),
+            ("malt", "logreg", 2048, 0.15, 1.0, 1000)):
+        cfg = BENCHMARK_CONFIGS[cname]
+        dist = dists[cname]
+        body = key.split()[0]
+        nuts = body == "nuts"
+        m = MM_NUTS_DEPTH if nuts else cfg.num_leapfrog_steps
+        ecls = {"nuts": cm.CudaNUTS, "mjhmc": cm.CudaMJHMC, "control": cm.CudaControlHMC,
+                "malt": cm.CudaMALT}[body]
+        kw = dict(variant=body)
+        if key.endswith("inv_mass"):
+            kw["inv_mass"] = mass[cname]
+            if body == "mjhmc":
+                kw["integrator"] = "two_stage"
+        eng = ecls(dist, epsilon=eps, beta=beta, num_leapfrog_steps=m, nbatch=n, seed=4,
+                   **{k: v for k, v in kw.items() if k != "variant"})
+        eng.run(10)
+        before = eng.grad_evals
+        run_ms = events_ms(lambda: eng.run(iters)) / iters
+        grads = eng.grad_evals - before
+        got = {}
+        stream_ms = events_ms(lambda: got.update(s=eng.sample(iters, return_evals=True))) / iters
+        share = leaf_slot_share(got["s"][2], m) if nuts else 1.0
+        plain_iters = 1 if nuts else 3
+        args = (cm.energy_spec_for(dist), *initial_state(dist, n, seed=5,
+                                                          inv_mass=kw.get("inv_mass")),
+                99, eps, beta)
+        cm.run_reference(*args, 1, m, **kw)
+        plain_ms = events_ms(lambda: cm.run_reference(*args, plain_iters, m, **kw)) / plain_iters
+        plain_stream_ms = events_ms(
+            lambda: cm.stream_reference(*args, plain_iters, 1, m, **kw)) / plain_iters
+        rows[(key, cname)] = (run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n, share)
+        per = grads / (n * iters)
+        extra = (f"{per:.5g} leaves per chain and iteration, {per * n / run_ms * 1e3:.6g} leaves/s, "
+                 f"{share:.4f} of the tiles' leaf slots live" if nuts
+                 else f"{per:.4g} gradients per chain and iteration")
+        phase("24 slice K timing", f"{key} {cname} ({n} chains, eps {eps}, beta {beta}, "
+              f"{'max_depth' if nuts else 'M'} {m}): run {run_ms:.6g} ms/iteration, stream "
+              f"(thin 1) {stream_ms:.6g}; plain version run {plain_ms:.6g}, stream "
+              f"{plain_stream_ms:.6g} ms/iteration; {extra} [{card}]")
+    return rows
+
+
 T0 = time.perf_counter()
 
 
@@ -1118,6 +1436,13 @@ def main() -> int:
     cli_res = slice_cli(cm, cli)
     slice_ms = slice_timing(cm, card)
 
+    # ---- 21-24. slice K: NUTS and logreg on the matmul kernel ---------------
+    # (the logreg bodies and branches are held in phases 15-16)
+    mm_nuts_err = mm_nuts_checks(cm)
+    warm_res = slice_k_stats(cm)
+    k_cli = slice_k_cli(cm, cli)
+    k_ms = slice_k_timing(cm, card)
+
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
 
@@ -1127,7 +1452,7 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None, **extra}
 
     shapes = {"rough_well": (2, 0), "gauss50d": (50, 0), "gauss2d": (2, 0),
-              "product_of_t": (36, 36), "sparse_coding": (128, 64)}
+              "product_of_t": (36, 36), "sparse_coding": (128, 64), "logreg": (16, 256)}
 
     def mjhmc_bound(cname, n, emit, iters=1000):
         d, k = shapes[cname]
@@ -1226,10 +1551,33 @@ def main() -> int:
                         "product_of_t control two_stage inv_mass", "sparse_coding mjhmc inv_mass",
                         "sparse_coding control two_stage inv_mass")), False, MASS_BRANCH),
     ]
+    # slice K: the NUTS body on each matmul energy, the logreg MJHMC,
+    # control and MALT bodies; launches from phase 23's CLI calls
+    for body, cname in (("nuts", "product_of_t"), ("nuts", "sparse_coding"), ("nuts", "logreg"),
+                        ("mjhmc", "logreg"), ("control", "logreg"), ("malt", "logreg")):
+        run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n, share = k_ms[(body, cname)]
+        d, k = shapes[cname]
+        err = mm_nuts_err[cname] if body == "nuts" else slice_err[f"logreg {body}"]
+        variant = {"nuts": NUTS_VARIANT, "mjhmc": "mjhmc (_make_step, "
+                   "mjhmc_tpu/ops/pallas_mjhmc.py:714)", "control": CONTROL_VARIANT,
+                   "malt": MALT_VARIANT}[body]
+        launches = k_cli[(body, cname, "cuda")][1]
+        for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
+            stream = idx == 1
+            extra = {"variant": variant, "energy": MM_ENERGIES[cname],
+                     "shape": f"{cname}, {n} chains, {'max_depth 8' if body == 'nuts' else 'preset'}"
+                              f"{', thin 1' if stream else ''}, ms per iteration"}
+            if body == "nuts":
+                extra["leaf_slots_live"] = share
+            kernels.append(entry(f"{body}_mm_{suffix}[{cname}]", MM_KERNEL_SRC, src,
+                                 launches[idx], err, stream_ms if stream else run_ms,
+                                 plain_stream_ms if stream else plain_ms,
+                                 bound(cname, body, d, k, n, iters, grads, iters if stream else 0),
+                                 **extra))
     check(all(kern["launches"] > 0 for kern in kernels),
           f"kernels not launched on their main paths: "
           f"{[kern['name'] for kern in kernels if not kern['launches'] > 0]}")
-    phase("21 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
+    phase("25 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

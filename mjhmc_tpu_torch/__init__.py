@@ -6,10 +6,12 @@ imports ``torch`` and never ``jax``. Public functions keep the JAX layouts:
 ``(ndims, nbatch)`` states with chains last, ``(nbatch,)`` per-chain
 scalars, energies that reduce axis −2.
 
-Ported so far (the main path): the rough-well and Gaussian models, the
-leapfrog integrators, the plain MJHMC sampler, the fused CUDA engine
-(``ops.cuda_mjhmc``, hand-written kernel in ``csrc/``) and the
-autocorrelation / ESS diagnostics. See ROADMAP.md for what is still to come.
+Ported so far: the rough-well, Gaussian, product-of-t, sparse-coding and
+logistic-regression models, the leapfrog and two-stage integrators, the
+plain MJHMC, control HMC, MALT and NUTS samplers with the dual-averaging
+warmups, the fused CUDA engines (``ops.cuda_mjhmc``, hand-written kernels
+in ``csrc/``), the roofline dossier and the autocorrelation / ESS
+diagnostics. See ROADMAP.md for what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -3,19 +3,20 @@
     python -m mjhmc_tpu_torch sample --config rough_well --engine cuda --steps 1000
     python -m mjhmc_tpu_torch sample --config sparse_coding --engine cuda
     python -m mjhmc_tpu_torch sample --config gauss2d --engine cuda --sampler nuts
+    python -m mjhmc_tpu_torch sample --config logreg --engine cuda --sampler nuts
     python -m mjhmc_tpu_torch sample --config rough_well --sampler control --integrator two_stage
     python -m mjhmc_tpu_torch sample --config product_of_t --sampler malt --gamma 1.0
     python -m mjhmc_tpu_torch bench
 
-``sample`` runs MJHMC, control HMC or MALT (``--gamma`` is MALT's friction,
+``sample`` runs MJHMC, control HMC, MALT (``--gamma`` is MALT's friction,
 carried in the engine's β slot; ``--integrator two_stage`` for MJHMC and
-control), or, with ``--engine cuda --sampler nuts``, the fused NUTS engine
-at max_depth 8, and prints the JSON record of ``mjhmc_tpu``'s ``sample``.
-``--engine cuda`` is the fused engine (its plain version when ``--device
-cpu``), ``--engine torch`` the plain sampler. The configs ported so far are
-gauss2d, gauss50d, rough_well, rough_well_a3 (elementwise kernel),
-product_of_t and sparse_coding (matmul kernel; no NUTS). The JAX package's
-other subcommands and samplers are not ported yet (ROADMAP.md, slice H).
+control) or NUTS at max_depth 8, and prints the JSON record of
+``mjhmc_tpu``'s ``sample``. ``--engine cuda`` is the fused engine (its plain
+version when ``--device cpu``), ``--engine torch`` the plain sampler. The
+configs ported so far are gauss2d, gauss50d, rough_well, rough_well_a3
+(elementwise kernel), product_of_t, sparse_coding and logreg (matmul
+kernel). The JAX package's other subcommands and samplers are not ported
+yet (ROADMAP.md, slice H).
 """
 
 from __future__ import annotations
@@ -61,12 +62,10 @@ def cmd_sample(args):
     else:
         from mjhmc_tpu_torch import samplers
 
-        if args.sampler == "nuts":
-            raise SystemExit("--engine torch --sampler nuts needs the plain NUTS "
-                             "sampler, which is not ported yet (ROADMAP.md, slice D); "
-                             "use --engine cuda")
         m = cfg.num_leapfrog_steps
-        if args.sampler == "malt":  # the plain MALT takes no integrator, as in JAX
+        if args.sampler == "nuts":
+            s = samplers.NUTS(dist, **common)
+        elif args.sampler == "malt":  # the plain MALT takes no integrator, as in JAX
             s = samplers.MALT(dist, gamma=args.gamma, num_leapfrog_steps=m, **common)
         else:
             cls = samplers.ControlHMC if args.sampler == "control" else samplers.MarkovJumpHMC

@@ -2,8 +2,8 @@
 
 The presets are the same values as the JAX package's; only
 ``make_distribution`` resolves to this package's model registry, which so
-far holds the rough well, the Gaussian, the product of t experts and the
-sparse-coding posterior.
+far holds the rough well, the Gaussian, the product of t experts, the
+sparse-coding posterior and Bayesian logistic regression.
 """
 
 from __future__ import annotations

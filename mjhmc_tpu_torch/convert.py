@@ -10,7 +10,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mjhmc_tpu_torch.models import Gaussian, ProductOfT, RoughWell, SparseCoding
+from mjhmc_tpu_torch.models import (
+    Gaussian,
+    LogisticRegression,
+    ProductOfT,
+    RoughWell,
+    SparseCoding,
+)
 from mjhmc_tpu_torch.samplers.state import ChainState, HMCState, MJState
 
 _PORTED = {
@@ -18,6 +24,7 @@ _PORTED = {
     "Gaussian": Gaussian,
     "ProductOfT": ProductOfT,
     "SparseCoding": SparseCoding,
+    "LogisticRegression": LogisticRegression,
 }
 
 
@@ -28,8 +35,8 @@ def distribution_from_jax(config_dict: dict):
     if name not in _PORTED:
         raise NotImplementedError(
             f"distribution {name} is not ported yet: the zoo models (Funnel, "
-            "Banana, GaussianMixture, EightSchools, LogisticRegression) come "
-            "with slice D (ROADMAP.md, 'Modules to port')"
+            "Banana, GaussianMixture, EightSchools) come with slice L "
+            "(ROADMAP.md, 'Modules to port')"
         )
     if cfg.get("custom_patch") is not None:  # config_dict makes tuples lists
         cfg["custom_patch"] = tuple(cfg["custom_patch"])

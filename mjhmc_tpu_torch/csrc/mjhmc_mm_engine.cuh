@@ -1,18 +1,22 @@
-// Fused MJHMC, control HMC and MALT engines for the matmul energies on
-// Hopper (sm_90a): a whole sampling run in one launch. This header holds the
-// kernel as a template; mjhmc_mm_engine.cu compiles the product-of-t
-// instances and the C entry, mm_engine_sparse_coding.cu the sparse-coding
-// instances, each by its own nvcc (ops/_build.py).
+// Fused MJHMC, control HMC, MALT and NUTS engines for the matmul energies
+// on Hopper (sm_90a): a whole sampling run in one launch. This header holds
+// the kernels as templates; mjhmc_mm_engine.cu compiles the product-of-t
+// instances and the C entry, mm_engine_sparse_coding.cu and
+// mm_engine_logreg.cu the sparse-coding and logistic-regression instances,
+// and the mm_nuts_*.cu sources the NUTS instances, each by its own nvcc
+// (ops/_build.py).
 //
 // Replaces the TPU kernels _mjhmc_mm_kernel and _mjhmc_mm_stream_kernel
 // (mjhmc_tpu/ops/pallas_mjhmc.py:1265 and :1596) with the step bodies
-// _make_step (:714, "mjhmc"), _make_step_control (:863) and _make_step_malt
-// (:938), the ProductOfTSpec (:379) and SparseCodingSpec (:468) energies,
-// a diagonal inverse mass and the two-stage integrator. One templated
-// kernel serves all: EMIT=false is the run, EMIT=true also streams every
-// thin-th iteration's x (MJHMC: pre-transition, with its dwell weight;
-// control and MALT: post-transition, weight 1) and cumulative evals with
-// plain coalesced stores (no row padding).
+// _make_step (:714, "mjhmc"), _make_step_control (:863), _make_step_malt
+// (:938) and _make_step_nuts (:1011; nuts_mm_kernel below), the
+// ProductOfTSpec (:379), SparseCodingSpec (:468) and LogregSpec (:519)
+// energies, a diagonal inverse mass and the two-stage integrator. One
+// templated kernel serves the first three bodies: EMIT=false is the run,
+// EMIT=true also streams every thin-th iteration's x (MJHMC:
+// pre-transition, with its dwell weight; the others: post-transition,
+// weight 1) and cumulative evals with plain coalesced stores (no row
+// padding).
 //
 // Design: a block owns a tile of chains. It loads the parameter matrix
 // (W, or Φ and the patch) into shared memory once, in both orientations,
@@ -22,7 +26,8 @@
 // chains, control and MALT (forward trajectories only) on 2C chains, so all
 // three bodies run the same tile width. Every leapfrog step runs the
 // energy's two contractions over all NC columns at once (product of t: y =
-// Wᵀx, then W·dU/dy; sparse coding: r = patch − Φa, then Φᵀr), each thread
+// Wᵀx, then W·dU/dy; sparse coding: r = patch − Φa, then Φᵀr; logistic
+// regression: z = Xs·θ, then Xsᵀσ(z)), each thread
 // summing a 4×4 register tile in FP32 FMA, with __syncthreads() between the
 // phases; a two-stage step is two of them with its own kick coefficients,
 // and no pair form (both contractions per gradient, as the TPU body sets
@@ -56,8 +61,9 @@
 // MJHMC counter (chain, iteration, block, 0), 1 + 2d words per iteration
 // (word 0 picks the clock, drawn by the chain's thread; words 1+i and 1+d+i
 // make dim i's Box-Muller normal, drawn by the thread owning element (i,
-// chain)); control tag 4, MALT tags 5 and 6, each normal from words i and
-// d+i and the Metropolis uniform from word 2d. The plain PyTorch version
+// chain)); NUTS tags 1-3 (momentum, round, leaf) as the elementwise kernel
+// draws them; control tag 4, MALT tags 5 and 6, each normal from words i
+// and d+i and the Metropolis uniform from word 2d. The plain PyTorch version
 // (ops/cuda_mjhmc.py) computes the same words. No fast-math: the Kahan sums
 // and the plain-version comparisons need IEEE arithmetic.
 #pragma once
@@ -74,19 +80,21 @@ constexpr float kLogRateMax = 25.0f;
 constexpr float kNegInf = -1e30f;
 constexpr float kTwoPi = 6.283185307179586f;
 
-enum Energy { kProductOfT = 0, kSparseCoding = 1 };
+enum Energy { kProductOfT = 0, kSparseCoding = 1, kLogreg = 2 };
 enum Choice { kL = 0, kF = 1, kR = 2 };
-// the step bodies, numbered as the elementwise kernel's (NUTS is not here)
-enum Variant { kMjhmc = 0, kControl = 2, kMalt = 3 };
+// the step bodies, numbered as the elementwise kernel's
+enum Variant { kMjhmc = 0, kNuts = 1, kControl = 2, kMalt = 3 };
 
 // BCSS two-stage coefficient b and 1 - 2b, rounded to float once
 constexpr float kTwoStageB = 0.1931833275037836f;
 constexpr float kTwoStageMid = static_cast<float>(1.0 - 2.0 * 0.1931833275037836);
 
 struct Args {
-  const float* p0;  // product of t: W (d, k); sparse coding: Φ (p, b)
+  // product of t: W (d, k); sparse coding: Φ (p, b); logreg: Xs = −s·X (o, d)
+  const float* p0;
   const float* p1;  // sparse coding: the patch (p,)
-  // product of t: ν+1, ν, ½(ν+1), 1/ν; sparse coding: λ, σ⁻², ½σ⁻², ε
+  // product of t: ν+1, ν, ½(ν+1), 1/ν; sparse coding: λ, σ⁻², ½σ⁻², ε;
+  // logreg: 1/σ₀², ½/σ₀²
   float k0, k1, k2, k3;
   const float *x, *v, *g, *u, *h_back, *valid;
   float *xo, *vo, *go, *uo, *hbo, *valido, *w, *wx, *wx2;
@@ -98,28 +106,30 @@ struct Args {
   float eps, beta;
   const float* mass;  // (2, d): M^-1 and sqrt(M), or nullptr (identity)
   int two_stage;
+  float* scratch;  // NUTS: the chains' tree state, (nuts::rows(m), d, n)
 };
 
 // Shared-memory layout, in floats. D: state dims; K: rows of the energy's
-// intermediate (product of t: nbasis; sparse coding: npixels).
+// intermediate (product of t: nbasis; sparse coding: npixels; logreg: nobs).
 template <int E, int D, int K, int C>
 struct Layout {
   static_assert(D % 4 == 0 && K % 4 == 0 && C % 2 == 0, "float4 tiles");
   static constexpr int NC = 2 * C;          // trajectory columns
-  static constexpr int A1 = 0;              // [D][K]: W | Φᵀ
-  static constexpr int A2 = A1 + D * K;     // [K][D]: Wᵀ | Φ
+  static constexpr int A1 = 0;              // [D][K]: W | Φᵀ | Xsᵀ
+  static constexpr int A2 = A1 + D * K;     // [K][D]: Wᵀ | Φ | Xs
   static constexpr int PATCH = A2 + K * D;  // [K]
   static constexpr int X = PATCH + K;       // [D][NC] trajectory positions
   static constexpr int V = X + D * NC;      // [D][NC] momenta
   static constexpr int G = V + D * NC;      // [D][NC] gradients
-  static constexpr int Y = G + D * NC;      // [K][NC] y | r
-  static constexpr int Z = Y + K * NC;      // [K][NC] dU/dy (product of t)
-  static constexpr int HEND = Z + (E == kProductOfT ? K * NC : 0);  // [NC]
+  static constexpr int Y = G + D * NC;      // [K][NC] y | r | z
+  static constexpr int Z = Y + K * NC;      // [K][NC] dU/dy | σ(z)
+  static constexpr int HEND = Z + (E != kSparseCoding ? K * NC : 0);  // [NC]
   static constexpr int UEND = HEND + NC;    // [NC]
   static constexpr int DWELL = UEND + NC;   // [C]
-  static constexpr int SEL = DWELL + C;     // [NC] choice, as int
+  static constexpr int SEL = DWELL + C;     // [NC] choice (NUTS: leaf flag), as int
   static constexpr int MASS = SEL + NC;     // [2D] M^-1, sqrt(M) (1 without)
-  static constexpr int kFloats = MASS + 2 * D;
+  static constexpr int FLAG = MASS + 2 * D;  // [NC] NUTS round flags, as int
+  static constexpr int kFloats = FLAG + NC;
 };
 
 // out[r][col] = Σ_k A[k][r]·B[k][col] for r < R, col < NC: A is [KD][R],
@@ -182,7 +192,7 @@ __device__ __forceinline__ float column_energy(const float* X, const float* Y, i
       s += log1pf(y * y * a.k3);
     }
     return a.k2 * s;
-  } else {
+  } else if constexpr (E == kSparseCoding) {
     float s1 = 0.f, s2 = 0.f;
     for (int i = 0; i < D; ++i) {
       const float av = X[i * NC + col];
@@ -193,6 +203,19 @@ __device__ __forceinline__ float column_energy(const float* X, const float* Y, i
       s2 += r * r;
     }
     return a.k0 * s1 + a.k2 * s2;
+  } else {
+    // Σ softplus(z) with the stable form max(z, 0) + log1p(e^{−|z|}), and
+    // the prior ½σ₀⁻²‖θ‖²
+    float s1 = 0.f, s2 = 0.f;
+    for (int o = 0; o < K; ++o) {
+      const float z = Y[o * NC + col];
+      s1 += fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)));
+    }
+    for (int i = 0; i < D; ++i) {
+      const float th = X[i * NC + col];
+      s2 += th * th;
+    }
+    return s1 + a.k1 * s2;
   }
 }
 
@@ -216,6 +239,149 @@ __device__ __forceinline__ float normal_of(const Args& a, uint32_t chain, uint32
       ? 0x1p-25f
       : philox_uniform(philox_word(chain, t, D + i, key, tag, slot0));
   return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2) * sqrt_m;
+}
+
+// The parameter matrix in both orientations, the patch and the mass into
+// the block's shared memory, then a barrier.
+template <int E, int D, int K, int T, bool BR>
+__device__ __forceinline__ void load_params(const Args& a, float* A1, float* A2, float* patch,
+                                            float* IM) {
+  const int tid = threadIdx.x;
+  for (int idx = tid; idx < D * K; idx += T) {
+    const float val = a.p0[idx];
+    if constexpr (E == kProductOfT) {  // p0 = W (D, K)
+      A1[idx] = val;
+      A2[(idx % K) * D + idx / K] = val;
+    } else {  // p0 = Φ or Xs (K, D)
+      A2[idx] = val;
+      A1[(idx % D) * K + idx / D] = val;
+    }
+  }
+  if constexpr (E == kSparseCoding)
+    for (int idx = tid; idx < K; idx += T) patch[idx] = a.p1[idx];
+  if (BR)
+    for (int idx = tid; idx < 2 * D; idx += T) IM[idx] = a.mass ? a.mass[idx] : 1.f;
+  __syncthreads();
+}
+
+// v −= c_kick·g (if kick), x += c_drift·M^-1·v on all columns, then a
+// barrier. MASK (NUTS): the columns whose live flag is 0 keep x and v.
+template <int D, int NC, int T, bool BR, bool MASK>
+__device__ __forceinline__ void kick_drift_tile(float* X, float* V, const float* G,
+                                                const float* IM, const int* live, bool kick,
+                                                float c_kick, float c_drift) {
+  float4* X4 = reinterpret_cast<float4*>(X);
+  float4* V4 = reinterpret_cast<float4*>(V);
+  const float4* G4 = reinterpret_cast<const float4*>(G);
+  for (int q = threadIdx.x; q < D * NC / 4; q += T) {
+    const float4 x0 = X4[q], v0 = V4[q];
+    float4 xq = x0, vq = v0;
+    if (kick) {
+      const float4 gq = G4[q];
+      vq.x = vq.x - c_kick * gq.x;
+      vq.y = vq.y - c_kick * gq.y;
+      vq.z = vq.z - c_kick * gq.z;
+      vq.w = vq.w - c_kick * gq.w;
+    }
+    const float im = BR ? IM[(4 * q) / NC] : 1.f;
+    xq.x = xq.x + c_drift * (im * vq.x);
+    xq.y = xq.y + c_drift * (im * vq.y);
+    xq.z = xq.z + c_drift * (im * vq.z);
+    xq.w = xq.w + c_drift * (im * vq.w);
+    if constexpr (MASK) {
+      const int c = (4 * q) % NC;
+      if (!live[c]) xq.x = x0.x, vq.x = v0.x;
+      if (!live[c + 1]) xq.y = x0.y, vq.y = v0.y;
+      if (!live[c + 2]) xq.z = x0.z, vq.z = v0.z;
+      if (!live[c + 3]) xq.w = x0.w, vq.w = v0.w;
+    }
+    X4[q] = xq;
+    V4[q] = vq;
+  }
+  __syncthreads();
+}
+
+// g = ∇U(X) on all columns by the energy's two contractions, then the
+// closing kick v −= c_kick·g, then a barrier. MASK (NUTS): the columns
+// whose live flag is 0 keep g and v (y, r or z is written on every column).
+template <int E, int D, int K, int NC, int T, bool STUB, bool MASK>
+__device__ __forceinline__ void force_kick_tile(const float* A1, const float* A2,
+                                                const float* patch, const float* X, float* V,
+                                                float* G, float* Y, float* Z, const int* live,
+                                                const Args& a, float c_kick) {
+  // the closing kick of element idx with gradient gv
+  auto kick = [&](int idx, int col, float gv) {
+    if (MASK && !live[col]) return;
+    G[idx] = gv;
+    V[idx] = V[idx] - c_kick * gv;
+  };
+  if constexpr (E == kProductOfT) {
+    // y = Wᵀx; keep y (for the energies) and dU/dy
+    contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float y = acc[i][j];
+          Y[(r0 + i) * NC + c0 + j] = y;
+          Z[(r0 + i) * NC + c0 + j] = a.k0 * y / (a.k1 + y * y);
+        }
+    });
+    __syncthreads();
+    // g = W·dU/dy, and the closing kick
+    contract<K, D, NC, T, STUB>(A2, Z, [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kick((r0 + i) * NC + c0 + j, c0 + j, acc[i][j]);
+    });
+  } else if constexpr (E == kSparseCoding) {
+    // r = patch − Φa
+    contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          Y[(r0 + i) * NC + c0 + j] = patch[r0 + i] - acc[i][j];
+    });
+    __syncthreads();
+    // g = λ·a/√(a²+ε) − σ⁻²·Φᵀr, and the closing kick
+    contract<K, D, NC, T, STUB>(A2, Y, [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int idx = (r0 + i) * NC + c0 + j;
+          const float av = X[idx];
+          const float s = sqrtf(av * av + a.k3);
+          kick(idx, c0 + j, a.k0 * (av / s) - a.k1 * acc[i][j]);
+        }
+    });
+  } else {
+    // z = Xs·θ; keep z (for the energies) and σ(z)
+    contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float z = acc[i][j];
+          Y[(r0 + i) * NC + c0 + j] = z;
+          Z[(r0 + i) * NC + c0 + j] = 1.0f / (1.0f + expf(-z));
+        }
+    });
+    __syncthreads();
+    // g = Xsᵀσ(z) + θ/σ₀², and the closing kick
+    contract<K, D, NC, T, STUB>(A2, Z, [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int idx = (r0 + i) * NC + c0 + j;
+          kick(idx, c0 + j, acc[i][j] + X[idx] * a.k0);
+        }
+    });
+  }
+  __syncthreads();
 }
 
 // VAR: kMjhmc (both trajectories of C chains in the NC = 2C columns), or
@@ -255,21 +421,7 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
   const float eps = a.eps, he = 0.5f * a.eps;
   const uint2 key = make_uint2(a.seed, 0u);
 
-  // the parameter matrix in both orientations, the patch and the mass
-  for (int idx = tid; idx < D * K; idx += T) {
-    const float val = a.p0[idx];
-    if constexpr (E == kProductOfT) {  // p0 = W (D, K)
-      A1[idx] = val;
-      A2[(idx % K) * D + idx / K] = val;
-    } else {  // p0 = Φ (K, D)
-      A2[idx] = val;
-      A1[(idx % D) * K + idx / D] = val;
-    }
-  }
-  if constexpr (E == kSparseCoding)
-    for (int idx = tid; idx < K; idx += T) patch[idx] = a.p1[idx];
-  if (BR)
-    for (int idx = tid; idx < 2 * D; idx += T) IM[idx] = a.mass ? a.mass[idx] : 1.f;
+  load_params<E, D, K, T, BR>(a, A1, A2, patch, IM);
 
   // owned elements e = tid + k·T: dim e / CH, chain e % CH of the tile; the
   // chains past n (ragged last tile) run on zeros and are never stored
@@ -314,83 +466,12 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
       }
     }
   };
-  // v −= c_kick·g (if kick), x += c_drift·M^-1·v on all columns
   auto kick_drift = [&](bool kick, float c_kick, float c_drift) {
-    float4* X4 = reinterpret_cast<float4*>(X);
-    float4* V4 = reinterpret_cast<float4*>(V);
-    const float4* G4 = reinterpret_cast<const float4*>(G);
-    for (int q = tid; q < D * NC / 4; q += T) {
-      float4 xq = X4[q], vq = V4[q];
-      if (kick) {
-        const float4 gq = G4[q];
-        vq.x = vq.x - c_kick * gq.x;
-        vq.y = vq.y - c_kick * gq.y;
-        vq.z = vq.z - c_kick * gq.z;
-        vq.w = vq.w - c_kick * gq.w;
-      }
-      const float im = BR ? IM[(4 * q) / NC] : 1.f;
-      xq.x = xq.x + c_drift * (im * vq.x);
-      xq.y = xq.y + c_drift * (im * vq.y);
-      xq.z = xq.z + c_drift * (im * vq.z);
-      xq.w = xq.w + c_drift * (im * vq.w);
-      X4[q] = xq;
-      V4[q] = vq;
-    }
-    __syncthreads();
+    kick_drift_tile<D, NC, T, BR, false>(X, V, G, IM, nullptr, kick, c_kick, c_drift);
   };
-  // g = ∇U(X) on all columns by the energy's two contractions, then the
-  // closing kick v −= c_kick·g
   auto force_kick = [&](float c_kick) {
-    if constexpr (E == kProductOfT) {
-      // y = Wᵀx; keep y (for the energies) and dU/dy
-      contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float y = acc[i][j];
-            Y[(r0 + i) * NC + c0 + j] = y;
-            Z[(r0 + i) * NC + c0 + j] = a.k0 * y / (a.k1 + y * y);
-          }
-      });
-      __syncthreads();
-      // g = W·dU/dy, and the closing kick
-      contract<K, D, NC, T, STUB>(A2, Z, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int idx = (r0 + i) * NC + c0 + j;
-            G[idx] = acc[i][j];
-            V[idx] = V[idx] - c_kick * acc[i][j];
-          }
-      });
-    } else {
-      // r = patch − Φa
-      contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            Y[(r0 + i) * NC + c0 + j] = patch[r0 + i] - acc[i][j];
-      });
-      __syncthreads();
-      // g = λ·a/√(a²+ε) − σ⁻²·Φᵀr, and the closing kick
-      contract<K, D, NC, T, STUB>(A2, Y, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int idx = (r0 + i) * NC + c0 + j;
-            const float av = X[idx];
-            const float s = sqrtf(av * av + a.k3);
-            const float gv = a.k0 * (av / s) - a.k1 * acc[i][j];
-            G[idx] = gv;
-            V[idx] = V[idx] - c_kick * gv;
-          }
-      });
-    }
-    __syncthreads();
+    force_kick_tile<E, D, K, NC, T, STUB, false>(A1, A2, patch, X, V, G, Y, Z, nullptr, a,
+                                                 c_kick);
   };
   // one integrator step on all columns: leapfrog, or the two-stage splitting
   auto integrator_step = [&]() {
@@ -603,11 +684,358 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// NUTS: the step body _make_step_nuts (pallas_mjhmc.py:1011-1210) on the
+// matmul energies, with the semantics of the elementwise nuts_kernel
+// (mjhmc_engine.cuh): per chain and iteration a fresh v0 ~ N(0, M)
+// (tag 1), up to max_depth doubling rounds in directions drawn from tag 2,
+// progressive multinomial sampling with leaf uniforms drawn from tag 3 by
+// tree position, the binary-counter U-turn stack, divergence at |h| ≥
+// 1e30, NaN or ΔH > 1000, the biased merge and the global U-turn; output
+// (x_prop, v0, g_prop, u_prop) with h_back and valid passed through, the
+// post-transition x with weight 1, and evals equal to the integrated leaves.
+//
+// Design: a block runs the NC = 2C chains of its tile in lockstep, one
+// trajectory column each (NUTS has no backward trajectory), as the TPU's
+// lane block does. Each leaf is one leapfrog step of every column: the
+// energy's two contractions over the whole tile. A column whose chain is
+// done, or has stopped inside the subtree, keeps its x, v and g (the live
+// flags mask the kick-drift and the closing kick) and is not counted. The
+// round and leaf loops end when no chain of the block is live
+// (__syncthreads_or). Every draw is keyed by (chain, iteration, slot, tag),
+// so no chain's result depends on the tiling.
+//
+// The current leaf is the tile's X, V, G in shared memory. The rest of a
+// chain's tree (both endpoints' x, v, g in the trajectory frame, the
+// subtree proposal's x, g and the 2(max_depth − 1) U-turn stack rows)
+// lives in a (rows, D, n) scratch buffer in device memory that the wrapper
+// allocates: at sparse coding's d = 128 and max_depth 8 that is 11 KB a
+// chain, 352 KB for a tile, beyond a block's 227 KB beside Φ. A warp's
+// accesses to a row are 32 neighbouring chains (coalesced); at product of t
+// and logreg the buffer fits the 50 MB L2. The proposal's x and g and the
+// Kahan moments stay in the owners' registers; the per-chain scalars (u,
+// h0, the log weights, done, stop, the leaf count) in the column's thread,
+// which sums ½vᵀM⁻¹v and the U-turn dots down the column in dim order with
+// IEEE roundings (no contraction), as the plain version does. The
+// contractions sum in another order than torch.matmul, so trees are held to
+// the plain version at a tolerance, not bit for bit.
+//
+// What bounds it: the contractions of every leaf on all NC columns, live or
+// not (the lockstep's price: a tile runs as many leaves as its deepest
+// tree), and a serial D-long reduction per live column per leaf.
+namespace nuts {
+
+constexpr int kMaxDepth = 10;
+constexpr float kDivThreshold = 1000.0f;
+// scratch rows: the tree endpoints, the subtree proposal, then the stack
+// (x, v of span row mm at kStack + 2(mm − 1))
+enum Row { kXM = 0, kVM, kGM, kXP, kVP, kGP, kXS, kGS, kStack };
+__host__ __device__ constexpr int rows(int max_depth) { return kStack + 2 * (max_depth - 1); }
+// a column's leaf flag: 0 idle, 1 live, 2 live and its leaf taken
+enum Leaf { kIdle = 0, kLive = 1, kTaken = 2 };
+// a column's round flags
+enum Flag { kOk = 1, kMerge = 2, kRight = 4 };
+
+// jnp.logaddexp: max + log1p(exp(−|Δ|)), or a + b where Δ is NaN
+__device__ __forceinline__ float logaddexp(float a, float b) {
+  const float d = __fsub_rn(a, b);
+  if (d != d) return __fadd_rn(a, b);
+  return __fadd_rn(a > b ? a : b, log1pf(expf(-fabsf(d))));
+}
+
+__device__ __forceinline__ float uniform(const Args& a, uint32_t word) {
+  return a.fixed_uniform ? 0x1p-25f : philox_uniform(word);
+}
+
+}  // namespace nuts
+
+template <int E, int D, int K, int C, int T, bool EMIT, bool BR>
+__global__ void __launch_bounds__(T) nuts_mm_kernel(Args a) {
+  using namespace nuts;
+  using L = Layout<E, D, K, C>;
+  constexpr int NC = L::NC;                 // chains per block, one column each
+  constexpr int NE = (D * NC + T - 1) / T;  // (dim, chain) elements per thread
+  static_assert(T >= NC, "one thread per column");
+
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* A1 = sm + L::A1;
+  float* A2 = sm + L::A2;
+  float* patch = sm + L::PATCH;
+  float* X = sm + L::X;
+  float* V = sm + L::V;
+  float* G = sm + L::G;
+  float* Y = sm + L::Y;
+  float* Z = sm + L::Z;
+  int* leaf_s = reinterpret_cast<int*>(sm + L::SEL);  // Leaf per column
+  int* flag_s = reinterpret_cast<int*>(sm + L::FLAG);  // Flag bits per column
+  float* IM = sm + L::MASS;  // [D] M^-1, then [D] sqrt(M)
+  float* SQM = IM + D;
+
+  const int tid = threadIdx.x;
+  const int chain0 = blockIdx.x * NC;
+  const size_t n = a.n;
+  const int max_depth = a.m;
+  const float eps = a.eps, he = 0.5f * a.eps;
+  const uint2 key = make_uint2(a.seed, 0u);
+
+  load_params<E, D, K, T, BR>(a, A1, A2, patch, IM);
+
+  // scratch row r, dim i of tile chain c
+  auto srow = [&](int r, int i, int c) -> float& {
+    return a.scratch[((size_t)r * D + i) * n + chain0 + c];
+  };
+  auto im = [&](int i) { return BR ? IM[i] : 1.f; };
+  // ½ Σ (v·v)·M^-1 down column c of V, in dim order
+  auto halfsq = [&](int c) {
+    float s = 0.f;
+    for (int i = 0; i < D; ++i) {
+      const float vv = V[i * NC + c];
+      s = __fadd_rn(s, __fmul_rn(__fmul_rn(vv, vv), im(i)));
+    }
+    return __fmul_rn(0.5f, s);
+  };
+  // Σ ((xa − xb)·w)·M^-1 over dims in order (the U-turn projections)
+  auto uturn_dot = [&](auto xa, auto xb, auto w) {
+    float s = 0.f;
+    for (int i = 0; i < D; ++i)
+      s = __fadd_rn(s, __fmul_rn(__fmul_rn(__fsub_rn(xa(i), xb(i)), w(i)), im(i)));
+    return s;
+  };
+
+  // owned elements e = tid + k·T: dim e / NC, chain e % NC of the tile;
+  // the chains past n (ragged last tile) are never live
+  float x[NE], g[NE], wx[NE], wxc[NE], wx2[NE], wx2c[NE];
+#pragma unroll
+  for (int k = 0; k < NE; ++k) {
+    const int e = tid + k * T, i = e / NC, c = e % NC;
+    const bool live = e < D * NC && chain0 + c < a.n;
+    const size_t gi = (size_t)i * n + chain0 + c;
+    x[k] = live ? a.x[gi] : 0.f;
+    g[k] = live ? a.g[gi] : 0.f;
+    wx[k] = wxc[k] = wx2[k] = wx2c[k] = 0.f;
+    if (live && a.num_iters == 0) a.vo[gi] = a.v[gi];  // each iteration writes its v0
+  }
+  // per-chain scalars, held by thread c < NC for chain c of the tile
+  const int chain = chain0 + tid;
+  const bool chain_live = tid < NC && chain < a.n;
+  float u = chain_live ? a.u[chain] : 0.f;
+  float w = 0.f, wc = 0.f;
+  int evals = 0;
+  float h0 = 0.f, log_w_tree = 0.f, log_w_sub = kNegInf, us = 0.f;
+  bool done = true, stop = false, right = false;
+  uint32_t merge_word = 0;
+  int nl = 0;
+
+  for (int t = 0; t < a.num_iters; ++t) {
+    // a fresh momentum v0 ~ N(0, M) (words i and D+i of tag 1); both tree
+    // endpoints start at the chain's point
+#pragma unroll
+    for (int k = 0; k < NE; ++k) {
+      const int e = tid + k * T, i = e / NC, c = e % NC;
+      if (e < D * NC && chain0 + c < a.n) {
+        const float v0 = normal_of<D>(a, chain0 + c, t, i, kTagNutsMomentum, 0u,
+                                      BR ? SQM[i] : 1.f, key);
+        V[i * NC + c] = v0;
+        a.vo[(size_t)i * n + chain0 + c] = v0;
+        srow(kXM, i, c) = srow(kXP, i, c) = x[k];
+        srow(kVM, i, c) = srow(kVP, i, c) = v0;
+        srow(kGM, i, c) = srow(kGP, i, c) = g[k];
+      }
+    }
+    __syncthreads();
+    if (tid < NC) {
+      done = !chain_live;
+      h0 = __fadd_rn(u, halfsq(tid));
+      log_w_tree = 0.f;
+      nl = 0;
+    }
+
+    for (int jj = 0; jj < max_depth; ++jj) {
+      if (!__syncthreads_or(tid < NC && !done)) break;
+      // the round's direction, and the integration frame: outward from the
+      // chosen endpoint (the minus end's momentum negated)
+      if (tid < NC) {
+        stop = false;
+        log_w_sub = kNegInf;
+        if (!done) {
+          const uint4 rr = philox4x32_10(make_uint4(chain, t, jj, kTagNutsRound), key);
+          right = uniform(a, rr.x) < 0.5f;
+          merge_word = rr.y;
+        }
+        flag_s[tid] = done ? 0 : (kOk | (right ? kRight : 0));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < NE; ++k) {
+        const int e = tid + k * T, i = e / NC, c = e % NC;
+        const int f = e < D * NC ? flag_s[c] : 0;
+        if (f & kOk) {
+          const bool r = f & kRight;
+          X[i * NC + c] = srow(r ? kXP : kXM, i, c);
+          V[i * NC + c] = r ? srow(kVP, i, c) : -srow(kVM, i, c);
+          G[i * NC + c] = srow(r ? kGP : kGM, i, c);
+        }
+      }
+
+      const int leaves = 1 << jj;
+      const uint32_t k0 = leaves - 1;  // tree position of the round's first leaf
+      for (int leaf = 0; leaf < leaves; ++leaf) {
+        const bool act = tid < NC && !done && !stop;
+        if (tid < NC) leaf_s[tid] = act ? kLive : kIdle;
+        if (!__syncthreads_or(act)) break;
+        kick_drift_tile<D, NC, T, BR, true>(X, V, G, IM, leaf_s, true, he, eps);
+        force_kick_tile<E, D, K, NC, T, false, true>(A1, A2, patch, X, V, G, Y, Z, leaf_s, a,
+                                                     he);
+        // the leaf's energy, divergence and progressive multinomial sampling
+        bool div = false;
+        if (act) {
+          const float ul = column_energy<E, D, K, NC>(X, Y, tid, a);
+          ++nl;
+          const float h = __fadd_rn(ul, halfsq(tid));
+          const float dh = __fsub_rn(h, h0);
+          div = fabsf(h) >= 1e30f || h != h || dh > kDivThreshold;
+          const float lw_leaf = div ? kNegInf : -dh;
+          const float lw_new = logaddexp(log_w_sub, lw_leaf);
+          const float lu = logf(uniform(a, philox_word(chain, t, k0 + leaf, key, kTagNutsLeaf)));
+          if (!div && lu < __fsub_rn(lw_leaf, lw_new)) {
+            us = ul;
+            leaf_s[tid] = kTaken;
+          }
+          log_w_sub = lw_new;
+        }
+        __syncthreads();
+        // the taken leaf becomes the subtree's proposal; leaf i opens the
+        // stack spans of size 2^mm that divide i
+#pragma unroll
+        for (int k = 0; k < NE; ++k) {
+          const int e = tid + k * T, i = e / NC, c = e % NC;
+          const int lf = e < D * NC ? leaf_s[c] : kIdle;
+          if (lf != kIdle) {
+            const float xv = X[i * NC + c];
+            if (lf == kTaken) {
+              srow(kXS, i, c) = xv;
+              srow(kGS, i, c) = G[i * NC + c];
+            }
+            for (int mm = 1; mm <= jj; ++mm)
+              if ((leaf & ((1 << mm) - 1)) == 0) {
+                srow(kStack + 2 * (mm - 1), i, c) = xv;
+                srow(kStack + 2 * (mm - 1) + 1, i, c) = V[i * NC + c];
+              }
+          }
+        }
+        // leaf i closes the spans of size 2^mm that divide i + 1, against
+        // their left ends stored at earlier leaves
+        if (act) {
+          bool turning = false;
+          for (int mm = 1; mm <= jj && !turning; ++mm) {
+            if (((leaf + 1) & ((1 << mm) - 1)) != 0) continue;
+            const int r = kStack + 2 * (mm - 1);
+            auto xc = [&](int i) { return X[i * NC + tid]; };
+            auto sx = [&](int i) { return srow(r, i, tid); };
+            turning = uturn_dot(xc, sx, [&](int i) { return srow(r + 1, i, tid); }) < 0.f ||
+                      uturn_dot(xc, sx, [&](int i) { return V[i * NC + tid]; }) < 0.f;
+          }
+          stop = div || turning;
+        }
+        __syncthreads();  // the leaf flags are read until here
+      }
+
+      // the biased merge of a completed subtree, then the tree's extension
+      // (back to the trajectory frame) and the U-turn between its endpoints
+      if (tid < NC) {
+        int f = 0;
+        if (!done && !stop) {
+          const bool merge = logf(uniform(a, merge_word)) < __fsub_rn(log_w_sub, log_w_tree);
+          if (merge) u = us;
+          log_w_tree = logaddexp(log_w_tree, log_w_sub);
+          f = kOk | (merge ? kMerge : 0) | (right ? kRight : 0);
+        }
+        flag_s[tid] = f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < NE; ++k) {
+        const int e = tid + k * T, i = e / NC, c = e % NC;
+        const int f = e < D * NC ? flag_s[c] : 0;
+        if (f & kOk) {
+          if (f & kMerge) {
+            x[k] = srow(kXS, i, c);
+            g[k] = srow(kGS, i, c);
+          }
+          const float xv = X[i * NC + c], vv = V[i * NC + c], gv = G[i * NC + c];
+          if (f & kRight) {
+            srow(kXP, i, c) = xv, srow(kVP, i, c) = vv, srow(kGP, i, c) = gv;
+          } else {
+            srow(kXM, i, c) = xv, srow(kVM, i, c) = -vv, srow(kGM, i, c) = gv;
+          }
+        }
+      }
+      __syncthreads();
+      if (tid < NC && !done) {
+        bool turn = false;
+        if (!stop) {
+          auto xp = [&](int i) { return srow(kXP, i, tid); };
+          auto xm = [&](int i) { return srow(kXM, i, tid); };
+          turn = uturn_dot(xp, xm, [&](int i) { return srow(kVM, i, tid); }) < 0.f ||
+                 uturn_dot(xp, xm, [&](int i) { return srow(kVP, i, tid); }) < 0.f;
+        }
+        done = stop || turn;
+      }
+    }
+    __syncthreads();  // the last round's reads of the endpoint rows
+
+    // the post-transition x, weight 1
+    const bool emit_now = EMIT && (t + 1) % a.thin == 0;
+    const size_t emit_row = t / a.thin;
+    if (chain_live) {
+      evals += nl;
+      kadd(w, wc, 1.f);
+      if (emit_now) {
+        a.ws[emit_row * n + chain] = 1.f;
+        a.es[emit_row * n + chain] = evals;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NE; ++k) {
+      const int e = tid + k * T, i = e / NC, c = e % NC;
+      if (e < D * NC && chain0 + c < a.n) {
+        kadd(wx[k], wxc[k], x[k]);
+        kadd(wx2[k], wx2c[k], x[k] * x[k]);
+        if (emit_now) a.xs[(emit_row * D + i) * n + chain0 + c] = x[k];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < NE; ++k) {
+    const int e = tid + k * T, i = e / NC, c = e % NC;
+    if (e < D * NC && chain0 + c < a.n) {
+      const size_t gi = (size_t)i * n + chain0 + c;
+      a.xo[gi] = x[k];
+      a.go[gi] = g[k];
+      a.wx[gi] = wx[k];
+      a.wx2[gi] = wx2[k];
+    }
+  }
+  if (chain_live) {
+    a.uo[chain] = u;
+    a.hbo[chain] = a.h_back[chain];
+    a.valido[chain] = a.valid[chain];
+    a.w[chain] = w;
+    a.evals[chain] = evals;
+  }
+}
+
 template <int E, int D, int K, int C, int T, int VAR, bool EMIT, bool STUB, bool BR>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t bytes = Layout<E, D, K, C>::kFloats * sizeof(float);
   constexpr int CH = VAR == kMjhmc ? C : 2 * C;  // chains per block
-  void (*kernel)(Args) = mm_kernel<E, D, K, C, T, VAR, EMIT, STUB, BR>;
+  void (*kernel)(Args);
+  if constexpr (VAR == kNuts)
+    kernel = nuts_mm_kernel<E, D, K, C, T, EMIT, BR>;
+  else
+    kernel = mm_kernel<E, D, K, C, T, VAR, EMIT, STUB, BR>;
   // above 48 KB a block's shared memory must be asked for
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -616,11 +1044,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the run and stream instances of one energy shape and variant; MJHMC
-// without a mass and with the leapfrog takes its fast-path instances
+// the run and stream instances of one energy shape and variant; MJHMC and
+// NUTS without a mass and with the leapfrog take their fast-path instances
+// (NUTS takes no other integrator)
 template <int E, int D, int K, int C, int T, int VAR>
 cudaError_t launch_emit(const Args& a, bool emit, cudaStream_t s) {
-  if constexpr (VAR == kMjhmc) {
+  if constexpr (VAR == kMjhmc || VAR == kNuts) {
     if (!a.mass && !a.two_stage)
       return emit ? launch<E, D, K, C, T, VAR, true, false, false>(a, s)
                   : launch<E, D, K, C, T, VAR, false, false, false>(a, s);
@@ -629,8 +1058,14 @@ cudaError_t launch_emit(const Args& a, bool emit, cudaStream_t s) {
               : launch<E, D, K, C, T, VAR, false, false, true>(a, s);
 }
 
-// the sparse-coding instances (mm_engine_sparse_coding.cu)
+// the sparse-coding and logistic-regression instances
+// (mm_engine_sparse_coding.cu, mm_engine_logreg.cu), and the NUTS
+// instances of each energy (mm_nuts_*.cu)
 cudaError_t launch_sparse_coding(int variant, const Args& a, bool emit, cudaStream_t s);
+cudaError_t launch_logreg(int variant, const Args& a, bool emit, cudaStream_t s);
+cudaError_t launch_nuts_product_of_t(const Args& a, bool emit, cudaStream_t s);
+cudaError_t launch_nuts_sparse_coding(const Args& a, bool emit, cudaStream_t s);
+cudaError_t launch_nuts_logreg(const Args& a, bool emit, cudaStream_t s);
 
 }  // namespace mm
 }  // namespace mjhmc

@@ -1,5 +1,6 @@
 """Benchmark distributions ported so far: the rough well, the Gaussian, the
-product of Student-t experts and the sparse-coding posterior."""
+product of Student-t experts, the sparse-coding posterior and Bayesian
+logistic regression."""
 
 from mjhmc_tpu_torch.models.base import (
     Distribution,
@@ -8,6 +9,7 @@ from mjhmc_tpu_torch.models.base import (
     registry,
 )
 from mjhmc_tpu_torch.models.gaussian import Gaussian
+from mjhmc_tpu_torch.models.logreg import LogisticRegression
 from mjhmc_tpu_torch.models.product_of_t import ProductOfT
 from mjhmc_tpu_torch.models.rough_well import RoughWell
 from mjhmc_tpu_torch.models.sparse_coding import SparseCoding
@@ -18,6 +20,7 @@ __all__ = [
     "register",
     "registry",
     "Gaussian",
+    "LogisticRegression",
     "ProductOfT",
     "RoughWell",
     "SparseCoding",

@@ -133,7 +133,7 @@ def get_distribution(name: str, **kwargs) -> Distribution:
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"distribution {name!r} is not ported yet: the zoo models (funnel, "
-            "banana, mog, eight_schools, logreg) come with slice D "
+            "banana, mog, eight_schools) come with slice L "
             "(ROADMAP.md, 'Modules to port')"
         )
     return _REGISTRY[name](**kwargs)

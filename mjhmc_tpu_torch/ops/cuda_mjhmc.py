@@ -13,9 +13,9 @@ One kernel launch runs a whole sampling run of one step body, chosen by
   fraction);
 - ``"malt"``: a full refresh, M OBABO steps, one trajectory-level accept
   (``beta`` carries the friction γ);
-- ``"nuts"`` (elementwise kernel only): up to max_depth doubling rounds
-  with progressive multinomial sampling and the binary-counter U-turn
-  stack (the ``num_leapfrog`` slot is max_depth).
+- ``"nuts"``: up to max_depth doubling rounds with progressive
+  multinomial sampling and the binary-counter U-turn stack (the
+  ``num_leapfrog`` slot is max_depth).
 
 Every body takes a diagonal inverse mass (``inv_mass``), and MJHMC and
 control the BCSS two-stage integrator (``integrator="two_stage"``, two
@@ -28,8 +28,8 @@ There are two hand-written CUDA C++ kernels, built by ``ops._build``:
 ``csrc/mjhmc_engine.cuh`` for the elementwise energies (rough well,
 Gaussian; one thread per chain; C entry ``csrc/mjhmc_engine.cu``) and
 ``csrc/mjhmc_mm_engine.cuh`` for the matmul energies (product of t, sparse
-coding; tiles of chains per block, the parameter matrix in shared memory;
-C entry ``csrc/mjhmc_mm_engine.cu``). Beside them this module holds
+coding, logistic regression; tiles of chains per block, the parameter
+matrix in shared memory; C entry ``csrc/mjhmc_mm_engine.cu``). Beside them this module holds
 their plain PyTorch versions (``run_reference`` / ``stream_reference``, one
 for both kinds) with the same contract. The wrappers ``cuda_mjhmc_run`` /
 ``cuda_mjhmc_stream_run`` (elementwise) and ``cuda_mjhmc_mm_run`` /
@@ -62,10 +62,12 @@ import torch
 
 from mjhmc_tpu_torch.models.base import randn
 from mjhmc_tpu_torch.models.gaussian import Gaussian
+from mjhmc_tpu_torch.models.logreg import LogisticRegression
 from mjhmc_tpu_torch.models.product_of_t import ProductOfT
 from mjhmc_tpu_torch.models.rough_well import RoughWell
 from mjhmc_tpu_torch.models.sparse_coding import SparseCoding
 from mjhmc_tpu_torch.ops.leapfrog import TWO_STAGE_B
+from mjhmc_tpu_torch.samplers.adaptation import mjhmc_full_warmup, nuts_full_warmup
 from mjhmc_tpu_torch.samplers.state import MJState, checked_device
 
 Tensor = torch.Tensor
@@ -84,8 +86,8 @@ NUTS_DIV_THRESHOLD = 1000.0
 #: Philox counter tags (csrc/philox.cuh)
 TAG_NUTS_MOMENTUM, TAG_NUTS_ROUND, TAG_NUTS_LEAF = 1, 2, 3
 TAG_CONTROL, TAG_MALT_REFRESH, TAG_MALT_NOISE = 4, 5, 6
-#: the step bodies and their numbers in both kernels (csrc/mjhmc_engine.cuh;
-#: the matmul kernel has all but NUTS)
+#: the step bodies and their numbers in both kernels (csrc/mjhmc_engine.cuh,
+#: csrc/mjhmc_mm_engine.cuh)
 KERNEL_VARIANTS = {"mjhmc": 0, "nuts": 1, "control": 2, "malt": 3}
 INTEGRATORS = ("leapfrog", "two_stage")
 _MALT_LEAPFROG_ONLY = (
@@ -239,18 +241,51 @@ class SparseCodingSpec:
         return d.lam * s.sum(dim=-2) + (0.5 / d.sigma**2) * (r * r).sum(dim=-2)
 
 
+@dataclasses.dataclass(frozen=True)
+class LogregSpec:
+    """Bayesian logistic regression with the label signs folded into the
+    design matrix (Xs = −s·X): z = Xs·θ, g = Xsᵀσ(z) + θ/σ₀², U = Σ
+    softplus(z) + ½σ₀⁻²‖θ‖², softplus(z) = max(z, 0) + log1p(e^{−|z|})."""
+
+    dist: LogisticRegression
+    energy_id: ClassVar[int] = 2
+
+    def param_arrays(self) -> list:
+        xmat, s = self.dist._data
+        return [np.asarray(-s[:, None] * xmat, np.float32)]  # Xs: (o, d)
+
+    def aux_rows(self) -> int:
+        return self.dist.nobs
+
+    def constants(self) -> tuple:
+        """(1/σ₀², ½/σ₀², 0, 0): the kernel's k0..k3."""
+        p = self.dist.prior_scale
+        return (1.0 / p**2, 0.5 / p**2, 0.0, 0.0)
+
+    def du(self, th, xs):
+        z = torch.matmul(xs, th)
+        sig = 1.0 / (1.0 + torch.exp(-z))
+        return torch.matmul(xs.T, sig) + th * (1.0 / self.dist.prior_scale**2)
+
+    def u_sum(self, th, xs):
+        z = torch.matmul(xs, th)
+        sp = z.clamp(min=0.0) + torch.log1p(torch.exp(-z.abs()))
+        return sp.sum(dim=-2) + (0.5 / self.dist.prior_scale**2) * (th * th).sum(dim=-2)
+
+
 ELEMENTWISE_SPECS = (RoughWellSpec, GaussianSpec)
-MATMUL_SPECS = (ProductOfTSpec, SparseCodingSpec)
+MATMUL_SPECS = (ProductOfTSpec, SparseCodingSpec, LogregSpec)
 #: (ndims, aux rows) the matmul kernel is instantiated for, per spec
-#: (csrc/mjhmc_mm_engine.cu, mm_engine_sparse_coding.cu): the product_of_t
-#: and sparse_coding presets
-MM_KERNEL_SHAPES = {ProductOfTSpec: (36, 36), SparseCodingSpec: (128, 64)}
+#: (csrc/mjhmc_mm_engine.cu, mm_engine_sparse_coding.cu, mm_engine_logreg.cu):
+#: the product_of_t, sparse_coding and logreg presets
+MM_KERNEL_SHAPES = {ProductOfTSpec: (36, 36), SparseCodingSpec: (128, 64),
+                    LogregSpec: (16, 256)}
 
 _UNPORTED_ENERGIES = (
-    "the engine has the rough_well, gaussian, product_of_t and sparse_coding "
-    "energies; LogregSpec (matmul kernel) and the Funnel, Banana, Mog and "
-    "EightSchools specs (elementwise kernel) are not ported yet "
-    "(ROADMAP.md, 'TPU kernels to port', item 8)"
+    "the engine has the rough_well, gaussian, product_of_t, sparse_coding and "
+    "logreg energies; the Funnel, Banana, Mog and EightSchools specs "
+    "(elementwise kernel) are not ported yet (ROADMAP.md, 'TPU kernels to "
+    "port', slice L)"
 )
 
 
@@ -263,6 +298,8 @@ def energy_spec_for(dist):
         return ProductOfTSpec(dist)
     if isinstance(dist, SparseCoding):
         return SparseCodingSpec(dist)
+    if isinstance(dist, LogisticRegression):
+        return LogregSpec(dist)
     raise NotImplementedError(
         f"no fused CUDA energy for {type(dist).__name__}: {_UNPORTED_ENERGIES}"
     )
@@ -288,12 +325,6 @@ def _check_slice(spec, variant, integrator, inv_mass, kinds):
             f"{type(spec).__name__} belongs to the other kernel: elementwise "
             "specs take cuda_mjhmc_run/_stream_run, matmul specs "
             "cuda_mjhmc_mm_run/_stream_run"
-        )
-    if variant == "nuts" and isinstance(spec, MATMUL_SPECS):
-        raise NotImplementedError(
-            "the NUTS variant is ported for the elementwise kernel only; NUTS "
-            "on the matmul kernel is queued (ROADMAP.md, 'TPU kernels to "
-            "port', item 7)"
         )
     if getattr(spec, "stub_dots", False) and (variant != "mjhmc" or integrator != "leapfrog"
                                               or inv_mass is not None):
@@ -691,13 +722,15 @@ def _logaddexp(a: Tensor, b: Tensor) -> Tensor:
                        torch.maximum(a, b) + torch.log1p(torch.exp(-d.abs())))
 
 
+@_full_f32_matmul()
 def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                     num_iters, max_depth, thin, emit, fixed_uniform, inv_mass, integrator):
     """The NUTS step body of ``_make_step_nuts`` (``beta`` unused),
     vectorised over chains with masks as the JAX body is: a round or a leaf
     runs while any chain is live in it, and a chain that is done or stopped
-    keeps its state. Sums over dims run in the kernel's order, so its
-    roundings are the kernel's at any D."""
+    keeps its state. Sums over dims run in the kernels' order, so its
+    roundings are the elementwise kernel's at any D (the matmul kernel's
+    contractions sum in another order)."""
     if integrator != "leapfrog":
         raise NotImplementedError(_NUTS_LEAPFROG_ONLY)
     d, n = x.shape
@@ -835,17 +868,19 @@ def stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
+def nuts_scratch_rows(max_depth: int) -> int:
+    """Rows of d floats per chain the matmul kernel's NUTS body keeps in
+    device memory: both tree endpoints (x, v, g), the subtree's proposal
+    (x, g) and the U-turn stack (x, v for each of max_depth − 1 spans)."""
+    return 8 + 2 * (max_depth - 1)
+
+
 def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             num_iters, m, thin, num_emits, fixed_uniform, variant, inv_mass,
             integrator):
     """Check the state, allocate the outputs and launch the spec's kernel."""
     from mjhmc_tpu_torch.ops import _build
 
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"the CUDA engine takes cuda tensors (or cpu ones for its plain "
-            f"version), not {x.device}"
-        )
     if x.dim() != 2:
         raise ValueError(f"x must be (ndims, nbatch), got {tuple(x.shape)}")
     d, n = x.shape
@@ -864,13 +899,18 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             f"not {d} (ROADMAP.md, 'TPU kernels to port': other D instances of "
             "items 1-2)"
         )
+    if variant == "nuts" and not 1 <= m <= NUTS_MAX_DEPTH:
+        raise NotImplementedError(
+            f"the NUTS kernel holds trees of max_depth 1..{NUTS_MAX_DEPTH}, not {m}")
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA engine takes cuda tensors (or cpu ones for its plain "
+            f"version), not {x.device}"
+        )
     if n == 0 or thin < 1 or num_iters < 0:
         raise ValueError(f"need nbatch > 0, thin >= 1, steps >= 0 (got {n}, {thin}, {num_iters})")
     if matmul and m < 1:  # the endpoint energies reuse the last step's product
         raise ValueError(f"the matmul kernel needs leapfrog steps >= 1, got {m}")
-    if variant == "nuts" and not 1 <= m <= NUTS_MAX_DEPTH:
-        raise NotImplementedError(
-            f"the NUTS kernel holds trees of max_depth 1..{NUTS_MAX_DEPTH}, not {m}")
     if getattr(spec, "stub_dots", False) and (num_emits is not None
                                               or not isinstance(spec, ProductOfTSpec)):
         raise NotImplementedError(
@@ -912,10 +952,15 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     if matmul:
         params = [t.contiguous() for t in _param_tensors(spec, d, x.device)]
         p0, p1 = (params + [None])[:2]
+        scratch = None
+        if variant == "nuts":  # the chains' tree state (csrc/mjhmc_mm_engine.cuh)
+            scratch = torch.empty((nuts_scratch_rows(m), d, n), dtype=torch.float32,
+                                  device=x.device)
         rc = lib.mjhmc_mm_engine_launch(
-            spec.energy_id, d, spec.aux_rows(), int(spec.stub_dots), KERNEL_VARIANTS[variant],
-            p0.data_ptr(), None if p1 is None else p1.data_ptr(), *spec.constants(),
-            *branches, *ptrs, *tail,
+            spec.energy_id, d, spec.aux_rows(), int(getattr(spec, "stub_dots", False)),
+            KERNEL_VARIANTS[variant], p0.data_ptr(), None if p1 is None else p1.data_ptr(),
+            *spec.constants(), *branches, None if scratch is None else scratch.data_ptr(),
+            *ptrs, *tail,
         )
     else:
         params = torch.as_tensor(spec.param_vector(d), device=x.device).contiguous()
@@ -1024,7 +1069,7 @@ def cuda_mjhmc_mm_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                       num_steps, num_leapfrog, *, inv_mass=None, variant="mjhmc",
                       integrator="leapfrog", fixed_uniform=False) -> RunOut:
     """Engine run for the matmul energies (counterpart of
-    ``pallas_mjhmc_mm_run``), same contract as ``cuda_mjhmc_run`` (no NUTS)."""
+    ``pallas_mjhmc_mm_run``), same contract as ``cuda_mjhmc_run``."""
     return _run(cuda_mjhmc_mm_run, MATMUL_SPECS, spec, x, v, g, u, h_back,
                 back_valid, seed, epsilon, beta, num_steps, num_leapfrog,
                 inv_mass, variant, integrator, fixed_uniform)
@@ -1162,18 +1207,50 @@ class CudaMJHMC:
         var = out.wx2.sum(dim=1) / w - mean * mean
         return mean, var
 
+    @classmethod
+    def from_warmup(cls, dist, seed: int = 0, nbatch: int = 10_240, beta: float = 0.1,
+                    num_leapfrog_steps: int = 10, device="cuda", **warmup_kwargs):
+        """Stan-style warmup → fused engine: ``mjhmc_full_warmup`` on the
+        plain sampler, on the engine's device (dual-averaged ε, a
+        variance-estimated diagonal M⁻¹, ε re-tuned under it), then the
+        engine with that (ε, M⁻¹), holding the warmed chains."""
+        gen = torch.Generator().manual_seed(seed)
+        state, eps, inv_mass = mjhmc_full_warmup(
+            dist, gen, nbatch, beta=beta, num_leapfrog_steps=num_leapfrog_steps,
+            device=device, **warmup_kwargs)
+        eng = cls(dist, epsilon=eps, beta=beta, num_leapfrog_steps=num_leapfrog_steps,
+                  nbatch=nbatch, seed=seed, device=device,
+                  inv_mass=tuple(float(v) for v in inv_mass.reshape(-1)))
+        eng.load_state(state)
+        return eng
+
 
 @dataclasses.dataclass
 class CudaNUTS(CudaMJHMC):
-    """Fused NUTS engine (counterpart of ``PallasNUTS``) for the elementwise
-    energies: ``num_leapfrog_steps`` is max_depth (default 8, at most
+    """Fused NUTS engine (counterpart of ``PallasNUTS``), on either kernel:
+    ``num_leapfrog_steps`` is max_depth (default 8, at most
     ``NUTS_MAX_DEPTH``), ``beta`` is unused. Emissions are post-transition
     positions with weight 1; ``evals`` counts the integrated leaves of each
-    chain exactly. ``from_warmup`` waits for the adaptation of slice D."""
+    chain exactly."""
 
     beta: float = 0.0  # unused scalar slot
     num_leapfrog_steps: int = 8  # max_depth
     variant: str = "nuts"
+
+    @classmethod
+    def from_warmup(cls, dist, seed: int = 0, nbatch: int = 10_240, max_depth: int = 8,
+                    device="cuda", **warmup_kwargs):
+        """Stan-style NUTS warmup → fused engine: ``nuts_full_warmup`` on
+        the plain sampler (at most 1,024 chains, on the engine's device),
+        then the engine with that (ε, M⁻¹). The warmed chains are not
+        handed over: NUTS refreshes the momentum every iteration, so a short
+        engine burn-in from fresh inits re-equilibrates."""
+        gen = torch.Generator().manual_seed(seed)
+        _, eps, inv_mass = nuts_full_warmup(dist, gen, min(nbatch, 1024),
+                                            max_depth=max_depth, device=device,
+                                            **warmup_kwargs)
+        return cls(dist, epsilon=eps, num_leapfrog_steps=max_depth, nbatch=nbatch, seed=seed,
+                   device=device, inv_mass=tuple(float(v) for v in inv_mass.reshape(-1)))
 
 
 @dataclasses.dataclass

@@ -194,10 +194,11 @@ def test_mm_wrappers_route_and_refuse():
     rw = cm.energy_spec_for(tmodels.RoughWell())
     with pytest.raises(ValueError, match="other kernel"):
         cm.cuda_mjhmc_mm_stream_run(rw, *ts, 5, 1.0, 0.1, 3, 1, 5)
-    with pytest.raises(NotImplementedError, match="LogregSpec"):
+    with pytest.raises(NotImplementedError, match="no fused CUDA energy"):
         cm.cuda_mjhmc_mm_run(jspec, *ts, 5, 0.2, 0.1, 3, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cm.cuda_mjhmc_mm_run(tspec, *ts, 5, 0.2, 0.1, 3, 5, variant="nuts")
+    a = cm.cuda_mjhmc_mm_run(tspec, *ts, 5, 0.2, 0.1, 3, 5, variant="nuts")
+    b = cm.run_reference(tspec, *ts, 5, 0.2, 0.1, 3, 5, variant="nuts")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(NotImplementedError, match="leapfrog"):
         cm.cuda_mjhmc_mm_run(tspec, *ts, 5, 0.2, 0.1, 3, 5, variant="malt",
                              integrator="two_stage")

@@ -1,0 +1,152 @@
+"""NUTS on the matmul engine: its plain version against the TPU kernels'
+NUTS body in Pallas interpret mode (``pallas_mjhmc_mm_run`` /
+``pallas_mjhmc_mm_stream_run`` with ``variant="nuts"``) on the three
+matmul energies, and the wrappers' routing.
+
+Interpret mode returns zero PRNG bits, so every uniform of the JAX kernel is
+2⁻²⁵ (every round goes right, every leaf is taken); the port's
+``fixed_uniform=True`` reproduces that. Both sides start from the same
+NumPy-made state and run 128 chains, against ``precision="highest"`` (full
+float32 products): product of t at ε 0.12 (stable: ε·ω ≈ 1.2 < 2),
+max_depth 4 and 2 iterations, sparse coding at ε 0.02, max_depth 4 and 3
+iterations, logistic regression (16 features, 64 observations) at ε 0.15,
+max_depth 5 and 3 iterations. Product of t is held for fewer leaves: with
+every uniform 2⁻²⁵ each iteration's momentum is 5.9 in every dim and every
+leaf is taken, so its chains fly out into the heavy tails along full
+trees, where last-ulp differences of two summation orders grow past 1e-4
+within ~60 leaves (x and g on 7 of 8 chains by 3 iterations of 31 leaves).
+The two sum their products in different orders, and a tree decision can
+flip with the last ulp of H, so leaf counts must be equal on ≥ 0.99 of the
+chains and x, v, g, u, the stream's xs and the moments within rtol 1e-4
+(atol 1e-4 of the field's largest value) on those.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from mjhmc_tpu import models as jmodels
+from mjhmc_tpu.models.logreg import LogisticRegression as JLogreg
+from mjhmc_tpu.ops.pallas_mjhmc import (
+    energy_spec_for,
+    pallas_mjhmc_mm_run,
+    pallas_mjhmc_mm_stream_run,
+)
+from mjhmc_tpu_torch import models as tmodels
+from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+torch.set_num_threads(1)
+
+IP = pltpu.InterpretParams()
+N = 128
+# name, JAX and port distributions, init scale, ε, max_depth, iterations
+CASES = [
+    ("product_of_t", jmodels.ProductOfT(), tmodels.ProductOfT(), 2.0, 0.12, 4, 2),
+    ("sparse_coding", jmodels.SparseCoding(), tmodels.SparseCoding(), 0.1, 0.02, 4, 3),
+    ("logreg", JLogreg(nobs=64), tmodels.LogisticRegression(nobs=64), 1.0, 0.15, 5, 3),
+]
+
+
+def _start(jd, scale, seed):
+    rng = np.random.default_rng(seed)
+    x = (scale * rng.standard_normal((jd.ndims, N))).astype(np.float32)
+    v = rng.standard_normal((jd.ndims, N)).astype(np.float32)
+    u, g = (np.array(a) for a in jd.potential_and_grad(jnp.asarray(x)))
+    z = np.zeros(N, np.float32)
+    js = (jnp.asarray(x), jnp.asarray(v), jnp.asarray(g), jnp.asarray(u)[None],
+          jnp.zeros((1, N)), jnp.zeros((1, N)))
+    return js, tuple(torch.as_tensor(a) for a in (x, v, g, u, z, z.copy()))
+
+
+def _within(a, b):
+    """(n,) bool: the chain's entries lie within rtol 1e-4 (atol 1e-4 of
+    the field's largest value)."""
+    a = a.double().numpy()
+    b = np.asarray(b, np.float64).reshape(a.shape)
+    ok = np.abs(a - b) <= 1e-4 * np.abs(b).max() + 1e-4 * np.abs(b)
+    return ok.reshape(-1, ok.shape[-1]).all(axis=0)
+
+
+@pytest.mark.parametrize("name,jd,td,scale,eps,depth,steps", CASES, ids=[c[0] for c in CASES])
+def test_nuts_run_matches_interpret_kernel(name, jd, td, scale, eps, depth, steps):
+    jspec = dataclasses.replace(energy_spec_for(jd), precision="highest")
+    tspec = cm.energy_spec_for(td)
+    js, ts = _start(jd, scale, 1)
+    out_j = pallas_mjhmc_mm_run(jspec, *js, jnp.int32(7), jnp.float32(eps), jnp.float32(0.0),
+                                steps, depth, interpret=IP, variant="nuts")
+    out_t = cm.run_reference(tspec, *ts, 7, eps, 0.0, steps, depth, fixed_uniform=True,
+                             variant="nuts")
+    assert out_t.evals.dtype == torch.int32
+    same = out_t.evals.numpy() == np.asarray(out_j.evals).ravel()
+    assert same.mean() >= 0.99, same.mean()
+    assert int(out_t.evals.min()) >= steps and int(out_t.evals.max()) <= steps * (2**depth - 1)
+    np.testing.assert_array_equal(out_t.w.numpy(), float(steps))
+    ok = same.copy()
+    for f in ("x", "v", "grad", "u", "wx", "wx2"):
+        ok &= _within(getattr(out_t, f), getattr(out_j, f))
+    assert ok[same].all(), f"{name}: {int((~ok & same).sum())} chains with equal counts outside"
+    for f in ("h_back", "back_valid"):  # passed through
+        assert torch.equal(getattr(out_t, f), ts[4 if f == "h_back" else 5])
+
+
+@pytest.mark.parametrize("name,jd,td,scale,eps,depth,steps", CASES, ids=[c[0] for c in CASES])
+def test_nuts_stream_matches_interpret_kernel(name, jd, td, scale, eps, depth, steps):
+    """An emission per iteration: post-transition xs, unit ws, cumulative
+    leaf counts; es[-1] is the run's counters."""
+    jspec = dataclasses.replace(energy_spec_for(jd), precision="highest")
+    tspec = cm.energy_spec_for(td)
+    js, ts = _start(jd, scale, 2)
+    xs_j, ws_j, es_j, _ = pallas_mjhmc_mm_stream_run(
+        jspec, *js, jnp.int32(11), jnp.float32(eps), jnp.float32(0.0), steps, 1, depth,
+        interpret=IP, variant="nuts")
+    xs_t, ws_t, es_t, out_t = cm.stream_reference(tspec, *ts, 11, eps, 0.0, steps, 1, depth,
+                                                  fixed_uniform=True, variant="nuts")
+    assert xs_t.shape == (steps, td.ndims, N) and ws_t.shape == es_t.shape == (steps, N)
+    same = (es_t.numpy() == np.asarray(es_j).reshape(steps, N)).all(axis=0)
+    assert same.mean() >= 0.99, same.mean()
+    np.testing.assert_array_equal(es_t[-1].numpy(), out_t.evals.numpy())
+    np.testing.assert_array_equal(ws_t.numpy(), 1.0)
+    np.testing.assert_array_equal(np.asarray(ws_j).reshape(steps, N), 1.0)
+    xs_j = np.asarray(xs_j).reshape(steps, td.ndims, N)
+    ok = np.stack([_within(xs_t[i], xs_j[i]) for i in range(steps)]).all(axis=0)
+    assert ok[same].all(), f"{name}: {int((~ok & same).sum())} chains with equal counts outside"
+    assert torch.equal(xs_t[-1], out_t.x)
+
+
+def test_matmul_nuts_routes_and_refuses():
+    """CPU tensors take the plain version with no launch counted; CudaNUTS
+    takes the matmul wrappers; two-stage NUTS, trees deeper than the kernel
+    holds and the kernel's missing shapes are refused."""
+    td = tmodels.ProductOfT()
+    tspec = cm.energy_spec_for(td)
+    _, ts = _start(jmodels.ProductOfT(), 2.0, 3)
+    before = [getattr(f, k) for f in (cm.cuda_mjhmc_mm_run, cm.cuda_mjhmc_mm_stream_run)
+              for k in cm.COUNTS]
+    a = cm.cuda_mjhmc_mm_run(tspec, *ts, 5, 0.12, 0.0, 2, 4, variant="nuts")
+    b = cm.run_reference(tspec, *ts, 5, 0.12, 0.0, 2, 4, variant="nuts")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    xs, ws, es, _ = cm.cuda_mjhmc_mm_stream_run(tspec, *ts, 5, 0.12, 0.0, 2, 1, 4,
+                                                variant="nuts")
+    assert torch.equal(es[-1], b.evals) and bool((ws == 1).all())
+    eng = cm.CudaNUTS(td, epsilon=0.12, num_leapfrog_steps=4, nbatch=64, device="cpu")
+    assert eng._matmul and eng.variant == "nuts"
+    eng.run(2)
+    xs, _, es = eng.sample(2, return_evals=True)
+    assert torch.equal(xs[-1], eng.x) and int(es[-1].min()) >= 2
+    assert [getattr(f, k) for f in (cm.cuda_mjhmc_mm_run, cm.cuda_mjhmc_mm_stream_run)
+            for k in cm.COUNTS] == before
+    with pytest.raises(NotImplementedError, match="leapfrog"):
+        cm.cuda_mjhmc_mm_run(tspec, *ts, 5, 0.12, 0.0, 2, 4, variant="nuts",
+                             integrator="two_stage")
+    with pytest.raises(NotImplementedError, match="leapfrog"):
+        cm.CudaNUTS(td, integrator="two_stage", device="cpu")
+    meta = tuple(t.to("meta") for t in ts)
+    with pytest.raises(NotImplementedError, match="max_depth 1..10"):
+        cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, 11, variant="nuts")
+    with pytest.raises(ValueError, match="cuda tensors"):
+        cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, 4, variant="nuts")
+    assert cm.nuts_scratch_rows(8) == 22  # 6 endpoint rows, 2 proposal rows, 2·7 stack rows

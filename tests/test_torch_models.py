@@ -98,7 +98,7 @@ def test_init_x_shape_scale_and_generator(name, kw):
 
 def test_registry_and_presets():
     assert set(tmodels.registry()) == {"rough_well", "gaussian", "product_of_t",
-                                       "sparse_coding"}
+                                       "sparse_coding", "logreg"}
     assert isinstance(tmodels.get_distribution("rough_well"), tmodels.RoughWell)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodels.get_distribution("funnel")
@@ -109,7 +109,7 @@ def test_registry_and_presets():
     for key in jc:
         assert dataclass_values(jc[key]) == dataclass_values(tc[key])
     for key in ("gauss2d", "gauss50d", "rough_well", "rough_well_a3", "product_of_t",
-                "sparse_coding"):
+                "sparse_coding", "logreg"):
         jd, td = jc[key].make_distribution(), tc[key].make_distribution()
         assert td.stable_hash() == jd.stable_hash()
 

@@ -172,11 +172,11 @@ def test_nuts_routing_and_refusals():
                                              variant="nuts")
     assert torch.equal(es, cm.stream_reference(tspec, *ts, 5, EPS, 0.0, 2, 1, DEPTH,
                                                variant="nuts")[2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cm.CudaNUTS(tmodels.ProductOfT(), device="cpu")
+    # matmul energies take the matmul kernel's NUTS body
+    assert cm.CudaNUTS(tmodels.ProductOfT(), nbatch=8, device="cpu")._matmul
     pot = cm.energy_spec_for(tmodels.ProductOfT())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cm.cuda_mjhmc_mm_run(pot, *ts, 5, EPS, 0.0, 2, DEPTH, variant="nuts")
+    with pytest.raises(ValueError, match="other kernel"):
+        cm.cuda_mjhmc_run(pot, *ts, 5, EPS, 0.0, 2, DEPTH, variant="nuts")
     for variant in ("control", "malt"):  # ported: the CPU takes their plain versions
         a = cm.cuda_mjhmc_run(tspec, *ts, 5, EPS, 0.5, 2, DEPTH, variant=variant)
         b = cm.run_reference(tspec, *ts, 5, EPS, 0.5, 2, DEPTH, variant=variant)
@@ -198,6 +198,7 @@ def test_cli_sample_nuts(capsys):
     assert rec["sampler"] == "nuts" and rec["engine"] == "cuda" and rec["chains"] == 64
     assert rec["steps"] == 30 and rec["grad_evals"] >= 40 * 64
     assert len(rec["var"]) == 2 and all(np.isfinite(rec["var"])) and rec["ess"] > 0
-    with pytest.raises(SystemExit, match="slice D"):
-        cli(["sample", "--config", "gauss2d", "--engine", "torch", "--sampler", "nuts",
-             "--device", "cpu"])
+    cli(["sample", "--config", "gauss2d", "--engine", "torch", "--sampler", "nuts",
+         "--device", "cpu", "--nbatch", "16", "--burn", "2", "--steps", "5"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["sampler"] == "nuts" and rec["engine"] == "torch" and rec["grad_evals"] >= 5 * 16
