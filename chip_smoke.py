@@ -9,9 +9,11 @@ variances, drives the main paths once through the CLI (``sample --engine
 cuda`` on ``rough_well`` for the elementwise kernel, on ``product_of_t``,
 ``sparse_coding`` and ``logreg`` for the matmul kernel, ``--sampler nuts`` on
 ``gauss2d`` and on the matmul presets for the NUTS bodies, ``--sampler
-control|malt`` and ``--integrator two_stage``), the engines' ``from_warmup``
-and the roofline dossier (``bench_mfu.main`` with its ceiling probes, at a
-reduced ``--steps``), and times the kernels beside their plain versions.
+control|malt`` and ``--integrator two_stage``, and every sampler on the zoo
+presets ``funnel``, ``banana``, ``mog`` and ``eight_schools``), the
+engines' ``from_warmup`` (also on the funnel) and the roofline dossier
+(``bench_mfu.main`` with its ceiling probes, at a reduced ``--steps``), and
+times the kernels beside their plain versions.
 One line per phase; any failed check raises, so the exit code is non-zero.
 The second to last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -107,12 +109,12 @@ def events_ms(fn) -> float:
 def initial_state(dist, n, seed, inv_mass=None):
     """(x, v, g, u, h_back, valid) on the card; v ~ N(0, M) with a mass."""
     gen = torch.Generator().manual_seed(seed)
-    x = dist.init_x(gen, n, "cuda")
-    v = torch.randn(x.shape, generator=gen).cuda()
+    x = dist.init_x(gen, n, DEV)
+    v = torch.randn(x.shape, generator=gen).to(DEV)
     if inv_mass is not None:
-        v = v / torch.sqrt(torch.tensor(inv_mass, device="cuda"))[:, None]
+        v = v / torch.sqrt(torch.tensor(inv_mass, device=DEV))[:, None]
     u, g = dist.potential_and_grad(x)
-    z = torch.zeros(n, device="cuda")
+    z = torch.zeros(n, device=DEV)
     return x, v, g, u, z, z.clone()
 
 
@@ -493,11 +495,22 @@ def run_dossier(cm, ce, card):
 
 def energy_ops(cname, d, k):
     """(operations of one gradient with its kick-drift-kick, of one energy
-    U) per chain, for a config's energy (d dims, k rows of y or r)."""
+    U) per chain, for a config's energy (d dims, k rows of y or r; the
+    mixture's k components), counted from the kernel's code: the
+    kick-drift-kick is 6 per dim, an expf or logf one."""
     if cname.startswith("rough_well"):
         return 11 * d, 7 * d
     if cname.startswith("gauss"):
         return 7 * d, 3 * d
+    if cname == "funnel":  # one expf; the tail sum, row 0, e·x_i
+        return 6 * d + 1 + 2 * (d - 1) + 5 + (d - 1), 2 * (d - 1) + 9
+    if cname == "banana":
+        return 6 * d + 9, 2 * (d - 2) + 11
+    if cname == "mog":  # k logits (2d + 4 each), k expf and a divide; U also a logf
+        logits = 2 * d + k * (2 * d + 4) + k
+        return 6 * d + logits + 2 * k + 1 + 3 * k + d * (1 + 2 * k), logits + 2 * k + 3
+    if cname.startswith("eight_schools"):  # one expf, 8 per school
+        return 6 * d + 1 + 8 * (d - 2) + 6, 6 * (d - 2) + 12
     if cname.startswith("product_of_t"):
         return 4 * d * k + 5 * k + 6 * d, 4 * k
     if cname.startswith("logreg"):  # σ(z): exp, add, divide; softplus: max, abs, exp, log1p, add
@@ -1184,7 +1197,384 @@ def slice_k_timing(cm, card):
     return rows
 
 
+# ---- slice L: the zoo energies on the elementwise kernel -------------------
+ZOO_ENERGIES = {
+    "funnel": "FunnelSpec (mjhmc_tpu/ops/pallas_mjhmc.py:113)",
+    "banana": "BananaSpec (mjhmc_tpu/ops/pallas_mjhmc.py:149)",
+    "mog": "MogSpec (mjhmc_tpu/ops/pallas_mjhmc.py:174)",
+    "eight_schools": "EightSchoolsSpec, centered (mjhmc_tpu/ops/pallas_mjhmc.py:554)",
+    "eight_schools_nc": "EightSchoolsSpec, non-centered (mjhmc_tpu/ops/pallas_mjhmc.py:554)",
+}
+ZOO_BODIES = ("mjhmc", "control", "malt", "nuts")
+ZOO_NUTS_DEPTH = 6  # max_depth of the zoo NUTS checks (the CLI's and the engines' is 8)
+MJHMC_VARIANT = "mjhmc (_make_step, mjhmc_tpu/ops/pallas_mjhmc.py:714)"
+#: iterations of the statistics runs (burn, steps) of phase 27
+ZOO_STATS_ITERS = {"banana": (500, 2000), "banana_nuts": (200, 1000), "mog": (300, 1500),
+                   "eight_schools_nc": (500, 2500), "funnel": (0, 3000), "funnel_nuts": (200, 2000)}
+#: the funnel's warmup phases (the JAX test's for MJHMC; shorter for NUTS,
+#: whose warmup runs the plain NUTS sampler, a host sync per leaf)
+FUNNEL_WARMUP = {"mjhmc": dict(phase1=200, phase2=300, phase3=150),
+                 "nuts": dict(phase1=30, phase2=50, phase3=20)}
+#: (burn, steps) of the zoo CLI calls
+ZOO_CLI_ITERS = (300, 600)
+
+
+def zoo_presets():
+    """label -> (distribution, preset config): the four zoo presets, and
+    eight schools non-centered at the eight_schools preset's settings."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.models import EightSchools
+
+    out = {c: (BENCHMARK_CONFIGS[c].make_distribution(), BENCHMARK_CONFIGS[c])
+           for c in ("funnel", "banana", "mog", "eight_schools")}
+    out["eight_schools_nc"] = (EightSchools(parameterization="noncentered"),
+                               BENCHMARK_CONFIGS["eight_schools"])
+    return out
+
+
+def zoo_cases():
+    """Every body and branch on every zoo energy at the preset's width and
+    ε (NUTS at max_depth ZOO_NUTS_DEPTH): (label, energy, distribution,
+    chains, ε, β, M or max_depth, iterations held, options). The mass is
+    M⁻¹ from 0.5 to 1.5 over the dims."""
+    rows = []
+    for name, (dist, cfg) in zoo_presets().items():
+        mass = tuple(float(v) for v in torch.linspace(0.5, 1.5, dist.ndims))
+        for label, beta, kw in (
+                ("mjhmc", cfg.beta, {}),
+                ("mjhmc two_stage", cfg.beta, dict(integrator="two_stage")),
+                ("mjhmc inv_mass", cfg.beta, dict(inv_mass=mass)),
+                ("control", 0.2, dict(variant="control")),
+                ("control two_stage inv_mass", 0.2,
+                 dict(variant="control", integrator="two_stage", inv_mass=mass)),
+                ("malt", 1.0, dict(variant="malt")),
+                ("malt inv_mass", 1.0, dict(variant="malt", inv_mass=mass)),
+                ("nuts", 0.0, dict(variant="nuts")),
+                ("nuts inv_mass", 0.0, dict(variant="nuts", inv_mass=mass))):
+            nuts = label.startswith("nuts")
+            rows.append((f"{name} {label}", name, dist, cfg.nbatch, cfg.epsilon, beta,
+                         ZOO_NUTS_DEPTH if nuts else cfg.num_leapfrog_steps, 3 if nuts else 5, kw))
+    return rows
+
+
+def finite_within(a, b):
+    """(n,) bool: the chain's values of ``a`` lie within rtol 1e-4 (atol 1e-4
+    of the largest finite value) of ``b``'s, non-finite where ``b``'s are."""
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(b)
+    top = float(b[fin].abs().max()) if bool(fin.any()) else 1.0
+    good = torch.where(fin, (a - b).abs() <= 1e-4 * (top + b.abs()), ~torch.isfinite(a))
+    while good.dim() > 1:
+        good = good.all(dim=-2)
+    return good
+
+
+def zoo_agree(run, xs, ref, xs_ref):
+    """(n,) bool: x, v, g, u and every emitted x within rtol 1e-4,
+    non-finite on the same chains."""
+    ok = finite_within(xs, xs_ref)
+    for f in ("x", "v", "grad", "u"):
+        ok &= finite_within(getattr(run, f), getattr(ref, f))
+    return ok
+
+
+def zoo_kernel_checks(cm):
+    """Phases 25-26: every body and branch on every zoo energy, run and
+    stream kernels, against the plain version on the card, from v ~ N(0, M),
+    in fixed-uniform mode (25) and in Philox mode (26). Decisions (counters
+    and stream es; and, but for NUTS, whether x moved each iteration) equal
+    on >= 0.999 of chains or as many as one-ulp nudges (of x or of ε, up
+    and down) change in the plain version alone, if more (the count that
+    differ is printed: the kernel contracts FMAs that torch rounds apart,
+    and the zoo's stiff regions carry last-ulp differences on). x, v, g, u and every
+    emitted x within rtol 1e-4 (atol 1e-4 of the largest finite value),
+    non-finite on the same chains, on all but 0.1% of the chains whose
+    decisions agree or as many as the nudges move past it. NUTS (Rn
+    roundings; the kernel's expf and logf round as torch.exp and torch.log
+    do on the card) is held bit for bit: x, v, g, u, leaf counts and every
+    emission identical on every chain. Returns ({label: max |dx| on the fixed-uniform
+    chains held}, {label: NUTS identical share, fixed-uniform and Philox})."""
+    errs, ident = {}, {}
+    for label, name, dist, n, eps, beta, m, held, kw in zoo_cases():
+        spec = cm.energy_spec_for(dist)
+        variant = kw.get("variant", "mjhmc")
+        nuts, mj = variant == "nuts", variant == "mjhmc"
+        for fixed, seed in ((True, 7), (False, 12345)):
+            st = initial_state(dist, n, seed=1 if fixed else 2, inv_mass=kw.get("inv_mass"))
+            args = (spec, *st, seed, eps, beta)
+            k = cm.cuda_mjhmc_run(*args, held, m, fixed_uniform=fixed, **kw)
+            xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_stream_run(*args, held, 1, m,
+                                                              fixed_uniform=fixed, **kw)
+            xs_r, ws_r, es_r, r = cm.stream_reference(*args, held, 1, m, fixed, **kw)
+
+            moved_r = moves(xs_r, st[0], r.x if mj else None)
+
+            def decisions(run, xs, es, x0):
+                same = (run.evals == r.evals) & (es == es_r).all(dim=0)
+                if not nuts:
+                    same &= (moves(xs, x0, run.x if mj else None) == moved_r).all(dim=0)
+                return same
+
+            same = decisions(k, xs_k, es_k, st[0]) & decisions(so_k, xs_k, es_k, st[0])
+            within = zoo_agree(k, xs_k, r, xs_r) & zoo_agree(so_k, xs_k, r, xs_r)
+            flips, drift = torch.zeros_like(same), torch.zeros_like(same)
+            for to in (float("inf"), float("-inf")):
+                x_n = torch.nextafter(st[0], torch.full_like(st[0], to))
+                eps_n = float(torch.nextafter(torch.tensor(eps), torch.tensor(to)))
+                for x0, e in ((x_n, eps), (st[0], eps_n)):
+                    xs_n, _, es_n, r_n = cm.stream_reference(spec, x0, *st[1:], seed, e, beta,
+                                                             held, 1, m, fixed, **kw)
+                    same_n = decisions(r_n, xs_n, es_n, x0)
+                    flips |= ~same_n
+                    drift |= same_n & ~zoo_agree(r_n, xs_n, r, xs_r)
+            differ, outside = int((~same).sum()), int((same & ~within).sum())
+            allow_dec = max(0.001 * n, int(flips.sum()))
+            allow_states = max(0.001 * n, int(drift.sum()))
+            mode = "fixed-uniform" if fixed else "Philox"
+            what = (f"{label} ({n} chains, eps {eps}, beta {beta}, "
+                    f"{'max_depth' if nuts else 'M'} {m}, {held} iterations, {mode})")
+            check(differ <= allow_dec, f"{what}: decisions differ on {differ} chains, "
+                  f"{allow_dec:g} allowed")
+            check(outside <= allow_states, f"{what}: {outside} chains with equal decisions "
+                  f"outside rtol 1e-4, {allow_states:g} allowed")
+            if variant in ("control", "malt"):
+                check(bool((k.w == held).all()) and bool((ws_k == 1).all()), f"{what}: w, ws")
+            ok = same & within
+            dx = (k.x - r.x).abs()[:, ok]
+            err = float(dx[torch.isfinite(dx)].max()) if dx.numel() else 0.0
+            nonfinite = int((~torch.isfinite(r.u)).sum())
+            extra = ""
+            if nuts:
+                identical = (k.evals == r.evals) & (es_k == es_r).all(dim=0)
+                for f in ("x", "v", "grad", "u"):
+                    a, b = getattr(k, f), getattr(r, f)
+                    eq = (a == b) | (torch.isnan(a) & torch.isnan(b))
+                    identical &= eq.all(dim=0) if eq.dim() == 2 else eq
+                eq = (xs_k == xs_r) | (torch.isnan(xs_k) & torch.isnan(xs_r))
+                identical &= eq.all(dim=1).all(dim=0)
+                share = float(identical.double().mean())
+                check(share == 1.0, f"{what}: bit-identical on {share:.5f} of chains")
+                ident.setdefault(label, []).append(share)
+                extra = (f"; bit-identical on {share:.5f} of chains; "
+                         f"{float(r.evals.double().mean()) / held:.4g} leaves/iteration")
+            if fixed:
+                errs[label] = err
+            phase("25 zoo fixed-uniform" if fixed else "26 zoo philox",
+                  f"{what}: decisions equal on {1 - differ / n:.5f} ({differ} differ); x,v,g,u "
+                  f"and stream xs rtol 1e-4 on all but {outside} of the others (max|dx| "
+                  f"{err:.3g}); non-finite energies on {nonfinite} chains, the same on both "
+                  f"sides where decisions agree; one-ulp nudges of x or eps change {int(flips.sum())} "
+                  f"chains' decisions and move {int(drift.sum())} more past rtol 1e-4 in the "
+                  f"plain version alone{extra}")
+    return errs, ident
+
+
+def zoo_stats(cm):
+    """Phase 27: the statistics of the JAX package's TPU-gated zoo checks
+    (tests/test_pallas_engine.py:493-581) on the port's engines. Banana
+    (MJHMC, and NUTS at max_depth 8): var/analytic within 0.2 on row 0 and
+    0.3 on row 1; the mixture at means ±1.5, σ 1: within 0.2; eight schools
+    non-centered with M⁻¹ = the quadrature variances: means within 0.5 of
+    the quadrature means, var/quadrature within 0.2; the funnel (D 10, σ_v 2;
+    the JAX test runs D 8, the preset's D is 10) after CudaMJHMC.from_warmup
+    and CudaNUTS.from_warmup: every var/analytic in (0.5, 1.6). Returns the
+    launches of each engine entry point, counted from 0 just before it."""
+    from mjhmc_tpu_torch.models import Banana, EightSchools, Funnel, GaussianMixture
+
+    res = {}
+
+    def moments(eng, key):
+        burn, steps = ZOO_STATS_ITERS[key]
+        cm.reset_counts()
+        if burn:
+            eng.run(burn)
+        out = eng.run(steps)
+        res[key] = {body: counts(cm, "launches" if body == "mjhmc" else f"{body}_launches")
+                    for body in ZOO_BODIES}
+        mean, var = cm.CudaMJHMC.moments(out)
+        return mean.double(), var.double(), f"{burn} + {steps}"
+
+    banana = Banana()
+    target = banana.analytic_var().double().to(DEV)
+    for key, eng in (("banana", cm.CudaMJHMC(banana, epsilon=0.35, beta=0.15, num_leapfrog_steps=10,
+                                             nbatch=4096, seed=0, device=DEV)),
+                     ("banana_nuts", cm.CudaNUTS(banana, epsilon=0.35, num_leapfrog_steps=8,
+                                                 nbatch=4096, seed=0, device=DEV))):
+        _, var, iters = moments(eng, key)
+        ratio = var / target
+        check(abs(float(ratio[0]) - 1) < 0.2 and abs(float(ratio[1]) - 1) < 0.3,
+              f"{type(eng).__name__} banana var/analytic {ratio.tolist()}")
+        phase("27 zoo stats", f"{type(eng).__name__} banana (4,096 chains, eps 0.35, "
+              f"{'beta 0.15, M 10' if key == 'banana' else 'max_depth 8'}, {iters}): var/analytic "
+              f"{[round(x, 5) for x in ratio.tolist()]} (bounds 0.2, 0.3)")
+
+    mog = GaussianMixture(means=((-1.5,), (1.5,)), scales=(1.0, 1.0))
+    _, var, iters = moments(cm.CudaMJHMC(mog, epsilon=0.8, beta=0.2, num_leapfrog_steps=5,
+                                         nbatch=4096, seed=0, device=DEV), "mog")
+    ratio = float(var[0]) / float(mog.analytic_var()[0])
+    check(abs(ratio - 1) < 0.2, f"mog var/analytic {ratio}")
+    phase("27 zoo stats", f"CudaMJHMC mog, means +-1.5, sigma 1 (4,096 chains, eps 0.8, beta 0.2, "
+          f"M 5, {iters}): var/analytic {ratio:.5f} (bound 0.2)")
+
+    es = EightSchools(parameterization="noncentered")
+    tgt = es.analytic_var().double().to(DEV)
+    mean, var, iters = moments(cm.CudaMJHMC(es, epsilon=0.6, beta=0.15, num_leapfrog_steps=8,
+                                            nbatch=4096, seed=0, device=DEV,
+                                            inv_mass=tuple(float(v) for v in tgt)),
+                               "eight_schools_nc")
+    dmean = float((mean - es.analytic_mean().double().to(DEV)).abs().max())
+    dvar = float((var / tgt - 1).abs().max())
+    check(dmean < 0.5 and dvar < 0.2, f"eight schools non-centered: max |mean - quadrature| "
+          f"{dmean}, max |var/quadrature - 1| {dvar}")
+    phase("27 zoo stats", f"CudaMJHMC eight_schools non-centered, M^-1 = the quadrature "
+          f"variances (4,096 chains, eps 0.6, beta 0.15, M 8, {iters}): max |mean - quadrature| "
+          f"{dmean:.5f} (bound 0.5), max |var/quadrature - 1| {dvar:.5f} (bound 0.2)")
+
+    funnel = Funnel(ndims=10, sigma_v=2.0)
+    target = funnel.analytic_var().double().to(DEV)
+    for key, ecls, kw in (("funnel", cm.CudaMJHMC,
+                           dict(beta=0.2, num_leapfrog_steps=10, **FUNNEL_WARMUP["mjhmc"])),
+                          ("funnel_nuts", cm.CudaNUTS, FUNNEL_WARMUP["nuts"])):
+        t0 = time.perf_counter()
+        eng = ecls.from_warmup(funnel, seed=0, nbatch=8192, device=DEV, **kw)
+        warm_s = time.perf_counter() - t0
+        im = torch.as_tensor(eng.inv_mass)
+        check(eng.epsilon > 0 and bool((im > 0).all()), f"{ecls.__name__}.from_warmup(funnel): "
+              f"eps {eng.epsilon}, M^-1 {im.tolist()}")
+        _, var, iters = moments(eng, key)
+        ratio = var / target
+        check(float(ratio.min()) > 0.5 and float(ratio.max()) < 1.6,
+              f"{ecls.__name__}.from_warmup(funnel) var/analytic {ratio.tolist()}")
+        phase("27 zoo stats", f"{ecls.__name__}.from_warmup(Funnel(ndims=10, sigma_v=2.0)) "
+              f"(the preset's D 10; the JAX test's D is 8), 8,192 chains, {kw}: warmup "
+              f"{warm_s:.3g} s host clock, eps {eng.epsilon:.5g}, M^-1 in [{float(im.min()):.4g}, "
+              f"{float(im.max()):.4g}]; {iters}: var/analytic in [{float(ratio.min()):.5f}, "
+              f"{float(ratio.max()):.5f}] (bounds 0.5, 1.6)")
+    return res
+
+
+def zoo_cli(cm, cli):
+    """Phase 28: `sample --config funnel|banana|mog|eight_schools --engine
+    cuda --sampler mjhmc|control|malt|nuts` at the presets' widths, every
+    count set to 0 just before each call. Returns {(config, sampler):
+    (record, (run, stream) launches, seconds)}."""
+    out = {}
+    burn, steps = ZOO_CLI_ITERS
+    for cname, (dist, cfg) in zoo_presets().items():
+        if cname == "eight_schools_nc":  # no preset: its entry points are the engines
+            continue
+        for sampler in ZOO_BODIES:
+            cm.reset_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli(["sample", "--config", cname, "--engine", "cuda", "--sampler", sampler,
+                     "--burn", str(burn), "--steps", str(steps)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+            launches = counts(cm, "launches" if sampler == "mjhmc" else f"{sampler}_launches")
+            check(all(v > 0 for v in launches), f"{sampler} {cname}: kernels not launched")
+            n, m, ge = cfg.nbatch, cfg.num_leapfrog_steps, rec["grad_evals"]
+            iters = burn + steps
+            good = {"nuts": iters * n <= ge <= iters * n * 255,
+                    "mjhmc": ge >= m * iters * n and ge % m == 0}.get(sampler, ge == m * iters * n)
+            check(good and rec["chains"] == n and rec["steps"] == steps and rec["ess"] > 0
+                  and all(v > 0 and v == v for v in rec["var"])
+                  and all(v == v for v in rec["mean"]), f"bad CLI record {rec}")
+            out[(cname, sampler)] = (rec, launches, seconds)
+            phase("28 zoo cli", f"{json.dumps(rec)}; launches (run, stream) {launches}; "
+                  f"{seconds:.4g} s host clock")
+    return out
+
+
+def zoo_timing(cm, card):
+    """Phase 29: ms per iteration (CUDA events) of every zoo instance, run
+    and stream, through the engines at the presets' widths and ε (NUTS at
+    max_depth 8), beside the plain version; the branch instances (MJHMC
+    with a mass, NUTS with a mass) as "<body> inv_mass". Eight schools
+    non-centered's launches are counted here, from 0 just before each
+    engine. Returns {(key, energy): (run ms, stream ms, plain run ms, plain
+    stream ms, gradients, iterations, chains, (run, stream) launches)}."""
+    rows = {}
+    ecls = {"nuts": cm.CudaNUTS, "mjhmc": cm.CudaMJHMC, "control": cm.CudaControlHMC,
+            "malt": cm.CudaMALT}
+    for name, (dist, cfg) in zoo_presets().items():
+        n = cfg.nbatch
+        mass = tuple(float(v) for v in torch.linspace(0.5, 1.5, dist.ndims))
+        for key in ZOO_BODIES + ("mjhmc inv_mass", "nuts inv_mass"):
+            body = key.split()[0]
+            nuts = body == "nuts"
+            m = 8 if nuts else cfg.num_leapfrog_steps
+            beta = {"mjhmc": cfg.beta, "control": 0.2, "malt": 1.0, "nuts": 0.0}[body]
+            kw = {"inv_mass": mass} if key.endswith("inv_mass") else {}
+            iters = 300 if nuts else 1000
+            cm.reset_counts()
+            eng = ecls[body](dist, epsilon=cfg.epsilon, beta=beta, num_leapfrog_steps=m, nbatch=n,
+                             seed=4, device=DEV, **kw)
+            eng.run(10)
+            before = eng.grad_evals
+            run_ms = events_ms(lambda: eng.run(iters)) / iters
+            grads = eng.grad_evals - before
+            stream_ms = events_ms(lambda: eng.sample(iters)) / iters
+            launches = counts(cm, "launches" if body == "mjhmc" else f"{body}_launches")
+            check(all(v > 0 for v in launches), f"{key} {name}: kernels not launched")
+            plain_iters = 1 if nuts else 3
+            args = (eng.spec, *initial_state(dist, n, seed=5, inv_mass=kw.get("inv_mass")), 99,
+                    cfg.epsilon, beta)
+            pkw = dict(variant=body, **kw)
+            cm.run_reference(*args, 1, m, **pkw)
+            plain_ms = events_ms(lambda: cm.run_reference(*args, plain_iters, m, **pkw)) / plain_iters
+            plain_stream_ms = events_ms(
+                lambda: cm.stream_reference(*args, plain_iters, 1, m, **pkw)) / plain_iters
+            rows[(key, name)] = (run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n,
+                                 launches)
+            per = grads / (n * iters)
+            phase("29 zoo timing", f"{key} {name} ({n} chains, eps {cfg.epsilon}, beta {beta}, "
+                  f"{'max_depth' if nuts else 'M'} {m}): run {run_ms:.6g} ms/iteration, stream "
+                  f"(thin 1) {stream_ms:.6g}; plain version run {plain_ms:.6g}, stream "
+                  f"{plain_stream_ms:.6g} ms/iteration; {per:.5g} "
+                  f"{'leaves' if nuts else 'gradients'} per chain and iteration [{card}]")
+    return rows
+
+
+def zoo_entries(entry, errs, ident, cli_res, rows):
+    """The kernels line's entries of slice L: every body on every zoo
+    energy, run and stream; launches from phase 28's CLI calls (eight
+    schools non-centered, which has no preset: phase 29's engines), errors
+    from phase 25, times from phase 29 (``inv_mass_ms``: the instance with a
+    mass)."""
+    out = []
+    variants = {"nuts": NUTS_VARIANT, "mjhmc": MJHMC_VARIANT, "control": CONTROL_VARIANT,
+                "malt": MALT_VARIANT}
+    for name, (dist, _) in zoo_presets().items():
+        d, k = dist.ndims, len(getattr(dist, "scales", ()))
+        for body in ZOO_BODIES:
+            run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n, t_launches = \
+                rows[(body, name)]
+            launches = t_launches if name == "eight_schools_nc" else cli_res[(name, body)][1]
+            cases = [c for c in errs if c.startswith(f"{name} {body}")]
+            branch = rows.get((f"{body} inv_mass", name))
+            for idx, (suffix, src) in enumerate((("run", RUN_SRC), ("stream", STREAM_SRC))):
+                stream = idx == 1
+                extra = {"variant": variants[body], "energy": ZOO_ENERGIES[name],
+                         "shape": f"{name}, {n} chains, "
+                                  f"{'max_depth 8' if body == 'nuts' else 'preset'}"
+                                  f"{', thin 1' if stream else ''}, ms per iteration"}
+                if branch:
+                    extra["inv_mass_ms"] = branch[1 if stream else 0]
+                if body == "nuts":
+                    extra["bit_identical_share"] = {c: ident[c] for c in cases}
+                out.append(entry(
+                    f"{body}_{suffix}[{name}]", KERNEL_SRC, src, launches[idx],
+                    max(errs[c] for c in cases), stream_ms if stream else run_ms,
+                    plain_stream_ms if stream else plain_ms,
+                    bound(name, body, d, k, n, iters, grads, iters if stream else 0), **extra))
+    return out
+
+
 T0 = time.perf_counter()
+DEV = "cuda"
 
 
 def main() -> int:
@@ -1443,6 +1833,15 @@ def main() -> int:
     k_cli = slice_k_cli(cm, cli)
     k_ms = slice_k_timing(cm, card)
 
+    # ---- 25-29. slice L: the zoo energies on the elementwise kernel ---------
+    zoo_err, zoo_ident = zoo_kernel_checks(cm)
+    zoo_stat_launches = zoo_stats(cm)
+    zoo_cli_res = zoo_cli(cm, cli)
+    zoo_ms = zoo_timing(cm, card)
+    phase("29 zoo timing", f"the rough well beside the zoo's vector step (its per-dim step "
+          f"kept): run kernel {run_ms:.6g} ms/iteration at 10,000 chains (phase 7; 0.0027542 "
+          f"before slice L, PERF.md section 6) [{card}]")
+
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
 
@@ -1574,10 +1973,12 @@ def main() -> int:
                                  plain_stream_ms if stream else plain_ms,
                                  bound(cname, body, d, k, n, iters, grads, iters if stream else 0),
                                  **extra))
+    kernels += zoo_entries(entry, zoo_err, zoo_ident, zoo_cli_res, zoo_ms)
+    phase("29 zoo timing", f"statistics engines' launches (phase 27): {zoo_stat_launches}")
     check(all(kern["launches"] > 0 for kern in kernels),
           f"kernels not launched on their main paths: "
           f"{[kern['name'] for kern in kernels if not kern['launches'] > 0]}")
-    phase("25 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
+    phase("30 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

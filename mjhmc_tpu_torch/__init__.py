@@ -6,8 +6,9 @@ imports ``torch`` and never ``jax``. Public functions keep the JAX layouts:
 ``(ndims, nbatch)`` states with chains last, ``(nbatch,)`` per-chain
 scalars, energies that reduce axis −2.
 
-Ported so far: the rough-well, Gaussian, product-of-t, sparse-coding and
-logistic-regression models, the leapfrog and two-stage integrators, the
+Ported so far: every model (rough well, Gaussian, product of t, sparse
+coding, logistic regression, and the zoo: funnel, banana, Gaussian
+mixture, eight schools), the leapfrog and two-stage integrators, the
 plain MJHMC, control HMC, MALT and NUTS samplers with the dual-averaging
 warmups, the fused CUDA engines (``ops.cuda_mjhmc``, hand-written kernels
 in ``csrc/``), the roofline dossier and the autocorrelation / ESS

@@ -6,17 +6,21 @@
     python -m mjhmc_tpu_torch sample --config logreg --engine cuda --sampler nuts
     python -m mjhmc_tpu_torch sample --config rough_well --sampler control --integrator two_stage
     python -m mjhmc_tpu_torch sample --config product_of_t --sampler malt --gamma 1.0
+    python -m mjhmc_tpu_torch sample --config funnel --engine cuda --sampler nuts
+    python -m mjhmc_tpu_torch sample --config mog --engine torch
     python -m mjhmc_tpu_torch bench
 
 ``sample`` runs MJHMC, control HMC, MALT (``--gamma`` is MALT's friction,
 carried in the engine's β slot; ``--integrator two_stage`` for MJHMC and
 control) or NUTS at max_depth 8, and prints the JSON record of
 ``mjhmc_tpu``'s ``sample``. ``--engine cuda`` is the fused engine (its plain
-version when ``--device cpu``), ``--engine torch`` the plain sampler. The
-configs ported so far are gauss2d, gauss50d, rough_well, rough_well_a3
-(elementwise kernel), product_of_t, sparse_coding and logreg (matmul
-kernel). The JAX package's other subcommands and samplers are not ported
-yet (ROADMAP.md, slice H).
+version when ``--device cpu``), ``--engine torch`` the plain sampler. Every
+preset runs: gauss2d, gauss50d, rough_well, rough_well_a3, funnel, banana,
+mog and eight_schools on the elementwise kernel, product_of_t,
+sparse_coding and logreg on the matmul kernel. ``--sampler`` picks the
+sampler, whatever the preset names (mog's preset sampler, parallel
+tempering, is not ported yet: ROADMAP.md, slice D). The JAX package's other
+subcommands are not ported yet (ROADMAP.md, slice H).
 """
 
 from __future__ import annotations

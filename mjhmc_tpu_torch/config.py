@@ -1,9 +1,8 @@
 """The named benchmark presets (a copy of ``mjhmc_tpu.config``).
 
 The presets are the same values as the JAX package's; only
-``make_distribution`` resolves to this package's model registry, which so
-far holds the rough well, the Gaussian, the product of t experts, the
-sparse-coding posterior and Bayesian logistic regression.
+``make_distribution`` resolves to this package's model registry, which
+holds every model the presets name.
 """
 
 from __future__ import annotations

@@ -11,7 +11,11 @@ import numpy as np
 import torch
 
 from mjhmc_tpu_torch.models import (
+    Banana,
+    EightSchools,
+    Funnel,
     Gaussian,
+    GaussianMixture,
     LogisticRegression,
     ProductOfT,
     RoughWell,
@@ -25,7 +29,18 @@ _PORTED = {
     "ProductOfT": ProductOfT,
     "SparseCoding": SparseCoding,
     "LogisticRegression": LogisticRegression,
+    "Funnel": Funnel,
+    "Banana": Banana,
+    "GaussianMixture": GaussianMixture,
+    "EightSchools": EightSchools,
 }
+
+
+def _tupled(v):
+    """A (nested) list as (nested) tuples: ``config_dict`` turns the
+    distributions' tuple fields into lists, and the frozen dataclasses
+    hash only with tuples."""
+    return tuple(_tupled(e) for e in v) if isinstance(v, (list, tuple)) else v
 
 
 def distribution_from_jax(config_dict: dict):
@@ -33,14 +48,8 @@ def distribution_from_jax(config_dict: dict):
     cfg = dict(config_dict)
     name = cfg.pop("__class__")
     if name not in _PORTED:
-        raise NotImplementedError(
-            f"distribution {name} is not ported yet: the zoo models (Funnel, "
-            "Banana, GaussianMixture, EightSchools) come with slice L "
-            "(ROADMAP.md, 'Modules to port')"
-        )
-    if cfg.get("custom_patch") is not None:  # config_dict makes tuples lists
-        cfg["custom_patch"] = tuple(cfg["custom_patch"])
-    return _PORTED[name](**cfg)
+        raise KeyError(f"no distribution {name!r} in the port; it has {sorted(_PORTED)}")
+    return _PORTED[name](**{k: _tupled(v) for k, v in cfg.items()})
 
 
 def _chains_last(a, per_dim: bool) -> np.ndarray:

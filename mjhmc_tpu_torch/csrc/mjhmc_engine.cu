@@ -1,7 +1,7 @@
 // Fused MJHMC, NUTS, control HMC and MALT engines for the elementwise
-// energies: the C entry and the D=2 instances. The kernels are templates in
-// mjhmc_engine.cuh, which says what each replaces; the D=50 instances are
-// compiled in sources of their own.
+// energies: the C entry and the D=2 rough-well and Gaussian instances. The
+// kernels are templates in mjhmc_engine.cuh, which says what each replaces;
+// the D=50 and zoo instances are compiled in sources of their own.
 #include "mjhmc_engine.cuh"
 
 namespace mjhmc {
@@ -29,8 +29,11 @@ cudaError_t launch_shape(int variant, const Args& a, bool emit, cudaStream_t s) 
 // Plain C entry for ctypes. variant 0 runs MJHMC (m is M), 1 runs NUTS (m is
 // max_depth, 1..10; beta is unused; the input v is returned as is when
 // num_iters is 0), 2 control HMC (beta is the corruption fraction), 3 MALT
-// (beta is the friction gamma). mass is (2, ndims) (M^-1, sqrt(M)) or NULL;
-// two_stage != 0 takes the two-stage integrator (MJHMC and control only).
+// (beta is the friction gamma). energy is an Energy id at its instantiated
+// D: rough well and Gaussian at 2 and 50, funnel 10, banana 2, mog 1 (k0
+// components, 1..kMogMaxComponents), eight schools 10 (both forms). mass is
+// (2, ndims) (M^-1, sqrt(M)) or NULL; two_stage != 0 takes the two-stage
+// integrator (MJHMC and control only).
 // xs/ws/es == NULL runs without emissions. Returns cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int mjhmc_engine_launch(
@@ -51,13 +54,32 @@ extern "C" int mjhmc_engine_launch(
          n, num_iters, thin, m, fixed_uniform, seed, eps, beta, mass, two_stage};
   const bool emit = xs != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (energy != kRoughWell && energy != kGaussian) return cudaErrorInvalidValue;
-  const bool rw = energy == kRoughWell;
-  if (ndims == 2)
-    return rw ? launch_shape<2, kRoughWell>(variant, a, emit, s)
-              : launch_shape<2, kGaussian>(variant, a, emit, s);
-  if (ndims == 50)
-    return rw ? launch_shape<50, kRoughWell>(variant, a, emit, s)
-              : launch_shape<50, kGaussian>(variant, a, emit, s);
+  switch (energy) {
+    case kRoughWell:
+      if (ndims == 2) return launch_shape<2, kRoughWell>(variant, a, emit, s);
+      if (ndims == 50) return launch_shape<50, kRoughWell>(variant, a, emit, s);
+      break;
+    case kGaussian:
+      if (ndims == 2) return launch_shape<2, kGaussian>(variant, a, emit, s);
+      if (ndims == 50) return launch_shape<50, kGaussian>(variant, a, emit, s);
+      break;
+    case kFunnel:
+      if (ndims == 10) return launch_shape<10, kFunnel>(variant, a, emit, s);
+      break;
+    case kBanana:
+      if (ndims == 2) return launch_shape<2, kBanana>(variant, a, emit, s);
+      break;
+    case kMog:
+      if (ndims == 1 && k0 >= 1.f && k0 <= kMogMaxComponents)
+        return launch_shape<1, kMog>(variant, a, emit, s);
+      break;
+    case kEightSchoolsCentered:
+      if (ndims == 10) return launch_shape<10, kEightSchoolsCentered>(variant, a, emit, s);
+      break;
+    case kEightSchoolsNoncentered:
+      if (ndims == 10) return launch_shape<10, kEightSchoolsNoncentered>(variant, a, emit, s);
+      break;
+    default: break;
+  }
   return cudaErrorInvalidValue;
 }

@@ -1,18 +1,20 @@
 // Fused MJHMC engine for Hopper (sm_90a): a whole sampling run in one launch.
 // This header holds the four step bodies' kernels as templates (MJHMC, NUTS,
 // control HMC, MALT: each with its note below); mjhmc_engine.cu
-// compiles the D=2 instances and the C entry, and the D=50 instances, which
-// take most of the build, are compiled in sources of their own
-// (mjhmc_engine_d50*.cu, nuts_engine_d50_*.cu, hmc_engine_d50.cu), each by
-// its own nvcc, all at once (ops/_build.py); the slowest instances have a
-// source each, so that the build's longest nvcc stays short.
+// compiles the D=2 instances and the C entry, and the D=50 and zoo
+// instances, which take most of the build, are compiled in sources of their
+// own (mjhmc_engine_d50*.cu, nuts_engine_d50_*.cu, hmc_engine_d50.cu,
+// zoo_*.cu), each by its own nvcc, all at once (ops/_build.py); the slowest
+// instances have a source each, so that the build's longest nvcc stays short.
 //
 // Replaces the TPU kernels _mjhmc_kernel and _mjhmc_stream_kernel
 // (mjhmc_tpu/ops/pallas_mjhmc.py:1451 and :1494), both built from the step
-// body _make_step (:714, variant "mjhmc") with the RoughWellSpec (:80) and
-// GaussianSpec (:99) energies. One templated kernel serves both: EMIT=false
-// is the run, EMIT=true also streams every thin-th iteration's
-// pre-transition x, dwell weight and cumulative evals.
+// body _make_step (:714, variant "mjhmc") with the RoughWellSpec (:80),
+// GaussianSpec (:99), FunnelSpec (:113), BananaSpec (:149), MogSpec (:174)
+// and EightSchoolsSpec (:554, centered and non-centered as two energies)
+// energies. One templated kernel serves both: EMIT=false is the run,
+// EMIT=true also streams every thin-th iteration's pre-transition x, dwell
+// weight and cumulative evals.
 //
 // Two branches of every body are runtime arguments: a diagonal inverse
 // mass (Args::mass, rows M^-1 and sqrt(M) = rsqrt(M^-1) as the wrapper
@@ -29,7 +31,12 @@
 // trajectories and the Kahan pairs live in registers for the whole run, so
 // device memory is touched only to load the state, store the results and,
 // in the stream, store the emissions. Loads and stores use the (d, n)
-// layout, so neighbouring threads touch neighbouring addresses.
+// layout, so neighbouring threads touch neighbouring addresses. The zoo
+// energies couple their dims, so their leapfrog step is a vector step: the
+// kick and the drift of every dim, one gradient of the whole x (grad below),
+// then the closing kick of every dim. The separable rough well and Gaussian
+// keep the per-dim step (kSeparable below); each dim sees the same
+// operations in the same order in either form, so only the speed differs.
 //
 // What bounds it: FP32 and SFU work per leapfrog step (one sinf per
 // dimension and step for the rough well), one step after another within a
@@ -62,11 +69,25 @@ constexpr float kLogRateMax = 25.0f;
 constexpr float kNegInf = -1e30f;
 constexpr float kTwoPi = 6.283185307179586f;
 
-enum Energy { kRoughWell = 0, kGaussian = 1 };
+// energy ids: the specs' energy_id (ops/cuda_mjhmc.py)
+enum Energy {
+  kRoughWell = 0,
+  kGaussian = 1,
+  kFunnel = 2,
+  kBanana = 3,
+  kMog = 4,
+  kEightSchoolsCentered = 5,
+  kEightSchoolsNoncentered = 6,
+};
+// most components of a mixture (MogSpec; the wrapper checks)
+constexpr int kMogMaxComponents = 8;
 
 struct Args {
-  const float* params;  // (d,) per-dim parameters (Gaussian precisions)
-  float k0, k1, k2, k3, k4;  // scalar energy constants (rough well)
+  // per-energy parameters: the Gaussian's (d,) precisions, eight schools'
+  // (2, d) rows y and 1/sigma^2, the mixture's (K, d) means and then four
+  // rows of K (log w - d log sigma, 0.5/sigma^2, 1/sigma^2, |mu|^2)
+  const float* params;
+  float k0, k1, k2, k3, k4;  // scalar energy constants (each spec's constants())
   const float *x, *v, *g, *u, *h_back, *valid;
   float *xo, *vo, *go, *uo, *hbo, *valido, *w, *wx, *wx2;
   int* evals;
@@ -102,11 +123,13 @@ struct Fused {
   static __device__ __forceinline__ float mul(float a, float b) { return a * b; }
   static __device__ __forceinline__ float add(float a, float b) { return a + b; }
   static __device__ __forceinline__ float sub(float a, float b) { return a - b; }
+  static __device__ __forceinline__ float div(float a, float b) { return a / b; }
 };
 struct Rn {
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
   static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
 };
 
 // x·M^-1 of dim i, or x itself without a mass (which the rounded products
@@ -116,26 +139,234 @@ __device__ __forceinline__ float mass_mul(float x, const float* mass, int i) {
   return mass ? R::mul(x, __ldg(mass + i)) : x;
 }
 
+// What a thread loads once for its energy: the Gaussian's precisions and
+// eight schools' y in p, eight schools' 1/sigma^2 in q. The other energies
+// read only the scalars; the mixture reads its per-component values from
+// the params vector inside the energy (the same address in every thread).
+template <int E, int D>
+struct Params {
+  static constexpr bool kSchools = E == kEightSchoolsCentered || E == kEightSchoolsNoncentered;
+  float p[D], q[D];
+  __device__ __forceinline__ explicit Params(const Args& a) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      p[i] = E == kGaussian || kSchools ? a.params[i] : 0.f;
+      q[i] = kSchools ? a.params[D + i] : 0.f;
+    }
+  }
+};
+
 // rough well: du = x/s1² − sin(x/s2)·a/s2, u = Σ x²/(2 s1²) + a·cos(x/s2),
-// with k0=1/s1², k1=1/s2, k2=a/s2, k3=0.5/s1², k4=a (RoughWellSpec's forms)
+// with k0=1/s1², k1=1/s2, k2=a/s2, k3=0.5/s1², k4=a (RoughWellSpec's forms);
+// Gaussian: du = x·p
 template <int E, class R = Fused>
 __device__ __forceinline__ float du(float x, float p, const Args& a) {
   if (E == kRoughWell) return R::sub(R::mul(x, a.k0), R::mul(sinf(R::mul(x, a.k1)), a.k2));
   return R::mul(x, p);
 }
 
-template <int E, int D, class R = Fused>
-__device__ __forceinline__ float u_sum(const float (&x)[D], const float (&p)[D],
-                                       const Args& a) {
-  float s = 0.f;
+// jnp.maximum / torch.maximum: NaN if either is NaN
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : (a > b ? a : b);
+}
+
+// The mixture's component logits (MogSpec._logits): log w_k − d log σ_k −
+// ½/σ_k²·(‖x‖² − 2 μ_k·x + ‖μ_k‖²), zero means skipped; returns K
+template <int D, class R>
+__device__ __forceinline__ int mog_logits(const float (&x)[D], float (&lg)[kMogMaxComponents],
+                                          const Args& a) {
+  const int K = static_cast<int>(a.k0);
+  const float* mu = a.params;
+  const float* cst = a.params + K * D;
+  float x2 = 0.f;
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    const float xx = R::mul(x[i], x[i]);
-    s = R::add(s, E == kRoughWell
-                      ? R::add(R::mul(xx, a.k3), R::mul(a.k4, cosf(R::mul(x[i], a.k1))))
-                      : R::mul(xx, p[i]));
+  for (int i = 0; i < D; ++i) x2 = R::add(x2, R::mul(x[i], x[i]));
+#pragma unroll
+  for (int k = 0; k < kMogMaxComponents; ++k) {
+    if (k >= K) break;
+    float cross = 0.f;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const float m = __ldg(mu + k * D + i);
+      if (m != 0.f) cross = R::add(cross, R::mul(m, x[i]));
+    }
+    const float sq = R::add(R::sub(x2, R::mul(2.f, cross)), __ldg(cst + 3 * K + k));
+    lg[k] = R::sub(__ldg(cst + k), R::mul(__ldg(cst + K + k), sq));
   }
-  return E == kRoughWell ? s : R::mul(0.5f, s);
+  return K;
+}
+
+// The rough well and the Gaussian are separable: each dim's gradient needs
+// only that dim's x, so their leapfrog steps run kick, drift, du and kick one
+// dim after another, which lets the forward and backward trajectories'
+// steps interleave (the vector step is ~4% slower on the rough well,
+// PERF.md §6). The zoo energies couple their dims and take the vector step
+// with grad below.
+template <int E>
+constexpr bool kSeparable = E == kRoughWell || E == kGaussian;
+
+// ∇U of every dim at once, in the plain spec's expressions and order
+// (ops/cuda_mjhmc.py: FunnelSpec, BananaSpec, MogSpec, EightSchoolsSpec);
+// the masked sums there start from rows of zeros, here from 0.
+template <int E, int D, class R = Fused>
+__device__ __forceinline__ void grad(const float (&x)[D], float (&g)[D], const Params<E, D>& P,
+                                     const Args& a) {
+  static_assert(!kSeparable<E>, "separable energies take du one dim at a time");
+  if constexpr (E == kFunnel) {
+    // k0 = 1/σ_v², k1 = ½(d−1): gv = v·k0 + k1 − ½e^{−v}·Σ_{i≥1} x_i², g_i = e^{−v}x_i
+    const float v = x[0], e = expf(-v);
+    float z2 = 0.f;
+#pragma unroll
+    for (int i = 1; i < D; ++i) z2 = R::add(z2, R::mul(x[i], x[i]));
+    g[0] = R::sub(R::add(R::mul(v, a.k0), a.k1), R::mul(R::mul(0.5f, e), z2));
+#pragma unroll
+    for (int i = 1; i < D; ++i) g[i] = R::mul(e, x[i]);
+  } else if constexpr (E == kBanana) {
+    // k0 = a², k1 = b, k2 = 1/a², k3 = 2b: r = x₂ − b(x₁² − a²),
+    // g₀ = x₁/a² − 2b·x₁·r, g₁ = r, g_i = x_i
+    const float x1 = x[0];
+    const float r = R::sub(x[1], R::mul(a.k1, R::sub(R::mul(x1, x1), a.k0)));
+    g[0] = R::sub(R::mul(x1, a.k2), R::mul(R::mul(a.k3, x1), r));
+    g[1] = r;
+#pragma unroll
+    for (int i = 2; i < D; ++i) g[i] = x[i];
+  } else if constexpr (E == kMog) {
+    // g = x·Σ_k c_k − Σ_k c_k μ_k, c_k = r_k/σ_k² from the max-shifted exps
+    float lg[kMogMaxComponents], c[kMogMaxComponents];
+    const int K = mog_logits<D, R>(x, lg, a);
+    const float* cst = a.params + K * D;
+    float m = lg[0];
+#pragma unroll
+    for (int k = 1; k < kMogMaxComponents; ++k)
+      if (k < K) m = nan_max(m, lg[k]);
+    float tot = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMogMaxComponents; ++k) {
+      if (k >= K) break;
+      c[k] = expf(R::sub(lg[k], m));
+      tot = k == 0 ? c[0] : R::add(tot, c[k]);
+    }
+    const float inv_tot = R::div(1.f, tot);
+    float sum_c = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMogMaxComponents; ++k) {
+      if (k >= K) break;
+      c[k] = R::mul(R::mul(c[k], inv_tot), __ldg(cst + 2 * K + k));
+      sum_c = k == 0 ? c[0] : R::add(sum_c, c[k]);
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      float row = 0.f;
+      bool any = false;
+#pragma unroll
+      for (int k = 0; k < kMogMaxComponents; ++k) {
+        if (k >= K) break;
+        const float mu = __ldg(a.params + k * D + i);
+        if (mu != 0.f) {
+          const float t = R::mul(c[k], mu);
+          row = any ? R::add(row, t) : t;
+          any = true;
+        }
+      }
+      const float gi = R::mul(x[i], sum_c);
+      g[i] = any ? R::sub(gi, row) : gi;
+    }
+  } else if constexpr (E == kEightSchoolsCentered) {
+    // k0 = 1/m₀², k1 = 1/s₀², k2 = K; p = y, q = 1/σ²; dth_j = θ_j − μ
+    const float mu = x[0], l = x[1], e2 = expf(R::mul(-2.f, l));
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 2; i < D; ++i) {
+      const float dth = R::sub(x[i], mu);
+      s1 = R::add(s1, dth);
+      s2 = R::add(s2, R::mul(dth, dth));
+      g[i] = R::add(R::mul(e2, dth), R::mul(R::sub(x[i], P.p[i]), P.q[i]));
+    }
+    g[0] = R::sub(R::mul(mu, a.k0), R::mul(e2, s1));
+    g[1] = R::sub(R::add(R::mul(l, a.k1), a.k2), R::mul(e2, s2));
+  } else {  // kEightSchoolsNoncentered: θ_j = μ + e^ℓ z_j, ri_j = (θ_j − y_j)/σ_j²
+    const float mu = x[0], l = x[1], e = expf(l);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 2; i < D; ++i) {
+      const float ri = R::mul(R::sub(R::add(mu, R::mul(e, x[i])), P.p[i]), P.q[i]);
+      s1 = R::add(s1, ri);
+      s2 = R::add(s2, R::mul(x[i], ri));
+      g[i] = R::add(x[i], R::mul(e, ri));
+    }
+    g[0] = R::add(R::mul(mu, a.k0), s1);
+    g[1] = R::add(R::mul(l, a.k1), R::mul(e, s2));
+  }
+}
+
+// U(x), in the plain spec's expressions and order
+template <int E, int D, class R = Fused>
+__device__ __forceinline__ float u_sum(const float (&x)[D], const Params<E, D>& P,
+                                       const Args& a) {
+  if constexpr (E == kRoughWell || E == kGaussian) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const float xx = R::mul(x[i], x[i]);
+      s = R::add(s, E == kRoughWell
+                        ? R::add(R::mul(xx, a.k3), R::mul(a.k4, cosf(R::mul(x[i], a.k1))))
+                        : R::mul(xx, P.p[i]));
+    }
+    return E == kRoughWell ? s : R::mul(0.5f, s);
+  } else if constexpr (E == kFunnel) {
+    const float v = x[0];
+    float z2 = 0.f;
+#pragma unroll
+    for (int i = 1; i < D; ++i) z2 = R::add(z2, R::mul(x[i], x[i]));
+    return R::add(R::add(R::mul(R::mul(R::mul(0.5f, v), v), a.k0), R::mul(a.k1, v)),
+                  R::mul(R::mul(0.5f, expf(-v)), z2));
+  } else if constexpr (E == kBanana) {
+    const float x1 = x[0];
+    const float r = R::sub(x[1], R::mul(a.k1, R::sub(R::mul(x1, x1), a.k0)));
+    float tail = 0.f;
+#pragma unroll
+    for (int i = 2; i < D; ++i) tail = R::add(tail, R::mul(x[i], x[i]));
+    return R::add(R::add(R::mul(R::mul(R::mul(0.5f, x1), x1), a.k2), R::mul(R::mul(0.5f, r), r)),
+                  R::mul(0.5f, tail));
+  } else if constexpr (E == kMog) {
+    // −(m + log Σ_k e^{lg_k − m})
+    float lg[kMogMaxComponents];
+    const int K = mog_logits<D, R>(x, lg, a);
+    float m = lg[0];
+#pragma unroll
+    for (int k = 1; k < kMogMaxComponents; ++k)
+      if (k < K) m = nan_max(m, lg[k]);
+    float tot = expf(R::sub(lg[0], m));
+#pragma unroll
+    for (int k = 1; k < kMogMaxComponents; ++k)
+      if (k < K) tot = R::add(tot, expf(R::sub(lg[k], m)));
+    return -R::add(m, logf(tot));
+  } else {  // eight schools
+    const float mu = x[0], l = x[1];
+    const float prior = R::add(R::mul(R::mul(R::mul(0.5f, mu), mu), a.k0),
+                               R::mul(R::mul(R::mul(0.5f, l), l), a.k1));
+    float s2 = 0.f, s3 = 0.f;
+    if constexpr (E == kEightSchoolsCentered) {
+#pragma unroll
+      for (int i = 2; i < D; ++i) {
+        const float dth = R::sub(x[i], mu), r = R::sub(x[i], P.p[i]);
+        s2 = R::add(s2, R::mul(dth, dth));
+        s3 = R::add(s3, R::mul(R::mul(r, r), P.q[i]));
+      }
+      return R::add(R::add(R::add(prior, R::mul(a.k2, l)),
+                           R::mul(R::mul(0.5f, expf(R::mul(-2.f, l))), s2)),
+                    R::mul(0.5f, s3));
+    } else {
+      const float e = expf(l);
+#pragma unroll
+      for (int i = 2; i < D; ++i) {
+        const float r = R::sub(R::add(mu, R::mul(e, x[i])), P.p[i]);
+        s2 = R::add(s2, R::mul(x[i], x[i]));
+        s3 = R::add(s3, R::mul(R::mul(r, r), P.q[i]));
+      }
+      return R::add(R::add(prior, R::mul(0.5f, s2)), R::mul(0.5f, s3));
+    }
+  }
 }
 
 // ½ Σ (v·v)·M^-1, summed over dims in order
@@ -147,41 +378,65 @@ __device__ __forceinline__ float halfsq(const float (&v)[D], const float* mass) 
   return R::mul(0.5f, s);
 }
 
-// One kick-drift-force-kick stage on dim i: v −= c_open·g (if OPEN),
-// x += c_drift·M^-1·v, g = ∇U(x), v −= c_close·g. The leapfrog step is
-// stage<true>(eps/2, eps, eps/2); the two-stage step is stage<true>(b eps,
-// eps/2, (1-2b) eps) then stage<false>(-, eps/2, b eps).
+// One kick-drift-force-kick stage on dim i of a separable energy: v −=
+// c_open·g (if OPEN), x += c_drift·M^-1·v, g = du(x), v −= c_close·g.
 template <int E, bool OPEN>
-__device__ __forceinline__ void stage(float& x, float& v, float& g, float p, float im,
-                                      float c_open, float c_drift, float c_close,
-                                      const Args& a) {
+__device__ __forceinline__ void stage1(float& x, float& v, float& g, float p, float im,
+                                       float c_open, float c_drift, float c_close,
+                                       const Args& a) {
   const float vh = OPEN ? v - c_open * g : v;
   x = x + c_drift * (im * vh);
   g = du<E>(x, p, a);
   v = vh - c_close * g;
 }
 
-// M integrator steps of one trajectory (the energies are separable, so the
-// dims run one after another inside each step)
+// The same stage on the whole state: the kick and the drift of every dim,
+// g = ∇U(x), the closing kick of every dim (separable energies: dim by dim).
+// The leapfrog step is stage<true>(eps/2, eps, eps/2); the two-stage step
+// is stage<true>(b eps, eps/2, (1-2b) eps) then stage<false>(-, eps/2, b eps).
+template <int E, int D, bool OPEN>
+__device__ __forceinline__ void stage(float (&x)[D], float (&v)[D], float (&g)[D],
+                                      const Params<E, D>& P, const float* mass, float c_open,
+                                      float c_drift, float c_close, const Args& a) {
+  if constexpr (kSeparable<E>) {
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+      stage1<E, OPEN>(x[i], v[i], g[i], P.p[i], inv_mass(mass, i), c_open, c_drift, c_close, a);
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      if (OPEN) v[i] = v[i] - c_open * g[i];
+      x[i] = x[i] + c_drift * (inv_mass(mass, i) * v[i]);
+    }
+    grad<E, D>(x, g, P, a);
+#pragma unroll
+    for (int i = 0; i < D; ++i) v[i] = v[i] - c_close * g[i];
+  }
+}
+
+// M integrator steps of one trajectory
 template <int D, int E>
 __device__ __forceinline__ void integrate(float (&x)[D], float (&v)[D], float (&g)[D],
-                                          const float (&p)[D], const Args& a,
+                                          const Params<E, D>& P, const Args& a,
                                           const float* mass, bool two_stage) {
   const float eps = a.eps, he = 0.5f * a.eps;
   if (two_stage) {
     const float cb = kTwoStageB * eps, cm = kTwoStageMid * eps;
-    for (int k = 0; k < a.m; ++k)
+    for (int k = 0; k < a.m; ++k) {
+      if constexpr (kSeparable<E>) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) {
-        const float im = inv_mass(mass, i);
-        stage<E, true>(x[i], v[i], g[i], p[i], im, cb, he, cm, a);
-        stage<E, false>(x[i], v[i], g[i], p[i], im, 0.f, he, cb, a);
+        for (int i = 0; i < D; ++i) {
+          const float im = inv_mass(mass, i);
+          stage1<E, true>(x[i], v[i], g[i], P.p[i], im, cb, he, cm, a);
+          stage1<E, false>(x[i], v[i], g[i], P.p[i], im, 0.f, he, cb, a);
+        }
+      } else {
+        stage<E, D, true>(x, v, g, P, mass, cb, he, cm, a);
+        stage<E, D, false>(x, v, g, P, mass, 0.f, he, cb, a);
       }
+    }
   } else {
-    for (int k = 0; k < a.m; ++k)
-#pragma unroll
-      for (int i = 0; i < D; ++i)
-        stage<E, true>(x[i], v[i], g[i], p[i], inv_mass(mass, i), he, eps, he, a);
+    for (int k = 0; k < a.m; ++k) stage<E, D, true>(x, v, g, P, mass, he, eps, he, a);
   }
 }
 
@@ -237,10 +492,10 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
   const float* mass = BR ? a.mass : nullptr;
   const bool two_stage = BR && a.two_stage;
 
-  float p[D], x[D], v[D], g[D];
+  const Params<E, D> P(a);
+  float x[D], v[D], g[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    p[i] = E == kGaussian ? a.params[i] : 0.f;
     x[i] = a.x[i * n + c];
     v[i] = a.v[i * n + c];
     g[i] = a.g[i * n + c];
@@ -261,7 +516,7 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
     const float h_cur = u + halfsq<D>(v, mass);
 
     // forward from (x, v) and backward from (x, -v), M steps each; the
-    // leapfrog interleaves the two per dim
+    // leapfrog takes a step of each in turn (separable energies: per dim)
     float xf[D], vf[D], gf[D], xb[D], vb[D], gb[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
@@ -271,21 +526,26 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
       gf[i] = gb[i] = g[i];
     }
     if (two_stage) {
-      integrate<D, E>(xf, vf, gf, p, a, mass, true);
-      integrate<D, E>(xb, vb, gb, p, a, mass, true);
+      integrate<D, E>(xf, vf, gf, P, a, mass, true);
+      integrate<D, E>(xb, vb, gb, P, a, mass, true);
     } else {
       for (int k = 0; k < a.m; ++k) {
+        if constexpr (kSeparable<E>) {
 #pragma unroll
-        for (int i = 0; i < D; ++i) {
-          const float im = inv_mass(mass, i);
-          stage<E, true>(xf[i], vf[i], gf[i], p[i], im, he, eps, he, a);
-          stage<E, true>(xb[i], vb[i], gb[i], p[i], im, he, eps, he, a);
+          for (int i = 0; i < D; ++i) {
+            const float im = inv_mass(mass, i);
+            stage1<E, true>(xf[i], vf[i], gf[i], P.p[i], im, he, eps, he, a);
+            stage1<E, true>(xb[i], vb[i], gb[i], P.p[i], im, he, eps, he, a);
+          }
+        } else {
+          stage<E, D, true>(xf, vf, gf, P, mass, he, eps, he, a);
+          stage<E, D, true>(xb, vb, gb, P, mass, he, eps, he, a);
         }
       }
     }
-    const float uf = u_sum<E, D>(xf, p, a);
+    const float uf = u_sum<E, D>(xf, P, a);
     const float h_l = uf + halfsq<D>(vf, mass);
-    const float h_b = valid > 0.5f ? h_back : u_sum<E, D>(xb, p, a) + halfsq<D>(vb, mass);
+    const float h_b = valid > 0.5f ? h_back : u_sum<E, D>(xb, P, a) + halfsq<D>(vb, mass);
 
     const float log_gl = log_rate(h_l, h_cur);
     const float log_glf = log_rate(h_b, h_cur);
@@ -446,10 +706,10 @@ __global__ void __launch_bounds__(kThreads) nuts_kernel(Args a) {
   const int max_depth = a.m;
   const float* mass = MASS ? a.mass : nullptr;
 
-  float p[D], x[D], v0[D], g[D];
+  const Params<E, D> P(a);
+  float x[D], v0[D], g[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    p[i] = E == kGaussian ? a.params[i] : 0.f;
     x[i] = a.x[i * n + c];
     v0[i] = a.v[i * n + c];
     g[i] = a.g[i * n + c];
@@ -513,14 +773,26 @@ __global__ void __launch_bounds__(kThreads) nuts_kernel(Args a) {
       const uint32_t k0 = leaves - 1;  // tree position of the round's first leaf
       uint4 bits;
       for (int i = 0; i < leaves && !stop; ++i) {
+        if constexpr (kSeparable<E>) {  // the leaf's leapfrog step, dim by dim
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          const float vh = Rn::sub(vc[d], Rn::mul(he, gc[d]));
-          xc[d] = Rn::add(xc[d], Rn::mul(eps, mass_mul<Rn>(vh, mass, d)));
-          gc[d] = du<E, Rn>(xc[d], p[d], a);
-          vc[d] = Rn::sub(vh, Rn::mul(he, gc[d]));
+          for (int d = 0; d < D; ++d) {
+            const float vh = Rn::sub(vc[d], Rn::mul(he, gc[d]));
+            xc[d] = Rn::add(xc[d], Rn::mul(eps, mass_mul<Rn>(vh, mass, d)));
+            gc[d] = du<E, Rn>(xc[d], P.p[d], a);
+            vc[d] = Rn::sub(vh, Rn::mul(he, gc[d]));
+          }
+        } else {  // or as a vector step
+          float vh[D];
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            vh[d] = Rn::sub(vc[d], Rn::mul(he, gc[d]));
+            xc[d] = Rn::add(xc[d], Rn::mul(eps, mass_mul<Rn>(vh[d], mass, d)));
+          }
+          grad<E, D, Rn>(xc, gc, P, a);
+#pragma unroll
+          for (int d = 0; d < D; ++d) vc[d] = Rn::sub(vh[d], Rn::mul(he, gc[d]));
         }
-        const float ul = u_sum<E, D, Rn>(xc, p, a);
+        const float ul = u_sum<E, D, Rn>(xc, P, a);
         ++nl;
         const float h = Rn::add(ul, halfsq<D, Rn>(vc, mass));
         const float dh = Rn::sub(h, h0);
@@ -662,10 +934,10 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
   if (c >= a.n) return;
   const size_t n = a.n;
 
-  float p[D], x[D], v[D], g[D];
+  const Params<E, D> P(a);
+  float x[D], v[D], g[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    p[i] = E == kGaussian ? a.params[i] : 0.f;
     x[i] = a.x[i * n + c];
     v[i] = a.v[i * n + c];
     g[i] = a.g[i * n + c];
@@ -693,8 +965,8 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
     float xf[D], vf[D], gf[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) xf[i] = x[i], vf[i] = v[i], gf[i] = g[i];
-    integrate<D, E>(xf, vf, gf, p, a, a.mass, a.two_stage);
-    const float uf = u_sum<E, D>(xf, p, a);
+    integrate<D, E>(xf, vf, gf, P, a, a.mass, a.two_stage);
+    const float uf = u_sum<E, D>(xf, P, a);
     const float h_l = uf + halfsq<D>(vf, a.mass);
 
     const bool ok = fabsf(h_l) < 1e30f && h_l == h_l;  // divergence rejects
@@ -748,10 +1020,10 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
 
   // v holds the fresh momentum v0 during an iteration and the kept
   // momentum (vl on accept, -v0 on reject) after it
-  float p[D], x[D], v[D], g[D];
+  const Params<E, D> P(a);
+  float x[D], v[D], g[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    p[i] = E == kGaussian ? a.params[i] : 0.f;
     x[i] = a.x[i * n + c];
     v[i] = a.v[i * n + c];
     g[i] = a.g[i * n + c];
@@ -782,10 +1054,8 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < D; ++i) vl[i] = eta * vl[i] + sig * z[i];
       const float h_in = ul + halfsq<D>(vl, a.mass);
-#pragma unroll
-      for (int i = 0; i < D; ++i)  // BAB
-        stage<E, true>(xl[i], vl[i], gl[i], p[i], inv_mass(a.mass, i), he, eps, he, a);
-      ul = u_sum<E, D>(xl, p, a);
+      stage<E, D, true>(xl, vl, gl, P, a.mass, he, eps, he, a);  // BAB
+      ul = u_sum<E, D>(xl, P, a);
       delta = delta + (ul + halfsq<D>(vl, a.mass) - h_in);
       draw_normals<D>(z, a, c, t, (2 * k + 1) * kBlocks, kTagMaltNoise, key);  // O
 #pragma unroll
@@ -860,8 +1130,8 @@ cudaError_t launch_instance(const Args& a, bool emit, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The D=50 instances, each compiled in the source named beside it (an
-// instance declared here and compiled nowhere fails the build's link)
+// The D=50 and zoo instances, each compiled in the source named beside it
+// (an instance declared here and compiled nowhere fails the build's link)
 using Launch = cudaError_t(const Args&, bool, cudaStream_t);
 // mjhmc_engine_d50.cu
 extern template Launch launch_instance<kMjhmc, 50, kRoughWell, false>;
@@ -881,5 +1151,41 @@ extern template Launch launch_instance<kControl, 50, kRoughWell, true>;
 extern template Launch launch_instance<kControl, 50, kGaussian, true>;
 extern template Launch launch_instance<kMalt, 50, kRoughWell, true>;
 extern template Launch launch_instance<kMalt, 50, kGaussian, true>;
+// zoo_engine_funnel.cu (the funnel preset's D)
+extern template Launch launch_instance<kMjhmc, 10, kFunnel, false>;
+extern template Launch launch_instance<kMjhmc, 10, kFunnel, true>;
+extern template Launch launch_instance<kControl, 10, kFunnel, true>;
+extern template Launch launch_instance<kMalt, 10, kFunnel, true>;
+// zoo_nuts_funnel.cu
+extern template Launch launch_instance<kNuts, 10, kFunnel, false>;
+extern template Launch launch_instance<kNuts, 10, kFunnel, true>;
+// zoo_engine_banana_mog.cu (the banana and mog presets' D)
+extern template Launch launch_instance<kMjhmc, 2, kBanana, false>;
+extern template Launch launch_instance<kMjhmc, 2, kBanana, true>;
+extern template Launch launch_instance<kNuts, 2, kBanana, false>;
+extern template Launch launch_instance<kNuts, 2, kBanana, true>;
+extern template Launch launch_instance<kControl, 2, kBanana, true>;
+extern template Launch launch_instance<kMalt, 2, kBanana, true>;
+extern template Launch launch_instance<kMjhmc, 1, kMog, false>;
+extern template Launch launch_instance<kMjhmc, 1, kMog, true>;
+extern template Launch launch_instance<kNuts, 1, kMog, false>;
+extern template Launch launch_instance<kNuts, 1, kMog, true>;
+extern template Launch launch_instance<kControl, 1, kMog, true>;
+extern template Launch launch_instance<kMalt, 1, kMog, true>;
+// zoo_engine_eight_schools.cu (the eight_schools preset's D)
+extern template Launch launch_instance<kMjhmc, 10, kEightSchoolsCentered, false>;
+extern template Launch launch_instance<kMjhmc, 10, kEightSchoolsCentered, true>;
+extern template Launch launch_instance<kControl, 10, kEightSchoolsCentered, true>;
+extern template Launch launch_instance<kMalt, 10, kEightSchoolsCentered, true>;
+extern template Launch launch_instance<kMjhmc, 10, kEightSchoolsNoncentered, false>;
+extern template Launch launch_instance<kMjhmc, 10, kEightSchoolsNoncentered, true>;
+extern template Launch launch_instance<kControl, 10, kEightSchoolsNoncentered, true>;
+extern template Launch launch_instance<kMalt, 10, kEightSchoolsNoncentered, true>;
+// zoo_nuts_eight_schools.cu
+extern template Launch launch_instance<kNuts, 10, kEightSchoolsCentered, false>;
+extern template Launch launch_instance<kNuts, 10, kEightSchoolsCentered, true>;
+// zoo_nuts_eight_schools_noncentered.cu
+extern template Launch launch_instance<kNuts, 10, kEightSchoolsNoncentered, false>;
+extern template Launch launch_instance<kNuts, 10, kEightSchoolsNoncentered, true>;
 
 }  // namespace mjhmc

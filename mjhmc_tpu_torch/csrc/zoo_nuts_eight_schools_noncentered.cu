@@ -1,0 +1,11 @@
+// The non-centered eight-schools instances (D=10) of the NUTS body
+// (nuts::nuts_kernel in mjhmc_engine.cuh), with and without a mass, compiled
+// by their own nvcc.
+#include "mjhmc_engine.cuh"
+
+namespace mjhmc {
+
+template Launch launch_instance<kNuts, 10, kEightSchoolsNoncentered, false>;
+template Launch launch_instance<kNuts, 10, kEightSchoolsNoncentered, true>;
+
+}  // namespace mjhmc

@@ -1,0 +1,10 @@
+// The funnel instances (D=10) of the NUTS body (nuts::nuts_kernel in
+// mjhmc_engine.cuh), with and without a mass, compiled by their own nvcc.
+#include "mjhmc_engine.cuh"
+
+namespace mjhmc {
+
+template Launch launch_instance<kNuts, 10, kFunnel, false>;
+template Launch launch_instance<kNuts, 10, kFunnel, true>;
+
+}  // namespace mjhmc

@@ -131,11 +131,7 @@ def register(name: str):
 def get_distribution(name: str, **kwargs) -> Distribution:
     """Instantiate a registered distribution by name."""
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"distribution {name!r} is not ported yet: the zoo models (funnel, "
-            "banana, mog, eight_schools) come with slice L "
-            "(ROADMAP.md, 'Modules to port')"
-        )
+        raise KeyError(f"no distribution named {name!r}; registered: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)
 
 

@@ -26,7 +26,8 @@ others: post-transition with weight 1) and cumulative evals.
 
 There are two hand-written CUDA C++ kernels, built by ``ops._build``:
 ``csrc/mjhmc_engine.cuh`` for the elementwise energies (rough well,
-Gaussian; one thread per chain; C entry ``csrc/mjhmc_engine.cu``) and
+Gaussian, funnel, banana, Gaussian mixture, eight schools in both
+parameterizations; one thread per chain; C entry ``csrc/mjhmc_engine.cu``) and
 ``csrc/mjhmc_mm_engine.cuh`` for the matmul energies (product of t, sparse
 coding, logistic regression; tiles of chains per block, the parameter
 matrix in shared memory; C entry ``csrc/mjhmc_mm_engine.cu``). Beside them this module holds
@@ -60,9 +61,13 @@ from typing import ClassVar, NamedTuple
 import numpy as np
 import torch
 
+from mjhmc_tpu_torch.models.banana import Banana
 from mjhmc_tpu_torch.models.base import randn
+from mjhmc_tpu_torch.models.eight_schools import EightSchools
+from mjhmc_tpu_torch.models.funnel import Funnel
 from mjhmc_tpu_torch.models.gaussian import Gaussian
 from mjhmc_tpu_torch.models.logreg import LogisticRegression
+from mjhmc_tpu_torch.models.mog import GaussianMixture
 from mjhmc_tpu_torch.models.product_of_t import ProductOfT
 from mjhmc_tpu_torch.models.rough_well import RoughWell
 from mjhmc_tpu_torch.models.sparse_coding import SparseCoding
@@ -77,9 +82,6 @@ NEG_INF = -1e30
 #: the uniform every draw takes in fixed-uniform mode (Pallas interpret mode
 #: returns zero bits, and _uniform turns those into 2⁻²⁵)
 FIXED_UNIFORM = 2.0**-25
-#: state dimensions the elementwise kernel is instantiated for
-#: (csrc/mjhmc_engine.cu and the *_d50.cu sources)
-KERNEL_DIMS = (2, 50)
 #: deepest tree the NUTS kernel holds a U-turn stack for (csrc/mjhmc_engine.cuh)
 NUTS_MAX_DEPTH = 10
 NUTS_DIV_THRESHOLD = 1000.0
@@ -157,6 +159,243 @@ class GaussianSpec:
 
     def u_sum(self, x, params):
         return 0.5 * _sum_dims_in_order(x * x * params)
+
+
+# The zoo energies couple their dims, so the kernel computes the whole
+# gradient at once. The per-row special cases are masks over the row index,
+# as in the JAX specs, and every sum over dims runs in the kernel's order.
+def _row(x: Tensor) -> Tensor:
+    """(d, 1) row indices, broadcasting against (..., d, n)."""
+    return torch.arange(x.shape[-2], device=x.device)[:, None]
+
+
+@dataclasses.dataclass(frozen=True)
+class FunnelSpec:
+    """Neal's funnel: row 0 is the log-scale v, rows 1.. are N(0, eᵛ)."""
+
+    ndims: int
+    sigma_v: float
+    energy_id: ClassVar[int] = 2
+
+    def constants(self) -> tuple:
+        """(1/σ_v², ½(d−1)): the kernel's k0, k1."""
+        return (1.0 / self.sigma_v**2, 0.5 * (self.ndims - 1), 0.0, 0.0, 0.0)
+
+    def param_vector(self, ndims: int) -> np.ndarray:
+        return np.ones((ndims,), np.float32)
+
+    def _z2(self, x):
+        # a masked sum, not Σx² − v²: that cancellation is amplified by e⁻ᵛ
+        tail = torch.where(_row(x) == 0, 0.0, x)
+        return _sum_dims_in_order(tail * tail)
+
+    def du(self, x, params):
+        v = x[..., 0, :]
+        e = torch.exp(-v)
+        gv = v * (1.0 / self.sigma_v**2) + 0.5 * (self.ndims - 1) - 0.5 * e * self._z2(x)
+        return torch.where(_row(x) == 0, gv[..., None, :], e[..., None, :] * x)
+
+    def u_sum(self, x, params):
+        v = x[..., 0, :]
+        return (0.5 * v * v * (1.0 / self.sigma_v**2) + 0.5 * (self.ndims - 1) * v
+                + 0.5 * torch.exp(-v) * self._z2(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class BananaSpec:
+    """Haario banana: rows 0 and 1 are the twisted pair, rows ≥ 2 N(0, 1)."""
+
+    ndims: int
+    a: float
+    b: float
+    energy_id: ClassVar[int] = 3
+
+    def constants(self) -> tuple:
+        """(a², b, 1/a², 2b): the kernel's k0..k3."""
+        return (self.a**2, self.b, 1.0 / self.a**2, 2.0 * self.b, 0.0)
+
+    def param_vector(self, ndims: int) -> np.ndarray:
+        return np.ones((ndims,), np.float32)
+
+    def _r(self, x):
+        x1 = x[..., 0, :]
+        return x1, x[..., 1, :] - self.b * (x1 * x1 - self.a**2)
+
+    def du(self, x, params):
+        x1, r = self._r(x)
+        g0 = x1 * (1.0 / self.a**2) - (2.0 * self.b) * x1 * r
+        idx = _row(x)
+        return torch.where(idx == 0, g0[..., None, :], torch.where(idx == 1, r[..., None, :], x))
+
+    def u_sum(self, x, params):
+        x1, r = self._r(x)
+        tail = torch.where(_row(x) < 2, 0.0, x)  # masked, not subtractive
+        return (0.5 * x1 * x1 * (1.0 / self.a**2) + 0.5 * r * r
+                + 0.5 * _sum_dims_in_order(tail * tail))
+
+
+#: most mixture components the elementwise kernel takes (csrc/mjhmc_engine.cuh)
+MOG_MAX_COMPONENTS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class MogSpec:
+    """Isotropic K-component Gaussian mixture, U = −logsumexp of the
+    component logits (max-shifted), with the JAX spec's expanded square
+    ‖x‖² − 2μ·x + ‖μ‖² and its skips of zero means. JAX bakes μ, σ and w
+    into the kernel; here they travel in the params vector."""
+
+    ndims: int
+    means: tuple  # ((d floats),) × K
+    scales: tuple  # (K,)
+    weights: tuple  # (K,) normalised
+    energy_id: ClassVar[int] = 4
+
+    def constants(self) -> tuple:
+        """(K,): the kernel's k0."""
+        return (float(len(self.scales)), 0.0, 0.0, 0.0, 0.0)
+
+    def _component_constants(self) -> list:
+        """Per component (log w − d log σ, ½/σ², 1/σ², ‖μ‖²), as the JAX
+        spec forms them in float64 before they meet the float32 state."""
+        out = []
+        for k, s in enumerate(self.scales):
+            mu = self.means[k]
+            musq = 0.0
+            for i in range(self.ndims):
+                musq += mu[i] * mu[i]
+            out.append((math.log(self.weights[k]) - self.ndims * math.log(float(s)),
+                        0.5 / float(s) ** 2, 1.0 / float(s) ** 2, musq))
+        return out
+
+    def param_vector(self, ndims: int) -> np.ndarray:
+        """μ (K·d, row-major), then the K values of each of the four
+        per-component constants."""
+        consts = np.asarray(self._component_constants(), np.float64).T  # (4, K)
+        return np.concatenate([np.asarray(self.means, np.float64).reshape(-1),
+                               consts.reshape(-1)]).astype(np.float32)
+
+    def _logits(self, x):
+        x2 = _sum_dims_in_order(x * x)
+        logits = []
+        for k, (c, h, _, musq) in enumerate(self._component_constants()):
+            mu = self.means[k]
+            cross = 0.0
+            for i in range(self.ndims):
+                if mu[i] != 0.0:
+                    cross = cross + mu[i] * x[..., i, :]
+            logits.append(c - h * (x2 - 2.0 * cross + musq))
+        return logits
+
+    def du(self, x, params):
+        logits = self._logits(x)
+        m = logits[0]
+        for lg in logits[1:]:
+            m = torch.maximum(m, lg)
+        exps = [torch.exp(lg - m) for lg in logits]
+        tot = exps[0]
+        for e in exps[1:]:
+            tot = tot + e
+        inv_tot = 1.0 / tot
+        # grad = x·Σₖ cₖ − Σₖ cₖ μₖ with cₖ = rₖ/σₖ²
+        cs = [(e * inv_tot) * iv for e, (_, _, iv, _) in zip(exps, self._component_constants())]
+        a = cs[0]
+        for c in cs[1:]:
+            a = a + c
+        g = x * a[..., None, :]
+        idx = _row(x)
+        for i in range(self.ndims):
+            row = None
+            for k, c in enumerate(cs):
+                if self.means[k][i] != 0.0:
+                    t = c * self.means[k][i]
+                    row = t if row is None else row + t
+            if row is not None:
+                g = g - torch.where(idx == i, row[..., None, :], 0.0)
+        return g
+
+    def u_sum(self, x, params):
+        logits = self._logits(x)
+        m = logits[0]
+        for lg in logits[1:]:
+            m = torch.maximum(m, lg)
+        tot = torch.exp(logits[0] - m)
+        for lg in logits[1:]:
+            tot = tot + torch.exp(lg - m)
+        return -(m + torch.log(tot))
+
+
+@dataclasses.dataclass(frozen=True)
+class EightSchoolsSpec:
+    """Eight schools: row 0 μ, row 1 ℓ = log τ, rows 2.. the group rows.
+    The per-school data (yⱼ, 1/σⱼ²) ship as two rows of the params vector
+    (2d entries, zero on rows 0 and 1). The two parameterizations are two
+    energies of the kernel."""
+
+    ndims: int
+    mu_scale: float
+    log_tau_scale: float
+    y: tuple
+    inv_sig2: tuple
+    centered: bool = True
+
+    @property
+    def energy_id(self) -> int:
+        return 5 if self.centered else 6
+
+    def constants(self) -> tuple:
+        """(1/m₀², 1/s₀², K): the kernel's k0..k2."""
+        return (1.0 / self.mu_scale**2, 1.0 / self.log_tau_scale**2,
+                float(self.ndims - 2), 0.0, 0.0)
+
+    def param_vector(self, ndims: int) -> np.ndarray:
+        y_row = np.zeros((ndims,), np.float32)
+        i_row = np.zeros((ndims,), np.float32)
+        y_row[2:] = np.asarray(self.y, np.float32)
+        i_row[2:] = np.asarray(self.inv_sig2, np.float32)
+        return np.concatenate([y_row, i_row])
+
+    def _split(self, x, params):
+        d = self.ndims
+        idx = _row(x)
+        return x[..., 0, :], x[..., 1, :], idx, idx >= 2, params[:d], params[d:]
+
+    def _prior(self, mu, l):
+        return (0.5 * mu * mu * (1.0 / self.mu_scale**2)
+                + 0.5 * l * l * (1.0 / self.log_tau_scale**2))
+
+    def du(self, x, params):
+        mu, l, idx, th, yv, is2 = self._split(x, params)
+        k = self.ndims - 2
+        if self.centered:
+            e2 = torch.exp(-2.0 * l)
+            dth = torch.where(th, x - mu[..., None, :], 0.0)
+            gmu = mu * (1.0 / self.mu_scale**2) - e2 * _sum_dims_in_order(dth)
+            gl = (l * (1.0 / self.log_tau_scale**2) + k
+                  - e2 * _sum_dims_in_order(dth * dth))
+            gth = e2[..., None, :] * dth + torch.where(th, (x - yv) * is2, 0.0)
+        else:
+            e = torch.exp(l)
+            ri = torch.where(th, (mu[..., None, :] + e[..., None, :] * x - yv) * is2, 0.0)
+            gmu = mu * (1.0 / self.mu_scale**2) + _sum_dims_in_order(ri)
+            gl = l * (1.0 / self.log_tau_scale**2) + e * _sum_dims_in_order(x * ri)
+            gth = torch.where(th, x, 0.0) + e[..., None, :] * ri
+        return torch.where(idx == 0, gmu[..., None, :],
+                           torch.where(idx == 1, gl[..., None, :], gth))
+
+    def u_sum(self, x, params):
+        mu, l, idx, th, yv, is2 = self._split(x, params)
+        if self.centered:
+            dth = torch.where(th, x - mu[..., None, :], 0.0)
+            r = torch.where(th, x - yv, 0.0)
+            return (self._prior(mu, l) + (self.ndims - 2) * l
+                    + 0.5 * torch.exp(-2.0 * l) * _sum_dims_in_order(dth * dth)
+                    + 0.5 * _sum_dims_in_order(r * r * is2))
+        e = torch.exp(l)
+        r = torch.where(th, mu[..., None, :] + e[..., None, :] * x - yv, 0.0)
+        z = torch.where(th, x, 0.0)
+        return (self._prior(mu, l) + 0.5 * _sum_dims_in_order(z * z)
+                + 0.5 * _sum_dims_in_order(r * r * is2))
 
 
 # matmul energies: the state is (..., d, n) and the parameters are whole
@@ -273,19 +512,25 @@ class LogregSpec:
         return sp.sum(dim=-2) + (0.5 / self.dist.prior_scale**2) * (th * th).sum(dim=-2)
 
 
-ELEMENTWISE_SPECS = (RoughWellSpec, GaussianSpec)
+ELEMENTWISE_SPECS = (RoughWellSpec, GaussianSpec, FunnelSpec, BananaSpec, MogSpec,
+                     EightSchoolsSpec)
 MATMUL_SPECS = (ProductOfTSpec, SparseCodingSpec, LogregSpec)
+#: state dimensions the elementwise kernel is instantiated for, per spec
+#: (csrc/mjhmc_engine.cu and the *_d50*.cu and zoo_*.cu sources): the
+#: presets' D
+KERNEL_DIMS = {RoughWellSpec: (2, 50), GaussianSpec: (2, 50), FunnelSpec: (10,),
+               BananaSpec: (2,), MogSpec: (1,), EightSchoolsSpec: (10,)}
 #: (ndims, aux rows) the matmul kernel is instantiated for, per spec
 #: (csrc/mjhmc_mm_engine.cu, mm_engine_sparse_coding.cu, mm_engine_logreg.cu):
 #: the product_of_t, sparse_coding and logreg presets
 MM_KERNEL_SHAPES = {ProductOfTSpec: (36, 36), SparseCodingSpec: (128, 64),
                     LogregSpec: (16, 256)}
 
-_UNPORTED_ENERGIES = (
-    "the engine has the rough_well, gaussian, product_of_t, sparse_coding and "
-    "logreg energies; the Funnel, Banana, Mog and EightSchools specs "
-    "(elementwise kernel) are not ported yet (ROADMAP.md, 'TPU kernels to "
-    "port', slice L)"
+_FUSED_ENERGIES = (
+    "the engines have the rough_well, gaussian, funnel, banana, mog and "
+    "eight_schools energies (elementwise kernel) and the product_of_t, "
+    "sparse_coding and logreg energies (matmul kernel); other distributions "
+    "run on the plain samplers (mjhmc_tpu_torch.samplers)"
 )
 
 
@@ -294,6 +539,18 @@ def energy_spec_for(dist):
         return RoughWellSpec(dist.scale1, dist.scale2, dist.amplitude)
     if isinstance(dist, Gaussian):
         return GaussianSpec(tuple(float(v) for v in 1.0 / dist.variances))
+    if isinstance(dist, Funnel):
+        return FunnelSpec(dist.ndims, dist.sigma_v)
+    if isinstance(dist, Banana):
+        return BananaSpec(dist.ndims, dist.a, dist.b)
+    if isinstance(dist, GaussianMixture):
+        return MogSpec(dist.ndims, tuple(tuple(float(m) for m in row) for row in dist._mu),
+                       tuple(float(s) for s in dist._sigma), tuple(float(w) for w in dist._w))
+    if isinstance(dist, EightSchools):
+        return EightSchoolsSpec(dist.ndims, dist.mu_scale, dist.log_tau_scale,
+                                tuple(float(v) for v in dist.y),
+                                tuple(1.0 / float(s) ** 2 for s in dist.sigma),
+                                centered=dist.parameterization == "centered")
     if isinstance(dist, ProductOfT):
         return ProductOfTSpec(dist)
     if isinstance(dist, SparseCoding):
@@ -301,8 +558,24 @@ def energy_spec_for(dist):
     if isinstance(dist, LogisticRegression):
         return LogregSpec(dist)
     raise NotImplementedError(
-        f"no fused CUDA energy for {type(dist).__name__}: {_UNPORTED_ENERGIES}"
+        f"no fused CUDA energy for {type(dist).__name__}: {_FUSED_ENERGIES}"
     )
+
+
+def check_kernel_dims(spec, ndims: int) -> None:
+    """Refuse an elementwise spec at a D the kernel has no instance for
+    (``KERNEL_DIMS``), or a mixture with more components than it holds."""
+    dims = KERNEL_DIMS[type(spec)]
+    if ndims not in dims:
+        raise NotImplementedError(
+            f"the elementwise kernel is instantiated for {type(spec).__name__} at "
+            f"ndims in {dims} (cuda_mjhmc.KERNEL_DIMS), not {ndims} (ROADMAP.md, "
+            "'TPU kernels to port': other shapes of the ported kernels)"
+        )
+    if isinstance(spec, MogSpec) and not 1 <= len(spec.scales) <= MOG_MAX_COMPONENTS:
+        raise NotImplementedError(
+            f"the elementwise kernel holds mixtures of 1..{MOG_MAX_COMPONENTS} "
+            f"components, not {len(spec.scales)}")
 
 
 def _check_slice(spec, variant, integrator, inv_mass, kinds):
@@ -318,7 +591,7 @@ def _check_slice(spec, variant, integrator, inv_mass, kinds):
             _MALT_LEAPFROG_ONLY if variant == "malt" else _NUTS_LEAPFROG_ONLY)
     if not isinstance(spec, ELEMENTWISE_SPECS + MATMUL_SPECS):
         raise NotImplementedError(
-            f"no fused CUDA energy for {type(spec).__name__}: {_UNPORTED_ENERGIES}"
+            f"no fused CUDA energy for {type(spec).__name__}: {_FUSED_ENERGIES}"
         )
     if not isinstance(spec, kinds):
         raise ValueError(
@@ -893,12 +1166,8 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                 f"(ndims, aux rows) = {MM_KERNEL_SHAPES[type(spec)]}, not {shape} "
                 "(ROADMAP.md, 'TPU kernels to port', item 5)"
             )
-    elif d not in KERNEL_DIMS:
-        raise NotImplementedError(
-            f"the elementwise kernel is instantiated for ndims in {KERNEL_DIMS}, "
-            f"not {d} (ROADMAP.md, 'TPU kernels to port': other D instances of "
-            "items 1-2)"
-        )
+    else:
+        check_kernel_dims(spec, d)
     if variant == "nuts" and not 1 <= m <= NUTS_MAX_DEPTH:
         raise NotImplementedError(
             f"the NUTS kernel holds trees of max_depth 1..{NUTS_MAX_DEPTH}, not {m}")
@@ -1246,8 +1515,9 @@ class CudaNUTS(CudaMJHMC):
         handed over: NUTS refreshes the momentum every iteration, so a short
         engine burn-in from fresh inits re-equilibrates."""
         gen = torch.Generator().manual_seed(seed)
-        _, eps, inv_mass = nuts_full_warmup(dist, gen, min(nbatch, 1024),
-                                            max_depth=max_depth, device=device,
+        # the warmup runs at nuts_full_warmup's own depth (8), whatever the
+        # engine's, as PallasNUTS.from_warmup's does
+        _, eps, inv_mass = nuts_full_warmup(dist, gen, min(nbatch, 1024), device=device,
                                             **warmup_kwargs)
         return cls(dist, epsilon=eps, num_leapfrog_steps=max_depth, nbatch=nbatch, seed=seed,
                    device=device, inv_mass=tuple(float(v) for v in inv_mass.reshape(-1)))

@@ -11,6 +11,8 @@ tests hold theirs to: a variance-estimated M⁻¹ on gauss2d (variances 1 and
 acceptance near its target.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -135,3 +137,22 @@ def test_from_warmup_builds_tuned_engines():
     torch.testing.assert_close(mj.g, g)
     out = mj.run(5)
     assert int(out.evals.min()) >= 25 and bool(torch.isfinite(out.x).all())
+
+
+def test_nuts_from_warmup_tunes_at_depth_8(monkeypatch):
+    """CudaNUTS.from_warmup runs nuts_full_warmup at its own default depth
+    (8), whatever max_depth the engine takes, as PallasNUTS.from_warmup does;
+    the engine then runs at its max_depth."""
+    seen = {}
+    default = inspect.signature(nuts_full_warmup).parameters["max_depth"].default
+
+    def fake_warmup(dist, gen, nbatch, **kw):
+        seen.update(kw, nbatch=nbatch, depth=kw.get("max_depth", default))
+        return None, 0.3, torch.ones((dist.ndims, 1))
+
+    monkeypatch.setattr(cm, "nuts_full_warmup", fake_warmup)
+    eng = cm.CudaNUTS.from_warmup(Gaussian(**G2), seed=1, nbatch=64, max_depth=4, device="cpu",
+                                  phase1=2)
+    assert seen["depth"] == 8 and "max_depth" not in seen
+    assert seen["phase1"] == 2 and seen["nbatch"] == 64 and seen["device"] == "cpu"
+    assert eng.num_leapfrog_steps == 4 and eng.epsilon == 0.3

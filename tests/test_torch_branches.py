@@ -236,7 +236,10 @@ def test_build_parts_match_the_sources():
     assert "mjhmc_engine.cu" in _build.KERNEL_SOURCES
     header = (_build.CSRC / "mjhmc_engine.cuh").read_text()
     declared = re.findall(r"extern template Launch launch_instance<([^>]+)>;", header)
-    assert len(declared) == 12  # the D=50 instances: 4 MJHMC, 4 NUTS, 2 control, 2 MALT
+    # the D=50 instances (4 MJHMC, 4 NUTS, 2 control, 2 MALT) and the zoo
+    # instances (2 MJHMC, 2 NUTS, control and MALT for each of the five
+    # (energy, D) pairs)
+    assert len(declared) == 12 + 5 * 6
     for inst in declared:
         where = [name for name in _build.KERNEL_SOURCES
                  if f"template Launch launch_instance<{inst}>;" in (_build.CSRC / name).read_text()]

@@ -188,9 +188,9 @@ def test_wrappers_route_cpu_to_plain_version():
     for kw in (dict(variant="hmc"), dict(integrator="yoshida"), dict(inv_mass=(1.0,) * 3)):
         with pytest.raises(ValueError):
             cm.cuda_mjhmc_run(tspec, *ts, 5, EPS, BETA, 7, M, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="no fused CUDA energy"):
         cm.cuda_mjhmc_run(jspec, *ts, 5, EPS, BETA, 7, M)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="plain samplers"):
         cm.CudaMJHMC(_Unported(), device="cpu")
 
 

@@ -97,19 +97,21 @@ def test_init_x_shape_scale_and_generator(name, kw):
 
 
 def test_registry_and_presets():
-    assert set(tmodels.registry()) == {"rough_well", "gaussian", "product_of_t",
-                                       "sparse_coding", "logreg"}
+    """Every JAX model is registered under its JAX name; every preset's
+    distribution hashes alike in both packages; unknown names raise."""
+    from mjhmc_tpu.models import registry as jregistry
+
+    assert set(tmodels.registry()) == set(jregistry())
     assert isinstance(tmodels.get_distribution("rough_well"), tmodels.RoughWell)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.get_distribution("funnel")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        distribution_from_jax(jmodels.Funnel().config_dict())
+    assert isinstance(tmodels.get_distribution("funnel"), tmodels.Funnel)
+    with pytest.raises(KeyError, match="no distribution"):
+        tmodels.get_distribution("nope")
+    with pytest.raises(KeyError, match="no distribution"):
+        distribution_from_jax({"__class__": "Nope"})
     jc, tc = jconfig.BENCHMARK_CONFIGS, tconfig.BENCHMARK_CONFIGS
     assert set(jc) == set(tc)
     for key in jc:
         assert dataclass_values(jc[key]) == dataclass_values(tc[key])
-    for key in ("gauss2d", "gauss50d", "rough_well", "rough_well_a3", "product_of_t",
-                "sparse_coding", "logreg"):
         jd, td = jc[key].make_distribution(), tc[key].make_distribution()
         assert td.stable_hash() == jd.stable_hash()
 
