@@ -13,7 +13,15 @@ control|malt`` and ``--integrator two_stage``, and every sampler on the zoo
 presets ``funnel``, ``banana``, ``mog`` and ``eight_schools``), the
 engines' ``from_warmup`` (also on the funnel) and the roofline dossier
 (``bench_mfu.main`` with its ceiling probes, at a reduced ``--steps``), and
-times the kernels beside their plain versions.
+times the kernels beside their plain versions. The matmul presets run at
+their JAX default dot precisions (product of t and logreg one bf16 pass,
+sparse coding bf16x3, on the tensor cores); the phases that held the
+matmul bodies before those existed (3-4, 12, 15-16, 21) and their timings
+(7, 20, 24) run them at full f32 (``precision="highest"``), and phases
+30-33 hold every bf16 instance against its plain version (its gradient
+and energy at ε = 0, then its dynamics), compare the
+sparse-coding variances across precisions, run the precision sweep
+(``bench_mm_precision``) and time every instance beside its full-f32 twin.
 One line per phase; any failed check raises, so the exit code is non-zero.
 The second to last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -23,12 +31,14 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -63,6 +73,20 @@ MM_ENERGIES = {"product_of_t": "ProductOfTSpec (mjhmc_tpu/ops/pallas_mjhmc.py:37
                "sparse_coding": "SparseCodingSpec (mjhmc_tpu/ops/pallas_mjhmc.py:468)",
                "logreg": "LogregSpec (mjhmc_tpu/ops/pallas_mjhmc.py:519)"}
 MM_NUTS_DEPTH = 8  # max_depth of the matmul NUTS checks and of `sample --sampler nuts`
+#: phase 30's iterations of the MJHMC, control and MALT cases at the bf16
+#: precisions per preset: the most at which one-ulp nudges of x and ε and
+#: another summation order move a few percent of the chains at most in the
+#: plain version alone (product of t's ε=0.2 is unstable along W's stiffest
+#: direction, a one-pass rounding flip grows within an iteration)
+PRECISION_ITERS = {"product_of_t": 1, "sparse_coding": 5, "logreg": 2}
+#: (iterations, M) of the sweep's sparse coding run at one pass, where the
+#: residual's bf16 rounding turns a last-ulp difference into 2⁻⁹: at the
+#: preset's M=10 one iteration moves ~11% of the chains, at M=3 ~2%
+SPARSE_DEFAULT_HELD = (1, 3)
+#: most chains the perturbed plain runs may move in a phase-30 case (but
+#: the deep NUTS trees): a case past it could not tell a wrong kernel
+INFORMATIVE = 0.05
+PRECISION_SRC = "MatmulEnergySpec._dot (mjhmc_tpu/ops/pallas_mjhmc.py:282-375)"
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its operations over the FP32 peak and its bytes (each input read
@@ -71,8 +95,10 @@ MM_NUTS_DEPTH = 8  # max_depth of the matmul NUTS checks and of `sample --sample
 # from the shapes and this run's counters: each multiply, add or fused
 # multiply-add step of the algorithm as written (an FMA as two), each
 # transcendental as one, and a Philox4x32-10 block (four words) as 100
-# integer operations at the same rate. It is a floor, not a model of the
-# kernels' instruction mix.
+# integer operations at the same rate. The matmul kernel's bf16 instances
+# run their contractions on the tensor cores: those FLOPs, times the
+# precision's passes, count at the bf16 peak and the rest at the FP32 peak.
+# It is a floor, not a model of the kernels' instruction mix.
 FP32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
 PHILOX_OPS = 100
 NORMAL_OPS = 6 + PHILOX_OPS / 2  # log, sqrt, cos, three products; two words
@@ -85,6 +111,12 @@ def phase(name: str, msg: str) -> None:
 def check(ok, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def at(spec, precision="highest"):
+    """A matmul spec at another dot precision (the elementwise specs have
+    none), as a user picks one: dataclasses.replace(spec, precision=...)."""
+    return dataclasses.replace(spec, precision=precision) if hasattr(spec, "precision") else spec
 
 
 def assert_close(a, b, rtol, atol, what):
@@ -133,6 +165,48 @@ def ptxas_report(log: str):
     return rows
 
 
+def hmma_counts(_build):
+    """{instance: HMMA instructions in its SASS} of every matmul kernel of
+    the built library, the instance named from its mangled template
+    arguments. The library's cubins are extracted (``cuobjdump -xelf``) and
+    those holding matmul kernels disassembled (``cuobjdump -sass``), one
+    process each, all at once."""
+    import tempfile
+
+    names = ("product_of_t", "sparse_coding", "logreg")
+    bodies = ("mjhmc", "nuts", "control", "malt")
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    out = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        subprocess.run([tool, "-xelf", "all", str(_build.library_path())], cwd=tmp, check=True,
+                       capture_output=True)
+        cubins = [p for p in Path(tmp).glob("*.cubin") if b"mm_kernel" in p.read_bytes()]
+        procs = []
+        for cubin in cubins:
+            with open(cubin.with_suffix(".sass"), "w") as f:
+                procs.append(subprocess.Popen([tool, "-sass", str(cubin)], stdout=f))
+        for cubin, proc in zip(cubins, procs):
+            check(proc.wait() == 0, f"cuobjdump -sass {cubin.name} failed ({proc.returncode})")
+            label = None
+            for ln in cubin.with_suffix(".sass").read_text().splitlines():
+                if "Function : " in ln:
+                    label = None
+                    m = re.search(r"\d+(nuts_mm_kernel|mm_kernel)I((?:L[ib]\d+E)+)E", ln)
+                    if m:
+                        a = [int(v) for v in re.findall(r"L[ib](\d+)E", m.group(2))]
+                        if m.group(1) == "mm_kernel":  # E, D, K, C, T, VAR, EMIT, STUB, BR, P
+                            body, emit, stub, br = bodies[a[5]], a[6], a[7], a[8]
+                        else:  # E, D, K, C, T, EMIT, BR, P
+                            body, emit, stub, br = "nuts", a[5], 0, a[6]
+                        label = (f"{names[a[0]]} {body} {'stream' if emit else 'run'}"
+                                 f"{' stub' if stub else ''}{' branches' if br else ''} "
+                                 f"{('highest', 'bf16x3', 'bf16x2', 'default')[a[-1]]}")
+                        out[label] = 0
+                elif label and "HMMA" in ln:
+                    out[label] += 1
+    return out
+
+
 def run_cli(cli, argv, counters, attr="launches"):
     """Drive ``python -m mjhmc_tpu_torch`` in process with the wrappers'
     launch counters ``attr`` set to 0 just before; returns (record,
@@ -152,7 +226,7 @@ def run_cli(cli, argv, counters, attr="launches"):
 def mm_kernel_checks(cm, cname, cfg, dist, n):
     """Matmul kernel vs its plain version on the card at a preset's shape;
     returns (max |dx| of the run, of the stream)."""
-    spec = cm.energy_spec_for(dist)
+    spec = at(cm.energy_spec_for(dist))
     eps, m = cfg.epsilon, cfg.num_leapfrog_steps
     ts = MM_STATE_ITERS[cname]
     args = (spec, *initial_state(dist, n, seed=1), 7, eps, BETA)
@@ -197,7 +271,7 @@ def mm_kernel_checks(cm, cname, cfg, dist, n):
 
 
 def mm_philox_checks(cm, cname, cfg, dist, n):
-    spec = cm.energy_spec_for(dist)
+    spec = at(cm.energy_spec_for(dist))
     m = cfg.num_leapfrog_steps
     args = (spec, *initial_state(dist, n, seed=2), 12345, cfg.epsilon, BETA)
     kp = cm.cuda_mjhmc_mm_run(*args, 5, m)
@@ -434,7 +508,7 @@ def stub_checks(cm):
     from mjhmc_tpu_torch.models import ProductOfT
 
     pot = ProductOfT()
-    spec = cm.ProductOfTSpec(pot, stub_dots=True)
+    spec = cm.ProductOfTSpec(pot, precision="highest", stub_dots=True)
     args = (spec, *initial_state(pot, 4096, seed=1), 7, 0.12, BETA)
     k = cm.cuda_mjhmc_mm_run(*args, 3, 10, fixed_uniform=True)
     r = cm.run_reference(*args, 3, 10, fixed_uniform=True)
@@ -469,7 +543,7 @@ def run_dossier(cm, ce, card):
     names = [r["engine"] for r in rows]
     want = ["mjhmc_roughwell_elementwise", "mjhmc_product_of_t[full]",
             "mjhmc_product_of_t[dots=stubbed]", "mjhmc_product_of_t[ablation_verdict]",
-            "mjhmc_sparse_coding[fp32]", "nuts_gauss2d_elementwise"]
+            "mjhmc_sparse_coding[bf16x3]", "nuts_gauss2d_elementwise"]
     check(names == want, f"dossier rows {names}")
     check(all(v > 0 for v in launches.values()), f"dossier kernels not launched: {launches}")
     for r in rows:
@@ -488,7 +562,8 @@ def run_dossier(cm, ce, card):
     for r in rows:
         phase("14 dossier", json.dumps(r))
     stub_row = rows[2]
-    return {"launches": launches, "fma_ms": probes["fp32_fma"]["s_per_iter"] * 1e3,
+    return {"launches": launches, "ceilings": ceil,
+            "fma_ms": probes["fp32_fma"]["s_per_iter"] * 1e3,
             "tc_ms": probes["tc_depth_128"]["s_per_iter"] * 1e3,
             "stub_ms": 4096 / stub_row["iterations_per_s"] * 1e3}
 
@@ -518,11 +593,18 @@ def energy_ops(cname, d, k):
     return 4 * d * k + 8 * d + k, 3 * d + 2 * k  # sparse coding
 
 
-def bound(cname, variant, d, k, n, iters, grads, emits=0, stub=False):
+def bound(cname, variant, d, k, n, iters, grads, emits=0, stub=False, passes=0,
+          peaks=(FP32_PEAK, BF16_PEAK), mass=False):
     """(bound_ms per iteration, "operations" or "bytes") of a run of
     ``iters`` iterations of ``n`` chains that evaluated ``grads`` gradients
     (the run's counters: MJHMC's backward rebuilds, two-stage's two per
-    step and NUTS's leaves included) and streamed ``emits`` emissions."""
+    step and NUTS's leaves included) and streamed ``emits`` emissions.
+    ``passes`` > 0: the two contractions of every gradient (4·d·k FLOPs)
+    run as that many bf16 passes at the bf16 peak of ``peaks`` (FP32,
+    bf16), the rest at its FP32 peak. ``mass``: a diagonal M⁻¹ adds d
+    multiplies per gradient (the drift's M⁻¹·v) and 2d per chain and
+    iteration (the kinetic energies' M⁻¹, the momenta's √M), and its 2d
+    floats to the bytes."""
     g, u_ops = energy_ops(cname, d, k)
     if stub:
         g -= 4 * d * k
@@ -542,7 +624,12 @@ def bound(cname, variant, d, k, n, iters, grads, emits=0, stub=False):
     else:  # nuts: every leaf one gradient, its energy and ~40 of tree work
         ops = grads * (g + u_ops + 2 * d + 40) + n * iters * (d * NORMAL_OPS + kahan)
     nbytes = 4 * (n * (3 * d + 3) + d * k + k + n * (5 * d + 5) + emits * n * (d + 2))
-    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    if mass:
+        ops += grads * d + n * iters * 2 * d
+        nbytes += 4 * 2 * d
+    mm_flops = grads * 4 * d * k if passes else 0
+    t_ops = (ops - mm_flops) / peaks[0] + passes * mm_flops / peaks[1]
+    t_bytes = nbytes / HBM_RATE
     return max(t_ops, t_bytes) / iters * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -636,7 +723,7 @@ def slice_kernel_checks(cm):
     Returns {label: max |dx| on the fixed-uniform chains within}."""
     errs = {}
     for label, cname, dist, n, eps, beta, m, held, kw in slice_cases(cm):
-        spec = cm.energy_spec_for(dist)
+        spec = at(cm.energy_spec_for(dist))
         run, stream = wrappers_for(cm, spec)
         variant = kw.get("variant", "mjhmc")
         cost = (2 if kw.get("integrator") == "two_stage" else 1) * m
@@ -810,14 +897,19 @@ def slice_stats(cm, card):
 def slice_cli(cm, cli):
     """Phase 19: `sample --sampler control|malt` on rough_well, product_of_t
     and sparse_coding, `--integrator two_stage` (MJHMC and control) on
-    rough_well and product_of_t; every count set to 0 just before each call.
-    Returns {(sampler, config, integrator): (record, counts, seconds)}."""
+    rough_well and product_of_t, and MJHMC's on sparse_coding and logreg;
+    every count set to 0 just before each call. Returns {(sampler, config,
+    integrator): (record, counts, seconds)}; the matmul presets' counts
+    include "precision", the launches at the preset's JAX default precision
+    (all of them)."""
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 
+    jax_default, _ = mm_precisions(cm)
     out = {}
     calls = [(s, c, "leapfrog") for s in ("control", "malt")
              for c in ("rough_well", "product_of_t", "sparse_coding")]
     calls += [(s, c, "two_stage") for s in ("mjhmc", "control") for c in ("rough_well", "product_of_t")]
+    calls += [("mjhmc", c, "two_stage") for c in ("sparse_coding", "logreg")]
     for sampler, cname, integrator in calls:
         cfg = BENCHMARK_CONFIGS[cname]
         burn, steps = (200, 200) if cname == "sparse_coding" else (500, 1000)
@@ -835,6 +927,10 @@ def slice_cli(cm, cli):
         c = {"body": counts(cm, attr, mm), "two_stage": counts(cm, "two_stage_launches", mm)}
         check(all(v > 0 for v in c["body"]) and (integrator == "leapfrog" or all(c["two_stage"])),
               f"{sampler} {cname} {integrator}: kernels not launched: {c}")
+        if mm:
+            c["precision"] = counts(cm, f"{jax_default[cname]}_launches", mm)
+            check(c["precision"] == c["body"], f"{sampler} {cname}: not all launches at "
+                  f"{jax_default[cname]}: {c}")
         m = (2 if integrator == "two_stage" else 1) * cfg.num_leapfrog_steps
         n = cfg.nbatch
         ge = rec["grad_evals"]
@@ -880,12 +976,13 @@ def slice_timing(cm, card):
             iters //= 4
         eng = cm.CudaMJHMC(dist, epsilon=cfg.epsilon, beta=beta, num_leapfrog_steps=m,
                            nbatch=n, seed=4, device="cuda", **kw)
+        eng.spec = at(eng.spec)
         eng.run(10)
         before = eng.grad_evals
         run_ms = events_ms(lambda: eng.run(iters)) / iters
         grads = eng.grad_evals - before
         stream_ms = events_ms(lambda: eng.sample(iters)) / iters
-        args = (cm.energy_spec_for(dist), *initial_state(dist, n, seed=5), 99, cfg.epsilon, beta)
+        args = (eng.spec, *initial_state(dist, n, seed=5), 99, cfg.epsilon, beta)
         cm.run_reference(*args, 1, m, **kw)
         plain_ms = events_ms(lambda: cm.run_reference(*args, 3, m, **kw)) / 3
         plain_stream_ms = events_ms(lambda: cm.stream_reference(*args, 3, 1, m, **kw)) / 3
@@ -941,7 +1038,7 @@ def mm_nuts_checks(cm):
     Returns {label: max |dx| on the chains within}."""
     errs = {}
     for label, _, dist, n, eps, depth, both_iters, mass in mm_nuts_cases():
-        spec = cm.energy_spec_for(dist)
+        spec = at(cm.energy_spec_for(dist))
         kw = dict(variant="nuts", inv_mass=mass)
         for fixed, seed, iters in ((True, 7, both_iters[0]), (False, 12345, both_iters[1])):
             st = initial_state(dist, n, seed=1 if fixed else 2, inv_mass=mass)
@@ -1004,11 +1101,14 @@ def slice_k_stats(cm):
     plain NUTS sampler on the card; CudaMJHMC (ε 0.25, β 0.15, M 10, 2,048
     chains, 400 + 1500, as :548-557) and CudaNUTS on logreg: the median of
     var/laplace_var within 25%; both from_warmup engines: ε > 0, M⁻¹ > 0
-    and the same bounds after a short run. Product of t's ν = 2.5 leaves
+    and the same bounds after a short run, then 20 iterations of samples
+    (the stream kernel with the mass). Product of t's ν = 2.5 leaves
     x² without a finite variance, so a 400-iteration window's median
     var/analytic swings with single excursions into the tails (one such
     window of the warmed engine read 1.16); the warmed engine is read over
-    2,000 iterations."""
+    2,000 iterations. Returns {(config, instance): (run, stream) launches at
+    the preset's JAX default precision} of the from_warmup engines (from 0
+    just before each)."""
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
     from mjhmc_tpu_torch.samplers import NUTS
 
@@ -1058,6 +1158,7 @@ def slice_k_stats(cm):
           f"{MM_NUTS_DEPTH}, 200 + 1000): {got}; "
           f"{float(out.evals.double().mean()) / 1000:.5g} leaves/iteration")
 
+    jax_default, _ = mm_precisions(cm)
     res = {}
     for ecls, dist, cname, kw, burn, steps, tol in (
             (cm.CudaNUTS, pot, "product_of_t", dict(nbatch=4096, max_depth=MM_NUTS_DEPTH), 100,
@@ -1074,11 +1175,19 @@ def slice_k_stats(cm):
         if burn:
             eng.run(burn)
         got = held(f"{ecls.__name__}.from_warmup({cname})", cname, eng.run(steps), tol)
-        mm = (cm.cuda_mjhmc_mm_run, cm.cuda_mjhmc_mm_stream_run)
-        res[cname] = sum(f.mass_launches for f in mm)
+        xs, ws = eng.sample(20)
+        check(bool(torch.isfinite(xs).all()) and bool((ws >= 0).all()),
+              f"{ecls.__name__}.from_warmup({cname}): samples not finite")
+        mass = counts(cm, "mass_launches", mm=True)
+        at_prec = counts(cm, f"{jax_default[cname]}_launches", mm=True)
+        check(all(v > 0 for v in mass) and at_prec == mass,
+              f"{ecls.__name__}.from_warmup({cname}): launches with the mass {mass}, at "
+              f"{jax_default[cname]} {at_prec}")
+        res[(cname, f"{'nuts' if ecls is cm.CudaNUTS else 'mjhmc'} branches")] = at_prec
         phase("22 slice K stats", f"{ecls.__name__}.from_warmup({cname}, {kw}): warmup "
               f"{warm_s:.3g} s host clock, eps {eng.epsilon:.5g}, M^-1 in [{float(im.min()):.4g}, "
-              f"{float(im.max()):.4g}]; {burn} + {steps}: {got}; launches with the mass {res[cname]}")
+              f"{float(im.max()):.4g}]; {burn} + {steps}: {got}; 20 samples; (run, stream) "
+              f"launches, all with the mass at {jax_default[cname]}: {at_prec}")
     return res
 
 
@@ -1087,9 +1196,11 @@ def slice_k_cli(cm, cli):
     every sampler on logreg (--engine cuda), and the plain NUTS sampler on
     logreg (--engine torch), at the presets' widths; every count set to 0
     just before each call. Returns {(sampler, config, engine): (record,
-    (run, stream) launches, seconds)}."""
+    (run, stream) launches, seconds)}: --engine cuda's all at the preset's
+    JAX default precision."""
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 
+    jax_default, _ = mm_precisions(cm)
     out = {}
     for sampler, cname, engine, burn, steps in (
             ("nuts", "product_of_t", "cuda", 200, 400), ("nuts", "sparse_coding", "cuda", 100, 100),
@@ -1111,7 +1222,10 @@ def slice_k_cli(cm, cli):
         n, m, ge = cfg.nbatch, cfg.num_leapfrog_steps, rec["grad_evals"]
         iters = steps if engine == "torch" else burn + steps  # the plain burn-in resets
         if engine == "cuda":
-            check(all(v > 0 for v in launches), f"{sampler} {cname}: kernels not launched")
+            at_prec = counts(cm, f"{jax_default[cname]}_launches", mm=True)
+            check(all(v > 0 for v in launches) and at_prec == launches,
+                  f"{sampler} {cname}: kernels not launched, or not all at "
+                  f"{jax_default[cname]}: {launches}, {at_prec}")
         else:
             check(not any(v for a in cm.COUNTS for mm in (False, True) for v in counts(cm, a, mm)),
                   "--engine torch launched a kernel")
@@ -1170,6 +1284,7 @@ def slice_k_timing(cm, card):
                 kw["integrator"] = "two_stage"
         eng = ecls(dist, epsilon=eps, beta=beta, num_leapfrog_steps=m, nbatch=n, seed=4,
                    **{k: v for k, v in kw.items() if k != "variant"})
+        eng.spec = at(eng.spec)
         eng.run(10)
         before = eng.grad_evals
         run_ms = events_ms(lambda: eng.run(iters)) / iters
@@ -1178,8 +1293,7 @@ def slice_k_timing(cm, card):
         stream_ms = events_ms(lambda: got.update(s=eng.sample(iters, return_evals=True))) / iters
         share = leaf_slot_share(got["s"][2], m) if nuts else 1.0
         plain_iters = 1 if nuts else 3
-        args = (cm.energy_spec_for(dist), *initial_state(dist, n, seed=5,
-                                                          inv_mass=kw.get("inv_mass")),
+        args = (eng.spec, *initial_state(dist, n, seed=5, inv_mass=kw.get("inv_mass")),
                 99, eps, beta)
         cm.run_reference(*args, 1, m, **kw)
         plain_ms = events_ms(lambda: cm.run_reference(*args, plain_iters, m, **kw)) / plain_iters
@@ -1543,7 +1657,7 @@ def zoo_entries(entry, errs, ident, cli_res, rows):
     energy, run and stream; launches from phase 28's CLI calls (eight
     schools non-centered, which has no preset: phase 29's engines), errors
     from phase 25, times from phase 29 (``inv_mass_ms``: the instance with a
-    mass)."""
+    mass, beside its bound ``inv_mass_bound_ms``)."""
     out = []
     variants = {"nuts": NUTS_VARIANT, "mjhmc": MJHMC_VARIANT, "control": CONTROL_VARIANT,
                 "malt": MALT_VARIANT}
@@ -1563,6 +1677,9 @@ def zoo_entries(entry, errs, ident, cli_res, rows):
                                   f"{', thin 1' if stream else ''}, ms per iteration"}
                 if branch:
                     extra["inv_mass_ms"] = branch[1 if stream else 0]
+                    extra["inv_mass_bound_ms"], extra["inv_mass_bound_by"] = bound(
+                        name, body, d, k, branch[6], branch[5], branch[4],
+                        branch[5] if stream else 0, mass=True)
                 if body == "nuts":
                     extra["bit_identical_share"] = {c: ident[c] for c in cases}
                 out.append(entry(
@@ -1570,6 +1687,476 @@ def zoo_entries(entry, errs, ident, cli_res, rows):
                     max(errs[c] for c in cases), stream_ms if stream else run_ms,
                     plain_stream_ms if stream else plain_ms,
                     bound(name, body, d, k, n, iters, grads, iters if stream else 0), **extra))
+    return out
+
+
+# ---- the matmul kernel's dot precisions -----------------------------------
+def mm_presets():
+    """config -> (distribution, preset config, M⁻¹ of the mass cases, NUTS ε)
+    for the three matmul presets."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    out = {}
+    for cname, nuts_eps in (("product_of_t", 0.12), ("sparse_coding", 0.02), ("logreg", 0.15)):
+        dist = BENCHMARK_CONFIGS[cname].make_distribution()
+        mass = {"product_of_t": lambda: dist.analytic_var(), "logreg": lambda: dist.laplace_var(),
+                "sparse_coding": lambda: torch.linspace(0.8, 1.25, 128)}[cname]()
+        out[cname] = (dist, BENCHMARK_CONFIGS[cname], tuple(float(v) for v in mass), nuts_eps)
+    return out
+
+
+def mm_precisions(cm):
+    """({config: the preset's JAX default precision}, {config: the sweep's
+    other precisions}), read from the specs' defaults and
+    ``cuda_mjhmc.MM_KERNEL_PRECISIONS``."""
+    jax_default, sweep = {}, {}
+    for cname, (dist, *_) in mm_presets().items():
+        spec = cm.energy_spec_for(dist)
+        table = cm.MM_KERNEL_PRECISIONS[type(spec)]
+        check(table.get(spec.precision) == cm.ALL_BODIES,
+              f"{cname}: no full set of instances at its default {spec.precision}")
+        jax_default[cname] = spec.precision
+        other = tuple(p for p, have in table.items() if have == cm.SWEEP_RUN)
+        if other:
+            sweep[cname] = other
+    return jax_default, sweep
+
+
+def branch_key(variant, kw):
+    """The instance a case runs: the body, and "branches" for the BR=true
+    instance that MJHMC and NUTS take with a mass or the two-stage
+    integrator (control and MALT have only that one)."""
+    br = variant in ("mjhmc", "nuts") and ("inv_mass" in kw or "integrator" in kw)
+    return f"{variant} branches" if br else variant
+
+
+def precision_cases(cm):
+    """Phase 30: every body and branch of each matmul preset at its JAX
+    default precision, run and stream, and the sweep's MJHMC leapfrog run
+    at its other two precisions: (label, config, precision, distribution,
+    chains, ε, β, M or max_depth, (fixed-uniform, Philox) iterations,
+    options, stream). NUTS runs one iteration at max_depth 8 (deep trees:
+    leaf counts held, states reported) and at max_depth 4, with and without
+    a mass (states held)."""
+    rows = []
+    presets = mm_presets()
+    jax_default, sweep = mm_precisions(cm)
+    for cname, (dist, cfg, mass, nuts_eps) in presets.items():
+        prec, n, m = jax_default[cname], cfg.nbatch, cfg.num_leapfrog_steps
+        held = PRECISION_ITERS[cname]
+        for label, beta, kw in (
+                ("mjhmc", 0.1, {}), ("mjhmc two_stage", 0.1, dict(integrator="two_stage")),
+                ("mjhmc inv_mass", 0.1, dict(inv_mass=mass)),
+                ("control", 0.2, dict(variant="control")),
+                ("control two_stage inv_mass", 0.2,
+                 dict(variant="control", integrator="two_stage", inv_mass=mass)),
+                ("malt", 1.0, dict(variant="malt")),
+                ("malt inv_mass", 1.0, dict(variant="malt", inv_mass=mass))):
+            rows.append((f"{cname} {label}", cname, prec, dist, n, cfg.epsilon, beta, m,
+                         (held, held), kw, True))
+        for label, depth, kw in (("nuts", MM_NUTS_DEPTH, dict(variant="nuts")),
+                                 ("nuts", 4, dict(variant="nuts")),
+                                 ("nuts inv_mass", 4, dict(variant="nuts", inv_mass=mass))):
+            rows.append((f"{cname} {label} max_depth {depth}", cname, prec, dist, n, nuts_eps,
+                         0.0, depth, (1, 1), kw, True))
+    for cname, precs in sweep.items():
+        dist, cfg, _, _ = presets[cname]
+        for prec in precs:
+            held, m = (SPARSE_DEFAULT_HELD if (cname, prec) == ("sparse_coding", "default")
+                       else (PRECISION_ITERS[cname], cfg.num_leapfrog_steps))
+            rows.append((f"{cname} mjhmc", cname, prec, dist, cfg.nbatch, cfg.epsilon, 0.1, m,
+                         (held, held), {}, False))
+    return rows
+
+
+@contextlib.contextmanager
+def split_depth(cm, parts):
+    """The plain version with every contraction summed as ``parts`` partial
+    products over slices of its depth, added in order: the same bf16
+    products in another summation order (the kernel's mma.sync adds them
+    in 16-deep tiles). Only the plain version calls ``_contract``."""
+    plain = cm._contract
+
+    def contract(stub, m, b, precision="highest"):
+        step = -(-m.shape[-1] // parts)
+        parts_ = [plain(stub, m[..., i:i + step], b[..., i:i + step, :], precision)
+                  for i in range(0, m.shape[-1], step)]
+        return sum(parts_[1:], parts_[0])
+
+    cm._contract = contract
+    try:
+        yield
+    finally:
+        cm._contract = plain
+
+
+def force_check(cm, spec, dist, n, beta, kw, stream):
+    """The contraction alone: one iteration at ε = 0 (M or max_depth 1)
+    leaves x where it starts, so the gradient and energy that come out are
+    the instance's at the plain version's own x, fresh on every chain. Held
+    per chain within rtol 1e-4 (atol 1e-4 of the largest), all but a =
+    max(1% of the chains, the chains the plain version summed in halves and
+    in quarters of its depth moves past it) with a Poisson margin a + 3√a;
+    a must stay within ``INFORMATIVE``. Another precision's contraction
+    moves every chain here (one pass or a once-rounded parameter against
+    the others: 2⁻⁹). Returns (chains outside, limit, perturbed chains,
+    largest relative gradient error of the kernel, of the perturbed runs)."""
+    st = initial_state(dist, n, seed=3, inv_mass=kw.get("inv_mass"))
+    args = (spec, *st, 7, 0.0, beta)
+    outs = [cm.cuda_mjhmc_mm_run(*args, 1, 1, fixed_uniform=True, **kw)]
+    if stream:
+        outs.append(cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, 1, fixed_uniform=True, **kw)[3])
+    ref = cm.run_reference(*args, 1, 1, True, **kw)
+    fresh = float((ref.grad != st[2]).any(dim=0).double().mean())
+    check(fresh >= 0.99 and all(torch.equal(o.x, st[0]) for o in (ref, *outs)),
+          f"eps 0: x must stay, the gradient be recomputed (fresh on {fresh:.4f})")
+
+    def rel(o):
+        return float(((o.grad - ref.grad).abs() / (ref.grad.abs() + 1e-4 * ref.grad.abs().max()))
+                     .max())
+
+    moved, rel_n = torch.zeros(n, dtype=torch.bool, device=DEV), 0.0
+    for parts in (2, 4):
+        with split_depth(cm, parts):
+            r_n = cm.run_reference(*args, 1, 1, True, **kw)
+        moved |= ~chains_within(r_n, ref, ("grad", "u"))
+        rel_n = max(rel_n, rel(r_n))
+    a = max(0.01 * n, int(moved.sum()))
+    bad = torch.zeros_like(moved)
+    for o in outs:
+        bad |= ~chains_within(o, ref, ("grad", "u"))
+    return int(bad.sum()), a + 3 * a**0.5, int(moved.sum()), max(rel(o) for o in outs), rel_n
+
+
+def precision_kernel_checks(cm):
+    """Phase 30: every bf16 instance of the matmul kernel against its plain
+    version at the same precision. First the contraction alone
+    (``force_check``: the gradient and energy at ε = 0 on every chain),
+    then the dynamics in fixed-uniform mode and in Philox mode, from v ~
+    N(0, M). A bf16 split is not continuous: a last-ulp difference can move
+    a rounding by 2⁻⁹ relative at one pass, and the dynamics grow it. One-ulp
+    nudges of x and of ε (up, down; as phases 25-26) move the state's;
+    another summation order moves the intermediate's (sparse coding's
+    residual r = patch − Φa keeps the ulps of Φa, larger than its own, and
+    σ⁻² = 100 multiplies its rounding). So the plain version alone is also
+    run with its contractions summed in halves and in quarters of their
+    depth (``split_depth``): six perturbed runs. The cases run as few
+    iterations as keep those runs' moved chains within ``INFORMATIVE``
+    (``PRECISION_ITERS``, ``SPARSE_DEFAULT_HELD``), which the phase checks,
+    but for NUTS at max_depth 8, whose deep trees are chaotic at any
+    precision (their leaf counts are held, their states reported; max_depth
+    4 holds the states). The kernel's count of chains that differ is one
+    draw of what the perturbed runs count, so each limit below is a = max(0.1%
+    of the chains, the perturbed runs' count) with a Poisson margin of three
+    standard deviations, a + 3√a. Decisions (counters and stream es; MJHMC,
+    control and MALT also whether x moved each iteration; the sweep's runs,
+    without a stream, their counters and cache flags) differ on no more
+    chains than that, counting the chains the perturbed runs change;
+    fixed-uniform counters exact but for NUTS (as phase 21). x, v, g, u and
+    every emitted x within rtol 1e-4 (atol 1e-4 of the largest) on the
+    chains whose decisions agree, all but that many, counting the chains the
+    perturbed runs move past it. Control and MALT: Σw = steps. MJHMC: Σw over
+    all chains within rtol 1e-4, or twice the largest change a perturbed run
+    makes to it (its relative change, or the root sum of squares of its
+    per-chain changes over Σw), if more. Returns {(config, precision,
+    instance): max |dx| on the held fixed-uniform chains}."""
+    errs = {}
+    for label, cname, prec, dist, n, eps, beta, m, both, kw, stream in precision_cases(cm):
+        spec = at(cm.energy_spec_for(dist), prec)
+        variant = kw.get("variant", "mjhmc")
+        nuts, mj = variant == "nuts", variant == "mjhmc"
+        deep = nuts and m == MM_NUTS_DEPTH
+        key = (cname, prec, branch_key(variant, kw))
+        head = f"{label} at {prec} ({n} chains"
+        bad, limit, moved, rel_k, rel_n = force_check(cm, spec, dist, n, beta, kw, stream)
+        check(moved <= INFORMATIVE * n, f"{head}, eps 0): summing in parts moves {moved} "
+              "chains' gradients past rtol 1e-4 in the plain version alone")
+        check(bad <= limit, f"{head}, eps 0): gradient or energy outside rtol 1e-4 on {bad} "
+              f"chains, {limit:.4g} allowed")
+        phase("30 precision kernels", f"{head}, eps 0, {'max_depth' if nuts else 'M'} 1): "
+              f"gradient and energy at the start rtol 1e-4 on all but {bad} chains (limit "
+              f"{limit:.4g}; the split-depth sums move {moved}); largest relative gradient error "
+              f"{rel_k:.3g}, of the split-depth sums {rel_n:.3g}")
+        for fixed, seed, held in ((True, 7, both[0]), (False, 12345, both[1])):
+            st = initial_state(dist, n, seed=1 if fixed else 2, inv_mass=kw.get("inv_mass"))
+
+            def plain(x0, e=eps):
+                if stream:
+                    return cm.stream_reference(spec, x0, *st[1:], seed, e, beta, held, 1, m,
+                                               fixed, **kw)
+                return None, None, None, cm.run_reference(spec, x0, *st[1:], seed, e, beta,
+                                                          held, m, fixed, **kw)
+
+            args = (spec, *st, seed, eps, beta)
+            runs = [(cm.cuda_mjhmc_mm_run(*args, held, m, fixed_uniform=fixed, **kw), None, None)]
+            if stream:
+                xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_mm_stream_run(*args, held, 1, m,
+                                                                     fixed_uniform=fixed, **kw)
+                runs = [(runs[0][0], xs_k, es_k), (so_k, xs_k, es_k)]
+            xs_r, _, es_r, r = plain(st[0])
+            moved_r = moves(xs_r, st[0], r.x if mj else None) if stream and not nuts else None
+
+            def decisions(run, xs, es, x0, ref=r):
+                same = run.evals == ref.evals
+                if not stream:
+                    return same & (run.back_valid == ref.back_valid)
+                same &= (es == es_r).all(dim=0)
+                if not nuts:
+                    same &= (moves(xs, x0, run.x if mj else None) == moved_r).all(dim=0)
+                return same
+
+            def agree(run, xs):
+                ok = chains_within(run, r)
+                return ok & stream_within(xs, xs_r) if stream else ok
+
+            same = torch.ones(n, dtype=torch.bool, device=DEV)
+            within = same.clone()
+            for run, xs, es in runs:
+                same &= decisions(run, xs, es, st[0])
+                within &= agree(run, xs)
+            flips, drift = torch.zeros_like(same), torch.zeros_like(same)
+            spread = 0.0
+            perturbed = [(st[0], eps, 2), (st[0], eps, 4)]
+            for to in (float("inf"), float("-inf")):
+                e_n = float(torch.nextafter(torch.tensor(eps), torch.tensor(to)))
+                perturbed += [(torch.nextafter(st[0], torch.full_like(st[0], to)), eps, 1),
+                              (st[0], e_n, 1)]
+            for x_n, e, parts in perturbed:
+                with split_depth(cm, parts) if parts > 1 else contextlib.nullcontext():
+                    xs_n, _, es_n, r_n = plain(x_n, e)
+                same_n = decisions(r_n, xs_n, es_n, x_n)
+                flips |= ~same_n
+                drift |= same_n & ~agree(r_n, xs_n)
+                dw = r_n.w.double() - r.w.double()
+                wsum = r.w.double().sum()
+                spread = max(spread, float(dw.square().sum().sqrt() / wsum),
+                             float(dw.sum().abs() / wsum))
+            differ, outside = int((~same).sum()), int((same & ~within).sum())
+            n_moved = int((flips | drift).sum())
+            allow_dec, allow_states = (a + 3 * a**0.5 for a in (
+                max(0.001 * n, int(flips.sum())), max(0.001 * n, int(drift.sum()))))
+            mode = "fixed-uniform" if fixed else "Philox"
+            what = (f"{head}, eps {eps}, beta {beta}, "
+                    f"{'max_depth' if nuts else 'M'} {m}, {held} iterations, {mode}"
+                    f"{'' if stream else ', run only'})")
+            check(deep or n_moved <= INFORMATIVE * n, f"{what}: the perturbed runs move "
+                  f"{n_moved} chains, more than {INFORMATIVE:.0%}")
+            if fixed and not nuts:
+                exact = torch.equal(runs[0][0].evals, r.evals)
+                if stream:
+                    exact = exact and torch.equal(es_k, es_r) and torch.equal(es_k[-1], so_k.evals)
+                check(exact, f"{what}: fixed-uniform counters differ")
+            check(differ <= allow_dec, f"{what}: decisions differ on {differ} chains, "
+                  f"{allow_dec:.4g} allowed")
+            check(deep or outside <= allow_states, f"{what}: {outside} chains with equal "
+                  f"decisions outside rtol 1e-4, {allow_states:.4g} allowed")
+            k = runs[0][0]
+            if variant in ("control", "malt"):
+                check(bool((k.w == held).all()) and bool((ws_k == 1).all()), f"{what}: w, ws")
+            w_tol = max(1e-4, 2 * spread)
+            if mj:
+                assert_close(k.w.sum(), r.w.sum(), w_tol, 0.0, f"{what} sum of w")
+            ok = same & within
+            dx = (k.x - r.x).abs()
+            err = float(dx[:, ok].max()) if bool(ok.any()) else float(dx.max())
+            if fixed:
+                errs[key] = max(errs.get(key, 0.0), err)
+            leaves = (f"; {float(r.evals.double().mean()) / held:.4g} leaves/iteration"
+                      if nuts else "")
+            phase("30 precision kernels", f"{what}: decisions equal on {1 - differ / n:.5f} "
+                  f"({differ} differ); x,v,g,u{' and stream xs' if stream else ''} rtol 1e-4 on "
+                  f"all but {outside} of the others (max|dx| {err:.3g}"
+                  f"{'; reported, deep trees' if deep else ''}); one-ulp nudges of x, eps"
+                  f" and the split-depth sums change {int(flips.sum())} "
+                  f"chains' decisions and move {int(drift.sum())} more past rtol 1e-4 in the "
+                  f"plain version alone (limits {allow_dec:.4g}, {allow_states:.4g})"
+                  f"{f'; sum of w rtol {w_tol:.3g}' if mj else ''}{leaves}")
+    return errs
+
+
+def precision_sweep(cm):
+    """Phase 31: the precision sweep in process (``bench_mm_precision.main``
+    at its defaults: 4,096 chains, 2,000 steps, best of 3), every count set
+    to 0 just before; each entry's run-kernel launches are its own."""
+    from mjhmc_tpu_torch import bench_mm_precision
+
+    cm.reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_mm_precision.main([])
+    seconds = time.perf_counter() - t0
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    keys = [f"{c}/{p}" for c in ("sparse_coding", "product_of_t") for p in cm.PRECISIONS]
+    check(rc == 0 and sorted(k for k in rec if k != "device") == sorted(keys),
+          f"bench_mm_precision: rc {rc}, keys {sorted(rec)}")
+    for k in keys:
+        r = rec[k]
+        check(r["steps_per_sec"] > 0 and r["launches"] == 1 + bench_mm_precision.TRIALS
+              and len(r["var_head"]) == 4 and all(0 < v < 1e6 for v in r["var_head"]),
+              f"bench_mm_precision {k}: {r}")
+    phase("31 precision sweep", f"{json.dumps(rec)}; {seconds:.4g} s host clock")
+    return rec
+
+
+def precision_variances(cm, rec):
+    """Phase 32: sparse coding's dwell-weighted head variances at each
+    precision (the sweep's, one seed) against highest's. The noise floor is
+    highest against itself with a second seed; bf16x3 and bf16x2 are held
+    within the larger of 1% and three times it, default within 2.5% (the
+    dwell shift the JAX docstring, pallas_mjhmc.py:469-474, expects) plus
+    three times it."""
+    from mjhmc_tpu_torch import bench_mm_precision
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    def shift(var):
+        ref = rec["sparse_coding/highest"]["var_head"]
+        return max(abs(a / b - 1) for a, b in zip(var, ref))
+
+    nb, steps = rec["device"]["nbatch"], rec["device"]["steps"]
+    second = bench_mm_precision.time_engine(BENCHMARK_CONFIGS["sparse_coding"], "highest", nb,
+                                            steps, "cuda", seed=1)
+    floor = shift(second["var_head"])
+    limit = max(0.01, 3 * floor)
+    limits = {"bf16x3": limit, "bf16x2": limit, "default": 0.025 + 3 * floor}
+    got = {p: shift(rec[f"sparse_coding/{p}"]["var_head"]) for p in limits}
+    for p, lim in limits.items():
+        check(got[p] <= lim, f"sparse_coding {p}: head variances {got[p]:.4g} from highest's, "
+              f"limit {lim:.4g}")
+    phase("32 precision variances", f"sparse_coding ({nb} chains, {steps} steps after the sweep's "
+          f"warm and timed runs): largest |var/var_highest - 1| of the four head dims: seed floor "
+          f"(highest, second seed) {floor:.4g}; bf16x3 {got['bf16x3']:.4g}, bf16x2 "
+          f"{got['bf16x2']:.4g} (limit {limit:.4g}); default {got['default']:.4g} (limit "
+          f"{limits['default']:.4g}); "
+          f"highest {rec['sparse_coding/highest']['var_head']}, second seed "
+          f"{second['var_head']}")
+    return floor, got
+
+
+def precision_timing(cm, card):
+    """Phase 33: ms per iteration (CUDA events) of every bf16 instance, run
+    and stream (the sweep's: run), through the engines at the presets'
+    widths, each beside its full-f32 twin in the same loop, and the plain
+    version at the bf16 precision. The branch instances are timed with a
+    mass. Every count is set to 0 just before each engine and read after:
+    the launches at the engine's precision. Returns {(config, instance,
+    precision): dict(run_ms, stream_ms, plain_ms, plain_stream_ms, grads,
+    iters, n, launches=(run, stream))}."""
+    rows = {}
+    ecls = {"nuts": cm.CudaNUTS, "mjhmc": cm.CudaMJHMC, "control": cm.CudaControlHMC,
+            "malt": cm.CudaMALT}
+    iters_of = {"product_of_t": {"mjhmc": 300, "control": 300, "malt": 80, "nuts": 20},
+                "sparse_coding": {"mjhmc": 60, "control": 60, "malt": 15, "nuts": 3},
+                "logreg": {"mjhmc": 300, "control": 300, "malt": 150, "nuts": 40}}
+    jax_default, sweep = mm_precisions(cm)
+    cases = [(c, key, p, True) for c, p in jax_default.items()
+             for key in ("mjhmc", "mjhmc branches", "control", "malt", "nuts", "nuts branches")]
+    cases += [(c, "mjhmc", p, False) for c, ps in sweep.items() for p in ps]
+    presets = mm_presets()
+    for cname, key, prec, stream in cases:
+        dist, cfg, mass, nuts_eps = presets[cname]
+        body = key.split()[0]
+        nuts = body == "nuts"
+        n, m = cfg.nbatch, MM_NUTS_DEPTH if nuts else cfg.num_leapfrog_steps
+        eps = nuts_eps if nuts else cfg.epsilon
+        beta = {"mjhmc": 0.1, "control": 0.2, "malt": 1.0, "nuts": 0.0}[body]
+        kw = dict(inv_mass=mass) if key.endswith("branches") else {}
+        iters = iters_of[cname][body]
+        for p in ("highest", prec):
+            if (cname, key, p) in rows:  # the sweep's twin: timed with the default's
+                continue
+            cm.reset_counts()
+            eng = ecls[body](dist, epsilon=eps, beta=beta, num_leapfrog_steps=m, nbatch=n,
+                             seed=4, device=DEV, **kw)
+            eng.spec = at(eng.spec, p)
+            eng.run(2)
+            before = eng.grad_evals
+            run_ms = events_ms(lambda: eng.run(iters)) / iters
+            grads = eng.grad_evals - before
+            stream_ms = events_ms(lambda: eng.sample(iters)) / iters if stream else None
+            launches = counts(cm, f"{p}_launches", mm=True)
+            check(launches[0] > 0 and (launches[1] > 0 or not stream),
+                  f"{key} {cname} at {p}: kernels not launched {launches}")
+            rows[(cname, key, p)] = dict(run_ms=run_ms, stream_ms=stream_ms, grads=grads,
+                                         iters=iters, n=n, launches=launches)
+        row = rows[(cname, key, prec)]
+        plain_iters = 1 if nuts else 3
+        args = (eng.spec, *initial_state(dist, n, seed=5, inv_mass=kw.get("inv_mass")), 99, eps,
+                beta)
+        pkw = dict(variant=body, **kw)
+        cm.run_reference(*args, 1, m, **pkw)
+        row["plain_ms"] = events_ms(lambda: cm.run_reference(*args, plain_iters, m, **pkw)) / \
+            plain_iters
+        row["plain_stream_ms"] = events_ms(
+            lambda: cm.stream_reference(*args, plain_iters, 1, m, **pkw)) / plain_iters \
+            if stream else None
+        twin = rows[(cname, key, "highest")]
+        ms = f"run {row['run_ms']:.6g}" + (f", stream {row['stream_ms']:.6g}" if stream else "")
+        tw = f"run {twin['run_ms']:.6g}" + (f", stream {twin['stream_ms']:.6g}" if stream else "")
+        plain = f"run {row['plain_ms']:.6g}" + (
+            f", stream {row['plain_stream_ms']:.6g}" if stream else "")
+        phase("33 precision timing", f"{key} {cname} ({n} chains, eps {eps}, beta {beta}, "
+              f"{'max_depth' if nuts else 'M'} {m}{', a mass' if kw else ''}): {prec} {ms} "
+              f"ms/iteration; highest {tw}; plain version at {prec} {plain}; "
+              f"{grads / (n * iters):.5g} {'leaves' if nuts else 'gradients'} per chain and "
+              f"iteration; launches {prec} {row['launches']}, highest {twin['launches']} [{card}]")
+    return rows
+
+
+def precision_entries(entry, errs, sweep, rows, ceilings, main_runs):
+    """The kernels line's entries of the bf16 instances: every body of each
+    matmul preset at its JAX default precision (``_branches``: the BR=true
+    instance of MJHMC and NUTS, timed with a mass), run and stream, and the
+    sweep's MJHMC runs. Errors from phase 30, times from phase 33 (beside
+    ``highest_ms``, the full-f32 twin's in the same loop). Launches, named
+    in ``launches_from``: the main path's calls that run the instance
+    (``main_runs``: `sample` in phases 6, 19 and 23, ``from_warmup`` in phase
+    22), the sweep's runs phase 31's in-process sweep, and phase 33's
+    engines only where no such call runs it. ``bound_ms_measured_ceilings``:
+    the same work over the FP32 FMA and ``mma.sync`` ceilings measured in
+    the dossier (phase 14)."""
+    from mjhmc_tpu_torch.bench_mfu import PASSES
+
+    out = []
+    variants = {"nuts": NUTS_VARIANT, "mjhmc": MJHMC_VARIANT, "control": CONTROL_VARIANT,
+                "malt": MALT_VARIANT}
+    shapes = {"product_of_t": (36, 36), "sparse_coding": (128, 64), "logreg": (16, 256)}
+    measured = (ceilings["fp32_fma_flops_per_s"], ceilings["tc_bf16_mma_sync_flops_per_s"])
+    for (cname, key, prec), row in rows.items():
+        if prec == "highest":
+            continue
+        body = key.split()[0]
+        sweep_run = row["stream_ms"] is None
+        d, k = shapes[cname]
+        twin = rows[(cname, key, "highest")]
+        for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
+            if sweep_run and idx:
+                continue
+            stream = idx == 1
+            ms = "stream_ms" if stream else "run_ms"
+            emits = row["iters"] if stream else 0
+            args = (cname, body, d, k, row["n"], row["iters"], row["grads"], emits)
+            br = dict(mass=key.endswith("branches"))
+            main = main_runs.get((cname, key), ((0, 0), ""))
+            if sweep_run:
+                launches, origin = sweep[f"{cname}/{prec}"]["launches"], "phase 31: the sweep"
+            elif main[0][idx] > 0:
+                launches, origin = main[0][idx], main[1]
+            else:
+                launches = row["launches"][idx]
+                origin = "phase 33: the engine (no sample or from_warmup call here runs it)"
+            name = f"{body}_mm_{suffix}{'_branches' if key.endswith('branches') else ''}"
+            out.append(entry(
+                f"{name}[{cname}, {prec}]", MM_KERNEL_SRC, src, launches, errs[(cname, prec, key)],
+                row[ms], row["plain_stream_ms" if stream else "plain_ms"],
+                bound(*args, passes=PASSES[prec], **br), launches_from=origin, precision=prec,
+                dot=PRECISION_SRC,
+                variant=variants[body], energy=MM_ENERGIES[cname], highest_ms=twin[ms],
+                bound_ms_measured_ceilings=bound(*args, passes=PASSES[prec], peaks=measured,
+                                                 **br)[0],
+                shape=f"{cname}, {row['n']} chains, {'max_depth 8' if body == 'nuts' else 'preset'}"
+                      f"{', a mass' if key.endswith('branches') else ''}"
+                      f"{', thin 1' if stream else ''}, ms per iteration"))
     return out
 
 
@@ -1607,6 +2194,15 @@ def main() -> int:
         phase("2 build", f"ptxas {kernel}: {regs} registers, {spill} bytes spill stores")
     phase("2 build", "sources, one nvcc each (seconds from the start of the build): " + "; ".join(
         ln[len("nvcc "):] for ln in log.splitlines() if re.match(r"nvcc \S+\.cu: ", ln)))
+    # the contraction: hand-written mma.sync in every bf16 instance, FP32 FMA
+    # only in the full-f32 ones
+    hmma = hmma_counts(_build)
+    phase("2 build", f"HMMA instructions in the SASS of each matmul instance: {json.dumps(hmma)}")
+    # 12 instances (4 bodies, run and stream, MJHMC and NUTS with and without
+    # the branches) per preset at two precisions, the stub and the sweep's 4
+    check(len(hmma) == 3 * 2 * 12 + 1 + 4 and all(
+        (c > 0) != label.endswith("highest") for label, c in hmma.items()),
+        "every bf16 matmul instance must run HMMA and no full-f32 one")
 
     # ---- 3. kernels vs plain version, fixed-uniform mode -----------------
     rw = RoughWell()
@@ -1722,26 +2318,39 @@ def main() -> int:
     check(rec["chains"] == 10_000 and rec["ess"] > 0, f"bad CLI record {rec}")
     phase("6 cli", f"{json.dumps(rec)}; launches {rw_launches}; {cli_s:.4g} s host clock")
 
-    mm_launches = {"mm_run": 0, "mm_stream": 0}
     mm_cli_s = {}
     mm_cli = {"product_of_t": (500, 1000), "sparse_coding": (200, 200)}  # burn, steps
+    jax_default, _ = mm_precisions(cm)
+    # the bf16 instances' launches on the main paths: {(config, instance):
+    # ((run, stream) at the preset's JAX default precision, the calls)}
+    main_runs = {}
+
+    def drove(key, c, origin):
+        before, was = main_runs.get(key, ((0, 0), ""))
+        main_runs[key] = (tuple(a + b for a, b in zip(before, c)),
+                          origin if origin in was.split("; ") else "; ".join(filter(None, (
+                              was, origin))))
     for cname, (burn, steps) in mm_cli.items():
         cfg = BENCHMARK_CONFIGS[cname]
+        cm.reset_counts()
         rec, launches, mm_cli_s[cname] = run_cli(
             cli, ["sample", "--config", cname, "--engine", "cuda", "--burn", str(burn),
                   "--steps", str(steps)], counters)
-        check(launches["mm_run"] > 0 and launches["mm_stream"] > 0,
-              f"{cname}: matmul kernels not launched: {launches}")
-        for k in mm_launches:
-            mm_launches[k] += launches[k]
+        # the preset's JAX default precision, as the CLI runs it
+        at_prec = counts(cm, f"{jax_default[cname]}_launches", mm=True)
+        check(launches["mm_run"] > 0 and launches["mm_stream"] > 0 and at_prec == (
+            launches["mm_run"], launches["mm_stream"]),
+              f"{cname}: matmul kernels not launched at {jax_default[cname]}: {launches}, "
+              f"{at_prec}")
+        drove((cname, "mjhmc"), at_prec, "phase 6: sample")
         m, n = cfg.num_leapfrog_steps, cfg.nbatch
         ge = rec["grad_evals"]
         check(rec["chains"] == n and rec["steps"] == steps and rec["ess"] > 0
               and ge >= m * (burn + steps) * n and ge % m == 0
               and all(v > 0 and v == v for v in rec["var"])
               and all(abs(x) < 1e6 for x in rec["mean"]), f"{cname}: bad CLI record {rec}")
-        phase("6 cli", f"{cname}: {json.dumps(rec)}; launches {launches}; "
-              f"{mm_cli_s[cname]:.4g} s host clock")
+        phase("6 cli", f"{cname}: {json.dumps(rec)}; launches {launches}, all at "
+              f"{jax_default[cname]}; {mm_cli_s[cname]:.4g} s host clock")
 
     # ---- 7. timings ------------------------------------------------------
     cfg = BENCHMARK_CONFIGS["rough_well"]
@@ -1777,25 +2386,23 @@ def main() -> int:
     for cname, cfg, dist, n in mm_cases:
         m = cfg.num_leapfrog_steps
         iters = 2000 if cname == "product_of_t" else 500
-        rate = bench_cuda(cfg, nbatch=n, steps_per_call=iters)
+        rate = bench_cuda(cfg, nbatch=n, steps_per_call=iters, precision="highest")
         k_ms = n * m / rate * 1e3
         eng = cm.CudaMJHMC(dist, epsilon=cfg.epsilon, beta=cfg.beta, num_leapfrog_steps=m,
                            nbatch=n, seed=4, device="cuda")
+        eng.spec = at(eng.spec)
         eng.sample(20)
         s_ms = events_ms(lambda: eng.sample(iters)) / iters
         grads_per_iter[cname] = float(eng.evals.double().mean()) / eng.steps_total
-        args = (cm.energy_spec_for(dist), *initial_state(dist, n, seed=5), 99,
-                cfg.epsilon, BETA)
+        args = (eng.spec, *initial_state(dist, n, seed=5), 99, cfg.epsilon, BETA)
         cm.run_reference(*args, 5, m)
         p_ms = events_ms(lambda: cm.run_reference(*args, 50, m)) / 50
         ps_ms = events_ms(lambda: cm.stream_reference(*args, 50, 1, m)) / 50
         mm_ms[cname] = (k_ms, s_ms, p_ms, ps_ms)
-        burn, steps = mm_cli[cname]
-        kern_s = (burn * k_ms + steps * s_ms) / 1e3
-        phase("7 timing", f"matmul kernel, {cname}, {n} chains: run {k_ms:.6g} ms/iteration "
-              f"({rate:.6g} credited steps/s), stream (thin 1) {s_ms:.6g} ms/iteration; "
-              f"plain version run {p_ms:.6g}, stream {ps_ms:.6g} ms/iteration; CLI kernels "
-              f"~{kern_s:.4g} s of {mm_cli_s[cname]:.4g} s host clock [{card}]")
+        phase("7 timing", f"matmul kernel, {cname}, {n} chains, full f32: run {k_ms:.6g} "
+              f"ms/iteration ({rate:.6g} credited steps/s), stream (thin 1) {s_ms:.6g} "
+              f"ms/iteration; plain version run {p_ms:.6g}, stream {ps_ms:.6g} ms/iteration "
+              f"[{card}]")
 
     # ---- 8-12. ceiling probes, NUTS and the stub vs their plain versions --
     fma_err, fma_plain_ms, tc_err, tc_plain_ms = ceiling_checks(ce)
@@ -1825,12 +2432,19 @@ def main() -> int:
     mass_res = slice_stats(cm, card)
     cli_res = slice_cli(cm, cli)
     slice_ms = slice_timing(cm, card)
+    for (sampler, cname, integrator), (_, c, _) in cli_res.items():
+        if "precision" in c:  # control and MALT have one instance each
+            key = "mjhmc branches" if sampler == "mjhmc" else sampler
+            drove((cname, key), c["precision"], "phase 19: sample")
 
     # ---- 21-24. slice K: NUTS and logreg on the matmul kernel ---------------
     # (the logreg bodies and branches are held in phases 15-16)
     mm_nuts_err = mm_nuts_checks(cm)
-    warm_res = slice_k_stats(cm)
-    k_cli = slice_k_cli(cm, cli)
+    for key, c in slice_k_stats(cm).items():
+        drove(key, c, "phase 22: from_warmup, then run and sample")
+    for (sampler, cname, engine), (_, c, _) in slice_k_cli(cm, cli).items():
+        if engine == "cuda" and cname in jax_default:
+            drove((cname, sampler), c, "phase 23: sample")
     k_ms = slice_k_timing(cm, card)
 
     # ---- 25-29. slice L: the zoo energies on the elementwise kernel ---------
@@ -1841,6 +2455,14 @@ def main() -> int:
     phase("29 zoo timing", f"the rough well beside the zoo's vector step (its per-dim step "
           f"kept): run kernel {run_ms:.6g} ms/iteration at 10,000 chains (phase 7; 0.0027542 "
           f"before slice L, PERF.md section 6) [{card}]")
+
+    # ---- 30-33. the matmul kernel's dot precisions ---------------------------
+    t_prec = time.perf_counter()
+    prec_err = precision_kernel_checks(cm)
+    sweep = precision_sweep(cm)
+    precision_variances(cm, sweep)
+    prec_ms = precision_timing(cm, card)
+    phase("33 precision timing", f"phases 30-33 took {time.perf_counter() - t_prec:.4g} s")
 
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
@@ -1858,12 +2480,13 @@ def main() -> int:
         return bound(cname, "mjhmc", d, k, n, iters, grads_per_iter[cname] * n * iters,
                      iters if emit else 0)
 
-    def slice_entry(kname, key, cnames, src, replaces, launches, err, stream, variant):
+    def slice_entry(kname, key, cnames, src, replaces, launches, err, stream, variant, **more):
         run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n = slice_ms[(key, cnames[-1])]
         d, k = shapes[cnames[-1]]
         body = {"two_stage": "mjhmc", "inv_mass": "mjhmc"}.get(key, key)
         bnd = bound(cnames[-1], body, d, k, n, iters, grads, iters if stream else 0)
-        extra = {"variant": variant, "shape": f"{cnames[-1]}, {n} chains, ms per iteration"}
+        extra = {"variant": variant, "shape": f"{cnames[-1]}, {n} chains, ms per iteration",
+                 **more}
         if len(cnames) > 1:
             extra["per_config_ms"] = {c: {"ms": slice_ms[(key, c)][1 if stream else 0],
                                           "plain_ms": slice_ms[(key, c)][3 if stream else 2]}
@@ -1875,12 +2498,18 @@ def main() -> int:
     def cli_counts(sampler, cnames, attr, integrator="leapfrog", idx=0):
         return sum(cli_res[(sampler, c, integrator)][1][attr][idx] for c in cnames)
 
+    # the matmul kernel's full-f32 instances (the rows of PRs 2-5): the CLI
+    # runs the presets' JAX default precisions now, so their launches are
+    # phase 33's engine runs at precision "highest"
+    def highest_launches(cnames, key, idx=0):
+        return sum(prec_ms[(c, key, "highest")]["launches"][idx] for c in cnames)
+
     def mm_entry(kname, src, launches, idx_ms, idx_plain, err_idx):
         sc = mm_ms["sparse_coding"]
         return entry(kname, MM_KERNEL_SRC, src, launches,
                      max(e[err_idx] for e in mm_err.values()), sc[idx_ms], sc[idx_plain],
                      mjhmc_bound("sparse_coding", 8192, idx_ms == 1),
-                     shape="sparse_coding, 8192 chains",
+                     precision="highest", shape="sparse_coding, 8192 chains",
                      per_config_ms={c: {"ms": v[idx_ms], "plain_ms": v[idx_plain]}
                                     for c, v in mm_ms.items()})
 
@@ -1892,8 +2521,9 @@ def main() -> int:
               mjhmc_bound("rough_well", 10_000, False)),
         entry("mjhmc_stream", KERNEL_SRC, STREAM_SRC, rw_launches["stream"], stream_err,
               stream_ms, plain_stream_ms, mjhmc_bound("rough_well", 10_000, True)),
-        mm_entry("mjhmc_mm_run", MM_RUN_SRC, mm_launches["mm_run"], 0, 2, 0),
-        mm_entry("mjhmc_mm_stream", MM_STREAM_SRC, mm_launches["mm_stream"], 1, 3, 1),
+        mm_entry("mjhmc_mm_run", MM_RUN_SRC, highest_launches(("product_of_t", "sparse_coding"), "mjhmc"), 0, 2, 0),
+        mm_entry("mjhmc_mm_stream", MM_STREAM_SRC,
+                 highest_launches(("product_of_t", "sparse_coding"), "mjhmc", 1), 1, 3, 1),
         entry("fma_chain", CEIL_SRC, FMA_SRC, dossier["launches"]["fma_chain.launches"],
               fma_err, dossier["fma_ms"], fma_plain_ms,
               (2.0 * 256 * 1024 * 4 / FP32_PEAK * 1e3, "operations"),
@@ -1927,7 +2557,8 @@ def main() -> int:
         for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
             kernels.append(slice_entry(
                 f"{body}_mm_{suffix}", body, mm, MM_KERNEL_SRC, src,
-                cli_counts(body, mm, "body", idx=idx), mm_err_b, idx == 1, variant))
+                highest_launches(mm, body, idx), mm_err_b, idx == 1, variant,
+                precision="highest"))
     kernels += [
         slice_entry("mjhmc_run_two_stage", "two_stage", ("rough_well",), KERNEL_SRC, RUN_SRC,
                     sum(cli_counts(s, ("rough_well",), "two_stage", "two_stage")
@@ -1935,23 +2566,24 @@ def main() -> int:
                     max(slice_err["rough_well mjhmc two_stage"],
                         slice_err["rough_well control two_stage"]), False, TWO_STAGE_BRANCH),
         slice_entry("mjhmc_mm_run_two_stage", "two_stage", ("product_of_t",), MM_KERNEL_SRC,
-                    MM_RUN_SRC, sum(cli_counts(s, ("product_of_t",), "two_stage", "two_stage")
-                                    for s in ("mjhmc", "control")),
+                    MM_RUN_SRC, highest_launches(("product_of_t",), "mjhmc branches"),
                     max(slice_err[c] for c in (
                         "product_of_t mjhmc two_stage", "product_of_t control two_stage inv_mass",
-                        "sparse_coding control two_stage inv_mass")), False, TWO_STAGE_BRANCH),
+                        "sparse_coding control two_stage inv_mass")), False, TWO_STAGE_BRANCH,
+                    precision="highest"),
         slice_entry("mjhmc_run_inv_mass", "inv_mass", ("gauss50d",), KERNEL_SRC, RUN_SRC,
                     mass_res["gauss50d"][0][0],
                     max(slice_err[f"gauss50d {b} inv_mass"] for b in ("mjhmc", "control", "malt")),
                     False, MASS_BRANCH),
         slice_entry("mjhmc_mm_run_inv_mass", "inv_mass", ("product_of_t",), MM_KERNEL_SRC,
-                    MM_RUN_SRC, mass_res["product_of_t"][0][0],
+                    MM_RUN_SRC, highest_launches(("product_of_t",), "mjhmc branches"),
                     max(slice_err[c] for c in (
                         "product_of_t control two_stage inv_mass", "sparse_coding mjhmc inv_mass",
-                        "sparse_coding control two_stage inv_mass")), False, MASS_BRANCH),
+                        "sparse_coding control two_stage inv_mass")), False, MASS_BRANCH,
+                    precision="highest"),
     ]
     # slice K: the NUTS body on each matmul energy, the logreg MJHMC,
-    # control and MALT bodies; launches from phase 23's CLI calls
+    # control and MALT bodies
     for body, cname in (("nuts", "product_of_t"), ("nuts", "sparse_coding"), ("nuts", "logreg"),
                         ("mjhmc", "logreg"), ("control", "logreg"), ("malt", "logreg")):
         run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n, share = k_ms[(body, cname)]
@@ -1960,25 +2592,27 @@ def main() -> int:
         variant = {"nuts": NUTS_VARIANT, "mjhmc": "mjhmc (_make_step, "
                    "mjhmc_tpu/ops/pallas_mjhmc.py:714)", "control": CONTROL_VARIANT,
                    "malt": MALT_VARIANT}[body]
-        launches = k_cli[(body, cname, "cuda")][1]
         for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
             stream = idx == 1
-            extra = {"variant": variant, "energy": MM_ENERGIES[cname],
+            extra = {"variant": variant, "energy": MM_ENERGIES[cname], "precision": "highest",
                      "shape": f"{cname}, {n} chains, {'max_depth 8' if body == 'nuts' else 'preset'}"
                               f"{', thin 1' if stream else ''}, ms per iteration"}
             if body == "nuts":
                 extra["leaf_slots_live"] = share
             kernels.append(entry(f"{body}_mm_{suffix}[{cname}]", MM_KERNEL_SRC, src,
-                                 launches[idx], err, stream_ms if stream else run_ms,
+                                 highest_launches((cname,), body, idx), err,
+                                 stream_ms if stream else run_ms,
                                  plain_stream_ms if stream else plain_ms,
                                  bound(cname, body, d, k, n, iters, grads, iters if stream else 0),
                                  **extra))
     kernels += zoo_entries(entry, zoo_err, zoo_ident, zoo_cli_res, zoo_ms)
+    kernels += precision_entries(entry, prec_err, sweep, prec_ms, dossier["ceilings"],
+                                 main_runs)
     phase("29 zoo timing", f"statistics engines' launches (phase 27): {zoo_stat_launches}")
     check(all(kern["launches"] > 0 for kern in kernels),
           f"kernels not launched on their main paths: "
           f"{[kern['name'] for kern in kernels if not kern['launches'] > 0]}")
-    phase("30 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
+    phase("34 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

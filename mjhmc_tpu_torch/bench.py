@@ -17,6 +17,7 @@ and no card is an error.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,15 +38,19 @@ def gpu_name_and_power_limit() -> tuple:
     return name, limit
 
 
-def bench_cuda(cfg, nbatch: int, steps_per_call: int = 10_000, trials: int = 3) -> float:
+def bench_cuda(cfg, nbatch: int, steps_per_call: int = 10_000, trials: int = 3,
+               precision: str | None = None) -> float:
     """Credited leapfrog steps/s of the engine run kernel (best of ``trials``)
     for any config the engine takes: the elementwise kernel for rough_well
-    and the Gaussians, the matmul kernel for product_of_t and sparse_coding."""
+    and the Gaussians, the matmul kernel for product_of_t and sparse_coding
+    (at the spec's JAX default dot precision, or ``precision``)."""
     eng = CudaMJHMC(
         cfg.make_distribution(), epsilon=cfg.epsilon, beta=cfg.beta,
         num_leapfrog_steps=cfg.num_leapfrog_steps, nbatch=nbatch, seed=0,
         device="cuda",
     )
+    if precision is not None:
+        eng.spec = dataclasses.replace(eng.spec, precision=precision)
     eng.run(steps_per_call)  # warm: build, load, first launch
     torch.cuda.synchronize()
     best = float("inf")

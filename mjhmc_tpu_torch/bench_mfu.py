@@ -19,9 +19,13 @@ and the rate is (t_hi − t_lo)/(iters_hi − iters_lo); the counts are chosen
 from one calibration call so that the high point lasts about 60 ms, and are
 recorded. The engine rows run the fused engines at the JAX dossier's shapes
 and settings and turn measured iterations/s into FLOP/s with the JAX op
-counts. Every row names the ceiling of the unit its kernel uses: the FP32
-FMA ceiling for all of them, since no kernel of the port uses tensor cores
-yet; ``mfu`` is achieved/ceiling.
+counts. Every row names the ceiling of the unit its kernel uses and
+``mfu`` is achieved/ceiling: the FP32 FMA ceiling for the rough well and
+NUTS; the measured bf16 ``mma.sync`` ceiling for product of t and sparse
+coding, which run at the presets' JAX default precisions as the JAX
+dossier's rows do (product of t one bf16 pass, ``precision`` "default";
+sparse coding ``[bf16x3]``, with useful FLOPs and executed FLOPs, 3×, the
+passes the tensor cores run; ``mfu`` on the executed ones).
 
 Left out against the JAX dossier: the product-of-t ``pair=off`` row (a TPU
 systolic-occupancy A/B; the CUDA kernel computes both trajectory halves as
@@ -54,6 +58,10 @@ ROUGH_WELL_SINS = 10 * 2 * 2  # M · 2 halves · d
 PRODUCT_OF_T_MM_FLOPS = 10 * 8 * 36 * 36  # M · 2 contractions · 2dk · 2 halves
 SPARSE_CODING_MM_FLOPS = 10 * 2 * (2 * 2 * 64 * 128)  # M · 2 halves · 2 · 2pb
 NUTS_FLOPS_PER_LEAF = 10 * 2 + 40  # leapfrog (10·d) + tree bookkeeping
+#: bf16 passes per contraction at each dot precision
+PASSES = {"bf16x3": 3, "bf16x2": 2, "default": 1}
+#: each row's ``ceiling`` -> the measured ceiling its ``mfu`` divides by
+CEILING_KEYS = {"fp32_fma": "fp32_fma_flops_per_s", "tc_mma_sync": "tc_bf16_mma_sync_flops_per_s"}
 
 
 def _events_s(fn) -> float:
@@ -192,8 +200,9 @@ def engine_rows(steps: int = 20_000) -> list:
         op_count_source="pallas_mjhmc.py::_make_step leapfrog_pair + RoughWellSpec.du",
     ))
 
-    # product of t (matmul kernel, FP32 FMA): full, and the stub_dots
-    # ablation whose wall is the kernel's non-matmul floor
+    # product of t (matmul kernel, the preset's one bf16 pass on the tensor
+    # cores): full, and the stub_dots ablation whose wall is the kernel's
+    # non-matmul floor (no contraction, so no precision)
     dist = ProductOfT(ndims=36, nbasis=36)
     pot_ips = {}
     for stub in (False, True):
@@ -201,16 +210,17 @@ def engine_rows(steps: int = 20_000) -> list:
                         nbatch=4096, seed=0)
         eng.spec = dataclasses.replace(eng.spec, stub_dots=stub)
         ips = _iterations_per_s(eng, steps)
-        mm_flops = 0 if stub else PRODUCT_OF_T_MM_FLOPS
+        mm_flops = 0 if stub else PRODUCT_OF_T_MM_FLOPS * PASSES[eng.spec.precision]
         tag = "dots=stubbed" if stub else "full"
         pot_ips[tag] = ips
         rows.append(dict(
             engine=f"mjhmc_product_of_t[{tag}]",
+            **({} if stub else {"precision": eng.spec.precision}),
             iterations_per_s=ips,
             credited_leapfrog_steps_per_s=ips * m,
             matmul_flops_per_iteration=mm_flops,
             achieved_matmul_flops_per_s=ips * mm_flops,
-            ceiling="fp32_fma (ablation floor)" if stub else "fp32_fma",
+            ceiling="fp32_fma (ablation floor)" if stub else "tc_mma_sync",
             op_count_source="ProductOfTSpec.du: 2 contractions × 2dk × 2 halves × M"
             if not stub else
             "stub_dots: 1e-3·row 0 broadcast, no multiply-adds",
@@ -225,21 +235,25 @@ def engine_rows(steps: int = 20_000) -> list:
         ),
     ))
 
-    # sparse coding (matmul kernel): single FP32 FMA passes, so useful
-    # FLOPs equal executed FLOPs
+    # sparse coding (matmul kernel) at the preset's bf16x3: useful FLOPs
+    # exclude the 3× passes, executed count them (what occupies the tensor
+    # cores)
     eng = CudaMJHMC(SparseCoding(npixels=64, nbasis=128), epsilon=0.02, beta=0.1,
                     num_leapfrog_steps=m, nbatch=4096, seed=0)
     ips = _iterations_per_s(eng, steps)
+    executed = SPARSE_CODING_MM_FLOPS * PASSES[eng.spec.precision]
     rows.append(dict(
-        engine="mjhmc_sparse_coding[fp32]",
+        engine=f"mjhmc_sparse_coding[{eng.spec.precision}]",
+        precision=eng.spec.precision,
         iterations_per_s=ips,
         credited_leapfrog_steps_per_s=ips * m,
         matmul_flops_per_iteration_useful=SPARSE_CODING_MM_FLOPS,
-        matmul_flops_per_iteration_executed=SPARSE_CODING_MM_FLOPS,
+        matmul_flops_per_iteration_executed=executed,
         achieved_matmul_flops_per_s_useful=ips * SPARSE_CODING_MM_FLOPS,
-        achieved_matmul_flops_per_s_executed=ips * SPARSE_CODING_MM_FLOPS,
-        ceiling="fp32_fma",
-        op_count_source="SparseCodingSpec.du/_resid: 2 contractions × 2pb × 2 halves × M",
+        achieved_matmul_flops_per_s_executed=ips * executed,
+        ceiling="tc_mma_sync",
+        op_count_source="SparseCodingSpec.du/_resid (+ the bf16x3 split's 3 passes): "
+                        "2 contractions × 2pb × 2 halves × M",
     ))
 
     # NUTS (elementwise kernel): leaves/s, each leaf one leapfrog step plus
@@ -289,7 +303,7 @@ def main(argv=None) -> int:
                or r.get("achieved_matmul_flops_per_s_executed")
                or r.get("achieved_flops_per_s"))
         if ach:  # the verdict and ablation rows carry no FLOP counts
-            r["mfu"] = ach / ceilings["fp32_fma_flops_per_s"]
+            r["mfu"] = ach / ceilings[CEILING_KEYS[r["ceiling"]]]
         if "achieved_transcendentals_per_s" in r:
             r["sinf_share"] = r["achieved_transcendentals_per_s"] / ceilings["sinf_per_s"]
         print(json.dumps(r), flush=True)

@@ -39,7 +39,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace ceilings {
+
+using tc::mma_bf16;
+using tc::pack_bf16;
 
 // ---------------------------------------------------------------- fma_chain
 constexpr int kFmaThreads = 256;
@@ -88,24 +93,8 @@ constexpr int kTcThreads = 32 * kChains;
 template <int DP>
 __host__ __device__ constexpr int m_tiles() { return DP <= 80 ? 2 : 1; }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layout of m16n8k16 (g = lane / 4, q = lane % 4): A regs 0..3
-// hold (row g, k 2q..2q+1), (g+8, 2q..), (g, 8+2q..), (g+8, 8+2q..); B regs
-// 0..1 hold (k 2q..2q+1, col g), (k 8+2q.., col g); the accumulator holds
-// (g, 2q..2q+1) and (g+8, 2q..2q+1). Here A[m][k] = b[k][lane m], B[k][n] =
-// W[n][k], and the output tile D[m][n] = (W·b)[n][lane m].
+// The m16n8k16 fragment layout is in mma_bf16.cuh. Here A[m][k] = b[k][lane
+// m], B[k][n] = W[n][k], and the output tile D[m][n] = (W·b)[n][lane m].
 template <int DP>
 __global__ void __launch_bounds__(kTcThreads)
 tc_chain_kernel(const float* __restrict__ w, const float* __restrict__ b,

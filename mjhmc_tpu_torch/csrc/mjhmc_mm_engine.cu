@@ -1,25 +1,46 @@
 // Fused MJHMC, control HMC, MALT and NUTS engines for the matmul energies:
-// the C entry and the product-of-t instances (NUTS: mm_nuts_product_of_t.cu).
-// The kernels are templates in mjhmc_mm_engine.cuh, which says what they
-// replace.
+// the C entry, the product-of-t MJHMC, control and MALT instances at full
+// f32 and the stubbed product-of-t run. The kernels are templates in
+// mjhmc_mm_engine.cuh, which says what they replace and lists the sources
+// of the other instances.
 #include "mjhmc_mm_engine.cuh"
 
 namespace mjhmc {
 namespace mm {
 
-cudaError_t launch_product_of_t(int variant, bool stub, const Args& a, bool emit,
-                                cudaStream_t s) {
-  if (stub)
-    return emit || variant != kMjhmc
-               ? cudaErrorInvalidValue
-               : launch<kProductOfT, 36, 36, 16, 96, kMjhmc, false, true, false>(a, s);
+template Launch launch_body<kProductOfT, kHighest, kMjhmc>;
+template Launch launch_body<kProductOfT, kHighest, kControl>;
+template Launch launch_body<kProductOfT, kHighest, kMalt>;
+
+// step body `variant` of energy E at precision P
+template <int E, int P>
+Launch* body_of(int variant) {
   switch (variant) {
-    case kMjhmc: return launch_emit<kProductOfT, 36, 36, 16, 96, kMjhmc>(a, emit, s);
-    case kControl: return launch_emit<kProductOfT, 36, 36, 16, 96, kControl>(a, emit, s);
-    case kMalt: return launch_emit<kProductOfT, 36, 36, 16, 96, kMalt>(a, emit, s);
-    case kNuts: return launch_nuts_product_of_t(a, emit, s);
-    default: return cudaErrorInvalidValue;
+    case kMjhmc: return launch_body<E, P, kMjhmc>;
+    case kNuts: return launch_body<E, P, kNuts>;
+    case kControl: return launch_body<E, P, kControl>;
+    case kMalt: return launch_body<E, P, kMalt>;
+    default: return nullptr;
   }
+}
+
+// the instance of (energy E, precision, body), or nullptr where none is
+// compiled: every body at kHighest and at the preset's JAX default, the
+// MJHMC body (the sweep's run) at the other two
+template <int E>
+Launch* launcher(int precision, int variant) {
+  constexpr int kJaxDefault = E == kSparseCoding ? kBf16x3 : kDefault;
+  if (precision == kHighest) return body_of<E, kHighest>(variant);
+  if (precision == kJaxDefault) return body_of<E, kJaxDefault>(variant);
+  if (variant != kMjhmc) return nullptr;
+  if constexpr (E == kProductOfT) {
+    if (precision == kBf16x3) return launch_sweep<E, kBf16x3>;
+    if (precision == kBf16x2) return launch_sweep<E, kBf16x2>;
+  } else if constexpr (E == kSparseCoding) {
+    if (precision == kBf16x2) return launch_sweep<E, kBf16x2>;
+    if (precision == kDefault) return launch_sweep<E, kDefault>;
+  }
+  return nullptr;
 }
 
 }  // namespace mm
@@ -27,16 +48,19 @@ cudaError_t launch_product_of_t(int variant, bool stub, const Args& a, bool emit
 
 // Plain C entry for ctypes. variant 0 runs MJHMC, 1 NUTS (m is max_depth,
 // beta unused), 2 control HMC (beta is the corruption fraction), 3 MALT
-// (beta is the friction gamma); mass is (2, ndims) (M^-1, sqrt(M)) or NULL;
-// two_stage != 0 takes the two-stage integrator (MJHMC and control);
-// scratch is NUTS's (nuts::rows(m), ndims, n) tree state. xs/ws/es == NULL
-// runs without emissions; stub != 0 runs the stub_dots ablation. Instances:
-// product of t (d, k) = (36, 36), sparse coding (d, p) = (128, 64) and
-// logistic regression (d, nobs) = (16, 256), the presets' shapes, and the
-// stubbed product-of-t MJHMC run (the roofline dossier's ablation row).
-// Returns cudaGetLastError() after the launch (0 on success).
+// (beta is the friction gamma); precision 0 full f32 (FP32 FMA), 1 bf16x3,
+// 2 bf16x2, 3 one bf16 pass (tensor cores); mass is (2, ndims) (M^-1,
+// sqrt(M)) or NULL; two_stage != 0 takes the two-stage integrator (MJHMC
+// and control); scratch is NUTS's (nuts::rows(m), ndims, n) tree state.
+// xs/ws/es == NULL runs without emissions; stub != 0 runs the stub_dots
+// ablation (no contraction, so no precision). Instances: product of t (d,
+// k) = (36, 36), sparse coding (d, p) = (128, 64) and logistic regression
+// (d, nobs) = (16, 256), the presets' shapes, at the precisions the header
+// lists, and the stubbed product-of-t MJHMC run (the roofline dossier's
+// ablation row). Returns cudaGetLastError() after the launch (0 on success),
+// cudaErrorInvalidValue for an instance that is not compiled.
 extern "C" int mjhmc_mm_engine_launch(
-    int energy, int ndims, int krows, int stub, int variant, const float* p0,
+    int energy, int ndims, int krows, int stub, int variant, int precision, const float* p0,
     const float* p1, float k0, float k1, float k2, float k3, const float* mass,
     int two_stage, float* scratch, const float* x, const float* v, const float* g,
     const float* u, const float* h_back, const float* valid, float* xo, float* vo,
@@ -53,11 +77,17 @@ extern "C" int mjhmc_mm_engine_launch(
          scratch};
   const bool emit = xs != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stub)
+    return energy != kProductOfT || ndims != 36 || krows != 36 || emit || variant != kMjhmc ||
+                   mass || two_stage
+               ? cudaErrorInvalidValue
+               : launch<kProductOfT, 36, 36, kC, 96, kMjhmc, false, true, false, kHighest>(a, s);
+  Launch* fn = nullptr;
   if (energy == kProductOfT && ndims == 36 && krows == 36)
-    return launch_product_of_t(variant, stub != 0, a, emit, s);
-  if (energy == kSparseCoding && ndims == 128 && krows == 64 && p1 != nullptr && !stub)
-    return launch_sparse_coding(variant, a, emit, s);
-  if (energy == kLogreg && ndims == 16 && krows == 256 && !stub)
-    return launch_logreg(variant, a, emit, s);
-  return cudaErrorInvalidValue;
+    fn = launcher<kProductOfT>(precision, variant);
+  else if (energy == kSparseCoding && ndims == 128 && krows == 64 && p1 != nullptr)
+    fn = launcher<kSparseCoding>(precision, variant);
+  else if (energy == kLogreg && ndims == 16 && krows == 256)
+    fn = launcher<kLogreg>(precision, variant);
+  return fn ? fn(a, emit, s) : cudaErrorInvalidValue;
 }

@@ -1,17 +1,17 @@
 // Fused MJHMC, control HMC, MALT and NUTS engines for the matmul energies
 // on Hopper (sm_90a): a whole sampling run in one launch. This header holds
-// the kernels as templates; mjhmc_mm_engine.cu compiles the product-of-t
-// instances and the C entry, mm_engine_sparse_coding.cu and
-// mm_engine_logreg.cu the sparse-coding and logistic-regression instances,
-// and the mm_nuts_*.cu sources the NUTS instances, each by its own nvcc
-// (ops/_build.py).
+// the kernels as templates; mjhmc_mm_engine.cu compiles the C entry and the
+// product-of-t instances at full f32, and the mm_engine_*.cu, mm_nuts_*.cu
+// and mm_sweep.cu sources the other instances (the list at the end of this
+// header), each by its own nvcc (ops/_build.py).
 //
 // Replaces the TPU kernels _mjhmc_mm_kernel and _mjhmc_mm_stream_kernel
 // (mjhmc_tpu/ops/pallas_mjhmc.py:1265 and :1596) with the step bodies
 // _make_step (:714, "mjhmc"), _make_step_control (:863), _make_step_malt
 // (:938) and _make_step_nuts (:1011; nuts_mm_kernel below), the
 // ProductOfTSpec (:379), SparseCodingSpec (:468) and LogregSpec (:519)
-// energies, a diagonal inverse mass and the two-stage integrator. One
+// energies, their dot precisions (MatmulEnergySpec._dot, :282-375), a
+// diagonal inverse mass and the two-stage integrator. One
 // templated kernel serves the first three bodies: EMIT=false is the run,
 // EMIT=true also streams every thin-th iteration's x (MJHMC:
 // pre-transition, with its dwell weight; the others: post-transition,
@@ -27,8 +27,8 @@
 // three bodies run the same tile width. Every leapfrog step runs the
 // energy's two contractions over all NC columns at once (product of t: y =
 // Wᵀx, then W·dU/dy; sparse coding: r = patch − Φa, then Φᵀr; logistic
-// regression: z = Xs·θ, then Xsᵀσ(z)), each thread
-// summing a 4×4 register tile in FP32 FMA, with __syncthreads() between the
+// regression: z = Xs·θ, then Xsᵀσ(z)), all through contract() at the
+// instance's precision P, with __syncthreads() between the
 // phases; a two-stage step is two of them with its own kick coefficients,
 // and no pair form (both contractions per gradient, as the TPU body sets
 // use_pair false there). The endpoint energies reuse the last step's y or
@@ -40,22 +40,40 @@
 // chain. The inverse mass sits in shared memory (rows M^-1 and sqrt(M),
 // 1.0 without a mass, which multiplies exactly).
 //
-// What bounds it: FP32 FMA throughput in the contractions (~3.3e5 multiply-adds
-// per chain and iteration for sparse coding at M=10, ~1.3e4 for product of
-// t at M=5) and the latency of the 3M+4 block barriers per iteration (MALT
-// adds four per step; two-stage doubles the contractions); and shared
-// memory per block (~124 KB for sparse coding at C=16, so one block per
-// SM), which caps the warps an SM holds. MALT also draws (2M+1)·d normals
-// per chain and iteration, each from two Philox blocks (the owner of
-// element (i, chain) computes words i and d+i), which at product of t's
-// small k is comparable to the contractions. The 4×4 register tiles give
-// each thread 16 independent FMA chains per shared-memory load pair, and
-// the warps of a tile read the same matrix row (broadcast) and neighbouring
-// columns of the state. Control and MALT hold twice the (dim, chain)
-// elements per thread (16 at sparse coding), which raises register
-// pressure. Tensor cores (3xTF32 or split-bf16 mma) are left for later: a
-// single TF32 or bf16 pass is not accurate enough for sparse coding, whose
-// fit term multiplies the residual error by σ⁻² = 100.
+// Precisions (P, JAX's names): kHighest sums each thread's 4×4 register
+// tile in FP32 FMA (the 4×4 tiles give each thread 16 independent FMA
+// chains per shared-memory load pair; the warps of a tile read the same
+// matrix row, broadcast, and neighbouring columns of the state). kBf16x3,
+// kBf16x2 and kDefault run hand-written mma.sync.m16n8k16 bf16 -> f32
+// passes (mma_bf16.cuh): warps own m16n8 output tiles, the parameter rows
+// on m and the 32 columns on n. The parameter matrix is split into bf16 hi
+// and lo once per block (load_params) and kept in shared memory in A-
+// fragment order for both contractions, zero-padded to multiples of 16
+// (product of t's 36 to 48); the state operand (X, dU/dy, the residual,
+// σ(z)) is split as its B fragments load, 0 past its last row, so the f32
+// layout keeps its strides. bf16x3 is hi·hi + (hi·lo + lo·hi) in three
+// accumulators added as JAX adds them (_dot_bf16x3, :312); bf16x2 is
+// hi·(hi + lo) of the state with the parameter rounded once (_dot_bf16x2,
+// :337); default one pass with both operands rounded (the TPU's
+// Precision.DEFAULT). The f32 copies of the parameter matrix exist only in
+// the kHighest instances (sparse coding at bf16x3 holds ~124 KB, as at
+// kHighest: its two bf16 copies take the f32 copies' 64 KB).
+//
+// What bounds it: at kHighest the FP32 FMA throughput in the contractions
+// (~3.3e5 multiply-adds per chain and iteration for sparse coding at M=10,
+// ~1.3e4 for product of t at M=5). In the bf16 instances the 1-3 mma
+// passes per 16×8×16 tile are cheap, and the B fragments' strided f32
+// loads (lanes 2q apart in k hit the same bank) and splits take their
+// place, so they run near the FP32 path's time (PERF.md §6). At every
+// precision: the elementwise work, the latency of the 3M+4 block barriers
+// per iteration (MALT adds four per step; two-stage doubles the
+// contractions), and shared memory per block (one sparse-coding block per
+// SM), which caps the warps an SM holds.
+// MALT also draws (2M+1)·d normals per chain and iteration, each from two
+// Philox blocks (the owner of element (i, chain) computes words i and
+// d+i), which at product of t's small k is comparable to the contractions.
+// Control and MALT hold twice the (dim, chain) elements per thread (16 at
+// sparse coding), which raises register pressure.
 //
 // Random numbers: Philox4x32-10 keyed (seed, 0), laid out in philox.cuh:
 // MJHMC counter (chain, iteration, block, 0), 1 + 2d words per iteration
@@ -71,10 +89,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "philox.cuh"
 
 namespace mjhmc {
 namespace mm {
+
+using tc::mma_bf16;
+using tc::split_bf16;
 
 constexpr float kLogRateMax = 25.0f;
 constexpr float kNegInf = -1e30f;
@@ -84,6 +106,10 @@ enum Energy { kProductOfT = 0, kSparseCoding = 1, kLogreg = 2 };
 enum Choice { kL = 0, kF = 1, kR = 2 };
 // the step bodies, numbered as the elementwise kernel's
 enum Variant { kMjhmc = 0, kNuts = 1, kControl = 2, kMalt = 3 };
+// the dot precisions, numbered as cuda_mjhmc.PRECISIONS
+enum Precision { kHighest = 0, kBf16x3 = 1, kBf16x2 = 2, kDefault = 3 };
+
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
 
 // BCSS two-stage coefficient b and 1 - 2b, rounded to float once
 constexpr float kTwoStageB = 0.1931833275037836f;
@@ -111,13 +137,19 @@ struct Args {
 
 // Shared-memory layout, in floats. D: state dims; K: rows of the energy's
 // intermediate (product of t: nbasis; sparse coding: npixels; logreg: nobs).
-template <int E, int D, int K, int C>
+// The f32 parameter copies A1/A2 exist only at kHighest (0 floats at the
+// bf16 precisions, which read the A fragments instead). The bf16 instances
+// add the parameter matrix's A fragments at FRAG, in 32-bit words:
+// contraction 1's hi, contraction 2's hi, then (bf16x3) the two lo copies,
+// each kWords long.
+template <int E, int D, int K, int C, int P>
 struct Layout {
   static_assert(D % 4 == 0 && K % 4 == 0 && C % 2 == 0, "float4 tiles");
   static constexpr int NC = 2 * C;          // trajectory columns
+  static constexpr int kF32 = P == kHighest ? D * K : 0;  // one f32 copy
   static constexpr int A1 = 0;              // [D][K]: W | Φᵀ | Xsᵀ
-  static constexpr int A2 = A1 + D * K;     // [K][D]: Wᵀ | Φ | Xs
-  static constexpr int PATCH = A2 + K * D;  // [K]
+  static constexpr int A2 = A1 + kF32;      // [K][D]: Wᵀ | Φ | Xs
+  static constexpr int PATCH = A2 + kF32;   // [K]
   static constexpr int X = PATCH + K;       // [D][NC] trajectory positions
   static constexpr int V = X + D * NC;      // [D][NC] momenta
   static constexpr int G = V + D * NC;      // [D][NC] gradients
@@ -129,41 +161,95 @@ struct Layout {
   static constexpr int SEL = DWELL + C;     // [NC] choice (NUTS: leaf flag), as int
   static constexpr int MASS = SEL + NC;     // [2D] M^-1, sqrt(M) (1 without)
   static constexpr int FLAG = MASS + 2 * D;  // [NC] NUTS round flags, as int
-  static constexpr int kFloats = FLAG + NC;
+  static constexpr int FRAG = (FLAG + NC + 3) / 4 * 4;  // 16-byte aligned
+  static constexpr int kWords = pad16(K) * pad16(D) / 2;  // one copy of one contraction
+  static constexpr int kCopies = P == kHighest ? 0 : P == kBf16x3 ? 2 : 1;
+  static constexpr int kFloats = P == kHighest ? FLAG + NC : FRAG + 2 * kCopies * kWords;
 };
 
-// out[r][col] = Σ_k A[k][r]·B[k][col] for r < R, col < NC: A is [KD][R],
-// B is [KD][NC], both row-major in shared memory. Each task sums a 4×4
-// tile in registers and hands it to epi(r0, c0, acc). With STUB the sum is
-// replaced by 1e-3·B[0][col] on every row (MatmulEnergySpec._dot's
+// out[r][col] = Σ_k A[k][r]·B[k][col] for r < R, col < NC, handed to
+// epi(r, col, value) element by element: A is [KD][R], B is [KD][NC], both
+// row-major f32 in shared memory.
+//
+// kHighest: each task sums a 4×4 tile in registers in FP32 FMA. With STUB
+// the sum is replaced by 1e-3·B[0][col] on every row (MatmulEnergySpec._dot's
 // stub_dots ablation): the tiles, epilogues and barriers stay, the
 // multiply-adds go.
-template <int KD, int R, int NC, int T, bool STUB, class Epi>
+//
+// The bf16 precisions: warp w takes m16n8 output tiles w, w + T/32, ...;
+// AH (and AL, bf16x3) hold A as bf16 A fragments, the (m-tile, k-tile)
+// fragment at uint4 (mt·KT + kt)·32 + lane (load_params); B's fragments
+// are split from f32 as they load, 0 past row KD. Output rows past R (the
+// padding) are dropped.
+template <int KD, int R, int NC, int T, bool STUB, int P, class Epi>
 __device__ __forceinline__ void contract(const float* __restrict__ A,
+                                         const uint32_t* __restrict__ AH,
+                                         const uint32_t* __restrict__ AL,
                                          const float* __restrict__ B, Epi epi) {
-  constexpr int CG = NC / 4, TASKS = (R / 4) * CG;
-  for (int task = threadIdx.x; task < TASKS; task += T) {
-    const int r0 = (task / CG) * 4, c0 = (task % CG) * 4;
-    float acc[4][4] = {};
-    if constexpr (STUB) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = B[c0 + j] * 1e-3f;
-    } else {
-#pragma unroll 4
-      for (int k = 0; k < KD; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(A + k * R + r0);
-        const float4 b = *reinterpret_cast<const float4*>(B + k * NC + c0);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+  if constexpr (P == kHighest || STUB) {
+    constexpr int CG = NC / 4, TASKS = (R / 4) * CG;
+    for (int task = threadIdx.x; task < TASKS; task += T) {
+      const int r0 = (task / CG) * 4, c0 = (task % CG) * 4;
+      float acc[4][4] = {};
+      if constexpr (STUB) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) acc[i][j] = B[c0 + j] * 1e-3f;
+      } else {
+#pragma unroll 4
+        for (int k = 0; k < KD; ++k) {
+          const float4 a = *reinterpret_cast<const float4*>(A + k * R + r0);
+          const float4 b = *reinterpret_cast<const float4*>(B + k * NC + c0);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+          const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) epi(r0 + i, c0 + j, acc[i][j]);
+    }
+  } else {
+    constexpr int MT = pad16(R) / 16, KT = pad16(KD) / 16, NT = NC / 8;
+    static_assert(NC % 8 == 0, "n-tiles of 8 columns");
+    const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+    const uint4* AH4 = reinterpret_cast<const uint4*>(AH);
+    const uint4* AL4 = reinterpret_cast<const uint4*>(AL);
+    for (int tile = threadIdx.x / 32; tile < MT * NT; tile += T / 32) {
+      const int mt = tile / NT, col = (tile % NT) * 8 + g;
+      float hh[4] = {}, hl[4] = {}, lh[4] = {};
+      auto b_at = [&](int k) { return k < KD ? B[k * NC + col] : 0.f; };
+#pragma unroll 2
+      for (int kt = 0; kt < KT; ++kt) {
+        const int k = 16 * kt + 2 * q;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_bf16(b_at(k), b_at(k + 1), bh0, bl0);
+        split_bf16(b_at(k + 8), b_at(k + 9), bh1, bl1);
+        const uint4 av = AH4[(mt * KT + kt) * 32 + lane];
+        const uint32_t ah[4] = {av.x, av.y, av.z, av.w};
+        mma_bf16(hh, ah, bh0, bh1);
+        if constexpr (P != kDefault) mma_bf16(hl, ah, bl0, bl1);
+        if constexpr (P == kBf16x3) {
+          const uint4 lv = AL4[(mt * KT + kt) * 32 + lane];
+          const uint32_t al[4] = {lv.x, lv.y, lv.z, lv.w};
+          mma_bf16(lh, al, bh0, bh1);
+        }
+      }
+      // rows g and g+8 of the m-tile, columns 2q and 2q+1 of the n-tile
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int r = 16 * mt + g + 8 * (h >> 1), c = (tile % NT) * 8 + 2 * q + (h & 1);
+        float v = hh[h];
+        if constexpr (P == kBf16x3) v = hh[h] + (hl[h] + lh[h]);
+        if constexpr (P == kBf16x2) v = hh[h] + hl[h];
+        if (r < R) epi(r, c, v);
       }
     }
-    epi(r0, c0, acc);
   }
 }
 
@@ -241,20 +327,49 @@ __device__ __forceinline__ float normal_of(const Args& a, uint32_t chain, uint32
   return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2) * sqrt_m;
 }
 
-// The parameter matrix in both orientations, the patch and the mass into
-// the block's shared memory, then a barrier.
-template <int E, int D, int K, int T, bool BR>
+// A[k][m] of contraction c (1: A1, K rows m of D deep; 2: A2, D rows of K
+// deep) read from p0, 0 in the padding
+template <int E, int D, int K>
+__device__ __forceinline__ float param_at(const Args& a, int c, int m, int k) {
+  if (m >= (c == 1 ? K : D) || k >= (c == 1 ? D : K)) return 0.f;
+  if constexpr (E == kProductOfT)  // p0 = W (D, K): A1[k][m] = W[k][m], A2[k][m] = W[m][k]
+    return c == 1 ? a.p0[k * K + m] : a.p0[m * K + k];
+  else  // p0 = Φ or Xs (K, D): A1[k][m] = Φ[m][k], A2[k][m] = Φ[k][m]
+    return c == 1 ? a.p0[m * D + k] : a.p0[k * D + m];
+}
+
+// The parameter matrix in both orientations (P kHighest: f32 at A1, A2;
+// otherwise bf16 A fragments of both contractions at frag: Layout::FRAG),
+// the patch and the mass into the block's shared memory, then a barrier.
+template <int E, int D, int K, int T, bool BR, int P>
 __device__ __forceinline__ void load_params(const Args& a, float* A1, float* A2, float* patch,
-                                            float* IM) {
+                                            float* IM, uint32_t* frag) {
   const int tid = threadIdx.x;
-  for (int idx = tid; idx < D * K; idx += T) {
-    const float val = a.p0[idx];
-    if constexpr (E == kProductOfT) {  // p0 = W (D, K)
-      A1[idx] = val;
-      A2[(idx % K) * D + idx / K] = val;
-    } else {  // p0 = Φ or Xs (K, D)
-      A2[idx] = val;
-      A1[(idx % D) * K + idx / D] = val;
+  if constexpr (P == kHighest) {
+    for (int idx = tid; idx < D * K; idx += T) {
+      const float val = a.p0[idx];
+      if constexpr (E == kProductOfT) {  // p0 = W (D, K)
+        A1[idx] = val;
+        A2[(idx % K) * D + idx / K] = val;
+      } else {  // p0 = Φ or Xs (K, D)
+        A2[idx] = val;
+        A1[(idx % D) * K + idx / D] = val;
+      }
+    }
+  } else {
+    // word w of contraction c: register h of lane (g, q) of fragment
+    // (mt, kt), holding A[k][m], A[k+1][m] (contract's A-fragment order)
+    constexpr int W = Layout<E, D, K, 16, P>::kWords;
+    for (int w = tid; w < 2 * W; w += T) {
+      const int c = w < W ? 1 : 2, wi = w % W;
+      const int kt_count = pad16(c == 1 ? D : K) / 16;
+      const int h = wi % 4, lane = (wi / 4) % 32, blk = wi / 128;
+      const int mt = blk / kt_count, kt = blk % kt_count, g = lane / 4, q = lane % 4;
+      const int m = 16 * mt + g + 8 * (h & 1), k = 16 * kt + 8 * (h >> 1) + 2 * q;
+      uint32_t hi, lo;
+      split_bf16(param_at<E, D, K>(a, c, m, k), param_at<E, D, K>(a, c, m, k + 1), hi, lo);
+      frag[w] = hi;
+      if constexpr (P == kBf16x3) frag[2 * W + w] = lo;
     }
   }
   if constexpr (E == kSparseCoding)
@@ -301,14 +416,19 @@ __device__ __forceinline__ void kick_drift_tile(float* X, float* V, const float*
   __syncthreads();
 }
 
-// g = ∇U(X) on all columns by the energy's two contractions, then the
-// closing kick v −= c_kick·g, then a barrier. MASK (NUTS): the columns
-// whose live flag is 0 keep g and v (y, r or z is written on every column).
-template <int E, int D, int K, int NC, int T, bool STUB, bool MASK>
+// g = ∇U(X) on all columns by the energy's two contractions at precision P
+// (frag: the bf16 fragments, Layout::FRAG), then the closing kick v −=
+// c_kick·g, then a barrier. MASK (NUTS): the columns whose live flag is 0
+// keep g and v (y, r or z is written on every column).
+template <int E, int D, int K, int NC, int T, bool STUB, bool MASK, int P>
 __device__ __forceinline__ void force_kick_tile(const float* A1, const float* A2,
-                                                const float* patch, const float* X, float* V,
-                                                float* G, float* Y, float* Z, const int* live,
-                                                const Args& a, float c_kick) {
+                                                const uint32_t* frag, const float* patch,
+                                                const float* X, float* V, float* G, float* Y,
+                                                float* Z, const int* live, const Args& a,
+                                                float c_kick) {
+  // hi and lo fragments of contraction 1 (A1) and 2 (A2)
+  constexpr int W = Layout<E, D, K, NC / 2, P>::kWords;
+  const uint32_t *h1 = frag, *h2 = frag + W, *l1 = frag + 2 * W, *l2 = frag + 3 * W;
   // the closing kick of element idx with gradient gv
   auto kick = [&](int idx, int col, float gv) {
     if (MASK && !live[col]) return;
@@ -317,68 +437,37 @@ __device__ __forceinline__ void force_kick_tile(const float* A1, const float* A2
   };
   if constexpr (E == kProductOfT) {
     // y = Wᵀx; keep y (for the energies) and dU/dy
-    contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float y = acc[i][j];
-          Y[(r0 + i) * NC + c0 + j] = y;
-          Z[(r0 + i) * NC + c0 + j] = a.k0 * y / (a.k1 + y * y);
-        }
+    contract<D, K, NC, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float y) {
+      Y[r * NC + c] = y;
+      Z[r * NC + c] = a.k0 * y / (a.k1 + y * y);
     });
     __syncthreads();
     // g = W·dU/dy, and the closing kick
-    contract<K, D, NC, T, STUB>(A2, Z, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kick((r0 + i) * NC + c0 + j, c0 + j, acc[i][j]);
-    });
+    contract<K, D, NC, T, STUB, P>(A2, h2, l2, Z,
+                                   [&](int r, int c, float gv) { kick(r * NC + c, c, gv); });
   } else if constexpr (E == kSparseCoding) {
     // r = patch − Φa
-    contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Y[(r0 + i) * NC + c0 + j] = patch[r0 + i] - acc[i][j];
-    });
+    contract<D, K, NC, T, STUB, P>(A1, h1, l1, X,
+                                   [&](int r, int c, float v) { Y[r * NC + c] = patch[r] - v; });
     __syncthreads();
     // g = λ·a/√(a²+ε) − σ⁻²·Φᵀr, and the closing kick
-    contract<K, D, NC, T, STUB>(A2, Y, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int idx = (r0 + i) * NC + c0 + j;
-          const float av = X[idx];
-          const float s = sqrtf(av * av + a.k3);
-          kick(idx, c0 + j, a.k0 * (av / s) - a.k1 * acc[i][j]);
-        }
+    contract<K, D, NC, T, STUB, P>(A2, h2, l2, Y, [&](int r, int c, float v) {
+      const int idx = r * NC + c;
+      const float av = X[idx];
+      const float s = sqrtf(av * av + a.k3);
+      kick(idx, c, a.k0 * (av / s) - a.k1 * v);
     });
   } else {
     // z = Xs·θ; keep z (for the energies) and σ(z)
-    contract<D, K, NC, T, STUB>(A1, X, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float z = acc[i][j];
-          Y[(r0 + i) * NC + c0 + j] = z;
-          Z[(r0 + i) * NC + c0 + j] = 1.0f / (1.0f + expf(-z));
-        }
+    contract<D, K, NC, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float z) {
+      Y[r * NC + c] = z;
+      Z[r * NC + c] = 1.0f / (1.0f + expf(-z));
     });
     __syncthreads();
     // g = Xsᵀσ(z) + θ/σ₀², and the closing kick
-    contract<K, D, NC, T, STUB>(A2, Z, [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int idx = (r0 + i) * NC + c0 + j;
-          kick(idx, c0 + j, acc[i][j] + X[idx] * a.k0);
-        }
+    contract<K, D, NC, T, STUB, P>(A2, h2, l2, Z, [&](int r, int c, float v) {
+      const int idx = r * NC + c;
+      kick(idx, c, v + X[idx] * a.k0);
     });
   }
   __syncthreads();
@@ -389,9 +478,9 @@ __device__ __forceinline__ void force_kick_tile(const float* A1, const float* A2
 // BR=false compiles neither the mass nor the two-stage integrator (MJHMC's
 // fast path, as the TPU kernel compiles them statically); BR=true takes
 // both from the arguments.
-template <int E, int D, int K, int C, int T, int VAR, bool EMIT, bool STUB, bool BR>
+template <int E, int D, int K, int C, int T, int VAR, bool EMIT, bool STUB, bool BR, int P>
 __global__ void __launch_bounds__(T) mm_kernel(Args a) {
-  using L = Layout<E, D, K, C>;
+  using L = Layout<E, D, K, C, P>;
   constexpr int NC = L::NC;
   constexpr bool MJ = VAR == kMjhmc;
   constexpr int CH = MJ ? C : NC;           // chains per block
@@ -413,6 +502,7 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
   float* dwell_s = sm + L::DWELL;
   int* sel_s = reinterpret_cast<int*>(sm + L::SEL);
   float* IM = sm + L::MASS;  // [D] M^-1, then [D] sqrt(M)
+  uint32_t* frag = reinterpret_cast<uint32_t*>(sm + L::FRAG);  // bf16 instances
   float* SQM = IM + D;
 
   const int tid = threadIdx.x;
@@ -421,7 +511,7 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
   const float eps = a.eps, he = 0.5f * a.eps;
   const uint2 key = make_uint2(a.seed, 0u);
 
-  load_params<E, D, K, T, BR>(a, A1, A2, patch, IM);
+  load_params<E, D, K, T, BR, P>(a, A1, A2, patch, IM, frag);
 
   // owned elements e = tid + k·T: dim e / CH, chain e % CH of the tile; the
   // chains past n (ragged last tile) run on zeros and are never stored
@@ -470,8 +560,8 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
     kick_drift_tile<D, NC, T, BR, false>(X, V, G, IM, nullptr, kick, c_kick, c_drift);
   };
   auto force_kick = [&](float c_kick) {
-    force_kick_tile<E, D, K, NC, T, STUB, false>(A1, A2, patch, X, V, G, Y, Z, nullptr, a,
-                                                 c_kick);
+    force_kick_tile<E, D, K, NC, T, STUB, false, P>(A1, A2, frag, patch, X, V, G, Y, Z,
+                                                    nullptr, a, c_kick);
   };
   // one integrator step on all columns: leapfrog, or the two-stage splitting
   auto integrator_step = [&]() {
@@ -749,10 +839,10 @@ __device__ __forceinline__ float uniform(const Args& a, uint32_t word) {
 
 }  // namespace nuts
 
-template <int E, int D, int K, int C, int T, bool EMIT, bool BR>
+template <int E, int D, int K, int C, int T, bool EMIT, bool BR, int P>
 __global__ void __launch_bounds__(T) nuts_mm_kernel(Args a) {
   using namespace nuts;
-  using L = Layout<E, D, K, C>;
+  using L = Layout<E, D, K, C, P>;
   constexpr int NC = L::NC;                 // chains per block, one column each
   constexpr int NE = (D * NC + T - 1) / T;  // (dim, chain) elements per thread
   static_assert(T >= NC, "one thread per column");
@@ -770,6 +860,7 @@ __global__ void __launch_bounds__(T) nuts_mm_kernel(Args a) {
   int* leaf_s = reinterpret_cast<int*>(sm + L::SEL);  // Leaf per column
   int* flag_s = reinterpret_cast<int*>(sm + L::FLAG);  // Flag bits per column
   float* IM = sm + L::MASS;  // [D] M^-1, then [D] sqrt(M)
+  uint32_t* frag = reinterpret_cast<uint32_t*>(sm + L::FRAG);  // bf16 instances
   float* SQM = IM + D;
 
   const int tid = threadIdx.x;
@@ -779,7 +870,7 @@ __global__ void __launch_bounds__(T) nuts_mm_kernel(Args a) {
   const float eps = a.eps, he = 0.5f * a.eps;
   const uint2 key = make_uint2(a.seed, 0u);
 
-  load_params<E, D, K, T, BR>(a, A1, A2, patch, IM);
+  load_params<E, D, K, T, BR, P>(a, A1, A2, patch, IM, frag);
 
   // scratch row r, dim i of tile chain c
   auto srow = [&](int r, int i, int c) -> float& {
@@ -885,8 +976,8 @@ __global__ void __launch_bounds__(T) nuts_mm_kernel(Args a) {
         if (tid < NC) leaf_s[tid] = act ? kLive : kIdle;
         if (!__syncthreads_or(act)) break;
         kick_drift_tile<D, NC, T, BR, true>(X, V, G, IM, leaf_s, true, he, eps);
-        force_kick_tile<E, D, K, NC, T, false, true>(A1, A2, patch, X, V, G, Y, Z, leaf_s, a,
-                                                     he);
+        force_kick_tile<E, D, K, NC, T, false, true, P>(A1, A2, frag, patch, X, V, G, Y, Z,
+                                                        leaf_s, a, he);
         // the leaf's energy, divergence and progressive multinomial sampling
         bool div = false;
         if (act) {
@@ -1027,15 +1118,15 @@ __global__ void __launch_bounds__(T) nuts_mm_kernel(Args a) {
   }
 }
 
-template <int E, int D, int K, int C, int T, int VAR, bool EMIT, bool STUB, bool BR>
+template <int E, int D, int K, int C, int T, int VAR, bool EMIT, bool STUB, bool BR, int P>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t bytes = Layout<E, D, K, C>::kFloats * sizeof(float);
+  constexpr size_t bytes = Layout<E, D, K, C, P>::kFloats * sizeof(float);
   constexpr int CH = VAR == kMjhmc ? C : 2 * C;  // chains per block
   void (*kernel)(Args);
   if constexpr (VAR == kNuts)
-    kernel = nuts_mm_kernel<E, D, K, C, T, EMIT, BR>;
+    kernel = nuts_mm_kernel<E, D, K, C, T, EMIT, BR, P>;
   else
-    kernel = mm_kernel<E, D, K, C, T, VAR, EMIT, STUB, BR>;
+    kernel = mm_kernel<E, D, K, C, T, VAR, EMIT, STUB, BR, P>;
   // above 48 KB a block's shared memory must be asked for
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1044,28 +1135,87 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the run and stream instances of one energy shape and variant; MJHMC and
+// The presets' shapes, one per energy: D state dims, K rows of the
+// intermediate, T threads a block; every tile is C = 16 chains (NC = 32
+// trajectory columns)
+template <int E> struct Shape;
+template <> struct Shape<kProductOfT> { static constexpr int D = 36, K = 36, T = 96; };
+template <> struct Shape<kSparseCoding> { static constexpr int D = 128, K = 64, T = 256; };
+template <> struct Shape<kLogreg> { static constexpr int D = 16, K = 256, T = 128; };
+constexpr int kC = 16;
+
+// Step body VAR of energy E at precision P, run or stream (emit): MJHMC and
 // NUTS without a mass and with the leapfrog take their fast-path instances
-// (NUTS takes no other integrator)
-template <int E, int D, int K, int C, int T, int VAR>
-cudaError_t launch_emit(const Args& a, bool emit, cudaStream_t s) {
+// (BR=false; NUTS takes no other integrator), the rest the BR=true ones.
+template <int E, int P, int VAR>
+cudaError_t launch_body(const Args& a, bool emit, cudaStream_t s) {
+  using S = Shape<E>;
   if constexpr (VAR == kMjhmc || VAR == kNuts) {
     if (!a.mass && !a.two_stage)
-      return emit ? launch<E, D, K, C, T, VAR, true, false, false>(a, s)
-                  : launch<E, D, K, C, T, VAR, false, false, false>(a, s);
+      return emit ? launch<E, S::D, S::K, kC, S::T, VAR, true, false, false, P>(a, s)
+                  : launch<E, S::D, S::K, kC, S::T, VAR, false, false, false, P>(a, s);
   }
-  return emit ? launch<E, D, K, C, T, VAR, true, false, true>(a, s)
-              : launch<E, D, K, C, T, VAR, false, false, true>(a, s);
+  return emit ? launch<E, S::D, S::K, kC, S::T, VAR, true, false, true, P>(a, s)
+              : launch<E, S::D, S::K, kC, S::T, VAR, false, false, true, P>(a, s);
 }
 
-// the sparse-coding and logistic-regression instances
-// (mm_engine_sparse_coding.cu, mm_engine_logreg.cu), and the NUTS
-// instances of each energy (mm_nuts_*.cu)
-cudaError_t launch_sparse_coding(int variant, const Args& a, bool emit, cudaStream_t s);
-cudaError_t launch_logreg(int variant, const Args& a, bool emit, cudaStream_t s);
-cudaError_t launch_nuts_product_of_t(const Args& a, bool emit, cudaStream_t s);
-cudaError_t launch_nuts_sparse_coding(const Args& a, bool emit, cudaStream_t s);
-cudaError_t launch_nuts_logreg(const Args& a, bool emit, cudaStream_t s);
+// The precision sweep's instances: the MJHMC leapfrog run without a mass
+// of energy E at precision P (anything else is refused)
+template <int E, int P>
+cudaError_t launch_sweep(const Args& a, bool emit, cudaStream_t s) {
+  using S = Shape<E>;
+  if (emit || a.mass || a.two_stage) return cudaErrorInvalidValue;
+  return launch<E, S::D, S::K, kC, S::T, kMjhmc, false, false, false, P>(a, s);
+}
+
+// The instances, each compiled in the source named beside it (an instance
+// declared here and compiled nowhere fails the build's link): every body at
+// kHighest and at the JAX preset's default precision (ProductOfTSpec and
+// LogregSpec "default", SparseCodingSpec "bf16x3"), and the sweep's other
+// two precisions of product of t and sparse coding
+// (cuda_mjhmc.MM_KERNEL_PRECISIONS)
+using Launch = cudaError_t(const Args&, bool, cudaStream_t);
+// mjhmc_mm_engine.cu
+extern template Launch launch_body<kProductOfT, kHighest, kMjhmc>;
+extern template Launch launch_body<kProductOfT, kHighest, kControl>;
+extern template Launch launch_body<kProductOfT, kHighest, kMalt>;
+// mm_nuts_product_of_t.cu
+extern template Launch launch_body<kProductOfT, kHighest, kNuts>;
+// mm_engine_sparse_coding.cu
+extern template Launch launch_body<kSparseCoding, kHighest, kMjhmc>;
+extern template Launch launch_body<kSparseCoding, kHighest, kControl>;
+extern template Launch launch_body<kSparseCoding, kHighest, kMalt>;
+// mm_nuts_sparse_coding.cu
+extern template Launch launch_body<kSparseCoding, kHighest, kNuts>;
+// mm_engine_logreg.cu
+extern template Launch launch_body<kLogreg, kHighest, kMjhmc>;
+extern template Launch launch_body<kLogreg, kHighest, kControl>;
+extern template Launch launch_body<kLogreg, kHighest, kMalt>;
+// mm_nuts_logreg.cu
+extern template Launch launch_body<kLogreg, kHighest, kNuts>;
+// mm_engine_product_of_t_default.cu
+extern template Launch launch_body<kProductOfT, kDefault, kMjhmc>;
+extern template Launch launch_body<kProductOfT, kDefault, kControl>;
+extern template Launch launch_body<kProductOfT, kDefault, kMalt>;
+// mm_nuts_product_of_t_default.cu
+extern template Launch launch_body<kProductOfT, kDefault, kNuts>;
+// mm_engine_sparse_coding_bf16x3.cu
+extern template Launch launch_body<kSparseCoding, kBf16x3, kMjhmc>;
+extern template Launch launch_body<kSparseCoding, kBf16x3, kControl>;
+extern template Launch launch_body<kSparseCoding, kBf16x3, kMalt>;
+// mm_nuts_sparse_coding_bf16x3.cu
+extern template Launch launch_body<kSparseCoding, kBf16x3, kNuts>;
+// mm_engine_logreg_default.cu
+extern template Launch launch_body<kLogreg, kDefault, kMjhmc>;
+extern template Launch launch_body<kLogreg, kDefault, kControl>;
+extern template Launch launch_body<kLogreg, kDefault, kMalt>;
+// mm_nuts_logreg_default.cu
+extern template Launch launch_body<kLogreg, kDefault, kNuts>;
+// mm_sweep.cu
+extern template Launch launch_sweep<kProductOfT, kBf16x3>;
+extern template Launch launch_sweep<kProductOfT, kBf16x2>;
+extern template Launch launch_sweep<kSparseCoding, kBf16x2>;
+extern template Launch launch_sweep<kSparseCoding, kDefault>;
 
 }  // namespace mm
 }  // namespace mjhmc

@@ -1,0 +1,13 @@
+// The NUTS instances of the matmul kernel (nuts_mm_kernel in
+// mjhmc_mm_engine.cuh) for the sparse_coding preset, (128, 64), at its JAX default
+// dot precision, "bf16x3": run and stream, with and without an inverse
+// mass, compiled by their own nvcc.
+#include "mjhmc_mm_engine.cuh"
+
+namespace mjhmc {
+namespace mm {
+
+template Launch launch_body<kSparseCoding, kBf16x3, kNuts>;
+
+}  // namespace mm
+}  // namespace mjhmc

@@ -51,7 +51,8 @@ LAUNCH_ARGTYPES = (
 )
 #: argument types of ``mjhmc_mm_engine_launch`` (csrc/mjhmc_mm_engine.cu)
 MM_LAUNCH_ARGTYPES = (
-    [_I, _I, _I, _I, _I, _P, _P] + [_F] * 4  # energy, ndims, krows, stub, variant, p0, p1, k0..k3
+    # energy, ndims, krows, stub, variant, precision, p0, p1, k0..k3
+    [_I, _I, _I, _I, _I, _I, _P, _P] + [_F] * 4
     + [_P, _I, _P]  # mass, two_stage, scratch (NUTS)
     + _STATE_AND_RUN
 )

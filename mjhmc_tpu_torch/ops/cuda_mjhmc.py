@@ -30,7 +30,9 @@ Gaussian, funnel, banana, Gaussian mixture, eight schools in both
 parameterizations; one thread per chain; C entry ``csrc/mjhmc_engine.cu``) and
 ``csrc/mjhmc_mm_engine.cuh`` for the matmul energies (product of t, sparse
 coding, logistic regression; tiles of chains per block, the parameter
-matrix in shared memory; C entry ``csrc/mjhmc_mm_engine.cu``). Beside them this module holds
+matrix in shared memory; contractions at the spec's dot ``precision``, full
+f32 in FP32 FMA or bf16 passes on the tensor cores, ``MM_KERNEL_PRECISIONS``;
+C entry ``csrc/mjhmc_mm_engine.cu``). Beside them this module holds
 their plain PyTorch versions (``run_reference`` / ``stream_reference``, one
 for both kinds) with the same contract. The wrappers ``cuda_mjhmc_run`` /
 ``cuda_mjhmc_stream_run`` (elementwise) and ``cuda_mjhmc_mm_run`` /
@@ -401,15 +403,45 @@ class EightSchoolsSpec:
 # matmul energies: the state is (..., d, n) and the parameters are whole
 # matrices. On the GPU the forward and backward trajectories are simply
 # more columns of the same product, so the TPU's block-diagonal pair
-# operands, sublane pads and dot-precision knob have no counterpart here.
-def _contract(stub: bool, m: Tensor, b: Tensor) -> Tensor:
-    """m @ b; with ``stub`` (the ``stub_dots`` ablation of
+# operands and sublane pads have no counterpart here. The dot precision
+# does: each spec carries JAX's ``precision`` with JAX's default, and the
+# kernel computes the same bf16 passes on the tensor cores.
+#: the dot precisions (MatmulEnergySpec._dot, mjhmc_tpu/ops/pallas_mjhmc.py:
+#: 282-375), numbered as the kernel's: "highest" full f32, "bf16x3" three
+#: bf16 passes hi·hi + (hi·lo + lo·hi), "bf16x2" two passes hi·(hi + lo)
+#: with only the parameter matrix rounded, "default" one bf16 pass
+PRECISIONS = ("highest", "bf16x3", "bf16x2", "default")
+
+
+def _split_bf16(t: Tensor) -> tuple:
+    """(hi, lo) in float32: hi = bf16(t), lo = bf16(t − hi), both rounded to
+    nearest even, as ``_dot_bf16x3`` splits."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _contract(stub: bool, m: Tensor, b: Tensor, precision: str = "highest") -> Tensor:
+    """m @ b at ``precision`` (``PRECISIONS``), the parameter matrix ``m``
+    first as in JAX; with ``stub`` (the ``stub_dots`` ablation of
     ``MatmulEnergySpec._dot``) 1e-3·(row 0 of b) on each of m's rows, for
-    each trajectory on its own (JAX's ``has_pair=False`` form)."""
-    if not stub:
+    each trajectory on its own (JAX's ``has_pair=False`` form). The bf16
+    passes multiply bf16-valued float32 tensors (the products are exact;
+    the callers turn TF32 off), never bf16 tensors, whose matmul would round
+    its output to bf16."""
+    if stub:
+        row = b[..., :1, :] * torch.tensor(1e-3, dtype=b.dtype, device=b.device)
+        return row.expand(*b.shape[:-2], m.shape[-2], b.shape[-1])
+    if precision == "highest":
         return torch.matmul(m, b)
-    row = b[..., :1, :] * torch.tensor(1e-3, dtype=b.dtype, device=b.device)
-    return row.expand(*b.shape[:-2], m.shape[-2], b.shape[-1])
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown dot precision {precision!r}; the kernel has {PRECISIONS}")
+    m_hi, m_lo = _split_bf16(m)
+    b_hi, b_lo = _split_bf16(b)
+    if precision == "default":
+        return torch.matmul(m_hi, b_hi)
+    if precision == "bf16x2":
+        return torch.matmul(m_hi, b_hi) + torch.matmul(m_hi, b_lo)
+    return torch.matmul(m_hi, b_hi) + (torch.matmul(m_hi, b_lo) + torch.matmul(m_lo, b_hi))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -417,6 +449,8 @@ class ProductOfTSpec:
     """y = Wᵀx, g = W·(ν+1)y/(ν+y²), U = ½(ν+1)·Σ log1p(y²/ν)."""
 
     dist: ProductOfT
+    #: the dot precision (``PRECISIONS``): JAX's default, one bf16 pass
+    precision: str = "default"
     #: ablation: stub both contractions (the dossier's non-matmul floor)
     stub_dots: bool = False
     energy_id: ClassVar[int] = 0
@@ -434,12 +468,12 @@ class ProductOfTSpec:
 
     def du(self, x, w):
         nu = self.dist.nu
-        y = _contract(self.stub_dots, w.T, x)
-        return _contract(self.stub_dots, w, (nu + 1.0) * y / (nu + y * y))
+        y = _contract(self.stub_dots, w.T, x, self.precision)
+        return _contract(self.stub_dots, w, (nu + 1.0) * y / (nu + y * y), self.precision)
 
     def u_sum(self, x, w):
         nu = self.dist.nu
-        y = _contract(self.stub_dots, w.T, x)
+        y = _contract(self.stub_dots, w.T, x, self.precision)
         return 0.5 * (nu + 1.0) * torch.log1p(y * y * (1.0 / nu)).sum(dim=-2)
 
 
@@ -448,6 +482,9 @@ class SparseCodingSpec:
     """r = patch − Φa, g = λa/√(a²+ε) − σ⁻²Φᵀr, U = λΣ√(a²+ε) + ½σ⁻²‖r‖²."""
 
     dist: SparseCoding
+    #: the dot precision: JAX's default, three bf16 passes (the fit term
+    #: multiplies the residual's error by σ⁻² = 100)
+    precision: str = "bf16x3"
     #: ablation: stub both contractions
     stub_dots: bool = False
     energy_id: ClassVar[int] = 1
@@ -465,13 +502,14 @@ class SparseCodingSpec:
         return (d.lam, 1.0 / d.sigma**2, 0.5 / d.sigma**2, d.smooth_eps)
 
     def _resid(self, a, phi, patch):
-        return patch[:, None] - _contract(self.stub_dots, phi, a)
+        return patch[:, None] - _contract(self.stub_dots, phi, a, self.precision)
 
     def du(self, a, phi, patch):
         d = self.dist
         s = torch.sqrt(a * a + d.smooth_eps)
         r = self._resid(a, phi, patch)
-        return d.lam * (a / s) - (1.0 / d.sigma**2) * _contract(self.stub_dots, phi.T, r)
+        return d.lam * (a / s) - (1.0 / d.sigma**2) * _contract(self.stub_dots, phi.T, r,
+                                                                 self.precision)
 
     def u_sum(self, a, phi, patch):
         d = self.dist
@@ -487,6 +525,8 @@ class LogregSpec:
     softplus(z) + ½σ₀⁻²‖θ‖², softplus(z) = max(z, 0) + log1p(e^{−|z|})."""
 
     dist: LogisticRegression
+    #: the dot precision: JAX's default, one bf16 pass (the logits are O(1))
+    precision: str = "default"
     energy_id: ClassVar[int] = 2
 
     def param_arrays(self) -> list:
@@ -502,12 +542,12 @@ class LogregSpec:
         return (1.0 / p**2, 0.5 / p**2, 0.0, 0.0)
 
     def du(self, th, xs):
-        z = torch.matmul(xs, th)
+        z = _contract(False, xs, th, self.precision)
         sig = 1.0 / (1.0 + torch.exp(-z))
-        return torch.matmul(xs.T, sig) + th * (1.0 / self.dist.prior_scale**2)
+        return _contract(False, xs.T, sig, self.precision) + th * (1.0 / self.dist.prior_scale**2)
 
     def u_sum(self, th, xs):
-        z = torch.matmul(xs, th)
+        z = _contract(False, xs, th, self.precision)
         sp = z.clamp(min=0.0) + torch.log1p(torch.exp(-z.abs()))
         return sp.sum(dim=-2) + (0.5 / self.dist.prior_scale**2) * (th * th).sum(dim=-2)
 
@@ -521,10 +561,23 @@ MATMUL_SPECS = (ProductOfTSpec, SparseCodingSpec, LogregSpec)
 KERNEL_DIMS = {RoughWellSpec: (2, 50), GaussianSpec: (2, 50), FunnelSpec: (10,),
                BananaSpec: (2,), MogSpec: (1,), EightSchoolsSpec: (10,)}
 #: (ndims, aux rows) the matmul kernel is instantiated for, per spec
-#: (csrc/mjhmc_mm_engine.cu, mm_engine_sparse_coding.cu, mm_engine_logreg.cu):
-#: the product_of_t, sparse_coding and logreg presets
+#: (csrc/mjhmc_mm_engine.cuh lists the sources): the product_of_t,
+#: sparse_coding and logreg presets
 MM_KERNEL_SHAPES = {ProductOfTSpec: (36, 36), SparseCodingSpec: (128, 64),
                     LogregSpec: (16, 256)}
+#: what the matmul kernel is instantiated for at each dot precision, per
+#: spec: every body and branch (run and stream, with a mass, two-stage) at
+#: "highest" and at the JAX preset's default; the precision sweep's MJHMC
+#: leapfrog run without a mass at the other two of product of t and sparse
+#: coding (bench_mm_precision.py)
+ALL_BODIES, SWEEP_RUN = "every body and branch", "the MJHMC leapfrog run without a mass"
+MM_KERNEL_PRECISIONS = {
+    ProductOfTSpec: {"highest": ALL_BODIES, "default": ALL_BODIES,
+                     "bf16x3": SWEEP_RUN, "bf16x2": SWEEP_RUN},
+    SparseCodingSpec: {"highest": ALL_BODIES, "bf16x3": ALL_BODIES,
+                       "bf16x2": SWEEP_RUN, "default": SWEEP_RUN},
+    LogregSpec: {"highest": ALL_BODIES, "default": ALL_BODIES},
+}
 
 _FUSED_ENERGIES = (
     "the engines have the rough_well, gaussian, funnel, banana, mog and "
@@ -604,6 +657,28 @@ def _check_slice(spec, variant, integrator, inv_mass, kinds):
         raise NotImplementedError(
             "the stub_dots ablation runs the MJHMC leapfrog body without a mass "
             "(the roofline dossier's row)")
+    if isinstance(spec, MATMUL_SPECS) and spec.precision not in PRECISIONS:
+        raise ValueError(f"unknown dot precision {spec.precision!r}; the matmul kernel has "
+                         f"{PRECISIONS}")
+
+
+def check_mm_precision(spec, variant, integrator, inv_mass, emit) -> None:
+    """Refuse a (body, precision) pair the matmul kernel has no instance
+    for (``MM_KERNEL_PRECISIONS``); the stub has no contraction, so no
+    precision."""
+    if getattr(spec, "stub_dots", False):
+        return
+    table = MM_KERNEL_PRECISIONS[type(spec)]
+    have = table.get(spec.precision)
+    run_only = variant == "mjhmc" and integrator == "leapfrog" and inv_mass is None and not emit
+    if have is None or (have == SWEEP_RUN and not run_only):
+        what = (f"the {variant} {'stream' if emit else 'run'}"
+                f"{' with a mass' if inv_mass is not None else ''}"
+                f"{' (two-stage)' if integrator == 'two_stage' else ''}")
+        raise NotImplementedError(
+            f"the matmul kernel has no instance for {what} of {type(spec).__name__} at "
+            f"precision {spec.precision!r}: cuda_mjhmc.MM_KERNEL_PRECISIONS has "
+            f"{table}")
 
 
 # --------------------------------------------------------------------------
@@ -1164,8 +1239,9 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             raise NotImplementedError(
                 f"the matmul kernel is instantiated for {type(spec).__name__} at "
                 f"(ndims, aux rows) = {MM_KERNEL_SHAPES[type(spec)]}, not {shape} "
-                "(ROADMAP.md, 'TPU kernels to port', item 5)"
+                "(ROADMAP.md, 'TPU kernels to port': other shapes)"
             )
+        check_mm_precision(spec, variant, integrator, inv_mass, num_emits is not None)
     else:
         check_kernel_dims(spec, d)
     if variant == "nuts" and not 1 <= m <= NUTS_MAX_DEPTH:
@@ -1227,7 +1303,8 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                                   device=x.device)
         rc = lib.mjhmc_mm_engine_launch(
             spec.energy_id, d, spec.aux_rows(), int(getattr(spec, "stub_dots", False)),
-            KERNEL_VARIANTS[variant], p0.data_ptr(), None if p1 is None else p1.data_ptr(),
+            KERNEL_VARIANTS[variant], PRECISIONS.index(spec.precision),
+            p0.data_ptr(), None if p1 is None else p1.data_ptr(),
             *spec.constants(), *branches, None if scratch is None else scratch.data_ptr(),
             *ptrs, *tail,
         )
@@ -1244,9 +1321,11 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
 
 #: each wrapper's launch counts: one per step body (``launches`` is MJHMC's,
 #: ``stub_launches`` the stubbed matmul kernel's), and the launches that
-#: took the two-stage integrator or an inverse mass, counted besides
+#: took the two-stage integrator or an inverse mass, and (matmul kernel,
+#: not the stub) those at each dot precision, counted besides
 COUNTS = ("launches", "control_launches", "malt_launches", "nuts_launches",
-          "stub_launches", "two_stage_launches", "mass_launches")
+          "stub_launches", "two_stage_launches", "mass_launches",
+          *(f"{p}_launches" for p in PRECISIONS))
 
 
 def _count(wrapper, spec, variant, integrator, inv_mass) -> None:
@@ -1263,6 +1342,9 @@ def _count(wrapper, spec, variant, integrator, inv_mass) -> None:
         wrapper.two_stage_launches += 1
     if inv_mass is not None:
         wrapper.mass_launches += 1
+    if isinstance(spec, MATMUL_SPECS) and not getattr(spec, "stub_dots", False):
+        name = f"{spec.precision}_launches"
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def reset_counts() -> None:
@@ -1375,6 +1457,11 @@ class CudaMJHMC:
     ``inv_mass``: a per-dim diagonal M⁻¹ (Stan convention: the target's
     variances); the initial momenta are then drawn from N(0, M).
     ``integrator``: "leapfrog" or "two_stage" (2 gradients per step).
+    A matmul energy contracts at its spec's JAX default precision
+    (product of t and logreg one bf16 pass, sparse coding bf16x3); another
+    is picked as in JAX, ``eng.spec = dataclasses.replace(eng.spec,
+    precision="highest")`` (``PRECISIONS``; ``MM_KERNEL_PRECISIONS`` says
+    which bodies the kernel has at each).
     """
 
     distribution: object

@@ -3,10 +3,11 @@ the JAX one (root ``bench_mfu.py``), on the CPU.
 
 Both ``engine_rows`` run with their timers and engines replaced by fakes
 (no kernel runs here), so that the rows' op counts and keys can be held
-against each other: the port keeps the JAX op counts exactly, renames
-``pair=on`` to ``full`` and ``[bf16x3]`` to ``[fp32]``, and drops the
-``pair=off`` row. ``main`` exits 1 without a CUDA device and writes a file
-only when ``--json-out`` is given.
+against each other: the port keeps the JAX op counts exactly and the
+presets' JAX default precisions (product of t one bf16 pass, sparse coding
+``[bf16x3]``, executed FLOPs 3× the useful ones), renames ``pair=on`` to
+``full`` and drops the ``pair=off`` row. ``main`` exits 1 without a CUDA
+device and writes a file only when ``--json-out`` is given.
 """
 
 import json
@@ -30,7 +31,7 @@ ROWS = {
     "mjhmc_product_of_t[full]": "mjhmc_product_of_t[pair=on]",
     "mjhmc_product_of_t[dots=stubbed]": "mjhmc_product_of_t[dots=stubbed]",
     "mjhmc_product_of_t[ablation_verdict]": "mjhmc_product_of_t[ablation_verdict]",
-    "mjhmc_sparse_coding[fp32]": "mjhmc_sparse_coding[bf16x3]",
+    "mjhmc_sparse_coding[bf16x3]": "mjhmc_sparse_coding[bf16x3]",
     "nuts_gauss2d_elementwise": "nuts_gauss2d_elementwise",
 }
 COUNTS = ("flops_per_iteration", "transcendentals_per_iteration",
@@ -80,10 +81,14 @@ def test_engine_rows_keep_the_jax_op_counts_and_keys(monkeypatch):
     assert bench_mfu.PRODUCT_OF_T_MM_FLOPS == 103_680
     assert bench_mfu.SPARSE_CODING_MM_FLOPS == 655_360
     assert bench_mfu.NUTS_FLOPS_PER_LEAF == 60
-    # fp32 single passes: executed FLOPs are the useful ones (3× on the TPU)
+    # the presets' precisions: bf16x3 executes 3× the useful FLOPs, as on
+    # the TPU; product of t one pass
     sc = rows[4]
-    assert sc["matmul_flops_per_iteration_executed"] == sc["matmul_flops_per_iteration_useful"]
+    assert sc["precision"] == "bf16x3" and rows[1]["precision"] == "default"
+    assert sc["matmul_flops_per_iteration_executed"] == 3 * sc["matmul_flops_per_iteration_useful"]
     assert jrows["mjhmc_sparse_coding[bf16x3]"]["matmul_flops_per_iteration_executed"] == 3 * 655_360
+    assert (rows[0]["ceiling"], rows[1]["ceiling"], sc["ceiling"], rows[5]["ceiling"]) == (
+        "fp32_fma", "tc_mma_sync", "tc_mma_sync", "fp32_fma")
     # the stubbed row ran the stub: its spec carries the flag
     assert rows[2]["matmul_flops_per_iteration"] == 0
     assert rows[5]["tree_leaves_per_s"] == 10_240 and rows[5]["warp_leaf_utilization"] == 0.5
@@ -99,8 +104,9 @@ def test_main_exits_1_without_a_cuda_device(monkeypatch, tmp_path, capsys):
 
 @pytest.mark.parametrize("json_out", [False, True])
 def test_main_shares_against_the_fp32_ceiling(monkeypatch, tmp_path, capsys, json_out):
-    """mfu = achieved / the FP32 FMA ceiling on each row with FLOPs, the
-    rough well's sinf share against the sinf ceiling; a file only with
+    """mfu = achieved / the FP32 FMA ceiling on the rough well and NUTS,
+    / the mma.sync ceiling on the matmul rows (executed FLOPs); the rough
+    well's sinf share against the sinf ceiling; a file only with
     --json-out."""
     ceilings = {"tc_bf16_mma_sync_flops_per_s": 4e14, "tc_depth_occupancy_flops_per_s": {},
                 "fp32_fma_flops_per_s": 6e13, "fp32_sinf_chain_flops_per_s": 2e12,
@@ -120,7 +126,9 @@ def test_main_shares_against_the_fp32_ceiling(monkeypatch, tmp_path, capsys, jso
     rw = got["mjhmc_roughwell_elementwise"]
     assert rw["mfu"] == pytest.approx(1000.0 * 400 / 6e13)
     assert rw["sinf_share"] == pytest.approx(1000.0 * 40 / 1e12)
-    assert got["mjhmc_sparse_coding[fp32]"]["mfu"] == pytest.approx(1000.0 * 655_360 / 6e13)
+    assert got["mjhmc_sparse_coding[bf16x3]"]["mfu"] == pytest.approx(1000.0 * 3 * 655_360 / 4e14)
+    assert got["mjhmc_product_of_t[full]"]["mfu"] == pytest.approx(1000.0 * 103_680 / 4e14)
+    assert got["nuts_gauss2d_elementwise"]["mfu"] == pytest.approx(10_240 * 60 / 6e13)
     assert "mfu" not in got["mjhmc_product_of_t[ablation_verdict]"]
     assert "mfu" not in got["mjhmc_product_of_t[dots=stubbed]"]
     assert (tmp_path / "d.json").exists() == json_out

@@ -73,7 +73,7 @@ def test_model_matches_jax(kw):
 def test_spec_matches_jax_spec():
     jd, td = JLogreg(ndims=16, nobs=NOBS), tmodels.LogisticRegression(ndims=16, nobs=NOBS)
     jspec = dataclasses.replace(energy_spec_for(jd), precision="highest")
-    tspec = cm.energy_spec_for(td)
+    tspec = dataclasses.replace(cm.energy_spec_for(td), precision="highest")
     assert isinstance(tspec, cm.LogregSpec) and tspec.aux_rows() == NOBS
     (xs_t,), (xs_j,) = tspec.param_arrays(), jspec.param_arrays()
     np.testing.assert_array_equal(xs_t, np.asarray(xs_j))
@@ -108,7 +108,7 @@ def test_bodies_match_interpret_kernels(variant, beta):
     the dwell sums within rtol 1e-4."""
     jd, td = JLogreg(ndims=16, nobs=NOBS), tmodels.LogisticRegression(ndims=16, nobs=NOBS)
     jspec = dataclasses.replace(energy_spec_for(jd), precision="highest")
-    tspec = cm.energy_spec_for(td)
+    tspec = dataclasses.replace(cm.energy_spec_for(td), precision="highest")
     js, ts = _start(jd, 3)
     m, eps = 6, 0.15
     out_j = pallas_mjhmc_mm_run(jspec, *js, jnp.int32(7), jnp.float32(eps), jnp.float32(beta),

@@ -1,6 +1,8 @@
 """The port's matmul-energy models vs the JAX ones: product of t and sparse
 coding. Inputs are made with NumPy from a seed and handed to both."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,7 +50,7 @@ def test_potential_and_grad_match_jax(name, kw, scale, prefix):
     np.testing.assert_allclose(up, np.asarray(jd.potential(jnp.asarray(x))), rtol=1e-5,
                                atol=1e-5 * np.abs(uj).max())
     # the engine spec's forms are the model's
-    spec = cm.energy_spec_for(td)
+    spec = dataclasses.replace(cm.energy_spec_for(td), precision="highest")  # the model's f32
     p = cm._param_tensors(spec, td.ndims, "cpu")
     xt = torch.as_tensor(x)
     np.testing.assert_allclose(spec.u_sum(xt, *p).numpy(), ut, rtol=1e-5,

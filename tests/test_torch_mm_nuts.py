@@ -74,7 +74,7 @@ def _within(a, b):
 @pytest.mark.parametrize("name,jd,td,scale,eps,depth,steps", CASES, ids=[c[0] for c in CASES])
 def test_nuts_run_matches_interpret_kernel(name, jd, td, scale, eps, depth, steps):
     jspec = dataclasses.replace(energy_spec_for(jd), precision="highest")
-    tspec = cm.energy_spec_for(td)
+    tspec = dataclasses.replace(cm.energy_spec_for(td), precision="highest")
     js, ts = _start(jd, scale, 1)
     out_j = pallas_mjhmc_mm_run(jspec, *js, jnp.int32(7), jnp.float32(eps), jnp.float32(0.0),
                                 steps, depth, interpret=IP, variant="nuts")
@@ -98,7 +98,7 @@ def test_nuts_stream_matches_interpret_kernel(name, jd, td, scale, eps, depth, s
     """An emission per iteration: post-transition xs, unit ws, cumulative
     leaf counts; es[-1] is the run's counters."""
     jspec = dataclasses.replace(energy_spec_for(jd), precision="highest")
-    tspec = cm.energy_spec_for(td)
+    tspec = dataclasses.replace(cm.energy_spec_for(td), precision="highest")
     js, ts = _start(jd, scale, 2)
     xs_j, ws_j, es_j, _ = pallas_mjhmc_mm_stream_run(
         jspec, *js, jnp.int32(11), jnp.float32(eps), jnp.float32(0.0), steps, 1, depth,
