@@ -22,10 +22,16 @@ matmul bodies before those existed (3-4, 12, 15-16, 21) and their timings
 and energy at ε = 0, then its dynamics), compare the
 sparse-coding variances across precisions, run the precision sweep
 (``bench_mm_precision``) and time every instance beside its full-f32 twin.
-One line per phase; any failed check raises, so the exit code is non-zero.
-The second to last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-and prints no result.
+Phases 34-35 hold the chain-sharded runtime (``sharded_cuda_mjhmc_run``,
+the TPU's ``sharded_pallas_mjhmc_run``): at world size 1 under NCCL against
+the direct call, bit for bit, with its collectives counted, the sharded
+moments, the adaptive step, the sharded checkpoint and ``bench_scaling``;
+then two processes (this script started again with ``--phase35-rank``)
+sharing the card under gloo, each rank against a direct launch at its
+offset seed. One line per phase; any failed check raises, so the exit
+code is non-zero. The second to last line is the kernels' JSON record, the
+last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -1790,7 +1796,7 @@ def split_depth(cm, parts):
         cm._contract = plain
 
 
-def force_check(cm, spec, dist, n, beta, kw, stream):
+def force_check(cm, spec, dist, n, beta, kw, stream, run=None):
     """The contraction alone: one iteration at ε = 0 (M or max_depth 1)
     leaves x where it starts, so the gradient and energy that come out are
     the instance's at the plain version's own x, fresh on every chain. Held
@@ -1800,10 +1806,11 @@ def force_check(cm, spec, dist, n, beta, kw, stream):
     a must stay within ``INFORMATIVE``. Another precision's contraction
     moves every chain here (one pass or a once-rounded parameter against
     the others: 2⁻⁹). Returns (chains outside, limit, perturbed chains,
-    largest relative gradient error of the kernel, of the perturbed runs)."""
+    largest relative gradient error of the kernel, of the perturbed runs).
+    ``run``: the wrapper held, ``cuda_mjhmc_mm_run`` by default."""
     st = initial_state(dist, n, seed=3, inv_mass=kw.get("inv_mass"))
     args = (spec, *st, 7, 0.0, beta)
-    outs = [cm.cuda_mjhmc_mm_run(*args, 1, 1, fixed_uniform=True, **kw)]
+    outs = [(run or cm.cuda_mjhmc_mm_run)(*args, 1, 1, fixed_uniform=True, **kw)]
     if stream:
         outs.append(cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, 1, fixed_uniform=True, **kw)[3])
     ref = cm.run_reference(*args, 1, 1, True, **kw)
@@ -2160,6 +2167,319 @@ def precision_entries(entry, errs, sweep, rows, ceilings, main_runs):
     return out
 
 
+# ---- slice G: the chain-sharded runtime (kernel #7) -------------------------
+SHARDED_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:2068"  # sharded_pallas_mjhmc_run
+#: the torch.distributed calls counted around the sharded runs (isend and
+#: irecv stay unwrapped: P2POp checks its op against them)
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter",
+               "reduce_scatter_tensor", "broadcast", "all_to_all", "all_to_all_single",
+               "barrier", "batch_isend_irecv", "reduce", "gather", "scatter", "send", "recv")
+SHARDED_SEED = 2024
+RANK_TIMEOUT = 300  # seconds for each process of phase 35
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Wrap the torch.distributed collectives; yields the names called."""
+    import torch.distributed as dist
+
+    calls, saved = [], {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def wrap(name, fn):
+        def counted(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return counted
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def sharded_cases(cm):
+    """(label, distribution, spec, chains, iterations, (ε, β, M)) of the
+    sharded runs at the presets' widths: rough_well at 10,000 and 102,400
+    chains, sparse coding at 8,192 at its JAX default precision."""
+    from mjhmc_tpu_torch.models import RoughWell, SparseCoding
+
+    rw, sc = RoughWell(), SparseCoding()
+    spec_sc = cm.energy_spec_for(sc)
+    check(spec_sc.precision == "bf16x3", f"sparse coding's default is {spec_sc.precision}")
+    return [("rough_well 10,000", rw, cm.energy_spec_for(rw), 10_000, 100, (EPS, BETA, M)),
+            ("rough_well 102,400", rw, cm.energy_spec_for(rw), 102_400, 100, (EPS, BETA, M)),
+            ("sparse_coding 8,192 bf16x3", sc, spec_sc, 8192, 20, (0.02, 0.1, 10))]
+
+
+def sharded_world1(cm, card):
+    """Phase 34: kernel #7 at world size 1 under NCCL, full width. The
+    sharded run as a user calls it (every count 0 just before, read after:
+    one launch, no collective) is bit-identical to the direct call on every
+    RunOut field; held against its plain version (rough well: fixed-uniform
+    evals exact and x, v, g, u within rtol 1e-4 after 5 iterations, Philox
+    counters on >= 0.999 of the chains; sparse coding at bf16x3: phase 30's
+    contraction check at eps 0). sharded_moments equals CudaMJHMC.moments
+    of the same emissions (var rtol 1e-4, mean within 1e-5 of |mean| + sd);
+    the adaptive step issues one all_reduce per iteration; the sharded
+    checkpoint round trip and its resume are bit-exact; bench_scaling
+    --devices 1 prints its line (its launches: the main path of the rough
+    well's row); #7 is timed (CUDA events) beside the direct call and its
+    plain version. Returns the kernels line's two entries' numbers."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mjhmc_tpu_torch import bench_scaling
+    from mjhmc_tpu_torch.bench_mfu import PASSES
+    from mjhmc_tpu_torch.models import RoughWell
+    from mjhmc_tpu_torch.parallel.collectives import sharded_moments
+    from mjhmc_tpu_torch.parallel.mesh import make_chain_mesh, shard_chain_pytree
+    from mjhmc_tpu_torch.parallel.multihost import free_port, initialize
+    from mjhmc_tpu_torch.samplers import adaptive_mjhmc_run, da_init
+    from mjhmc_tpu_torch.samplers.state import make_mj_state
+    from mjhmc_tpu_torch.utils.checkpoint import load_sharded_pytree, save_sharded_pytree
+
+    info = initialize(f"127.0.0.1:{free_port()}", 1, 0, device=DEV)
+    check(info["initialized"] and info["backend"] == "nccl" and info["process_count"] == 1,
+          f"world size 1 under NCCL: {info}")
+    rows = {}
+    try:
+        mesh = make_chain_mesh(1, device=DEV)
+        sharded = cm.sharded_cuda_mjhmc_run
+        for label, dist_, spec, n, iters, (eps, beta, m) in sharded_cases(cm):
+            fn = wrappers_for(cm, spec)[0]
+            st = initial_state(dist_, n, seed=11)
+            cm.reset_counts()
+            with counting_collectives() as calls:
+                out = sharded(mesh, spec, *st, SHARDED_SEED, eps, beta, iters, m)
+                torch.cuda.synchronize()
+            launches = fn.sharded_launches
+            check(launches == 1 and not calls,
+                  f"{label}: {launches} launches, collectives {calls} (want 1, none)")
+            direct = fn(spec, *st, SHARDED_SEED, eps, beta, iters, m)
+            same = [f for f, a, b in zip(cm.RunOut._fields, out, direct) if torch.equal(a, b)]
+            check(len(same) == len(cm.RunOut._fields), f"{label}: only {same} bit-identical "
+                  "to the direct call")
+            # against the plain version
+            if spec.__class__.__name__ == "RoughWellSpec":
+                args = (spec, *st, SHARDED_SEED, eps, beta)
+                k5 = sharded(mesh, *args, 5, m, fixed_uniform=True)
+                r5 = cm.run_reference(*args, 5, m, fixed_uniform=True)
+                check(torch.equal(k5.evals, r5.evals), f"{label}: fixed-uniform evals differ")
+                atol = 1e-4 * float(r5.x.abs().max())
+                err = max(assert_close(getattr(k5, f), getattr(r5, f), 1e-4, atol,
+                                       f"{label} {f} after 5") for f in ("x", "v", "grad", "u"))
+                kp = sharded(mesh, *args, 5, m)
+                same_c = float((kp.evals == cm.run_reference(*args, 5, m).evals).double().mean())
+                check(same_c >= 0.999, f"{label}: Philox counters equal on {same_c:.5f}")
+                held = (f"fixed-uniform evals exact, x v g u rtol 1e-4 after 5 (max abs err "
+                        f"{err:.3g}); Philox counters equal on {same_c:.5f} of chains")
+            else:
+                bad, limit, moved, rel_k, _ = force_check(
+                    cm, spec, dist_, n, 0.1, {}, False,
+                    run=lambda *a, **k: sharded(mesh, *a, **k))
+                check(bad <= limit, f"{label}, eps 0: gradient or energy outside rtol 1e-4 on "
+                      f"{bad} chains, {limit:.4g} allowed")
+                st0 = initial_state(dist_, n, seed=3)
+                k0 = sharded(mesh, spec, *st0, 7, 0.0, 0.1, 1, 1, fixed_uniform=True)
+                r0 = cm.run_reference(spec, *st0, 7, 0.0, 0.1, 1, 1, True)
+                err = float((k0.grad - r0.grad).abs().max())
+                held = (f"eps 0 gradient and energy rtol 1e-4 on all but {bad} chains (limit "
+                        f"{limit:.4g}; split-depth sums move {moved}); max abs gradient error "
+                        f"{err:.3g}, largest relative {rel_k:.3g}")
+            phase("34 sharded world 1", f"{label}: {iters} iterations, Philox, one launch, no "
+                  f"collective; every RunOut field bit-identical to the direct call; {held}")
+            rows[label] = dict(err=err, launches=launches)
+
+        # timing: #7 beside the direct call, CUDA events, in turns
+        for label, dist_, spec, n, _, (eps, beta, m) in sharded_cases(cm):
+            if label == "rough_well 102,400":
+                continue
+            fn = wrappers_for(cm, spec)[0]
+            iters = 2000 if n == 10_000 else 200
+            st = initial_state(dist_, n, seed=5)
+            sharded(mesh, spec, *st, 1, eps, beta, 5, m)
+            ms = {"sharded": [], "direct": []}
+            for turn in ("sharded", "direct", "direct", "sharded"):
+                run = (lambda: sharded(mesh, spec, *st, 3, eps, beta, iters, m)) \
+                    if turn == "sharded" else (lambda: fn(spec, *st, 3, eps, beta, iters, m))
+                ms[turn].append(events_ms(run) / iters)
+            grads = float(sharded(mesh, spec, *st, 3, eps, beta, iters, m).evals.double().sum())
+            p_iters = 50 if n == 10_000 else 5
+            p_ms = events_ms(
+                lambda: cm.run_reference(spec, *st, 3, eps, beta, p_iters, m)) / p_iters
+            d, k = (2, 0) if n == 10_000 else (128, 64)
+            cname = "rough_well" if n == 10_000 else "sparse_coding"
+            passes = PASSES[spec.precision] if hasattr(spec, "precision") else 0
+            rows[label].update(ms=min(ms["sharded"]), direct_ms=min(ms["direct"]), plain_ms=p_ms,
+                               bound=bound(cname, "mjhmc", d, k, n, iters, grads, passes=passes),
+                               iters=iters, n=n)
+            phase("34 sharded world 1", f"{label}: #7 {min(ms['sharded']):.6g} ms/iteration, the "
+                  f"direct call {min(ms['direct']):.6g} (turns {ms}), plain version "
+                  f"{p_ms:.6g} ms/iteration ({iters} iterations) [{card}]")
+
+        # sharded_moments against the engine's accumulators, same emissions
+        eng = cm.CudaMJHMC(RoughWell(), nbatch=10_000, seed=6, device=DEV)
+        eng.run(100)
+        xs, ws = eng.sample(200)
+        mean_e, var_e = cm.CudaMJHMC.moments(eng.last_out)
+        with counting_collectives() as calls:
+            mean_s, var_s = sharded_moments(xs.permute(1, 0, 2).reshape(2, -1), ws.reshape(-1),
+                                            mesh)
+        check(calls == ["all_reduce"], f"sharded_moments issued {calls}")
+        sd = var_e.double().sqrt()
+        dm = float(((mean_s - mean_e).double().abs() / (mean_e.double().abs() + sd)).max())
+        dv = float(((var_s - var_e).double().abs() / var_e.double().abs()).max())
+        check(dm <= 1e-5 and dv <= 1e-4, f"sharded_moments vs CudaMJHMC.moments: mean {dm:.3g} "
+              f"(of |mean| + sd), var {dv:.3g}")
+        phase("34 sharded world 1", f"sharded_moments of 200 emissions x 10,000 chains: one "
+              f"all_reduce; mean within {dm:.3g} of |mean| + sd, var within {dv:.3g} relative "
+              f"of CudaMJHMC.moments")
+
+        # the adaptive step under the mesh: one all_reduce per iteration
+        rw = RoughWell()
+        state = shard_chain_pytree(make_mj_state(rw, torch.Generator().manual_seed(3), 10_000, DEV),
+                                   mesh)
+        with counting_collectives() as calls:
+            _, da, aux = adaptive_mjhmc_run(rw, state, da_init(1.0),
+                                            torch.Generator().manual_seed(4), 5, BETA, M,
+                                            mesh=mesh)
+        check(calls == ["all_reduce"] * 5 and da.step == 5, f"adaptive step: {calls}")
+        phase("34 sharded world 1", f"adaptive_mjhmc_run under the mesh (10,000 chains, 5 "
+              f"iterations): collectives {calls}; eps {aux['eps_trace'].tolist()}")
+
+        # the sharded checkpoint: round trip and resume, bit-exact
+        label, dist_, spec, n, _, (eps, beta, m) = sharded_cases(cm)[1]
+        out = sharded(mesh, spec, *initial_state(dist_, n, seed=11), 1, eps, beta, 10, m)
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = str(Path(tmp) / "carry")
+            save_sharded_pytree(prefix, out, mesh)
+            back = load_sharded_pytree(prefix, cm.RunOut(*(torch.zeros_like(t) for t in out)),
+                                       mesh)
+        check(all(torch.equal(a, b) for a, b in zip(out, back)), "checkpoint round trip")
+        resumed = sharded(mesh, spec, *back[:6], 2, eps, beta, 10, m)
+        direct = sharded(mesh, spec, *out[:6], 2, eps, beta, 10, m)
+        check(all(torch.equal(a, b) for a, b in zip(resumed, direct)), "resume not bit-exact")
+        phase("34 sharded world 1", f"save_sharded_pytree / load_sharded_pytree of a {label} "
+              "RunOut: round trip and resume bit-exact")
+
+        # bench_scaling on the one card: the rough well's main path
+        cm.reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(bench_scaling.main(["--devices", "1"]) == 0, "bench_scaling failed")
+        launches = cm.cuda_mjhmc_run.sharded_launches
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rec["metric"] == "leapfrog_steps_per_sec" and rec["devices"] == 1
+              and rec["chains"] == 2048 and rec["value"] > 0 and launches == 4,
+              f"bench_scaling: {rec}, launches {launches}")
+        rows["bench_scaling"] = dict(launches=launches, rec=rec)
+        phase("34 sharded world 1", f"bench_scaling --devices 1: {json.dumps(rec)}; launches "
+              f"{launches} [{card}]")
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def sharded_two_processes(cm):
+    """Phase 35: two processes share cuda:0 under gloo (NCCL refuses two
+    ranks on one card). Each runs rough_well at 2 x 51,200 chains and sparse
+    coding at 2 x 4,096 (bf16x3) sharded: rank r is bit-identical to a
+    direct launch on its block at seed + r·131071 (rank 1: not at the seed
+    itself), with no collective in the run; sharded_moments of the run's x
+    and w over both ranks (gloo all_reduce of CUDA tensors) is within rtol
+    1e-5 (mean, of |mean| + sd) and 1e-4 (var) of the dense float64 moments
+    the parent computes from both blocks."""
+    import tempfile
+
+    import numpy as np
+
+    from mjhmc_tpu_torch.parallel.multihost import free_port
+
+    addr = f"127.0.0.1:{free_port()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--phase35-rank", str(r), addr, tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"phase 35 rank {r} exited {p.returncode}:\n{log[-4000:]}")
+        ranks = [dict(np.load(Path(tmp) / f"rank{r}.npz")) for r in range(2)]
+    for label in ("rough_well", "sparse_coding"):
+        for r, rk in enumerate(ranks):
+            check(bool(rk[f"{label}/identical"]) and int(rk[f"{label}/collectives"]) == 0,
+                  f"{label} rank {r}: not bit-identical to its direct launch, or collectives")
+        check(bool(ranks[1][f"{label}/unoffset_differs"]), f"{label}: rank 1 ran at the seed")
+        x = np.concatenate([rk[f"{label}/x"] for rk in ranks], axis=1).astype(np.float64)
+        w = np.concatenate([rk[f"{label}/w"] for rk in ranks]).astype(np.float64)
+        m_ref = (w * x).sum(axis=1) / w.sum()
+        v_ref = (w * x * x).sum(axis=1) / w.sum() - m_ref**2
+        dm = max(float((np.abs(rk[f"{label}/mean"] - m_ref) / (np.abs(m_ref) + np.sqrt(v_ref)))
+                       .max()) for rk in ranks)
+        dv = max(float((np.abs(rk[f"{label}/var"] - v_ref) / np.abs(v_ref)).max()) for rk in ranks)
+        check(dm <= 1e-5 and dv <= 1e-4, f"{label}: sharded_moments over 2 ranks vs dense: "
+              f"mean {dm:.3g}, var {dv:.3g}")
+        phase("35 sharded two processes", f"{label} ({ranks[0][label + '/n']} chains, 2 ranks on "
+              f"cuda:0 under gloo): each rank bit-identical to a direct launch on its block at "
+              f"seed + r*131071, no collective in the run; sharded_moments mean within {dm:.3g} "
+              f"(of |mean| + sd), var {dv:.3g} relative of the dense moments")
+
+
+def phase35_rank(rank: int, addr: str, out: str) -> int:
+    """One process of phase 35 (``chip_smoke.py --phase35-rank r addr dir``)."""
+    import numpy as np
+
+    import torch.distributed as dist
+
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+    from mjhmc_tpu_torch.parallel.collectives import sharded_moments
+    from mjhmc_tpu_torch.parallel.mesh import chain_sharding, make_chain_mesh
+    from mjhmc_tpu_torch.parallel.multihost import initialize
+
+    info = initialize(addr, 2, rank, device=DEV, backend="gloo")
+    check(info["initialized"] and info["process_count"] == 2, f"rank {rank}: {info}")
+    res = {}
+    try:
+        mesh = make_chain_mesh(2, device=DEV)
+        check(mesh.device == torch.device("cuda", 0), f"rank {rank} on {mesh.device}")
+        cases = {c[0]: c for c in sharded_cases(cm)}
+        for label, key in (("rough_well", "rough_well 102,400"),
+                           ("sparse_coding", "sparse_coding 8,192 bf16x3")):
+            _, dist_, spec, n, iters, (eps, beta, m) = cases[key]
+            fn = wrappers_for(cm, spec)[0]
+            blk = chain_sharding(mesh, n)
+            st = tuple(t[..., blk].contiguous() for t in initial_state(dist_, n, seed=12))
+            with counting_collectives() as calls:
+                o = cm.sharded_cuda_mjhmc_run(mesh, spec, *st, SHARDED_SEED, eps, beta, iters, m)
+                torch.cuda.synchronize()
+            d = fn(spec, *st, SHARDED_SEED + rank * cm.RANK_SEED_STRIDE, eps, beta, iters, m)
+            res[f"{label}/identical"] = all(torch.equal(a, b) for a, b in zip(o, d))
+            res[f"{label}/collectives"] = len(calls)
+            if rank == 1:
+                u = fn(spec, *st, SHARDED_SEED, eps, beta, iters, m)
+                res[f"{label}/unoffset_differs"] = not all(torch.equal(a, b) for a, b in zip(o, u))
+            mean, var = sharded_moments(o.x, o.w, mesh)
+            res.update({f"{label}/mean": mean.cpu().numpy(), f"{label}/var": var.cpu().numpy(),
+                        f"{label}/x": o.x.cpu().numpy(), f"{label}/w": o.w.cpu().numpy(),
+                        f"{label}/n": n})
+        np.savez(Path(out) / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 T0 = time.perf_counter()
 DEV = "cuda"
 
@@ -2464,6 +2784,12 @@ def main() -> int:
     prec_ms = precision_timing(cm, card)
     phase("33 precision timing", f"phases 30-33 took {time.perf_counter() - t_prec:.4g} s")
 
+    # ---- 34-35. slice G: the chain-sharded runtime (kernel #7) ---------------
+    t_sh = time.perf_counter()
+    sh = sharded_world1(cm, card)
+    sharded_two_processes(cm)
+    phase("35 sharded two processes", f"phases 34-35 took {time.perf_counter() - t_sh:.4g} s")
+
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
 
@@ -2608,11 +2934,24 @@ def main() -> int:
     kernels += zoo_entries(entry, zoo_err, zoo_ident, zoo_cli_res, zoo_ms)
     kernels += precision_entries(entry, prec_err, sweep, prec_ms, dossier["ceilings"],
                                  main_runs)
+    rw_sh, sc_sh = sh["rough_well 10,000"], sh["sparse_coding 8,192 bf16x3"]
+    kernels += [
+        entry("sharded_mjhmc_run", KERNEL_SRC, SHARDED_SRC, sh["bench_scaling"]["launches"],
+              max(rw_sh["err"], sh["rough_well 102,400"]["err"]), rw_sh["ms"],
+              rw_sh["plain_ms"], rw_sh["bound"], direct_ms=rw_sh["direct_ms"],
+              launches_from="bench_scaling --devices 1 (2,048 chains, 200 steps, 4 runs)",
+              shape="rough_well, 10,000 chains, world size 1 (NCCL), ms per iteration"),
+        entry("sharded_mjhmc_mm_run[sparse_coding, bf16x3]", MM_KERNEL_SRC, SHARDED_SRC,
+              sc_sh["launches"], sc_sh["err"], sc_sh["ms"], sc_sh["plain_ms"], sc_sh["bound"],
+              direct_ms=sc_sh["direct_ms"], precision="bf16x3",
+              launches_from="phase 34: sharded_cuda_mjhmc_run, 8,192 chains, 20 iterations",
+              shape="sparse_coding, 8,192 chains, world size 1 (NCCL), ms per iteration"),
+    ]
     phase("29 zoo timing", f"statistics engines' launches (phase 27): {zoo_stat_launches}")
     check(all(kern["launches"] > 0 for kern in kernels),
           f"kernels not launched on their main paths: "
           f"{[kern['name'] for kern in kernels if not kern['launches'] > 0]}")
-    phase("34 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
+    phase("36 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2621,4 +2960,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase35-rank"]:
+        sys.exit(phase35_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -11,13 +11,18 @@ coding, logistic regression, and the zoo: funnel, banana, Gaussian
 mixture, eight schools), the leapfrog and two-stage integrators, the
 plain MJHMC, control HMC, MALT and NUTS samplers with the dual-averaging
 warmups, the fused CUDA engines (``ops.cuda_mjhmc``, hand-written kernels
-in ``csrc/``), the roofline dossier and the autocorrelation / ESS
-diagnostics. See ROADMAP.md for what is still to come.
+in ``csrc/``), the roofline dossier, the autocorrelation / ESS
+diagnostics, and the chain-sharded runtime on ``torch.distributed``
+(``parallel``: mesh, collectives, the model axis, multi-process
+initialisation, the sharded engine run; ``utils``: checkpoints, long runs,
+timing, profiling; ``inference``: systematic resampling). See ROADMAP.md
+for what is still to come.
 """
 
 __version__ = "0.1.0"
 
-from mjhmc_tpu_torch import diagnostics, models, ops, samplers
+from mjhmc_tpu_torch import diagnostics, inference, models, ops, parallel, samplers, utils
 from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 
-__all__ = ["models", "ops", "samplers", "diagnostics", "BENCHMARK_CONFIGS"]
+__all__ = ["models", "ops", "samplers", "diagnostics", "parallel", "inference", "utils",
+           "BENCHMARK_CONFIGS"]

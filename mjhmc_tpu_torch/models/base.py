@@ -104,6 +104,15 @@ class Distribution:
         return hashlib.sha256(blob).hexdigest()[:16]
 
 
+def sum_dims(dist, t: Tensor) -> Tensor:
+    """Σ over the dims axis (−2) of ``t``: every such sum of the samplers
+    goes through here. A distribution whose dims are split over ranks
+    (``parallel.model_parallel``) supplies ``sum_dims`` to add the ranks'
+    partial sums; the default is ``t.sum(-2)``."""
+    hook = getattr(dist, "sum_dims", None)
+    return t.sum(dim=-2) if hook is None else hook(t)
+
+
 def randn(generator: torch.Generator, shape, device) -> Tensor:
     """Standard-normal float32 draw from ``generator``, moved to ``device``."""
     z = torch.randn(shape, generator=generator, device=generator.device,

@@ -1321,10 +1321,11 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
 
 #: each wrapper's launch counts: one per step body (``launches`` is MJHMC's,
 #: ``stub_launches`` the stubbed matmul kernel's), and the launches that
-#: took the two-stage integrator or an inverse mass, and (matmul kernel,
-#: not the stub) those at each dot precision, counted besides
+#: took the two-stage integrator or an inverse mass, (matmul kernel, not
+#: the stub) those at each dot precision and those made for a rank of a
+#: chain mesh (``sharded_cuda_mjhmc_run``), counted besides
 COUNTS = ("launches", "control_launches", "malt_launches", "nuts_launches",
-          "stub_launches", "two_stage_launches", "mass_launches",
+          "stub_launches", "two_stage_launches", "mass_launches", "sharded_launches",
           *(f"{p}_launches" for p in PRECISIONS))
 
 
@@ -1441,6 +1442,35 @@ def cuda_mjhmc_mm_stream_run(spec, x, v, g, u, h_back, back_valid, seed, epsilon
 WRAPPERS = (cuda_mjhmc_run, cuda_mjhmc_stream_run, cuda_mjhmc_mm_run,
             cuda_mjhmc_mm_stream_run)
 reset_counts()
+
+#: the seed offset of each rank of a chain mesh (JAX's ``dev * 131071``)
+RANK_SEED_STRIDE = 131071
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """``int32(seed) + rank·131071`` with JAX's int32 wrap."""
+    return (int(seed) + rank * RANK_SEED_STRIDE + 2**31) % 2**32 - 2**31
+
+
+def sharded_cuda_mjhmc_run(mesh, spec, x, v, g, u, h_back, back_valid, seed, epsilon,
+                           beta, *rest, **kw) -> RunOut:
+    """Engine run on every rank of a ("chains",) mesh (counterpart of
+    ``sharded_pallas_mjhmc_run``). Chains are independent, so this is pure
+    SPMD: each rank passes its own block of the chains and launches the run
+    kernel its spec needs (``cuda_mjhmc_run`` for an elementwise spec,
+    ``cuda_mjhmc_mm_run`` for a matmul one) with the rank-offset seed
+    ``rank_seed(seed, rank)``, and communicates nothing. A chain's Philox
+    counter is its index in the block, so rank r's result is a direct run
+    on its block at seed + r·131071. ``rest`` and ``kw`` are the run
+    wrapper's (num_steps, num_leapfrog, inv_mass=..., variant=...).
+    Returns the rank's ``RunOut``; on the card each call is one launch,
+    counted in the wrapper's ``sharded_launches``."""
+    run_fn = cuda_mjhmc_mm_run if isinstance(spec, MATMUL_SPECS) else cuda_mjhmc_run
+    out = run_fn(spec, x, v, g, u, h_back, back_valid,
+                 rank_seed(seed, mesh.axis_index("chains")), epsilon, beta, *rest, **kw)
+    if x.device.type == "cuda":
+        run_fn.sharded_launches += 1
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -15,6 +15,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from mjhmc_tpu_torch.models.base import sum_dims
+
 Tensor = torch.Tensor
 PotentialAndGrad = Callable[[Tensor], Tuple[Tensor, Tensor]]
 
@@ -84,15 +86,16 @@ def two_stage(
 INTEGRATORS = {"leapfrog": (leapfrog, 1), "two_stage": (two_stage, 2)}
 
 
-def kinetic_energy(v: Tensor, inv_mass: Tensor | None = None) -> Tensor:
-    """½vᵀM⁻¹v per chain: (..., ndims, nbatch) → (..., nbatch)."""
+def kinetic_energy(v: Tensor, inv_mass: Tensor | None = None, dist=None) -> Tensor:
+    """½vᵀM⁻¹v per chain: (..., ndims, nbatch) → (..., nbatch), summed over
+    the dims by ``dist``'s hook (``models.base.sum_dims``)."""
     vv = v * v if inv_mass is None else v * v * inv_mass
-    return 0.5 * vv.sum(dim=-2)
+    return 0.5 * sum_dims(dist, vv)
 
 
-def total_energy(u: Tensor, v: Tensor, inv_mass: Tensor | None = None) -> Tensor:
+def total_energy(u: Tensor, v: Tensor, inv_mass: Tensor | None = None, dist=None) -> Tensor:
     """H(ζ) = U(x) + ½vᵀM⁻¹v."""
-    return u + kinetic_energy(v, inv_mass)
+    return u + kinetic_energy(v, inv_mass, dist)
 
 
 def momentum_scale(inv_mass: Tensor | None) -> Tensor | float:

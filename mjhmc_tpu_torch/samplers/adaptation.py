@@ -10,6 +10,7 @@ updated with the JAX package's float32 arithmetic in its order.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -64,15 +65,16 @@ def da_epsilon(da: DualAveragingState, frozen: bool = False) -> float:
     return float(np.exp(da.log_eps_bar if frozen else da.log_eps))
 
 
-def _adapt(step, state, da, num_steps, target_accept, weight):
+def _adapt(step, state, da, num_steps, target_accept, weight, mean=torch.mean):
     """``num_steps`` of ``step(state, eps) -> (state, out)`` with a dual-
-    averaging update each; accumulates the moments of ``out.x`` with
-    ``weight(out)``. Returns (state, da, {"moments", "eps_trace"})."""
+    averaging update each on ``mean(out.accept_stat)``; accumulates the
+    moments of ``out.x`` with ``weight(out)``. Returns (state, da,
+    {"moments", "eps_trace"})."""
     acc, trace = None, []
     for _ in range(num_steps):
         eps = da_epsilon(da)
         state, out = step(state, eps)
-        da = da_update(da, out.accept_stat.mean(), target=target_accept)
+        da = da_update(da, mean(out.accept_stat), target=target_accept)
         if acc is None:
             acc = MomentAccumulator.init(*out.x.shape, out.x.device)
         acc = acc.update(out.x, weight(out))
@@ -89,11 +91,22 @@ def adaptive_mjhmc_run(
     beta: float,
     num_leapfrog_steps: int,
     target_accept: float = 0.65,
+    mesh=None,
 ) -> Tuple[MJState, DualAveragingState, dict]:
     """Warmup run: an MJHMC step and a dual-averaging ε update each
-    iteration, with the dwell-weighted moments."""
-    return _adapt(lambda s, eps: mjhmc_step(dist, s, generator, eps, beta, num_leapfrog_steps),
-                  state, da, num_steps, target_accept, lambda o: o.dwell)
+    iteration, with the dwell-weighted moments. Under a ``mesh`` (the
+    state this rank's block, the generator the same on every rank) the
+    acceptance mean is over all chains: one all_reduce per iteration, the
+    one collective of the loop (JAX's psum of ``jnp.mean(accept_stat)``)."""
+    block, mean = None, torch.mean
+    if mesh is not None:
+        from mjhmc_tpu_torch.parallel.collectives import chain_mean
+
+        block = mesh.block(*state.chain.x.shape)
+        mean = functools.partial(chain_mean, mesh=mesh)
+    return _adapt(lambda s, eps: mjhmc_step(dist, s, generator, eps, beta, num_leapfrog_steps,
+                                            block=block),
+                  state, da, num_steps, target_accept, lambda o: o.dwell, mean)
 
 
 def adaptive_hmc_run(

@@ -74,10 +74,10 @@ def hmc_step(
     v = torch.sqrt(1.0 - beta) * chain.v + torch.sqrt(beta) * xi
 
     step_fn, evals_per_step = INTEGRATORS[integrator]
-    h0 = total_energy(u, v, inv_mass)
+    h0 = total_energy(u, v, inv_mass, dist)
     x_l, v_l, u_l, g_l = step_fn(dist.potential_and_grad, x, v, g, epsilon,
                                  num_leapfrog_steps, inv_mass=inv_mass)
-    h_l = total_energy(u_l, v_l, inv_mass)
+    h_l = total_energy(u_l, v_l, inv_mass, dist)
 
     log_p = (h0 - h_l).clamp(max=0.0)
     # divergence-guarded: a non-finite h_l reads as rejection, not NaN

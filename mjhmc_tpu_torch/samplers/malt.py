@@ -71,13 +71,13 @@ def malt_step(
     for k in range(m):
         # O: exact OU half-step (leaves N(0, M) invariant — no energy term)
         v = eta * v + sig * scale * noise[2 * k]
-        h_in = total_energy(u, v, inv_mass)
+        h_in = total_energy(u, v, inv_mass, dist)
         # BAB: one deterministic leapfrog step; its energy error enters Δ
         v_half = v - 0.5 * eps * g
         x = x + eps * (v_half if inv_mass is None else inv_mass * v_half)
         u, g = dist.potential_and_grad(x)
         v_new = v_half - 0.5 * eps * g
-        delta = delta + (total_energy(u, v_new, inv_mass) - h_in)
+        delta = delta + (total_energy(u, v_new, inv_mass, dist) - h_in)
         # O
         v = eta * v_new + sig * scale * noise[2 * k + 1]
 

@@ -21,6 +21,7 @@ import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as tdist
 
 from mjhmc_tpu_torch.models.base import Distribution, randn
 from mjhmc_tpu_torch.ops.leapfrog import (
@@ -29,7 +30,7 @@ from mjhmc_tpu_torch.ops.leapfrog import (
     momentum_scale,
     total_energy,
 )
-from mjhmc_tpu_torch.samplers.state import MJState, checked_device, make_mj_state
+from mjhmc_tpu_torch.samplers.state import Block, MJState, checked_device, make_mj_state
 
 Tensor = torch.Tensor
 
@@ -66,12 +67,14 @@ def mjhmc_step(
     integrator: str = "leapfrog",
     gumbel: Tensor | None = None,
     xi: Tensor | None = None,
+    block: Block | None = None,
 ) -> Tuple[MJState, MJStepOut]:
     """One Rao-Blackwellized jump iteration for all chains.
 
     ``gumbel`` (3, nbatch) and ``xi`` (ndims, nbatch) inject the
     selection noise and the N(0, I) refresh draw (a test can feed the JAX
-    sampler's own draws); when absent they are drawn from ``generator``.
+    sampler's own draws); when absent they are drawn from ``generator``,
+    at the global shape of a sharded state's ``block`` and cut to it.
     """
     chain = state.chain
     x, v, u, g = chain.x, chain.v, chain.u, chain.grad
@@ -79,7 +82,7 @@ def mjhmc_step(
     m = num_leapfrog_steps
     beta_t = torch.as_tensor(beta, dtype=torch.float32, device=x.device)
 
-    h_cur = total_energy(u, v, inv_mass)
+    h_cur = total_energy(u, v, inv_mass, dist)
 
     # forward and backward trajectories stacked on a new leading axis
     step_fn, evals_per_step = INTEGRATORS[integrator]
@@ -88,8 +91,8 @@ def mjhmc_step(
         torch.stack([g, g]), epsilon, m, inv_mass=inv_mass,
     )
     x_l, v_l, u_l, g_l = x2f[0], v2f[0], u2f[0], g2f[0]
-    h_l = total_energy(u_l, v_l, inv_mass)  # H(Lζ)
-    h_back_fresh = total_energy(u2f[1], v2f[1], inv_mass)  # H(L⁻¹ζ)
+    h_l = total_energy(u_l, v_l, inv_mass, dist)  # H(Lζ)
+    h_back_fresh = total_energy(u2f[1], v2f[1], inv_mass, dist)  # H(L⁻¹ζ)
 
     valid = state.back_valid
     cache_err = torch.where(
@@ -113,9 +116,15 @@ def mjhmc_step(
 
     # ---- categorical transition via Gumbel-max over log-rates -------------
     if gumbel is None:
-        gumbel = draw_gumbel(generator, (3, n), x.device)
+        if block is None:
+            gumbel = draw_gumbel(generator, (3, n), x.device)
+        else:
+            gumbel = draw_gumbel(generator, (3, block.nbatch), x.device)[:, block.cols]
     if xi is None:
-        xi = randn(generator, v.shape, x.device)
+        if block is None:
+            xi = randn(generator, v.shape, x.device)
+        else:
+            xi = randn(generator, (block.ndims, block.nbatch), x.device)[block.rows, block.cols]
     log_rates = torch.stack(
         [log_gl, torch.log(gamma_f), torch.log(beta_t).expand(n)]
     )  # (3, n); log(0) = -inf is a valid Gumbel-max entry
@@ -191,8 +200,10 @@ def mjhmc_run(
     thin: int = 1,
     inv_mass: Tensor | None = None,
     integrator: str = "leapfrog",
+    block: Block | None = None,
 ) -> Tuple[MJState, dict]:
-    """Run ``num_steps`` jump iterations.
+    """Run ``num_steps`` jump iterations (of a sharded state's ``block``:
+    ``mjhmc_step``).
 
     collect="samples": returns xs (num_steps//thin, ndims, nbatch) + dwell.
     collect="stats":   returns only streaming weighted moments (O(1) memory).
@@ -204,14 +215,14 @@ def mjhmc_run(
         acc = MomentAccumulator.init(ndims, nbatch, state.chain.x.device)
         for _ in range(num_steps):
             state, o = mjhmc_step(dist, state, generator, epsilon, beta,
-                                  num_leapfrog_steps, inv_mass, integrator)
+                                  num_leapfrog_steps, inv_mass, integrator, block=block)
             acc = acc.update(o.x, o.dwell)
         return state, {"moments": acc}
 
     outs = []
     for _ in range(num_steps):
         state, o = mjhmc_step(dist, state, generator, epsilon, beta,
-                              num_leapfrog_steps, inv_mass, integrator)
+                              num_leapfrog_steps, inv_mass, integrator, block=block)
         # chain-mean cumulative eval counter after this step (fairness axis)
         outs.append((*o, state.grad_evals.float().mean()))
     xs, dwell, sel, acc, cerr, ev = (torch.stack(c) for c in zip(*outs))
@@ -254,14 +265,32 @@ class MarkovJumpHMC:
             ch = self.state.chain
             self.state = self.state._replace(
                 chain=ch._replace(v=ch.v / torch.sqrt(self.inv_mass)))
+        self.mesh, self.block = None, None  # set by shard()
 
     def _run(self, num_steps: int, collect: str) -> dict:
         self.state, outs = mjhmc_run(
             self.distribution, self.state, self.generator, num_steps,
             self.epsilon, self.beta, self.num_leapfrog_steps, collect,
             inv_mass=self.inv_mass, integrator=self.integrator,
+            block=self.block,
         )
         return outs
+
+    def shard(self, mesh=None) -> "MarkovJumpHMC":
+        """Keep this rank's block of the chains of a ("chains",) mesh (all
+        ranks by default) on the mesh's device; returns self. Every rank
+        builds the sampler with the same seed, so the draws, made at the
+        global shape and cut to the block, are the unsharded run's, and the
+        sampling loop communicates nothing."""
+        from mjhmc_tpu_torch.parallel.mesh import make_chain_mesh, shard_chain_pytree
+
+        self.mesh = mesh or make_chain_mesh(device=self.device)
+        self.state = shard_chain_pytree(self.state, self.mesh)
+        self.device = self.mesh.device
+        if self.inv_mass is not None:
+            self.inv_mass = self.inv_mass.to(self.device)
+        self.block = self.mesh.block(*self.state.chain.x.shape)
+        return self
 
     def sampling_iteration(self) -> dict:
         """One jump iteration across all chains."""
@@ -281,8 +310,12 @@ class MarkovJumpHMC:
 
     @property
     def grad_evals(self) -> int:
-        """Total algorithmic gradient evaluations (the fairness currency)."""
-        return int(self.state.grad_evals.sum())
+        """Total algorithmic gradient evaluations (the fairness currency),
+        over every rank's chains when sharded."""
+        total = self.state.grad_evals.sum(dtype=torch.int64)
+        if self.mesh is not None:
+            tdist.all_reduce(total, group=self.mesh.group())
+        return int(total)
 
     @property
     def dwelling_times(self) -> Tensor:

@@ -28,9 +28,11 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as tdist
 
-from mjhmc_tpu_torch.models.base import Distribution, randn
+from mjhmc_tpu_torch.models.base import Distribution, randn, sum_dims
 from mjhmc_tpu_torch.ops.leapfrog import inv_mass_of, momentum_scale, total_energy
 from mjhmc_tpu_torch.samplers.hmc import draw_uniform
 from mjhmc_tpu_torch.samplers.state import checked_device
@@ -61,9 +63,10 @@ def make_nuts_state(dist: Distribution, generator: torch.Generator, nbatch: int,
                      grad_evals=torch.zeros(nbatch, dtype=torch.int32, device=x.device))
 
 
-def _dot(a: Tensor, b: Tensor) -> Tensor:
-    """Per-chain dot product: (d, n)·(d, n) → (n,)."""
-    return (a * b).sum(dim=0)
+def _dot(dist, a: Tensor, b: Tensor) -> Tensor:
+    """Per-chain dot product: (d, n)·(d, n) → (n,), summed by ``dist``'s
+    hook (``models.base.sum_dims``)."""
+    return sum_dims(dist, a * b)
 
 
 def nuts_step(
@@ -92,7 +95,7 @@ def nuts_step(
         return x_new, v_half - 0.5 * eps * g_new, u_new, g_new
 
     v0 = momentum_scale(inv_mass) * randn(generator, (d, n), dev)
-    h0 = total_energy(state.u, v0, inv_mass)
+    h0 = total_energy(state.u, v0, inv_mass, dist)
 
     def zeros(dtype=torch.float32):
         return torch.zeros(n, dtype=dtype, device=dev)
@@ -133,7 +136,7 @@ def nuts_step(
             g_c = torch.where(am, g_n, g_c)
             n_leaves = n_leaves + active.to(torch.int32)
 
-            h = total_energy(u_n, v_c, inv_mass)
+            h = total_energy(u_n, v_c, inv_mass, dist)
             delta_h = h - h0
             div_now = active & (~torch.isfinite(h) | (delta_h > divergence_threshold))
             sub_div = sub_div | div_now
@@ -162,7 +165,8 @@ def nuts_step(
             for m in range(1, j + 1):
                 if (i + 1) % 2**m == 0:
                     dx = x_c - stack_x[m]
-                    turning = turning | (_dot(dx, vel(stack_v[m])) < 0.0) | (_dot(dx, vel(v_c)) < 0.0)
+                    turning = (turning | (_dot(dist, dx, vel(stack_v[m])) < 0.0)
+                               | (_dot(dist, dx, vel(v_c)) < 0.0))
             sub_stop = sub_stop | div_now | (active & turning)
 
         diverged = diverged | sub_div
@@ -190,7 +194,7 @@ def nuts_step(
 
         # overall U-turn between the tree endpoints (trajectory frame)
         dx = x_plus - x_minus
-        global_turn = (_dot(dx, vel(v_minus)) < 0.0) | (_dot(dx, vel(v_plus)) < 0.0)
+        global_turn = (_dot(dist, dx, vel(v_minus)) < 0.0) | (_dot(dist, dx, vel(v_plus)) < 0.0)
         done = done | sub_stop | (ok & global_turn)
 
     new_state = NUTSState(x=x_prop, u=u_prop, grad=g_prop,
@@ -220,6 +224,37 @@ def nuts_run(
     xs, depth, acc, div, ev = (torch.stack(c) for c in zip(*outs))
     return state, {"x": xs, "depth": depth, "accept_stat": acc, "diverged": div,
                    "evals_mean": ev}
+
+
+def sharded_nuts_run(
+    mesh,
+    dist: Distribution,
+    state: NUTSState,
+    seed: int,
+    num_steps: int,
+    epsilon: float,
+    max_depth: int = 8,
+    inv_mass: Tensor | None = None,
+) -> Tuple[NUTSState, dict]:
+    """Chain-sharded NUTS over a ("chains",) mesh with per-rank early exit.
+
+    Each rank runs ``nuts_run`` on its own block of the chains (``state``),
+    so its doubling and leaf loops stop as soon as ITS chains are done, and
+    nothing is communicated inside the run. Each rank's generator is seeded
+    from (``seed``, rank), the counterpart of JAX's ``fold_in(key,
+    axis_index)``. The outputs are the rank's blocks, plus
+    ``evals_mean_shards`` (steps, P): every rank's chain-mean eval counter
+    per iteration, all_gathered once after the run.
+    """
+    rank, p = mesh.axis_index(), mesh.size()
+    words = np.random.SeedSequence((int(seed), rank)).generate_state(2, np.uint32)
+    generator = torch.Generator().manual_seed(int(words[0]) << 32 | int(words[1]))
+    state, outs = nuts_run(dist, state, generator, num_steps, epsilon, max_depth, inv_mass)
+    ev = outs.pop("evals_mean")
+    parts = [torch.empty_like(ev) for _ in range(p)]
+    tdist.all_gather(parts, ev, group=mesh.group())
+    outs["evals_mean_shards"] = torch.stack(parts, dim=1)
+    return state, outs
 
 
 @dataclasses.dataclass

@@ -55,6 +55,19 @@ class HMCState(NamedTuple):
     n_accept: Tensor  # (nbatch,) int32
 
 
+class Block(NamedTuple):
+    """Where a rank's block of the state lies in the global (ndims, nbatch)
+    arrays of a sharded run (``parallel.mesh.ChainMesh.block``). The
+    samplers draw their noise at the global shape from the generator every
+    rank shares and keep the block, so a sharded run draws the numbers of
+    the unsharded one."""
+
+    ndims: int
+    nbatch: int
+    rows: slice
+    cols: slice
+
+
 def checked_device(device, owner: str) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device without a card raises
     rather than running on the CPU."""

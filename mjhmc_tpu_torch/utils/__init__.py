@@ -1,0 +1,11 @@
+"""Utilities: timing, checkpointing, long runs, profiling."""
+
+from mjhmc_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+from mjhmc_tpu_torch.utils.timing import Timer, steps_per_second
+
+__all__ = [
+    "Timer",
+    "steps_per_second",
+    "save_pytree",
+    "load_pytree",
+]
