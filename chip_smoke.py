@@ -28,7 +28,11 @@ the direct call, bit for bit, with its collectives counted, the sharded
 moments, the adaptive step, the sharded checkpoint and ``bench_scaling``;
 then two processes (this script started again with ``--phase35-rank``)
 sharing the card under gloo, each rank against a direct launch at its
-offset seed. One line per phase; any failed check raises, so the exit
+offset seed. Phase 36 prints the matmul NUTS kernel's per-leaf phase
+breakdown at the three presets, from its PROF instance (clock64() stamps),
+and phase 2 holds the NUTS tiles the library reports (chains, threads and
+shared bytes a block) to the wrappers' mirror. One line per phase; any
+failed check raises, so the exit
 code is non-zero. The second to last line is the kernels' JSON record, the
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero and prints no result.
@@ -201,12 +205,14 @@ def hmma_counts(_build):
                     if m:
                         a = [int(v) for v in re.findall(r"L[ib](\d+)E", m.group(2))]
                         if m.group(1) == "mm_kernel":  # E, D, K, C, T, VAR, EMIT, STUB, BR, P
-                            body, emit, stub, br = bodies[a[5]], a[6], a[7], a[8]
-                        else:  # E, D, K, C, T, EMIT, BR, P
-                            body, emit, stub, br = "nuts", a[5], 0, a[6]
+                            body, emit, stub, br, prec, prof = (bodies[a[5]], a[6], a[7], a[8],
+                                                                a[9], 0)
+                        else:  # E, EMIT, BR, P, PROF
+                            body, emit, stub, br, prec, prof = "nuts", a[1], 0, a[2], a[3], a[4]
                         label = (f"{names[a[0]]} {body} {'stream' if emit else 'run'}"
-                                 f"{' stub' if stub else ''}{' branches' if br else ''} "
-                                 f"{('highest', 'bf16x3', 'bf16x2', 'default')[a[-1]]}")
+                                 f"{' stub' if stub else ''}{' branches' if br else ''}"
+                                 f"{' prof' if prof else ''} "
+                                 f"{('highest', 'bf16x3', 'bf16x2', 'default')[prec]}")
                         out[label] = 0
                 elif label and "HMMA" in ln:
                     out[label] += 1
@@ -1009,7 +1015,9 @@ def mm_nuts_cases():
     trees (255 and ~243 leaves) far out from the bulk: one iteration. There
     last-ulp differences carry nearly every product-of-t chain past rtol
     1e-4 (as one-ulp nudges do to the plain version alone), so its states
-    are also held at max_depth 4 (15 leaves), with and without a mass."""
+    are also held at max_depth 4 (15 leaves), with and without a mass. Each
+    preset runs again at a width that leaves its last NUTS tile (8 or 16
+    chains) partly empty: 4,093, 8,185 and 2,045 chains."""
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 
     dist = {c: BENCHMARK_CONFIGS[c].make_distribution()
@@ -1028,6 +1036,12 @@ def mm_nuts_cases():
         ("logreg", "logreg", dist["logreg"], 2048, 0.15, MM_NUTS_DEPTH, (3, 3), None),
         ("logreg inv_mass", "logreg", dist["logreg"], 2048, 0.15, MM_NUTS_DEPTH, (3, 3),
          lr_mass),
+        ("product_of_t partial last tile", "product_of_t", dist["product_of_t"], 4093, 0.12,
+         MM_NUTS_DEPTH, (1, 2), None),
+        ("sparse_coding partial last tile", "sparse_coding", dist["sparse_coding"], 8185, 0.02,
+         MM_NUTS_DEPTH, (1, 2), None),
+        ("logreg partial last tile", "logreg", dist["logreg"], 2045, 0.15, MM_NUTS_DEPTH, (3, 3),
+         None),
     )
 
 
@@ -1087,7 +1101,7 @@ def mm_nuts_checks(cm):
     return errs
 
 
-def leaf_slot_share(es, depth, tile=32):
+def leaf_slot_share(es, depth, tile):
     """Share of the leaf slots a tile of ``tile`` chains ran that were live,
     from a stream's cumulative leaf counts ``es`` (E, n): round j of a tile
     runs as many leaf steps as its chain with the most leaves in that round
@@ -1297,7 +1311,8 @@ def slice_k_timing(cm, card):
         grads = eng.grad_evals - before
         got = {}
         stream_ms = events_ms(lambda: got.update(s=eng.sample(iters, return_evals=True))) / iters
-        share = leaf_slot_share(got["s"][2], m) if nuts else 1.0
+        tile = cm.NUTS_MM_TILES[type(eng.spec)][0]
+        share = leaf_slot_share(got["s"][2], m, tile) if nuts else 1.0
         plain_iters = 1 if nuts else 3
         args = (eng.spec, *initial_state(dist, n, seed=5, inv_mass=kw.get("inv_mass")),
                 99, eps, beta)
@@ -1308,7 +1323,7 @@ def slice_k_timing(cm, card):
         rows[(key, cname)] = (run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n, share)
         per = grads / (n * iters)
         extra = (f"{per:.5g} leaves per chain and iteration, {per * n / run_ms * 1e3:.6g} leaves/s, "
-                 f"{share:.4f} of the tiles' leaf slots live" if nuts
+                 f"{share:.4f} of the {tile}-chain tiles' leaf slots live" if nuts
                  else f"{per:.4g} gradients per chain and iteration")
         phase("24 slice K timing", f"{key} {cname} ({n} chains, eps {eps}, beta {beta}, "
               f"{'max_depth' if nuts else 'M'} {m}): run {run_ms:.6g} ms/iteration, stream "
@@ -2167,6 +2182,57 @@ def precision_entries(entry, errs, sweep, rows, ceilings, main_runs):
     return out
 
 
+def nuts_breakdown(cm, card):
+    """Phase 36: the matmul NUTS run's per-leaf phase breakdown, from its
+    PROF instance (``cuda_mjhmc.nuts_mm_profile``: clock64() stamps by
+    thread 0 and by the last warp's first thread), at the presets' widths
+    and settings as phase 33 runs them (the JAX default precision, max_depth
+    8, from the engine's state after two iterations). Per preset: the tile
+    (chains and threads a block, shared bytes, blocks an SM holds), each
+    phase's share of thread 0's cycles and its cycles per leaf step (wall
+    time: the SM's other resident blocks issue meanwhile), the share of the
+    last warp's cycles spent waiting at barriers, and the PROF run's time
+    beside the plain instance's from the same state. Returns {config: that
+    record}."""
+    names = cm.NUTS_PROF_PHASES
+    iters_of = {"product_of_t": 20, "sparse_coding": 3, "logreg": 40}
+    out = {}
+    for cname, (dist, cfg, _, eps) in mm_presets().items():
+        n, iters = cfg.nbatch, iters_of[cname]
+        eng = cm.CudaNUTS(dist, epsilon=eps, num_leapfrog_steps=MM_NUTS_DEPTH, nbatch=n,
+                          seed=4, device=DEV)
+        eng.run(2)
+        st = (eng.spec, eng.x, eng.v, eng.g, eng.u)
+        chains, threads, smem, resident = cm.nuts_mm_tile(eng.spec, MM_NUTS_DEPTH)
+        cm.nuts_mm_profile(*st, 98, eps, 1, MM_NUTS_DEPTH)  # the instance's first launch
+        got = {}
+        prof_ms = events_ms(lambda: got.update(p=cm.nuts_mm_profile(
+            *st, 99, eps, iters, MM_NUTS_DEPTH))) / iters
+        z = torch.zeros_like(eng.u)
+        run_ms = events_ms(lambda: cm.cuda_mjhmc_mm_run(
+            *st, z, z, 99, eps, 0.0, iters, MM_NUTS_DEPTH, variant="nuts")) / iters
+        blocks = got["p"].shape[0]
+        prof = got["p"].double().sum(dim=0)  # (observer, phase)
+        leaves = float(prof[0, -1])
+        cyc = prof[:, :-1]
+        total = cyc.sum(dim=1)
+        check(leaves > 0 and bool((total > 0).all()), f"{cname}: empty PROF record")
+        rec = dict(
+            chains_per_block=chains, threads=threads, smem_bytes=smem, blocks=blocks,
+            resident_blocks_per_sm=resident,
+            leaf_steps_per_block_iteration=leaves / (blocks * iters),
+            cycles_per_leaf=float(total[0]) / leaves,
+            share={nm: round(float(cyc[0, i] / total[0]), 5) for i, nm in enumerate(names[:-1])},
+            cycles_per_leaf_by_phase={nm: round(float(cyc[0, i]) / leaves, 1)
+                                      for i, nm in enumerate(names[:-1])},
+            last_warp_barrier_share=float(cyc[1, names.index("barrier_waits")] / total[1]),
+            prof_ms=prof_ms, run_ms=run_ms, iters=iters)
+        out[cname] = rec
+        phase("36 nuts breakdown", f"{cname} at {eng.spec.precision} ({n} chains, eps {eps}, "
+              f"max_depth {MM_NUTS_DEPTH}, {iters} iterations): {json.dumps(rec)} [{card}]")
+    return out
+
+
 # ---- slice G: the chain-sharded runtime (kernel #7) -------------------------
 SHARDED_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:2068"  # sharded_pallas_mjhmc_run
 #: the torch.distributed calls counted around the sharded runs (isend and
@@ -2518,9 +2584,25 @@ def main() -> int:
     # only in the full-f32 ones
     hmma = hmma_counts(_build)
     phase("2 build", f"HMMA instructions in the SASS of each matmul instance: {json.dumps(hmma)}")
+    # the NUTS kernel's tiles as the library reports them, against the mirror
+    # the wrappers read (chains a block for the grid, the scratch rule)
+    tiles = {}
+    for dist in (ProductOfT(), SparseCoding(), BENCHMARK_CONFIGS["logreg"].make_distribution()):
+        spec = cm.energy_spec_for(dist)
+        for prec in ("highest", spec.precision):
+            for depth in (1, MM_NUTS_DEPTH, cm.NUTS_MAX_DEPTH):
+                got = cm.nuts_mm_tile(at(spec, prec), depth)
+                want = (*cm.NUTS_MM_TILES[type(spec)][:2],
+                        cm.nuts_mm_smem_bytes(at(spec, prec), depth))
+                check(got[:3] == want and got[3] >= 1, f"NUTS tile of {type(spec).__name__} at "
+                      f"{prec}, max_depth {depth}: the library's {got}, the mirror's {want}")
+                tiles[f"{type(spec).__name__} {prec} max_depth {depth}"] = got
+    phase("2 build", f"NUTS tiles (chains, threads, shared bytes a block; blocks an SM holds), "
+          f"library = mirror: {json.dumps(tiles)}")
     # 12 instances (4 bodies, run and stream, MJHMC and NUTS with and without
-    # the branches) per preset at two precisions, the stub and the sweep's 4
-    check(len(hmma) == 3 * 2 * 12 + 1 + 4 and all(
+    # the branches) per preset at two precisions, the stub, the sweep's 4 and
+    # the NUTS run's PROF instance per preset at its JAX default
+    check(len(hmma) == 3 * 2 * 12 + 1 + 4 + 3 and all(
         (c > 0) != label.endswith("highest") for label, c in hmma.items()),
         "every bf16 matmul instance must run HMMA and no full-f32 one")
 
@@ -2790,6 +2872,9 @@ def main() -> int:
     sharded_two_processes(cm)
     phase("35 sharded two processes", f"phases 34-35 took {time.perf_counter() - t_sh:.4g} s")
 
+    # ---- 36. the matmul NUTS kernel's per-leaf breakdown -------------------
+    nuts_breakdown(cm, card)
+
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
 
@@ -2951,7 +3036,7 @@ def main() -> int:
     check(all(kern["launches"] > 0 for kern in kernels),
           f"kernels not launched on their main paths: "
           f"{[kern['name'] for kern in kernels if not kern['launches'] > 0]}")
-    phase("36 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
+    phase("37 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,7 +69,7 @@ extern "C" int mjhmc_mm_engine_launch(
     unsigned int seed, float eps, float beta, int fixed_uniform, void* stream) {
   using namespace mjhmc::mm;
   if (n <= 0 || thin <= 0 || m <= 0 || (two_stage && variant == kMalt) ||
-      (variant == kNuts && (two_stage || m > nuts::kMaxDepth || !scratch)))
+      (variant == kNuts && (two_stage || m > nuts::kMaxDepth)))
     return cudaErrorInvalidValue;
   Args a{p0, p1, k0, k1, k2, k3, x, v, g, u, h_back, valid,
          xo, vo, go, uo, hbo, valido, w, wx, wx2, evals, xs, ws, es,
@@ -90,4 +90,55 @@ extern "C" int mjhmc_mm_engine_launch(
   else if (energy == kLogreg && ndims == 16 && krows == 256)
     fn = launcher<kLogreg>(precision, variant);
   return fn ? fn(a, emit, s) : cudaErrorInvalidValue;
+}
+
+// The NUTS run's PROF instance: mjhmc_mm_engine_launch's arguments (variant
+// NUTS, the preset's JAX default precision, no mass, no emissions), then
+// prof, (blocks, 2, nuts::kPhases) cycles and leaf steps (mjhmc_mm_engine.cuh,
+// nuts::Prof). Nothing on the main path calls it.
+extern "C" int mjhmc_mm_nuts_profile(
+    int energy, int ndims, int krows, int stub, int variant, int precision, const float* p0,
+    const float* p1, float k0, float k1, float k2, float k3, const float* mass,
+    int two_stage, float* scratch, const float* x, const float* v, const float* g,
+    const float* u, const float* h_back, const float* valid, float* xo, float* vo,
+    float* go, float* uo, float* hbo, float* valido, float* w, float* wx, float* wx2,
+    int* evals, float* xs, float* ws, int* es, int n, int num_iters, int thin, int m,
+    unsigned int seed, float eps, float beta, int fixed_uniform, void* stream,
+    unsigned long long* prof) {
+  using namespace mjhmc::mm;
+  if (n <= 0 || m <= 0 || m > nuts::kMaxDepth || stub || variant != kNuts || mass ||
+      two_stage || xs || !prof)
+    return cudaErrorInvalidValue;
+  Args a{p0, p1, k0, k1, k2, k3, x, v, g, u, h_back, valid,
+         xo, vo, go, uo, hbo, valido, w, wx, wx2, evals, xs, ws, es,
+         n, num_iters, thin, m, fixed_uniform, seed, eps, beta, mass, two_stage,
+         scratch, prof};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (energy == kProductOfT && ndims == 36 && krows == 36 && precision == kDefault)
+    return launch_nuts_prof<kProductOfT, kDefault>(a, s);
+  if (energy == kSparseCoding && ndims == 128 && krows == 64 && precision == kBf16x3)
+    return launch_nuts_prof<kSparseCoding, kBf16x3>(a, s);
+  if (energy == kLogreg && ndims == 16 && krows == 256 && precision == kDefault)
+    return launch_nuts_prof<kLogreg, kDefault>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+// The tile of the NUTS instances of (energy, precision) at max_depth: out[0]
+// chains a block, out[1] threads a block, out[2] shared-memory bytes a
+// block, out[3] blocks an SM holds at once (the run without a mass).
+// Returns cudaErrorInvalidValue where no such instance is compiled.
+extern "C" int mjhmc_mm_nuts_tile(int energy, int precision, int max_depth, int* out) {
+  using namespace mjhmc::mm;
+  const bool hi = precision == kHighest;
+  if (max_depth < 1 || max_depth > nuts::kMaxDepth) return cudaErrorInvalidValue;
+  if (energy == kProductOfT && (hi || precision == kDefault))
+    return hi ? nuts_tile<kProductOfT, kHighest>(max_depth, out)
+              : nuts_tile<kProductOfT, kDefault>(max_depth, out);
+  if (energy == kSparseCoding && (hi || precision == kBf16x3))
+    return hi ? nuts_tile<kSparseCoding, kHighest>(max_depth, out)
+              : nuts_tile<kSparseCoding, kBf16x3>(max_depth, out);
+  if (energy == kLogreg && (hi || precision == kDefault))
+    return hi ? nuts_tile<kLogreg, kHighest>(max_depth, out)
+              : nuts_tile<kLogreg, kDefault>(max_depth, out);
+  return cudaErrorInvalidValue;
 }

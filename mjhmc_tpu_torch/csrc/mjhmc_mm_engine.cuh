@@ -132,7 +132,10 @@ struct Args {
   float eps, beta;
   const float* mass;  // (2, d): M^-1 and sqrt(M), or nullptr (identity)
   int two_stage;
-  float* scratch;  // NUTS: the chains' tree state, (nuts::rows(m), d, n)
+  float* scratch;  // NUTS: the chains' tree state, (nuts::rows(m), d, n), where it is not
+  // kept in shared memory (NutsTile::ONCHIP)
+  // NUTS PROF instances: per block and observer, the cycles of each phase
+  unsigned long long* prof;
 };
 
 // Shared-memory layout, in floats. D: state dims; K: rows of the energy's
@@ -158,13 +161,12 @@ struct Layout {
   static constexpr int HEND = Z + (E != kSparseCoding ? K * NC : 0);  // [NC]
   static constexpr int UEND = HEND + NC;    // [NC]
   static constexpr int DWELL = UEND + NC;   // [C]
-  static constexpr int SEL = DWELL + C;     // [NC] choice (NUTS: leaf flag), as int
+  static constexpr int SEL = DWELL + C;     // [NC] choice, as int
   static constexpr int MASS = SEL + NC;     // [2D] M^-1, sqrt(M) (1 without)
-  static constexpr int FLAG = MASS + 2 * D;  // [NC] NUTS round flags, as int
-  static constexpr int FRAG = (FLAG + NC + 3) / 4 * 4;  // 16-byte aligned
+  static constexpr int FRAG = (MASS + 2 * D + 3) / 4 * 4;  // 16-byte aligned
   static constexpr int kWords = pad16(K) * pad16(D) / 2;  // one copy of one contraction
   static constexpr int kCopies = P == kHighest ? 0 : P == kBf16x3 ? 2 : 1;
-  static constexpr int kFloats = P == kHighest ? FLAG + NC : FRAG + 2 * kCopies * kWords;
+  static constexpr int kFloats = P == kHighest ? MASS + 2 * D : FRAG + 2 * kCopies * kWords;
 };
 
 // out[r][col] = Σ_k A[k][r]·B[k][col] for r < R, col < NC, handed to
@@ -380,17 +382,16 @@ __device__ __forceinline__ void load_params(const Args& a, float* A1, float* A2,
 }
 
 // v −= c_kick·g (if kick), x += c_drift·M^-1·v on all columns, then a
-// barrier. MASK (NUTS): the columns whose live flag is 0 keep x and v.
-template <int D, int NC, int T, bool BR, bool MASK>
+// barrier
+template <int D, int NC, int T, bool BR>
 __device__ __forceinline__ void kick_drift_tile(float* X, float* V, const float* G,
-                                                const float* IM, const int* live, bool kick,
-                                                float c_kick, float c_drift) {
+                                                const float* IM, bool kick, float c_kick,
+                                                float c_drift) {
   float4* X4 = reinterpret_cast<float4*>(X);
   float4* V4 = reinterpret_cast<float4*>(V);
   const float4* G4 = reinterpret_cast<const float4*>(G);
   for (int q = threadIdx.x; q < D * NC / 4; q += T) {
-    const float4 x0 = X4[q], v0 = V4[q];
-    float4 xq = x0, vq = v0;
+    float4 xq = X4[q], vq = V4[q];
     if (kick) {
       const float4 gq = G4[q];
       vq.x = vq.x - c_kick * gq.x;
@@ -403,73 +404,93 @@ __device__ __forceinline__ void kick_drift_tile(float* X, float* V, const float*
     xq.y = xq.y + c_drift * (im * vq.y);
     xq.z = xq.z + c_drift * (im * vq.z);
     xq.w = xq.w + c_drift * (im * vq.w);
-    if constexpr (MASK) {
-      const int c = (4 * q) % NC;
-      if (!live[c]) xq.x = x0.x, vq.x = v0.x;
-      if (!live[c + 1]) xq.y = x0.y, vq.y = v0.y;
-      if (!live[c + 2]) xq.z = x0.z, vq.z = v0.z;
-      if (!live[c + 3]) xq.w = x0.w, vq.w = v0.w;
-    }
     X4[q] = xq;
     V4[q] = vq;
   }
   __syncthreads();
 }
 
+// The gradient epilogues' arithmetic: RN rounds every operation on its own,
+// as the plain version does (NUTS); otherwise nvcc may fuse a product into
+// the sum that follows it (mm_kernel's bodies)
+template <bool RN>
+__device__ __forceinline__ float mul_(float x, float y) {
+  if constexpr (RN) return __fmul_rn(x, y); else return x * y;
+}
+template <bool RN>
+__device__ __forceinline__ float add_(float x, float y) {
+  if constexpr (RN) return __fadd_rn(x, y); else return x + y;
+}
+template <bool RN>
+__device__ __forceinline__ float sub_(float x, float y) {
+  if constexpr (RN) return __fsub_rn(x, y); else return x - y;
+}
+template <bool RN>
+__device__ __forceinline__ float div_(float x, float y) {
+  if constexpr (RN) return __fdiv_rn(x, y); else return x / y;
+}
+
 // g = ∇U(X) on all columns by the energy's two contractions at precision P
-// (frag: the bf16 fragments, Layout::FRAG), then the closing kick v −=
-// c_kick·g, then a barrier. MASK (NUTS): the columns whose live flag is 0
-// keep g and v (y, r or z is written on every column).
-template <int E, int D, int K, int NC, int T, bool STUB, bool MASK, int P>
-__device__ __forceinline__ void force_kick_tile(const float* A1, const float* A2,
-                                                const uint32_t* frag, const float* patch,
-                                                const float* X, float* V, float* G, float* Y,
-                                                float* Z, const int* live, const Args& a,
-                                                float c_kick) {
+// (frag: the bf16 fragments, Layout::FRAG): y, r or z into Y (product of t
+// and logreg also dU/dy or σ(z) into Z), then between() (a barrier), then
+// each gradient element to sink(r·NC + c, g)
+template <int E, int D, int K, int NC, int T, bool STUB, int P, bool RN, class Between,
+          class Sink>
+__device__ __forceinline__ void gradient_tile(const float* A1, const float* A2,
+                                              const uint32_t* frag, const float* patch,
+                                              const float* X, float* Y, float* Z, const Args& a,
+                                              Between between, Sink sink) {
   // hi and lo fragments of contraction 1 (A1) and 2 (A2)
   constexpr int W = Layout<E, D, K, NC / 2, P>::kWords;
   const uint32_t *h1 = frag, *h2 = frag + W, *l1 = frag + 2 * W, *l2 = frag + 3 * W;
-  // the closing kick of element idx with gradient gv
-  auto kick = [&](int idx, int col, float gv) {
-    if (MASK && !live[col]) return;
-    G[idx] = gv;
-    V[idx] = V[idx] - c_kick * gv;
-  };
   if constexpr (E == kProductOfT) {
-    // y = Wᵀx; keep y (for the energies) and dU/dy
+    // y = Wᵀx and dU/dy = (ν+1)·y/(ν + y²); g = W·dU/dy
     contract<D, K, NC, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float y) {
       Y[r * NC + c] = y;
-      Z[r * NC + c] = a.k0 * y / (a.k1 + y * y);
+      Z[r * NC + c] = div_<RN>(mul_<RN>(a.k0, y), add_<RN>(a.k1, mul_<RN>(y, y)));
     });
-    __syncthreads();
-    // g = W·dU/dy, and the closing kick
+    between();
     contract<K, D, NC, T, STUB, P>(A2, h2, l2, Z,
-                                   [&](int r, int c, float gv) { kick(r * NC + c, c, gv); });
+                                   [&](int r, int c, float gv) { sink(r * NC + c, gv); });
   } else if constexpr (E == kSparseCoding) {
-    // r = patch − Φa
-    contract<D, K, NC, T, STUB, P>(A1, h1, l1, X,
-                                   [&](int r, int c, float v) { Y[r * NC + c] = patch[r] - v; });
-    __syncthreads();
-    // g = λ·a/√(a²+ε) − σ⁻²·Φᵀr, and the closing kick
+    // r = patch − Φa; g = λ·a/√(a²+ε) − σ⁻²·Φᵀr
+    contract<D, K, NC, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float v) {
+      Y[r * NC + c] = sub_<RN>(patch[r], v);
+    });
+    between();
     contract<K, D, NC, T, STUB, P>(A2, h2, l2, Y, [&](int r, int c, float v) {
       const int idx = r * NC + c;
       const float av = X[idx];
-      const float s = sqrtf(av * av + a.k3);
-      kick(idx, c, a.k0 * (av / s) - a.k1 * v);
+      const float s = sqrtf(add_<RN>(mul_<RN>(av, av), a.k3));
+      sink(idx, sub_<RN>(mul_<RN>(a.k0, div_<RN>(av, s)), mul_<RN>(a.k1, v)));
     });
   } else {
-    // z = Xs·θ; keep z (for the energies) and σ(z)
+    // z = Xs·θ and σ(z); g = Xsᵀσ(z) + θ/σ₀²
     contract<D, K, NC, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float z) {
       Y[r * NC + c] = z;
-      Z[r * NC + c] = 1.0f / (1.0f + expf(-z));
+      Z[r * NC + c] = div_<RN>(1.0f, add_<RN>(1.0f, expf(-z)));
     });
-    __syncthreads();
-    // g = Xsᵀσ(z) + θ/σ₀², and the closing kick
+    between();
     contract<K, D, NC, T, STUB, P>(A2, h2, l2, Z, [&](int r, int c, float v) {
       const int idx = r * NC + c;
-      kick(idx, c, v + X[idx] * a.k0);
+      sink(idx, add_<RN>(v, mul_<RN>(X[idx], a.k0)));
     });
   }
+}
+
+// g = ∇U(X) on all columns (gradient_tile), the closing kick v −= c_kick·g,
+// then a barrier
+template <int E, int D, int K, int NC, int T, bool STUB, int P>
+__device__ __forceinline__ void force_kick_tile(const float* A1, const float* A2,
+                                                const uint32_t* frag, const float* patch,
+                                                const float* X, float* V, float* G, float* Y,
+                                                float* Z, const Args& a, float c_kick) {
+  gradient_tile<E, D, K, NC, T, STUB, P, false>(
+      A1, A2, frag, patch, X, Y, Z, a, [] { __syncthreads(); },
+      [&](int idx, float gv) {
+        G[idx] = gv;
+        V[idx] = V[idx] - c_kick * gv;
+      });
   __syncthreads();
 }
 
@@ -557,11 +578,10 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
     }
   };
   auto kick_drift = [&](bool kick, float c_kick, float c_drift) {
-    kick_drift_tile<D, NC, T, BR, false>(X, V, G, IM, nullptr, kick, c_kick, c_drift);
+    kick_drift_tile<D, NC, T, BR>(X, V, G, IM, kick, c_kick, c_drift);
   };
   auto force_kick = [&](float c_kick) {
-    force_kick_tile<E, D, K, NC, T, STUB, false, P>(A1, A2, frag, patch, X, V, G, Y, Z,
-                                                    nullptr, a, c_kick);
+    force_kick_tile<E, D, K, NC, T, STUB, P>(A1, A2, frag, patch, X, V, G, Y, Z, a, c_kick);
   };
   // one integrator step on all columns: leapfrog, or the two-stage splitting
   auto integrator_step = [&]() {
@@ -774,6 +794,15 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
   }
 }
 
+// The presets' shapes, one per energy: D state dims, K rows of the
+// intermediate, T threads a block; every mm_kernel tile is C = 16 chains
+// (NC = 32 trajectory columns)
+template <int E> struct Shape;
+template <> struct Shape<kProductOfT> { static constexpr int D = 36, K = 36, T = 96; };
+template <> struct Shape<kSparseCoding> { static constexpr int D = 128, K = 64, T = 256; };
+template <> struct Shape<kLogreg> { static constexpr int D = 16, K = 256, T = 128; };
+constexpr int kC = 16;
+
 // ---------------------------------------------------------------------------
 // NUTS: the step body _make_step_nuts (pallas_mjhmc.py:1011-1210) on the
 // matmul energies, with the semantics of the elementwise nuts_kernel
@@ -785,46 +814,70 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
 // (x_prop, v0, g_prop, u_prop) with h_back and valid passed through, the
 // post-transition x with weight 1, and evals equal to the integrated leaves.
 //
-// Design: a block runs the NC = 2C chains of its tile in lockstep, one
-// trajectory column each (NUTS has no backward trajectory), as the TPU's
-// lane block does. Each leaf is one leapfrog step of every column: the
-// energy's two contractions over the whole tile. A column whose chain is
-// done, or has stopped inside the subtree, keeps its x, v and g (the live
-// flags mask the kick-drift and the closing kick) and is not counted. The
-// round and leaf loops end when no chain of the block is live
-// (__syncthreads_or). Every draw is keyed by (chain, iteration, slot, tag),
-// so no chain's result depends on the tiling.
+// Design: a block runs the NC chains of its tile in lockstep, one column
+// each, as the TPU's lane block does (NUTS has no backward trajectory).
+// The tiles are narrow (NutsTile: 8 chains for product of t and logistic
+// regression, 16 for sparse coding), so that the presets' widths make
+// 256-512 blocks, two or more resident on each of the 132 SMs, and a tile
+// runs few leaves that only its deepest tree needs. Each leaf is one
+// leapfrog step of every column: the energy's two contractions over the
+// tile through contract() (mma.sync at the bf16 precisions), whose
+// epilogues write y, r or z and the gradient of every column. The rest is
+// the work of the element owners: thread tid owns column c = tid % NC and
+// the dims (and the rows of the intermediate) r, r + R, ... (r = tid / NC,
+// R = T / NC). An owner keeps the trajectory's x, v, g and the chain's
+// sample x, g of its elements in registers, runs their kick-drift and
+// closing kick (a column that is done or stopped keeps its state), and
+// reads and writes their rows of the tree state, which no other thread
+// touches, so the tree state needs no barrier. A column's sums (its
+// energy, ½vᵀM⁻¹v, the U-turn projections) are each owner's partial sum in
+// its dim order, then the R partials added in row order through shared
+// memory (red); every owner of the column reads them, so all R owners keep
+// the chain's scalars (u, h0, the log weights, done, stop, the direction,
+// the leaf count) alike and no flag is broadcast. A leaf takes four
+// barriers: the __syncthreads_or that decides whether it runs, after the
+// owners' kick-drift, one after each contraction, and one before the
+// partials are read; a round one more, for its end's U-turn check. Every
+// draw is keyed by (chain, iteration, slot, tag), so no chain's result
+// depends on the tiling.
 //
-// The current leaf is the tile's X, V, G in shared memory. The rest of a
-// chain's tree (both endpoints' x, v, g in the trajectory frame, the
-// subtree proposal's x, g and the 2(max_depth − 1) U-turn stack rows)
-// lives in a (rows, D, n) scratch buffer in device memory that the wrapper
-// allocates: at sparse coding's d = 128 and max_depth 8 that is 11 KB a
-// chain, 352 KB for a tile, beyond a block's 227 KB beside Φ. A warp's
-// accesses to a row are 32 neighbouring chains (coalesced); at product of t
-// and logreg the buffer fits the 50 MB L2. The proposal's x and g and the
-// Kahan moments stay in the owners' registers; the per-chain scalars (u,
-// h0, the log weights, done, stop, the leaf count) in the column's thread,
-// which sums ½vᵀM⁻¹v and the U-turn dots down the column in dim order with
-// IEEE roundings (no contraction), as the plain version does. The
-// contractions sum in another order than torch.matmul, so trees are held to
-// the plain version at a tolerance, not bit for bit.
+// The tree state (both endpoints' x, v, g in the trajectory frame, the
+// subtree proposal's x, g and the 2(max_depth − 1) U-turn stack rows,
+// nuts::rows) is rows(max_depth)·D floats a chain. It lives in shared
+// memory where the tile's fits beside the rest (product of t 25 KB and
+// logreg 11 KB a tile at max_depth 8), else (sparse coding, 11 KB a chain)
+// in the (rows, D, n) scratch buffer in device memory that the wrapper
+// allocates, where an owner's loads are independent (all in flight at
+// once) and a warp's are coalesced across the tile's chains. The
+// elementwise arithmetic rounds one IEEE operation at a time, as the plain
+// version does; the contractions and the column sums add in other orders
+// than torch.matmul and the plain version's sums, so trees are held to the
+// plain version at a tolerance, not bit for bit.
 //
-// What bounds it: the contractions of every leaf on all NC columns, live or
-// not (the lockstep's price: a tile runs as many leaves as its deepest
-// tree), and a serial D-long reduction per live column per leaf.
+// What bounds it: latency, not the card's rates (the operations are a few
+// percent of the bound's time, PERF.md §6). A leaf is a chain of dependent
+// steps between four barriers, the two contractions a third to a half of
+// its cycles, then the owners' partials and column sums and the tree
+// bookkeeping, and a tile runs as many leaves as its deepest tree. Two to
+// four resident blocks an SM overlap one block's barriers with another's
+// work. Sparse coding also waits on its stack rows in device memory, and
+// its instances sit at the 128 registers a thread that two blocks an SM
+// allow, with some spills (PERF.md §6 lists the breakdown, the registers
+// and the spills).
 namespace nuts {
 
 constexpr int kMaxDepth = 10;
 constexpr float kDivThreshold = 1000.0f;
-// scratch rows: the tree endpoints, the subtree proposal, then the stack
+// tree rows: the tree endpoints, the subtree proposal, then the stack
 // (x, v of span row mm at kStack + 2(mm − 1))
 enum Row { kXM = 0, kVM, kGM, kXP, kVP, kGP, kXS, kGS, kStack };
 __host__ __device__ constexpr int rows(int max_depth) { return kStack + 2 * (max_depth - 1); }
-// a column's leaf flag: 0 idle, 1 live, 2 live and its leaf taken
-enum Leaf { kIdle = 0, kLive = 1, kTaken = 2 };
-// a column's round flags
-enum Flag { kOk = 1, kMerge = 2, kRight = 4 };
+// the column sums' slots in red: the round end's two U-turn projections,
+// a leaf's two energy terms (kE1 is also ½v0ᵀM⁻¹v0 at an iteration's
+// start) and ½vᵀM⁻¹v, then two for each U-turn span that can close at a
+// leaf. A slot is written again only after a barrier that follows its reads.
+enum Slot { kEndM = 0, kEndP, kE1, kE2, kHalf, kSpan };
+__host__ __device__ constexpr int slots(int max_depth) { return kSpan + 2 * (max_depth - 1); }
 
 // jnp.logaddexp: max + log1p(exp(−|Δ|)), or a + b where Δ is NaN
 __device__ __forceinline__ float logaddexp(float a, float b) {
@@ -837,79 +890,174 @@ __device__ __forceinline__ float uniform(const Args& a, uint32_t word) {
   return a.fixed_uniform ? 0x1p-25f : philox_uniform(word);
 }
 
+// The PROF instances' per-leaf phase breakdown: clock64() stamps by two
+// observers, thread 0 and the first thread of the last warp, each phase's
+// cycles summed (the wait inside each block barrier apart, kPhBarrier), and
+// the block's leaf steps; written to prof[(block·2 + observer)·kPhases + phase]
+enum Phase {
+  kPhKickDrift = 0, kPhContract1, kPhContract2, kPhEnergy, kPhMultinomial, kPhStack,
+  kPhLeafUturn, kPhRoundEnd, kPhBarrier, kPhOther, kPhLeaves, kPhases
+};
+template <bool ON>
+struct Prof {
+  long long last = 0;
+  long long acc[kPhases] = {};
+  __device__ __forceinline__ void start() {
+    if constexpr (ON) last = clock64();
+  }
+  __device__ __forceinline__ void mark(int ph) {
+    if constexpr (ON) {
+      const long long now = clock64();
+      acc[ph] += now - last;
+      last = now;
+    }
+  }
+  __device__ __forceinline__ void sync(int ph) {
+    mark(ph);
+    __syncthreads();
+    mark(kPhBarrier);
+  }
+  __device__ __forceinline__ bool sync_or(int ph, bool p) {
+    mark(ph);
+    const bool any = __syncthreads_or(p);
+    mark(kPhBarrier);
+    return any;
+  }
+  __device__ __forceinline__ void leaf() {
+    if constexpr (ON) ++acc[kPhLeaves];
+  }
+  __device__ __forceinline__ void write(const Args& a, int T) {
+    if constexpr (ON) {
+      const int o = threadIdx.x == 0 ? 0 : threadIdx.x == T - 32 ? 1 : -1;
+      if (o >= 0)
+        for (int ph = 0; ph < kPhases; ++ph)
+          a.prof[((size_t)blockIdx.x * 2 + o) * kPhases + ph] = acc[ph];
+    }
+  }
+};
+
 }  // namespace nuts
 
-template <int E, int D, int K, int C, int T, bool EMIT, bool BR, int P>
-__global__ void __launch_bounds__(T) nuts_mm_kernel(Args a) {
+// The NUTS tile of energy E: NC chains (one column each) and T threads a
+// block, T a multiple of NC so that a thread's elements lie in one column;
+// __launch_bounds__ asks for MINB blocks an SM; ONCHIP keeps the tree state
+// in shared memory (ops/cuda_mjhmc.py mirrors this, NUTS_MM_TILES)
+template <int E> struct NutsTile;
+template <> struct NutsTile<kProductOfT> {
+  static constexpr int NC = 8, T = 96, MINB = 4;
+  static constexpr bool ONCHIP = true;
+};
+template <> struct NutsTile<kSparseCoding> {
+  static constexpr int NC = 16, T = 256, MINB = 2;
+  static constexpr bool ONCHIP = false;
+};
+template <> struct NutsTile<kLogreg> {
+  static constexpr int NC = 8, T = 128, MINB = 3;
+  static constexpr bool ONCHIP = true;
+};
+
+// The NUTS kernel's shared memory, in floats: the parameter matrix as
+// load_params writes it (f32 copies A1, A2 at kHighest, else the bf16 A
+// fragments at FRAG), the patch, X and G (D × NC), Y and Z (K × NC; no Z
+// at sparse coding) and the mass; then, sized by max_depth, the tree state
+// (ONCHIP) and the column sums' partials, slots × T
+// (ops/cuda_mjhmc.py::nuts_mm_smem_bytes mirrors this)
+template <int E, int P>
+struct NutsLayout {
+  static constexpr int D = Shape<E>::D, K = Shape<E>::K;
+  static constexpr int NC = NutsTile<E>::NC, T = NutsTile<E>::T, R = T / NC;
+  static_assert(T % NC == 0 && D % R == 0 && K % R == 0, "a thread's elements in one column");
+  static_assert(NC % 8 == 0, "mma.sync n-tiles of 8 columns");
+  using PL = Layout<E, D, K, NC / 2, P>;  // the parameter matrix's sizes
+  static constexpr int A1 = 0;
+  static constexpr int A2 = A1 + PL::kF32;
+  static constexpr int PATCH = A2 + PL::kF32;
+  static constexpr int X = PATCH + K;
+  static constexpr int G = X + D * NC;
+  static constexpr int Y = G + D * NC;
+  static constexpr int Z = Y + K * NC;
+  static constexpr int MASS = Z + (E != kSparseCoding ? K * NC : 0);  // [2D]
+  static constexpr int FRAG = (MASS + 2 * D + 3) / 4 * 4;  // 16-byte aligned
+  static constexpr int TREE = FRAG + 2 * PL::kCopies * PL::kWords;
+  __host__ __device__ static constexpr int red(int max_depth) {
+    return TREE + (NutsTile<E>::ONCHIP ? nuts::rows(max_depth) * D * NC : 0);
+  }
+  __host__ __device__ static constexpr int floats(int max_depth) {
+    return red(max_depth) + nuts::slots(max_depth) * T;
+  }
+};
+
+// The sum down column c of slot s of red, where each of a block's T threads
+// put one partial at red[s·T + tid] and a column's owners are the threads
+// c, c + NC, ...: their T / NC partials added in that order
+template <int T, int NC>
+__device__ __forceinline__ float column_sum(const float* red, int s, int c) {
+  const float* p = red + s * T + c;
+  float acc = p[0];
+#pragma unroll
+  for (int j = 1; j < T / NC; ++j) acc = __fadd_rn(acc, p[j * NC]);
+  return acc;
+}
+
+template <int E, bool EMIT, bool BR, int P, bool PROF>
+__global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_kernel(Args a) {
   using namespace nuts;
-  using L = Layout<E, D, K, C, P>;
-  constexpr int NC = L::NC;                 // chains per block, one column each
-  constexpr int NE = (D * NC + T - 1) / T;  // (dim, chain) elements per thread
-  static_assert(T >= NC, "one thread per column");
+  using L = NutsLayout<E, P>;
+  constexpr int D = L::D, K = L::K, NC = L::NC, T = L::T, R = L::R;
+  constexpr int NE = D / R, NK = K / R;  // a thread's dims and rows of the intermediate
 
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* A1 = sm + L::A1;
-  float* A2 = sm + L::A2;
-  float* patch = sm + L::PATCH;
   float* X = sm + L::X;
-  float* V = sm + L::V;
   float* G = sm + L::G;
   float* Y = sm + L::Y;
-  float* Z = sm + L::Z;
-  int* leaf_s = reinterpret_cast<int*>(sm + L::SEL);  // Leaf per column
-  int* flag_s = reinterpret_cast<int*>(sm + L::FLAG);  // Flag bits per column
   float* IM = sm + L::MASS;  // [D] M^-1, then [D] sqrt(M)
-  uint32_t* frag = reinterpret_cast<uint32_t*>(sm + L::FRAG);  // bf16 instances
-  float* SQM = IM + D;
-
-  const int tid = threadIdx.x;
-  const int chain0 = blockIdx.x * NC;
-  const size_t n = a.n;
   const int max_depth = a.m;
+  float* tree_s = sm + L::TREE;           // ONCHIP: [rows][D][NC]
+  float* red = sm + L::red(max_depth);    // [slots][T]
+
+  const int tid = threadIdx.x, c = tid % NC, r = tid / NC;
+  const int chain = blockIdx.x * NC + c;
+  const size_t n = a.n;
+  const bool chain_live = chain < a.n;
   const float eps = a.eps, he = 0.5f * a.eps;
   const uint2 key = make_uint2(a.seed, 0u);
 
-  load_params<E, D, K, T, BR, P>(a, A1, A2, patch, IM, frag);
+  Prof<PROF> prof;
+  prof.start();
+  load_params<E, D, K, T, BR, P>(a, sm + L::A1, sm + L::A2, sm + L::PATCH, IM,
+                                 reinterpret_cast<uint32_t*>(sm + L::FRAG));
 
-  // scratch row r, dim i of tile chain c
-  auto srow = [&](int r, int i, int c) -> float& {
-    return a.scratch[((size_t)r * D + i) * n + chain0 + c];
-  };
+  auto dim = [&](int k) { return r + k * R; };  // the thread's k-th dim
   auto im = [&](int i) { return BR ? IM[i] : 1.f; };
-  // ½ Σ (v·v)·M^-1 down column c of V, in dim order
-  auto halfsq = [&](int c) {
-    float s = 0.f;
-    for (int i = 0; i < D; ++i) {
-      const float vv = V[i * NC + c];
-      s = __fadd_rn(s, __fmul_rn(__fmul_rn(vv, vv), im(i)));
-    }
-    return __fmul_rn(0.5f, s);
+  // tree row rr, dim i of the thread's chain (only its owners touch it)
+  auto tree = [&](int rr, int i) -> float& {
+    if constexpr (NutsTile<E>::ONCHIP)
+      return tree_s[(rr * D + i) * NC + c];
+    else
+      return a.scratch[((size_t)rr * D + i) * n + chain];
   };
-  // Σ ((xa − xb)·w)·M^-1 over dims in order (the U-turn projections)
-  auto uturn_dot = [&](auto xa, auto xb, auto w) {
-    float s = 0.f;
-    for (int i = 0; i < D; ++i)
-      s = __fadd_rn(s, __fmul_rn(__fmul_rn(__fsub_rn(xa(i), xb(i)), w(i)), im(i)));
-    return s;
+  auto put = [&](int s, float part) { red[s * T + tid] = part; };
+  auto col_sum = [&](int s) { return column_sum<T, NC>(red, s, c); };
+  // acc + ((xa − xb)·w)·M^-1 of dim i (a U-turn projection's term)
+  auto proj = [&](float acc, float xa, float xb, float w, int i) {
+    return __fadd_rn(acc, __fmul_rn(__fmul_rn(__fsub_rn(xa, xb), w), im(i)));
   };
 
-  // owned elements e = tid + k·T: dim e / NC, chain e % NC of the tile;
-  // the chains past n (ragged last tile) are never live
-  float x[NE], g[NE], wx[NE], wxc[NE], wx2[NE], wx2c[NE];
+  // the chain's sample (x, g) and Kahan moments, and the trajectory (xt,
+  // vt, gt), of the thread's elements; the chains past n (ragged last
+  // tile) are never live
+  float x[NE], g[NE], wx[NE], wxc[NE], wx2[NE], wx2c[NE], xt[NE], vt[NE], gt[NE];
 #pragma unroll
   for (int k = 0; k < NE; ++k) {
-    const int e = tid + k * T, i = e / NC, c = e % NC;
-    const bool live = e < D * NC && chain0 + c < a.n;
-    const size_t gi = (size_t)i * n + chain0 + c;
-    x[k] = live ? a.x[gi] : 0.f;
-    g[k] = live ? a.g[gi] : 0.f;
+    const size_t gi = (size_t)dim(k) * n + chain;
+    x[k] = chain_live ? a.x[gi] : 0.f;
+    g[k] = chain_live ? a.g[gi] : 0.f;
     wx[k] = wxc[k] = wx2[k] = wx2c[k] = 0.f;
-    if (live && a.num_iters == 0) a.vo[gi] = a.v[gi];  // each iteration writes its v0
+    xt[k] = vt[k] = gt[k] = 0.f;
+    if (chain_live && a.num_iters == 0) a.vo[gi] = a.v[gi];  // each iteration writes its v0
   }
-  // per-chain scalars, held by thread c < NC for chain c of the tile
-  const int chain = chain0 + tid;
-  const bool chain_live = tid < NC && chain < a.n;
+  // the chain's scalars, kept alike by its R owners
   float u = chain_live ? a.u[chain] : 0.f;
   float w = 0.f, wc = 0.f;
   int evals = 0;
@@ -921,160 +1069,200 @@ __global__ void __launch_bounds__(T) nuts_mm_kernel(Args a) {
   for (int t = 0; t < a.num_iters; ++t) {
     // a fresh momentum v0 ~ N(0, M) (words i and D+i of tag 1); both tree
     // endpoints start at the chain's point
-#pragma unroll
-    for (int k = 0; k < NE; ++k) {
-      const int e = tid + k * T, i = e / NC, c = e % NC;
-      if (e < D * NC && chain0 + c < a.n) {
-        const float v0 = normal_of<D>(a, chain0 + c, t, i, kTagNutsMomentum, 0u,
-                                      BR ? SQM[i] : 1.f, key);
-        V[i * NC + c] = v0;
-        a.vo[(size_t)i * n + chain0 + c] = v0;
-        srow(kXM, i, c) = srow(kXP, i, c) = x[k];
-        srow(kVM, i, c) = srow(kVP, i, c) = v0;
-        srow(kGM, i, c) = srow(kGP, i, c) = g[k];
-      }
-    }
-    __syncthreads();
-    if (tid < NC) {
-      done = !chain_live;
-      h0 = __fadd_rn(u, halfsq(tid));
-      log_w_tree = 0.f;
-      nl = 0;
-    }
-
-    for (int jj = 0; jj < max_depth; ++jj) {
-      if (!__syncthreads_or(tid < NC && !done)) break;
-      // the round's direction, and the integration frame: outward from the
-      // chosen endpoint (the minus end's momentum negated)
-      if (tid < NC) {
-        stop = false;
-        log_w_sub = kNegInf;
-        if (!done) {
-          const uint4 rr = philox4x32_10(make_uint4(chain, t, jj, kTagNutsRound), key);
-          right = uniform(a, rr.x) < 0.5f;
-          merge_word = rr.y;
-        }
-        flag_s[tid] = done ? 0 : (kOk | (right ? kRight : 0));
-      }
-      __syncthreads();
+    float hv = 0.f;
+    if (chain_live) {
 #pragma unroll
       for (int k = 0; k < NE; ++k) {
-        const int e = tid + k * T, i = e / NC, c = e % NC;
-        const int f = e < D * NC ? flag_s[c] : 0;
-        if (f & kOk) {
-          const bool r = f & kRight;
-          X[i * NC + c] = srow(r ? kXP : kXM, i, c);
-          V[i * NC + c] = r ? srow(kVP, i, c) : -srow(kVM, i, c);
-          G[i * NC + c] = srow(r ? kGP : kGM, i, c);
+        const int i = dim(k);
+        const float v0 = normal_of<D>(a, chain, t, i, kTagNutsMomentum, 0u,
+                                      BR ? IM[D + i] : 1.f, key);
+        a.vo[(size_t)i * n + chain] = v0;
+        tree(kXM, i) = tree(kXP, i) = x[k];
+        tree(kVM, i) = tree(kVP, i) = v0;
+        tree(kGM, i) = tree(kGP, i) = g[k];
+        hv = __fadd_rn(hv, __fmul_rn(__fmul_rn(v0, v0), im(i)));
+      }
+    }
+    put(kE1, hv);
+    prof.sync(kPhOther);
+    done = !chain_live;
+    h0 = __fadd_rn(u, __fmul_rn(0.5f, col_sum(kE1)));
+    log_w_tree = 0.f;
+    nl = 0;
+
+    for (int jj = 0; jj < max_depth; ++jj) {
+      if (!prof.sync_or(kPhOther, !done)) break;
+      // the round's direction, and the integration frame: outward from the
+      // chosen endpoint (the minus end's momentum negated)
+      stop = false;
+      log_w_sub = kNegInf;
+      if (!done) {
+        const uint4 rr = philox4x32_10(make_uint4(chain, t, jj, kTagNutsRound), key);
+        right = uniform(a, rr.x) < 0.5f;
+        merge_word = rr.y;
+#pragma unroll
+        for (int k = 0; k < NE; ++k) {
+          const int i = dim(k);
+          xt[k] = tree(right ? kXP : kXM, i);
+          vt[k] = right ? tree(kVP, i) : -tree(kVM, i);
+          gt[k] = tree(right ? kGP : kGM, i);
         }
       }
+      prof.mark(kPhOther);
 
       const int leaves = 1 << jj;
       const uint32_t k0 = leaves - 1;  // tree position of the round's first leaf
       for (int leaf = 0; leaf < leaves; ++leaf) {
-        const bool act = tid < NC && !done && !stop;
-        if (tid < NC) leaf_s[tid] = act ? kLive : kIdle;
-        if (!__syncthreads_or(act)) break;
-        kick_drift_tile<D, NC, T, BR, true>(X, V, G, IM, leaf_s, true, he, eps);
-        force_kick_tile<E, D, K, NC, T, false, true, P>(A1, A2, frag, patch, X, V, G, Y, Z,
-                                                        leaf_s, a, he);
-        // the leaf's energy, divergence and progressive multinomial sampling
-        bool div = false;
+        const bool act = !done && !stop;
+        // the owners' half kick and drift, into X for the contractions
         if (act) {
-          const float ul = column_energy<E, D, K, NC>(X, Y, tid, a);
+#pragma unroll
+          for (int k = 0; k < NE; ++k) {
+            const int i = dim(k);
+            vt[k] = __fsub_rn(vt[k], __fmul_rn(he, gt[k]));
+            xt[k] = __fadd_rn(xt[k], __fmul_rn(eps, BR ? __fmul_rn(IM[i], vt[k]) : vt[k]));
+            X[i * NC + c] = xt[k];
+          }
+        }
+        if (!prof.sync_or(kPhKickDrift, act)) break;
+        prof.leaf();
+        // the leaf's gradient, rounded one operation at a time
+        gradient_tile<E, D, K, NC, T, false, P, true>(
+            sm + L::A1, sm + L::A2, reinterpret_cast<const uint32_t*>(sm + L::FRAG),
+            sm + L::PATCH, X, Y, sm + L::Z, a, [&] { prof.sync(kPhContract1); },
+            [&](int idx, float gv) { G[idx] = gv; });
+        prof.sync(kPhContract2);
+        // the owners' closing kick and partial sums: the energy's terms,
+        // v²·M^-1, and the U-turn projections of the spans of size 2^mm
+        // that end at this leaf (2^mm divides leaf + 1) against their left
+        // ends stored at earlier leaves
+        if (act) {
+          float e1 = 0.f, e2 = 0.f;
+          hv = 0.f;
+#pragma unroll
+          for (int k = 0; k < NE; ++k) {
+            const int i = dim(k);
+            gt[k] = G[i * NC + c];
+            vt[k] = __fsub_rn(vt[k], __fmul_rn(he, gt[k]));
+            hv = __fadd_rn(hv, __fmul_rn(__fmul_rn(vt[k], vt[k]), im(i)));
+            if constexpr (E == kSparseCoding)  // λ-term √(a²+ε)
+              e1 = __fadd_rn(e1, sqrtf(__fadd_rn(__fmul_rn(xt[k], xt[k]), a.k3)));
+            else if constexpr (E == kLogreg)  // the prior's θ²
+              e1 = __fadd_rn(e1, __fmul_rn(xt[k], xt[k]));
+          }
+#pragma unroll
+          for (int k = 0; k < NK; ++k) {
+            const float y = Y[dim(k) * NC + c];
+            if constexpr (E == kProductOfT)  // log1p(y²/ν)
+              e2 = __fadd_rn(e2, log1pf(__fmul_rn(__fmul_rn(y, y), a.k3)));
+            else if constexpr (E == kSparseCoding)  // r²
+              e2 = __fadd_rn(e2, __fmul_rn(y, y));
+            else  // softplus(z) = max(z, 0) + log1p(e^{−|z|})
+              e2 = __fadd_rn(e2, __fadd_rn(fmaxf(y, 0.f), log1pf(expf(-fabsf(y)))));
+          }
+          put(kE1, e1);
+          put(kE2, e2);
+          put(kHalf, hv);
+          prof.mark(kPhEnergy);
+          for (int mm = 1; mm <= jj && ((leaf + 1) & ((1 << mm) - 1)) == 0; ++mm) {
+            const int row = kStack + 2 * (mm - 1);
+            float d1 = 0.f, d2 = 0.f;
+#pragma unroll
+            for (int k = 0; k < NE; ++k) {
+              const int i = dim(k);
+              const float sx = tree(row, i), sv = tree(row + 1, i);
+              d1 = proj(d1, xt[k], sx, sv, i);
+              d2 = proj(d2, xt[k], sx, vt[k], i);
+            }
+            put(kSpan + 2 * (mm - 1), d1);
+            put(kSpan + 2 * (mm - 1) + 1, d2);
+          }
+          prof.mark(kPhLeafUturn);
+        }
+        prof.sync(kPhLeafUturn);
+        if (act) {
+          // the leaf's energy, divergence and progressive multinomial sampling
+          float ul;
+          if constexpr (E == kProductOfT)
+            ul = __fmul_rn(a.k2, col_sum(kE2));
+          else if constexpr (E == kSparseCoding)
+            ul = __fadd_rn(__fmul_rn(a.k0, col_sum(kE1)), __fmul_rn(a.k2, col_sum(kE2)));
+          else
+            ul = __fadd_rn(col_sum(kE2), __fmul_rn(a.k1, col_sum(kE1)));
+          const float h = __fadd_rn(ul, __fmul_rn(0.5f, col_sum(kHalf)));
+          prof.mark(kPhEnergy);
           ++nl;
-          const float h = __fadd_rn(ul, halfsq(tid));
           const float dh = __fsub_rn(h, h0);
-          div = fabsf(h) >= 1e30f || h != h || dh > kDivThreshold;
+          const bool div = fabsf(h) >= 1e30f || h != h || dh > kDivThreshold;
           const float lw_leaf = div ? kNegInf : -dh;
           const float lw_new = logaddexp(log_w_sub, lw_leaf);
           const float lu = logf(uniform(a, philox_word(chain, t, k0 + leaf, key, kTagNutsLeaf)));
-          if (!div && lu < __fsub_rn(lw_leaf, lw_new)) {
-            us = ul;
-            leaf_s[tid] = kTaken;
-          }
+          const bool taken = !div && lu < __fsub_rn(lw_leaf, lw_new);
+          if (taken) us = ul;
           log_w_sub = lw_new;
-        }
-        __syncthreads();
-        // the taken leaf becomes the subtree's proposal; leaf i opens the
-        // stack spans of size 2^mm that divide i
-#pragma unroll
-        for (int k = 0; k < NE; ++k) {
-          const int e = tid + k * T, i = e / NC, c = e % NC;
-          const int lf = e < D * NC ? leaf_s[c] : kIdle;
-          if (lf != kIdle) {
-            const float xv = X[i * NC + c];
-            if (lf == kTaken) {
-              srow(kXS, i, c) = xv;
-              srow(kGS, i, c) = G[i * NC + c];
-            }
-            for (int mm = 1; mm <= jj; ++mm)
-              if ((leaf & ((1 << mm) - 1)) == 0) {
-                srow(kStack + 2 * (mm - 1), i, c) = xv;
-                srow(kStack + 2 * (mm - 1) + 1, i, c) = V[i * NC + c];
-              }
-          }
-        }
-        // leaf i closes the spans of size 2^mm that divide i + 1, against
-        // their left ends stored at earlier leaves
-        if (act) {
+          prof.mark(kPhMultinomial);
           bool turning = false;
-          for (int mm = 1; mm <= jj && !turning; ++mm) {
-            if (((leaf + 1) & ((1 << mm) - 1)) != 0) continue;
-            const int r = kStack + 2 * (mm - 1);
-            auto xc = [&](int i) { return X[i * NC + tid]; };
-            auto sx = [&](int i) { return srow(r, i, tid); };
-            turning = uturn_dot(xc, sx, [&](int i) { return srow(r + 1, i, tid); }) < 0.f ||
-                      uturn_dot(xc, sx, [&](int i) { return V[i * NC + tid]; }) < 0.f;
-          }
+          for (int mm = 1; mm <= jj && ((leaf + 1) & ((1 << mm) - 1)) == 0; ++mm)
+            turning = turning || col_sum(kSpan + 2 * (mm - 1)) < 0.f ||
+                      col_sum(kSpan + 2 * (mm - 1) + 1) < 0.f;
           stop = div || turning;
+          prof.mark(kPhLeafUturn);
+          // the taken leaf becomes the subtree's proposal; leaf i opens the
+          // stack spans of size 2^mm that divide i
+#pragma unroll
+          for (int k = 0; k < NE; ++k) {
+            const int i = dim(k);
+            if (taken) {
+              tree(kXS, i) = xt[k];
+              tree(kGS, i) = gt[k];
+            }
+            for (int mm = 1; mm <= jj && (leaf & ((1 << mm) - 1)) == 0; ++mm) {
+              tree(kStack + 2 * (mm - 1), i) = xt[k];
+              tree(kStack + 2 * (mm - 1) + 1, i) = vt[k];
+            }
+          }
+          prof.mark(kPhStack);
         }
-        __syncthreads();  // the leaf flags are read until here
       }
 
       // the biased merge of a completed subtree, then the tree's extension
       // (back to the trajectory frame) and the U-turn between its endpoints
-      if (tid < NC) {
-        int f = 0;
-        if (!done && !stop) {
-          const bool merge = logf(uniform(a, merge_word)) < __fsub_rn(log_w_sub, log_w_tree);
-          if (merge) u = us;
-          log_w_tree = logaddexp(log_w_tree, log_w_sub);
-          f = kOk | (merge ? kMerge : 0) | (right ? kRight : 0);
-        }
-        flag_s[tid] = f;
-      }
-      __syncthreads();
+      if (!done && !stop) {
+        const bool merge = logf(uniform(a, merge_word)) < __fsub_rn(log_w_sub, log_w_tree);
+        if (merge) u = us;
+        log_w_tree = logaddexp(log_w_tree, log_w_sub);
+        float dm = 0.f, dp = 0.f;
 #pragma unroll
-      for (int k = 0; k < NE; ++k) {
-        const int e = tid + k * T, i = e / NC, c = e % NC;
-        const int f = e < D * NC ? flag_s[c] : 0;
-        if (f & kOk) {
-          if (f & kMerge) {
-            x[k] = srow(kXS, i, c);
-            g[k] = srow(kGS, i, c);
+        for (int k = 0; k < NE; ++k) {
+          const int i = dim(k);
+          if (merge) {
+            x[k] = tree(kXS, i);
+            g[k] = tree(kGS, i);
           }
-          const float xv = X[i * NC + c], vv = V[i * NC + c], gv = G[i * NC + c];
-          if (f & kRight) {
-            srow(kXP, i, c) = xv, srow(kVP, i, c) = vv, srow(kGP, i, c) = gv;
+          float xp, vp, xm, vm;
+          if (right) {
+            tree(kXP, i) = xp = xt[k];
+            tree(kVP, i) = vp = vt[k];
+            tree(kGP, i) = gt[k];
+            xm = tree(kXM, i);
+            vm = tree(kVM, i);
           } else {
-            srow(kXM, i, c) = xv, srow(kVM, i, c) = -vv, srow(kGM, i, c) = gv;
+            tree(kXM, i) = xm = xt[k];
+            tree(kVM, i) = vm = -vt[k];
+            tree(kGM, i) = gt[k];
+            xp = tree(kXP, i);
+            vp = tree(kVP, i);
           }
+          dm = proj(dm, xp, xm, vm, i);
+          dp = proj(dp, xp, xm, vp, i);
         }
+        put(kEndM, dm);
+        put(kEndP, dp);
       }
-      __syncthreads();
-      if (tid < NC && !done) {
-        bool turn = false;
-        if (!stop) {
-          auto xp = [&](int i) { return srow(kXP, i, tid); };
-          auto xm = [&](int i) { return srow(kXM, i, tid); };
-          turn = uturn_dot(xp, xm, [&](int i) { return srow(kVM, i, tid); }) < 0.f ||
-                 uturn_dot(xp, xm, [&](int i) { return srow(kVP, i, tid); }) < 0.f;
-        }
-        done = stop || turn;
-      }
+      prof.sync(kPhRoundEnd);
+      if (!done) done = stop || col_sum(kEndM) < 0.f || col_sum(kEndP) < 0.f;
+      prof.mark(kPhRoundEnd);
     }
-    __syncthreads();  // the last round's reads of the endpoint rows
 
     // the post-transition x, weight 1
     const bool emit_now = EMIT && (t + 1) % a.thin == 0;
@@ -1082,51 +1270,62 @@ __global__ void __launch_bounds__(T) nuts_mm_kernel(Args a) {
     if (chain_live) {
       evals += nl;
       kadd(w, wc, 1.f);
-      if (emit_now) {
+      if (emit_now && r == 0) {
         a.ws[emit_row * n + chain] = 1.f;
         a.es[emit_row * n + chain] = evals;
       }
-    }
 #pragma unroll
-    for (int k = 0; k < NE; ++k) {
-      const int e = tid + k * T, i = e / NC, c = e % NC;
-      if (e < D * NC && chain0 + c < a.n) {
+      for (int k = 0; k < NE; ++k) {
         kadd(wx[k], wxc[k], x[k]);
         kadd(wx2[k], wx2c[k], x[k] * x[k]);
-        if (emit_now) a.xs[(emit_row * D + i) * n + chain0 + c] = x[k];
+        if (emit_now) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
       }
     }
+    prof.mark(kPhOther);
   }
 
+  if (chain_live) {
 #pragma unroll
-  for (int k = 0; k < NE; ++k) {
-    const int e = tid + k * T, i = e / NC, c = e % NC;
-    if (e < D * NC && chain0 + c < a.n) {
-      const size_t gi = (size_t)i * n + chain0 + c;
+    for (int k = 0; k < NE; ++k) {
+      const size_t gi = (size_t)dim(k) * n + chain;
       a.xo[gi] = x[k];
       a.go[gi] = g[k];
       a.wx[gi] = wx[k];
       a.wx2[gi] = wx2[k];
     }
+    if (r == 0) {
+      a.uo[chain] = u;
+      a.hbo[chain] = a.h_back[chain];
+      a.valido[chain] = a.valid[chain];
+      a.w[chain] = w;
+      a.evals[chain] = evals;
+    }
   }
-  if (chain_live) {
-    a.uo[chain] = u;
-    a.hbo[chain] = a.h_back[chain];
-    a.valido[chain] = a.valid[chain];
-    a.w[chain] = w;
-    a.evals[chain] = evals;
-  }
+  prof.mark(kPhOther);
+  prof.write(a, T);
+}
+
+// NUTS of energy E at precision P, run or stream (EMIT), without (BR=false)
+// or with an inverse mass; the PROF instance writes the breakdown to a.prof
+template <int E, int P, bool EMIT, bool BR, bool PROF = false>
+cudaError_t launch_nuts(const Args& a, cudaStream_t stream) {
+  using L = NutsLayout<E, P>;
+  if (!NutsTile<E>::ONCHIP && !a.scratch) return cudaErrorInvalidValue;
+  const int bytes = L::floats(a.m) * (int)sizeof(float);
+  void (*kernel)(Args) = nuts_mm_kernel<E, EMIT, BR, P, PROF>;
+  // above 48 KB a block's shared memory must be asked for
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(a.n + L::NC - 1) / L::NC, L::T, bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int E, int D, int K, int C, int T, int VAR, bool EMIT, bool STUB, bool BR, int P>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t bytes = Layout<E, D, K, C, P>::kFloats * sizeof(float);
   constexpr int CH = VAR == kMjhmc ? C : 2 * C;  // chains per block
-  void (*kernel)(Args);
-  if constexpr (VAR == kNuts)
-    kernel = nuts_mm_kernel<E, D, K, C, T, EMIT, BR, P>;
-  else
-    kernel = mm_kernel<E, D, K, C, T, VAR, EMIT, STUB, BR, P>;
+  void (*kernel)(Args) = mm_kernel<E, D, K, C, T, VAR, EMIT, STUB, BR, P>;
   // above 48 KB a block's shared memory must be asked for
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1135,28 +1334,46 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The presets' shapes, one per energy: D state dims, K rows of the
-// intermediate, T threads a block; every tile is C = 16 chains (NC = 32
-// trajectory columns)
-template <int E> struct Shape;
-template <> struct Shape<kProductOfT> { static constexpr int D = 36, K = 36, T = 96; };
-template <> struct Shape<kSparseCoding> { static constexpr int D = 128, K = 64, T = 256; };
-template <> struct Shape<kLogreg> { static constexpr int D = 16, K = 256, T = 128; };
-constexpr int kC = 16;
-
 // Step body VAR of energy E at precision P, run or stream (emit): MJHMC and
 // NUTS without a mass and with the leapfrog take their fast-path instances
 // (BR=false; NUTS takes no other integrator), the rest the BR=true ones.
 template <int E, int P, int VAR>
 cudaError_t launch_body(const Args& a, bool emit, cudaStream_t s) {
   using S = Shape<E>;
-  if constexpr (VAR == kMjhmc || VAR == kNuts) {
+  if constexpr (VAR == kNuts) {
+    if (!a.mass && !a.two_stage)
+      return emit ? launch_nuts<E, P, true, false>(a, s) : launch_nuts<E, P, false, false>(a, s);
+    return emit ? launch_nuts<E, P, true, true>(a, s) : launch_nuts<E, P, false, true>(a, s);
+  }
+  if constexpr (VAR == kMjhmc) {
     if (!a.mass && !a.two_stage)
       return emit ? launch<E, S::D, S::K, kC, S::T, VAR, true, false, false, P>(a, s)
                   : launch<E, S::D, S::K, kC, S::T, VAR, false, false, false, P>(a, s);
   }
   return emit ? launch<E, S::D, S::K, kC, S::T, VAR, true, false, true, P>(a, s)
               : launch<E, S::D, S::K, kC, S::T, VAR, false, false, true, P>(a, s);
+}
+
+// The NUTS run of energy E at precision P without a mass: its PROF
+// instance (the per-leaf phase breakdown into a.prof; nothing on the main
+// path runs it), and its tile: chains and threads a block, shared-memory
+// bytes at max_depth, and the blocks an SM holds at once (the card's
+// occupancy query, which counts registers too)
+template <int E, int P>
+cudaError_t launch_nuts_prof(const Args& a, cudaStream_t s) {
+  return launch_nuts<E, P, false, false, true>(a, s);
+}
+template <int E, int P>
+cudaError_t nuts_tile(int max_depth, int* out) {
+  using L = NutsLayout<E, P>;
+  out[0] = L::NC;
+  out[1] = L::T;
+  out[2] = L::floats(max_depth) * (int)sizeof(float);
+  void (*kernel)(Args) = nuts_mm_kernel<E, false, false, P, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[2]);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, L::T, out[2]);
 }
 
 // The precision sweep's instances: the MJHMC leapfrog run without a mass
@@ -1181,36 +1398,45 @@ extern template Launch launch_body<kProductOfT, kHighest, kControl>;
 extern template Launch launch_body<kProductOfT, kHighest, kMalt>;
 // mm_nuts_product_of_t.cu
 extern template Launch launch_body<kProductOfT, kHighest, kNuts>;
+extern template cudaError_t nuts_tile<kProductOfT, kHighest>(int, int*);
 // mm_engine_sparse_coding.cu
 extern template Launch launch_body<kSparseCoding, kHighest, kMjhmc>;
 extern template Launch launch_body<kSparseCoding, kHighest, kControl>;
 extern template Launch launch_body<kSparseCoding, kHighest, kMalt>;
 // mm_nuts_sparse_coding.cu
 extern template Launch launch_body<kSparseCoding, kHighest, kNuts>;
+extern template cudaError_t nuts_tile<kSparseCoding, kHighest>(int, int*);
 // mm_engine_logreg.cu
 extern template Launch launch_body<kLogreg, kHighest, kMjhmc>;
 extern template Launch launch_body<kLogreg, kHighest, kControl>;
 extern template Launch launch_body<kLogreg, kHighest, kMalt>;
 // mm_nuts_logreg.cu
 extern template Launch launch_body<kLogreg, kHighest, kNuts>;
+extern template cudaError_t nuts_tile<kLogreg, kHighest>(int, int*);
 // mm_engine_product_of_t_default.cu
 extern template Launch launch_body<kProductOfT, kDefault, kMjhmc>;
 extern template Launch launch_body<kProductOfT, kDefault, kControl>;
 extern template Launch launch_body<kProductOfT, kDefault, kMalt>;
 // mm_nuts_product_of_t_default.cu
 extern template Launch launch_body<kProductOfT, kDefault, kNuts>;
+extern template cudaError_t launch_nuts_prof<kProductOfT, kDefault>(const Args&, cudaStream_t);
+extern template cudaError_t nuts_tile<kProductOfT, kDefault>(int, int*);
 // mm_engine_sparse_coding_bf16x3.cu
 extern template Launch launch_body<kSparseCoding, kBf16x3, kMjhmc>;
 extern template Launch launch_body<kSparseCoding, kBf16x3, kControl>;
 extern template Launch launch_body<kSparseCoding, kBf16x3, kMalt>;
 // mm_nuts_sparse_coding_bf16x3.cu
 extern template Launch launch_body<kSparseCoding, kBf16x3, kNuts>;
+extern template cudaError_t launch_nuts_prof<kSparseCoding, kBf16x3>(const Args&, cudaStream_t);
+extern template cudaError_t nuts_tile<kSparseCoding, kBf16x3>(int, int*);
 // mm_engine_logreg_default.cu
 extern template Launch launch_body<kLogreg, kDefault, kMjhmc>;
 extern template Launch launch_body<kLogreg, kDefault, kControl>;
 extern template Launch launch_body<kLogreg, kDefault, kMalt>;
 // mm_nuts_logreg_default.cu
 extern template Launch launch_body<kLogreg, kDefault, kNuts>;
+extern template cudaError_t launch_nuts_prof<kLogreg, kDefault>(const Args&, cudaStream_t);
+extern template cudaError_t nuts_tile<kLogreg, kDefault>(int, int*);
 // mm_sweep.cu
 extern template Launch launch_sweep<kProductOfT, kBf16x3>;
 extern template Launch launch_sweep<kProductOfT, kBf16x2>;

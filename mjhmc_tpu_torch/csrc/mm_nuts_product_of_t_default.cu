@@ -1,13 +1,16 @@
 // The NUTS instances of the matmul kernel (nuts_mm_kernel in
 // mjhmc_mm_engine.cuh) for the product_of_t preset, (36, 36), at its JAX default
 // dot precision, "default": run and stream, with and without an inverse
-// mass, compiled by their own nvcc.
+// mass, the run's PROF instance (the per-leaf phase breakdown) and their
+// tile query, compiled by their own nvcc.
 #include "mjhmc_mm_engine.cuh"
 
 namespace mjhmc {
 namespace mm {
 
 template Launch launch_body<kProductOfT, kDefault, kNuts>;
+template cudaError_t nuts_tile<kProductOfT, kDefault>(int, int*);
+template cudaError_t launch_nuts_prof<kProductOfT, kDefault>(const Args&, cudaStream_t);
 
 }  // namespace mm
 }  // namespace mjhmc

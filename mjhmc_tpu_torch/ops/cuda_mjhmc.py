@@ -1217,16 +1217,60 @@ def stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
 # kernel wrappers
 # --------------------------------------------------------------------------
 def nuts_scratch_rows(max_depth: int) -> int:
-    """Rows of d floats per chain the matmul kernel's NUTS body keeps in
-    device memory: both tree endpoints (x, v, g), the subtree's proposal
-    (x, g) and the U-turn stack (x, v for each of max_depth − 1 spans)."""
+    """Rows of d floats per chain of the matmul kernel's NUTS tree state:
+    both tree endpoints (x, v, g), the subtree's proposal (x, g) and the
+    U-turn stack (x, v for each of max_depth − 1 spans)."""
     return 8 + 2 * (max_depth - 1)
+
+
+#: the matmul NUTS kernel's tile per spec (csrc/mjhmc_mm_engine.cuh,
+#: NutsTile): chains and threads a block, and whether the tree state lives
+#: in shared memory (else in a scratch buffer in device memory that the
+#: wrapper allocates)
+NUTS_MM_TILES = {ProductOfTSpec: (8, 96, True), SparseCodingSpec: (16, 256, False),
+                 LogregSpec: (8, 128, True)}
+
+
+def nuts_scratch(spec, max_depth: int, n: int, device) -> Tensor | None:
+    """The matmul NUTS kernel's tree state in device memory, (rows, d, n),
+    for the energies whose tree state does not fit in shared memory
+    (``NUTS_MM_TILES``); None for the others."""
+    if NUTS_MM_TILES[type(spec)][2]:
+        return None
+    d = MM_KERNEL_SHAPES[type(spec)][0]
+    return torch.empty((nuts_scratch_rows(max_depth), d, n), dtype=torch.float32,
+                       device=device)
+
+
+def nuts_mm_smem_bytes(spec, max_depth: int) -> int:
+    """Shared-memory bytes a block of the matmul NUTS kernel takes at the
+    spec's precision and ``max_depth`` (mirror of NutsLayout::floats): the
+    parameter matrix (f32 in both orientations at "highest", else its bf16
+    A fragments, one copy per contraction and split part, 16-padded), the
+    patch, X and G, Y and Z (no Z at sparse coding), the mass, the tree state
+    where it is on chip, and the column sums' partials (5 + 2(max_depth − 1)
+    slots of one float a thread)."""
+    d, k = MM_KERNEL_SHAPES[type(spec)]
+    nc, threads, on_chip = NUTS_MM_TILES[type(spec)]
+
+    def pad16(m):
+        return -(-m // 16) * 16
+
+    f32 = d * k if spec.precision == "highest" else 0
+    mass = 2 * f32 + k + 2 * d * nc + k * nc * (1 if isinstance(spec, SparseCodingSpec) else 2)
+    frag = -(-(mass + 2 * d) // 4) * 4
+    copies = {"highest": 0, "bf16x3": 2}.get(spec.precision, 1)
+    red = frag + 2 * copies * pad16(k) * pad16(d) // 2
+    if on_chip:
+        red += nuts_scratch_rows(max_depth) * d * nc
+    return 4 * (red + (5 + 2 * (max_depth - 1)) * threads)
 
 
 def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             num_iters, m, thin, num_emits, fixed_uniform, variant, inv_mass,
-            integrator):
-    """Check the state, allocate the outputs and launch the spec's kernel."""
+            integrator, prof=None):
+    """Check the state, allocate the outputs and launch the spec's kernel
+    (with ``prof``, the matmul NUTS run's PROF instance writing into it)."""
     from mjhmc_tpu_torch.ops import _build
 
     if x.dim() != 2:
@@ -1297,16 +1341,16 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     if matmul:
         params = [t.contiguous() for t in _param_tensors(spec, d, x.device)]
         p0, p1 = (params + [None])[:2]
-        scratch = None
-        if variant == "nuts":  # the chains' tree state (csrc/mjhmc_mm_engine.cuh)
-            scratch = torch.empty((nuts_scratch_rows(m), d, n), dtype=torch.float32,
-                                  device=x.device)
-        rc = lib.mjhmc_mm_engine_launch(
+        scratch = nuts_scratch(spec, m, n, x.device) if variant == "nuts" else None
+        fn, extra = lib.mjhmc_mm_engine_launch, ()
+        if prof is not None:
+            fn, extra = lib.mjhmc_mm_nuts_profile, (prof.data_ptr(),)
+        rc = fn(
             spec.energy_id, d, spec.aux_rows(), int(getattr(spec, "stub_dots", False)),
             KERNEL_VARIANTS[variant], PRECISIONS.index(spec.precision),
             p0.data_ptr(), None if p1 is None else p1.data_ptr(),
             *spec.constants(), *branches, None if scratch is None else scratch.data_ptr(),
-            *ptrs, *tail,
+            *ptrs, *tail, *extra,
         )
     else:
         params = torch.as_tensor(spec.param_vector(d), device=x.device).contiguous()
@@ -1317,6 +1361,46 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         kernel = "mjhmc_mm_engine_launch" if matmul else "mjhmc_engine_launch"
         raise RuntimeError(f"{kernel} (variant {variant}) failed: CUDA error {rc}")
     return out, emits
+
+
+#: the phases of the matmul NUTS run's PROF instance (csrc/mjhmc_mm_engine.cuh,
+#: nuts::Phase): cycles of each, then the block's leaf steps
+NUTS_PROF_PHASES = ("kick_drift", "contraction_1", "contraction_2", "energy_halfsq",
+                    "multinomial", "stack_writes", "leaf_uturn", "round_end",
+                    "barrier_waits", "other", "leaf_steps")
+
+
+def nuts_mm_tile(spec, max_depth: int) -> tuple:
+    """(chains, threads, shared-memory bytes) of a block of the matmul NUTS
+    instances of ``spec`` at its precision and ``max_depth``, and the blocks
+    of its run an SM holds at once, as the built library reports them
+    (``mjhmc_mm_nuts_tile``; ``NUTS_MM_TILES`` and ``nuts_mm_smem_bytes``
+    mirror the first three)."""
+    from mjhmc_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 4)()
+    rc = _build.load().mjhmc_mm_nuts_tile(spec.energy_id, PRECISIONS.index(spec.precision),
+                                          max_depth, out)
+    if rc != 0:
+        raise RuntimeError(f"mjhmc_mm_nuts_tile: no NUTS instance of {type(spec).__name__} "
+                           f"at {spec.precision} (CUDA error {rc})")
+    return tuple(out)
+
+
+def nuts_mm_profile(spec, x, v, g, u, seed, epsilon, num_iters, max_depth) -> Tensor:
+    """The per-leaf phase breakdown of the matmul NUTS run from its PROF
+    instance (CUDA tensors; the spec at its JAX default precision, no
+    mass): an int64 (blocks, 2, len(NUTS_PROF_PHASES)) tensor of each
+    block's clock64() cycles per phase as thread 0 and the last warp's
+    first thread saw them, and its leaf steps. A measurement, not a
+    main-path call: the run's outputs are dropped and no launch is counted."""
+    blocks = -(-x.shape[1] // NUTS_MM_TILES[type(spec)][0])
+    prof = torch.zeros((blocks, 2, len(NUTS_PROF_PHASES)), dtype=torch.int64,
+                       device=x.device)
+    z = torch.zeros_like(u)
+    _launch(spec, x, v, g, u, z, z, seed, epsilon, 0.0, num_iters, max_depth, 1, None,
+            False, "nuts", None, "leapfrog", prof=prof)
+    return prof
 
 
 #: each wrapper's launch counts: one per step body (``launches`` is MJHMC's,

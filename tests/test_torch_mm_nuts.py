@@ -22,6 +22,7 @@ chains and x, v, g, u, the stream's xs and the moments within rtol 1e-4
 """
 
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -150,3 +151,86 @@ def test_matmul_nuts_routes_and_refuses():
     with pytest.raises(ValueError, match="cuda tensors"):
         cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, 4, variant="nuts")
     assert cm.nuts_scratch_rows(8) == 22  # 6 endpoint rows, 2 proposal rows, 2·7 stack rows
+
+
+#: the presets' chains (mjhmc_tpu_torch/config.py), the H100's SMs and its
+#: shared memory: an SM's 228 KB, a block's 227 KB at most, 1 KB an SM
+#: reserves for each resident block
+PRESET_CHAINS = {"product_of_t": 4096, "sparse_coding": 8192, "logreg": 2048}
+SMS, SMEM_SM, SMEM_BLOCK, SMEM_RESERVED = 132, 233472, 232448, 1024
+#: the NUTS instances: each preset at highest and at its JAX default precision
+NUTS_INSTANCES = [("product_of_t", "highest"), ("product_of_t", "default"),
+                  ("sparse_coding", "highest"), ("sparse_coding", "bf16x3"),
+                  ("logreg", "highest"), ("logreg", "default")]
+
+
+def _preset_spec(name, precision=None):
+    dist = {"product_of_t": tmodels.ProductOfT, "sparse_coding": tmodels.SparseCoding,
+            "logreg": tmodels.LogisticRegression}[name]()
+    spec = cm.energy_spec_for(dist)
+    return spec if precision is None else dataclasses.replace(spec, precision=precision)
+
+
+@pytest.mark.parametrize("name", list(PRESET_CHAINS))
+def test_nuts_scratch_only_where_the_tree_leaves_shared_memory(name):
+    """The wrapper allocates the NUTS tree state in device memory, (rows, d,
+    n), for sparse coding only (11 KB a chain at max_depth 8); product of t
+    and logreg keep it in shared memory and get none, at every depth."""
+    spec = _preset_spec(name)
+    for depth in range(1, cm.NUTS_MAX_DEPTH + 1):
+        scratch = cm.nuts_scratch(spec, depth, 100, "meta")
+        if name == "sparse_coding":
+            assert scratch.shape == (cm.nuts_scratch_rows(depth), 128, 100)
+            assert scratch.dtype == torch.float32
+        else:
+            assert scratch is None
+    assert cm.NUTS_MM_TILES[type(spec)][2] == (name != "sparse_coding")
+
+
+@pytest.mark.parametrize("name,precision", NUTS_INSTANCES,
+                         ids=[" ".join(k) for k in NUTS_INSTANCES])
+def test_nuts_tiles_fill_the_card(name, precision):
+    """The NUTS tile mirror (``NUTS_MM_TILES``, ``nuts_mm_smem_bytes``): at
+    the preset's chains the grid has at least 2 × 132 blocks (logreg's 2,048
+    chains at the 8-column mma.sync tile: 256, still two an SM on most); a
+    block holds whole columns (threads a multiple of the chains, the dims
+    and the intermediate's rows a multiple of the owners a column); at
+    max_depth 8 two blocks fit an SM's shared memory, and at max_depth 10 a
+    block stays under 227 KB; the bytes grow with the depth. (Phase 2 of
+    chip_smoke.py holds the mirror to the library's own bytes.)"""
+    spec = _preset_spec(name, precision)
+    nc, threads, _ = cm.NUTS_MM_TILES[type(spec)]
+    d, k = cm.MM_KERNEL_SHAPES[type(spec)]
+    owners = threads // nc
+    assert threads % nc == 0 and d % owners == 0 and k % owners == 0 and nc % 8 == 0
+    blocks = -(-PRESET_CHAINS[name] // nc)
+    assert blocks >= (SMS if name == "logreg" else 2 * SMS), blocks
+    at8, at10 = (cm.nuts_mm_smem_bytes(spec, depth) for depth in (8, 10))
+    assert 2 * (at8 + SMEM_RESERVED) <= SMEM_SM
+    assert at10 < SMEM_BLOCK
+    assert cm.nuts_mm_smem_bytes(spec, 1) < at8 < at10
+
+
+def test_bench_mm_ab_compare_counts_distinct_outputs(tmp_path, capsys):
+    """``bench_mm_ab --compare`` (the A/B of two checkouts' matmul kernels)
+    lists every case of any record with the number of distinct output
+    hashes among the records that hold it, and each record's times."""
+    from mjhmc_tpu_torch import bench_mm_ab
+
+    recs = {"parent1": {"logreg/nuts/default/plain": dict(out="a", run_ms=0.9, stream_ms=0.95),
+                        "logreg/mjhmc/default/plain": dict(out="m", run_ms=0.06, stream_ms=0.07)},
+            "change1": {"logreg/nuts/default/plain": dict(out="b", run_ms=0.12, stream_ms=0.13),
+                        "logreg/mjhmc/default/plain": dict(out="m", run_ms=0.06, stream_ms=0.07)},
+            "v1": {"logreg/nuts/default/plain": dict(out="b", run_ms=0.11, stream_ms=0.12)}}
+    lines = bench_mm_ab.compare(recs)
+    assert lines == [
+        "logreg/nuts/default/plain 2 outputs parent1:0.9/0.95 change1:0.12/0.13 v1:0.11/0.12",
+        "logreg/mjhmc/default/plain 1 outputs parent1:0.06/0.07 change1:0.06/0.07"]
+    paths = []
+    for tag, rec in recs.items():
+        paths.append(tmp_path / f"{tag}.json")
+        paths[-1].write_text(json.dumps(rec))
+    assert bench_mm_ab.main(["--compare", *map(str, paths)]) == 0
+    assert capsys.readouterr().out.splitlines() == lines
+    with pytest.raises(SystemExit):
+        bench_mm_ab.main([])
