@@ -29,10 +29,13 @@ moments, the adaptive step, the sharded checkpoint and ``bench_scaling``;
 then two processes (this script started again with ``--phase35-rank``)
 sharing the card under gloo, each rank against a direct launch at its
 offset seed. Phase 36 prints the matmul NUTS kernel's per-leaf phase
-breakdown at the three presets, from its PROF instance (clock64() stamps),
-and phase 2 holds the NUTS tiles the library reports (chains, threads and
-shared bytes a block) to the wrappers' mirror. One line per phase; any
-failed check raises, so the exit
+breakdown at the three presets and mm_kernel's per-iteration one (MJHMC and
+MALT on sparse coding, MALT on logreg), from their PROF instances
+(clock64() stamps), and phase 2 holds the NUTS and mm_kernel tiles the
+library reports (chains, threads and shared bytes a block) to the wrappers'
+mirror. Phase 15 also runs each matmul preset's MJHMC, control and MALT at
+a width that leaves mm_kernel's last tile partly empty (4,093, 8,185 and
+2,045 chains). One line per phase; any failed check raises, so the exit
 code is non-zero. The second to last line is the kernels' JSON record, the
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero and prints no result.
@@ -204,9 +207,9 @@ def hmma_counts(_build):
                     m = re.search(r"\d+(nuts_mm_kernel|mm_kernel)I((?:L[ib]\d+E)+)E", ln)
                     if m:
                         a = [int(v) for v in re.findall(r"L[ib](\d+)E", m.group(2))]
-                        if m.group(1) == "mm_kernel":  # E, D, K, C, T, VAR, EMIT, STUB, BR, P
-                            body, emit, stub, br, prec, prof = (bodies[a[5]], a[6], a[7], a[8],
-                                                                a[9], 0)
+                        if m.group(1) == "mm_kernel":  # E, VAR, EMIT, STUB, BR, P, PROF
+                            body, emit, stub, br, prec, prof = (bodies[a[1]], a[2], a[3], a[4],
+                                                                a[5], a[6])
                         else:  # E, EMIT, BR, P, PROF
                             body, emit, stub, br, prec, prof = "nuts", a[1], 0, a[2], a[3], a[4]
                         label = (f"{names[a[0]]} {body} {'stream' if emit else 'run'}"
@@ -701,6 +704,16 @@ def slice_cases(cm):
         ("mjhmc inv_mass", "sparse_coding", 8192, 0.1, dict(inv_mass=sc_mass)),
         ("control two_stage inv_mass", "sparse_coding", 8192, 0.2,
          dict(variant="control", integrator="two_stage", inv_mass=sc_mass)),
+        # widths that leave mm_kernel's last tile (MM_TILES) partly empty
+        ("mjhmc ragged", "product_of_t", 4093, 0.1, {}),
+        ("control ragged", "product_of_t", 4093, 0.2, dict(variant="control")),
+        ("malt ragged", "product_of_t", 4093, 1.0, dict(variant="malt")),
+        ("mjhmc ragged", "sparse_coding", 8185, 0.1, {}),
+        ("control ragged", "sparse_coding", 8185, 0.2, dict(variant="control")),
+        ("malt ragged", "sparse_coding", 8185, 1.0, dict(variant="malt")),
+        ("mjhmc ragged", "logreg", 2045, 0.1, {}),
+        ("control ragged", "logreg", 2045, 0.2, dict(variant="control")),
+        ("malt ragged", "logreg", 2045, 1.0, dict(variant="malt")),
         # slice K: the logreg energy on every body and branch
         ("mjhmc", "logreg", 2048, 0.1, {}),
         ("control", "logreg", 2048, 0.2, dict(variant="control")),
@@ -732,14 +745,17 @@ def slice_kernel_checks(cm):
     iterations that moved x, and what a one-ulp nudge of x does to the
     plain version alone (decisions changed, chains moved past rtol 1e-4),
     which also bounds the chains allowed outside when it exceeds 0.1%.
-    Returns {label: max |dx| on the fixed-uniform chains within}."""
+    The ragged widths (a partly empty last tile of mm_kernel) run in
+    fixed-uniform mode only. Returns {label: max |dx| on the fixed-uniform
+    chains within}."""
     errs = {}
     for label, cname, dist, n, eps, beta, m, held, kw in slice_cases(cm):
         spec = at(cm.energy_spec_for(dist))
         run, stream = wrappers_for(cm, spec)
         variant = kw.get("variant", "mjhmc")
         cost = (2 if kw.get("integrator") == "two_stage" else 1) * m
-        for fixed, seed in ((True, 7), (False, 12345)):
+        modes = ((True, 7),) if "ragged" in label else ((True, 7), (False, 12345))
+        for fixed, seed in modes:
             st = initial_state(dist, n, seed=1 if fixed else 2, inv_mass=kw.get("inv_mass"))
             args = (spec, *st, seed, eps, beta)
             k = run(*args, held, m, fixed_uniform=fixed, **kw)
@@ -2233,6 +2249,30 @@ def nuts_breakdown(cm, card):
     return out
 
 
+def mm_breakdown(cm, card):
+    """Phase 36: mm_kernel's per-iteration phase breakdown from its PROF
+    instances (``bench_mm_ab.run_profiles``: MJHMC and MALT on sparse coding
+    at bf16x3, MALT on logreg at one bf16 pass, the presets' widths, 10
+    iterations from the state two iterations in): the tile (chains and
+    threads a block, shared bytes, blocks an SM holds), each phase's share
+    of thread 0's cycles and its cycles per gradient (wall time: the SM's
+    other resident blocks issue meanwhile), the last warp's share of cycles
+    at barriers, and the PROF run's time beside the plain instance's."""
+    from mjhmc_tpu_torch.bench_mm_ab import run_profiles
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    for key, rec in run_profiles().items():
+        cname, body, _ = key.split("/")
+        spec = cm.energy_spec_for(BENCHMARK_CONFIGS[cname].make_distribution())
+        tile = cm.mm_tile(spec, body, body != "mjhmc")
+        check(rec["cycles_per_gradient"] > 0 and rec["gradients_per_block_iteration"] > 0,
+              f"{key}: empty PROF record")
+        rec = dict(chains_per_block=tile[0], threads=tile[1], smem_bytes=tile[2],
+                   resident_blocks_per_sm=tile[3], **rec)
+        phase("36 mm breakdown", f"{key} ({BENCHMARK_CONFIGS[cname].nbatch} chains): "
+              f"{json.dumps(rec)} [{card}]")
+
+
 # ---- slice G: the chain-sharded runtime (kernel #7) -------------------------
 SHARDED_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:2068"  # sharded_pallas_mjhmc_run
 #: the torch.distributed calls counted around the sharded runs (isend and
@@ -2599,10 +2639,30 @@ def main() -> int:
                 tiles[f"{type(spec).__name__} {prec} max_depth {depth}"] = got
     phase("2 build", f"NUTS tiles (chains, threads, shared bytes a block; blocks an SM holds), "
           f"library = mirror: {json.dumps(tiles)}")
+    # mm_kernel's tiles, every run instance (MJHMC with and without the
+    # branches, control and MALT with), against the mirror the wrappers read
+    tiles = {}
+    for spec_cls, precs in cm.MM_KERNEL_PRECISIONS.items():
+        dist = {cm.ProductOfTSpec: ProductOfT(), cm.SparseCodingSpec: SparseCoding(),
+                cm.LogregSpec: BENCHMARK_CONFIGS["logreg"].make_distribution()}[spec_cls]
+        for p, what in precs.items():
+            spec = at(cm.energy_spec_for(dist), p)
+            every = what == cm.ALL_BODIES
+            for body, br in (("mjhmc", False), ("mjhmc", True), ("control", True),
+                             ("malt", True)) if every else (("mjhmc", False),):
+                got = cm.mm_tile(spec, body, br)
+                want = (*cm.MM_TILES[(spec_cls, body)], cm.mm_smem_bytes(spec, body, br))
+                check(got[:3] == want and got[3] >= 1, f"mm_kernel tile of {spec_cls.__name__} "
+                      f"{body} at {p}{' branches' if br else ''}: the library's {got}, the "
+                      f"mirror's {want}")
+                tiles[f"{spec_cls.__name__} {body} {p}{' branches' if br else ''}"] = got
+    phase("2 build", f"mm_kernel tiles (chains, threads, shared bytes a block; blocks an SM "
+          f"holds), library = mirror: {json.dumps(tiles)}")
     # 12 instances (4 bodies, run and stream, MJHMC and NUTS with and without
-    # the branches) per preset at two precisions, the stub, the sweep's 4 and
-    # the NUTS run's PROF instance per preset at its JAX default
-    check(len(hmma) == 3 * 2 * 12 + 1 + 4 + 3 and all(
+    # the branches) per preset at two precisions, the stub, the sweep's 4,
+    # the NUTS run's PROF instance per preset at its JAX default and
+    # mm_kernel's 3 (MJHMC and MALT on sparse coding, MALT on logreg)
+    check(len(hmma) == 3 * 2 * 12 + 1 + 4 + 3 + 3 and all(
         (c > 0) != label.endswith("highest") for label, c in hmma.items()),
         "every bf16 matmul instance must run HMMA and no full-f32 one")
 
@@ -2872,8 +2932,9 @@ def main() -> int:
     sharded_two_processes(cm)
     phase("35 sharded two processes", f"phases 34-35 took {time.perf_counter() - t_sh:.4g} s")
 
-    # ---- 36. the matmul NUTS kernel's per-leaf breakdown -------------------
+    # ---- 36. the matmul kernels' phase breakdowns ----------------------------
     nuts_breakdown(cm, card)
+    mm_breakdown(cm, card)
 
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration

@@ -18,72 +18,80 @@
 // weight 1) and cumulative evals with plain coalesced stores (no row
 // padding).
 //
-// Design: a block owns a tile of chains. It loads the parameter matrix
-// (W, or Φ and the patch) into shared memory once, in both orientations,
-// so that each contraction reads it along contiguous rows. The trajectories
-// of the tile are the NC = 2C columns of (d, NC) arrays X, V, G in shared
-// memory: MJHMC spends them on the forward and backward trajectories of C
-// chains, control and MALT (forward trajectories only) on 2C chains, so all
-// three bodies run the same tile width. Every leapfrog step runs the
-// energy's two contractions over all NC columns at once (product of t: y =
-// Wᵀx, then W·dU/dy; sparse coding: r = patch − Φa, then Φᵀr; logistic
-// regression: z = Xs·θ, then Xsᵀσ(z)), all through contract() at the
-// instance's precision P, with __syncthreads() between the
-// phases; a two-stage step is two of them with its own kick coefficients,
-// and no pair form (both contractions per gradient, as the TPU body sets
-// use_pair false there). The endpoint energies reuse the last step's y or
-// r; MALT takes U after every step from the same contraction's y or r (its
-// Δ sum), as the JAX body relies on CSE for. The current point (x, v, g)
-// and the Kahan pairs of each (dim, chain) element live in registers of
-// the thread that owns the element; the per-chain scalars (u, h_back,
-// valid, Σw, evals; MALT's running U and Δ) in registers of one thread per
-// chain. The inverse mass sits in shared memory (rows M^-1 and sqrt(M),
-// 1.0 without a mass, which multiplies exactly).
+// Design (mm_kernel): a block owns a tile of CH chains (MmTile, per energy
+// and body, so that the presets' widths give 256-1,024 blocks, two or more
+// resident on each of the 132 SMs). It loads the parameter matrix into
+// shared memory once (load_params). The trajectories of the tile are the
+// NC columns of (d, NC) arrays in shared memory: MJHMC spends two on each
+// chain (forward in column c, backward from (x, -v) in CH + c), control and
+// MALT one (forward only). Every leapfrog step runs the energy's two
+// contractions over all NC columns at once (product of t: y = Wᵀx, then
+// W·dU/dy; sparse coding: r = patch − Φa, then Φᵀr; logistic regression: z
+// = Xs·θ, then Xsᵀσ(z)) through contract() at the instance's precision P,
+// whose epilogues write the intermediate and the gradient G; a two-stage
+// step is two of them. The rest is the work of the chain's threads, T / CH
+// of them (tid % CH is the chain, tid / CH the thread's rank r among them):
+// the first R of them own the chain's dims in aligned groups of four (rank
+// r the groups r, r + R, ...), keep the chain's x, v, g, the Kahan pairs and
+// the trajectories' momenta of those dims in registers, run their
+// kick-drift (writing x into X for the contractions) and closing kick, and
+// draw their normals; every thread of the chain owns the rows r, r + T/CH,
+// ... of the intermediate. A chain's sums (its energy: the rows' terms and
+// sparse coding's and logreg's Σ over dims; ½vᵀM⁻¹v) are each thread's
+// partial sum in its own order, then the partials added in rank order
+// through shared memory (column_sum), so every thread of the chain holds the
+// chain's scalars alike (u, h_cur, MALT's running U, h_in and Δ, the
+// decision) and nothing is broadcast. A leapfrog step takes three
+// barriers: after the owners' kick-drift and after each contraction; an
+// iteration one more before its sums are read. MALT's per-step sums (U and
+// ½vᵀM⁻¹v after the step, ½vᵀM⁻¹v after the next O-step) are put before
+// the next step's kick-drift and read after its first barrier, so they
+// cost no barrier of their own. Product of t's and logreg's first
+// epilogue writes each row's energy term (log1p(y²/ν), softplus(z)) where
+// the energy is wanted, so the transcendentals run on every thread. The
+// contraction operands X, Z (and sparse coding's Y) have a row stride of
+// NC + 4 floats, so the B fragments' loads hit 32 banks. The inverse mass
+// sits in shared memory (rows M^-1 and sqrt(M), BR instances only).
 //
 // Precisions (P, JAX's names): kHighest sums each thread's 4×4 register
-// tile in FP32 FMA (the 4×4 tiles give each thread 16 independent FMA
-// chains per shared-memory load pair; the warps of a tile read the same
-// matrix row, broadcast, and neighbouring columns of the state). kBf16x3,
-// kBf16x2 and kDefault run hand-written mma.sync.m16n8k16 bf16 -> f32
-// passes (mma_bf16.cuh): warps own m16n8 output tiles, the parameter rows
-// on m and the 32 columns on n. The parameter matrix is split into bf16 hi
-// and lo once per block (load_params) and kept in shared memory in A-
-// fragment order for both contractions, zero-padded to multiples of 16
-// (product of t's 36 to 48); the state operand (X, dU/dy, the residual,
-// σ(z)) is split as its B fragments load, 0 past its last row, so the f32
-// layout keeps its strides. bf16x3 is hi·hi + (hi·lo + lo·hi) in three
+// tile in FP32 FMA (16 independent FMA chains per shared-memory load pair).
+// kBf16x3, kBf16x2 and kDefault run hand-written mma.sync.m16n8k16 bf16 ->
+// f32 passes (mma_bf16.cuh): warps own m16n8 output tiles. The parameter
+// matrix is split into bf16 hi and lo once per block (load_params) and
+// kept in shared memory in A-fragment order for both contractions,
+// zero-padded to multiples of 16 (product of t's 36 to 48); the state
+// operand (X, dU/dy, the residual, σ(z)) is split as its B fragments load,
+// 0 past its last row. bf16x3 is hi·hi + (hi·lo + lo·hi) in three
 // accumulators added as JAX adds them (_dot_bf16x3, :312); bf16x2 is
 // hi·(hi + lo) of the state with the parameter rounded once (_dot_bf16x2,
 // :337); default one pass with both operands rounded (the TPU's
 // Precision.DEFAULT). The f32 copies of the parameter matrix exist only in
-// the kHighest instances (sparse coding at bf16x3 holds ~124 KB, as at
-// kHighest: its two bf16 copies take the f32 copies' 64 KB).
+// the kHighest instances.
 //
-// What bounds it: at kHighest the FP32 FMA throughput in the contractions
-// (~3.3e5 multiply-adds per chain and iteration for sparse coding at M=10,
-// ~1.3e4 for product of t at M=5). In the bf16 instances the 1-3 mma
-// passes per 16×8×16 tile are cheap, and the B fragments' strided f32
-// loads (lanes 2q apart in k hit the same bank) and splits take their
-// place, so they run near the FP32 path's time (PERF.md §6). At every
-// precision: the elementwise work, the latency of the 3M+4 block barriers
-// per iteration (MALT adds four per step; two-stage doubles the
-// contractions), and shared memory per block (one sparse-coding block per
-// SM), which caps the warps an SM holds.
-// MALT also draws (2M+1)·d normals per chain and iteration, each from two
-// Philox blocks (the owner of element (i, chain) computes words i and
-// d+i), which at product of t's small k is comparable to the contractions.
-// Control and MALT hold twice the (dim, chain) elements per thread (16 at
-// sparse coding), which raises register pressure.
+// What bounds it: latency, not the card's rates. At kHighest the FP32 FMA
+// work of the contractions (~3.3e5 multiply-adds per chain and iteration
+// for sparse coding at M=10); at the bf16 precisions the fragment loads,
+// splits and mma latencies of the contractions, a chain of dependent steps
+// between three barriers a step, and the owners' elementwise work. Two or
+// more resident blocks an SM overlap one block's barriers with another's
+// work (PERF.md §6 lists the per-phase breakdown of the PROF instances).
+//
+// NUTS (nuts_mm_kernel, below) has its own tile and layout and shares
+// load_params, contract, gradient_tile and column_sum.
 //
 // Random numbers: Philox4x32-10 keyed (seed, 0), laid out in philox.cuh:
 // MJHMC counter (chain, iteration, block, 0), 1 + 2d words per iteration
-// (word 0 picks the clock, drawn by the chain's thread; words 1+i and 1+d+i
-// make dim i's Box-Muller normal, drawn by the thread owning element (i,
-// chain)); NUTS tags 1-3 (momentum, round, leaf) as the elementwise kernel
-// draws them; control tag 4, MALT tags 5 and 6, each normal from words i
-// and d+i and the Metropolis uniform from word 2d. The plain PyTorch version
-// (ops/cuda_mjhmc.py) computes the same words. No fast-math: the Kahan sums
-// and the plain-version comparisons need IEEE arithmetic.
+// (word 0 picks the clock, drawn by every thread of the chain alike; words
+// 1+i and 1+d+i make dim i's Box-Muller normal); NUTS tags 1-3 (momentum,
+// round, leaf) as the elementwise kernel draws them; control tag 4, MALT
+// tags 5 and 6, each normal from words i and d+i and the Metropolis uniform
+// from word 2d. An owner of dims i..i+3 takes their words from whole
+// blocks: words i..i+3 and d+i..d+i+3 are one block each (d % 4 == 0);
+// MJHMC's 1+i..4+i, one word further, two each (words4). Every draw is
+// keyed by (chain, iteration, slot, tag), never by the tiling, and the
+// plain PyTorch version (ops/cuda_mjhmc.py) computes the same words. No
+// fast-math: the Kahan sums and the plain-version comparisons need IEEE
+// arithmetic.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -134,56 +142,49 @@ struct Args {
   int two_stage;
   float* scratch;  // NUTS: the chains' tree state, (nuts::rows(m), d, n), where it is not
   // kept in shared memory (NutsTile::ONCHIP)
-  // NUTS PROF instances: per block and observer, the cycles of each phase
+  // PROF instances: per block and observer, the cycles of each phase
   unsigned long long* prof;
 };
 
-// Shared-memory layout, in floats. D: state dims; K: rows of the energy's
-// intermediate (product of t: nbasis; sparse coding: npixels; logreg: nobs).
-// The f32 parameter copies A1/A2 exist only at kHighest (0 floats at the
-// bf16 precisions, which read the A fragments instead). The bf16 instances
-// add the parameter matrix's A fragments at FRAG, in 32-bit words:
-// contraction 1's hi, contraction 2's hi, then (bf16x3) the two lo copies,
-// each kWords long.
-template <int E, int D, int K, int C, int P>
-struct Layout {
-  static_assert(D % 4 == 0 && K % 4 == 0 && C % 2 == 0, "float4 tiles");
-  static constexpr int NC = 2 * C;          // trajectory columns
-  static constexpr int kF32 = P == kHighest ? D * K : 0;  // one f32 copy
-  static constexpr int A1 = 0;              // [D][K]: W | Φᵀ | Xsᵀ
-  static constexpr int A2 = A1 + kF32;      // [K][D]: Wᵀ | Φ | Xs
-  static constexpr int PATCH = A2 + kF32;   // [K]
-  static constexpr int X = PATCH + K;       // [D][NC] trajectory positions
-  static constexpr int V = X + D * NC;      // [D][NC] momenta
-  static constexpr int G = V + D * NC;      // [D][NC] gradients
-  static constexpr int Y = G + D * NC;      // [K][NC] y | r | z
-  static constexpr int Z = Y + K * NC;      // [K][NC] dU/dy | σ(z)
-  static constexpr int HEND = Z + (E != kSparseCoding ? K * NC : 0);  // [NC]
-  static constexpr int UEND = HEND + NC;    // [NC]
-  static constexpr int DWELL = UEND + NC;   // [C]
-  static constexpr int SEL = DWELL + C;     // [NC] choice, as int
-  static constexpr int MASS = SEL + NC;     // [2D] M^-1, sqrt(M) (1 without)
-  static constexpr int FRAG = (MASS + 2 * D + 3) / 4 * 4;  // 16-byte aligned
+// The presets' shapes, one per energy: D state dims, K rows of the
+// intermediate (product of t: nbasis; sparse coding: npixels; logreg: nobs)
+template <int E> struct Shape;
+template <> struct Shape<kProductOfT> { static constexpr int D = 36, K = 36; };
+template <> struct Shape<kSparseCoding> { static constexpr int D = 128, K = 64; };
+template <> struct Shape<kLogreg> { static constexpr int D = 16, K = 256; };
+
+// The parameter matrix's shared memory, in floats: at kHighest two f32
+// copies (contraction 1's A1 [D][K]: W | Φᵀ | Xsᵀ, contraction 2's A2
+// [K][D]: Wᵀ | Φ | Xs), kF32 each; at the bf16 precisions none, and the A
+// fragments instead, in 32-bit words: contraction 1's hi, contraction 2's
+// hi, then (bf16x3) the two lo copies, kWords each (kFrag in all)
+template <int E, int P>
+struct Params {
+  static constexpr int D = Shape<E>::D, K = Shape<E>::K;
+  static_assert(D % 4 == 0 && K % 4 == 0, "float4 tiles");
+  static constexpr int kF32 = P == kHighest ? D * K : 0;
   static constexpr int kWords = pad16(K) * pad16(D) / 2;  // one copy of one contraction
   static constexpr int kCopies = P == kHighest ? 0 : P == kBf16x3 ? 2 : 1;
-  static constexpr int kFloats = P == kHighest ? MASS + 2 * D : FRAG + 2 * kCopies * kWords;
+  static constexpr int kFrag = 2 * kCopies * kWords;
 };
 
 // out[r][col] = Σ_k A[k][r]·B[k][col] for r < R, col < NC, handed to
-// epi(r, col, value) element by element: A is [KD][R], B is [KD][NC], both
-// row-major f32 in shared memory.
+// epi(r, col, value) element by element: A is [KD][R], B is [KD][NC] with
+// row stride LDB (≥ NC), both row-major f32 in shared memory.
 //
 // kHighest: each task sums a 4×4 tile in registers in FP32 FMA. With STUB
 // the sum is replaced by 1e-3·B[0][col] on every row (MatmulEnergySpec._dot's
 // stub_dots ablation): the tiles, epilogues and barriers stay, the
 // multiply-adds go.
 //
-// The bf16 precisions: warp w takes m16n8 output tiles w, w + T/32, ...;
+// The bf16 precisions: warp w takes m16n8 output tiles w, w + T/32, ...
+// (two at a time where they share their n-tile);
 // AH (and AL, bf16x3) hold A as bf16 A fragments, the (m-tile, k-tile)
 // fragment at uint4 (mt·KT + kt)·32 + lane (load_params); B's fragments
-// are split from f32 as they load, 0 past row KD. Output rows past R (the
-// padding) are dropped.
-template <int KD, int R, int NC, int T, bool STUB, int P, class Epi>
+// are split from f32 as they load, 0 past row KD (with LDB ≡ 4 mod 8 a
+// load's 32 lanes, rows 2q apart and columns g apart, hit 32 banks). Output
+// rows past R (the padding) are dropped.
+template <int KD, int R, int NC, int LDB, int T, bool STUB, int P, class Epi>
 __device__ __forceinline__ void contract(const float* __restrict__ A,
                                          const uint32_t* __restrict__ AH,
                                          const uint32_t* __restrict__ AL,
@@ -202,7 +203,7 @@ __device__ __forceinline__ void contract(const float* __restrict__ A,
 #pragma unroll 4
         for (int k = 0; k < KD; ++k) {
           const float4 a = *reinterpret_cast<const float4*>(A + k * R + r0);
-          const float4 b = *reinterpret_cast<const float4*>(B + k * NC + c0);
+          const float4 b = *reinterpret_cast<const float4*>(B + k * LDB + c0);
           const float av[4] = {a.x, a.y, a.z, a.w};
           const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
@@ -217,40 +218,53 @@ __device__ __forceinline__ void contract(const float* __restrict__ A,
         for (int j = 0; j < 4; ++j) epi(r0 + i, c0 + j, acc[i][j]);
     }
   } else {
-    constexpr int MT = pad16(R) / 16, KT = pad16(KD) / 16, NT = NC / 8;
+    constexpr int MT = pad16(R) / 16, KT = pad16(KD) / 16, NT = NC / 8, W = T / 32;
     static_assert(NC % 8 == 0, "n-tiles of 8 columns");
+    // where all of a warp's tiles share one n-tile (W % NT == 0) and come in
+    // pairs, the warp runs its m-tiles two at a time and loads and splits
+    // each B fragment once for both
+    constexpr int MP = W % NT == 0 && MT % (2 * (W / NT)) == 0 ? 2 : 1;
+    constexpr int kUnroll = MP == 1 ? 2 : 1;
     const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
     const uint4* AH4 = reinterpret_cast<const uint4*>(AH);
     const uint4* AL4 = reinterpret_cast<const uint4*>(AL);
-    for (int tile = threadIdx.x / 32; tile < MT * NT; tile += T / 32) {
-      const int mt = tile / NT, col = (tile % NT) * 8 + g;
-      float hh[4] = {}, hl[4] = {}, lh[4] = {};
-      auto b_at = [&](int k) { return k < KD ? B[k * NC + col] : 0.f; };
-#pragma unroll 2
+    for (int tile = threadIdx.x / 32; tile < MT * NT; tile += MP * W) {
+      const int nt = tile % NT, col = nt * 8 + g;
+      int mts[MP];
+#pragma unroll
+      for (int p = 0; p < MP; ++p) mts[p] = tile / NT + p * (W / NT);
+      float hh[MP][4] = {}, hl[MP][4] = {}, lh[MP][4] = {};
+      auto b_at = [&](int k) { return k < KD ? B[k * LDB + col] : 0.f; };
+#pragma unroll kUnroll
       for (int kt = 0; kt < KT; ++kt) {
         const int k = 16 * kt + 2 * q;
         uint32_t bh0, bl0, bh1, bl1;
         split_bf16(b_at(k), b_at(k + 1), bh0, bl0);
         split_bf16(b_at(k + 8), b_at(k + 9), bh1, bl1);
-        const uint4 av = AH4[(mt * KT + kt) * 32 + lane];
-        const uint32_t ah[4] = {av.x, av.y, av.z, av.w};
-        mma_bf16(hh, ah, bh0, bh1);
-        if constexpr (P != kDefault) mma_bf16(hl, ah, bl0, bl1);
-        if constexpr (P == kBf16x3) {
-          const uint4 lv = AL4[(mt * KT + kt) * 32 + lane];
-          const uint32_t al[4] = {lv.x, lv.y, lv.z, lv.w};
-          mma_bf16(lh, al, bh0, bh1);
+#pragma unroll
+        for (int p = 0; p < MP; ++p) {
+          const uint4 av = AH4[(mts[p] * KT + kt) * 32 + lane];
+          const uint32_t ah[4] = {av.x, av.y, av.z, av.w};
+          mma_bf16(hh[p], ah, bh0, bh1);
+          if constexpr (P != kDefault) mma_bf16(hl[p], ah, bl0, bl1);
+          if constexpr (P == kBf16x3) {
+            const uint4 lv = AL4[(mts[p] * KT + kt) * 32 + lane];
+            const uint32_t al[4] = {lv.x, lv.y, lv.z, lv.w};
+            mma_bf16(lh[p], al, bh0, bh1);
+          }
         }
       }
-      // rows g and g+8 of the m-tile, columns 2q and 2q+1 of the n-tile
+      // rows g and g+8 of each m-tile, columns 2q and 2q+1 of the n-tile
 #pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const int r = 16 * mt + g + 8 * (h >> 1), c = (tile % NT) * 8 + 2 * q + (h & 1);
-        float v = hh[h];
-        if constexpr (P == kBf16x3) v = hh[h] + (hl[h] + lh[h]);
-        if constexpr (P == kBf16x2) v = hh[h] + hl[h];
-        if (r < R) epi(r, c, v);
-      }
+      for (int p = 0; p < MP; ++p)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int r = 16 * mts[p] + g + 8 * (h >> 1), c = nt * 8 + 2 * q + (h & 1);
+          float v = hh[p][h];
+          if constexpr (P == kBf16x3) v = hh[p][h] + (hl[p][h] + lh[p][h]);
+          if constexpr (P == kBf16x2) v = hh[p][h] + hl[p][h];
+          if (r < R) epi(r, c, v);
+        }
     }
   }
 }
@@ -269,54 +283,13 @@ __device__ __forceinline__ void kadd(float& s, float& c, float inc) {
   s = t;
 }
 
-// the chain's energy at column col from the last contraction's y or r
-template <int E, int D, int K, int NC>
-__device__ __forceinline__ float column_energy(const float* X, const float* Y, int col,
-                                               const Args& a) {
-  if constexpr (E == kProductOfT) {
-    float s = 0.f;
-    for (int j = 0; j < K; ++j) {
-      const float y = Y[j * NC + col];
-      s += log1pf(y * y * a.k3);
-    }
-    return a.k2 * s;
-  } else if constexpr (E == kSparseCoding) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = 0; i < D; ++i) {
-      const float av = X[i * NC + col];
-      s1 += sqrtf(av * av + a.k3);
-    }
-    for (int p = 0; p < K; ++p) {
-      const float r = Y[p * NC + col];
-      s2 += r * r;
-    }
-    return a.k0 * s1 + a.k2 * s2;
-  } else {
-    // Σ softplus(z) with the stable form max(z, 0) + log1p(e^{−|z|}), and
-    // the prior ½σ₀⁻²‖θ‖²
-    float s1 = 0.f, s2 = 0.f;
-    for (int o = 0; o < K; ++o) {
-      const float z = Y[o * NC + col];
-      s1 += fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)));
-    }
-    for (int i = 0; i < D; ++i) {
-      const float th = X[i * NC + col];
-      s2 += th * th;
-    }
-    return s1 + a.k1 * s2;
-  }
+// Box-Muller's cosine branch, sqrt(-2 ln u1)·cos(2π u2), times sqrt(M)
+__device__ __forceinline__ float box_muller(float u1, float u2, float sqrt_m) {
+  return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2) * sqrt_m;
 }
 
-// ½ Σ (V·V)·M^-1 down column col (BR=false: no mass compiled in)
-template <int D, int NC, bool BR>
-__device__ __forceinline__ float column_halfsq(const float* V, const float* IM, int col) {
-  float s = 0.f;
-  for (int i = 0; i < D; ++i) s += V[i * NC + col] * V[i * NC + col] * (BR ? IM[i] : 1.f);
-  return 0.5f * s;
-}
-
-// Box-Muller normal (cosine branch) of dim i for a chain: words i and D+i
-// of the family tag's draw starting at slot slot0, times sqrt(M)
+// Box-Muller normal of dim i for a chain: words i and D+i of the family
+// tag's draw starting at slot slot0, times sqrt(M)
 template <int D>
 __device__ __forceinline__ float normal_of(const Args& a, uint32_t chain, uint32_t t,
                                            int i, uint32_t tag, uint32_t slot0,
@@ -326,7 +299,43 @@ __device__ __forceinline__ float normal_of(const Args& a, uint32_t chain, uint32
   const float u2 = a.fixed_uniform
       ? 0x1p-25f
       : philox_uniform(philox_word(chain, t, D + i, key, tag, slot0));
-  return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2) * sqrt_m;
+  return box_muller(u1, u2, sqrt_m);
+}
+
+// The uniforms of words w..w+3 of a chain's draw of family tag starting at
+// slot slot0, where w % 4 == OFF: from one Philox block (OFF 0) or two
+// (every 2⁻²⁵ in fixed-uniform mode)
+template <int OFF>
+__device__ __forceinline__ void uniforms4(const Args& a, uint32_t chain, uint32_t t, int w,
+                                          uint32_t tag, uint32_t slot0, uint2 key,
+                                          float (&u)[4]) {
+  if (a.fixed_uniform) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) u[j] = 0x1p-25f;
+    return;
+  }
+  const uint32_t slot = slot0 + (uint32_t)(w - OFF) / 4;
+  const uint4 b0 = philox4x32_10(make_uint4(chain, t, slot, tag), key);
+  uint4 b1 = b0;
+  if constexpr (OFF != 0) b1 = philox4x32_10(make_uint4(chain, t, slot + 1, tag), key);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    u[j] = philox_uniform(j + OFF < 4 ? word_of(b0, j + OFF) : word_of(b1, j + OFF - 4));
+}
+
+// The normals of dims i..i+3 (i % 4 == 0) of a chain, dim i + j's from
+// words w0 + i + j and w0 + D + i + j of the family tag's draw at slot
+// slot0 (w0: 0, or MJHMC's 1), times sqrt(M) of each (sqm; nullptr: 1)
+template <int D, int W0>
+__device__ __forceinline__ void normals4(const Args& a, uint32_t chain, uint32_t t, int i,
+                                         uint32_t tag, uint32_t slot0, const float* sqm,
+                                         uint2 key, float (&z)[4]) {
+  static_assert(D % 4 == 0, "words D+i..D+i+3 in one block");
+  float u1[4], u2[4];
+  uniforms4<W0 % 4>(a, chain, t, W0 + i, tag, slot0, key, u1);
+  uniforms4<W0 % 4>(a, chain, t, W0 + D + i, tag, slot0, key, u2);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) z[j] = box_muller(u1[j], u2[j], sqm ? sqm[i + j] : 1.f);
 }
 
 // A[k][m] of contraction c (1: A1, K rows m of D deep; 2: A2, D rows of K
@@ -341,8 +350,9 @@ __device__ __forceinline__ float param_at(const Args& a, int c, int m, int k) {
 }
 
 // The parameter matrix in both orientations (P kHighest: f32 at A1, A2;
-// otherwise bf16 A fragments of both contractions at frag: Layout::FRAG),
-// the patch and the mass into the block's shared memory, then a barrier.
+// otherwise bf16 A fragments of both contractions at frag), the patch
+// (where patch is not nullptr) and the mass (BR) into the block's shared
+// memory, then a barrier.
 template <int E, int D, int K, int T, bool BR, int P>
 __device__ __forceinline__ void load_params(const Args& a, float* A1, float* A2, float* patch,
                                             float* IM, uint32_t* frag) {
@@ -361,7 +371,7 @@ __device__ __forceinline__ void load_params(const Args& a, float* A1, float* A2,
   } else {
     // word w of contraction c: register h of lane (g, q) of fragment
     // (mt, kt), holding A[k][m], A[k+1][m] (contract's A-fragment order)
-    constexpr int W = Layout<E, D, K, 16, P>::kWords;
+    constexpr int W = Params<E, P>::kWords;
     for (int w = tid; w < 2 * W; w += T) {
       const int c = w < W ? 1 : 2, wi = w % W;
       const int kt_count = pad16(c == 1 ? D : K) / 16;
@@ -374,39 +384,10 @@ __device__ __forceinline__ void load_params(const Args& a, float* A1, float* A2,
       if constexpr (P == kBf16x3) frag[2 * W + w] = lo;
     }
   }
-  if constexpr (E == kSparseCoding)
+  if (E == kSparseCoding && patch)
     for (int idx = tid; idx < K; idx += T) patch[idx] = a.p1[idx];
   if (BR)
     for (int idx = tid; idx < 2 * D; idx += T) IM[idx] = a.mass ? a.mass[idx] : 1.f;
-  __syncthreads();
-}
-
-// v −= c_kick·g (if kick), x += c_drift·M^-1·v on all columns, then a
-// barrier
-template <int D, int NC, int T, bool BR>
-__device__ __forceinline__ void kick_drift_tile(float* X, float* V, const float* G,
-                                                const float* IM, bool kick, float c_kick,
-                                                float c_drift) {
-  float4* X4 = reinterpret_cast<float4*>(X);
-  float4* V4 = reinterpret_cast<float4*>(V);
-  const float4* G4 = reinterpret_cast<const float4*>(G);
-  for (int q = threadIdx.x; q < D * NC / 4; q += T) {
-    float4 xq = X4[q], vq = V4[q];
-    if (kick) {
-      const float4 gq = G4[q];
-      vq.x = vq.x - c_kick * gq.x;
-      vq.y = vq.y - c_kick * gq.y;
-      vq.z = vq.z - c_kick * gq.z;
-      vq.w = vq.w - c_kick * gq.w;
-    }
-    const float im = BR ? IM[(4 * q) / NC] : 1.f;
-    xq.x = xq.x + c_drift * (im * vq.x);
-    xq.y = xq.y + c_drift * (im * vq.y);
-    xq.z = xq.z + c_drift * (im * vq.z);
-    xq.w = xq.w + c_drift * (im * vq.w);
-    X4[q] = xq;
-    V4[q] = vq;
-  }
   __syncthreads();
 }
 
@@ -431,129 +412,250 @@ __device__ __forceinline__ float div_(float x, float y) {
 }
 
 // g = ∇U(X) on all columns by the energy's two contractions at precision P
-// (frag: the bf16 fragments, Layout::FRAG): y, r or z into Y (product of t
-// and logreg also dU/dy or σ(z) into Z), then between() (a barrier), then
-// each gradient element to sink(r·NC + c, g)
-template <int E, int D, int K, int NC, int T, bool STUB, int P, bool RN, class Between,
-          class Sink>
+// (frag: the bf16 fragments). Contraction 1's epilogue writes r into Y
+// (sparse coding), or dU/dy or σ(z) into Z and into Y y or z (TERMS false:
+// NUTS) or, where want_u, the row's energy term log1p(y²/ν) or softplus(z)
+// (TERMS true: mm_kernel); then between() (a barrier); then contraction 2's
+// epilogue writes the gradient into G. X, Z and sparse coding's Y (the
+// contraction operands) have row stride LD, G and the other Y NC.
+template <int E, int D, int K, int NC, int LD, int T, bool STUB, int P, bool RN, bool TERMS,
+          class Between>
 __device__ __forceinline__ void gradient_tile(const float* A1, const float* A2,
                                               const uint32_t* frag, const float* patch,
-                                              const float* X, float* Y, float* Z, const Args& a,
-                                              Between between, Sink sink) {
+                                              const float* X, float* Y, float* Z, float* G,
+                                              const Args& a, bool want_u, Between between) {
   // hi and lo fragments of contraction 1 (A1) and 2 (A2)
-  constexpr int W = Layout<E, D, K, NC / 2, P>::kWords;
+  constexpr int W = Params<E, P>::kWords;
   const uint32_t *h1 = frag, *h2 = frag + W, *l1 = frag + 2 * W, *l2 = frag + 3 * W;
   if constexpr (E == kProductOfT) {
     // y = Wᵀx and dU/dy = (ν+1)·y/(ν + y²); g = W·dU/dy
-    contract<D, K, NC, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float y) {
-      Y[r * NC + c] = y;
-      Z[r * NC + c] = div_<RN>(mul_<RN>(a.k0, y), add_<RN>(a.k1, mul_<RN>(y, y)));
+    contract<D, K, NC, LD, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float y) {
+      if constexpr (!TERMS)
+        Y[r * NC + c] = y;
+      else if (want_u)
+        Y[r * NC + c] = log1pf(y * y * a.k3);
+      Z[r * LD + c] = div_<RN>(mul_<RN>(a.k0, y), add_<RN>(a.k1, mul_<RN>(y, y)));
     });
     between();
-    contract<K, D, NC, T, STUB, P>(A2, h2, l2, Z,
-                                   [&](int r, int c, float gv) { sink(r * NC + c, gv); });
+    contract<K, D, NC, LD, T, STUB, P>(A2, h2, l2, Z,
+                                       [&](int r, int c, float gv) { G[r * NC + c] = gv; });
   } else if constexpr (E == kSparseCoding) {
     // r = patch − Φa; g = λ·a/√(a²+ε) − σ⁻²·Φᵀr
-    contract<D, K, NC, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float v) {
-      Y[r * NC + c] = sub_<RN>(patch[r], v);
+    contract<D, K, NC, LD, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float v) {
+      Y[r * LD + c] = sub_<RN>(patch[r], v);
     });
     between();
-    contract<K, D, NC, T, STUB, P>(A2, h2, l2, Y, [&](int r, int c, float v) {
-      const int idx = r * NC + c;
-      const float av = X[idx];
+    contract<K, D, NC, LD, T, STUB, P>(A2, h2, l2, Y, [&](int r, int c, float v) {
+      const float av = X[r * LD + c];
       const float s = sqrtf(add_<RN>(mul_<RN>(av, av), a.k3));
-      sink(idx, sub_<RN>(mul_<RN>(a.k0, div_<RN>(av, s)), mul_<RN>(a.k1, v)));
+      G[r * NC + c] = sub_<RN>(mul_<RN>(a.k0, div_<RN>(av, s)), mul_<RN>(a.k1, v));
     });
   } else {
     // z = Xs·θ and σ(z); g = Xsᵀσ(z) + θ/σ₀²
-    contract<D, K, NC, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float z) {
-      Y[r * NC + c] = z;
-      Z[r * NC + c] = div_<RN>(1.0f, add_<RN>(1.0f, expf(-z)));
+    contract<D, K, NC, LD, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float z) {
+      if constexpr (!TERMS)
+        Y[r * NC + c] = z;
+      else if (want_u)  // softplus(z) = max(z, 0) + log1p(e^{−|z|})
+        Y[r * NC + c] = fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)));
+      Z[r * LD + c] = div_<RN>(1.0f, add_<RN>(1.0f, expf(-z)));
     });
     between();
-    contract<K, D, NC, T, STUB, P>(A2, h2, l2, Z, [&](int r, int c, float v) {
-      const int idx = r * NC + c;
-      sink(idx, add_<RN>(v, mul_<RN>(X[idx], a.k0)));
+    contract<K, D, NC, LD, T, STUB, P>(A2, h2, l2, Z, [&](int r, int c, float v) {
+      G[r * NC + c] = add_<RN>(v, mul_<RN>(X[r * LD + c], a.k0));
     });
   }
 }
 
-// g = ∇U(X) on all columns (gradient_tile), the closing kick v −= c_kick·g,
-// then a barrier
-template <int E, int D, int K, int NC, int T, bool STUB, int P>
-__device__ __forceinline__ void force_kick_tile(const float* A1, const float* A2,
-                                                const uint32_t* frag, const float* patch,
-                                                const float* X, float* V, float* G, float* Y,
-                                                float* Z, const Args& a, float c_kick) {
-  gradient_tile<E, D, K, NC, T, STUB, P, false>(
-      A1, A2, frag, patch, X, Y, Z, a, [] { __syncthreads(); },
-      [&](int idx, float gv) {
-        G[idx] = gv;
-        V[idx] = V[idx] - c_kick * gv;
-      });
-  __syncthreads();
+// The clock64() phase breakdown of the PROF instances: stamps by two
+// observers, thread 0 and the first thread of the last warp, each phase's
+// cycles summed (the wait inside each block barrier apart, phase BAR), and
+// counters; written to prof[(block·2 + observer)·NPH + phase]
+template <bool ON, int NPH, int BAR>
+struct PhaseClock {
+  long long last = 0;
+  long long acc[NPH] = {};
+  __device__ __forceinline__ void start() {
+    if constexpr (ON) last = clock64();
+  }
+  __device__ __forceinline__ void mark(int ph) {
+    if constexpr (ON) {
+      const long long now = clock64();
+      acc[ph] += now - last;
+      last = now;
+    }
+  }
+  // A barrier (BAR.SYNC.DEFER_BLOCKING) lets a warp issue on past it and
+  // wait at its next memory operation, so a bare stamp after it would put
+  // the wait into the next phase; the fence takes the wait before the stamp
+  __device__ __forceinline__ void settle() {
+    if constexpr (ON) __threadfence_block();
+  }
+  __device__ __forceinline__ void sync(int ph) {
+    mark(ph);
+    __syncthreads();
+    settle();
+    mark(BAR);
+  }
+  __device__ __forceinline__ bool sync_or(int ph, bool p) {
+    mark(ph);
+    const bool any = __syncthreads_or(p);
+    settle();
+    mark(BAR);
+    return any;
+  }
+  __device__ __forceinline__ void count(int ph) {
+    if constexpr (ON) ++acc[ph];
+  }
+  __device__ __forceinline__ void write(const Args& a, int T) {
+    if constexpr (ON) {
+      const int o = threadIdx.x == 0 ? 0 : threadIdx.x == T - 32 ? 1 : -1;
+      if (o >= 0)
+        for (int ph = 0; ph < NPH; ++ph)
+          a.prof[((size_t)blockIdx.x * 2 + o) * NPH + ph] = acc[ph];
+    }
+  }
+};
+
+// The sum down column c of slot s of red, where each of a block's T threads
+// put one partial at red[s·T + tid] and a column's owners are the threads
+// c, c + NC, ...: their T / NC partials added in that order
+template <int T, int NC>
+__device__ __forceinline__ float column_sum(const float* red, int s, int c) {
+  const float* p = red + s * T + c;
+  float acc = p[0];
+#pragma unroll
+  for (int j = 1; j < T / NC; ++j) acc = __fadd_rn(acc, p[j * NC]);
+  return acc;
 }
 
-// VAR: kMjhmc (both trajectories of C chains in the NC = 2C columns), or
-// kControl / kMalt (the forward trajectories of NC chains, one a column).
-// BR=false compiles neither the mass nor the two-stage integrator (MJHMC's
-// fast path, as the TPU kernel compiles them statically); BR=true takes
-// both from the arguments.
-template <int E, int D, int K, int C, int T, int VAR, bool EMIT, bool STUB, bool BR, int P>
-__global__ void __launch_bounds__(T) mm_kernel(Args a) {
-  using L = Layout<E, D, K, C, P>;
-  constexpr int NC = L::NC;
+// The tile of mm_kernel's body VAR on energy E: CH chains a block (MJHMC
+// spends two columns on each, NC = 2·CH; control and MALT one, NC = CH), T
+// threads, MINB blocks an SM asked of __launch_bounds__. At the presets'
+// widths (product of t 4,096, sparse coding 8,192, logreg 2,048 chains):
+// 512 blocks each, but logreg's control and MALT 256 (the mma n-tile is 8
+// columns). ops/cuda_mjhmc.py mirrors this (MM_TILES).
+template <int E, int VAR>
+struct MmTile {
+  static constexpr bool MJ = VAR == kMjhmc;
+  static constexpr int CH = E == kProductOfT ? 8 : E == kSparseCoding ? 16 : MJ ? 4 : 8;
+  static constexpr int T = E == kProductOfT ? 96 : E == kSparseCoding ? 256 : 128;
+  static constexpr int MINB = E == kProductOfT ? 4 : E == kSparseCoding ? 2 : 3;
+  static constexpr int NC = MJ ? 2 * CH : CH;
+};
+
+// mm_kernel's shared memory, in floats: the parameter matrix (Params), X
+// [D][LD], G [D][NC], Y ([K][LD] at sparse coding, the residual operand;
+// else [K][NC], the rows' energy terms), Z [K][LD] (dU/dy or σ(z); none at
+// sparse coding), the mass [2D] (BR), the bf16 fragments at FRAG (16-byte
+// aligned), then the chains' partial sums, SLOTS × T (MJHMC 4, control and
+// MALT 3); the patch is read from device memory
+// (ops/cuda_mjhmc.py::mm_smem_bytes mirrors this). A chain's T / CH
+// threads own the rows r, r + RY, ... (NK of them) of each of its columns;
+// the first R also own the dims' groups of four r, r + R, ... (NG of them).
+template <int E, int VAR, int P, bool BR>
+struct MmLayout {
+  using TL = MmTile<E, VAR>;
+  using PL = Params<E, P>;
+  static constexpr int D = PL::D, K = PL::K, CH = TL::CH, NC = TL::NC, T = TL::T;
+  static constexpr int LD = NC + 4;  // ≡ 4 mod 8: the B fragments' loads hit 32 banks
+  static constexpr int RY = T / CH;
+  static constexpr int R = RY < D / 4 ? RY : D / 4;
+  static constexpr int NG = D / (4 * R), NK = K / RY;
+  static_assert(T % CH == 0 && T % 32 == 0 && (D / 4) % R == 0 && K % RY == 0,
+                "a chain's threads own whole groups of dims and whole rows");
+  static_assert(NC % 8 == 0, "mma.sync n-tiles of 8 columns");
+  static constexpr int A1 = 0;
+  static constexpr int A2 = A1 + PL::kF32;
+  static constexpr int X = A2 + PL::kF32;
+  static constexpr int G = X + D * LD;
+  static constexpr int Y = G + D * NC;
+  static constexpr int Z = Y + K * (E == kSparseCoding ? LD : NC);
+  static constexpr int MASS = Z + (E != kSparseCoding ? K * LD : 0);
+  static constexpr int FRAG = (MASS + (BR ? 2 * D : 0) + 3) / 4 * 4;
+  static constexpr int RED = FRAG + PL::kFrag;
+  static constexpr int SLOTS = VAR == kMjhmc ? 4 : 3;
+  static constexpr int kFloats = RED + SLOTS * T;
+};
+
+// The PROF instances' phases of an iteration (ops/cuda_mjhmc.py,
+// MM_PROF_PHASES): the normals (refresh, corruption, O-steps), the owners'
+// kick-drift and closing kick, the two contractions, the partial and column
+// sums, the decision and move (with the moments and emissions), barrier
+// waits and the rest; then the gradients (two contractions each) a block ran
+enum MmPhase {
+  kMmDraws = 0, kMmKickDrift, kMmContract1, kMmContract2, kMmSums, kMmDecide, kMmBarrier,
+  kMmOther, kMmGradients, kMmPhases
+};
+
+// VAR: kMjhmc (the forward and backward trajectories of CH chains in the
+// NC = 2·CH columns), or kControl / kMalt (the forward trajectories of CH
+// chains, one a column). BR=false compiles neither the mass nor the
+// two-stage integrator (MJHMC's fast path, as the TPU kernel compiles them
+// statically); BR=true takes both from the arguments. PROF stamps the
+// phases of every iteration into a.prof (MmPhase).
+template <int E, int VAR, bool EMIT, bool STUB, bool BR, int P, bool PROF>
+__global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_kernel(Args a) {
+  using L = MmLayout<E, VAR, P, BR>;
+  constexpr int D = L::D, K = L::K, CH = L::CH, NC = L::NC, LD = L::LD, T = L::T;
+  constexpr int RY = L::RY, R = L::R, NG = L::NG, NK = L::NK, NE = 4 * NG;
   constexpr bool MJ = VAR == kMjhmc;
-  constexpr int CH = MJ ? C : NC;           // chains per block
-  constexpr int NE = (D * CH + T - 1) / T;  // (dim, chain) elements per thread
-  static_assert(T >= NC, "one thread per trajectory column");
+  constexpr int NT = MJ ? 2 : 1;                    // trajectories: columns c (, CH + c)
+  constexpr int LY = E == kSparseCoding ? LD : NC;  // Y's row stride
+  // the partial sums' slots: ΣvᵀM⁻¹v of the chain's v (the start's H),
+  // the forward trajectory's U and ΣvᵀM⁻¹v, MJHMC's backward H; MALT's U
+  // and ΣvᵀM⁻¹v after a step and ΣvᵀM⁻¹v after the next O-step
+  enum { kV0 = 0, kUF = 1, kVF = 2, kHB = 3, kIn = 0 };
 
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* A1 = sm + L::A1;
-  float* A2 = sm + L::A2;
-  float* patch = sm + L::PATCH;
   float* X = sm + L::X;
-  float* V = sm + L::V;
   float* G = sm + L::G;
   float* Y = sm + L::Y;
   float* Z = sm + L::Z;
-  float* hend = sm + L::HEND;
-  float* uend = sm + L::UEND;
-  float* dwell_s = sm + L::DWELL;
-  int* sel_s = reinterpret_cast<int*>(sm + L::SEL);
-  float* IM = sm + L::MASS;  // [D] M^-1, then [D] sqrt(M)
-  uint32_t* frag = reinterpret_cast<uint32_t*>(sm + L::FRAG);  // bf16 instances
-  float* SQM = IM + D;
+  float* IM = sm + L::MASS;  // BR: [D] M^-1, then [D] sqrt(M)
+  float* red = sm + L::RED;  // [SLOTS][T]
 
-  const int tid = threadIdx.x;
-  const int chain0 = blockIdx.x * CH;
+  const int tid = threadIdx.x, c = tid % CH, r = tid / CH;
+  const bool owner = r < R;  // of dims (every thread owns rows)
+  const uint32_t chain = blockIdx.x * CH + c;
+  const bool live = chain < (uint32_t)a.n;
   const size_t n = a.n;
   const float eps = a.eps, he = 0.5f * a.eps;
   const uint2 key = make_uint2(a.seed, 0u);
 
-  load_params<E, D, K, T, BR, P>(a, A1, A2, patch, IM, frag);
+  PhaseClock<PROF, kMmPhases, kMmBarrier> prof;
+  prof.start();
+  load_params<E, D, K, T, BR, P>(a, sm + L::A1, sm + L::A2, nullptr, IM,
+                                 reinterpret_cast<uint32_t*>(sm + L::FRAG));
+  const uint32_t* frag = reinterpret_cast<const uint32_t*>(sm + L::FRAG);
+  const float* sqm = BR ? IM + D : nullptr;
 
-  // owned elements e = tid + k·T: dim e / CH, chain e % CH of the tile; the
-  // chains past n (ragged last tile) run on zeros and are never stored
-  float x[NE], v[NE], g[NE], wx[NE], wxc[NE], wx2[NE], wx2c[NE];
+  // the thread's k-th dim (k / 4 its group) and j-th row
+  auto dim = [&](int k) { return 4 * (r + (k / 4) * R) + k % 4; };
+  auto row = [&](int j) { return r + j * RY; };
+  auto im = [&](int i) { return BR ? IM[i] : 1.f; };
+  auto put = [&](int s, float part) { red[s * T + tid] = part; };
+  auto col_sum = [&](int s) { return column_sum<T, CH>(red, s, c); };
+
+  // the chain's point (x, v, g), its Kahan moments and the trajectories'
+  // momenta vt of the owned dims; the chains past n (ragged last tile) run
+  // on zeros and are never stored
+  float x[NE], v[NE], g[NE], wx[NE], wxc[NE], wx2[NE], wx2c[NE], vt[NT][NE];
 #pragma unroll
   for (int k = 0; k < NE; ++k) {
-    const int e = tid + k * T, i = e / CH, c = e % CH;
-    const bool live = e < D * CH && chain0 + c < a.n;
-    const size_t gi = (size_t)i * n + chain0 + c;
-    x[k] = live ? a.x[gi] : 0.f;
-    v[k] = live ? a.v[gi] : 0.f;
-    g[k] = live ? a.g[gi] : 0.f;
+    const size_t gi = (size_t)dim(k) * n + chain;
+    x[k] = owner && live ? a.x[gi] : 0.f;
+    v[k] = owner && live ? a.v[gi] : 0.f;
+    g[k] = owner && live ? a.g[gi] : 0.f;
     wx[k] = wxc[k] = wx2[k] = wx2c[k] = 0.f;
+#pragma unroll
+    for (int q = 0; q < NT; ++q) vt[q][k] = 0.f;
   }
-  // per-chain scalars, held by thread c < CH for chain c of the tile
-  const int chain = chain0 + tid;
-  const bool chain_live = tid < CH && chain < a.n;
-  float u = chain_live ? a.u[chain] : 0.f;
-  float h_back = chain_live ? a.h_back[chain] : 0.f;
-  float valid = chain_live ? a.valid[chain] : 0.f;
-  float w = 0.f, wc = 0.f, h_cur = 0.f;
+  // the chain's scalars, kept alike by its threads
+  float u = live ? a.u[chain] : 0.f;
+  float h_back = live ? a.h_back[chain] : 0.f;
+  float valid = live ? a.valid[chain] : 0.f;
+  float w = 0.f, wc = 0.f;
   int evals = 0;
 
   const bool two_stage = BR && a.two_stage;
@@ -563,245 +665,295 @@ __global__ void __launch_bounds__(T) mm_kernel(Args a) {
   const float eta = expf(__fmul_rn(__fmul_rn(-a.beta, eps), 0.5f));
   const float sig = sqrtf(fmaxf(0.f, __fsub_rn(1.f, __fmul_rn(eta, eta))));
   constexpr uint32_t kBlocks = (2 * D + 3) / 4;  // slots of one O-step's noise
-  float ul = 0.f, delta = 0.f, h_in = 0.f;        // MALT, per column thread
+  float ul = 0.f, delta = 0.f, h_in = 0.f;        // MALT
 
-  // the O half-step of MALT on every owned element: V <- eta V + sig z
-  auto o_step = [&](int t, int o) {
+  // the thread's partial of Σ vv²·M^-1 over its dims
+  auto sq = [&](const float(&vv)[NE]) -> float {
+    float s = 0.f;
+    if (owner)
 #pragma unroll
-    for (int k = 0; k < NE; ++k) {
-      const int e = tid + k * T, i = e / CH, c = e % CH;
-      if (e < D * CH) {
-        const float z = normal_of<D>(a, chain0 + c, t, i, kTagMaltNoise, o * kBlocks,
-                                     BR ? SQM[i] : 1.f, key);
-        V[i * NC + c] = eta * V[i * NC + c] + sig * z;
+      for (int k = 0; k < NE; ++k) s += vv[k] * vv[k] * im(dim(k));
+    return s;
+  };
+  // the thread's partial of trajectory q's energy from the last gradient's
+  // x and y (its rows' terms), r (sparse coding) or z terms
+  auto energy = [&](int q) -> float {
+    const int col = c + q * CH;
+    float s1 = 0.f, s2 = 0.f;
+    if (E != kProductOfT && owner) {
+#pragma unroll
+      for (int k = 0; k < NE; ++k) {
+        const float xx = X[dim(k) * LD + col];
+        s1 += E == kSparseCoding ? sqrtf(xx * xx + a.k3) : xx * xx;
       }
     }
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const float yv = Y[row(j) * LY + col];
+      s2 += E == kSparseCoding ? yv * yv : yv;
+    }
+    return E == kProductOfT ? a.k2 * s2 : E == kSparseCoding ? a.k0 * s1 + a.k2 * s2
+                                                             : s2 + a.k1 * s1;
   };
-  auto kick_drift = [&](bool kick, float c_kick, float c_drift) {
-    kick_drift_tile<D, NC, T, BR>(X, V, G, IM, kick, c_kick, c_drift);
+  // the owners' kick v −= c_kick·g (where kick; g the chain's where first,
+  // else the last gradient's) and drift x += c_drift·M^-1·v (from the
+  // chain's x where first) of every trajectory, x into X
+  auto kick_drift = [&](bool first, bool kick, float c_kick, float c_drift) {
+    if (owner)
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+#pragma unroll
+        for (int k = 0; k < NE; ++k) {
+          const int i = dim(k), col = c + q * CH;
+          float vv = vt[q][k];
+          if (kick) vv = vv - c_kick * (first ? g[k] : G[i * NC + col]);
+          vt[q][k] = vv;
+          X[i * LD + col] = (first ? x[k] : X[i * LD + col]) + c_drift * (im(i) * vv);
+        }
   };
-  auto force_kick = [&](float c_kick) {
-    force_kick_tile<E, D, K, NC, T, STUB, P>(A1, A2, frag, patch, X, V, G, Y, Z, a, c_kick);
+  auto close_kick = [&](float c_kick) {
+    if (owner)
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+#pragma unroll
+        for (int k = 0; k < NE; ++k)
+          vt[q][k] = vt[q][k] - c_kick * G[dim(k) * NC + c + q * CH];
+    prof.mark(kMmKickDrift);
   };
-  // one integrator step on all columns: leapfrog, or the two-stage splitting
-  auto integrator_step = [&]() {
+  // the gradient of every column after the owners' drift: a barrier, then
+  // after_a(), the two contractions and a barrier after each
+  auto gradient = [&](bool want_u, auto after_a) {
+    prof.sync(kMmKickDrift);
+    after_a();
+    prof.count(kMmGradients);
+    gradient_tile<E, D, K, NC, LD, T, STUB, P, false, true>(
+        sm + L::A1, sm + L::A2, frag, a.p1, X, Y, Z, G, a, want_u,
+        [&] { prof.sync(kMmContract1); });
+    prof.sync(kMmContract2);
+  };
+  // integrator step s of every trajectory (leapfrog, or the two-stage
+  // splitting); its last gradient writes the energy terms where want_u
+  auto integrator_step = [&](int s, bool want_u, auto after_a) {
     if (two_stage) {
       const float cb = kTwoStageB * eps, cm = kTwoStageMid * eps;
-      kick_drift(true, cb, he);
-      force_kick(cm);
-      kick_drift(false, 0.f, he);
-      force_kick(cb);
+      kick_drift(s == 0, true, cb, he);
+      gradient(false, after_a);
+      close_kick(cm);
+      kick_drift(false, false, 0.f, he);
+      gradient(want_u, [] {});
+      close_kick(cb);
     } else {
-      kick_drift(true, he, eps);
-      force_kick(he);
+      kick_drift(s == 0, true, he, eps);
+      gradient(want_u, after_a);
+      close_kick(he);
     }
+  };
+  // MALT's O half-step o of the owned dims: vt <- eta vt + sig z
+  auto o_step = [&](int t, int o) {
+    if (owner)
+#pragma unroll
+      for (int gq = 0; gq < NG; ++gq) {
+        float z[4];
+        normals4<D, 0>(a, chain, t, 4 * (r + gq * R), kTagMaltNoise, o * kBlocks, sqm, key, z);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) vt[0][4 * gq + j] = eta * vt[0][4 * gq + j] + sig * z[j];
+      }
+    prof.mark(kMmDraws);
   };
 
   for (int t = 0; t < a.num_iters; ++t) {
-    // the columns: MJHMC forward from (x, v) in column c and backward from
-    // (x, -v) in C + c; control from the corrupted v; MALT from v0 ~ N(0, M)
-    // (kept in v until the decision)
+    // the trajectories: MJHMC forward from (x, v) and backward from (x, -v);
+    // control from the corrupted v; MALT from v0 ~ N(0, M) (kept in v until
+    // the decision)
+    if (owner)
 #pragma unroll
-    for (int k = 0; k < NE; ++k) {
-      const int e = tid + k * T, i = e / CH, c = e % CH;
-      if (e < D * CH) {
-        X[i * NC + c] = x[k];
-        G[i * NC + c] = g[k];
-        if constexpr (MJ) {
-          X[i * NC + C + c] = x[k];
-          G[i * NC + C + c] = g[k];
-          V[i * NC + c] = v[k];
-          V[i * NC + C + c] = -v[k];
-        } else if constexpr (VAR == kControl) {
-          const float xi = normal_of<D>(a, chain0 + c, t, i, kTagControl, 0u,
-                                        BR ? SQM[i] : 1.f, key);
-          v[k] = sb1 * v[k] + sb * xi;
-          V[i * NC + c] = v[k];
-        } else {
-          v[k] = normal_of<D>(a, chain0 + c, t, i, kTagMaltRefresh, 0u, BR ? SQM[i] : 1.f,
-                              key);
-          V[i * NC + c] = v[k];
+      for (int gq = 0; gq < NG; ++gq) {
+        float z[4];
+        if constexpr (VAR == kControl)
+          normals4<D, 0>(a, chain, t, 4 * (r + gq * R), kTagControl, 0u, sqm, key, z);
+        if constexpr (VAR == kMalt)
+          normals4<D, 0>(a, chain, t, 4 * (r + gq * R), kTagMaltRefresh, 0u, sqm, key, z);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * gq + j;
+          if constexpr (VAR == kControl) v[k] = sb1 * v[k] + sb * z[j];
+          if constexpr (VAR == kMalt) v[k] = z[j];
+          vt[0][k] = v[k];
+          if constexpr (MJ) vt[1][k] = -v[k];
         }
       }
-    }
-    __syncthreads();
-    // the chain's current H (MALT: its trajectory's U and Δ start)
-    if (tid < CH) {
-      if constexpr (VAR == kMalt) {
-        ul = u;
-        delta = 0.f;
-      } else {
-        h_cur = u + column_halfsq<D, NC, BR>(V, IM, tid);
-      }
-    }
-    __syncthreads();
+    prof.mark(kMmDraws);
 
-    for (int step = 0; step < a.m; ++step) {
-      if constexpr (VAR == kMalt) {
-        o_step(t, 2 * step);
-        __syncthreads();
-        if (tid < CH) h_in = ul + column_halfsq<D, NC, BR>(V, IM, tid);
-        __syncthreads();
-        integrator_step();
-        // the BAB step's energy error, from this step's y or r
-        if (tid < CH) {
-          ul = column_energy<E, D, K, NC>(X, Y, tid, a);
-          delta = delta + (ul + column_halfsq<D, NC, BR>(V, IM, tid) - h_in);
-        }
-        __syncthreads();
+    float h_cur = 0.f, u_l = 0.f, h_l = 0.f, h_b = 0.f;
+    if constexpr (VAR == kMalt) {
+      // each step's sums are put before the next step's kick-drift and read
+      // after its first barrier; the last ones after a barrier of their own
+      ul = u;
+      delta = 0.f;
+      o_step(t, 0);
+      put(kIn, sq(vt[0]));
+      prof.mark(kMmSums);
+      for (int step = 0; step < a.m; ++step) {
+        integrator_step(step, true, [&] {
+          if (step > 0) {
+            ul = col_sum(kUF);
+            delta = delta + (ul + 0.5f * col_sum(kVF) - h_in);
+          }
+          h_in = ul + 0.5f * col_sum(kIn);
+          prof.mark(kMmSums);
+        });
+        // the BAB step's energy error, from this step's x and y, r or z
+        const float pu = energy(0), pv = sq(vt[0]);
+        prof.mark(kMmSums);
         o_step(t, 2 * step + 1);
-        __syncthreads();
-      } else {
-        integrator_step();
+        if (step + 1 < a.m) {
+          o_step(t, 2 * step + 2);
+          put(kIn, sq(vt[0]));
+        }
+        put(kUF, pu);
+        put(kVF, pv);
+        prof.mark(kMmSums);
       }
+      prof.sync(kMmSums);
+      ul = col_sum(kUF);
+      delta = delta + (ul + 0.5f * col_sum(kVF) - h_in);
+    } else {
+      for (int step = 0; step < a.m; ++step) integrator_step(step, step + 1 == a.m, [] {});
+      // the start's H and the trajectories' end energies, from the last
+      // step's x and y or r
+      put(kV0, sq(v));
+      put(kUF, energy(0));
+      put(kVF, sq(vt[0]));
+      if constexpr (MJ) put(kHB, energy(1) + 0.5f * sq(vt[1]));
+      prof.sync(kMmSums);
+      h_cur = u + 0.5f * col_sum(kV0);
+      u_l = col_sum(kUF);
+      h_l = u_l + 0.5f * col_sum(kVF);
+      if constexpr (MJ) h_b = valid > 0.5f ? h_back : col_sum(kHB);
     }
-
-    // endpoint energies of the trajectories from the last step's y or r
-    if (!(VAR == kMalt) && tid < NC) {
-      const float uc = column_energy<E, D, K, NC>(X, Y, tid, a);
-      uend[tid] = uc;
-      hend[tid] = uc + column_halfsq<D, NC, BR>(V, IM, tid);
-    }
-    __syncthreads();
+    prof.mark(kMmSums);
 
     const bool emit_now = EMIT && (t + 1) % a.thin == 0;
     const size_t emit_row = t / a.thin;
-    if (tid < CH) {
-      if constexpr (MJ) {
-        const float h_l = hend[tid];
-        const float h_b = valid > 0.5f ? h_back : hend[C + tid];
-        const float log_gl = log_rate(h_l, h_cur);
-        const float log_glf = log_rate(h_b, h_cur);
-        const float gamma_l = expf(log_gl < kNegInf ? kNegInf : log_gl);
-        const float df = expf(log_glf) - gamma_l;
-        const float gamma_f = df < 0.f ? 0.f : df;
-        const float total = gamma_l + gamma_f + a.beta;
-        const float dwell = 1.0f / total;
-
-        // categorical clock choice by inverse CDF from one uniform (word 0)
-        const float u0 = a.fixed_uniform
-            ? 0x1p-25f
-            : philox_uniform(philox_word(chain, t, 0u, key));
-        const float u_sel = u0 * total;
-        const bool is_l = u_sel < gamma_l;
-        const bool is_f = !is_l && u_sel < gamma_l + gamma_f;
-        dwell_s[tid] = dwell;
-        sel_s[tid] = is_l ? kL : (is_f ? kF : kR);
-
-        evals += valid > 0.5f ? m_cost : 2 * m_cost;
-        kadd(w, wc, dwell);
-        if (emit_now && chain_live) {
-          a.ws[emit_row * n + chain] = dwell;
-          a.es[emit_row * n + chain] = evals;
-        }
-        if (is_l) {
-          u = uend[tid];
-          h_back = h_cur;
-        } else if (is_f) {
-          h_back = h_l;
-        }
-        valid = (is_l || is_f) ? 1.f : 0.f;
-      } else {
-        // Metropolis on H_L (control) or on Δ (MALT); a non-finite value
-        // rejects, a NaN log-ratio too (as jnp.minimum keeps NaN)
-        const float h = VAR == kControl ? hend[tid] : delta;
-        const float lr = VAR == kControl ? h_cur - h : -delta;
-        const bool ok = fabsf(h) < 1e30f && h == h;
-        const float lp = lr > 0.f ? 0.f : lr;
-        const float pacc = ok ? expf(lp) : 0.f;
-        const uint32_t tag = VAR == kControl ? kTagControl : kTagMaltRefresh;
-        const float um = a.fixed_uniform
-            ? 0x1p-25f
-            : philox_uniform(philox_word(chain, t, 2 * D, key, tag));
-        const bool acc = um < pacc;
-        sel_s[tid] = acc ? kL : kR;
-        if (acc) u = VAR == kControl ? uend[tid] : ul;
-        evals += m_cost;
-        kadd(w, wc, 1.f);
-        if (emit_now && chain_live) {
-          a.ws[emit_row * n + chain] = 1.f;
-          a.es[emit_row * n + chain] = evals;
-        }
-      }
-    }
-    __syncthreads();
-
-    // MJHMC: accumulators and emissions take the pre-transition x, then the
-    // move; control and MALT: the move (flip on reject; MALT −v0), then the
-    // post-transition x with weight 1
+    // every thread of the chain decides alike; the owners move its dims
+    auto move = [&]() {  // to the forward trajectory's end
+      if (owner)
 #pragma unroll
-    for (int k = 0; k < NE; ++k) {
-      const int e = tid + k * T, i = e / CH, c = e % CH;
-      if (e < D * CH) {
-        const int sel = sel_s[c];
-        if constexpr (MJ) {
-          const float dwell = dwell_s[c];
+        for (int k = 0; k < NE; ++k) {
+          const int i = dim(k);
+          x[k] = X[i * LD + c];
+          v[k] = vt[0][k];
+          g[k] = G[i * NC + c];
+        }
+    };
+    auto flip = [&]() {
+      if (owner)
+#pragma unroll
+        for (int k = 0; k < NE; ++k) v[k] = -v[k];
+    };
+    if constexpr (MJ) {
+      const float log_gl = log_rate(h_l, h_cur);
+      const float log_glf = log_rate(h_b, h_cur);
+      const float gamma_l = expf(log_gl < kNegInf ? kNegInf : log_gl);
+      const float df = expf(log_glf) - gamma_l;
+      const float gamma_f = df < 0.f ? 0.f : df;
+      const float total = gamma_l + gamma_f + a.beta;
+      const float dwell = 1.0f / total;
+
+      // categorical clock choice by inverse CDF from one uniform (word 0)
+      const float u0 = a.fixed_uniform ? 0x1p-25f : philox_uniform(philox_word(chain, t, 0u, key));
+      const float u_sel = u0 * total;
+      const bool is_l = u_sel < gamma_l;
+      const bool is_f = !is_l && u_sel < gamma_l + gamma_f;
+
+      evals += valid > 0.5f ? m_cost : 2 * m_cost;
+      kadd(w, wc, dwell);
+      if (emit_now && live && r == 0) {
+        a.ws[emit_row * n + chain] = dwell;
+        a.es[emit_row * n + chain] = evals;
+      }
+      // the moments and emissions take the pre-transition x
+      if (owner)
+#pragma unroll
+        for (int k = 0; k < NE; ++k) {
           kadd(wx[k], wxc[k], dwell * x[k]);
           kadd(wx2[k], wx2c[k], dwell * x[k] * x[k]);
-          if (emit_now && chain0 + c < a.n)
-            a.xs[(emit_row * D + i) * n + chain0 + c] = x[k];
-          if (sel == kL) {
-            x[k] = X[i * NC + c];
-            v[k] = V[i * NC + c];
-            g[k] = G[i * NC + c];
-          } else if (sel == kF) {
-            v[k] = -v[k];
-          } else {
-            // refresh by Box-Muller's cosine branch from words 1+i, 1+D+i
-            const float u1 = a.fixed_uniform
-                ? 0x1p-25f
-                : philox_uniform(philox_word(chain0 + c, t, 1 + i, key));
-            const float u2 = a.fixed_uniform
-                ? 0x1p-25f
-                : philox_uniform(philox_word(chain0 + c, t, 1 + D + i, key));
-            v[k] = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2) * (BR ? SQM[i] : 1.f);
-          }
-        } else {
-          if (sel == kL) {
-            x[k] = X[i * NC + c];
-            v[k] = V[i * NC + c];
-            g[k] = G[i * NC + c];
-          } else {
-            v[k] = -v[k];
-          }
-          kadd(wx[k], wxc[k], x[k]);
-          kadd(wx2[k], wx2c[k], x[k] * x[k]);
-          if (emit_now && chain0 + c < a.n)
-            a.xs[(emit_row * D + i) * n + chain0 + c] = x[k];
+          if (emit_now && live) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+        }
+      if (is_l) {
+        u = u_l;
+        h_back = h_cur;
+        move();
+      } else if (is_f) {
+        h_back = h_l;
+        flip();
+      } else if (owner) {
+        // refresh by Box-Muller's cosine branch from words 1+i, 1+D+i
+#pragma unroll
+        for (int gq = 0; gq < NG; ++gq) {
+          float z[4];
+          normals4<D, 1>(a, chain, t, 4 * (r + gq * R), kTagMjhmc, 0u, sqm, key, z);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[4 * gq + j] = z[j];
         }
       }
+      valid = (is_l || is_f) ? 1.f : 0.f;
+    } else {
+      // Metropolis on H_L (control) or on Δ (MALT); a non-finite value
+      // rejects, a NaN log-ratio too (as jnp.minimum keeps NaN); then the
+      // post-transition x with weight 1
+      const float h = VAR == kControl ? h_l : delta;
+      const float lr = VAR == kControl ? h_cur - h : -delta;
+      const bool ok = fabsf(h) < 1e30f && h == h;
+      const float lp = lr > 0.f ? 0.f : lr;
+      const float pacc = ok ? expf(lp) : 0.f;
+      const uint32_t tag = VAR == kControl ? kTagControl : kTagMaltRefresh;
+      const float um = a.fixed_uniform
+          ? 0x1p-25f
+          : philox_uniform(philox_word(chain, t, 2 * D, key, tag));
+      if (um < pacc) {
+        u = VAR == kControl ? u_l : ul;
+        move();
+      } else {
+        flip();  // MALT: −v0
+      }
+      evals += m_cost;
+      kadd(w, wc, 1.f);
+      if (emit_now && live && r == 0) {
+        a.ws[emit_row * n + chain] = 1.f;
+        a.es[emit_row * n + chain] = evals;
+      }
+      if (owner)
+#pragma unroll
+        for (int k = 0; k < NE; ++k) {
+          kadd(wx[k], wxc[k], x[k]);
+          kadd(wx2[k], wx2c[k], x[k] * x[k]);
+          if (emit_now && live) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+        }
     }
+    prof.mark(kMmDecide);
   }
 
+  if (owner && live)
 #pragma unroll
-  for (int k = 0; k < NE; ++k) {
-    const int e = tid + k * T, i = e / CH, c = e % CH;
-    if (e < D * CH && chain0 + c < a.n) {
-      const size_t gi = (size_t)i * n + chain0 + c;
+    for (int k = 0; k < NE; ++k) {
+      const size_t gi = (size_t)dim(k) * n + chain;
       a.xo[gi] = x[k];
       a.vo[gi] = v[k];
       a.go[gi] = g[k];
       a.wx[gi] = wx[k];
       a.wx2[gi] = wx2[k];
     }
-  }
-  if (chain_live) {
+  if (r == 0 && live) {
     a.uo[chain] = u;
     a.hbo[chain] = h_back;
     a.valido[chain] = valid;
     a.w[chain] = w;
     a.evals[chain] = evals;
   }
+  prof.mark(kMmOther);
+  prof.write(a, T);
 }
-
-// The presets' shapes, one per energy: D state dims, K rows of the
-// intermediate, T threads a block; every mm_kernel tile is C = 16 chains
-// (NC = 32 trajectory columns)
-template <int E> struct Shape;
-template <> struct Shape<kProductOfT> { static constexpr int D = 36, K = 36, T = 96; };
-template <> struct Shape<kSparseCoding> { static constexpr int D = 128, K = 64, T = 256; };
-template <> struct Shape<kLogreg> { static constexpr int D = 16, K = 256, T = 128; };
-constexpr int kC = 16;
 
 // ---------------------------------------------------------------------------
 // NUTS: the step body _make_step_nuts (pallas_mjhmc.py:1011-1210) on the
@@ -890,51 +1042,15 @@ __device__ __forceinline__ float uniform(const Args& a, uint32_t word) {
   return a.fixed_uniform ? 0x1p-25f : philox_uniform(word);
 }
 
-// The PROF instances' per-leaf phase breakdown: clock64() stamps by two
-// observers, thread 0 and the first thread of the last warp, each phase's
-// cycles summed (the wait inside each block barrier apart, kPhBarrier), and
-// the block's leaf steps; written to prof[(block·2 + observer)·kPhases + phase]
+// The PROF instances' per-leaf phase breakdown (PhaseClock): each phase's
+// cycles, the waits inside block barriers (kPhBarrier) apart, and the
+// block's leaf steps (kPhLeaves)
 enum Phase {
   kPhKickDrift = 0, kPhContract1, kPhContract2, kPhEnergy, kPhMultinomial, kPhStack,
   kPhLeafUturn, kPhRoundEnd, kPhBarrier, kPhOther, kPhLeaves, kPhases
 };
 template <bool ON>
-struct Prof {
-  long long last = 0;
-  long long acc[kPhases] = {};
-  __device__ __forceinline__ void start() {
-    if constexpr (ON) last = clock64();
-  }
-  __device__ __forceinline__ void mark(int ph) {
-    if constexpr (ON) {
-      const long long now = clock64();
-      acc[ph] += now - last;
-      last = now;
-    }
-  }
-  __device__ __forceinline__ void sync(int ph) {
-    mark(ph);
-    __syncthreads();
-    mark(kPhBarrier);
-  }
-  __device__ __forceinline__ bool sync_or(int ph, bool p) {
-    mark(ph);
-    const bool any = __syncthreads_or(p);
-    mark(kPhBarrier);
-    return any;
-  }
-  __device__ __forceinline__ void leaf() {
-    if constexpr (ON) ++acc[kPhLeaves];
-  }
-  __device__ __forceinline__ void write(const Args& a, int T) {
-    if constexpr (ON) {
-      const int o = threadIdx.x == 0 ? 0 : threadIdx.x == T - 32 ? 1 : -1;
-      if (o >= 0)
-        for (int ph = 0; ph < kPhases; ++ph)
-          a.prof[((size_t)blockIdx.x * 2 + o) * kPhases + ph] = acc[ph];
-    }
-  }
-};
+using Prof = PhaseClock<ON, kPhases, kPhBarrier>;
 
 }  // namespace nuts
 
@@ -968,7 +1084,7 @@ struct NutsLayout {
   static constexpr int NC = NutsTile<E>::NC, T = NutsTile<E>::T, R = T / NC;
   static_assert(T % NC == 0 && D % R == 0 && K % R == 0, "a thread's elements in one column");
   static_assert(NC % 8 == 0, "mma.sync n-tiles of 8 columns");
-  using PL = Layout<E, D, K, NC / 2, P>;  // the parameter matrix's sizes
+  using PL = Params<E, P>;  // the parameter matrix's sizes
   static constexpr int A1 = 0;
   static constexpr int A2 = A1 + PL::kF32;
   static constexpr int PATCH = A2 + PL::kF32;
@@ -978,7 +1094,7 @@ struct NutsLayout {
   static constexpr int Z = Y + K * NC;
   static constexpr int MASS = Z + (E != kSparseCoding ? K * NC : 0);  // [2D]
   static constexpr int FRAG = (MASS + 2 * D + 3) / 4 * 4;  // 16-byte aligned
-  static constexpr int TREE = FRAG + 2 * PL::kCopies * PL::kWords;
+  static constexpr int TREE = FRAG + PL::kFrag;
   __host__ __device__ static constexpr int red(int max_depth) {
     return TREE + (NutsTile<E>::ONCHIP ? nuts::rows(max_depth) * D * NC : 0);
   }
@@ -986,18 +1102,6 @@ struct NutsLayout {
     return red(max_depth) + nuts::slots(max_depth) * T;
   }
 };
-
-// The sum down column c of slot s of red, where each of a block's T threads
-// put one partial at red[s·T + tid] and a column's owners are the threads
-// c, c + NC, ...: their T / NC partials added in that order
-template <int T, int NC>
-__device__ __forceinline__ float column_sum(const float* red, int s, int c) {
-  const float* p = red + s * T + c;
-  float acc = p[0];
-#pragma unroll
-  for (int j = 1; j < T / NC; ++j) acc = __fadd_rn(acc, p[j * NC]);
-  return acc;
-}
 
 template <int E, bool EMIT, bool BR, int P, bool PROF>
 __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_kernel(Args a) {
@@ -1125,12 +1229,11 @@ __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_ker
           }
         }
         if (!prof.sync_or(kPhKickDrift, act)) break;
-        prof.leaf();
+        prof.count(kPhLeaves);
         // the leaf's gradient, rounded one operation at a time
-        gradient_tile<E, D, K, NC, T, false, P, true>(
+        gradient_tile<E, D, K, NC, NC, T, false, P, true, false>(
             sm + L::A1, sm + L::A2, reinterpret_cast<const uint32_t*>(sm + L::FRAG),
-            sm + L::PATCH, X, Y, sm + L::Z, a, [&] { prof.sync(kPhContract1); },
-            [&](int idx, float gv) { G[idx] = gv; });
+            sm + L::PATCH, X, Y, sm + L::Z, G, a, false, [&] { prof.sync(kPhContract1); });
         prof.sync(kPhContract2);
         // the owners' closing kick and partial sums: the energy's terms,
         // v²·M^-1, and the U-turn projections of the spans of size 2^mm
@@ -1321,17 +1424,34 @@ cudaError_t launch_nuts(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int E, int D, int K, int C, int T, int VAR, bool EMIT, bool STUB, bool BR, int P>
+template <int E, int VAR, bool EMIT, bool STUB, bool BR, int P, bool PROF = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t bytes = Layout<E, D, K, C, P>::kFloats * sizeof(float);
-  constexpr int CH = VAR == kMjhmc ? C : 2 * C;  // chains per block
-  void (*kernel)(Args) = mm_kernel<E, D, K, C, T, VAR, EMIT, STUB, BR, P>;
+  using L = MmLayout<E, VAR, P, BR>;
+  constexpr int bytes = L::kFloats * (int)sizeof(float);
+  void (*kernel)(Args) = mm_kernel<E, VAR, EMIT, STUB, BR, P, PROF>;
   // above 48 KB a block's shared memory must be asked for
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<(a.n + CH - 1) / CH, T, bytes, stream>>>(a);
+  kernel<<<(a.n + L::CH - 1) / L::CH, L::T, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The tile of mm_kernel's run of body VAR at precision P (BR: the instance
+// with the branches): out[0] chains and out[1] threads a block, out[2]
+// shared-memory bytes, out[3] the blocks an SM holds at once (the card's
+// occupancy query, which counts registers too)
+template <int E, int VAR, bool BR, int P>
+cudaError_t tile_of(int* out) {
+  using L = MmLayout<E, VAR, P, BR>;
+  out[0] = L::CH;
+  out[1] = L::T;
+  out[2] = L::kFloats * (int)sizeof(float);
+  void (*kernel)(Args) = mm_kernel<E, VAR, false, false, BR, P, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[2]);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, L::T, out[2]);
 }
 
 // Step body VAR of energy E at precision P, run or stream (emit): MJHMC and
@@ -1339,7 +1459,6 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // (BR=false; NUTS takes no other integrator), the rest the BR=true ones.
 template <int E, int P, int VAR>
 cudaError_t launch_body(const Args& a, bool emit, cudaStream_t s) {
-  using S = Shape<E>;
   if constexpr (VAR == kNuts) {
     if (!a.mass && !a.two_stage)
       return emit ? launch_nuts<E, P, true, false>(a, s) : launch_nuts<E, P, false, false>(a, s);
@@ -1347,11 +1466,27 @@ cudaError_t launch_body(const Args& a, bool emit, cudaStream_t s) {
   }
   if constexpr (VAR == kMjhmc) {
     if (!a.mass && !a.two_stage)
-      return emit ? launch<E, S::D, S::K, kC, S::T, VAR, true, false, false, P>(a, s)
-                  : launch<E, S::D, S::K, kC, S::T, VAR, false, false, false, P>(a, s);
+      return emit ? launch<E, VAR, true, false, false, P>(a, s)
+                  : launch<E, VAR, false, false, false, P>(a, s);
   }
-  return emit ? launch<E, S::D, S::K, kC, S::T, VAR, true, false, true, P>(a, s)
-              : launch<E, S::D, S::K, kC, S::T, VAR, false, false, true, P>(a, s);
+  return emit ? launch<E, VAR, true, false, true, P>(a, s)
+              : launch<E, VAR, false, false, true, P>(a, s);
+}
+
+// The tiles of body VAR's runs at precision P: br picks the instance with
+// the branches (control and MALT have no other); and the PROF instance of
+// its run (MJHMC's without the branches), the phases of every iteration
+// into a.prof; nothing on the main path runs it
+template <int E, int P, int VAR>
+cudaError_t mm_tile(bool br, int* out) {
+  if (br) return tile_of<E, VAR, true, P>(out);
+  if constexpr (VAR == kMjhmc) return tile_of<E, VAR, false, P>(out);
+  return cudaErrorInvalidValue;
+}
+template <int E, int P, int VAR>
+cudaError_t launch_mm_prof(const Args& a, cudaStream_t s) {
+  if (VAR == kMjhmc && (a.mass || a.two_stage)) return cudaErrorInvalidValue;
+  return launch<E, VAR, false, false, VAR != kMjhmc, P, true>(a, s);
 }
 
 // The NUTS run of energy E at precision P without a mass: its PROF
@@ -1380,9 +1515,37 @@ cudaError_t nuts_tile(int max_depth, int* out) {
 // of energy E at precision P (anything else is refused)
 template <int E, int P>
 cudaError_t launch_sweep(const Args& a, bool emit, cudaStream_t s) {
-  using S = Shape<E>;
   if (emit || a.mass || a.two_stage) return cudaErrorInvalidValue;
-  return launch<E, S::D, S::K, kC, S::T, kMjhmc, false, false, false, P>(a, s);
+  return launch<E, kMjhmc, false, false, false, P>(a, s);
+}
+template <int E, int P>
+cudaError_t sweep_tile(bool br, int* out) {
+  return br ? cudaErrorInvalidValue : tile_of<E, kMjhmc, false, P>(out);
+}
+
+using Launch = cudaError_t(const Args&, bool, cudaStream_t);
+using Tile = cudaError_t(bool, int*);
+using ProfLaunch = cudaError_t(const Args&, cudaStream_t);
+
+// A compiled run: its launch and its tile query (NUTS has none here; its
+// tile depends on the depth, nuts_tile); both null where no such instance
+// is compiled
+struct Instance {
+  Launch* launch = nullptr;
+  Tile* tile = nullptr;
+};
+// step body VAR of energy E at precision P
+template <int E, int P, int VAR>
+Instance body_instance() {
+  if constexpr (VAR == kNuts)
+    return {launch_body<E, P, VAR>, nullptr};
+  else
+    return {launch_body<E, P, VAR>, mm_tile<E, P, VAR>};
+}
+// the precision sweep's MJHMC run of energy E at precision P
+template <int E, int P>
+Instance sweep_instance() {
+  return {launch_sweep<E, P>, sweep_tile<E, P>};
 }
 
 // The instances, each compiled in the source named beside it (an instance
@@ -1390,58 +1553,60 @@ cudaError_t launch_sweep(const Args& a, bool emit, cudaStream_t s) {
 // kHighest and at the JAX preset's default precision (ProductOfTSpec and
 // LogregSpec "default", SparseCodingSpec "bf16x3"), and the sweep's other
 // two precisions of product of t and sparse coding
-// (cuda_mjhmc.MM_KERNEL_PRECISIONS)
-using Launch = cudaError_t(const Args&, bool, cudaStream_t);
+// (cuda_mjhmc.MM_KERNEL_PRECISIONS), and the PROF instances
 // mjhmc_mm_engine.cu
-extern template Launch launch_body<kProductOfT, kHighest, kMjhmc>;
-extern template Launch launch_body<kProductOfT, kHighest, kControl>;
-extern template Launch launch_body<kProductOfT, kHighest, kMalt>;
+extern template Instance body_instance<kProductOfT, kHighest, kMjhmc>();
+extern template Instance body_instance<kProductOfT, kHighest, kControl>();
+extern template Instance body_instance<kProductOfT, kHighest, kMalt>();
 // mm_nuts_product_of_t.cu
-extern template Launch launch_body<kProductOfT, kHighest, kNuts>;
+extern template Instance body_instance<kProductOfT, kHighest, kNuts>();
 extern template cudaError_t nuts_tile<kProductOfT, kHighest>(int, int*);
 // mm_engine_sparse_coding.cu
-extern template Launch launch_body<kSparseCoding, kHighest, kMjhmc>;
-extern template Launch launch_body<kSparseCoding, kHighest, kControl>;
-extern template Launch launch_body<kSparseCoding, kHighest, kMalt>;
+extern template Instance body_instance<kSparseCoding, kHighest, kMjhmc>();
+extern template Instance body_instance<kSparseCoding, kHighest, kControl>();
+extern template Instance body_instance<kSparseCoding, kHighest, kMalt>();
 // mm_nuts_sparse_coding.cu
-extern template Launch launch_body<kSparseCoding, kHighest, kNuts>;
+extern template Instance body_instance<kSparseCoding, kHighest, kNuts>();
 extern template cudaError_t nuts_tile<kSparseCoding, kHighest>(int, int*);
 // mm_engine_logreg.cu
-extern template Launch launch_body<kLogreg, kHighest, kMjhmc>;
-extern template Launch launch_body<kLogreg, kHighest, kControl>;
-extern template Launch launch_body<kLogreg, kHighest, kMalt>;
+extern template Instance body_instance<kLogreg, kHighest, kMjhmc>();
+extern template Instance body_instance<kLogreg, kHighest, kControl>();
+extern template Instance body_instance<kLogreg, kHighest, kMalt>();
 // mm_nuts_logreg.cu
-extern template Launch launch_body<kLogreg, kHighest, kNuts>;
+extern template Instance body_instance<kLogreg, kHighest, kNuts>();
 extern template cudaError_t nuts_tile<kLogreg, kHighest>(int, int*);
 // mm_engine_product_of_t_default.cu
-extern template Launch launch_body<kProductOfT, kDefault, kMjhmc>;
-extern template Launch launch_body<kProductOfT, kDefault, kControl>;
-extern template Launch launch_body<kProductOfT, kDefault, kMalt>;
+extern template Instance body_instance<kProductOfT, kDefault, kMjhmc>();
+extern template Instance body_instance<kProductOfT, kDefault, kControl>();
+extern template Instance body_instance<kProductOfT, kDefault, kMalt>();
 // mm_nuts_product_of_t_default.cu
-extern template Launch launch_body<kProductOfT, kDefault, kNuts>;
-extern template cudaError_t launch_nuts_prof<kProductOfT, kDefault>(const Args&, cudaStream_t);
+extern template Instance body_instance<kProductOfT, kDefault, kNuts>();
+extern template ProfLaunch launch_nuts_prof<kProductOfT, kDefault>;
 extern template cudaError_t nuts_tile<kProductOfT, kDefault>(int, int*);
 // mm_engine_sparse_coding_bf16x3.cu
-extern template Launch launch_body<kSparseCoding, kBf16x3, kMjhmc>;
-extern template Launch launch_body<kSparseCoding, kBf16x3, kControl>;
-extern template Launch launch_body<kSparseCoding, kBf16x3, kMalt>;
+extern template Instance body_instance<kSparseCoding, kBf16x3, kMjhmc>();
+extern template Instance body_instance<kSparseCoding, kBf16x3, kControl>();
+extern template Instance body_instance<kSparseCoding, kBf16x3, kMalt>();
+extern template ProfLaunch launch_mm_prof<kSparseCoding, kBf16x3, kMjhmc>;
+extern template ProfLaunch launch_mm_prof<kSparseCoding, kBf16x3, kMalt>;
 // mm_nuts_sparse_coding_bf16x3.cu
-extern template Launch launch_body<kSparseCoding, kBf16x3, kNuts>;
-extern template cudaError_t launch_nuts_prof<kSparseCoding, kBf16x3>(const Args&, cudaStream_t);
+extern template Instance body_instance<kSparseCoding, kBf16x3, kNuts>();
+extern template ProfLaunch launch_nuts_prof<kSparseCoding, kBf16x3>;
 extern template cudaError_t nuts_tile<kSparseCoding, kBf16x3>(int, int*);
 // mm_engine_logreg_default.cu
-extern template Launch launch_body<kLogreg, kDefault, kMjhmc>;
-extern template Launch launch_body<kLogreg, kDefault, kControl>;
-extern template Launch launch_body<kLogreg, kDefault, kMalt>;
+extern template Instance body_instance<kLogreg, kDefault, kMjhmc>();
+extern template Instance body_instance<kLogreg, kDefault, kControl>();
+extern template Instance body_instance<kLogreg, kDefault, kMalt>();
+extern template ProfLaunch launch_mm_prof<kLogreg, kDefault, kMalt>;
 // mm_nuts_logreg_default.cu
-extern template Launch launch_body<kLogreg, kDefault, kNuts>;
-extern template cudaError_t launch_nuts_prof<kLogreg, kDefault>(const Args&, cudaStream_t);
+extern template Instance body_instance<kLogreg, kDefault, kNuts>();
+extern template ProfLaunch launch_nuts_prof<kLogreg, kDefault>;
 extern template cudaError_t nuts_tile<kLogreg, kDefault>(int, int*);
 // mm_sweep.cu
-extern template Launch launch_sweep<kProductOfT, kBf16x3>;
-extern template Launch launch_sweep<kProductOfT, kBf16x2>;
-extern template Launch launch_sweep<kSparseCoding, kBf16x2>;
-extern template Launch launch_sweep<kSparseCoding, kDefault>;
+extern template Instance sweep_instance<kProductOfT, kBf16x3>();
+extern template Instance sweep_instance<kProductOfT, kBf16x2>();
+extern template Instance sweep_instance<kSparseCoding, kBf16x2>();
+extern template Instance sweep_instance<kSparseCoding, kDefault>();
 
 }  // namespace mm
 }  // namespace mjhmc

@@ -7,7 +7,7 @@
 namespace mjhmc {
 namespace mm {
 
-template Launch launch_body<kLogreg, kHighest, kNuts>;
+template Instance body_instance<kLogreg, kHighest, kNuts>();
 template cudaError_t nuts_tile<kLogreg, kHighest>(int, int*);
 
 }  // namespace mm

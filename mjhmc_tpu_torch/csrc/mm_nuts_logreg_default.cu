@@ -8,7 +8,7 @@
 namespace mjhmc {
 namespace mm {
 
-template Launch launch_body<kLogreg, kDefault, kNuts>;
+template Instance body_instance<kLogreg, kDefault, kNuts>();
 template cudaError_t nuts_tile<kLogreg, kDefault>(int, int*);
 template cudaError_t launch_nuts_prof<kLogreg, kDefault>(const Args&, cudaStream_t);
 

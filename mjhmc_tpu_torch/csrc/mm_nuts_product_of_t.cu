@@ -7,7 +7,7 @@
 namespace mjhmc {
 namespace mm {
 
-template Launch launch_body<kProductOfT, kHighest, kNuts>;
+template Instance body_instance<kProductOfT, kHighest, kNuts>();
 template cudaError_t nuts_tile<kProductOfT, kHighest>(int, int*);
 
 }  // namespace mm

@@ -8,7 +8,7 @@
 namespace mjhmc {
 namespace mm {
 
-template Launch launch_body<kProductOfT, kDefault, kNuts>;
+template Instance body_instance<kProductOfT, kDefault, kNuts>();
 template cudaError_t nuts_tile<kProductOfT, kDefault>(int, int*);
 template cudaError_t launch_nuts_prof<kProductOfT, kDefault>(const Args&, cudaStream_t);
 

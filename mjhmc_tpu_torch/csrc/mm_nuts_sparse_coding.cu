@@ -7,7 +7,7 @@
 namespace mjhmc {
 namespace mm {
 
-template Launch launch_body<kSparseCoding, kHighest, kNuts>;
+template Instance body_instance<kSparseCoding, kHighest, kNuts>();
 template cudaError_t nuts_tile<kSparseCoding, kHighest>(int, int*);
 
 }  // namespace mm

@@ -8,7 +8,7 @@
 namespace mjhmc {
 namespace mm {
 
-template Launch launch_body<kSparseCoding, kBf16x3, kNuts>;
+template Instance body_instance<kSparseCoding, kBf16x3, kNuts>();
 template cudaError_t nuts_tile<kSparseCoding, kBf16x3>(int, int*);
 template cudaError_t launch_nuts_prof<kSparseCoding, kBf16x3>(const Args&, cudaStream_t);
 

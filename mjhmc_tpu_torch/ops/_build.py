@@ -56,10 +56,12 @@ MM_LAUNCH_ARGTYPES = (
     + [_P, _I, _P]  # mass, two_stage, scratch (NUTS)
     + _STATE_AND_RUN
 )
-#: argument types of ``mjhmc_mm_nuts_profile``: the launch's, then the
-#: PROF instance's output buffer; of ``mjhmc_mm_nuts_tile``
-MM_NUTS_PROFILE_ARGTYPES = MM_LAUNCH_ARGTYPES + [_P]
+#: argument types of ``mjhmc_mm_nuts_profile`` and ``mjhmc_mm_profile``:
+#: the launch's, then the PROF instance's output buffer; of
+#: ``mjhmc_mm_nuts_tile`` and ``mjhmc_mm_tile``
+MM_PROFILE_ARGTYPES = MM_LAUNCH_ARGTYPES + [_P]
 MM_NUTS_TILE_ARGTYPES = [_I, _I, _I, _P]  # energy, precision, max_depth, out
+MM_TILE_ARGTYPES = [_I, _I, _I, _I, _P]  # energy, precision, variant, branches, out
 #: argument types of the ceiling probes (csrc/ceilings.cu)
 FMA_CHAIN_ARGTYPES = [_P, _P, _P, _I, ctypes.c_longlong, _I, _P]  # a, b, out, n, iters, sin, stream
 TC_CHAIN_ARGTYPES = [_P, _P, _P, _I, _I, _I, _F, _P]  # w, b, out, depth, lanes, iters, c, stream
@@ -138,8 +140,10 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for fn, argtypes in ((lib.mjhmc_engine_launch, LAUNCH_ARGTYPES),
                          (lib.mjhmc_mm_engine_launch, MM_LAUNCH_ARGTYPES),
-                         (lib.mjhmc_mm_nuts_profile, MM_NUTS_PROFILE_ARGTYPES),
+                         (lib.mjhmc_mm_nuts_profile, MM_PROFILE_ARGTYPES),
+                         (lib.mjhmc_mm_profile, MM_PROFILE_ARGTYPES),
                          (lib.mjhmc_mm_nuts_tile, MM_NUTS_TILE_ARGTYPES),
+                         (lib.mjhmc_mm_tile, MM_TILE_ARGTYPES),
                          (lib.fma_chain_launch, FMA_CHAIN_ARGTYPES),
                          (lib.tc_chain_launch, TC_CHAIN_ARGTYPES),
                          (lib.tc_chain_lanes, [_I])):

@@ -1266,11 +1266,44 @@ def nuts_mm_smem_bytes(spec, max_depth: int) -> int:
     return 4 * (red + (5 + 2 * (max_depth - 1)) * threads)
 
 
+#: mm_kernel's tile per spec and body (csrc/mjhmc_mm_engine.cuh, MmTile):
+#: chains and threads a block (MJHMC spends two trajectory columns on each
+#: chain, control and MALT one); the grid is ceil(nbatch / chains) blocks
+MM_TILES = {(ProductOfTSpec, "mjhmc"): (8, 96), (ProductOfTSpec, "control"): (8, 96),
+            (ProductOfTSpec, "malt"): (8, 96), (SparseCodingSpec, "mjhmc"): (16, 256),
+            (SparseCodingSpec, "control"): (16, 256), (SparseCodingSpec, "malt"): (16, 256),
+            (LogregSpec, "mjhmc"): (4, 128), (LogregSpec, "control"): (8, 128),
+            (LogregSpec, "malt"): (8, 128)}
+
+
+def mm_smem_bytes(spec, variant: str, branches: bool) -> int:
+    """Shared-memory bytes a block of mm_kernel's ``variant`` run takes at
+    the spec's precision, with the branches (the mass) or without (mirror
+    of MmLayout::kFloats): the parameter matrix (f32 in both orientations at
+    "highest", else its bf16 A fragments), X and Z at a row stride of NC + 4
+    floats (NC the trajectory columns), G and the energy terms Y at NC
+    (sparse coding: the residual Y at NC + 4, no Z), the mass (2d floats,
+    with the branches), the fragments 16-byte aligned, and the chains'
+    partial sums (MJHMC 4 slots of one float a thread, control and MALT 3)."""
+    d, k = MM_KERNEL_SHAPES[type(spec)]
+    chains, threads = MM_TILES[(type(spec), variant)]
+    nc = 2 * chains if variant == "mjhmc" else chains
+    ld = nc + 4
+    f32 = d * k if spec.precision == "highest" else 0
+    sparse = isinstance(spec, SparseCodingSpec)
+    mass = 2 * f32 + d * ld + d * nc + (k * ld if sparse else k * nc + k * ld)
+    frag = -(-(mass + (2 * d if branches else 0)) // 4) * 4
+    copies = {"highest": 0, "bf16x3": 2}.get(spec.precision, 1)
+    red = frag + 2 * copies * (-(-k // 16) * 16) * (-(-d // 16) * 16) // 2
+    return 4 * (red + (4 if variant == "mjhmc" else 3) * threads)
+
+
 def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             num_iters, m, thin, num_emits, fixed_uniform, variant, inv_mass,
             integrator, prof=None):
     """Check the state, allocate the outputs and launch the spec's kernel
-    (with ``prof``, the matmul NUTS run's PROF instance writing into it)."""
+    (with ``prof``, the matmul kernel's PROF instance of the body writing
+    into it)."""
     from mjhmc_tpu_torch.ops import _build
 
     if x.dim() != 2:
@@ -1344,7 +1377,8 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         scratch = nuts_scratch(spec, m, n, x.device) if variant == "nuts" else None
         fn, extra = lib.mjhmc_mm_engine_launch, ()
         if prof is not None:
-            fn, extra = lib.mjhmc_mm_nuts_profile, (prof.data_ptr(),)
+            fn = lib.mjhmc_mm_nuts_profile if variant == "nuts" else lib.mjhmc_mm_profile
+            extra = (prof.data_ptr(),)
         rc = fn(
             spec.energy_id, d, spec.aux_rows(), int(getattr(spec, "stub_dots", False)),
             KERNEL_VARIANTS[variant], PRECISIONS.index(spec.precision),
@@ -1400,6 +1434,46 @@ def nuts_mm_profile(spec, x, v, g, u, seed, epsilon, num_iters, max_depth) -> Te
     z = torch.zeros_like(u)
     _launch(spec, x, v, g, u, z, z, seed, epsilon, 0.0, num_iters, max_depth, 1, None,
             False, "nuts", None, "leapfrog", prof=prof)
+    return prof
+
+
+#: the phases of mm_kernel's PROF instances (csrc/mjhmc_mm_engine.cuh,
+#: MmPhase): cycles of each, then the block's gradients
+MM_PROF_PHASES = ("draws_o_steps", "kick_drift", "contraction_1", "contraction_2", "sums",
+                  "decide_move", "barrier_waits", "other", "gradients")
+
+
+def mm_tile(spec, variant: str, branches: bool = False) -> tuple:
+    """(chains, threads, shared-memory bytes) of a block of mm_kernel's
+    ``variant`` run of ``spec`` at its precision, with the branches or
+    without (control and MALT have only the former), and the blocks of it an
+    SM holds at once, as the built library reports them (``mjhmc_mm_tile``;
+    ``MM_TILES`` and ``mm_smem_bytes`` mirror the first three)."""
+    from mjhmc_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 4)()
+    rc = _build.load().mjhmc_mm_tile(spec.energy_id, PRECISIONS.index(spec.precision),
+                                     KERNEL_VARIANTS[variant], int(branches), out)
+    if rc != 0:
+        raise RuntimeError(f"mjhmc_mm_tile: no {variant} instance of {type(spec).__name__} at "
+                           f"{spec.precision}{' with the branches' if branches else ''} "
+                           f"(CUDA error {rc})")
+    return tuple(out)
+
+
+def mm_profile(spec, variant, x, v, g, u, seed, epsilon, beta, num_iters, m) -> Tensor:
+    """The per-iteration phase breakdown of mm_kernel's ``variant`` run
+    ("mjhmc" or "malt") from its PROF instance (CUDA tensors; sparse coding
+    at "bf16x3" both, logreg at "default" MALT; no mass): an int64 (blocks,
+    2, len(MM_PROF_PHASES)) tensor of each block's clock64() cycles per
+    phase as thread 0 and the last warp's first thread saw them, and its
+    gradients. A measurement, not a main-path call: the run's outputs are
+    dropped and no launch is counted."""
+    blocks = -(-x.shape[1] // MM_TILES[(type(spec), variant)][0])
+    prof = torch.zeros((blocks, 2, len(MM_PROF_PHASES)), dtype=torch.int64, device=x.device)
+    z = torch.zeros_like(u)
+    _launch(spec, x, v, g, u, z, z, seed, epsilon, beta, num_iters, m, 1, None, False, variant,
+            None, "leapfrog", prof=prof)
     return prof
 
 

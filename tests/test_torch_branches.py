@@ -247,9 +247,9 @@ def test_build_parts_match_the_sources():
     # the matmul kernel: every body of each energy at full f32 and at the
     # preset's JAX default precision, and the sweep's four MJHMC runs
     mm = (_build.CSRC / "mjhmc_mm_engine.cuh").read_text()
-    declared = re.findall(r"extern template Launch (launch_\w+<[^>]+>);", mm)
+    declared = re.findall(r"extern template Instance (\w+_instance<[^>]+>)\(\);", mm)
     assert len(declared) == 2 * 3 * 4 + 4 and len(set(declared)) == len(declared)
     for inst in declared:
         where = [name for name in _build.KERNEL_SOURCES
-                 if f"template Launch {inst};" in (_build.CSRC / name).read_text()]
+                 if f"template Instance {inst}();" in (_build.CSRC / name).read_text()]
         assert len(where) == 1, (inst, where)

@@ -257,3 +257,75 @@ def test_cli_plain_sampler_sparse_coding(capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["engine"] == "torch" and rec["chains"] == 32
     assert rec["grad_evals"] >= 8 * 32 * 10 and all(np.isfinite(rec["var"]))
+
+
+#: the presets' chains (mjhmc_tpu_torch/config.py), the H100's SMs and its
+#: shared memory: an SM's 228 KB, a block's 227 KB at most, 1 KB an SM
+#: reserves for each resident block
+PRESET_CHAINS = {"ProductOfT": 4096, "SparseCoding": 8192, "LogisticRegression": 2048}
+SMS, SMEM_SM, SMEM_BLOCK, SMEM_RESERVED = 132, 233472, 232448, 1024
+#: every run instance of mm_kernel: (model, precision, body, with the branches)
+MM_INSTANCES = [(name, prec, body, br)
+                for name, precs in (("ProductOfT", ("highest", "default")),
+                                    ("SparseCoding", ("highest", "bf16x3")),
+                                    ("LogisticRegression", ("highest", "default")))
+                for prec in precs
+                for body, br in (("mjhmc", False), ("mjhmc", True), ("control", True),
+                                 ("malt", True))]
+MM_INSTANCES += [("ProductOfT", p, "mjhmc", False) for p in ("bf16x3", "bf16x2")]
+MM_INSTANCES += [("SparseCoding", p, "mjhmc", False) for p in ("bf16x2", "default")]
+
+
+@pytest.mark.parametrize("name,precision,body,branches", MM_INSTANCES,
+                         ids=[" ".join(map(str, k)) for k in MM_INSTANCES])
+def test_mm_tiles_fill_the_card(name, precision, body, branches):
+    """mm_kernel's tile mirror (``MM_TILES``, ``mm_smem_bytes``): a chain's
+    threads own whole groups of four dims and whole rows of the
+    intermediate, the columns fill mma n-tiles of 8 and the operand rows
+    are NC + 4 floats; at the preset's chains the grid has at least 2 × 132
+    blocks (logreg's control and MALT: 256 at the 8-column n-tile, the most
+    2,048 chains give), two blocks fit an SM's shared memory and one stays
+    under 227 KB. (Phase 2 of chip_smoke.py holds the mirror to the
+    library's own bytes and blocks an SM.)"""
+    spec = dataclasses.replace(cm.energy_spec_for(getattr(tmodels, name)()),
+                               precision=precision)
+    chains, threads = cm.MM_TILES[(type(spec), body)]
+    d, k = cm.MM_KERNEL_SHAPES[type(spec)]
+    nc = 2 * chains if body == "mjhmc" else chains
+    rows_owners = threads // chains
+    dim_owners = min(rows_owners, d // 4)
+    assert threads % chains == 0 and threads % 32 == 0 and nc % 8 == 0
+    assert (d // 4) % dim_owners == 0 and k % rows_owners == 0
+    bytes_ = cm.mm_smem_bytes(spec, body, branches)
+    # the operands X (d rows) and Y or Z (k rows) at NC + 4 floats a row
+    assert bytes_ >= 4 * (d + k) * (nc + 4)
+    blocks = -(-PRESET_CHAINS[name] // chains)
+    assert blocks >= (256 if (name, body) in {("LogisticRegression", "control"),
+                                              ("LogisticRegression", "malt")} else 2 * SMS)
+    assert 2 * (bytes_ + SMEM_RESERVED) <= SMEM_SM and bytes_ < SMEM_BLOCK
+
+
+@pytest.mark.parametrize("body", ["mjhmc", "control", "malt refresh", "malt noise"])
+def test_philox_blocks_give_the_owner_groups_words(body):
+    """The kernel's owner of dims i..i+3 (i % 4 == 0) takes their normals'
+    words from whole Philox blocks where the plain version draws word by
+    word: words i..i+3 and D+i..D+i+3 (control tag 4, MALT's refresh tag 5
+    at slot 0, MALT's O-step o tag 6 at slot o·ceil(2D/4)) are one block
+    each, MJHMC's 1+i..4+i and 1+D+i..4+D+i words 1-3 of one block and word
+    0 of the next. Held at sparse coding's D = 128 and product of t's 36,
+    against ``philox_uniforms`` (word k from output k % 4 of slot k // 4)."""
+    seed, n, t = 12345, 5, 3
+    for d in (128, 36):
+        nblocks = (2 * d + 3) // 4
+        tag, slot0, w0 = {"mjhmc": (0, 0, 1), "control": (4, 0, 0), "malt refresh": (5, 0, 0),
+                          "malt noise": (6, 7 * nblocks, 0)}[body]
+        nwords = slot0 * 4 + w0 + 2 * d + 1
+        single = cm.philox_uniforms(seed, range(t, t + 1), n, nwords, "cpu", tag=tag)[0]
+        single = single[slot0 * 4:]  # the draw's words from its first slot
+        for i in range(0, d, 4):
+            for base in (w0 + i, w0 + d + i):
+                first = base // 4
+                blocks = [torch.stack(cm.philox_block(seed, n, t, slot0 + b, tag, "cpu"))
+                          for b in (first, first + 1)]
+                got = torch.cat(blocks)[base % 4:base % 4 + 4]
+                assert torch.equal(cm._uniform_of(got), single[base:base + 4]), (d, i, base)
