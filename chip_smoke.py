@@ -29,11 +29,16 @@ moments, the adaptive step, the sharded checkpoint and ``bench_scaling``;
 then two processes (this script started again with ``--phase35-rank``)
 sharing the card under gloo, each rank against a direct launch at its
 offset seed. Phase 36 prints the matmul NUTS kernel's per-leaf phase
-breakdown at the three presets and mm_kernel's per-iteration one (MJHMC and
-MALT on sparse coding, MALT on logreg), from their PROF instances
-(clock64() stamps), and phase 2 holds the NUTS and mm_kernel tiles the
-library reports (chains, threads and shared bytes a block) to the wrappers'
-mirror. Phase 15 also runs each matmul preset's MJHMC, control and MALT at
+breakdown at the three presets, the elementwise NUTS kernel's on gauss2d
+and the funnel, and mm_kernel's per-iteration one (MJHMC and MALT on sparse
+coding, MALT on logreg), from their PROF instances (clock64() stamps), and
+phase 2 holds the NUTS, elementwise NUTS and mm_kernel tiles the library
+reports (chains, threads and shared bytes a block) to the wrappers'
+mirror. Phases 9-10 also run elementwise NUTS at its depth cap (12, and
+``CudaNUTS`` at 11 and 12) bit for bit against its plain version, check
+that a real share of its trees entered their last round, and see the
+matmul kernel refuse 11; phases 11 and 29
+print the share of the warps' leaf slots that ran a live leaf. Phase 15 also runs each matmul preset's MJHMC, control and MALT at
 a width that leaves mm_kernel's last tile partly empty (4,093, 8,185 and
 2,045 chains). One line per phase; any failed check raises, so the exit
 code is non-zero. The second to last line is the kernels' JSON record, the
@@ -74,6 +79,9 @@ TC_SRC = "bench_mfu.py:94"  # measure_mxu_ceiling's kernel
 NUTS_VARIANT = "nuts (_make_step_nuts, mjhmc_tpu/ops/pallas_mjhmc.py:1011)"
 STUB_VARIANT = "stub_dots (MatmulEnergySpec._dot, mjhmc_tpu/ops/pallas_mjhmc.py:282)"
 NUTS_EPS, NUTS_DEPTH = 0.3, 7  # the dossier's gauss2d NUTS row
+#: gauss2d NUTS at the elementwise kernel's cap (phases 9-10): ε small
+#: enough that trees reach rounds 11 and 12 (1,024 chains, 2 iterations)
+DEEP_EPS = 0.001
 CLI_NUTS_DEPTH = 8  # max_depth of `sample --sampler nuts` (at the config's eps)
 #: the dossier's --steps here (its default is 20,000): the engine rows time
 #: 2,000 and 10,000 jump iterations
@@ -406,25 +414,45 @@ def chains_within(k, r, fields=("x", "v", "grad", "u")):
     return ok
 
 
+def rounds_begun(es):
+    """(E, n) rounds each chain's tree began in each iteration, from a
+    stream's cumulative leaf counts ``es`` (E, n): a tree that began round
+    r (from 1) has 2^(r−1) leaves or more and fewer than 2^r."""
+    per_iter = torch.diff(es.long(), dim=0, prepend=torch.zeros_like(es[:1]).long())
+    return torch.floor(torch.log2(per_iter.double())).long() + 1
+
+
+def check_last_round(what, began, depth, least=0.1):
+    """Fail unless some tree began round ``depth`` and at least ``least`` of
+    ``began`` (the rounds each tree began) did; returns that share."""
+    share = float((began == depth).double().mean())
+    check(int(began.max()) == depth and share >= least,
+          f"{what}: trees began {int(began.max())} rounds at most, and {share:.4f} of them "
+          f"round {depth} (< {least}): the deepest stack rows went untested")
+    return share
+
+
 def nuts_checks(cm):
     """The NUTS run and stream kernels vs their plain version, in
     fixed-uniform mode and in Philox mode, at the main path's shapes (the
     dossier's gauss2d row and the CLI's, both at 10,240 chains), on the
     rough well and on the D=50 instances; returns (max|dx| run, stream)."""
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
-    from mjhmc_tpu_torch.models import Gaussian, RoughWell
+    from mjhmc_tpu_torch.models import Gaussian, ProductOfT, RoughWell
 
     g2 = Gaussian(ndims=2, log_conditioning=2.0)
-    cases = (  # name, distribution, eps, max_depth, chains, fixed-uniform iterations
-        ("gauss2d", g2, NUTS_EPS, NUTS_DEPTH, 10_240, 5),
-        ("gauss2d", g2, BENCHMARK_CONFIGS["gauss2d"].epsilon, CLI_NUTS_DEPTH, 10_240, 5),
-        ("rough_well", RoughWell(), 1.0, NUTS_DEPTH, 4096, 1),
+    cases = (  # name, distribution, eps, max_depth, chains, fixed-uniform and Philox iterations
+        ("gauss2d", g2, NUTS_EPS, NUTS_DEPTH, 10_240, 5, 5),
+        ("gauss2d", g2, BENCHMARK_CONFIGS["gauss2d"].epsilon, CLI_NUTS_DEPTH, 10_240, 5, 5),
+        # the elementwise kernel's cap, deeper than the matmul kernel's
+        ("gauss2d", g2, DEEP_EPS, cm.NUTS_MAX_DEPTH, 1024, 2, 2),
+        ("rough_well", RoughWell(), 1.0, NUTS_DEPTH, 4096, 1, 5),
         # the D=50 instance as `sample --config gauss50d --sampler nuts` runs it
         ("gauss50d", Gaussian(ndims=50, log_conditioning=4.0),
-         BENCHMARK_CONFIGS["gauss50d"].epsilon, CLI_NUTS_DEPTH, 4096, 5),
+         BENCHMARK_CONFIGS["gauss50d"].epsilon, CLI_NUTS_DEPTH, 4096, 5, 5),
     )
     run_err = stream_err = 0.0
-    for cname, dist, eps, depth, n, iters in cases:
+    for cname, dist, eps, depth, n, iters, piters in cases:
         spec = cm.energy_spec_for(dist)
         what = f"NUTS {cname} ({n} chains, eps {eps}, max_depth {depth})"
         nuts = dict(variant="nuts")
@@ -448,16 +476,20 @@ def nuts_checks(cm):
         stream_err = max(stream_err, assert_close(xs_k, xs_r, 1e-4, 1e-4 * float(xs_r.abs().max()),
                                                   f"{what} stream xs"))
         leaves = float(r.evals.double().mean()) / iters
+        deep = ""
+        if depth == cm.NUTS_MAX_DEPTH:
+            last = check_last_round(what, rounds_begun(es_r), depth)
+            deep = f"; {last:.4f} of trees began round {depth}"
         phase("9 nuts fixed-uniform", f"{what}, {iters} iterations, {leaves:.4g} "
               f"leaves/iteration: leaf counts and stream es exact; w == steps, ws == 1; "
-              f"x,v,g,u and stream xs rtol 1e-4 on every chain")
+              f"x,v,g,u and stream xs rtol 1e-4 on every chain{deep}")
 
         # Philox mode: rounds go both ways; every iteration's tree compared
         seed = 12345
         args = (spec, *initial_state(dist, n, seed=2), seed, eps, 0.0)
-        kp = cm.cuda_mjhmc_run(*args, 5, depth, **nuts)
-        xs_k, _, es_k, _ = cm.cuda_mjhmc_stream_run(*args, 5, 1, depth, **nuts)
-        xs_r, _, es_r, rp = cm.stream_reference(*args, 5, 1, depth, **nuts)
+        kp = cm.cuda_mjhmc_run(*args, piters, depth, **nuts)
+        xs_k, _, es_k, _ = cm.cuda_mjhmc_stream_run(*args, piters, 1, depth, **nuts)
+        xs_r, _, es_r, rp = cm.stream_reference(*args, piters, 1, depth, **nuts)
         counts = (kp.evals == rp.evals) & (es_k == es_r).all(dim=0)
         tol = 1e-4 * float(xs_r.abs().max()) + 1e-4 * xs_r.abs()
         agree = counts & chains_within(kp, rp) & ((xs_k - xs_r).abs() <= tol).all(dim=1).all(dim=0)
@@ -471,18 +503,55 @@ def nuts_checks(cm):
               f"{what}: Philox-mode x,v,g,u and xs within rtol 1e-4 on {share_agree:.5f} (< 0.999)")
         # rounds each iteration began, and their directions; a chain whose
         # every emitted x agrees with the plain version's took the same trees
-        per_iter = torch.diff(es_r.long(), dim=0, prepend=torch.zeros_like(es_r[:1]).long())
-        started = torch.floor(torch.log2(per_iter.double())).long() + 1
-        right = round_directions(cm, seed, n, 5, depth)
+        started = rounds_begun(es_r)
+        right = round_directions(cm, seed, n, piters, depth)
         live = torch.arange(depth, device="cuda")[None, :, None] < started[:, None, :]
         both = ((right & live).any(dim=1) & (~right & live).any(dim=1)).any(dim=0) & agree
         share = float(both.double().mean())
         check(share > 0.01, f"{what}: only {share:.4f} of chains built rounds both ways "
               "and agree with the plain version")
-        phase("10 nuts philox", f"{what}, 5 iterations: leaf counts and stream es equal on "
-              f"{same:.5f} of chains; x,v,g,u and every emitted x within rtol 1e-4 on "
+        deep = ""
+        if depth == cm.NUTS_MAX_DEPTH:
+            last = check_last_round(what, started, depth)
+            deep = f"; {last:.4f} of trees began round {depth}"
+        phase("10 nuts philox", f"{what}, {piters} iterations: leaf counts and stream es equal "
+              f"on {same:.5f} of chains; x,v,g,u and every emitted x within rtol 1e-4 on "
               f"{share_agree:.5f} (bit-identical on {float(identical.double().mean()):.5f}); "
-              f"{share:.4f} of chains built rounds in both directions and agree")
+              f"{share:.4f} of chains built rounds in both directions and agree; "
+              f"{int(started.max())} rounds at most{deep}")
+
+    # CudaNUTS at depths past the matmul kernel's cap, from its own state and
+    # seed, against the plain version; the matmul kernel refuses them
+    for depth in (cm.NUTS_MAX_DEPTH - 1, cm.NUTS_MAX_DEPTH):
+        eng = cm.CudaNUTS(g2, epsilon=DEEP_EPS, num_leapfrog_steps=depth, nbatch=1024, seed=6)
+        st = tuple(t.clone() for t in (eng.x, eng.v, eng.g, eng.u, eng.h_back, eng.back_valid))
+        gen = torch.Generator()
+        gen.set_state(eng._seed_gen.get_state())
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
+        out = eng.run(2)
+        ref = cm.run_reference(eng.spec, *st, seed, DEEP_EPS, 0.0, 2, depth, variant="nuts")
+        check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+              f"CudaNUTS gauss2d max_depth {depth}: not bit-identical to the plain version")
+        # a chain with 2^depth leaves or more over the two iterations began
+        # round depth in one of them (a tree has fewer than 2^depth leaves)
+        entered = float((out.evals >= 2**depth).double().mean())
+        check(entered >= 0.1, f"CudaNUTS gauss2d max_depth {depth}: only {entered:.4f} of "
+              f"chains began round {depth} (< 0.1): the deepest stack rows went untested")
+        phase("10 nuts philox", f"CudaNUTS gauss2d (1024 chains, eps {DEEP_EPS}, max_depth "
+              f"{depth}, 2 iterations): bit-identical to the plain version; "
+              f"{float(out.evals.double().mean()) / 2:.5g} leaves/iteration; {entered:.4f} of "
+              f"chains began round {depth} in an iteration or more")
+    pot = cm.energy_spec_for(ProductOfT())
+    pst = initial_state(ProductOfT(), 8, seed=1)
+    try:
+        cm.cuda_mjhmc_mm_run(pot, *pst, 5, 0.12, 0.0, 2, cm.NUTS_MM_MAX_DEPTH + 1, variant="nuts")
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    check(f"max_depth 1..{cm.NUTS_MM_MAX_DEPTH}" in refused,
+          f"the matmul NUTS kernel must refuse max_depth {cm.NUTS_MM_MAX_DEPTH + 1}: {refused!r}")
+    phase("10 nuts philox", f"matmul NUTS at max_depth {cm.NUTS_MM_MAX_DEPTH + 1}: refused "
+          f"({refused})")
     return run_err, stream_err
 
 
@@ -502,7 +571,9 @@ def nuts_timing_and_stats(cm, card):
     ratio = var.double() / torch.tensor([1.0, 100.0], dtype=torch.float64, device="cuda")
     check(bool(((ratio - 1).abs() < 0.05).all()), f"NUTS gauss2d var {var.tolist()}: outside 5%")
     leaves = float(out.evals.double().mean()) / 1000
-    stream_ms = events_ms(lambda: eng.sample(1000)) / 1000
+    got = {}
+    stream_ms = events_ms(lambda: got.update(s=eng.sample(1000, return_evals=True))) / 1000
+    es = got["s"][2]
     args = (cm.energy_spec_for(dist), *initial_state(dist, 10_240, seed=5), 99, NUTS_EPS, 0.0)
     cm.run_reference(*args, 1, NUTS_DEPTH, variant="nuts")
     plain_ms = events_ms(lambda: cm.run_reference(*args, 3, NUTS_DEPTH, variant="nuts")) / 3
@@ -514,6 +585,8 @@ def nuts_timing_and_stats(cm, card):
     phase("11 nuts stats", f"NUTS run kernel {run_ms:.6g} ms/iteration "
           f"({leaves * 10_240 / run_ms * 1e3:.6g} leaves/s), stream {stream_ms:.6g}; plain "
           f"version run {plain_ms:.6g}, stream {plain_stream_ms:.6g} ms/iteration [{card}]")
+    phase("11 nuts stats", f"the stream's leaf slots live: "
+          f"{nuts_shares(cm, 2, es, NUTS_DEPTH)}")
     return run_ms, stream_ms, plain_ms, plain_stream_ms, leaves
 
 
@@ -1130,6 +1203,32 @@ def leaf_slot_share(es, depth, tile):
     return float(nl.sum()) / float(tile * steps.sum())
 
 
+def lane_leaf_share(leaves, lanes):
+    """Share of the leaf slots a warp of ``lanes`` chains would run live if
+    each lane ran on into its next round and iteration at once: a warp runs
+    as many leaf steps as its lanes' largest count of leaves over the run,
+    every lane each step, from each chain's leaves ``leaves`` (n,) (a run's
+    evals); the last warp counts its live lanes."""
+    nl = leaves.long()
+    n = nl.shape[0]
+    per = torch.nn.functional.pad(nl, (0, (-n) % lanes)).reshape(-1, lanes)
+    live = torch.nn.functional.pad(torch.ones_like(nl), (0, (-n) % lanes)).reshape(-1, lanes)
+    return float(nl.sum()) / float((per.amax(dim=1) * live.sum(dim=1)).sum())
+
+
+def nuts_shares(cm, d, es, depth):
+    """The leaf slots live in the elementwise NUTS kernel's warps over a
+    stream's cumulative leaf counts ``es`` (E, n), its lanes in step round
+    by round (``leaf_slot_share``) in its blocks, beside what lanes that ran
+    on at once would keep (``lane_leaf_share``)."""
+    n = es.shape[1]
+    t = cm.nuts_threads(d, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    return (f"{leaf_slot_share(es, depth, t):.4f} in {t}-thread blocks (lanes that ran on at "
+            f"once would keep {lane_leaf_share(es[-1], t):.4f})")
+
+
+
+
 def slice_k_stats(cm):
     """Phase 22: the statistics of slice K. CudaNUTS on product_of_t (the
     settings of tests/test_pallas_engine.py:892-923): the median of
@@ -1670,6 +1769,11 @@ def zoo_timing(cm, card):
             stream_ms = events_ms(lambda: eng.sample(iters)) / iters
             launches = counts(cm, "launches" if body == "mjhmc" else f"{body}_launches")
             check(all(v > 0 for v in launches), f"{key} {name}: kernels not launched")
+            share = ""
+            if nuts:
+                es = eng.sample(100, return_evals=True)[2]
+                share = (f"; 100 more iterations' leaf slots live: "
+                         f"{nuts_shares(cm, dist.ndims, es, m)}")
             plain_iters = 1 if nuts else 3
             args = (eng.spec, *initial_state(dist, n, seed=5, inv_mass=kw.get("inv_mass")), 99,
                     cfg.epsilon, beta)
@@ -1685,7 +1789,7 @@ def zoo_timing(cm, card):
                   f"{'max_depth' if nuts else 'M'} {m}): run {run_ms:.6g} ms/iteration, stream "
                   f"(thin 1) {stream_ms:.6g}; plain version run {plain_ms:.6g}, stream "
                   f"{plain_stream_ms:.6g} ms/iteration; {per:.5g} "
-                  f"{'leaves' if nuts else 'gradients'} per chain and iteration [{card}]")
+                  f"{'leaves' if nuts else 'gradients'} per chain and iteration{share} [{card}]")
     return rows
 
 
@@ -2249,6 +2353,26 @@ def nuts_breakdown(cm, card):
     return out
 
 
+def ew_nuts_breakdown(cm, card):
+    """Phase 36: the elementwise NUTS run's phase breakdown from its PROF
+    instance (``bench_mm_ab.run_ew_profiles``: every chain's clock64()
+    stamps on gauss2d, 10,240 chains at ε 0.3, max_depth 7, and the funnel,
+    1,024 chains at its preset's ε, max_depth 8, from the state two
+    iterations in): each phase's share of the chains' cycles and its cycles
+    a leaf, the share of the warps' leaf slots that ran a live leaf (counted
+    by one lane a step), the share lanes that ran on at once would keep, the
+    longest chain's cycles over the mean, and the PROF run's time beside
+    the plain instance's."""
+    from mjhmc_tpu_torch.bench_mm_ab import run_ew_profiles
+
+    for key, rec in run_ew_profiles().items():
+        check(rec["cycles_per_leaf"] > 0 and 0 < rec["leaf_slot_share"] <= 1,
+              f"{key}: empty PROF record")
+        phase("36 nuts breakdown", f"elementwise {key} ({rec['chains']} chains, eps {rec['eps']}, "
+              f"max_depth {rec['max_depth']}, {rec['iters']} iterations): {json.dumps(rec)} "
+              f"[{card}]")
+
+
 def mm_breakdown(cm, card):
     """Phase 36: mm_kernel's per-iteration phase breakdown from its PROF
     instances (``bench_mm_ab.run_profiles``: MJHMC and MALT on sparse coding
@@ -2630,7 +2754,7 @@ def main() -> int:
     for dist in (ProductOfT(), SparseCoding(), BENCHMARK_CONFIGS["logreg"].make_distribution()):
         spec = cm.energy_spec_for(dist)
         for prec in ("highest", spec.precision):
-            for depth in (1, MM_NUTS_DEPTH, cm.NUTS_MAX_DEPTH):
+            for depth in (1, MM_NUTS_DEPTH, cm.NUTS_MM_MAX_DEPTH):
                 got = cm.nuts_mm_tile(at(spec, prec), depth)
                 want = (*cm.NUTS_MM_TILES[type(spec)][:2],
                         cm.nuts_mm_smem_bytes(at(spec, prec), depth))
@@ -2658,6 +2782,30 @@ def main() -> int:
                 tiles[f"{spec_cls.__name__} {body} {p}{' branches' if br else ''}"] = got
     phase("2 build", f"mm_kernel tiles (chains, threads, shared bytes a block; blocks an SM "
           f"holds), library = mirror: {json.dumps(tiles)}")
+    # the elementwise NUTS kernel's tiles at the presets' chains, every
+    # instance with and without a mass, against the mirror the wrappers read
+    # (threads a block from the dims, the chains and the card's SMs; the
+    # tree rows' shared memory or, past 10 dims, none: the scratch)
+    from mjhmc_tpu_torch.bench_mm_ab import EW_NUTS, ew_nuts_dist
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = {}
+    ew = [(c, ew_nuts_dist(c)[0], EW_NUTS[c][0]) for c in EW_NUTS]
+    ew.append(("rough_well d50", RoughWell(ndims=50), 4096))
+    for cname, dist, n in ew:
+        spec, d = cm.energy_spec_for(dist), dist.ndims
+        for mass in (False, True):
+            for depth in (1, CLI_NUTS_DEPTH, cm.NUTS_MAX_DEPTH):
+                got = cm.nuts_tile(spec, d, depth, n, mass)
+                threads = cm.nuts_threads(d, n, sms)
+                want = (threads, cm.nuts_smem_bytes(d, threads, depth))
+                check(got[:2] == want and got[2] >= 1, f"elementwise NUTS tile of "
+                      f"{cname} ({n} chains, max_depth {depth}{', a mass' if mass else ''}): the "
+                      f"library's {got}, the mirror's {want}")
+                tiles[f"{cname} {n} max_depth {depth}{' mass' if mass else ''}"] = got
+    phase("2 build", f"elementwise NUTS tiles (threads, shared bytes a block; blocks an SM "
+          f"holds) on {sms} SMs, library = mirror: "
+          f"{json.dumps(tiles)}")
     # 12 instances (4 bodies, run and stream, MJHMC and NUTS with and without
     # the branches) per preset at two precisions, the stub, the sweep's 4,
     # the NUTS run's PROF instance per preset at its JAX default and
@@ -2932,8 +3080,9 @@ def main() -> int:
     sharded_two_processes(cm)
     phase("35 sharded two processes", f"phases 34-35 took {time.perf_counter() - t_sh:.4g} s")
 
-    # ---- 36. the matmul kernels' phase breakdowns ----------------------------
+    # ---- 36. the kernels' phase breakdowns ------------------------------------
     nuts_breakdown(cm, card)
+    ew_nuts_breakdown(cm, card)
     mm_breakdown(cm, card)
 
     # ---- the kernels' record ----------------------------------------------

@@ -27,18 +27,21 @@ cudaError_t launch_shape(int variant, const Args& a, bool emit, cudaStream_t s) 
 }  // namespace mjhmc
 
 // Plain C entry for ctypes. variant 0 runs MJHMC (m is M), 1 runs NUTS (m is
-// max_depth, 1..10; beta is unused; the input v is returned as is when
-// num_iters is 0), 2 control HMC (beta is the corruption fraction), 3 MALT
-// (beta is the friction gamma). energy is an Energy id at its instantiated
-// D: rough well and Gaussian at 2 and 50, funnel 10, banana 2, mog 1 (k0
-// components, 1..kMogMaxComponents), eight schools 10 (both forms). mass is
-// (2, ndims) (M^-1, sqrt(M)) or NULL; two_stage != 0 takes the two-stage
-// integrator (MJHMC and control only).
+// max_depth, 1..nuts::kMaxDepth; beta is unused; the input v is returned as
+// is when num_iters is 0), 2 control HMC (beta is the corruption fraction),
+// 3 MALT (beta is the friction gamma). energy is an Energy id at its
+// instantiated D: rough well and Gaussian at 2 and 50, funnel 10, banana 2,
+// mog 1 (k0 components, 1..kMogMaxComponents), eight schools 10 (both
+// forms). mass is (2, ndims) (M^-1, sqrt(M)) or NULL; two_stage != 0 takes
+// the two-stage integrator (MJHMC and control only); scratch is NUTS's
+// (nuts::rows(m), ndims, n) tree rows at ndims > nuts::kOnChipDims (else
+// NULL).
 // xs/ws/es == NULL runs without emissions. Returns cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int mjhmc_engine_launch(
     int variant, int ndims, int energy, const float* params, float k0, float k1,
-    float k2, float k3, float k4, const float* mass, int two_stage, const float* x,
+    float k2, float k3, float k4, const float* mass, int two_stage, float* scratch,
+    const float* x,
     const float* v, const float* g, const float* u, const float* h_back,
     const float* valid, float* xo, float* vo, float* go, float* uo, float* hbo,
     float* valido, float* w, float* wx, float* wx2, int* evals, float* xs, float* ws,
@@ -51,7 +54,8 @@ extern "C" int mjhmc_engine_launch(
     return cudaErrorInvalidValue;
   Args a{params, k0, k1, k2, k3, k4, x, v, g, u, h_back, valid,
          xo, vo, go, uo, hbo, valido, w, wx, wx2, evals, xs, ws, es,
-         n, num_iters, thin, m, fixed_uniform, seed, eps, beta, mass, two_stage};
+         n, num_iters, thin, m, fixed_uniform, seed, eps, beta, mass, two_stage, scratch,
+         nullptr};
   const bool emit = xs != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (energy) {
@@ -78,6 +82,81 @@ extern "C" int mjhmc_engine_launch(
       break;
     case kEightSchoolsNoncentered:
       if (ndims == 10) return launch_shape<10, kEightSchoolsNoncentered>(variant, a, emit, s);
+      break;
+    default: break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The NUTS run's PROF instance: mjhmc_engine_launch's arguments (variant
+// NUTS, gauss2d (Gaussian, ndims 2) or the funnel (ndims 10), no mass, no
+// emissions), then prof, (n, nuts::kPhases) cycles and counters of each
+// chain (mjhmc_engine.cuh, nuts::Phase), in the main path's blocks. Nothing
+// on the main path calls it.
+extern "C" int mjhmc_nuts_profile(
+    int variant, int ndims, int energy, const float* params, float k0, float k1,
+    float k2, float k3, float k4, const float* mass, int two_stage, float* scratch,
+    const float* x,
+    const float* v, const float* g, const float* u, const float* h_back,
+    const float* valid, float* xo, float* vo, float* go, float* uo, float* hbo,
+    float* valido, float* w, float* wx, float* wx2, int* evals, float* xs, float* ws,
+    int* es, int n, int num_iters, int thin, int m, unsigned int seed, float eps,
+    float beta, int fixed_uniform, void* stream, unsigned long long* prof) {
+  using namespace mjhmc;
+  if (n <= 0 || thin <= 0 || variant != kNuts || m < 1 || m > nuts::kMaxDepth || mass ||
+      two_stage || xs || !prof)
+    return cudaErrorInvalidValue;
+  Args a{params, k0, k1, k2, k3, k4, x, v, g, u, h_back, valid,
+         xo, vo, go, uo, hbo, valido, w, wx, wx2, evals, xs, ws, es,
+         n, num_iters, thin, m, fixed_uniform, seed, eps, beta, mass, two_stage, scratch,
+         prof};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (energy == kGaussian && ndims == 2) return launch_nuts_prof<2, kGaussian>(a, s);
+  if (energy == kFunnel && ndims == 10) return launch_nuts_prof<10, kFunnel>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+// The tile of the NUTS run of (ndims, energy) without a mass (mass == 0) or
+// with one, for n chains at max_depth: out[0] threads a block, out[1]
+// shared-memory bytes a block, out[2] blocks an SM holds at once. Returns
+// cudaErrorInvalidValue where no such instance is compiled.
+extern "C" int mjhmc_nuts_tile(int ndims, int energy, int mass, int max_depth, int n, int* out) {
+  using namespace mjhmc;
+  if (max_depth < 1 || max_depth > nuts::kMaxDepth || n <= 0) return cudaErrorInvalidValue;
+  const bool m = mass != 0;
+  switch (energy) {
+    case kRoughWell:
+      if (ndims == 2) return m ? nuts_tile<2, kRoughWell, true>(max_depth, n, out)
+                               : nuts_tile<2, kRoughWell, false>(max_depth, n, out);
+      if (ndims == 50) return m ? nuts_tile<50, kRoughWell, true>(max_depth, n, out)
+                                : nuts_tile<50, kRoughWell, false>(max_depth, n, out);
+      break;
+    case kGaussian:
+      if (ndims == 2) return m ? nuts_tile<2, kGaussian, true>(max_depth, n, out)
+                               : nuts_tile<2, kGaussian, false>(max_depth, n, out);
+      if (ndims == 50) return m ? nuts_tile<50, kGaussian, true>(max_depth, n, out)
+                                : nuts_tile<50, kGaussian, false>(max_depth, n, out);
+      break;
+    case kFunnel:
+      if (ndims == 10) return m ? nuts_tile<10, kFunnel, true>(max_depth, n, out)
+                                : nuts_tile<10, kFunnel, false>(max_depth, n, out);
+      break;
+    case kBanana:
+      if (ndims == 2) return m ? nuts_tile<2, kBanana, true>(max_depth, n, out)
+                               : nuts_tile<2, kBanana, false>(max_depth, n, out);
+      break;
+    case kMog:
+      if (ndims == 1) return m ? nuts_tile<1, kMog, true>(max_depth, n, out)
+                               : nuts_tile<1, kMog, false>(max_depth, n, out);
+      break;
+    case kEightSchoolsCentered:
+      if (ndims == 10) return m ? nuts_tile<10, kEightSchoolsCentered, true>(max_depth, n, out)
+                                : nuts_tile<10, kEightSchoolsCentered, false>(max_depth, n, out);
+      break;
+    case kEightSchoolsNoncentered:
+      if (ndims == 10)
+        return m ? nuts_tile<10, kEightSchoolsNoncentered, true>(max_depth, n, out)
+                 : nuts_tile<10, kEightSchoolsNoncentered, false>(max_depth, n, out);
       break;
     default: break;
   }

@@ -60,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "phase_clock.cuh"
 #include "philox.cuh"
 
 namespace mjhmc {
@@ -98,6 +99,10 @@ struct Args {
   float eps, beta;
   const float* mass;  // (2, d): M^-1 and sqrt(M), or nullptr (identity)
   int two_stage;
+  // NUTS at D > nuts::kOnChipDims: the chains' tree rows, (nuts::rows(m), d, n)
+  float* scratch;
+  // NUTS PROF instances: per chain, the cycles of each phase and the counters
+  unsigned long long* prof;
 };
 
 // BCSS minimal-error two-stage coefficient (ops/leapfrog.py TWO_STAGE_B) and
@@ -652,32 +657,76 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
 // through; the emission and the accumulators take the post-transition x
 // with weight 1, and evals counts the integrated leaves exactly.
 //
-// Design: one thread per chain, every tree array in registers (the U-turn
-// stack rows are indexed by unrolled constants); at D=50 they spill. On
-// the TPU a chain waits until every chain of its lane block is done; here
-// a thread leaves its own loops when its chain is done, which changes no
-// chain's law, but the warp runs until its deepest tree is finished (warp
-// divergence is the GPU's form of the lane-block stall).
+// Design: one thread per chain, and one loop whose body is one leaf. Each
+// lane carries its own position (iteration t, round jj, leaf i) and a state;
+// at the bottom of the body, predicated tails close its round (merge,
+// endpoints, the tree's U-turn test), open its next round, close its
+// iteration (evals, Kahan sums, emission) and open the next. The warp runs
+// leaves in a tight loop until none of its lanes is inside a round, then
+// opens each lane's next round, or all their next iterations together (warp
+// votes), as a loop of rounds inside a loop of iterations ran them. (Lanes
+// that ran on into their next round at once would keep more of the warp's
+// leaf slots live, but they pay for each other's tails and stack rows, which
+// warp divergence serialises; PERF.md §6 has the measurement.) Blocks are
+// sized to the chain count (threads_for), so that few chains spread over
+// every SM, where the tree rows live on chip.
+// Only the integration frame (x, v, g of the current leaf) and, up to
+// kOnChipDims, the subtree's proposal live in registers; the chain's sample,
+// the endpoints, v0, the Kahan pairs and the 2(max_depth − 1) U-turn stack
+// rows are the tree rows (Row), in shared memory laid out [row][dim][thread]
+// (a warp's lanes read consecutive words) where D ≤ kOnChipDims, else in a
+// (rows, D, n) scratch buffer in device memory that the wrapper allocates
+// (coalesced across chains, L2-resident at the presets' widths). Where the
+// rows are on chip, a leaf's multinomial update runs beside the next leaf's
+// leapfrog step. Blocks of at most one warp ask for one block an SM
+// (__launch_bounds__), so ptxas may give a thread all 255 registers (at its
+// own choice of 128 the funnel's instance with a mass spilled; PERF.md §6).
+//
+// What bounds it: latency, not the card's rates. A leaf is a chain of
+// dependent steps (kick, drift, gradient, energy, the multinomial update,
+// the U-turn projections), and a warp runs, round by round, as many leaf
+// steps as its longest lane (PERF.md §6 lists the per-phase breakdown).
 //
 // Random numbers: Philox4x32-10 keyed (seed, 0), with counters tagged 1
 // (momentum), 2 (round: direction, merge) and 3 (leaf, by tree position),
-// as philox.cuh lays out. The arithmetic takes the Rn policy and sums over
-// dims one after another, as the plain PyTorch version does, so that every
-// rounding is the plain version's and the tree decisions agree with it.
+// as philox.cuh lays out. A lane meets its leaves in tree order, so tree
+// positions run 0, 1, 2, ... through an iteration and a leaf block is drawn
+// at every fourth. The arithmetic takes the Rn policy and sums over dims one
+// after another, as the plain PyTorch version does, so that every rounding
+// is the plain version's and the tree decisions agree with it bit for bit.
 namespace nuts {
 
-constexpr int kMaxDepth = 10;
+constexpr int kMaxDepth = 12;
 constexpr float kDivThreshold = 1000.0f;
+// the tree rows live in shared memory up to this many dims
+constexpr int kOnChipDims = 10;
+// a block is one warp or a part of one
+constexpr int kBlockThreads = 32;
+// SM sub-partitions (warp schedulers) an SM has
+constexpr int kSubPartitions = 4;
+// Threads a block for n chains on a card of sms SMs: the fewest, a power of
+// two up to one warp, that put at most one block on each SM sub-partition,
+// else one warp (ops/cuda_mjhmc.py, nuts_threads, mirrors this)
+__host__ __device__ constexpr int threads_for(int n, int sms) {
+  int t = 1;
+  while (t < kBlockThreads && (n + t - 1) / t > kSubPartitions * sms) t *= 2;
+  return t;
+}
 
-// ((a − b)·c)·M^-1 summed over dims
+// The tree rows of a chain, D floats each: the sample (x, g), the subtree's
+// proposal (xs, gs), the tree's endpoints in the trajectory frame, the
+// iteration's momentum v0, the Kahan pairs of Σx and Σx², then the U-turn
+// stack (x, v of span row mm at kStack + 2(mm − 1))
+enum Row {
+  kX = 0, kG, kXS, kGS, kXM, kVM, kGM, kXP, kVP, kGP, kV0, kWX, kWXC, kWX2, kWX2C, kStack
+};
+__host__ __device__ constexpr int rows(int max_depth) { return kStack + 2 * (max_depth - 1); }
+
+// shared-memory bytes of a block of t threads at max_depth: the tree rows
+// where they live on chip
 template <int D>
-__device__ __forceinline__ float diff_dot(const float (&a)[D], const float (&b)[D],
-                                          const float (&c)[D], const float* mass) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-    s = Rn::add(s, mass_mul<Rn>(Rn::mul(Rn::sub(a[i], b[i]), c[i]), mass, i));
-  return s;
+__host__ __device__ constexpr int smem_bytes(int t, int max_depth) {
+  return D <= kOnChipDims ? rows(max_depth) * D * t * (int)sizeof(float) : 0;
 }
 
 // jnp.logaddexp: max + log1p(exp(−|Δ|)), or a + b where Δ is NaN
@@ -691,89 +740,209 @@ __device__ __forceinline__ float uniform(const Args& a, uint32_t word) {
   return a.fixed_uniform ? 0x1p-25f : philox_uniform(word);
 }
 
-template <int D>
-__device__ __forceinline__ void copy(float (&dst)[D], const float (&src)[D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i) dst[i] = src[i];
+// The PROF instances' phase breakdown (PhaseClock, every thread its own
+// chain's): a leaf's kick-drift and gradient, its energy and ½vᵀM⁻¹v, the
+// multinomial update with the leaf draw, the stack pushes and U-turn
+// projections; a round's opening and closing (direction, frame, merge,
+// endpoints, the tree's U-turn test); an iteration's closing and opening
+// (Kahan sums, emission, momentum draw, h0); the waits while other lanes of
+// the warp run a tail or leaves this lane has not (idle), and the rest; then
+// the chain's leaves and, counted by one lane of the warp at each leaf step,
+// the leaf slots the warp spent on it (its live lanes)
+enum Phase {
+  kPhKickDrift = 0, kPhEnergy, kPhMultinomial, kPhStack, kPhRound, kPhIteration, kPhIdle,
+  kPhOther, kPhLeaves, kPhSlots, kPhases
+};
+template <bool ON>
+using Prof = PhaseClock<ON, kPhases, kPhOther>;
+
+// One leaf step of the warp: its first active lane adds the warp's live
+// lanes to the slots
+template <bool ON>
+__device__ __forceinline__ void count_leaf(Prof<ON>& prof, int live) {
+  if constexpr (ON) {
+    prof.count(kPhLeaves);
+    if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) prof.add(kPhSlots, live);
+  }
 }
 
-// MASS=false compiles no inverse mass (the fast path); MASS=true reads it
-template <int D, int E, bool EMIT, bool MASS>
-__global__ void __launch_bounds__(kThreads) nuts_kernel(Args a) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+extern __shared__ float nuts_tree_smem[];
+
+// MASS=false compiles no inverse mass (the fast path); MASS=true reads it;
+// PROF stamps the phases into a.prof (nothing on the main path runs it).
+// Blocks of blockDim.x ≤ kBlockThreads threads, with smem_bytes<D> of
+// dynamic shared memory.
+template <int D, int E, bool EMIT, bool MASS, bool PROF = false>
+__global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
+  constexpr bool kOnChip = D <= kOnChipDims;
+  const int T = blockDim.x;
+  const int c = blockIdx.x * T + threadIdx.x;
   if (c >= a.n) return;
   const size_t n = a.n;
   const int max_depth = a.m;
   const float* mass = MASS ? a.mass : nullptr;
+  Prof<PROF> prof;
+  prof.start();
+  const int live = min(T, a.n - (int)blockIdx.x * T);  // the warp's live lanes
+
+  // dim i of tree row r of this chain
+  float* const tree = kOnChip ? nuts_tree_smem + threadIdx.x : a.scratch + c;
+  auto row = [&](int r, int i) -> float& {
+    if constexpr (kOnChip)
+      return tree[(r * D + i) * T];
+    else
+      return tree[((size_t)r * D + i) * n];
+  };
+  // ((row a − row b)·w)·M^-1 summed over dims, w a row or the frame
+  auto proj_rows = [&](int ra, int rb, int rw) {
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      s = Rn::add(s, mass_mul<Rn>(Rn::mul(Rn::sub(row(ra, d), row(rb, d)), row(rw, d)), mass, d));
+    return s;
+  };
 
   const Params<E, D> P(a);
-  float x[D], v0[D], g[D];
+  float xc[D], vc[D], gc[D];  // the integration frame: the current leaf
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    x[i] = a.x[i * n + c];
-    v0[i] = a.v[i * n + c];
-    g[i] = a.g[i * n + c];
+    row(kX, i) = a.x[i * n + c];
+    row(kG, i) = a.g[i * n + c];
+    row(kV0, i) = a.v[i * n + c];
+    row(kWX, i) = row(kWXC, i) = row(kWX2, i) = row(kWX2C, i) = 0.f;
   }
   float u = a.u[c];
-
   float w = 0.f, wc = 0.f;
-  float wx[D], wxc[D], wx2[D], wx2c[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) wx[i] = wxc[i] = wx2[i] = wx2c[i] = 0.f;
   int evals = 0;
 
   const float eps = a.eps, he = 0.5f * a.eps;
   const uint2 key = make_uint2(a.seed, 0u);
 
-  for (int t = 0; t < a.num_iters; ++t) {
-    // fresh momentum: dim i from words i and D+i of the momentum slots
-    {
-      constexpr int kBlocks = (2 * D + 3) / 4;
-      float un[2 * D];
+  // the lane's position: leaf i of round jj of iteration t, nl leaves so far
+  int t = 0, jj = 0, i = 0, nl = 0;
+  float h0 = 0.f, log_w_tree = 0.f, log_w_sub = kNegInf, us = 0.f, lu_merge = 0.f;
+  bool right = false;
+  uint4 bits = make_uint4(0u, 0u, 0u, 0u);  // the current leaf slot's words
+  // Where the rows are on chip, the subtree's proposal (x, g) lives in
+  // registers, and a leaf's multinomial update waits for the next leaf's
+  // leapfrog step and energy, which do not need it, so that the two
+  // dependent chains overlap (a round's end settles it first). The pending
+  // leaf: ΔH, divergence, energy, the log of its draw, and its x and g
+  float xs[kOnChip ? D : 1], gs[kOnChip ? D : 1];
+  bool pend = false, p_div = false;
+  float p_dh = 0.f, p_ul = 0.f, p_lu = 0.f;
+  float px[kOnChip ? D : 1], pg[kOnChip ? D : 1];
+  auto prop_x = [&](int d) -> float& {
+    if constexpr (kOnChip) return xs[d]; else return row(kXS, d);
+  };
+  auto prop_g = [&](int d) -> float& {
+    if constexpr (kOnChip) return gs[d]; else return row(kGS, d);
+  };
+
+  // progressive multinomial sampling inside the subtree: the leaf of ΔH dh
+  // (diverged: div), energy ul and draw log lu, at x, g, joins the
+  // subtree's weight and replaces its proposal with probability its share
+  auto settle = [&](bool live_leaf, float dh, bool div, float ul, float lu, auto x, auto g) {
+    const float lw_leaf = div ? kNegInf : -dh;
+    const float lw_new = logaddexp(log_w_sub, lw_leaf);
+    const bool take = live_leaf && !div && lu < Rn::sub(lw_leaf, lw_new);
+    if constexpr (kOnChip) {
 #pragma unroll
-      for (int b = 0; b < kBlocks; ++b) {
-        const uint4 r = philox4x32_10(make_uint4(c, t, b, kTagNutsMomentum), key);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (4 * b + j < 2 * D) un[4 * b + j] = uniform(a, word_of(r, j));
+      for (int d = 0; d < D; ++d) {
+        xs[d] = take ? x(d) : xs[d];
+        gs[d] = take ? g(d) : gs[d];
       }
+    } else if (take) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) {
-        v0[i] = Rn::mul(sqrtf(Rn::mul(-2.0f, logf(un[i]))), cosf(Rn::mul(kTwoPi, un[D + i])));
-        if (MASS) v0[i] = Rn::mul(v0[i], sqrt_mass<D>(mass, i));
+      for (int d = 0; d < D; ++d) {
+        row(kXS, d) = x(d);
+        row(kGS, d) = g(d);
       }
     }
-    const float h0 = Rn::add(u, halfsq<D, Rn>(v0, mass));
+    us = take ? ul : us;
+    log_w_sub = live_leaf ? lw_new : log_w_sub;
+  };
+  auto settle_pending = [&] {
+    if constexpr (kOnChip) {
+      settle(pend, p_dh, p_div, p_ul, p_lu, [&](int d) { return px[d]; },
+             [&](int d) { return pg[d]; });
+      pend = false;
+    }
+  };
 
-    // tree endpoints (trajectory frame) and the proposal
-    float xm[D], vm[D], gm[D], xp[D], vp[D], gp[D];
-    copy<D>(xm, x), copy<D>(vm, v0), copy<D>(gm, g);
-    copy<D>(xp, x), copy<D>(vp, v0), copy<D>(gp, g);
-    float log_w_tree = 0.f;
-    int nl = 0;
-    bool done = false;
-
-    for (int jj = 0; jj < max_depth && !done; ++jj) {
-      const uint4 rr = philox4x32_10(make_uint4(c, t, jj, kTagNutsRound), key);
-      const bool right = uniform(a, rr.x) < 0.5f;
-      // integration frame: outward from the chosen endpoint
-      float xc[D], vc[D], gc[D];
+  // round jj: its block's word 0 picks the direction (< 0.5 goes right),
+  // word 1 the merge; the frame outward from the chosen endpoint and an
+  // empty subtree
+  auto open_round = [&] {
+    const uint4 rr = philox4x32_10(make_uint4(c, t, jj, kTagNutsRound), key);
+    right = uniform(a, rr.x) < 0.5f;
+    lu_merge = logf(uniform(a, rr.y));
+    const int rx = right ? kXP : kXM, rv = right ? kVP : kVM, rg = right ? kGP : kGM;
 #pragma unroll
-      for (int i = 0; i < D; ++i) {
-        xc[i] = right ? xp[i] : xm[i];
-        vc[i] = right ? vp[i] : -vm[i];
-        gc[i] = right ? gp[i] : gm[i];
+    for (int d = 0; d < D; ++d) {
+      xc[d] = row(rx, d);
+      vc[d] = right ? row(rv, d) : -row(rv, d);
+      gc[d] = row(rg, d);
+      prop_x(d) = xc[d];
+      prop_g(d) = gc[d];
+    }
+    log_w_sub = kNegInf;
+    us = 0.f;
+    i = 0;
+    pend = false;
+  };
+  // a fresh momentum (dim i from words i and D+i of the momentum slots),
+  // h0, a tree of one point and its first round
+  auto open_iteration = [&] {
+    constexpr int kBlocks = (2 * D + 3) / 4;
+#pragma unroll
+    for (int b = 0; b < kBlocks; ++b) {
+      const uint4 r = philox4x32_10(make_uint4(c, t, b, kTagNutsMomentum), key);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * b + j;
+        const float un = uniform(a, word_of(r, j));
+        if (k < D) row(kV0, k) = sqrtf(Rn::mul(-2.0f, logf(un)));
+        else if (k < 2 * D) row(kV0, k - D) = Rn::mul(row(kV0, k - D), cosf(Rn::mul(kTwoPi, un)));
       }
-      float sx[kMaxDepth - 1][D], sv[kMaxDepth - 1][D];
-      float xs[D], gs[D];
-      copy<D>(xs, xc), copy<D>(gs, gc);
-      float log_w_sub = kNegInf, us = 0.f;
-      bool stop = false;
-      const int leaves = 1 << jj;
-      const uint32_t k0 = leaves - 1;  // tree position of the round's first leaf
-      uint4 bits;
-      for (int i = 0; i < leaves && !stop; ++i) {
-        if constexpr (kSeparable<E>) {  // the leaf's leapfrog step, dim by dim
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      float v0 = row(kV0, d);
+      if (MASS) row(kV0, d) = v0 = Rn::mul(v0, sqrt_mass<D>(mass, d));
+      s = Rn::add(s, mass_mul<Rn>(Rn::mul(v0, v0), mass, d));
+      row(kXM, d) = row(kXP, d) = row(kX, d);
+      row(kVM, d) = row(kVP, d) = v0;
+      row(kGM, d) = row(kGP, d) = row(kG, d);
+    }
+    h0 = Rn::add(u, Rn::mul(0.5f, s));
+    log_w_tree = 0.f;
+    nl = 0;
+    jj = 0;
+    open_round();
+  };
+
+  // The lane's state: running leaves, at the end of a round or of its tree
+  // (each with its tail to run), or through all iterations. The next round
+  // opens only once no lane of the warp is inside one, and the next
+  // iteration once every lane's tree is done, so a warp's lanes run the same
+  // leaf of the same round
+  enum { kRun = 0, kRoundEnd, kTreeDone, kFinished };
+  const unsigned lanes = live == 32 ? 0xffffffffu : (1u << live) - 1u;
+  int state = kFinished;
+  if (a.num_iters > 0) {
+    open_iteration();
+    state = kRun;
+  }
+  prof.mark(kPhOther);
+
+  while (__any_sync(lanes, state != kFinished)) {
+    // leaves, until no lane of the warp is inside a round
+    do {
+      if (state == kRun) {
+        // ---- leaf i of round jj: one leapfrog step
+        if constexpr (kSeparable<E>) {  // dim by dim
 #pragma unroll
           for (int d = 0; d < D; ++d) {
             const float vh = Rn::sub(vc[d], Rn::mul(he, gc[d]));
@@ -792,95 +961,147 @@ __global__ void __launch_bounds__(kThreads) nuts_kernel(Args a) {
 #pragma unroll
           for (int d = 0; d < D; ++d) vc[d] = Rn::sub(vh[d], Rn::mul(he, gc[d]));
         }
+        prof.mark(kPhKickDrift);
+        count_leaf<PROF>(prof, live);
         const float ul = u_sum<E, D, Rn>(xc, P, a);
         ++nl;
         const float h = Rn::add(ul, halfsq<D, Rn>(vc, mass));
         const float dh = Rn::sub(h, h0);
         const bool div = fabsf(h) >= 1e30f || h != h || dh > kDivThreshold;
+        prof.mark(kPhEnergy);
 
-        // progressive multinomial sampling inside the subtree
-        const float lw_leaf = div ? kNegInf : -dh;
-        const float lw_new = logaddexp(log_w_sub, lw_leaf);
-        const uint32_t k = k0 + i;
-        if (i == 0 || (k & 3u) == 0)
-          bits = philox4x32_10(make_uint4(c, t, k >> 2, kTagNutsLeaf), key);
+        // the previous leaf's multinomial update (pipelined), this leaf's
+        // draw (tree position k takes word k % 4 of leaf slot k / 4; the
+        // positions run on through the rounds of an iteration, so a slot is
+        // drawn at every fourth) and, unpipelined, its own update
+        settle_pending();
+        const uint32_t k = (1u << jj) - 1u + i;
+        if ((k & 3u) == 0u) bits = philox4x32_10(make_uint4(c, t, k >> 2, kTagNutsLeaf), key);
         const float lu = logf(uniform(a, word_of(bits, k)));
-        if (!div && lu < Rn::sub(lw_leaf, lw_new)) {
-          copy<D>(xs, xc), copy<D>(gs, gc);
-          us = ul;
+        if constexpr (kOnChip) {
+          pend = true;
+          p_dh = dh, p_div = div, p_ul = ul, p_lu = lu;
+#pragma unroll
+          for (int d = 0; d < D; ++d) px[d] = xc[d], pg[d] = gc[d];
+        } else {
+          settle(true, dh, div, ul, lu, [&](int d) { return xc[d]; }, [&](int d) { return gc[d]; });
         }
-        log_w_sub = lw_new;
+        prof.mark(kPhMultinomial);
 
-        // binary-counter U-turn stack; rows above the round's depth never
-        // complete a span inside it, so they are skipped
+        // binary-counter U-turn stack: leaf i starts the spans of rows 1..jj
+        // that 2^mm divides it by (all of them at i = 0) and ends those that
+        // 2^mm divides i + 1 by; no span starts and ends at one leaf
+        const int npush = min(jj, i == 0 ? jj : __ffs(i) - 1);
+        for (int mm = 1; mm <= npush; ++mm) {
+          const int sx = kStack + 2 * (mm - 1);
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            row(sx, d) = xc[d];
+            row(sx + 1, d) = vc[d];
+          }
+        }
         bool turning = false;
+        const int ncheck = min(jj, __ffs(i + 1) - 1);
+        for (int mm = 1; mm <= ncheck; ++mm) {
+          const int sx = kStack + 2 * (mm - 1);
+          float p_old = 0.f, p_new = 0.f;
 #pragma unroll
-        for (int mm = 1; mm < kMaxDepth; ++mm) {
-          if (mm > jj) break;
-          const int mask = (1 << mm) - 1;
-          if ((i & mask) == 0) copy<D>(sx[mm - 1], xc), copy<D>(sv[mm - 1], vc);
-          if (((i + 1) & mask) == 0)
-            turning = turning || diff_dot<D>(xc, sx[mm - 1], sv[mm - 1], mass) < 0.f ||
-                      diff_dot<D>(xc, sx[mm - 1], vc, mass) < 0.f;
+          for (int d = 0; d < D; ++d) {
+            const float dx = Rn::sub(xc[d], row(sx, d));
+            p_old = Rn::add(p_old, mass_mul<Rn>(Rn::mul(dx, row(sx + 1, d)), mass, d));
+            p_new = Rn::add(p_new, mass_mul<Rn>(Rn::mul(dx, vc[d]), mass, d));
+          }
+          turning = turning || p_old < 0.f || p_new < 0.f;
         }
-        stop = div || turning;
-      }
+        const bool stop = div || turning;
+        ++i;
+        prof.mark(kPhStack);
 
-      if (stop) {
-        done = true;
-        break;
-      }
-      // biased progressive merge of the completed subtree
-      if (logf(uniform(a, rr.y)) < Rn::sub(log_w_sub, log_w_tree)) {
-        copy<D>(x, xs), copy<D>(g, gs);
-        u = us;
-      }
-      log_w_tree = logaddexp(log_w_tree, log_w_sub);
-      // extend the tree (back to the trajectory frame), then the U-turn
-      // test between its endpoints
-      if (right) {
-        copy<D>(xp, xc), copy<D>(vp, vc), copy<D>(gp, gc);
-      } else {
+        // ---- the round ends: at a stop, or after its 2^jj leaves
+        if (stop || i == (1 << jj)) {
+          bool done = stop;
+          if (!stop) {
+            settle_pending();
+            // biased progressive merge of the completed subtree
+            if (lu_merge < Rn::sub(log_w_sub, log_w_tree)) {
 #pragma unroll
-        for (int i = 0; i < D; ++i) {
-          xm[i] = xc[i];
-          vm[i] = -vc[i];
-          gm[i] = gc[i];
+              for (int d = 0; d < D; ++d) {
+                row(kX, d) = prop_x(d);
+                row(kG, d) = prop_g(d);
+              }
+              u = us;
+            }
+            log_w_tree = logaddexp(log_w_tree, log_w_sub);
+            // extend the tree (back to the trajectory frame), then the U-turn
+            // test between its endpoints
+            const int rx = right ? kXP : kXM, rv = right ? kVP : kVM, rg = right ? kGP : kGM;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+              row(rx, d) = xc[d];
+              row(rv, d) = right ? vc[d] : -vc[d];
+              row(rg, d) = gc[d];
+            }
+            done = proj_rows(kXP, kXM, kVM) < 0.f || proj_rows(kXP, kXM, kVP) < 0.f;
+          }
+          ++jj;
+          state = done || jj == max_depth ? kTreeDone : kRoundEnd;
+          prof.mark(kPhRound);
         }
       }
-      done = diff_dot<D>(xp, xm, vm, mass) < 0.f || diff_dot<D>(xp, xm, vp, mass) < 0.f;
-    }
+      prof.mark(kPhIdle);  // lanes that ran no leaf or ended no round wait here
+    } while (__any_sync(lanes, state == kRun));
 
-    // the post-transition x, weight 1
-    evals += nl;
-    kadd(w, wc, 1.f);
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      kadd(wx[i], wxc[i], x[i]);
-      kadd(wx2[i], wx2c[i], Rn::mul(x[i], x[i]));
+    // ---- the next round opens
+    if (state == kRoundEnd) {
+      open_round();
+      state = kRun;
+      prof.mark(kPhRound);
     }
-    if (EMIT && (t + 1) % a.thin == 0) {
-      const size_t e = t / a.thin;
+    prof.mark(kPhIdle);
+    // ---- the iteration ends: the post-transition x, weight 1; the next opens
+    if (__all_sync(lanes, state == kTreeDone || state == kFinished)) {
+      if (state == kTreeDone) {
+        evals += nl;
+        kadd(w, wc, 1.f);
 #pragma unroll
-      for (int i = 0; i < D; ++i) a.xs[(e * D + i) * n + c] = x[i];
-      a.ws[e * n + c] = 1.f;
-      a.es[e * n + c] = evals;
+        for (int d = 0; d < D; ++d) {
+          const float x = row(kX, d);
+          kadd(row(kWX, d), row(kWXC, d), x);
+          kadd(row(kWX2, d), row(kWX2C, d), Rn::mul(x, x));
+        }
+        if (EMIT && (t + 1) % a.thin == 0) {
+          const size_t e = t / a.thin;
+#pragma unroll
+          for (int d = 0; d < D; ++d) a.xs[(e * D + d) * n + c] = row(kX, d);
+          a.ws[e * n + c] = 1.f;
+          a.es[e * n + c] = evals;
+        }
+        state = kFinished;
+        if (++t < a.num_iters) {
+          open_iteration();
+          state = kRun;
+        }
+        prof.mark(kPhIteration);
+      }
     }
+    prof.mark(kPhIdle);
   }
 
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    a.xo[i * n + c] = x[i];
-    a.vo[i * n + c] = v0[i];
-    a.go[i * n + c] = g[i];
-    a.wx[i * n + c] = wx[i];
-    a.wx2[i * n + c] = wx2[i];
+  for (int d = 0; d < D; ++d) {
+    a.xo[d * n + c] = row(kX, d);
+    a.vo[d * n + c] = row(kV0, d);
+    a.go[d * n + c] = row(kG, d);
+    a.wx[d * n + c] = row(kWX, d);
+    a.wx2[d * n + c] = row(kWX2, d);
   }
   a.uo[c] = u;
   a.hbo[c] = a.h_back[c];
   a.valido[c] = a.valid[c];
   a.w[c] = w;
   a.evals[c] = evals;
+  prof.mark(kPhOther);
+  prof.store(a.prof + (size_t)c * kPhases);
 }
 
 }  // namespace nuts
@@ -1112,12 +1333,43 @@ template <int V, int D, int E, bool BR>
 void (*kernel_of(bool emit))(Args) {
   if constexpr (V == kMjhmc)
     return emit ? mjhmc_kernel<D, E, true, BR> : mjhmc_kernel<D, E, false, BR>;
-  else if constexpr (V == kNuts)
-    return emit ? nuts::nuts_kernel<D, E, true, BR> : nuts::nuts_kernel<D, E, false, BR>;
   // control and MALT test emission at run time (a.xs != nullptr): one
   // instance per (D, energy) serves the run and the stream
   else if constexpr (V == kControl) return hmc::control_kernel<D, E>;
   else return hmc::malt_kernel<D, E>;
+}
+
+// the SMs of the current device
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+// threads a block of the NUTS kernel at D dims for n chains on this card:
+// sized to the chains where the tree rows live on chip, one warp where they
+// live in the device scratch (at D 50, blocks of 8 ran 1.3-1.5x slower
+// than warps; PERF.md §6)
+template <int D>
+int nuts_threads(int n) {
+  return D > nuts::kOnChipDims ? nuts::kBlockThreads : nuts::threads_for(n, sm_count());
+}
+
+// The NUTS instance (D, E, EMIT, BR, PROF) in blocks of nuts_threads<D>, with
+// the tree rows' shared memory (or the scratch, which D > nuts::kOnChipDims
+// needs)
+template <int D, int E, bool EMIT, bool BR, bool PROF = false>
+cudaError_t launch_nuts(const Args& a, cudaStream_t s) {
+  if (D > nuts::kOnChipDims && !a.scratch) return cudaErrorInvalidValue;
+  const int threads = nuts_threads<D>(a.n);
+  void (*kernel)(Args) = nuts::nuts_kernel<D, E, EMIT, BR, PROF>;
+  const int bytes = nuts::smem_bytes<D>(threads, a.m);
+  // above 48 KB a block's shared memory must be asked for
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(a.n + threads - 1) / threads, threads, bytes, s>>>(a);
+  return cudaGetLastError();
 }
 
 // Launch the instance of step body V at D dims on energy E. BR (the
@@ -1126,8 +1378,36 @@ void (*kernel_of(bool emit))(Args) {
 // the BR=true instance only.
 template <int V, int D, int E, bool BR>
 cudaError_t launch_instance(const Args& a, bool emit, cudaStream_t s) {
-  kernel_of<V, D, E, BR>(emit)<<<(a.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(a);
-  return cudaGetLastError();
+  if constexpr (V == kNuts) {
+    return emit ? launch_nuts<D, E, true, BR>(a, s) : launch_nuts<D, E, false, BR>(a, s);
+  } else {
+    kernel_of<V, D, E, BR>(emit)<<<(a.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+}
+
+// The NUTS run of D dims on energy E without a mass (BR=false) or with one,
+// for n chains at max_depth: out[0] threads a block, out[1] shared-memory
+// bytes a block, out[2] the blocks an SM holds at once (the card's
+// occupancy query, which counts registers too); compiled beside
+// launch_instance<kNuts, D, E, BR>
+template <int D, int E, bool BR>
+cudaError_t nuts_tile(int max_depth, int n, int* out) {
+  out[0] = nuts_threads<D>(n);
+  out[1] = nuts::smem_bytes<D>(out[0], max_depth);
+  void (*kernel)(Args) = nuts::nuts_kernel<D, E, false, BR>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[1]);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, out[0], out[1]);
+}
+
+// The PROF instance of the NUTS run of D dims on energy E without a mass:
+// the phase breakdown of every chain into a.prof; nothing on the main path
+// runs it
+template <int D, int E>
+cudaError_t launch_nuts_prof(const Args& a, cudaStream_t s) {
+  return launch_nuts<D, E, false, false, true>(a, s);
 }
 
 // The D=50 and zoo instances, each compiled in the source named beside it
@@ -1141,11 +1421,16 @@ extern template Launch launch_instance<kMjhmc, 50, kRoughWell, true>;
 extern template Launch launch_instance<kMjhmc, 50, kGaussian, true>;
 // nuts_engine_d50_rough_well.cu
 extern template Launch launch_instance<kNuts, 50, kRoughWell, false>;
+extern template cudaError_t nuts_tile<50, kRoughWell, false>(int, int, int*);
 // nuts_engine_d50_rough_well_mass.cu
 extern template Launch launch_instance<kNuts, 50, kRoughWell, true>;
+extern template cudaError_t nuts_tile<50, kRoughWell, true>(int, int, int*);
 // nuts_engine_d50_gaussian.cu
 extern template Launch launch_instance<kNuts, 50, kGaussian, false>;
+extern template cudaError_t nuts_tile<50, kGaussian, false>(int, int, int*);
+// nuts_engine_d50_gaussian_mass.cu
 extern template Launch launch_instance<kNuts, 50, kGaussian, true>;
+extern template cudaError_t nuts_tile<50, kGaussian, true>(int, int, int*);
 // hmc_engine_d50.cu
 extern template Launch launch_instance<kControl, 50, kRoughWell, true>;
 extern template Launch launch_instance<kControl, 50, kGaussian, true>;
@@ -1158,18 +1443,24 @@ extern template Launch launch_instance<kControl, 10, kFunnel, true>;
 extern template Launch launch_instance<kMalt, 10, kFunnel, true>;
 // zoo_nuts_funnel.cu
 extern template Launch launch_instance<kNuts, 10, kFunnel, false>;
+extern template cudaError_t nuts_tile<10, kFunnel, false>(int, int, int*);
 extern template Launch launch_instance<kNuts, 10, kFunnel, true>;
+extern template cudaError_t nuts_tile<10, kFunnel, true>(int, int, int*);
 // zoo_engine_banana_mog.cu (the banana and mog presets' D)
 extern template Launch launch_instance<kMjhmc, 2, kBanana, false>;
 extern template Launch launch_instance<kMjhmc, 2, kBanana, true>;
 extern template Launch launch_instance<kNuts, 2, kBanana, false>;
+extern template cudaError_t nuts_tile<2, kBanana, false>(int, int, int*);
 extern template Launch launch_instance<kNuts, 2, kBanana, true>;
+extern template cudaError_t nuts_tile<2, kBanana, true>(int, int, int*);
 extern template Launch launch_instance<kControl, 2, kBanana, true>;
 extern template Launch launch_instance<kMalt, 2, kBanana, true>;
 extern template Launch launch_instance<kMjhmc, 1, kMog, false>;
 extern template Launch launch_instance<kMjhmc, 1, kMog, true>;
 extern template Launch launch_instance<kNuts, 1, kMog, false>;
+extern template cudaError_t nuts_tile<1, kMog, false>(int, int, int*);
 extern template Launch launch_instance<kNuts, 1, kMog, true>;
+extern template cudaError_t nuts_tile<1, kMog, true>(int, int, int*);
 extern template Launch launch_instance<kControl, 1, kMog, true>;
 extern template Launch launch_instance<kMalt, 1, kMog, true>;
 // zoo_engine_eight_schools.cu (the eight_schools preset's D)
@@ -1183,9 +1474,16 @@ extern template Launch launch_instance<kControl, 10, kEightSchoolsNoncentered, t
 extern template Launch launch_instance<kMalt, 10, kEightSchoolsNoncentered, true>;
 // zoo_nuts_eight_schools.cu
 extern template Launch launch_instance<kNuts, 10, kEightSchoolsCentered, false>;
+extern template cudaError_t nuts_tile<10, kEightSchoolsCentered, false>(int, int, int*);
 extern template Launch launch_instance<kNuts, 10, kEightSchoolsCentered, true>;
+extern template cudaError_t nuts_tile<10, kEightSchoolsCentered, true>(int, int, int*);
 // zoo_nuts_eight_schools_noncentered.cu
 extern template Launch launch_instance<kNuts, 10, kEightSchoolsNoncentered, false>;
+extern template cudaError_t nuts_tile<10, kEightSchoolsNoncentered, false>(int, int, int*);
 extern template Launch launch_instance<kNuts, 10, kEightSchoolsNoncentered, true>;
+extern template cudaError_t nuts_tile<10, kEightSchoolsNoncentered, true>(int, int, int*);
+// nuts_engine_prof.cu: the PROF instances (gauss2d and the funnel)
+extern template cudaError_t launch_nuts_prof<2, kGaussian>(const Args&, cudaStream_t);
+extern template cudaError_t launch_nuts_prof<10, kFunnel>(const Args&, cudaStream_t);
 
 }  // namespace mjhmc

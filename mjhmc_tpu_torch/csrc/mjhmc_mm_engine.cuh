@@ -98,6 +98,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "phase_clock.cuh"
 #include "philox.cuh"
 
 namespace mjhmc {
@@ -465,56 +466,6 @@ __device__ __forceinline__ void gradient_tile(const float* A1, const float* A2,
     });
   }
 }
-
-// The clock64() phase breakdown of the PROF instances: stamps by two
-// observers, thread 0 and the first thread of the last warp, each phase's
-// cycles summed (the wait inside each block barrier apart, phase BAR), and
-// counters; written to prof[(block·2 + observer)·NPH + phase]
-template <bool ON, int NPH, int BAR>
-struct PhaseClock {
-  long long last = 0;
-  long long acc[NPH] = {};
-  __device__ __forceinline__ void start() {
-    if constexpr (ON) last = clock64();
-  }
-  __device__ __forceinline__ void mark(int ph) {
-    if constexpr (ON) {
-      const long long now = clock64();
-      acc[ph] += now - last;
-      last = now;
-    }
-  }
-  // A barrier (BAR.SYNC.DEFER_BLOCKING) lets a warp issue on past it and
-  // wait at its next memory operation, so a bare stamp after it would put
-  // the wait into the next phase; the fence takes the wait before the stamp
-  __device__ __forceinline__ void settle() {
-    if constexpr (ON) __threadfence_block();
-  }
-  __device__ __forceinline__ void sync(int ph) {
-    mark(ph);
-    __syncthreads();
-    settle();
-    mark(BAR);
-  }
-  __device__ __forceinline__ bool sync_or(int ph, bool p) {
-    mark(ph);
-    const bool any = __syncthreads_or(p);
-    settle();
-    mark(BAR);
-    return any;
-  }
-  __device__ __forceinline__ void count(int ph) {
-    if constexpr (ON) ++acc[ph];
-  }
-  __device__ __forceinline__ void write(const Args& a, int T) {
-    if constexpr (ON) {
-      const int o = threadIdx.x == 0 ? 0 : threadIdx.x == T - 32 ? 1 : -1;
-      if (o >= 0)
-        for (int ph = 0; ph < NPH; ++ph)
-          a.prof[((size_t)blockIdx.x * 2 + o) * NPH + ph] = acc[ph];
-    }
-  }
-};
 
 // The sum down column c of slot s of red, where each of a block's T threads
 // put one partial at red[s·T + tid] and a column's owners are the threads

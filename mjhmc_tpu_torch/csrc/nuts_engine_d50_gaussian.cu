@@ -1,10 +1,10 @@
-// The D=50 Gaussian instances of the NUTS body (nuts::nuts_kernel in
-// mjhmc_engine.cuh), with and without a mass, compiled by their own nvcc.
+// The D=50 Gaussian instance of the NUTS body without a mass
+// (nuts::nuts_kernel in mjhmc_engine.cuh), compiled by its own nvcc.
 #include "mjhmc_engine.cuh"
 
 namespace mjhmc {
 
 template Launch launch_instance<kNuts, 50, kGaussian, false>;
-template Launch launch_instance<kNuts, 50, kGaussian, true>;
+template cudaError_t nuts_tile<50, kGaussian, false>(int, int, int*);
 
 }  // namespace mjhmc

@@ -5,5 +5,6 @@
 namespace mjhmc {
 
 template Launch launch_instance<kNuts, 50, kRoughWell, true>;
+template cudaError_t nuts_tile<50, kRoughWell, true>(int, int, int*);
 
 }  // namespace mjhmc

@@ -6,6 +6,8 @@
 namespace mjhmc {
 
 template Launch launch_instance<kNuts, 10, kEightSchoolsCentered, false>;
+template cudaError_t nuts_tile<10, kEightSchoolsCentered, false>(int, int, int*);
 template Launch launch_instance<kNuts, 10, kEightSchoolsCentered, true>;
+template cudaError_t nuts_tile<10, kEightSchoolsCentered, true>(int, int, int*);
 
 }  // namespace mjhmc

@@ -6,6 +6,8 @@
 namespace mjhmc {
 
 template Launch launch_instance<kNuts, 10, kEightSchoolsNoncentered, false>;
+template cudaError_t nuts_tile<10, kEightSchoolsNoncentered, false>(int, int, int*);
 template Launch launch_instance<kNuts, 10, kEightSchoolsNoncentered, true>;
+template cudaError_t nuts_tile<10, kEightSchoolsNoncentered, true>(int, int, int*);
 
 }  // namespace mjhmc

@@ -5,6 +5,8 @@
 namespace mjhmc {
 
 template Launch launch_instance<kNuts, 10, kFunnel, false>;
+template cudaError_t nuts_tile<10, kFunnel, false>(int, int, int*);
 template Launch launch_instance<kNuts, 10, kFunnel, true>;
+template cudaError_t nuts_tile<10, kFunnel, true>(int, int, int*);
 
 }  // namespace mjhmc

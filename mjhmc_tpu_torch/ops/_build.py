@@ -46,7 +46,7 @@ _STATE_AND_RUN = (
 #: argument types of ``mjhmc_engine_launch`` (csrc/mjhmc_engine.cu)
 LAUNCH_ARGTYPES = (
     [_I, _I, _I, _P] + [_F] * 5  # variant, ndims, energy, params, k0..k4
-    + [_P, _I]  # mass, two_stage
+    + [_P, _I, _P]  # mass, two_stage, scratch (NUTS)
     + _STATE_AND_RUN
 )
 #: argument types of ``mjhmc_mm_engine_launch`` (csrc/mjhmc_mm_engine.cu)
@@ -56,10 +56,12 @@ MM_LAUNCH_ARGTYPES = (
     + [_P, _I, _P]  # mass, two_stage, scratch (NUTS)
     + _STATE_AND_RUN
 )
-#: argument types of ``mjhmc_mm_nuts_profile`` and ``mjhmc_mm_profile``:
-#: the launch's, then the PROF instance's output buffer; of
-#: ``mjhmc_mm_nuts_tile`` and ``mjhmc_mm_tile``
+#: argument types of ``mjhmc_nuts_profile``, ``mjhmc_mm_nuts_profile`` and
+#: ``mjhmc_mm_profile``: the launch's, then the PROF instance's output
+#: buffer; of ``mjhmc_nuts_tile``, ``mjhmc_mm_nuts_tile`` and ``mjhmc_mm_tile``
+PROFILE_ARGTYPES = LAUNCH_ARGTYPES + [_P]
 MM_PROFILE_ARGTYPES = MM_LAUNCH_ARGTYPES + [_P]
+NUTS_TILE_ARGTYPES = [_I, _I, _I, _I, _I, _P]  # ndims, energy, mass, max_depth, n, out
 MM_NUTS_TILE_ARGTYPES = [_I, _I, _I, _P]  # energy, precision, max_depth, out
 MM_TILE_ARGTYPES = [_I, _I, _I, _I, _P]  # energy, precision, variant, branches, out
 #: argument types of the ceiling probes (csrc/ceilings.cu)
@@ -139,6 +141,8 @@ def load() -> ctypes.CDLL:
     """Build (first use) and load the library; typed launch functions."""
     lib = ctypes.CDLL(str(build()))
     for fn, argtypes in ((lib.mjhmc_engine_launch, LAUNCH_ARGTYPES),
+                         (lib.mjhmc_nuts_profile, PROFILE_ARGTYPES),
+                         (lib.mjhmc_nuts_tile, NUTS_TILE_ARGTYPES),
                          (lib.mjhmc_mm_engine_launch, MM_LAUNCH_ARGTYPES),
                          (lib.mjhmc_mm_nuts_profile, MM_PROFILE_ARGTYPES),
                          (lib.mjhmc_mm_profile, MM_PROFILE_ARGTYPES),

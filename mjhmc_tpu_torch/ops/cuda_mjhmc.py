@@ -84,8 +84,11 @@ NEG_INF = -1e30
 #: the uniform every draw takes in fixed-uniform mode (Pallas interpret mode
 #: returns zero bits, and _uniform turns those into 2⁻²⁵)
 FIXED_UNIFORM = 2.0**-25
-#: deepest tree the NUTS kernel holds a U-turn stack for (csrc/mjhmc_engine.cuh)
-NUTS_MAX_DEPTH = 10
+#: deepest tree each NUTS kernel holds a U-turn stack for: the elementwise
+#: kernel's (csrc/mjhmc_engine.cuh, nuts::kMaxDepth) and the matmul kernel's
+#: (csrc/mjhmc_mm_engine.cuh)
+NUTS_MAX_DEPTH = 12
+NUTS_MM_MAX_DEPTH = 10
 NUTS_DIV_THRESHOLD = 1000.0
 #: Philox counter tags (csrc/philox.cuh)
 TAG_NUTS_MOMENTUM, TAG_NUTS_ROUND, TAG_NUTS_LEAF = 1, 2, 3
@@ -1216,6 +1219,53 @@ def stream_reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
+#: the elementwise NUTS kernel's tree rows (csrc/mjhmc_engine.cuh, nuts::Row)
+#: live in shared memory up to this many dims, else in a scratch buffer in
+#: device memory that the wrapper allocates
+NUTS_ON_CHIP_DIMS = 10
+#: threads a block of the elementwise NUTS kernel at most (one warp), and
+#: the SM sub-partitions (warp schedulers) of an SM
+NUTS_THREADS, SM_SUBPARTITIONS = 32, 4
+
+
+def nuts_tree_rows(max_depth: int) -> int:
+    """Rows of d floats per chain of the elementwise NUTS kernel's tree
+    state: the sample (x, g), the subtree's proposal (x, g), both tree
+    endpoints (x, v, g), the momentum v0, the Kahan pairs of Σx and Σx²,
+    and the U-turn stack (x, v for each of max_depth − 1 spans)."""
+    return 15 + 2 * (max_depth - 1)
+
+
+def nuts_threads(d: int, n: int, sms: int) -> int:
+    """Threads a block of the elementwise NUTS kernel at ``d`` dims for ``n``
+    chains on a card of ``sms`` SMs (mirror of nuts_threads<D>): where the
+    tree rows live on chip the fewest, a power of two up to one warp, that
+    put at most one block on each SM sub-partition (nuts::threads_for); one
+    warp where they live in the device scratch."""
+    if d > NUTS_ON_CHIP_DIMS:
+        return NUTS_THREADS
+    t = 1
+    while t < NUTS_THREADS and -(-n // t) > SM_SUBPARTITIONS * sms:
+        t *= 2
+    return t
+
+
+def nuts_smem_bytes(d: int, threads: int, max_depth: int) -> int:
+    """Shared-memory bytes a block of the elementwise NUTS kernel takes
+    (mirror of nuts::smem_bytes): the tree rows of its threads where they
+    live on chip, none where they live in the scratch."""
+    return nuts_tree_rows(max_depth) * d * threads * 4 if d <= NUTS_ON_CHIP_DIMS else 0
+
+
+def nuts_tree_scratch(d: int, max_depth: int, n: int, device) -> Tensor | None:
+    """The elementwise NUTS kernel's tree rows in device memory, (rows, d,
+    n), where they do not live in shared memory (d > NUTS_ON_CHIP_DIMS);
+    None for the others."""
+    if d <= NUTS_ON_CHIP_DIMS:
+        return None
+    return torch.empty((nuts_tree_rows(max_depth), d, n), dtype=torch.float32, device=device)
+
+
 def nuts_scratch_rows(max_depth: int) -> int:
     """Rows of d floats per chain of the matmul kernel's NUTS tree state:
     both tree endpoints (x, v, g), the subtree's proposal (x, g) and the
@@ -1302,8 +1352,7 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             num_iters, m, thin, num_emits, fixed_uniform, variant, inv_mass,
             integrator, prof=None):
     """Check the state, allocate the outputs and launch the spec's kernel
-    (with ``prof``, the matmul kernel's PROF instance of the body writing
-    into it)."""
+    (with ``prof``, the kernel's PROF instance of the body writing into it)."""
     from mjhmc_tpu_torch.ops import _build
 
     if x.dim() != 2:
@@ -1321,9 +1370,11 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         check_mm_precision(spec, variant, integrator, inv_mass, num_emits is not None)
     else:
         check_kernel_dims(spec, d)
-    if variant == "nuts" and not 1 <= m <= NUTS_MAX_DEPTH:
+    cap = NUTS_MM_MAX_DEPTH if matmul else NUTS_MAX_DEPTH
+    if variant == "nuts" and not 1 <= m <= cap:
         raise NotImplementedError(
-            f"the NUTS kernel holds trees of max_depth 1..{NUTS_MAX_DEPTH}, not {m}")
+            f"the {'matmul' if matmul else 'elementwise'} NUTS kernel holds trees of "
+            f"max_depth 1..{cap}, not {m}")
     if x.device.type != "cuda":
         raise ValueError(
             f"the CUDA engine takes cuda tensors (or cpu ones for its plain "
@@ -1388,13 +1439,56 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         )
     else:
         params = torch.as_tensor(spec.param_vector(d), device=x.device).contiguous()
-        rc = lib.mjhmc_engine_launch(KERNEL_VARIANTS[variant], d, spec.energy_id,
-                                     params.data_ptr(), *spec.constants(), *branches,
-                                     *ptrs, *tail)
+        scratch = nuts_tree_scratch(d, m, n, x.device) if variant == "nuts" else None
+        fn, extra = lib.mjhmc_engine_launch, ()
+        if prof is not None:
+            fn, extra = lib.mjhmc_nuts_profile, (prof.data_ptr(),)
+        rc = fn(KERNEL_VARIANTS[variant], d, spec.energy_id, params.data_ptr(),
+                *spec.constants(), *branches, None if scratch is None else scratch.data_ptr(),
+                *ptrs, *tail, *extra)
     if rc != 0:
         kernel = "mjhmc_mm_engine_launch" if matmul else "mjhmc_engine_launch"
         raise RuntimeError(f"{kernel} (variant {variant}) failed: CUDA error {rc}")
     return out, emits
+
+
+#: the phases of the elementwise NUTS run's PROF instance
+#: (csrc/mjhmc_engine.cuh, nuts::Phase): cycles of each, then the chain's
+#: leaves and the leaf slots its warp spent (counted by one lane a step)
+NUTS_EW_PROF_PHASES = ("kick_drift_gradient", "energy_halfsq", "multinomial_draw",
+                       "stack_uturn", "round", "iteration", "idle", "other", "leaves",
+                       "leaf_slots")
+
+
+def nuts_tile(spec, d: int, max_depth: int, n: int, mass: bool = False) -> tuple:
+    """(threads, shared-memory bytes) of a block of the elementwise NUTS
+    instance of ``spec`` at ``d`` dims, without a mass or with one, for
+    ``n`` chains at ``max_depth``, and the blocks of it an SM holds at once,
+    as the built library reports them (``mjhmc_nuts_tile``; ``nuts_threads``
+    and ``nuts_smem_bytes`` mirror the first two)."""
+    from mjhmc_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 3)()
+    rc = _build.load().mjhmc_nuts_tile(d, spec.energy_id, int(mass), max_depth, n, out)
+    if rc != 0:
+        raise RuntimeError(f"mjhmc_nuts_tile: no NUTS instance of {type(spec).__name__} at "
+                           f"d={d}{' with a mass' if mass else ''} (CUDA error {rc})")
+    return tuple(out)
+
+
+def nuts_profile(spec, x, v, g, u, seed, epsilon, num_iters, max_depth) -> Tensor:
+    """The phase breakdown of the elementwise NUTS run from its PROF
+    instance (CUDA tensors; gauss2d or the funnel, no mass), in the main
+    path's blocks (``nuts_threads``): an int64 (n,
+    len(NUTS_EW_PROF_PHASES)) tensor of each chain's clock64() cycles per
+    phase, its leaves and its warp's leaf slots. A measurement, not a
+    main-path call: the run's outputs are dropped and no launch is counted."""
+    prof = torch.zeros((x.shape[1], len(NUTS_EW_PROF_PHASES)), dtype=torch.int64,
+                       device=x.device)
+    z = torch.zeros_like(u)
+    _launch(spec, x, v, g, u, z, z, seed, epsilon, 0.0, num_iters, max_depth, 1, None,
+            False, "nuts", None, "leapfrog", prof=prof)
+    return prof
 
 
 #: the phases of the matmul NUTS run's PROF instance (csrc/mjhmc_mm_engine.cuh,
@@ -1773,7 +1867,8 @@ class CudaMJHMC:
 class CudaNUTS(CudaMJHMC):
     """Fused NUTS engine (counterpart of ``PallasNUTS``), on either kernel:
     ``num_leapfrog_steps`` is max_depth (default 8, at most
-    ``NUTS_MAX_DEPTH``), ``beta`` is unused. Emissions are post-transition
+    ``NUTS_MAX_DEPTH`` on the elementwise kernel, ``NUTS_MM_MAX_DEPTH`` on the
+    matmul one), ``beta`` is unused. Emissions are post-transition
     positions with weight 1; ``evals`` counts the integrated leaves of each
     chain exactly."""
 

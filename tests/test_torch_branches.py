@@ -244,6 +244,17 @@ def test_build_parts_match_the_sources():
         where = [name for name in _build.KERNEL_SOURCES
                  if f"template Launch launch_instance<{inst}>;" in (_build.CSRC / name).read_text()]
         assert len(where) == 1, (inst, where)
+    # each NUTS instance's tile query beside it, and the two PROF instances
+    tiles = re.findall(r"extern template cudaError_t nuts_tile<([^>]+)>\(int, int, int\*\);", header)
+    assert sorted(tiles) == sorted(i[len("kNuts, "):] for i in declared if i.startswith("kNuts, "))
+    profs = re.findall(r"extern template cudaError_t launch_nuts_prof<([^>]+)>", header)
+    assert sorted(profs) == ["10, kFunnel", "2, kGaussian"]
+    for decl, insts in (("cudaError_t nuts_tile<{}>(int, int, int*);", tiles),
+                        ("cudaError_t launch_nuts_prof<{}>(const Args&, cudaStream_t);", profs)):
+        for inst in insts:
+            where = [name for name in _build.KERNEL_SOURCES
+                     if f"template {decl.format(inst)}" in (_build.CSRC / name).read_text()]
+            assert len(where) == 1, (inst, where)
     # the matmul kernel: every body of each energy at full f32 and at the
     # preset's JAX default precision, and the sweep's four MJHMC runs
     mm = (_build.CSRC / "mjhmc_mm_engine.cuh").read_text()

@@ -177,7 +177,7 @@ def test_nuts_scratch_only_where_the_tree_leaves_shared_memory(name):
     n), for sparse coding only (11 KB a chain at max_depth 8); product of t
     and logreg keep it in shared memory and get none, at every depth."""
     spec = _preset_spec(name)
-    for depth in range(1, cm.NUTS_MAX_DEPTH + 1):
+    for depth in range(1, cm.NUTS_MM_MAX_DEPTH + 1):
         scratch = cm.nuts_scratch(spec, depth, 100, "meta")
         if name == "sparse_coding":
             assert scratch.shape == (cm.nuts_scratch_rows(depth), 128, 100)
