@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -123,6 +124,7 @@ PRECISION_SRC = "MatmulEnergySpec._dot (mjhmc_tpu/ops/pallas_mjhmc.py:282-375)"
 FP32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
 PHILOX_OPS = 100
 NORMAL_OPS = 6 + PHILOX_OPS / 2  # log, sqrt, cos, three products; two words
+PAIR_OPS = 10 + PHILOX_OPS / 2  # both branches: log, sqrt, sin, cos, six products
 
 
 def phase(name: str, msg: str) -> None:
@@ -681,6 +683,16 @@ def energy_ops(cname, d, k):
     return 4 * d * k + 8 * d + k, 3 * d + 2 * k  # sparse coding
 
 
+@functools.lru_cache(maxsize=None)
+def on_matmul_kernel(cname):
+    """Whether a config's energy runs on the matmul kernel (its spec one of
+    ``cuda_mjhmc.MATMUL_SPECS``) rather than the elementwise one."""
+    from mjhmc_tpu_torch.bench_mm_ab import ew_nuts_dist
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    return isinstance(cm.energy_spec_for(ew_nuts_dist(cname)[0]), cm.MATMUL_SPECS)
+
+
 def bound(cname, variant, d, k, n, iters, grads, emits=0, stub=False, passes=0,
           peaks=(FP32_PEAK, BF16_PEAK), mass=False):
     """(bound_ms per iteration, "operations" or "bytes") of a run of
@@ -707,7 +719,11 @@ def bound(cname, variant, d, k, n, iters, grads, emits=0, stub=False, passes=0,
         ops = grads * g + n * iters * per_iter
     elif variant == "malt":
         m = grads / (n * iters)
-        per_iter = m * (u_ops + 10 * d) + kahan + 20 + (2 * m + 1) * d * NORMAL_OPS + PHILOX_OPS
+        # the elementwise kernel draws both Box-Muller branches of a pair, M + 1
+        # pairs a dim; the matmul kernel (2M + 1)·d cosine branches
+        draws = ((2 * m + 1) * d * NORMAL_OPS if on_matmul_kernel(cname)
+                 else (m + 1) * d * PAIR_OPS)
+        per_iter = m * (u_ops + 10 * d) + kahan + 20 + draws + PHILOX_OPS
         ops = grads * g + n * iters * per_iter
     else:  # nuts: every leaf one gradient, its energy and ~40 of tree work
         ops = grads * (g + u_ops + 2 * d + 40) + n * iters * (d * NORMAL_OPS + kahan)
@@ -751,8 +767,13 @@ def slice_cases(cm):
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 
     cfg = {c: BENCHMARK_CONFIGS[c] for c in ("rough_well", "gauss50d", "product_of_t",
-                                              "sparse_coding", "logreg")}
+                                              "sparse_coding", "logreg", "gauss2d")}
     dist = {c: v.make_distribution() for c, v in cfg.items()}
+    # the rough well's D=50 instances (no preset: the rough_well preset's ε, M)
+    from mjhmc_tpu_torch.models import RoughWell
+
+    cfg["rough_well_d50"], dist["rough_well_d50"] = cfg["rough_well"], RoughWell(ndims=50)
+    var_rw50 = tuple(float(v) for v in torch.linspace(0.8, 1.25, 50))
     var50 = tuple(float(v) for v in dist["gauss50d"].analytic_var())
     var_pot = tuple(float(v) for v in dist["product_of_t"].analytic_var())
     sc_mass = tuple(float(v) for v in torch.linspace(0.8, 1.25, 128))
@@ -796,10 +817,23 @@ def slice_cases(cm):
         ("control two_stage inv_mass", "logreg", 2048, 0.2,
          dict(variant="control", integrator="two_stage", inv_mass=lr_mass)),
         ("malt inv_mass", "logreg", 2048, 1.0, dict(variant="malt", inv_mass=lr_mass)),
+        # the elementwise instances no other phase holds against the plain
+        # version: the D=2 Gaussian's and the D=50 rough well's
+        ("mjhmc", "gauss2d", 10_240, 0.1, {}),
+        ("mjhmc inv_mass", "gauss2d", 10_240, 0.1, dict(inv_mass=(1.0, 100.0))),
+        ("malt", "gauss2d", 10_240, 1.0, dict(variant="malt")),
+        ("mjhmc", "rough_well_d50", 4096, 0.1, {}),
+        ("mjhmc inv_mass", "rough_well_d50", 4096, 0.1, dict(inv_mass=var_rw50)),
+        ("malt inv_mass", "rough_well_d50", 4096, 1.0, dict(variant="malt", inv_mass=var_rw50)),
     ):
         # two-stage rough-well trajectories take 2M sin-laden gradients per
-        # half: their single chains are held after 3 iterations, not 5
-        held = 3 if c == "rough_well" and "two_stage" in label else MM_STATE_ITERS.get(c, 5)
+        # half, the D=50 rough well's 50 sin-laden dims: their single chains
+        # are held after 3 iterations, not 5 (at 5 the D=50 MJHMC rows put
+        # ~14 of 4,096 chains' g past rtol 1e-4, as the one-thread-a-chain
+        # kernel did, while one ulp of x moves ~1,800 in the plain version
+        # alone: bench_mm_ab --only hold)
+        chaotic = (c == "rough_well" and "two_stage" in label) or c == "rough_well_d50"
+        held = 3 if chaotic else MM_STATE_ITERS.get(c, 5)
         rows.append((f"{c} {label}", c, dist[c], n, cfg[c].epsilon, beta,
                      cfg[c].num_leapfrog_steps, held, kw))
     return rows
@@ -858,6 +892,10 @@ def slice_kernel_checks(cm):
             # x moves in the plain version alone, if more
             within = chains_within(k, r) & stream_within(xs_k, xs_r)
             outside = int((~within & same).sum())
+            # which fields put those chains outside
+            by_field = {f: int((~chains_within(k, r, (f,)) & same).sum())
+                        for f in ("x", "v", "grad", "u")}
+            by_field["xs"] = int((~stream_within(xs_k, xs_r) & same).sum())
             allowed, ulp = 0.001 * n, ""
             if not fixed:
                 nudged = (torch.nextafter(st[0], torch.full_like(st[0], float("inf"))), *st[1:])
@@ -872,7 +910,8 @@ def slice_kernel_checks(cm):
                 ulp = (f"; a one-ulp nudge of x changes {int((~same_n).sum())} chains' decisions "
                        f"and moves {drift} more past rtol 1e-4 in the plain version alone")
             check(outside <= allowed, f"{label} ({mode}): {outside} chains with equal "
-                  f"decisions outside rtol 1e-4 (states or stream xs), {allowed:g} allowed")
+                  f"decisions outside rtol 1e-4 (states or stream xs; by field "
+                  f"{json.dumps(by_field)}), {allowed:g} allowed")
             ok = within & same
             if mj:  # dwell weights: their sum over those chains
                 assert_close(k.w[ok].sum(), r.w[ok].sum(), 1e-4, 0.0, f"{label} sum of w")
@@ -880,7 +919,8 @@ def slice_kernel_checks(cm):
             what = (f"{label} ({n} chains, eps {eps}, beta {beta}, M {m}, {held} iterations): "
                     f"decisions equal on {share:.5f} ({int((~same).sum())} chains differ); "
                     f"x,v,g,u and stream xs rtol 1e-4 on all but {outside} of the chains "
-                    f"with equal decisions (max|dx| {err:.3g} on the others)")
+                    f"with equal decisions (by field {json.dumps(by_field)}; max|dx| {err:.3g} "
+                    f"on the others)")
             if fixed:
                 errs[label] = err
                 phase("15 slice fixed-uniform", f"{what}; evals and stream es exact")
@@ -2373,6 +2413,29 @@ def ew_nuts_breakdown(cm, card):
               f"[{card}]")
 
 
+def ew_body_breakdown(cm, card):
+    """Phase 36: the elementwise MJHMC and MALT runs' phase breakdowns from
+    their PROF instances (``bench_mm_ab.run_ew_body_profiles``: MJHMC and
+    MALT on the rough well, 10,000 chains, and the funnel, 1,024; MJHMC with
+    a mass on gauss50d, 4,096; every chain's clock64() stamps, by the first
+    lane of its group, from the state two iterations in): each phase's
+    share of the chains' cycles and its cycles a chain-iteration, MJHMC's
+    shares of chain-iterations that began with an invalid cache and of
+    those whose warp held one, the lanes a chain and threads a block, and
+    the PROF run's time beside the plain instance's."""
+    from mjhmc_tpu_torch.bench_mm_ab import ew_nuts_dist, run_ew_body_profiles
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, rec in run_ew_body_profiles().items():
+        _, cname, body, _ = key.split("/")
+        dist = ew_nuts_dist(cname)[0]
+        lanes = cm.ew_lanes(body, cm.energy_spec_for(dist), dist.ndims)
+        check(rec["chain_cycles_mean"] > 0, f"{key}: empty PROF record")
+        phase("36 ew breakdown", f"{key} ({rec['chains']} chains, {lanes} lanes a chain, "
+              f"{cm.ew_threads(lanes, rec['chains'], sms)} threads a block, eps {rec['eps']}, "
+              f"beta {rec['beta']}, {rec['iters']} iterations): {json.dumps(rec)} [{card}]")
+
+
 def mm_breakdown(cm, card):
     """Phase 36: mm_kernel's per-iteration phase breakdown from its PROF
     instances (``bench_mm_ab.run_profiles``: MJHMC and MALT on sparse coding
@@ -2806,6 +2869,28 @@ def main() -> int:
     phase("2 build", f"elementwise NUTS tiles (threads, shared bytes a block; blocks an SM "
           f"holds) on {sms} SMs, library = mirror: "
           f"{json.dumps(tiles)}")
+    # the MJHMC and MALT bodies' grouping at the presets' chains (lanes a
+    # chain, threads a block) as the library reports it, against the mirror
+    tiles = {}
+    ew += [("rough_well 10,000", RoughWell(), 10_000), ("rough_well 102,400", RoughWell(), 102_400)]
+    for cname, dist, n in ew:
+        spec, d = cm.energy_spec_for(dist), dist.ndims
+        for body in ("mjhmc", "malt"):
+            got = cm.ew_tile(body, spec, d, n)
+            lanes = cm.ew_lanes(body, spec, d)
+            want = (lanes, cm.ew_threads(lanes, n, sms))
+            check(got == want, f"{body} grouping of {cname} ({n} chains): the library's {got}, "
+                  f"the mirror's {want}")
+            tiles[f"{body} {cname} {n}"] = got
+    phase("2 build", f"elementwise MJHMC and MALT grouping (lanes a chain, threads a block) on "
+          f"{sms} SMs, library = mirror: {json.dumps(tiles)}")
+    # the rough well's MALT force and energy take one sincosf: its bits
+    # against sinf's and cosf's over the arguments x k1 reaches and past them
+    for lo, hi in ((-4.0, 4.0), (-200.0, 200.0), (-1e5, 1e5)):
+        o = cm.sincos_probe(torch.linspace(lo, hi, 4_000_001, device=DEV))
+        phase("2 build", f"sincosf on 4,000,001 floats in [{lo:g}, {hi:g}]: the sine differs from "
+              f"sinf's on {int((o[0] != o[2]).sum())}, the cosine from cosf's on "
+              f"{int((o[1] != o[3]).sum())}")
     # 12 instances (4 bodies, run and stream, MJHMC and NUTS with and without
     # the branches) per preset at two precisions, the stub, the sweep's 4,
     # the NUTS run's PROF instance per preset at its JAX default and
@@ -3083,6 +3168,7 @@ def main() -> int:
     # ---- 36. the kernels' phase breakdowns ------------------------------------
     nuts_breakdown(cm, card)
     ew_nuts_breakdown(cm, card)
+    ew_body_breakdown(cm, card)
     mm_breakdown(cm, card)
 
     # ---- the kernels' record ----------------------------------------------

@@ -1,7 +1,8 @@
-"""Every matmul-kernel body and the elementwise NUTS kernel at the presets'
-widths, for comparing two checkouts on one card.
+"""Every matmul-kernel body and the elementwise kernel's bodies at the
+presets' widths, for comparing two checkouts on one card.
 
     python -m mjhmc_tpu_torch.bench_mm_ab --tag change1 --out chiprun_out/ab
+    python -m mjhmc_tpu_torch.bench_mm_ab --tag change1 --only ew   # elementwise MJHMC/control/MALT
     python -m mjhmc_tpu_torch.bench_mm_ab --compare chiprun_out/ab/parent1.json ...
 
 Run from a checkout's root, it runs MJHMC, control, MALT and NUTS on the
@@ -20,7 +21,18 @@ and MALT on sparse coding at ``bf16x3``, MALT on logreg at ``default``;
 clock64() stamps, the checkout's ``cuda_mjhmc.mm_profile``; a few seconds)
 and of the elementwise NUTS run's on gauss2d and the funnel
 (``cuda_mjhmc.nuts_profile``, skipped by a checkout that has none), at the
-main path's blocks. ``--compare`` prints, case by case, how many distinct
+main path's blocks. The ``ew/`` MJHMC, control and MALT cases
+(``EW_CASES``: the rough well at 10,000 and 102,400 chains, gauss50d at
+4,096 and the zoo presets at theirs, with the branches; best of three
+timings of ``EW_ITERS`` iterations from the distributions' inits) come
+with the rough-well headline as ``python -m mjhmc_tpu_torch bench``
+measures it, the PROF breakdowns of ``EW_BODY_PROFILES``
+(``cuda_mjhmc.ew_profile``, skipped by a checkout that has none) and each
+elementwise instance's ptxas registers and spill stores. ``--only hold``
+holds the D=50 rough well's MJHMC and MALT against the plain version after
+3 and 5 iterations, field by field, beside what a one-ulp nudge of x does
+to the plain version alone (``run_hold``, under ``"profile"``). ``--only``
+runs one group. ``--compare`` prints, case by case, how many distinct
 outputs the records hold and their times. To compare a parent,
 unpack it with ``git archive`` into a directory that ``.gitignore`` lists
 and run each checkout's copy from its own root in one chip call, in
@@ -149,6 +161,250 @@ def run_ew_nuts_cases() -> dict:
                 run_ms=_ms(lambda: cm.cuda_mjhmc_run(*args, iters, depth, **opts), iters),
                 stream_ms=_ms(lambda: cm.cuda_mjhmc_stream_run(*args, iters, 1, depth, **opts),
                               iters))
+    return res
+
+
+#: the elementwise MJHMC, control and MALT cases: (config, body, chains,
+#: branches) with branches "plain", "mass" (an inverse mass: gauss50d's
+#: variances, else linspace(0.8, 1.25, d)) or "two_stage"; β 0.1 / 0.2 / 1.0
+#: as BODIES, the preset's ε and M, EW_ITERS iterations timed (gauss50d 50)
+_ZOO = ("funnel", "banana", "mog", "eight_schools", "eight_schools_nc")
+EW_CASES = (
+    ("rough_well", "mjhmc", 10_000, "plain"), ("rough_well", "mjhmc", 102_400, "plain"),
+    ("rough_well", "mjhmc", 10_000, "mass"), ("rough_well", "mjhmc", 10_000, "two_stage"),
+    ("rough_well", "malt", 10_000, "plain"), ("rough_well", "control", 10_000, "plain"),
+    ("gauss50d", "mjhmc", 4096, "mass"), ("gauss50d", "mjhmc", 4096, "plain"),
+    ("gauss50d", "malt", 4096, "mass"), ("gauss50d", "control", 4096, "mass"),
+    *((c, body, None, kind) for c in _ZOO
+      for body, kind in (("mjhmc", "plain"), ("mjhmc", "mass"), ("malt", "plain"),
+                         ("control", "plain"))),
+)
+EW_ITERS = 1000
+EW_BETA = {"mjhmc": 0.1, "control": 0.2, "malt": 1.0}
+
+
+def ew_case_args(cname, body, n, kind):
+    """(spec, state, ε, β, M, options, chains, iterations timed) of an
+    EW_CASES case."""
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    dist, cfg = ew_nuts_dist(cname)
+    n = n or cfg.nbatch
+    d = dist.ndims
+    kw = dict(variant=body)
+    if kind == "mass":
+        kw["inv_mass"] = (tuple(float(v) for v in dist.analytic_var()) if cname == "gauss50d"
+                          else tuple(float(m) for m in torch.linspace(0.8, 1.25, d)))
+    elif kind == "two_stage":
+        kw["integrator"] = "two_stage"
+    iters = EW_ITERS // 5 if d == 50 else EW_ITERS
+    return (cm.energy_spec_for(dist), ew_nuts_state(dist, n), cfg.epsilon, EW_BETA[body],
+            cfg.num_leapfrog_steps, kw, n, iters)
+
+
+def run_ew_cases() -> dict:
+    """{ew case: dict(out=sha256 of the outputs, run_ms, stream_ms, iters)}
+    of the elementwise MJHMC, control and MALT kernels (EW_CASES)."""
+    from mjhmc_tpu_torch.bench import bench_cuda
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    res = {}
+    # the headline as `python -m mjhmc_tpu_torch bench` measures it: credited
+    # steps/s after 10,000 warm iterations, and the ms per iteration it implies
+    cfg = BENCHMARK_CONFIGS["rough_well"]
+    for nb in (10_000, 102_400):
+        rate = bench_cuda(cfg, nbatch=nb)
+        ms = nb * cfg.num_leapfrog_steps / rate * 1e3
+        res[f"ew/rough_well/headline/{nb}"] = dict(out="", iters=10_000, rate=rate, run_ms=ms,
+                                                   stream_ms=ms)
+    for cname, body, n, kind in EW_CASES:
+        spec, st, eps, beta, m, kw, n, iters = ew_case_args(cname, body, n, kind)
+        args = (spec, *st, 77, eps, beta)
+        out = cm.cuda_mjhmc_run(*args, 3, m, **kw)
+        xs, ws, es, so = cm.cuda_mjhmc_stream_run(*args, 3, 1, m, **kw)
+        digest = hashlib.sha256()
+        for t in (*out, xs, ws, es, *so):
+            digest.update(t.cpu().numpy().tobytes())
+        res[f"ew/{cname}/{body}/{kind}/{n}"] = dict(
+            out=digest.hexdigest(), iters=iters,
+            run_ms=min(_ms(lambda: cm.cuda_mjhmc_run(*args, iters, m, **kw), iters)
+                       for _ in range(3)),
+            stream_ms=min(_ms(lambda: cm.cuda_mjhmc_stream_run(*args, iters, 1, m, **kw), iters)
+                          for _ in range(3)))
+    return res
+
+
+#: the elementwise MJHMC and MALT PROF instances: (config, body, branches,
+#: chains, iterations)
+EW_BODY_PROFILES = (("rough_well", "mjhmc", "plain", 10_000, 200),
+                    ("rough_well", "malt", "plain", 10_000, 200),
+                    ("funnel", "mjhmc", "plain", None, 200),
+                    ("funnel", "malt", "plain", None, 200),
+                    ("gauss50d", "mjhmc", "mass", 4096, 50))
+
+
+def ew_body_breakdown(prof, names) -> dict:
+    """An elementwise MJHMC or MALT PROF record ((n, phases) cycles of each
+    phase of every chain, then MJHMC's counters) as each phase's share of
+    all chains' cycles and its cycles per chain-iteration, and (MJHMC) the
+    share of chain-iterations that began with an invalid cache and of those
+    whose warp held any; the slowest chain's phases, and the spread of the
+    chains' cycles (largest, 90th percentile, median, mean)."""
+    p = prof.double()
+    ncyc = names.index("other") + 1
+    cyc = p[:, :ncyc]
+    total = float(cyc.sum())
+    rec = dict(chains=p.shape[0],
+               share={nm: round(float(cyc[:, i].sum()) / total, 5)
+                      for i, nm in enumerate(names[:ncyc])},
+               cycles_by_phase={nm: float(cyc[:, i].mean()) for i, nm in enumerate(names[:ncyc])},
+               slowest_chain={nm: float(cyc[int(cyc.sum(dim=1).argmax()), i])
+                              for i, nm in enumerate(names[:ncyc])},
+               chain_cycles_max=float(cyc.sum(dim=1).max()),
+               chain_cycles_p90=float(cyc.sum(dim=1).quantile(0.9)),
+               chain_cycles_p50=float(cyc.sum(dim=1).median()),
+               chain_cycles_mean=float(cyc.sum(dim=1).mean()))
+    rec.update({nm: float(p[:, ncyc + i].sum()) for i, nm in enumerate(names[ncyc:])})
+    return rec
+
+
+def run_ew_body_profiles() -> dict:
+    """{"ew/config/body/branches": ew_body_breakdown(...) per chain-iteration
+    with the PROF run's and the plain instance's ms per iteration} of
+    EW_BODY_PROFILES, from the state two iterations in; {} where the
+    checkout has no ``ew_profile``."""
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    if not hasattr(cm, "ew_profile"):
+        return {}
+    res = {}
+    for cname, body, kind, n, iters in EW_BODY_PROFILES:
+        spec, st, eps, beta, m, kw, n, _ = ew_case_args(cname, body, n, kind)
+        o = cm.cuda_mjhmc_run(spec, *st, 5, eps, beta, 2, m, **kw)
+        st = (o.x, o.v, o.grad, o.u, o.h_back, o.back_valid)
+        mass = kw.get("inv_mass")
+        cm.ew_profile(spec, body, *st, 98, eps, beta, 1, m, mass)  # the instance's first launch
+        got = {}
+        prof_ms = _ms(lambda: got.update(p=cm.ew_profile(spec, body, *st, 99, eps, beta, iters,
+                                                         m, mass)), iters)
+        run_ms = _ms(lambda: cm.cuda_mjhmc_run(spec, *st, 99, eps, beta, iters, m, **kw), iters)
+        rec = ew_body_breakdown(got["p"], cm.EW_PROF_PHASES[body])
+        for part in ("cycles_by_phase", "slowest_chain"):
+            rec[part] = {k: v / iters for k, v in rec[part].items()}
+        for k in cm.EW_PROF_PHASES[body][cm.EW_PROF_PHASES[body].index("other") + 1:]:
+            rec[k] /= n * iters  # a share of the chain-iterations
+        res[f"ew/{cname}/{body}/{kind}"] = dict(rec, prof_ms=prof_ms, run_ms=run_ms,
+                                                iters=iters, eps=eps, beta=beta)
+    return res
+
+
+def ew_ptxas() -> list:
+    """[kernel, registers, spill bytes stored] of every elementwise MJHMC,
+    control, MALT and NUTS instance in the build's ``-Xptxas -v`` report (names
+    demangled by ``c++filt`` where the machine has it)."""
+    import re
+    import shutil
+    import subprocess
+
+    from mjhmc_tpu_torch.ops import _build
+
+    rows, name, spill = [], None, 0
+    for ln in _build.build_log().splitlines():
+        if m := re.search(r"Function properties for (\S+)", ln):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores", ln):
+            spill = int(m.group(1))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            if re.search(r"mjhmc_kernel|malt_kernel|control_kernel|nuts_kernel", name):
+                rows.append([name, int(m.group(1)), spill])
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, nm in zip(rows, names):
+                r[0] = nm
+    return sorted({tuple(r) for r in rows})
+
+
+#: chip_smoke.py phase 15's D=50 rough-well rows (fixed-uniform, 4,096
+#: chains from seed 1, the rough_well preset's ε and M): (body, β, with the
+#: mass M⁻¹ = linspace(0.8, 1.25, 50)), held after HOLD_ITERS iterations
+HOLD_ROWS = (("mjhmc", 0.1, False), ("mjhmc", 0.1, True), ("malt", 1.0, True))
+HOLD_ITERS = (3, 5)
+
+
+def outside_fields(k, r, xs_k, xs_r) -> dict:
+    """{field: (n,) bool}: the chains whose x, v, grad or u (``k`` against
+    ``r``, RunOuts) or any emitted x (``xs_k`` against ``xs_r``) lie outside
+    rtol 1e-4, atol 1e-4 of the field's largest value (chip_smoke.py's
+    chains_within and stream_within)."""
+    out = {}
+    for f in ("x", "v", "grad", "u"):
+        a, b = getattr(k, f).double(), getattr(r, f).double()
+        ok = (a - b).abs() <= 1e-4 * float(b.abs().max()) + 1e-4 * b.abs()
+        out[f] = ~(ok.all(dim=0) if ok.dim() == 2 else ok)
+    tol = 1e-4 * float(xs_r.abs().max()) + 1e-4 * xs_r.abs()
+    out["xs"] = ~((xs_k - xs_r).abs() <= tol).all(dim=1).all(dim=0)
+    return out
+
+
+def moved(body, xs, x0, x_end):
+    """(iterations, n) bool: the chain's x moved in the iteration; MJHMC
+    emits the pre-transition x, so its run's final ``x_end`` closes the last
+    one, control and MALT the post-transition x after ``x0``."""
+    traj = torch.cat([xs, x_end[None]]) if body == "mjhmc" else torch.cat([x0[None], xs])
+    return (traj[1:] != traj[:-1]).any(dim=1)
+
+
+def run_hold(iters=HOLD_ITERS, n=4096, device="cuda") -> dict:
+    """{"hold/rough_well_d50/<body>/<plain|mass>/<iterations>": dict(kernel=
+    {field: chains outside rtol 1e-4 of the plain version among those whose
+    decisions agree}, decisions_differ, nudge={field: the same for the plain
+    version against itself after a one-ulp nudge of x}, nudge_decisions_differ)}
+    of HOLD_ROWS in fixed-uniform mode: what the kernel's and the plain
+    version's roundings do to these chaotic chains, beside what one ulp of x
+    does to the plain version alone."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.models import RoughWell
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    cfg, dist = BENCHMARK_CONFIGS["rough_well"], RoughWell(ndims=50)
+    spec, m = cm.energy_spec_for(dist), cfg.num_leapfrog_steps
+    mass = tuple(float(v) for v in torch.linspace(0.8, 1.25, 50))
+    res = {}
+    for body, beta, with_mass in HOLD_ROWS:
+        kw = dict(variant=body, inv_mass=mass if with_mass else None)
+        gen = torch.Generator().manual_seed(1)
+        x = dist.init_x(gen, n, device)
+        v = torch.randn(x.shape, generator=gen).to(device)
+        if with_mass:
+            v = v / torch.sqrt(torch.tensor(mass, device=device))[:, None]
+        u, g = dist.potential_and_grad(x)
+        z = torch.zeros(n, device=device)
+        nudged = torch.nextafter(x, torch.full_like(x, float("inf")))
+        for it in iters:
+            args = (spec, x, v, g, u, z, z.clone(), 7, cfg.epsilon, beta)
+            k = cm.cuda_mjhmc_run(*args, it, m, fixed_uniform=True, **kw)
+            xs_k, _, es_k, so_k = cm.cuda_mjhmc_stream_run(*args, it, 1, m, fixed_uniform=True,
+                                                           **kw)
+            xs_r, _, es_r, r = cm.stream_reference(*args, it, 1, m, True, **kw)
+            xs_n, _, es_n, r_n = cm.stream_reference(spec, nudged, *args[2:], it, 1, m, True,
+                                                     **kw)
+            base = moved(body, xs_r, x, r.x)
+            same = (moved(body, xs_k, x, so_k.x) == base).all(dim=0)
+            same_n = (moved(body, xs_n, nudged, r_n.x) == base).all(dim=0)
+            if body == "mjhmc":
+                same &= (k.evals == r.evals) & (es_k == es_r).all(dim=0)
+                same_n &= (r_n.evals == r.evals) & (es_n == es_r).all(dim=0)
+            bad = outside_fields(k, r, xs_k, xs_r)
+            bad_n = outside_fields(r_n, r, xs_n, xs_r)
+            res[f"hold/rough_well_d50/{body}/{'mass' if with_mass else 'plain'}/{it}"] = dict(
+                kernel={f: int((b & same).sum()) for f, b in bad.items()},
+                decisions_differ=int((~same).sum()),
+                nudge={f: int((b & same_n).sum()) for f, b in bad_n.items()},
+                nudge_decisions_differ=int((~same_n).sum()))
     return res
 
 
@@ -293,6 +549,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", help="the record's name")
     ap.add_argument("--out", default="chiprun_out/ab", help="directory of the records")
     ap.add_argument("--compare", nargs="+", metavar="RECORD", help="compare records instead")
+    ap.add_argument("--only", choices=("mm", "ew_nuts", "ew", "hold"),
+                    help="run one group of cases and its breakdowns: the matmul bodies, the "
+                    "elementwise NUTS, the elementwise MJHMC, control and MALT, or the D=50 "
+                    "rough well held against the plain version (run_hold)")
     args = ap.parse_args(argv)
     if args.compare:
         recs = {}
@@ -306,14 +566,27 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bench_mm_ab: no CUDA device")
         return 1
-    res = run_cases()
-    res.update(run_ew_nuts_cases())
-    res["profile"] = dict(run_profiles(), **run_ew_profiles())
+    res, prof = {}, {}
+    if args.only in (None, "mm"):
+        res.update(run_cases())
+        prof.update(run_profiles())
+    if args.only in (None, "ew_nuts"):
+        res.update(run_ew_nuts_cases())
+        prof.update(run_ew_profiles())
+    if args.only in (None, "ew"):
+        res.update(run_ew_cases())
+        prof.update(run_ew_body_profiles())
+        prof["ptxas"] = ew_ptxas()
+    if args.only in (None, "hold"):
+        prof.update(run_hold())
+    res["profile"] = prof
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"{args.tag}.json"), "w") as f:
         json.dump(res, f, indent=1)
     for case, rec in res.items():
         if case == "profile":
+            for row in rec.pop("ptxas", ()):
+                print(args.tag, "ptxas", *row)
             for key, p in rec.items():
                 print(args.tag, "profile", key, json.dumps(p))
         else:

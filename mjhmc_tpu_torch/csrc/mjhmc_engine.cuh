@@ -4,8 +4,10 @@
 // compiles the D=2 instances and the C entry, and the D=50 and zoo
 // instances, which take most of the build, are compiled in sources of their
 // own (mjhmc_engine_d50*.cu, nuts_engine_d50_*.cu, hmc_engine_d50.cu,
-// zoo_*.cu), each by its own nvcc, all at once (ops/_build.py); the slowest
-// instances have a source each, so that the build's longest nvcc stays short.
+// zoo_*.cu; the PROF instances in nuts_engine_prof.cu and
+// ew_engine_prof*.cu), each by its own nvcc, all at once (ops/_build.py);
+// the slowest instances have a source each, so that the build's longest
+// nvcc stays short.
 //
 // Replaces the TPU kernels _mjhmc_kernel and _mjhmc_stream_kernel
 // (mjhmc_tpu/ops/pallas_mjhmc.py:1451 and :1494), both built from the step
@@ -27,23 +29,31 @@
 // compiled in (BR=false, the headline path), as the TPU kernel compiles
 // them statically.
 //
-// Design: one thread per chain; the state (x, v, g, u, h_back, valid), both
-// trajectories and the Kahan pairs live in registers for the whole run, so
-// device memory is touched only to load the state, store the results and,
-// in the stream, store the emissions. Loads and stores use the (d, n)
-// layout, so neighbouring threads touch neighbouring addresses. The zoo
-// energies couple their dims, so their leapfrog step is a vector step: the
-// kick and the drift of every dim, one gradient of the whole x (grad below),
-// then the closing kick of every dim. The separable rough well and Gaussian
-// keep the per-dim step (kSeparable below); each dim sees the same
-// operations in the same order in either form, so only the speed differs.
+// Design (the MJHMC body, mjhmc_kernel below, as redesigned for the
+// H100): a chain runs on a group of lanes of one warp (ew_lanes): one
+// thread a chain at D <= 2, its dims over 8 lanes on the rough well and the
+// Gaussian at D 50, its forward and backward trajectories on 2 lanes on the
+// coupled zoo energies at D 10. The state (x, v, g, u, h_back, valid), the
+// trajectories and the Kahan pairs of a lane's dims live in its registers
+// for the whole run, so device memory is touched only to load the state,
+// store the results and, in the stream, store the emissions. Loads and
+// stores use the (d, n) layout, so neighbouring threads touch neighbouring
+// addresses. Blocks are sized to the chain count (ew_threads_for), so that
+// the zoo's 1,024-2,048 chains reach every SM. The zoo energies couple their
+// dims, so their leapfrog step is a vector step: the kick and the drift of
+// every dim, one gradient of the whole x (grad_u below), then the closing kick
+// of every dim. The separable rough well and Gaussian keep the per-dim step
+// (kSeparable below); each dim sees the same operations in the same order in
+// either form, so only the speed differs.
 //
-// What bounds it: FP32 and SFU work per leapfrog step (one sinf per
-// dimension and step for the rough well), one step after another within a
-// chain. About 10k chains give each of the 132 SMs one or two warps, far
-// too few to hide the latency of those dependent chains; 100k chains fill
-// the card better. At D=50 the per-thread state spills out of registers.
-// The simple design does nothing about either yet.
+// What bounds it: latency, not the card's rates. A chain is a dependent
+// chain of steps (one precise sinf a dim and step on the rough well); at D 2
+// 10,000 chains give each of the 132 SMs two or three warps and 102,400 run
+// at about half the measured precise-sinf ceiling (PERF.md §5). The
+// parent's two other bounds are gone: a D 50 lane holds 7 dims (one thread
+// a chain spilled 3-4 KB), and a refresh on a group draws each lane's share
+// of the words at once (mjhmc_word_runs), where one thread drew D normals
+// while its warp's other lanes waited (half the cycles at D 10 and 50).
 //
 // Semantics follow _make_step exactly: log-rates clipped at 25 with
 // non-finite energies sent to -1e30 (|h| < 1e30 and h == h), Γ_F =
@@ -66,6 +76,8 @@
 namespace mjhmc {
 
 constexpr int kThreads = 64;
+// SM sub-partitions (warp schedulers) an SM has
+constexpr int kSmSubPartitions = 4;
 constexpr float kLogRateMax = 25.0f;
 constexpr float kNegInf = -1e30f;
 constexpr float kTwoPi = 6.283185307179586f;
@@ -80,6 +92,8 @@ enum Energy {
   kEightSchoolsCentered = 5,
   kEightSchoolsNoncentered = 6,
 };
+// step bodies (the variant argument of the C entry)
+enum Variant { kMjhmc = 0, kNuts = 1, kControl = 2, kMalt = 3 };
 // most components of a mixture (MogSpec; the wrapper checks)
 constexpr int kMogMaxComponents = 8;
 
@@ -144,30 +158,91 @@ __device__ __forceinline__ float mass_mul(float x, const float* mass, int i) {
   return mass ? R::mul(x, __ldg(mass + i)) : x;
 }
 
-// What a thread loads once for its energy: the Gaussian's precisions and
-// eight schools' y in p, eight schools' 1/sigma^2 in q. The other energies
-// read only the scalars; the mixture reads its per-component values from
-// the params vector inside the energy (the same address in every thread).
-template <int E, int D>
-struct Params {
-  static constexpr bool kSchools = E == kEightSchoolsCentered || E == kEightSchoolsNoncentered;
-  float p[D], q[D];
-  __device__ __forceinline__ explicit Params(const Args& a) {
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      p[i] = E == kGaussian || kSchools ? a.params[i] : 0.f;
-      q[i] = kSchools ? a.params[D + i] : 0.f;
+// The lanes of one chain: G consecutive lanes of a warp (G a power of two),
+// lane `rank` of them owning dims rank·K .. rank·K + K − 1 of the chain's D
+// (those < D; K = ceil(D / G)). A per-chain sum adds the owners' partials in
+// rank order, so every lane holds the same bits; a coupling scalar comes
+// from its owner. Blocks hold whole groups (threads a multiple of G), and a
+// group's lanes run every shuffle together. Group<1> is a chain on one lane.
+template <int G>
+struct Group {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "a power of two lanes of a warp");
+  unsigned mask = 0xffffffffu;
+  int rank = 0;
+  __device__ __forceinline__ Group() {
+    if constexpr (G > 1) {
+      const int lane = threadIdx.x & 31;
+      rank = lane & (G - 1);
+      if constexpr (G < 32) mask = ((1u << G) - 1u) << (lane - rank);
     }
+  }
+  __device__ __forceinline__ float sum(float p) const {
+    if constexpr (G == 1) {
+      return p;
+    } else {
+      float s = __shfl_sync(mask, p, 0, G);
+#pragma unroll
+      for (int r = 1; r < G; ++r) s = __fadd_rn(s, __shfl_sync(mask, p, r, G));
+      return s;
+    }
+  }
+  __device__ __forceinline__ float from(float v, int owner) const {
+    if constexpr (G == 1) return v;
+    else return __shfl_sync(mask, v, owner, G);
   }
 };
 
-// rough well: du = x/s1² − sin(x/s2)·a/s2, u = Σ x²/(2 s1²) + a·cos(x/s2),
-// with k0=1/s1², k1=1/s2, k2=a/s2, k3=0.5/s1², k4=a (RoughWellSpec's forms);
-// Gaussian: du = x·p
+// What a lane loads once for its owned dims i0 .. i0 + K − 1 of the chain's
+// D (those < D; the others hold 0 and no work of theirs is kept): the
+// Gaussian's precisions or eight schools' y (p), eight schools' 1/σ² (q),
+// M^-1 (im) and sqrt(M) (sm), 1 without a mass. A chain on one lane holds
+// every dim (K = D, rank 0). The other energies read only the scalars; the
+// mixture reads its per-component values from the params vector inside the
+// energy (the same address in every thread).
+template <int E, int D, int K>
+struct Owned {
+  static constexpr bool kSchools = E == kEightSchoolsCentered || E == kEightSchoolsNoncentered;
+  int i0;
+  float p[K], q[K], im[K], sm[K];
+  __device__ __forceinline__ Owned(const Args& a, int rank, const float* mass) : i0(rank * K) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int i = i0 + j;
+      const bool o = i < D;
+      p[j] = o && (E == kGaussian || kSchools) ? a.params[i] : 0.f;
+      q[j] = o && kSchools ? a.params[D + i] : 0.f;
+      im[j] = o && mass ? __ldg(mass + i) : 1.f;
+      sm[j] = o && mass ? __ldg(mass + D + i) : 1.f;
+    }
+  }
+  __device__ __forceinline__ bool own(int j) const { return i0 + j < D; }
+};
+
+// rough well: du = x/s1² − sin(x/s2)·a/s2 and U's term x²/(2 s1²) +
+// a·cos(x/s2), with k0=1/s1², k1=1/s2, k2=a/s2, k3=0.5/s1², k4=a
+// (RoughWellSpec's forms), sin and cos of x·k1 from sn() and cs()
+template <class R = Fused, class S>
+__device__ __forceinline__ float rw_du(float x, S sn, const Args& a) {
+  return R::sub(R::mul(x, a.k0), R::mul(sn(), a.k2));
+}
+template <class R = Fused, class C>
+__device__ __forceinline__ float rw_u(float x, C cs, const Args& a) {
+  return R::add(R::mul(R::mul(x, x), a.k3), R::mul(a.k4, cs()));
+}
+
+// ∇U of one dim of a separable energy (rough well; Gaussian: x·p)
 template <int E, class R = Fused>
 __device__ __forceinline__ float du(float x, float p, const Args& a) {
-  if (E == kRoughWell) return R::sub(R::mul(x, a.k0), R::mul(sinf(R::mul(x, a.k1)), a.k2));
+  if (E == kRoughWell) return rw_du<R>(x, [&] { return sinf(R::mul(x, a.k1)); }, a);
   return R::mul(x, p);
+}
+
+// U's term of one dim of a separable energy (rough well; Gaussian: x²p, its
+// ½ after the sum)
+template <int E, class R = Fused>
+__device__ __forceinline__ float u_term(float x, float p, const Args& a) {
+  if (E == kRoughWell) return rw_u<R>(x, [&] { return cosf(R::mul(x, a.k1)); }, a);
+  return R::mul(R::mul(x, x), p);
 }
 
 // jnp.maximum / torch.maximum: NaN if either is NaN
@@ -206,26 +281,43 @@ __device__ __forceinline__ int mog_logits(const float (&x)[D], float (&lg)[kMogM
 // dim after another, which lets the forward and backward trajectories'
 // steps interleave (the vector step is ~4% slower on the rough well,
 // PERF.md §6). The zoo energies couple their dims and take the vector step
-// with grad below.
+// with grad_u below.
 template <int E>
 constexpr bool kSeparable = E == kRoughWell || E == kGaussian;
 
-// ∇U of every dim at once, in the plain spec's expressions and order
-// (ops/cuda_mjhmc.py: FunnelSpec, BananaSpec, MogSpec, EightSchoolsSpec);
-// the masked sums there start from rows of zeros, here from 0.
-template <int E, int D, class R = Fused>
-__device__ __forceinline__ void grad(const float (&x)[D], float (&g)[D], const Params<E, D>& P,
-                                     const Args& a) {
+// ∇U of the owned dims and U of a coupled energy, in the plain spec's
+// expressions and order (ops/cuda_mjhmc.py: FunnelSpec, BananaSpec,
+// MogSpec, EightSchoolsSpec; the masked sums there start from rows of
+// zeros, here from 0), on a group of lanes (the funnel and eight schools)
+// or on one (every energy; K = D). The coupling scalars (the funnel's v,
+// eight schools' μ and ℓ) come from their owner; the sums over dims are the
+// owners' partials in rank order; U takes the gradient's transcendental
+// (e^{-v}, e^{-2ℓ}, e^ℓ, the mixture's logits) and sums, so an energy beside
+// a gradient costs a few products. A caller that wants one of the two drops
+// the other, and the compiler the work that only it needed.
+template <int E, int D, int K, int G, class R = Fused>
+__device__ __forceinline__ float grad_u(const float (&x)[K], float (&g)[K],
+                                        const Owned<E, D, K>& P, const Group<G>& grp,
+                                        const Args& a) {
   static_assert(!kSeparable<E>, "separable energies take du one dim at a time");
+  static_assert(G == 1 || E == kFunnel || E == kEightSchoolsCentered ||
+                    E == kEightSchoolsNoncentered,
+                "the coupled energies that run on a group of lanes");
+  auto dim = [&](int i) { return grp.from(x[i % K], i / K); };
   if constexpr (E == kFunnel) {
     // k0 = 1/σ_v², k1 = ½(d−1): gv = v·k0 + k1 − ½e^{−v}·Σ_{i≥1} x_i², g_i = e^{−v}x_i
-    const float v = x[0], e = expf(-v);
-    float z2 = 0.f;
+    const float v = dim(0), e = expf(-v);
+    float zp = 0.f;
 #pragma unroll
-    for (int i = 1; i < D; ++i) z2 = R::add(z2, R::mul(x[i], x[i]));
-    g[0] = R::sub(R::add(R::mul(v, a.k0), a.k1), R::mul(R::mul(0.5f, e), z2));
+    for (int j = 0; j < K; ++j)
+      if (P.own(j) && P.i0 + j >= 1) zp = R::add(zp, R::mul(x[j], x[j]));
+    const float z2 = grp.sum(zp);
 #pragma unroll
-    for (int i = 1; i < D; ++i) g[i] = R::mul(e, x[i]);
+    for (int j = 0; j < K; ++j)
+      g[j] = P.i0 + j == 0 ? R::sub(R::add(R::mul(v, a.k0), a.k1), R::mul(R::mul(0.5f, e), z2))
+                           : R::mul(e, x[j]);
+    return R::add(R::add(R::mul(R::mul(R::mul(0.5f, v), v), a.k0), R::mul(a.k1, v)),
+                  R::mul(R::mul(0.5f, e), z2));
   } else if constexpr (E == kBanana) {
     // k0 = a², k1 = b, k2 = 1/a², k3 = 2b: r = x₂ − b(x₁² − a²),
     // g₀ = x₁/a² − 2b·x₁·r, g₁ = r, g_i = x_i
@@ -233,21 +325,28 @@ __device__ __forceinline__ void grad(const float (&x)[D], float (&g)[D], const P
     const float r = R::sub(x[1], R::mul(a.k1, R::sub(R::mul(x1, x1), a.k0)));
     g[0] = R::sub(R::mul(x1, a.k2), R::mul(R::mul(a.k3, x1), r));
     g[1] = r;
+    float tail = 0.f;
 #pragma unroll
-    for (int i = 2; i < D; ++i) g[i] = x[i];
+    for (int i = 2; i < D; ++i) {
+      g[i] = x[i];
+      tail = R::add(tail, R::mul(x[i], x[i]));
+    }
+    return R::add(R::add(R::mul(R::mul(R::mul(0.5f, x1), x1), a.k2), R::mul(R::mul(0.5f, r), r)),
+                  R::mul(0.5f, tail));
   } else if constexpr (E == kMog) {
-    // g = x·Σ_k c_k − Σ_k c_k μ_k, c_k = r_k/σ_k² from the max-shifted exps
+    // g = x·Σ_k c_k − Σ_k c_k μ_k, c_k = r_k/σ_k² from the max-shifted
+    // exps; U = −(m + log Σ_k e^{lg_k − m})
     float lg[kMogMaxComponents], c[kMogMaxComponents];
-    const int K = mog_logits<D, R>(x, lg, a);
-    const float* cst = a.params + K * D;
+    const int NK = mog_logits<D, R>(x, lg, a);
+    const float* cst = a.params + NK * D;
     float m = lg[0];
 #pragma unroll
     for (int k = 1; k < kMogMaxComponents; ++k)
-      if (k < K) m = nan_max(m, lg[k]);
+      if (k < NK) m = nan_max(m, lg[k]);
     float tot = 0.f;
 #pragma unroll
     for (int k = 0; k < kMogMaxComponents; ++k) {
-      if (k >= K) break;
+      if (k >= NK) break;
       c[k] = expf(R::sub(lg[k], m));
       tot = k == 0 ? c[0] : R::add(tot, c[k]);
     }
@@ -255,8 +354,8 @@ __device__ __forceinline__ void grad(const float (&x)[D], float (&g)[D], const P
     float sum_c = 0.f;
 #pragma unroll
     for (int k = 0; k < kMogMaxComponents; ++k) {
-      if (k >= K) break;
-      c[k] = R::mul(R::mul(c[k], inv_tot), __ldg(cst + 2 * K + k));
+      if (k >= NK) break;
+      c[k] = R::mul(R::mul(c[k], inv_tot), __ldg(cst + 2 * NK + k));
       sum_c = k == 0 ? c[0] : R::add(sum_c, c[k]);
     }
 #pragma unroll
@@ -265,7 +364,7 @@ __device__ __forceinline__ void grad(const float (&x)[D], float (&g)[D], const P
       bool any = false;
 #pragma unroll
       for (int k = 0; k < kMogMaxComponents; ++k) {
-        if (k >= K) break;
+        if (k >= NK) break;
         const float mu = __ldg(a.params + k * D + i);
         if (mu != 0.f) {
           const float t = R::mul(c[k], mu);
@@ -276,110 +375,101 @@ __device__ __forceinline__ void grad(const float (&x)[D], float (&g)[D], const P
       const float gi = R::mul(x[i], sum_c);
       g[i] = any ? R::sub(gi, row) : gi;
     }
-  } else if constexpr (E == kEightSchoolsCentered) {
-    // k0 = 1/m₀², k1 = 1/s₀², k2 = K; p = y, q = 1/σ²; dth_j = θ_j − μ
-    const float mu = x[0], l = x[1], e2 = expf(R::mul(-2.f, l));
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 2; i < D; ++i) {
-      const float dth = R::sub(x[i], mu);
-      s1 = R::add(s1, dth);
-      s2 = R::add(s2, R::mul(dth, dth));
-      g[i] = R::add(R::mul(e2, dth), R::mul(R::sub(x[i], P.p[i]), P.q[i]));
-    }
-    g[0] = R::sub(R::mul(mu, a.k0), R::mul(e2, s1));
-    g[1] = R::sub(R::add(R::mul(l, a.k1), a.k2), R::mul(e2, s2));
-  } else {  // kEightSchoolsNoncentered: θ_j = μ + e^ℓ z_j, ri_j = (θ_j − y_j)/σ_j²
-    const float mu = x[0], l = x[1], e = expf(l);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 2; i < D; ++i) {
-      const float ri = R::mul(R::sub(R::add(mu, R::mul(e, x[i])), P.p[i]), P.q[i]);
-      s1 = R::add(s1, ri);
-      s2 = R::add(s2, R::mul(x[i], ri));
-      g[i] = R::add(x[i], R::mul(e, ri));
-    }
-    g[0] = R::add(R::mul(mu, a.k0), s1);
-    g[1] = R::add(R::mul(l, a.k1), R::mul(e, s2));
-  }
-}
-
-// U(x), in the plain spec's expressions and order
-template <int E, int D, class R = Fused>
-__device__ __forceinline__ float u_sum(const float (&x)[D], const Params<E, D>& P,
-                                       const Args& a) {
-  if constexpr (E == kRoughWell || E == kGaussian) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      const float xx = R::mul(x[i], x[i]);
-      s = R::add(s, E == kRoughWell
-                        ? R::add(R::mul(xx, a.k3), R::mul(a.k4, cosf(R::mul(x[i], a.k1))))
-                        : R::mul(xx, P.p[i]));
-    }
-    return E == kRoughWell ? s : R::mul(0.5f, s);
-  } else if constexpr (E == kFunnel) {
-    const float v = x[0];
-    float z2 = 0.f;
-#pragma unroll
-    for (int i = 1; i < D; ++i) z2 = R::add(z2, R::mul(x[i], x[i]));
-    return R::add(R::add(R::mul(R::mul(R::mul(0.5f, v), v), a.k0), R::mul(a.k1, v)),
-                  R::mul(R::mul(0.5f, expf(-v)), z2));
-  } else if constexpr (E == kBanana) {
-    const float x1 = x[0];
-    const float r = R::sub(x[1], R::mul(a.k1, R::sub(R::mul(x1, x1), a.k0)));
-    float tail = 0.f;
-#pragma unroll
-    for (int i = 2; i < D; ++i) tail = R::add(tail, R::mul(x[i], x[i]));
-    return R::add(R::add(R::mul(R::mul(R::mul(0.5f, x1), x1), a.k2), R::mul(R::mul(0.5f, r), r)),
-                  R::mul(0.5f, tail));
-  } else if constexpr (E == kMog) {
-    // −(m + log Σ_k e^{lg_k − m})
-    float lg[kMogMaxComponents];
-    const int K = mog_logits<D, R>(x, lg, a);
-    float m = lg[0];
-#pragma unroll
-    for (int k = 1; k < kMogMaxComponents; ++k)
-      if (k < K) m = nan_max(m, lg[k]);
-    float tot = expf(R::sub(lg[0], m));
-#pragma unroll
-    for (int k = 1; k < kMogMaxComponents; ++k)
-      if (k < K) tot = R::add(tot, expf(R::sub(lg[k], m)));
     return -R::add(m, logf(tot));
-  } else {  // eight schools
-    const float mu = x[0], l = x[1];
+  } else {
+    const float mu = dim(0), l = dim(1);
     const float prior = R::add(R::mul(R::mul(R::mul(0.5f, mu), mu), a.k0),
                                R::mul(R::mul(R::mul(0.5f, l), l), a.k1));
-    float s2 = 0.f, s3 = 0.f;
     if constexpr (E == kEightSchoolsCentered) {
+      // k0 = 1/m₀², k1 = 1/s₀², k2 = K; p = y, q = 1/σ²; dth_j = θ_j − μ
+      const float e2 = expf(R::mul(-2.f, l));
+      float s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
-      for (int i = 2; i < D; ++i) {
-        const float dth = R::sub(x[i], mu), r = R::sub(x[i], P.p[i]);
-        s2 = R::add(s2, R::mul(dth, dth));
-        s3 = R::add(s3, R::mul(R::mul(r, r), P.q[i]));
+      for (int j = 0; j < K; ++j) {
+        g[j] = 0.f;
+        if (P.own(j) && P.i0 + j >= 2) {
+          const float dth = R::sub(x[j], mu), r = R::sub(x[j], P.p[j]);
+          s1 = R::add(s1, dth);
+          s2 = R::add(s2, R::mul(dth, dth));
+          s3 = R::add(s3, R::mul(R::mul(r, r), P.q[j]));
+          g[j] = R::add(R::mul(e2, dth), R::mul(r, P.q[j]));
+        }
       }
-      return R::add(R::add(R::add(prior, R::mul(a.k2, l)),
-                           R::mul(R::mul(0.5f, expf(R::mul(-2.f, l))), s2)),
-                    R::mul(0.5f, s3));
-    } else {
+      const float S1 = grp.sum(s1), S2 = grp.sum(s2);
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (P.i0 + j == 0) g[j] = R::sub(R::mul(mu, a.k0), R::mul(e2, S1));
+        if (P.i0 + j == 1) g[j] = R::sub(R::add(R::mul(l, a.k1), a.k2), R::mul(e2, S2));
+      }
+      const float S3 = grp.sum(s3);
+      return R::add(R::add(R::add(prior, R::mul(a.k2, l)), R::mul(R::mul(0.5f, e2), S2)),
+                    R::mul(0.5f, S3));
+    } else {  // non-centred: θ_j = μ + e^ℓ z_j, ri_j = (θ_j − y_j)/σ_j²
       const float e = expf(l);
+      float s1 = 0.f, s2 = 0.f, s4 = 0.f, s5 = 0.f;
 #pragma unroll
-      for (int i = 2; i < D; ++i) {
-        const float r = R::sub(R::add(mu, R::mul(e, x[i])), P.p[i]);
-        s2 = R::add(s2, R::mul(x[i], x[i]));
-        s3 = R::add(s3, R::mul(R::mul(r, r), P.q[i]));
+      for (int j = 0; j < K; ++j) {
+        g[j] = 0.f;
+        if (P.own(j) && P.i0 + j >= 2) {
+          const float r = R::sub(R::add(mu, R::mul(e, x[j])), P.p[j]);
+          const float ri = R::mul(r, P.q[j]);
+          s1 = R::add(s1, ri);
+          s2 = R::add(s2, R::mul(x[j], ri));
+          s4 = R::add(s4, R::mul(x[j], x[j]));
+          s5 = R::add(s5, R::mul(R::mul(r, r), P.q[j]));
+          g[j] = R::add(x[j], R::mul(e, ri));
+        }
       }
-      return R::add(R::add(prior, R::mul(0.5f, s2)), R::mul(0.5f, s3));
+      const float S1 = grp.sum(s1), S2 = grp.sum(s2);
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (P.i0 + j == 0) g[j] = R::add(R::mul(mu, a.k0), S1);
+        if (P.i0 + j == 1) g[j] = R::add(R::mul(l, a.k1), R::mul(e, S2));
+      }
+      const float S4 = grp.sum(s4), S5 = grp.sum(s5);
+      return R::add(R::add(prior, R::mul(0.5f, S4)), R::mul(0.5f, S5));
     }
   }
 }
 
-// ½ Σ (v·v)·M^-1, summed over dims in order
-template <int D, class R = Fused>
-__device__ __forceinline__ float halfsq(const float (&v)[D], const float* mass) {
+// U of a separable energy from the lane's partial s of its owned terms
+template <int E, int G, class R = Fused>
+__device__ __forceinline__ float u_separable(float s, const Group<G>& grp) {
+  s = grp.sum(s);
+  return E == kRoughWell ? s : R::mul(0.5f, s);
+}
+
+// U of the chain at the group's x: a separable energy's from its owners'
+// terms (on one lane, in dim order), a coupled energy's on one lane from
+// grad_u (its gradient dropped)
+template <int E, int D, int K, int G, class R = Fused>
+__device__ __forceinline__ float u_chain(const float (&x)[K], const Owned<E, D, K>& P,
+                                         const Group<G>& grp, const Args& a) {
+  static_assert(kSeparable<E> || G == 1, "a coupled chain's energy on one lane");
+  if constexpr (kSeparable<E>) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (P.own(j)) s = R::add(s, u_term<E, R>(x[j], P.p[j], a));
+    return u_separable<E, G, R>(s, grp);
+  } else {
+    float g[K];
+    return grad_u<E, D, K, G, R>(x, g, P, grp, a);
+  }
+}
+
+// ½ Σ (v·v)·M^-1 over the lane's owned dims (every dim on one lane), in dim
+// order, M^-1 from the lane's row (mass: the row the lane's Owned was
+// loaded from, nullptr without a mass)
+template <int E, int D, int K, class R = Fused>
+__device__ __forceinline__ float halfsq_own(const float (&v)[K], const Owned<E, D, K>& P,
+                                            const float* mass) {
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < D; ++i) s = R::add(s, mass_mul<R>(R::mul(v[i], v[i]), mass, i));
+  for (int j = 0; j < K; ++j) {
+    const float vv = R::mul(v[j], v[j]);
+    if (P.own(j)) s = R::add(s, mass ? R::mul(vv, P.im[j]) : vv);
+  }
   return R::mul(0.5f, s);
 }
 
@@ -401,7 +491,7 @@ __device__ __forceinline__ void stage1(float& x, float& v, float& g, float p, fl
 // is stage<true>(b eps, eps/2, (1-2b) eps) then stage<false>(-, eps/2, b eps).
 template <int E, int D, bool OPEN>
 __device__ __forceinline__ void stage(float (&x)[D], float (&v)[D], float (&g)[D],
-                                      const Params<E, D>& P, const float* mass, float c_open,
+                                      const Owned<E, D, D>& P, const float* mass, float c_open,
                                       float c_drift, float c_close, const Args& a) {
   if constexpr (kSeparable<E>) {
 #pragma unroll
@@ -413,7 +503,7 @@ __device__ __forceinline__ void stage(float (&x)[D], float (&v)[D], float (&g)[D
       if (OPEN) v[i] = v[i] - c_open * g[i];
       x[i] = x[i] + c_drift * (inv_mass(mass, i) * v[i]);
     }
-    grad<E, D>(x, g, P, a);
+    grad_u<E, D, D, 1>(x, g, P, Group<1>(), a);
 #pragma unroll
     for (int i = 0; i < D; ++i) v[i] = v[i] - c_close * g[i];
   }
@@ -422,7 +512,7 @@ __device__ __forceinline__ void stage(float (&x)[D], float (&v)[D], float (&g)[D
 // M integrator steps of one trajectory
 template <int D, int E>
 __device__ __forceinline__ void integrate(float (&x)[D], float (&v)[D], float (&g)[D],
-                                          const Params<E, D>& P, const Args& a,
+                                          const Owned<E, D, D>& P, const Args& a,
                                           const float* mass, bool two_stage) {
   const float eps = a.eps, he = 0.5f * a.eps;
   if (two_stage) {
@@ -486,31 +576,205 @@ __device__ __forceinline__ void kadd(float& s, float& c, float inc) {
   s = t;
 }
 
-// BR=false is the fast path without a mass and with the leapfrog, compiled
-// with no branch code at all (as the TPU kernel compiles inv_mass=None
-// statically); BR=true takes both branches from the arguments.
-template <int D, int E, bool EMIT, bool BR>
+// The PROF instances' phase breakdown of the MJHMC and MALT bodies (PhaseClock,
+// one record a chain): clock64() cycles of each phase and counters
+namespace ewprof {
+// MJHMC: the forward and backward trajectories (a step of each in turn, as
+// the main path runs them), the energies, rates and clock choice, the
+// refresh, the Kahan sums and emission; then the chain-iterations that
+// began with an invalid cache and those whose warp held any such chain
+enum MjhmcPhase {
+  kMjTrajectories = 0, kMjRates, kMjRefresh, kMjKahan, kMjOther, kMjInvalid, kMjWarpInvalid,
+  kMjPhases
+};
+// MALT: the refresh draw, the O-step draws, the kick-drift and gradient, the
+// energy (and Δ), the Metropolis test with the Kahan sums and emission
+enum MaltPhase {
+  kMaRefresh = 0, kMaDraws, kMaKickGrad, kMaEnergy, kMaAccept, kMaOther, kMaPhases
+};
+}  // namespace ewprof
+
+// ---------------------------------------------------------------------------
+// A chain over a group of lanes (the MJHMC and MALT bodies)
+//
+// Lanes a chain of the MJHMC (variant kMjhmc) and MALT (kMalt) bodies at d
+// dims on energy E. Where one thread a chain would spill (D 50: x, v, g, both
+// trajectories and the Kahan rows are 650 floats) or leave most SMs idle
+// (the zoo's 1,024 chains at D 10 filled 16 of 132 SMs in blocks of 64), a
+// chain takes a group of lanes of one warp: MALT's dims go to the lanes (8
+// at D 50, 4 at D 10; 2 on the separable energies' D 2, so that each lane
+// draws its own dim's noise); MJHMC's separable dims at D 50 go to 8 lanes,
+// and a coupled energy's two trajectories to 2 lanes (D 10), where dims
+// over lanes would exchange the coupling scalars at every step. MJHMC keeps
+// one thread a chain at D <= 2 (the rough-well headline, whose
+// 10,000-102,400 chains fill the card; its per-dim steps interleave four
+// independent chains). ops/cuda_mjhmc.py (ew_lanes) mirrors this.
+__host__ __device__ constexpr int ew_lanes(int variant, int d, int energy) {
+  const bool separable = energy == kRoughWell || energy == kGaussian;
+  if (variant == kMjhmc) return separable ? (d >= 50 ? 8 : 1) : (d >= 10 ? 2 : 1);
+  return d >= 50 ? 8 : d >= 10 ? 4 : separable && d >= 2 ? 2 : 1;
+}
+// Threads a block of the MJHMC and MALT bodies for n chains of `lanes`
+// lanes on a card of sms SMs: the fewest, a power of two from the group up to
+// kThreads, that put at most one block on each SM sub-partition, else
+// kThreads (ops/cuda_mjhmc.py, ew_threads, mirrors this)
+__host__ __device__ constexpr int ew_threads_for(int lanes, long long n, int sms) {
+  int t = lanes;
+  while (t < kThreads && (n * lanes + t - 1) / t > (long long)kSmSubPartitions * sms) t *= 2;
+  return t;
+}
+
+// One kick-drift-force-kick stage on one dim of a separable energy (as
+// stage1) that also returns U's term of the dim at its new x: the rough
+// well's force takes sin(x k1) and its energy cos(x k1), one sincosf of the
+// same argument (one range reduction)
+template <int E>
+__device__ __forceinline__ float stage1_u(float& x, float& v, float& g, float p, float im,
+                                          float c_open, float c_drift, float c_close,
+                                          const Args& a) {
+  const float vh = v - c_open * g;
+  x = x + c_drift * (im * vh);
+  float term;
+  if constexpr (E == kRoughWell) {
+    float sn, cs;
+    sincosf(x * a.k1, &sn, &cs);
+    g = rw_du(x, [&] { return sn; }, a);
+    term = rw_u(x, [&] { return cs; }, a);
+  } else {
+    g = du<E>(x, p, a);
+    term = u_term<E>(x, p, a);
+  }
+  v = vh - c_close * g;
+  return term;
+}
+
+// stage on a group's owned dims of a coupled energy: the kick and the drift
+// of each, the group's gradient, the closing kick; returns U at the new x
+template <int E, int D, int K, int G, bool OPEN>
+__device__ __forceinline__ float stage_group(float (&x)[K], float (&v)[K], float (&g)[K],
+                                             const Owned<E, D, K>& P, const Group<G>& grp,
+                                             float c_open, float c_drift, float c_close,
+                                             const Args& a) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (OPEN) v[j] = v[j] - c_open * g[j];
+    x[j] = x[j] + c_drift * (P.im[j] * v[j]);
+  }
+  const float u = grad_u<E, D, K, G>(x, g, P, grp, a);
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = v[j] - c_close * g[j];
+  return u;
+}
+
+// M integrator steps of one trajectory on the lane's dims (a coupled
+// energy's on one lane: integrate); returns U at its end
+template <int D, int E, int K, int G>
+__device__ __forceinline__ float integrate_group(float (&x)[K], float (&v)[K], float (&g)[K],
+                                                 const Owned<E, D, K>& P, const Group<G>& grp,
+                                                 const Args& a, const float* mass,
+                                                 bool two_stage) {
+  if constexpr (kSeparable<E>) {
+    const float eps = a.eps, he = 0.5f * a.eps;
+    const float cb = kTwoStageB * eps, cm = kTwoStageMid * eps;
+    for (int k = 0; k < a.m; ++k) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (two_stage) {
+          stage1<E, true>(x[j], v[j], g[j], P.p[j], P.im[j], cb, he, cm, a);
+          stage1<E, false>(x[j], v[j], g[j], P.p[j], P.im[j], 0.f, he, cb, a);
+        } else {
+          stage1<E, true>(x[j], v[j], g[j], P.p[j], P.im[j], he, eps, he, a);
+        }
+      }
+    }
+  } else {
+    integrate<D, E>(x, v, g, P, a, mass, two_stage);
+  }
+  return u_chain<E, D, K, G>(x, P, grp, a);
+}
+
+// The uniforms of words wa .. wa + K − 1 (ua) and wb .. wb + K − 1 (ub) of a
+// chain's MJHMC draw (tag 0) at iteration t: every lane of a group draws the
+// same number of Philox blocks (as many as a run of K words can span, both
+// runs' blocks independent of each other, so they overlap) and picks its
+// words by selects, so the group's lanes never wait on each other; 2⁻²⁵
+// each in fixed-uniform mode
+template <int K>
+__device__ __forceinline__ void mjhmc_word_runs(const Args& a, uint32_t c, uint32_t t, int wa,
+                                                int wb, uint2 key, float (&ua)[K],
+                                                float (&ub)[K]) {
+  constexpr int kSpan = (K + 6) / 4;
+  const int sa = wa >> 2, sb = wb >> 2;
+  uint4 ba[kSpan], bb[kSpan];
+#pragma unroll
+  for (int b = 0; b < kSpan; ++b) {
+    ba[b] = philox4x32_10(make_uint4(c, t, sa + b, kTagMjhmc), key);
+    bb[b] = philox4x32_10(make_uint4(c, t, sb + b, kTagMjhmc), key);
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    uint32_t xa = 0u, xb = 0u;
+#pragma unroll
+    for (int b = 0; b < kSpan; ++b) {
+      if (((wa + j) >> 2) == sa + b) xa = word_of(ba[b], wa + j);
+      if (((wb + j) >> 2) == sb + b) xb = word_of(bb[b], wb + j);
+    }
+    ua[j] = a.fixed_uniform ? 0x1p-25f : philox_uniform(xa);
+    ub[j] = a.fixed_uniform ? 0x1p-25f : philox_uniform(xb);
+  }
+}
+
+// The MJHMC body. Each chain runs on ew_lanes(kMjhmc, D, E) lanes (Group).
+// A separable energy's dims go to the lanes, each owning K of them: x, v, g,
+// both trajectories and the Kahan rows of those dims live in the lane's
+// registers, no lane waits on another during the trajectories, and the
+// per-chain energies and kinetic terms are the owners' partials added in
+// rank order. A coupled energy's chain takes two lanes, lane 0 the forward
+// trajectory and lane 1 the backward one, each over all D dims with no
+// exchange inside a trajectory; the lanes then swap their energies (and, on
+// an L jump, lane 0's state). Every lane of a group takes the same
+// decisions. The refresh on a group: each lane draws its share of the
+// dims' words (mjhmc_word_runs) and the group exchanges them. With one lane a
+// chain this is the first port's one-thread-a-chain body, operation for
+// operation. BR=false is the fast path without a mass and with the
+// leapfrog, compiled with no branch code at all (as the TPU kernel compiles
+// inv_mass=None statically); BR=true takes both branches from the
+// arguments. PROF stamps the phases into a.prof (rank 0's; the two
+// trajectories, which a lane runs step by step in turn, as one phase;
+// nothing on the main path runs it).
+template <int D, int E, bool EMIT, bool BR, bool PROF = false>
 __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+  constexpr int G = ew_lanes(kMjhmc, D, E);
+  constexpr bool kTraj = !kSeparable<E> && G > 1;  // a trajectory a lane
+  constexpr int K = kTraj ? D : (D + G - 1) / G;   // dims a lane holds
+  const int c = (int)((blockIdx.x * blockDim.x + threadIdx.x) / G);
   if (c >= a.n) return;
   const size_t n = a.n;
   const float* mass = BR ? a.mass : nullptr;
   const bool two_stage = BR && a.two_stage;
+  const Group<G> grp;
+  const Owned<E, D, K> P(a, kTraj ? 0 : grp.rank, mass);
+  PhaseClock<PROF, ewprof::kMjPhases, ewprof::kMjOther> prof;
+  prof.start();
+  // a per-chain sum of the lanes' partials (a lane with every dim: its own)
+  auto chain_sum = [&](float p) { return kTraj ? p : grp.sum(p); };
+  // the lane stores dim j (each dim by one lane)
+  auto writes = [&](int j) { return kTraj ? j % G == grp.rank : P.own(j); };
 
-  const Params<E, D> P(a);
-  float x[D], v[D], g[D];
+  float x[K], v[K], g[K];
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    x[i] = a.x[i * n + c];
-    v[i] = a.v[i * n + c];
-    g[i] = a.g[i * n + c];
+  for (int j = 0; j < K; ++j) {
+    const int i = P.i0 + j;
+    x[j] = P.own(j) ? a.x[i * n + c] : 0.f;
+    v[j] = P.own(j) ? a.v[i * n + c] : 0.f;
+    g[j] = P.own(j) ? a.g[i * n + c] : 0.f;
   }
   float u = a.u[c], h_back = a.h_back[c], valid = a.valid[c];
 
   float w = 0.f, wc = 0.f;
-  float wx[D], wxc[D], wx2[D], wx2c[D];
+  float wx[K], wxc[K], wx2[K], wx2c[K];
 #pragma unroll
-  for (int i = 0; i < D; ++i) wx[i] = wxc[i] = wx2[i] = wx2c[i] = 0.f;
+  for (int j = 0; j < K; ++j) wx[j] = wxc[j] = wx2[j] = wx2c[j] = 0.f;
   int evals = 0;
 
   const float eps = a.eps, he = 0.5f * a.eps;
@@ -518,39 +782,72 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
 
   const int m_cost = two_stage ? 2 * a.m : a.m;  // evals per trajectory half
   for (int t = 0; t < a.num_iters; ++t) {
-    const float h_cur = u + halfsq<D>(v, mass);
-
-    // forward from (x, v) and backward from (x, -v), M steps each; the
-    // leapfrog takes a step of each in turn (separable energies: per dim)
-    float xf[D], vf[D], gf[D], xb[D], vb[D], gb[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      xf[i] = xb[i] = x[i];
-      vf[i] = v[i];
-      vb[i] = -v[i];
-      gf[i] = gb[i] = g[i];
+    if constexpr (PROF) {
+      if (valid <= 0.5f) prof.count(ewprof::kMjInvalid);
+      if (__any_sync(__activemask(), valid <= 0.5f)) prof.count(ewprof::kMjWarpInvalid);
     }
-    if (two_stage) {
-      integrate<D, E>(xf, vf, gf, P, a, mass, true);
-      integrate<D, E>(xb, vb, gb, P, a, mass, true);
-    } else {
-      for (int k = 0; k < a.m; ++k) {
-        if constexpr (kSeparable<E>) {
+    const float h_cur = u + chain_sum(halfsq_own(v, P, mass));
+
+    // forward from (x, v) and backward from (x, -v), M steps each (a lane
+    // with both: the leapfrog takes a step of each in turn, separable
+    // energies per dim); a lane of a coupled chain runs its own
+    float xf[K], vf[K], gf[K];
+    float uf, h_l, h_b = h_back;
+    if constexpr (kTraj) {
 #pragma unroll
-          for (int i = 0; i < D; ++i) {
-            const float im = inv_mass(mass, i);
-            stage1<E, true>(xf[i], vf[i], gf[i], P.p[i], im, he, eps, he, a);
-            stage1<E, true>(xb[i], vb[i], gb[i], P.p[i], im, he, eps, he, a);
+      for (int j = 0; j < K; ++j) {
+        xf[j] = x[j];
+        vf[j] = grp.rank == 0 ? v[j] : -v[j];
+        gf[j] = g[j];
+      }
+      prof.mark(ewprof::kMjOther);
+      const float ut = integrate_group<D, E, K, 1>(xf, vf, gf, P, Group<1>(), a, mass,
+                                                   two_stage);
+      prof.mark(ewprof::kMjTrajectories);  // lane 1's backward trajectory runs beside
+      const float ht = ut + halfsq_own(vf, P, mass);
+      uf = grp.from(ut, 0);
+      h_l = grp.from(ht, 0);
+      const float hb = grp.from(ht, 1);
+      if (valid <= 0.5f) h_b = hb;
+    } else {
+      float xb[K], vb[K], gb[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        xf[j] = xb[j] = x[j];
+        vf[j] = v[j];
+        vb[j] = -v[j];
+        gf[j] = gb[j] = g[j];
+      }
+      prof.mark(ewprof::kMjOther);
+      float ub = 0.f;
+      bool ub_known = false;
+      if (two_stage) {
+        uf = integrate_group<D, E, K, G>(xf, vf, gf, P, grp, a, mass, two_stage);
+        ub = integrate_group<D, E, K, G>(xb, vb, gb, P, grp, a, mass, two_stage);
+        ub_known = true;
+      } else if constexpr (kSeparable<E>) {
+        for (int k = 0; k < a.m; ++k) {
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            stage1<E, true>(xf[j], vf[j], gf[j], P.p[j], P.im[j], he, eps, he, a);
+            stage1<E, true>(xb[j], vb[j], gb[j], P.p[j], P.im[j], he, eps, he, a);
           }
-        } else {
+        }
+        uf = u_chain<E, D, K, G>(xf, P, grp, a);
+      } else {  // one lane a chain (K = D)
+        for (int k = 0; k < a.m; ++k) {
           stage<E, D, true>(xf, vf, gf, P, mass, he, eps, he, a);
           stage<E, D, true>(xb, vb, gb, P, mass, he, eps, he, a);
         }
+        uf = u_chain<E, D, K, G>(xf, P, grp, a);
+      }
+      prof.mark(ewprof::kMjTrajectories);
+      h_l = uf + grp.sum(halfsq_own(vf, P, mass));
+      if (valid <= 0.5f) {  // the same on every lane of the group
+        if (!ub_known) ub = u_chain<E, D, K, G>(xb, P, grp, a);
+        h_b = ub + grp.sum(halfsq_own(vb, P, mass));
       }
     }
-    const float uf = u_sum<E, D>(xf, P, a);
-    const float h_l = uf + halfsq<D>(vf, mass);
-    const float h_b = valid > 0.5f ? h_back : u_sum<E, D>(xb, P, a) + halfsq<D>(vb, mass);
 
     const float log_gl = log_rate(h_l, h_cur);
     const float log_glf = log_rate(h_b, h_cur);
@@ -560,83 +857,115 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
     const float total = gamma_l + gamma_f + a.beta;
     const float dwell = 1.0f / total;
 
-    // categorical clock choice by inverse CDF from one uniform (word 0)
-    const float u0 = a.fixed_uniform
-        ? 0x1p-25f
-        : philox_uniform(philox4x32_10(make_uint4(c, t, 0u, 0u), key).x);
+    // categorical clock choice by inverse CDF from one uniform (word 0 of
+    // slot 0, whose other words the refresh takes)
+    const uint4 r0 = philox4x32_10(make_uint4(c, t, 0u, 0u), key);
+    const float u0 = a.fixed_uniform ? 0x1p-25f : philox_uniform(r0.x);
     const float u_sel = u0 * total;
     const bool is_l = u_sel < gamma_l;
     const bool is_f = !is_l && u_sel < gamma_l + gamma_f;
     const bool is_r = !is_l && !is_f;
+    prof.mark(ewprof::kMjRates);
 
     // accumulators and emissions take the pre-transition x
     evals += valid > 0.5f ? m_cost : 2 * m_cost;
     kadd(w, wc, dwell);
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      kadd(wx[i], wxc[i], dwell * x[i]);
-      kadd(wx2[i], wx2c[i], dwell * x[i] * x[i]);
+    for (int j = 0; j < K; ++j) {
+      kadd(wx[j], wxc[j], dwell * x[j]);
+      kadd(wx2[j], wx2c[j], dwell * x[j] * x[j]);
     }
     if (EMIT && (t + 1) % a.thin == 0) {
       const size_t e = t / a.thin;
 #pragma unroll
-      for (int i = 0; i < D; ++i) a.xs[(e * D + i) * n + c] = x[i];
-      a.ws[e * n + c] = dwell;
-      a.es[e * n + c] = evals;
+      for (int j = 0; j < K; ++j)
+        if (writes(j)) a.xs[(e * D + P.i0 + j) * n + c] = x[j];
+      if (grp.rank == 0) {
+        a.ws[e * n + c] = dwell;
+        a.es[e * n + c] = evals;
+      }
     }
+    prof.mark(ewprof::kMjKahan);
 
-    if (is_l) {
+    if (is_l) {  // a coupled chain's lane 1 takes lane 0's forward state
 #pragma unroll
-      for (int i = 0; i < D; ++i) {
-        x[i] = xf[i];
-        v[i] = vf[i];
-        g[i] = gf[i];
+      for (int j = 0; j < K; ++j) {
+        x[j] = kTraj ? grp.from(xf[j], 0) : xf[j];
+        v[j] = kTraj ? grp.from(vf[j], 0) : vf[j];
+        g[j] = kTraj ? grp.from(gf[j], 0) : gf[j];
       }
       u = uf;
       h_back = h_cur;
     } else if (is_f) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) v[i] = -v[i];
+      for (int j = 0; j < K; ++j) v[j] = -v[j];
       h_back = h_l;
     } else {
       // refresh v ~ N(0, M) by Box-Muller's cosine branch: dim i takes
-      // words 1+i and 1+D+i of this iteration's 1+2D (blocks of four).
-      // The counter fixes every word, so words no transition uses need
-      // not be computed: the stream is the same as drawing all of them.
-      constexpr int kWords = 1 + 2 * D;
-      constexpr int kBlocks = (kWords + 3) / 4;
-      float un[2 * D];
+      // words 1+i and 1+D+i of this iteration's 1+2D (blocks of four). The
+      // counter fixes every word, so words no transition uses need not be
+      // computed: the stream is the same as drawing all of them.
+      if constexpr (G == 1) {
+        // the blocks that hold the words, slot 0 the clock choice's
+        uint32_t slot = 0u;
+        uint4 blk = r0;
+        auto word = [&](uint32_t k) {
+          if ((k >> 2) != slot) {
+            slot = k >> 2;
+            blk = philox4x32_10(make_uint4(c, t, slot, 0u), key);
+          }
+          return word_of(blk, k);
+        };
+        float rad[K];
 #pragma unroll
-      for (int b = 0; b < kBlocks; ++b) {
-        const uint4 r = philox4x32_10(make_uint4(c, t, b, 0u), key);
-        const uint32_t rw[4] = {r.x, r.y, r.z, r.w};
+        for (int j = 0; j < K; ++j)
+          rad[j] = sqrtf(-2.0f * logf(a.fixed_uniform ? 0x1p-25f : philox_uniform(word(1 + j))));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = 4 * b + j;
-          if (k >= 1 && k < kWords)
-            un[k - 1] = a.fixed_uniform ? 0x1p-25f : philox_uniform(rw[j]);
+        for (int j = 0; j < K; ++j) {
+          const float un = a.fixed_uniform ? 0x1p-25f : philox_uniform(word(1 + D + j));
+          v[j] = rad[j] * cosf(kTwoPi * un) * P.sm[j];
         }
-      }
+      } else {
+        // a lane draws dims rank·H .. rank·H + H − 1 (its own where the dims
+        // are the lanes'); a coupled chain's lanes then exchange them
+        constexpr int H = (D + G - 1) / G;
+        const int i0 = grp.rank * H;
+        float u1[H], u2[H], vr[H];
+        mjhmc_word_runs<H>(a, c, t, 1 + i0, 1 + D + i0, key, u1, u2);
 #pragma unroll
-      for (int i = 0; i < D; ++i)
-        v[i] = sqrtf(-2.0f * logf(un[i])) * cosf(kTwoPi * un[D + i]) * sqrt_mass<D>(mass, i);
+        for (int h = 0; h < H; ++h) {
+          const float sm = mass && i0 + h < D ? __ldg(mass + D + i0 + h) : 1.f;
+          vr[h] = sqrtf(-2.0f * logf(u1[h])) * cosf(kTwoPi * u2[h]) * sm;
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          v[j] = kTraj ? grp.from(vr[j % H], j / H) : P.own(j) ? vr[j] : 0.f;
+      }
+      prof.mark(ewprof::kMjRefresh);
     }
     valid = is_r ? 0.f : 1.f;
+    prof.mark(ewprof::kMjOther);
   }
 
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    a.xo[i * n + c] = x[i];
-    a.vo[i * n + c] = v[i];
-    a.go[i * n + c] = g[i];
-    a.wx[i * n + c] = wx[i];
-    a.wx2[i * n + c] = wx2[i];
+  for (int j = 0; j < K; ++j) {
+    if (!writes(j)) continue;
+    const int i = P.i0 + j;
+    a.xo[i * n + c] = x[j];
+    a.vo[i * n + c] = v[j];
+    a.go[i * n + c] = g[j];
+    a.wx[i * n + c] = wx[j];
+    a.wx2[i * n + c] = wx2[j];
   }
-  a.uo[c] = u;
-  a.hbo[c] = h_back;
-  a.valido[c] = valid;
-  a.w[c] = w;
-  a.evals[c] = evals;
+  if (grp.rank == 0) {
+    a.uo[c] = u;
+    a.hbo[c] = h_back;
+    a.valido[c] = valid;
+    a.w[c] = w;
+    a.evals[c] = evals;
+    prof.mark(ewprof::kMjOther);
+    prof.store(a.prof + (size_t)c * ewprof::kMjPhases);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -802,7 +1131,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
     return s;
   };
 
-  const Params<E, D> P(a);
+  const Owned<E, D, D> P(a, 0, mass);
   float xc[D], vc[D], gc[D];  // the integration frame: the current leaf
 #pragma unroll
   for (int i = 0; i < D; ++i) {
@@ -957,15 +1286,15 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
             vh[d] = Rn::sub(vc[d], Rn::mul(he, gc[d]));
             xc[d] = Rn::add(xc[d], Rn::mul(eps, mass_mul<Rn>(vh[d], mass, d)));
           }
-          grad<E, D, Rn>(xc, gc, P, a);
+          grad_u<E, D, D, 1, Rn>(xc, gc, P, Group<1>(), a);
 #pragma unroll
           for (int d = 0; d < D; ++d) vc[d] = Rn::sub(vh[d], Rn::mul(he, gc[d]));
         }
         prof.mark(kPhKickDrift);
         count_leaf<PROF>(prof, live);
-        const float ul = u_sum<E, D, Rn>(xc, P, a);
+        const float ul = u_chain<E, D, D, 1, Rn>(xc, P, Group<1>(), a);
         ++nl;
-        const float h = Rn::add(ul, halfsq<D, Rn>(vc, mass));
+        const float h = Rn::add(ul, halfsq_own<E, D, D, Rn>(vc, P, mass));
         const float dh = Rn::sub(h, h0);
         const bool div = fabsf(h) >= 1e30f || h != h || dh > kDivThreshold;
         prof.mark(kPhEnergy);
@@ -1107,8 +1436,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
 }  // namespace nuts
 
 // ---------------------------------------------------------------------------
-// Fused control HMC and MALT engines: the step bodies _make_step_control
-// (pallas_mjhmc.py:863-935) and _make_step_malt (:938-1008), the
+// Fused control HMC and MALT engines, the control and MALT bodies of the TPU
+// kernels _mjhmc_kernel and _mjhmc_stream_kernel (pallas_mjhmc.py:1451,
+// :1494): the step bodies _make_step_control (:863-935) and
+// _make_step_malt (:938-1008), the
 // engine-class baselines of the paper's comparison, with the same energies,
 // D, inverse mass and stream form. Both emit the post-transition x with
 // weight 1; h_back and valid pass through.
@@ -1119,20 +1450,28 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
 // H_L)) (non-finite H_L rejects), momentum flip on reject; M evals (2M
 // two-stage).
 //
-// MALT (beta carries the friction gamma): v0 ~ N(0, M) (tag 5), then M
-// OBABO steps — O: v <- eta v + sig N(0, M) (tag 6), eta = exp(-gamma
+// MALT (beta carries the friction gamma): v0 ~ N(0, M), then M OBABO
+// steps — O: v <- eta v + sig N(0, M) (both from tag 7), eta = exp(-gamma
 // eps/2), sig = sqrt(max(0, 1 - eta²)); BAB: one leapfrog step whose energy
 // error enters Delta; O — and one accept with p = min(1, exp(-Delta)); on
 // reject v = -v0. Leapfrog only, M evals.
 //
-// Design: one thread per chain, as mjhmc_kernel; one trajectory instead of
-// two, so half the FP32 and SFU work of an MJHMC iteration for control.
-// What bounds it: control, like MJHMC, the dependent sinf chain per step;
-// MALT draws (2M + 1)·D normals per iteration, each two Philox words, a
-// logf, a sqrtf and a cosf — at D=2 and M=10 that is 42 normals beside 20
-// gradient evaluations, so Philox and the SFU, not the energy, set its
-// time. Nothing is done about it yet: the counter-keyed draws are what
-// lets the plain version reproduce every word.
+// Design. Control (next in line for a redesign): one thread a chain, as
+// mjhmc_kernel was at first, one trajectory instead of two; bound by the
+// dependent sinf chain a step, as MJHMC at D 2. MALT (malt_kernel, as
+// redesigned for the H100): the first design drew (2M + 1)·D normals an
+// iteration on the chain's serial path, each from two Philox words with a
+// logf, a sqrtf and a cosf (42 at D 2, 170 at D 10 beside M gradients:
+// 64-85% of its cycles). Now a chain runs on a group of lanes (ew_lanes: 2
+// at D 2, 4 at D 10, 8 at D 50; the banana and the mixture one), each
+// drawing only its own dims' noise, both Box-Muller branches of a pair
+// (half the Philox words, logf and sqrtf a normal), a Philox block a dim
+// for two steps drawn ahead of them; the rough well's force and energy
+// share one sincosf (the same bits as sinf and cosf, chip_smoke.py phase
+// 2), and the separable energies sum Δ over the group once an iteration.
+// What bounds it now: the draws are still half its cycles on the rough
+// well and most of them at D 10 (PERF.md §6), beside the leapfrog's
+// dependent chain.
 namespace hmc {
 
 // the Metropolis uniform: word 2D of the family's counter
@@ -1155,7 +1494,7 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
   if (c >= a.n) return;
   const size_t n = a.n;
 
-  const Params<E, D> P(a);
+  const Owned<E, D, D> P(a, 0, a.mass);
   float x[D], v[D], g[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
@@ -1181,14 +1520,14 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
     draw_normals<D>(xi, a, c, t, 0u, kTagControl, key);
 #pragma unroll
     for (int i = 0; i < D; ++i) v[i] = sb1 * v[i] + sb * xi[i];
-    const float h0 = u + halfsq<D>(v, a.mass);
+    const float h0 = u + halfsq_own(v, P, a.mass);
 
     float xf[D], vf[D], gf[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) xf[i] = x[i], vf[i] = v[i], gf[i] = g[i];
     integrate<D, E>(xf, vf, gf, P, a, a.mass, a.two_stage);
-    const float uf = u_sum<E, D>(xf, P, a);
-    const float h_l = uf + halfsq<D>(vf, a.mass);
+    const float uf = u_chain<E, D, D, 1>(xf, P, Group<1>(), a);
+    const float h_l = uf + halfsq_own(vf, P, a.mass);
 
     const bool ok = fabsf(h_l) < 1e30f && h_l == h_l;  // divergence rejects
     const bool acc = mh_uniform<D>(a, c, t, kTagControl, key) < accept_prob(h0 - h_l, ok);
@@ -1233,28 +1572,78 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
   a.evals[c] = evals;
 }
 
-template <int D, int E>
+// Four normals of the MALT body (philox.cuh, tag 7): both Box-Muller
+// branches of the two pairs (words 0-1 and 2-3) of slot `slot`, z[0] = r0 cos
+// θ0, z[1] = r0 sin θ0, z[2] = r1 cos θ1, z[3] = r1 sin θ1 (r = sqrt(-2 ln
+// u1), θ = 2π u2, one logf, sqrtf and sincosf a pair); in fixed-uniform mode
+// every one the cosine-branch constant of u1 = u2 = 2⁻²⁵
+__device__ __forceinline__ void malt_normals4(const Args& a, uint32_t c, uint32_t t,
+                                              uint32_t slot, uint2 key, float (&z)[4]) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (!a.fixed_uniform) r = philox4x32_10(make_uint4(c, t, slot, kTagMaltPairs), key);
+  const uint32_t rw[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float u1 = a.fixed_uniform ? 0x1p-25f : philox_uniform(rw[2 * h]);
+    const float u2 = a.fixed_uniform ? 0x1p-25f : philox_uniform(rw[2 * h + 1]);
+    const float rad = sqrtf(-2.0f * logf(u1));
+    float sn, cs;
+    sincosf(kTwoPi * u2, &sn, &cs);
+    z[2 * h] = rad * cs;
+    z[2 * h + 1] = a.fixed_uniform ? z[2 * h] : rad * sn;
+  }
+}
+
+// The MALT body. Each chain runs on ew_lanes(kMalt, D, E) lanes (Group), each
+// owning K of its dims, and each lane draws its own dims' noise: dim i's
+// M + 1 Box-Muller pairs of an iteration are the slots i·B .. i·B + B − 1
+// (B = ceil((M + 1)/2); pair k < M gives leapfrog step k's two O-steps, its
+// cosine and sine branches, pair M the refresh), the Metropolis uniform
+// word 0 of slot D·B (philox.cuh, tag 7). Two steps take one Philox block a
+// dim, drawn at the top of the pair of steps, so the second step's pair
+// overlaps the first step's dependent chain. The separable energies keep
+// each dim's potential term beside its force (one sincosf on the rough
+// well) and each lane its share of Δ, added over the group once an
+// iteration: no lane waits on another inside a trajectory. The coupled
+// ones take the group's gradient with U beside it (grad_u; on one lane,
+// the banana's and the mixture's U from the gradient's residual and
+// logits). PROF stamps the phases into a.prof (nothing on the main path
+// runs it).
+template <int D, int E, bool PROF = false>
 __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+  constexpr int G = ew_lanes(kMalt, D, E), K = (D + G - 1) / G;
+  const int c = (int)((blockIdx.x * blockDim.x + threadIdx.x) / G);
   if (c >= a.n) return;
   const size_t n = a.n;
+  const float* mass = a.mass;
+  const Group<G> grp;
+  const Owned<E, D, K> P(a, grp.rank, mass);
+  PhaseClock<PROF, ewprof::kMaPhases, ewprof::kMaOther> prof;
+  prof.start();
 
   // v holds the fresh momentum v0 during an iteration and the kept
   // momentum (vl on accept, -v0 on reject) after it
-  const Params<E, D> P(a);
-  float x[D], v[D], g[D];
+  float x[K], v[K], g[K];
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    x[i] = a.x[i * n + c];
-    v[i] = a.v[i * n + c];
-    g[i] = a.g[i * n + c];
+  for (int j = 0; j < K; ++j) {
+    const int i = P.i0 + j;
+    x[j] = P.own(j) ? a.x[i * n + c] : 0.f;
+    v[j] = P.own(j) ? a.v[i * n + c] : 0.f;
+    g[j] = P.own(j) ? a.g[i * n + c] : 0.f;
   }
   float u = a.u[c];
+  // a separable energy: U's terms of the lane's dims at x
+  float u_mine = 0.f;
+  if constexpr (kSeparable<E>) {
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (P.own(j)) u_mine = u_mine + u_term<E>(x[j], P.p[j], a);
+  }
 
   float w = 0.f, wc = 0.f;
-  float wx[D], wxc[D], wx2[D], wx2c[D];
+  float wx[K], wxc[K], wx2[K], wx2c[K];
 #pragma unroll
-  for (int i = 0; i < D; ++i) wx[i] = wxc[i] = wx2[i] = wx2c[i] = 0.f;
+  for (int j = 0; j < K; ++j) wx[j] = wxc[j] = wx2[j] = wx2c[j] = 0.f;
   int evals = 0;
 
   const uint2 key = make_uint2(a.seed, 0u);
@@ -1262,72 +1651,140 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
   // rounded one operation at a time, as the plain version forms them
   const float eta = expf(__fmul_rn(__fmul_rn(-a.beta, eps), 0.5f));
   const float sig = sqrtf(fmaxf(0.f, __fsub_rn(1.f, __fmul_rn(eta, eta))));
-  constexpr uint32_t kBlocks = (2 * D + 3) / 4;  // slots of one O-step's noise
+  const int m = a.m;
+  const uint32_t nb = ((uint32_t)m + 2u) / 2u;  // slots of a dim's M + 1 pairs
 
   for (int t = 0; t < a.num_iters; ++t) {
-    draw_normals<D>(v, a, c, t, 0u, kTagMaltRefresh, key);  // v0 ~ N(0, M)
-    float xl[D], vl[D], gl[D], z[D];
+    prof.mark(ewprof::kMaOther);
+    // v0 ~ N(0, M): pair M's cosine branch; the Metropolis uniform
 #pragma unroll
-    for (int i = 0; i < D; ++i) xl[i] = x[i], vl[i] = v[i], gl[i] = g[i];
-    float ul = u, delta = 0.f;
-    for (int k = 0; k < a.m; ++k) {
-      draw_normals<D>(z, a, c, t, (2 * k) * kBlocks, kTagMaltNoise, key);  // O
-#pragma unroll
-      for (int i = 0; i < D; ++i) vl[i] = eta * vl[i] + sig * z[i];
-      const float h_in = ul + halfsq<D>(vl, a.mass);
-      stage<E, D, true>(xl, vl, gl, P, a.mass, he, eps, he, a);  // BAB
-      ul = u_sum<E, D>(xl, P, a);
-      delta = delta + (ul + halfsq<D>(vl, a.mass) - h_in);
-      draw_normals<D>(z, a, c, t, (2 * k + 1) * kBlocks, kTagMaltNoise, key);  // O
-#pragma unroll
-      for (int i = 0; i < D; ++i) vl[i] = eta * vl[i] + sig * z[i];
+    for (int j = 0; j < K; ++j) {
+      float z[4];
+      if (P.own(j)) malt_normals4(a, c, t, (P.i0 + j) * nb + m / 2, key, z);
+      v[j] = P.own(j) ? (m & 1 ? z[2] : z[0]) * P.sm[j] : 0.f;
     }
+    const float mh = a.fixed_uniform
+        ? 0x1p-25f
+        : philox_uniform(philox4x32_10(make_uint4(c, t, D * nb, kTagMaltPairs), key).x);
+    prof.mark(ewprof::kMaRefresh);
+
+    float xl[K], vl[K], gl[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) xl[j] = x[j], vl[j] = v[j], gl[j] = g[j];
+    float ul = u, delta = 0.f;
+    // a separable energy: Δ's share of the lane's dims, Σ over the steps of
+    // (U's terms + ½vᵀM⁻¹v after the step) − (the same before it), added
+    // over the group once, after the trajectory; and U's terms at xl
+    float d_mine = 0.f, ul_mine = u_mine;
+    auto half = [](float s) { return E == kRoughWell ? s : 0.5f * s; };
+    // one OBABO step from the normals z1 (first O) and z2 (second O) of each
+    // owned dim
+    auto step = [&](const float (&z1)[K], const float (&z2)[K]) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) vl[j] = eta * vl[j] + sig * (z1[j] * P.sm[j]);  // O
+      if constexpr (kSeparable<E>) {  // BAB, U's terms beside the forces
+        const float k_in = halfsq_own(vl, P, mass);
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const float term = stage1_u<E>(xl[j], vl[j], gl[j], P.p[j], P.im[j], he, eps, he, a);
+          if (P.own(j)) s = s + term;
+        }
+        prof.mark(ewprof::kMaKickGrad);
+        d_mine = d_mine + ((half(s) + halfsq_own(vl, P, mass)) - (half(ul_mine) + k_in));
+        ul_mine = s;
+      } else {
+        const float h_in = ul + grp.sum(halfsq_own(vl, P, mass));
+        ul = stage_group<E, D, K, G, true>(xl, vl, gl, P, grp, he, eps, he, a);
+        prof.mark(ewprof::kMaKickGrad);
+        delta = delta + (ul + grp.sum(halfsq_own(vl, P, mass)) - h_in);
+      }
+      prof.mark(ewprof::kMaEnergy);
+#pragma unroll
+      for (int j = 0; j < K; ++j) vl[j] = eta * vl[j] + sig * (z2[j] * P.sm[j]);  // O
+    };
+    // a block of each owned dim's pairs k and k + 1
+    auto draw = [&](int k, float (&za)[K], float (&zb)[K], float (&zc)[K], float (&zd)[K]) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        float z[4] = {0.f, 0.f, 0.f, 0.f};
+        if (P.own(j)) malt_normals4(a, c, t, (P.i0 + j) * nb + k / 2, key, z);
+        za[j] = z[0], zb[j] = z[1], zc[j] = z[2], zd[j] = z[3];
+      }
+      prof.mark(ewprof::kMaDraws);
+    };
+    int k = 0;
+    for (; k + 1 < m; k += 2) {
+      float z0[K], z1[K], z2[K], z3[K];
+      draw(k, z0, z1, z2, z3);
+      step(z0, z1);
+      step(z2, z3);
+    }
+    if (k < m) {
+      float z0[K], z1[K], z2[K], z3[K];
+      draw(k, z0, z1, z2, z3);
+      step(z0, z1);
+    }
+    if constexpr (kSeparable<E>) {
+      delta = grp.sum(d_mine);
+      if (m > 0) ul = u_separable<E>(ul_mine, grp);
+    }
+    prof.mark(ewprof::kMaOther);
 
     const bool ok = fabsf(delta) < 1e30f && delta == delta;  // divergence rejects
-    const bool acc = mh_uniform<D>(a, c, t, kTagMaltRefresh, key) < accept_prob(-delta, ok);
+    const bool acc = mh < accept_prob(-delta, ok);
     if (acc) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) x[i] = xl[i], v[i] = vl[i], g[i] = gl[i];
+      for (int j = 0; j < K; ++j) x[j] = xl[j], v[j] = vl[j], g[j] = gl[j];
       u = ul;
+      u_mine = ul_mine;
     } else {
 #pragma unroll
-      for (int i = 0; i < D; ++i) v[i] = -v[i];
+      for (int j = 0; j < K; ++j) v[j] = -v[j];
     }
 
-    evals += a.m;
+    evals += m;
     kadd(w, wc, 1.f);
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      kadd(wx[i], wxc[i], x[i]);
-      kadd(wx2[i], wx2c[i], x[i] * x[i]);
+    for (int j = 0; j < K; ++j) {
+      kadd(wx[j], wxc[j], x[j]);
+      kadd(wx2[j], wx2c[j], x[j] * x[j]);
     }
     if (a.xs && (t + 1) % a.thin == 0) {
       const size_t e = t / a.thin;
 #pragma unroll
-      for (int i = 0; i < D; ++i) a.xs[(e * D + i) * n + c] = x[i];
-      a.ws[e * n + c] = 1.f;
-      a.es[e * n + c] = evals;
+      for (int j = 0; j < K; ++j)
+        if (P.own(j)) a.xs[(e * D + P.i0 + j) * n + c] = x[j];
+      if (grp.rank == 0) {
+        a.ws[e * n + c] = 1.f;
+        a.es[e * n + c] = evals;
+      }
     }
+    prof.mark(ewprof::kMaAccept);
   }
 
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    a.xo[i * n + c] = x[i];
-    a.vo[i * n + c] = v[i];
-    a.go[i * n + c] = g[i];
-    a.wx[i * n + c] = wx[i];
-    a.wx2[i * n + c] = wx2[i];
+  for (int j = 0; j < K; ++j) {
+    if (!P.own(j)) continue;
+    const int i = P.i0 + j;
+    a.xo[i * n + c] = x[j];
+    a.vo[i * n + c] = v[j];
+    a.go[i * n + c] = g[j];
+    a.wx[i * n + c] = wx[j];
+    a.wx2[i * n + c] = wx2[j];
   }
-  a.uo[c] = u;
-  a.hbo[c] = a.h_back[c];
-  a.valido[c] = a.valid[c];
-  a.w[c] = w;
-  a.evals[c] = evals;
+  if (grp.rank == 0) {
+    a.uo[c] = u;
+    a.hbo[c] = a.h_back[c];
+    a.valido[c] = a.valid[c];
+    a.w[c] = w;
+    a.evals[c] = evals;
+    prof.mark(ewprof::kMaOther);
+    prof.store(a.prof + (size_t)c * ewprof::kMaPhases);
+  }
 }
 
 }  // namespace hmc
-
-enum Variant { kMjhmc = 0, kNuts = 1, kControl = 2, kMalt = 3 };
 
 template <int V, int D, int E, bool BR>
 void (*kernel_of(bool emit))(Args) {
@@ -1372,6 +1829,17 @@ cudaError_t launch_nuts(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// Launch an instance of the MJHMC or MALT body (V) at D dims on energy E:
+// ew_lanes lanes a chain, in blocks of ew_threads_for threads
+template <int V, int D, int E>
+cudaError_t launch_grouped(void (*kernel)(Args), const Args& a, cudaStream_t s) {
+  constexpr int lanes = ew_lanes(V, D, E);
+  const int threads = ew_threads_for(lanes, a.n, sm_count());
+  const long long blocks = ((long long)a.n * lanes + threads - 1) / threads;
+  kernel<<<(unsigned)blocks, threads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
 // Launch the instance of step body V at D dims on energy E. BR (the
 // branches compiled in: a mass or the two-stage integrator for MJHMC, a
 // mass for NUTS) splits the MJHMC and NUTS instances; control and MALT have
@@ -1380,9 +1848,11 @@ template <int V, int D, int E, bool BR>
 cudaError_t launch_instance(const Args& a, bool emit, cudaStream_t s) {
   if constexpr (V == kNuts) {
     return emit ? launch_nuts<D, E, true, BR>(a, s) : launch_nuts<D, E, false, BR>(a, s);
-  } else {
+  } else if constexpr (V == kControl) {
     kernel_of<V, D, E, BR>(emit)<<<(a.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(a);
     return cudaGetLastError();
+  } else {
+    return launch_grouped<V, D, E>(kernel_of<V, D, E, BR>(emit), a, s);
   }
 }
 
@@ -1408,6 +1878,18 @@ cudaError_t nuts_tile(int max_depth, int n, int* out) {
 template <int D, int E>
 cudaError_t launch_nuts_prof(const Args& a, cudaStream_t s) {
   return launch_nuts<D, E, false, false, true>(a, s);
+}
+
+// The PROF instance of the MJHMC (V kMjhmc; BR: the branches compiled in) or
+// MALT (V kMalt) run of D dims on energy E: the phase breakdown of every
+// chain into a.prof (ewprof); nothing on the main path runs it
+template <int V, int D, int E, bool BR>
+cudaError_t launch_ew_prof(const Args& a, cudaStream_t s) {
+  static_assert(V == kMjhmc || V == kMalt, "MJHMC and MALT have PROF instances");
+  if constexpr (V == kMjhmc)
+    return launch_grouped<V, D, E>(mjhmc_kernel<D, E, false, BR, true>, a, s);
+  else
+    return launch_grouped<V, D, E>(hmc::malt_kernel<D, E, true>, a, s);
 }
 
 // The D=50 and zoo instances, each compiled in the source named beside it
@@ -1485,5 +1967,14 @@ extern template cudaError_t nuts_tile<10, kEightSchoolsNoncentered, true>(int, i
 // nuts_engine_prof.cu: the PROF instances (gauss2d and the funnel)
 extern template cudaError_t launch_nuts_prof<2, kGaussian>(const Args&, cudaStream_t);
 extern template cudaError_t launch_nuts_prof<10, kFunnel>(const Args&, cudaStream_t);
+// ew_engine_prof.cu: the MJHMC and MALT PROF instances (rough well D 2, the
+// funnel)
+using ProfLaunch = cudaError_t(const Args&, cudaStream_t);
+extern template ProfLaunch launch_ew_prof<kMjhmc, 2, kRoughWell, false>;
+extern template ProfLaunch launch_ew_prof<kMalt, 2, kRoughWell, true>;
+extern template ProfLaunch launch_ew_prof<kMjhmc, 10, kFunnel, false>;
+extern template ProfLaunch launch_ew_prof<kMalt, 10, kFunnel, true>;
+// ew_engine_prof_d50.cu: MJHMC with the branches on gauss50d
+extern template ProfLaunch launch_ew_prof<kMjhmc, 50, kGaussian, true>;
 
 }  // namespace mjhmc

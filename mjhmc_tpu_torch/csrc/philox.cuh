@@ -18,12 +18,19 @@
 // - tag 4, control HMC: slot b holds words 4b..4b+3 of the iteration's
 //   2d + 1: dim i's corruption normal xi takes words i and d+i, the
 //   Metropolis uniform word 2d;
-// - tag 5, MALT refresh: the same layout, dim i's fresh momentum from words
-//   i and d+i, the Metropolis uniform word 2d;
-// - tag 6, MALT O-step noise: O-step o (0..2M-1, two per leapfrog step)
-//   takes slots o*B..o*B+B-1, B = ceil(2d/4), dim i's normal from words i
-//   and d+i of its 2d.
-// Every normal is Box-Muller's cosine branch, sqrt(-2 ln u1)*cos(2 pi u2).
+// - tag 5, MALT refresh (the matmul kernel): the same layout, dim i's fresh
+//   momentum from words i and d+i, the Metropolis uniform word 2d;
+// - tag 6, MALT O-step noise (the matmul kernel): O-step o (0..2M-1, two
+//   per leapfrog step) takes slots o*B..o*B+B-1, B = ceil(2d/4), dim i's
+//   normal from words i and d+i of its 2d;
+// - tag 7, MALT (the elementwise kernel): dim i's M + 1 Box-Muller pairs
+//   are slots i*B..i*B+B-1, B = ceil((M+1)/2), pair p in words 2(p%2) (u1)
+//   and 2(p%2)+1 (u2) of slot i*B + p/2; pair k < M gives leapfrog step k's
+//   two O-steps, the first its cosine branch, the second its sine branch,
+//   sqrt(-2 ln u1)*sin(2 pi u2); pair M gives the refresh, its cosine
+//   branch; the Metropolis uniform is word 0 of slot d*B. In fixed-uniform
+//   mode every one of these normals is the cosine branch's.
+// Every other normal is Box-Muller's cosine branch, sqrt(-2 ln u1)*cos(2 pi u2).
 #pragma once
 
 #include <stdint.h>
@@ -43,6 +50,7 @@ enum PhiloxTag : uint32_t {
   kTagControl = 4,
   kTagMaltRefresh = 5,
   kTagMaltNoise = 6,
+  kTagMaltPairs = 7,
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {

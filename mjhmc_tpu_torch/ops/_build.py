@@ -56,12 +56,14 @@ MM_LAUNCH_ARGTYPES = (
     + [_P, _I, _P]  # mass, two_stage, scratch (NUTS)
     + _STATE_AND_RUN
 )
-#: argument types of ``mjhmc_nuts_profile``, ``mjhmc_mm_nuts_profile`` and
-#: ``mjhmc_mm_profile``: the launch's, then the PROF instance's output
+#: argument types of ``mjhmc_nuts_profile``, ``mjhmc_ew_profile``,
+#: ``mjhmc_mm_nuts_profile`` and ``mjhmc_mm_profile``: the launch's, then the
+#: PROF instance's output
 #: buffer; of ``mjhmc_nuts_tile``, ``mjhmc_mm_nuts_tile`` and ``mjhmc_mm_tile``
 PROFILE_ARGTYPES = LAUNCH_ARGTYPES + [_P]
 MM_PROFILE_ARGTYPES = MM_LAUNCH_ARGTYPES + [_P]
 NUTS_TILE_ARGTYPES = [_I, _I, _I, _I, _I, _P]  # ndims, energy, mass, max_depth, n, out
+EW_TILE_ARGTYPES = [_I, _I, _I, _I, _P]  # variant, ndims, energy, n, out
 MM_NUTS_TILE_ARGTYPES = [_I, _I, _I, _P]  # energy, precision, max_depth, out
 MM_TILE_ARGTYPES = [_I, _I, _I, _I, _P]  # energy, precision, variant, branches, out
 #: argument types of the ceiling probes (csrc/ceilings.cu)
@@ -142,7 +144,10 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for fn, argtypes in ((lib.mjhmc_engine_launch, LAUNCH_ARGTYPES),
                          (lib.mjhmc_nuts_profile, PROFILE_ARGTYPES),
+                         (lib.mjhmc_ew_profile, PROFILE_ARGTYPES),
                          (lib.mjhmc_nuts_tile, NUTS_TILE_ARGTYPES),
+                         (lib.mjhmc_ew_tile, EW_TILE_ARGTYPES),
+                         (lib.mjhmc_sincos_probe, [_P, _P, _I, _P]),
                          (lib.mjhmc_mm_engine_launch, MM_LAUNCH_ARGTYPES),
                          (lib.mjhmc_mm_nuts_profile, MM_PROFILE_ARGTYPES),
                          (lib.mjhmc_mm_profile, MM_PROFILE_ARGTYPES),

@@ -92,7 +92,7 @@ NUTS_MM_MAX_DEPTH = 10
 NUTS_DIV_THRESHOLD = 1000.0
 #: Philox counter tags (csrc/philox.cuh)
 TAG_NUTS_MOMENTUM, TAG_NUTS_ROUND, TAG_NUTS_LEAF = 1, 2, 3
-TAG_CONTROL, TAG_MALT_REFRESH, TAG_MALT_NOISE = 4, 5, 6
+TAG_CONTROL, TAG_MALT_REFRESH, TAG_MALT_NOISE, TAG_MALT_PAIRS = 4, 5, 6, 7
 #: the step bodies and their numbers in both kernels (csrc/mjhmc_engine.cuh,
 #: csrc/mjhmc_mm_engine.cuh)
 KERNEL_VARIANTS = {"mjhmc": 0, "nuts": 1, "control": 2, "malt": 3}
@@ -1013,10 +1013,35 @@ def _reference_control(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta
     return acc.out(x, v, g, u, h_back, back_valid)
 
 
+def malt_pair_draws(seed: int, t: int, n: int, d: int, m: int, device) -> tuple:
+    """The elementwise MALT body's draws of iteration ``t`` (csrc/philox.cuh,
+    tag 7): (v0 (d, n), the 2m O-step normals (2m, d, n) in trajectory order,
+    the Metropolis uniform (n,)), unscaled by √M. Dim i's m + 1 Box-Muller
+    pairs are slots i·B .. i·B + B − 1 (B = ceil((m + 1)/2)), pair p in words
+    2(p % 2) and 2(p % 2) + 1 of slot i·B + p // 2; pair k < m gives step k's
+    two O-steps (its cosine, then its sine branch), pair m the refresh (its
+    cosine branch); the Metropolis uniform is word 0 of slot d·B."""
+    nb = (m + 2) // 2
+    kw = dict(dtype=torch.int64, device=device)
+    counter = (torch.arange(n, **kw)[None, :], t, torch.arange(d * nb + 1, **kw)[:, None],
+               TAG_MALT_PAIRS)
+    words = torch.stack(philox4x32(counter, (int(seed) & _MASK32, 0)), dim=1)  # (slots, 4, n)
+    un = _uniform_of(words[: d * nb]).reshape(d, 2 * nb, 2, n)
+    rad = torch.sqrt(-2.0 * torch.log(un[:, :, 0]))
+    ang = (2.0 * math.pi) * un[:, :, 1]
+    zc, zs = rad * torch.cos(ang), rad * torch.sin(ang)  # (d, pairs, n)
+    o_steps = torch.stack([zc[:, :m], zs[:, :m]], dim=2).permute(1, 2, 0, 3)
+    return zc[:, m], o_steps.reshape(2 * m, d, n), _uniform_of(words[d * nb, 0])
+
+
 @_full_f32_matmul()
 def _reference_malt(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                     num_iters, m, thin, emit, fixed_uniform, inv_mass, integrator):
-    """The MALT step body ``_make_step_malt``: ``beta`` is the friction γ."""
+    """The MALT step body ``_make_step_malt``: ``beta`` is the friction γ.
+    The draws are each kernel's: the matmul kernel's (tags 5 and 6, every
+    normal a cosine branch) for a matmul spec, ``malt_pair_draws`` (tag 7)
+    for an elementwise one; in fixed-uniform mode every normal is the cosine
+    branch of u1 = u2 = 2⁻²⁵ in both."""
     if integrator != "leapfrog":
         raise NotImplementedError(_MALT_LEAPFROG_ONLY)
     d, n = x.shape
@@ -1032,23 +1057,28 @@ def _reference_malt(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     ones = torch.ones_like(u)
     refresh = _Draws(seed, num_iters, n, 2 * d + 1, dev, fixed_uniform, TAG_MALT_REFRESH)
     nblocks = (2 * d + 3) // 4  # slots of one O-step's 2d words
+    pairs = not isinstance(spec, MATMUL_SPECS)
 
-    def noise(un):
-        z = _box_muller(un, d)
+    def scaled(z):
         return z if sm is None else z * sm
 
     for t in range(num_iters):
-        unif = refresh(t)
-        if fixed_uniform:
-            o_unif = unif[None, :2 * d].expand(2 * m, 2 * d, n)
+        if pairs and not fixed_uniform:
+            v0, o_steps, mh = malt_pair_draws(seed, t, n, d, m, dev)
         else:
-            o_unif = philox_uniforms(seed, range(t, t + 1), n, 2 * m * 4 * nblocks, dev,
-                                     tag=TAG_MALT_NOISE)[0].reshape(2 * m, 4 * nblocks, n)
-        v0 = noise(unif)
+            unif = refresh(t)
+            v0, mh = _box_muller(unif, d), unif[2 * d]
+            if fixed_uniform:
+                o_steps = v0[None].expand(2 * m, d, n)
+            else:
+                o_unif = philox_uniforms(seed, range(t, t + 1), n, 2 * m * 4 * nblocks, dev,
+                                         tag=TAG_MALT_NOISE)[0].reshape(2 * m, 4 * nblocks, n)
+                o_steps = [_box_muller(o, d) for o in o_unif]
+        v0 = scaled(v0)
         xl, vl, gl, ul = x, v0, g, u
         delta = torch.zeros_like(u)
         for k in range(m):
-            vl = eta * vl + sig * noise(o_unif[2 * k])  # O
+            vl = eta * vl + sig * scaled(o_steps[2 * k])  # O
             h_in = ul + _halfsq(vl, im)
             vh = vl - he * gl  # B
             xl = xl + epsilon * (vh if im is None else im * vh)  # A
@@ -1056,8 +1086,8 @@ def _reference_malt(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             vl = vh - he * gl  # B
             ul = spec.u_sum(xl, *params)
             delta = delta + (ul + _halfsq(vl, im) - h_in)
-            vl = eta * vl + sig * noise(o_unif[2 * k + 1])  # O
-        accept = unif[2 * d] < _accept(-delta, delta)
+            vl = eta * vl + sig * scaled(o_steps[2 * k + 1])  # O
+        accept = mh < _accept(-delta, delta)
         x = torch.where(accept, xl, x)
         v = torch.where(accept, vl, -v0)
         u = torch.where(accept, ul, u)
@@ -1442,7 +1472,8 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         scratch = nuts_tree_scratch(d, m, n, x.device) if variant == "nuts" else None
         fn, extra = lib.mjhmc_engine_launch, ()
         if prof is not None:
-            fn, extra = lib.mjhmc_nuts_profile, (prof.data_ptr(),)
+            fn = lib.mjhmc_nuts_profile if variant == "nuts" else lib.mjhmc_ew_profile
+            extra = (prof.data_ptr(),)
         rc = fn(KERNEL_VARIANTS[variant], d, spec.energy_id, params.data_ptr(),
                 *spec.constants(), *branches, None if scratch is None else scratch.data_ptr(),
                 *ptrs, *tail, *extra)
@@ -1458,6 +1489,65 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
 NUTS_EW_PROF_PHASES = ("kick_drift_gradient", "energy_halfsq", "multinomial_draw",
                        "stack_uturn", "round", "iteration", "idle", "other", "leaves",
                        "leaf_slots")
+
+
+#: threads a block of the elementwise MJHMC, control and MALT kernels at
+#: most (csrc/mjhmc_engine.cuh, kThreads)
+EW_THREADS = 64
+
+
+def ew_lanes(variant: str, spec, d: int) -> int:
+    """Lanes a chain of the elementwise MJHMC or MALT body at ``d`` dims
+    (mirror of ew_lanes in csrc/mjhmc_engine.cuh). MALT: its dims over 8
+    lanes at D 50, 4 at D 10, the rough well's and the Gaussian's over 2 at
+    D 2, else one thread a chain. MJHMC: the rough well's and the Gaussian's
+    dims over 8 lanes at D 50; a coupled energy's two trajectories on 2
+    lanes at D 10; else one thread a chain."""
+    separable = isinstance(spec, (RoughWellSpec, GaussianSpec))
+    if variant == "mjhmc":
+        return (8 if d >= 50 else 1) if separable else (2 if d >= 10 else 1)
+    return 8 if d >= 50 else 4 if d >= 10 else 2 if separable and d >= 2 else 1
+
+
+def ew_threads(lanes: int, n: int, sms: int) -> int:
+    """Threads a block of the elementwise MJHMC or MALT body for ``n`` chains
+    of ``lanes`` lanes on a card of ``sms`` SMs (mirror of ew_threads_for):
+    the fewest, a power of two from the group up to EW_THREADS, that put at
+    most one block on each SM sub-partition, else EW_THREADS."""
+    t = lanes
+    while t < EW_THREADS and -(-n * lanes // t) > SM_SUBPARTITIONS * sms:
+        t *= 2
+    return t
+
+
+def ew_tile(variant: str, spec, d: int, n: int) -> tuple:
+    """(lanes a chain, threads a block) of the elementwise MJHMC or MALT body
+    of ``spec`` at ``d`` dims for ``n`` chains, as the built library reports
+    them (``mjhmc_ew_tile``; ``ew_lanes`` and ``ew_threads`` mirror them)."""
+    from mjhmc_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 2)()
+    rc = _build.load().mjhmc_ew_tile(KERNEL_VARIANTS[variant], d, spec.energy_id, n, out)
+    if rc != 0:
+        raise RuntimeError(f"mjhmc_ew_tile: no grouping of {variant} (CUDA error {rc})")
+    return tuple(out)
+
+
+def sincos_probe(x: Tensor) -> Tensor:
+    """(4, n): sinf, cosf and sincosf's sine and cosine of each float of the
+    CUDA tensor ``x``, from the library's probe kernel (the rough well's MALT
+    force and energy share one sincosf; this says whether it gives the
+    separate functions' bits). A measurement, not a main-path call."""
+    from mjhmc_tpu_torch.ops import _build
+
+    x = x.contiguous()
+    out = torch.empty((4, x.numel()), dtype=torch.float32, device=x.device)
+    rc = _build.load().mjhmc_sincos_probe(
+        x.data_ptr(), out.data_ptr(), x.numel(),
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"mjhmc_sincos_probe failed: CUDA error {rc}")
+    return out
 
 
 def nuts_tile(spec, d: int, max_depth: int, n: int, mass: bool = False) -> tuple:
@@ -1488,6 +1578,34 @@ def nuts_profile(spec, x, v, g, u, seed, epsilon, num_iters, max_depth) -> Tenso
     z = torch.zeros_like(u)
     _launch(spec, x, v, g, u, z, z, seed, epsilon, 0.0, num_iters, max_depth, 1, None,
             False, "nuts", None, "leapfrog", prof=prof)
+    return prof
+
+
+#: the phases of the elementwise MJHMC and MALT runs' PROF instances
+#: (csrc/mjhmc_engine.cuh, ewprof): cycles of each, then (MJHMC) the
+#: chain-iterations that began with an invalid cache and those whose warp held
+#: any such chain
+EW_PROF_PHASES = {
+    "mjhmc": ("trajectories", "energies_rates_choice", "refresh", "kahan_emission", "other",
+              "invalid_iterations", "warp_invalid_iterations"),
+    "malt": ("refresh_draw", "o_step_draws", "kick_drift_gradient", "energy", "accept_kahan",
+             "other"),
+}
+
+
+def ew_profile(spec, variant, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
+               num_iters, m, inv_mass=None) -> Tensor:
+    """The phase breakdown of an elementwise MJHMC or MALT run from its PROF
+    instance (CUDA tensors; the cases the C entry ``mjhmc_ew_profile`` has:
+    the rough well at D 2 and the funnel without a mass, MJHMC on the D=50
+    Gaussian with one), in the main path's blocks: an int64 (n,
+    len(EW_PROF_PHASES[variant])) tensor of each chain's clock64() cycles
+    per phase and its counters. A measurement, not a main-path call: the
+    run's outputs are dropped and no launch is counted."""
+    prof = torch.zeros((x.shape[1], len(EW_PROF_PHASES[variant])), dtype=torch.int64,
+                       device=x.device)
+    _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta, num_iters, m, 1, None,
+            False, variant, inv_mass, "leapfrog", prof=prof)
     return prof
 
 
