@@ -30,12 +30,15 @@ then two processes (this script started again with ``--phase35-rank``)
 sharing the card under gloo, each rank against a direct launch at its
 offset seed. Phase 36 prints the matmul NUTS kernel's per-leaf phase
 breakdown at the three presets, the elementwise NUTS kernel's on gauss2d
-and the funnel, and mm_kernel's per-iteration one (MJHMC and MALT on sparse
-coding, MALT on logreg), from their PROF instances (clock64() stamps), and
-phase 2 holds the NUTS, elementwise NUTS and mm_kernel tiles the library
-reports (chains, threads and shared bytes a block) to the wrappers'
-mirror. Phases 9-10 also run elementwise NUTS at its depth cap (12, and
-``CudaNUTS`` at 11 and 12) bit for bit against its plain version, check
+and the funnel, mm_kernel's per-iteration one (MJHMC and MALT on sparse
+coding, MALT on logreg) and the elementwise MJHMC, control and MALT
+kernels' per-iteration ones, from their PROF instances (clock64() stamps),
+and phase 2 holds the NUTS, elementwise NUTS and mm_kernel tiles the
+library reports (chains, threads and shared bytes a block) and the
+elementwise MJHMC, control and MALT groupings (lanes a chain, threads a
+block) to the wrappers' mirror. Phases 9-10 also run elementwise NUTS at
+its depth cap (12, and ``CudaNUTS`` at 11 and 12) bit for bit against its
+plain version, check
 that a real share of its trees entered their last round, and see the
 matmul kernel refuse 11; phases 11 and 29
 print the share of the warps' leaf slots that ran a live leaf. Phase 15 also runs each matmul preset's MJHMC, control and MALT at
@@ -715,7 +718,12 @@ def bound(cname, variant, d, k, n, iters, grads, emits=0, stub=False, passes=0,
         per_iter = 2 * u_ops + 6 * d + kahan + 30 + PHILOX_OPS / 4 + refresh * d * NORMAL_OPS
         ops = grads * g + n * iters * per_iter
     elif variant == "control":
-        per_iter = u_ops + 7 * d + kahan + 20 + d * NORMAL_OPS + PHILOX_OPS
+        # the elementwise kernel draws both Box-Muller branches of a pair,
+        # ceil(d/2) pairs, the Metropolis uniform a word of their last block;
+        # the matmul kernel d cosine branches and a block for the uniform
+        draws = (d * NORMAL_OPS + PHILOX_OPS if on_matmul_kernel(cname)
+                 else (d + 1) // 2 * PAIR_OPS + PHILOX_OPS / 4)
+        per_iter = u_ops + 7 * d + kahan + 20 + draws
         ops = grads * g + n * iters * per_iter
     elif variant == "malt":
         m = grads / (n * iters)
@@ -822,9 +830,13 @@ def slice_cases(cm):
         ("mjhmc", "gauss2d", 10_240, 0.1, {}),
         ("mjhmc inv_mass", "gauss2d", 10_240, 0.1, dict(inv_mass=(1.0, 100.0))),
         ("malt", "gauss2d", 10_240, 1.0, dict(variant="malt")),
+        ("control", "gauss2d", 10_240, 0.2, dict(variant="control")),
         ("mjhmc", "rough_well_d50", 4096, 0.1, {}),
         ("mjhmc inv_mass", "rough_well_d50", 4096, 0.1, dict(inv_mass=var_rw50)),
         ("malt inv_mass", "rough_well_d50", 4096, 1.0, dict(variant="malt", inv_mass=var_rw50)),
+        ("control", "rough_well_d50", 4096, 0.2, dict(variant="control")),
+        ("control two_stage inv_mass", "rough_well_d50", 4096, 0.2,
+         dict(variant="control", integrator="two_stage", inv_mass=var_rw50)),
     ):
         # two-stage rough-well trajectories take 2M sin-laden gradients per
         # half, the D=50 rough well's 50 sin-laden dims: their single chains
@@ -1108,6 +1120,11 @@ def slice_timing(cm, card):
         ("two_stage", "product_of_t", 4096, 0.1, dict(integrator="two_stage")),
         ("inv_mass", "gauss50d", 4096, 0.1, dict(inv_mass=mass_of["gauss50d"])),
         ("inv_mass", "product_of_t", 4096, 0.1, dict(inv_mass=mass_of["product_of_t"])),
+        # control's branch instances on the elementwise kernel
+        ("control two_stage", "rough_well", 10_000, 0.1,
+         dict(variant="control", integrator="two_stage")),
+        ("control inv_mass", "gauss50d", 4096, 0.1,
+         dict(variant="control", inv_mass=mass_of["gauss50d"])),
     ):
         cfg = BENCHMARK_CONFIGS[cname]
         dist = cfg.make_distribution()
@@ -1781,8 +1798,8 @@ def zoo_cli(cm, cli):
 def zoo_timing(cm, card):
     """Phase 29: ms per iteration (CUDA events) of every zoo instance, run
     and stream, through the engines at the presets' widths and ε (NUTS at
-    max_depth 8), beside the plain version; the branch instances (MJHMC
-    with a mass, NUTS with a mass) as "<body> inv_mass". Eight schools
+    max_depth 8), beside the plain version; the branch instances (MJHMC,
+    control and NUTS with a mass) as "<body> inv_mass". Eight schools
     non-centered's launches are counted here, from 0 just before each
     engine. Returns {(key, energy): (run ms, stream ms, plain run ms, plain
     stream ms, gradients, iterations, chains, (run, stream) launches)}."""
@@ -1792,7 +1809,7 @@ def zoo_timing(cm, card):
     for name, (dist, cfg) in zoo_presets().items():
         n = cfg.nbatch
         mass = tuple(float(v) for v in torch.linspace(0.5, 1.5, dist.ndims))
-        for key in ZOO_BODIES + ("mjhmc inv_mass", "nuts inv_mass"):
+        for key in ZOO_BODIES + ("mjhmc inv_mass", "control inv_mass", "nuts inv_mass"):
             body = key.split()[0]
             nuts = body == "nuts"
             m = 8 if nuts else cfg.num_leapfrog_steps
@@ -2414,15 +2431,15 @@ def ew_nuts_breakdown(cm, card):
 
 
 def ew_body_breakdown(cm, card):
-    """Phase 36: the elementwise MJHMC and MALT runs' phase breakdowns from
-    their PROF instances (``bench_mm_ab.run_ew_body_profiles``: MJHMC and
-    MALT on the rough well, 10,000 chains, and the funnel, 1,024; MJHMC with
-    a mass on gauss50d, 4,096; every chain's clock64() stamps, by the first
-    lane of its group, from the state two iterations in): each phase's
-    share of the chains' cycles and its cycles a chain-iteration, MJHMC's
-    shares of chain-iterations that began with an invalid cache and of
-    those whose warp held one, the lanes a chain and threads a block, and
-    the PROF run's time beside the plain instance's."""
+    """Phase 36: the elementwise MJHMC, control and MALT runs' phase
+    breakdowns from their PROF instances (``bench_mm_ab.run_ew_body_profiles``:
+    each body on the rough well, 10,000 chains, and the funnel, 1,024; MJHMC
+    and control with a mass on gauss50d, 4,096; every chain's clock64()
+    stamps, by the first lane of its group, from the state two iterations
+    in): each phase's share of the chains' cycles and its cycles a
+    chain-iteration, MJHMC's shares of chain-iterations that began with an
+    invalid cache and of those whose warp held one, the lanes a chain and
+    threads a block, and the PROF run's time beside the plain instance's."""
     from mjhmc_tpu_torch.bench_mm_ab import ew_nuts_dist, run_ew_body_profiles
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2869,21 +2886,22 @@ def main() -> int:
     phase("2 build", f"elementwise NUTS tiles (threads, shared bytes a block; blocks an SM "
           f"holds) on {sms} SMs, library = mirror: "
           f"{json.dumps(tiles)}")
-    # the MJHMC and MALT bodies' grouping at the presets' chains (lanes a
-    # chain, threads a block) as the library reports it, against the mirror
+    # the MJHMC, control and MALT bodies' grouping at the presets' chains
+    # (lanes a chain, threads a block) as the library reports it, against
+    # the mirror
     tiles = {}
     ew += [("rough_well 10,000", RoughWell(), 10_000), ("rough_well 102,400", RoughWell(), 102_400)]
     for cname, dist, n in ew:
         spec, d = cm.energy_spec_for(dist), dist.ndims
-        for body in ("mjhmc", "malt"):
+        for body in ("mjhmc", "control", "malt"):
             got = cm.ew_tile(body, spec, d, n)
             lanes = cm.ew_lanes(body, spec, d)
             want = (lanes, cm.ew_threads(lanes, n, sms))
             check(got == want, f"{body} grouping of {cname} ({n} chains): the library's {got}, "
                   f"the mirror's {want}")
             tiles[f"{body} {cname} {n}"] = got
-    phase("2 build", f"elementwise MJHMC and MALT grouping (lanes a chain, threads a block) on "
-          f"{sms} SMs, library = mirror: {json.dumps(tiles)}")
+    phase("2 build", f"elementwise MJHMC, control and MALT grouping (lanes a chain, threads a "
+          f"block) on {sms} SMs, library = mirror: {json.dumps(tiles)}")
     # the rough well's MALT force and energy take one sincosf: its bits
     # against sinf's and cosf's over the arguments x k1 reaches and past them
     for lo, hi in ((-4.0, 4.0), (-200.0, 200.0), (-1e5, 1e5)):
@@ -3253,14 +3271,32 @@ def main() -> int:
               bound("product_of_t", "mjhmc", 36, 36, 4096, 1000, 10 * 4096 * 1000, stub=True),
               variant=STUB_VARIANT, shape="product_of_t, 4,096 chains, M 10, ms per iteration"),
     ]
+
+    def control_branches(stream):
+        """Phase 20's control branch instances on the elementwise kernel:
+        two-stage on the rough well, a mass on gauss50d, each with its bound."""
+        out = {}
+        for key, cname, mass in (("control two_stage", "rough_well", False),
+                                 ("control inv_mass", "gauss50d", True)):
+            run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n = slice_ms[(key, cname)]
+            d, k = shapes[cname]
+            tag = key.split()[1]
+            out[f"{tag}_ms"] = stream_ms if stream else run_ms
+            out[f"{tag}_plain_ms"] = plain_stream_ms if stream else plain_ms
+            out[f"{tag}_bound_ms"], out[f"{tag}_bound_by"] = bound(
+                cname, "control", d, k, n, iters, grads, iters if stream else 0, mass=mass)
+        return out
+
     mm = ("product_of_t", "sparse_coding")
     for body, variant in (("control", CONTROL_VARIANT), ("malt", MALT_VARIANT)):
         err = slice_err[f"rough_well {body}"]
         mm_err_b = max(slice_err[f"{c} {body}"] for c in mm)
         for idx, (suffix, src) in enumerate((("run", RUN_SRC), ("stream", STREAM_SRC))):
+            more = control_branches(idx == 1) if body == "control" else {}
             kernels.append(slice_entry(
                 f"{body}_{suffix}", body, ("rough_well",), KERNEL_SRC, src,
-                cli_counts(body, ("rough_well",), "body", idx=idx), err, idx == 1, variant))
+                cli_counts(body, ("rough_well",), "body", idx=idx), err, idx == 1, variant,
+                **more))
         for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
             kernels.append(slice_entry(
                 f"{body}_mm_{suffix}", body, mm, MM_KERNEL_SRC, src,

@@ -29,11 +29,12 @@ with the rough-well headline as ``python -m mjhmc_tpu_torch bench``
 measures it, the PROF breakdowns of ``EW_BODY_PROFILES``
 (``cuda_mjhmc.ew_profile``, skipped by a checkout that has none) and each
 elementwise instance's ptxas registers and spill stores. ``--only hold``
-holds the D=50 rough well's MJHMC and MALT against the plain version after
-3 and 5 iterations, field by field, beside what a one-ulp nudge of x does
-to the plain version alone (``run_hold``, under ``"profile"``). ``--only``
-runs one group. ``--compare`` prints, case by case, how many distinct
-outputs the records hold and their times. To compare a parent,
+holds the D=50 rough well's MJHMC, MALT and control against the plain
+version after 3 and 5 iterations, field by field, beside what a one-ulp
+nudge of x does to the plain version alone (``run_hold``, under
+``"profile"``). ``--only`` runs one group. ``--compare`` prints, case by
+case, how many distinct outputs the records hold and their times. To
+compare a parent,
 unpack it with ``git archive`` into a directory that ``.gitignore`` lists
 and run each checkout's copy from its own root in one chip call, in
 turns: parent, change, change, parent.
@@ -175,9 +176,11 @@ EW_CASES = (
     ("rough_well", "malt", 10_000, "plain"), ("rough_well", "control", 10_000, "plain"),
     ("gauss50d", "mjhmc", 4096, "mass"), ("gauss50d", "mjhmc", 4096, "plain"),
     ("gauss50d", "malt", 4096, "mass"), ("gauss50d", "control", 4096, "mass"),
+    ("rough_well", "control", 102_400, "plain"), ("rough_well", "control", 10_000, "two_stage"),
+    ("gauss50d", "control", 4096, "plain"),
     *((c, body, None, kind) for c in _ZOO
       for body, kind in (("mjhmc", "plain"), ("mjhmc", "mass"), ("malt", "plain"),
-                         ("control", "plain"))),
+                         ("control", "plain"), ("control", "mass"))),
 )
 EW_ITERS = 1000
 EW_BETA = {"mjhmc": 0.1, "control": 0.2, "malt": 1.0}
@@ -235,13 +238,16 @@ def run_ew_cases() -> dict:
     return res
 
 
-#: the elementwise MJHMC and MALT PROF instances: (config, body, branches,
-#: chains, iterations)
+#: the elementwise MJHMC, control and MALT PROF instances: (config, body,
+#: branches, chains, iterations)
 EW_BODY_PROFILES = (("rough_well", "mjhmc", "plain", 10_000, 200),
                     ("rough_well", "malt", "plain", 10_000, 200),
+                    ("rough_well", "control", "plain", 10_000, 200),
                     ("funnel", "mjhmc", "plain", None, 200),
                     ("funnel", "malt", "plain", None, 200),
-                    ("gauss50d", "mjhmc", "mass", 4096, 50))
+                    ("funnel", "control", "plain", None, 200),
+                    ("gauss50d", "mjhmc", "mass", 4096, 50),
+                    ("gauss50d", "control", "mass", 4096, 50))
 
 
 def ew_body_breakdown(prof, names) -> dict:
@@ -280,6 +286,8 @@ def run_ew_body_profiles() -> dict:
         return {}
     res = {}
     for cname, body, kind, n, iters in EW_BODY_PROFILES:
+        if body not in cm.EW_PROF_PHASES:  # a checkout without this body's PROF instance
+            continue
         spec, st, eps, beta, m, kw, n, _ = ew_case_args(cname, body, n, kind)
         o = cm.cuda_mjhmc_run(spec, *st, 5, eps, beta, 2, m, **kw)
         st = (o.x, o.v, o.grad, o.u, o.h_back, o.back_valid)
@@ -331,7 +339,8 @@ def ew_ptxas() -> list:
 #: chip_smoke.py phase 15's D=50 rough-well rows (fixed-uniform, 4,096
 #: chains from seed 1, the rough_well preset's ε and M): (body, β, with the
 #: mass M⁻¹ = linspace(0.8, 1.25, 50)), held after HOLD_ITERS iterations
-HOLD_ROWS = (("mjhmc", 0.1, False), ("mjhmc", 0.1, True), ("malt", 1.0, True))
+HOLD_ROWS = (("mjhmc", 0.1, False), ("mjhmc", 0.1, True), ("malt", 1.0, True),
+             ("control", 0.2, False), ("control", 0.2, True))
 HOLD_ITERS = (3, 5)
 
 

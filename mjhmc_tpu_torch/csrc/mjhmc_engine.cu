@@ -116,13 +116,13 @@ extern "C" int mjhmc_nuts_profile(
   return cudaErrorInvalidValue;
 }
 
-// The MJHMC (variant 0) or MALT (variant 3) run's PROF instance:
+// The MJHMC (variant 0), control (2) or MALT (3) run's PROF instance:
 // mjhmc_engine_launch's arguments (the rough well at ndims 2 or the funnel,
-// without a mass; MJHMC with the branches on the Gaussian at ndims 50, a
-// mass given; no emissions, no two-stage integrator), then prof, (n,
-// ewprof::kMjPhases or kMaPhases) cycles and counters of each chain
-// (mjhmc_engine.cuh, ewprof), in the main path's blocks. Nothing on the main
-// path calls it.
+// without a mass; MJHMC and control with the branches on the Gaussian at
+// ndims 50, a mass given; no emissions, no two-stage integrator), then prof,
+// (n, ewprof::kMjPhases, kCoPhases or kMaPhases) cycles and counters of each
+// chain (mjhmc_engine.cuh, ewprof), in the main path's blocks. Nothing on
+// the main path calls it.
 extern "C" int mjhmc_ew_profile(
     int variant, int ndims, int energy, const float* params, float k0, float k1,
     float k2, float k3, float k4, const float* mass, int two_stage, float* scratch,
@@ -133,23 +133,25 @@ extern "C" int mjhmc_ew_profile(
     int* es, int n, int num_iters, int thin, int m, unsigned int seed, float eps,
     float beta, int fixed_uniform, void* stream, unsigned long long* prof) {
   using namespace mjhmc;
-  if (n <= 0 || thin <= 0 || (variant != kMjhmc && variant != kMalt) || two_stage || xs ||
-      !prof)
+  if (n <= 0 || thin <= 0 || (variant != kMjhmc && variant != kControl && variant != kMalt) ||
+      two_stage || xs || !prof)
     return cudaErrorInvalidValue;
   Args a{params, k0, k1, k2, k3, k4, x, v, g, u, h_back, valid,
          xo, vo, go, uo, hbo, valido, w, wx, wx2, evals, xs, ws, es,
          n, num_iters, thin, m, fixed_uniform, seed, eps, beta, mass, two_stage, scratch,
          prof};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool mj = variant == kMjhmc;
   if (energy == kRoughWell && ndims == 2 && !mass)
-    return mj ? launch_ew_prof<kMjhmc, 2, kRoughWell, false>(a, s)
-              : launch_ew_prof<kMalt, 2, kRoughWell, true>(a, s);
+    return variant == kMjhmc     ? launch_ew_prof<kMjhmc, 2, kRoughWell, false>(a, s)
+           : variant == kControl ? launch_ew_prof<kControl, 2, kRoughWell, true>(a, s)
+                                 : launch_ew_prof<kMalt, 2, kRoughWell, true>(a, s);
   if (energy == kFunnel && ndims == 10 && !mass)
-    return mj ? launch_ew_prof<kMjhmc, 10, kFunnel, false>(a, s)
-              : launch_ew_prof<kMalt, 10, kFunnel, true>(a, s);
-  if (energy == kGaussian && ndims == 50 && mass && mj)
-    return launch_ew_prof<kMjhmc, 50, kGaussian, true>(a, s);
+    return variant == kMjhmc     ? launch_ew_prof<kMjhmc, 10, kFunnel, false>(a, s)
+           : variant == kControl ? launch_ew_prof<kControl, 10, kFunnel, true>(a, s)
+                                 : launch_ew_prof<kMalt, 10, kFunnel, true>(a, s);
+  if (energy == kGaussian && ndims == 50 && mass && variant != kMalt)
+    return variant == kMjhmc ? launch_ew_prof<kMjhmc, 50, kGaussian, true>(a, s)
+                             : launch_ew_prof<kControl, 50, kGaussian, true>(a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -177,13 +179,14 @@ extern "C" int mjhmc_sincos_probe(const float* x, float* out, int n, void* strea
   return cudaGetLastError();
 }
 
-// The grouping of the MJHMC (variant 0) or MALT (variant 3) body on energy
-// at ndims for n chains: out[0] lanes a chain (ew_lanes), out[1] threads a
-// block (ew_threads_for on this card). Returns cudaErrorInvalidValue for
-// another variant.
+// The grouping of the MJHMC (variant 0), control (2) or MALT (3) body on
+// energy at ndims for n chains: out[0] lanes a chain (ew_lanes), out[1]
+// threads a block (ew_threads_for on this card). Returns
+// cudaErrorInvalidValue for NUTS.
 extern "C" int mjhmc_ew_tile(int variant, int ndims, int energy, int n, int* out) {
   using namespace mjhmc;
-  if ((variant != kMjhmc && variant != kMalt) || n <= 0) return cudaErrorInvalidValue;
+  if (variant < kMjhmc || variant > kMalt || variant == kNuts || n <= 0)
+    return cudaErrorInvalidValue;
   out[0] = ew_lanes(variant, ndims, energy);
   out[1] = ew_threads_for(out[0], n, sm_count());
   return cudaSuccess;

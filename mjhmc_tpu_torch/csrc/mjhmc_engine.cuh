@@ -535,33 +535,6 @@ __device__ __forceinline__ void integrate(float (&x)[D], float (&v)[D], float (&
   }
 }
 
-// D Box-Muller normals (cosine branch) times sqrt(M): dim i from words i and
-// D+i of the 2D words in slots slot0.. of counter (chain, t, slot, tag). z[i]
-// holds sqrt(-2 ln u1) until word D+i arrives, so no buffer of uniforms is
-// needed.
-template <int D>
-__device__ __forceinline__ void draw_normals(float (&z)[D], const Args& a, uint32_t c,
-                                             uint32_t t, uint32_t slot0, uint32_t tag,
-                                             uint2 key) {
-  constexpr int kBlocks = (2 * D + 3) / 4;
-#pragma unroll
-  for (int b = 0; b < kBlocks; ++b) {
-    uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if (!a.fixed_uniform) r = philox4x32_10(make_uint4(c, t, slot0 + b, tag), key);
-    const uint32_t rw[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = 4 * b + j;
-      const float u = a.fixed_uniform ? 0x1p-25f : philox_uniform(rw[j]);
-      if (k < D) z[k] = sqrtf(-2.0f * logf(u));
-      else if (k < 2 * D) z[k - D] = z[k - D] * cosf(kTwoPi * u);
-    }
-  }
-  if (a.mass)
-#pragma unroll
-    for (int i = 0; i < D; ++i) z[i] = z[i] * sqrt_mass<D>(a.mass, i);
-}
-
 __device__ __forceinline__ float log_rate(float h_to, float h_cur) {
   const float raw = -0.5f * (h_to - h_cur);
   const bool ok = fabsf(h_to) < 1e30f && h_to == h_to;
@@ -592,29 +565,39 @@ enum MjhmcPhase {
 enum MaltPhase {
   kMaRefresh = 0, kMaDraws, kMaKickGrad, kMaEnergy, kMaAccept, kMaOther, kMaPhases
 };
+// Control: the corruption draw (ξ and the Metropolis uniform), the
+// trajectory (kick, drift, gradient), its end energy, the Metropolis test
+// with the Kahan sums and emission
+enum ControlPhase { kCoDraw = 0, kCoTrajectory, kCoEnergy, kCoAccept, kCoOther, kCoPhases };
 }  // namespace ewprof
 
 // ---------------------------------------------------------------------------
-// A chain over a group of lanes (the MJHMC and MALT bodies)
+// A chain over a group of lanes (the MJHMC, control and MALT bodies)
 //
-// Lanes a chain of the MJHMC (variant kMjhmc) and MALT (kMalt) bodies at d
-// dims on energy E. Where one thread a chain would spill (D 50: x, v, g, both
-// trajectories and the Kahan rows are 650 floats) or leave most SMs idle
-// (the zoo's 1,024 chains at D 10 filled 16 of 132 SMs in blocks of 64), a
-// chain takes a group of lanes of one warp: MALT's dims go to the lanes (8
-// at D 50, 4 at D 10; 2 on the separable energies' D 2, so that each lane
-// draws its own dim's noise); MJHMC's separable dims at D 50 go to 8 lanes,
-// and a coupled energy's two trajectories to 2 lanes (D 10), where dims
-// over lanes would exchange the coupling scalars at every step. MJHMC keeps
-// one thread a chain at D <= 2 (the rough-well headline, whose
-// 10,000-102,400 chains fill the card; its per-dim steps interleave four
-// independent chains). ops/cuda_mjhmc.py (ew_lanes) mirrors this.
+// Lanes a chain of the MJHMC (variant kMjhmc), control (kControl) and MALT
+// (kMalt) bodies at d dims on energy E. Where one thread a chain would spill
+// (D 50: x, v, g, a trajectory or two and the Kahan rows are 550-650
+// floats) or leave its draws on one lane's serial path, a chain takes a
+// group of lanes of one warp: MALT's and control's dims go to the lanes at
+// D 50 (8, 7 dims a lane; 16 lanes' sums cost control more than 4 dims a
+// lane saved) and MALT's at D 10 (4; 2 on the separable energies' D 2, so
+// that each lane draws its own dim's noise); MJHMC's separable dims at D 50
+// go to 8 lanes, and a coupled energy's two trajectories to 2 lanes (D 10),
+// where dims over lanes would exchange the coupling scalars at every step.
+// Control's coupled energies at D 10 run on 8 lanes that each hold every
+// dim and the whole trajectory and split the corruption draw's pairs
+// (control_kernel's whole mode: 0.68-0.80x one lane's time, where dims
+// over 4 lanes took 1.1-2.5x; PERF.md §6). MJHMC and control keep one
+// thread a chain at D <= 2 (the rough well's 10,000-102,400 chains fill the
+// card; a lane's dims are independent dependent chains that interleave).
+// ops/cuda_mjhmc.py (ew_lanes) mirrors this.
 __host__ __device__ constexpr int ew_lanes(int variant, int d, int energy) {
   const bool separable = energy == kRoughWell || energy == kGaussian;
   if (variant == kMjhmc) return separable ? (d >= 50 ? 8 : 1) : (d >= 10 ? 2 : 1);
+  if (variant == kControl) return d >= 10 ? 8 : 1;
   return d >= 50 ? 8 : d >= 10 ? 4 : separable && d >= 2 ? 2 : 1;
 }
-// Threads a block of the MJHMC and MALT bodies for n chains of `lanes`
+// Threads a block of the MJHMC, control and MALT bodies for n chains of `lanes`
 // lanes on a card of sms SMs: the fewest, a power of two from the group up to
 // kThreads, that put at most one block on each SM sub-partition, else
 // kThreads (ops/cuda_mjhmc.py, ew_threads, mirrors this)
@@ -627,12 +610,13 @@ __host__ __device__ constexpr int ew_threads_for(int lanes, long long n, int sms
 // One kick-drift-force-kick stage on one dim of a separable energy (as
 // stage1) that also returns U's term of the dim at its new x: the rough
 // well's force takes sin(x k1) and its energy cos(x k1), one sincosf of the
-// same argument (one range reduction)
-template <int E>
+// same argument (one range reduction). OPEN=false skips the opening kick
+// (the two-stage step's second half), as stage1 does.
+template <int E, bool OPEN = true>
 __device__ __forceinline__ float stage1_u(float& x, float& v, float& g, float p, float im,
                                           float c_open, float c_drift, float c_close,
                                           const Args& a) {
-  const float vh = v - c_open * g;
+  const float vh = OPEN ? v - c_open * g : v;
   x = x + c_drift * (im * vh);
   float term;
   if constexpr (E == kRoughWell) {
@@ -1456,13 +1440,27 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
 // error enters Delta; O — and one accept with p = min(1, exp(-Delta)); on
 // reject v = -v0. Leapfrog only, M evals.
 //
-// Design. Control (next in line for a redesign): one thread a chain, as
-// mjhmc_kernel was at first, one trajectory instead of two; bound by the
-// dependent sinf chain a step, as MJHMC at D 2. MALT (malt_kernel, as
-// redesigned for the H100): the first design drew (2M + 1)·D normals an
-// iteration on the chain's serial path, each from two Philox words with a
-// logf, a sqrtf and a cosf (42 at D 2, 170 at D 10 beside M gradients:
-// 64-85% of its cycles). Now a chain runs on a group of lanes (ew_lanes: 2
+// Design. Control (control_kernel, as redesigned for the H100): the first
+// design ran one thread a chain in blocks of 64 and drew the corruption on
+// the chain's serial path, 2D + 1 words with a logf, sqrtf and cosf a
+// normal (62-70% of its cycles at D 10 and 50), recomputed the trajectory's
+// end energy (one more gradient on the zoo) and spilled 2.5-3.3 KB at D
+// 50. Now the draw is both Box-Muller branches of a pair (tag 8), the
+// Metropolis uniform in the pairs' last block, made for the next iteration
+// before this one's trajectory; the end energy comes from the last step
+// (the rough well's force and energy one sincosf, a coupled energy's U
+// beside its last gradient); a chain runs on 8 lanes from D 10 (its dims
+// over them at D 50; at D 10 every lane runs the trajectory and the lanes
+// split the pairs), one below, in blocks sized to the chain count. What
+// bounds it now: latency, the dependent sinf chain of the rough well's
+// steps (77% of its cycles) and, at D 10 and 50, a lane's draw (a Philox
+// block and a pair's logf, sqrtf and sincosf in turn: 31-54% in the PROF
+// stamps).
+//
+// MALT (malt_kernel, as redesigned for the H100): the first design drew
+// (2M + 1)·D normals an iteration on the chain's serial path, each from two
+// Philox words with a logf, a sqrtf and a cosf (42 at D 2, 170 at D 10
+// beside M gradients: 64-85% of its cycles). Now a chain runs on a group of lanes (ew_lanes: 2
 // at D 2, 4 at D 10, 8 at D 50; the banana and the mixture one), each
 // drawing only its own dims' noise, both Box-Muller branches of a pair
 // (half the Philox words, logf and sqrtf a normal), a Philox block a dim
@@ -1474,13 +1472,6 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
 // dependent chain.
 namespace hmc {
 
-// the Metropolis uniform: word 2D of the family's counter
-template <int D>
-__device__ __forceinline__ float mh_uniform(const Args& a, uint32_t c, uint32_t t,
-                                            uint32_t tag, uint2 key) {
-  return a.fixed_uniform ? 0x1p-25f : philox_uniform(philox_word(c, t, 2 * D, key, tag));
-}
-
 // min(1, exp(log_ratio)) with a NaN kept NaN (as jnp.minimum keeps it), so
 // that it rejects
 __device__ __forceinline__ float accept_prob(float log_ratio, bool ok) {
@@ -1488,88 +1479,297 @@ __device__ __forceinline__ float accept_prob(float log_ratio, bool ok) {
   return ok ? expf(lp) : 0.f;
 }
 
-template <int D, int E>
-__global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= a.n) return;
-  const size_t n = a.n;
+// The corruption draw of iteration t on a lane of a control chain whose
+// dims go to G > 1 lanes (philox.cuh, tag 8): the normals of its dims i0 ..
+// i0 + K − 1 (those < D; 0 past D), unscaled, and the Metropolis uniform
+// (mh, the same on every lane of the group). Dim i is branch i % 2 of
+// Box-Muller pair i / 2 (cosine, sine), the pair in words 2p (u1) and 2p + 1
+// (u2) of the iteration's counter; each pair takes one logf, sqrtf and
+// sincosf for its two normals. A lane draws the Philox blocks that hold the
+// pairs its dims reach, so a pair that straddles two lanes (7 dims a lane at
+// D 50) is drawn by both, and the words never depend on the grouping. The
+// Metropolis uniform is word 2·ceil(D/2): the pairs' last block holds it
+// where they leave a free word (every D the kernel has); its owner is the
+// lane of dim D − 1. In fixed-uniform mode every normal is the cosine branch
+// of u1 = u2 = 2⁻²⁵ and mh 2⁻²⁵.
+template <int D, int K, int G>
+__device__ __forceinline__ void control_draw(const Args& a, uint32_t c, uint32_t t, int i0,
+                                             const Group<G>& grp, uint2 key, float (&z)[K],
+                                             float& mh) {
+  static_assert(G > 1, "a chain on one lane draws with control_draw_whole");
+  constexpr int kMhWord = 2 * ((D + 1) / 2);
+  // the pairs a lane's dims reach (pair p0 on), and the blocks (slot s0 on)
+  // that hold them
+  constexpr int NQ = K / 2 + 1, kSpan = (NQ + 2) / 2;
+  const int p0 = i0 >> 1, s0 = p0 >> 1;
+  const bool po = p0 & 1;  // pair p0 in its block's upper half
+  uint32_t w[4 * kSpan];
+#pragma unroll
+  for (int b = 0; b < kSpan; ++b) {
+    const uint4 r = philox4x32_10(make_uint4(c, t, s0 + b, kTagControlPairs), key);
+    w[4 * b] = r.x, w[4 * b + 1] = r.y, w[4 * b + 2] = r.z, w[4 * b + 3] = r.w;
+  }
+  float zc[NQ], zs[NQ];  // pair p0 + q's cosine and sine branches
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const uint32_t w1 = po ? w[2 * q + 2] : w[2 * q], w2 = po ? w[2 * q + 3] : w[2 * q + 1];
+    const float u1 = a.fixed_uniform ? 0x1p-25f : philox_uniform(w1);
+    const float u2 = a.fixed_uniform ? 0x1p-25f : philox_uniform(w2);
+    const float rad = sqrtf(-2.0f * logf(u1));
+    float sn, cs;
+    sincosf(kTwoPi * u2, &sn, &cs);
+    zc[q] = rad * cs;
+    zs[q] = a.fixed_uniform ? zc[q] : rad * sn;
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    // i0 even: pair j / 2, branch j % 2; odd (dim i0 a sine): pair
+    // (j + 1) / 2, branch (j + 1) % 2
+    const float zj = i0 & 1 ? (j & 1 ? zc[(j + 1) / 2] : zs[(j + 1) / 2])
+                            : (j & 1 ? zs[j / 2] : zc[j / 2]);
+    z[j] = i0 + j < D ? zj : 0.f;
+  }
+  uint32_t wm = 0u;
+  if constexpr (kMhWord % 4 != 0) {
+#pragma unroll
+    for (int b = 0; b < kSpan; ++b)
+      if ((kMhWord >> 2) == s0 + b) wm = w[4 * b + (kMhWord & 3)];
+  } else {
+    wm = philox4x32_10(make_uint4(c, t, kMhWord >> 2, kTagControlPairs), key).x;
+  }
+  mh = grp.from(a.fixed_uniform ? 0x1p-25f : philox_uniform(wm), (D - 1) / K);
+}
 
-  const Owned<E, D, D> P(a, 0, a.mass);
-  float x[D], v[D], g[D];
+// The corruption draw of a chain whose G lanes each hold every dim
+// (control_kernel's whole mode; G = 1: a chain on one lane): lane r draws
+// pairs r, r + G, ... (a Philox block and both branches each), and each dim
+// takes its normal from its pair's lane; the Metropolis uniform comes from
+// the lane of the last pair, whose block holds it. The words are
+// control_draw's.
+template <int D, int G>
+__device__ __forceinline__ void control_draw_whole(const Args& a, uint32_t c, uint32_t t,
+                                                   const Group<G>& grp, uint2 key,
+                                                   float (&z)[D], float& mh) {
+  constexpr int kPairs = (D + 1) / 2, NQ = (kPairs + G - 1) / G;
+  static_assert(kPairs % 2 == 1, "the last pair's block holds the Metropolis uniform");
+  float zc[NQ], zs[NQ], mh_mine = 0.f;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int p = grp.rank + q * G;
+    const uint4 r = philox4x32_10(make_uint4(c, t, p >> 1, kTagControlPairs), key);
+    const float u1 = a.fixed_uniform ? 0x1p-25f : philox_uniform(p & 1 ? r.z : r.x);
+    const float u2 = a.fixed_uniform ? 0x1p-25f : philox_uniform(p & 1 ? r.w : r.y);
+    const float rad = sqrtf(-2.0f * logf(u1));
+    float sn, cs;
+    sincosf(kTwoPi * u2, &sn, &cs);
+    zc[q] = rad * cs;
+    zs[q] = a.fixed_uniform ? zc[q] : rad * sn;
+    // the last pair (even) is words 0-1 of its block, the uniform word 2
+    if (q == (kPairs - 1) / G) mh_mine = a.fixed_uniform ? 0x1p-25f : philox_uniform(r.z);
+  }
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    x[i] = a.x[i * n + c];
-    v[i] = a.v[i * n + c];
-    g[i] = a.g[i * n + c];
+    const int pair = i / 2;
+    z[i] = grp.from(i & 1 ? zs[pair / G] : zc[pair / G], pair % G);
+  }
+  mh = grp.from(mh_mine, (kPairs - 1) % G);
+}
+
+// Control's trajectory on the lane's dims: M leapfrog or two-stage steps
+// (as integrate_group), the last stage also giving the end energy. A
+// separable energy returns the lane's share of U (its dims' terms, taken
+// beside their last forces: one sincosf on the rough well; the caller sums
+// the group), a coupled one U itself from its last gradient (grad_u returns
+// it beside g); M = 0 evaluates U at x.
+template <int D, int E, int K, int G>
+__device__ __forceinline__ float control_trajectory(float (&x)[K], float (&v)[K], float (&g)[K],
+                                                    const Owned<E, D, K>& P,
+                                                    const Group<G>& grp, const Args& a,
+                                                    bool two_stage) {
+  const float eps = a.eps, he = 0.5f * a.eps;
+  const float cb = kTwoStageB * eps, cm = kTwoStageMid * eps;
+  const int m = a.m;
+  if constexpr (kSeparable<E>) {
+    float s = 0.f;
+    if (m == 0) {
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (P.own(j)) s = s + u_term<E>(x[j], P.p[j], a);
+      return s;
+    }
+    if (two_stage) {
+      for (int k = 0; k + 1 < m; ++k) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          stage1<E, true>(x[j], v[j], g[j], P.p[j], P.im[j], cb, he, cm, a);
+          stage1<E, false>(x[j], v[j], g[j], P.p[j], P.im[j], 0.f, he, cb, a);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        stage1<E, true>(x[j], v[j], g[j], P.p[j], P.im[j], cb, he, cm, a);
+        const float term =
+            stage1_u<E, false>(x[j], v[j], g[j], P.p[j], P.im[j], 0.f, he, cb, a);
+        if (P.own(j)) s = s + term;
+      }
+    } else {
+      for (int k = 0; k + 1 < m; ++k) {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          stage1<E, true>(x[j], v[j], g[j], P.p[j], P.im[j], he, eps, he, a);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const float term = stage1_u<E>(x[j], v[j], g[j], P.p[j], P.im[j], he, eps, he, a);
+        if (P.own(j)) s = s + term;
+      }
+    }
+    return s;
+  } else {
+    if (m == 0) {
+      float gs[K];
+      return grad_u<E, D, K, G>(x, gs, P, grp, a);
+    }
+    if (two_stage) {
+      for (int k = 0; k + 1 < m; ++k) {
+        stage_group<E, D, K, G, true>(x, v, g, P, grp, cb, he, cm, a);
+        stage_group<E, D, K, G, false>(x, v, g, P, grp, 0.f, he, cb, a);
+      }
+      stage_group<E, D, K, G, true>(x, v, g, P, grp, cb, he, cm, a);
+      return stage_group<E, D, K, G, false>(x, v, g, P, grp, 0.f, he, cb, a);
+    }
+    for (int k = 0; k + 1 < m; ++k) stage_group<E, D, K, G, true>(x, v, g, P, grp, he, eps, he, a);
+    return stage_group<E, D, K, G, true>(x, v, g, P, grp, he, eps, he, a);
+  }
+}
+
+// The control body. Each chain runs on ew_lanes(kControl, D, E) lanes
+// (Group). A separable energy's group gives each lane K of its dims: x, v,
+// g, the trajectory and the Kahan rows of those dims live in the lane's
+// registers, each lane draws its dims' pairs (control_draw), and ½vᵀM⁻¹v and
+// U are the lanes' partials added in rank order (Group::sum), once before
+// and once after the trajectory. Whole mode (one lane, or a coupled energy's
+// group): each lane holds every dim and runs the whole trajectory (on a
+// group the same operations on the same values, with no exchange), and the
+// lanes split the draw's pairs (control_draw_whole). Iteration t + 1's draw
+// is made in iteration t before its trajectory, which does not wait for it,
+// so the first kick never waits on Philox. Every lane takes the same
+// decision. PROF stamps the phases into a.prof (rank 0's; nothing on the
+// main path runs it).
+template <int D, int E, bool PROF = false>
+__global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
+  constexpr int G = ew_lanes(kControl, D, E);
+  constexpr bool kWhole = G == 1 || !kSeparable<E>;
+  constexpr int K = kWhole ? D : (D + G - 1) / G, GT = kWhole ? 1 : G;
+  const int c = (int)((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  if (c >= a.n) return;
+  const size_t n = a.n;
+  const float* mass = a.mass;
+  const bool two_stage = a.two_stage;
+  const Group<G> grp;
+  const Group<GT> tg;  // the lanes that share a trajectory's sums
+  const Owned<E, D, K> P(a, kWhole ? 0 : grp.rank, mass);
+  // the lane stores dim j (each dim by one lane)
+  auto writes = [&](int j) { return kWhole ? j % G == grp.rank : P.own(j); };
+  const uint2 key = make_uint2(a.seed, 0u);
+  auto draw = [&](uint32_t t, float (&xi)[K], float& mh) {
+    if constexpr (kWhole) control_draw_whole<D, G>(a, c, t, grp, key, xi, mh);
+    else control_draw<D, K, G>(a, c, t, P.i0, grp, key, xi, mh);
+  };
+  PhaseClock<PROF, ewprof::kCoPhases, ewprof::kCoOther> prof;
+  prof.start();
+
+  float x[K], v[K], g[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int i = P.i0 + j;
+    x[j] = P.own(j) ? a.x[i * n + c] : 0.f;
+    v[j] = P.own(j) ? a.v[i * n + c] : 0.f;
+    g[j] = P.own(j) ? a.g[i * n + c] : 0.f;
   }
   float u = a.u[c];
 
   float w = 0.f, wc = 0.f;
-  float wx[D], wxc[D], wx2[D], wx2c[D];
+  float wx[K], wxc[K], wx2[K], wx2c[K];
 #pragma unroll
-  for (int i = 0; i < D; ++i) wx[i] = wxc[i] = wx2[i] = wx2c[i] = 0.f;
+  for (int j = 0; j < K; ++j) wx[j] = wxc[j] = wx2[j] = wx2c[j] = 0.f;
   int evals = 0;
 
-  const uint2 key = make_uint2(a.seed, 0u);
   const float sb = sqrtf(a.beta), sb1 = sqrtf(fmaxf(1.f - a.beta, 0.f));
-  const int m_cost = a.two_stage ? 2 * a.m : a.m;
+  const int m_cost = two_stage ? 2 * a.m : a.m;
 
+  // this iteration's corruption normals (unscaled) and Metropolis uniform
+  float xi[K], mh = 0.f;
+  if (a.num_iters > 0) draw(0u, xi, mh);
   for (int t = 0; t < a.num_iters; ++t) {
+    prof.mark(ewprof::kCoOther);
     // partial corruption with xi ~ N(0, M)
-    float xi[D];
-    draw_normals<D>(xi, a, c, t, 0u, kTagControl, key);
 #pragma unroll
-    for (int i = 0; i < D; ++i) v[i] = sb1 * v[i] + sb * xi[i];
-    const float h0 = u + halfsq_own(v, P, a.mass);
+    for (int j = 0; j < K; ++j) v[j] = sb1 * v[j] + sb * (xi[j] * P.sm[j]);
+    const float h0 = u + tg.sum(halfsq_own(v, P, mass));
+    const float mh_t = mh;
+    if (t + 1 < a.num_iters) draw(t + 1, xi, mh);
+    prof.mark(ewprof::kCoDraw);
 
-    float xf[D], vf[D], gf[D];
+    float xf[K], vf[K], gf[K];
 #pragma unroll
-    for (int i = 0; i < D; ++i) xf[i] = x[i], vf[i] = v[i], gf[i] = g[i];
-    integrate<D, E>(xf, vf, gf, P, a, a.mass, a.two_stage);
-    const float uf = u_chain<E, D, D, 1>(xf, P, Group<1>(), a);
-    const float h_l = uf + halfsq_own(vf, P, a.mass);
+    for (int j = 0; j < K; ++j) xf[j] = x[j], vf[j] = v[j], gf[j] = g[j];
+    float uf = control_trajectory<D, E, K, GT>(xf, vf, gf, P, tg, a, two_stage);
+    prof.mark(ewprof::kCoTrajectory);
+    if constexpr (kSeparable<E>) uf = u_separable<E>(uf, tg);
+    const float h_l = uf + tg.sum(halfsq_own(vf, P, mass));
+    prof.mark(ewprof::kCoEnergy);
 
     const bool ok = fabsf(h_l) < 1e30f && h_l == h_l;  // divergence rejects
-    const bool acc = mh_uniform<D>(a, c, t, kTagControl, key) < accept_prob(h0 - h_l, ok);
-    if (acc) {
+    if (mh_t < accept_prob(h0 - h_l, ok)) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) x[i] = xf[i], v[i] = vf[i], g[i] = gf[i];
+      for (int j = 0; j < K; ++j) x[j] = xf[j], v[j] = vf[j], g[j] = gf[j];
       u = uf;
     } else {
 #pragma unroll
-      for (int i = 0; i < D; ++i) v[i] = -v[i];  // flip on reject
+      for (int j = 0; j < K; ++j) v[j] = -v[j];  // flip on reject
     }
 
     // the post-transition x, weight 1
     evals += m_cost;
     kadd(w, wc, 1.f);
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      kadd(wx[i], wxc[i], x[i]);
-      kadd(wx2[i], wx2c[i], x[i] * x[i]);
+    for (int j = 0; j < K; ++j) {
+      kadd(wx[j], wxc[j], x[j]);
+      kadd(wx2[j], wx2c[j], x[j] * x[j]);
     }
     if (a.xs && (t + 1) % a.thin == 0) {
       const size_t e = t / a.thin;
 #pragma unroll
-      for (int i = 0; i < D; ++i) a.xs[(e * D + i) * n + c] = x[i];
-      a.ws[e * n + c] = 1.f;
-      a.es[e * n + c] = evals;
+      for (int j = 0; j < K; ++j)
+        if (writes(j)) a.xs[(e * D + P.i0 + j) * n + c] = x[j];
+      if (grp.rank == 0) {
+        a.ws[e * n + c] = 1.f;
+        a.es[e * n + c] = evals;
+      }
     }
+    prof.mark(ewprof::kCoAccept);
   }
 
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    a.xo[i * n + c] = x[i];
-    a.vo[i * n + c] = v[i];
-    a.go[i * n + c] = g[i];
-    a.wx[i * n + c] = wx[i];
-    a.wx2[i * n + c] = wx2[i];
+  for (int j = 0; j < K; ++j) {
+    if (!writes(j)) continue;
+    const int i = P.i0 + j;
+    a.xo[i * n + c] = x[j];
+    a.vo[i * n + c] = v[j];
+    a.go[i * n + c] = g[j];
+    a.wx[i * n + c] = wx[j];
+    a.wx2[i * n + c] = wx2[j];
   }
-  a.uo[c] = u;
-  a.hbo[c] = a.h_back[c];
-  a.valido[c] = a.valid[c];
-  a.w[c] = w;
-  a.evals[c] = evals;
+  if (grp.rank == 0) {
+    a.uo[c] = u;
+    a.hbo[c] = a.h_back[c];
+    a.valido[c] = a.valid[c];
+    a.w[c] = w;
+    a.evals[c] = evals;
+    prof.mark(ewprof::kCoOther);
+    prof.store(a.prof + (size_t)c * ewprof::kCoPhases);
+  }
 }
 
 // Four normals of the MALT body (philox.cuh, tag 7): both Box-Muller
@@ -1848,9 +2048,6 @@ template <int V, int D, int E, bool BR>
 cudaError_t launch_instance(const Args& a, bool emit, cudaStream_t s) {
   if constexpr (V == kNuts) {
     return emit ? launch_nuts<D, E, true, BR>(a, s) : launch_nuts<D, E, false, BR>(a, s);
-  } else if constexpr (V == kControl) {
-    kernel_of<V, D, E, BR>(emit)<<<(a.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(a);
-    return cudaGetLastError();
   } else {
     return launch_grouped<V, D, E>(kernel_of<V, D, E, BR>(emit), a, s);
   }
@@ -1885,11 +2082,14 @@ cudaError_t launch_nuts_prof(const Args& a, cudaStream_t s) {
 // chain into a.prof (ewprof); nothing on the main path runs it
 template <int V, int D, int E, bool BR>
 cudaError_t launch_ew_prof(const Args& a, cudaStream_t s) {
-  static_assert(V == kMjhmc || V == kMalt, "MJHMC and MALT have PROF instances");
-  if constexpr (V == kMjhmc)
+  static_assert(V != kNuts, "NUTS has launch_nuts_prof");
+  if constexpr (V == kMjhmc) {
     return launch_grouped<V, D, E>(mjhmc_kernel<D, E, false, BR, true>, a, s);
-  else
+  } else if constexpr (V == kControl) {
+    return launch_grouped<V, D, E>(hmc::control_kernel<D, E, true>, a, s);
+  } else {
     return launch_grouped<V, D, E>(hmc::malt_kernel<D, E, true>, a, s);
+  }
 }
 
 // The D=50 and zoo instances, each compiled in the source named beside it
@@ -1974,7 +2174,10 @@ extern template ProfLaunch launch_ew_prof<kMjhmc, 2, kRoughWell, false>;
 extern template ProfLaunch launch_ew_prof<kMalt, 2, kRoughWell, true>;
 extern template ProfLaunch launch_ew_prof<kMjhmc, 10, kFunnel, false>;
 extern template ProfLaunch launch_ew_prof<kMalt, 10, kFunnel, true>;
-// ew_engine_prof_d50.cu: MJHMC with the branches on gauss50d
+extern template ProfLaunch launch_ew_prof<kControl, 2, kRoughWell, true>;
+extern template ProfLaunch launch_ew_prof<kControl, 10, kFunnel, true>;
+// ew_engine_prof_d50.cu: MJHMC and control with the branches on gauss50d
 extern template ProfLaunch launch_ew_prof<kMjhmc, 50, kGaussian, true>;
+extern template ProfLaunch launch_ew_prof<kControl, 50, kGaussian, true>;
 
 }  // namespace mjhmc

@@ -15,9 +15,9 @@
 //   direction, word 1 the merge;
 // - tag 3, NUTS leaf: the leaf at tree position k = 2^jj - 1 + i (leaf i
 //   of round jj) takes word k % 4 of slot k / 4;
-// - tag 4, control HMC: slot b holds words 4b..4b+3 of the iteration's
-//   2d + 1: dim i's corruption normal xi takes words i and d+i, the
-//   Metropolis uniform word 2d;
+// - tag 4, control HMC (the matmul kernel): slot b holds words 4b..4b+3 of
+//   the iteration's 2d + 1: dim i's corruption normal xi takes words i and
+//   d+i, the Metropolis uniform word 2d;
 // - tag 5, MALT refresh (the matmul kernel): the same layout, dim i's fresh
 //   momentum from words i and d+i, the Metropolis uniform word 2d;
 // - tag 6, MALT O-step noise (the matmul kernel): O-step o (0..2M-1, two
@@ -30,6 +30,13 @@
 //   sqrt(-2 ln u1)*sin(2 pi u2); pair M gives the refresh, its cosine
 //   branch; the Metropolis uniform is word 0 of slot d*B. In fixed-uniform
 //   mode every one of these normals is the cosine branch's.
+// - tag 8, control HMC (the elementwise kernel): word k of the iteration is
+//   word k % 4 of slot k / 4; Box-Muller pair p takes words 2p (u1) and
+//   2p + 1 (u2), dim i's corruption normal is branch i % 2 of pair i / 2
+//   (the cosine, then the sine), and the Metropolis uniform is word
+//   2 ceil(d/2), in the pairs' last slot where they leave it a free word
+//   (d 1, 2, 10 and 50: one slot at d <= 2, 3 at 10, 13 at 50). In
+//   fixed-uniform mode every normal is the cosine branch's.
 // Every other normal is Box-Muller's cosine branch, sqrt(-2 ln u1)*cos(2 pi u2).
 #pragma once
 
@@ -51,6 +58,7 @@ enum PhiloxTag : uint32_t {
   kTagMaltRefresh = 5,
   kTagMaltNoise = 6,
   kTagMaltPairs = 7,
+  kTagControlPairs = 8,
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {

@@ -93,6 +93,7 @@ NUTS_DIV_THRESHOLD = 1000.0
 #: Philox counter tags (csrc/philox.cuh)
 TAG_NUTS_MOMENTUM, TAG_NUTS_ROUND, TAG_NUTS_LEAF = 1, 2, 3
 TAG_CONTROL, TAG_MALT_REFRESH, TAG_MALT_NOISE, TAG_MALT_PAIRS = 4, 5, 6, 7
+TAG_CONTROL_PAIRS = 8
 #: the step bodies and their numbers in both kernels (csrc/mjhmc_engine.cuh,
 #: csrc/mjhmc_mm_engine.cuh)
 KERNEL_VARIANTS = {"mjhmc": 0, "nuts": 1, "control": 2, "malt": 3}
@@ -978,11 +979,36 @@ def _reference(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     return acc.out(x, v, g, u, h_back, valid)
 
 
+def control_pair_draws(seed: int, t: int, n: int, d: int, device) -> tuple:
+    """The elementwise control body's draws of iteration ``t``
+    (csrc/philox.cuh, tag 8): (ξ (d, n) unscaled by √M, the Metropolis
+    uniform (n,)). Word k of the iteration is word k % 4 of slot k // 4;
+    Box-Muller pair p takes words 2p (u1) and 2p + 1 (u2), dim i is branch
+    i % 2 of pair i // 2 (its cosine, then its sine), and the Metropolis
+    uniform is word 2·ceil(d/2). The words depend on the dim's position
+    alone, so every grouping of the kernel's lanes draws these."""
+    pairs = (d + 1) // 2
+    nslots = (2 * pairs) // 4 + 1  # the pairs' slots and the Metropolis word's
+    kw = dict(dtype=torch.int64, device=device)
+    counter = (torch.arange(n, **kw)[None, :], t, torch.arange(nslots, **kw)[:, None],
+               TAG_CONTROL_PAIRS)
+    words = torch.stack(philox4x32(counter, (int(seed) & _MASK32, 0)), dim=1)  # (slots, 4, n)
+    un = _uniform_of(words.reshape(4 * nslots, n))
+    rad = torch.sqrt(-2.0 * torch.log(un[0:2 * pairs:2]))
+    ang = (2.0 * math.pi) * un[1:2 * pairs:2]
+    z = torch.stack([rad * torch.cos(ang), rad * torch.sin(ang)], dim=1)  # (pairs, 2, n)
+    return z.reshape(2 * pairs, n)[:d], un[2 * pairs]
+
+
 @_full_f32_matmul()
 def _reference_control(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                        num_iters, m, thin, emit, fixed_uniform, inv_mass, integrator):
     """The control HMC step body ``_make_step_control``: ``beta`` is the
-    corruption fraction; H₀ and the first kick use the carried u and g."""
+    corruption fraction; H₀ and the first kick use the carried u and g.
+    The draws are each kernel's: the matmul kernel's (tag 4, every normal a
+    cosine branch) for a matmul spec, ``control_pair_draws`` (tag 8) for an
+    elementwise one; in fixed-uniform mode every normal is the cosine branch
+    of u1 = u2 = 2⁻²⁵ in both."""
     d, n = x.shape
     dev = x.device
     params = _param_tensors(spec, d, dev)
@@ -994,9 +1020,13 @@ def _reference_control(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta
     acc = _Acc(x, u, thin, emit)
     ones = torch.ones_like(u)
     draws = _Draws(seed, num_iters, n, 2 * d + 1, dev, fixed_uniform, TAG_CONTROL)
+    pairs = not isinstance(spec, MATMUL_SPECS) and not fixed_uniform
     for t in range(num_iters):
-        unif = draws(t)
-        xi = _box_muller(unif, d)
+        if pairs:
+            xi, mh = control_pair_draws(seed, t, n, d, dev)
+        else:
+            unif = draws(t)
+            xi, mh = _box_muller(unif, d), unif[2 * d]
         if sm is not None:
             xi = xi * sm  # ξ ~ N(0, M)
         v = sb1 * v + sb * xi
@@ -1004,7 +1034,7 @@ def _reference_control(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta
         xf, vf, gf = _integrate(spec, params, x, v, g, epsilon, m, im, two_stage)
         uf = spec.u_sum(xf, *params)
         h_l = uf + _halfsq(vf, im)
-        accept = unif[2 * d] < _accept(h0 - h_l, h_l)
+        accept = mh < _accept(h0 - h_l, h_l)
         x = torch.where(accept, xf, x)
         v = torch.where(accept, vf, -v)  # flip on reject
         u = torch.where(accept, uf, u)
@@ -1497,23 +1527,29 @@ EW_THREADS = 64
 
 
 def ew_lanes(variant: str, spec, d: int) -> int:
-    """Lanes a chain of the elementwise MJHMC or MALT body at ``d`` dims
-    (mirror of ew_lanes in csrc/mjhmc_engine.cuh). MALT: its dims over 8
-    lanes at D 50, 4 at D 10, the rough well's and the Gaussian's over 2 at
-    D 2, else one thread a chain. MJHMC: the rough well's and the Gaussian's
-    dims over 8 lanes at D 50; a coupled energy's two trajectories on 2
-    lanes at D 10; else one thread a chain."""
+    """Lanes a chain of the elementwise MJHMC, control or MALT body at ``d``
+    dims (mirror of ew_lanes in csrc/mjhmc_engine.cuh). MALT: its dims over
+    8 lanes at D 50, 4 at D 10, the rough well's and the Gaussian's over 2
+    at D 2, else one thread a chain. Control: 8 lanes from D 10 (the
+    separable energies' dims over them; a coupled energy's lanes each hold
+    every dim and the trajectory and split the corruption draw's pairs),
+    else one thread a chain. MJHMC: the rough well's and the Gaussian's dims
+    over 8 lanes at D 50; a coupled energy's two trajectories on 2 lanes at
+    D 10; else one thread a chain."""
     separable = isinstance(spec, (RoughWellSpec, GaussianSpec))
     if variant == "mjhmc":
         return (8 if d >= 50 else 1) if separable else (2 if d >= 10 else 1)
+    if variant == "control":
+        return 8 if d >= 10 else 1
     return 8 if d >= 50 else 4 if d >= 10 else 2 if separable and d >= 2 else 1
 
 
 def ew_threads(lanes: int, n: int, sms: int) -> int:
-    """Threads a block of the elementwise MJHMC or MALT body for ``n`` chains
-    of ``lanes`` lanes on a card of ``sms`` SMs (mirror of ew_threads_for):
-    the fewest, a power of two from the group up to EW_THREADS, that put at
-    most one block on each SM sub-partition, else EW_THREADS."""
+    """Threads a block of the elementwise MJHMC, control or MALT body for
+    ``n`` chains of ``lanes`` lanes on a card of ``sms`` SMs (mirror of
+    ew_threads_for): the fewest, a power of two from the group up to
+    EW_THREADS, that put at most one block on each SM sub-partition, else
+    EW_THREADS."""
     t = lanes
     while t < EW_THREADS and -(-n * lanes // t) > SM_SUBPARTITIONS * sms:
         t *= 2
@@ -1521,9 +1557,10 @@ def ew_threads(lanes: int, n: int, sms: int) -> int:
 
 
 def ew_tile(variant: str, spec, d: int, n: int) -> tuple:
-    """(lanes a chain, threads a block) of the elementwise MJHMC or MALT body
-    of ``spec`` at ``d`` dims for ``n`` chains, as the built library reports
-    them (``mjhmc_ew_tile``; ``ew_lanes`` and ``ew_threads`` mirror them)."""
+    """(lanes a chain, threads a block) of the elementwise MJHMC, control or
+    MALT body of ``spec`` at ``d`` dims for ``n`` chains, as the built
+    library reports them (``mjhmc_ew_tile``; ``ew_lanes`` and ``ew_threads``
+    mirror them)."""
     from mjhmc_tpu_torch.ops import _build
 
     out = (ctypes.c_int * 2)()
@@ -1581,13 +1618,14 @@ def nuts_profile(spec, x, v, g, u, seed, epsilon, num_iters, max_depth) -> Tenso
     return prof
 
 
-#: the phases of the elementwise MJHMC and MALT runs' PROF instances
+#: the phases of the elementwise MJHMC, control and MALT runs' PROF instances
 #: (csrc/mjhmc_engine.cuh, ewprof): cycles of each, then (MJHMC) the
 #: chain-iterations that began with an invalid cache and those whose warp held
 #: any such chain
 EW_PROF_PHASES = {
     "mjhmc": ("trajectories", "energies_rates_choice", "refresh", "kahan_emission", "other",
               "invalid_iterations", "warp_invalid_iterations"),
+    "control": ("corruption_draw", "trajectory", "end_energy", "accept_kahan", "other"),
     "malt": ("refresh_draw", "o_step_draws", "kick_drift_gradient", "energy", "accept_kahan",
              "other"),
 }
@@ -1595,10 +1633,11 @@ EW_PROF_PHASES = {
 
 def ew_profile(spec, variant, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                num_iters, m, inv_mass=None) -> Tensor:
-    """The phase breakdown of an elementwise MJHMC or MALT run from its PROF
-    instance (CUDA tensors; the cases the C entry ``mjhmc_ew_profile`` has:
-    the rough well at D 2 and the funnel without a mass, MJHMC on the D=50
-    Gaussian with one), in the main path's blocks: an int64 (n,
+    """The phase breakdown of an elementwise MJHMC, control or MALT run from
+    its PROF instance (CUDA tensors; the cases the C entry
+    ``mjhmc_ew_profile`` has: the rough well at D 2 and the funnel without a
+    mass, MJHMC and control on the D=50 Gaussian with one), in the main
+    path's blocks: an int64 (n,
     len(EW_PROF_PHASES[variant])) tensor of each chain's clock64() cycles
     per phase and its counters. A measurement, not a main-path call: the
     run's outputs are dropped and no launch is counted."""

@@ -1,4 +1,5 @@
-"""The elementwise MJHMC and MALT kernels' launch rule and MALT's draws.
+"""The elementwise MJHMC, control and MALT kernels' launch rule and the
+control and MALT draws.
 
 The kernels (``csrc/mjhmc_engine.cuh``) spread a chain over a group of
 lanes and size their blocks to the chain count; ``ew_lanes`` and
@@ -6,12 +7,14 @@ lanes and size their blocks to the chain count; ``ew_lanes`` and
 mirror to the built library on the card. Here the mirror is checked at the
 presets' dims and chain counts on a card of 132 SMs.
 
-MALT's elementwise kernel draws both Box-Muller branches of a pair of
-uniforms (tag 7, ``csrc/philox.cuh``). The plain version's draws
-(``malt_pair_draws``) are pinned word for word against a NumPy Philox4x32-10
-in that layout, and its fixed-uniform normals (and so the JAX interpret
-kernel's, which ``test_torch_malt.py`` holds) against the cosine-branch
-constant ``_box_muller(FIXED_UNIFORM)``.
+MALT's and control's elementwise kernels draw both Box-Muller branches of a
+pair of uniforms (tags 7 and 8, ``csrc/philox.cuh``). The plain versions'
+draws (``malt_pair_draws``, ``control_pair_draws``) are pinned word for word
+against a NumPy Philox4x32-10 in those layouts, control's also against the
+kernel's per-lane word selection at every lane count (a pair may straddle
+two lanes' dims), and their fixed-uniform normals (and so the JAX interpret
+kernel's, which ``test_torch_malt.py`` and ``test_torch_control.py`` hold)
+against the cosine-branch constant ``_box_muller(FIXED_UNIFORM)``.
 """
 
 import math
@@ -31,23 +34,28 @@ SMS = 132  # an H100 SXM
 
 @pytest.mark.parametrize("config,n,lanes,threads", [
     # (config, chains) -> ({body: lanes a chain}, {body: threads a block})
-    ("rough_well", 10_000, dict(mjhmc=1, malt=2), dict(mjhmc=32, malt=64)),
-    ("rough_well", 102_400, dict(mjhmc=1, malt=2), dict(mjhmc=64, malt=64)),
-    ("gauss2d", 10_240, dict(mjhmc=1, malt=2), dict(mjhmc=32, malt=64)),
-    ("gauss50d", 4096, dict(mjhmc=8, malt=8), dict(mjhmc=64, malt=64)),
-    ("funnel", 1024, dict(mjhmc=2, malt=4), dict(mjhmc=4, malt=8)),
-    ("eight_schools", 1024, dict(mjhmc=2, malt=4), dict(mjhmc=4, malt=8)),
-    ("banana", 2048, dict(mjhmc=1, malt=1), dict(mjhmc=4, malt=4)),
-    ("mog", 1024, dict(mjhmc=1, malt=1), dict(mjhmc=2, malt=2)),
+    ("rough_well", 10_000, dict(mjhmc=1, malt=2, control=1),
+     dict(mjhmc=32, malt=64, control=32)),
+    ("rough_well", 102_400, dict(mjhmc=1, malt=2, control=1),
+     dict(mjhmc=64, malt=64, control=64)),
+    ("gauss2d", 10_240, dict(mjhmc=1, malt=2, control=1), dict(mjhmc=32, malt=64, control=32)),
+    ("gauss50d", 4096, dict(mjhmc=8, malt=8, control=8), dict(mjhmc=64, malt=64, control=64)),
+    ("funnel", 1024, dict(mjhmc=2, malt=4, control=8), dict(mjhmc=4, malt=8, control=16)),
+    ("eight_schools", 1024, dict(mjhmc=2, malt=4, control=8),
+     dict(mjhmc=4, malt=8, control=16)),
+    ("banana", 2048, dict(mjhmc=1, malt=1, control=1), dict(mjhmc=4, malt=4, control=4)),
+    ("mog", 1024, dict(mjhmc=1, malt=1, control=1), dict(mjhmc=2, malt=2, control=2)),
 ])
 def test_ew_lanes_and_threads_at_the_presets(config, n, lanes, threads):
-    """Lanes a chain: 8 at D 50, 4 at D 10, MALT's separable energies 2 at
-    D 2, else one; threads a block: the fewest (a power of two, a multiple
-    of the group, at most 64) that keep the blocks within the SMs'
-    sub-partitions, so that the zoo's 1,024-2,048 chains reach every SM."""
+    """Lanes a chain: 8 at D 50, MJHMC's coupled energies 2, MALT 4 and
+    control 8 at D 10, MALT's separable energies 2 at D 2, else one; threads
+    a block: the
+    fewest (a power of two, a multiple of the group, at most 64) that keep
+    the blocks within the SMs' sub-partitions, so that the zoo's 1,024-2,048
+    chains reach every SM."""
     dist = BENCHMARK_CONFIGS[config].make_distribution()
     spec, d = cm.energy_spec_for(dist), dist.ndims
-    for body in ("mjhmc", "malt"):
+    for body in lanes:
         g = cm.ew_lanes(body, spec, d)
         t = cm.ew_threads(g, n, SMS)
         assert (g, t) == (lanes[body], threads[body]), body
@@ -61,17 +69,21 @@ def test_ew_lanes_of_every_kernel_dim():
     """Every (energy, D) the kernel has: the group divides a warp; MALT's
     lanes own at most 7 dims (D 50 over 8 lanes), 3 at D 10; MJHMC's
     coupled energies take a trajectory a lane at D 10, its separable ones
-    one lane a chain below D 50."""
+    one lane a chain below D 50; control takes 8 lanes from D 10 (its dims
+    over them at D 50, 7 a lane; each holds every dim at D 10, the draw's
+    pairs split), else one."""
     cases = [tmodels.RoughWell(ndims=2), tmodels.Gaussian(ndims=2), tmodels.Funnel(ndims=10),
              tmodels.Banana(), BENCHMARK_CONFIGS["mog"].make_distribution(),
              tmodels.EightSchools(), tmodels.EightSchools(parameterization="noncentered")]
     for dist in cases:
         spec = cm.energy_spec_for(dist)
         for d in cm.KERNEL_DIMS[type(spec)]:
-            for body in ("mjhmc", "malt"):
+            for body in ("mjhmc", "malt", "control"):
                 g = cm.ew_lanes(body, spec, d)
                 assert 32 % g == 0
-                if body == "mjhmc" and d == 10:
+                if body == "control":
+                    assert g == (8 if d >= 10 else 1) and (d < 50 or -(-d // g) == 7)
+                elif body == "mjhmc" and d == 10:
                     assert g == 2  # the forward and the backward trajectory
                 elif body == "mjhmc" and d < 50:
                     assert g == 1
@@ -152,6 +164,137 @@ def test_malt_pair_draws_are_standard_normals():
     assert 0.45 < float(mh.double().mean()) < 0.55
 
 
+# ---- control's draws: both Box-Muller branches of a pair (tag 8) -------------
+def _control_words(seed, t, n, slot):
+    chains = np.arange(n, dtype=np.uint64)
+    return _np_philox((chains, np.full(n, t), np.full(n, slot), np.full(n, 8)), seed)
+
+
+def _np_pair(w1, w2):
+    """Both Box-Muller branches of the pair of words (u1, u2)."""
+    u1, u2 = (torch.from_numpy(_np_uniform(w)) for w in (w1, w2))
+    rad = torch.sqrt(-2.0 * torch.log(u1))
+    ang = (2.0 * math.pi) * u2
+    return rad * torch.cos(ang), rad * torch.sin(ang)
+
+
+def _expected_control_draws(seed, t, n, d):
+    """(ξ, Metropolis uniform) of the layout derived word by word: word k is
+    output k % 4 of slot k // 4 of counter (chain, t, slot, 8); dim i is
+    branch i % 2 (cosine, sine) of pair i // 2, whose words are 2p and
+    2p + 1; the uniform is word 2·ceil(d/2)."""
+    def word(k):
+        return _control_words(seed, t, n, k // 4)[k % 4]
+
+    xi = [_np_pair(word(2 * (i // 2)), word(2 * (i // 2) + 1))[i % 2] for i in range(d)]
+    return torch.stack(xi), torch.from_numpy(_np_uniform(word(2 * (-(-d // 2)))))
+
+
+def _lane_draws(seed, t, n, d, lanes):
+    """The kernel's word selection (``control_draw``), lane by lane: lane r
+    owns dims r·K .. r·K + K − 1 (K = ceil(d / lanes)), draws the blocks
+    from the slot of its first dim's pair on, takes each pair's words by
+    the parity of that pair and each dim's branch by the parity of its first
+    dim; the lane of dim d − 1 draws the Metropolis uniform."""
+    k = -(-d // lanes)
+    mh_word = 2 * ((d + 1) // 2)
+    nq = k // 2 + 1
+    span = (nq + 2) // 2
+    xi, mh = torch.full((d, n), float("nan")), None
+    for r in range(lanes):
+        i0 = r * k
+        p0, o = i0 // 2, i0 % 2
+        s0, po = p0 // 2, p0 % 2
+        w = [wd for b in range(span) for wd in _control_words(seed, t, n, s0 + b)]
+        zs = [_np_pair(w[2 * q + 2 * po], w[2 * q + 1 + 2 * po]) for q in range(nq)]
+        for j in range(k):
+            if i0 + j < d:
+                xi[i0 + j] = zs[(j + o) // 2][(j + o) % 2]
+        if i0 <= d - 1 < i0 + k:
+            assert mh_word % 4 and 0 <= mh_word - 4 * s0 < 4 * span
+            mh = torch.from_numpy(_np_uniform(w[mh_word - 4 * s0]))
+    return xi, mh
+
+
+def _whole_lane_draws(seed, t, n, d, lanes):
+    """The kernel's whole mode (``control_draw_whole``), lane by lane: every
+    lane holds every dim, lane r draws pairs r, r + lanes, ... from their
+    own blocks, a dim takes its pair's lane's branch, and the lane of the
+    last pair reads the Metropolis uniform, word 2 of that pair's block."""
+    pairs = (d + 1) // 2
+    assert pairs % 2 == 1
+    xi, mh = torch.full((d, n), float("nan")), None
+    for r in range(lanes):
+        for p in range(r, pairs, lanes):
+            w = _control_words(seed, t, n, p // 2)
+            z = _np_pair(w[2 * (p % 2)], w[2 * (p % 2) + 1])
+            for i in (2 * p, 2 * p + 1):
+                if i < d:
+                    xi[i] = z[i % 2]
+            if p == pairs - 1:
+                mh = torch.from_numpy(_np_uniform(w[2]))
+    return xi, mh
+
+
+@pytest.mark.parametrize("d,t", [(1, 0), (2, 3), (10, 1), (50, 7)])
+def test_control_pair_draws_match_numpy_philox(d, t):
+    n, seed = 37, 0x9E3779B97
+    xi, mh = cm.control_pair_draws(seed, t, n, d, "cpu")
+    exi, emh = _expected_control_draws(seed, t, n, d)
+    assert xi.shape == (d, n) and torch.equal(xi, exi)
+    assert torch.equal(mh, emh)
+
+
+@pytest.mark.parametrize("d,lanes,whole", [
+    (50, 8, False), (50, 4, False), (50, 2, False), (10, 4, False), (10, 8, False),
+    (2, 2, False), (10, 8, True), (10, 4, True), (10, 2, True), (10, 1, True), (2, 2, True),
+    (2, 1, True), (1, 1, True), (1, 8, True)])
+def test_control_straddling_pairs_draw_alike_at_any_lane_count(d, lanes, whole):
+    """A pair whose dims two lanes own (7 dims a lane at D 50: pairs 3, 10,
+    17, 24; 3 at D 10) is drawn by both, each taking its own branch, and in
+    whole mode each pair by one lane for all, so the lanes' draws are the
+    plain version's at any grouping."""
+    n, seed = 29, 12345
+    xi, mh = (_whole_lane_draws if whole else _lane_draws)(seed, 4, n, d, lanes)
+    pxi, pmh = cm.control_pair_draws(seed, 4, n, d, "cpu")
+    assert torch.equal(xi, pxi) and torch.equal(mh, pmh)
+
+
+def test_control_pair_draws_are_standard_normals():
+    """Both branches of a pair are independent N(0, 1): means, variances and
+    the cosine-sine correlation over 4,096 chains × 50 dims; the Metropolis
+    uniform's mean."""
+    xi, mh = cm.control_pair_draws(11, 0, 4096, 50, "cpu")
+    zc, zs = xi[0::2].double(), xi[1::2].double()
+    for z in (zc, zs):
+        assert abs(float(z.mean())) < 0.02 and abs(float(z.var()) - 1.0) < 0.03
+    assert abs(float((zc * zs).mean())) < 0.02
+    assert 0.45 < float(mh.double().mean()) < 0.55
+
+
+@pytest.mark.parametrize("d", [2, 50])
+def test_control_corruption_draws(d):
+    """The plain control body's momentum after one iteration with β = 1 (ξ
+    replaces v) and M = 0 (the trajectory stays, ΔH = 0 accepts) is its
+    corruption draw times √M: in fixed-uniform mode the cosine-branch
+    constant ``_box_muller(FIXED_UNIFORM)`` (the JAX interpret kernel's),
+    in Philox mode ``control_pair_draws``."""
+    spec = cm.energy_spec_for(tmodels.RoughWell(ndims=d))
+    n = 64
+    x = torch.linspace(-3.0, 3.0, d * n).reshape(d, n)
+    u, z = spec.u_sum(x, *cm._param_tensors(spec, d, "cpu")), torch.zeros(n)
+    mass = tuple(float(m) for m in torch.linspace(0.5, 2.0, d))
+    sm = torch.rsqrt(torch.tensor(mass))[:, None]
+    const = cm._box_muller(torch.full((2, 1), cm.FIXED_UNIFORM), 1)
+    for fixed, want in ((True, const.expand(d, n)),
+                        (False, cm.control_pair_draws(5, 0, n, d, "cpu")[0])):
+        for im, scale in ((None, 1.0), (mass, sm)):
+            out = cm.run_reference(spec, x, x * 0, x * 0, u, z, z, 5, 0.1, 1.0, 1, 0, fixed,
+                                   variant="control", inv_mass=im)
+            assert torch.equal(out.x, x) and bool((out.evals == 0).all())
+            assert torch.equal(out.v, want * scale)
+
+
 def _last_o_step_v(fixed, m, mass=None):
     """The plain MALT body's momentum after one iteration with η = 0 (γε/2 =
     5e4): every O-step replaces v by its normal (times √M), the trajectory
@@ -188,7 +331,8 @@ def test_malt_last_o_step_is_the_sine_branch(m):
     assert torch.equal(v, o[-1] if m else v0)
 
 
-@pytest.mark.parametrize("body,enum", [("mjhmc", "MjhmcPhase"), ("malt", "MaltPhase")])
+@pytest.mark.parametrize("body,enum", [("mjhmc", "MjhmcPhase"), ("malt", "MaltPhase"),
+                                       ("control", "ControlPhase")])
 def test_prof_phases_match_the_kernel(body, enum):
     """EW_PROF_PHASES names one column a phase or counter of the PROF
     instances' records (``ewprof`` in ``csrc/mjhmc_engine.cuh``): as many as
@@ -200,10 +344,11 @@ def test_prof_phases_match_the_kernel(body, enum):
     src = (pathlib.Path(cm.__file__).parents[1] / "csrc" / "mjhmc_engine.cuh").read_text()
     body_src = re.search(r"enum " + enum + r" \{([^}]*)\}", src).group(1)
     names = [nm.split("=")[0].strip() for nm in body_src.split(",") if nm.strip()]
-    assert names[-1] in ("kMjPhases", "kMaPhases")
+    prefix = {"mjhmc": "kMj", "malt": "kMa", "control": "kCo"}[body]
+    assert names[-1] == f"{prefix}Phases"
     phases = cm.EW_PROF_PHASES[body]
     assert len(phases) == len(names) - 1
-    assert phases.index("other") == names.index("kMjOther" if body == "mjhmc" else "kMaOther")
+    assert phases.index("other") == names.index(f"{prefix}Other")
     if body == "mjhmc":
         assert phases[0] == "trajectories" and names[0] == "kMjTrajectories"
 
