@@ -43,8 +43,14 @@ that a real share of its trees entered their last round, and see the
 matmul kernel refuse 11; phases 11 and 29
 print the share of the warps' leaf slots that ran a live leaf. Phase 15 also runs each matmul preset's MJHMC, control and MALT at
 a width that leaves mm_kernel's last tile partly empty (4,093, 8,185 and
-2,045 chains). One line per phase; any failed check raises, so the exit
-code is non-zero. The second to last line is the kernels' JSON record, the
+2,045 chains). Phase 38 drives slices B and E: ``bench_ess.main`` rows at
+the presets' widths (the rough well's MJHMC, control, MALT and NUTS
+engines, product of t's MJHMC, gauss2d's plain NUTS), each record held to
+its ESS bounds, a float64 recomputation of its block's ESS, its launch
+counts and (engine rows) split-R-hat; ``calculate_autocorrelation`` on
+the engine, the ladder oracle on the card and the ``diagnostics``
+subcommand on a ``sample --save`` file. One line per phase; any failed
+check raises, so the exit code is non-zero. The second to last line is the kernels' JSON record, the
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -2790,6 +2796,235 @@ def phase35_rank(rank: int, addr: str, out: str) -> int:
     return 0
 
 
+# ---- phase 38: ESS/s, the autocorrelation experiment, the ladder oracle ----
+#: phase 38's bench_ess rows: (config, sampler, extra argv). Split-R-hat
+#: needs a few tens of effective samples a chain (a stationary chain with e
+#: of them gives about sqrt(1 + 2/e)): at 2,000 iterations the rough well's
+#: MJHMC, control and MALT and product of t's MJHMC have 8.6, 12.4, 2.2 and
+#: 5.6, so those rows emit every thin-th iteration: a window thin times
+#: longer, the same 2,000-sample block
+ESS_ROWS = [
+    ("rough_well", "mjhmc", ["--thin", "8"]),
+    ("rough_well", "control", ["--thin", "8"]),
+    ("rough_well", "malt", ["--thin", "25"]),
+    ("rough_well", "nuts-engine", []),
+    ("product_of_t", "mjhmc", ["--thin", "32"]),
+    # the plain NUTS syncs with the host at every leaf: a shorter window
+    ("gauss2d", "nuts", ["--steps", "200", "--burn", "100"]),
+]
+ESS_TRIALS = 3  # bench_ess.measure's timed stream calls
+#: the autocorrelation experiment's (chains, iterations): the preset's width
+AC_CHAINS, AC_STEPS = 10_000, 2000
+
+
+@contextlib.contextmanager
+def recording(owner, name):
+    """Wrap ``owner.name`` (a function or method); yields the list of
+    (args, result) of each call made inside the block."""
+    calls, fn = [], getattr(owner, name)
+
+    @functools.wraps(fn)
+    def recorded(*a, **k):
+        out = fn(*a, **k)
+        calls.append((a, out))
+        return out
+
+    setattr(owner, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
+
+
+def geyer_ess_f64(x, w):
+    """The dwell-weighted Geyer ESS of ``diagnostics/autocorr.py``
+    recomputed in float64 on the host (NumPy arrays, scipy.fft's threaded
+    FFT), chains in chunks. The lag sums over chains and dims are one
+    inverse transform of the summed power spectra."""
+    import numpy as np
+    import scipy.fft as sfft
+
+    x = x.cpu().numpy()
+    t, d, n = x.shape
+    w = np.ones((t, n), np.float32) if w is None else w.cpu().numpy()
+    nlags = t // 2
+    nfft = 1 << (2 * t - 1).bit_length()
+    chunk = max(1, (1 << 25) // (nfft * d))
+    chunks = [(x[:, :, i:i + chunk].astype(np.float64), w[:, i:i + chunk].astype(np.float64))
+              for i in range(0, n, chunk)]
+    mu = sum(np.einsum("tdn,tn->d", xc, wc) for xc, wc in chunks) / w.sum(dtype=np.float64)
+
+    def power(a):
+        fa = sfft.rfft(a, n=nfft, axis=0, workers=-1)
+        return fa.real ** 2 + fa.imag ** 2
+
+    num = sum(power((xc - mu[None, :, None]) * wc[:, None, :]).sum(axis=(1, 2))
+              for xc, wc in chunks)
+    den = sum(power(wc).sum(axis=1) for _, wc in chunks)
+    gamma = sfft.irfft(num, n=nfft)[:nlags] / (d * sfft.irfft(den, n=nfft)[:nlags])
+    rho = gamma / gamma[0]
+    pair = rho[: 2 * (nlags // 2)].reshape(-1, 2).sum(axis=1)
+    positive = np.cumprod(pair > 0.0)
+    tau = max(1.0, -1.0 + 2.0 * float((pair * positive).sum()))
+    return t * n / tau
+
+
+def wrapper_counts(cm):
+    """{(wrapper, count): n} of every nonzero launch count."""
+    return {(fn.__name__, name): getattr(fn, name) for fn in cm.WRAPPERS
+            for name in cm.COUNTS if getattr(fn, name)}
+
+
+def ess_rows(cm, card):
+    """Phase 38, the ESS/s rows: ``bench_ess.main`` as a user runs it, one
+    row at a time with every count 0 just before, each record held to its
+    checks (0 < ESS ≤ raw samples; the same block's ESS in float64 within
+    rtol 1e-3; value = ESS / wall; 1 burn run and 1 + trials stream
+    launches, none for the plain row; split-R̂ < 1.05 for the engine rows).
+    Returns ({kernels-line entry: launches}, {(config, sampler): record})."""
+    from mjhmc_tpu_torch import bench_ess
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.diagnostics import potential_scale_reduction
+
+    launches, recs = {}, {}
+    for cname, sampler, extra in ESS_ROWS:
+        argv = ["--config", cname, "--sampler", sampler, *extra]
+        cm.reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with recording(bench_ess, "effective_sample_size") as blocks, \
+                contextlib.redirect_stdout(buf):
+            rc = bench_ess.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = wrapper_counts(cm)
+        lines = buf.getvalue().strip().splitlines()
+        check(rc == 0 and len(lines) == 1, f"bench_ess {argv}: rc {rc}, output {lines}")
+        rec = json.loads(lines[0])
+        det = rec["detail"]
+        what = f"bench_ess {cname} {sampler}"
+        check(0 < det["ess_total"] <= det["raw_samples"],
+              f"{what}: ess {det['ess_total']} outside (0, {det['raw_samples']}]")
+        check(rec["value"] == det["ess_total"] / det["sampling_wall_s"],
+              f"{what}: value {rec['value']} is not ess / wall")
+        check(len(blocks) == 1, f"{what}: {len(blocks)} ESS calls")
+        args = blocks[0][0]
+        x, w = args[0], (args[1] if len(args) > 1 else None)
+        check(tuple(x.shape) == (det["steps"], x.shape[1], det["chains"]),
+              f"{what}: block {tuple(x.shape)}")
+        ess64 = geyer_ess_f64(x, w)
+        check(abs(det["ess_total"] / ess64 - 1) < 1e-3,
+              f"{what}: ess {det['ess_total']} against float64 {ess64}")
+        engine = sampler in bench_ess.ENGINE_SAMPLERS
+        body = {"nuts-engine": "nuts"}.get(sampler, sampler)
+        attr = "launches" if body == "mjhmc" else f"{body}_launches"
+        mm = "_mm" if cname == "product_of_t" else ""
+        run_fn, stream_fn = f"cuda_mjhmc{mm}_run", f"cuda_mjhmc{mm}_stream_run"
+        if engine:
+            want = {(run_fn, attr): 1, (stream_fn, attr): 1 + ESS_TRIALS}
+            if mm:  # the preset's JAX default precision is counted besides
+                prec = cm.energy_spec_for(BENCHMARK_CONFIGS[cname].make_distribution()).precision
+                want.update({(run_fn, f"{prec}_launches"): 1,
+                             (stream_fn, f"{prec}_launches"): 1 + ESS_TRIALS})
+                tag = f"[{cname}, {prec}]"
+            else:
+                tag = ""
+            rhat = float(potential_scale_reduction(x, w).max())
+            check(rhat < 1.05, f"{what}: split-R-hat max {rhat}")
+            for kind, fn in (("run", run_fn), ("stream", stream_fn)):
+                key = f"{body}{mm}_{kind}{tag}"
+                launches[key] = launches.get(key, 0) + want[(fn, attr)]
+        else:
+            want, rhat = {}, None
+        check(counts == want, f"{what}: launches {counts}, expected {want}")
+        recs[(cname, sampler)] = rec
+        phase("38 ess", f"{cname} {sampler}: {rec['value']:.6g} ESS/s (ESS {det['ess_total']:.6g} "
+              f"of {det['raw_samples']} raw samples, float64 {ess64:.6g}; {det['chains']} "
+              f"chains x {det['steps']} steps in {det['sampling_wall_s']:.6g} s, best of "
+              f"{ESS_TRIALS}; split-R-hat max {rhat}; launches {counts}; {seconds:.4g} s host "
+              f"clock) {json.dumps(rec)} [{card}]")
+    return launches, recs
+
+
+def ess_oracles(cm, cli, card):
+    """Phase 38, the rest of slices B and E on the card: the autocorrelation
+    experiment's engine path on the rough well (ρ(0) = 1, a non-decreasing
+    evals axis whose slope over the first lags is within 1% of the stream's
+    mean evals per iteration), the jump ladder against the eigensolution
+    of its rate matrix (TV < 0.02, tests/test_ladder.py:56) and the
+    ``diagnostics`` subcommand on a ``sample --save`` file of gauss2d
+    (its ESS that of ``sample``'s record, split-R-hat < 1.05). Returns
+    {kernels-line entry: launches}."""
+    import tempfile
+
+    import numpy as np
+
+    from mjhmc_tpu_torch.experiments import calculate_autocorrelation
+    from mjhmc_tpu_torch.models import RoughWell
+    from mjhmc_tpu_torch.samplers import algebraic as alg
+
+    # the autocorrelation experiment, the engine at the preset's width
+    cm.reset_counts()
+    t0 = time.perf_counter()
+    with recording(cm.CudaMJHMC, "sample") as samples:
+        res = calculate_autocorrelation(RoughWell(), "mjhmc", num_steps=AC_STEPS, nbatch=AC_CHAINS,
+                                        nlags=200, burn_steps=500, seed=0, engine="cuda",
+                                        device=DEV, epsilon=EPS, beta=BETA, num_leapfrog_steps=M)
+    seconds = time.perf_counter() - t0
+    counts = wrapper_counts(cm)
+    want = {("cuda_mjhmc_run", "launches"): 1, ("cuda_mjhmc_stream_run", "launches"): 1}
+    check(counts == want, f"autocorrelation experiment: launches {counts}, expected {want}")
+    check(len(samples) == 1, f"autocorrelation experiment: {len(samples)} streams")
+    (eng, *_), (_, _, es) = samples[0]
+    rate = float(eng.last_out.evals.double().mean()) / AC_STEPS
+    check(res.name == "mjhmc[cuda]" and res.rho[0] == 1.0, f"rho(0) {res.rho[0]}, {res.name}")
+    check(bool(np.all(np.diff(res.grad_evals) >= 0)), "the evals axis decreases")
+    slope = float(np.polyfit(np.arange(20), res.grad_evals[:20], 1)[0])
+    check(abs(slope / rate - 1) < 0.01, f"evals axis slope {slope} against the stream's "
+          f"{rate} evals an iteration")
+    check(es.shape == (AC_STEPS, AC_CHAINS), f"evals counters {tuple(es.shape)}")
+    phase("38 ess", f"calculate_autocorrelation(engine='cuda') rough_well ({AC_CHAINS} chains, "
+          f"500 + {AC_STEPS} iterations, 200 lags): decay {res.decay_evals:.6g} evals (censored "
+          f"{res.censored}), axis slope {slope:.6g} against {rate:.6g} evals an iteration "
+          f"({slope / rate - 1:+.2e}), rho[:5] {[round(float(r), 5) for r in res.rho[:5]]}; "
+          f"launches {counts}; {seconds:.4g} s host clock [{card}]")
+    launches = {"mjhmc_run": 1, "mjhmc_stream": 1}
+
+    # the ladder oracle: the jump chain on the card against the eigensolution
+    t0 = time.perf_counter()
+    e = alg.random_ladder_energies(torch.Generator().manual_seed(1), 6)
+    from mjhmc_tpu_torch.diagnostics import stationary_distribution
+
+    pi = stationary_distribution(alg.continuous_rate_matrix(e, 0.5), continuous=True)
+    check(float(np.abs(pi - alg.ladder_stationary(e)).max()) < 1e-10, "ladder eigensolution")
+    sim = alg.simulate_jump_ladder(e, 0.5, torch.Generator(device=DEV).manual_seed(42), 4000,
+                                   512, device=DEV)
+    check(sim.occupation.device.type == "cuda", "the ladder ran off the card")
+    tv = 0.5 * float(np.abs(sim.occupation.cpu().numpy() - pi).sum())
+    check(tv < 0.02, f"jump ladder TV distance {tv}")
+    phase("38 ess", f"simulate_jump_ladder (K 6, beta 0.5, 4,000 steps x 512 chains) on the card: "
+          f"TV {tv:.4g} from the eigensolution of continuous_rate_matrix (< 0.02); "
+          f"{time.perf_counter() - t0:.4g} s host clock")
+
+    # the diagnostics subcommand on a `sample --save` file
+    cm.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "gauss2d.npz")
+        rec_s, _, _ = run_cli(cli, ["sample", "--config", "gauss2d", "--engine", "cuda",
+                                    "--burn", "200", "--steps", "1000", "--save", path], {})
+        counts = wrapper_counts(cm)
+        rec_d, _, seconds = run_cli(cli, ["diagnostics", "--file", path], {})
+    check(counts == want, f"sample --save: launches {counts}, expected {want}")
+    check(rec_d["shape"] == [1000, 2, 100] and rec_d["rho_first_lags"][0] == 1.0
+          and rec_d["rhat_max"] < 1.05 and 0 < rec_d["ess"] <= 1000 * 100
+          and 0 < rec_d["spectral_gap"] <= 1
+          and abs(rec_d["ess"] / rec_s["ess"] - 1) < 1e-6,
+          f"diagnostics record {rec_d} (sample's ess {rec_s['ess']})")
+    launches = {k: v + 1 for k, v in launches.items()}
+    phase("38 ess", f"diagnostics --file (sample --save, gauss2d, 100 chains, 1,000 steps): "
+          f"{json.dumps(rec_d)}; {seconds:.4g} s host clock [{card}]")
+    return launches
+
+
 T0 = time.perf_counter()
 DEV = "cuda"
 
@@ -3189,6 +3424,14 @@ def main() -> int:
     ew_body_breakdown(cm, card)
     mm_breakdown(cm, card)
 
+    # ---- 38. slices B and E: ESS/s, the autocorrelation experiment, oracles --
+    t_ess = time.perf_counter()
+    ess_launches, ess_recs = ess_rows(cm, card)
+    for key, n in ess_oracles(cm, cli, card).items():
+        ess_launches[key] = ess_launches.get(key, 0) + n
+    phase("38 ess", f"phase 38 took {time.perf_counter() - t_ess:.4g} s; ESS/s " + json.dumps(
+        {f"{c} {s}": rec["value"] for (c, s), rec in ess_recs.items()}) + f" [{card}]")
+
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
 
@@ -3365,6 +3608,10 @@ def main() -> int:
               shape="sparse_coding, 8,192 chains, world size 1 (NCCL), ms per iteration"),
     ]
     phase("29 zoo timing", f"statistics engines' launches (phase 27): {zoo_stat_launches}")
+    for kern in kernels:  # phase 38's launches beside each main path's
+        if kern["name"] in ess_launches:
+            kern["ess_launches"] = ess_launches.pop(kern["name"])
+    check(not ess_launches, f"phase 38 launched kernels the kernels line lacks: {ess_launches}")
     check(all(kern["launches"] > 0 for kern in kernels),
           f"kernels not launched on their main paths: "
           f"{[kern['name'] for kern in kernels if not kern['launches'] > 0]}")

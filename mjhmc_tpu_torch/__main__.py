@@ -9,6 +9,7 @@
     python -m mjhmc_tpu_torch sample --config funnel --engine cuda --sampler nuts
     python -m mjhmc_tpu_torch sample --config mog --engine torch
     python -m mjhmc_tpu_torch bench
+    python -m mjhmc_tpu_torch diagnostics --file out.npz
 
 ``sample`` runs MJHMC, control HMC, MALT (``--gamma`` is MALT's friction,
 carried in the engine's β slot; ``--integrator two_stage`` for MJHMC and
@@ -19,7 +20,9 @@ preset runs: gauss2d, gauss50d, rough_well, rough_well_a3, funnel, banana,
 mog and eight_schools on the elementwise kernel, product_of_t,
 sparse_coding and logreg on the matmul kernel. ``--sampler`` picks the
 sampler, whatever the preset names (mog's preset sampler, parallel
-tempering, is not ported yet: ROADMAP.md, slice D). The JAX package's other
+tempering, is not ported yet: ROADMAP.md, slice D). ``diagnostics`` reads a
+``sample --save`` file and prints its autocorrelation, ESS, empirical
+spectral gap and split-R̂, computed on ``--device``. The JAX package's other
 subcommands are not ported yet (ROADMAP.md, slice H).
 """
 
@@ -113,6 +116,36 @@ def cmd_bench(args):
     sys.exit(bench.main())
 
 
+def cmd_diagnostics(args):
+    """Autocorrelation / ESS / empirical spectral gap / split-R̂ of a saved
+    sample file (``sample --save out.npz``), on ``--device``."""
+    from mjhmc_tpu_torch.diagnostics import (
+        effective_sample_size,
+        empirical_spectral_gap,
+        potential_scale_reduction,
+        weighted_autocorrelation,
+    )
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda needs a CUDA device (use --device cpu)")
+    with np.load(args.file) as data:
+        x = torch.as_tensor(data["x"], device=device)
+        w = torch.as_tensor(data["dwell"], device=device) if "dwell" in data else None
+    rho = weighted_autocorrelation(x, w, nlags=args.nlags).cpu().numpy()
+    rhat = potential_scale_reduction(x, w).cpu().numpy()
+    out = {
+        "file": args.file,
+        "shape": list(x.shape),
+        "ess": float(effective_sample_size(x, w)),
+        "spectral_gap": empirical_spectral_gap(x, w),
+        "rhat_max": float(rhat.max()),
+        "rhat": rhat[: min(8, len(rhat))].tolist(),
+        "rho_first_lags": rho[: min(10, len(rho))].tolist(),
+    }
+    print(json.dumps(out))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="mjhmc_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -143,6 +176,14 @@ def main(argv=None):
 
     sp = sub.add_parser("bench", help="headline throughput of the CUDA engine")
     sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser("diagnostics", help="autocorrelation, ESS, spectral gap and "
+                                            "split-R̂ of a saved sample file")
+    sp.add_argument("--file", required=True, help="npz from `sample --save`")
+    sp.add_argument("--nlags", type=int, default=200)
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_diagnostics)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -152,6 +152,9 @@ def test_import_loads_no_jax():
         "import mjhmc_tpu_torch.ops._build, mjhmc_tpu_torch.ops.leapfrog\n"
         "import mjhmc_tpu_torch.samplers.mjhmc, mjhmc_tpu_torch.diagnostics.autocorr\n"
         "import mjhmc_tpu_torch.models.product_of_t, mjhmc_tpu_torch.models.sparse_coding\n"
+        "import mjhmc_tpu_torch.bench_ess, mjhmc_tpu_torch.experiments.autocorr_experiment\n"
+        "import mjhmc_tpu_torch.diagnostics.rhat, mjhmc_tpu_torch.diagnostics.spectral\n"
+        "import mjhmc_tpu_torch.samplers.algebraic, mjhmc_tpu_torch.utils.init_cache\n"
         "mjhmc_tpu_torch.models.SparseCoding()._phi\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mjhmc_tpu.')))\n"
         "assert not bad, bad\n"
