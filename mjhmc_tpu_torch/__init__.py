@@ -9,7 +9,8 @@ scalars, energies that reduce axis −2.
 Ported so far: every model (rough well, Gaussian, product of t, sparse
 coding, logistic regression, and the zoo: funnel, banana, Gaussian
 mixture, eight schools), the leapfrog and two-stage integrators, the
-plain MJHMC, control HMC, MALT and NUTS samplers with the dual-averaging
+plain MJHMC (with the partial refresh), control HMC, reduced-flip HMC,
+MALT, NUTS, ChEES and parallel tempering samplers with the dual-averaging
 warmups, the fused CUDA engines (``ops.cuda_mjhmc``, hand-written kernels
 in ``csrc/``), the roofline dossier, the diagnostics (autocorrelation,
 ESS, split-R̂, spectral gaps), the ESS/s harness (``bench_ess``), the
@@ -18,8 +19,9 @@ algebraic ladder oracle (``samplers.algebraic``), burned-in inits
 (``utils.init_cache``), and the chain-sharded runtime on
 ``torch.distributed`` (``parallel``: mesh, collectives, the model axis,
 multi-process initialisation, the sharded engine run; ``utils``:
-checkpoints, long runs, timing, profiling; ``inference``: systematic
-resampling). See ROADMAP.md for what is still to come.
+checkpoints, long runs, timing, profiling), and the SMC and ADVI heads
+(``inference``, ``bench_heads``). See ROADMAP.md for what is still to
+come.
 
 On a machine with an NVIDIA H100, from the repository root::
 

@@ -7,7 +7,10 @@
     python -m mjhmc_tpu_torch sample --config rough_well --sampler control --integrator two_stage
     python -m mjhmc_tpu_torch sample --config product_of_t --sampler malt --gamma 1.0
     python -m mjhmc_tpu_torch sample --config funnel --engine cuda --sampler nuts
-    python -m mjhmc_tpu_torch sample --config mog --engine torch
+    python -m mjhmc_tpu_torch sample --config mog --sampler pt --engine torch --adapt-ladder
+    python -m mjhmc_tpu_torch sample --config rough_well --sampler reduced_flip --engine torch
+    python -m mjhmc_tpu_torch smc --config product_of_t
+    python -m mjhmc_tpu_torch vi --config gauss50d [--rank 16]
     python -m mjhmc_tpu_torch bench
     python -m mjhmc_tpu_torch diagnostics --file out.npz
 
@@ -15,15 +18,21 @@
 carried in the engine's β slot; ``--integrator two_stage`` for MJHMC and
 control) or NUTS at max_depth 8, and prints the JSON record of
 ``mjhmc_tpu``'s ``sample``. ``--engine cuda`` is the fused engine (its plain
-version when ``--device cpu``), ``--engine torch`` the plain sampler. Every
-preset runs: gauss2d, gauss50d, rough_well, rough_well_a3, funnel, banana,
-mog and eight_schools on the elementwise kernel, product_of_t,
-sparse_coding and logreg on the matmul kernel. ``--sampler`` picks the
-sampler, whatever the preset names (mog's preset sampler, parallel
-tempering, is not ported yet: ROADMAP.md, slice D). ``diagnostics`` reads a
-``sample --save`` file and prints its autocorrelation, ESS, empirical
-spectral gap and split-R̂, computed on ``--device``. The JAX package's other
-subcommands are not ported yet (ROADMAP.md, slice H).
+version when ``--device cpu``), ``--engine torch`` the plain sampler; the
+plain samplers add reduced-flip HMC and parallel tempering (``--sampler
+reduced_flip|pt``; ``--num-temps``, ``--beta-min``, ``--adapt-ladder``),
+which the fused engine refuses. Every preset runs: gauss2d, gauss50d,
+rough_well, rough_well_a3, funnel, banana, mog and eight_schools on the
+elementwise kernel, product_of_t, sparse_coding and logreg on the matmul
+kernel. ``--sampler`` picks the sampler, whatever the preset names.
+``smc`` anneals particles from a Gaussian prior (``inference.smc``) and
+``vi`` fits ADVI (``inference.vi``), each printing the JAX package's
+record. ``diagnostics`` reads a ``sample --save`` file and prints its
+autocorrelation, ESS, empirical spectral gap and split-R̂, computed on
+``--device``. Every subcommand runs on the card unless ``--device cpu`` is
+asked for. The JAX package's ``figures``, ``search`` and ``efficiency``
+subcommands and ``bench --profile`` are not ported yet (ROADMAP.md, slice
+H).
 """
 
 from __future__ import annotations
@@ -36,13 +45,25 @@ import numpy as np
 import torch
 
 
+#: the samplers the fused engine (``--engine cuda``) runs
+ENGINE_SAMPLERS = ("mjhmc", "control", "malt", "nuts")
+
+
+def _device(args) -> torch.device:
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda needs a CUDA device (use --device cpu)")
+    return device
+
+
 def cmd_sample(args):
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
     from mjhmc_tpu_torch.diagnostics import effective_sample_size
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda needs a CUDA device (use --device cpu)")
+    if args.engine == "cuda" and args.sampler not in ENGINE_SAMPLERS:
+        raise SystemExit(f"--engine cuda supports {'/'.join(ENGINE_SAMPLERS)}, not "
+                         f"{args.sampler!r} (--engine torch runs it)")
+    device = _device(args)
     cfg = BENCHMARK_CONFIGS[args.config]
     dist = cfg.make_distribution()
     nbatch = args.nbatch or cfg.nbatch
@@ -74,10 +95,17 @@ def cmd_sample(args):
             s = samplers.NUTS(dist, **common)
         elif args.sampler == "malt":  # the plain MALT takes no integrator, as in JAX
             s = samplers.MALT(dist, gamma=args.gamma, num_leapfrog_steps=m, **common)
+        elif args.sampler == "pt":
+            s = samplers.ParallelTempering(dist, num_leapfrog_steps=m, num_temps=args.num_temps,
+                                           beta_min=args.beta_min, **common)
+        elif args.sampler == "reduced_flip":  # leapfrog only, as in JAX
+            s = samplers.ReducedFlipHMC(dist, beta=cfg.beta, num_leapfrog_steps=m, **common)
         else:
             cls = samplers.ControlHMC if args.sampler == "control" else samplers.MarkovJumpHMC
             s = cls(dist, beta=cfg.beta, num_leapfrog_steps=m, integrator=args.integrator,
                     **common)
+        if args.sampler == "pt" and args.adapt_ladder:
+            s.adapt_ladder()
         s.burn_in(args.burn)
         out = s.sample(args.steps)
         xs_t, ws_t = out["x"], out.get("dwell")
@@ -101,6 +129,10 @@ def cmd_sample(args):
         "ess": ess,
         "ess_per_grad_eval": ess / max(grad_evals, 1),
     }
+    if args.sampler == "pt":
+        rec["betas"] = s.betas.cpu().numpy().tolist()
+        rec["swap_rates"] = np.asarray(s.swap_rates).tolist()
+        rec["round_trip_rate"] = s.round_trip_rate
     if args.save:
         extra = {} if evals is None else {"evals": evals}
         if ws_t is not None:
@@ -126,9 +158,7 @@ def cmd_diagnostics(args):
         weighted_autocorrelation,
     )
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda needs a CUDA device (use --device cpu)")
+    device = _device(args)
     with np.load(args.file) as data:
         x = torch.as_tensor(data["x"], device=device)
         w = torch.as_tensor(data["dwell"], device=device) if "dwell" in data else None
@@ -146,36 +176,97 @@ def cmd_diagnostics(args):
     print(json.dumps(out))
 
 
+def cmd_smc(args):
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.inference import SMC
+
+    head = SMC(BENCHMARK_CONFIGS[args.config].make_distribution(),
+               num_particles=args.nbatch or 4096, num_stages=args.stages,
+               prior_scale=args.prior_scale, seed=args.seed, device=_device(args))
+    state, _ = head.run()
+    x = state.x.cpu().numpy()
+    print(json.dumps({
+        "config": args.config,
+        "log_evidence": float(state.log_z),
+        "final_lambda": float(state.lam),
+        "particles": int(x.shape[1]),
+        "mean": x.mean(axis=1).tolist()[:8],
+        "var": x.var(axis=1).tolist()[:8],
+    }))
+
+
+def cmd_vi(args):
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.inference import ADVI
+
+    head = ADVI(BENCHMARK_CONFIGS[args.config].make_distribution(), seed=args.seed,
+                rank=args.rank, device=_device(args))
+    params, elbos = head.fit()
+    rec = {
+        "config": args.config,
+        "rank": args.rank,
+        "final_elbo": float(elbos[-50:].mean()),
+        "mu": params.mu.cpu().numpy().tolist()[:8],
+        "sigma": torch.exp(params.omega).cpu().numpy().tolist()[:8],
+    }
+    if args.rank > 0:
+        rec["cov_diag"] = torch.diagonal(head.covariance()).cpu().numpy().tolist()[:8]
+    print(json.dumps(rec))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="mjhmc_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def common(sp):
+        sp.add_argument("--config", default="rough_well")
+        sp.add_argument("--nbatch", type=int, default=None)
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
     sp = sub.add_parser("sample")
-    sp.add_argument("--config", default="rough_well")
-    sp.add_argument("--nbatch", type=int, default=None)
-    sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--sampler", choices=["mjhmc", "control", "malt", "nuts"],
+    common(sp)
+    sp.add_argument("--sampler",
+                    choices=["mjhmc", "control", "reduced_flip", "nuts", "malt", "pt"],
                     default="mjhmc")
     sp.add_argument("--gamma", type=float, default=1.0,
                     help="MALT friction (per unit time)")
     sp.add_argument("--integrator", choices=["leapfrog", "two_stage"], default="leapfrog",
                     help="two_stage: the BCSS minimal-error splitting, 2 gradients "
                          "per step (mjhmc and control)")
+    sp.add_argument("--num-temps", type=int, default=6,
+                    help="temperature-ladder size (only used with --sampler pt)")
+    sp.add_argument("--beta-min", type=float, default=0.05,
+                    help="coldest inverse temperature (only with --sampler pt)")
+    sp.add_argument("--adapt-ladder", action="store_true",
+                    help="tune the PT beta ladder to uniform swap rates first")
     sp.add_argument("--steps", type=int, default=1000)
     sp.add_argument("--burn", type=int, default=500)
     sp.add_argument("--save", default=None,
                     help="npz path for raw samples (and, with --engine cuda, "
                          "the per-chain eval counters)")
     sp.add_argument("--engine", choices=["torch", "cuda"], default="cuda",
-                    help="cuda = the fused single-kernel engine; torch = the "
-                         "plain sampler")
-    sp.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu, where the cuda engine runs "
-                         "its plain version")
+                    help="cuda = the fused single-kernel engine (mjhmc/control/malt/nuts; "
+                         "its plain version with --device cpu); torch = the plain sampler")
     sp.set_defaults(fn=cmd_sample)
 
     sp = sub.add_parser("bench", help="headline throughput of the CUDA engine")
     sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser("smc", help="tempered SMC from a Gaussian prior: log evidence and "
+                                     "the final particles' moments")
+    common(sp)
+    sp.add_argument("--stages", type=int, default=20,
+                    help="tempering stages (tight high-dim posteriors, e.g. "
+                         "sparse_coding, need 60-150)")
+    sp.add_argument("--prior-scale", type=float, default=3.0)
+    sp.set_defaults(fn=cmd_smc)
+
+    sp = sub.add_parser("vi", help="ADVI: the fitted mean and scales, and the final ELBO")
+    common(sp)
+    sp.add_argument("--rank", type=int, default=0,
+                    help="covariance rank: 0 = mean-field, ndims = full-rank")
+    sp.set_defaults(fn=cmd_vi)
 
     sp = sub.add_parser("diagnostics", help="autocorrelation, ESS, spectral gap and "
                                             "split-R̂ of a saved sample file")

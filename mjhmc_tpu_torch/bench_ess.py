@@ -35,6 +35,7 @@ for, where they run their plain versions; without a card it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -55,24 +56,29 @@ def _window_cap(cfg, dist) -> int:
     return int(2_000_000_000 // (4 * dist.ndims * cfg.nbatch))
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def _timed(call, trials: int, device) -> tuple:
+def timed(call, trials: int, device, warm=None) -> tuple:
     """(best wall seconds of ``trials`` calls, the last call's result); each
-    call is ended by a device synchronise."""
+    call is ended by a device synchronise. ``warm``, when given, is called
+    (and synchronised) once first, untimed, to absorb first-use costs."""
+    device = torch.device(device)
+    if warm is not None:
+        warm()
+        sync(device)
     wall, out = float("inf"), None
     for _ in range(trials):
         t0 = time.perf_counter()
         out = call()
-        _sync(device)
+        sync(device)
         wall = min(wall, time.perf_counter() - t0)
     return wall, out
 
 
-def _device_record(device: torch.device) -> dict:
+def device_record(device: torch.device) -> dict:
     if device.type != "cuda":
         return {"device_name": "cpu", "power_limit": None}
     from mjhmc_tpu_torch.bench import gpu_name_and_power_limit
@@ -132,9 +138,9 @@ def measure(
         eng = cls(dist, epsilon=epsilon, beta=beta, num_leapfrog_steps=m,
                   nbatch=cfg.nbatch, seed=seed, device=device, **kw)
         eng.run(burn)
-        eng.sample(steps, thin=thin)  # warm: loads the built library
-        _sync(device)
-        wall, (xs, ws) = _timed(lambda: eng.sample(steps, thin=thin), trials, device)
+        call = functools.partial(eng.sample, steps, thin=thin)
+        # the warm call loads the built library
+        wall, (xs, ws) = timed(call, trials, device, warm=call)
         ess = float(effective_sample_size(xs, ws))
         chains, engine = eng.nbatch, "cuda"
     elif sampler in PLAIN_SAMPLERS:
@@ -148,9 +154,8 @@ def measure(
             s = NUTS(dist, epsilon=epsilon, nbatch=cfg.nbatch, seed=seed,
                      mass_diag=mass_diag, max_depth=m, device=device)
         s.burn_in(burn)
-        s.sample(steps)
-        _sync(device)
-        wall, out = _timed(lambda: s.sample(steps), trials, device)
+        call = functools.partial(s.sample, steps)
+        wall, out = timed(call, trials, device, warm=call)
         ess = float(effective_sample_size(out["x"]))
         chains, engine = cfg.nbatch, "torch"
         if sampler == "nuts":  # tree-depth histogram
@@ -170,7 +175,7 @@ def measure(
         "value": ess / wall,
         "unit": "ess/s",
         "vs_baseline": None,  # the reference publishes no absolute numbers
-        **_device_record(device),
+        **device_record(device),
         "detail": {
             "config": config,
             "sampler": sampler,

@@ -17,17 +17,24 @@ import numpy as np
 
 from mjhmc_tpu_torch.diagnostics import weighted_autocorrelation
 from mjhmc_tpu_torch.models.base import Distribution
-from mjhmc_tpu_torch.samplers import MALT, NUTS, ControlHMC, MarkovJumpHMC
+from mjhmc_tpu_torch.samplers import (
+    MALT,
+    NUTS,
+    ControlHMC,
+    MarkovJumpHMC,
+    ParallelTempering,
+    ReducedFlipHMC,
+)
 from mjhmc_tpu_torch.utils.init_cache import burned_in_init
 
 SAMPLERS = {
     "mjhmc": MarkovJumpHMC,
     "control": ControlHMC,
+    "reduced_flip": ReducedFlipHMC,
     "nuts": NUTS,
     "malt": MALT,
+    "pt": ParallelTempering,
 }
-#: the JAX package's other samplers, which this experiment does not run yet
-NOT_PORTED = ("reduced_flip", "pt")
 
 
 class ACResult(NamedTuple):
@@ -136,14 +143,14 @@ def calculate_autocorrelation(
         rho = weighted_autocorrelation(xs, ws, nlags=nlags).cpu().numpy()
         evals = _exact_evals_axis(es.double().mean(dim=1).cpu().numpy(), nlags)
         return _result("mjhmc[cuda]", evals, rho, eng.grad_evals)
-    if sampler in NOT_PORTED:
-        raise ValueError(f"sampler {sampler!r} is not ported yet (ROADMAP.md, slice D)")
     s = SAMPLERS[sampler](dist, nbatch=nbatch, seed=seed, device=device, **sampler_kwargs)
     if use_cached_init:
         x0 = burned_in_init(dist, nbatch, burn_steps=burn_steps, seed=seed + 1000,
                             device=s.device)
+        if sampler == "pt":  # every rung starts at the shared init
+            x0 = x0.expand(s.state.x.shape).contiguous()
         u, g = dist.potential_and_grad(x0)
-        if sampler == "nuts":
+        if sampler in ("nuts", "pt"):
             s.state = s.state._replace(x=x0, u=u, grad=g)
         else:
             s.state = s.state._replace(chain=s.state.chain._replace(x=x0, u=u, grad=g))

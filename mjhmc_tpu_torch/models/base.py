@@ -53,6 +53,17 @@ class Distribution:
         """log p(x) up to a constant = -U(x)."""
         return -self.potential(x)
 
+    def constant(self, name: str, make: Callable[[], object], device) -> Tensor:
+        """The model's constant ``name`` (``make()``, a NumPy array) as a
+        tensor on ``device``, uploaded once per device and kept: an upload
+        from the host waits for the device, so the energies do not make one
+        per call."""
+        cache = self.__dict__.setdefault("_device_constants", {})
+        key = (name, str(torch.device(device)))
+        if key not in cache:
+            cache[key] = torch.as_tensor(make(), device=device)
+        return cache[key]
+
     # ---- reference-API aliases ---------------------------------------------
     def E(self, x: Tensor) -> Tensor:  # noqa: N802 — reference name
         """Alias of :meth:`potential` (the reference's ``E(X)``)."""

@@ -61,10 +61,10 @@ class EightSchools(Distribution):
         return len(self.y)
 
     def _consts(self, x: Tensor):
-        y = torch.tensor(self.y, dtype=torch.float32, device=x.device)[:, None]
-        inv_sig2 = torch.as_tensor(
-            (1.0 / np.asarray(self.sigma, np.float64) ** 2).astype(np.float32),
-            device=x.device)[:, None]
+        y = self.constant("y", lambda: np.asarray(self.y, np.float32), x.device)[:, None]
+        inv_sig2 = self.constant(
+            "inv_sig2", lambda: (1.0 / np.asarray(self.sigma, np.float64) ** 2).astype(np.float32),
+            x.device)[:, None]
         return y, inv_sig2
 
     def _prior(self, mu: Tensor, l: Tensor) -> Tensor:

@@ -33,7 +33,7 @@ class Gaussian(Distribution):
 
     def _prec(self, like: Tensor) -> Tensor:
         # (ndims, 1) inverse variances, broadcast over the chain axis
-        return torch.as_tensor(1.0 / self.variances, device=like.device)[:, None]
+        return self.constant("prec", lambda: 1.0 / self.variances, like.device)[:, None]
 
     def potential(self, x: Tensor) -> Tensor:
         return 0.5 * (x * x * self._prec(x)).sum(dim=-2)

@@ -50,8 +50,8 @@ class LogisticRegression(Distribution):
 
     def _z(self, x: Tensor):
         """(s, z = −s·Xθ): the signs and the softplus arguments, (..., nobs, nbatch)."""
-        xmat = torch.as_tensor(self._data[0], device=x.device)
-        s = torch.as_tensor(self._data[1], device=x.device)[:, None]
+        xmat = self.constant("xmat", lambda: self._data[0], x.device)
+        s = self.constant("s", lambda: self._data[1], x.device)[:, None]
         return xmat, s, -s * torch.matmul(xmat, x)
 
     def _prior(self, x: Tensor) -> Tensor:

@@ -55,12 +55,17 @@ class GaussianMixture(Distribution):
     # ---------------------------------------------------------------- energy
     def _component_logits(self, x: Tensor) -> Tensor:
         """log[wₖ·Nₖ(x)] up to the global constant: (..., d, n) → (..., K, n)."""
-        mu = torch.as_tensor(self._mu, device=x.device)[:, :, None]  # (K, d, 1)
-        sig = torch.as_tensor(self._sigma, device=x.device)[:, None]  # (K, 1)
-        logw = torch.log(torch.as_tensor(self._w, device=x.device))[:, None]  # (K, 1)
+        dev = x.device
+        mu = self.constant("mu", lambda: self._mu, dev)[:, :, None]  # (K, d, 1)
+        sig = self.constant("sigma", lambda: self._sigma, dev)  # (K,)
+        # the per-component terms, formed once on the device
+        logw = self.constant("logw", lambda: torch.log(self.constant("w", lambda: self._w, dev)),
+                             dev)[:, None]  # (K, 1)
+        sig2 = self.constant("sigma2", lambda: sig * sig, dev)[:, None]
+        dlogsig = self.constant("dlogsig", lambda: self.ndims * torch.log(sig), dev)[:, None]
         diff = x[..., None, :, :] - mu  # (..., K, d, n)
         sq = (diff * diff).sum(dim=-2)  # (..., K, n)
-        return logw - 0.5 * sq / (sig * sig) - self.ndims * torch.log(sig)
+        return logw - 0.5 * sq / sig2 - dlogsig
 
     def potential(self, x: Tensor) -> Tensor:
         return -torch.logsumexp(self._component_logits(x), dim=-2)
@@ -70,8 +75,9 @@ class GaussianMixture(Distribution):
         logits = self._component_logits(x)  # (..., K, n)
         u = -torch.logsumexp(logits, dim=-2)
         r = torch.softmax(logits, dim=-2)
-        mu = torch.as_tensor(self._mu, device=x.device)[:, :, None]  # (K, d, 1)
-        inv_var = torch.as_tensor(1.0 / (self._sigma**2), device=x.device)[:, None, None]
+        mu = self.constant("mu", lambda: self._mu, x.device)[:, :, None]  # (K, d, 1)
+        inv_var = self.constant("inv_var", lambda: 1.0 / (self._sigma**2), x.device)
+        inv_var = inv_var[:, None, None]
         diff = x[..., None, :, :] - mu  # (..., K, d, n)
         g = (r[..., :, None, :] * diff * inv_var).sum(dim=-3)  # (..., d, n)
         return u, g

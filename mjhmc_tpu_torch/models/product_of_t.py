@@ -44,7 +44,7 @@ class ProductOfT(Distribution):
 
     def basis(self, device="cpu") -> Tensor:
         """W as a float32 tensor on ``device``."""
-        return torch.as_tensor(self._basis.astype(np.float32), device=device)
+        return self.constant("basis", lambda: self._basis.astype(np.float32), device)
 
     def _y(self, x: Tensor):
         w = self.basis(x.device)

@@ -143,8 +143,8 @@ class SparseCoding(Distribution):
 
     # ---------------------------------------------------------------- energy
     def _resid(self, a: Tensor):
-        phi = torch.as_tensor(self._phi, device=a.device)
-        patch = torch.as_tensor(self.patch_array(), device=a.device)[:, None]
+        phi = self.constant("phi", lambda: self._phi, a.device)
+        patch = self.constant("patch", self.patch_array, a.device)[:, None]
         return phi, patch - torch.matmul(phi, a)  # (..., npixels, nbatch)
 
     def potential(self, a: Tensor) -> Tensor:

@@ -31,21 +31,24 @@ def leapfrog(
     x: Tensor,
     v: Tensor,
     grad: Tensor,
-    epsilon: float,
+    epsilon: Tensor | float,
     num_steps: int,
     inv_mass: Tensor | None = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Run ``num_steps`` leapfrog steps of size ``epsilon``.
 
-    ``x``, ``v``, ``grad``: (..., ndims, nbatch); ``inv_mass``: optional
-    diagonal M⁻¹ of shape (ndims, 1). Returns (x', v', U(x'), dU/dx(x')).
+    ``x``, ``v``, ``grad``: (..., ndims, nbatch); ``epsilon``: a float or a
+    tensor that broadcasts against them (parallel tempering's (T, 1, 1)
+    per-rung steps); ``inv_mass``: optional diagonal M⁻¹ of shape
+    (ndims, 1). Returns (x', v', U(x'), dU/dx(x')).
     """
     u = _u0(x)
+    half = 0.5 * epsilon  # formed once: a tensor ε would cost a kernel a kick
     for _ in range(num_steps):
-        v_half = v - 0.5 * epsilon * grad
+        v_half = v - half * grad
         x = x + epsilon * (v_half if inv_mass is None else inv_mass * v_half)
         u, grad = potential_and_grad(x)
-        v = v_half - 0.5 * epsilon * grad
+        v = v_half - half * grad
     return x, v, u, grad
 
 
@@ -58,7 +61,7 @@ def two_stage(
     x: Tensor,
     v: Tensor,
     grad: Tensor,
-    epsilon: float,
+    epsilon: Tensor | float,
     num_steps: int,
     inv_mass: Tensor | None = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -84,6 +87,44 @@ def two_stage(
 
 #: integrator registry: name → (stepper fn, gradient evals per step)
 INTEGRATORS = {"leapfrog": (leapfrog, 1), "two_stage": (two_stage, 2)}
+
+
+def masked_leapfrog(
+    potential_and_grad: PotentialAndGrad,
+    x: Tensor,
+    v: Tensor,
+    grad: Tensor,
+    epsilon: Tensor | float,
+    num_steps_max: int,
+    num_steps_per_chain: Tensor,
+    u0: Tensor | None = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Leapfrog with per-chain trajectory lengths (a fixed compute budget).
+
+    Every chain integrates ``num_steps_max`` steps; chain i freezes after
+    its own ``num_steps_per_chain[i]`` (ChEES's jittered lengths). ``u0``:
+    the cached U(x) at entry, evaluated once (and not counted) when
+    omitted. Returns (x', v', U', g', steps), ``steps`` = min(m_i, max) as
+    int32, the chains' algorithmic integrator steps.
+    """
+    m_i = num_steps_per_chain
+    if u0 is None:
+        u0 = potential_and_grad(x)[0]  # the frozen chains' U
+    u = u0
+    half = 0.5 * epsilon
+    for i in range(num_steps_max):
+        active = m_i > i
+        v_half = v - half * grad
+        x_new = x + epsilon * v_half
+        u_new, g_new = potential_and_grad(x_new)
+        v_new = v_half - half * g_new
+        a = active[None, :]
+        x = torch.where(a, x_new, x)
+        v = torch.where(a, v_new, v)
+        grad = torch.where(a, g_new, grad)
+        u = torch.where(active, u_new, u)
+    steps = torch.clamp(m_i, max=num_steps_max).to(torch.int32)
+    return x, v, u, grad, steps
 
 
 def kinetic_energy(v: Tensor, inv_mass: Tensor | None = None, dist=None) -> Tensor:

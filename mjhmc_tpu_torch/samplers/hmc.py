@@ -98,10 +98,12 @@ def hmc_step(
     return new_state, HMCStepOut(x=x_new, accept=accept, accept_stat=accept_stat)
 
 
-def collect_run(step, state, num_steps: int, collect: str):
+def collect_run(step, state, num_steps: int, collect: str,
+                fields=("x", "accept", "accept_stat")):
     """Run ``step(state) -> (state, out)`` ``num_steps`` times.
-    collect="samples": x, accept, accept_stat and the chain-mean cumulative
-    eval counter per iteration; "stats": unit-weight streaming moments."""
+    collect="samples": the ``fields`` of each iteration's out and the
+    chain-mean cumulative eval counter; "stats": unit-weight streaming
+    moments."""
     if collect not in ("samples", "stats"):
         raise ValueError(f"unknown collect mode: {collect}")
     if collect == "stats":
@@ -115,9 +117,8 @@ def collect_run(step, state, num_steps: int, collect: str):
     outs = []
     for _ in range(num_steps):
         state, o = step(state)
-        outs.append((o.x, o.accept, o.accept_stat, state.grad_evals.float().mean()))
-    xs, acc, astat, ev = (torch.stack(c) for c in zip(*outs))
-    return state, {"x": xs, "accept": acc, "accept_stat": astat, "evals_mean": ev}
+        outs.append((*(getattr(o, f) for f in fields), state.grad_evals.float().mean()))
+    return state, dict(zip((*fields, "evals_mean"), (torch.stack(c) for c in zip(*outs))))
 
 
 def hmc_run(

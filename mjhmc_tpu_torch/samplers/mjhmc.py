@@ -68,6 +68,7 @@ def mjhmc_step(
     gumbel: Tensor | None = None,
     xi: Tensor | None = None,
     block: Block | None = None,
+    refresh_fraction: float = 1.0,
 ) -> Tuple[MJState, MJStepOut]:
     """One Rao-Blackwellized jump iteration for all chains.
 
@@ -75,6 +76,9 @@ def mjhmc_step(
     selection noise and the N(0, I) refresh draw (a test can feed the JAX
     sampler's own draws); when absent they are drawn from ``generator``,
     at the global shape of a sharded state's ``block`` and cut to it.
+    ``refresh_fraction`` c is the R-clock's corruption: 1 (the default) is
+    the full refresh v ← ξ, c < 1 the partial v ← √(1−c)·v + √c·ξ, which
+    keeps the momentum marginal too; either way the cache is invalidated.
     """
     chain = state.chain
     x, v, u, g = chain.x, chain.v, chain.u, chain.grad
@@ -133,6 +137,9 @@ def mjhmc_step(
 
     # ---- apply L / F / R as masked blends ---------------------------------
     v_fresh = momentum_scale(inv_mass) * xi
+    if refresh_fraction < 1.0:
+        c = torch.tensor(refresh_fraction, dtype=torch.float32, device=x.device)
+        v_fresh = torch.sqrt(1.0 - c) * v + torch.sqrt(c) * v_fresh
     bl = is_l[None, :]
     x_new = torch.where(bl, x_l, x)
     v_new = torch.where(bl, v_l, torch.where(is_f[None, :], -v, v_fresh))
@@ -201,9 +208,10 @@ def mjhmc_run(
     inv_mass: Tensor | None = None,
     integrator: str = "leapfrog",
     block: Block | None = None,
+    refresh_fraction: float = 1.0,
 ) -> Tuple[MJState, dict]:
     """Run ``num_steps`` jump iterations (of a sharded state's ``block``:
-    ``mjhmc_step``).
+    ``mjhmc_step``, with its ``refresh_fraction``).
 
     collect="samples": returns xs (num_steps//thin, ndims, nbatch) + dwell.
     collect="stats":   returns only streaming weighted moments (O(1) memory).
@@ -215,14 +223,16 @@ def mjhmc_run(
         acc = MomentAccumulator.init(ndims, nbatch, state.chain.x.device)
         for _ in range(num_steps):
             state, o = mjhmc_step(dist, state, generator, epsilon, beta,
-                                  num_leapfrog_steps, inv_mass, integrator, block=block)
+                                  num_leapfrog_steps, inv_mass, integrator, block=block,
+                                  refresh_fraction=refresh_fraction)
             acc = acc.update(o.x, o.dwell)
         return state, {"moments": acc}
 
     outs = []
     for _ in range(num_steps):
         state, o = mjhmc_step(dist, state, generator, epsilon, beta,
-                              num_leapfrog_steps, inv_mass, integrator, block=block)
+                              num_leapfrog_steps, inv_mass, integrator, block=block,
+                              refresh_fraction=refresh_fraction)
         # chain-mean cumulative eval counter after this step (fairness axis)
         outs.append((*o, state.grad_evals.float().mean()))
     xs, dwell, sel, acc, cerr, ev = (torch.stack(c) for c in zip(*outs))
@@ -243,7 +253,8 @@ class MarkovJumpHMC:
     """Reference-style sampler object: ``sample(n)``, ``sampling_iteration()``,
     ``burn_in()``, on the plain PyTorch path. Runs on the card unless
     ``device="cpu"`` is asked for. ``mass_diag``: per-dim diagonal mass M
-    (Stan convention: pass 1/variance); momenta then start in N(0, M)."""
+    (Stan convention: pass 1/variance); momenta then start in N(0, M).
+    ``refresh_fraction``: the R-clock's corruption (``mjhmc_step``)."""
 
     distribution: Distribution
     epsilon: float = 1.0
@@ -254,6 +265,7 @@ class MarkovJumpHMC:
     integrator: str = "leapfrog"
     device: str = "cuda"
     mass_diag: tuple | None = None
+    refresh_fraction: float = 1.0
 
     def __post_init__(self):
         self.device = checked_device(self.device, type(self).__name__)
@@ -272,7 +284,7 @@ class MarkovJumpHMC:
             self.distribution, self.state, self.generator, num_steps,
             self.epsilon, self.beta, self.num_leapfrog_steps, collect,
             inv_mass=self.inv_mass, integrator=self.integrator,
-            block=self.block,
+            block=self.block, refresh_fraction=self.refresh_fraction,
         )
         return outs
 

@@ -286,8 +286,8 @@ def test_decay_evals_against_jax(seed):
 
 
 @pytest.mark.parametrize("engine,sampler,match", [
-    ("torch", "reduced_flip", "not ported yet"),
-    ("torch", "pt", "not ported yet"),
+    ("cuda", "reduced_flip", "MJHMC only"),
+    ("cuda", "pt", "MJHMC only"),
     ("cuda", "control", "MJHMC only"),
     ("pallas", "mjhmc", "unknown engine"),
 ])

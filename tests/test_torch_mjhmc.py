@@ -98,6 +98,47 @@ def test_step_matches_jax_with_injected_draws(name, kw, eps, beta, m, steps, rto
     assert (np.asarray(js.grad_evals) > steps * m).any(), "no cache rebuild exercised"
 
 
+def test_partial_refresh_step_matches_jax():
+    """refresh_fraction = 0.5 (v ← √(1−c)·v + √c·ξ on a refresh) against
+    the JAX step on gauss2d, draws injected, at rtol 1e-5."""
+    jd = jmodels.Gaussian(ndims=2, log_conditioning=2.0)
+    td = tmodels.Gaussian(ndims=2, log_conditioning=2.0)
+    n, eps, beta, m = 256, 1.0, 0.3, 5
+    js, ts = _start(jd, n, seed=4)
+    key = jax.random.key(13)
+    refreshed = 0
+    for step in range(20):
+        key, k = jax.random.split(key)
+        js, jo = jmj.mjhmc_step(jd, js, k, eps, beta, m, refresh_fraction=0.5)
+        k_gum, k_refresh = jax.random.split(k)
+        gum = np.array(jax.random.gumbel(k_gum, (3, n), jnp.float32))
+        xi = np.array(jax.random.normal(k_refresh, (2, n), jnp.float32))
+        ts, to = mjhmc_step(td, ts, None, eps, beta, m, gumbel=torch.as_tensor(gum),
+                            xi=torch.as_tensor(xi), refresh_fraction=0.5)
+        at = f"step {step}"
+        np.testing.assert_array_equal(to.sel.numpy(), np.asarray(jo.sel), err_msg=at)
+        np.testing.assert_array_equal(ts.grad_evals.numpy(), np.asarray(js.grad_evals),
+                                      err_msg=at)
+        for field in ("x", "v", "u", "grad"):
+            _close(getattr(ts.chain, field), getattr(js.chain, field), f"{field} {at}", 1e-5)
+        _close(ts.h_back, js.h_back, f"h_back {at}", 1e-5)
+        refreshed += int((np.asarray(jo.sel) == 2).sum())
+    assert refreshed > 0
+
+
+def test_partial_refresh_preserves_target():
+    """tests/test_mjhmc.py's oracle on the port: refresh_fraction < 1 keeps
+    π invariant; cut from 512 chains to 256 (2,000 iterations, as JAX)."""
+    dist = tmodels.Gaussian(ndims=3, log_conditioning=1.0)
+    s = MarkovJumpHMC(dist, epsilon=0.5, beta=0.3, num_leapfrog_steps=5, nbatch=256, seed=11,
+                      device="cpu", refresh_fraction=0.5)
+    out = s.sample(2000)
+    xs, w = out["x"][500:].numpy(), out["dwell"][500:].numpy()[:, None, :]
+    var = (w * xs**2).sum(axis=(0, 2)) / w.sum()
+    np.testing.assert_allclose(var, dist.analytic_var().numpy(), rtol=0.15)
+    assert (out["sel"] == 2).any()
+
+
 def test_counters_follow_cost_model():
     """Per chain: evals = M·steps + M·(1 + #R before the last step), and
     cache_err stays at float roundoff wherever the cache claims validity."""
