@@ -57,7 +57,18 @@ rejections, reduced flip and MJHMC's partial refresh on gauss50d, ChEES,
 SMC on the Gaussian oracle with both mutations (and bit for bit under a
 world-size-1 mesh), ``smc`` and ``vi`` (gauss50d, full rank on a
 correlated Gaussian, sparse coding at rank 16), the autocorrelation
-experiment with reduced flip and PT, and ``bench_heads``. One line per phase; any failed
+experiment with reduced flip and PT, and ``bench_heads``. Phase 40 drives
+slice H on the card: ``search`` with the grid and the GP-EI methods (each
+GP proposal timed), one grid point of the efficiency battery on gauss50d
+at M 5 and 50 (and the battery's projected hours on this eager path),
+``figures --quick`` (every ``.npz`` held to its checks: the spectral gaps
+against their eigensolutions recomputed on the host, tempering's mode
+recovery, the overlay's curves, the fan's spread; the ``.png`` files only
+where matplotlib is installed, its absence reported by name),
+``efficiency --quick``, ``examples/quickstart_torch.py --quick`` and
+``bench --profile``, whose ``torch.profiler`` trace must hold
+``mjhmc_kernel``'s device events (its share of the traced window
+printed). One line per phase; any failed
 check raises, so the exit code is non-zero. The second to last line is the kernels' JSON record, the
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero and prints no result.
@@ -72,6 +83,7 @@ import functools
 import importlib
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2819,8 +2831,9 @@ ESS_ROWS = [
     ("rough_well", "malt", ["--thin", "25"]),
     ("rough_well", "nuts-engine", []),
     ("product_of_t", "mjhmc", ["--thin", "32"]),
-    # the plain NUTS syncs with the host at every leaf: a shorter window
-    ("gauss2d", "nuts", ["--steps", "200", "--burn", "100"]),
+    # the plain NUTS syncs with the host at every leaf: bench_ess's
+    # shortest window
+    ("gauss2d", "nuts", ["--steps", "100", "--burn", "50"]),
 ]
 ESS_TRIALS = 3  # bench_ess.measure's timed stream calls
 #: the autocorrelation experiment's (chains, iterations): the preset's width
@@ -3037,8 +3050,10 @@ def ess_oracles(cm, cli, card):
 
 # ---- phase 39: slices D and F: the other samplers and the heads -------------
 #: the PT stuck-start run (tests/test_tempering.py:98-123 at full width):
-#: the mog preset's mixture, 1,024 chains, T 6, beta_min 0.02, eps 0.4, M 5
-PT_CHAINS, PT_TEMPS, PT_BETA_MIN, PT_EPS, PT_M, PT_BURN, PT_STEPS = 1024, 6, 0.02, 0.4, 5, 500, 2500
+#: the mog preset's mixture, 1,024 chains, T 6, beta_min 0.02, eps 0.4, M 5;
+#: 1,500 iterations after the burn (~0.03 round trips a replica an
+#: iteration, so ~45 a replica in the window)
+PT_CHAINS, PT_TEMPS, PT_BETA_MIN, PT_EPS, PT_M, PT_BURN, PT_STEPS = 1024, 6, 0.02, 0.4, 5, 500, 1500
 #: gauss50d's rows (reduced flip, MJHMC's partial refresh): burn, steps;
 #: the chains start in the target (Gaussian.init_x), so a short run holds
 #: the variances
@@ -3054,9 +3069,9 @@ def _on_card(*tensors):
           f"a result left the card: {[str(t.device) for t in tensors]}")
 
 
-def _row(msg, seconds, card, rows, key):
+def _row(msg, seconds, card, rows, key, name="39 samplers and heads"):
     rows[key] = seconds
-    phase("39 samplers and heads", f"{key}: {msg}; {seconds:.4g} s host clock [{card}]")
+    phase(name, f"{key}: {msg}; {seconds:.4g} s host clock [{card}]")
 
 
 def _var_within(var, tgt, rtol, what):
@@ -3447,6 +3462,329 @@ def samplers_and_heads(cm, cli, card, name):
     counts = wrapper_counts(cm)
     check(not counts, f"phase 39 launched fused-engine kernels: {counts}")
     return rows
+
+
+# ---- phase 40: slice H: the searches, the figures, the claim, bench --profile --
+#: `search`'s calls (gauss2d): --steps, --nbatch, --iters of the bayes call
+SEARCH_STEPS, SEARCH_CHAINS, SEARCH_ITERS = 200, 64, 4
+#: one grid point of the efficiency battery (gauss50d at its 128 chains),
+#: timed at these M over this many iterations (the battery runs 1,200)
+POINT_MS, POINT_STEPS = (5, 50), 200
+
+
+def _row40(msg, seconds, card, rows, key):
+    _row(msg, seconds, card, rows, key, "40 search and figures")
+
+
+def _cli_out(cli, argv):
+    """(stdout, seconds) of an in-process CLI call that ends synchronised."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def search_rows(cli, card, rows):
+    """``search`` with both methods on gauss2d; the GP proposals timed
+    one by one. Returns the proposals' seconds."""
+    import numpy as np
+
+    from mjhmc_tpu_torch.search import bayes
+
+    propose, times = bayes._propose, []
+
+    def timed_propose(*a):
+        t0 = time.perf_counter()
+        out = propose(*a)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    bayes._propose = timed_propose
+    try:
+        for method, extra, n_rows in (("grid", [], 9),
+                                      ("bayes", ["--iters", str(SEARCH_ITERS)], 6 + SEARCH_ITERS)):
+            out, seconds = _cli_out(cli, ["search", "--config", "gauss2d", "--method", method,
+                                          "--steps", str(SEARCH_STEPS), "--nbatch",
+                                          str(SEARCH_CHAINS)] + extra)
+            rec = json.loads(out.strip().splitlines()[-1])
+            best, table = rec["best"], rec["table"]
+            if method == "grid":
+                inside = (best["epsilon"] in (0.1, 0.3, 1.0) and best["beta"] in (0.05, 0.2, 0.5)
+                          and best["num_leapfrog_steps"] == 5)
+            else:
+                inside = (0.01 <= best["epsilon"] <= 10.0 and 0.02 <= best["beta"] <= 0.9
+                          and best["num_leapfrog_steps"] in (5, 10, 20))
+            check(len(table) == n_rows and best in table and inside
+                  and np.isfinite(best["decay_evals"]) and not best["censored"],
+                  f"search --method {method}: {len(table)} rows (want {n_rows}), best {best}")
+            gp = f", {len(times)} GP proposals {sum(times):.4g} s" if method == "bayes" else ""
+            _row40(f"--config gauss2d --method {method} --steps {SEARCH_STEPS} --nbatch "
+                   f"{SEARCH_CHAINS}{' '.join([''] + extra)}: {n_rows} rows, best "
+                   f"{json.dumps(best)}; {1e3 * seconds / n_rows:.5g} ms host a grid point{gp}",
+                   seconds, card, rows, f"search {method}")
+    finally:
+        bayes._propose = propose
+    check(len(times) == SEARCH_ITERS, f"GP proposals {len(times)}, want {SEARCH_ITERS}")
+    phase("40 search and figures", f"GP proposal (150 Adam steps, EI over 2,048 candidates) s: "
+          f"{[round(t, 5) for t in times]} [{card}]")
+    return times
+
+
+def battery_iterations():
+    """{M: plain sampler iterations} of the efficiency battery's grid
+    sweeps (``DEFAULT_TARGETS``, both samplers, the tuned_decay defaults
+    where a target sets none); the confirmation runs are not counted."""
+    import inspect
+
+    from mjhmc_tpu_torch.experiments import efficiency_claim as ec
+
+    defaults = {k: p.default for k, p in inspect.signature(ec.tuned_decay).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+    its = {}
+    for _, _, kw in ec.DEFAULT_TARGETS:
+        c = {**defaults, **kw}
+        for m in c["m_grid"]:
+            its[m] = its.get(m, 0) + 2 * c["n_eps"] * c["n_beta"] * c["search_steps"]
+    return its
+
+
+def grid_point_rows(card, rows):
+    """One grid point on gauss50d at 128 chains, at M 5 and 50; projects
+    the battery's sweeps on the eager path from their per-iteration ms
+    (linear in M). Returns {M: ms an iteration}."""
+    from mjhmc_tpu_torch.models import Gaussian
+    from mjhmc_tpu_torch.search import grid_search
+
+    ms = {}
+    for m in POINT_MS:
+        t0 = time.perf_counter()
+        res = grid_search(Gaussian(ndims=50, log_conditioning=4.0), "mjhmc", eps_grid=(0.1,),
+                          beta_grid=(0.1,), m_grid=(m,), num_steps=POINT_STEPS, nbatch=128,
+                          nlags=60, device=DEV)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ms[m] = 1e3 * seconds / POINT_STEPS
+        check(len(res.table) == 1, f"grid point at M {m}: {res.table}")
+        _row40(f"grid_search gauss50d mjhmc (128 chains, eps 0.1, beta 0.1, M {m}, "
+               f"{POINT_STEPS} iterations): {ms[m]:.5g} ms an iteration, decay "
+               f"{res.table[0]['decay_evals']:.6g} evals", seconds, card, rows, f"grid point M {m}")
+    (m0, m1) = POINT_MS
+    slope = (ms[m1] - ms[m0]) / (m1 - m0)
+    its = battery_iterations()
+    hours = sum(n * (ms[m0] + slope * (m - m0)) for m, n in its.items()) / 3.6e6
+    phase("40 search and figures", f"efficiency battery (DEFAULT_TARGETS, both samplers): "
+          f"{sum(its.values()):,} sweep iterations by M {json.dumps(its)}; projected "
+          f"{hours:.4g} h on the eager path at gauss50d's ms an iteration for every target "
+          f"(linear in M), confirmations not counted; python -m mjhmc_tpu_torch.bench_battery "
+          f"times each target [{card}]")
+    rows["battery hours (projected)"] = hours
+    return ms
+
+
+def figures_rows(cli, card, rows, tmp):
+    """``figures --quick --out tmp``: every .npz held to its checks; the
+    .png files rendered only where matplotlib imports."""
+    import importlib.util
+
+    import numpy as np
+
+    from mjhmc_tpu_torch.experiments import figures
+    from mjhmc_tpu_torch.samplers import algebraic as alg
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    out = Path(tmp) / "figures"
+    t0 = time.perf_counter()
+    try:
+        _cli_out(cli, ["figures", "--quick", "--out", str(out)])
+        rendered = "rendered"
+    except RuntimeError as e:
+        check(not has_mpl and "matplotlib" in str(e), f"figures --quick: {e}")
+        rendered = f"not rendered: {e}"
+    seconds = time.perf_counter() - t0
+    pngs = sorted(p.name for p in out.glob("*.png"))
+    check(len(pngs) == (4 if has_mpl else 0), f"figures: .png files {pngs}")
+    z = {p.stem: np.load(p) for p in out.glob("*.npz")}
+    check(sorted(z) == ["autocorr_overlay", "spectral_gap", "tempering", "trajectory_fan"],
+          f"figures: .npz files {sorted(z)}")
+    # the gaps recomputed from the figure's own energies (draws d at beta
+    # 0.3 by K, draws 100 + d at K 16 by beta), eigenvalues on the host
+    def gap_c(a):  # second-smallest |Re lambda| of a generator
+        return np.sort(np.abs(np.real(np.linalg.eigvals(a))))[1]
+
+    def gap_d(t):  # 1 - |lambda_2| of a transition matrix
+        return 1.0 - np.sort(np.abs(np.linalg.eigvals(t)))[::-1][1]
+
+    s = z["spectral_gap"]
+    for axis, values, draw in (("k", s["ks"], lambda d, v: (figures.ladder_energies(d, int(v)),
+                                                              0.3)),
+                               ("b", s["betas"], lambda d, v: (figures.ladder_energies(100 + d, 16),
+                                                               float(v)))):
+        for i, v in enumerate(values):
+            eb = [draw(d, v) for d in range(3)]
+            for key, gap in (("cont", lambda e, b: gap_c(alg.continuous_rate_matrix(e, b))),
+                             ("rf", lambda e, b: gap_d(alg.reduced_flip_transition_matrix(e, b))),
+                             ("disc", lambda e, b: gap_d(alg.discrete_transition_matrix(e, b)))):
+                got, want = s[f"{key}_{axis}"][i], np.mean([gap(e, b) for e, b in eb])
+                check(abs(got - want) <= 1e-6 * abs(want), f"spectral_gap {key}_{axis}[{i}] "
+                      f"{got} against the eigensolution {want}")
+    t = z["tempering"]
+    right_pt, right_hmc = float(np.mean(t["pt"] > 0)), float(np.mean(t["hmc"] > 0))
+    area = float(np.trapezoid(t["exact"], t["grid"]))
+    check(0.3 <= right_pt <= 0.7 and right_hmc < 0.05 and abs(area - 1) < 1e-6,
+          f"tempering: PT x > 0 on {right_pt}, HMC on {right_hmc}, density integrates to {area}")
+    a = z["autocorr_overlay"]
+    rhos = [k for k in a.files if k.endswith("_rho")]
+    check(len(rhos) == 12 and all(
+        abs(a[k][0] - 1) <= 0.02 and np.isfinite(a[k]).all()
+        and np.all(np.diff(a[k.replace("_rho", "_evals")]) > 0) for k in rhos)
+        and all(np.isfinite(a[k]).all() for k in a.files),
+        f"autocorr_overlay: rho[0] {[float(a[k][0]) for k in rhos]}")
+    f = z["trajectory_fan"]
+    check(all(f[k].std() > 10 for k in f.files), f"trajectory_fan: std "
+          f"{[float(f[k].std()) for k in f.files]}")
+    _row40(f"4 .npz held (spectral gaps = the eigensolutions within 1e-6; PT "
+           f"x > 0 on {right_pt:.4f}, HMC on {right_hmc:.4f}, density area {area:.7f}; 12 "
+           f"overlay curves rho(0) 1, evals increasing; fan std "
+           f"{[round(float(f[k].std()), 2) for k in f.files]}); .png {rendered}", seconds, card,
+           rows, "figures --quick")
+
+
+def efficiency_row(cli, card, rows, tmp):
+    """``efficiency --quick``: two rows, a finite positive ratio, and each
+    row's confirmations run as the protocol sets them (``seed + 7``; lags
+    ``nlags * max(1, 10 / M)``, steps at least twice that)."""
+    from mjhmc_tpu_torch.experiments import efficiency_claim as ec
+
+    kw = dict(ec.QUICK_TARGETS[0][2])
+    out = str(Path(tmp) / "efficiency_claim")
+    confirms, run = [], ec.calculate_autocorrelation
+
+    def recorded(dist, **k):
+        confirms.append(k)
+        return run(dist, **k)
+
+    ec.calculate_autocorrelation = recorded
+    t0 = time.perf_counter()
+    try:
+        _cli_out(cli, ["efficiency", "--quick", "--out", out])
+        rendered = "rendered"
+    except RuntimeError as e:
+        check("matplotlib" in str(e), f"efficiency --quick: {e}")
+        rendered = f"not rendered: {e}"
+    finally:
+        ec.calculate_autocorrelation = run
+    seconds = time.perf_counter() - t0
+    with open(out + ".json") as fh:
+        rec = json.load(fh)
+    ratio = rec["ratios"]["rough_well[a=2]"]
+    check(len(rec["rows"]) == 2 and math.isfinite(ratio["ratio_control_over_mjhmc"])
+          and ratio["ratio_control_over_mjhmc"] > 0 and Path(out + ".npz").exists(),
+          f"efficiency --quick: {rec}")
+    for c in confirms:
+        nl = int(kw["nlags"] * max(1.0, 10.0 / c["num_leapfrog_steps"]))
+        check(c["seed"] == 7 and c["nlags"] == nl and c["num_steps"] == max(kw["num_steps"], 2 * nl)
+              and c["nbatch"] == kw["nbatch"], f"efficiency --quick confirmation {c}")
+    for sampler in ("mjhmc", "control"):
+        check(sum(c["sampler"] == sampler for c in confirms) >= 1, f"no {sampler} confirmation")
+    # a censored decay is a lower bound: a ratio of two says nothing
+    what = ("a ratio of lower bounds, uninformative" if ratio["censored"] else "uncensored")
+    _row40(f"rows {json.dumps(rec['rows'])}, ratio {ratio['ratio_control_over_mjhmc']:.5g} "
+           f"({what}); {len(confirms)} confirmations at seed 7, lags and steps as the protocol "
+           f"sets them; .png {rendered}", seconds, card, rows, "efficiency --quick")
+
+
+def profile_row(cm, cli, card, rows, tmp):
+    """``bench --profile``: the headline under ``torch.profiler``; its
+    trace must hold mjhmc_kernel's device events. Returns the run
+    wrapper's launches."""
+    out = Path(tmp) / "trace"
+    cm.reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        try:
+            cli(["bench", "--profile", str(out)])
+        except SystemExit as e:
+            check(e.code == 0, f"bench --profile exited {e.code}")
+    seconds = time.perf_counter() - t0
+    counts = wrapper_counts(cm)
+    launches = counts.pop(("cuda_mjhmc_run", "launches"), 0)
+    check(launches > 0 and not counts, f"bench --profile: launches {launches}, others {counts}")
+    with open(out / "trace.json") as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    mine = [e for e in kernels if "mjhmc_kernel" in e.get("name", "")]
+    check(mine, f"bench --profile: no mjhmc_kernel device events among {len(kernels)} kernels")
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e.get("dur", 0) for e in events)
+    share = sum(e["dur"] for e in mine) / (hi - lo)
+    busy = sum(e["dur"] for e in kernels) / (hi - lo)
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    _row40(f"{rec['value']:.5g} credited steps/s, {len(mine)} mjhmc_kernel "
+           f"launches traced ({launches} counted), mjhmc_kernel {100 * share:.4g}% of the traced "
+           f"window ({(hi - lo) / 1e6:.4g} s), every kernel {100 * busy:.4g}%", seconds, card,
+           rows, "bench --profile")
+    rows["mjhmc_kernel busy share"] = share
+    return launches
+
+
+def quickstart_row(card, rows):
+    """``examples/quickstart_torch.py`` at its full size on the card, in
+    process: the dwell-weighted variance within 10% of the quadrature
+    oracle, PT's within 10% of the exact one, both decays finite."""
+    import importlib.util
+
+    import numpy as np
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", Path(__file__).resolve().parent / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main([])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    var_rel = np.abs(res["var"] / res["oracle"] - 1)
+    pt_rel = abs(res["pt_var"] / res["pt_exact"] - 1)
+    check(len(lines) == 5 and bool((var_rel < 0.1).all()) and pt_rel < 0.1 and all(
+        math.isfinite(d) for d, _ in res["decays"].values()), f"quickstart: {lines}")
+    _row40(" | ".join(lines) + f" (variance off the oracle by {np.round(var_rel, 4).tolist()}, "
+           f"PT's off the exact by {pt_rel:.4f})", seconds, card, rows, "quickstart")
+
+
+def search_and_figures(cm, cli, card):
+    """Phase 40, slice H on the card: ``search`` (grid and GP-EI), one
+    battery grid point at M 5 and 50, ``figures --quick``, ``efficiency
+    --quick``, ``bench --profile`` and the quickstart. Plain PyTorch but
+    ``bench``: every other row launches no fused-engine kernel. Returns
+    ({row: host seconds}, the profiled run's launches)."""
+    import tempfile
+
+    from mjhmc_tpu_torch.utils import init_cache
+
+    rows = {}
+    cache = init_cache.DEFAULT_CACHE_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        init_cache.DEFAULT_CACHE_DIR = str(Path(tmp) / "init")
+        try:
+            cm.reset_counts()
+            search_rows(cli, card, rows)
+            grid_point_rows(card, rows)
+            figures_rows(cli, card, rows, tmp)
+            efficiency_row(cli, card, rows, tmp)
+            quickstart_row(card, rows)
+            counts = wrapper_counts(cm)
+            check(not counts, f"phase 40's plain rows launched fused-engine kernels: {counts}")
+            launches = profile_row(cm, cli, card, rows, tmp)
+        finally:
+            init_cache.DEFAULT_CACHE_DIR = cache
+    return rows, launches
 
 
 T0 = time.perf_counter()
@@ -3869,6 +4207,12 @@ def main() -> int:
     phase("39 samplers and heads", f"phase 39 took {time.perf_counter() - t_39:.4g} s; rows "
           + json.dumps({k: round(v, 4) for k, v in rows39.items()}) + f" [{card}]")
 
+    # ---- 40. slice H: the searches, the figures, the claim, bench --profile --
+    t_40 = time.perf_counter()
+    rows40, profile_launches = search_and_figures(cm, cli, card)
+    phase("40 search and figures", f"phase 40 took {time.perf_counter() - t_40:.4g} s; rows "
+          + json.dumps({k: round(v, 4) for k, v in rows40.items()}) + f" [{card}]")
+
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
 
@@ -4049,6 +4393,7 @@ def main() -> int:
         if kern["name"] in ess_launches:
             kern["ess_launches"] = ess_launches.pop(kern["name"])
     check(not ess_launches, f"phase 38 launched kernels the kernels line lacks: {ess_launches}")
+    kernels[0]["profile_launches"] = profile_launches  # phase 40's bench --profile
     check(all(kern["launches"] > 0 for kern in kernels),
           f"kernels not launched on their main paths: "
           f"{[kern['name'] for kern in kernels if not kern['launches'] > 0]}")

@@ -19,8 +19,11 @@ algebraic ladder oracle (``samplers.algebraic``), burned-in inits
 (``utils.init_cache``), and the chain-sharded runtime on
 ``torch.distributed`` (``parallel``: mesh, collectives, the model axis,
 multi-process initialisation, the sharded engine run; ``utils``:
-checkpoints, long runs, timing, profiling), and the SMC and ADVI heads
-(``inference``, ``bench_heads``). See ROADMAP.md for what is still to
+checkpoints, long runs, timing, profiling), the SMC and ADVI heads
+(``inference``, ``bench_heads``), the hyperparameter searches (``search``:
+the grid sweep and GP-EI), the paper's figures and its efficiency claim
+(``experiments.figures``, ``experiments.efficiency_claim``) and the
+sampler dataclasses (``config``). See ROADMAP.md for what is still to
 come.
 
 On a machine with an NVIDIA H100, from the repository root::
@@ -46,9 +49,16 @@ from mjhmc_tpu_torch import (
     ops,
     parallel,
     samplers,
+    search,
     utils,
 )
-from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+from mjhmc_tpu_torch.config import (
+    BENCHMARK_CONFIGS,
+    ControlHMCConfig,
+    MJHMCConfig,
+    NUTSConfig,
+)
 
 __all__ = ["models", "ops", "samplers", "diagnostics", "experiments", "parallel",
-           "inference", "utils", "BENCHMARK_CONFIGS"]
+           "inference", "search", "utils", "MJHMCConfig", "ControlHMCConfig", "NUTSConfig",
+           "BENCHMARK_CONFIGS"]

@@ -11,8 +11,11 @@
     python -m mjhmc_tpu_torch sample --config rough_well --sampler reduced_flip --engine torch
     python -m mjhmc_tpu_torch smc --config product_of_t
     python -m mjhmc_tpu_torch vi --config gauss50d [--rank 16]
-    python -m mjhmc_tpu_torch bench
+    python -m mjhmc_tpu_torch bench [--profile DIR]
     python -m mjhmc_tpu_torch diagnostics --file out.npz
+    python -m mjhmc_tpu_torch search --config gauss2d [--method bayes]
+    python -m mjhmc_tpu_torch figures [--quick] [--out figures_out] [--only spectral]
+    python -m mjhmc_tpu_torch efficiency [--quick] [--out figures/efficiency_claim]
 
 ``sample`` runs MJHMC, control HMC, MALT (``--gamma`` is MALT's friction,
 carried in the engine's β slot; ``--integrator two_stage`` for MJHMC and
@@ -29,10 +32,13 @@ kernel. ``--sampler`` picks the sampler, whatever the preset names.
 ``vi`` fits ADVI (``inference.vi``), each printing the JAX package's
 record. ``diagnostics`` reads a ``sample --save`` file and prints its
 autocorrelation, ESS, empirical spectral gap and split-R̂, computed on
-``--device``. Every subcommand runs on the card unless ``--device cpu`` is
-asked for. The JAX package's ``figures``, ``search`` and ``efficiency``
-subcommands and ``bench --profile`` are not ported yet (ROADMAP.md, slice
-H).
+``--device``. ``search`` tunes (ε, β, M) by the grid sweep or the GP-EI
+search (``search``) and prints ``{"best", "table"}``; ``figures`` writes
+the paper's figures (``.npz``, then ``.png`` where matplotlib is
+installed) and ``efficiency`` the efficiency-claim battery, each under
+``--out`` only. ``bench --profile DIR`` writes a ``torch.profiler`` trace
+of the headline benchmark to ``DIR/trace.json``. Every subcommand runs on
+the card unless ``--device cpu`` is asked for (``bench`` needs the card).
 """
 
 from __future__ import annotations
@@ -145,7 +151,52 @@ def cmd_sample(args):
 def cmd_bench(args):
     from mjhmc_tpu_torch import bench
 
+    if args.profile:
+        # a Chrome/Perfetto trace of the whole timed run
+        from mjhmc_tpu_torch.utils.profiling import trace
+
+        with trace(args.profile):
+            rc = bench.main()
+        print(f"# trace written to {args.profile}/trace.json", file=sys.stderr)
+        sys.exit(rc)
     sys.exit(bench.main())
+
+
+def cmd_figures(args):
+    from mjhmc_tpu_torch.experiments import figures
+
+    _device(args)
+    argv = ["--out", args.out, "--device", args.device] + (["--quick"] if args.quick else [])
+    if args.only:
+        argv += ["--only", args.only]
+    figures.main(argv)
+
+
+def cmd_search(args):
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.search import bayes_search, grid_search
+
+    device = _device(args)
+    dist = BENCHMARK_CONFIGS[args.config].make_distribution()
+    # as in the JAX package, --seed is parsed but the searches keep their
+    # default seed (ROADMAP.md §3)
+    kw = dict(sampler=args.sampler, num_steps=args.steps, nbatch=args.nbatch or 256,
+              device=device)
+    if args.method == "bayes":
+        res = bayes_search(dist, num_iters=args.iters, **kw)
+    else:
+        res = grid_search(dist, **kw)
+    print(json.dumps({"best": res.best, "table": res.table}))
+
+
+def cmd_efficiency(args):
+    from mjhmc_tpu_torch.experiments.efficiency_claim import main as claim_main
+
+    _device(args)
+    argv = ["--out", args.out, "--seed", str(args.seed), "--device", args.device]
+    if args.quick:
+        argv.append("--quick")
+    claim_main(argv)
 
 
 def cmd_diagnostics(args):
@@ -251,7 +302,27 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_sample)
 
     sp = sub.add_parser("bench", help="headline throughput of the CUDA engine")
+    sp.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler (Chrome/Perfetto) trace of the run to "
+                         "DIR/trace.json")
     sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser("figures", help="the paper's figures (.npz, and .png with matplotlib)")
+    sp.add_argument("--out", default="figures_out")
+    sp.add_argument("--quick", action="store_true")
+    sp.add_argument("--only", default=None, help="one figure by name")
+    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_figures)
+
+    sp = sub.add_parser("search", help="tune (eps, beta, M): grid sweep or GP-EI")
+    common(sp)
+    sp.add_argument("--sampler", choices=["mjhmc", "control"], default="mjhmc")
+    sp.add_argument("--steps", type=int, default=800)
+    sp.add_argument("--method", choices=["grid", "bayes"], default="grid",
+                    help="'bayes' = in-process GP-EI (the Spearmint analogue)")
+    sp.add_argument("--iters", type=int, default=14,
+                    help="BO iterations after the init design (bayes only)")
+    sp.set_defaults(fn=cmd_search)
 
     sp = sub.add_parser("smc", help="tempered SMC from a Gaussian prior: log evidence and "
                                      "the final particles' moments")
@@ -275,6 +346,14 @@ def main(argv=None):
     sp.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     sp.set_defaults(fn=cmd_diagnostics)
+
+    sp = sub.add_parser("efficiency",
+                        help="the paper's statistical-efficiency claim experiment (long)")
+    sp.add_argument("--out", default="figures/efficiency_claim")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--quick", action="store_true")
+    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_efficiency)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,14 +1,43 @@
-"""The named benchmark presets (a copy of ``mjhmc_tpu.config``).
+"""The sampler dataclasses and the named benchmark presets (a copy of
+``mjhmc_tpu.config``).
 
-The presets are the same values as the JAX package's; only
-``make_distribution`` resolves to this package's model registry, which
-holds every model the presets name.
+The dataclasses and presets are the same values as the JAX package's;
+only ``make_distribution`` resolves to this package's model registry,
+which holds every model the presets name.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    epsilon: float = 1.0
+    beta: float = 0.1
+    num_leapfrog_steps: int = 5
+    nbatch: int = 128
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MJHMCConfig(SamplerConfig):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlHMCConfig(SamplerConfig):
+    beta: float = 0.2
+    flip_on_reject: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class NUTSConfig:
+    epsilon: float = 1.0
+    max_depth: int = 8
+    nbatch: int = 128
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

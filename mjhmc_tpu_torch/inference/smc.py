@@ -266,7 +266,9 @@ def smc_init(dist: Distribution, generator: torch.Generator, num_particles: int,
              mesh=None, device="cpu") -> SMCState:
     """Particles from the N(0, prior_scale²) prior, uniform weights, λ = 0.
     Under a ``mesh`` the draw is made at the global shape and this rank
-    keeps its block."""
+    keeps its block; a count the ranks do not divide is refused."""
+    if mesh is not None and num_particles % mesh.size():
+        raise ValueError(f"{num_particles} particles do not split over {mesh.size()} ranks")
     dev = torch.device(device) if mesh is None else mesh.device
     x0 = prior_scale * randn(generator, (dist.ndims, num_particles), dev)
     n_local = num_particles if mesh is None else num_particles // mesh.size()

@@ -245,14 +245,60 @@ def test_smc_over_two_ranks_is_the_direct_run(tmp_path):
                 assert abs(float(r["chees/log_z"]) - float(state.log_z)) < 0.02
 
 
+def test_smc_refuses_particles_the_ranks_do_not_split(tmp_path):
+    """Two gloo ranks: 101 particles raise ``ValueError`` on each rank and
+    100 run, 50 a rank. JAX's mesh run refuses 101 too (its resample's
+    shard_map axis does not divide)."""
+    import jax
+
+    from mjhmc_tpu import models as jmodels
+    from mjhmc_tpu.inference.smc import smc_run as jax_smc_run
+    from mjhmc_tpu.parallel.mesh import make_chain_mesh as jax_chain_mesh
+
+    with pytest.raises(ValueError, match="2 does not evenly divide 101"):
+        jax_smc_run(jmodels.Gaussian(2, 1.0), jax.random.key(0), 101, num_stages=2,
+                    mesh=jax_chain_mesh(2))
+    jstate, _ = jax_smc_run(jmodels.Gaussian(2, 1.0), jax.random.key(0), 100, num_stages=2,
+                            mesh=jax_chain_mesh(2))
+    assert jstate.x.shape == (2, 100)
+    addr = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), "2", addr,
+                               str(tmp_path), "split"], env=env, cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err[-2000:]
+    for r in range(2):
+        rec = np.load(os.path.join(tmp_path, f"rank{r}.npz"))
+        assert "do not split over 2 ranks" in str(rec["refused"])
+        assert rec["x_shape"].tolist() == [2, 50] and float(rec["lam"]) > 0.0
+
+
 _TWO_RANK_KW = dict(num_stages=8, num_mutation_steps=3, num_leapfrog_steps=6, init_tau=0.5)
 
 
-def _rank_main(rank: int, world: int, addr: str, out: str) -> None:
+def _split_rank_main(mesh, out: str) -> None:
+    """101 particles over two ranks must raise; 100 must run."""
+    model = tmodels.Gaussian(ndims=2, log_conditioning=1.0)
+    try:
+        smc_run(model, torch.Generator().manual_seed(0), 101, num_stages=2, mesh=mesh)
+        refused = "ran"
+    except ValueError as e:
+        refused = str(e)
+    state, _ = smc_run(model, torch.Generator().manual_seed(0), 100, num_stages=2, mesh=mesh)
+    np.savez(os.path.join(out, f"rank{mesh.axis_index()}.npz"), refused=refused,
+             x_shape=np.array(state.x.shape), lam=state.lam.numpy())
+
+
+def _rank_main(rank: int, world: int, addr: str, out: str, mode: str = "run") -> None:
     torch.set_num_threads(1)
     initialize(addr, world, rank, device="cpu")
     try:
         mesh = make_chain_mesh(device="cpu")
+        if mode == "split":
+            return _split_rank_main(mesh, out)
         model = tmodels.Gaussian(ndims=4, log_conditioning=1.0)
         rec = {}
         for mutation in ("hmc", "chees"):
@@ -266,5 +312,5 @@ def _rank_main(rank: int, world: int, addr: str, out: str) -> None:
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], *sys.argv[5:6])
     print(json.dumps({"rank": int(sys.argv[1]), "ok": True}))
