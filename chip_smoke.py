@@ -68,7 +68,15 @@ where matplotlib is installed, its absence reported by name),
 ``efficiency --quick``, ``examples/quickstart_torch.py --quick`` and
 ``bench --profile``, whose ``torch.profiler`` trace must hold
 ``mjhmc_kernel``'s device events (its share of the traced window
-printed). One line per phase; any failed
+printed). Phase 41 drives slice H's third part: one boundary-audited
+``bench_ess._tune`` round on the card and ``_candidates`` over its table,
+``_arbitrate_nuts`` on product of t's engine NUTS row with one more
+``measure`` at max_depth 12 (the matmul NUTS kernel's deepest trees, which
+phase 21 holds to its plain version), ``bench_ess --table`` and
+``bench_two_stage`` on gauss2d, and holds ``bench_heads.sharded_path_receipt``
+as phase 39's ``bench_heads.main`` ran it (8 gloo ranks on the host's CPU:
+its wall is no card number). One line
+per phase; any failed
 check raises, so the exit code is non-zero. The second to last line is the kernels' JSON record, the
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero and prints no result.
@@ -76,6 +84,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -84,6 +93,7 @@ import importlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -165,6 +175,42 @@ def phase(name: str, msg: str) -> None:
 def check(ok, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def stop_children() -> list[str]:
+    """Stops the processes this one started that still run, and returns
+    their command lines: multiprocessing's resource tracker, which the first
+    spawn pool starts and which otherwise lives until this process has
+    exited (it is started again if a later pool needs it), then any other
+    child (SIGTERM, SIGKILL after 10 s)."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+    left = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            stat = Path(f"/proc/{pid}/stat").read_text()
+            state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+            if int(ppid) != os.getpid():
+                continue
+            if state == "Z":  # ended, not yet reaped
+                os.waitpid(int(pid), os.WNOHANG)
+                continue
+            left[int(pid)] = Path(f"/proc/{pid}/cmdline").read_text().replace("\0", " ")
+        except (OSError, ValueError):
+            continue  # ended meanwhile
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and any(Path(f"/proc/{p}").exists() for p in left):
+            for pid in left:
+                with contextlib.suppress(ChildProcessError):
+                    os.waitpid(pid, os.WNOHANG)
+            time.sleep(0.05)
+    return [cmd.strip() for cmd in left.values()]
 
 
 def at(spec, precision="highest"):
@@ -553,8 +599,8 @@ def nuts_checks(cm):
               f"{share:.4f} of chains built rounds in both directions and agree; "
               f"{int(started.max())} rounds at most{deep}")
 
-    # CudaNUTS at depths past the matmul kernel's cap, from its own state and
-    # seed, against the plain version; the matmul kernel refuses them
+    # CudaNUTS at the deepest trees, from its own state and seed, against the
+    # plain version; past the cap the matmul kernel refuses them too
     for depth in (cm.NUTS_MAX_DEPTH - 1, cm.NUTS_MAX_DEPTH):
         eng = cm.CudaNUTS(g2, epsilon=DEEP_EPS, num_leapfrog_steps=depth, nbatch=1024, seed=6)
         st = tuple(t.clone() for t in (eng.x, eng.v, eng.g, eng.u, eng.h_back, eng.back_valid))
@@ -1273,6 +1319,172 @@ def mm_nuts_checks(cm):
                   f"one-ulp nudges of x change {int(flips.sum())} chains' counts and move "
                   f"{int(drift.sum())} more past rtol 1e-4 in the plain version alone")
     return errs
+
+
+#: phase 21's trees past round 10 (max_depth 12, the depth JAX's NUTS
+#: arbitration extends to): (config, precision, (fixed-uniform, Philox)
+#: chains, (fixed-uniform, Philox) ε), one iteration each. Fixed-uniform
+#: momenta (5.9 in every dim) carry product of t's trees to the 4,095-leaf
+#: cap and sparse coding's past round 11; Philox momenta turn sooner, so
+#: sparse coding's ε is smaller there, over two of its tiles
+MM_NUTS_DEEP = (("product_of_t", "highest", (16, 16), (0.001, 0.002)),
+                ("product_of_t", "default", (16, 16), (0.001, 0.002)),
+                ("sparse_coding", "bf16x3", (16, 32), (0.002, 0.00005)))
+
+
+def deep_plain(cname, prec, arrays, seed, eps, fixed, nudge=0.0):
+    """One plain run of a ``MM_NUTS_DEEP`` case on the CPU, a worker
+    process's job: ``arrays`` the (x, v, g, u, h_back, valid) NumPy start,
+    x moved one ulp toward ``nudge`` (±inf) where it is not 0. Returns
+    (xs, es, RunOut's fields, host ms) as NumPy arrays."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    torch.set_num_threads(1)
+    spec = at(cm.energy_spec_for(BENCHMARK_CONFIGS[cname].make_distribution()), prec)
+    st = [torch.from_numpy(a) for a in arrays]
+    if nudge:
+        st[0] = torch.nextafter(st[0], torch.full_like(st[0], nudge))
+    t0 = time.perf_counter()
+    xs, _, es, r = cm.stream_reference(spec, *st, seed, eps, 0.0, 1, 1, cm.NUTS_MM_MAX_DEPTH,
+                                       fixed, variant="nuts")
+    ms = (time.perf_counter() - t0) * 1e3
+    return xs.numpy(), es.numpy(), tuple(t.numpy() for t in r), ms
+
+
+def mm_nuts_deep_checks(cm):
+    """Phase 21 at max_depth 12: ``nuts_mm_kernel``, run and stream, against
+    its plain version on ``MM_NUTS_DEEP``'s cases (tree rows on chip for
+    product of t, in the device scratch for sparse coding), both random
+    modes, with ``mm_nuts_checks``'s allowances; fails unless some tree
+    began round 11 and some ran the 2¹² − 1 leaves of the cap. The plain
+    version runs on the CPU, each case in a worker process of its own (its
+    cost is per leaf, the chains are few), and its one-ulp-nudged runs only
+    where the counts or states fall outside the 0.1% allowance without
+    them. Returns ({label: max |dx|}, {label: (run ms, stream ms, plain
+    ms, leaves)}), the product-of-t Philox cases' times by CUDA events (one
+    launch each) and the host clock (the plain stream)."""
+    import multiprocessing
+
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    depth = cm.NUTS_MM_MAX_DEPTH
+    cases = []
+    for cname, prec, chains, eps_modes in MM_NUTS_DEEP:
+        dist = BENCHMARK_CONFIGS[cname].make_distribution()
+        spec = at(cm.energy_spec_for(dist), prec)
+        for fixed, seed, n, eps in ((True, 7, chains[0], eps_modes[0]),
+                                    (False, 12345, chains[1], eps_modes[1])):
+            st = initial_state(dist, n, seed=1 if fixed else 2)
+            args = (spec, *st, seed, eps, 0.0)
+            k = cm.cuda_mjhmc_mm_run(*args, 1, depth, fixed_uniform=fixed, variant="nuts")
+            stream = cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, depth, fixed_uniform=fixed,
+                                                 variant="nuts")
+            job = (cname, prec, tuple(t.cpu().numpy() for t in st), seed, eps, fixed)
+            cases.append((cname, prec, n, fixed, eps, args, k, stream, job))
+
+    def plain(out):
+        xs, es, r, ms = out
+        return (torch.from_numpy(xs).to(DEV), torch.from_numpy(es).to(DEV),
+                cm.RunOut(*(torch.from_numpy(t).to(DEV) for t in r)), ms)
+
+    errs, times = {}, {}
+    with concurrent.futures.ProcessPoolExecutor(
+            min(len(cases), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        base = [pool.submit(deep_plain, *c[-1]) for c in cases]
+        refs = [plain(f.result()) for f in base]
+        outside = []
+        for c, (xs_r, es_r, r, _) in zip(cases, refs):
+            k, (xs_k, _, es_k, _) = c[6], c[7]
+            same = (k.evals == r.evals) & (es_k == es_r).all(dim=0)
+            within = chains_within(k, r) & stream_within(xs_k, xs_r)
+            outside.append((same, within))
+        nudged = {i: [pool.submit(deep_plain, *c[-1], to) for to in (math.inf, -math.inf)]
+                  for i, (c, (same, within)) in enumerate(zip(cases, outside))
+                  if int((~same).sum()) > 0.001 * c[2] or int((same & ~within).sum()) > 0.001 * c[2]}
+        for i, (c, (xs_r, es_r, r, plain_ms), (same, within)) in enumerate(
+                zip(cases, refs, outside)):
+            cname, prec, n, fixed, eps, args, k, (xs_k, ws_k, es_k, so_k), _ = c
+            mode = "fixed-uniform" if fixed else "Philox"
+            what = f"NUTS {cname} {prec} ({n} chains, eps {eps}, max_depth {depth}, {mode})"
+            check(bool((k.w == 1).all()) and bool((ws_k == 1).all())
+                  and torch.equal(es_k[-1], so_k.evals), f"{what}: w, ws or es[-1]")
+            differ, out_n = int((~same).sum()), int((same & ~within).sum())
+            flips, drift = torch.zeros_like(same), torch.zeros_like(same)
+            note = "not needed"
+            if i in nudged:
+                for f in nudged[i]:
+                    xs_n, es_n, r_n, _ = plain(f.result())
+                    same_n = (r_n.evals == r.evals) & (es_n == es_r).all(dim=0)
+                    flips |= ~same_n
+                    drift |= same_n & ~(chains_within(r_n, r) & stream_within(xs_n, xs_r))
+                note = (f"change {int(flips.sum())} chains' counts and move "
+                        f"{int(drift.sum())} more past rtol 1e-4 in the plain version alone")
+            allow_counts = max(0.001 * n, int(flips.sum()))
+            allow_states = max(0.001 * n, int(drift.sum()))
+            check(differ <= allow_counts, f"{what}: leaf counts differ on {differ} chains, "
+                  f"{allow_counts:g} allowed")
+            check(out_n <= allow_states, f"{what}: {out_n} chains with equal counts outside "
+                  f"rtol 1e-4, {allow_states:g} allowed")
+            began = rounds_begun(es_r.cpu())
+            r11, r12 = (float((began >= j).double().mean()) for j in (11, 12))
+            cap = float((r.evals == 2**depth - 1).double().mean())
+            check(r11 > 0 and cap > 0, f"{what}: {r11:.4f} of trees began round 11 and "
+                  f"{cap:.4f} ran the {2**depth - 1}-leaf cap: rounds 11-12 went untested")
+            ok = same & within
+            dx = (k.x - r.x).abs()
+            err = float(dx[:, ok].max()) if bool(ok.any()) else float(dx.max())
+            label = f"{cname} {prec}"
+            errs[label] = max(errs.get(label, 0.0), err)
+            leaves = float(r.evals.double().mean())
+            if cname == "product_of_t" and not fixed:
+                times[label] = (
+                    events_ms(lambda: cm.cuda_mjhmc_mm_run(*args, 1, depth, variant="nuts")),
+                    events_ms(lambda: cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, depth,
+                                                                  variant="nuts")),
+                    plain_ms, leaves)
+            phase("21 mm nuts", f"{what}, 1 iteration, {leaves:.5g} leaves/iteration: leaf "
+                  f"counts and stream es equal on {1 - differ / n:.5f} of chains; x,v,g,u and "
+                  f"stream xs rtol 1e-4 on all but {out_n} of those (max|dx| {err:.3g}); "
+                  f"trees that began round 11 {r11:.4f}, round 12 {r12:.4f}, ran the "
+                  f"{2**depth - 1}-leaf cap {cap:.4f}; one-ulp nudges of x: {note} "
+                  f"(the plain version on the CPU, {plain_ms / 1e3:.3g} s)")
+    stop_children()  # the spawn pool's resource tracker
+    return errs, times
+
+
+def mm_nuts_deep_timing(cm, card):
+    """One depth-12 launch of ``nuts_mm_kernel`` on product of t at the
+    preset's chains and JAX default precision (4,096, one bf16 pass), ε
+    0.002 (Philox), after a warm one: CUDA events, the trees' leaves, the
+    blocks an SM holds at depths 10-12 (``nuts_mm_tile``)."""
+    from mjhmc_tpu_torch.bench_mfu import PASSES
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    depth, n, eps = cm.NUTS_MM_MAX_DEPTH, BENCHMARK_CONFIGS["product_of_t"].nbatch, 0.002
+    dist = BENCHMARK_CONFIGS["product_of_t"].make_distribution()
+    spec = cm.energy_spec_for(dist)
+    st = initial_state(dist, n, seed=3)
+    call = functools.partial(cm.cuda_mjhmc_mm_run, spec, *st, 99, eps, 0.0, 1, depth,
+                             variant="nuts")
+    call()
+    out = None
+
+    def run():
+        nonlocal out
+        out = call()
+    ms = events_ms(run)
+    leaves = float(out.evals.double().mean())
+    blocks = {dd: cm.nuts_mm_tile(spec, dd)[3] for dd in (10, 11, 12)}
+    bnd = bound("product_of_t", "nuts", 36, 36, n, 1, int(out.evals.sum()),
+                passes=PASSES[spec.precision])
+    phase("21 mm nuts", f"nuts_mm_kernel product_of_t {spec.precision} ({n} chains, eps {eps}, "
+          f"max_depth {depth}, Philox), one launch of 1 iteration: {ms:.6g} ms, "
+          f"{leaves:.5g} leaves a chain (deepest {int(out.evals.max())}), bound {bnd[0]:.4g} ms "
+          f"({bnd[1]}); blocks an SM at max_depth 10/11/12: {blocks} [{card}]")
+    return dict(ms=ms, leaves=leaves, bound=bnd, blocks=blocks, n=n, eps=eps,
+                precision=spec.precision)
 
 
 def leaf_slot_share(es, depth, tile):
@@ -3412,9 +3624,10 @@ def autocorr_rows(card, rows):
 
 
 def heads_bench_row(card, name, rows):
-    """``bench_heads.main(["--repeats", "1"])``: its eight rows (four SMC
-    sweep points, config 5's anneal, three VI fits), each on the card with
-    its name."""
+    """``bench_heads.main(["--repeats", "1"])``: its eight rows on the card
+    with its name (four SMC sweep points, config 5's anneal, three VI fits)
+    and the sharded-path receipt, 8 gloo processes on the host's CPU, which
+    phase 41 holds. Returns that receipt."""
     import numpy as np
 
     from mjhmc_tpu_torch import bench_heads
@@ -3425,6 +3638,7 @@ def heads_bench_row(card, name, rows):
         rc = bench_heads.main(["--repeats", "1"])
     seconds = time.perf_counter() - t0
     recs = [json.loads(ln) for ln in buf.getvalue().strip().splitlines()]
+    sharded = recs.pop() if recs else None
     check(rc == 0 and len(recs) == 8 and all(r["device_name"] == name and r["wall_s"] > 0
                                              for r in recs),
           f"bench_heads: rc {rc}, {recs}")
@@ -3440,7 +3654,9 @@ def heads_bench_row(card, name, rows):
          f"{[round(r['stages_per_s'], 2) for r in sweep]}; config 5 anneal "
          f"{anneal['stages_per_s']:.4g} stages/s (lambda 1: {anneal['reached_lambda1']}); VI "
          f"steps/s {[round(r['steps_per_s'], 1) for r in vis]}, gauss50d KL gap "
-         f"{vis[0]['kl_gap_nats']:.4g} nats", seconds, card, rows, "bench_heads")
+         f"{vis[0]['kl_gap_nats']:.4g} nats; the sharded receipt (phase 41)", seconds, card,
+         rows, "bench_heads")
+    return sharded
 
 
 def samplers_and_heads(cm, cli, card, name):
@@ -3449,7 +3665,7 @@ def samplers_and_heads(cm, cli, card, name):
     mutations; a world-size-1 mesh), ADVI, their CLI subcommands, the
     autocorrelation experiment and ``bench_heads``. Plain PyTorch on the
     card: every count stays 0 and every result is a CUDA tensor. Returns
-    {row: host seconds}."""
+    ({row: host seconds}, ``bench_heads``' sharded-path receipt)."""
     cm.reset_counts()
     rows = {}
     tempering_rows(cli, card, rows)
@@ -3458,10 +3674,10 @@ def samplers_and_heads(cm, cli, card, name):
     smc_rows(cli, card, rows)
     vi_rows(cli, card, rows)
     autocorr_rows(card, rows)
-    heads_bench_row(card, name, rows)
+    sharded = heads_bench_row(card, name, rows)
     counts = wrapper_counts(cm)
     check(not counts, f"phase 39 launched fused-engine kernels: {counts}")
-    return rows
+    return rows, sharded
 
 
 # ---- phase 40: slice H: the searches, the figures, the claim, bench --profile --
@@ -3787,6 +4003,180 @@ def search_and_figures(cm, cli, card):
     return rows, launches
 
 
+#: phase 41's one audited grid round: gauss2d MJHMC on the card, 7 × 7 × 4
+#: points (the ladder's M ≤ 20) of 40 steps at 32 chains
+TUNE41 = dict(steps=40, nbatch=32, nlags=15, max_rounds=1)
+#: JAX's fields of a bench_two_stage row (tools/bench_two_stage.py:75-84)
+TWO_STAGE_FIELDS = {"config", "sampler", "integrator", "epsilon", "beta", "num_leapfrog_steps",
+                    "ess_per_s", "rel_spread", "repeat_values", "window_steps",
+                    "committed_row_value", "committed_row_integrator"}
+
+
+def _row41(msg, seconds, card, rows, key):
+    _row(msg, seconds, card, rows, key, "41 ess table and tune")
+
+
+def tune_rows(cm, card, rows):
+    """``bench_ess._tune`` (one audited round on the card) and
+    ``_candidates`` over its table: the grid's size, s a point, the verdict
+    and the candidates."""
+    import numpy as np
+
+    from mjhmc_tpu_torch import bench_ess
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    cfg = BENCHMARK_CONFIGS["gauss2d"]
+    t0 = time.perf_counter()
+    best, boundary, table = bench_ess._tune(cfg.make_distribution(), "mjhmc", cfg, **TUNE41)
+    seconds = time.perf_counter() - t0
+    check(len(table) == 7 * 7 * 4 and best in table
+          and (boundary in ("interior", "physical") or boundary.startswith("pinned:")),
+          f"_tune: {len(table)} points, boundary {boundary}")
+    finite = [r["decay_evals"] for r in table if np.isfinite(r["decay_evals"])]
+    check(finite and all(d > 0 for d in finite), "_tune: no finite positive decay")
+    _row41(f"_tune gauss2d mjhmc {TUNE41}: {len(table)} grid points, "
+           f"{seconds / len(table) * 1e3:.4g} ms a point; best eps {best['epsilon']:.4g}, beta "
+           f"{best['beta']:.4g}, M {best['num_leapfrog_steps']}: {best['decay_evals']:.4g} evals "
+           f"(censored {best['censored']}); verdict {boundary}", seconds, card, rows, "_tune")
+    cands = bench_ess._candidates(best, table, cfg)
+    check(cands[0] is best and 1 < len(cands) <= 7, f"_candidates: {len(cands)}")
+    phase("41 ess table and tune", "_candidates: " + json.dumps(
+        [(round(c["epsilon"], 4), round(c["beta"], 5), c["num_leapfrog_steps"]) for c in cands]))
+    # the full table's grids at JAX's defaults (600 steps, rough_well_a3 2,400;
+    # mjhmc, control and MALT on every config, two-stage again on the barrier
+    # configs), one audit round each (up to five), at this round's rate per
+    # grid-point iteration (its per-point work spread over 40 steps: an
+    # over-estimate there, on gauss2d's cheap energy an under-estimate elsewhere)
+    per_iter = seconds / len(table) / TUNE41["steps"]
+    iters = sum((2400 if c == "rough_well_a3" else 600) * len(table)
+                * (1 + (c in bench_ess.BARRIER_CONFIGS and s != "malt"))
+                for c in bench_ess.TABLE_CONFIGS for s in ("mjhmc", "control", "malt"))
+    rows["full --tune grids, one round (projected h)"] = iters * per_iter / 3600
+    phase("41 ess table and tune", f"a full bench_ess --table --tune's grids: {iters:,} plain "
+          f"iterations a round of the audit, {per_iter * 1e3:.4g} ms an iteration (this round's "
+          f"rate): {iters * per_iter / 3600:.4g} h of card time a round, up to 5 rounds, the "
+          f"NUTS warmups, arbitrations and repeats besides [{card}]")
+    return seconds / len(table)
+
+
+def nuts_arbitration_row(cm, card, rows):
+    """``_arbitrate_nuts`` on product of t's ``nuts-engine`` row at the
+    preset ε (its depth grid measured on the engine), then one ``measure``
+    at max_depth 12, so that the depth-12 kernels run on this path whatever
+    depth wins. Counts set to 0 just before, read just after: returns the
+    wrappers' max_depth 11-12 launches (run, stream)."""
+    from mjhmc_tpu_torch import bench_ess
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    cfg = BENCHMARK_CONFIGS["product_of_t"]
+    a = argparse.Namespace(steps=2000, burn=500, device="cuda")
+    cm.reset_counts()
+    t0 = time.perf_counter()
+    depth, boundary, rates = bench_ess._arbitrate_nuts("product_of_t", "nuts-engine", cfg, a,
+                                                       cfg.epsilon, None)
+    rec = bench_ess.measure("product_of_t", "nuts-engine", 600, 200, cfg.epsilon, None, 12,
+                            trials=1, device="cuda")
+    seconds = time.perf_counter() - t0
+    deep = (cm.cuda_mjhmc_mm_run.deep_nuts_launches, cm.cuda_mjhmc_mm_stream_run.deep_nuts_launches)
+    check(depth in (4, 6, 8, 10, 12) and set(rates) >= {"d4", "d6", "d8", "d10"}
+          and all(v > 0 for v in rates.values()) and rec["value"] > 0
+          and rec["detail"]["num_leapfrog_steps"] == 12,
+          f"_arbitrate_nuts: depth {depth}, rates {rates}, depth-12 record {rec['value']}")
+    check(deep[0] >= 1 and deep[1] >= 2, f"the depth-12 kernels did not run: {deep}")
+    _row41(f"_arbitrate_nuts product_of_t nuts-engine (4,096 chains, eps {cfg.epsilon}, "
+           f"{cm.energy_spec_for(cfg.make_distribution()).precision}): depth {depth}, "
+           f"{boundary}, ESS/s by depth {json.dumps(rates)}; measure(..., m=12) "
+           f"{rec['value']:.6g} ESS/s; max_depth 11-12 launches (run, stream) {deep}",
+           seconds, card, rows, "_arbitrate_nuts")
+    return deep
+
+
+def table_rows(cm, card, rows, tmp):
+    """``bench_ess.main --table`` on gauss2d's engine rows (the rows printed
+    as measured, the windows equalized), then ``bench_two_stage`` on its
+    file: every row JAX's fields, leapfrog on the mjhmc and control rows,
+    two-stage at (2ε, max(1, M/2)) of each beside its leapfrog twin."""
+    from mjhmc_tpu_torch import bench_ess, bench_two_stage
+
+    out, ab = str(Path(tmp) / "ess_rows.json"), str(Path(tmp) / "two_stage.json")
+    samplers = ["mjhmc", "control", "malt", "nuts-engine"]
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_ess.main(["--table", "--configs", "gauss2d", "--samplers", ",".join(samplers),
+                             "--repeats", "2", "--steps", "400", "--burn", "100",
+                             "--json-out", out])
+    seconds = time.perf_counter() - t0
+    table = json.loads(Path(out).read_text())
+    printed = [json.loads(ln) for ln in buf.getvalue().strip().splitlines()]
+    check(rc == 0 and [r["detail"]["sampler"] for r in table] == samplers
+          and printed[-len(table):] != [] and all(r in printed for r in table),
+          f"bench_ess --table: rc {rc}, rows {[r['detail']['sampler'] for r in table]}")
+    windows = {r["detail"]["repeats"]["window_steps"] * r["detail"]["repeats"]["thin"]
+               for r in table}
+    for r in table:
+        det = r["detail"]
+        check(set(r) == {"metric", "value", "unit", "vs_baseline", "device_name", "power_limit",
+                         "detail"} and det["engine"] == "cuda" and det["tuned"] is False
+              and det["repeats"]["n"] == 2 and r["value"] > 0
+              and ("integrator" in det) == (det["sampler"] in ("mjhmc", "control"))
+              and det.get("integrator", "leapfrog") == "leapfrog",
+              f"bench_ess --table row {det['sampler']}: {sorted(r)} {sorted(det)}")
+    check(len(windows) == 1, f"bench_ess --table: windows not equalized {windows}")
+    _row41(f"bench_ess --table gauss2d {samplers} --repeats 2 --steps 400: "
+           f"{len(printed)} lines, window {windows.pop()}; ESS/s " + json.dumps(
+               {r["detail"]["sampler"]: round(r["value"], 1) for r in table}),
+           seconds, card, rows, "bench_ess --table")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = bench_two_stage.main(["--receipts", out, "--out", ab, "--configs", "gauss2d",
+                                   "--repeats", "2"])
+    seconds = time.perf_counter() - t0
+    pairs = json.loads(Path(ab).read_text())
+    check(rc == 0 and len(pairs) == 4, f"bench_two_stage: rc {rc}, {len(pairs)} rows")
+    for lf, ts in zip(pairs[::2], pairs[1::2]):
+        check(set(lf) == set(ts) == TWO_STAGE_FIELDS | {"device_name", "power_limit"}
+              and (lf["integrator"], ts["integrator"]) == ("leapfrog", "two_stage")
+              and ts["epsilon"] == 2 * lf["epsilon"]
+              and ts["num_leapfrog_steps"] == max(1, lf["num_leapfrog_steps"] // 2)
+              and lf["ess_per_s"] > 0 and ts["ess_per_s"] > 0,
+              f"bench_two_stage rows: {lf} {ts}")
+    _row41("bench_two_stage gauss2d --repeats 2 (2,000 steps): " + json.dumps(
+        {f"{r['sampler']} {r['integrator']}": round(r["ess_per_s"], 1) for r in pairs}),
+        seconds, card, rows, "bench_two_stage")
+
+
+def sharded_smc_row(card, rec):
+    """``bench_heads.sharded_path_receipt()`` at JAX's size, as phase 39's
+    ``bench_heads.main`` ran it (its last row, under JAX's key): 8 gloo
+    ranks on the CPU, 2,048 particles, 32 stages. A CPU path receipt."""
+    check(rec is not None and rec["backend"] == "cpu-gloo-8rank"
+          and rec["reached_lambda1"] is True
+          and (rec["particles"], rec["num_stages"]) == (2048, 32) and rec["wall_s"] > 0,
+          f"sharded_path_receipt: {rec}")
+    phase("41 ess table and tune", f"bench_heads.sharded_path_receipt() from phase 39's "
+          f"bench_heads.main (a CPU path receipt, not the card's: 8 gloo processes on the "
+          f"host): {json.dumps(rec)} [{card}]")
+
+
+def ess_table_and_tune(cm, card, sharded):
+    """Phase 41, slice H part 3 on the card: one ``_tune`` round and
+    ``_candidates``; ``_arbitrate_nuts`` with a depth-12 ``measure`` (the
+    matmul NUTS kernel at max_depth 12); ``bench_ess --table`` and
+    ``bench_two_stage`` on gauss2d; the sharded SMC receipt (``sharded``,
+    from phase 39). Returns ({row: host seconds}, the max_depth 11-12
+    launches (run, stream))."""
+    import tempfile
+
+    rows = {}
+    rows["_tune ms a point"] = tune_rows(cm, card, rows) * 1e3
+    deep = nuts_arbitration_row(cm, card, rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        table_rows(cm, card, rows, tmp)
+    sharded_smc_row(card, sharded)
+    return rows, deep
+
+
 T0 = time.perf_counter()
 DEV = "cuda"
 
@@ -3838,7 +4228,7 @@ def main() -> int:
     for dist in (ProductOfT(), SparseCoding(), BENCHMARK_CONFIGS["logreg"].make_distribution()):
         spec = cm.energy_spec_for(dist)
         for prec in ("highest", spec.precision):
-            for depth in (1, MM_NUTS_DEPTH, cm.NUTS_MM_MAX_DEPTH):
+            for depth in (1, MM_NUTS_DEPTH, 10, 11, cm.NUTS_MM_MAX_DEPTH):
                 got = cm.nuts_mm_tile(at(spec, prec), depth)
                 want = (*cm.NUTS_MM_TILES[type(spec)][:2],
                         cm.nuts_mm_smem_bytes(at(spec, prec), depth))
@@ -4157,6 +4547,8 @@ def main() -> int:
     # ---- 21-24. slice K: NUTS and logreg on the matmul kernel ---------------
     # (the logreg bodies and branches are held in phases 15-16)
     mm_nuts_err = mm_nuts_checks(cm)
+    deep_err, deep_times = mm_nuts_deep_checks(cm)
+    deep_preset = mm_nuts_deep_timing(cm, card)
     for key, c in slice_k_stats(cm).items():
         drove(key, c, "phase 22: from_warmup, then run and sample")
     for (sampler, cname, engine), (_, c, _) in slice_k_cli(cm, cli).items():
@@ -4203,7 +4595,7 @@ def main() -> int:
 
     # ---- 39. slices D and F: the other samplers and the heads -----------------
     t_39 = time.perf_counter()
-    rows39 = samplers_and_heads(cm, cli, card, name)
+    rows39, sharded = samplers_and_heads(cm, cli, card, name)
     phase("39 samplers and heads", f"phase 39 took {time.perf_counter() - t_39:.4g} s; rows "
           + json.dumps({k: round(v, 4) for k, v in rows39.items()}) + f" [{card}]")
 
@@ -4212,6 +4604,12 @@ def main() -> int:
     rows40, profile_launches = search_and_figures(cm, cli, card)
     phase("40 search and figures", f"phase 40 took {time.perf_counter() - t_40:.4g} s; rows "
           + json.dumps({k: round(v, 4) for k, v in rows40.items()}) + f" [{card}]")
+
+    # ---- 41. slice H part 3: bench_ess --tune/--table, two-stage, sharded SMC --
+    t_41 = time.perf_counter()
+    rows41, deep_launches = ess_table_and_tune(cm, card, sharded)
+    phase("41 ess table and tune", f"phase 41 took {time.perf_counter() - t_41:.4g} s; rows "
+          + json.dumps({k: round(v, 4) for k, v in rows41.items()}) + f" [{card}]")
 
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
@@ -4372,6 +4770,30 @@ def main() -> int:
                                  plain_stream_ms if stream else plain_ms,
                                  bound(cname, body, d, k, n, iters, grads, iters if stream else 0),
                                  **extra))
+    # max_depth 12 on the matmul NUTS kernel: launched on phase 41's NUTS
+    # arbitration; held and timed (16 chains, with the plain version) in
+    # phase 21, and timed at the preset's 4,096 chains
+    from mjhmc_tpu_torch.bench_mfu import PASSES
+
+    pot = "product_of_t default"
+    for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
+        plain_ms, leaves = deep_times[pot][2:]
+        n16 = MM_NUTS_DEEP[1][2][1]
+        kernels.append(entry(
+            f"nuts_mm_{suffix}[product_of_t, default, max_depth 12]", MM_KERNEL_SRC, src,
+            deep_launches[idx], max(deep_err.values()), deep_times[pot][idx], plain_ms,
+            bound("product_of_t", "nuts", 36, 36, n16, 1, int(leaves * n16), idx,
+                  passes=PASSES["default"]),
+            launches_from="phase 41: _arbitrate_nuts and measure(..., m=12), product_of_t "
+                          "nuts-engine", variant=NUTS_VARIANT, energy=MM_ENERGIES["product_of_t"],
+            precision="default", max_abs_err_by_case=deep_err,
+            shape=f"product_of_t, {n16} chains, max_depth 12, eps "
+                  f"{MM_NUTS_DEEP[1][3][1]}, Philox, 1 iteration, {leaves:.5g} leaves a chain; "
+                  "ms per launch; plain_ms the plain stream's, on the CPU",
+            preset_ms=deep_preset["ms"], preset_bound_ms=deep_preset["bound"][0],
+            preset_shape=f"product_of_t, {deep_preset['n']} chains, eps {deep_preset['eps']}, "
+                         f"1 iteration, {deep_preset['leaves']:.5g} leaves a chain",
+            blocks_per_sm_by_depth=deep_preset["blocks"]))
     kernels += zoo_entries(entry, zoo_err, zoo_ident, zoo_cli_res, zoo_ms)
     kernels += precision_entries(entry, prec_err, sweep, prec_ms, dossier["ceilings"],
                                  main_runs)
@@ -4397,6 +4819,8 @@ def main() -> int:
     check(all(kern["launches"] > 0 for kern in kernels),
           f"kernels not launched on their main paths: "
           f"{[kern['name'] for kern in kernels if not kern['launches'] > 0]}")
+    stray = stop_children()
+    check(not stray, f"processes still running at the end, now stopped: {stray}")
     phase("37 total", f"{time.perf_counter() - T0:.4g} s since start [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4408,4 +4832,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase35-rank"]:
         sys.exit(phase35_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

@@ -11,6 +11,11 @@
   (mean-field is the target's family, so the gap to the analytic log Z̃
   is KL(q‖p)) and sparse coding (mean-field and rank 16): the converged
   plateau and the wall to within 1 and 0.1 nats of it.
+- The sharded path: ``smc_run`` with its particles split over a chain mesh
+  of 8 gloo ranks on the CPU (8 processes; 2,048 particles on gauss50d, 32
+  stages), one untimed call and one timed: a receipt that the distributed
+  resample runs inside the annealing loop. Its wall is the CPU's, not the
+  card's.
 
 Every call is timed on the host clock around work that ends in a device
 synchronise, the best of the timed calls after a short untimed warm one
@@ -20,15 +25,18 @@ receipt goes to ``--json-out`` when asked.
 
     python -m mjhmc_tpu_torch.bench_heads [--repeats 3] [--json-out FILE]
 
-``--device cpu`` runs the rows on the CPU (the sizes above are the
-module's constants).
+``--device cpu`` runs the card's rows on the CPU (the sizes above are the
+module's constants); the sharded path runs on the CPU either way.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -155,7 +163,92 @@ def vi_convergence(device, repeats=3) -> list:
     return rows
 
 
+SHARDED_RANKS, SHARDED_PARTICLES, SHARDED_STAGES = 8, 2048, 32
+
+
+def _sharded_rank(rank: int, world: int, addr: str, particles: int, stages: int) -> None:
+    """One rank of ``sharded_path_receipt``: joins the gloo group, runs
+    ``smc_run`` over the chain mesh once untimed (seed 5) and once timed
+    (seed 6, from a barrier to a barrier); rank 0 prints the receipt."""
+    import torch.distributed as tdist
+
+    from mjhmc_tpu_torch.parallel.mesh import make_chain_mesh
+    from mjhmc_tpu_torch.parallel.multihost import initialize
+
+    torch.set_num_threads(1)
+    initialize(addr, world, rank, device="cpu")
+    try:
+        mesh = make_chain_mesh(device="cpu")
+        dist = BENCHMARK_CONFIGS["gauss50d"].make_distribution()
+
+        def fit(seed):
+            state, _ = smc_run(dist, _generator("cpu", seed), particles, num_stages=stages,
+                               num_mutation_steps=5, num_leapfrog_steps=5, mesh=mesh)
+            float(state.log_z)
+            return state
+
+        fit(5)
+        tdist.barrier()
+        t0 = time.perf_counter()
+        state = fit(6)
+        tdist.barrier()
+        wall = time.perf_counter() - t0
+        if rank == 0:
+            print(json.dumps(dict(
+                backend=f"cpu-gloo-{world}rank", num_stages=stages, particles=particles,
+                wall_s=round(wall, 3), stages_per_s=round(stages / wall, 3),
+                reached_lambda1=float(state.lam) == 1.0)), flush=True)
+    finally:
+        tdist.destroy_process_group()
+
+
+def sharded_path_receipt(ranks=None, particles=None, stages=None, timeout=900) -> dict:
+    """``smc_run(mesh=...)`` on gauss50d over ``ranks`` gloo processes on the
+    CPU (counterpart of JAX's forced 8-device CPU mesh): 5 mutation steps
+    of 5 leapfrog steps a stage; ``ranks``, ``particles`` and ``stages``
+    default to the module's ``SHARDED_*`` sizes. Returns {backend,
+    num_stages, particles, wall_s, stages_per_s, reached_lambda1}; the wall
+    is a CPU path receipt, not a card number. A rank that fails makes it
+    raise."""
+    from mjhmc_tpu_torch.parallel.multihost import free_port
+
+    ranks = SHARDED_RANKS if ranks is None else ranks
+    particles = SHARDED_PARTICLES if particles is None else particles
+    stages = SHARDED_STAGES if stages is None else stages
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    addr = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-m", "mjhmc_tpu_torch.bench_heads",
+                               "--sharded-rank", str(r), str(ranks), addr, str(particles),
+                               str(stages)], env=env, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(ranks)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode, err[-1000:]) for r, (p, (_, err)) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"sharded_path_receipt: ranks failed: {failed}")
+    row = json.loads(outs[0][0].strip().splitlines()[-1])
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv[:1] == ["--sharded-rank"]:  # one process of sharded_path_receipt
+        rank, world, addr, particles, stages = argv[1:6]
+        _sharded_rank(int(rank), int(world), addr, int(particles), int(stages))
+        return 0
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--repeats", type=int, default=3)
@@ -170,6 +263,7 @@ def main(argv=None) -> int:
         "smc_gaussian_logz_vs_wall": smc_gaussian_sweep(device, a.repeats),
         "smc_config5_anneal": smc_config5_anneal(device, a.repeats),
         "vi_elbo_vs_wall": vi_convergence(device, a.repeats),
+        "smc_sharded_ring_resample_path": sharded_path_receipt(),
     }
     if a.json_out:
         with open(a.json_out, "w") as f:

@@ -951,7 +951,15 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 // logreg 11 KB a tile at max_depth 8), else (sparse coding, 11 KB a chain)
 // in the (rows, D, n) scratch buffer in device memory that the wrapper
 // allocates, where an owner's loads are independent (all in flight at
-// once) and a warp's are coalesced across the tile's chains. The
+// once) and a warp's are coalesced across the tile's chains. max_depth
+// runs 1..kMaxDepth (12, JAX's arbitration edge) at run time, and a launch
+// takes the shared memory of its own max_depth (NutsLayout::floats): each
+// depth adds 2·D·NC floats of stack (on chip) and 2·T of column-sum slots,
+// so trees past 10 may hold fewer blocks an SM (product of t at highest
+// three where it holds four up to 10) while shallower launches keep theirs.
+// Round jj's leaves are tree positions 2^jj − 1 .. 2^(jj+1) − 2 (at most
+// 4,094), span slots kSpan + 2(mm − 1) for mm ≤ jj < max_depth, so no loop
+// or slot assumes a depth. The
 // elementwise arithmetic rounds one IEEE operation at a time, as the plain
 // version does; the contractions and the column sums add in other orders
 // than torch.matmul and the plain version's sums, so trees are held to the
@@ -969,7 +977,7 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 // and the spills).
 namespace nuts {
 
-constexpr int kMaxDepth = 10;
+constexpr int kMaxDepth = 12;
 constexpr float kDivThreshold = 1000.0f;
 // tree rows: the tree endpoints, the subtree proposal, then the stack
 // (x, v of span row mm at kStack + 2(mm − 1))

@@ -88,7 +88,7 @@ FIXED_UNIFORM = 2.0**-25
 #: kernel's (csrc/mjhmc_engine.cuh, nuts::kMaxDepth) and the matmul kernel's
 #: (csrc/mjhmc_mm_engine.cuh)
 NUTS_MAX_DEPTH = 12
-NUTS_MM_MAX_DEPTH = 10
+NUTS_MM_MAX_DEPTH = 12
 NUTS_DIV_THRESHOLD = 1000.0
 #: Philox counter tags (csrc/philox.cuh)
 TAG_NUTS_MOMENTUM, TAG_NUTS_ROUND, TAG_NUTS_LEAF = 1, 2, 3
@@ -1730,17 +1730,18 @@ def mm_profile(spec, variant, x, v, g, u, seed, epsilon, beta, num_iters, m) -> 
 
 #: each wrapper's launch counts: one per step body (``launches`` is MJHMC's,
 #: ``stub_launches`` the stubbed matmul kernel's), and the launches that
-#: took the two-stage integrator or an inverse mass, (matmul kernel, not
-#: the stub) those at each dot precision and those made for a rank of a
-#: chain mesh (``sharded_cuda_mjhmc_run``), counted besides
+#: took the two-stage integrator or an inverse mass, NUTS's at max_depth 11
+#: or 12, (matmul kernel, not the stub) those at each dot precision and
+#: those made for a rank of a chain mesh (``sharded_cuda_mjhmc_run``),
+#: counted besides
 COUNTS = ("launches", "control_launches", "malt_launches", "nuts_launches",
           "stub_launches", "two_stage_launches", "mass_launches", "sharded_launches",
-          *(f"{p}_launches" for p in PRECISIONS))
+          "deep_nuts_launches", *(f"{p}_launches" for p in PRECISIONS))
 
 
-def _count(wrapper, spec, variant, integrator, inv_mass) -> None:
+def _count(wrapper, spec, variant, integrator, inv_mass, m) -> None:
     """One launch of the wrapper's kernel, counted under its step body and
-    its branches."""
+    its branches (``m``: M, or NUTS's max_depth)."""
     if getattr(spec, "stub_dots", False):
         wrapper.stub_launches += 1
     elif variant == "mjhmc":
@@ -1748,6 +1749,8 @@ def _count(wrapper, spec, variant, integrator, inv_mass) -> None:
     else:
         name = f"{variant}_launches"
         setattr(wrapper, name, getattr(wrapper, name) + 1)
+    if variant == "nuts" and m > 10:
+        wrapper.deep_nuts_launches += 1
     if integrator == "two_stage":
         wrapper.two_stage_launches += 1
     if inv_mass is not None:
@@ -1775,7 +1778,7 @@ def _run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed, epsilon,
     out, _ = _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                      num_steps, num_leapfrog, 1, None, fixed_uniform, variant,
                      inv_mass, integrator)
-    _count(wrapper, spec, variant, integrator, inv_mass)
+    _count(wrapper, spec, variant, integrator, inv_mass, num_leapfrog)
     return out
 
 
@@ -1791,7 +1794,7 @@ def _stream_run(wrapper, kinds, spec, x, v, g, u, h_back, back_valid, seed,
                                 epsilon, beta, num_emits * thin, num_leapfrog,
                                 thin, num_emits, fixed_uniform, variant, inv_mass,
                                 integrator)
-    _count(wrapper, spec, variant, integrator, inv_mass)
+    _count(wrapper, spec, variant, integrator, inv_mass, num_leapfrog)
     return xs, ws, es, out
 
 
@@ -2023,9 +2026,8 @@ class CudaMJHMC:
 @dataclasses.dataclass
 class CudaNUTS(CudaMJHMC):
     """Fused NUTS engine (counterpart of ``PallasNUTS``), on either kernel:
-    ``num_leapfrog_steps`` is max_depth (default 8, at most
-    ``NUTS_MAX_DEPTH`` on the elementwise kernel, ``NUTS_MM_MAX_DEPTH`` on the
-    matmul one), ``beta`` is unused. Emissions are post-transition
+    ``num_leapfrog_steps`` is max_depth (default 8, at most 12 on either
+    kernel: ``NUTS_MAX_DEPTH``, ``NUTS_MM_MAX_DEPTH``), ``beta`` is unused. Emissions are post-transition
     positions with weight 1; ``evals`` counts the integrated leaves of each
     chain exactly."""
 

@@ -163,10 +163,24 @@ def test_measure_record_on_cpu(sampler, monkeypatch):
         assert sum(det["depth_hist"].values()) == 100 * 100
 
 
-@pytest.mark.parametrize("flag", ["--table", "--tune"])
-def test_main_refuses_table_and_tune(flag, capsys):
-    assert tbe.main([flag, "--device", "cpu"]) != 0
-    assert "slice H" in capsys.readouterr().err
+def test_main_table_on_the_cpu(tmp_path, capsys):
+    """``--table`` on the plain versions: a row per sampler, printed and
+    written, each the median of its repeats (the window kept: a spread
+    tolerance no pair of repeats exceeds)."""
+    out = tmp_path / "rows.json"
+    assert tbe.main(["--table", "--configs", "gauss2d", "--samplers", "mjhmc,control",
+                     "--repeats", "2", "--steps", "200", "--burn", "50", "--spread-tol", "1e9",
+                     "--device", "cpu", "--json-out", str(out)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    rows = json.loads(out.read_text())
+    assert [json.loads(ln) for ln in lines] == rows
+    assert [(r["detail"]["config"], r["detail"]["sampler"]) for r in rows] == [
+        ("gauss2d", "mjhmc"), ("gauss2d", "control")]
+    for r in rows:
+        det = r["detail"]
+        assert det["tuned"] is False and "boundary" not in det and det["engine"] == "cuda"
+        assert det["repeats"]["n"] == 2 and det["repeats"]["window_steps"] == 200
+        assert abs(r["value"] / np.median(det["repeats"]["values"]) - 1) < 1e-5  # 6 digits
 
 
 def test_main_needs_a_card_or_cpu(monkeypatch, capsys):

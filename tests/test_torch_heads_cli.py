@@ -102,13 +102,17 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
 
 
 def test_bench_heads_rows_on_the_cpu(capsys, monkeypatch):
-    """Every row, at a test's size (256 particles, 100 VI steps)."""
+    """Every row, at a test's size (256 particles, 100 VI steps; the sharded
+    path on 2 gloo ranks, 4 stages)."""
     for name, value in (("SWEEP_PARTICLES", 256), ("SWEEP_STAGES", (6, 12)),
-                        ("ANNEAL_PARTICLES", 256), ("ANNEAL_STAGES", 10), ("VI_STEPS", 100)):
+                        ("ANNEAL_PARTICLES", 256), ("ANNEAL_STAGES", 10), ("VI_STEPS", 100),
+                        ("SHARDED_RANKS", 2), ("SHARDED_PARTICLES", 256),
+                        ("SHARDED_STAGES", 4)):
         monkeypatch.setattr(bench_heads, name, value)
     assert bench_heads.main(["--device", "cpu", "--repeats", "1"]) == 0
     rows = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
-    assert len(rows) == 2 + 1 + 3
+    assert len(rows) == 2 + 1 + 3 + 1
+    assert rows.pop()["backend"] == "cpu-gloo-2rank"  # a CPU path receipt, not the device's
     assert all(r["device_name"] == "cpu" and "power_limit" in r for r in rows)
     assert [r["num_stages"] for r in rows[:3]] == [6, 12, 10]
     assert [r["target"] for r in rows[3:]] == ["gauss50d(mean-field)",
@@ -128,6 +132,7 @@ def test_new_modules_import_no_jax():
         "import mjhmc_tpu_torch.samplers.reduced_flip, mjhmc_tpu_torch.samplers.tempering\n"
         "import mjhmc_tpu_torch.samplers.chees, mjhmc_tpu_torch.inference.smc\n"
         "import mjhmc_tpu_torch.inference.vi, mjhmc_tpu_torch.bench_heads\n"
+        "import mjhmc_tpu_torch.bench_ess, mjhmc_tpu_torch.bench_two_stage\n"
         "import mjhmc_tpu_torch.convert, mjhmc_tpu_torch.__main__\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'mjhmc_tpu.')))\n"

@@ -118,6 +118,47 @@ def test_nuts_stream_matches_interpret_kernel(name, jd, td, scale, eps, depth, s
     assert torch.equal(xs_t[-1], out_t.x)
 
 
+#: trees past round 10, fixed-uniform: product of t at ε 0.001 (every
+#: tree runs the 4,095 leaves of twelve rounds, the cap) and logistic
+#: regression (64 observations) at ε 0.0045 (trees end after round 11 or
+#: at the cap); one iteration, 128 chains (one of the TPU kernel's lane
+#: tiles), ~8 and ~7 s on one thread
+DEEP_CASES = [
+    ("product_of_t", jmodels.ProductOfT(), tmodels.ProductOfT(), 2.0, 0.001, False),
+    ("logreg", JLogreg(nobs=64), tmodels.LogisticRegression(nobs=64), 1.0, 0.0045, True),
+]
+
+
+@pytest.mark.parametrize("name,jd,td,scale,eps,stream", DEEP_CASES,
+                         ids=[c[0] for c in DEEP_CASES])
+def test_nuts_matches_interpret_kernel_at_max_depth_12(name, jd, td, scale, eps, stream):
+    """max_depth 12, the depth JAX's NUTS arbitration extends to: leaf
+    counts equal on every chain, every tree past round 10 and some at the
+    2¹² − 1 cap; x, v, g, u (the stream's xs) within rtol 1e-4 (atol 1e-4
+    of the field's largest value) on every chain."""
+    jspec = dataclasses.replace(energy_spec_for(jd), precision="highest")
+    tspec = dataclasses.replace(cm.energy_spec_for(td), precision="highest")
+    js, ts = _start(jd, scale, 1)
+    if stream:
+        xs_j, _, es_j, out_j = pallas_mjhmc_mm_stream_run(
+            jspec, *js, jnp.int32(7), jnp.float32(eps), jnp.float32(0.0), 1, 1, 12,
+            interpret=IP, variant="nuts")
+        xs_t, _, es_t, out_t = cm.stream_reference(tspec, *ts, 7, eps, 0.0, 1, 1, 12,
+                                                   fixed_uniform=True, variant="nuts")
+        np.testing.assert_array_equal(es_t.numpy().ravel(), np.asarray(es_j).ravel())
+        assert _within(xs_t[0], np.asarray(xs_j).reshape(td.ndims, N)).all()
+    else:
+        out_j = pallas_mjhmc_mm_run(jspec, *js, jnp.int32(7), jnp.float32(eps),
+                                    jnp.float32(0.0), 1, 12, interpret=IP, variant="nuts")
+        out_t = cm.run_reference(tspec, *ts, 7, eps, 0.0, 1, 12, fixed_uniform=True,
+                                 variant="nuts")
+    leaves = out_t.evals.numpy()
+    np.testing.assert_array_equal(leaves, np.asarray(out_j.evals).ravel())
+    assert leaves.min() >= 2**11 - 1 and (leaves == 2**12 - 1).any(), np.unique(leaves)
+    for f in ("x", "v", "grad", "u"):
+        assert _within(getattr(out_t, f), getattr(out_j, f)).all(), f
+
+
 def test_matmul_nuts_routes_and_refuses():
     """CPU tensors take the plain version with no launch counted; CudaNUTS
     takes the matmul wrappers; two-stage NUTS, trees deeper than the kernel
@@ -146,8 +187,8 @@ def test_matmul_nuts_routes_and_refuses():
     with pytest.raises(NotImplementedError, match="leapfrog"):
         cm.CudaNUTS(td, integrator="two_stage", device="cpu")
     meta = tuple(t.to("meta") for t in ts)
-    with pytest.raises(NotImplementedError, match="max_depth 1..10"):
-        cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, 11, variant="nuts")
+    with pytest.raises(NotImplementedError, match="max_depth 1..12"):
+        cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, 13, variant="nuts")
     with pytest.raises(ValueError, match="cuda tensors"):
         cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, 4, variant="nuts")
     assert cm.nuts_scratch_rows(8) == 22  # 6 endpoint rows, 2 proposal rows, 2·7 stack rows
@@ -195,7 +236,7 @@ def test_nuts_tiles_fill_the_card(name, precision):
     chains at the 8-column mma.sync tile: 256, still two an SM on most); a
     block holds whole columns (threads a multiple of the chains, the dims
     and the intermediate's rows a multiple of the owners a column); at
-    max_depth 8 two blocks fit an SM's shared memory, and at max_depth 10 a
+    max_depth 8 two blocks fit an SM's shared memory, and at max_depth 12 a
     block stays under 227 KB; the bytes grow with the depth. (Phase 2 of
     chip_smoke.py holds the mirror to the library's own bytes.)"""
     spec = _preset_spec(name, precision)
@@ -205,10 +246,10 @@ def test_nuts_tiles_fill_the_card(name, precision):
     assert threads % nc == 0 and d % owners == 0 and k % owners == 0 and nc % 8 == 0
     blocks = -(-PRESET_CHAINS[name] // nc)
     assert blocks >= (SMS if name == "logreg" else 2 * SMS), blocks
-    at8, at10 = (cm.nuts_mm_smem_bytes(spec, depth) for depth in (8, 10))
+    at8, at12 = (cm.nuts_mm_smem_bytes(spec, depth) for depth in (8, 12))
     assert 2 * (at8 + SMEM_RESERVED) <= SMEM_SM
-    assert at10 < SMEM_BLOCK
-    assert cm.nuts_mm_smem_bytes(spec, 1) < at8 < at10
+    assert at12 < SMEM_BLOCK
+    assert cm.nuts_mm_smem_bytes(spec, 1) < at8 < at12
 
 
 def test_bench_mm_ab_compare_counts_distinct_outputs(tmp_path, capsys):

@@ -95,9 +95,9 @@ def test_blocks_follow_the_schedule(n):
 
 
 def test_depth_caps_per_kernel():
-    """The elementwise kernel takes trees to max_depth 12 and refuses 13;
-    the matmul kernel keeps its cap of 10 and its own message."""
-    assert (cm.NUTS_MAX_DEPTH, cm.NUTS_MM_MAX_DEPTH) == (12, 10)
+    """Both kernels take trees to max_depth 12 and refuse 13, each with its
+    own message."""
+    assert (cm.NUTS_MAX_DEPTH, cm.NUTS_MM_MAX_DEPTH) == (12, 12)
     g = tmodels.Gaussian(ndims=2, log_conditioning=1.0)
     spec = cm.energy_spec_for(g)
     x = torch.zeros((2, 64), device="meta")
@@ -110,10 +110,18 @@ def test_depth_caps_per_kernel():
         cm.cuda_mjhmc_run(spec, *st, 5, 0.1, 0.0, 2, 13, variant="nuts")
     with pytest.raises(NotImplementedError, match="max_depth 1..12"):
         cm.cuda_mjhmc_stream_run(spec, *st, 5, 0.1, 0.0, 2, 1, 0, variant="nuts")
-    mspec = cm.energy_spec_for(tmodels.ProductOfT())
-    xm = torch.zeros((36, 64), device="meta")
-    with pytest.raises(NotImplementedError, match="matmul NUTS kernel .* max_depth 1..10"):
-        cm.cuda_mjhmc_mm_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, 11, variant="nuts")
+    for mspec in (cm.energy_spec_for(tmodels.ProductOfT()),
+                  cm.energy_spec_for(tmodels.SparseCoding())):
+        xm = torch.zeros((mspec.dist.ndims, 64), device="meta")
+        for depth in (11, 12):
+            with pytest.raises(ValueError, match="cuda tensors"):
+                cm.cuda_mjhmc_mm_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, depth,
+                                     variant="nuts")
+        with pytest.raises(NotImplementedError, match="matmul NUTS kernel .* max_depth 1..12"):
+            cm.cuda_mjhmc_mm_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, 13, variant="nuts")
+        with pytest.raises(NotImplementedError, match="max_depth 1..12"):
+            cm.cuda_mjhmc_mm_stream_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, 1, 13,
+                                        variant="nuts")
 
 
 def _es(rng, iters, n, depth):
