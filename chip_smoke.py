@@ -75,7 +75,18 @@ printed). Phase 41 drives slice H's third part: one boundary-audited
 phase 21 holds to its plain version), ``bench_ess --table`` and
 ``bench_two_stage`` on gauss2d, and holds ``bench_heads.sharded_path_receipt``
 as phase 39's ``bench_heads.main`` ran it (8 gloo ranks on the host's CPU:
-its wall is no card number). One line
+its wall is no card number). Phase 42 runs the elementwise engine at any D:
+the on-demand instances (``csrc/ondemand/ew_instance.cu``, one library a
+body, energy and D, built in phase 2 beside the library) at the JAX
+package's TPU-gated shapes, a banana of D 10, a mixture of 10 components,
+the funnel at D 12 and 30 and Gaussian D 3 and 128 (``ANY_D_SHAPES``,
+``ANY_D_CARD_SHAPES``): their nvcc seconds and ptxas, their tiles against
+the mirror, every body and branch against its plain version (fixed-uniform
+counters exact), JAX's six gated statistical checks at their own shapes,
+settings and tolerances, and each instance's ms an iteration. Phase 2 also
+runs the plain NUTS of phases 22 and 42 on the CPU (``PLAIN_NUTS``) and
+waits for it and for the on-demand builds, so nothing of it overlaps a
+timed phase. One line
 per phase; any failed
 check raises, so the exit code is non-zero. The second to last line is the kernels' JSON record, the
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -108,6 +119,7 @@ STREAM_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1494"
 MM_RUN_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1265"
 MM_STREAM_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1596"
 KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_engine.cuh"
+ONDEMAND_SRC = "mjhmc_tpu_torch/csrc/ondemand/ew_instance.cu"
 MM_KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_mm_engine.cuh"
 # matmul presets: iterations after which single chains are held at rtol 1e-4.
 # Product of t's preset ε=0.2 makes the leapfrog unstable along W's stiffest
@@ -241,13 +253,13 @@ def events_ms(fn) -> float:
 def initial_state(dist, n, seed, inv_mass=None):
     """(x, v, g, u, h_back, valid) on the card; v ~ N(0, M) with a mass."""
     gen = torch.Generator().manual_seed(seed)
-    x = dist.init_x(gen, n, DEV)
+    x = dist.init_x(gen, n, DEV).contiguous()  # a mixture's draws come transposed
     v = torch.randn(x.shape, generator=gen).to(DEV)
     if inv_mass is not None:
         v = v / torch.sqrt(torch.tensor(inv_mass, device=DEV))[:, None]
     u, g = dist.potential_and_grad(x)
     z = torch.zeros(n, device=DEV)
-    return x, v, g, u, z, z.clone()
+    return x, v, g.contiguous(), u.contiguous(), z, z.clone()
 
 
 def ptxas_report(log: str):
@@ -1274,8 +1286,9 @@ def mm_nuts_checks(cm):
     nudges of x (up, down) change in the plain version alone, if more; x, v,
     g, u and every emitted x within rtol 1e-4 (atol 1e-4 of the field's
     largest value) on the chains whose counts agree, all but 0.1% or as
-    many as the nudges move past it; w = steps, ws = 1, es[-1] = evals.
-    Returns {label: max |dx| on the chains within}."""
+    many as the nudges move past it (the nudged plain runs are made only
+    where a count passes 0.1% of the chains); w = steps, ws = 1, es[-1] =
+    evals. Returns {label: max |dx| on the chains within}."""
     errs = {}
     for label, _, dist, n, eps, depth, both_iters, mass in mm_nuts_cases():
         spec = at(cm.energy_spec_for(dist))
@@ -1294,14 +1307,16 @@ def mm_nuts_checks(cm):
             same = (k.evals == r.evals) & (es_k == es_r).all(dim=0)
             within = chains_within(k, r) & stream_within(xs_k, xs_r)
             flips, drift = torch.zeros_like(same), torch.zeros_like(same)
-            for to in (float("inf"), float("-inf")):
+            differ, outside = int((~same).sum()), int((same & ~within).sum())
+            # the nudged plain runs only where a count passes 0.1% of the chains
+            nudges_run = max(differ, outside) > 0.001 * n
+            for to in (float("inf"), float("-inf")) if nudges_run else ():
                 nudged = (torch.nextafter(st[0], torch.full_like(st[0], to)), *st[1:])
                 xs_n, _, es_n, r_n = cm.stream_reference(spec, *nudged, seed, eps, 0.0, iters, 1,
                                                          depth, fixed, **kw)
                 same_n = (r_n.evals == r.evals) & (es_n == es_r).all(dim=0)
                 flips |= ~same_n
                 drift |= same_n & ~(chains_within(r_n, r) & stream_within(xs_n, xs_r))
-            differ, outside = int((~same).sum()), int((same & ~within).sum())
             allow_counts = max(0.001 * n, int(flips.sum()))
             allow_states = max(0.001 * n, int(drift.sum()))
             check(differ <= allow_counts, f"{what}: leaf counts differ on {differ} chains, "
@@ -1316,8 +1331,9 @@ def mm_nuts_checks(cm):
             phase("21 mm nuts", f"{what}, {iters} iterations, {leaves:.4g} leaves/iteration: "
                   f"leaf counts and stream es equal on {1 - differ / n:.5f} of chains; x,v,g,u "
                   f"and stream xs rtol 1e-4 on all but {outside} of those (max|dx| {err:.3g}); "
-                  f"one-ulp nudges of x change {int(flips.sum())} chains' counts and move "
-                  f"{int(drift.sum())} more past rtol 1e-4 in the plain version alone")
+                  + (f"one-ulp nudges of x change {int(flips.sum())} chains' counts and move "
+                     f"{int(drift.sum())} more past rtol 1e-4 in the plain version alone"
+                     if nudges_run else "no nudged runs needed (within 0.1%)"))
     return errs
 
 
@@ -1526,11 +1542,12 @@ def nuts_shares(cm, d, es, depth):
 
 
 
-def slice_k_stats(cm):
+def slice_k_stats(cm, plain):
     """Phase 22: the statistics of slice K. CudaNUTS on product_of_t (the
     settings of tests/test_pallas_engine.py:892-923): the median of
     var/analytic within 15% and mean leaves per iteration within 12% of the
-    plain NUTS sampler on the card; CudaMJHMC (ε 0.25, β 0.15, M 10, 2,048
+    plain NUTS sampler (``plain``: its run on the CPU in phase 2,
+    ``PLAIN_NUTS``); CudaMJHMC (ε 0.25, β 0.15, M 10, 2,048
     chains, 400 + 1500, as :548-557) and CudaNUTS on logreg: the median of
     var/laplace_var within 25%; both from_warmup engines: ε > 0, M⁻¹ > 0
     and the same bounds after a short run, then 20 iterations of samples
@@ -1542,7 +1559,6 @@ def slice_k_stats(cm):
     the preset's JAX default precision} of the from_warmup engines (from 0
     just before each)."""
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
-    from mjhmc_tpu_torch.samplers import NUTS
 
     pot = BENCHMARK_CONFIGS["product_of_t"].make_distribution()
     lr = BENCHMARK_CONFIGS["logreg"].make_distribution()
@@ -1565,17 +1581,12 @@ def slice_k_stats(cm):
     check(bool((out.w == 400).all()), "CudaNUTS product_of_t: w must equal the steps")
     got = held("CudaNUTS product_of_t", "product_of_t", out, 0.15)
     leaves = float(out.evals.double().mean()) / 400
-    t0 = time.perf_counter()
-    ref = NUTS(pot, epsilon=0.12, max_depth=7, nbatch=512, seed=1, device="cuda")
-    ref.burn_in(20)
-    ev = ref.sample(100)["evals_mean"].double()
-    plain_s = time.perf_counter() - t0
-    leaves_ref = float(ev[-1] - ev[0]) / 99
+    leaves_ref = plain["leaves"]
     check(abs(leaves / leaves_ref - 1) < 0.12,
           f"CudaNUTS product_of_t {leaves:.4g} leaves/iteration vs the plain NUTS {leaves_ref:.4g}")
     phase("22 slice K stats", f"CudaNUTS product_of_t (2,048 chains, eps 0.12, max_depth 7, "
           f"100 + 400): {got}; {leaves:.5g} leaves/iteration vs {leaves_ref:.5g} in the plain "
-          f"NUTS (512 chains, 20 + 100, {plain_s:.3g} s host clock)")
+          f"NUTS ({plain['what']})")
 
     eng = cm.CudaMJHMC(lr, epsilon=0.25, beta=0.15, num_leapfrog_steps=10, nbatch=2048, seed=0)
     eng.run(400)
@@ -1593,7 +1604,10 @@ def slice_k_stats(cm):
     jax_default, _ = mm_precisions(cm)
     res = {}
     for ecls, dist, cname, kw, burn, steps, tol in (
-            (cm.CudaNUTS, pot, "product_of_t", dict(nbatch=4096, max_depth=MM_NUTS_DEPTH), 100,
+            # the warmup's phases halved from nuts_full_warmup's 60/60/40 (the
+            # plain NUTS on 1,024 chains, ~0.24 s an iteration on the card)
+            (cm.CudaNUTS, pot, "product_of_t", dict(nbatch=4096, max_depth=MM_NUTS_DEPTH,
+                                                    phase1=30, phase2=30, phase3=20), 100,
              2000, 0.15),
             (cm.CudaMJHMC, lr, "logreg", dict(nbatch=2048, beta=0.15, num_leapfrog_steps=10), 0,
              1500, 0.25)):
@@ -1764,6 +1778,53 @@ FUNNEL_WARMUP = {"mjhmc": dict(phase1=200, phase2=300, phase3=150),
                  "nuts": dict(phase1=30, phase2=50, phase3=20)}
 #: (burn, steps) of the zoo CLI calls
 ZOO_CLI_ITERS = (300, 600)
+#: the elementwise engine's shapes beyond the presets' D, each body held
+#: against its plain version at them (on the CPU against the JAX package
+#: too, tests/test_torch_any_dims.py): the shapes of the JAX package's
+#: TPU-gated engine tests (tests/test_pallas_engine.py:455-889), a banana
+#: past its preset's D, a mixture past the library's 8 components, and the
+#: funnel at D 12 (control's whole mode on 8 lanes with the Metropolis
+#: uniform in a Philox block of its own: 6 pairs fill their last block) and
+#: D 30 (MALT's dims over 8 lanes). label -> (model, its keyword arguments,
+#: ε, M)
+MOG_RING = tuple((round(3.0 * math.cos(0.2 * math.pi * k), 6),
+                  round(3.0 * math.sin(0.2 * math.pi * k), 6)) for k in range(10))
+ANY_D_SHAPES = {
+    "gaussian d4": ("Gaussian", dict(ndims=4, log_conditioning=2.0), 0.15, 10),
+    "gaussian d8": ("Gaussian", dict(ndims=8, log_conditioning=2.0), 0.25, 10),
+    "gaussian d16": ("Gaussian", dict(ndims=16, log_conditioning=3.0), 0.5, 10),
+    "funnel d8": ("Funnel", dict(ndims=8, sigma_v=2.0), 0.1, 8),
+    "banana d10": ("Banana", dict(ndims=10), 0.25, 8),
+    "mog d2 k10": ("GaussianMixture", dict(ndims=2, means=MOG_RING, scales=(0.8, 1.2) * 5,
+                                           weights=(0.1,) * 10), 0.3, 5),
+    "funnel d12": ("Funnel", dict(ndims=12, sigma_v=2.0), 0.1, 8),
+    "funnel d30": ("Funnel", dict(ndims=30, sigma_v=2.0), 0.1, 8),
+}
+#: held on the card only: the smallest and a wide separable D
+ANY_D_CARD_SHAPES = {
+    "gaussian d3": ("Gaussian", dict(ndims=3, log_conditioning=1.0), 0.3, 10),
+    "gaussian d128": ("Gaussian", dict(ndims=128, log_conditioning=2.0), 0.25, 10),
+}
+
+
+def any_d_dists():
+    """label -> (distribution, ε, M) of every shape of ANY_D_SHAPES and
+    ANY_D_CARD_SHAPES."""
+    from mjhmc_tpu_torch import models
+
+    return {label: (getattr(models, name)(**kw), eps, m)
+            for label, (name, kw, eps, m) in {**ANY_D_SHAPES, **ANY_D_CARD_SHAPES}.items()}
+
+
+def tested_dims(cm):
+    """Every (elementwise spec class, D) the tests and this script hold:
+    the library's (``cm.KERNEL_DIMS``), then the any-D shapes'."""
+    out = [(spec, d) for spec, dims in cm.KERNEL_DIMS.items() for d in dims]
+    for dist, _, _ in any_d_dists().values():
+        key = (type(cm.energy_spec_for(dist)), dist.ndims)
+        if key not in out:
+            out.append(key)
+    return out
 
 
 def zoo_presets():
@@ -1827,22 +1888,34 @@ def zoo_agree(run, xs, ref, xs_ref):
 
 def zoo_kernel_checks(cm):
     """Phases 25-26: every body and branch on every zoo energy, run and
-    stream kernels, against the plain version on the card, from v ~ N(0, M),
-    in fixed-uniform mode (25) and in Philox mode (26). Decisions (counters
-    and stream es; and, but for NUTS, whether x moved each iteration) equal
-    on >= 0.999 of chains or as many as one-ulp nudges (of x or of ε, up
-    and down) change in the plain version alone, if more (the count that
-    differ is printed: the kernel contracts FMAs that torch rounds apart,
-    and the zoo's stiff regions carry last-ulp differences on). x, v, g, u and every
-    emitted x within rtol 1e-4 (atol 1e-4 of the largest finite value),
-    non-finite on the same chains, on all but 0.1% of the chains whose
-    decisions agree or as many as the nudges move past it. NUTS (Rn
-    roundings; the kernel's expf and logf round as torch.exp and torch.log
-    do on the card) is held bit for bit: x, v, g, u, leaf counts and every
-    emission identical on every chain. Returns ({label: max |dx| on the fixed-uniform
-    chains held}, {label: NUTS identical share, fixed-uniform and Philox})."""
+    stream kernels, against the plain version on the card (``case_checks``).
+    Returns ({label: max |dx| on the fixed-uniform chains held}, {label: NUTS
+    identical share, fixed-uniform and Philox})."""
+    return case_checks(cm, zoo_cases(), ("25 zoo fixed-uniform", "26 zoo philox"))
+
+
+def case_checks(cm, cases, phases, exact_counters=False):
+    """Every case (label, energy, distribution, chains, ε, β, M or
+    max_depth, iterations held, options), run and stream kernels, against
+    the plain version on the card, from v ~ N(0, M), in fixed-uniform mode
+    (phase ``phases[0]``) and in Philox mode (``phases[1]``). Decisions
+    (counters and stream es; and, but for NUTS, whether x moved each
+    iteration) equal on >= 0.999 of chains or as many as one-ulp nudges (of
+    x or of ε, up and down) change in the plain version alone, if more (the
+    count that differ is printed: the kernel contracts FMAs that torch
+    rounds apart, and stiff regions carry last-ulp differences on);
+    ``exact_counters``: the counters equal on every chain in fixed-uniform
+    mode. x, v, g, u and every emitted x within rtol 1e-4 (atol 1e-4 of the
+    largest finite value), non-finite on the same chains, on all but 0.1% of
+    the chains whose decisions agree or as many as the nudges move past it.
+    The nudged plain runs are made only where a count passes 0.1% of the
+    chains. NUTS (Rn roundings; the kernel's expf and logf round as
+    torch.exp and torch.log do on the card) is held bit for bit: x, v, g, u,
+    leaf counts and every emission identical on every chain. Returns
+    ({label: max |dx| on the fixed-uniform chains held}, {label: NUTS
+    identical share, fixed-uniform and Philox})."""
     errs, ident = {}, {}
-    for label, name, dist, n, eps, beta, m, held, kw in zoo_cases():
+    for label, name, dist, n, eps, beta, m, held, kw in cases:
         spec = cm.energy_spec_for(dist)
         variant = kw.get("variant", "mjhmc")
         nuts, mj = variant == "nuts", variant == "mjhmc"
@@ -1862,24 +1935,31 @@ def zoo_kernel_checks(cm):
                     same &= (moves(xs, x0, run.x if mj else None) == moved_r).all(dim=0)
                 return same
 
+            counters = ((k.evals == r.evals) & (so_k.evals == r.evals)
+                        & (es_k == es_r).all(dim=0))
             same = decisions(k, xs_k, es_k, st[0]) & decisions(so_k, xs_k, es_k, st[0])
             within = zoo_agree(k, xs_k, r, xs_r) & zoo_agree(so_k, xs_k, r, xs_r)
-            flips, drift = torch.zeros_like(same), torch.zeros_like(same)
-            for to in (float("inf"), float("-inf")):
-                x_n = torch.nextafter(st[0], torch.full_like(st[0], to))
-                eps_n = float(torch.nextafter(torch.tensor(eps), torch.tensor(to)))
-                for x0, e in ((x_n, eps), (st[0], eps_n)):
-                    xs_n, _, es_n, r_n = cm.stream_reference(spec, x0, *st[1:], seed, e, beta,
-                                                             held, 1, m, fixed, **kw)
-                    same_n = decisions(r_n, xs_n, es_n, x0)
-                    flips |= ~same_n
-                    drift |= same_n & ~zoo_agree(r_n, xs_n, r, xs_r)
             differ, outside = int((~same).sum()), int((same & ~within).sum())
+            flips, drift = torch.zeros_like(same), torch.zeros_like(same)
+            nudged = max(differ, outside) > 0.001 * n
+            if nudged:
+                for to in (float("inf"), float("-inf")):
+                    x_n = torch.nextafter(st[0], torch.full_like(st[0], to))
+                    eps_n = float(torch.nextafter(torch.tensor(eps), torch.tensor(to)))
+                    for x0, e in ((x_n, eps), (st[0], eps_n)):
+                        xs_n, _, es_n, r_n = cm.stream_reference(spec, x0, *st[1:], seed, e,
+                                                                 beta, held, 1, m, fixed, **kw)
+                        same_n = decisions(r_n, xs_n, es_n, x0)
+                        flips |= ~same_n
+                        drift |= same_n & ~zoo_agree(r_n, xs_n, r, xs_r)
             allow_dec = max(0.001 * n, int(flips.sum()))
             allow_states = max(0.001 * n, int(drift.sum()))
             mode = "fixed-uniform" if fixed else "Philox"
             what = (f"{label} ({n} chains, eps {eps}, beta {beta}, "
                     f"{'max_depth' if nuts else 'M'} {m}, {held} iterations, {mode})")
+            if exact_counters and fixed:
+                check(bool(counters.all()), f"{what}: counters differ on "
+                      f"{int((~counters).sum())} chains")
             check(differ <= allow_dec, f"{what}: decisions differ on {differ} chains, "
                   f"{allow_dec:g} allowed")
             check(outside <= allow_states, f"{what}: {outside} chains with equal decisions "
@@ -1906,13 +1986,15 @@ def zoo_kernel_checks(cm):
                          f"{float(r.evals.double().mean()) / held:.4g} leaves/iteration")
             if fixed:
                 errs[label] = err
-            phase("25 zoo fixed-uniform" if fixed else "26 zoo philox",
-                  f"{what}: decisions equal on {1 - differ / n:.5f} ({differ} differ); x,v,g,u "
+            nudges = (f"one-ulp nudges of x or eps change {int(flips.sum())} chains' decisions "
+                      f"and move {int(drift.sum())} more past rtol 1e-4 in the plain version "
+                      "alone" if nudged else "no nudged runs needed (within 0.1%)")
+            phase(phases[0] if fixed else phases[1],
+                  f"{what}: decisions equal on {1 - differ / n:.5f} ({differ} differ)"
+                  f"{', counters on every chain' if exact_counters and fixed else ''}; x,v,g,u "
                   f"and stream xs rtol 1e-4 on all but {outside} of the others (max|dx| "
                   f"{err:.3g}); non-finite energies on {nonfinite} chains, the same on both "
-                  f"sides where decisions agree; one-ulp nudges of x or eps change {int(flips.sum())} "
-                  f"chains' decisions and move {int(drift.sum())} more past rtol 1e-4 in the "
-                  f"plain version alone{extra}")
+                  f"sides where decisions agree; {nudges}{extra}")
     return errs, ident
 
 
@@ -4177,6 +4259,462 @@ def ess_table_and_tune(cm, card, sharded):
     return rows, deep
 
 
+
+# ---- the plain NUTS runs of phases 22 and 42, made in phase 2 ----------------
+#: label -> (model or preset, its keyword arguments, ε, max_depth, chains,
+#: burn, steps): the plain NUTS sampler that phase 22 (product_of_t, as
+#: tests/test_pallas_engine.py:892-923) and phase 42 (JAX's NUTS test at
+#: Gaussian D 8, :832-866, at its own 50 + 500 iterations) hold CudaNUTS to.
+#: The sampler costs a few host operations a leaf, so each runs on the CPU
+#: (one thread, ~1 min for D 8) in a process of its own while phase 2
+#: builds the kernels; the card would take ~117 s for D 8 alone.
+PLAIN_NUTS = {
+    "product_of_t": ("product_of_t", {}, 0.12, 7, 512, 20, 100),
+    "gaussian d8": ("Gaussian", dict(ndims=8, log_conditioning=2.0), 0.25, 8, 1024, 50, 500),
+}
+PLAIN_NUTS_TIMEOUT = 600
+
+
+def plain_nuts_run(label: str) -> int:
+    """One process of phase 2 (``chip_smoke.py --plain-nuts label``): the
+    plain NUTS of ``PLAIN_NUTS[label]`` on the CPU at seed 1; prints the
+    variances of its samples and its leaves an iteration as one JSON
+    line."""
+    from mjhmc_tpu_torch import models
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.samplers import NUTS
+
+    torch.set_num_threads(1)
+    name, kw, eps, depth, n, burn, steps = PLAIN_NUTS[label]
+    dist = (BENCHMARK_CONFIGS[name].make_distribution() if name in BENCHMARK_CONFIGS
+            else getattr(models, name)(**kw))
+    t0 = time.perf_counter()
+    ref = NUTS(dist, epsilon=eps, max_depth=depth, nbatch=n, seed=1, device="cpu")
+    ref.burn_in(burn)
+    o = ref.sample(steps)
+    xs = o["x"].double()
+    var = (xs**2).mean(dim=(0, 2)) - xs.mean(dim=(0, 2)) ** 2
+    ev = o["evals_mean"].double()
+    print(json.dumps({"var": var.tolist(), "leaves": float(ev[-1] - ev[0]) / (steps - 1),
+                      "seconds": time.perf_counter() - t0, "end": time.time()}))
+    return 0
+
+
+def start_plain_nuts():
+    """Phase 2: every ``PLAIN_NUTS`` run, each in a process of its own;
+    returns ({label: process}, the wall clock at their start)."""
+    return {label: subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                     "--plain-nuts", label], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            for label in PLAIN_NUTS}, time.time()
+
+
+def plain_nuts_results(started):
+    """Waits for ``start_plain_nuts``'s processes; returns {label: {var,
+    leaves, seconds (the sampler's), done_s (from their start to the run's
+    end, its process's start-up included), what (the run's settings)}}."""
+    procs, wall0 = started
+    out = {}
+    try:
+        for label, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=PLAIN_NUTS_TIMEOUT)
+            check(proc.returncode == 0, f"the plain NUTS of {label} exited {proc.returncode}:\n"
+                  f"{stderr[-4000:]}")
+            res = json.loads(stdout.strip().splitlines()[-1])
+            _, _, eps, depth, n, burn, steps = PLAIN_NUTS[label]
+            res["done_s"] = res["end"] - wall0
+            res["what"] = (f"{n:,} chains, eps {eps}, max_depth {depth}, {burn} + {steps}, on the "
+                           f"CPU in phase 2, {res['seconds']:.3g} s host clock")
+            out[label] = res
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+# ---- phase 42: the elementwise engine at any D --------------------------------
+#: on-demand builds at a time beside the library's (phase 2)
+ANY_D_BUILDERS = 3
+ANY_D_CHAINS = 4096
+#: the branch cases of phase 42 beside every body at every shape: (shape,
+#: body, options); the mass is M⁻¹ from 0.5 to 1.5 over the dims
+ANY_D_BRANCHES = (("gaussian d16", "mjhmc", dict(integrator="two_stage", mass=True)),
+                  ("funnel d8", "control", dict(integrator="two_stage", mass=True)),
+                  ("banana d10", "malt", dict(mass=True)),
+                  ("gaussian d128", "nuts", dict(mass=True)),
+                  ("mog d2 k10", "mjhmc", dict(mass=True)))
+#: (burn, steps) of phase 42's timing: MJHMC, control, MALT; NUTS
+ANY_D_TIMING_ITERS = (300, 60)
+ANY_D_BETA = {"mjhmc": 0.1, "control": 0.2, "malt": 1.0, "nuts": 0.0}
+
+
+def any_d_keys(cm):
+    """{(shape, body): the on-demand instance's key (body id, energy id, D,
+    component cap)} of every body at every any-D shape."""
+    out = {}
+    for label, (dist, _, _) in any_d_dists().items():
+        spec = cm.energy_spec_for(dist)
+        check(not cm.compiled_ahead(spec, dist.ndims), f"{label} is a preset's shape")
+        for body in ZOO_BODIES:
+            out[(label, body)] = (cm.KERNEL_VARIANTS[body], spec.energy_id, dist.ndims,
+                                  cm.mog_cap(spec))
+    return out
+
+
+def start_any_d_builds(cm, _build):
+    """Phase 2: every on-demand instance of phase 42, ANY_D_BUILDERS nvcc at
+    a time, started beside the library's build; returns the pool and {key:
+    future of (path, nvcc seconds in this run or None where the library was
+    built before, seconds from the start to its end)}."""
+    pool = concurrent.futures.ThreadPoolExecutor(ANY_D_BUILDERS)
+    t0 = time.perf_counter()
+
+    def build(key):
+        path, nvcc_s = _build.build_instance(*key)
+        return path, nvcc_s, time.perf_counter() - t0
+
+    return pool, {key: pool.submit(build, key) for key in set(any_d_keys(cm).values())}
+
+
+def any_d_builds(_build, done, card):
+    """Phase 42's build report from phase 2's builds (``done``): each
+    on-demand library's nvcc seconds in this run (or that it was reused)
+    and its ptxas registers and spills, as its log has them. Returns {key:
+    nvcc seconds, None for a reused library}."""
+    built = sum(s is not None for _, s, _ in done.values())
+    phase("42 any D", f"{len(done)} on-demand libraries from phase 2, {built} built in this run "
+          f"and {len(done) - built} reused from the build directory [{card}]")
+    seconds = {}
+    for key, (path, nvcc_s, _) in sorted(done.items()):
+        seconds[key] = nvcc_s
+        ptx = "; ".join(f"{k}: {r} registers, {sp} B spill stores"
+                        for k, r, sp in ptxas_report(_build.instance_log(*key)))
+        took = "reused, not built in this run" if nvcc_s is None else f"nvcc {nvcc_s:.1f} s"
+        phase("42 any D", f"{path.name}: {took}; ptxas {ptx}")
+    return seconds
+
+
+def any_d_tiles(cm, card):
+    """Each on-demand instance's tile as it reports it against the
+    wrappers' mirror: the MJHMC, control and MALT groupings (lanes a chain,
+    threads a block) and the NUTS tile (threads, shared bytes, blocks an SM;
+    the scratch past 10 dims) at phase 42's chains."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = {}
+    for label, (dist, _, _) in any_d_dists().items():
+        spec, d, n = cm.energy_spec_for(dist), dist.ndims, ANY_D_CHAINS
+        for body in ("mjhmc", "control", "malt"):
+            got = cm.ew_tile(body, spec, d, n)
+            lanes = cm.ew_lanes(body, spec, d)
+            want = (lanes, cm.ew_threads(lanes, n, sms))
+            check(got == want, f"{body} grouping of {label}: the instance's {got}, the mirror's "
+                  f"{want}")
+            tiles[f"{body} {label}"] = got
+        for mass in (False, True):
+            for depth in (1, CLI_NUTS_DEPTH, cm.NUTS_MAX_DEPTH):
+                got = cm.nuts_tile(spec, d, depth, n, mass)
+                threads = cm.nuts_threads(d, n, sms)
+                want = (threads, cm.nuts_smem_bytes(d, threads, depth))
+                check(got[:2] == want and got[2] >= 1, f"NUTS tile of {label} (max_depth {depth}"
+                      f"{', a mass' if mass else ''}): the instance's {got}, the mirror's {want}")
+                scratch = cm.nuts_tree_scratch(d, depth, n, DEV)
+                check((scratch is None) == (d <= cm.NUTS_ON_CHIP_DIMS), f"{label}: scratch rule")
+                tiles[f"nuts {label} max_depth {depth}{' mass' if mass else ''}"] = got
+    phase("42 any D", f"on-demand tiles on {sms} SMs at {ANY_D_CHAINS} chains (lanes, threads "
+          f"a block; NUTS threads, shared bytes a block, blocks an SM), instance = mirror: "
+          f"{json.dumps(tiles)} [{card}]")
+
+
+def any_d_cases():
+    """Phase 42's cases for ``case_checks``: every body at every any-D
+    shape at ANY_D_CHAINS chains (NUTS at max_depth ZOO_NUTS_DEPTH, 3
+    iterations; the others the shape's ε and M, 5), and ANY_D_BRANCHES."""
+    rows = []
+    dists = any_d_dists()
+    for label, (dist, eps, m) in dists.items():
+        for body in ZOO_BODIES:
+            nuts = body == "nuts"
+            rows.append((f"{label} {body}", label, dist, ANY_D_CHAINS, eps, ANY_D_BETA[body],
+                         ZOO_NUTS_DEPTH if nuts else m, 3 if nuts else 5, dict(variant=body)))
+    for label, body, br in ANY_D_BRANCHES:
+        dist, eps, m = dists[label]
+        kw = dict(variant=body)
+        if "integrator" in br:
+            kw["integrator"] = br["integrator"]
+        if br.get("mass"):
+            kw["inv_mass"] = tuple(float(v) for v in torch.linspace(0.5, 1.5, dist.ndims))
+        nuts = body == "nuts"
+        tags = [br.get("integrator", ""), "inv_mass" if br.get("mass") else ""]
+        rows.append((f"{label} {body} {' '.join(filter(None, tags))}", label, dist, ANY_D_CHAINS, eps,
+                     ANY_D_BETA[body], ZOO_NUTS_DEPTH if nuts else m, 3 if nuts else 5, kw))
+    return rows
+
+
+def any_d_stats(cm, card, plain_nuts):
+    """Phase 42: the JAX package's six TPU-gated engine checks at their own
+    shapes, settings and tolerances (tests/test_pallas_engine.py), on the
+    port's engines through on-demand instances: the Gaussian at D 16 with
+    M⁻¹ = its variances (:455-490), the funnel at D 8 after
+    ``CudaMJHMC.from_warmup`` (:493-513), control (:626-658) and MALT
+    (:748-789) at D 4 against the plain samplers, NUTS at D 8 against the
+    plain NUTS (:832-866; ``plain_nuts``, its 50 + 500 iterations of 1,024
+    chains run on the CPU in phase 2), the NUTS stream at D 4 (:869-889).
+    Returns the launches of each engine, counted from 0 just before it."""
+    from mjhmc_tpu_torch.models import Funnel, Gaussian
+    from mjhmc_tpu_torch.samplers import MALT, ControlHMC, MarkovJumpHMC
+
+    launches = {}
+
+    def var_of(xs):
+        xs = xs.double()
+        return (xs**2).mean(dim=(0, 2)) - xs.mean(dim=(0, 2)) ** 2
+
+    def counted(key, body, fn):
+        cm.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[key] = counts(cm, "launches" if body == "mjhmc" else f"{body}_launches")
+        check(sum(launches[key]) > 0, f"{key}: no launch")
+        return out, time.perf_counter() - t0
+
+    # (a) D 16, M⁻¹ = the variances, against the plain MJHMC's dwell and evals
+    dist = Gaussian(ndims=16, log_conditioning=3.0)
+    im = tuple(float(v) for v in dist.variances)
+
+    def mass16():
+        eng = cm.CudaMJHMC(dist, epsilon=1.0, beta=0.1, num_leapfrog_steps=10, nbatch=4096,
+                           seed=0, inv_mass=im, device=DEV)
+        eng.run(300)
+        return eng, eng.run(500)
+    (eng, out), sec = counted("gaussian d16 inv_mass", "mjhmc", mass16)
+    dwell_p = float(out.w.double().sum()) / (eng.nbatch * 500)
+    evals_p = float(out.evals.double().mean())
+    ratio = (cm.CudaMJHMC.moments(out)[1].double().cpu() / torch.as_tensor(dist.variances))
+    ref = MarkovJumpHMC(dist, epsilon=1.0, beta=0.1, num_leapfrog_steps=10, nbatch=4096, seed=1,
+                        mass_diag=tuple(1.0 / v for v in im), device=DEV)
+    ref.burn_in(300)
+    rout = ref.sample(500)
+    dwell_x = float(rout["dwell"].double().mean())
+    evals_x = float(ref.state.grad_evals.double().mean())
+    med = float(ratio.median())
+    check(abs(med - 1) < 0.1 and float(ratio.max()) < 1.35 and float(ratio.min()) > 0.65
+          and abs(dwell_p - dwell_x) < 0.05 * dwell_x and abs(evals_p - evals_x) < 0.05 * evals_x,
+          f"D 16 with a mass: var/analytic {ratio.tolist()}, dwell {dwell_p} vs {dwell_x}, "
+          f"evals {evals_p} vs {evals_x}")
+    phase("42 any D stats", f"CudaMJHMC Gaussian(16, log_conditioning 3) with M^-1 = the variances "
+          f"(4,096 chains, eps 1, beta 0.1, M 10, 300 + 500): median var/analytic {med:.5f} (0.1), "
+          f"all in [{float(ratio.min()):.4f}, {float(ratio.max()):.4f}] ((0.65, 1.35)); dwell "
+          f"{dwell_p:.5f} vs the plain sampler's {dwell_x:.5f}, evals {evals_p:.6g} vs "
+          f"{evals_x:.6g} (5%); engine {sec:.3g} s host clock [{card}]")
+
+    # (b) the funnel at D 8 after the warmup
+    funnel = Funnel(ndims=8, sigma_v=2.0)
+    t0 = time.perf_counter()
+    eng = cm.CudaMJHMC.from_warmup(funnel, seed=0, nbatch=8192, beta=0.2, num_leapfrog_steps=10,
+                                   phase1=200, phase2=300, phase3=150, device=DEV)
+    warm_s = time.perf_counter() - t0
+    check(eng.inv_mass is not None and eng.epsilon > 0, "funnel D 8 warmup")
+    out, sec = counted("funnel d8 from_warmup", "mjhmc", lambda: eng.run(3000))
+    ratio = cm.CudaMJHMC.moments(out)[1].double().cpu() / funnel.analytic_var().double()
+    check(float(ratio.min()) > 0.5 and float(ratio.max()) < 1.6,
+          f"funnel D 8 var/analytic {ratio.tolist()}")
+    phase("42 any D stats", f"CudaMJHMC.from_warmup(Funnel(ndims=8, sigma_v=2)) (8,192 chains, "
+          f"beta 0.2, M 10, phases 200/300/150; warmup {warm_s:.3g} s host clock, eps "
+          f"{eng.epsilon:.5g}), 3000 iterations: var/analytic in [{float(ratio.min()):.5f}, "
+          f"{float(ratio.max()):.5f}] ((0.5, 1.6)); engine {sec:.3g} s [{card}]")
+
+    # (c), (d) control and MALT at D 4 against the plain samplers
+    g4 = Gaussian(ndims=4, log_conditioning=2.0)
+    tgt = torch.as_tensor(g4.variances).double()
+    for key, ecls, pcls, kw, pkw in (
+            ("control", cm.CudaControlHMC, ControlHMC, dict(beta=0.25), dict(beta=0.25)),
+            ("malt", cm.CudaMALT, MALT, dict(beta=1.5), dict(gamma=1.5))):
+        def engine_run():
+            eng = ecls(g4, epsilon=0.15, num_leapfrog_steps=10, nbatch=4096, seed=0,
+                       device=DEV, **kw)
+            eng.run(400)
+            return eng.run(600)
+        out, sec = counted(f"gaussian d4 {key}", key, engine_run)
+        check(bool((out.w == 600).all()) and bool((out.evals == 6000).all()),
+              f"{key} D 4: w and evals exact")
+        var_p = cm.CudaMJHMC.moments(out)[1].double().cpu()
+        ref = pcls(g4, epsilon=0.15, num_leapfrog_steps=10, nbatch=4096, seed=1, device=DEV,
+                   **pkw)
+        ref.burn_in(400)
+        var_x = var_of(ref.sample(600)["x"]).cpu()
+        r_plain, r_tgt = float((var_p / var_x).median()), float((var_p / tgt).median())
+        check(abs(r_plain - 1) < 0.12 and abs(r_tgt - 1) < 0.12,
+              f"{key} D 4: median var ratio {r_plain}, var/analytic {r_tgt}")
+        msg = ""
+        if key == "malt":  # γ = 0: full-refresh HMC
+            def gamma0():
+                eng = cm.CudaMALT(g4, epsilon=0.15, beta=0.0, num_leapfrog_steps=10,
+                                  nbatch=4096, seed=2, device=DEV)
+                eng.run(400)
+                return eng.run(600)
+            out0, _ = counted("gaussian d4 malt gamma 0", "malt", gamma0)
+            r0 = float((cm.CudaMJHMC.moments(out0)[1].double().cpu() / tgt).median())
+            check(abs(r0 - 1) < 0.12, f"MALT gamma 0 D 4: median var/analytic {r0}")
+            msg = f"; gamma 0: median var/analytic {r0:.5f} (0.12)"
+        phase("42 any D stats", f"{ecls.__name__} Gaussian(4, log_conditioning 2) (4,096 chains, "
+              f"eps 0.15, {'beta 0.25' if key == 'control' else 'gamma 1.5'}, M 10, 400 + 600): "
+              f"w and evals exact; median var ratio to the plain {pcls.__name__} {r_plain:.5f}, "
+              f"median var/analytic {r_tgt:.5f} (0.12){msg}; engine {sec:.3g} s [{card}]")
+
+    # (e) NUTS at D 8 against the plain NUTS: variances and leaves an iteration
+    g8 = Gaussian(ndims=8, log_conditioning=2.0)
+
+    def nuts8():
+        eng = cm.CudaNUTS(g8, epsilon=0.25, num_leapfrog_steps=8, nbatch=4096, seed=0, device=DEV)
+        eng.run(50)
+        return eng.run(500)
+    out, sec = counted("gaussian d8 nuts", "nuts", nuts8)
+    check(bool((out.w == 500).all()), "NUTS D 8: w == steps")
+    var_p = cm.CudaMJHMC.moments(out)[1].double().cpu()
+    leaves_eng = float(out.evals.double().mean()) / 500
+    var_x = torch.as_tensor(plain_nuts["var"], dtype=torch.float64)
+    leaves_x = plain_nuts["leaves"]
+    tgt = torch.as_tensor(g8.variances).double()
+    r_plain, r_tgt = float((var_p / var_x).median()), float((var_p / tgt).median())
+    check(abs(r_plain - 1) < 0.12 and abs(r_tgt - 1) < 0.12
+          and abs(leaves_eng / leaves_x - 1) < 0.1,
+          f"NUTS D 8: median var ratio {r_plain}, var/analytic {r_tgt}, leaves {leaves_eng} vs "
+          f"{leaves_x}")
+    phase("42 any D stats", f"CudaNUTS Gaussian(8, log_conditioning 2) (4,096 chains, eps 0.25, "
+          f"max_depth 8, 50 + 500): median var ratio to the plain NUTS ({plain_nuts['what']}) "
+          f"{r_plain:.5f}, median var/analytic {r_tgt:.5f} (0.12); "
+          f"leaves an iteration {leaves_eng:.5g} vs {leaves_x:.5g} (10%); engine {sec:.3g} s "
+          f"[{card}]")
+
+    # (f) the NUTS stream at D 4 against its own accumulators
+    g4b = Gaussian(ndims=4, log_conditioning=1.0)
+
+    def stream4():
+        eng = cm.CudaNUTS(g4b, epsilon=0.5, num_leapfrog_steps=6, nbatch=2048, seed=5, device=DEV)
+        eng.run(100)
+        xs, ws = eng.sample(400)
+        return eng, xs, ws, eng.run(400)
+    (eng, xs, ws, out), sec = counted("gaussian d4 nuts stream", "nuts", stream4)
+    check(tuple(xs.shape) == (400, 4, 2048) and bool((ws == 1).all())
+          and int(out.evals.min()) >= 400, "NUTS stream D 4: shapes, weights, leaves")
+    ratio = float((xs.double().var(dim=(0, 2)).cpu()
+                   / cm.CudaMJHMC.moments(out)[1].double().cpu()).median())
+    check(abs(ratio - 1) < 0.2, f"NUTS stream D 4: median var ratio {ratio}")
+    phase("42 any D stats", f"CudaNUTS Gaussian(4, log_conditioning 1) stream (2,048 chains, eps "
+          f"0.5, max_depth 6, 100 + 400 + 400): ws == 1, leaves >= 1 an iteration, median "
+          f"var(stream)/var(accumulators) {ratio:.5f} (0.2); engines {sec:.3g} s [{card}]")
+    return launches
+
+
+def any_d_timing(cm, card):
+    """Phase 42: ms per iteration (CUDA events) of every body's on-demand
+    instance at every any-D shape, run and stream, through the engines at
+    ANY_D_CHAINS chains and the shape's ε and M (NUTS at max_depth 8),
+    beside the plain version; each engine's launches counted from 0 just
+    before it. Returns {(shape, body): (run ms, stream ms, plain run ms,
+    plain stream ms, gradients, iterations, chains, (run, stream)
+    launches)}."""
+    rows = {}
+    ecls = {"nuts": cm.CudaNUTS, "mjhmc": cm.CudaMJHMC, "control": cm.CudaControlHMC,
+            "malt": cm.CudaMALT}
+    for label, (dist, eps, m0) in any_d_dists().items():
+        n = ANY_D_CHAINS
+        for body in ZOO_BODIES:
+            nuts = body == "nuts"
+            m = CLI_NUTS_DEPTH if nuts else m0
+            beta = ANY_D_BETA[body]
+            iters = ANY_D_TIMING_ITERS[nuts]
+            cm.reset_counts()
+            eng = ecls[body](dist, epsilon=eps, beta=beta, num_leapfrog_steps=m, nbatch=n,
+                             seed=4, device=DEV)
+            eng.run(10)
+            before = eng.grad_evals
+            run_ms = events_ms(lambda: eng.run(iters)) / iters
+            grads = eng.grad_evals - before
+            stream_ms = events_ms(lambda: eng.sample(iters)) / iters
+            launches = counts(cm, "launches" if body == "mjhmc" else f"{body}_launches")
+            check(all(v > 0 for v in launches), f"{label} {body}: kernels not launched")
+            args = (eng.spec, *initial_state(dist, n, seed=5), 99, eps, beta)
+            pkw = dict(variant=body)
+            if not nuts:  # a warm call; the plain NUTS's seconds dwarf its first call's cost
+                cm.run_reference(*args, 1, m, **pkw)
+            plain_ms = events_ms(lambda: cm.run_reference(*args, 1, m, **pkw))
+            plain_stream_ms = events_ms(lambda: cm.stream_reference(*args, 1, 1, m, **pkw))
+            rows[(label, body)] = (run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n,
+                                   launches)
+            phase("42 any D timing", f"{body} {label} ({n} chains, eps {eps}, beta {beta}, "
+                  f"{'max_depth' if nuts else 'M'} {m}): run {run_ms:.6g} ms/iteration, stream "
+                  f"(thin 1) {stream_ms:.6g}; plain version run {plain_ms:.6g}, stream "
+                  f"{plain_stream_ms:.6g} ms/iteration; {grads / (n * iters):.5g} "
+                  f"{'leaves' if nuts else 'gradients'} per chain and iteration [{card}]")
+    return rows
+
+
+def any_d_energy(dist):
+    """(the energy's name as ``bound`` prices it, the mixture's components)."""
+    name = type(dist).__name__
+    if name == "GaussianMixture":
+        return "mog", len(dist.scales)
+    return {"Gaussian": "gauss50d", "Funnel": "funnel", "Banana": "banana"}[name], 0
+
+
+def any_d_entries(entry, errs, ident, rows, seconds, keys):
+    """The kernels line's entries of phase 42: every body at every any-D
+    shape, run and stream, from its on-demand instance; launches and times
+    from phase 42's engines, errors from its fixed-uniform checks, its
+    library's nvcc seconds in this run (null where the library was built
+    before and reused)."""
+    out = []
+    variants = {"nuts": NUTS_VARIANT, "mjhmc": MJHMC_VARIANT, "control": CONTROL_VARIANT,
+                "malt": MALT_VARIANT}
+    for label, (dist, _, _) in any_d_dists().items():
+        cname, k = any_d_energy(dist)
+        for body in ZOO_BODIES:
+            run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n, launches = \
+                rows[(label, body)]
+            cases = [c for c in errs if c.startswith(f"{label} {body}")]
+            for idx, (suffix, src) in enumerate((("run", RUN_SRC), ("stream", STREAM_SRC))):
+                stream = idx == 1
+                extra = {"variant": variants[body], "instance": "on demand",
+                         "nvcc_s": seconds[keys[(label, body)]],
+                         "shape": f"{label}, {n} chains, "
+                                  f"{'max_depth 8' if body == 'nuts' else 'its eps and M'}"
+                                  f"{', thin 1' if stream else ''}, ms per iteration"}
+                if body == "nuts":
+                    extra["bit_identical_share"] = {c: ident[c] for c in cases}
+                out.append(entry(
+                    f"{body}_{suffix}[{label}]", ONDEMAND_SRC, src, launches[idx],
+                    max(errs[c] for c in cases), stream_ms if stream else run_ms,
+                    plain_stream_ms if stream else plain_ms,
+                    bound(cname, body, dist.ndims, k, n, iters, grads, iters if stream else 0),
+                    **extra))
+    return out
+
+
+def any_d_phase(cm, _build, card, done, plain_nuts):
+    """Phase 42: the on-demand instances' builds (``done``, phase 2's),
+    tiles, every body at every any-D shape against its plain version, JAX's
+    TPU-gated checks at their shapes (``plain_nuts``: phase 2's plain NUTS
+    at D 8), the timings. Returns (errors, NUTS identical shares, timing
+    rows, nvcc seconds, instance keys, the statistics engines' launches)."""
+    t0 = time.perf_counter()
+    seconds = any_d_builds(_build, done, card)
+    any_d_tiles(cm, card)
+    errs, ident = case_checks(cm, any_d_cases(), ("42 any D fixed-uniform", "42 any D philox"),
+                              exact_counters=True)
+    t_checks = time.perf_counter()
+    stat_launches = any_d_stats(cm, card, plain_nuts)
+    t_stats = time.perf_counter()
+    rows = any_d_timing(cm, card)
+    phase("42 any D", f"phase 42 took {time.perf_counter() - t0:.4g} s: the checks "
+          f"{t_checks - t0:.4g}, the statistics {t_stats - t_checks:.4g}, the timings "
+          f"{time.perf_counter() - t_stats:.4g}; statistics engines' launches "
+          f"{json.dumps({k: list(v) for k, v in stat_launches.items()})} [{card}]")
+    return errs, ident, rows, seconds, any_d_keys(cm)
+
 T0 = time.perf_counter()
 DEV = "cuda"
 
@@ -4204,15 +4742,32 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     # the build waits on nvcc; meanwhile this thread imports torch._dynamo,
-    # which torch.optim.Adam's first use (phase 39's ADVI) pulls in
+    # which torch.optim.Adam's first use (phase 39's ADVI) pulls in; phase
+    # 42's on-demand instances build beside it, ANY_D_BUILDERS at a time,
+    # and the plain NUTS runs of phases 22 and 42 run on the CPU, each in a
+    # process of its own. All of them end within this phase, before the
+    # first timing.
     t0 = time.perf_counter()
+    plain_procs = start_plain_nuts()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         built = pool.submit(_build.load)
+        od_pool, od_builds = start_any_d_builds(cm, _build)
         importlib.import_module("torch._dynamo")
         t_import = time.perf_counter() - t0
         built.result()
-    phase("2 build", f"{time.perf_counter() - t0:.1f} s -> {_build.library_path().name} "
-          f"(import torch._dynamo beside it: {t_import:.1f} s)")
+    t_lib = time.perf_counter() - t0
+    od_done = {key: fut.result() for key, fut in od_builds.items()}
+    od_pool.shutdown()
+    plain_nuts = plain_nuts_results(plain_procs)
+    phase("2 build", f"{t_lib:.1f} s -> {_build.library_path().name} (import torch._dynamo "
+          f"beside it: {t_import:.1f} s); beside it {len(od_done)} on-demand libraries, "
+          f"{ANY_D_BUILDERS} nvcc at a time, the last done "
+          f"{max(t for _, _, t in od_done.values()):.1f} s after the build began, and the plain "
+          f"NUTS runs on the CPU, done "
+          f"{json.dumps({k: round(v['done_s'], 1) for k, v in plain_nuts.items()})} s after it "
+          f"began; phase 2 "
+          f"ends {time.perf_counter() - t0:.1f} s after it began, and no build or run of it "
+          f"goes on into the timed phases")
     log = _build.build_log()
     for kernel, regs, spill in ptxas_report(log):
         phase("2 build", f"ptxas {kernel}: {regs} registers, {spill} bytes spill stores")
@@ -4549,7 +5104,7 @@ def main() -> int:
     mm_nuts_err = mm_nuts_checks(cm)
     deep_err, deep_times = mm_nuts_deep_checks(cm)
     deep_preset = mm_nuts_deep_timing(cm, card)
-    for key, c in slice_k_stats(cm).items():
+    for key, c in slice_k_stats(cm, plain_nuts["product_of_t"]).items():
         drove(key, c, "phase 22: from_warmup, then run and sample")
     for (sampler, cname, engine), (_, c, _) in slice_k_cli(cm, cli).items():
         if engine == "cuda" and cname in jax_default:
@@ -4610,6 +5165,9 @@ def main() -> int:
     rows41, deep_launches = ess_table_and_tune(cm, card, sharded)
     phase("41 ess table and tune", f"phase 41 took {time.perf_counter() - t_41:.4g} s; rows "
           + json.dumps({k: round(v, 4) for k, v in rows41.items()}) + f" [{card}]")
+
+    # ---- 42. the elementwise engine at any D: on-demand instances -----------
+    any_d = any_d_phase(cm, _build, card, od_done, plain_nuts["gaussian d8"])
 
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
@@ -4797,6 +5355,7 @@ def main() -> int:
     kernels += zoo_entries(entry, zoo_err, zoo_ident, zoo_cli_res, zoo_ms)
     kernels += precision_entries(entry, prec_err, sweep, prec_ms, dossier["ceilings"],
                                  main_runs)
+    kernels += any_d_entries(entry, *any_d)
     rw_sh, sc_sh = sh["rough_well 10,000"], sh["sparse_coding 8,192 bf16x3"]
     kernels += [
         entry("sharded_mjhmc_run", KERNEL_SRC, SHARDED_SRC, sh["bench_scaling"]["launches"],
@@ -4832,6 +5391,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase35-rank"]:
         sys.exit(phase35_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--plain-nuts"]:
+        sys.exit(plain_nuts_run(sys.argv[2]))
     try:
         sys.exit(main())
     finally:

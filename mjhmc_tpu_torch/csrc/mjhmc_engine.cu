@@ -29,10 +29,11 @@ cudaError_t launch_shape(int variant, const Args& a, bool emit, cudaStream_t s) 
 // Plain C entry for ctypes. variant 0 runs MJHMC (m is M), 1 runs NUTS (m is
 // max_depth, 1..nuts::kMaxDepth; beta is unused; the input v is returned as
 // is when num_iters is 0), 2 control HMC (beta is the corruption fraction),
-// 3 MALT (beta is the friction gamma). energy is an Energy id at its
-// instantiated D: rough well and Gaussian at 2 and 50, funnel 10, banana 2,
-// mog 1 (k0 components, 1..kMogMaxComponents), eight schools 10 (both
-// forms). mass is (2, ndims) (M^-1, sqrt(M)) or NULL; two_stage != 0 takes
+// 3 MALT (beta is the friction gamma). energy is an Energy id at a D the
+// library is compiled for, the presets': rough well and Gaussian at 2 and
+// 50, funnel 10, banana 2, mog 1 (k0 components, 1..kMogMaxComponents),
+// eight schools 10 (both forms); every other D has its on-demand instance
+// (ondemand/ew_instance.cu, mjhmc_od_launch). mass is (2, ndims) (M^-1, sqrt(M)) or NULL; two_stage != 0 takes
 // the two-stage integrator (MJHMC and control only); scratch is NUTS's
 // (nuts::rows(m), ndims, n) tree rows at ndims > nuts::kOnChipDims (else
 // NULL).

@@ -7,7 +7,9 @@
 // zoo_*.cu; the PROF instances in nuts_engine_prof.cu and
 // ew_engine_prof*.cu), each by its own nvcc, all at once (ops/_build.py);
 // the slowest instances have a source each, so that the build's longest
-// nvcc stays short.
+// nvcc stays short. Those are the presets' D; any other (body, energy, D)
+// is compiled at its first use from ondemand/ew_instance.cu, a library of
+// its own (ops/_build.py, load_instance).
 //
 // Replaces the TPU kernels _mjhmc_kernel and _mjhmc_stream_kernel
 // (mjhmc_tpu/ops/pallas_mjhmc.py:1451 and :1494), both built from the step
@@ -73,6 +75,15 @@
 #include "phase_clock.cuh"
 #include "philox.cuh"
 
+// Every loop over a lane's dims (or their Philox blocks) unrolls fully, so
+// that the lane's arrays live in registers. An on-demand instance at a wide
+// D defines this to leave loops over more dims rolled
+// (ondemand/ew_instance.cu), their arrays in local memory, which keeps its
+// nvcc short
+#ifndef MJHMC_UNROLL_DIMS
+#define MJHMC_UNROLL_DIMS(K) _Pragma("unroll")
+#endif
+
 namespace mjhmc {
 
 constexpr int kThreads = 64;
@@ -94,8 +105,13 @@ enum Energy {
 };
 // step bodies (the variant argument of the C entry)
 enum Variant { kMjhmc = 0, kNuts = 1, kControl = 2, kMalt = 3 };
-// most components of a mixture (MogSpec; the wrapper checks)
-constexpr int kMogMaxComponents = 8;
+// most components of a mixture (MogSpec): 8 in the library; an on-demand
+// instance (ondemand/ew_instance.cu) is compiled with its mixture's count
+// where that is more (ops/_build.py, load_instance)
+#ifndef MJHMC_MOG_MAX_COMPONENTS
+#define MJHMC_MOG_MAX_COMPONENTS 8
+#endif
+constexpr int kMogMaxComponents = MJHMC_MOG_MAX_COMPONENTS;
 
 struct Args {
   // per-energy parameters: the Gaussian's (d,) precisions, eight schools'
@@ -205,7 +221,7 @@ struct Owned {
   int i0;
   float p[K], q[K], im[K], sm[K];
   __device__ __forceinline__ Owned(const Args& a, int rank, const float* mass) : i0(rank * K) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j) {
       const int i = i0 + j;
       const bool o = i < D;
@@ -259,13 +275,13 @@ __device__ __forceinline__ int mog_logits(const float (&x)[D], float (&lg)[kMogM
   const float* mu = a.params;
   const float* cst = a.params + K * D;
   float x2 = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
   for (int i = 0; i < D; ++i) x2 = R::add(x2, R::mul(x[i], x[i]));
 #pragma unroll
   for (int k = 0; k < kMogMaxComponents; ++k) {
     if (k >= K) break;
     float cross = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
     for (int i = 0; i < D; ++i) {
       const float m = __ldg(mu + k * D + i);
       if (m != 0.f) cross = R::add(cross, R::mul(m, x[i]));
@@ -308,11 +324,11 @@ __device__ __forceinline__ float grad_u(const float (&x)[K], float (&g)[K],
     // k0 = 1/σ_v², k1 = ½(d−1): gv = v·k0 + k1 − ½e^{−v}·Σ_{i≥1} x_i², g_i = e^{−v}x_i
     const float v = dim(0), e = expf(-v);
     float zp = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j)
       if (P.own(j) && P.i0 + j >= 1) zp = R::add(zp, R::mul(x[j], x[j]));
     const float z2 = grp.sum(zp);
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j)
       g[j] = P.i0 + j == 0 ? R::sub(R::add(R::mul(v, a.k0), a.k1), R::mul(R::mul(0.5f, e), z2))
                            : R::mul(e, x[j]);
@@ -326,7 +342,7 @@ __device__ __forceinline__ float grad_u(const float (&x)[K], float (&g)[K],
     g[0] = R::sub(R::mul(x1, a.k2), R::mul(R::mul(a.k3, x1), r));
     g[1] = r;
     float tail = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
     for (int i = 2; i < D; ++i) {
       g[i] = x[i];
       tail = R::add(tail, R::mul(x[i], x[i]));
@@ -358,7 +374,7 @@ __device__ __forceinline__ float grad_u(const float (&x)[K], float (&g)[K],
       c[k] = R::mul(R::mul(c[k], inv_tot), __ldg(cst + 2 * NK + k));
       sum_c = k == 0 ? c[0] : R::add(sum_c, c[k]);
     }
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
     for (int i = 0; i < D; ++i) {
       float row = 0.f;
       bool any = false;
@@ -384,7 +400,7 @@ __device__ __forceinline__ float grad_u(const float (&x)[K], float (&g)[K],
       // k0 = 1/m₀², k1 = 1/s₀², k2 = K; p = y, q = 1/σ²; dth_j = θ_j − μ
       const float e2 = expf(R::mul(-2.f, l));
       float s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         g[j] = 0.f;
         if (P.own(j) && P.i0 + j >= 2) {
@@ -396,7 +412,7 @@ __device__ __forceinline__ float grad_u(const float (&x)[K], float (&g)[K],
         }
       }
       const float S1 = grp.sum(s1), S2 = grp.sum(s2);
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         if (P.i0 + j == 0) g[j] = R::sub(R::mul(mu, a.k0), R::mul(e2, S1));
         if (P.i0 + j == 1) g[j] = R::sub(R::add(R::mul(l, a.k1), a.k2), R::mul(e2, S2));
@@ -407,7 +423,7 @@ __device__ __forceinline__ float grad_u(const float (&x)[K], float (&g)[K],
     } else {  // non-centred: θ_j = μ + e^ℓ z_j, ri_j = (θ_j − y_j)/σ_j²
       const float e = expf(l);
       float s1 = 0.f, s2 = 0.f, s4 = 0.f, s5 = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         g[j] = 0.f;
         if (P.own(j) && P.i0 + j >= 2) {
@@ -421,7 +437,7 @@ __device__ __forceinline__ float grad_u(const float (&x)[K], float (&g)[K],
         }
       }
       const float S1 = grp.sum(s1), S2 = grp.sum(s2);
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         if (P.i0 + j == 0) g[j] = R::add(R::mul(mu, a.k0), S1);
         if (P.i0 + j == 1) g[j] = R::add(R::mul(l, a.k1), R::mul(e, S2));
@@ -448,7 +464,7 @@ __device__ __forceinline__ float u_chain(const float (&x)[K], const Owned<E, D, 
   static_assert(kSeparable<E> || G == 1, "a coupled chain's energy on one lane");
   if constexpr (kSeparable<E>) {
     float s = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j)
       if (P.own(j)) s = R::add(s, u_term<E, R>(x[j], P.p[j], a));
     return u_separable<E, G, R>(s, grp);
@@ -465,7 +481,7 @@ template <int E, int D, int K, class R = Fused>
 __device__ __forceinline__ float halfsq_own(const float (&v)[K], const Owned<E, D, K>& P,
                                             const float* mass) {
   float s = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     const float vv = R::mul(v[j], v[j]);
     if (P.own(j)) s = R::add(s, mass ? R::mul(vv, P.im[j]) : vv);
@@ -494,17 +510,17 @@ __device__ __forceinline__ void stage(float (&x)[D], float (&v)[D], float (&g)[D
                                       const Owned<E, D, D>& P, const float* mass, float c_open,
                                       float c_drift, float c_close, const Args& a) {
   if constexpr (kSeparable<E>) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
     for (int i = 0; i < D; ++i)
       stage1<E, OPEN>(x[i], v[i], g[i], P.p[i], inv_mass(mass, i), c_open, c_drift, c_close, a);
   } else {
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
     for (int i = 0; i < D; ++i) {
       if (OPEN) v[i] = v[i] - c_open * g[i];
       x[i] = x[i] + c_drift * (inv_mass(mass, i) * v[i]);
     }
     grad_u<E, D, D, 1>(x, g, P, Group<1>(), a);
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
     for (int i = 0; i < D; ++i) v[i] = v[i] - c_close * g[i];
   }
 }
@@ -519,7 +535,7 @@ __device__ __forceinline__ void integrate(float (&x)[D], float (&v)[D], float (&
     const float cb = kTwoStageB * eps, cm = kTwoStageMid * eps;
     for (int k = 0; k < a.m; ++k) {
       if constexpr (kSeparable<E>) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
         for (int i = 0; i < D; ++i) {
           const float im = inv_mass(mass, i);
           stage1<E, true>(x[i], v[i], g[i], P.p[i], im, cb, he, cm, a);
@@ -590,12 +606,30 @@ enum ControlPhase { kCoDraw = 0, kCoTrajectory, kCoEnergy, kCoAccept, kCoOther, 
 // over 4 lanes took 1.1-2.5x; PERF.md §6). MJHMC and control keep one
 // thread a chain at D <= 2 (the rough well's 10,000-102,400 chains fill the
 // card; a lane's dims are independent dependent chains that interleave).
+// At any other D the same rule by dims a lane: a separable energy's dims go
+// to the fewest lanes that hold at most kLaneDims each (MALT's to two at
+// least); the funnel's and eight schools' MALT dims likewise, four lanes at
+// least; the banana and the mixture, whose gradient runs on one lane
+// (grad_u), keep MALT on one lane; a coupled energy's MJHMC takes its two
+// trajectories on 2 lanes and control's whole mode 8 lanes from D 10.
 // ops/cuda_mjhmc.py (ew_lanes) mirrors this.
+constexpr int kLaneDims = 7;  // the presets' D 50 over 8 lanes
+// the fewest lanes, a power of two up to a warp, that hold at most `most`
+// of d dims each
+__host__ __device__ constexpr int lanes_for(int d, int most) {
+  int g = 1;
+  while (g < 32 && (d + g - 1) / g > most) g *= 2;
+  return g;
+}
 __host__ __device__ constexpr int ew_lanes(int variant, int d, int energy) {
   const bool separable = energy == kRoughWell || energy == kGaussian;
-  if (variant == kMjhmc) return separable ? (d >= 50 ? 8 : 1) : (d >= 10 ? 2 : 1);
+  const bool grouped =
+      energy == kFunnel || energy == kEightSchoolsCentered || energy == kEightSchoolsNoncentered;
+  const int g = lanes_for(d, kLaneDims);
+  if (separable) return variant == kMalt && d >= 2 && g < 2 ? 2 : g;
+  if (variant == kMjhmc) return d >= 10 ? 2 : 1;
   if (variant == kControl) return d >= 10 ? 8 : 1;
-  return d >= 50 ? 8 : d >= 10 ? 4 : separable && d >= 2 ? 2 : 1;
+  return grouped && d >= 10 ? (g < 4 ? 4 : g) : 1;
 }
 // Threads a block of the MJHMC, control and MALT bodies for n chains of `lanes`
 // lanes on a card of sms SMs: the fewest, a power of two from the group up to
@@ -639,13 +673,13 @@ __device__ __forceinline__ float stage_group(float (&x)[K], float (&v)[K], float
                                              const Owned<E, D, K>& P, const Group<G>& grp,
                                              float c_open, float c_drift, float c_close,
                                              const Args& a) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     if (OPEN) v[j] = v[j] - c_open * g[j];
     x[j] = x[j] + c_drift * (P.im[j] * v[j]);
   }
   const float u = grad_u<E, D, K, G>(x, g, P, grp, a);
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) v[j] = v[j] - c_close * g[j];
   return u;
 }
@@ -661,7 +695,7 @@ __device__ __forceinline__ float integrate_group(float (&x)[K], float (&v)[K], f
     const float eps = a.eps, he = 0.5f * a.eps;
     const float cb = kTwoStageB * eps, cm = kTwoStageMid * eps;
     for (int k = 0; k < a.m; ++k) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         if (two_stage) {
           stage1<E, true>(x[j], v[j], g[j], P.p[j], P.im[j], cb, he, cm, a);
@@ -690,15 +724,15 @@ __device__ __forceinline__ void mjhmc_word_runs(const Args& a, uint32_t c, uint3
   constexpr int kSpan = (K + 6) / 4;
   const int sa = wa >> 2, sb = wb >> 2;
   uint4 ba[kSpan], bb[kSpan];
-#pragma unroll
+MJHMC_UNROLL_DIMS(kSpan)
   for (int b = 0; b < kSpan; ++b) {
     ba[b] = philox4x32_10(make_uint4(c, t, sa + b, kTagMjhmc), key);
     bb[b] = philox4x32_10(make_uint4(c, t, sb + b, kTagMjhmc), key);
   }
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     uint32_t xa = 0u, xb = 0u;
-#pragma unroll
+MJHMC_UNROLL_DIMS(kSpan)
     for (int b = 0; b < kSpan; ++b) {
       if (((wa + j) >> 2) == sa + b) xa = word_of(ba[b], wa + j);
       if (((wb + j) >> 2) == sb + b) xb = word_of(bb[b], wb + j);
@@ -746,7 +780,7 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
   auto writes = [&](int j) { return kTraj ? j % G == grp.rank : P.own(j); };
 
   float x[K], v[K], g[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     const int i = P.i0 + j;
     x[j] = P.own(j) ? a.x[i * n + c] : 0.f;
@@ -757,7 +791,7 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
 
   float w = 0.f, wc = 0.f;
   float wx[K], wxc[K], wx2[K], wx2c[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) wx[j] = wxc[j] = wx2[j] = wx2c[j] = 0.f;
   int evals = 0;
 
@@ -778,7 +812,7 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
     float xf[K], vf[K], gf[K];
     float uf, h_l, h_b = h_back;
     if constexpr (kTraj) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         xf[j] = x[j];
         vf[j] = grp.rank == 0 ? v[j] : -v[j];
@@ -795,7 +829,7 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
       if (valid <= 0.5f) h_b = hb;
     } else {
       float xb[K], vb[K], gb[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         xf[j] = xb[j] = x[j];
         vf[j] = v[j];
@@ -811,7 +845,7 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
         ub_known = true;
       } else if constexpr (kSeparable<E>) {
         for (int k = 0; k < a.m; ++k) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
           for (int j = 0; j < K; ++j) {
             stage1<E, true>(xf[j], vf[j], gf[j], P.p[j], P.im[j], he, eps, he, a);
             stage1<E, true>(xb[j], vb[j], gb[j], P.p[j], P.im[j], he, eps, he, a);
@@ -854,14 +888,14 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
     // accumulators and emissions take the pre-transition x
     evals += valid > 0.5f ? m_cost : 2 * m_cost;
     kadd(w, wc, dwell);
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j) {
       kadd(wx[j], wxc[j], dwell * x[j]);
       kadd(wx2[j], wx2c[j], dwell * x[j] * x[j]);
     }
     if (EMIT && (t + 1) % a.thin == 0) {
       const size_t e = t / a.thin;
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j)
         if (writes(j)) a.xs[(e * D + P.i0 + j) * n + c] = x[j];
       if (grp.rank == 0) {
@@ -872,7 +906,7 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
     prof.mark(ewprof::kMjKahan);
 
     if (is_l) {  // a coupled chain's lane 1 takes lane 0's forward state
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         x[j] = kTraj ? grp.from(xf[j], 0) : xf[j];
         v[j] = kTraj ? grp.from(vf[j], 0) : vf[j];
@@ -881,7 +915,7 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
       u = uf;
       h_back = h_cur;
     } else if (is_f) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) v[j] = -v[j];
       h_back = h_l;
     } else {
@@ -901,10 +935,10 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
           return word_of(blk, k);
         };
         float rad[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
         for (int j = 0; j < K; ++j)
           rad[j] = sqrtf(-2.0f * logf(a.fixed_uniform ? 0x1p-25f : philox_uniform(word(1 + j))));
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
         for (int j = 0; j < K; ++j) {
           const float un = a.fixed_uniform ? 0x1p-25f : philox_uniform(word(1 + D + j));
           v[j] = rad[j] * cosf(kTwoPi * un) * P.sm[j];
@@ -916,12 +950,12 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
         const int i0 = grp.rank * H;
         float u1[H], u2[H], vr[H];
         mjhmc_word_runs<H>(a, c, t, 1 + i0, 1 + D + i0, key, u1, u2);
-#pragma unroll
+MJHMC_UNROLL_DIMS(H)
         for (int h = 0; h < H; ++h) {
           const float sm = mass && i0 + h < D ? __ldg(mass + D + i0 + h) : 1.f;
           vr[h] = sqrtf(-2.0f * logf(u1[h])) * cosf(kTwoPi * u2[h]) * sm;
         }
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
         for (int j = 0; j < K; ++j)
           v[j] = kTraj ? grp.from(vr[j % H], j / H) : P.own(j) ? vr[j] : 0.f;
       }
@@ -931,7 +965,7 @@ __global__ void __launch_bounds__(kThreads) mjhmc_kernel(Args a) {
     prof.mark(ewprof::kMjOther);
   }
 
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     if (!writes(j)) continue;
     const int i = P.i0 + j;
@@ -1109,7 +1143,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
   // ((row a − row b)·w)·M^-1 summed over dims, w a row or the frame
   auto proj_rows = [&](int ra, int rb, int rw) {
     float s = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
     for (int d = 0; d < D; ++d)
       s = Rn::add(s, mass_mul<Rn>(Rn::mul(Rn::sub(row(ra, d), row(rb, d)), row(rw, d)), mass, d));
     return s;
@@ -1117,7 +1151,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
 
   const Owned<E, D, D> P(a, 0, mass);
   float xc[D], vc[D], gc[D];  // the integration frame: the current leaf
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
   for (int i = 0; i < D; ++i) {
     row(kX, i) = a.x[i * n + c];
     row(kG, i) = a.g[i * n + c];
@@ -1160,13 +1194,13 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
     const float lw_new = logaddexp(log_w_sub, lw_leaf);
     const bool take = live_leaf && !div && lu < Rn::sub(lw_leaf, lw_new);
     if constexpr (kOnChip) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
       for (int d = 0; d < D; ++d) {
         xs[d] = take ? x(d) : xs[d];
         gs[d] = take ? g(d) : gs[d];
       }
     } else if (take) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
       for (int d = 0; d < D; ++d) {
         row(kXS, d) = x(d);
         row(kGS, d) = g(d);
@@ -1191,7 +1225,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
     right = uniform(a, rr.x) < 0.5f;
     lu_merge = logf(uniform(a, rr.y));
     const int rx = right ? kXP : kXM, rv = right ? kVP : kVM, rg = right ? kGP : kGM;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
     for (int d = 0; d < D; ++d) {
       xc[d] = row(rx, d);
       vc[d] = right ? row(rv, d) : -row(rv, d);
@@ -1208,7 +1242,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
   // h0, a tree of one point and its first round
   auto open_iteration = [&] {
     constexpr int kBlocks = (2 * D + 3) / 4;
-#pragma unroll
+MJHMC_UNROLL_DIMS(kBlocks)
     for (int b = 0; b < kBlocks; ++b) {
       const uint4 r = philox4x32_10(make_uint4(c, t, b, kTagNutsMomentum), key);
 #pragma unroll
@@ -1220,7 +1254,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
       }
     }
     float s = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
     for (int d = 0; d < D; ++d) {
       float v0 = row(kV0, d);
       if (MASS) row(kV0, d) = v0 = Rn::mul(v0, sqrt_mass<D>(mass, d));
@@ -1256,7 +1290,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
       if (state == kRun) {
         // ---- leaf i of round jj: one leapfrog step
         if constexpr (kSeparable<E>) {  // dim by dim
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
           for (int d = 0; d < D; ++d) {
             const float vh = Rn::sub(vc[d], Rn::mul(he, gc[d]));
             xc[d] = Rn::add(xc[d], Rn::mul(eps, mass_mul<Rn>(vh, mass, d)));
@@ -1265,13 +1299,13 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
           }
         } else {  // or as a vector step
           float vh[D];
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
           for (int d = 0; d < D; ++d) {
             vh[d] = Rn::sub(vc[d], Rn::mul(he, gc[d]));
             xc[d] = Rn::add(xc[d], Rn::mul(eps, mass_mul<Rn>(vh[d], mass, d)));
           }
           grad_u<E, D, D, 1, Rn>(xc, gc, P, Group<1>(), a);
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
           for (int d = 0; d < D; ++d) vc[d] = Rn::sub(vh[d], Rn::mul(he, gc[d]));
         }
         prof.mark(kPhKickDrift);
@@ -1294,7 +1328,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
         if constexpr (kOnChip) {
           pend = true;
           p_dh = dh, p_div = div, p_ul = ul, p_lu = lu;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
           for (int d = 0; d < D; ++d) px[d] = xc[d], pg[d] = gc[d];
         } else {
           settle(true, dh, div, ul, lu, [&](int d) { return xc[d]; }, [&](int d) { return gc[d]; });
@@ -1307,7 +1341,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
         const int npush = min(jj, i == 0 ? jj : __ffs(i) - 1);
         for (int mm = 1; mm <= npush; ++mm) {
           const int sx = kStack + 2 * (mm - 1);
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
           for (int d = 0; d < D; ++d) {
             row(sx, d) = xc[d];
             row(sx + 1, d) = vc[d];
@@ -1318,7 +1352,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
         for (int mm = 1; mm <= ncheck; ++mm) {
           const int sx = kStack + 2 * (mm - 1);
           float p_old = 0.f, p_new = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
           for (int d = 0; d < D; ++d) {
             const float dx = Rn::sub(xc[d], row(sx, d));
             p_old = Rn::add(p_old, mass_mul<Rn>(Rn::mul(dx, row(sx + 1, d)), mass, d));
@@ -1337,7 +1371,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
             settle_pending();
             // biased progressive merge of the completed subtree
             if (lu_merge < Rn::sub(log_w_sub, log_w_tree)) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
               for (int d = 0; d < D; ++d) {
                 row(kX, d) = prop_x(d);
                 row(kG, d) = prop_g(d);
@@ -1348,7 +1382,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
             // extend the tree (back to the trajectory frame), then the U-turn
             // test between its endpoints
             const int rx = right ? kXP : kXM, rv = right ? kVP : kVM, rg = right ? kGP : kGM;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
             for (int d = 0; d < D; ++d) {
               row(rx, d) = xc[d];
               row(rv, d) = right ? vc[d] : -vc[d];
@@ -1376,7 +1410,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
       if (state == kTreeDone) {
         evals += nl;
         kadd(w, wc, 1.f);
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
         for (int d = 0; d < D; ++d) {
           const float x = row(kX, d);
           kadd(row(kWX, d), row(kWXC, d), x);
@@ -1384,7 +1418,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
         }
         if (EMIT && (t + 1) % a.thin == 0) {
           const size_t e = t / a.thin;
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
           for (int d = 0; d < D; ++d) a.xs[(e * D + d) * n + c] = row(kX, d);
           a.ws[e * n + c] = 1.f;
           a.es[e * n + c] = evals;
@@ -1400,7 +1434,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) nuts_kernel(Args a) {
     prof.mark(kPhIdle);
   }
 
-#pragma unroll
+MJHMC_UNROLL_DIMS(D)
   for (int d = 0; d < D; ++d) {
     a.xo[d * n + c] = row(kX, d);
     a.vo[d * n + c] = row(kV0, d);
@@ -1489,9 +1523,10 @@ __device__ __forceinline__ float accept_prob(float log_ratio, bool ok) {
 // pairs its dims reach, so a pair that straddles two lanes (7 dims a lane at
 // D 50) is drawn by both, and the words never depend on the grouping. The
 // Metropolis uniform is word 2·ceil(D/2): the pairs' last block holds it
-// where they leave a free word (every D the kernel has); its owner is the
-// lane of dim D − 1. In fixed-uniform mode every normal is the cosine branch
-// of u1 = u2 = 2⁻²⁵ and mh 2⁻²⁵.
+// where they leave a free word (an odd number of pairs; its owner is the
+// lane of dim D − 1, which draws that block), else it is word 0 of a block
+// of its own, which every lane draws. In fixed-uniform mode every normal is
+// the cosine branch of u1 = u2 = 2⁻²⁵ and mh 2⁻²⁵.
 template <int D, int K, int G>
 __device__ __forceinline__ void control_draw(const Args& a, uint32_t c, uint32_t t, int i0,
                                              const Group<G>& grp, uint2 key, float (&z)[K],
@@ -1504,13 +1539,13 @@ __device__ __forceinline__ void control_draw(const Args& a, uint32_t c, uint32_t
   const int p0 = i0 >> 1, s0 = p0 >> 1;
   const bool po = p0 & 1;  // pair p0 in its block's upper half
   uint32_t w[4 * kSpan];
-#pragma unroll
+MJHMC_UNROLL_DIMS(kSpan)
   for (int b = 0; b < kSpan; ++b) {
     const uint4 r = philox4x32_10(make_uint4(c, t, s0 + b, kTagControlPairs), key);
     w[4 * b] = r.x, w[4 * b + 1] = r.y, w[4 * b + 2] = r.z, w[4 * b + 3] = r.w;
   }
   float zc[NQ], zs[NQ];  // pair p0 + q's cosine and sine branches
-#pragma unroll
+MJHMC_UNROLL_DIMS(NQ)
   for (int q = 0; q < NQ; ++q) {
     const uint32_t w1 = po ? w[2 * q + 2] : w[2 * q], w2 = po ? w[2 * q + 3] : w[2 * q + 1];
     const float u1 = a.fixed_uniform ? 0x1p-25f : philox_uniform(w1);
@@ -1521,7 +1556,7 @@ __device__ __forceinline__ void control_draw(const Args& a, uint32_t c, uint32_t
     zc[q] = rad * cs;
     zs[q] = a.fixed_uniform ? zc[q] : rad * sn;
   }
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     // i0 even: pair j / 2, branch j % 2; odd (dim i0 a sine): pair
     // (j + 1) / 2, branch (j + 1) % 2
@@ -1531,7 +1566,7 @@ __device__ __forceinline__ void control_draw(const Args& a, uint32_t c, uint32_t
   }
   uint32_t wm = 0u;
   if constexpr (kMhWord % 4 != 0) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(kSpan)
     for (int b = 0; b < kSpan; ++b)
       if ((kMhWord >> 2) == s0 + b) wm = w[4 * b + (kMhWord & 3)];
   } else {
@@ -1544,16 +1579,19 @@ __device__ __forceinline__ void control_draw(const Args& a, uint32_t c, uint32_t
 // (control_kernel's whole mode; G = 1: a chain on one lane): lane r draws
 // pairs r, r + G, ... (a Philox block and both branches each), and each dim
 // takes its normal from its pair's lane; the Metropolis uniform comes from
-// the lane of the last pair, whose block holds it. The words are
-// control_draw's.
+// the lane of the last pair, whose block holds it where the pairs are odd in
+// number, else from the lane that would draw pair kPairs, which draws the
+// uniform's block of its own. The words are control_draw's.
 template <int D, int G>
 __device__ __forceinline__ void control_draw_whole(const Args& a, uint32_t c, uint32_t t,
                                                    const Group<G>& grp, uint2 key,
                                                    float (&z)[D], float& mh) {
   constexpr int kPairs = (D + 1) / 2, NQ = (kPairs + G - 1) / G;
-  static_assert(kPairs % 2 == 1, "the last pair's block holds the Metropolis uniform");
+  // an even number of pairs fills the last block: the uniform (word
+  // 2·kPairs) is word 0 of the next
+  constexpr bool kOwnBlock = kPairs % 2 == 0;
   float zc[NQ], zs[NQ], mh_mine = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(NQ)
   for (int q = 0; q < NQ; ++q) {
     const int p = grp.rank + q * G;
     const uint4 r = philox4x32_10(make_uint4(c, t, p >> 1, kTagControlPairs), key);
@@ -1565,14 +1603,21 @@ __device__ __forceinline__ void control_draw_whole(const Args& a, uint32_t c, ui
     zc[q] = rad * cs;
     zs[q] = a.fixed_uniform ? zc[q] : rad * sn;
     // the last pair (even) is words 0-1 of its block, the uniform word 2
-    if (q == (kPairs - 1) / G) mh_mine = a.fixed_uniform ? 0x1p-25f : philox_uniform(r.z);
+    if (!kOwnBlock && q == (kPairs - 1) / G)
+      mh_mine = a.fixed_uniform ? 0x1p-25f : philox_uniform(r.z);
   }
-#pragma unroll
+  if constexpr (kOwnBlock) {
+    if (grp.rank == kPairs % G)
+      mh_mine = a.fixed_uniform ? 0x1p-25f
+                                : philox_uniform(philox4x32_10(
+                                      make_uint4(c, t, kPairs >> 1, kTagControlPairs), key).x);
+  }
+MJHMC_UNROLL_DIMS(D)
   for (int i = 0; i < D; ++i) {
     const int pair = i / 2;
     z[i] = grp.from(i & 1 ? zs[pair / G] : zc[pair / G], pair % G);
   }
-  mh = grp.from(mh_mine, (kPairs - 1) % G);
+  mh = grp.from(mh_mine, (kOwnBlock ? kPairs : kPairs - 1) % G);
 }
 
 // Control's trajectory on the lane's dims: M leapfrog or two-stage steps
@@ -1592,20 +1637,20 @@ __device__ __forceinline__ float control_trajectory(float (&x)[K], float (&v)[K]
   if constexpr (kSeparable<E>) {
     float s = 0.f;
     if (m == 0) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j)
         if (P.own(j)) s = s + u_term<E>(x[j], P.p[j], a);
       return s;
     }
     if (two_stage) {
       for (int k = 0; k + 1 < m; ++k) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
         for (int j = 0; j < K; ++j) {
           stage1<E, true>(x[j], v[j], g[j], P.p[j], P.im[j], cb, he, cm, a);
           stage1<E, false>(x[j], v[j], g[j], P.p[j], P.im[j], 0.f, he, cb, a);
         }
       }
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         stage1<E, true>(x[j], v[j], g[j], P.p[j], P.im[j], cb, he, cm, a);
         const float term =
@@ -1614,11 +1659,11 @@ __device__ __forceinline__ float control_trajectory(float (&x)[K], float (&v)[K]
       }
     } else {
       for (int k = 0; k + 1 < m; ++k) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
         for (int j = 0; j < K; ++j)
           stage1<E, true>(x[j], v[j], g[j], P.p[j], P.im[j], he, eps, he, a);
       }
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         const float term = stage1_u<E>(x[j], v[j], g[j], P.p[j], P.im[j], he, eps, he, a);
         if (P.own(j)) s = s + term;
@@ -1680,7 +1725,7 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
   prof.start();
 
   float x[K], v[K], g[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     const int i = P.i0 + j;
     x[j] = P.own(j) ? a.x[i * n + c] : 0.f;
@@ -1691,7 +1736,7 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
 
   float w = 0.f, wc = 0.f;
   float wx[K], wxc[K], wx2[K], wx2c[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) wx[j] = wxc[j] = wx2[j] = wx2c[j] = 0.f;
   int evals = 0;
 
@@ -1704,7 +1749,7 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
   for (int t = 0; t < a.num_iters; ++t) {
     prof.mark(ewprof::kCoOther);
     // partial corruption with xi ~ N(0, M)
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j) v[j] = sb1 * v[j] + sb * (xi[j] * P.sm[j]);
     const float h0 = u + tg.sum(halfsq_own(v, P, mass));
     const float mh_t = mh;
@@ -1712,7 +1757,7 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
     prof.mark(ewprof::kCoDraw);
 
     float xf[K], vf[K], gf[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j) xf[j] = x[j], vf[j] = v[j], gf[j] = g[j];
     float uf = control_trajectory<D, E, K, GT>(xf, vf, gf, P, tg, a, two_stage);
     prof.mark(ewprof::kCoTrajectory);
@@ -1722,25 +1767,25 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
 
     const bool ok = fabsf(h_l) < 1e30f && h_l == h_l;  // divergence rejects
     if (mh_t < accept_prob(h0 - h_l, ok)) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) x[j] = xf[j], v[j] = vf[j], g[j] = gf[j];
       u = uf;
     } else {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) v[j] = -v[j];  // flip on reject
     }
 
     // the post-transition x, weight 1
     evals += m_cost;
     kadd(w, wc, 1.f);
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j) {
       kadd(wx[j], wxc[j], x[j]);
       kadd(wx2[j], wx2c[j], x[j] * x[j]);
     }
     if (a.xs && (t + 1) % a.thin == 0) {
       const size_t e = t / a.thin;
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j)
         if (writes(j)) a.xs[(e * D + P.i0 + j) * n + c] = x[j];
       if (grp.rank == 0) {
@@ -1751,7 +1796,7 @@ __global__ void __launch_bounds__(kThreads) control_kernel(Args a) {
     prof.mark(ewprof::kCoAccept);
   }
 
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     if (!writes(j)) continue;
     const int i = P.i0 + j;
@@ -1824,7 +1869,7 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
   // v holds the fresh momentum v0 during an iteration and the kept
   // momentum (vl on accept, -v0 on reject) after it
   float x[K], v[K], g[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     const int i = P.i0 + j;
     x[j] = P.own(j) ? a.x[i * n + c] : 0.f;
@@ -1835,14 +1880,14 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
   // a separable energy: U's terms of the lane's dims at x
   float u_mine = 0.f;
   if constexpr (kSeparable<E>) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j)
       if (P.own(j)) u_mine = u_mine + u_term<E>(x[j], P.p[j], a);
   }
 
   float w = 0.f, wc = 0.f;
   float wx[K], wxc[K], wx2[K], wx2c[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) wx[j] = wxc[j] = wx2[j] = wx2c[j] = 0.f;
   int evals = 0;
 
@@ -1857,7 +1902,7 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
   for (int t = 0; t < a.num_iters; ++t) {
     prof.mark(ewprof::kMaOther);
     // v0 ~ N(0, M): pair M's cosine branch; the Metropolis uniform
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j) {
       float z[4];
       if (P.own(j)) malt_normals4(a, c, t, (P.i0 + j) * nb + m / 2, key, z);
@@ -1869,7 +1914,7 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
     prof.mark(ewprof::kMaRefresh);
 
     float xl[K], vl[K], gl[K];
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j) xl[j] = x[j], vl[j] = v[j], gl[j] = g[j];
     float ul = u, delta = 0.f;
     // a separable energy: Δ's share of the lane's dims, Σ over the steps of
@@ -1880,12 +1925,12 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
     // one OBABO step from the normals z1 (first O) and z2 (second O) of each
     // owned dim
     auto step = [&](const float (&z1)[K], const float (&z2)[K]) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) vl[j] = eta * vl[j] + sig * (z1[j] * P.sm[j]);  // O
       if constexpr (kSeparable<E>) {  // BAB, U's terms beside the forces
         const float k_in = halfsq_own(vl, P, mass);
         float s = 0.f;
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
         for (int j = 0; j < K; ++j) {
           const float term = stage1_u<E>(xl[j], vl[j], gl[j], P.p[j], P.im[j], he, eps, he, a);
           if (P.own(j)) s = s + term;
@@ -1900,12 +1945,12 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
         delta = delta + (ul + grp.sum(halfsq_own(vl, P, mass)) - h_in);
       }
       prof.mark(ewprof::kMaEnergy);
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) vl[j] = eta * vl[j] + sig * (z2[j] * P.sm[j]);  // O
     };
     // a block of each owned dim's pairs k and k + 1
     auto draw = [&](int k, float (&za)[K], float (&zb)[K], float (&zc)[K], float (&zd)[K]) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) {
         float z[4] = {0.f, 0.f, 0.f, 0.f};
         if (P.own(j)) malt_normals4(a, c, t, (P.i0 + j) * nb + k / 2, key, z);
@@ -1934,25 +1979,25 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
     const bool ok = fabsf(delta) < 1e30f && delta == delta;  // divergence rejects
     const bool acc = mh < accept_prob(-delta, ok);
     if (acc) {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) x[j] = xl[j], v[j] = vl[j], g[j] = gl[j];
       u = ul;
       u_mine = ul_mine;
     } else {
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j) v[j] = -v[j];
     }
 
     evals += m;
     kadd(w, wc, 1.f);
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
     for (int j = 0; j < K; ++j) {
       kadd(wx[j], wxc[j], x[j]);
       kadd(wx2[j], wx2c[j], x[j] * x[j]);
     }
     if (a.xs && (t + 1) % a.thin == 0) {
       const size_t e = t / a.thin;
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
       for (int j = 0; j < K; ++j)
         if (P.own(j)) a.xs[(e * D + P.i0 + j) * n + c] = x[j];
       if (grp.rank == 0) {
@@ -1963,7 +2008,7 @@ __global__ void __launch_bounds__(kThreads) malt_kernel(Args a) {
     prof.mark(ewprof::kMaAccept);
   }
 
-#pragma unroll
+MJHMC_UNROLL_DIMS(K)
   for (int j = 0; j < K; ++j) {
     if (!P.own(j)) continue;
     const int i = P.i0 + j;

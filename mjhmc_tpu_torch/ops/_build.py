@@ -10,6 +10,14 @@ symbols. The compiler's report and each source's wall time go to the
 build's ``.log``. It is built at first use into ``build/mjhmc_tpu_torch/``
 beside the package, under a name keyed by a hash of the sources and flags,
 so an edited source builds anew and an unchanged one is reused.
+
+The library holds the elementwise engine at the presets' D only
+(``cuda_mjhmc.KERNEL_DIMS``). Any other (body, energy, D) is compiled on
+demand, as a Pallas kernel is traced at the shape it is called at:
+``load_instance`` compiles ``csrc/ondemand/ew_instance.cu`` with the same
+flags and the instance's ``-D`` macros into a library of its own beside the
+main one, keyed by a hash of that source, the headers, the flags and the
+macros, with its compiler report in a ``.log`` beside it.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -136,6 +145,101 @@ def build() -> Path:
 def build_log() -> str:
     """The compiler's report of the current build."""
     return library_path().with_suffix(".log").read_text()
+
+
+#: the on-demand instance's source and the names of its macros' values
+ONDEMAND_SOURCE = CSRC / "ondemand" / "ew_instance.cu"
+HEADERS = tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
+VARIANT_NAMES = ("mjhmc", "nuts", "control", "malt")
+ENERGY_NAMES = ("rough_well", "gaussian", "funnel", "banana", "mog", "eight_schools",
+                "eight_schools_nc")
+#: argument types of an on-demand instance's entries (ondemand/ew_instance.cu)
+ONDEMAND_ARGTYPES = {"mjhmc_od_launch": LAUNCH_ARGTYPES, "mjhmc_od_ew_tile": EW_TILE_ARGTYPES,
+                     "mjhmc_od_nuts_tile": NUTS_TILE_ARGTYPES}
+
+
+def instance_macros(variant: int, energy: int, ndims: int, mog_cap: int) -> tuple:
+    """The ``-D`` macros of the on-demand instance of step body ``variant``
+    on energy ``energy`` (the kernel's ids) at ``ndims`` dims, mixtures of
+    at most ``mog_cap`` components."""
+    return (f"-DMJHMC_OD_VARIANT={variant}", f"-DMJHMC_OD_ENERGY={energy}",
+            f"-DMJHMC_OD_DIMS={ndims}", f"-DMJHMC_MOG_MAX_COMPONENTS={mog_cap}")
+
+
+def instance_path(variant: int, energy: int, ndims: int, mog_cap: int) -> Path:
+    """Where the on-demand instance's library lives: named by its body,
+    energy, D and cap, keyed by a hash of its source, the headers, the
+    flags and the macros."""
+    macros = instance_macros(variant, energy, ndims, mog_cap)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + macros).encode())
+    h.update(ONDEMAND_SOURCE.read_bytes())
+    for name in HEADERS:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / (f"libmjhmc_ew_{VARIANT_NAMES[variant]}_{ENERGY_NAMES[energy]}_d{ndims}"
+                        f"_k{mog_cap}_{h.hexdigest()[:16]}.so")
+
+
+def instance_command(variant: int, energy: int, ndims: int, mog_cap: int, out: Path) -> list:
+    """The one nvcc that compiles and links the on-demand instance into
+    ``out``, refusing undefined symbols."""
+    return [_nvcc(), *NVCC_FLAGS, *instance_macros(variant, energy, ndims, mog_cap), "-shared",
+            "-Xlinker", "--no-undefined", "-o", str(out), str(ONDEMAND_SOURCE)]
+
+
+_INSTANCE_LOCKS: dict = {}
+_LOCKS_GUARD = threading.Lock()
+
+
+def build_instance(variant: int, energy: int, ndims: int,
+                   mog_cap: int) -> tuple[Path, float | None]:
+    """Compile the on-demand instance unless it is built; one build of a
+    key at a time in a process. Returns (the library, the seconds nvcc took
+    in this call, or None where the library was built before and reused).
+    The compiler's report goes to the library's ``.log``; a failed nvcc
+    raises ``RuntimeError``."""
+    path = instance_path(variant, energy, ndims, mog_cap)
+    with _LOCKS_GUARD:
+        lock = _INSTANCE_LOCKS.setdefault(path, threading.Lock())
+    with lock:
+        if path.exists():
+            return path, None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(instance_command(variant, energy, ndims, mog_cap, tmp),
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr + f"nvcc {path.name}: {seconds:.1f} s\n"
+        path.with_suffix(".log").write_text(log)
+        if proc.returncode:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode} on the on-demand "
+                               f"instance {path.name}:\n{log}")
+        os.replace(tmp, path)
+    return path, seconds
+
+
+def instance_log(variant: int, energy: int, ndims: int, mog_cap: int) -> str:
+    """The compiler's report of an on-demand instance's build."""
+    return instance_path(variant, energy, ndims, mog_cap).with_suffix(".log").read_text()
+
+
+@functools.cache
+def load_instance(variant: int, energy: int, ndims: int, mog_cap: int) -> ctypes.CDLL:
+    """Build (first use) and load the on-demand instance of step body
+    ``variant`` on ``energy`` at ``ndims`` dims (mixtures of at most
+    ``mog_cap`` components); typed entries. A failed build or load raises
+    ``RuntimeError``."""
+    path, _ = build_instance(variant, energy, ndims, mog_cap)
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"loading the on-demand instance {path.name} failed: {e}") from e
+    for name, argtypes in ONDEMAND_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 @functools.cache

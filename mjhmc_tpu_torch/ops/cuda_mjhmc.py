@@ -27,7 +27,9 @@ others: post-transition with weight 1) and cumulative evals.
 There are two hand-written CUDA C++ kernels, built by ``ops._build``:
 ``csrc/mjhmc_engine.cuh`` for the elementwise energies (rough well,
 Gaussian, funnel, banana, Gaussian mixture, eight schools in both
-parameterizations; one thread per chain; C entry ``csrc/mjhmc_engine.cu``) and
+parameterizations; a chain on a group of lanes; C entry
+``csrc/mjhmc_engine.cu``; compiled ahead at the presets' D, any other D and
+mixture size at its first use from ``csrc/ondemand/ew_instance.cu``) and
 ``csrc/mjhmc_mm_engine.cuh`` for the matmul energies (product of t, sparse
 coding, logistic regression; tiles of chains per block, the parameter
 matrix in shared memory; contractions at the spec's dot ``precision``, full
@@ -240,7 +242,9 @@ class BananaSpec:
                 + 0.5 * _sum_dims_in_order(tail * tail))
 
 
-#: most mixture components the elementwise kernel takes (csrc/mjhmc_engine.cuh)
+#: most mixture components of the elementwise library's mixture instances
+#: (csrc/mjhmc_engine.cuh, kMogMaxComponents); a mixture of more runs on an
+#: on-demand instance compiled for its own count (``mog_cap``)
 MOG_MAX_COMPONENTS = 8
 
 
@@ -559,9 +563,10 @@ class LogregSpec:
 ELEMENTWISE_SPECS = (RoughWellSpec, GaussianSpec, FunnelSpec, BananaSpec, MogSpec,
                      EightSchoolsSpec)
 MATMUL_SPECS = (ProductOfTSpec, SparseCodingSpec, LogregSpec)
-#: state dimensions the elementwise kernel is instantiated for, per spec
+#: state dimensions the elementwise library is compiled ahead for, per spec
 #: (csrc/mjhmc_engine.cu and the *_d50*.cu and zoo_*.cu sources): the
-#: presets' D
+#: presets' D. Every other D runs on an instance compiled at first use
+#: (``_build.load_instance``, ``ew_library``)
 KERNEL_DIMS = {RoughWellSpec: (2, 50), GaussianSpec: (2, 50), FunnelSpec: (10,),
                BananaSpec: (2,), MogSpec: (1,), EightSchoolsSpec: (10,)}
 #: (ndims, aux rows) the matmul kernel is instantiated for, per spec
@@ -620,19 +625,54 @@ def energy_spec_for(dist):
 
 
 def check_kernel_dims(spec, ndims: int) -> None:
-    """Refuse an elementwise spec at a D the kernel has no instance for
-    (``KERNEL_DIMS``), or a mixture with more components than it holds."""
-    dims = KERNEL_DIMS[type(spec)]
-    if ndims not in dims:
-        raise NotImplementedError(
-            f"the elementwise kernel is instantiated for {type(spec).__name__} at "
-            f"ndims in {dims} (cuda_mjhmc.KERNEL_DIMS), not {ndims} (ROADMAP.md, "
-            "'TPU kernels to port': other shapes of the ported kernels)"
-        )
-    if isinstance(spec, MogSpec) and not 1 <= len(spec.scales) <= MOG_MAX_COMPONENTS:
-        raise NotImplementedError(
-            f"the elementwise kernel holds mixtures of 1..{MOG_MAX_COMPONENTS} "
-            f"components, not {len(spec.scales)}")
+    """Refuse what the JAX engine cannot run either: a state without dims,
+    a state of other dims than the spec's, a mixture without components.
+    Every D and every mixture size has an instance: the library's at
+    ``KERNEL_DIMS`` (mixtures of at most ``MOG_MAX_COMPONENTS``), else one
+    compiled on demand."""
+    # the dims the spec is built for (the rough well takes any)
+    own = len(spec.precisions) if isinstance(spec, GaussianSpec) else getattr(spec, "ndims", None)
+    if ndims < 1 or (own is not None and own != ndims):
+        raise ValueError(f"{type(spec).__name__} is built for {own} dims; the state has {ndims}")
+    if isinstance(spec, MogSpec) and not spec.scales:
+        raise ValueError("a mixture needs at least one component")
+
+
+def mog_cap(spec) -> int:
+    """The component cap of the instance that runs ``spec``: the library's
+    (``MOG_MAX_COMPONENTS``), or a mixture's own count where that is more."""
+    return max(MOG_MAX_COMPONENTS, len(spec.scales)) if isinstance(spec, MogSpec) else \
+        MOG_MAX_COMPONENTS
+
+
+def compiled_ahead(spec, ndims: int) -> bool:
+    """Whether the elementwise library has the instance of ``spec`` at
+    ``ndims`` (``KERNEL_DIMS``, and mixtures of at most
+    ``MOG_MAX_COMPONENTS``); else it is compiled on demand."""
+    return ndims in KERNEL_DIMS[type(spec)] and mog_cap(spec) == MOG_MAX_COMPONENTS
+
+
+class EwEntries(NamedTuple):
+    """The C entries that serve one elementwise (body, spec, D): the
+    library's, or an on-demand instance's."""
+
+    launch: object
+    ew_tile: object
+    nuts_tile: object
+
+
+def ew_library(variant: str, spec, ndims: int) -> EwEntries:
+    """The entries of the instance that runs ``variant`` on ``spec`` at
+    ``ndims``: the library's where it was compiled ahead
+    (``compiled_ahead``), else the on-demand instance's, compiled at its
+    first use (``_build.load_instance``; a failed nvcc or load raises)."""
+    from mjhmc_tpu_torch.ops import _build
+
+    if compiled_ahead(spec, ndims):
+        lib = _build.load()
+        return EwEntries(lib.mjhmc_engine_launch, lib.mjhmc_ew_tile, lib.mjhmc_nuts_tile)
+    lib = _build.load_instance(KERNEL_VARIANTS[variant], spec.energy_id, ndims, mog_cap(spec))
+    return EwEntries(lib.mjhmc_od_launch, lib.mjhmc_od_ew_tile, lib.mjhmc_od_nuts_tile)
 
 
 def _check_slice(spec, variant, integrator, inv_mass, kinds):
@@ -1461,7 +1501,10 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     mass = _mass_tensor(inv_mass, d, x.device)
-    lib = _build.load()
+    if matmul or prof is not None:  # the PROF instances live in the library
+        lib = _build.load()
+    else:
+        entries = ew_library(variant, spec, d)
     out = RunOut(
         torch.empty_like(x), torch.empty_like(x), torch.empty_like(x),
         torch.empty_like(u), torch.empty_like(u), torch.empty_like(u),
@@ -1500,16 +1543,17 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     else:
         params = torch.as_tensor(spec.param_vector(d), device=x.device).contiguous()
         scratch = nuts_tree_scratch(d, m, n, x.device) if variant == "nuts" else None
-        fn, extra = lib.mjhmc_engine_launch, ()
         if prof is not None:
             fn = lib.mjhmc_nuts_profile if variant == "nuts" else lib.mjhmc_ew_profile
             extra = (prof.data_ptr(),)
+        else:
+            fn, extra = entries.launch, ()
         rc = fn(KERNEL_VARIANTS[variant], d, spec.energy_id, params.data_ptr(),
                 *spec.constants(), *branches, None if scratch is None else scratch.data_ptr(),
                 *ptrs, *tail, *extra)
     if rc != 0:
-        kernel = "mjhmc_mm_engine_launch" if matmul else "mjhmc_engine_launch"
-        raise RuntimeError(f"{kernel} (variant {variant}) failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn.__name__} (variant {variant}, {type(spec).__name__}, d={d}) "
+                           f"failed: CUDA error {rc}")
     return out, emits
 
 
@@ -1526,22 +1570,41 @@ NUTS_EW_PROF_PHASES = ("kick_drift_gradient", "energy_halfsq", "multinomial_draw
 EW_THREADS = 64
 
 
+#: dims a lane holds at most where a chain's dims go to a group of lanes
+#: (csrc/mjhmc_engine.cuh, kLaneDims): the presets' D 50 over 8 lanes
+LANE_DIMS = 7
+
+
+def lanes_for(d: int, most: int) -> int:
+    """The fewest lanes, a power of two up to a warp, that hold at most
+    ``most`` of ``d`` dims each (mirror of lanes_for)."""
+    g = 1
+    while g < 32 and -(-d // g) > most:
+        g *= 2
+    return g
+
+
 def ew_lanes(variant: str, spec, d: int) -> int:
     """Lanes a chain of the elementwise MJHMC, control or MALT body at ``d``
-    dims (mirror of ew_lanes in csrc/mjhmc_engine.cuh). MALT: its dims over
-    8 lanes at D 50, 4 at D 10, the rough well's and the Gaussian's over 2
-    at D 2, else one thread a chain. Control: 8 lanes from D 10 (the
-    separable energies' dims over them; a coupled energy's lanes each hold
-    every dim and the trajectory and split the corruption draw's pairs),
-    else one thread a chain. MJHMC: the rough well's and the Gaussian's dims
-    over 8 lanes at D 50; a coupled energy's two trajectories on 2 lanes at
-    D 10; else one thread a chain."""
+    dims (mirror of ew_lanes in csrc/mjhmc_engine.cuh). The rough well's and
+    the Gaussian's dims go to the fewest lanes that hold at most
+    ``LANE_DIMS`` each (one at D 2, 8 at D 50), MALT's to 2 at least from D
+    2. A coupled energy: MJHMC's two trajectories on 2 lanes from D 10;
+    control's whole mode (each lane every dim and the trajectory, the
+    corruption draw's pairs split) on 8 lanes from D 10; MALT's funnel and
+    eight schools dims over ``lanes_for(d, LANE_DIMS)`` lanes, 4 at least,
+    from D 10, the banana and the mixture on one lane (their gradient runs
+    on one); else one thread a chain."""
     separable = isinstance(spec, (RoughWellSpec, GaussianSpec))
+    g = lanes_for(d, LANE_DIMS)
+    if separable:
+        return 2 if variant == "malt" and d >= 2 and g < 2 else g
     if variant == "mjhmc":
-        return (8 if d >= 50 else 1) if separable else (2 if d >= 10 else 1)
+        return 2 if d >= 10 else 1
     if variant == "control":
         return 8 if d >= 10 else 1
-    return 8 if d >= 50 else 4 if d >= 10 else 2 if separable and d >= 2 else 1
+    grouped = isinstance(spec, (FunnelSpec, EightSchoolsSpec))
+    return max(4, g) if grouped and d >= 10 else 1
 
 
 def ew_threads(lanes: int, n: int, sms: int) -> int:
@@ -1558,13 +1621,13 @@ def ew_threads(lanes: int, n: int, sms: int) -> int:
 
 def ew_tile(variant: str, spec, d: int, n: int) -> tuple:
     """(lanes a chain, threads a block) of the elementwise MJHMC, control or
-    MALT body of ``spec`` at ``d`` dims for ``n`` chains, as the built
-    library reports them (``mjhmc_ew_tile``; ``ew_lanes`` and ``ew_threads``
-    mirror them)."""
-    from mjhmc_tpu_torch.ops import _build
-
+    MALT body of ``spec`` at ``d`` dims for ``n`` chains, as the instance
+    that runs it reports them (``mjhmc_ew_tile``, or an on-demand
+    instance's ``mjhmc_od_ew_tile``; ``ew_lanes`` and ``ew_threads`` mirror
+    them)."""
     out = (ctypes.c_int * 2)()
-    rc = _build.load().mjhmc_ew_tile(KERNEL_VARIANTS[variant], d, spec.energy_id, n, out)
+    rc = ew_library(variant, spec, d).ew_tile(KERNEL_VARIANTS[variant], d, spec.energy_id, n,
+                                              out)
     if rc != 0:
         raise RuntimeError(f"mjhmc_ew_tile: no grouping of {variant} (CUDA error {rc})")
     return tuple(out)
@@ -1591,12 +1654,11 @@ def nuts_tile(spec, d: int, max_depth: int, n: int, mass: bool = False) -> tuple
     """(threads, shared-memory bytes) of a block of the elementwise NUTS
     instance of ``spec`` at ``d`` dims, without a mass or with one, for
     ``n`` chains at ``max_depth``, and the blocks of it an SM holds at once,
-    as the built library reports them (``mjhmc_nuts_tile``; ``nuts_threads``
-    and ``nuts_smem_bytes`` mirror the first two)."""
-    from mjhmc_tpu_torch.ops import _build
-
+    as the instance that runs it reports them (``mjhmc_nuts_tile``, or an
+    on-demand instance's ``mjhmc_od_nuts_tile``; ``nuts_threads`` and
+    ``nuts_smem_bytes`` mirror the first two)."""
     out = (ctypes.c_int * 3)()
-    rc = _build.load().mjhmc_nuts_tile(d, spec.energy_id, int(mass), max_depth, n, out)
+    rc = ew_library("nuts", spec, d).nuts_tile(d, spec.energy_id, int(mass), max_depth, n, out)
     if rc != 0:
         raise RuntimeError(f"mjhmc_nuts_tile: no NUTS instance of {type(spec).__name__} at "
                            f"d={d}{' with a mass' if mass else ''} (CUDA error {rc})")
@@ -1929,14 +1991,16 @@ class CudaMJHMC:
                      MATMUL_SPECS if self._matmul else ELEMENTWISE_SPECS)
         self.device = checked_device(self.device, type(self).__name__)
         gen = torch.Generator().manual_seed(self.seed)
-        x = self.distribution.init_x(gen, self.nbatch, self.device)
+        # the kernels take contiguous (d, n) rows; a mixture's draws at D > 1
+        # come transposed
+        x = self.distribution.init_x(gen, self.nbatch, self.device).contiguous()
         v = randn(gen, x.shape, self.device)
         if self.inv_mass is not None:  # momenta live in N(0, M)
             self.inv_mass = np.asarray(self.inv_mass, np.float32).reshape(x.shape[0])
             v = v / torch.sqrt(torch.as_tensor(self.inv_mass, device=self.device))[:, None]
         u, g = self.distribution.potential_and_grad(x)
         zeros = torch.zeros(self.nbatch, dtype=torch.float32, device=self.device)
-        self.x, self.v, self.g, self.u = x, v, g, u
+        self.x, self.v, self.g, self.u = x, v, g.contiguous(), u.contiguous()
         self.h_back, self.back_valid = zeros, zeros.clone()
         # per-run kernel seeds from a generator of the engine seed
         self._seed_gen = torch.Generator().manual_seed(self.seed)

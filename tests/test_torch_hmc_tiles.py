@@ -4,8 +4,10 @@ control and MALT draws.
 The kernels (``csrc/mjhmc_engine.cuh``) spread a chain over a group of
 lanes and size their blocks to the chain count; ``ew_lanes`` and
 ``ew_threads`` mirror that rule, and ``chip_smoke.py`` phase 2 holds the
-mirror to the built library on the card. Here the mirror is checked at the
-presets' dims and chain counts on a card of 132 SMs.
+mirror to the built library on the card (phase 42 to the on-demand
+instances). Here the mirror is checked at the presets' dims and chain
+counts and at the any-D shapes' dims (``chip_smoke.tested_dims``) on a card
+of 132 SMs.
 
 MALT's and control's elementwise kernels draw both Box-Muller branches of a
 pair of uniforms (tags 7 and 8, ``csrc/philox.cuh``). The plain versions'
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mjhmc_tpu_torch import models as tmodels
 from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
@@ -66,29 +69,39 @@ def test_ew_lanes_and_threads_at_the_presets(config, n, lanes, threads):
 
 
 def test_ew_lanes_of_every_kernel_dim():
-    """Every (energy, D) the kernel has: the group divides a warp; MALT's
-    lanes own at most 7 dims (D 50 over 8 lanes), 3 at D 10; MJHMC's
-    coupled energies take a trajectory a lane at D 10, its separable ones
-    one lane a chain below D 50; control takes 8 lanes from D 10 (its dims
-    over them at D 50, 7 a lane; each holds every dim at D 10, the draw's
-    pairs split), else one."""
+    """Every (energy, D) held (the library's and the on-demand instances'
+    at the any-D shapes, chip_smoke.tested_dims): the group divides a warp;
+    MALT's lanes own at most 7 dims (D 50 over 8 lanes), 3 at D 10; MJHMC's
+    coupled energies take a trajectory a lane from D 10, its separable ones
+    one lane a chain at D 2 and 8 lanes at D 50; control takes 8 lanes from
+    D 10 on a coupled energy (each holds every dim, the draw's pairs split)
+    and at D 50 (7 a lane), one at D 2; a separable chain's lanes at the
+    other D hold at most 7 dims each (tests/test_torch_any_dims.py holds
+    the rule there)."""
     cases = [tmodels.RoughWell(ndims=2), tmodels.Gaussian(ndims=2), tmodels.Funnel(ndims=10),
              tmodels.Banana(), BENCHMARK_CONFIGS["mog"].make_distribution(),
              tmodels.EightSchools(), tmodels.EightSchools(parameterization="noncentered")]
-    for dist in cases:
-        spec = cm.energy_spec_for(dist)
-        for d in cm.KERNEL_DIMS[type(spec)]:
-            for body in ("mjhmc", "malt", "control"):
-                g = cm.ew_lanes(body, spec, d)
-                assert 32 % g == 0
-                if body == "control":
-                    assert g == (8 if d >= 10 else 1) and (d < 50 or -(-d // g) == 7)
-                elif body == "mjhmc" and d == 10:
-                    assert g == 2  # the forward and the backward trajectory
-                elif body == "mjhmc" and d < 50:
-                    assert g == 1
-                else:
-                    assert -(-d // g) == {1: 1, 2: 1, 10: 3, 50: 7}[d] or (d, g) == (2, 1)
+    specs = {type(s): s for s in map(cm.energy_spec_for, cases)}
+    dists = {(type(s), d.ndims): d for d, s in
+             ((d, cm.energy_spec_for(d)) for d, _, _ in chip_smoke.any_d_dists().values())}
+    for spec_cls, d in chip_smoke.tested_dims(cm):
+        dist = dists.get((spec_cls, d))
+        spec = cm.energy_spec_for(dist) if dist is not None else specs[spec_cls]
+        preset = d in cm.KERNEL_DIMS[spec_cls]
+        separable = spec_cls in (cm.RoughWellSpec, cm.GaussianSpec)
+        for body in ("mjhmc", "malt", "control"):
+            g = cm.ew_lanes(body, spec, d)
+            assert 32 % g == 0
+            if not preset:
+                assert not separable or -(-d // g) <= 7
+            elif body == "control":
+                assert g == (8 if d >= 10 else 1) and (d < 50 or -(-d // g) == 7)
+            elif body == "mjhmc" and d == 10:
+                assert g == 2  # the forward and the backward trajectory
+            elif body == "mjhmc" and d < 50:
+                assert g == 1
+            else:
+                assert -(-d // g) == {1: 1, 2: 1, 10: 3, 50: 7}[d] or (d, g) == (2, 1)
 
 
 # ---- MALT's draws: both Box-Muller branches of a pair (tag 7) ----------------

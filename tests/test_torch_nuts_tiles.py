@@ -40,8 +40,9 @@ torch.set_num_threads(1)
 #: the shared memory an H100's SM has and a block may take, and the 1 KB
 #: it reserves for each resident block
 SMEM_SM, SMEM_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
-#: every elementwise NUTS instance the kernel compiles: (spec, dims)
-INSTANCES = [(spec, d) for spec, dims in cm.KERNEL_DIMS.items() for d in dims]
+#: every elementwise NUTS instance held: (spec, dims), the library's and the
+#: on-demand instances' at the any-D shapes (the list chip_smoke.py holds)
+INSTANCES = chip_smoke.tested_dims(cm)
 #: the H100's SMs, and the presets' chains (mjhmc_tpu_torch/config.py; the
 #: rough well's NUTS checks run 4,096)
 SMS, PRESET_CHAINS = 132, (1024, 2048, 4096, 10_240, 102_400)
@@ -51,9 +52,9 @@ SMS, PRESET_CHAINS = 132, (1024, 2048, 4096, 10_240, 102_400)
 def test_tree_rows_fit_shared_memory_or_scratch(spec, d):
     """Up to 10 dims the tree rows of a one-warp block stay under a block's
     227 KB at every depth up to the cap, four blocks fit an SM even at the
-    cap, the bytes grow with the depth, and no scratch is allocated; at 50
-    dims they take no shared memory and a (rows, d, n) scratch buffer in
-    device memory instead."""
+    cap, the bytes grow with the depth, and no scratch is allocated; past
+    10 dims (16, 50, 128) they take no shared memory and a (rows, d, n)
+    scratch buffer in device memory instead."""
     assert cm.NUTS_THREADS == 32
     rows = [cm.nuts_tree_rows(depth) for depth in range(1, cm.NUTS_MAX_DEPTH + 1)]
     assert rows[0] == 15 and all(b - a == 2 for a, b in zip(rows, rows[1:]))
@@ -80,7 +81,7 @@ def test_blocks_follow_the_schedule(n):
     threads a block, a power of two up to one warp, that put at most one
     block on each SM sub-partition (so the presets' 1,024 chains take
     2-thread blocks on every SM, and 10,240 one warp), and more chains, or
-    fewer SMs, never take fewer threads; at 50 dims (rows in the device
+    fewer SMs, never take fewer threads; past 10 dims (rows in the device
     scratch) one warp, whatever the chains."""
     for d in sorted({d for _, d in INSTANCES}):
         t = cm.nuts_threads(d, n, SMS)

@@ -56,35 +56,40 @@ def test_zoo_branches_match_interpret_kernel(energy, variant, integrator, mass):
                              weights=(0.3, 0.7)), 0.3),
 ])
 def test_zoo_plain_version_takes_any_dims(name, kw, eps):
-    """The plain version at D the kernel has no instance for (the JAX
+    """The plain version at D the library has no instance for (the JAX
     test's shapes), MJHMC against the interpret-mode kernel; the kernel's
-    wrapper refuses them."""
+    wrapper takes them (an instance compiled on demand runs them on the
+    card) and runs none of them before the card."""
     jd, td = _pair(name, kw)
     _compare(jd, td, "mjhmc", 5, 6, eps, {}, seed=4)
-    with pytest.raises(NotImplementedError, match="KERNEL_DIMS"):
-        cm.check_kernel_dims(cm.energy_spec_for(td), td.ndims)
+    spec = cm.energy_spec_for(td)
+    cm.check_kernel_dims(spec, td.ndims)
+    assert not cm.compiled_ahead(spec, td.ndims)
 
 
 def test_zoo_refusals_before_any_launch():
-    """A zoo spec at a D with no instance, or a mixture with more components
-    than the kernel holds, is refused by the wrapper's checks before the
-    device is looked at (CPU and meta tensors alike); at the presets' D the
-    checks pass."""
+    """A zoo spec at a D the library has no instance for, or a mixture with
+    more components than it holds, passes the wrapper's checks (an instance
+    is compiled for it on demand) and stops at the device check before any
+    build or launch (CPU and meta tensors alike); at the presets' D the
+    checks pass and the library has the instance."""
     for td in (tmodels.Funnel(), tmodels.Banana(), tmodels.GaussianMixture(), tmodels.EightSchools(),
                tmodels.EightSchools(parameterization="noncentered")):
         cm.check_kernel_dims(cm.energy_spec_for(td), td.ndims)
+        assert cm.compiled_ahead(cm.energy_spec_for(td), td.ndims)
     many = tmodels.GaussianMixture(means=tuple((float(k),) for k in range(9)),
                                    scales=(1.0,) * 9, weights=(1.0,) * 9)
-    with pytest.raises(NotImplementedError, match="1..8 components"):
-        cm.check_kernel_dims(cm.energy_spec_for(many), 1)
+    cm.check_kernel_dims(cm.energy_spec_for(many), 1)
+    assert cm.mog_cap(cm.energy_spec_for(many)) == 9
     for td in (tmodels.Funnel(ndims=8), many):
         spec = cm.energy_spec_for(td)
+        assert not cm.compiled_ahead(spec, td.ndims)
         x = td.init_x(torch.Generator().manual_seed(0), 64)
         u, g = td.potential_and_grad(x)
         z = torch.zeros(64)
         for dev in ("cpu", "meta"):
             st = tuple(t.to(dev) for t in (x, torch.zeros_like(x), g, u, z, z))
-            with pytest.raises(NotImplementedError, match="KERNEL_DIMS|components"):
+            with pytest.raises(ValueError, match="cuda tensors"):
                 cm._launch(spec, *st, 1, 0.1, 0.1, 1, 5, 1, None, False, "mjhmc", None,
                            "leapfrog")
         # the CPU wrapper takes the plain version at any D and any K
