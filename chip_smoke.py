@@ -65,7 +65,10 @@ at M 5 and 50 (and the battery's projected hours on this eager path),
 against their eigensolutions recomputed on the host, tempering's mode
 recovery, the overlay's curves, the fan's spread; the ``.png`` files only
 where matplotlib is installed, its absence reported by name),
-``efficiency --quick``, ``examples/quickstart_torch.py --quick`` and
+``efficiency --quick`` and ``examples/quickstart_torch.py`` (these plain
+rows in a process of their own, which imports beside phases 3-38 and runs
+beside phase 39, so that no kernel is timed beside them; its grid point's
+ms and the rows' host seconds are then not those of a card alone), then
 ``bench --profile``, whose ``torch.profiler`` trace must hold
 ``mjhmc_kernel``'s device events (its share of the traced window
 printed). Phase 41 drives slice H's third part: one boundary-audited
@@ -83,7 +86,8 @@ the funnel at D 12 and 30 and Gaussian D 3 and 128 (``ANY_D_SHAPES``,
 ``ANY_D_CARD_SHAPES``): their nvcc seconds and ptxas, their tiles against
 the mirror, every body and branch against its plain version (fixed-uniform
 counters exact), JAX's six gated statistical checks at their own shapes,
-settings and tolerances, and each instance's ms an iteration. Phase 2 also
+settings and tolerances (run beside phase 39 in phase 40's process, as are
+phase 43's statistics), and each instance's ms an iteration. Phase 2 also
 runs the plain NUTS of phases 22 and 42 on the CPU (``PLAIN_NUTS``) and
 waits for it and for the on-demand builds, so nothing of it overlaps a
 timed phase. One line
@@ -120,6 +124,7 @@ MM_RUN_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1265"
 MM_STREAM_SRC = "mjhmc_tpu/ops/pallas_mjhmc.py:1596"
 KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_engine.cuh"
 ONDEMAND_SRC = "mjhmc_tpu_torch/csrc/ondemand/ew_instance.cu"
+MM_ONDEMAND_SRC = "mjhmc_tpu_torch/csrc/ondemand/mm_instance.cu"
 MM_KERNEL_SRC = "mjhmc_tpu_torch/csrc/mjhmc_mm_engine.cuh"
 # matmul presets: iterations after which single chains are held at rtol 1e-4.
 # Product of t's preset ε=0.2 makes the leapfrog unstable along W's stiffest
@@ -153,6 +158,9 @@ MM_NUTS_DEPTH = 8  # max_depth of the matmul NUTS checks and of `sample --sample
 #: another summation order move a few percent of the chains at most in the
 #: plain version alone (product of t's ε=0.2 is unstable along W's stiffest
 #: direction, a one-pass rounding flip grows within an iteration)
+#: max_depth of phase 30's deep NUTS cases (leaf counts held, states
+#: reported), below the CLI's 8 for the plain version's time
+PRECISION_NUTS_DEEP = 6
 PRECISION_ITERS = {"product_of_t": 1, "sparse_coding": 5, "logreg": 2}
 #: (iterations, M) of the sweep's sparse coding run at one pass, where the
 #: residual's bf16 rounding turns a last-ulp difference into 2⁻⁹: at the
@@ -189,12 +197,17 @@ def check(ok, msg: str) -> None:
         raise AssertionError(msg)
 
 
+#: children that ``stop_children`` leaves running: phase 40's plain rows,
+#: which run in a process of their own from phase 2's end to phase 40
+SPARED: set[int] = set()
+
+
 def stop_children() -> list[str]:
-    """Stops the processes this one started that still run, and returns
-    their command lines: multiprocessing's resource tracker, which the first
-    spawn pool starts and which otherwise lives until this process has
-    exited (it is started again if a later pool needs it), then any other
-    child (SIGTERM, SIGKILL after 10 s)."""
+    """Stops the processes this one started that still run, but those in
+    ``SPARED``, and returns their command lines: multiprocessing's resource
+    tracker, which the first spawn pool starts and which otherwise lives
+    until this process has exited (it is started again if a later pool
+    needs it), then any other child (SIGTERM, SIGKILL after 10 s)."""
     import signal
     from multiprocessing import resource_tracker
 
@@ -204,7 +217,7 @@ def stop_children() -> list[str]:
         try:
             stat = Path(f"/proc/{pid}/stat").read_text()
             state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
-            if int(ppid) != os.getpid():
+            if int(ppid) != os.getpid() or int(pid) in SPARED:
                 continue
             if state == "Z":  # ended, not yet reaped
                 os.waitpid(int(pid), os.WNOHANG)
@@ -262,6 +275,25 @@ def initial_state(dist, n, seed, inv_mass=None):
     return x, v, g.contiguous(), u.contiguous(), z, z.clone()
 
 
+def cpu_seconds() -> float:
+    """User and system CPU seconds of this process and of its children that
+    have ended and been waited for (with theirs)."""
+    import resource
+
+    return sum(r.ru_utime + r.ru_stime for r in (resource.getrusage(resource.RUSAGE_SELF),
+                                                  resource.getrusage(resource.RUSAGE_CHILDREN)))
+
+
+def host_probe() -> float:
+    """Seconds one core of the host takes for a fixed piece of Python work
+    (the same in every run), to compare the hosts of two runs."""
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(2_000_000):
+        acc += i * i % 7
+    return time.perf_counter() - t0
+
+
 def ptxas_report(log: str):
     """(kernel, registers, spill bytes stored) per entry function of the
     nvcc ``-Xptxas -v`` log."""
@@ -277,21 +309,25 @@ def ptxas_report(log: str):
     return rows
 
 
-def hmma_counts(_build):
-    """{instance: HMMA instructions in its SASS} of every matmul kernel of
-    the built library, the instance named from its mangled template
-    arguments. The library's cubins are extracted (``cuobjdump -xelf``) and
-    those holding matmul kernels disassembled (``cuobjdump -sass``), one
-    process each, all at once."""
+def mm_sass(_build, library=None):
+    """{instance: (HMMA instructions in its SASS, a digest of its SASS)} of
+    every matmul kernel of a built library (the current build's by
+    default), the instance named from its mangled template arguments (a
+    shape other than its energy's preset's named too). The library's
+    cubins are extracted
+    (``cuobjdump -xelf``) and those holding matmul kernels disassembled
+    (``cuobjdump -sass``), one process each, all at once; a digest covers a
+    function's instructions, not its name."""
+    import hashlib
     import tempfile
 
     names = ("product_of_t", "sparse_coding", "logreg")
     bodies = ("mjhmc", "nuts", "control", "malt")
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
-    out = {}
+    out, digests = {}, {}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        subprocess.run([tool, "-xelf", "all", str(_build.library_path())], cwd=tmp, check=True,
-                       capture_output=True)
+        subprocess.run([tool, "-xelf", "all", str(library or _build.library_path())], cwd=tmp,
+                       check=True, capture_output=True)
         cubins = [p for p in Path(tmp).glob("*.cubin") if b"mm_kernel" in p.read_bytes()]
         procs = []
         for cubin in cubins:
@@ -306,19 +342,27 @@ def hmma_counts(_build):
                     m = re.search(r"\d+(nuts_mm_kernel|mm_kernel)I((?:L[ib]\d+E)+)E", ln)
                     if m:
                         a = [int(v) for v in re.findall(r"L[ib](\d+)E", m.group(2))]
-                        if m.group(1) == "mm_kernel":  # E, VAR, EMIT, STUB, BR, P, PROF
+                        mm = m.group(1) == "mm_kernel"
+                        shape = ""  # E, D, K, then the rest
+                        if (a[1], a[2]) != ((36, 36), (128, 64), (16, 256))[a[0]]:
+                            shape = f" {a[1]}x{a[2]}"
+                        a = a[:1] + a[3:]
+                        if mm:  # E, VAR, EMIT, STUB, BR, P, PROF
                             body, emit, stub, br, prec, prof = (bodies[a[1]], a[2], a[3], a[4],
                                                                 a[5], a[6])
                         else:  # E, EMIT, BR, P, PROF
                             body, emit, stub, br, prec, prof = "nuts", a[1], 0, a[2], a[3], a[4]
-                        label = (f"{names[a[0]]} {body} {'stream' if emit else 'run'}"
+                        label = (f"{names[a[0]]}{shape} {body} "
+                                 f"{'stream' if emit else 'run'}"
                                  f"{' stub' if stub else ''}{' branches' if br else ''}"
                                  f"{' prof' if prof else ''} "
                                  f"{('highest', 'bf16x3', 'bf16x2', 'default')[prec]}")
                         out[label] = 0
-                elif label and "HMMA" in ln:
-                    out[label] += 1
-    return out
+                        digests[label] = hashlib.sha256()
+                elif label and re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln):
+                    out[label] += "HMMA" in ln
+                    digests[label].update(ln.encode())
+    return {k: (out[k], digests[k].hexdigest()[:16]) for k in out}
 
 
 def run_cli(cli, argv, counters, attr="launches"):
@@ -535,8 +579,9 @@ def nuts_checks(cm):
     cases = (  # name, distribution, eps, max_depth, chains, fixed-uniform and Philox iterations
         ("gauss2d", g2, NUTS_EPS, NUTS_DEPTH, 10_240, 5, 5),
         ("gauss2d", g2, BENCHMARK_CONFIGS["gauss2d"].epsilon, CLI_NUTS_DEPTH, 10_240, 5, 5),
-        # the elementwise kernel's cap, deeper than the matmul kernel's
-        ("gauss2d", g2, DEEP_EPS, cm.NUTS_MAX_DEPTH, 1024, 2, 2),
+        # the elementwise kernel's cap, deeper than the matmul kernel's (one
+        # iteration each: the plain version pays a host sync a leaf)
+        ("gauss2d", g2, DEEP_EPS, cm.NUTS_MAX_DEPTH, 1024, 1, 1),
         ("rough_well", RoughWell(), 1.0, NUTS_DEPTH, 4096, 1, 5),
         # the D=50 instance as `sample --config gauss50d --sampler nuts` runs it
         ("gauss50d", Gaussian(ndims=50, log_conditioning=4.0),
@@ -619,19 +664,18 @@ def nuts_checks(cm):
         gen = torch.Generator()
         gen.set_state(eng._seed_gen.get_state())
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
-        out = eng.run(2)
-        ref = cm.run_reference(eng.spec, *st, seed, DEEP_EPS, 0.0, 2, depth, variant="nuts")
+        out = eng.run(1)
+        ref = cm.run_reference(eng.spec, *st, seed, DEEP_EPS, 0.0, 1, depth, variant="nuts")
         check(all(torch.equal(a, b) for a, b in zip(out, ref)),
               f"CudaNUTS gauss2d max_depth {depth}: not bit-identical to the plain version")
-        # a chain with 2^depth leaves or more over the two iterations began
-        # round depth in one of them (a tree has fewer than 2^depth leaves)
-        entered = float((out.evals >= 2**depth).double().mean())
+        # a tree of 2^(depth-1) leaves or more began its last round
+        entered = float((out.evals >= 2**(depth - 1)).double().mean())
         check(entered >= 0.1, f"CudaNUTS gauss2d max_depth {depth}: only {entered:.4f} of "
               f"chains began round {depth} (< 0.1): the deepest stack rows went untested")
         phase("10 nuts philox", f"CudaNUTS gauss2d (1024 chains, eps {DEEP_EPS}, max_depth "
-              f"{depth}, 2 iterations): bit-identical to the plain version; "
-              f"{float(out.evals.double().mean()) / 2:.5g} leaves/iteration; {entered:.4f} of "
-              f"chains began round {depth} in an iteration or more")
+              f"{depth}, 1 iteration): bit-identical to the plain version; "
+              f"{float(out.evals.double().mean()):.5g} leaves/iteration; {entered:.4f} of "
+              f"chains began round {depth}")
     pot = cm.energy_spec_for(ProductOfT())
     pst = initial_state(ProductOfT(), 8, seed=1)
     try:
@@ -892,7 +936,7 @@ def slice_cases(cm):
         ("mjhmc inv_mass", "sparse_coding", 8192, 0.1, dict(inv_mass=sc_mass)),
         ("control two_stage inv_mass", "sparse_coding", 8192, 0.2,
          dict(variant="control", integrator="two_stage", inv_mass=sc_mass)),
-        # widths that leave mm_kernel's last tile (MM_TILES) partly empty
+        # widths that leave mm_kernel's last tile (mm_tile_rule) partly empty
         ("mjhmc ragged", "product_of_t", 4093, 0.1, {}),
         ("control ragged", "product_of_t", 4093, 0.2, dict(variant="control")),
         ("malt ragged", "product_of_t", 4093, 1.0, dict(variant="malt")),
@@ -1368,18 +1412,20 @@ def deep_plain(cname, prec, arrays, seed, eps, fixed, nudge=0.0):
     return xs.numpy(), es.numpy(), tuple(t.numpy() for t in r), ms
 
 
-def mm_nuts_deep_checks(cm):
+def mm_nuts_deep_checks(cm, meanwhile):
     """Phase 21 at max_depth 12: ``nuts_mm_kernel``, run and stream, against
     its plain version on ``MM_NUTS_DEEP``'s cases (tree rows on chip for
     product of t, in the device scratch for sparse coding), both random
     modes, with ``mm_nuts_checks``'s allowances; fails unless some tree
     began round 11 and some ran the 2¹² − 1 leaves of the cap. The plain
     version runs on the CPU, each case in a worker process of its own (its
-    cost is per leaf, the chains are few), and its one-ulp-nudged runs only
-    where the counts or states fall outside the 0.1% allowance without
-    them. Returns ({label: max |dx|}, {label: (run ms, stream ms, plain
-    ms, leaves)}), the product-of-t Philox cases' times by CUDA events (one
-    launch each) and the host clock (the plain stream)."""
+    cost is per leaf, the chains are few), started before ``meanwhile()``
+    (the rest of phase 21's checks, on the card meanwhile), and its
+    one-ulp-nudged runs only where the counts or states fall outside the
+    0.1% allowance without them. Returns ({label: max |dx|}, {label: (run
+    ms, stream ms, plain ms, leaves)}, what ``meanwhile`` returned), the
+    product-of-t Philox cases' times by CUDA events (one launch each) and
+    the host clock (the plain stream)."""
     import multiprocessing
 
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
@@ -1409,6 +1455,7 @@ def mm_nuts_deep_checks(cm):
             min(len(cases), os.cpu_count() or 1),
             mp_context=multiprocessing.get_context("spawn")) as pool:
         base = [pool.submit(deep_plain, *c[-1]) for c in cases]
+        other = meanwhile()
         refs = [plain(f.result()) for f in base]
         outside = []
         for c, (xs_r, es_r, r, _) in zip(cases, refs):
@@ -1467,7 +1514,7 @@ def mm_nuts_deep_checks(cm):
                   f"{2**depth - 1}-leaf cap {cap:.4f}; one-ulp nudges of x: {note} "
                   f"(the plain version on the CPU, {plain_ms / 1e3:.3g} s)")
     stop_children()  # the spawn pool's resource tracker
-    return errs, times
+    return errs, times, other
 
 
 def mm_nuts_deep_timing(cm, card):
@@ -1737,7 +1784,7 @@ def slice_k_timing(cm, card):
         grads = eng.grad_evals - before
         got = {}
         stream_ms = events_ms(lambda: got.update(s=eng.sample(iters, return_evals=True))) / iters
-        tile = cm.NUTS_MM_TILES[type(eng.spec)][0]
+        tile = cm.nuts_mm_tile_rule(eng.spec).chains
         share = leaf_slot_share(got["s"][2], m, tile) if nuts else 1.0
         plain_iters = 1 if nuts else 3
         args = (eng.spec, *initial_state(dist, n, seed=5, inv_mass=kw.get("inv_mass")),
@@ -1773,9 +1820,10 @@ MJHMC_VARIANT = "mjhmc (_make_step, mjhmc_tpu/ops/pallas_mjhmc.py:714)"
 ZOO_STATS_ITERS = {"banana": (500, 2000), "banana_nuts": (200, 1000), "mog": (300, 1500),
                    "eight_schools_nc": (500, 2500), "funnel": (0, 3000), "funnel_nuts": (200, 2000)}
 #: the funnel's warmup phases (the JAX test's for MJHMC; shorter for NUTS,
-#: whose warmup runs the plain NUTS sampler, a host sync per leaf)
+#: whose warmup runs the plain NUTS sampler, a host sync per leaf: a quarter
+#: of nuts_full_warmup's 60/60/40, to keep the script within its time)
 FUNNEL_WARMUP = {"mjhmc": dict(phase1=200, phase2=300, phase3=150),
-                 "nuts": dict(phase1=30, phase2=50, phase3=20)}
+                 "nuts": dict(phase1=15, phase2=25, phase3=10)}
 #: (burn, steps) of the zoo CLI calls
 ZOO_CLI_ITERS = (300, 600)
 #: the elementwise engine's shapes beyond the presets' D, each body held
@@ -2255,8 +2303,8 @@ def precision_cases(cm):
     default precision, run and stream, and the sweep's MJHMC leapfrog run
     at its other two precisions: (label, config, precision, distribution,
     chains, ε, β, M or max_depth, (fixed-uniform, Philox) iterations,
-    options, stream). NUTS runs one iteration at max_depth 8 (deep trees:
-    leaf counts held, states reported) and at max_depth 4, with and without
+    options, stream). NUTS runs one iteration at PRECISION_NUTS_DEEP (deep
+    trees: leaf counts held, states reported) and at max_depth 4, with and without
     a mass (states held)."""
     rows = []
     presets = mm_presets()
@@ -2274,7 +2322,7 @@ def precision_cases(cm):
                 ("malt inv_mass", 1.0, dict(variant="malt", inv_mass=mass))):
             rows.append((f"{cname} {label}", cname, prec, dist, n, cfg.epsilon, beta, m,
                          (held, held), kw, True))
-        for label, depth, kw in (("nuts", MM_NUTS_DEPTH, dict(variant="nuts")),
+        for label, depth, kw in (("nuts", PRECISION_NUTS_DEEP, dict(variant="nuts")),
                                  ("nuts", 4, dict(variant="nuts")),
                                  ("nuts inv_mass", 4, dict(variant="nuts", inv_mass=mass))):
             rows.append((f"{cname} {label} max_depth {depth}", cname, prec, dist, n, nuts_eps,
@@ -2364,7 +2412,7 @@ def precision_kernel_checks(cm):
     depth (``split_depth``): six perturbed runs. The cases run as few
     iterations as keep those runs' moved chains within ``INFORMATIVE``
     (``PRECISION_ITERS``, ``SPARSE_DEFAULT_HELD``), which the phase checks,
-    but for NUTS at max_depth 8, whose deep trees are chaotic at any
+    but for NUTS at PRECISION_NUTS_DEEP, whose deep trees are chaotic at any
     precision (their leaf counts are held, their states reported; max_depth
     4 holds the states). The kernel's count of chains that differ is one
     draw of what the perturbed runs count, so each limit below is a = max(0.1%
@@ -2386,7 +2434,7 @@ def precision_kernel_checks(cm):
         spec = at(cm.energy_spec_for(dist), prec)
         variant = kw.get("variant", "mjhmc")
         nuts, mj = variant == "nuts", variant == "mjhmc"
-        deep = nuts and m == MM_NUTS_DEPTH
+        deep = nuts and m == PRECISION_NUTS_DEEP
         key = (cname, prec, branch_key(variant, kw))
         head = f"{label} at {prec} ({n} chains"
         bad, limit, moved, rel_k, rel_n = force_check(cm, spec, dist, n, beta, kw, stream)
@@ -3155,33 +3203,28 @@ def recording(owner, name):
 
 def geyer_ess_f64(x, w):
     """The dwell-weighted Geyer ESS of ``diagnostics/autocorr.py``
-    recomputed in float64 on the host (NumPy arrays, scipy.fft's threaded
-    FFT), chains in chunks. The lag sums over chains and dims are one
-    inverse transform of the summed power spectra."""
-    import numpy as np
-    import scipy.fft as sfft
-
-    x = x.cpu().numpy()
+    recomputed in float64 where the block lies (torch.fft), chains in
+    chunks. The lag sums over chains and dims are one inverse transform of
+    the summed power spectra."""
     t, d, n = x.shape
-    w = np.ones((t, n), np.float32) if w is None else w.cpu().numpy()
+    w = torch.ones((t, n), dtype=torch.float64, device=x.device) if w is None else w.double()
     nlags = t // 2
     nfft = 1 << (2 * t - 1).bit_length()
     chunk = max(1, (1 << 25) // (nfft * d))
-    chunks = [(x[:, :, i:i + chunk].astype(np.float64), w[:, i:i + chunk].astype(np.float64))
-              for i in range(0, n, chunk)]
-    mu = sum(np.einsum("tdn,tn->d", xc, wc) for xc, wc in chunks) / w.sum(dtype=np.float64)
+    spans = [slice(i, i + chunk) for i in range(0, n, chunk)]
+    mu = sum(torch.einsum("tdn,tn->d", x[:, :, c].double(), w[:, c]) for c in spans) / w.sum()
 
     def power(a):
-        fa = sfft.rfft(a, n=nfft, axis=0, workers=-1)
+        fa = torch.fft.rfft(a, n=nfft, dim=0)
         return fa.real ** 2 + fa.imag ** 2
 
-    num = sum(power((xc - mu[None, :, None]) * wc[:, None, :]).sum(axis=(1, 2))
-              for xc, wc in chunks)
-    den = sum(power(wc).sum(axis=1) for _, wc in chunks)
-    gamma = sfft.irfft(num, n=nfft)[:nlags] / (d * sfft.irfft(den, n=nfft)[:nlags])
+    num = sum(power((x[:, :, c].double() - mu[None, :, None]) * w[:, None, c]).sum(dim=(1, 2))
+              for c in spans)
+    den = sum(power(w[:, c]).sum(dim=1) for c in spans)
+    gamma = torch.fft.irfft(num, n=nfft)[:nlags] / (d * torch.fft.irfft(den, n=nfft)[:nlags])
     rho = gamma / gamma[0]
-    pair = rho[: 2 * (nlags // 2)].reshape(-1, 2).sum(axis=1)
-    positive = np.cumprod(pair > 0.0)
+    pair = rho[: 2 * (nlags // 2)].reshape(-1, 2).sum(dim=1)
+    positive = torch.cumprod((pair > 0.0).double(), dim=0)
     tau = max(1.0, -1.0 + 2.0 * float((pair * positive).sum()))
     return t * n / tau
 
@@ -4056,12 +4099,11 @@ def quickstart_row(card, rows):
            f"PT's off the exact by {pt_rel:.4f})", seconds, card, rows, "quickstart")
 
 
-def search_and_figures(cm, cli, card):
-    """Phase 40, slice H on the card: ``search`` (grid and GP-EI), one
-    battery grid point at M 5 and 50, ``figures --quick``, ``efficiency
-    --quick``, ``bench --profile`` and the quickstart. Plain PyTorch but
-    ``bench``: every other row launches no fused-engine kernel. Returns
-    ({row: host seconds}, the profiled run's launches)."""
+def plain_rows40(cm, cli, card):
+    """Phase 40's plain rows, slice H on the card: ``search`` (grid and
+    GP-EI), one battery grid point at M 5 and 50, ``figures --quick``,
+    ``efficiency --quick`` and the quickstart. Plain PyTorch: they launch
+    no fused-engine kernel. Returns {row: host seconds}."""
     import tempfile
 
     from mjhmc_tpu_torch.utils import init_cache
@@ -4079,15 +4121,112 @@ def search_and_figures(cm, cli, card):
             quickstart_row(card, rows)
             counts = wrapper_counts(cm)
             check(not counts, f"phase 40's plain rows launched fused-engine kernels: {counts}")
+        finally:
+            init_cache.DEFAULT_CACHE_DIR = cache
+    return rows
+
+
+#: seconds phase 40's plain rows may take in their own process, from the
+#: start of phase 39
+PLAIN_ROWS40_TIMEOUT = 900
+
+
+def start_plain_rows40(workdir, plain_nuts_d8):
+    """Phase 40's plain rows and the statistics of phases 42 and 43 in a
+    process of their own (``chip_smoke.py --plain-rows40 T0 DIR``), started
+    at phase 2's end: it imports torch, ``torch._dynamo`` (which the GP's
+    Adam pulls in) and the port while the kernels' phases run, then waits
+    for a line on its input, which phase 39 writes as it begins, so that
+    its work, like phase 39's, leaves the card to the phases that time
+    kernels. Its lines and results go to ``workdir`` (with
+    ``plain_nuts_d8``, phase 2's plain NUTS that phase 42's statistics read);
+    returns the process."""
+    out = Path(workdir)
+    (out / "plain_nuts_d8.json").write_text(json.dumps(plain_nuts_d8))
+    with open(out / "rows40.out", "w") as fo, open(out / "rows40.err", "w") as fe:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--plain-rows40",
+                                 repr(T0_WALL), str(out)],
+                                stdin=subprocess.PIPE, stdout=fo, stderr=fe, text=True)
+    SPARED.add(proc.pid)
+    return proc
+
+
+def plain_rows40_run(t0_wall: str, workdir: str) -> int:
+    """The process of ``start_plain_rows40``: its phase lines are timed from
+    the parent's start (``t0_wall``); phase 40's rows, the statistics'
+    launches and each part's seconds go to ``workdir``."""
+    global T0
+    importlib.import_module("torch._dynamo")
+    from mjhmc_tpu_torch.__main__ import main as cli
+    from mjhmc_tpu_torch.bench import gpu_name_and_power_limit
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    out = Path(workdir)
+    plain_nuts_d8 = json.loads((out / "plain_nuts_d8.json").read_text())
+    if not sys.stdin.readline().strip():
+        return 3  # the parent ended before phase 39
+    T0 = time.perf_counter() - (time.time() - float(t0_wall))
+    t0 = time.perf_counter()
+    name, limit = gpu_name_and_power_limit()
+    card = f"{name} @ {limit}"
+    rows = plain_rows40(cm, cli, card)
+    t1 = time.perf_counter()
+    stats42 = any_d_stats(cm, card, plain_nuts_d8)
+    t2 = time.perf_counter()
+    stats43 = any_mm_stats(cm, cli, card)
+    t3 = time.perf_counter()
+    (out / "rows40.json").write_text(json.dumps({
+        "rows": rows, "seconds": t1 - t0,
+        "stats42": {"launches": {k: list(v) for k, v in stats42.items()}, "seconds": t2 - t1},
+        "stats43": {"launches": {k: list(v) for k, v in stats43.items()}, "seconds": t3 - t2}}))
+    return 0
+
+
+def go_plain_rows40(proc):
+    """Phase 39's start: lets ``start_plain_rows40``'s process run (where
+    it has ended already, ``search_and_figures`` reports how)."""
+    with contextlib.suppress(BrokenPipeError):
+        proc.stdin.write("go\n")
+        proc.stdin.close()
+
+
+def search_and_figures(cm, cli, card, side, workdir):
+    """Phase 40, slice H on the card: the lines and rows of its plain rows
+    (``plain_rows40``), which ran beside phase 39 in ``side``, a process of
+    their own (``start_plain_rows40``; they print host seconds, no kernel's
+    time), with the statistics of phases 42 and 43, then ``bench
+    --profile``, alone on the card. Returns ({row: host seconds}, the
+    profiled run's launches, the side process's results: the plain rows'
+    seconds, each statistics' launches and seconds)."""
+    import tempfile
+
+    from mjhmc_tpu_torch.utils import init_cache
+
+    out = Path(workdir)
+    try:
+        rc = side.wait(timeout=PLAIN_ROWS40_TIMEOUT)
+    finally:
+        SPARED.discard(side.pid)
+    sys.stdout.write((out / "rows40.out").read_text())
+    sys.stderr.write((out / "rows40.err").read_text())
+    sys.stdout.flush()
+    check(rc == 0, f"phase 40's plain rows exited {rc}: "
+          f"{(out / 'rows40.err').read_text()[-4000:]}")
+    res = json.loads((out / "rows40.json").read_text())
+    rows = res["rows"]
+    cache = init_cache.DEFAULT_CACHE_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        init_cache.DEFAULT_CACHE_DIR = str(Path(tmp) / "init")
+        try:
             launches = profile_row(cm, cli, card, rows, tmp)
         finally:
             init_cache.DEFAULT_CACHE_DIR = cache
-    return rows, launches
+    return rows, launches, res
 
 
 #: phase 41's one audited grid round: gauss2d MJHMC on the card, 7 × 7 × 4
-#: points (the ladder's M ≤ 20) of 40 steps at 32 chains
-TUNE41 = dict(steps=40, nbatch=32, nlags=15, max_rounds=1)
+#: points (the ladder's M ≤ 20) of 20 steps at 32 chains (its 15 lags fit)
+TUNE41 = dict(steps=20, nbatch=32, nlags=15, max_rounds=1)
 #: JAX's fields of a bench_two_stage row (tools/bench_two_stage.py:75-84)
 TWO_STAGE_FIELDS = {"config", "sampler", "integrator", "epsilon", "beta", "num_leapfrog_steps",
                     "ess_per_s", "rel_spread", "repeat_values", "window_steps",
@@ -4335,8 +4474,11 @@ def plain_nuts_results(started):
 
 
 # ---- phase 42: the elementwise engine at any D --------------------------------
-#: on-demand builds at a time beside the library's (phase 2)
-ANY_D_BUILDERS = 3
+#: on-demand builds at a time (phase 2; the card's host has 8 cores): fewer
+#: while the library's own nvcc run beside them, so that its longest sources
+#: (phase 2's critical path) are not spread thinner, then as many as cores
+ONDEMAND_BESIDE_LIBRARY = 4
+ONDEMAND_BUILDERS = 8
 ANY_D_CHAINS = 4096
 #: the branch cases of phase 42 beside every body at every shape: (shape,
 #: body, options); the mass is M⁻¹ from 0.5 to 1.5 over the dims
@@ -4350,32 +4492,44 @@ ANY_D_TIMING_ITERS = (300, 60)
 ANY_D_BETA = {"mjhmc": 0.1, "control": 0.2, "malt": 1.0, "nuts": 0.0}
 
 
-def any_d_keys(cm):
-    """{(shape, body): the on-demand instance's key (body id, energy id, D,
-    component cap)} of every body at every any-D shape."""
+def any_d_keys(cm, _build):
+    """{(shape, body): the on-demand instance (``_build.ew_instance``)} of
+    every body at every any-D shape."""
     out = {}
     for label, (dist, _, _) in any_d_dists().items():
         spec = cm.energy_spec_for(dist)
         check(not cm.compiled_ahead(spec, dist.ndims), f"{label} is a preset's shape")
         for body in ZOO_BODIES:
-            out[(label, body)] = (cm.KERNEL_VARIANTS[body], spec.energy_id, dist.ndims,
-                                  cm.mog_cap(spec))
+            out[(label, body)] = _build.ew_instance(cm.KERNEL_VARIANTS[body], spec.energy_id,
+                                                    dist.ndims, cm.mog_cap(spec))
     return out
 
 
-def start_any_d_builds(cm, _build):
-    """Phase 2: every on-demand instance of phase 42, ANY_D_BUILDERS nvcc at
-    a time, started beside the library's build; returns the pool and {key:
-    future of (path, nvcc seconds in this run or None where the library was
-    built before, seconds from the start to its end)}."""
-    pool = concurrent.futures.ThreadPoolExecutor(ANY_D_BUILDERS)
+def start_ondemand_builds(cm, _build):
+    """Phase 2: every on-demand instance of phases 42 and 43, the matmul ones
+    (the longest) first, started beside the library's build,
+    ONDEMAND_BESIDE_LIBRARY nvcc at a time until the caller releases the
+    rest of ONDEMAND_BUILDERS (``gate.release``, once the library is built);
+    returns the pool, the gate and ({instance: future of (path, nvcc seconds
+    in this run or None where the library was built before, seconds from
+    the start to its end)} of phase 42's, of phase 43's)."""
+    import threading
+
+    pool = concurrent.futures.ThreadPoolExecutor(ONDEMAND_BUILDERS)
+    gate = threading.Semaphore(ONDEMAND_BESIDE_LIBRARY)
     t0 = time.perf_counter()
 
-    def build(key):
-        path, nvcc_s = _build.build_instance(*key)
+    def build(inst):
+        with gate:
+            path, nvcc_s = _build.build_instance(inst)
         return path, nvcc_s, time.perf_counter() - t0
 
-    return pool, {key: pool.submit(build, key) for key in set(any_d_keys(cm).values())}
+    # the largest matmul shapes first: their nvcc takes longest
+    mm = sorted(set(any_mm_instances(cm, _build).values()),
+                key=lambda i: -math.prod(int(m.split("=")[1]) for m in i.macros[2:4]))
+    mm_futures = {inst: pool.submit(build, inst) for inst in mm}
+    ew_futures = {inst: pool.submit(build, inst) for inst in set(any_d_keys(cm, _build).values())}
+    return pool, gate, (ew_futures, mm_futures)
 
 
 def any_d_builds(_build, done, card):
@@ -4387,10 +4541,10 @@ def any_d_builds(_build, done, card):
     phase("42 any D", f"{len(done)} on-demand libraries from phase 2, {built} built in this run "
           f"and {len(done) - built} reused from the build directory [{card}]")
     seconds = {}
-    for key, (path, nvcc_s, _) in sorted(done.items()):
+    for key, (path, nvcc_s, _) in sorted(done.items(), key=lambda kv: kv[0].stem):
         seconds[key] = nvcc_s
         ptx = "; ".join(f"{k}: {r} registers, {sp} B spill stores"
-                        for k, r, sp in ptxas_report(_build.instance_log(*key)))
+                        for k, r, sp in ptxas_report(_build.instance_log(key)))
         took = "reused, not built in this run" if nvcc_s is None else f"nvcc {nvcc_s:.1f} s"
         phase("42 any D", f"{path.name}: {took}; ptxas {ptx}")
     return seconds
@@ -4694,28 +4848,553 @@ def any_d_entries(entry, errs, ident, rows, seconds, keys):
     return out
 
 
-def any_d_phase(cm, _build, card, done, plain_nuts):
+def any_d_phase(cm, _build, card, done, stats):
     """Phase 42: the on-demand instances' builds (``done``, phase 2's),
-    tiles, every body at every any-D shape against its plain version, JAX's
-    TPU-gated checks at their shapes (``plain_nuts``: phase 2's plain NUTS
-    at D 8), the timings. Returns (errors, NUTS identical shares, timing
-    rows, nvcc seconds, instance keys, the statistics engines' launches)."""
+    tiles, every body at every any-D shape against its plain version, the
+    timings; JAX's TPU-gated checks at their shapes (``any_d_stats``) ran
+    beside phase 39 (``stats``: their launches and seconds). Returns
+    (errors, NUTS identical shares, timing rows, nvcc seconds, instance
+    keys)."""
     t0 = time.perf_counter()
     seconds = any_d_builds(_build, done, card)
     any_d_tiles(cm, card)
     errs, ident = case_checks(cm, any_d_cases(), ("42 any D fixed-uniform", "42 any D philox"),
                               exact_counters=True)
     t_checks = time.perf_counter()
-    stat_launches = any_d_stats(cm, card, plain_nuts)
-    t_stats = time.perf_counter()
     rows = any_d_timing(cm, card)
     phase("42 any D", f"phase 42 took {time.perf_counter() - t0:.4g} s: the checks "
-          f"{t_checks - t0:.4g}, the statistics {t_stats - t_checks:.4g}, the timings "
-          f"{time.perf_counter() - t_stats:.4g}; statistics engines' launches "
-          f"{json.dumps({k: list(v) for k, v in stat_launches.items()})} [{card}]")
-    return errs, ident, rows, seconds, any_d_keys(cm)
+          f"{t_checks - t0:.4g}, the timings {time.perf_counter() - t_checks:.4g}; the "
+          f"statistics {stats['seconds']:.4g} s beside phase 39, their engines' launches "
+          f"{json.dumps(stats['launches'])} [{card}]")
+    return errs, ident, rows, seconds, any_d_keys(cm, _build)
+
+# ---- phase 43: the matmul engine at any (d, k) and dot precision -------------
+#: the matmul shapes of phase 43 and tests/test_torch_any_mm_shapes.py, label
+#: "<config> <d>x<k>" -> (model, its arguments, ε, M): the JAX package's own
+#: codegen shapes (tests/test_pallas_engine.py:58, :437; sparse coding on the
+#: patch linspace(-1, 1, 64)), an overcomplete product of t, one whose d and
+#: k are no multiples of 4, a logreg whose padded observation rows must add no
+#: ln 2, sparse coding whose parameter matrix fits on chip with a smaller
+#: tile only, and one whose does not fit (it sits in device memory). ε is
+#: about one over the energy's stiffest frequency (ε·ω ≤ 1.4)
+ANY_MM_SHAPES = {
+    "sparse_coding 96x64": ("SparseCoding", dict(patch=64, nbasis=96), 0.02, 10),
+    "logreg 16x64": ("LogisticRegression", dict(ndims=16, nobs=64), 0.25, 10),
+    "product_of_t 36x72": ("ProductOfT", dict(ndims=36, nbasis=72), 0.12, 10),
+    "product_of_t 10x13": ("ProductOfT", dict(ndims=10, nbasis=13), 0.12, 10),
+    "logreg 7x100": ("LogisticRegression", dict(ndims=7, nobs=100), 0.25, 10),
+    "sparse_coding 200x100": ("SparseCoding", dict(npixels=100, nbasis=200), 0.02, 10),
+    "sparse_coding 288x144": ("SparseCoding", dict(npixels=144, nbasis=288), 0.02, 10),
+}
+#: the dot precisions each shape runs at beyond its spec's JAX default, and
+#: a preset shape at a (body, precision) pair the library lacks
+ANY_MM_PRECISIONS = {"product_of_t 36x72": ("highest", "bf16x3", "bf16x2")}
+ANY_MM_PRESET_PAIRS = (("logreg 16x256", "control", "bf16x3"),)
+ANY_MM_CHAINS = 4096
+ANY_MM_NUTS_DEPTH = 4  # max_depth of phase 43's two-iteration checks
+#: the shapes whose NUTS instance phase 43 also holds at the CLI's max_depth
+#: (one fixed-uniform iteration at ANY_MM_DEEP_CHAINS chains: every chain
+#: runs the full tree, its rows past depth 4 and, at 288x144, its tree state
+#: in the device buffer after the parameter matrix), the plain version on
+#: the CPU in ANY_MM_DEEP_WORKERS processes beside the other checks; the
+#: timings run at that depth too
+ANY_MM_DEEP_NUTS = ("sparse_coding 200x100", "sparse_coding 288x144")
+ANY_MM_DEEP_CHAINS = 1024
+ANY_MM_DEEP_WORKERS = 6
+ANY_MM_BETA = {"mjhmc": 0.1, "control": 0.2, "malt": 1.0, "nuts": 0.0}
+#: (iterations held, iterations timed) of phase 43
+ANY_MM_ITERS = (2, 20)
+
+
+def any_mm_model(models, name, kw):
+    """A model of ``models`` (this package's or the JAX package's) from its
+    ANY_MM_SHAPES entry; ``patch``: ``with_patch`` on linspace(-1, 1, patch)."""
+    if "patch" in kw:
+        n = kw["patch"]
+        patch = [-1.0 + 2.0 * i / (n - 1) for i in range(n)]
+        return models.SparseCoding.with_patch(patch, nbasis=kw["nbasis"])
+    return getattr(models, name)(**kw)
+
+
+def any_mm_dists():
+    """label -> (distribution, ε, M) of every shape of ANY_MM_SHAPES."""
+    from mjhmc_tpu_torch import models
+
+    return {label: (any_mm_model(models, name, kw), eps, m)
+            for label, (name, kw, eps, m) in ANY_MM_SHAPES.items()}
+
+
+def any_mm_cases(cm):
+    """(label, distribution, spec, body, ε, M) of every on-demand matmul
+    instance of phase 43: the four bodies at every shape at the spec's JAX
+    default precision and at ANY_MM_PRECISIONS, and ANY_MM_PRESET_PAIRS."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+
+    out = []
+    for label, (dist, eps, m) in any_mm_dists().items():
+        spec = cm.energy_spec_for(dist)
+        for prec in (spec.precision, *ANY_MM_PRECISIONS.get(label, ())):
+            for body in ZOO_BODIES:
+                out.append((label, dist, at(spec, prec), body, eps, m))
+    for label, body, prec in ANY_MM_PRESET_PAIRS:
+        cfg = BENCHMARK_CONFIGS[label.split()[0]]
+        dist = cfg.make_distribution()
+        out.append((label, dist, at(cm.energy_spec_for(dist), prec), body, cfg.epsilon,
+                    cfg.num_leapfrog_steps))
+    return out
+
+
+def any_mm_instances(cm, _build):
+    """{(label, precision, body): the on-demand instance (``_build.Instance``)}
+    of every case of ``any_mm_cases``; none is compiled ahead."""
+    out = {}
+    for label, _, spec, body, _, _ in any_mm_cases(cm):
+        check(not cm.mm_compiled_ahead(spec, sweep_run=False),
+              f"{label} {body} at {spec.precision} is in the library")
+        rule = cm.nuts_mm_tile_rule(spec) if body == "nuts" else cm.mm_tile_rule(spec, body)
+        out[(label, spec.precision, body)] = _build.mm_instance(
+            cm.KERNEL_VARIANTS[body], spec.energy_id, *cm.mm_shape(spec),
+            cm.PRECISIONS.index(spec.precision), rule.off)
+    return out
+
+
+def any_mm_builds(_build, done, card):
+    """Phase 43's build report from phase 2's builds: each on-demand
+    library's nvcc seconds in this run (or that it was reused) and its
+    ptxas registers and spills. Returns {instance: nvcc seconds, None for a
+    reused library}."""
+    built = sum(s is not None for _, s, _ in done.values())
+    phase("43 any (d, k)", f"{len(done)} on-demand matmul libraries from phase 2, {built} built "
+          f"in this run and {len(done) - built} reused from the build directory [{card}]")
+    seconds = {}
+    for inst, (path, nvcc_s, _) in sorted(done.items(), key=lambda kv: kv[0].stem):
+        seconds[inst] = nvcc_s
+        ptx = "; ".join(f"{k}: {r} registers, {sp} B spill stores"
+                        for k, r, sp in ptxas_report(_build.instance_log(inst)))
+        took = "reused, not built in this run" if nvcc_s is None else f"nvcc {nvcc_s:.1f} s"
+        phase("43 any (d, k)", f"{path.name}: {took}; ptxas {ptx}")
+    return seconds
+
+
+def any_mm_tiles(cm, card):
+    """Each on-demand instance's tile as it reports it against the tile
+    rule's mirror: mm_kernel's (chains, threads, shared bytes) with and
+    without the branches, NUTS's at max_depth 1, 8 and 12; the blocks an SM
+    holds at least 1; the parameter matrix off chip at (288, 144) only."""
+    tiles = {}
+    for label, _, spec, body, _, _ in any_mm_cases(cm):
+        key = f"{label} {spec.precision} {body}"
+        if body == "nuts":
+            rule = cm.nuts_mm_tile_rule(spec)
+            for depth in (1, CLI_NUTS_DEPTH, cm.NUTS_MM_MAX_DEPTH):
+                got = cm.nuts_mm_tile(spec, depth)
+                want = (rule.chains, rule.threads, cm.nuts_mm_smem_bytes(spec, depth))
+                check(got[:3] == want and got[3] >= 1, f"NUTS tile of {key} (max_depth {depth}): "
+                      f"the instance's {got}, the mirror's {want}")
+                tiles[f"{key} max_depth {depth}"] = got
+        else:
+            rule = cm.mm_tile_rule(spec, body)
+            for br in (True, False) if body == "mjhmc" else (True,):
+                got = cm.mm_tile(spec, body, br)
+                want = (rule.chains, rule.threads, cm.mm_smem_bytes(spec, body, br))
+                check(got[:3] == want and got[3] >= 1, f"mm_kernel tile of {key}"
+                      f"{' branches' if br else ''}: the instance's {got}, the mirror's {want}")
+                tiles[f"{key}{' branches' if br else ''}"] = got
+        check(rule.off == label.endswith("288x144"), f"{key}: parameter matrix off chip "
+              f"{rule.off}")
+        tiles[f"{key} parameter matrix"] = "device memory" if rule.off else "shared memory"
+    phase("43 any (d, k)", f"on-demand tiles (chains, threads, shared bytes a block, blocks an "
+          f"SM), instance = mirror: {json.dumps(tiles)} [{card}]")
+
+
+def any_mm_energy_check(cm, dist, spec, body, n):
+    """The contraction and the energy alone: one iteration at ε = 0 leaves
+    x where it starts, so the gradient and U that come out are the
+    instance's at the plain version's x, on every chain. Returns (largest
+    relative U error, largest relative gradient error)."""
+    st = initial_state(dist, n, seed=3)
+    args = (spec, *st, 7, 0.0, ANY_MM_BETA[body])
+    k = cm.cuda_mjhmc_mm_run(*args, 1, 1, fixed_uniform=True, variant=body)
+    r = cm.run_reference(*args, 1, 1, True, variant=body)
+    check(torch.equal(k.x, st[0]) and torch.equal(r.x, st[0]), "eps 0: x must stay")
+    u_rel = float(((k.u - r.u).abs() / r.u.abs().clamp(min=1e-30)).max())
+    g_rel = float(((k.grad - r.grad).abs() / (r.grad.abs() + 1e-4 * r.grad.abs().max())).max())
+    return u_rel, g_rel
+
+
+def any_mm_perturbations(bf16):
+    """The perturbed plain runs of phase 43, as (x moved one ulp toward,
+    ε moved one ulp toward, depth slices of the contractions): x and ε up
+    and down and, at the bf16 precisions, the contractions in halves and
+    quarters of their depth."""
+    inf = float("inf")
+    return ([(to, None, 1) for to in (inf, -inf)] + [(None, to, 1) for to in (inf, -inf)]
+            + ([(None, None, 2), (None, None, 4)] if bf16 else []))
+
+
+def any_mm_plain(cm, spec, st, seed, eps, beta, iters, m, fixed, x_to=None, e_to=None,
+                 parts=1, **kw):
+    """The plain stream of phase 43 from ``st``, perturbed as
+    ``any_mm_perturbations`` describes (none by default)."""
+    x0 = st[0] if x_to is None else torch.nextafter(st[0], torch.full_like(st[0], x_to))
+    e = eps if e_to is None else float(torch.nextafter(torch.tensor(eps), torch.tensor(e_to)))
+    with split_depth(cm, parts) if parts > 1 else contextlib.nullcontext():
+        return cm.stream_reference(spec, x0, *st[1:], seed, e, beta, iters, 1, m, fixed, **kw)
+
+
+def any_mm_deep_plain(label, arrays, eps, x_to, e_to, parts):
+    """One plain run of an ANY_MM_DEEP_NUTS case on the CPU, a worker
+    process's job: from the NumPy start ``arrays``, perturbed as
+    ``any_mm_plain``. Returns (xs, es, RunOut's fields) as NumPy arrays."""
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    torch.set_num_threads(1)
+    spec = cm.energy_spec_for(any_mm_dists()[label][0])
+    st = [torch.from_numpy(a) for a in arrays]
+    xs, _, es, r = any_mm_plain(cm, spec, st, 7, eps, 0.0, 1, CLI_NUTS_DEPTH, True, x_to, e_to,
+                                parts, variant="nuts")
+    return xs.numpy(), es.numpy(), tuple(t.numpy() for t in r)
+
+
+def start_any_mm_deep(cm):
+    """Phase 43's ANY_MM_DEEP_NUTS cases, each NUTS instance at its spec's
+    JAX default precision: their starts (ANY_MM_DEEP_CHAINS chains, seed 1)
+    and, in a pool of ANY_MM_DEEP_WORKERS processes on the CPU, their plain
+    runs and every perturbed one (used only where a count passes its limit,
+    as phase 43's others are made). Returns (the pool, {(label, precision,
+    "nuts"): (start, {(x toward, ε toward, depth slices): future})}), the
+    unperturbed run's key (None, None, 1)."""
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        ANY_MM_DEEP_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    out = {}
+    for label, dist, spec, body, eps, _ in any_mm_cases(cm):
+        if (body != "nuts" or label not in ANY_MM_DEEP_NUTS
+                or spec.precision != cm.energy_spec_for(dist).precision):
+            continue
+        st = initial_state(dist, ANY_MM_DEEP_CHAINS, seed=1)
+        arrays = tuple(t.cpu().numpy() for t in st)
+        runs = [(None, None, 1), *any_mm_perturbations(spec.precision != "highest")]
+        out[(label, spec.precision, body)] = (st, {
+            key: pool.submit(any_mm_deep_plain, label, arrays, eps, *key) for key in runs})
+    return pool, out
+
+
+def any_mm_checks(cm, card, deep):
+    """Phase 43: every on-demand instance, run and stream kernels, against
+    its plain version on the card at ANY_MM_CHAINS chains, from v ~ N(0, I):
+    first U and the gradient at ε = 0 (``any_mm_energy_check``: U to f32
+    rounding, rtol 1e-5, where a padded row's softplus(0) would move it by
+    k·ln 2), then ANY_MM_ITERS[0] iterations in fixed-uniform and in Philox
+    mode (NUTS at max_depth ANY_MM_NUTS_DEPTH) and, for ``deep``'s NUTS
+    instances (``start_any_mm_deep``), one fixed-uniform iteration at
+    max_depth CLI_NUTS_DEPTH against the plain runs made on the CPU.
+    Fixed-uniform counters and
+    stream es exact but for NUTS (as phases 21 and 30). Decisions (counters,
+    es, and but for NUTS whether x moved each iteration) equal on all but a
+    chains, x, v, g, u and every emitted x within rtol 1e-4 (atol 1e-4 of
+    the largest) on all but a of the agreeing chains, where a = 0.1% of the
+    chains or as many as the perturbed plain runs change: one-ulp nudges of
+    x and ε (up, down) and, at the bf16 precisions, the contractions summed
+    in halves and quarters of their depth (phase 30's runs); at the bf16
+    precisions the limit carries phase 30's Poisson margin, a + 3√a. The
+    perturbed runs are made only where a count passes the limit at a = 0.1%
+    (the same pass/fail). Control, MALT and NUTS: w = the iterations, ws =
+    1; MJHMC: Σw within rtol 1e-4, or twice the largest change a perturbed
+    run makes to it (its relative change, or the root sum of squares of its
+    per-chain changes over Σw; phase 30's rule) if more, the perturbed runs
+    made where Σw passes 1e-4. Returns {(label, precision, body): (max |dx|
+    on the held fixed-uniform chains, U error, gradient error)}."""
+    out = {}
+    n, held = ANY_MM_CHAINS, ANY_MM_ITERS[0]
+    for label, dist, spec, body, eps, m0 in any_mm_cases(cm):
+        nuts, mj = body == "nuts", body == "mjhmc"
+        bf16 = spec.precision != "highest"
+        m, beta = (ANY_MM_NUTS_DEPTH if nuts else m0), ANY_MM_BETA[body]
+        kw = dict(variant=body)
+        u_rel, g_rel = any_mm_energy_check(cm, dist, spec, body, n)
+        check(u_rel <= 1e-5, f"{label} {body} at {spec.precision} ({n} chains, eps 0): U off "
+              f"by {u_rel:.3g} relative")
+        errs = []
+        # (fixed-uniform, seed, M or max_depth, iterations, chains, the plain
+        # runs made on the CPU or None)
+        modes = [(True, 7, m, held, n, None), (False, 12345, m, held, n, None)]
+        if (label, spec.precision, body) in deep:
+            modes.append((True, 7, CLI_NUTS_DEPTH, 1, ANY_MM_DEEP_CHAINS,
+                          deep[(label, spec.precision, body)]))
+        for i, (fixed, seed, m, iters, nc, on_cpu) in enumerate(modes):
+            st = initial_state(dist, nc, seed=1 if fixed else 2) if on_cpu is None else on_cpu[0]
+            args = (spec, *st, seed, eps, beta)
+            k = cm.cuda_mjhmc_mm_run(*args, iters, m, fixed_uniform=fixed, **kw)
+            xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_mm_stream_run(*args, iters, 1, m,
+                                                                 fixed_uniform=fixed, **kw)
+
+            def plain(x_to=None, e_to=None, parts=1, st=st, seed=seed, m=m, iters=iters,
+                      fixed=fixed, on_cpu=on_cpu):
+                if on_cpu is None:
+                    return any_mm_plain(cm, spec, st, seed, eps, beta, iters, m, fixed, x_to,
+                                        e_to, parts, **kw)
+                xs, es, r = on_cpu[1][(x_to, e_to, parts)].result()
+                return (torch.from_numpy(xs).to(DEV), None, torch.from_numpy(es).to(DEV),
+                        cm.RunOut(*(torch.from_numpy(t).to(DEV) for t in r)))
+            xs_r, _, es_r, r = plain()
+            moved_r = None if nuts else moves(xs_r, st[0], r.x if mj else None)
+
+            def decisions(run, xs, es, x0):
+                same = (run.evals == r.evals) & (es == es_r).all(dim=0)
+                if not nuts:
+                    same &= (moves(xs, x0, run.x if mj else None) == moved_r).all(dim=0)
+                return same
+
+            def agree(run, xs):
+                return chains_within(run, r) & stream_within(xs, xs_r)
+
+            same = decisions(k, xs_k, es_k, st[0]) & decisions(so_k, xs_k, es_k, st[0])
+            within = agree(k, xs_k) & agree(so_k, xs_k)
+            differ, outside = int((~same).sum()), int((same & ~within).sum())
+
+            def limit(a):
+                return a + 3 * a**0.5 if bf16 else a
+            flips, drift = torch.zeros_like(same), torch.zeros_like(same)
+            w_rel = float((k.w.double().sum() - r.w.double().sum()).abs() / r.w.double().sum())
+            spread = 0.0
+            perturbed = max(differ, outside) > limit(0.001 * nc) or (mj and w_rel > 1e-4)
+            if perturbed:
+                for x_to, e_to, parts in any_mm_perturbations(bf16):
+                    xs_n, _, es_n, r_n = plain(x_to, e_to, parts)
+                    x_n = st[0] if x_to is None else torch.nextafter(
+                        st[0], torch.full_like(st[0], x_to))
+                    same_n = decisions(r_n, xs_n, es_n, x_n)
+                    flips |= ~same_n
+                    drift |= same_n & ~agree(r_n, xs_n)
+                    dw = r_n.w.double() - r.w.double()
+                    spread = max(spread, float(dw.square().sum().sqrt() / r.w.double().sum()),
+                                 float(dw.sum().abs() / r.w.double().sum()))
+            allow_dec = limit(max(0.001 * nc, int(flips.sum())))
+            allow_states = limit(max(0.001 * nc, int(drift.sum())))
+            mode = "fixed-uniform" if fixed else "Philox"
+            what = (f"{label} {body} at {spec.precision} ({nc} chains, eps {eps}, "
+                    f"{'max_depth' if nuts else 'M'} {m}, {iters} iterations, {mode}"
+                    f"{', the plain version on the CPU' if on_cpu else ''})")
+            if fixed and not nuts:
+                check(torch.equal(k.evals, r.evals) and torch.equal(es_k, es_r)
+                      and torch.equal(es_k[-1], so_k.evals), f"{what}: counters differ")
+            check(differ <= allow_dec, f"{what}: decisions differ on {differ} chains, "
+                  f"{allow_dec:.4g} allowed")
+            check(outside <= allow_states, f"{what}: {outside} chains with equal decisions "
+                  f"outside rtol 1e-4, {allow_states:.4g} allowed")
+            if mj:
+                assert_close(k.w.sum(), r.w.sum(), max(1e-4, 2 * spread), 0.0, f"{what} sum of w")
+            else:
+                check(bool((k.w == iters).all()) and bool((ws_k == 1).all()), f"{what}: w, ws")
+            ok = same & within
+            dx = (k.x - r.x).abs()
+            err = float(dx[:, ok].max()) if bool(ok.any()) else float(dx.max())
+            if fixed:
+                errs.append(err)
+            phase("43 any (d, k)", f"{what}: decisions equal on {1 - differ / nc:.5f} ({differ} "
+                  f"differ); x,v,g,u and stream xs rtol 1e-4 on all but {outside} of the others "
+                  f"(max|dx| {err:.3g}); "
+                  + (f"the perturbed plain runs change {int(flips.sum())} chains' decisions and "
+                     f"move {int(drift.sum())} more (limits {allow_dec:.4g}, "
+                     f"{allow_states:.4g})" if perturbed else "no perturbed runs needed")
+                  + (f"; eps 0: U rtol {u_rel:.3g}, gradient {g_rel:.3g}" if i == 0 else ""))
+        out[(label, spec.precision, body)] = (max(errs), u_rel, g_rel)
+    return out
+
+
+def any_mm_stats(cm, cli, card):
+    """Phase 43's statistics at new shapes, through the engines and the
+    CLI: JAX's logreg Laplace-variance oracle (tests/test_pallas_engine.py:
+    548-557: ε 0.25, β 0.15, M 10, 2,048 chains, 400 + 1,500, median ratio
+    within 0.25) at (16, 64) and (7, 100); JAX's sparse-coding check
+    (:340-370: dwell mass within 5% and the median dwell-weighted variance
+    ratio within 0.15 of the plain MJHMC sampler; ε 0.02, β 0.1, M 5, 2,048
+    chains, 400 + 600) at (96, 64); and ``sample --config logreg`` with the
+    config's model at (16, 64). Returns {key: (run, stream) launches,
+    counted from 0 just before}."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.samplers import MarkovJumpHMC
+
+    dists = any_mm_dists()
+    launches = {}
+    for label in ("logreg 16x64", "logreg 7x100"):
+        dist = dists[label][0]
+        cm.reset_counts()
+        t0 = time.perf_counter()
+        eng = cm.CudaMJHMC(dist, epsilon=0.25, beta=0.15, num_leapfrog_steps=10, nbatch=2048,
+                           seed=0, device=DEV)
+        eng.run(400)
+        out = eng.run(1500)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches[f"{label} laplace"] = counts(cm, "launches", mm=True)
+        ratio = (cm.CudaMJHMC.moments(out)[1].double().cpu()
+                 / torch.as_tensor(dist.laplace_var(), dtype=torch.float64))
+        med = float(ratio.median())
+        check(launches[f"{label} laplace"][0] > 0 and abs(med - 1) < 0.25,
+              f"{label}: median var/Laplace {med}")
+        phase("43 any (d, k) stats", f"CudaMJHMC {label} at {eng.spec.precision} (2,048 chains, "
+              f"eps 0.25, beta 0.15, M 10, 400 + 1500): median var/Laplace {med:.5f} (0.25), "
+              f"in [{float(ratio.min()):.4f}, {float(ratio.max()):.4f}]; launches "
+              f"{launches[f'{label} laplace']}; {sec:.3g} s host clock [{card}]")
+
+    dist = dists["sparse_coding 96x64"][0]
+    cm.reset_counts()
+    t0 = time.perf_counter()
+    eng = cm.CudaMJHMC(dist, epsilon=0.02, beta=0.1, num_leapfrog_steps=5, nbatch=2048, seed=0,
+                       device=DEV)
+    eng.run(400)
+    out = eng.run(600)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches["sparse_coding 96x64 moments"] = counts(cm, "launches", mm=True)
+    dwell_p = float(out.w.double().sum()) / (eng.nbatch * 600)
+    var_p = cm.CudaMJHMC.moments(out)[1].double().cpu()
+    t0 = time.perf_counter()
+    ref = MarkovJumpHMC(dist, epsilon=0.02, beta=0.1, num_leapfrog_steps=5, nbatch=2048, seed=1,
+                        device=DEV)
+    ref.burn_in(400)
+    rout = ref.sample(600)
+    plain_s = time.perf_counter() - t0
+    w = rout["dwell"].double()[:, None, :]
+    xs = rout["x"].double()
+    mean_x = (w * xs).sum(dim=(0, 2)) / w.sum()
+    var_x = ((w * xs**2).sum(dim=(0, 2)) / w.sum() - mean_x**2).cpu()
+    dwell_x = float(rout["dwell"].double().mean())
+    med = float((var_p / var_x).median())
+    check(abs(dwell_p - dwell_x) < 0.05 * dwell_x and abs(med - 1) < 0.15,
+          f"sparse_coding 96x64: dwell {dwell_p} vs {dwell_x}, median var ratio {med}")
+    phase("43 any (d, k) stats", f"CudaMJHMC sparse_coding 96x64 at {eng.spec.precision} (2,048 "
+          f"chains, eps 0.02, beta 0.1, M 5, 400 + 600) against the plain MarkovJumpHMC: dwell "
+          f"{dwell_p:.5f} vs {dwell_x:.5f} (5%), median var ratio {med:.5f} (0.15); launches "
+          f"{launches['sparse_coding 96x64 moments']}; engine {sec:.3g} s, plain sampler "
+          f"{plain_s:.3g} s host clock [{card}]")
+
+    cfg = BENCHMARK_CONFIGS["logreg"]
+    BENCHMARK_CONFIGS["logreg"] = dataclasses.replace(
+        cfg, dist_kwargs=(("ndims", 16), ("nobs", 64)))
+    try:
+        cm.reset_counts()
+        rec, cl, sec = run_cli(cli, ["sample", "--config", "logreg", "--engine", "cuda",
+                                     "--burn", "200", "--steps", "400"],
+                               {"mm_run": cm.cuda_mjhmc_mm_run,
+                                "mm_stream": cm.cuda_mjhmc_mm_stream_run})
+    finally:
+        BENCHMARK_CONFIGS["logreg"] = cfg
+    launches["cli logreg 16x64"] = (cl["mm_run"], cl["mm_stream"])
+    check(cl["mm_run"] > 0 and cl["mm_stream"] > 0 and rec["chains"] == cfg.nbatch
+          and rec["grad_evals"] >= cfg.num_leapfrog_steps * 600 * cfg.nbatch
+          and all(v > 0 and v == v for v in rec["var"]),
+          f"sample --config logreg at (16, 64): {rec}, launches {cl}")
+    phase("43 any (d, k) stats", f"sample --config logreg with LogisticRegression(ndims=16, "
+          f"nobs=64): {json.dumps(rec)}; launches {cl}; {sec:.4g} s host clock [{card}]")
+    return launches
+
+
+def any_mm_timing(cm, card):
+    """Phase 43: ms an iteration (CUDA events) of every on-demand instance,
+    run and stream, through the engines at ANY_MM_CHAINS chains and the
+    shape's ε and M (NUTS at the CLI's max_depth), beside the plain
+    version (one iteration); each engine's launches counted from 0 just
+    before it.
+    Returns {(label, precision, body): (run ms, stream ms, plain run ms,
+    plain stream ms, gradients, iterations, chains, (run, stream)
+    launches)}."""
+    rows = {}
+    ecls = {"nuts": cm.CudaNUTS, "mjhmc": cm.CudaMJHMC, "control": cm.CudaControlHMC,
+            "malt": cm.CudaMALT}
+    n, iters = ANY_MM_CHAINS, ANY_MM_ITERS[1]
+    for label, dist, spec, body, eps, m0 in any_mm_cases(cm):
+        nuts = body == "nuts"
+        m, beta = (CLI_NUTS_DEPTH if nuts else m0), ANY_MM_BETA[body]
+        cm.reset_counts()
+        eng = ecls[body](dist, epsilon=eps, beta=beta, num_leapfrog_steps=m, nbatch=n, seed=4,
+                         device=DEV)
+        eng.spec = spec
+        eng.run(2)
+        before = eng.grad_evals
+        run_ms = events_ms(lambda: eng.run(iters)) / iters
+        grads = eng.grad_evals - before
+        stream_ms = events_ms(lambda: eng.sample(iters)) / iters
+        launches = counts(cm, "launches" if body == "mjhmc" else f"{body}_launches", mm=True)
+        check(all(v > 0 for v in launches), f"{label} {body}: kernels not launched")
+        args = (spec, *initial_state(dist, n, seed=5), 99, eps, beta)
+        pkw = dict(variant=body)
+        plain_ms = events_ms(lambda: cm.run_reference(*args, 1, m, **pkw))
+        plain_stream_ms = events_ms(lambda: cm.stream_reference(*args, 1, 1, m, **pkw))
+        rows[(label, spec.precision, body)] = (run_ms, stream_ms, plain_ms, plain_stream_ms,
+                                               grads, iters, n, launches)
+        phase("43 any (d, k) timing", f"{body} {label} at {spec.precision} ({n} chains, eps "
+              f"{eps}, beta {beta}, {'max_depth' if nuts else 'M'} {m}): run {run_ms:.6g} "
+              f"ms/iteration, stream (thin 1) {stream_ms:.6g}; plain version run "
+              f"{plain_ms:.6g}, stream {plain_stream_ms:.6g} ms/iteration; "
+              f"{grads / (n * iters):.5g} {'leaves' if nuts else 'gradients'} per chain and "
+              f"iteration [{card}]")
+    return rows
+
+
+def any_mm_entries(cm, entry, errs, rows, seconds, instances):
+    """The kernels line's entries of phase 43: every on-demand matmul
+    instance, run and stream; launches and times from phase 43's engines,
+    errors from its fixed-uniform checks, its library's nvcc seconds in this
+    run (null where it was built before and reused)."""
+    from mjhmc_tpu_torch.bench_mfu import PASSES
+
+    out = []
+    variants = {"nuts": NUTS_VARIANT, "mjhmc": MJHMC_VARIANT, "control": CONTROL_VARIANT,
+                "malt": MALT_VARIANT}
+    for label, _, spec, body, _, _ in any_mm_cases(cm):
+        key = (label, spec.precision, body)
+        run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n, launches = rows[key]
+        cname = label.split()[0]
+        d, k = cm.mm_shape(spec)
+        err, u_rel, g_rel = errs[key]
+        for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
+            stream = idx == 1
+            out.append(entry(
+                f"{body}_mm_{suffix}[{label}, {spec.precision}]", MM_ONDEMAND_SRC, src,
+                launches[idx], err, stream_ms if stream else run_ms,
+                plain_stream_ms if stream else plain_ms,
+                bound(cname, body, d, k, n, iters, grads, iters if stream else 0,
+                      passes=PASSES.get(spec.precision, 0)),
+                variant=variants[body], energy=MM_ENERGIES[cname], precision=spec.precision,
+                instance="on demand", nvcc_s=seconds[instances[key]],
+                parameter_matrix="device memory" if instances[key].macros[-1].endswith("=1")
+                else "shared memory", u_rel_err=u_rel, grad_rel_err=g_rel,
+                shape=f"{label}, {n} chains, "
+                      f"{f'max_depth {CLI_NUTS_DEPTH}' if body == 'nuts' else 'its eps and M'}"
+                      f"{', thin 1' if stream else ''}, ms per iteration"))
+    return out
+
+
+def any_mm_phase(cm, cli, _build, card, done, stats):
+    """Phase 43: the on-demand matmul instances' builds (``done``, phase
+    2's), tiles, every instance against its plain version, the timings; the
+    statistics at new shapes (``any_mm_stats``) ran beside phase 39
+    (``stats``: their launches and seconds). Returns (errors, timing rows,
+    nvcc seconds, instances, the statistics' launches)."""
+    t0 = time.perf_counter()
+    pool, deep = start_any_mm_deep(cm)
+    try:
+        seconds = any_mm_builds(_build, done, card)
+        any_mm_tiles(cm, card)
+        errs = any_mm_checks(cm, card, deep)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        stop_children()  # the spawn pool's resource tracker
+    t_checks = time.perf_counter()
+    rows = any_mm_timing(cm, card)
+    phase("43 any (d, k)", f"phase 43 took {time.perf_counter() - t0:.4g} s: the checks "
+          f"{t_checks - t0:.4g}, the timings {time.perf_counter() - t_checks:.4g}; the "
+          f"statistics {stats['seconds']:.4g} s beside phase 39, their launches "
+          f"{json.dumps(stats['launches'])} [{card}]")
+    return errs, rows, seconds, any_mm_instances(cm, _build), stats["launches"]
+
 
 T0 = time.perf_counter()
+T0_WALL = time.time()
 DEV = "cuda"
 
 
@@ -4738,45 +5417,57 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()
     print(f"{name}, {limit}")  # as nvidia-smi --query-gpu=name,power.limit prints it
     phase("1 device", f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"{[ln for ln in nvcc if 'release' in ln][0]}")
+          f"{[ln for ln in nvcc if 'release' in ln][0]}; {len(os.sched_getaffinity(0))} "
+          f"cores; host probe (fixed Python work on one core) {host_probe():.3f} s")
 
     # ---- 2. build --------------------------------------------------------
     # the build waits on nvcc; meanwhile this thread imports torch._dynamo,
-    # which torch.optim.Adam's first use (phase 39's ADVI) pulls in; phase
-    # 42's on-demand instances build beside it, ANY_D_BUILDERS at a time,
+    # which torch.optim.Adam's first use (phase 39's ADVI) pulls in; phases
+    # 42's and 43's on-demand instances build beside it (start_ondemand_builds),
     # and the plain NUTS runs of phases 22 and 42 run on the CPU, each in a
     # process of its own. All of them end within this phase, before the
-    # first timing.
+    # first timing. The CPU seconds of its processes over the cores (the
+    # least it could take) are printed beside its length.
     t0 = time.perf_counter()
+    cpu0 = cpu_seconds()
     plain_procs = start_plain_nuts()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         built = pool.submit(_build.load)
-        od_pool, od_builds = start_any_d_builds(cm, _build)
+        od_pool, gate, (od_builds, mm_builds) = start_ondemand_builds(cm, _build)
         importlib.import_module("torch._dynamo")
         t_import = time.perf_counter() - t0
         built.result()
     t_lib = time.perf_counter() - t0
+    gate.release(ONDEMAND_BUILDERS - ONDEMAND_BESIDE_LIBRARY)
     od_done = {key: fut.result() for key, fut in od_builds.items()}
+    mm_done = {key: fut.result() for key, fut in mm_builds.items()}
     od_pool.shutdown()
     plain_nuts = plain_nuts_results(plain_procs)
+    cpu = cpu_seconds() - cpu0
+    cores = len(os.sched_getaffinity(0))
     phase("2 build", f"{t_lib:.1f} s -> {_build.library_path().name} (import torch._dynamo "
-          f"beside it: {t_import:.1f} s); beside it {len(od_done)} on-demand libraries, "
-          f"{ANY_D_BUILDERS} nvcc at a time, the last done "
-          f"{max(t for _, _, t in od_done.values()):.1f} s after the build began, and the plain "
-          f"NUTS runs on the CPU, done "
+          f"beside it: {t_import:.1f} s); beside it {len(od_done)} elementwise and "
+          f"{len(mm_done)} matmul on-demand libraries, {ONDEMAND_BESIDE_LIBRARY} nvcc at a "
+          f"time until the library was built, then {ONDEMAND_BUILDERS}, the last done "
+          f"{max(t for _, _, t in [*od_done.values(), *mm_done.values()]):.1f} s after the "
+          f"build began, and the plain NUTS runs on the CPU, done "
           f"{json.dumps({k: round(v['done_s'], 1) for k, v in plain_nuts.items()})} s after it "
-          f"began; phase 2 "
-          f"ends {time.perf_counter() - t0:.1f} s after it began, and no build or run of it "
-          f"goes on into the timed phases")
+          f"began; phase 2 ends {time.perf_counter() - t0:.1f} s after it began, and no build "
+          f"or run of it goes on into the timed phases. Its processes took {cpu:.1f} CPU "
+          f"seconds: {cpu / cores:.1f} s on the {cores} cores at the least")
     log = _build.build_log()
     for kernel, regs, spill in ptxas_report(log):
         phase("2 build", f"ptxas {kernel}: {regs} registers, {spill} bytes spill stores")
     phase("2 build", "sources, one nvcc each (seconds from the start of the build): " + "; ".join(
         ln[len("nvcc "):] for ln in log.splitlines() if re.match(r"nvcc \S+\.cu: ", ln)))
     # the contraction: hand-written mma.sync in every bf16 instance, FP32 FMA
-    # only in the full-f32 ones
-    hmma = hmma_counts(_build)
+    # only in the full-f32 ones; each instance's SASS digest, to hold the
+    # library's kernels to another build's (mm_sass)
+    sass = mm_sass(_build)
+    hmma = {k: c for k, (c, _) in sass.items()}
     phase("2 build", f"HMMA instructions in the SASS of each matmul instance: {json.dumps(hmma)}")
+    phase("2 build", "SASS digest of each matmul instance (its instructions, not its name): "
+          + json.dumps({k: dg for k, (_, dg) in sass.items()}))
     # the NUTS kernel's tiles as the library reports them, against the mirror
     # the wrappers read (chains a block for the grid, the scratch rule)
     tiles = {}
@@ -4785,7 +5476,7 @@ def main() -> int:
         for prec in ("highest", spec.precision):
             for depth in (1, MM_NUTS_DEPTH, 10, 11, cm.NUTS_MM_MAX_DEPTH):
                 got = cm.nuts_mm_tile(at(spec, prec), depth)
-                want = (*cm.NUTS_MM_TILES[type(spec)][:2],
+                want = (*cm.nuts_mm_tile_rule(at(spec, prec))[:2],
                         cm.nuts_mm_smem_bytes(at(spec, prec), depth))
                 check(got[:3] == want and got[3] >= 1, f"NUTS tile of {type(spec).__name__} at "
                       f"{prec}, max_depth {depth}: the library's {got}, the mirror's {want}")
@@ -4804,7 +5495,7 @@ def main() -> int:
             for body, br in (("mjhmc", False), ("mjhmc", True), ("control", True),
                              ("malt", True)) if every else (("mjhmc", False),):
                 got = cm.mm_tile(spec, body, br)
-                want = (*cm.MM_TILES[(spec_cls, body)], cm.mm_smem_bytes(spec, body, br))
+                want = (*cm.mm_tile_rule(spec, body)[:2], cm.mm_smem_bytes(spec, body, br))
                 check(got[:3] == want and got[3] >= 1, f"mm_kernel tile of {spec_cls.__name__} "
                       f"{body} at {p}{' branches' if br else ''}: the library's {got}, the "
                       f"mirror's {want}")
@@ -4865,6 +5556,12 @@ def main() -> int:
     check(len(hmma) == 3 * 2 * 12 + 1 + 4 + 3 + 3 and all(
         (c > 0) != label.endswith("highest") for label, c in hmma.items()),
         "every bf16 matmul instance must run HMMA and no full-f32 one")
+    # phase 40's plain rows: their process imports beside phases 3-38 and
+    # runs its rows beside phase 39
+    import tempfile
+
+    side_dir = tempfile.TemporaryDirectory()
+    side40 = start_plain_rows40(side_dir.name, plain_nuts["gaussian d8"])
 
     # ---- 3. kernels vs plain version, fixed-uniform mode -----------------
     rw = RoughWell()
@@ -5101,8 +5798,8 @@ def main() -> int:
 
     # ---- 21-24. slice K: NUTS and logreg on the matmul kernel ---------------
     # (the logreg bodies and branches are held in phases 15-16)
-    mm_nuts_err = mm_nuts_checks(cm)
-    deep_err, deep_times = mm_nuts_deep_checks(cm)
+    # the depth-12 cases' plain runs on the CPU beside the other checks
+    deep_err, deep_times, mm_nuts_err = mm_nuts_deep_checks(cm, lambda: mm_nuts_checks(cm))
     deep_preset = mm_nuts_deep_timing(cm, card)
     for key, c in slice_k_stats(cm, plain_nuts["product_of_t"]).items():
         drove(key, c, "phase 22: from_warmup, then run and sample")
@@ -5149,15 +5846,22 @@ def main() -> int:
         {f"{c} {s}": rec["value"] for (c, s), rec in ess_recs.items()}) + f" [{card}]")
 
     # ---- 39. slices D and F: the other samplers and the heads -----------------
+    # phase 40's plain rows run beside it, in the process started at phase 2's end
     t_39 = time.perf_counter()
+    go_plain_rows40(side40)
     rows39, sharded = samplers_and_heads(cm, cli, card, name)
-    phase("39 samplers and heads", f"phase 39 took {time.perf_counter() - t_39:.4g} s; rows "
+    phase("39 samplers and heads", f"phase 39 took {time.perf_counter() - t_39:.4g} s (phase "
+          f"40's plain rows beside it); rows "
           + json.dumps({k: round(v, 4) for k, v in rows39.items()}) + f" [{card}]")
 
     # ---- 40. slice H: the searches, the figures, the claim, bench --profile --
     t_40 = time.perf_counter()
-    rows40, profile_launches = search_and_figures(cm, cli, card)
-    phase("40 search and figures", f"phase 40 took {time.perf_counter() - t_40:.4g} s; rows "
+    rows40, profile_launches, side = search_and_figures(cm, cli, card, side40, side_dir.name)
+    side_dir.cleanup()
+    phase("40 search and figures", f"phase 40 took {time.perf_counter() - t_40:.4g} s after "
+          f"phase 39 (its plain rows {side['seconds']:.4g} s and the statistics of phases 42 "
+          f"and 43 {side['stats42']['seconds']:.4g} and {side['stats43']['seconds']:.4g} s in "
+          f"their own process, begun with phase 39); rows "
           + json.dumps({k: round(v, 4) for k, v in rows40.items()}) + f" [{card}]")
 
     # ---- 41. slice H part 3: bench_ess --tune/--table, two-stage, sharded SMC --
@@ -5167,7 +5871,10 @@ def main() -> int:
           + json.dumps({k: round(v, 4) for k, v in rows41.items()}) + f" [{card}]")
 
     # ---- 42. the elementwise engine at any D: on-demand instances -----------
-    any_d = any_d_phase(cm, _build, card, od_done, plain_nuts["gaussian d8"])
+    any_d = any_d_phase(cm, _build, card, od_done, side["stats42"])
+
+    # ---- 43. the matmul engine at any (d, k) and dot precision ---------------
+    any_mm = any_mm_phase(cm, cli, _build, card, mm_done, side["stats43"])
 
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
@@ -5356,6 +6063,7 @@ def main() -> int:
     kernels += precision_entries(entry, prec_err, sweep, prec_ms, dossier["ceilings"],
                                  main_runs)
     kernels += any_d_entries(entry, *any_d)
+    kernels += any_mm_entries(cm, entry, *any_mm[:4])
     rw_sh, sc_sh = sh["rough_well 10,000"], sh["sparse_coding 8,192 bf16x3"]
     kernels += [
         entry("sharded_mjhmc_run", KERNEL_SRC, SHARDED_SRC, sh["bench_scaling"]["launches"],
@@ -5393,7 +6101,10 @@ if __name__ == "__main__":
         sys.exit(phase35_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["--plain-nuts"]:
         sys.exit(plain_nuts_run(sys.argv[2]))
+    if sys.argv[1:2] == ["--plain-rows40"]:
+        sys.exit(plain_rows40_run(sys.argv[2], sys.argv[3]))
     try:
         sys.exit(main())
     finally:
+        SPARED.clear()
         stop_children()

@@ -2158,6 +2158,13 @@ extern template cudaError_t nuts_tile<50, kGaussian, false>(int, int, int*);
 // nuts_engine_d50_gaussian_mass.cu
 extern template Launch launch_instance<kNuts, 50, kGaussian, true>;
 extern template cudaError_t nuts_tile<50, kGaussian, true>(int, int, int*);
+// nuts_engine_d50_*_emit.cu: the emitting kernel (the stream's) of each
+// D=50 NUTS instance above, compiled by an nvcc of its own so that no source
+// holds two D=50 NUTS kernels (one took ~140 s of cicc and ptxas alone)
+extern template cudaError_t launch_nuts<50, kRoughWell, true, false>(const Args&, cudaStream_t);
+extern template cudaError_t launch_nuts<50, kRoughWell, true, true>(const Args&, cudaStream_t);
+extern template cudaError_t launch_nuts<50, kGaussian, true, false>(const Args&, cudaStream_t);
+extern template cudaError_t launch_nuts<50, kGaussian, true, true>(const Args&, cudaStream_t);
 // hmc_engine_d50.cu
 extern template Launch launch_instance<kControl, 50, kRoughWell, true>;
 extern template Launch launch_instance<kControl, 50, kGaussian, true>;

@@ -81,7 +81,7 @@ extern "C" int mjhmc_mm_engine_launch(
     return energy != kProductOfT || ndims != 36 || krows != 36 || emit || variant != kMjhmc ||
                    mass || two_stage
                ? cudaErrorInvalidValue
-               : launch<kProductOfT, kMjhmc, false, true, false, kHighest>(a, s);
+               : launch<kProductOfT, 36, 36, kMjhmc, false, true, false, kHighest>(a, s);
   Instance in;
   if (energy == kProductOfT && ndims == 36 && krows == 36)
     in = launcher<kProductOfT>(precision, variant);

@@ -1,9 +1,12 @@
 // Fused MJHMC, control HMC, MALT and NUTS engines for the matmul energies
 // on Hopper (sm_90a): a whole sampling run in one launch. This header holds
-// the kernels as templates; mjhmc_mm_engine.cu compiles the C entry and the
-// product-of-t instances at full f32, and the mm_engine_*.cu, mm_nuts_*.cu
-// and mm_sweep.cu sources the other instances (the list at the end of this
-// header), each by its own nvcc (ops/_build.py).
+// the kernels as templates on the energy's shape (D, K) beside the energy,
+// the body and the dot precision; mjhmc_mm_engine.cu compiles the C entry
+// and the product-of-t instances at full f32, and the mm_engine_*.cu,
+// mm_nuts_*.cu and mm_sweep.cu sources the presets' other instances (the
+// list at the end of this header), each by its own nvcc (ops/_build.py).
+// Any other (body, energy, D, K, precision) is compiled at its first use
+// from ondemand/mm_instance.cu.
 //
 // Replaces the TPU kernels _mjhmc_mm_kernel and _mjhmc_mm_stream_kernel
 // (mjhmc_tpu/ops/pallas_mjhmc.py:1265 and :1596) with the step bodies
@@ -18,40 +21,43 @@
 // weight 1) and cumulative evals with plain coalesced stores (no row
 // padding).
 //
-// Design (mm_kernel): a block owns a tile of CH chains (MmTile, per energy
-// and body, so that the presets' widths give 256-1,024 blocks, two or more
+// Design (mm_kernel): a block owns a tile of CH chains (MmTile, from the
+// tile rule by shape: at the presets' widths 256-1,024 blocks, two or more
 // resident on each of the 132 SMs). It loads the parameter matrix into
-// shared memory once (load_params). The trajectories of the tile are the
-// NC columns of (d, NC) arrays in shared memory: MJHMC spends two on each
-// chain (forward in column c, backward from (x, -v) in CH + c), control and
-// MALT one (forward only). Every leapfrog step runs the energy's two
-// contractions over all NC columns at once (product of t: y = Wᵀx, then
-// W·dU/dy; sparse coding: r = patch − Φa, then Φᵀr; logistic regression: z
-// = Xs·θ, then Xsᵀσ(z)) through contract() at the instance's precision P,
-// whose epilogues write the intermediate and the gradient G; a two-stage
-// step is two of them. The rest is the work of the chain's threads, T / CH
-// of them (tid % CH is the chain, tid / CH the thread's rank r among them):
-// the first R of them own the chain's dims in aligned groups of four (rank
-// r the groups r, r + R, ...), keep the chain's x, v, g, the Kahan pairs and
-// the trajectories' momenta of those dims in registers, run their
-// kick-drift (writing x into X for the contractions) and closing kick, and
-// draw their normals; every thread of the chain owns the rows r, r + T/CH,
-// ... of the intermediate. A chain's sums (its energy: the rows' terms and
-// sparse coding's and logreg's Σ over dims; ½vᵀM⁻¹v) are each thread's
-// partial sum in its own order, then the partials added in rank order
-// through shared memory (column_sum), so every thread of the chain holds the
-// chain's scalars alike (u, h_cur, MALT's running U, h_in and Δ, the
-// decision) and nothing is broadcast. A leapfrog step takes three
+// shared memory once (load_params), or, where no tile can hold it there,
+// reads it from a device buffer that params_kernel builds once a launch. The
+// tile covers D and K padded (mm_geom): a padded dim draws no momentum and
+// stays 0, and the energy's terms on padded dims and rows are masked. The
+// trajectories of the tile are the NC columns of (d, NC) arrays in shared
+// memory: MJHMC spends two on each chain (forward in column c, backward from
+// (x, -v) in CH + c), control and MALT one (forward only). Every leapfrog
+// step runs the energy's two contractions over all NC columns at once
+// (product of t: y = Wᵀx, then W·dU/dy; sparse coding: r = patch − Φa, then
+// Φᵀr; logistic regression: z = Xs·θ, then Xsᵀσ(z)) through contract() at
+// the instance's precision P, whose epilogues write the intermediate and the
+// gradient G; a two-stage step is two of them. The rest is the work of the
+// chain's threads, T / CH of them (tid % CH is the chain, tid / CH the
+// thread's rank r among them): the first R of them own the chain's dims in
+// aligned groups of four (rank r the groups r, r + R, ...), keep the chain's
+// x, v, g, the Kahan pairs and the trajectories' momenta of those dims in
+// registers, run their kick-drift (writing x into X for the contractions)
+// and closing kick, and draw their normals; every thread of the chain owns
+// the rows r, r + T/CH, ... of the intermediate. A chain's sums (its energy:
+// the rows' terms and sparse coding's and logreg's Σ over dims; ½vᵀM⁻¹v) are
+// each thread's partial sum in its own order, then the partials added in
+// rank order through shared memory (column_sum), so every thread of the
+// chain holds the chain's scalars alike (u, h_cur, MALT's running U, h_in
+// and Δ, the decision) and nothing is broadcast. A leapfrog step takes three
 // barriers: after the owners' kick-drift and after each contraction; an
 // iteration one more before its sums are read. MALT's per-step sums (U and
-// ½vᵀM⁻¹v after the step, ½vᵀM⁻¹v after the next O-step) are put before
-// the next step's kick-drift and read after its first barrier, so they
-// cost no barrier of their own. Product of t's and logreg's first
-// epilogue writes each row's energy term (log1p(y²/ν), softplus(z)) where
-// the energy is wanted, so the transcendentals run on every thread. The
-// contraction operands X, Z (and sparse coding's Y) have a row stride of
-// NC + 4 floats, so the B fragments' loads hit 32 banks. The inverse mass
-// sits in shared memory (rows M^-1 and sqrt(M), BR instances only).
+// ½vᵀM⁻¹v after the step, ½vᵀM⁻¹v after the next O-step) are put before the
+// next step's kick-drift and read after its first barrier, so they cost no
+// barrier of their own. Product of t's and logreg's first epilogue writes
+// each row's energy term (log1p(y²/ν), softplus(z)) where the energy is
+// wanted, so the transcendentals run on every thread. The contraction
+// operands X, Z (and sparse coding's Y) have a row stride of NC + 4 floats,
+// so the B fragments' loads hit 32 banks. The inverse mass sits in shared
+// memory (rows M^-1 and sqrt(M), BR instances only).
 //
 // Precisions (P, JAX's names): kHighest sums each thread's 4×4 register
 // tile in FP32 FMA (16 independent FMA chains per shared-memory load pair).
@@ -119,6 +125,13 @@ enum Variant { kMjhmc = 0, kNuts = 1, kControl = 2, kMalt = 3 };
 enum Precision { kHighest = 0, kBf16x3 = 1, kBf16x2 = 2, kDefault = 3 };
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int round_up(int a, int b) { return cdiv(a, b) * b; }
+__host__ __device__ constexpr int min_of(int a, int b) { return a < b ? a : b; }
+
+// Shared memory on the H100: what a block may opt into (227 KB), an SM's
+// (228 KB), and what an SM reserves for each resident block
+constexpr int kSmemBlock = 232448, kSmemSM = 233472, kSmemReserved = 1024;
 
 // BCSS two-stage coefficient b and 1 - 2b, rounded to float once
 constexpr float kTwoStageB = 0.1931833275037836f;
@@ -147,26 +160,32 @@ struct Args {
   unsigned long long* prof;
 };
 
-// The presets' shapes, one per energy: D state dims, K rows of the
-// intermediate (product of t: nbasis; sparse coding: npixels; logreg: nobs)
+// The presets' shapes, one per energy, which the library is compiled for: D
+// state dims, K rows of the intermediate (product of t: nbasis; sparse
+// coding: npixels; logreg: nobs). Every kernel takes its (D, K) as template
+// arguments; any other shape is an on-demand instance (ondemand/mm_instance.cu)
 template <int E> struct Shape;
 template <> struct Shape<kProductOfT> { static constexpr int D = 36, K = 36; };
 template <> struct Shape<kSparseCoding> { static constexpr int D = 128, K = 64; };
 template <> struct Shape<kLogreg> { static constexpr int D = 16, K = 256; };
 
-// The parameter matrix's shared memory, in floats: at kHighest two f32
-// copies (contraction 1's A1 [D][K]: W | Φᵀ | Xsᵀ, contraction 2's A2
-// [K][D]: Wᵀ | Φ | Xs), kF32 each; at the bf16 precisions none, and the A
-// fragments instead, in 32-bit words: contraction 1's hi, contraction 2's
-// hi, then (bf16x3) the two lo copies, kWords each (kFrag in all)
-template <int E, int P>
+// The parameter matrix at (D, K), in floats: at kHighest two f32 copies
+// (contraction 1's A1 [D][K4]: W | Φᵀ | Xsᵀ, contraction 2's A2 [K][D4]: Wᵀ |
+// Φ | Xs, their rows padded with zeros to multiples of four for the float4
+// tiles), kF32_1 and kF32_2; at the bf16 precisions none, and the A fragments
+// instead, in 32-bit words: contraction 1's hi, contraction 2's hi, then
+// (bf16x3) the two lo copies, kWords each (kFrag in all), zero past D and K.
+// They sit in shared memory, or (OFF, where they do not fit there) in a
+// device buffer of kFloats built once a launch (params_kernel).
+template <int D, int K, int P>
 struct Params {
-  static constexpr int D = Shape<E>::D, K = Shape<E>::K;
-  static_assert(D % 4 == 0 && K % 4 == 0, "float4 tiles");
-  static constexpr int kF32 = P == kHighest ? D * K : 0;
+  static constexpr int D4 = round_up(D, 4), K4 = round_up(K, 4);
+  static constexpr int kF32_1 = P == kHighest ? D * K4 : 0;
+  static constexpr int kF32_2 = P == kHighest ? K * D4 : 0;
   static constexpr int kWords = pad16(K) * pad16(D) / 2;  // one copy of one contraction
   static constexpr int kCopies = P == kHighest ? 0 : P == kBf16x3 ? 2 : 1;
   static constexpr int kFrag = 2 * kCopies * kWords;
+  static constexpr int kFloats = kF32_1 + kF32_2 + kFrag;
 };
 
 // out[r][col] = Σ_k A[k][r]·B[k][col] for r < R, col < NC, handed to
@@ -326,17 +345,21 @@ __device__ __forceinline__ void uniforms4(const Args& a, uint32_t chain, uint32_
 
 // The normals of dims i..i+3 (i % 4 == 0) of a chain, dim i + j's from
 // words w0 + i + j and w0 + D + i + j of the family tag's draw at slot
-// slot0 (w0: 0, or MJHMC's 1), times sqrt(M) of each (sqm; nullptr: 1)
-template <int D, int W0>
+// slot0 (w0: 0, or MJHMC's 1), times sqrt(M) of each (sqm; nullptr: 1).
+// PAD: the owners' dims run past D (a padded tile), whose normals are 0, so
+// a padded dim draws no momentum
+template <int D, int W0, bool PAD = false>
 __device__ __forceinline__ void normals4(const Args& a, uint32_t chain, uint32_t t, int i,
                                          uint32_t tag, uint32_t slot0, const float* sqm,
                                          uint2 key, float (&z)[4]) {
-  static_assert(D % 4 == 0, "words D+i..D+i+3 in one block");
   float u1[4], u2[4];
   uniforms4<W0 % 4>(a, chain, t, W0 + i, tag, slot0, key, u1);
-  uniforms4<W0 % 4>(a, chain, t, W0 + D + i, tag, slot0, key, u2);
+  uniforms4<(W0 + D) % 4>(a, chain, t, W0 + D + i, tag, slot0, key, u2);
 #pragma unroll
   for (int j = 0; j < 4; ++j) z[j] = box_muller(u1[j], u2[j], sqm ? sqm[i + j] : 1.f);
+  if constexpr (PAD)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) z[j] = i + j < D ? z[j] : 0.f;
 }
 
 // A[k][m] of contraction c (1: A1, K rows m of D deep; 2: A2, D rows of K
@@ -350,30 +373,27 @@ __device__ __forceinline__ float param_at(const Args& a, int c, int m, int k) {
     return c == 1 ? a.p0[m * D + k] : a.p0[k * D + m];
 }
 
-// The parameter matrix in both orientations (P kHighest: f32 at A1, A2;
-// otherwise bf16 A fragments of both contractions at frag), the patch
-// (where patch is not nullptr) and the mass (BR) into the block's shared
-// memory, then a barrier.
-template <int E, int D, int K, int T, bool BR, int P>
-__device__ __forceinline__ void load_params(const Args& a, float* A1, float* A2, float* patch,
-                                            float* IM, uint32_t* frag) {
-  const int tid = threadIdx.x;
+// The parameter matrix (Params) in both orientations at any (D, K): P
+// kHighest f32 at A1 [D][K4] and A2 [K][D4], their padding 0; otherwise the
+// bf16 A fragments of both contractions at frag, words start, start +
+// stride, ... (a block's threads, or params_kernel's grid)
+template <int E, int D, int K, int P>
+__device__ __forceinline__ void fill_params(const Args& a, float* A1, float* A2, uint32_t* frag,
+                                            int start, int stride) {
+  using PL = Params<D, K, P>;
   if constexpr (P == kHighest) {
-    for (int idx = tid; idx < D * K; idx += T) {
-      const float val = a.p0[idx];
-      if constexpr (E == kProductOfT) {  // p0 = W (D, K)
-        A1[idx] = val;
-        A2[(idx % K) * D + idx / K] = val;
-      } else {  // p0 = Φ or Xs (K, D)
-        A2[idx] = val;
-        A1[(idx % D) * K + idx / D] = val;
-      }
+    for (int idx = start; idx < PL::kF32_1 + PL::kF32_2; idx += stride) {
+      if (idx < PL::kF32_1)
+        A1[idx] = param_at<E, D, K>(a, 1, idx % PL::K4, idx / PL::K4);
+      else
+        A2[idx - PL::kF32_1] = param_at<E, D, K>(a, 2, (idx - PL::kF32_1) % PL::D4,
+                                                 (idx - PL::kF32_1) / PL::D4);
     }
   } else {
     // word w of contraction c: register h of lane (g, q) of fragment
     // (mt, kt), holding A[k][m], A[k+1][m] (contract's A-fragment order)
-    constexpr int W = Params<E, P>::kWords;
-    for (int w = tid; w < 2 * W; w += T) {
+    constexpr int W = PL::kWords;
+    for (int w = start; w < 2 * W; w += stride) {
       const int c = w < W ? 1 : 2, wi = w % W;
       const int kt_count = pad16(c == 1 ? D : K) / 16;
       const int h = wi % 4, lane = (wi / 4) % 32, blk = wi / 128;
@@ -385,10 +405,68 @@ __device__ __forceinline__ void load_params(const Args& a, float* A1, float* A2,
       if constexpr (P == kBf16x3) frag[2 * W + w] = lo;
     }
   }
-  if (E == kSparseCoding && patch)
-    for (int idx = tid; idx < K; idx += T) patch[idx] = a.p1[idx];
-  if (BR)
-    for (int idx = tid; idx < 2 * D; idx += T) IM[idx] = a.mass ? a.mass[idx] : 1.f;
+}
+
+// The parameter matrix into a device buffer (the OFF instances': a.scratch,
+// Params::kFloats), once a launch, before the kernel that reads it
+template <int E, int D, int K, int P>
+__global__ void __launch_bounds__(256) params_kernel(Args a) {
+  using PL = Params<D, K, P>;
+  fill_params<E, D, K, P>(a, a.scratch, a.scratch + PL::kF32_1,
+                          reinterpret_cast<uint32_t*>(a.scratch),
+                          blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
+}
+template <int E, int D, int K, int P>
+cudaError_t launch_params(const Args& a, cudaStream_t stream) {
+  if (!a.scratch) return cudaErrorInvalidValue;
+  const int blocks = min_of(cdiv(Params<D, K, P>::kFloats, 256), 1024);
+  params_kernel<E, D, K, P><<<blocks, 256, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The parameter matrix in both orientations (P kHighest: f32 at A1, A2;
+// otherwise bf16 A fragments of both contractions at frag; OFF: neither,
+// they are in the device buffer), the patch (where patch is not nullptr;
+// K4 rows, 0 past K) and the mass (BR; M^-1 at IM[0, DP), sqrt(M) at
+// IM[DP, 2DP), 1 on the padded dims past D) into the block's shared memory,
+// then a barrier.
+template <int E, int D, int K, int DP, int T, bool BR, int P, bool OFF = false>
+__device__ __forceinline__ void load_params(const Args& a, float* A1, float* A2, float* patch,
+                                            float* IM, uint32_t* frag) {
+  const int tid = threadIdx.x;
+  constexpr int K4 = round_up(K, 4);
+  // a padded tile or the parameter matrix in device memory; else the
+  // presets' code as it has always been (the library's SASS is held to the
+  // parent's)
+  if constexpr (OFF || DP != D || K4 != K) {
+    if constexpr (!OFF) fill_params<E, D, K, P>(a, A1, A2, frag, tid, T);
+    if (E == kSparseCoding && patch)
+      for (int idx = tid; idx < K4; idx += T) patch[idx] = idx < K ? a.p1[idx] : 0.f;
+    if (BR)
+      for (int idx = tid; idx < 2 * DP; idx += T) {
+        const int i = idx % DP;
+        IM[idx] = a.mass && i < D ? a.mass[(idx / DP) * D + i] : 1.f;
+      }
+  } else {
+    if constexpr (P == kHighest) {
+      for (int idx = tid; idx < D * K; idx += T) {
+        const float val = a.p0[idx];
+        if constexpr (E == kProductOfT) {  // p0 = W (D, K)
+          A1[idx] = val;
+          A2[(idx % K) * D + idx / K] = val;
+        } else {  // p0 = Φ or Xs (K, D)
+          A2[idx] = val;
+          A1[(idx % D) * K + idx / D] = val;
+        }
+      }
+    } else {
+      fill_params<E, D, K, P>(a, A1, A2, frag, tid, T);
+    }
+    if (E == kSparseCoding && patch)
+      for (int idx = tid; idx < K; idx += T) patch[idx] = a.p1[idx];
+    if (BR)
+      for (int idx = tid; idx < 2 * D; idx += T) IM[idx] = a.mass ? a.mass[idx] : 1.f;
+  }
   __syncthreads();
 }
 
@@ -418,7 +496,11 @@ __device__ __forceinline__ float div_(float x, float y) {
 // NUTS) or, where want_u, the row's energy term log1p(y²/ν) or softplus(z)
 // (TERMS true: mm_kernel); then between() (a barrier); then contraction 2's
 // epilogue writes the gradient into G. X, Z and sparse coding's Y (the
-// contraction operands) have row stride LD, G and the other Y NC.
+// contraction operands) have row stride LD, G and the other Y NC. At any
+// (D, K) the contractions run D and K deep and write K4 and D4 rows (the
+// float4 tiles' padding; A's padded columns are 0, so are those rows of y,
+// r and the gradient; the caller masks logreg's softplus(0) and σ(0) on
+// them where it reads them).
 template <int E, int D, int K, int NC, int LD, int T, bool STUB, int P, bool RN, bool TERMS,
           class Between>
 __device__ __forceinline__ void gradient_tile(const float* A1, const float* A2,
@@ -426,11 +508,12 @@ __device__ __forceinline__ void gradient_tile(const float* A1, const float* A2,
                                               const float* X, float* Y, float* Z, float* G,
                                               const Args& a, bool want_u, Between between) {
   // hi and lo fragments of contraction 1 (A1) and 2 (A2)
-  constexpr int W = Params<E, P>::kWords;
+  using PL = Params<D, K, P>;
+  constexpr int W = PL::kWords, K4 = PL::K4, D4 = PL::D4;
   const uint32_t *h1 = frag, *h2 = frag + W, *l1 = frag + 2 * W, *l2 = frag + 3 * W;
   if constexpr (E == kProductOfT) {
     // y = Wᵀx and dU/dy = (ν+1)·y/(ν + y²); g = W·dU/dy
-    contract<D, K, NC, LD, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float y) {
+    contract<D, K4, NC, LD, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float y) {
       if constexpr (!TERMS)
         Y[r * NC + c] = y;
       else if (want_u)
@@ -438,22 +521,25 @@ __device__ __forceinline__ void gradient_tile(const float* A1, const float* A2,
       Z[r * LD + c] = div_<RN>(mul_<RN>(a.k0, y), add_<RN>(a.k1, mul_<RN>(y, y)));
     });
     between();
-    contract<K, D, NC, LD, T, STUB, P>(A2, h2, l2, Z,
+    contract<K, D4, NC, LD, T, STUB, P>(A2, h2, l2, Z,
                                        [&](int r, int c, float gv) { G[r * NC + c] = gv; });
   } else if constexpr (E == kSparseCoding) {
     // r = patch − Φa; g = λ·a/√(a²+ε) − σ⁻²·Φᵀr
-    contract<D, K, NC, LD, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float v) {
-      Y[r * LD + c] = sub_<RN>(patch[r], v);
+    contract<D, K4, NC, LD, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float v) {
+      if constexpr (K4 == K)
+        Y[r * LD + c] = sub_<RN>(patch[r], v);
+      else  // the padded rows' residual 0
+        Y[r * LD + c] = sub_<RN>(r < K ? patch[r] : 0.f, v);
     });
     between();
-    contract<K, D, NC, LD, T, STUB, P>(A2, h2, l2, Y, [&](int r, int c, float v) {
+    contract<K, D4, NC, LD, T, STUB, P>(A2, h2, l2, Y, [&](int r, int c, float v) {
       const float av = X[r * LD + c];
       const float s = sqrtf(add_<RN>(mul_<RN>(av, av), a.k3));
       G[r * NC + c] = sub_<RN>(mul_<RN>(a.k0, div_<RN>(av, s)), mul_<RN>(a.k1, v));
     });
   } else {
     // z = Xs·θ and σ(z); g = Xsᵀσ(z) + θ/σ₀²
-    contract<D, K, NC, LD, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float z) {
+    contract<D, K4, NC, LD, T, STUB, P>(A1, h1, l1, X, [&](int r, int c, float z) {
       if constexpr (!TERMS)
         Y[r * NC + c] = z;
       else if (want_u)  // softplus(z) = max(z, 0) + log1p(e^{−|z|})
@@ -461,7 +547,7 @@ __device__ __forceinline__ void gradient_tile(const float* A1, const float* A2,
       Z[r * LD + c] = div_<RN>(1.0f, add_<RN>(1.0f, expf(-z)));
     });
     between();
-    contract<K, D, NC, LD, T, STUB, P>(A2, h2, l2, Z, [&](int r, int c, float v) {
+    contract<K, D4, NC, LD, T, STUB, P>(A2, h2, l2, Z, [&](int r, int c, float v) {
       G[r * NC + c] = add_<RN>(v, mul_<RN>(X[r * LD + c], a.k0));
     });
   }
@@ -479,53 +565,129 @@ __device__ __forceinline__ float column_sum(const float* red, int s, int c) {
   return acc;
 }
 
-// The tile of mm_kernel's body VAR on energy E: CH chains a block (MJHMC
-// spends two columns on each, NC = 2·CH; control and MALT one, NC = CH), T
-// threads, MINB blocks an SM asked of __launch_bounds__. At the presets'
-// widths (product of t 4,096, sparse coding 8,192, logreg 2,048 chains):
-// 512 blocks each, but logreg's control and MALT 256 (the mma n-tile is 8
-// columns). ops/cuda_mjhmc.py mirrors this (MM_TILES).
-template <int E, int VAR>
-struct MmTile {
-  static constexpr bool MJ = VAR == kMjhmc;
-  static constexpr int CH = E == kProductOfT ? 8 : E == kSparseCoding ? 16 : MJ ? 4 : 8;
-  static constexpr int T = E == kProductOfT ? 96 : E == kSparseCoding ? 256 : 128;
-  static constexpr int MINB = E == kProductOfT ? 4 : E == kSparseCoding ? 2 : 3;
-  static constexpr int NC = MJ ? 2 * CH : CH;
+// The tile rule, one for both kernels at every shape (ops/cuda_mjhmc.py
+// mirrors it: mm_tile_rule, nuts_mm_tile_rule). A tile starts from its
+// energy's base, the presets' tiles: product of t 8 chains a block on 96
+// threads (MINB 4), sparse coding 16 on 256 (MINB 2), logreg 8 on 128
+// (MINB 3; mm_kernel's MJHMC 4 chains, their 8 columns one mma n-tile).
+// Where its layout does not fit the 227 KB a block may opt into (a large
+// parameter matrix), it halves the chains a block, and the threads with
+// them (a chain keeps its threads; whole warps), down to one mma n-tile of 8
+// columns; where even that does not fit, the parameter matrix moves to a
+// device buffer (off) and the tile starts again from the base. MINB is the
+// base's, or the blocks an SM's shared memory holds where they are fewer.
+// NUTS keeps its tree state on chip (onchip) where it fits beside the rest
+// at max_depth 12. At the presets this gives their tiles: the library's
+// instances are the ones the per-energy constants gave.
+struct TileRule {
+  int ch, t, minb;
+  bool off, onchip;
 };
+__host__ __device__ constexpr int base_chains(int E, int VAR) {
+  return E == kProductOfT ? 8 : E == kSparseCoding ? 16 : VAR == kMjhmc ? 4 : 8;
+}
+__host__ __device__ constexpr int base_threads(int E) {
+  return E == kProductOfT ? 96 : E == kSparseCoding ? 256 : 128;
+}
+__host__ __device__ constexpr int base_minb(int E) {
+  return E == kProductOfT ? 4 : E == kSparseCoding ? 2 : 3;
+}
+// the blocks of `floats` an SM holds, at most the base's MINB, at least 1
+__host__ __device__ constexpr int minb_for(int E, int floats) {
+  const int fit = kSmemSM / (4 * floats + kSmemReserved);
+  return fit < 1 ? 1 : min_of(base_minb(E), fit);
+}
 
-// mm_kernel's shared memory, in floats: the parameter matrix (Params), X
-// [D][LD], G [D][NC], Y ([K][LD] at sparse coding, the residual operand;
-// else [K][NC], the rows' energy terms), Z [K][LD] (dU/dy or σ(z); none at
-// sparse coding), the mass [2D] (BR), the bf16 fragments at FRAG (16-byte
+// mm_kernel's geometry at (D, K) on a tile of CH chains and T threads: NC
+// columns (MJHMC spends two on each chain, forward in c and backward in CH +
+// c; control and MALT one), operand rows LD = NC + 4 floats (≡ 4 mod 8: the
+// B fragments' loads hit 32 banks). A chain's RY = T / CH threads own the
+// rows r, r + RY, ... (NK of them, KP in all) of each of its columns; the
+// first R also own the dims' groups of four r, r + R, ... (NG of them, DP
+// dims in all). DP ≥ D and KP ≥ K pad the tile: the padded dims draw no
+// momentum and stay 0, the padded rows' terms are masked. Then the shared
+// memory, in floats: the parameter matrix (Params; none where off), X
+// [DP][LD], G [DP][NC], Y ([KP][LD] at sparse coding, the residual operand;
+// else [KP][NC], the rows' energy terms), Z [KP][LD] (dU/dy or σ(z); none at
+// sparse coding), the mass [2DP] (BR), the bf16 fragments at FRAG (16-byte
 // aligned), then the chains' partial sums, SLOTS × T (MJHMC 4, control and
 // MALT 3); the patch is read from device memory
-// (ops/cuda_mjhmc.py::mm_smem_bytes mirrors this). A chain's T / CH
-// threads own the rows r, r + RY, ... (NK of them) of each of its columns;
-// the first R also own the dims' groups of four r, r + R, ... (NG of them).
-template <int E, int VAR, int P, bool BR>
+// (ops/cuda_mjhmc.py::mm_geometry mirrors this).
+struct MmGeom {
+  int nc, ld, ry, r, ng, nk, dp, kp;
+  int a1, a2, x, g, y, z, mass, frag, red, slots, floats;
+};
+__host__ __device__ constexpr MmGeom mm_geom(int E, int VAR, int P, bool BR, bool OFF, int D,
+                                             int K, int CH, int T) {
+  MmGeom m{};
+  m.nc = VAR == kMjhmc ? 2 * CH : CH;
+  m.ld = m.nc + 4;
+  m.ry = T / CH;
+  const int groups = cdiv(D, 4);
+  m.ng = cdiv(groups, m.ry);
+  m.r = cdiv(groups, m.ng);
+  m.dp = 4 * m.r * m.ng;
+  m.nk = cdiv(K, m.ry);
+  m.kp = m.ry * m.nk;
+  const bool f32 = P == kHighest && !OFF;
+  const int copies = OFF || P == kHighest ? 0 : P == kBf16x3 ? 2 : 1;
+  m.a1 = 0;
+  m.a2 = m.a1 + (f32 ? D * round_up(K, 4) : 0);
+  m.x = m.a2 + (f32 ? K * round_up(D, 4) : 0);
+  m.g = m.x + m.dp * m.ld;
+  m.y = m.g + m.dp * m.nc;
+  m.z = m.y + m.kp * (E == kSparseCoding ? m.ld : m.nc);
+  m.mass = m.z + (E != kSparseCoding ? m.kp * m.ld : 0);
+  m.frag = (m.mass + (BR ? 2 * m.dp : 0) + 3) / 4 * 4;
+  m.red = m.frag + 2 * copies * (pad16(K) * pad16(D) / 2);
+  m.slots = VAR == kMjhmc ? 4 : 3;
+  m.floats = m.red + m.slots * T;
+  return m;
+}
+// mm_kernel's tile of body VAR on energy E at (D, K) and precision P (the
+// layout with the branches, the larger one, must fit)
+__host__ __device__ constexpr TileRule mm_rule(int E, int VAR, int P, int D, int K) {
+  const int ch0 = base_chains(E, VAR), t0 = base_threads(E);
+  for (int off = 0; off < 2; ++off)
+    for (int ch = ch0; (VAR == kMjhmc ? 2 * ch : ch) >= 8; ch /= 2) {
+      const int t = round_up(t0 / ch0 * ch, 32);
+      const int floats = mm_geom(E, VAR, P, true, off != 0, D, K, ch, t).floats;
+      if (4 * floats <= kSmemBlock) return {ch, t, minb_for(E, floats), off != 0, false};
+    }
+  return {0, 0, 0, true, false};
+}
+
+// The tile of mm_kernel's body VAR on energy E at (D, K) and precision P:
+// CH chains a block, T threads, MINB blocks an SM asked of
+// __launch_bounds__, OFF the parameter matrix in a device buffer. At the
+// presets' widths (product of t 4,096, sparse coding 8,192, logreg 2,048
+// chains): 512 blocks each, but logreg's control and MALT 256 (the mma
+// n-tile is 8 columns).
+template <int E, int D, int K, int VAR, int P>
+struct MmTile {
+  static constexpr TileRule rule = mm_rule(E, VAR, P, D, K);
+  static_assert(rule.ch > 0, "no tile of mm_kernel fits this shape, even off chip");
+  static constexpr int CH = rule.ch, T = rule.t, MINB = rule.minb;
+  static constexpr bool OFF = rule.off;
+  static constexpr int NC = VAR == kMjhmc ? 2 * CH : CH;
+};
+
+// mm_kernel's layout (mm_geom) on its tile
+template <int E, int D, int K, int VAR, int P, bool BR>
 struct MmLayout {
-  using TL = MmTile<E, VAR>;
-  using PL = Params<E, P>;
-  static constexpr int D = PL::D, K = PL::K, CH = TL::CH, NC = TL::NC, T = TL::T;
-  static constexpr int LD = NC + 4;  // ≡ 4 mod 8: the B fragments' loads hit 32 banks
-  static constexpr int RY = T / CH;
-  static constexpr int R = RY < D / 4 ? RY : D / 4;
-  static constexpr int NG = D / (4 * R), NK = K / RY;
-  static_assert(T % CH == 0 && T % 32 == 0 && (D / 4) % R == 0 && K % RY == 0,
+  using TL = MmTile<E, D, K, VAR, P>;
+  static constexpr MmGeom M = mm_geom(E, VAR, P, BR, TL::OFF, D, K, TL::CH, TL::T);
+  static constexpr int CH = TL::CH, NC = TL::NC, T = TL::T;
+  static constexpr bool OFF = TL::OFF;
+  static constexpr int LD = M.ld, RY = M.ry, R = M.r, NG = M.ng, NK = M.nk, DP = M.dp,
+                       KP = M.kp;
+  static_assert(T % CH == 0 && T % 32 == 0 && R <= RY && DP == 4 * R * NG && DP >= D &&
+                    KP == RY * NK && KP >= K,
                 "a chain's threads own whole groups of dims and whole rows");
   static_assert(NC % 8 == 0, "mma.sync n-tiles of 8 columns");
-  static constexpr int A1 = 0;
-  static constexpr int A2 = A1 + PL::kF32;
-  static constexpr int X = A2 + PL::kF32;
-  static constexpr int G = X + D * LD;
-  static constexpr int Y = G + D * NC;
-  static constexpr int Z = Y + K * (E == kSparseCoding ? LD : NC);
-  static constexpr int MASS = Z + (E != kSparseCoding ? K * LD : 0);
-  static constexpr int FRAG = (MASS + (BR ? 2 * D : 0) + 3) / 4 * 4;
-  static constexpr int RED = FRAG + PL::kFrag;
-  static constexpr int SLOTS = VAR == kMjhmc ? 4 : 3;
-  static constexpr int kFloats = RED + SLOTS * T;
+  static constexpr int A1 = M.a1, A2 = M.a2, X = M.x, G = M.g, Y = M.y, Z = M.z,
+                       MASS = M.mass, FRAG = M.frag, RED = M.red, SLOTS = M.slots,
+                       kFloats = M.floats;
 };
 
 // The PROF instances' phases of an iteration (ops/cuda_mjhmc.py,
@@ -544,11 +706,16 @@ enum MmPhase {
 // two-stage integrator (MJHMC's fast path, as the TPU kernel compiles them
 // statically); BR=true takes both from the arguments. PROF stamps the
 // phases of every iteration into a.prof (MmPhase).
-template <int E, int VAR, bool EMIT, bool STUB, bool BR, int P, bool PROF>
-__global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_kernel(Args a) {
-  using L = MmLayout<E, VAR, P, BR>;
-  constexpr int D = L::D, K = L::K, CH = L::CH, NC = L::NC, LD = L::LD, T = L::T;
+template <int E, int D, int K, int VAR, bool EMIT, bool STUB, bool BR, int P, bool PROF>
+__global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VAR, P>::MINB)
+    mm_kernel(Args a) {
+  using L = MmLayout<E, D, K, VAR, P, BR>;
+  constexpr int CH = L::CH, NC = L::NC, LD = L::LD, T = L::T, DP = L::DP, KP = L::KP;
   constexpr int RY = L::RY, R = L::R, NG = L::NG, NK = L::NK, NE = 4 * NG;
+  // a padded tile's dims past D and rows past K (mm_geom), and the
+  // parameter matrix in the device buffer (a.scratch) where it is OFF
+  constexpr bool PAD = DP != D, OFF = L::OFF;
+  constexpr int D4 = round_up(D, 4);
   constexpr bool MJ = VAR == kMjhmc;
   constexpr int NT = MJ ? 2 : 1;                    // trajectories: columns c (, CH + c)
   constexpr int LY = E == kSparseCoding ? LD : NC;  // Y's row stride
@@ -563,7 +730,7 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
   float* G = sm + L::G;
   float* Y = sm + L::Y;
   float* Z = sm + L::Z;
-  float* IM = sm + L::MASS;  // BR: [D] M^-1, then [D] sqrt(M)
+  float* IM = sm + L::MASS;  // BR: [DP] M^-1, then [DP] sqrt(M)
   float* red = sm + L::RED;  // [SLOTS][T]
 
   const int tid = threadIdx.x, c = tid % CH, r = tid / CH;
@@ -576,10 +743,21 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 
   PhaseClock<PROF, kMmPhases, kMmBarrier> prof;
   prof.start();
-  load_params<E, D, K, T, BR, P>(a, sm + L::A1, sm + L::A2, nullptr, IM,
-                                 reinterpret_cast<uint32_t*>(sm + L::FRAG));
+  // G's rows past the contraction's D4 are never written: 0, as the padded
+  // dims' gradient
+  if constexpr (DP != D4)
+    for (int idx = tid; idx < (DP - D4) * NC; idx += T) G[D4 * NC + idx] = 0.f;
+  load_params<E, D, K, DP, T, BR, P, OFF>(a, sm + L::A1, sm + L::A2, nullptr, IM,
+                                          reinterpret_cast<uint32_t*>(sm + L::FRAG));
+  const float* A1 = sm + L::A1;
+  const float* A2 = sm + L::A2;
   const uint32_t* frag = reinterpret_cast<const uint32_t*>(sm + L::FRAG);
-  const float* sqm = BR ? IM + D : nullptr;
+  if constexpr (OFF) {
+    A1 = a.scratch;
+    A2 = a.scratch + Params<D, K, P>::kF32_1;
+    frag = reinterpret_cast<const uint32_t*>(a.scratch);
+  }
+  const float* sqm = BR ? IM + DP : nullptr;
 
   // the thread's k-th dim (k / 4 its group) and j-th row
   auto dim = [&](int k) { return 4 * (r + (k / 4) * R) + k % 4; };
@@ -595,9 +773,16 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 #pragma unroll
   for (int k = 0; k < NE; ++k) {
     const size_t gi = (size_t)dim(k) * n + chain;
-    x[k] = owner && live ? a.x[gi] : 0.f;
-    v[k] = owner && live ? a.v[gi] : 0.f;
-    g[k] = owner && live ? a.g[gi] : 0.f;
+    if constexpr (PAD) {  // a padded dim starts at 0
+      const bool in = owner && live && dim(k) < D;
+      x[k] = in ? a.x[gi] : 0.f;
+      v[k] = in ? a.v[gi] : 0.f;
+      g[k] = in ? a.g[gi] : 0.f;
+    } else {
+      x[k] = owner && live ? a.x[gi] : 0.f;
+      v[k] = owner && live ? a.v[gi] : 0.f;
+      g[k] = owner && live ? a.g[gi] : 0.f;
+    }
     wx[k] = wxc[k] = wx2[k] = wx2c[k] = 0.f;
 #pragma unroll
     for (int q = 0; q < NT; ++q) vt[q][k] = 0.f;
@@ -635,13 +820,21 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 #pragma unroll
       for (int k = 0; k < NE; ++k) {
         const float xx = X[dim(k) * LD + col];
-        s1 += E == kSparseCoding ? sqrtf(xx * xx + a.k3) : xx * xx;
+        if constexpr (PAD) {  // a padded dim adds no λ√ε
+          if (dim(k) < D) s1 += E == kSparseCoding ? sqrtf(xx * xx + a.k3) : xx * xx;
+        } else {
+          s1 += E == kSparseCoding ? sqrtf(xx * xx + a.k3) : xx * xx;
+        }
       }
     }
 #pragma unroll
     for (int j = 0; j < NK; ++j) {
       const float yv = Y[row(j) * LY + col];
-      s2 += E == kSparseCoding ? yv * yv : yv;
+      if constexpr (KP != K) {  // a padded row adds no softplus(0) (or unwritten term)
+        if (row(j) < K) s2 += E == kSparseCoding ? yv * yv : yv;
+      } else {
+        s2 += E == kSparseCoding ? yv * yv : yv;
+      }
     }
     return E == kProductOfT ? a.k2 * s2 : E == kSparseCoding ? a.k0 * s1 + a.k2 * s2
                                                              : s2 + a.k1 * s1;
@@ -678,7 +871,7 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
     after_a();
     prof.count(kMmGradients);
     gradient_tile<E, D, K, NC, LD, T, STUB, P, false, true>(
-        sm + L::A1, sm + L::A2, frag, a.p1, X, Y, Z, G, a, want_u,
+        A1, A2, frag, a.p1, X, Y, Z, G, a, want_u,
         [&] { prof.sync(kMmContract1); });
     prof.sync(kMmContract2);
   };
@@ -705,7 +898,7 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 #pragma unroll
       for (int gq = 0; gq < NG; ++gq) {
         float z[4];
-        normals4<D, 0>(a, chain, t, 4 * (r + gq * R), kTagMaltNoise, o * kBlocks, sqm, key, z);
+        normals4<D, 0, PAD>(a, chain, t, 4 * (r + gq * R), kTagMaltNoise, o * kBlocks, sqm, key, z);
 #pragma unroll
         for (int j = 0; j < 4; ++j) vt[0][4 * gq + j] = eta * vt[0][4 * gq + j] + sig * z[j];
       }
@@ -721,9 +914,9 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
       for (int gq = 0; gq < NG; ++gq) {
         float z[4];
         if constexpr (VAR == kControl)
-          normals4<D, 0>(a, chain, t, 4 * (r + gq * R), kTagControl, 0u, sqm, key, z);
+          normals4<D, 0, PAD>(a, chain, t, 4 * (r + gq * R), kTagControl, 0u, sqm, key, z);
         if constexpr (VAR == kMalt)
-          normals4<D, 0>(a, chain, t, 4 * (r + gq * R), kTagMaltRefresh, 0u, sqm, key, z);
+          normals4<D, 0, PAD>(a, chain, t, 4 * (r + gq * R), kTagMaltRefresh, 0u, sqm, key, z);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int k = 4 * gq + j;
@@ -829,7 +1022,11 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
         for (int k = 0; k < NE; ++k) {
           kadd(wx[k], wxc[k], dwell * x[k]);
           kadd(wx2[k], wx2c[k], dwell * x[k] * x[k]);
-          if (emit_now && live) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+          if constexpr (PAD) {
+            if (emit_now && live && dim(k) < D) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+          } else {
+            if (emit_now && live) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+          }
         }
       if (is_l) {
         u = u_l;
@@ -843,7 +1040,7 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 #pragma unroll
         for (int gq = 0; gq < NG; ++gq) {
           float z[4];
-          normals4<D, 1>(a, chain, t, 4 * (r + gq * R), kTagMjhmc, 0u, sqm, key, z);
+          normals4<D, 1, PAD>(a, chain, t, 4 * (r + gq * R), kTagMjhmc, 0u, sqm, key, z);
 #pragma unroll
           for (int j = 0; j < 4; ++j) v[4 * gq + j] = z[j];
         }
@@ -879,7 +1076,11 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
         for (int k = 0; k < NE; ++k) {
           kadd(wx[k], wxc[k], x[k]);
           kadd(wx2[k], wx2c[k], x[k] * x[k]);
-          if (emit_now && live) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+          if constexpr (PAD) {
+            if (emit_now && live && dim(k) < D) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+          } else {
+            if (emit_now && live) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+          }
         }
     }
     prof.mark(kMmDecide);
@@ -888,6 +1089,9 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
   if (owner && live)
 #pragma unroll
     for (int k = 0; k < NE; ++k) {
+      if constexpr (PAD) {
+        if (dim(k) >= D) continue;
+      }
       const size_t gi = (size_t)dim(k) * n + chain;
       a.xo[gi] = x[k];
       a.vo[gi] = v[k];
@@ -919,8 +1123,10 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 //
 // Design: a block runs the NC chains of its tile in lockstep, one column
 // each, as the TPU's lane block does (NUTS has no backward trajectory).
-// The tiles are narrow (NutsTile: 8 chains for product of t and logistic
-// regression, 16 for sparse coding), so that the presets' widths make
+// The tiles are narrow (NutsTile, from the tile rule: at the presets 8
+// chains for product of t and logistic regression, 16 for sparse coding;
+// 8 where a large parameter matrix needs the room), so that the presets'
+// widths make
 // 256-512 blocks, two or more resident on each of the 132 SMs, and a tile
 // runs few leaves that only its deepest tree needs. Each leaf is one
 // leapfrog step of every column: the energy's two contractions over the
@@ -946,12 +1152,13 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 //
 // The tree state (both endpoints' x, v, g in the trajectory frame, the
 // subtree proposal's x, g and the 2(max_depth − 1) U-turn stack rows,
-// nuts::rows) is rows(max_depth)·D floats a chain. It lives in shared
-// memory where the tile's fits beside the rest (product of t 25 KB and
-// logreg 11 KB a tile at max_depth 8), else (sparse coding, 11 KB a chain)
-// in the (rows, D, n) scratch buffer in device memory that the wrapper
-// allocates, where an owner's loads are independent (all in flight at
-// once) and a warp's are coalesced across the tile's chains. max_depth
+// nuts::rows) is rows(max_depth)·DP floats a chain. It lives in shared
+// memory where the tile's fits beside the rest at max_depth 12 (the tile
+// rule's onchip: product of t 25 KB and logreg 11 KB a tile at max_depth 8),
+// else (sparse coding, 11 KB a chain) in the (rows, DP, n) scratch buffer in
+// device memory that the wrapper allocates (after the parameter matrix where
+// that is off chip), where an owner's loads are independent (all in flight
+// at once) and a warp's are coalesced across the tile's chains. max_depth
 // runs 1..kMaxDepth (12, JAX's arbitration edge) at run time, and a launch
 // takes the shared memory of its own max_depth (NutsLayout::floats): each
 // depth adds 2·D·NC floats of stack (on chip) and 2·T of column-sum slots,
@@ -959,11 +1166,11 @@ __global__ void __launch_bounds__(MmTile<E, VAR>::T, MmTile<E, VAR>::MINB) mm_ke
 // three where it holds four up to 10) while shallower launches keep theirs.
 // Round jj's leaves are tree positions 2^jj − 1 .. 2^(jj+1) − 2 (at most
 // 4,094), span slots kSpan + 2(mm − 1) for mm ≤ jj < max_depth, so no loop
-// or slot assumes a depth. The
-// elementwise arithmetic rounds one IEEE operation at a time, as the plain
-// version does; the contractions and the column sums add in other orders
-// than torch.matmul and the plain version's sums, so trees are held to the
-// plain version at a tolerance, not bit for bit.
+// or slot assumes a depth. The elementwise arithmetic rounds one IEEE
+// operation at a time, as the plain version does; the contractions and the
+// column sums add in other orders than torch.matmul and the plain version's
+// sums, so trees are held to the plain version at a tolerance, not bit for
+// bit.
 //
 // What bounds it: latency, not the card's rates (the operations are a few
 // percent of the bound's time, PERF.md §6). A leaf is a chain of dependent
@@ -1013,70 +1220,126 @@ using Prof = PhaseClock<ON, kPhases, kPhBarrier>;
 
 }  // namespace nuts
 
-// The NUTS tile of energy E: NC chains (one column each) and T threads a
-// block, T a multiple of NC so that a thread's elements lie in one column;
-// __launch_bounds__ asks for MINB blocks an SM; ONCHIP keeps the tree state
-// in shared memory (ops/cuda_mjhmc.py mirrors this, NUTS_MM_TILES)
-template <int E> struct NutsTile;
-template <> struct NutsTile<kProductOfT> {
-  static constexpr int NC = 8, T = 96, MINB = 4;
-  static constexpr bool ONCHIP = true;
+// The NUTS geometry of energy E at (D, K) on a tile of NC chains (one
+// column each) and T threads, T a multiple of NC so that a thread's
+// elements lie in one column: R = T / NC owners a column, each owning the
+// dims r, r + R, ... (NE of them, DP in all) and the rows of the
+// intermediate r, r + R, ... (NK, KP in all); DP ≥ D and KP ≥ K pad the
+// tile as mm_geom's do. Then the shared memory, in floats: the parameter
+// matrix as load_params writes it (f32 copies A1, A2 at kHighest, else the
+// bf16 A fragments at FRAG; none where off), the patch [K4], X and G [DP][NC],
+// Y and Z [KP][NC] (no Z at sparse coding) and the mass [2DP]; then, sized by
+// max_depth, the tree state (onchip) and the column sums' partials, slots
+// × T (ops/cuda_mjhmc.py::nuts_mm_geometry mirrors this)
+struct NutsGeom {
+  int r, ne, nk, dp, kp, nc, t;
+  int a1, a2, patch, x, g, y, z, mass, frag, tree;
+  bool onchip;
+  __host__ __device__ constexpr int red(int max_depth) const {
+    return tree + (onchip ? nuts::rows(max_depth) * dp * nc : 0);
+  }
+  __host__ __device__ constexpr int floats(int max_depth) const {
+    return red(max_depth) + nuts::slots(max_depth) * t;
+  }
 };
-template <> struct NutsTile<kSparseCoding> {
-  static constexpr int NC = 16, T = 256, MINB = 2;
-  static constexpr bool ONCHIP = false;
-};
-template <> struct NutsTile<kLogreg> {
-  static constexpr int NC = 8, T = 128, MINB = 3;
-  static constexpr bool ONCHIP = true;
+__host__ __device__ constexpr NutsGeom nuts_geom(int E, int P, bool OFF, bool ONCHIP, int D,
+                                                 int K, int NC, int T) {
+  NutsGeom m{};
+  m.nc = NC;
+  m.t = T;
+  m.r = T / NC;
+  m.ne = cdiv(D, m.r);
+  m.dp = m.r * m.ne;
+  m.nk = cdiv(K, m.r);
+  m.kp = m.r * m.nk;
+  const bool f32 = P == kHighest && !OFF;
+  const int copies = OFF || P == kHighest ? 0 : P == kBf16x3 ? 2 : 1;
+  m.a1 = 0;
+  m.a2 = m.a1 + (f32 ? D * round_up(K, 4) : 0);
+  m.patch = m.a2 + (f32 ? K * round_up(D, 4) : 0);
+  m.x = m.patch + round_up(K, 4);
+  m.g = m.x + m.dp * NC;
+  m.y = m.g + m.dp * NC;
+  m.z = m.y + m.kp * NC;
+  m.mass = m.z + (E != kSparseCoding ? m.kp * NC : 0);
+  m.frag = (m.mass + 2 * m.dp + 3) / 4 * 4;  // 16-byte aligned
+  m.tree = m.frag + 2 * copies * (pad16(K) * pad16(D) / 2);
+  m.onchip = ONCHIP;
+  return m;
+}
+// The NUTS tile of energy E at (D, K) and precision P (the tile rule above;
+// the layout at max_depth 12 must fit)
+__host__ __device__ constexpr TileRule nuts_rule(int E, int P, int D, int K) {
+  const int nc0 = base_chains(E, kNuts), t0 = base_threads(E);
+  for (int off = 0; off < 2; ++off)
+    for (int nc = nc0; nc >= 8; nc /= 2) {
+      const int t = round_up(t0 / nc0 * nc, 32);
+      if (4 * nuts_geom(E, P, off != 0, false, D, K, nc, t).floats(nuts::kMaxDepth) >
+          kSmemBlock)
+        continue;
+      const bool onchip =
+          4 * nuts_geom(E, P, off != 0, true, D, K, nc, t).floats(nuts::kMaxDepth) <= kSmemBlock;
+      return {nc, t, minb_for(E, nuts_geom(E, P, off != 0, onchip, D, K, nc, t).floats(1)),
+              off != 0, onchip};
+    }
+  return {0, 0, 0, true, false};
+}
+
+// The NUTS tile of energy E at (D, K) and precision P: NC chains and T
+// threads a block, MINB blocks an SM asked of __launch_bounds__, OFF the
+// parameter matrix in a device buffer, ONCHIP the tree state in shared
+// memory (else in the (rows, DP, n) scratch buffer in device memory that the
+// wrapper allocates, after the parameter matrix's where OFF)
+template <int E, int D, int K, int P>
+struct NutsTile {
+  static constexpr TileRule rule = nuts_rule(E, P, D, K);
+  static_assert(rule.ch > 0, "no tile of nuts_mm_kernel fits this shape, even off chip");
+  static constexpr int NC = rule.ch, T = rule.t, MINB = rule.minb;
+  static constexpr bool OFF = rule.off, ONCHIP = rule.onchip;
 };
 
-// The NUTS kernel's shared memory, in floats: the parameter matrix as
-// load_params writes it (f32 copies A1, A2 at kHighest, else the bf16 A
-// fragments at FRAG), the patch, X and G (D × NC), Y and Z (K × NC; no Z
-// at sparse coding) and the mass; then, sized by max_depth, the tree state
-// (ONCHIP) and the column sums' partials, slots × T
-// (ops/cuda_mjhmc.py::nuts_mm_smem_bytes mirrors this)
-template <int E, int P>
+// The NUTS kernel's layout (nuts_geom) on its tile
+template <int E, int D, int K, int P>
 struct NutsLayout {
-  static constexpr int D = Shape<E>::D, K = Shape<E>::K;
-  static constexpr int NC = NutsTile<E>::NC, T = NutsTile<E>::T, R = T / NC;
-  static_assert(T % NC == 0 && D % R == 0 && K % R == 0, "a thread's elements in one column");
+  using TL = NutsTile<E, D, K, P>;
+  static constexpr NutsGeom M = nuts_geom(E, P, TL::OFF, TL::ONCHIP, D, K, TL::NC, TL::T);
+  static constexpr int NC = TL::NC, T = TL::T, R = M.r, NE = M.ne, NK = M.nk, DP = M.dp,
+                       KP = M.kp;
+  static_assert(T % NC == 0 && DP >= D && KP >= K, "a thread's elements in one column");
   static_assert(NC % 8 == 0, "mma.sync n-tiles of 8 columns");
-  using PL = Params<E, P>;  // the parameter matrix's sizes
-  static constexpr int A1 = 0;
-  static constexpr int A2 = A1 + PL::kF32;
-  static constexpr int PATCH = A2 + PL::kF32;
-  static constexpr int X = PATCH + K;
-  static constexpr int G = X + D * NC;
-  static constexpr int Y = G + D * NC;
-  static constexpr int Z = Y + K * NC;
-  static constexpr int MASS = Z + (E != kSparseCoding ? K * NC : 0);  // [2D]
-  static constexpr int FRAG = (MASS + 2 * D + 3) / 4 * 4;  // 16-byte aligned
-  static constexpr int TREE = FRAG + PL::kFrag;
+  static constexpr int A1 = M.a1, A2 = M.a2, PATCH = M.patch, X = M.x, G = M.g, Y = M.y,
+                       Z = M.z, MASS = M.mass, FRAG = M.frag, TREE = M.tree;
+  // from the scalars alone, so that device code can call them (nuts_geom's)
   __host__ __device__ static constexpr int red(int max_depth) {
-    return TREE + (NutsTile<E>::ONCHIP ? nuts::rows(max_depth) * D * NC : 0);
+    return TREE + (TL::ONCHIP ? nuts::rows(max_depth) * DP * NC : 0);
   }
   __host__ __device__ static constexpr int floats(int max_depth) {
     return red(max_depth) + nuts::slots(max_depth) * T;
   }
+  static_assert(floats(nuts::kMaxDepth) == M.floats(nuts::kMaxDepth), "nuts_geom's floats");
 };
 
-template <int E, bool EMIT, bool BR, int P, bool PROF>
-__global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_kernel(Args a) {
+template <int E, int D, int K, bool EMIT, bool BR, int P, bool PROF>
+__global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>::MINB)
+    nuts_mm_kernel(Args a) {
   using namespace nuts;
-  using L = NutsLayout<E, P>;
-  constexpr int D = L::D, K = L::K, NC = L::NC, T = L::T, R = L::R;
-  constexpr int NE = D / R, NK = K / R;  // a thread's dims and rows of the intermediate
+  using L = NutsLayout<E, D, K, P>;
+  using TL = NutsTile<E, D, K, P>;
+  constexpr int NC = L::NC, T = L::T, R = L::R, DP = L::DP, KP = L::KP;
+  constexpr int NE = L::NE, NK = L::NK;  // a thread's dims and rows of the intermediate
+  // a padded tile's dims past D and rows past K (nuts_geom), and the
+  // parameter matrix in the device buffer (a.scratch) where it is OFF
+  constexpr bool PAD = DP != D, OFF = TL::OFF;
+  constexpr int D4 = round_up(D, 4);
 
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* X = sm + L::X;
   float* G = sm + L::G;
   float* Y = sm + L::Y;
-  float* IM = sm + L::MASS;  // [D] M^-1, then [D] sqrt(M)
+  float* IM = sm + L::MASS;  // [DP] M^-1, then [DP] sqrt(M)
   const int max_depth = a.m;
-  float* tree_s = sm + L::TREE;           // ONCHIP: [rows][D][NC]
+  float* tree_s = sm + L::TREE;           // ONCHIP: [rows][DP][NC]
   float* red = sm + L::red(max_depth);    // [slots][T]
 
   const int tid = threadIdx.x, c = tid % NC, r = tid / NC;
@@ -1088,17 +1351,24 @@ __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_ker
 
   Prof<PROF> prof;
   prof.start();
-  load_params<E, D, K, T, BR, P>(a, sm + L::A1, sm + L::A2, sm + L::PATCH, IM,
-                                 reinterpret_cast<uint32_t*>(sm + L::FRAG));
+  // G's rows past the contraction's D4 are never written: 0, as the padded
+  // dims' gradient
+  if constexpr (DP != D4)
+    for (int idx = tid; idx < (DP - D4) * NC; idx += T) G[D4 * NC + idx] = 0.f;
+  load_params<E, D, K, DP, T, BR, P, OFF>(a, sm + L::A1, sm + L::A2, sm + L::PATCH, IM,
+                                          reinterpret_cast<uint32_t*>(sm + L::FRAG));
 
   auto dim = [&](int k) { return r + k * R; };  // the thread's k-th dim
   auto im = [&](int i) { return BR ? IM[i] : 1.f; };
   // tree row rr, dim i of the thread's chain (only its owners touch it)
   auto tree = [&](int rr, int i) -> float& {
-    if constexpr (NutsTile<E>::ONCHIP)
-      return tree_s[(rr * D + i) * NC + c];
+    // else (rows, DP, n) in a.scratch, after the parameter matrix where OFF
+    if constexpr (TL::ONCHIP)
+      return tree_s[(rr * DP + i) * NC + c];
+    else if constexpr (OFF)
+      return a.scratch[Params<D, K, P>::kFloats + ((size_t)rr * DP + i) * n + chain];
     else
-      return a.scratch[((size_t)rr * D + i) * n + chain];
+      return a.scratch[((size_t)rr * DP + i) * n + chain];
   };
   auto put = [&](int s, float part) { red[s * T + tid] = part; };
   auto col_sum = [&](int s) { return column_sum<T, NC>(red, s, c); };
@@ -1114,11 +1384,20 @@ __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_ker
 #pragma unroll
   for (int k = 0; k < NE; ++k) {
     const size_t gi = (size_t)dim(k) * n + chain;
-    x[k] = chain_live ? a.x[gi] : 0.f;
-    g[k] = chain_live ? a.g[gi] : 0.f;
-    wx[k] = wxc[k] = wx2[k] = wx2c[k] = 0.f;
-    xt[k] = vt[k] = gt[k] = 0.f;
-    if (chain_live && a.num_iters == 0) a.vo[gi] = a.v[gi];  // each iteration writes its v0
+    if constexpr (PAD) {  // a padded dim starts at 0
+      const bool in = chain_live && dim(k) < D;
+      x[k] = in ? a.x[gi] : 0.f;
+      g[k] = in ? a.g[gi] : 0.f;
+      wx[k] = wxc[k] = wx2[k] = wx2c[k] = 0.f;
+      xt[k] = vt[k] = gt[k] = 0.f;
+      if (in && a.num_iters == 0) a.vo[gi] = a.v[gi];
+    } else {
+      x[k] = chain_live ? a.x[gi] : 0.f;
+      g[k] = chain_live ? a.g[gi] : 0.f;
+      wx[k] = wxc[k] = wx2[k] = wx2c[k] = 0.f;
+      xt[k] = vt[k] = gt[k] = 0.f;
+      if (chain_live && a.num_iters == 0) a.vo[gi] = a.v[gi];  // each iteration writes its v0
+    }
   }
   // the chain's scalars, kept alike by its R owners
   float u = chain_live ? a.u[chain] : 0.f;
@@ -1137,9 +1416,14 @@ __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_ker
 #pragma unroll
       for (int k = 0; k < NE; ++k) {
         const int i = dim(k);
-        const float v0 = normal_of<D>(a, chain, t, i, kTagNutsMomentum, 0u,
-                                      BR ? IM[D + i] : 1.f, key);
-        a.vo[(size_t)i * n + chain] = v0;
+        float v0 = normal_of<D>(a, chain, t, i, kTagNutsMomentum, 0u,
+                                BR ? IM[DP + i] : 1.f, key);
+        if constexpr (PAD) {  // a padded dim draws no momentum
+          v0 = i < D ? v0 : 0.f;
+          if (i < D) a.vo[(size_t)i * n + chain] = v0;
+        } else {
+          a.vo[(size_t)i * n + chain] = v0;
+        }
         tree(kXM, i) = tree(kXP, i) = x[k];
         tree(kVM, i) = tree(kVP, i) = v0;
         tree(kGM, i) = tree(kGP, i) = g[k];
@@ -1190,9 +1474,15 @@ __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_ker
         if (!prof.sync_or(kPhKickDrift, act)) break;
         prof.count(kPhLeaves);
         // the leaf's gradient, rounded one operation at a time
-        gradient_tile<E, D, K, NC, NC, T, false, P, true, false>(
-            sm + L::A1, sm + L::A2, reinterpret_cast<const uint32_t*>(sm + L::FRAG),
-            sm + L::PATCH, X, Y, sm + L::Z, G, a, false, [&] { prof.sync(kPhContract1); });
+        if constexpr (OFF)  // the parameter matrix in the head of a.scratch
+          gradient_tile<E, D, K, NC, NC, T, false, P, true, false>(
+              a.scratch, a.scratch + Params<D, K, P>::kF32_1,
+              reinterpret_cast<const uint32_t*>(a.scratch), sm + L::PATCH, X, Y, sm + L::Z, G, a,
+              false, [&] { prof.sync(kPhContract1); });
+        else
+          gradient_tile<E, D, K, NC, NC, T, false, P, true, false>(
+              sm + L::A1, sm + L::A2, reinterpret_cast<const uint32_t*>(sm + L::FRAG),
+              sm + L::PATCH, X, Y, sm + L::Z, G, a, false, [&] { prof.sync(kPhContract1); });
         prof.sync(kPhContract2);
         // the owners' closing kick and partial sums: the energy's terms,
         // v²·M^-1, and the U-turn projections of the spans of size 2^mm
@@ -1207,14 +1497,20 @@ __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_ker
             gt[k] = G[i * NC + c];
             vt[k] = __fsub_rn(vt[k], __fmul_rn(he, gt[k]));
             hv = __fadd_rn(hv, __fmul_rn(__fmul_rn(vt[k], vt[k]), im(i)));
-            if constexpr (E == kSparseCoding)  // λ-term √(a²+ε)
+            if constexpr (E == kSparseCoding && PAD) {  // λ-term √(a²+ε), none padded
+              if (i < D) e1 = __fadd_rn(e1, sqrtf(__fadd_rn(__fmul_rn(xt[k], xt[k]), a.k3)));
+            } else if constexpr (E == kSparseCoding) {  // λ-term √(a²+ε)
               e1 = __fadd_rn(e1, sqrtf(__fadd_rn(__fmul_rn(xt[k], xt[k]), a.k3)));
-            else if constexpr (E == kLogreg)  // the prior's θ²
+            } else if constexpr (E == kLogreg) {  // the prior's θ²
               e1 = __fadd_rn(e1, __fmul_rn(xt[k], xt[k]));
+            }
           }
 #pragma unroll
           for (int k = 0; k < NK; ++k) {
             const float y = Y[dim(k) * NC + c];
+            if constexpr (KP != K) {
+              if (dim(k) >= K) continue;  // a padded row
+            }
             if constexpr (E == kProductOfT)  // log1p(y²/ν)
               e2 = __fadd_rn(e2, log1pf(__fmul_rn(__fmul_rn(y, y), a.k3)));
             else if constexpr (E == kSparseCoding)  // r²
@@ -1340,7 +1636,11 @@ __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_ker
       for (int k = 0; k < NE; ++k) {
         kadd(wx[k], wxc[k], x[k]);
         kadd(wx2[k], wx2c[k], x[k] * x[k]);
-        if (emit_now) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+        if constexpr (PAD) {
+          if (emit_now && dim(k) < D) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+        } else {
+          if (emit_now) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+        }
       }
     }
     prof.mark(kPhOther);
@@ -1349,6 +1649,9 @@ __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_ker
   if (chain_live) {
 #pragma unroll
     for (int k = 0; k < NE; ++k) {
+      if constexpr (PAD) {
+        if (dim(k) >= D) continue;
+      }
       const size_t gi = (size_t)dim(k) * n + chain;
       a.xo[gi] = x[k];
       a.go[gi] = g[k];
@@ -1367,119 +1670,151 @@ __global__ void __launch_bounds__(NutsTile<E>::T, NutsTile<E>::MINB) nuts_mm_ker
   prof.write(a, T);
 }
 
-// NUTS of energy E at precision P, run or stream (EMIT), without (BR=false)
-// or with an inverse mass; the PROF instance writes the breakdown to a.prof
-template <int E, int P, bool EMIT, bool BR, bool PROF = false>
+// NUTS of energy E at (D, K) and precision P, run or stream (EMIT), without
+// (BR=false) or with an inverse mass; the PROF instance writes the breakdown
+// to a.prof. OFF: the parameter matrix into the head of a.scratch first
+template <int E, int D, int K, int P, bool EMIT, bool BR, bool PROF = false>
 cudaError_t launch_nuts(const Args& a, cudaStream_t stream) {
-  using L = NutsLayout<E, P>;
-  if (!NutsTile<E>::ONCHIP && !a.scratch) return cudaErrorInvalidValue;
+  using L = NutsLayout<E, D, K, P>;
+  using TL = NutsTile<E, D, K, P>;
+  if ((!TL::ONCHIP || TL::OFF) && !a.scratch) return cudaErrorInvalidValue;
   const int bytes = L::floats(a.m) * (int)sizeof(float);
-  void (*kernel)(Args) = nuts_mm_kernel<E, EMIT, BR, P, PROF>;
+  void (*kernel)(Args) = nuts_mm_kernel<E, D, K, EMIT, BR, P, PROF>;
   // above 48 KB a block's shared memory must be asked for
-  const cudaError_t err =
+  cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
+  if constexpr (TL::OFF) {
+    err = launch_params<E, D, K, P>(a, stream);
+    if (err != cudaSuccess) return err;
+  }
   kernel<<<(a.n + L::NC - 1) / L::NC, L::T, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int E, int VAR, bool EMIT, bool STUB, bool BR, int P, bool PROF = false>
+// mm_kernel's body VAR of energy E at (D, K) and precision P; OFF: the
+// parameter matrix into a.scratch first
+template <int E, int D, int K, int VAR, bool EMIT, bool STUB, bool BR, int P, bool PROF = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using L = MmLayout<E, VAR, P, BR>;
+  using L = MmLayout<E, D, K, VAR, P, BR>;
   constexpr int bytes = L::kFloats * (int)sizeof(float);
-  void (*kernel)(Args) = mm_kernel<E, VAR, EMIT, STUB, BR, P, PROF>;
+  void (*kernel)(Args) = mm_kernel<E, D, K, VAR, EMIT, STUB, BR, P, PROF>;
   // above 48 KB a block's shared memory must be asked for
-  const cudaError_t err =
+  cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
+  if constexpr (L::OFF) {
+    err = launch_params<E, D, K, P>(a, stream);
+    if (err != cudaSuccess) return err;
+  }
   kernel<<<(a.n + L::CH - 1) / L::CH, L::T, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The tile of mm_kernel's run of body VAR at precision P (BR: the instance
-// with the branches): out[0] chains and out[1] threads a block, out[2]
-// shared-memory bytes, out[3] the blocks an SM holds at once (the card's
-// occupancy query, which counts registers too)
-template <int E, int VAR, bool BR, int P>
+// The tile of mm_kernel's run of body VAR at (D, K) and precision P (BR:
+// the instance with the branches): out[0] chains and out[1] threads a
+// block, out[2] shared-memory bytes, out[3] the blocks an SM holds at once
+// (the card's occupancy query, which counts registers too)
+template <int E, int D, int K, int VAR, bool BR, int P>
 cudaError_t tile_of(int* out) {
-  using L = MmLayout<E, VAR, P, BR>;
+  using L = MmLayout<E, D, K, VAR, P, BR>;
   out[0] = L::CH;
   out[1] = L::T;
   out[2] = L::kFloats * (int)sizeof(float);
-  void (*kernel)(Args) = mm_kernel<E, VAR, false, false, BR, P, false>;
+  void (*kernel)(Args) = mm_kernel<E, D, K, VAR, false, false, BR, P, false>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[2]);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, L::T, out[2]);
 }
 
-// Step body VAR of energy E at precision P, run or stream (emit): MJHMC and
-// NUTS without a mass and with the leapfrog take their fast-path instances
-// (BR=false; NUTS takes no other integrator), the rest the BR=true ones.
+// Step body VAR of energy E at (D, K) and precision P, run or stream (emit):
+// MJHMC and NUTS without a mass and with the leapfrog take their fast-path
+// instances (BR=false; NUTS takes no other integrator), the rest the BR=true
+// ones. Only VAR's kernels are instantiated.
+template <int E, int D, int K, int P, int VAR>
+cudaError_t launch_body_at(const Args& a, bool emit, cudaStream_t s) {
+  const bool fast = !a.mass && !a.two_stage;
+  if constexpr (VAR == kNuts) {
+    if (fast)
+      return emit ? launch_nuts<E, D, K, P, true, false>(a, s)
+                  : launch_nuts<E, D, K, P, false, false>(a, s);
+    return emit ? launch_nuts<E, D, K, P, true, true>(a, s)
+                : launch_nuts<E, D, K, P, false, true>(a, s);
+  } else {
+    if constexpr (VAR == kMjhmc) {
+      if (fast)
+        return emit ? launch<E, D, K, VAR, true, false, false, P>(a, s)
+                    : launch<E, D, K, VAR, false, false, false, P>(a, s);
+    }
+    return emit ? launch<E, D, K, VAR, true, false, true, P>(a, s)
+                : launch<E, D, K, VAR, false, false, true, P>(a, s);
+  }
+}
+// ... at the preset's shape (the library's)
 template <int E, int P, int VAR>
 cudaError_t launch_body(const Args& a, bool emit, cudaStream_t s) {
-  if constexpr (VAR == kNuts) {
-    if (!a.mass && !a.two_stage)
-      return emit ? launch_nuts<E, P, true, false>(a, s) : launch_nuts<E, P, false, false>(a, s);
-    return emit ? launch_nuts<E, P, true, true>(a, s) : launch_nuts<E, P, false, true>(a, s);
-  }
-  if constexpr (VAR == kMjhmc) {
-    if (!a.mass && !a.two_stage)
-      return emit ? launch<E, VAR, true, false, false, P>(a, s)
-                  : launch<E, VAR, false, false, false, P>(a, s);
-  }
-  return emit ? launch<E, VAR, true, false, true, P>(a, s)
-              : launch<E, VAR, false, false, true, P>(a, s);
+  return launch_body_at<E, Shape<E>::D, Shape<E>::K, P, VAR>(a, emit, s);
 }
 
-// The tiles of body VAR's runs at precision P: br picks the instance with
-// the branches (control and MALT have no other); and the PROF instance of
-// its run (MJHMC's without the branches), the phases of every iteration
-// into a.prof; nothing on the main path runs it
+// The tiles of body VAR's runs at (D, K) and precision P: br picks the
+// instance with the branches (control and MALT have no other); and the PROF
+// instance of its run at the preset's shape (MJHMC's without the branches),
+// the phases of every iteration into a.prof; nothing on the main path runs
+// it
+template <int E, int D, int K, int P, int VAR>
+cudaError_t mm_tile_at(bool br, int* out) {
+  if (br) return tile_of<E, D, K, VAR, true, P>(out);
+  if constexpr (VAR == kMjhmc) return tile_of<E, D, K, VAR, false, P>(out);
+  return cudaErrorInvalidValue;
+}
 template <int E, int P, int VAR>
 cudaError_t mm_tile(bool br, int* out) {
-  if (br) return tile_of<E, VAR, true, P>(out);
-  if constexpr (VAR == kMjhmc) return tile_of<E, VAR, false, P>(out);
-  return cudaErrorInvalidValue;
+  return mm_tile_at<E, Shape<E>::D, Shape<E>::K, P, VAR>(br, out);
 }
 template <int E, int P, int VAR>
 cudaError_t launch_mm_prof(const Args& a, cudaStream_t s) {
   if (VAR == kMjhmc && (a.mass || a.two_stage)) return cudaErrorInvalidValue;
-  return launch<E, VAR, false, false, VAR != kMjhmc, P, true>(a, s);
+  return launch<E, Shape<E>::D, Shape<E>::K, VAR, false, false, VAR != kMjhmc, P, true>(a, s);
 }
 
 // The NUTS run of energy E at precision P without a mass: its PROF
-// instance (the per-leaf phase breakdown into a.prof; nothing on the main
-// path runs it), and its tile: chains and threads a block, shared-memory
-// bytes at max_depth, and the blocks an SM holds at once (the card's
-// occupancy query, which counts registers too)
+// instance at the preset's shape (the per-leaf phase breakdown into a.prof;
+// nothing on the main path runs it), and its tile at (D, K): chains and
+// threads a block, shared-memory bytes at max_depth, and the blocks an SM
+// holds at once (the card's occupancy query, which counts registers too)
 template <int E, int P>
 cudaError_t launch_nuts_prof(const Args& a, cudaStream_t s) {
-  return launch_nuts<E, P, false, false, true>(a, s);
+  return launch_nuts<E, Shape<E>::D, Shape<E>::K, P, false, false, true>(a, s);
 }
-template <int E, int P>
-cudaError_t nuts_tile(int max_depth, int* out) {
-  using L = NutsLayout<E, P>;
+template <int E, int D, int K, int P>
+cudaError_t nuts_tile_at(int max_depth, int* out) {
+  using L = NutsLayout<E, D, K, P>;
   out[0] = L::NC;
   out[1] = L::T;
   out[2] = L::floats(max_depth) * (int)sizeof(float);
-  void (*kernel)(Args) = nuts_mm_kernel<E, false, false, P, false>;
+  void (*kernel)(Args) = nuts_mm_kernel<E, D, K, false, false, P, false>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[2]);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, L::T, out[2]);
 }
+template <int E, int P>
+cudaError_t nuts_tile(int max_depth, int* out) {
+  return nuts_tile_at<E, Shape<E>::D, Shape<E>::K, P>(max_depth, out);
+}
 
 // The precision sweep's instances: the MJHMC leapfrog run without a mass
-// of energy E at precision P (anything else is refused)
+// of energy E at the preset's shape and precision P (anything else is
+// refused)
 template <int E, int P>
 cudaError_t launch_sweep(const Args& a, bool emit, cudaStream_t s) {
   if (emit || a.mass || a.two_stage) return cudaErrorInvalidValue;
-  return launch<E, kMjhmc, false, false, false, P>(a, s);
+  return launch<E, Shape<E>::D, Shape<E>::K, kMjhmc, false, false, false, P>(a, s);
 }
 template <int E, int P>
 cudaError_t sweep_tile(bool br, int* out) {
-  return br ? cudaErrorInvalidValue : tile_of<E, kMjhmc, false, P>(out);
+  return br ? cudaErrorInvalidValue : tile_of<E, Shape<E>::D, Shape<E>::K, kMjhmc, false, P>(out);
 }
 
 using Launch = cudaError_t(const Args&, bool, cudaStream_t);
@@ -1507,12 +1842,13 @@ Instance sweep_instance() {
   return {launch_sweep<E, P>, sweep_tile<E, P>};
 }
 
-// The instances, each compiled in the source named beside it (an instance
-// declared here and compiled nowhere fails the build's link): every body at
-// kHighest and at the JAX preset's default precision (ProductOfTSpec and
-// LogregSpec "default", SparseCodingSpec "bf16x3"), and the sweep's other
-// two precisions of product of t and sparse coding
-// (cuda_mjhmc.MM_KERNEL_PRECISIONS), and the PROF instances
+// The library's instances, at the presets' shapes, each compiled in the
+// source named beside it (an instance declared here and compiled nowhere
+// fails the build's link): every body at kHighest and at the JAX preset's
+// default precision (ProductOfTSpec and LogregSpec "default",
+// SparseCodingSpec "bf16x3"), and the sweep's other two precisions of
+// product of t and sparse coding (cuda_mjhmc.MM_KERNEL_PRECISIONS), and the
+// PROF instances
 // mjhmc_mm_engine.cu
 extern template Instance body_instance<kProductOfT, kHighest, kMjhmc>();
 extern template Instance body_instance<kProductOfT, kHighest, kControl>();

@@ -12,9 +12,13 @@ beside the package, under a name keyed by a hash of the sources and flags,
 so an edited source builds anew and an unchanged one is reused.
 
 The library holds the elementwise engine at the presets' D only
-(``cuda_mjhmc.KERNEL_DIMS``). Any other (body, energy, D) is compiled on
-demand, as a Pallas kernel is traced at the shape it is called at:
-``load_instance`` compiles ``csrc/ondemand/ew_instance.cu`` with the same
+(``cuda_mjhmc.KERNEL_DIMS``) and the matmul engine at the presets' (d, k)
+and precisions only (``cuda_mjhmc.MM_KERNEL_SHAPES``,
+``MM_KERNEL_PRECISIONS``). Any other key is compiled on demand, as a Pallas
+kernel is traced at the shape it is called at: ``load_instance`` compiles an
+``Instance`` (``ew_instance``: ``csrc/ondemand/ew_instance.cu`` at a (body,
+energy, D, mixture cap); ``mm_instance``: ``csrc/ondemand/mm_instance.cu``
+at a (body, energy, d, k, precision, parameter-matrix mode)) with the same
 flags and the instance's ``-D`` macros into a library of its own beside the
 main one, keyed by a hash of that source, the headers, the flags and the
 macros, with its compiler report in a ``.log`` beside it.
@@ -31,6 +35,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: the compiled sources, one object each, and every file the build reads
@@ -147,57 +152,91 @@ def build_log() -> str:
     return library_path().with_suffix(".log").read_text()
 
 
-#: the on-demand instance's source and the names of its macros' values
-ONDEMAND_SOURCE = CSRC / "ondemand" / "ew_instance.cu"
+#: the on-demand instances' sources, the headers they read, and the names in
+#: their libraries' names
+EW_SOURCE = CSRC / "ondemand" / "ew_instance.cu"
+MM_SOURCE = CSRC / "ondemand" / "mm_instance.cu"
 HEADERS = tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
 VARIANT_NAMES = ("mjhmc", "nuts", "control", "malt")
 ENERGY_NAMES = ("rough_well", "gaussian", "funnel", "banana", "mog", "eight_schools",
                 "eight_schools_nc")
-#: argument types of an on-demand instance's entries (ondemand/ew_instance.cu)
-ONDEMAND_ARGTYPES = {"mjhmc_od_launch": LAUNCH_ARGTYPES, "mjhmc_od_ew_tile": EW_TILE_ARGTYPES,
-                     "mjhmc_od_nuts_tile": NUTS_TILE_ARGTYPES}
+MM_ENERGY_NAMES = ("product_of_t", "sparse_coding", "logreg")
+PRECISION_NAMES = ("highest", "bf16x3", "bf16x2", "default")
+#: argument types of the on-demand instances' entries (ondemand/*_instance.cu)
+EW_ENTRIES = (("mjhmc_od_launch", tuple(LAUNCH_ARGTYPES)),
+              ("mjhmc_od_ew_tile", tuple(EW_TILE_ARGTYPES)),
+              ("mjhmc_od_nuts_tile", tuple(NUTS_TILE_ARGTYPES)))
+MM_ENTRIES = (("mjhmc_mm_od_launch", tuple(MM_LAUNCH_ARGTYPES)),
+              ("mjhmc_mm_od_tile", tuple(MM_TILE_ARGTYPES)),
+              ("mjhmc_mm_od_nuts_tile", tuple(MM_NUTS_TILE_ARGTYPES)))
 
 
-def instance_macros(variant: int, energy: int, ndims: int, mog_cap: int) -> tuple:
-    """The ``-D`` macros of the on-demand instance of step body ``variant``
-    on energy ``energy`` (the kernel's ids) at ``ndims`` dims, mixtures of
-    at most ``mog_cap`` components."""
-    return (f"-DMJHMC_OD_VARIANT={variant}", f"-DMJHMC_OD_ENERGY={energy}",
-            f"-DMJHMC_OD_DIMS={ndims}", f"-DMJHMC_MOG_MAX_COMPONENTS={mog_cap}")
+class Instance(NamedTuple):
+    """One on-demand instance: the source one nvcc compiles, its ``-D``
+    macros, the stem of its library's name and its C entries with their
+    argument types."""
+
+    source: Path
+    macros: tuple
+    stem: str
+    entries: tuple
 
 
-def instance_path(variant: int, energy: int, ndims: int, mog_cap: int) -> Path:
-    """Where the on-demand instance's library lives: named by its body,
-    energy, D and cap, keyed by a hash of its source, the headers, the
-    flags and the macros."""
-    macros = instance_macros(variant, energy, ndims, mog_cap)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + macros).encode())
-    h.update(ONDEMAND_SOURCE.read_bytes())
+def ew_instance(variant: int, energy: int, ndims: int, mog_cap: int) -> Instance:
+    """The elementwise instance of step body ``variant`` on energy
+    ``energy`` (the kernel's ids) at ``ndims`` dims, mixtures of at most
+    ``mog_cap`` components."""
+    return Instance(
+        EW_SOURCE,
+        (f"-DMJHMC_OD_VARIANT={variant}", f"-DMJHMC_OD_ENERGY={energy}",
+         f"-DMJHMC_OD_DIMS={ndims}", f"-DMJHMC_MOG_MAX_COMPONENTS={mog_cap}"),
+        f"libmjhmc_ew_{VARIANT_NAMES[variant]}_{ENERGY_NAMES[energy]}_d{ndims}_k{mog_cap}",
+        EW_ENTRIES)
+
+
+def mm_instance(variant: int, energy: int, ndims: int, krows: int, precision: int,
+                offchip: bool) -> Instance:
+    """The matmul instance of step body ``variant`` on energy ``energy``
+    (the kernel's ids) at (``ndims``, ``krows``) and dot ``precision``, the
+    parameter matrix in a device buffer where ``offchip``."""
+    return Instance(
+        MM_SOURCE,
+        (f"-DMJHMC_MM_OD_VARIANT={variant}", f"-DMJHMC_MM_OD_ENERGY={energy}",
+         f"-DMJHMC_MM_OD_DIMS={ndims}", f"-DMJHMC_MM_OD_KROWS={krows}",
+         f"-DMJHMC_MM_OD_PRECISION={precision}", f"-DMJHMC_MM_OD_OFFCHIP={int(offchip)}"),
+        f"libmjhmc_mm_{VARIANT_NAMES[variant]}_{MM_ENERGY_NAMES[energy]}_d{ndims}_k{krows}_"
+        f"{PRECISION_NAMES[precision]}{'_off' if offchip else ''}",
+        MM_ENTRIES)
+
+
+def instance_path(inst: Instance) -> Path:
+    """Where the on-demand instance's library lives: named by its key,
+    keyed by a hash of its source, the headers, the flags and the macros."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + inst.macros).encode())
+    h.update(inst.source.read_bytes())
     for name in HEADERS:
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / (f"libmjhmc_ew_{VARIANT_NAMES[variant]}_{ENERGY_NAMES[energy]}_d{ndims}"
-                        f"_k{mog_cap}_{h.hexdigest()[:16]}.so")
+    return BUILD_DIR / f"{inst.stem}_{h.hexdigest()[:16]}.so"
 
 
-def instance_command(variant: int, energy: int, ndims: int, mog_cap: int, out: Path) -> list:
+def instance_command(inst: Instance, out: Path) -> list:
     """The one nvcc that compiles and links the on-demand instance into
     ``out``, refusing undefined symbols."""
-    return [_nvcc(), *NVCC_FLAGS, *instance_macros(variant, energy, ndims, mog_cap), "-shared",
-            "-Xlinker", "--no-undefined", "-o", str(out), str(ONDEMAND_SOURCE)]
+    return [_nvcc(), *NVCC_FLAGS, *inst.macros, "-shared", "-Xlinker", "--no-undefined", "-o",
+            str(out), str(inst.source)]
 
 
 _INSTANCE_LOCKS: dict = {}
 _LOCKS_GUARD = threading.Lock()
 
 
-def build_instance(variant: int, energy: int, ndims: int,
-                   mog_cap: int) -> tuple[Path, float | None]:
+def build_instance(inst: Instance) -> tuple[Path, float | None]:
     """Compile the on-demand instance unless it is built; one build of a
     key at a time in a process. Returns (the library, the seconds nvcc took
     in this call, or None where the library was built before and reused).
     The compiler's report goes to the library's ``.log``; a failed nvcc
     raises ``RuntimeError``."""
-    path = instance_path(variant, energy, ndims, mog_cap)
+    path = instance_path(inst)
     with _LOCKS_GUARD:
         lock = _INSTANCE_LOCKS.setdefault(path, threading.Lock())
     with lock:
@@ -206,8 +245,7 @@ def build_instance(variant: int, energy: int, ndims: int,
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(instance_command(variant, energy, ndims, mog_cap, tmp),
-                              capture_output=True, text=True)
+        proc = subprocess.run(instance_command(inst, tmp), capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr + f"nvcc {path.name}: {seconds:.1f} s\n"
         path.with_suffix(".log").write_text(log)
@@ -219,25 +257,23 @@ def build_instance(variant: int, energy: int, ndims: int,
     return path, seconds
 
 
-def instance_log(variant: int, energy: int, ndims: int, mog_cap: int) -> str:
+def instance_log(inst: Instance) -> str:
     """The compiler's report of an on-demand instance's build."""
-    return instance_path(variant, energy, ndims, mog_cap).with_suffix(".log").read_text()
+    return instance_path(inst).with_suffix(".log").read_text()
 
 
 @functools.cache
-def load_instance(variant: int, energy: int, ndims: int, mog_cap: int) -> ctypes.CDLL:
-    """Build (first use) and load the on-demand instance of step body
-    ``variant`` on ``energy`` at ``ndims`` dims (mixtures of at most
-    ``mog_cap`` components); typed entries. A failed build or load raises
-    ``RuntimeError``."""
-    path, _ = build_instance(variant, energy, ndims, mog_cap)
+def load_instance(inst: Instance) -> ctypes.CDLL:
+    """Build (first use) and load the on-demand instance; typed entries. A
+    failed build or load raises ``RuntimeError``."""
+    path, _ = build_instance(inst)
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
         raise RuntimeError(f"loading the on-demand instance {path.name} failed: {e}") from e
-    for name, argtypes in ONDEMAND_ARGTYPES.items():
+    for name, argtypes in inst.entries:
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
 

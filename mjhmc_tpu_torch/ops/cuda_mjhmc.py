@@ -32,9 +32,12 @@ parameterizations; a chain on a group of lanes; C entry
 mixture size at its first use from ``csrc/ondemand/ew_instance.cu``) and
 ``csrc/mjhmc_mm_engine.cuh`` for the matmul energies (product of t, sparse
 coding, logistic regression; tiles of chains per block, the parameter
-matrix in shared memory; contractions at the spec's dot ``precision``, full
-f32 in FP32 FMA or bf16 passes on the tensor cores, ``MM_KERNEL_PRECISIONS``;
-C entry ``csrc/mjhmc_mm_engine.cu``). Beside them this module holds
+matrix in shared memory, or in a device buffer where it does not fit;
+contractions at the spec's dot ``precision``, full f32 in FP32 FMA or bf16
+passes on the tensor cores; C entry ``csrc/mjhmc_mm_engine.cu``; compiled
+ahead at the presets' shapes and precisions, any other (d, k) and precision
+at its first use from ``csrc/ondemand/mm_instance.cu``). Beside them this
+module holds
 their plain PyTorch versions (``run_reference`` / ``stream_reference``, one
 for both kinds) with the same contract. The wrappers ``cuda_mjhmc_run`` /
 ``cuda_mjhmc_stream_run`` (elementwise) and ``cuda_mjhmc_mm_run`` /
@@ -569,16 +572,18 @@ MATMUL_SPECS = (ProductOfTSpec, SparseCodingSpec, LogregSpec)
 #: (``_build.load_instance``, ``ew_library``)
 KERNEL_DIMS = {RoughWellSpec: (2, 50), GaussianSpec: (2, 50), FunnelSpec: (10,),
                BananaSpec: (2,), MogSpec: (1,), EightSchoolsSpec: (10,)}
-#: (ndims, aux rows) the matmul kernel is instantiated for, per spec
+#: (ndims, aux rows) the matmul library is compiled ahead for, per spec
 #: (csrc/mjhmc_mm_engine.cuh lists the sources): the product_of_t,
-#: sparse_coding and logreg presets
+#: sparse_coding and logreg presets. Every other shape runs on an instance
+#: compiled at first use (``_build.load_instance``, ``mm_library``)
 MM_KERNEL_SHAPES = {ProductOfTSpec: (36, 36), SparseCodingSpec: (128, 64),
                     LogregSpec: (16, 256)}
-#: what the matmul kernel is instantiated for at each dot precision, per
-#: spec: every body and branch (run and stream, with a mass, two-stage) at
-#: "highest" and at the JAX preset's default; the precision sweep's MJHMC
-#: leapfrog run without a mass at the other two of product of t and sparse
-#: coding (bench_mm_precision.py)
+#: what the matmul library is compiled ahead for at each dot precision at
+#: its shape, per spec: every body and branch (run and stream, with a mass,
+#: two-stage) at "highest" and at the JAX preset's default; the precision
+#: sweep's MJHMC leapfrog run without a mass at the other two of product of t
+#: and sparse coding (bench_mm_precision.py). Every other (body, precision)
+#: runs on an instance compiled at first use
 ALL_BODIES, SWEEP_RUN = "every body and branch", "the MJHMC leapfrog run without a mass"
 MM_KERNEL_PRECISIONS = {
     ProductOfTSpec: {"highest": ALL_BODIES, "default": ALL_BODIES,
@@ -671,7 +676,8 @@ def ew_library(variant: str, spec, ndims: int) -> EwEntries:
     if compiled_ahead(spec, ndims):
         lib = _build.load()
         return EwEntries(lib.mjhmc_engine_launch, lib.mjhmc_ew_tile, lib.mjhmc_nuts_tile)
-    lib = _build.load_instance(KERNEL_VARIANTS[variant], spec.energy_id, ndims, mog_cap(spec))
+    lib = _build.load_instance(_build.ew_instance(KERNEL_VARIANTS[variant], spec.energy_id,
+                                                  ndims, mog_cap(spec)))
     return EwEntries(lib.mjhmc_od_launch, lib.mjhmc_od_ew_tile, lib.mjhmc_od_nuts_tile)
 
 
@@ -706,23 +712,61 @@ def _check_slice(spec, variant, integrator, inv_mass, kinds):
                          f"{PRECISIONS}")
 
 
-def check_mm_precision(spec, variant, integrator, inv_mass, emit) -> None:
-    """Refuse a (body, precision) pair the matmul kernel has no instance
-    for (``MM_KERNEL_PRECISIONS``); the stub has no contraction, so no
-    precision."""
-    if getattr(spec, "stub_dots", False):
-        return
-    table = MM_KERNEL_PRECISIONS[type(spec)]
-    have = table.get(spec.precision)
-    run_only = variant == "mjhmc" and integrator == "leapfrog" and inv_mass is None and not emit
-    if have is None or (have == SWEEP_RUN and not run_only):
-        what = (f"the {variant} {'stream' if emit else 'run'}"
-                f"{' with a mass' if inv_mass is not None else ''}"
-                f"{' (two-stage)' if integrator == 'two_stage' else ''}")
-        raise NotImplementedError(
-            f"the matmul kernel has no instance for {what} of {type(spec).__name__} at "
-            f"precision {spec.precision!r}: cuda_mjhmc.MM_KERNEL_PRECISIONS has "
-            f"{table}")
+def mm_shape(spec) -> tuple:
+    """(state dims, rows of the intermediate) of a matmul spec: product of t
+    (ndims, nbasis), sparse coding (nbasis, npixels), logreg (ndims, nobs)."""
+    return spec.dist.ndims, spec.aux_rows()
+
+
+def check_mm_dims(spec, ndims: int) -> None:
+    """Refuse what the JAX engine cannot run either: a state without dims,
+    or of other dims than the spec's. Every (d, k) and dot precision has an
+    instance: the library's (``mm_compiled_ahead``), else one compiled on
+    demand."""
+    own = mm_shape(spec)[0]
+    if ndims < 1 or ndims != own:
+        raise ValueError(f"{type(spec).__name__} is built for {own} dims; the state has {ndims}")
+
+
+def mm_compiled_ahead(spec, sweep_run: bool) -> bool:
+    """Whether the matmul library has the instance of ``spec`` (its shape
+    and precision, ``MM_KERNEL_SHAPES`` and ``MM_KERNEL_PRECISIONS``) for a
+    call that is the precision sweep's run (``sweep_run``: the MJHMC
+    leapfrog run without a mass, or its tile) or any other; else it is
+    compiled on demand."""
+    if mm_shape(spec) != MM_KERNEL_SHAPES[type(spec)]:
+        return False
+    have = MM_KERNEL_PRECISIONS[type(spec)].get(spec.precision)
+    return have == ALL_BODIES or (have == SWEEP_RUN and sweep_run)
+
+
+class MmEntries(NamedTuple):
+    """The C entries that serve one matmul (body, spec, shape, precision):
+    the library's, or an on-demand instance's."""
+
+    launch: object
+    tile: object
+    nuts_tile: object
+
+
+def mm_library(variant: str, spec, d: int, k: int, sweep_run: bool = False) -> MmEntries:
+    """The entries of the instance that runs ``variant`` on ``spec`` at (d,
+    k) and the spec's precision: the library's where it was compiled ahead
+    (``mm_compiled_ahead``), else the on-demand instance's, compiled at its
+    first use in the mode the tile rule picks (``_build.load_instance``; a
+    failed nvcc or load raises)."""
+    from mjhmc_tpu_torch.ops import _build
+
+    if (d, k) != mm_shape(spec):
+        raise ValueError(f"{type(spec).__name__} is built for {mm_shape(spec)}, not {(d, k)}")
+    if mm_compiled_ahead(spec, sweep_run):
+        lib = _build.load()
+        return MmEntries(lib.mjhmc_mm_engine_launch, lib.mjhmc_mm_tile, lib.mjhmc_mm_nuts_tile)
+    rule = nuts_mm_tile_rule(spec) if variant == "nuts" else mm_tile_rule(spec, variant)
+    lib = _build.load_instance(_build.mm_instance(
+        KERNEL_VARIANTS[variant], spec.energy_id, d, k, PRECISIONS.index(spec.precision),
+        rule.off))
+    return MmEntries(lib.mjhmc_mm_od_launch, lib.mjhmc_mm_od_tile, lib.mjhmc_mm_od_nuts_tile)
 
 
 # --------------------------------------------------------------------------
@@ -1373,79 +1417,227 @@ def nuts_scratch_rows(max_depth: int) -> int:
     return 8 + 2 * (max_depth - 1)
 
 
-#: the matmul NUTS kernel's tile per spec (csrc/mjhmc_mm_engine.cuh,
-#: NutsTile): chains and threads a block, and whether the tree state lives
-#: in shared memory (else in a scratch buffer in device memory that the
-#: wrapper allocates)
-NUTS_MM_TILES = {ProductOfTSpec: (8, 96, True), SparseCodingSpec: (16, 256, False),
-                 LogregSpec: (8, 128, True)}
+# The matmul kernels' tile rule and layouts (csrc/mjhmc_mm_engine.cuh:
+# TileRule, mm_rule, mm_geom, nuts_rule, nuts_geom), mirrored here for the
+# wrappers' buffers and the checks that hold the instances' own reports to
+# them. The base tile is the energy's preset one; where the layout does not
+# fit a block's 227 KB, the chains a block halve (the threads with them) down
+# to one mma n-tile of 8 columns, and where even that does not fit the
+# parameter matrix moves to a device buffer ("off").
+#: shared memory on the H100: what a block may opt into, an SM's, and what
+#: an SM reserves for each resident block
+SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
+#: the base tile per spec: chains and threads a block, MINB (mm_kernel's
+#: logreg MJHMC 4 chains, its 8 columns one mma n-tile)
+_BASE_TILES = {ProductOfTSpec: (8, 96, 4), SparseCodingSpec: (16, 256, 2),
+               LogregSpec: (8, 128, 3)}
 
 
-def nuts_scratch(spec, max_depth: int, n: int, device) -> Tensor | None:
-    """The matmul NUTS kernel's tree state in device memory, (rows, d, n),
-    for the energies whose tree state does not fit in shared memory
-    (``NUTS_MM_TILES``); None for the others."""
-    if NUTS_MM_TILES[type(spec)][2]:
-        return None
-    d = MM_KERNEL_SHAPES[type(spec)][0]
-    return torch.empty((nuts_scratch_rows(max_depth), d, n), dtype=torch.float32,
-                       device=device)
+class TileRule(NamedTuple):
+    """A tile of the matmul kernels: chains and threads a block, the
+    blocks an SM asked of ``__launch_bounds__``, the parameter matrix in a
+    device buffer (``off``), NUTS's tree state in shared memory
+    (``onchip``)."""
+
+    chains: int
+    threads: int
+    minb: int
+    off: bool
+    onchip: bool
 
 
-def nuts_mm_smem_bytes(spec, max_depth: int) -> int:
-    """Shared-memory bytes a block of the matmul NUTS kernel takes at the
-    spec's precision and ``max_depth`` (mirror of NutsLayout::floats): the
-    parameter matrix (f32 in both orientations at "highest", else its bf16
-    A fragments, one copy per contraction and split part, 16-padded), the
-    patch, X and G, Y and Z (no Z at sparse coding), the mass, the tree state
-    where it is on chip, and the column sums' partials (5 + 2(max_depth − 1)
-    slots of one float a thread)."""
-    d, k = MM_KERNEL_SHAPES[type(spec)]
-    nc, threads, on_chip = NUTS_MM_TILES[type(spec)]
-
-    def pad16(m):
-        return -(-m // 16) * 16
-
-    f32 = d * k if spec.precision == "highest" else 0
-    mass = 2 * f32 + k + 2 * d * nc + k * nc * (1 if isinstance(spec, SparseCodingSpec) else 2)
-    frag = -(-(mass + 2 * d) // 4) * 4
-    copies = {"highest": 0, "bf16x3": 2}.get(spec.precision, 1)
-    red = frag + 2 * copies * pad16(k) * pad16(d) // 2
-    if on_chip:
-        red += nuts_scratch_rows(max_depth) * d * nc
-    return 4 * (red + (5 + 2 * (max_depth - 1)) * threads)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-#: mm_kernel's tile per spec and body (csrc/mjhmc_mm_engine.cuh, MmTile):
-#: chains and threads a block (MJHMC spends two trajectory columns on each
-#: chain, control and MALT one); the grid is ceil(nbatch / chains) blocks
-MM_TILES = {(ProductOfTSpec, "mjhmc"): (8, 96), (ProductOfTSpec, "control"): (8, 96),
-            (ProductOfTSpec, "malt"): (8, 96), (SparseCodingSpec, "mjhmc"): (16, 256),
-            (SparseCodingSpec, "control"): (16, 256), (SparseCodingSpec, "malt"): (16, 256),
-            (LogregSpec, "mjhmc"): (4, 128), (LogregSpec, "control"): (8, 128),
-            (LogregSpec, "malt"): (8, 128)}
+def _round_up(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
+def param_floats(spec) -> int:
+    """Floats of the parameter matrix at the spec's shape and precision
+    (Params::kFloats): two f32 copies with rows padded to fours at
+    "highest", else the bf16 A fragments of both contractions (16-padded;
+    hi, and lo at "bf16x3") in 32-bit words; the device buffer's size where
+    it is off chip."""
+    d, k = mm_shape(spec)
+    if spec.precision == "highest":
+        return d * _round_up(k, 4) + k * _round_up(d, 4)
+    copies = 2 if spec.precision == "bf16x3" else 1
+    return 2 * copies * (_round_up(k, 16) * _round_up(d, 16) // 2)
+
+
+def _minb(spec, floats: int) -> int:
+    fit = SMEM_SM // (4 * floats + SMEM_RESERVED)
+    return 1 if fit < 1 else min(_BASE_TILES[type(spec)][2], fit)
+
+
+class MmGeometry(NamedTuple):
+    """mm_kernel's layout on a tile (mm_geom): columns, operand row stride,
+    a chain's threads (rows' owners) and its dims' owners, groups of four
+    dims and rows an owner holds, the padded dims and rows, and the shared
+    memory in floats."""
+
+    columns: int
+    ld: int
+    row_owners: int
+    dim_owners: int
+    groups: int
+    rows: int
+    dp: int
+    kp: int
+    floats: int
+
+
+def mm_geometry(spec, variant: str, branches: bool, chains: int, threads: int,
+                off: bool) -> MmGeometry:
+    d, k = mm_shape(spec)
+    nc = 2 * chains if variant == "mjhmc" else chains
+    ry = threads // chains
+    groups = _cdiv(d, 4)
+    ng = _cdiv(groups, ry)
+    r = _cdiv(groups, ng)
+    nk = _cdiv(k, ry)
+    dp, kp, ld = 4 * r * ng, ry * nk, nc + 4
+    f32 = spec.precision == "highest" and not off
+    params = 0 if off else param_floats(spec)
+    # the f32 copies, X, G, Y and Z (none at sparse coding, whose Y is the
+    # residual operand), the mass, then the bf16 fragments, 16-byte aligned
+    mass = ((params if f32 else 0) + dp * ld + dp * nc
+            + (kp * ld if isinstance(spec, SparseCodingSpec) else kp * nc + kp * ld))
+    frag = _round_up(mass + (2 * dp if branches else 0), 4)
+    red = frag + (0 if f32 else params)
+    return MmGeometry(nc, ld, ry, r, ng, nk, dp, kp,
+                      red + (4 if variant == "mjhmc" else 3) * threads)
+
+
+def mm_tile_rule(spec, variant: str) -> TileRule:
+    """mm_kernel's tile of ``variant`` on the spec at its shape and
+    precision (mm_rule; the layout with the branches must fit). Raises
+    ``NotImplementedError`` where no tile fits, even off chip."""
+    ch0, t0, _ = _BASE_TILES[type(spec)]
+    if isinstance(spec, LogregSpec) and variant == "mjhmc":
+        ch0 = 4
+    for off in (False, True):
+        ch = ch0
+        while (2 * ch if variant == "mjhmc" else ch) >= 8:
+            t = _round_up(t0 // ch0 * ch, 32)
+            floats = mm_geometry(spec, variant, True, ch, t, off).floats
+            if 4 * floats <= SMEM_BLOCK:
+                return TileRule(ch, t, _minb(spec, floats), off, False)
+            ch //= 2
+    raise NotImplementedError(
+        f"no tile of the matmul kernel fits {type(spec).__name__} at {mm_shape(spec)}: the "
+        f"{variant} tile of 8 columns takes {4 * floats} bytes of shared memory with the "
+        f"parameter matrix off chip, over the {SMEM_BLOCK} a block may hold (d + k past "
+        f"about 2,700; ROADMAP.md, queue 2 item 4: the d- and k-row intermediates off chip)")
 
 
 def mm_smem_bytes(spec, variant: str, branches: bool) -> int:
     """Shared-memory bytes a block of mm_kernel's ``variant`` run takes at
-    the spec's precision, with the branches (the mass) or without (mirror
-    of MmLayout::kFloats): the parameter matrix (f32 in both orientations at
-    "highest", else its bf16 A fragments), X and Z at a row stride of NC + 4
-    floats (NC the trajectory columns), G and the energy terms Y at NC
-    (sparse coding: the residual Y at NC + 4, no Z), the mass (2d floats,
-    with the branches), the fragments 16-byte aligned, and the chains'
-    partial sums (MJHMC 4 slots of one float a thread, control and MALT 3)."""
-    d, k = MM_KERNEL_SHAPES[type(spec)]
-    chains, threads = MM_TILES[(type(spec), variant)]
-    nc = 2 * chains if variant == "mjhmc" else chains
-    ld = nc + 4
-    f32 = d * k if spec.precision == "highest" else 0
-    sparse = isinstance(spec, SparseCodingSpec)
-    mass = 2 * f32 + d * ld + d * nc + (k * ld if sparse else k * nc + k * ld)
-    frag = -(-(mass + (2 * d if branches else 0)) // 4) * 4
-    copies = {"highest": 0, "bf16x3": 2}.get(spec.precision, 1)
-    red = frag + 2 * copies * (-(-k // 16) * 16) * (-(-d // 16) * 16) // 2
-    return 4 * (red + (4 if variant == "mjhmc" else 3) * threads)
+    the spec's shape and precision, with the branches (the mass) or without
+    (mirror of MmLayout::kFloats on the tile rule's tile)."""
+    rule = mm_tile_rule(spec, variant)
+    return 4 * mm_geometry(spec, variant, branches, rule.chains, rule.threads, rule.off).floats
+
+
+def mm_scratch(spec, variant: str, device) -> Tensor | None:
+    """mm_kernel's device buffer, the parameter matrix where the tile rule
+    puts it off chip (``param_floats``); None for the others."""
+    if not mm_tile_rule(spec, variant).off:
+        return None
+    return torch.empty((param_floats(spec),), dtype=torch.float32, device=device)
+
+
+class NutsGeometry(NamedTuple):
+    """The matmul NUTS kernel's layout on a tile (nuts_geom): owners a
+    column, dims and rows an owner holds, the padded dims and rows, the
+    floats before the tree state, and whether the tree state is on chip."""
+
+    owners: int
+    dims: int
+    rows: int
+    dp: int
+    kp: int
+    tree: int
+    chains: int
+    threads: int
+    onchip: bool
+
+    def floats(self, max_depth: int) -> int:
+        tree = nuts_scratch_rows(max_depth) * self.dp * self.chains if self.onchip else 0
+        return self.tree + tree + (5 + 2 * (max_depth - 1)) * self.threads
+
+
+def nuts_mm_geometry(spec, chains: int, threads: int, off: bool, onchip: bool) -> NutsGeometry:
+    d, k = mm_shape(spec)
+    r = threads // chains
+    ne, nk = _cdiv(d, r), _cdiv(k, r)
+    dp, kp = r * ne, r * nk
+    f32 = spec.precision == "highest" and not off
+    params = 0 if off else param_floats(spec)
+    # the f32 copies, the patch, X and G, Y and Z (none at sparse coding),
+    # the mass, then the bf16 fragments, 16-byte aligned
+    mass = ((params if f32 else 0) + _round_up(k, 4) + 2 * dp * chains
+            + kp * chains * (1 if isinstance(spec, SparseCodingSpec) else 2))
+    tree = _round_up(mass + 2 * dp, 4) + (0 if f32 else params)
+    return NutsGeometry(r, ne, nk, dp, kp, tree, chains, threads, onchip)
+
+
+def nuts_mm_tile_rule(spec) -> TileRule:
+    """The matmul NUTS kernel's tile on the spec at its shape and precision
+    (nuts_rule; the layout at max_depth 12 must fit, the tree state on chip
+    where it fits there too). Raises ``NotImplementedError`` where no tile
+    fits, even off chip."""
+    nc0, t0, _ = _BASE_TILES[type(spec)]
+    for off in (False, True):
+        nc = nc0
+        while nc >= 8:
+            t = _round_up(t0 // nc0 * nc, 32)
+            floats = nuts_mm_geometry(spec, nc, t, off, False).floats(NUTS_MM_MAX_DEPTH)
+            if 4 * floats <= SMEM_BLOCK:
+                onchip = 4 * nuts_mm_geometry(spec, nc, t, off, True).floats(
+                    NUTS_MM_MAX_DEPTH) <= SMEM_BLOCK
+                minb = _minb(spec, nuts_mm_geometry(spec, nc, t, off, onchip).floats(1))
+                return TileRule(nc, t, minb, off, onchip)
+            nc //= 2
+    raise NotImplementedError(
+        f"no tile of the matmul NUTS kernel fits {type(spec).__name__} at {mm_shape(spec)}: "
+        f"8 chains take {4 * floats} bytes of shared memory at max_depth {NUTS_MM_MAX_DEPTH} "
+        f"with the parameter matrix off chip, over the {SMEM_BLOCK} a block may hold (d + k "
+        f"past about 3,100; ROADMAP.md, queue 2 item 4: the d- and k-row intermediates off "
+        f"chip)")
+
+
+def nuts_mm_geometry_of(spec) -> NutsGeometry:
+    """The NUTS layout on the tile rule's tile."""
+    rule = nuts_mm_tile_rule(spec)
+    return nuts_mm_geometry(spec, rule.chains, rule.threads, rule.off, rule.onchip)
+
+
+def nuts_scratch(spec, max_depth: int, n: int, device) -> Tensor | None:
+    """The matmul NUTS kernel's device buffer: the tree state, (rows, DP,
+    n) in the padded dims, where it does not live in shared memory; where
+    the parameter matrix is off chip, a flat buffer of the parameter matrix
+    (``param_floats``) and then that tree state. None where neither."""
+    rule = nuts_mm_tile_rule(spec)
+    geom = nuts_mm_geometry_of(spec)
+    tree = () if rule.onchip else (nuts_scratch_rows(max_depth), geom.dp, n)
+    if not rule.off:
+        return None if rule.onchip else torch.empty(tree, dtype=torch.float32, device=device)
+    return torch.empty((param_floats(spec) + math.prod(tree) * (not rule.onchip),),
+                       dtype=torch.float32, device=device)
+
+
+def nuts_mm_smem_bytes(spec, max_depth: int) -> int:
+    """Shared-memory bytes a block of the matmul NUTS kernel takes at the
+    spec's shape, precision and ``max_depth`` (mirror of NutsLayout::floats
+    on the tile rule's tile): the parameter matrix (f32 in both orientations
+    at "highest", else its bf16 A fragments; none off chip), the patch, X
+    and G, Y and Z (no Z at sparse coding), the mass, the tree state where
+    it is on chip, and the column sums' partials (5 + 2(max_depth − 1) slots
+    of one float a thread)."""
+    return 4 * nuts_mm_geometry_of(spec).floats(max_depth)
 
 
 def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
@@ -1460,14 +1652,12 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     d, n = x.shape
     matmul = isinstance(spec, MATMUL_SPECS)
     if matmul:
-        shape = (d, spec.aux_rows())
-        if shape != MM_KERNEL_SHAPES[type(spec)]:
-            raise NotImplementedError(
-                f"the matmul kernel is instantiated for {type(spec).__name__} at "
-                f"(ndims, aux rows) = {MM_KERNEL_SHAPES[type(spec)]}, not {shape} "
-                "(ROADMAP.md, 'TPU kernels to port': other shapes)"
-            )
-        check_mm_precision(spec, variant, integrator, inv_mass, num_emits is not None)
+        check_mm_dims(spec, d)
+        # the tile rule's tile (raises where no tile fits, before any build)
+        if variant == "nuts":
+            nuts_mm_tile_rule(spec)
+        elif not getattr(spec, "stub_dots", False):
+            mm_tile_rule(spec, variant)
     else:
         check_kernel_dims(spec, d)
     cap = NUTS_MM_MAX_DEPTH if matmul else NUTS_MAX_DEPTH
@@ -1484,11 +1674,12 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
         raise ValueError(f"need nbatch > 0, thin >= 1, steps >= 0 (got {n}, {thin}, {num_iters})")
     if matmul and m < 1:  # the endpoint energies reuse the last step's product
         raise ValueError(f"the matmul kernel needs leapfrog steps >= 1, got {m}")
-    if getattr(spec, "stub_dots", False) and (num_emits is not None
-                                              or not isinstance(spec, ProductOfTSpec)):
+    if getattr(spec, "stub_dots", False) and (
+            num_emits is not None or not isinstance(spec, ProductOfTSpec)
+            or mm_shape(spec) != MM_KERNEL_SHAPES[ProductOfTSpec]):
         raise NotImplementedError(
-            "the stub_dots kernel is instantiated for the product-of-t run only, "
-            "the roofline dossier's ablation row (its plain version takes any spec)"
+            "the stub_dots kernel is instantiated for the product-of-t preset's run "
+            "only, the roofline dossier's ablation row (its plain version takes any spec)"
         )
     for name, t, shape in (
         ("x", x, (d, n)), ("v", v, (d, n)), ("g", g, (d, n)), ("u", u, (n,)),
@@ -1501,8 +1692,12 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     mass = _mass_tensor(inv_mass, d, x.device)
-    if matmul or prof is not None:  # the PROF instances live in the library
+    if prof is not None or getattr(spec, "stub_dots", False):  # these live in the library
         lib = _build.load()
+    elif matmul:
+        sweep_run = (variant == "mjhmc" and integrator == "leapfrog" and inv_mass is None
+                     and num_emits is None)
+        entries = mm_library(variant, spec, d, spec.aux_rows(), sweep_run)
     else:
         entries = ew_library(variant, spec, d)
     out = RunOut(
@@ -1528,11 +1723,16 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     if matmul:
         params = [t.contiguous() for t in _param_tensors(spec, d, x.device)]
         p0, p1 = (params + [None])[:2]
-        scratch = nuts_scratch(spec, m, n, x.device) if variant == "nuts" else None
-        fn, extra = lib.mjhmc_mm_engine_launch, ()
-        if prof is not None:
+        if getattr(spec, "stub_dots", False):
+            scratch, fn, extra = None, lib.mjhmc_mm_engine_launch, ()
+        elif prof is not None:
+            scratch = nuts_scratch(spec, m, n, x.device) if variant == "nuts" else None
             fn = lib.mjhmc_mm_nuts_profile if variant == "nuts" else lib.mjhmc_mm_profile
             extra = (prof.data_ptr(),)
+        else:
+            scratch = (nuts_scratch(spec, m, n, x.device) if variant == "nuts"
+                       else mm_scratch(spec, variant, x.device))
+            fn, extra = entries.launch, ()
         rc = fn(
             spec.energy_id, d, spec.aux_rows(), int(getattr(spec, "stub_dots", False)),
             KERNEL_VARIANTS[variant], PRECISIONS.index(spec.precision),
@@ -1719,15 +1919,14 @@ NUTS_PROF_PHASES = ("kick_drift", "contraction_1", "contraction_2", "energy_half
 
 def nuts_mm_tile(spec, max_depth: int) -> tuple:
     """(chains, threads, shared-memory bytes) of a block of the matmul NUTS
-    instances of ``spec`` at its precision and ``max_depth``, and the blocks
-    of its run an SM holds at once, as the built library reports them
-    (``mjhmc_mm_nuts_tile``; ``NUTS_MM_TILES`` and ``nuts_mm_smem_bytes``
-    mirror the first three)."""
-    from mjhmc_tpu_torch.ops import _build
-
+    instances of ``spec`` at its shape, precision and ``max_depth``, and the
+    blocks of its run an SM holds at once, as the instance that runs it
+    reports them (``mjhmc_mm_nuts_tile``, or an on-demand instance's
+    ``mjhmc_mm_od_nuts_tile``; ``nuts_mm_tile_rule`` and
+    ``nuts_mm_smem_bytes`` mirror the first three)."""
     out = (ctypes.c_int * 4)()
-    rc = _build.load().mjhmc_mm_nuts_tile(spec.energy_id, PRECISIONS.index(spec.precision),
-                                          max_depth, out)
+    rc = mm_library("nuts", spec, *mm_shape(spec)).nuts_tile(
+        spec.energy_id, PRECISIONS.index(spec.precision), max_depth, out)
     if rc != 0:
         raise RuntimeError(f"mjhmc_mm_nuts_tile: no NUTS instance of {type(spec).__name__} "
                            f"at {spec.precision} (CUDA error {rc})")
@@ -1741,7 +1940,7 @@ def nuts_mm_profile(spec, x, v, g, u, seed, epsilon, num_iters, max_depth) -> Te
     block's clock64() cycles per phase as thread 0 and the last warp's
     first thread saw them, and its leaf steps. A measurement, not a
     main-path call: the run's outputs are dropped and no launch is counted."""
-    blocks = -(-x.shape[1] // NUTS_MM_TILES[type(spec)][0])
+    blocks = -(-x.shape[1] // nuts_mm_tile_rule(spec).chains)
     prof = torch.zeros((blocks, 2, len(NUTS_PROF_PHASES)), dtype=torch.int64,
                        device=x.device)
     z = torch.zeros_like(u)
@@ -1758,15 +1957,16 @@ MM_PROF_PHASES = ("draws_o_steps", "kick_drift", "contraction_1", "contraction_2
 
 def mm_tile(spec, variant: str, branches: bool = False) -> tuple:
     """(chains, threads, shared-memory bytes) of a block of mm_kernel's
-    ``variant`` run of ``spec`` at its precision, with the branches or
-    without (control and MALT have only the former), and the blocks of it an
-    SM holds at once, as the built library reports them (``mjhmc_mm_tile``;
-    ``MM_TILES`` and ``mm_smem_bytes`` mirror the first three)."""
-    from mjhmc_tpu_torch.ops import _build
-
+    ``variant`` run of ``spec`` at its shape and precision, with the
+    branches or without (control and MALT have only the former), and the
+    blocks of it an SM holds at once, as the instance that runs it reports
+    them (``mjhmc_mm_tile``, or an on-demand instance's ``mjhmc_mm_od_tile``;
+    ``mm_tile_rule`` and ``mm_smem_bytes`` mirror the first three)."""
     out = (ctypes.c_int * 4)()
-    rc = _build.load().mjhmc_mm_tile(spec.energy_id, PRECISIONS.index(spec.precision),
-                                     KERNEL_VARIANTS[variant], int(branches), out)
+    sweep_run = variant == "mjhmc" and not branches
+    rc = mm_library(variant, spec, *mm_shape(spec), sweep_run).tile(
+        spec.energy_id, PRECISIONS.index(spec.precision), KERNEL_VARIANTS[variant],
+        int(branches), out)
     if rc != 0:
         raise RuntimeError(f"mjhmc_mm_tile: no {variant} instance of {type(spec).__name__} at "
                            f"{spec.precision}{' with the branches' if branches else ''} "
@@ -1782,7 +1982,7 @@ def mm_profile(spec, variant, x, v, g, u, seed, epsilon, beta, num_iters, m) -> 
     phase as thread 0 and the last warp's first thread saw them, and its
     gradients. A measurement, not a main-path call: the run's outputs are
     dropped and no launch is counted."""
-    blocks = -(-x.shape[1] // MM_TILES[(type(spec), variant)][0])
+    blocks = -(-x.shape[1] // mm_tile_rule(spec, variant).chains)
     prof = torch.zeros((blocks, 2, len(MM_PROF_PHASES)), dtype=torch.int64, device=x.device)
     z = torch.zeros_like(u)
     _launch(spec, x, v, g, u, z, z, seed, epsilon, beta, num_iters, m, 1, None, False, variant,
@@ -1964,8 +2164,9 @@ class CudaMJHMC:
     A matmul energy contracts at its spec's JAX default precision
     (product of t and logreg one bf16 pass, sparse coding bf16x3); another
     is picked as in JAX, ``eng.spec = dataclasses.replace(eng.spec,
-    precision="highest")`` (``PRECISIONS``; ``MM_KERNEL_PRECISIONS`` says
-    which bodies the kernel has at each).
+    precision="highest")`` (``PRECISIONS``). Any (d, k) and precision runs
+    on the card: what the library lacks (``MM_KERNEL_SHAPES``,
+    ``MM_KERNEL_PRECISIONS``) is compiled at its first call (``mm_library``).
     """
 
     distribution: object

@@ -4,7 +4,8 @@ The library (``csrc/mjhmc_engine.cu`` and its instance sources) is compiled
 ahead at the presets' D (``cuda_mjhmc.KERNEL_DIMS``); any other (body,
 energy, D), and a mixture of more components than the library holds, runs
 on an instance compiled at its first use from
-``csrc/ondemand/ew_instance.cu`` (``_build.load_instance``). Here, without
+``csrc/ondemand/ew_instance.cu`` (``_build.load_instance`` of an
+``_build.ew_instance``). Here, without
 nvcc: the dispatch between the two, the on-demand build's command, key and
 failures (a fake compiler); the plain versions of every body at the JAX
 package's TPU-gated shapes (tests/test_pallas_engine.py:455-889: Gaussian
@@ -85,7 +86,8 @@ def test_presets_take_the_library_and_other_shapes_an_instance(monkeypatch):
             loads.clear()
             e = cm.ew_library(body, spec, dist.ndims)
             cap = max(8, len(getattr(dist, "scales", ())))
-            assert loads == [(cm.KERNEL_VARIANTS[body], spec.energy_id, dist.ndims, cap)]
+            assert loads == [(_build.ew_instance(cm.KERNEL_VARIANTS[body], spec.energy_id,
+                                                 dist.ndims, cap),)]
             assert (e.launch, e.ew_tile, e.nuts_tile) == (
                 "mjhmc_od_launch", "mjhmc_od_ew_tile", "mjhmc_od_nuts_tile")
     assert cm.mog_cap(cm.energy_spec_for(_many_components())) == 9
@@ -97,22 +99,23 @@ def test_instance_command_reads_csrc_and_writes_build(monkeypatch):
     only file it reads is under ``mjhmc_tpu_torch/csrc/``, the only one it
     writes under ``build/``. The source sits outside the library's glob."""
     monkeypatch.setattr(_build, "_nvcc", lambda: "/toolkit/bin/nvcc")
-    out = _build.instance_path(2, 1, 16, 8)
-    cmd = _build.instance_command(2, 1, 16, 8, out)
+    inst = _build.ew_instance(2, 1, 16, 8)
+    out = _build.instance_path(inst)
+    cmd = _build.instance_command(inst, out)
     assert cmd[0] == "/toolkit/bin/nvcc"
     assert tuple(cmd[1:1 + len(_build.NVCC_FLAGS)]) == _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in cmd and "--use_fast_math" not in cmd
-    assert _build.instance_macros(2, 1, 16, 8) == (
+    assert inst.macros == (
         "-DMJHMC_OD_VARIANT=2", "-DMJHMC_OD_ENERGY=1", "-DMJHMC_OD_DIMS=16",
         "-DMJHMC_MOG_MAX_COMPONENTS=8")
-    assert all(m in cmd for m in _build.instance_macros(2, 1, 16, 8))
+    assert all(m in cmd for m in inst.macros)
     assert {"-shared", "--no-undefined"} <= set(cmd)
     files = [a for a in cmd[1:] if "/" in a and not a.startswith("-")]
-    assert files == [str(out), str(_build.ONDEMAND_SOURCE)]
+    assert files == [str(out), str(_build.EW_SOURCE)]
     assert out.parent == _build.BUILD_DIR and out.parent.parent.name == "build"
-    assert _build.ONDEMAND_SOURCE.parent.parent == _build.CSRC
-    assert _build.ONDEMAND_SOURCE.exists()
-    assert _build.ONDEMAND_SOURCE.name not in _build.KERNEL_SOURCES
+    assert _build.EW_SOURCE.parent.parent == _build.CSRC
+    assert _build.EW_SOURCE.exists()
+    assert _build.EW_SOURCE.name not in _build.KERNEL_SOURCES
     assert out.name.startswith("libmjhmc_ew_control_gaussian_d16_k8_") and out.suffix == ".so"
 
 
@@ -121,18 +124,19 @@ def test_instance_name_follows_macros_and_sources(monkeypatch, tmp_path):
     the bytes of the instance's source and of every header: an edit of
     either names another library; the same key names the same one."""
     keys = [(0, 1, 16, 8), (1, 1, 16, 8), (0, 2, 16, 8), (0, 1, 17, 8), (0, 1, 16, 9)]
-    names = {_build.instance_path(*k).name for k in keys}
+    names = {_build.instance_path(_build.ew_instance(*k)).name for k in keys}
     assert len(names) == len(keys)
-    assert _build.instance_path(*keys[0]) == _build.instance_path(*keys[0])
+    assert (_build.instance_path(_build.ew_instance(*keys[0]))
+            == _build.instance_path(_build.ew_instance(*keys[0])))
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    monkeypatch.setattr(_build, "ONDEMAND_SOURCE", csrc / "ondemand" / "ew_instance.cu")
-    seen = {_build.instance_path(*keys[0]).name}
+    monkeypatch.setattr(_build, "EW_SOURCE", csrc / "ondemand" / "ew_instance.cu")
+    seen = {_build.instance_path(_build.ew_instance(*keys[0])).name}
     for edited in (csrc / "ondemand" / "ew_instance.cu", csrc / "mjhmc_engine.cuh",
                    csrc / "philox.cuh"):
         edited.write_text(edited.read_text() + "\n// edited\n")
-        name = _build.instance_path(*keys[0]).name
+        name = _build.instance_path(_build.ew_instance(*keys[0])).name
         assert name not in seen
         seen.add(name)
 
@@ -155,15 +159,16 @@ def test_failed_build_or_load_raises(monkeypatch, tmp_path):
     _build.load_instance.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="(?s)exit code 3.*no card here"):
-            _build.load_instance(0, 1, 16, 8)
-        path = _build.instance_path(0, 1, 16, 8)
-        assert not path.exists() and "no card here" in _build.instance_log(0, 1, 16, 8)
+            _build.load_instance(_build.ew_instance(0, 1, 16, 8))
+        path = _build.instance_path(_build.ew_instance(0, 1, 16, 8))
+        assert not path.exists() and "no card here" in _build.instance_log(
+            _build.ew_instance(0, 1, 16, 8))
         assert [p.name for p in path.parent.iterdir()] == [path.with_suffix(".log").name]
         monkeypatch.setattr(_build, "_nvcc", lambda: _fake_compiler(
             tmp_path, 'while [ $# -gt 0 ]; do [ "$1" = -o ] && echo junk > "$2"; shift; '
                       'done\n'))
         with pytest.raises(RuntimeError, match="loading the on-demand instance"):
-            _build.load_instance(0, 1, 16, 8)
+            _build.load_instance(_build.ew_instance(0, 1, 16, 8))
     finally:
         _build.load_instance.cache_clear()
 

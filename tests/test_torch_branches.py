@@ -249,8 +249,13 @@ def test_build_parts_match_the_sources():
     assert sorted(tiles) == sorted(i[len("kNuts, "):] for i in declared if i.startswith("kNuts, "))
     profs = re.findall(r"extern template cudaError_t launch_nuts_prof<([^>]+)>", header)
     assert sorted(profs) == ["10, kFunnel", "2, kGaussian"]
+    # the D=50 NUTS instances' emitting kernels, each in a source of its own
+    emits = re.findall(r"extern template cudaError_t launch_nuts<([^>]+)>\(const Args&", header)
+    assert sorted(emits) == sorted(f"50, {e}, true, {br}" for e in ("kGaussian", "kRoughWell")
+                                   for br in ("false", "true"))
     for decl, insts in (("cudaError_t nuts_tile<{}>(int, int, int*);", tiles),
-                        ("cudaError_t launch_nuts_prof<{}>(const Args&, cudaStream_t);", profs)):
+                        ("cudaError_t launch_nuts_prof<{}>(const Args&, cudaStream_t);", profs),
+                        ("cudaError_t launch_nuts<{}>(const Args&, cudaStream_t);", emits)):
         for inst in insts:
             where = [name for name in _build.KERNEL_SOURCES
                      if f"template {decl.format(inst)}" in (_build.CSRC / name).read_text()]

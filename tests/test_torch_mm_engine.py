@@ -279,7 +279,7 @@ MM_INSTANCES += [("SparseCoding", p, "mjhmc", False) for p in ("bf16x2", "defaul
 @pytest.mark.parametrize("name,precision,body,branches", MM_INSTANCES,
                          ids=[" ".join(map(str, k)) for k in MM_INSTANCES])
 def test_mm_tiles_fill_the_card(name, precision, body, branches):
-    """mm_kernel's tile mirror (``MM_TILES``, ``mm_smem_bytes``): a chain's
+    """mm_kernel's tile mirror (``mm_tile_rule``, ``mm_smem_bytes``): a chain's
     threads own whole groups of four dims and whole rows of the
     intermediate, the columns fill mma n-tiles of 8 and the operand rows
     are NC + 4 floats; at the preset's chains the grid has at least 2 × 132
@@ -289,7 +289,7 @@ def test_mm_tiles_fill_the_card(name, precision, body, branches):
     library's own bytes and blocks an SM.)"""
     spec = dataclasses.replace(cm.energy_spec_for(getattr(tmodels, name)()),
                                precision=precision)
-    chains, threads = cm.MM_TILES[(type(spec), body)]
+    chains, threads = cm.mm_tile_rule(spec, body)[:2]
     d, k = cm.MM_KERNEL_SHAPES[type(spec)]
     nc = 2 * chains if body == "mjhmc" else chains
     rows_owners = threads // chains

@@ -225,13 +225,13 @@ def test_nuts_scratch_only_where_the_tree_leaves_shared_memory(name):
             assert scratch.dtype == torch.float32
         else:
             assert scratch is None
-    assert cm.NUTS_MM_TILES[type(spec)][2] == (name != "sparse_coding")
+    assert cm.nuts_mm_tile_rule(spec).onchip == (name != "sparse_coding")
 
 
 @pytest.mark.parametrize("name,precision", NUTS_INSTANCES,
                          ids=[" ".join(k) for k in NUTS_INSTANCES])
 def test_nuts_tiles_fill_the_card(name, precision):
-    """The NUTS tile mirror (``NUTS_MM_TILES``, ``nuts_mm_smem_bytes``): at
+    """The NUTS tile mirror (``nuts_mm_tile_rule``, ``nuts_mm_smem_bytes``): at
     the preset's chains the grid has at least 2 × 132 blocks (logreg's 2,048
     chains at the 8-column mma.sync tile: 256, still two an SM on most); a
     block holds whole columns (threads a multiple of the chains, the dims
@@ -240,7 +240,7 @@ def test_nuts_tiles_fill_the_card(name, precision):
     block stays under 227 KB; the bytes grow with the depth. (Phase 2 of
     chip_smoke.py holds the mirror to the library's own bytes.)"""
     spec = _preset_spec(name, precision)
-    nc, threads, _ = cm.NUTS_MM_TILES[type(spec)]
+    nc, threads = cm.nuts_mm_tile_rule(spec)[:2]
     d, k = cm.MM_KERNEL_SHAPES[type(spec)]
     owners = threads // nc
     assert threads % nc == 0 and d % owners == 0 and k % owners == 0 and nc % 8 == 0

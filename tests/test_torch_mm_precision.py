@@ -280,8 +280,10 @@ def test_eps_zero_gradient_tells_the_precisions_apart(td):
 
 
 def test_uninstantiated_pairs_are_refused():
-    """A (body, precision) pair outside ``MM_KERNEL_PRECISIONS`` raises
-    before any launch, naming the table; the plain version takes every
+    """A (body, precision) pair outside ``MM_KERNEL_PRECISIONS`` (the
+    library's) passes every check before the launch (an on-demand instance
+    runs it on the card) and stops at the device check on meta tensors; an
+    unknown precision is refused; the plain version takes every
     precision."""
     td = tmodels.SparseCoding()
     spec = dataclasses.replace(cm.energy_spec_for(td), precision="bf16x2")
@@ -294,19 +296,22 @@ def test_uninstantiated_pairs_are_refused():
     for kw, stream in ((dict(variant="control"), False), (dict(variant="nuts"), False),
                        ({}, True), (dict(inv_mass=(1.0,) * 128), False),
                        (dict(integrator="two_stage"), False)):
-        with pytest.raises(NotImplementedError, match="MM_KERNEL_PRECISIONS"):
+        assert not cm.mm_compiled_ahead(spec, sweep_run=False)
+        with pytest.raises(ValueError, match="cuda tensors"):
             if stream:
                 cm.cuda_mjhmc_mm_stream_run(spec, *meta, 5, 0.02, 0.1, 2, 1, 3, **kw)
             else:
                 cm.cuda_mjhmc_mm_run(spec, *meta, 5, 0.02, 0.1, 2, 3, **kw)
-    # the sweep's run has an instance: the next check refuses the device
+    # the sweep's run is in the library: the same device check
+    assert cm.mm_compiled_ahead(spec, sweep_run=True)
     with pytest.raises(ValueError, match="cuda tensors"):
         cm.cuda_mjhmc_mm_run(spec, *meta, 5, 0.02, 0.1, 2, 3)
     lr = tmodels.LogisticRegression()
     lspec = dataclasses.replace(cm.energy_spec_for(lr), precision="bf16x3")
     lx = lr.init_x(gen, 8, "cpu")
     lmeta = tuple(t.to("meta") for t in (lx, lx, lx, z, z, z))
-    with pytest.raises(NotImplementedError, match="MM_KERNEL_PRECISIONS"):
+    assert not cm.mm_compiled_ahead(lspec, sweep_run=True)
+    with pytest.raises(ValueError, match="cuda tensors"):
         cm.cuda_mjhmc_mm_run(lspec, *lmeta, 5, 0.15, 0.1, 2, 3)
     with pytest.raises(ValueError, match="unknown dot precision"):
         cm.cuda_mjhmc_mm_run(dataclasses.replace(spec, precision="fp8"), *meta, 5, 0.02, 0.1,
