@@ -87,7 +87,16 @@ the funnel at D 12 and 30 and Gaussian D 3 and 128 (``ANY_D_SHAPES``,
 the mirror, every body and branch against its plain version (fixed-uniform
 counters exact), JAX's six gated statistical checks at their own shapes,
 settings and tolerances (run beside phase 39 in phase 40's process, as are
-phase 43's statistics), and each instance's ms an iteration. Phase 2 also
+phase 43's statistics), and each instance's ms an iteration. Phase 44 runs
+the matmul engine past one block's shared memory (``PAST_SHAPES``): logistic
+regression at LIBSVM a9a's shape (124 × 32,561, k rows in chunks) and sparse
+coding at 1,024 × 4,096 (k in chunks, X, G and the mass in the device
+buffer), every body run and stream against its plain version with phase
+43's allowances (NUTS at max_depth 4, logreg also 8), JAX's Laplace oracle
+and phase 43's moments check at those shapes, each
+instance's ms an iteration, and the dictionary learner on the card;
+phase 34's ``bench_scaling`` runs with ``--profile`` and prints the
+``collective_time_fraction`` line. Phase 2 also
 runs the plain NUTS of phases 22 and 42 on the CPU (``PLAIN_NUTS``) and
 waits for it and for the on-demand builds, so nothing of it overlaps a
 timed phase. One line
@@ -3046,19 +3055,27 @@ def sharded_world1(cm, card):
         phase("34 sharded world 1", f"save_sharded_pytree / load_sharded_pytree of a {label} "
               "RunOut: round trip and resume bit-exact")
 
-        # bench_scaling on the one card: the rough well's main path
+        # bench_scaling on the one card: the rough well's main path, its
+        # last run traced (--profile) and the collective share read from the
+        # trace's kernels (world size 1: no NCCL kernel, the share 0)
         cm.reset_counts()
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            check(bench_scaling.main(["--devices", "1"]) == 0, "bench_scaling failed")
+        with tempfile.TemporaryDirectory() as prof, contextlib.redirect_stdout(buf):
+            check(bench_scaling.main(["--devices", "1", "--profile", prof]) == 0,
+                  "bench_scaling failed")
         launches = cm.cuda_mjhmc_run.sharded_launches
-        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        rec, coll = (json.loads(ln) for ln in buf.getvalue().strip().splitlines()[-2:])
         check(rec["metric"] == "leapfrog_steps_per_sec" and rec["devices"] == 1
-              and rec["chains"] == 2048 and rec["value"] > 0 and launches == 4,
+              and rec["chains"] == 2048 and rec["value"] > 0 and launches == 5,
               f"bench_scaling: {rec}, launches {launches}")
+        check(coll["metric"] == "collective_time_fraction" and coll["devices"] == 1
+              and coll["unit"] == "fraction" and 0.0 <= coll["value"] <= 1.0
+              and coll["total_us"] > 0 and set(coll) == {"metric", "devices", "value", "unit",
+                                                          "collective_us", "total_us", "by_op"},
+              f"bench_scaling --profile: {coll}")
         rows["bench_scaling"] = dict(launches=launches, rec=rec)
-        phase("34 sharded world 1", f"bench_scaling --devices 1: {json.dumps(rec)}; launches "
-              f"{launches} [{card}]")
+        phase("34 sharded world 1", f"bench_scaling --devices 1 --profile: {json.dumps(rec)}; "
+              f"{json.dumps(coll)} (the trace's kernel time); launches {launches} [{card}]")
     finally:
         dist.destroy_process_group()
     return rows
@@ -4506,13 +4523,13 @@ def any_d_keys(cm, _build):
 
 
 def start_ondemand_builds(cm, _build):
-    """Phase 2: every on-demand instance of phases 42 and 43, the matmul ones
+    """Phase 2: every on-demand instance of phases 42, 43 and 44, the matmul ones
     (the longest) first, started beside the library's build,
     ONDEMAND_BESIDE_LIBRARY nvcc at a time until the caller releases the
     rest of ONDEMAND_BUILDERS (``gate.release``, once the library is built);
     returns the pool, the gate and ({instance: future of (path, nvcc seconds
     in this run or None where the library was built before, seconds from
-    the start to its end)} of phase 42's, of phase 43's)."""
+    the start to its end)} of phase 42's, of phases 43's and 44's)."""
     import threading
 
     pool = concurrent.futures.ThreadPoolExecutor(ONDEMAND_BUILDERS)
@@ -4525,7 +4542,7 @@ def start_ondemand_builds(cm, _build):
         return path, nvcc_s, time.perf_counter() - t0
 
     # the largest matmul shapes first: their nvcc takes longest
-    mm = sorted(set(any_mm_instances(cm, _build).values()),
+    mm = sorted({*any_mm_instances(cm, _build).values(), *past_instances(cm, _build).values()},
                 key=lambda i: -math.prod(int(m.split("=")[1]) for m in i.macros[2:4]))
     mm_futures = {inst: pool.submit(build, inst) for inst in mm}
     ew_futures = {inst: pool.submit(build, inst) for inst in set(any_d_keys(cm, _build).values())}
@@ -4954,17 +4971,17 @@ def any_mm_instances(cm, _build):
         rule = cm.nuts_mm_tile_rule(spec) if body == "nuts" else cm.mm_tile_rule(spec, body)
         out[(label, spec.precision, body)] = _build.mm_instance(
             cm.KERNEL_VARIANTS[body], spec.energy_id, *cm.mm_shape(spec),
-            cm.PRECISIONS.index(spec.precision), rule.off)
+            cm.PRECISIONS.index(spec.precision), rule.off, rule.chunk, rule.xg_off)
     return out
 
 
-def any_mm_builds(_build, done, card):
+def any_mm_builds(_build, done, card, name="43 any (d, k)"):
     """Phase 43's build report from phase 2's builds: each on-demand
     library's nvcc seconds in this run (or that it was reused) and its
     ptxas registers and spills. Returns {instance: nvcc seconds, None for a
     reused library}."""
     built = sum(s is not None for _, s, _ in done.values())
-    phase("43 any (d, k)", f"{len(done)} on-demand matmul libraries from phase 2, {built} built "
+    phase(name, f"{len(done)} on-demand matmul libraries from phase 2, {built} built "
           f"in this run and {len(done) - built} reused from the build directory [{card}]")
     seconds = {}
     for inst, (path, nvcc_s, _) in sorted(done.items(), key=lambda kv: kv[0].stem):
@@ -4972,17 +4989,18 @@ def any_mm_builds(_build, done, card):
         ptx = "; ".join(f"{k}: {r} registers, {sp} B spill stores"
                         for k, r, sp in ptxas_report(_build.instance_log(inst)))
         took = "reused, not built in this run" if nvcc_s is None else f"nvcc {nvcc_s:.1f} s"
-        phase("43 any (d, k)", f"{path.name}: {took}; ptxas {ptx}")
+        phase(name, f"{path.name}: {took}; ptxas {ptx}")
     return seconds
 
 
-def any_mm_tiles(cm, card):
+def any_mm_tiles(cm, card, cases=None, name="43 any (d, k)"):
     """Each on-demand instance's tile as it reports it against the tile
     rule's mirror: mm_kernel's (chains, threads, shared bytes) with and
     without the branches, NUTS's at max_depth 1, 8 and 12; the blocks an SM
-    holds at least 1; the parameter matrix off chip at (288, 144) only."""
+    holds at least 1; of phase 43's (``cases`` None), the parameter matrix
+    off chip at (288, 144) only."""
     tiles = {}
-    for label, _, spec, body, _, _ in any_mm_cases(cm):
+    for label, _, spec, body, _, _ in any_mm_cases(cm) if cases is None else cases:
         key = f"{label} {spec.precision} {body}"
         if body == "nuts":
             rule = cm.nuts_mm_tile_rule(spec)
@@ -5000,19 +5018,22 @@ def any_mm_tiles(cm, card):
                 check(got[:3] == want and got[3] >= 1, f"mm_kernel tile of {key}"
                       f"{' branches' if br else ''}: the instance's {got}, the mirror's {want}")
                 tiles[f"{key}{' branches' if br else ''}"] = got
-        check(rule.off == label.endswith("288x144"), f"{key}: parameter matrix off chip "
-              f"{rule.off}")
+        check(cases is not None or rule.off == label.endswith("288x144"),
+              f"{key}: parameter matrix off chip {rule.off}")
         tiles[f"{key} parameter matrix"] = "device memory" if rule.off else "shared memory"
-    phase("43 any (d, k)", f"on-demand tiles (chains, threads, shared bytes a block, blocks an "
+        if rule.chunk:
+            tiles[f"{key} chunk"] = (f"{rule.chunk} rows, X and G in "
+                                     f"{'device memory' if rule.xg_off else 'shared memory'}")
+    phase(name, f"on-demand tiles (chains, threads, shared bytes a block, blocks an "
           f"SM), instance = mirror: {json.dumps(tiles)} [{card}]")
 
 
-def any_mm_energy_check(cm, dist, spec, body, n):
+def any_mm_energy_check(cm, dist, spec, body, n, start=initial_state):
     """The contraction and the energy alone: one iteration at ε = 0 leaves
     x where it starts, so the gradient and U that come out are the
     instance's at the plain version's x, on every chain. Returns (largest
     relative U error, largest relative gradient error)."""
-    st = initial_state(dist, n, seed=3)
+    st = start(dist, n, seed=3)
     args = (spec, *st, 7, 0.0, ANY_MM_BETA[body])
     k = cm.cuda_mjhmc_mm_run(*args, 1, 1, fixed_uniform=True, variant=body)
     r = cm.run_reference(*args, 1, 1, True, variant=body)
@@ -5081,7 +5102,9 @@ def start_any_mm_deep(cm):
     return pool, out
 
 
-def any_mm_checks(cm, card, deep):
+def any_mm_checks(cm, card, deep, cases=None, n=ANY_MM_CHAINS, held=ANY_MM_ITERS[0],
+                  nuts_depth=ANY_MM_NUTS_DEPTH, name="43 any (d, k)", start=initial_state,
+                  deeper=None, philox=True):
     """Phase 43: every on-demand instance, run and stream kernels, against
     its plain version on the card at ANY_MM_CHAINS chains, from v ~ N(0, I):
     first U and the gradient at ε = 0 (``any_mm_energy_check``: U to f32
@@ -5105,26 +5128,32 @@ def any_mm_checks(cm, card, deep):
     run makes to it (its relative change, or the root sum of squares of its
     per-chain changes over Σw; phase 30's rule) if more, the perturbed runs
     made where Σw passes 1e-4. Returns {(label, precision, body): (max |dx|
-    on the held fixed-uniform chains, U error, gradient error)}."""
+    on the held fixed-uniform chains, U error, gradient error)}. Phase 44
+    passes its own ``cases`` (default ``any_mm_cases``), chains ``n``,
+    iterations ``held``, NUTS depth, phase ``name`` and ``start`` state
+    (default ``initial_state``), ``deeper``: {label: NUTS max_depths}
+    held on the card in one more fixed-uniform iteration each, and
+    ``philox`` (False: the fixed-uniform mode alone)."""
     out = {}
-    n, held = ANY_MM_CHAINS, ANY_MM_ITERS[0]
-    for label, dist, spec, body, eps, m0 in any_mm_cases(cm):
+    for label, dist, spec, body, eps, m0 in any_mm_cases(cm) if cases is None else cases:
         nuts, mj = body == "nuts", body == "mjhmc"
         bf16 = spec.precision != "highest"
-        m, beta = (ANY_MM_NUTS_DEPTH if nuts else m0), ANY_MM_BETA[body]
+        m, beta = (nuts_depth if nuts else m0), ANY_MM_BETA[body]
         kw = dict(variant=body)
-        u_rel, g_rel = any_mm_energy_check(cm, dist, spec, body, n)
+        u_rel, g_rel = any_mm_energy_check(cm, dist, spec, body, n, start)
         check(u_rel <= 1e-5, f"{label} {body} at {spec.precision} ({n} chains, eps 0): U off "
               f"by {u_rel:.3g} relative")
         errs = []
         # (fixed-uniform, seed, M or max_depth, iterations, chains, the plain
         # runs made on the CPU or None)
-        modes = [(True, 7, m, held, n, None), (False, 12345, m, held, n, None)]
+        modes = [(True, 7, m, held, n, None), (False, 12345, m, held, n, None)][:1 + philox]
         if (label, spec.precision, body) in deep:
             modes.append((True, 7, CLI_NUTS_DEPTH, 1, ANY_MM_DEEP_CHAINS,
                           deep[(label, spec.precision, body)]))
+        if nuts:
+            modes += [(True, 7, depth, 1, n, None) for depth in (deeper or {}).get(label, ())]
         for i, (fixed, seed, m, iters, nc, on_cpu) in enumerate(modes):
-            st = initial_state(dist, nc, seed=1 if fixed else 2) if on_cpu is None else on_cpu[0]
+            st = start(dist, nc, seed=1 if fixed else 2) if on_cpu is None else on_cpu[0]
             args = (spec, *st, seed, eps, beta)
             k = cm.cuda_mjhmc_mm_run(*args, iters, m, fixed_uniform=fixed, **kw)
             xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_mm_stream_run(*args, iters, 1, m,
@@ -5193,7 +5222,7 @@ def any_mm_checks(cm, card, deep):
             err = float(dx[:, ok].max()) if bool(ok.any()) else float(dx.max())
             if fixed:
                 errs.append(err)
-            phase("43 any (d, k)", f"{what}: decisions equal on {1 - differ / nc:.5f} ({differ} "
+            phase(name, f"{what}: decisions equal on {1 - differ / nc:.5f} ({differ} "
                   f"differ); x,v,g,u and stream xs rtol 1e-4 on all but {outside} of the others "
                   f"(max|dx| {err:.3g}); "
                   + (f"the perturbed plain runs change {int(flips.sum())} chains' decisions and "
@@ -5293,26 +5322,30 @@ def any_mm_stats(cm, cli, card):
     return launches
 
 
-def any_mm_timing(cm, card):
+def any_mm_timing(cm, card, cases=None, n=ANY_MM_CHAINS, iters=ANY_MM_ITERS[1],
+                  nuts_depth=ANY_MM_NUTS_DEPTH, name="43 any (d, k) timing", start=None):
     """Phase 43: ms an iteration (CUDA events) of every on-demand instance,
     run and stream, through the engines at ANY_MM_CHAINS chains and the
-    shape's ε and M (NUTS at the CLI's max_depth), beside the plain
-    version (one iteration); each engine's launches counted from 0 just
-    before it.
+    shape's ε and M (NUTS at max_depth ANY_MM_NUTS_DEPTH: at the CLI's 8 the
+    plain NUTS took ~28 s of the phase), beside the plain version (one
+    iteration); each engine's launches counted from 0 just before it. Phase 44 passes its own ``cases``, chains, iterations, NUTS
+    depth, phase ``name`` and ``start`` state (the engines then start
+    there; default their own init and ``initial_state``).
     Returns {(label, precision, body): (run ms, stream ms, plain run ms,
     plain stream ms, gradients, iterations, chains, (run, stream)
     launches)}."""
     rows = {}
     ecls = {"nuts": cm.CudaNUTS, "mjhmc": cm.CudaMJHMC, "control": cm.CudaControlHMC,
             "malt": cm.CudaMALT}
-    n, iters = ANY_MM_CHAINS, ANY_MM_ITERS[1]
-    for label, dist, spec, body, eps, m0 in any_mm_cases(cm):
+    for label, dist, spec, body, eps, m0 in any_mm_cases(cm) if cases is None else cases:
         nuts = body == "nuts"
-        m, beta = (CLI_NUTS_DEPTH if nuts else m0), ANY_MM_BETA[body]
+        m, beta = (nuts_depth if nuts else m0), ANY_MM_BETA[body]
         cm.reset_counts()
         eng = ecls[body](dist, epsilon=eps, beta=beta, num_leapfrog_steps=m, nbatch=n, seed=4,
                          device=DEV)
         eng.spec = spec
+        if start is not None:
+            eng.x, eng.v, eng.g, eng.u = start(dist, n, seed=4)[:4]
         eng.run(2)
         before = eng.grad_evals
         run_ms = events_ms(lambda: eng.run(iters)) / iters
@@ -5320,13 +5353,13 @@ def any_mm_timing(cm, card):
         stream_ms = events_ms(lambda: eng.sample(iters)) / iters
         launches = counts(cm, "launches" if body == "mjhmc" else f"{body}_launches", mm=True)
         check(all(v > 0 for v in launches), f"{label} {body}: kernels not launched")
-        args = (spec, *initial_state(dist, n, seed=5), 99, eps, beta)
+        args = (spec, *(start or initial_state)(dist, n, seed=5), 99, eps, beta)
         pkw = dict(variant=body)
         plain_ms = events_ms(lambda: cm.run_reference(*args, 1, m, **pkw))
         plain_stream_ms = events_ms(lambda: cm.stream_reference(*args, 1, 1, m, **pkw))
         rows[(label, spec.precision, body)] = (run_ms, stream_ms, plain_ms, plain_stream_ms,
                                                grads, iters, n, launches)
-        phase("43 any (d, k) timing", f"{body} {label} at {spec.precision} ({n} chains, eps "
+        phase(name, f"{body} {label} at {spec.precision} ({n} chains, eps "
               f"{eps}, beta {beta}, {'max_depth' if nuts else 'M'} {m}): run {run_ms:.6g} "
               f"ms/iteration, stream (thin 1) {stream_ms:.6g}; plain version run "
               f"{plain_ms:.6g}, stream {plain_stream_ms:.6g} ms/iteration; "
@@ -5361,10 +5394,10 @@ def any_mm_entries(cm, entry, errs, rows, seconds, instances):
                       passes=PASSES.get(spec.precision, 0)),
                 variant=variants[body], energy=MM_ENERGIES[cname], precision=spec.precision,
                 instance="on demand", nvcc_s=seconds[instances[key]],
-                parameter_matrix="device memory" if instances[key].macros[-1].endswith("=1")
-                else "shared memory", u_rel_err=u_rel, grad_rel_err=g_rel,
+                parameter_matrix="device memory"
+                if "-DMJHMC_MM_OD_OFFCHIP=1" in instances[key].macros else "shared memory", u_rel_err=u_rel, grad_rel_err=g_rel,
                 shape=f"{label}, {n} chains, "
-                      f"{f'max_depth {CLI_NUTS_DEPTH}' if body == 'nuts' else 'its eps and M'}"
+                      f"{f'max_depth {ANY_MM_NUTS_DEPTH}' if body == 'nuts' else 'its eps and M'}"
                       f"{', thin 1' if stream else ''}, ms per iteration"))
     return out
 
@@ -5391,6 +5424,295 @@ def any_mm_phase(cm, cli, _build, card, done, stats):
           f"statistics {stats['seconds']:.4g} s beside phase 39, their launches "
           f"{json.dumps(stats['launches'])} [{card}]")
     return errs, rows, seconds, any_mm_instances(cm, _build), stats["launches"]
+
+
+# ---- phase 44: the matmul engine past one block's shared memory -------------
+#: the slice's configurations, label "<config> <d>x<k>" -> (model, its
+#: arguments, chains, ε or None, M, NUTS max_depths held beyond
+#: PAST_NUTS_DEPTH, NUTS iterations held): logistic regression at LIBSVM a9a's shape (32,561
+#: observations, 123 features and an intercept; the repo's seeded synthetic
+#: data, nothing downloaded) at the logreg preset's 2,048 chains, ε a quarter
+#: of the smallest Laplace standard deviation (``past_eps``); sparse coding on
+#: 32 × 32 patches with a 4× overcomplete dictionary (the seeded Gabor bank:
+#: no learned Φ exists at this shape) at 1,024 chains, ε from its stiffest
+#: frequency ω = σ⁻¹·√λmax(ΦᵀΦ) = 210.9 (ε·ω ≤ 1.4). Both at their specs'
+#: JAX default precisions (logreg "default", sparse coding "bf16x3"); the
+#: first chunks the k rows with X and G on chip, the second moves X, G and
+#: the mass to the device buffer too (the tile rule's xg). Sparse coding's
+#: NUTS holds one fixed-uniform iteration: its plain version sums 4,096 dims
+#: one row at a time (the kernels' order), ~7.5 s an iteration at max_depth 4
+PAST_SHAPES = {
+    "logreg 124x32561": ("LogisticRegression", dict(ndims=124, nobs=32561), 2048, None, 10,
+                         (8,), 2),
+    "sparse_coding 4096x1024": ("SparseCoding",
+                                dict(npixels=1024, nbasis=4096, phi_source="gabor"), 1024,
+                                0.006, 5, (), 1),
+}
+PAST_NUTS_DEPTH = 4
+#: (iterations held, iterations timed) of phase 44
+PAST_ITERS = (2, 10)
+#: the a9a-shape Laplace oracle (JAX's, tests/test_pallas_engine.py:548-557,
+#: at this shape's ε: β 0.15, M 10, 2,048 chains, median var/Laplace within
+#: 0.25) and the sparse-coding moments check (phase 43's: dwell within 5% and
+#: the median variance ratio within 0.15 of the plain MarkovJumpHMC), as
+#: (burn-in, samples) each
+PAST_LAPLACE_ITERS = (300, 400)
+PAST_MOMENTS_ITERS = (60, 120)
+#: the learner on the card at its defaults (400 steps, batch 256) ends within
+#: this of the shipped Φ's final reconstruction error (0.27176, from JAX's
+#: draws): three CPU seeds of the port's learner end at 0.2691-0.2798 after
+#: 100 steps and 0.2718-0.2740 after 400 (PERF.md §6), so 0.02 is about twice
+#: the spread at a quarter of the steps
+LEARNER_TOL = 0.02
+
+
+@functools.lru_cache(maxsize=None)
+def past_dist(label):
+    from mjhmc_tpu_torch import models
+
+    name, kw = PAST_SHAPES[label][:2]
+    return getattr(models, name)(**kw)
+
+
+@functools.lru_cache(maxsize=None)
+def past_laplace(label):
+    """(MAP, Laplace variances) of a logreg configuration, NumPy float64."""
+    dist = past_dist(label)
+    return dist.map_estimate(), dist.laplace_var()
+
+
+def past_eps(label):
+    """The configuration's ε: logreg a quarter of the smallest Laplace
+    standard deviation (0.0396 at a9a's shape), else PAST_SHAPES's."""
+    eps = PAST_SHAPES[label][3]
+    return eps if eps is not None else round(0.25 * math.sqrt(past_laplace(label)[1].min()), 4)
+
+
+def past_state(dist, n, seed, inv_mass=None):
+    """A start in the posterior's bulk for logreg (the MAP plus N(0, the
+    Laplace variances), so the held iterations run where the sampler does),
+    else ``initial_state``."""
+    from mjhmc_tpu_torch.models import LogisticRegression
+
+    if not isinstance(dist, LogisticRegression):
+        return initial_state(dist, n, seed, inv_mass)
+    import numpy as np
+
+    label = next(lab for lab in PAST_SHAPES if past_dist(lab) == dist)
+    theta, var = past_laplace(label)
+    rng = np.random.default_rng(seed)
+    x = theta[:, None] + np.sqrt(var)[:, None] * rng.standard_normal((dist.ndims, n))
+    x = torch.as_tensor(x, dtype=torch.float32, device=DEV).contiguous()
+    v = torch.as_tensor(rng.standard_normal((dist.ndims, n)), dtype=torch.float32, device=DEV)
+    u, g = dist.potential_and_grad(x)
+    z = torch.zeros(n, device=DEV)
+    return x, v, g.contiguous(), u.contiguous(), z, z.clone()
+
+
+def past_cases(cm):
+    """(label, distribution, spec, body, ε, M) of phase 44: the four bodies
+    at each configuration at its spec's JAX default precision."""
+    out = []
+    for label, (_, _, _, _, m, _, _) in PAST_SHAPES.items():
+        dist = past_dist(label)
+        for body in ZOO_BODIES:
+            out.append((label, dist, cm.energy_spec_for(dist), body, past_eps(label), m))
+    return out
+
+
+def past_instances(cm, _build):
+    """{(label, precision, body): the on-demand instance} of phase 44: every
+    one chunked (and xg at sparse coding), none compiled ahead."""
+    out = {}
+    for label, _, spec, body, _, _ in past_cases(cm):
+        check(not cm.mm_compiled_ahead(spec, sweep_run=False), f"{label} is in the library")
+        rule = cm.nuts_mm_tile_rule(spec) if body == "nuts" else cm.mm_tile_rule(spec, body)
+        check(rule.off and rule.chunk > 0 and rule.xg_off == label.startswith("sparse"),
+              f"{label} {body}: tile {rule}")
+        out[(label, spec.precision, body)] = _build.mm_instance(
+            cm.KERNEL_VARIANTS[body], spec.energy_id, *cm.mm_shape(spec),
+            cm.PRECISIONS.index(spec.precision), rule.off, rule.chunk, rule.xg_off)
+    return out
+
+
+def learner_row(card):
+    """The dictionary learner on the card at its defaults (400 steps, batch
+    256; ``python -m mjhmc_tpu_torch.models.dictionary_learning --out TMP``):
+    its error falls below 0.8× the first step's, Φ's columns are unit-norm,
+    and its last error is within LEARNER_TOL of the shipped Φ's. Returns its
+    seconds (host clock, the write included)."""
+    import tempfile
+
+    import numpy as np
+
+    from mjhmc_tpu_torch.models import dictionary_learning as dl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = dl.main(["--out", tmp])
+        sec = time.perf_counter() - t0
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        with np.load(rec["path"]) as art:
+            norms = np.linalg.norm(art["phi"], axis=0)
+            shape = art["phi"].shape
+        with np.load(dl._phi_path(64, 128)) as shipped:
+            ship_err = float(shipped["meta_final_recon_err"])
+    first, last = rec["recon_err_first"], rec["recon_err_last"]
+    check(rc == 0 and rec["device"] == "cuda" and shape == (64, 128) and last < 0.8 * first
+          and float(np.abs(norms - 1).max()) < 1e-4 and abs(last - ship_err) <= LEARNER_TOL,
+          f"the learner on the card: {rec}, column norms in [{norms.min()}, {norms.max()}], "
+          f"the shipped Φ's last error {ship_err}")
+    phase("44 past one block", f"dictionary_learning --out TMP (64 x 128, 400 steps, batch 256) "
+          f"on the card: {sec:.4g} s host clock; error {first:.5f} -> {last:.5f} (below 0.8x; "
+          f"the shipped Φ's {ship_err:.5f}, within {LEARNER_TOL}); active share "
+          f"{rec['code_l0_last']:.4f}; column norms within {float(np.abs(norms - 1).max()):.2g} "
+          f"of 1 [{card}]")
+    return sec
+
+
+def past_stats(cm, card):
+    """Phase 44's statistics, alone on the card: JAX's
+    logreg Laplace oracle at a9a's shape (CudaMJHMC from the model's init, ε
+    from the Laplace variances, β 0.15, M 10, 2,048 chains,
+    PAST_LAPLACE_ITERS; median var/Laplace within 0.25) and phase 43's
+    sparse-coding moments check at 1,024 × 4,096 (1,024 chains, ε 0.006, β
+    0.1, M 5, PAST_MOMENTS_ITERS; dwell within 5% and the median variance
+    ratio within 0.15 of the plain MarkovJumpHMC). Returns {key: (run,
+    stream) launches, counted from 0 just before}."""
+    from mjhmc_tpu_torch.samplers import MarkovJumpHMC
+
+    launches = {}
+    label = "logreg 124x32561"
+    dist, eps, (burn, keep) = past_dist(label), past_eps(label), PAST_LAPLACE_ITERS
+    cm.reset_counts()
+    t0 = time.perf_counter()
+    eng = cm.CudaMJHMC(dist, epsilon=eps, beta=0.15, num_leapfrog_steps=10, nbatch=2048, seed=0,
+                       device=DEV)
+    eng.run(burn)
+    out = eng.run(keep)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches[f"{label} laplace"] = counts(cm, "launches", mm=True)
+    ratio = (cm.CudaMJHMC.moments(out)[1].double().cpu()
+             / torch.as_tensor(past_laplace(label)[1].copy(), dtype=torch.float64))
+    med = float(ratio.median())
+    check(launches[f"{label} laplace"][0] > 0 and abs(med - 1) < 0.25,
+          f"{label}: median var/Laplace {med}")
+    phase("44 past one block stats", f"CudaMJHMC {label} at {eng.spec.precision} (2,048 chains, "
+          f"eps {eps}, beta 0.15, M 10, {burn} + {keep} from the model's init): median "
+          f"var/Laplace {med:.5f} (0.25), in [{float(ratio.min()):.4f}, "
+          f"{float(ratio.max()):.4f}]; launches {launches[f'{label} laplace']}; {sec:.3g} s "
+          f"host clock [{card}]")
+
+    label = "sparse_coding 4096x1024"
+    dist, eps, (burn, keep) = past_dist(label), past_eps(label), PAST_MOMENTS_ITERS
+    n = PAST_SHAPES[label][2]
+    cm.reset_counts()
+    t0 = time.perf_counter()
+    eng = cm.CudaMJHMC(dist, epsilon=eps, beta=0.1, num_leapfrog_steps=5, nbatch=n, seed=0,
+                       device=DEV)
+    eng.run(burn)
+    out = eng.run(keep)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches[f"{label} moments"] = counts(cm, "launches", mm=True)
+    dwell_p = float(out.w.double().sum()) / (eng.nbatch * keep)
+    var_p = cm.CudaMJHMC.moments(out)[1].double().cpu()
+    t0 = time.perf_counter()
+    ref = MarkovJumpHMC(dist, epsilon=eps, beta=0.1, num_leapfrog_steps=5, nbatch=n, seed=1,
+                        device=DEV)
+    ref.burn_in(burn)
+    rout = ref.sample(keep)
+    plain_s = time.perf_counter() - t0
+    w = rout["dwell"].double()[:, None, :]
+    xs = rout["x"].double()
+    mean_x = (w * xs).sum(dim=(0, 2)) / w.sum()
+    var_x = ((w * xs**2).sum(dim=(0, 2)) / w.sum() - mean_x**2).cpu()
+    dwell_x = float(rout["dwell"].double().mean())
+    med = float((var_p / var_x).median())
+    check(abs(dwell_p - dwell_x) < 0.05 * dwell_x and abs(med - 1) < 0.15,
+          f"{label}: dwell {dwell_p} vs {dwell_x}, median var ratio {med}")
+    phase("44 past one block stats", f"CudaMJHMC {label} at {eng.spec.precision} ({n:,} chains, "
+          f"eps {eps}, beta 0.1, M 5, {burn} + {keep}) against the plain MarkovJumpHMC: dwell "
+          f"{dwell_p:.5f} vs {dwell_x:.5f} (5%), median var ratio {med:.5f} (0.15); launches "
+          f"{launches[f'{label} moments']}; engine {sec:.3g} s, plain sampler {plain_s:.3g} s "
+          f"host clock [{card}]")
+    return launches
+
+
+def past_entries(cm, entry, errs, rows, seconds, instances):
+    """The kernels line's entries of phase 44: every instance, run and
+    stream; launches and times from phase 44's engines, errors from its
+    fixed-uniform checks, nvcc seconds (null where reused)."""
+    from mjhmc_tpu_torch.bench_mfu import PASSES
+
+    out = []
+    variants = {"nuts": NUTS_VARIANT, "mjhmc": MJHMC_VARIANT, "control": CONTROL_VARIANT,
+                "malt": MALT_VARIANT}
+    for label, _, spec, body, _, _ in past_cases(cm):
+        key = (label, spec.precision, body)
+        run_ms, stream_ms, plain_ms, plain_stream_ms, grads, iters, n, launches = rows[key]
+        cname = label.split()[0]
+        d, k = cm.mm_shape(spec)
+        err, u_rel, g_rel = errs[key]
+        rule = cm.nuts_mm_tile_rule(spec) if body == "nuts" else cm.mm_tile_rule(spec, body)
+        for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
+            stream = idx == 1
+            out.append(entry(
+                f"{body}_mm_{suffix}[{label}, {spec.precision}]", MM_ONDEMAND_SRC, src,
+                launches[idx], err, stream_ms if stream else run_ms,
+                plain_stream_ms if stream else plain_ms,
+                bound(cname, body, d, k, n, iters, grads, iters if stream else 0,
+                      passes=PASSES.get(spec.precision, 0)),
+                variant=variants[body], energy=MM_ENERGIES[cname], precision=spec.precision,
+                instance="on demand", nvcc_s=seconds[instances[key]],
+                parameter_matrix="device memory", chunk_rows=rule.chunk,
+                x_and_g="device memory" if rule.xg_off else "shared memory",
+                u_rel_err=u_rel, grad_rel_err=g_rel,
+                shape=f"{label}, {n} chains, "
+                      f"{f'max_depth {PAST_NUTS_DEPTH}' if body == 'nuts' else 'its eps and M'}"
+                      f"{', thin 1' if stream else ''}, ms per iteration"))
+    return out
+
+
+def past_phase(cm, _build, card, done):
+    """Phase 44: the chunked instances' builds (``done``, phase 2's), their
+    tiles against the mirror, every instance against its plain version at
+    the configurations' widths (``any_mm_checks`` with phase 43's
+    allowances, from ``past_state``; NUTS at max_depth 4, logreg also at 8),
+    the timings, the statistics (``past_stats``; alone on the card: beside
+    phase 39 their kernels slowed its rows) and the learner. Returns (errors, timing rows, nvcc seconds, instances, the
+    statistics' launches)."""
+    t0 = time.perf_counter()
+    cases = past_cases(cm)
+    seconds = any_mm_builds(_build, done, card, "44 past one block")
+    any_mm_tiles(cm, card, cases, "44 past one block")
+    deeper = {label: spec[5] for label, spec in PAST_SHAPES.items()}
+    errs = {}
+    for label, (_, _, n, _, _, _, nuts_held) in PAST_SHAPES.items():
+        for nuts in (False, True):
+            errs.update(any_mm_checks(
+                cm, card, {}, [c for c in cases if c[0] == label and (c[3] == "nuts") == nuts],
+                n, nuts_held if nuts else PAST_ITERS[0], PAST_NUTS_DEPTH, "44 past one block",
+                past_state, deeper, philox=not nuts or nuts_held > 1))
+    t_checks = time.perf_counter()
+    rows = {}
+    for label in PAST_SHAPES:
+        rows.update(any_mm_timing(cm, card, [c for c in cases if c[0] == label],
+                                  PAST_SHAPES[label][2], PAST_ITERS[1], PAST_NUTS_DEPTH,
+                                  "44 past one block timing", past_state))
+    t_timing = time.perf_counter()
+    stats = past_stats(cm, card)
+    t_stats = time.perf_counter()
+    learner_row(card)
+    phase("44 past one block", f"phase 44 took {time.perf_counter() - t0:.4g} s: the checks "
+          f"{t_checks - t0:.4g}, the timings {t_timing - t_checks:.4g}, the statistics "
+          f"{t_stats - t_timing:.4g} (launches {json.dumps(stats)}), the learner "
+          f"{time.perf_counter() - t_stats:.4g} [{card}]")
+    return errs, rows, seconds, past_instances(cm, _build), stats
 
 
 T0 = time.perf_counter()
@@ -5874,7 +6196,12 @@ def main() -> int:
     any_d = any_d_phase(cm, _build, card, od_done, side["stats42"])
 
     # ---- 43. the matmul engine at any (d, k) and dot precision ---------------
-    any_mm = any_mm_phase(cm, cli, _build, card, mm_done, side["stats43"])
+    past = set(past_instances(cm, _build).values())
+    any_mm = any_mm_phase(cm, cli, _build, card,
+                          {k: v for k, v in mm_done.items() if k not in past}, side["stats43"])
+
+    # ---- 44. the matmul engine past one block's shared memory -----------------
+    past44 = past_phase(cm, _build, card, {k: v for k, v in mm_done.items() if k in past})
 
     # ---- the kernels' record ----------------------------------------------
     from mjhmc_tpu_torch.ops.ceilings import tc_chain_lanes, tc_flops_per_iteration
@@ -6064,12 +6391,14 @@ def main() -> int:
                                  main_runs)
     kernels += any_d_entries(entry, *any_d)
     kernels += any_mm_entries(cm, entry, *any_mm[:4])
+    kernels += past_entries(cm, entry, *past44[:4])
     rw_sh, sc_sh = sh["rough_well 10,000"], sh["sparse_coding 8,192 bf16x3"]
     kernels += [
         entry("sharded_mjhmc_run", KERNEL_SRC, SHARDED_SRC, sh["bench_scaling"]["launches"],
               max(rw_sh["err"], sh["rough_well 102,400"]["err"]), rw_sh["ms"],
               rw_sh["plain_ms"], rw_sh["bound"], direct_ms=rw_sh["direct_ms"],
-              launches_from="bench_scaling --devices 1 (2,048 chains, 200 steps, 4 runs)",
+              launches_from="bench_scaling --devices 1 --profile (2,048 chains, 200 steps, 4 "
+                            "runs and the traced one)",
               shape="rough_well, 10,000 chains, world size 1 (NCCL), ms per iteration"),
         entry("sharded_mjhmc_mm_run[sparse_coding, bf16x3]", MM_KERNEL_SRC, SHARDED_SRC,
               sc_sh["launches"], sc_sh["err"], sc_sh["ms"], sc_sh["plain_ms"], sc_sh["bound"],

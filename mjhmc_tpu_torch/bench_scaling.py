@@ -16,7 +16,11 @@ the same start state, best of 3; its time is the slowest rank's.
 kernel per rank; ``--engine torch`` the plain ``mjhmc_run`` on the rank's
 block, which is what the JAX script times. Without ``torchrun`` the process
 makes a group of its own (world size 1). ``--profile DIR`` traces one more
-run of the largest size with ``utils.profiling.trace`` (``DIR/rank<r>``).
+run of the largest size with ``utils.profiling.trace`` (``DIR/rank<r>``),
+and rank 0 then prints the ``collective_time_fraction`` line from its trace
+(``utils.profiling.parse_trace_collectives``: the NCCL kernels' share of the
+card's kernel time, or on the CPU the collective ops' share of the host
+ops'), before ``weak_scaling_efficiency``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from mjhmc_tpu_torch.parallel.mesh import make_chain_mesh, shard_chain_pytree
 from mjhmc_tpu_torch.parallel.multihost import free_port, initialize
 from mjhmc_tpu_torch.samplers.mjhmc import mjhmc_run
 from mjhmc_tpu_torch.samplers.state import make_mj_state
-from mjhmc_tpu_torch.utils.profiling import trace
+from mjhmc_tpu_torch.utils.profiling import parse_trace_collectives, trace
 from mjhmc_tpu_torch.utils.timing import block_until_ready
 
 
@@ -114,6 +118,13 @@ def main(argv=None) -> int:
                 rates[nd] = rec["value"]
                 if rank == 0:
                     print(json.dumps(rec), flush=True)
+                if rank == 0 and "trace" in rec:
+                    prof = parse_trace_collectives(os.path.dirname(rec["trace"]))
+                    print(json.dumps({"metric": "collective_time_fraction", "devices": nd,
+                                      "value": prof["fraction"], "unit": "fraction",
+                                      "collective_us": prof["collective_us"],
+                                      "total_us": prof["total_us"], "by_op": prof["by_op"]}),
+                          flush=True)
             dist.barrier()
         if rank == 0 and 1 in rates and len(rates) > 1:
             nd = max(rates)

@@ -125,7 +125,10 @@ extern "C" int mjhmc_mm_nuts_profile(
 
 // The tile of the NUTS instances of (energy, precision) at max_depth: out[0]
 // chains a block, out[1] threads a block, out[2] shared-memory bytes a
-// block, out[3] blocks an SM holds at once (the run without a mass).
+// block, out[3] blocks an SM holds at once (the run without a mass), then
+// the device buffer: out[4] floats of a block's slice, out[5] the parameter
+// matrix's, out[6] the tree state's a chain (mjhmc_mm_engine.cuh,
+// nuts_tile_at).
 // Returns cudaErrorInvalidValue where no such instance is compiled.
 extern "C" int mjhmc_mm_nuts_tile(int energy, int precision, int max_depth, int* out) {
   using namespace mjhmc::mm;
@@ -146,7 +149,8 @@ extern "C" int mjhmc_mm_nuts_tile(int energy, int precision, int max_depth, int*
 // The tile of mm_kernel's run of (energy, precision, variant 0 MJHMC, 2
 // control, 3 MALT), with the branches where br != 0 (control and MALT have
 // only those): out[0] chains a block, out[1] threads a block, out[2]
-// shared-memory bytes a block, out[3] blocks an SM holds at once. Returns
+// shared-memory bytes a block, out[3] blocks an SM holds at once, out[4..6]
+// the device buffer (mjhmc_mm_engine.cuh, tile_of). Returns
 // cudaErrorInvalidValue where no such instance is compiled.
 extern "C" int mjhmc_mm_tile(int energy, int precision, int variant, int br, int* out) {
   using namespace mjhmc::mm;

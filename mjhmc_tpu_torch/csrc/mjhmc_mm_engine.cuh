@@ -82,8 +82,19 @@
 // more resident blocks an SM overlap one block's barriers with another's
 // work (PERF.md §6 lists the per-phase breakdown of the PROF instances).
 //
+// Past one block (TileRule::kc > 0, where even the 8-column tile's Y and Z
+// pass the 227 KB with the parameter matrix off chip: logreg at LIBSVM
+// a9a's 124 × 32,561, sparse coding at 1,024 × 4,096) the K rows run in
+// chunks (gradient_chunks, contract_part): Y and Z hold one chunk, the
+// threads add its rows' energy terms to their partials after its first
+// contraction, and its share of the second is added into G; where even 8
+// columns of X and G pass the block beside a chunk (TileRule::xg), they and
+// the mass live in the block's slice of a.scratch. What bounds these: each
+// block reads the whole parameter matrix from L2 (or device memory) once a
+// gradient, so the reads grow with the blocks, not the chains' work.
+//
 // NUTS (nuts_mm_kernel, below) has its own tile and layout and shares
-// load_params, contract, gradient_tile and column_sum.
+// load_params, contract, gradient_tile, gradient_chunks and column_sum.
 //
 // Random numbers: Philox4x32-10 keyed (seed, 0), laid out in philox.cuh:
 // MJHMC counter (chain, iteration, block, 0), 1 + 2d words per iteration
@@ -107,6 +118,16 @@
 #include "phase_clock.cuh"
 #include "philox.cuh"
 
+// Every loop over an owner's dims (or its groups of four) and over a
+// column's partials unrolls fully, so that an owner's arrays live in
+// registers. An on-demand instance whose X and G live in the device buffer
+// (d in the thousands, 1,024 threads a block at 64 registers, the arrays
+// spilled either way) defines this to leave such loops past 4 rolled
+// (ondemand/mm_instance.cu), which keeps its nvcc short
+#ifndef MJHMC_MM_UNROLL_OWNED
+#define MJHMC_MM_UNROLL_OWNED(K) _Pragma("unroll")
+#endif
+
 namespace mjhmc {
 namespace mm {
 
@@ -128,6 +149,8 @@ __host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int round_up(int a, int b) { return cdiv(a, b) * b; }
 __host__ __device__ constexpr int min_of(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int gcd_of(int a, int b) { return b ? gcd_of(b, a % b) : a; }
 
 // Shared memory on the H100: what a block may opt into (227 KB), an SM's
 // (228 KB), and what an SM reserves for each resident block
@@ -553,6 +576,164 @@ __device__ __forceinline__ void gradient_tile(const float* A1, const float* A2,
   }
 }
 
+// contract() over a part of the product, for the chunked tiles (KC > 0):
+// out[r][col] = Σ_{k < kn} A[k0 + k][r]·B[k][col] for rows r in [m0, m0 +
+// mn), col < NC, handed to epi(r, col, value). A is [·][RA] f32 (kHighest;
+// m0 and mn multiples of 4) or the bf16 A fragments of a contraction whose
+// depth has KTA k-tiles (k0 a multiple of 16, m0 of 16), read-only in the
+// launch; B is [kn][LDB] (row k of the part at k·LDB), 0 past row kn. B may
+// be rows that this launch writes in device memory (X off chip), so it is
+// read with plain coherent loads, never through a read-only path. A thread
+// gets the same (r, col) elements for the same (m0, mn) on every call, so
+// an element summed over several parts is added by one thread, in part
+// order.
+template <int RA, int KTA, int NC, int LDB, int T, int P, class Epi>
+__device__ __forceinline__ void contract_part(const float* __restrict__ A,
+                                              const uint32_t* __restrict__ AH,
+                                              const uint32_t* __restrict__ AL, const float* B,
+                                              int m0, int mn, int k0, int kn, Epi epi) {
+  if constexpr (P == kHighest) {
+    constexpr int CG = NC / 4;
+    const int tasks = (mn / 4) * CG;
+    for (int task = threadIdx.x; task < tasks; task += T) {
+      const int r0 = m0 + (task / CG) * 4, c0 = (task % CG) * 4;
+      float acc[4][4] = {};
+#pragma unroll 4
+      for (int k = 0; k < kn; ++k) {
+        const float4 av = *reinterpret_cast<const float4*>(A + (size_t)(k0 + k) * RA + r0);
+        const float4 bv = *reinterpret_cast<const float4*>(B + (size_t)k * LDB + c0);
+        const float ar[4] = {av.x, av.y, av.z, av.w};
+        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) epi(r0 + i, c0 + j, acc[i][j]);
+    }
+  } else {
+    constexpr int NT = NC / 8, W = T / 32;
+    static_assert(NC % 8 == 0, "n-tiles of 8 columns");
+    const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+    const int mt0 = m0 / 16, kt0 = k0 / 16;
+    const int mts = cdiv(m0 + mn, 16) - mt0, kts = cdiv(k0 + kn, 16) - kt0;
+    const uint4* AH4 = reinterpret_cast<const uint4*>(AH);
+    const uint4* AL4 = reinterpret_cast<const uint4*>(AL);
+    for (int tile = threadIdx.x / 32; tile < mts * NT; tile += W) {
+      const int nt = tile % NT, mt = mt0 + tile / NT, col = nt * 8 + g;
+      float hh[4] = {}, hl[4] = {}, lh[4] = {};
+      auto b_at = [&](int k) { return k < kn ? B[(size_t)k * LDB + col] : 0.f; };
+      for (int kt = 0; kt < kts; ++kt) {
+        const int k = 16 * kt + 2 * q;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_bf16(b_at(k), b_at(k + 1), bh0, bl0);
+        split_bf16(b_at(k + 8), b_at(k + 9), bh1, bl1);
+        const size_t at = ((size_t)mt * KTA + kt0 + kt) * 32 + lane;
+        const uint4 av = AH4[at];
+        const uint32_t ah[4] = {av.x, av.y, av.z, av.w};
+        // each k-tile's 16 products into zeroed accumulators, then added in
+        // round-to-nearest: mma.sync's own f32 accumulation truncates, and
+        // carried through the hundreds or thousands of k-tiles of these
+        // depths it biases the sums (sparse coding 1,024 × 4,096's energy by
+        // ~1e-5 relative, the same sign on every chain)
+        float th[4] = {}, tl[4] = {}, tm[4] = {};
+        mma_bf16(th, ah, bh0, bh1);
+        if constexpr (P != kDefault) mma_bf16(tl, ah, bl0, bl1);
+        if constexpr (P == kBf16x3) {
+          const uint4 lv = AL4[at];
+          const uint32_t al[4] = {lv.x, lv.y, lv.z, lv.w};
+          mma_bf16(tm, al, bh0, bh1);
+        }
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          hh[h] += th[h];
+          if constexpr (P != kDefault) hl[h] += tl[h];
+          if constexpr (P == kBf16x3) lh[h] += tm[h];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int r = 16 * mt + g + 8 * (h >> 1), c = nt * 8 + 2 * q + (h & 1);
+        float v = hh[h];
+        if constexpr (P == kBf16x3) v = hh[h] + (hl[h] + lh[h]);
+        if constexpr (P == kBf16x2) v = hh[h] + hl[h];
+        if (r < m0 + mn) epi(r, c, v);
+      }
+    }
+  }
+}
+
+// gradient_tile for the chunked tiles (KC > 0; the parameter matrix in the
+// device buffer): the K rows of the intermediate in chunks of KC, each
+// chunk's contraction 1 (rows k0..k0+KC of y, r or z, D deep) writing its
+// rows of Y and Z (row k0 + j at row j; strides LDY, LDZ), then between()
+// (a barrier), rows(k0) (the threads' reads of the chunk's energy terms),
+// and its share of contraction 2 (KC deep) added into G (stride NC) by the
+// thread that owns each element in every chunk, in chunk order (no
+// atomics: runs repeat bit for bit); the last chunk's epilogue finishes the
+// gradient as gradient_tile's does. after() (a barrier) comes between two
+// chunks, so the next chunk overwrites Y and Z only once every thread is
+// done with them; the caller's barrier follows the last. X has row stride
+// LDX; X and G may lie in device memory (the XG tiles), so neither is read
+// through a read-only path. patch: sparse coding's K rows (device memory).
+template <int E, int D, int K, int KC, int NC, int LDX, int LDY, int LDZ, int T, int P, bool RN,
+          bool TERMS, class Rows, class Between, class After>
+__device__ __forceinline__ void gradient_chunks(const float* A1, const float* A2,
+                                                const uint32_t* frag, const float* patch,
+                                                const float* X, float* Y, float* Z, float* G,
+                                                const Args& a, bool want_u, Rows rows,
+                                                Between between, After after) {
+  using PL = Params<D, K, P>;
+  constexpr int W = PL::kWords, K4 = PL::K4, D4 = PL::D4;
+  constexpr int KT1 = pad16(D) / 16, KT2 = pad16(K) / 16;
+  constexpr int LDB = E == kSparseCoding ? LDY : LDZ;  // contraction 2's operand
+  static_assert(KC % 16 == 0, "a chunk of whole k-tiles");
+  const uint32_t *h1 = frag, *h2 = frag + W, *l1 = frag + 2 * W, *l2 = frag + 3 * W;
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    const int kn = min_of(KC, K - k0), mn = min_of(KC, K4 - k0);
+    const bool first = k0 == 0, last = k0 + KC >= K;
+    contract_part<K4, KT1, NC, LDX, T, P>(A1, h1, l1, X, k0, mn, 0, D,
+                                          [&](int rg, int c, float v) {
+      const int rl = rg - k0;
+      if constexpr (E == kProductOfT) {  // y, log1p(y²/ν) where wanted, dU/dy
+        if constexpr (!TERMS)
+          Y[rl * LDY + c] = v;
+        else if (want_u)
+          Y[rl * LDY + c] = log1pf(v * v * a.k3);
+        Z[rl * LDZ + c] = div_<RN>(mul_<RN>(a.k0, v), add_<RN>(a.k1, mul_<RN>(v, v)));
+      } else if constexpr (E == kSparseCoding) {  // the residual, 0 on padded rows
+        Y[rl * LDY + c] = sub_<RN>(rg < K ? patch[rg] : 0.f, v);
+      } else {  // z, softplus(z) where wanted, σ(z)
+        if constexpr (!TERMS)
+          Y[rl * LDY + c] = v;
+        else if (want_u)
+          Y[rl * LDY + c] = fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
+        Z[rl * LDZ + c] = div_<RN>(1.0f, add_<RN>(1.0f, expf(-v)));
+      }
+    });
+    between();
+    rows(k0);
+    contract_part<D4, KT2, NC, LDB, T, P>(A2, h2, l2, E == kSparseCoding ? Y : Z, 0, D4, k0, kn,
+                                          [&](int rg, int c, float v) {
+      float s = first ? v : add_<RN>(G[rg * NC + c], v);
+      if (last) {
+        if constexpr (E == kSparseCoding) {  // λ·a/√(a²+ε) − σ⁻²·Φᵀr
+          const float av = X[rg * LDX + c];
+          const float sq = sqrtf(add_<RN>(mul_<RN>(av, av), a.k3));
+          s = sub_<RN>(mul_<RN>(a.k0, div_<RN>(av, sq)), mul_<RN>(a.k1, s));
+        } else if constexpr (E == kLogreg) {  // Xsᵀσ(z) + θ/σ₀²
+          s = add_<RN>(s, mul_<RN>(X[rg * LDX + c], a.k0));
+        }
+      }
+      G[rg * NC + c] = s;
+    });
+    if (!last) after();
+  }
+}
+
 // The sum down column c of slot s of red, where each of a block's T threads
 // put one partial at red[s·T + tid] and a column's owners are the threads
 // c, c + NC, ...: their T / NC partials added in that order
@@ -560,7 +741,7 @@ template <int T, int NC>
 __device__ __forceinline__ float column_sum(const float* red, int s, int c) {
   const float* p = red + s * T + c;
   float acc = p[0];
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(T/NC)
   for (int j = 1; j < T / NC; ++j) acc = __fadd_rn(acc, p[j * NC]);
   return acc;
 }
@@ -579,9 +760,25 @@ __device__ __forceinline__ float column_sum(const float* red, int s, int c) {
 // NUTS keeps its tree state on chip (onchip) where it fits beside the rest
 // at max_depth 12. At the presets this gives their tiles: the library's
 // instances are the ones the per-energy constants gave.
+//
+// Where even the 8-column tile does not fit off chip (the k-row
+// intermediates Y and Z, K·NC floats each, pass the block's 227 KB), the K
+// rows run in chunks of kc (gradient_chunks): Y and Z hold one chunk, so K
+// leaves the sum. The tile starts again from the base, its threads doubled
+// (a chain's, up to 1,024 a block) until an owner holds at most
+// kOwnerGroups groups of four dims (NUTS kOwnerDims dims); kc is the
+// largest multiple of 16 and of a chain's threads up to kChunkMax rows (and
+// K) that fits. Where even 8 columns of X and G do not fit beside a chunk
+// (d in the thousands), X, G and the mass move to the block's slice of the
+// device scratch (xg), the tile is the 8-column one, and the rule has no
+// refusal left: past that the device scratch is the limit. MINB there is
+// at most 1,024 / T, so that a thread keeps 64 registers.
+constexpr int kChunkMax = 512, kOwnerGroups = 4, kOwnerDims = 16, kMaxThreads = 1024;
 struct TileRule {
   int ch, t, minb;
   bool off, onchip;
+  int kc;   // rows of a chunk of the intermediate (0: all K at once)
+  bool xg;  // X, G and the mass in the block's slice of the device scratch
 };
 __host__ __device__ constexpr int base_chains(int E, int VAR) {
   return E == kProductOfT ? 8 : E == kSparseCoding ? 16 : VAR == kMjhmc ? 4 : 8;
@@ -613,12 +810,30 @@ __host__ __device__ constexpr int minb_for(int E, int floats) {
 // aligned), then the chains' partial sums, SLOTS × T (MJHMC 4, control and
 // MALT 3); the patch is read from device memory
 // (ops/cuda_mjhmc.py::mm_geometry mirrors this).
+// A chunked tile's MINB: the blocks an SM's shared memory holds, at most
+// 1,024 / T (64 registers a thread)
+__host__ __device__ constexpr int chunked_minb(int E, int floats, int t) {
+  return min_of(minb_for(E, floats), max_of(1, kMaxThreads / t));
+}
+// a chunk's rows: multiples of 16 (k-tiles) and of the q owners of a column
+// (whole rows for each), at most kChunkMax and K rounded up
+__host__ __device__ constexpr int chunk_quantum(int owners) {
+  return owners / gcd_of(owners, 16) * 16;
+}
+__host__ __device__ constexpr int chunk_start(int K, int q) {
+  return min_of(round_up(K, q), max_of(kChunkMax / q, 1) * q);
+}
+
 struct MmGeom {
   int nc, ld, ry, r, ng, nk, dp, kp;
   int a1, a2, x, g, y, z, mass, frag, red, slots, floats;
+  int slice;  // xg: the block's floats of the device scratch (X, G, the mass)
 };
+// ... KC > 0: Y and Z hold a chunk of KC rows (kp = KC, nk = KC / RY);
+// XG: X [DP][LD], G [DP][NC] and the mass [2DP] in the block's slice of the
+// device scratch, none of them in shared memory
 __host__ __device__ constexpr MmGeom mm_geom(int E, int VAR, int P, bool BR, bool OFF, int D,
-                                             int K, int CH, int T) {
+                                             int K, int CH, int T, int KC = 0, bool XG = false) {
   MmGeom m{};
   m.nc = VAR == kMjhmc ? 2 * CH : CH;
   m.ld = m.nc + 4;
@@ -627,21 +842,22 @@ __host__ __device__ constexpr MmGeom mm_geom(int E, int VAR, int P, bool BR, boo
   m.ng = cdiv(groups, m.ry);
   m.r = cdiv(groups, m.ng);
   m.dp = 4 * m.r * m.ng;
-  m.nk = cdiv(K, m.ry);
-  m.kp = m.ry * m.nk;
+  m.nk = KC ? KC / m.ry : cdiv(K, m.ry);
+  m.kp = KC ? KC : m.ry * m.nk;
   const bool f32 = P == kHighest && !OFF;
   const int copies = OFF || P == kHighest ? 0 : P == kBf16x3 ? 2 : 1;
   m.a1 = 0;
   m.a2 = m.a1 + (f32 ? D * round_up(K, 4) : 0);
   m.x = m.a2 + (f32 ? K * round_up(D, 4) : 0);
-  m.g = m.x + m.dp * m.ld;
-  m.y = m.g + m.dp * m.nc;
+  m.g = m.x + (XG ? 0 : m.dp * m.ld);
+  m.y = m.g + (XG ? 0 : m.dp * m.nc);
   m.z = m.y + m.kp * (E == kSparseCoding ? m.ld : m.nc);
   m.mass = m.z + (E != kSparseCoding ? m.kp * m.ld : 0);
-  m.frag = (m.mass + (BR ? 2 * m.dp : 0) + 3) / 4 * 4;
+  m.frag = (m.mass + (BR && !XG ? 2 * m.dp : 0) + 3) / 4 * 4;
   m.red = m.frag + 2 * copies * (pad16(K) * pad16(D) / 2);
   m.slots = VAR == kMjhmc ? 4 : 3;
   m.floats = m.red + m.slots * T;
+  m.slice = XG ? m.dp * (m.ld + m.nc + 2) : 0;
   return m;
 }
 // mm_kernel's tile of body VAR on energy E at (D, K) and precision P (the
@@ -653,6 +869,20 @@ __host__ __device__ constexpr TileRule mm_rule(int E, int VAR, int P, int D, int
       const int t = round_up(t0 / ch0 * ch, 32);
       const int floats = mm_geom(E, VAR, P, true, off != 0, D, K, ch, t).floats;
       if (4 * floats <= kSmemBlock) return {ch, t, minb_for(E, floats), off != 0, false};
+    }
+  // chunked k, the parameter matrix off chip: X and G on chip, then (xg)
+  // in the device scratch on the 8-column tile
+  const int ch8 = VAR == kMjhmc ? 4 : 8;
+  for (int xg = 0; xg < 2; ++xg)
+    for (int ch = xg ? ch8 : ch0; (VAR == kMjhmc ? 2 * ch : ch) >= 8; ch /= 2) {
+      int t = round_up(t0 / ch0 * ch, 32);
+      while (2 * t <= kMaxThreads && cdiv(cdiv(D, 4), t / ch) > kOwnerGroups) t *= 2;
+      const int q = chunk_quantum(t / ch);
+      for (int kc = chunk_start(K, q); kc >= q; kc -= q) {
+        const int floats = mm_geom(E, VAR, P, true, true, D, K, ch, t, kc, xg != 0).floats;
+        if (4 * floats <= kSmemBlock)
+          return {ch, t, chunked_minb(E, floats, t), true, false, kc, xg != 0};
+      }
     }
   return {0, 0, 0, true, false};
 }
@@ -667,8 +897,8 @@ template <int E, int D, int K, int VAR, int P>
 struct MmTile {
   static constexpr TileRule rule = mm_rule(E, VAR, P, D, K);
   static_assert(rule.ch > 0, "no tile of mm_kernel fits this shape, even off chip");
-  static constexpr int CH = rule.ch, T = rule.t, MINB = rule.minb;
-  static constexpr bool OFF = rule.off;
+  static constexpr int CH = rule.ch, T = rule.t, MINB = rule.minb, KC = rule.kc;
+  static constexpr bool OFF = rule.off, XG = rule.xg;
   static constexpr int NC = VAR == kMjhmc ? 2 * CH : CH;
 };
 
@@ -676,14 +906,14 @@ struct MmTile {
 template <int E, int D, int K, int VAR, int P, bool BR>
 struct MmLayout {
   using TL = MmTile<E, D, K, VAR, P>;
-  static constexpr MmGeom M = mm_geom(E, VAR, P, BR, TL::OFF, D, K, TL::CH, TL::T);
-  static constexpr int CH = TL::CH, NC = TL::NC, T = TL::T;
-  static constexpr bool OFF = TL::OFF;
+  static constexpr MmGeom M = mm_geom(E, VAR, P, BR, TL::OFF, D, K, TL::CH, TL::T, TL::KC, TL::XG);
+  static constexpr int CH = TL::CH, NC = TL::NC, T = TL::T, KC = TL::KC;
+  static constexpr bool OFF = TL::OFF, XG = TL::XG;
   static constexpr int LD = M.ld, RY = M.ry, R = M.r, NG = M.ng, NK = M.nk, DP = M.dp,
-                       KP = M.kp;
+                       KP = M.kp, SLICE = M.slice;
   static_assert(T % CH == 0 && T % 32 == 0 && R <= RY && DP == 4 * R * NG && DP >= D &&
-                    KP == RY * NK && KP >= K,
-                "a chain's threads own whole groups of dims and whole rows");
+                    KP == RY * NK && (KC ? KC % 16 == 0 && OFF : KP >= K),
+                "a chain's threads own whole groups of dims and whole rows (of a chunk)");
   static_assert(NC % 8 == 0, "mma.sync n-tiles of 8 columns");
   static constexpr int A1 = M.a1, A2 = M.a2, X = M.x, G = M.g, Y = M.y, Z = M.z,
                        MASS = M.mass, FRAG = M.frag, RED = M.red, SLOTS = M.slots,
@@ -715,6 +945,10 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
   // a padded tile's dims past D and rows past K (mm_geom), and the
   // parameter matrix in the device buffer (a.scratch) where it is OFF
   constexpr bool PAD = DP != D, OFF = L::OFF;
+  // KC: the intermediate's rows in chunks; XG: X, G and the mass in the
+  // block's slice of a.scratch, after the parameter matrix (mm_geom)
+  constexpr int KC = L::KC;
+  constexpr bool XG = L::XG;
   constexpr int D4 = round_up(D, 4);
   constexpr bool MJ = VAR == kMjhmc;
   constexpr int NT = MJ ? 2 : 1;                    // trajectories: columns c (, CH + c)
@@ -732,6 +966,11 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
   float* Z = sm + L::Z;
   float* IM = sm + L::MASS;  // BR: [DP] M^-1, then [DP] sqrt(M)
   float* red = sm + L::RED;  // [SLOTS][T]
+  if constexpr (XG) {
+    X = a.scratch + Params<D, K, P>::kFloats + (size_t)blockIdx.x * L::SLICE;
+    G = X + DP * LD;
+    IM = G + DP * NC;
+  }
 
   const int tid = threadIdx.x, c = tid % CH, r = tid / CH;
   const bool owner = r < R;  // of dims (every thread owns rows)
@@ -770,7 +1009,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
   // momenta vt of the owned dims; the chains past n (ragged last tile) run
   // on zeros and are never stored
   float x[NE], v[NE], g[NE], wx[NE], wxc[NE], wx2[NE], wx2c[NE], vt[NT][NE];
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
   for (int k = 0; k < NE; ++k) {
     const size_t gi = (size_t)dim(k) * n + chain;
     if constexpr (PAD) {  // a padded dim starts at 0
@@ -807,9 +1046,24 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
   auto sq = [&](const float(&vv)[NE]) -> float {
     float s = 0.f;
     if (owner)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
       for (int k = 0; k < NE; ++k) s += vv[k] * vv[k] * im(dim(k));
     return s;
+  };
+  // chunked: the thread's partials of each trajectory's rows' terms of the
+  // last gradient that wanted them, added chunk by chunk in row order
+  float eacc[NT];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) eacc[q] = 0.f;
+  auto chunk_terms = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+      for (int j = 0; j < NK; ++j) {
+        const int rl = r + j * RY;  // the chunk's row k0 + rl
+        if (k0 + rl >= K) break;
+        const float yv = Y[rl * LY + c + q * CH];
+        eacc[q] += E == kSparseCoding ? yv * yv : yv;
+      }
   };
   // the thread's partial of trajectory q's energy from the last gradient's
   // x and y (its rows' terms), r (sparse coding) or z terms
@@ -817,7 +1071,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
     const int col = c + q * CH;
     float s1 = 0.f, s2 = 0.f;
     if (E != kProductOfT && owner) {
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
       for (int k = 0; k < NE; ++k) {
         const float xx = X[dim(k) * LD + col];
         if constexpr (PAD) {  // a padded dim adds no λ√ε
@@ -827,13 +1081,17 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
         }
       }
     }
+    if constexpr (KC > 0) {
+      s2 = eacc[q];
+    } else {
 #pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      const float yv = Y[row(j) * LY + col];
-      if constexpr (KP != K) {  // a padded row adds no softplus(0) (or unwritten term)
-        if (row(j) < K) s2 += E == kSparseCoding ? yv * yv : yv;
-      } else {
-        s2 += E == kSparseCoding ? yv * yv : yv;
+      for (int j = 0; j < NK; ++j) {
+        const float yv = Y[row(j) * LY + col];
+        if constexpr (KP != K) {  // a padded row adds no softplus(0) (or unwritten term)
+          if (row(j) < K) s2 += E == kSparseCoding ? yv * yv : yv;
+        } else {
+          s2 += E == kSparseCoding ? yv * yv : yv;
+        }
       }
     }
     return E == kProductOfT ? a.k2 * s2 : E == kSparseCoding ? a.k0 * s1 + a.k2 * s2
@@ -846,7 +1104,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
     if (owner)
 #pragma unroll
       for (int q = 0; q < NT; ++q)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
         for (int k = 0; k < NE; ++k) {
           const int i = dim(k), col = c + q * CH;
           float vv = vt[q][k];
@@ -859,7 +1117,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
     if (owner)
 #pragma unroll
       for (int q = 0; q < NT; ++q)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
         for (int k = 0; k < NE; ++k)
           vt[q][k] = vt[q][k] - c_kick * G[dim(k) * NC + c + q * CH];
     prof.mark(kMmKickDrift);
@@ -870,9 +1128,21 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
     prof.sync(kMmKickDrift);
     after_a();
     prof.count(kMmGradients);
-    gradient_tile<E, D, K, NC, LD, T, STUB, P, false, true>(
-        A1, A2, frag, a.p1, X, Y, Z, G, a, want_u,
-        [&] { prof.sync(kMmContract1); });
+    if constexpr (KC > 0) {
+      if (want_u)
+#pragma unroll
+        for (int q = 0; q < NT; ++q) eacc[q] = 0.f;
+      gradient_chunks<E, D, K, KC, NC, LD, LY, LD, T, P, false, true>(
+          A1, A2, frag, a.p1, X, Y, Z, G, a, want_u,
+          [&](int k0) {
+            if (want_u) chunk_terms(k0);
+          },
+          [&] { prof.sync(kMmContract1); }, [&] { prof.sync(kMmContract2); });
+    } else {
+      gradient_tile<E, D, K, NC, LD, T, STUB, P, false, true>(
+          A1, A2, frag, a.p1, X, Y, Z, G, a, want_u,
+          [&] { prof.sync(kMmContract1); });
+    }
     prof.sync(kMmContract2);
   };
   // integrator step s of every trajectory (leapfrog, or the two-stage
@@ -895,7 +1165,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
   // MALT's O half-step o of the owned dims: vt <- eta vt + sig z
   auto o_step = [&](int t, int o) {
     if (owner)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NG)
       for (int gq = 0; gq < NG; ++gq) {
         float z[4];
         normals4<D, 0, PAD>(a, chain, t, 4 * (r + gq * R), kTagMaltNoise, o * kBlocks, sqm, key, z);
@@ -910,7 +1180,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
     // control from the corrupted v; MALT from v0 ~ N(0, M) (kept in v until
     // the decision)
     if (owner)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NG)
       for (int gq = 0; gq < NG; ++gq) {
         float z[4];
         if constexpr (VAR == kControl)
@@ -982,7 +1252,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
     // every thread of the chain decides alike; the owners move its dims
     auto move = [&]() {  // to the forward trajectory's end
       if (owner)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
         for (int k = 0; k < NE; ++k) {
           const int i = dim(k);
           x[k] = X[i * LD + c];
@@ -992,7 +1262,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
     };
     auto flip = [&]() {
       if (owner)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
         for (int k = 0; k < NE; ++k) v[k] = -v[k];
     };
     if constexpr (MJ) {
@@ -1018,7 +1288,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
       }
       // the moments and emissions take the pre-transition x
       if (owner)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
         for (int k = 0; k < NE; ++k) {
           kadd(wx[k], wxc[k], dwell * x[k]);
           kadd(wx2[k], wx2c[k], dwell * x[k] * x[k]);
@@ -1037,7 +1307,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
         flip();
       } else if (owner) {
         // refresh by Box-Muller's cosine branch from words 1+i, 1+D+i
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NG)
         for (int gq = 0; gq < NG; ++gq) {
           float z[4];
           normals4<D, 1, PAD>(a, chain, t, 4 * (r + gq * R), kTagMjhmc, 0u, sqm, key, z);
@@ -1072,7 +1342,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
         a.es[emit_row * n + chain] = evals;
       }
       if (owner)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
         for (int k = 0; k < NE; ++k) {
           kadd(wx[k], wxc[k], x[k]);
           kadd(wx2[k], wx2c[k], x[k] * x[k]);
@@ -1087,7 +1357,7 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
   }
 
   if (owner && live)
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
     for (int k = 0; k < NE; ++k) {
       if constexpr (PAD) {
         if (dim(k) >= D) continue;
@@ -1230,11 +1500,16 @@ using Prof = PhaseClock<ON, kPhases, kPhBarrier>;
 // bf16 A fragments at FRAG; none where off), the patch [K4], X and G [DP][NC],
 // Y and Z [KP][NC] (no Z at sparse coding) and the mass [2DP]; then, sized by
 // max_depth, the tree state (onchip) and the column sums' partials, slots
-// × T (ops/cuda_mjhmc.py::nuts_mm_geometry mirrors this)
+// × T (ops/cuda_mjhmc.py::nuts_mm_geometry mirrors this). KC > 0: Y and Z
+// hold a chunk of KC rows (kp = KC, nk = KC / R) and the patch is read from
+// device memory; XG: X, G [DP][NC] and the mass [2DP] in the block's slice
+// of the device scratch (after the parameter matrix and the tree state
+// there, 16-byte aligned), none of them in shared memory.
 struct NutsGeom {
   int r, ne, nk, dp, kp, nc, t;
   int a1, a2, patch, x, g, y, z, mass, frag, tree;
   bool onchip;
+  int slice;  // xg: the block's floats of the device scratch
   __host__ __device__ constexpr int red(int max_depth) const {
     return tree + (onchip ? nuts::rows(max_depth) * dp * nc : 0);
   }
@@ -1243,28 +1518,30 @@ struct NutsGeom {
   }
 };
 __host__ __device__ constexpr NutsGeom nuts_geom(int E, int P, bool OFF, bool ONCHIP, int D,
-                                                 int K, int NC, int T) {
+                                                 int K, int NC, int T, int KC = 0,
+                                                 bool XG = false) {
   NutsGeom m{};
   m.nc = NC;
   m.t = T;
   m.r = T / NC;
   m.ne = cdiv(D, m.r);
   m.dp = m.r * m.ne;
-  m.nk = cdiv(K, m.r);
-  m.kp = m.r * m.nk;
+  m.nk = KC ? KC / m.r : cdiv(K, m.r);
+  m.kp = KC ? KC : m.r * m.nk;
   const bool f32 = P == kHighest && !OFF;
   const int copies = OFF || P == kHighest ? 0 : P == kBf16x3 ? 2 : 1;
   m.a1 = 0;
   m.a2 = m.a1 + (f32 ? D * round_up(K, 4) : 0);
   m.patch = m.a2 + (f32 ? K * round_up(D, 4) : 0);
-  m.x = m.patch + round_up(K, 4);
-  m.g = m.x + m.dp * NC;
-  m.y = m.g + m.dp * NC;
+  m.x = m.patch + (KC ? 0 : round_up(K, 4));
+  m.g = m.x + (XG ? 0 : m.dp * NC);
+  m.y = m.g + (XG ? 0 : m.dp * NC);
   m.z = m.y + m.kp * NC;
   m.mass = m.z + (E != kSparseCoding ? m.kp * NC : 0);
-  m.frag = (m.mass + 2 * m.dp + 3) / 4 * 4;  // 16-byte aligned
+  m.frag = (m.mass + (XG ? 0 : 2 * m.dp) + 3) / 4 * 4;  // 16-byte aligned
   m.tree = m.frag + 2 * copies * (pad16(K) * pad16(D) / 2);
   m.onchip = ONCHIP;
+  m.slice = XG ? round_up(m.dp * (2 * NC + 2), 4) : 0;  // 16-byte aligned
   return m;
 }
 // The NUTS tile of energy E at (D, K) and precision P (the tile rule above;
@@ -1282,6 +1559,23 @@ __host__ __device__ constexpr TileRule nuts_rule(int E, int P, int D, int K) {
       return {nc, t, minb_for(E, nuts_geom(E, P, off != 0, onchip, D, K, nc, t).floats(1)),
               off != 0, onchip};
     }
+  // chunked k, the parameter matrix off chip (mm_rule's), the tree state on
+  // chip where it fits beside the rest at max_depth 12
+  for (int xg = 0; xg < 2; ++xg)
+    for (int nc = xg ? 8 : nc0; nc >= 8; nc /= 2) {
+      int t = round_up(t0 / nc0 * nc, 32);
+      while (2 * t <= kMaxThreads && cdiv(D, t / nc) > kOwnerDims) t *= 2;
+      const int q = chunk_quantum(t / nc);
+      for (int kc = chunk_start(K, q); kc >= q; kc -= q) {
+        if (4 * nuts_geom(E, P, true, false, D, K, nc, t, kc, xg != 0).floats(nuts::kMaxDepth) >
+            kSmemBlock)
+          continue;
+        const bool onchip = 4 * nuts_geom(E, P, true, true, D, K, nc, t, kc, xg != 0)
+                                    .floats(nuts::kMaxDepth) <= kSmemBlock;
+        const int floats = nuts_geom(E, P, true, onchip, D, K, nc, t, kc, xg != 0).floats(1);
+        return {nc, t, chunked_minb(E, floats, t), true, onchip, kc, xg != 0};
+      }
+    }
   return {0, 0, 0, true, false};
 }
 
@@ -1294,18 +1588,21 @@ template <int E, int D, int K, int P>
 struct NutsTile {
   static constexpr TileRule rule = nuts_rule(E, P, D, K);
   static_assert(rule.ch > 0, "no tile of nuts_mm_kernel fits this shape, even off chip");
-  static constexpr int NC = rule.ch, T = rule.t, MINB = rule.minb;
-  static constexpr bool OFF = rule.off, ONCHIP = rule.onchip;
+  static constexpr int NC = rule.ch, T = rule.t, MINB = rule.minb, KC = rule.kc;
+  static constexpr bool OFF = rule.off, ONCHIP = rule.onchip, XG = rule.xg;
 };
 
 // The NUTS kernel's layout (nuts_geom) on its tile
 template <int E, int D, int K, int P>
 struct NutsLayout {
   using TL = NutsTile<E, D, K, P>;
-  static constexpr NutsGeom M = nuts_geom(E, P, TL::OFF, TL::ONCHIP, D, K, TL::NC, TL::T);
+  static constexpr NutsGeom M =
+      nuts_geom(E, P, TL::OFF, TL::ONCHIP, D, K, TL::NC, TL::T, TL::KC, TL::XG);
   static constexpr int NC = TL::NC, T = TL::T, R = M.r, NE = M.ne, NK = M.nk, DP = M.dp,
-                       KP = M.kp;
-  static_assert(T % NC == 0 && DP >= D && KP >= K, "a thread's elements in one column");
+                       KP = M.kp, KC = TL::KC, SLICE = M.slice;
+  static constexpr bool XG = TL::XG;
+  static_assert(T % NC == 0 && DP >= D && (KC ? KC % 16 == 0 && KC % R == 0 && TL::OFF : KP >= K),
+                "a thread's elements in one column");
   static_assert(NC % 8 == 0, "mma.sync n-tiles of 8 columns");
   static constexpr int A1 = M.a1, A2 = M.a2, PATCH = M.patch, X = M.x, G = M.g, Y = M.y,
                        Z = M.z, MASS = M.mass, FRAG = M.frag, TREE = M.tree;
@@ -1341,6 +1638,18 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
   const int max_depth = a.m;
   float* tree_s = sm + L::TREE;           // ONCHIP: [rows][DP][NC]
   float* red = sm + L::red(max_depth);    // [slots][T]
+  // KC: the intermediate's rows in chunks; XG: X, G and the mass in the
+  // block's slice of a.scratch, after the parameter matrix and the tree
+  // state there (nuts_geom)
+  constexpr int KC = L::KC;
+  constexpr bool XG = L::XG;
+  if constexpr (XG) {
+    const size_t tree_floats = TL::ONCHIP ? 0 : (size_t)rows(max_depth) * DP * a.n;
+    X = a.scratch + (Params<D, K, P>::kFloats + tree_floats + 3) / 4 * 4 +
+        (size_t)blockIdx.x * L::SLICE;
+    G = X + DP * NC;
+    IM = G + DP * NC;
+  }
 
   const int tid = threadIdx.x, c = tid % NC, r = tid / NC;
   const int chain = blockIdx.x * NC + c;
@@ -1355,7 +1664,9 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
   // dims' gradient
   if constexpr (DP != D4)
     for (int idx = tid; idx < (DP - D4) * NC; idx += T) G[D4 * NC + idx] = 0.f;
-  load_params<E, D, K, DP, T, BR, P, OFF>(a, sm + L::A1, sm + L::A2, sm + L::PATCH, IM,
+  // chunked, the patch is read from device memory (a.p1)
+  load_params<E, D, K, DP, T, BR, P, OFF>(a, sm + L::A1, sm + L::A2,
+                                          KC > 0 ? nullptr : sm + L::PATCH, IM,
                                           reinterpret_cast<uint32_t*>(sm + L::FRAG));
 
   auto dim = [&](int k) { return r + k * R; };  // the thread's k-th dim
@@ -1376,12 +1687,29 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
   auto proj = [&](float acc, float xa, float xb, float w, int i) {
     return __fadd_rn(acc, __fmul_rn(__fmul_rn(__fsub_rn(xa, xb), w), im(i)));
   };
+  // chunked: the thread's partial of the leaf's rows' terms (the energy's
+  // second sum), added chunk by chunk in row order as the loop below adds
+  // them
+  float e2c = 0.f;
+  auto chunk_terms = [&](int k0) {
+    for (int k = 0; k < NK; ++k) {
+      const int rl = dim(k);  // the chunk's row k0 + rl
+      if (k0 + rl >= K) break;
+      const float y = Y[rl * NC + c];
+      if constexpr (E == kProductOfT)  // log1p(y²/ν)
+        e2c = __fadd_rn(e2c, log1pf(__fmul_rn(__fmul_rn(y, y), a.k3)));
+      else if constexpr (E == kSparseCoding)  // r²
+        e2c = __fadd_rn(e2c, __fmul_rn(y, y));
+      else  // softplus(z) = max(z, 0) + log1p(e^{−|z|})
+        e2c = __fadd_rn(e2c, __fadd_rn(fmaxf(y, 0.f), log1pf(expf(-fabsf(y)))));
+    }
+  };
 
   // the chain's sample (x, g) and Kahan moments, and the trajectory (xt,
   // vt, gt), of the thread's elements; the chains past n (ragged last
   // tile) are never live
   float x[NE], g[NE], wx[NE], wxc[NE], wx2[NE], wx2c[NE], xt[NE], vt[NE], gt[NE];
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
   for (int k = 0; k < NE; ++k) {
     const size_t gi = (size_t)dim(k) * n + chain;
     if constexpr (PAD) {  // a padded dim starts at 0
@@ -1413,7 +1741,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
     // endpoints start at the chain's point
     float hv = 0.f;
     if (chain_live) {
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
       for (int k = 0; k < NE; ++k) {
         const int i = dim(k);
         float v0 = normal_of<D>(a, chain, t, i, kTagNutsMomentum, 0u,
@@ -1447,7 +1775,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
         const uint4 rr = philox4x32_10(make_uint4(chain, t, jj, kTagNutsRound), key);
         right = uniform(a, rr.x) < 0.5f;
         merge_word = rr.y;
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
         for (int k = 0; k < NE; ++k) {
           const int i = dim(k);
           xt[k] = tree(right ? kXP : kXM, i);
@@ -1463,7 +1791,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
         const bool act = !done && !stop;
         // the owners' half kick and drift, into X for the contractions
         if (act) {
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
           for (int k = 0; k < NE; ++k) {
             const int i = dim(k);
             vt[k] = __fsub_rn(vt[k], __fmul_rn(he, gt[k]));
@@ -1474,7 +1802,13 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
         if (!prof.sync_or(kPhKickDrift, act)) break;
         prof.count(kPhLeaves);
         // the leaf's gradient, rounded one operation at a time
-        if constexpr (OFF)  // the parameter matrix in the head of a.scratch
+        if constexpr (KC > 0) {
+          e2c = 0.f;
+          gradient_chunks<E, D, K, KC, NC, NC, NC, NC, T, P, true, false>(
+              a.scratch, a.scratch + Params<D, K, P>::kF32_1,
+              reinterpret_cast<const uint32_t*>(a.scratch), a.p1, X, Y, sm + L::Z, G, a, false,
+              chunk_terms, [&] { prof.sync(kPhContract1); }, [&] { prof.sync(kPhContract2); });
+        } else if constexpr (OFF)  // the parameter matrix in the head of a.scratch
           gradient_tile<E, D, K, NC, NC, T, false, P, true, false>(
               a.scratch, a.scratch + Params<D, K, P>::kF32_1,
               reinterpret_cast<const uint32_t*>(a.scratch), sm + L::PATCH, X, Y, sm + L::Z, G, a,
@@ -1491,7 +1825,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
         if (act) {
           float e1 = 0.f, e2 = 0.f;
           hv = 0.f;
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
           for (int k = 0; k < NE; ++k) {
             const int i = dim(k);
             gt[k] = G[i * NC + c];
@@ -1505,18 +1839,22 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
               e1 = __fadd_rn(e1, __fmul_rn(xt[k], xt[k]));
             }
           }
+          if constexpr (KC > 0) {
+            e2 = e2c;
+          } else {
 #pragma unroll
-          for (int k = 0; k < NK; ++k) {
-            const float y = Y[dim(k) * NC + c];
-            if constexpr (KP != K) {
-              if (dim(k) >= K) continue;  // a padded row
+            for (int k = 0; k < NK; ++k) {
+              const float y = Y[dim(k) * NC + c];
+              if constexpr (KP != K) {
+                if (dim(k) >= K) continue;  // a padded row
+              }
+              if constexpr (E == kProductOfT)  // log1p(y²/ν)
+                e2 = __fadd_rn(e2, log1pf(__fmul_rn(__fmul_rn(y, y), a.k3)));
+              else if constexpr (E == kSparseCoding)  // r²
+                e2 = __fadd_rn(e2, __fmul_rn(y, y));
+              else  // softplus(z) = max(z, 0) + log1p(e^{−|z|})
+                e2 = __fadd_rn(e2, __fadd_rn(fmaxf(y, 0.f), log1pf(expf(-fabsf(y)))));
             }
-            if constexpr (E == kProductOfT)  // log1p(y²/ν)
-              e2 = __fadd_rn(e2, log1pf(__fmul_rn(__fmul_rn(y, y), a.k3)));
-            else if constexpr (E == kSparseCoding)  // r²
-              e2 = __fadd_rn(e2, __fmul_rn(y, y));
-            else  // softplus(z) = max(z, 0) + log1p(e^{−|z|})
-              e2 = __fadd_rn(e2, __fadd_rn(fmaxf(y, 0.f), log1pf(expf(-fabsf(y)))));
           }
           put(kE1, e1);
           put(kE2, e2);
@@ -1525,7 +1863,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
           for (int mm = 1; mm <= jj && ((leaf + 1) & ((1 << mm) - 1)) == 0; ++mm) {
             const int row = kStack + 2 * (mm - 1);
             float d1 = 0.f, d2 = 0.f;
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
             for (int k = 0; k < NE; ++k) {
               const int i = dim(k);
               const float sx = tree(row, i), sv = tree(row + 1, i);
@@ -1567,7 +1905,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
           prof.mark(kPhLeafUturn);
           // the taken leaf becomes the subtree's proposal; leaf i opens the
           // stack spans of size 2^mm that divide i
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
           for (int k = 0; k < NE; ++k) {
             const int i = dim(k);
             if (taken) {
@@ -1590,7 +1928,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
         if (merge) u = us;
         log_w_tree = logaddexp(log_w_tree, log_w_sub);
         float dm = 0.f, dp = 0.f;
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
         for (int k = 0; k < NE; ++k) {
           const int i = dim(k);
           if (merge) {
@@ -1632,7 +1970,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
         a.ws[emit_row * n + chain] = 1.f;
         a.es[emit_row * n + chain] = evals;
       }
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
       for (int k = 0; k < NE; ++k) {
         kadd(wx[k], wxc[k], x[k]);
         kadd(wx2[k], wx2c[k], x[k] * x[k]);
@@ -1647,7 +1985,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
   }
 
   if (chain_live) {
-#pragma unroll
+MJHMC_MM_UNROLL_OWNED(NE)
     for (int k = 0; k < NE; ++k) {
       if constexpr (PAD) {
         if (dim(k) >= D) continue;
@@ -1714,13 +2052,19 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // The tile of mm_kernel's run of body VAR at (D, K) and precision P (BR:
 // the instance with the branches): out[0] chains and out[1] threads a
 // block, out[2] shared-memory bytes, out[3] the blocks an SM holds at once
-// (the card's occupancy query, which counts registers too)
+// (the card's occupancy query, which counts registers too); and the device
+// buffer (a.scratch) it indexes: out[4] floats of a block's slice (X, G
+// and the mass where XG, else 0), out[5] the parameter matrix's floats at
+// its head (0 where on chip), out[6] 0 (NUTS's tree floats a chain)
 template <int E, int D, int K, int VAR, bool BR, int P>
 cudaError_t tile_of(int* out) {
   using L = MmLayout<E, D, K, VAR, P, BR>;
   out[0] = L::CH;
   out[1] = L::T;
   out[2] = L::kFloats * (int)sizeof(float);
+  out[4] = L::SLICE;
+  out[5] = L::OFF ? Params<D, K, P>::kFloats : 0;
+  out[6] = 0;
   void (*kernel)(Args) = mm_kernel<E, D, K, VAR, false, false, BR, P, false>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[2]);
@@ -1782,7 +2126,10 @@ cudaError_t launch_mm_prof(const Args& a, cudaStream_t s) {
 // instance at the preset's shape (the per-leaf phase breakdown into a.prof;
 // nothing on the main path runs it), and its tile at (D, K): chains and
 // threads a block, shared-memory bytes at max_depth, and the blocks an SM
-// holds at once (the card's occupancy query, which counts registers too)
+// holds at once (the card's occupancy query, which counts registers too);
+// then, as tile_of's out[4..6], the device buffer it indexes: floats of a
+// block's slice, the parameter matrix's floats, and the tree state's floats
+// a chain where it is off chip
 template <int E, int P>
 cudaError_t launch_nuts_prof(const Args& a, cudaStream_t s) {
   return launch_nuts<E, Shape<E>::D, Shape<E>::K, P, false, false, true>(a, s);
@@ -1793,6 +2140,9 @@ cudaError_t nuts_tile_at(int max_depth, int* out) {
   out[0] = L::NC;
   out[1] = L::T;
   out[2] = L::floats(max_depth) * (int)sizeof(float);
+  out[4] = L::SLICE;
+  out[5] = L::TL::OFF ? Params<D, K, P>::kFloats : 0;
+  out[6] = L::TL::ONCHIP ? 0 : nuts::rows(max_depth) * L::DP;
   void (*kernel)(Args) = nuts_mm_kernel<E, D, K, false, false, P, false>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[2]);

@@ -3,15 +3,16 @@
 // Energy) at MJHMC_MM_OD_DIMS state dims and MJHMC_MM_OD_KROWS rows of the
 // intermediate, dot precision MJHMC_MM_OD_PRECISION (a Precision), the
 // parameter matrix in a device buffer where MJHMC_MM_OD_OFFCHIP is 1, each
-// macro given with -D. ops/_build.py (load_instance) compiles this source,
+// macro given with -D; a chunked tile (TileRule::kc > 0) also names its
+// chunk rows MJHMC_MM_OD_CHUNK and its X/G mode MJHMC_MM_OD_XG. ops/_build.py (load_instance) compiles this source,
 // with the library's flags, the first time a (body, energy, d, k,
 // precision) the library has no instance for is launched, as a Pallas
 // kernel is traced at the shape it is called at: MJHMC's and NUTS's
 // instances with and without the branches, run and stream; control's and
 // MALT's one each. The tile rule (TileRule) picks the tile and whether the
 // parameter matrix fits on chip; the macro states the mode the wrappers'
-// mirror (cuda_mjhmc.mm_tile_rule, nuts_mm_tile_rule) expects, and a build
-// whose rule disagrees fails. Its C entries take the library's arguments
+// mirror (cuda_mjhmc.mm_tile_rule, nuts_mm_tile_rule) expects (and the
+// chunk and the X/G mode), and a build whose rule disagrees fails. Its C entries take the library's arguments
 // and refuse another key: mjhmc_mm_od_launch is mjhmc_mm_engine_launch,
 // mjhmc_mm_od_tile mjhmc_mm_tile and mjhmc_mm_od_nuts_tile
 // mjhmc_mm_nuts_tile (mjhmc_mm_engine.cu). An OFF instance reads the
@@ -21,6 +22,17 @@
     !defined(MJHMC_MM_OD_DIMS) || !defined(MJHMC_MM_OD_KROWS) ||      \
     !defined(MJHMC_MM_OD_PRECISION) || !defined(MJHMC_MM_OD_OFFCHIP)
 #error "an on-demand matmul instance needs its six -DMJHMC_MM_OD_* macros"
+#endif
+
+// Where X and G live in the device buffer (MJHMC_MM_OD_XG 1: d in the
+// thousands, 1,024 threads a block at 64 registers, so an owner's arrays
+// spill either way), loops over more than 4 of an owner's elements, or of
+// a column's partials, are left rolled (mjhmc_mm_engine.cuh,
+// MJHMC_MM_UNROLL_OWNED), which keeps the instance's nvcc short.
+#if defined(MJHMC_MM_OD_XG) && MJHMC_MM_OD_XG
+#define MJHMC_MM_OD_PRAGMA(x) _Pragma(#x)
+#define MJHMC_MM_OD_EXPANDED_PRAGMA(x) MJHMC_MM_OD_PRAGMA(x)
+#define MJHMC_MM_UNROLL_OWNED(K) MJHMC_MM_OD_EXPANDED_PRAGMA(unroll((K) > 4 ? 1 : (K)))
 #endif
 
 #include "../mjhmc_mm_engine.cuh"
@@ -36,9 +48,14 @@ static_assert(kV >= kMjhmc && kV <= kMalt, "a step body");
 static_assert(kE >= kProductOfT && kE <= kLogreg, "a matmul energy");
 static_assert(kD >= 1 && kK >= 1, "a state and an intermediate of at least one row");
 static_assert(kP >= kHighest && kP <= kDefault, "a dot precision");
-static_assert(kOff == (kV == kNuts ? nuts_rule(kE, kP, kD, kK).off
-                                   : mm_rule(kE, kV, kP, kD, kK).off),
-              "the tile rule's parameter-matrix mode differs from the key's");
+constexpr TileRule kRule = kV == kNuts ? nuts_rule(kE, kP, kD, kK) : mm_rule(kE, kV, kP, kD, kK);
+static_assert(kOff == kRule.off, "the tile rule's parameter-matrix mode differs from the key's");
+#if defined(MJHMC_MM_OD_CHUNK) && defined(MJHMC_MM_OD_XG)
+static_assert(kRule.kc == MJHMC_MM_OD_CHUNK && kRule.xg == (MJHMC_MM_OD_XG != 0),
+              "the tile rule's chunk or X/G mode differs from the key's");
+#else
+static_assert(kRule.kc == 0, "the tile rule chunks this shape; the key names no chunk");
+#endif
 
 // the tile entries' bodies, templates so that only this body's kernels are
 // instantiated: mm_kernel's tile (MJHMC, control, MALT) or NUTS's

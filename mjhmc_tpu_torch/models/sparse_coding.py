@@ -4,11 +4,13 @@ counterpart of ``mjhmc_tpu.models.sparse_coding``).
     U(a) = λ · Σᵢ √(aᵢ² + ε)  +  ½σ⁻² ‖x − Φa‖²
 
 over the coefficients ``a`` of one image patch ``x`` under a dictionary
-Φ (npixels × nbasis). Φ is the JAX package's shipped pretrained artifact
-``mjhmc_tpu/data/phi_<p>x<b>.npz``, read by path with NumPy (importing
-``mjhmc_tpu`` would load JAX); shapes with no artifact fall back to the
-same seeded Gabor bank. The patch comes from the same NumPy code, so Φ and
-the patch are identical in both packages.
+Φ (npixels × nbasis). Φ is the port's own pretrained artifact
+``mjhmc_tpu_torch/data/phi_<p>x<b>.npz`` (the 64×128 file is a byte-for-byte
+copy of the JAX package's; ``python -m
+mjhmc_tpu_torch.models.dictionary_learning`` makes one at another shape);
+shapes with no artifact fall back to the same seeded Gabor bank. The patch
+comes from the same NumPy code, so Φ and the patch are identical in both
+packages.
 """
 
 from __future__ import annotations
@@ -24,17 +26,18 @@ from mjhmc_tpu_torch.models.base import Distribution, randn, register
 
 Tensor = torch.Tensor
 
-#: the JAX package's data directory (``dictionary_learning.DATA_DIR``)
-DATA_DIR = Path(__file__).resolve().parents[2] / "mjhmc_tpu" / "data"
+#: the port's data directory, where ``dictionary_learning`` writes its Φ
+DATA_DIR = Path(__file__).resolve().parents[1] / "data"
 
 
-def _phi_path(npixels: int, nbasis: int) -> Path:
-    return DATA_DIR / f"phi_{npixels}x{nbasis}.npz"
+def _phi_path(npixels: int, nbasis: int, data_dir=None) -> Path:
+    return Path(data_dir or DATA_DIR) / f"phi_{npixels}x{nbasis}.npz"
 
 
-def load_pretrained(npixels: int, nbasis: int) -> np.ndarray | None:
-    """The shipped pretrained Φ for this shape, or None if there is none."""
-    path = _phi_path(npixels, nbasis)
+def load_pretrained(npixels: int, nbasis: int, data_dir=None) -> np.ndarray | None:
+    """The pretrained Φ for this shape in ``data_dir`` (default the shipped
+    ``DATA_DIR``), or None if there is none."""
+    path = _phi_path(npixels, nbasis, data_dir)
     if not path.exists():
         return None
     return np.load(path)["phi"].astype(np.float32)
@@ -96,7 +99,9 @@ class SparseCoding(Distribution):
             if self.phi_source == "pretrained":
                 raise FileNotFoundError(
                     f"no pretrained dictionary for ({self.npixels}, {self.nbasis}) "
-                    f"at {_phi_path(self.npixels, self.nbasis)}"
+                    f"at {_phi_path(self.npixels, self.nbasis)}; make one with "
+                    f"`python -m mjhmc_tpu_torch.models.dictionary_learning "
+                    f"--npixels {self.npixels} --nbasis {self.nbasis}`"
                 )
         return _gabor_dictionary(self.npixels, self.nbasis, self.dict_seed)
 

@@ -195,17 +195,22 @@ def ew_instance(variant: int, energy: int, ndims: int, mog_cap: int) -> Instance
 
 
 def mm_instance(variant: int, energy: int, ndims: int, krows: int, precision: int,
-                offchip: bool) -> Instance:
+                offchip: bool, chunk: int = 0, xg_off: bool = False) -> Instance:
     """The matmul instance of step body ``variant`` on energy ``energy``
     (the kernel's ids) at (``ndims``, ``krows``) and dot ``precision``, the
-    parameter matrix in a device buffer where ``offchip``."""
+    parameter matrix in a device buffer where ``offchip``; a chunked tile
+    (``chunk`` rows of the intermediate at a time) also names its chunk and
+    whether X and G live in the device buffer (``xg_off``)."""
+    chunked = (f"-DMJHMC_MM_OD_CHUNK={chunk}", f"-DMJHMC_MM_OD_XG={int(xg_off)}") if chunk else ()
     return Instance(
         MM_SOURCE,
         (f"-DMJHMC_MM_OD_VARIANT={variant}", f"-DMJHMC_MM_OD_ENERGY={energy}",
          f"-DMJHMC_MM_OD_DIMS={ndims}", f"-DMJHMC_MM_OD_KROWS={krows}",
-         f"-DMJHMC_MM_OD_PRECISION={precision}", f"-DMJHMC_MM_OD_OFFCHIP={int(offchip)}"),
+         f"-DMJHMC_MM_OD_PRECISION={precision}", f"-DMJHMC_MM_OD_OFFCHIP={int(offchip)}",
+         *chunked),
         f"libmjhmc_mm_{VARIANT_NAMES[variant]}_{MM_ENERGY_NAMES[energy]}_d{ndims}_k{krows}_"
-        f"{PRECISION_NAMES[precision]}{'_off' if offchip else ''}",
+        f"{PRECISION_NAMES[precision]}{'_off' if offchip else ''}"
+        f"{f'_kc{chunk}' if chunk else ''}{'_xg' if xg_off else ''}",
         MM_ENTRIES)
 
 

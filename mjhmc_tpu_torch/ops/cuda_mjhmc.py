@@ -117,10 +117,26 @@ _NUTS_LEAPFROG_ONLY = (
 # --------------------------------------------------------------------------
 # energy specs: an energy id for the kernel, scalar constants, per-dim params
 # --------------------------------------------------------------------------
+#: rows past which ``_sum_dims_in_order`` sums on the host after one copy
+#: rather than one torch op a row (a launch a row on the card: ~50 ms a call
+#: at 4,096 dims)
+SUM_IN_ORDER_ROWS = 32
+
+
 def _sum_dims_in_order(t: Tensor) -> Tensor:
     """Σ over dim −2 row after row, the elementwise kernels' order. Torch's
     reduction rounds in another order from three rows on, and a last-ulp
-    difference in an energy or a U-turn dot product changes a NUTS tree."""
+    difference in an energy or a U-turn dot product changes a NUTS tree.
+    Past ``SUM_IN_ORDER_ROWS`` rows the tensor is copied to the host once
+    and its rows added there one after another in float32 (not by
+    ``np.add.reduce``, which sums pairwise where the rows are the innermost
+    axis, as they are with one column)."""
+    if t.shape[-2] > SUM_IN_ORDER_ROWS:
+        a = t.detach().cpu().numpy()
+        out = a[..., 0, :].copy()
+        for i in range(1, a.shape[-2]):
+            out += a[..., i, :]
+        return torch.from_numpy(out).to(t.device)
     s = t[..., 0, :]
     for i in range(1, t.shape[-2]):
         s = s + t[..., i, :]
@@ -765,7 +781,7 @@ def mm_library(variant: str, spec, d: int, k: int, sweep_run: bool = False) -> M
     rule = nuts_mm_tile_rule(spec) if variant == "nuts" else mm_tile_rule(spec, variant)
     lib = _build.load_instance(_build.mm_instance(
         KERNEL_VARIANTS[variant], spec.energy_id, d, k, PRECISIONS.index(spec.precision),
-        rule.off))
+        rule.off, rule.chunk, rule.xg_off))
     return MmEntries(lib.mjhmc_mm_od_launch, lib.mjhmc_mm_od_tile, lib.mjhmc_mm_od_nuts_tile)
 
 
@@ -1254,10 +1270,8 @@ def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     for t in range(num_iters):
         if fixed_uniform:
             un = torch.full((2 * d, n), FIXED_UNIFORM, device=dev)
-        else:
-            words = [wd for b in range((2 * d + 3) // 4)
-                     for wd in draw(t, b, TAG_NUTS_MOMENTUM)]
-            un = _uniform_of(torch.stack(words[: 2 * d]))
+        else:  # words 0..2d-1 of tag 1, every block in one pass
+            un = philox_uniforms(seed, range(t, t + 1), n, 2 * d, dev, tag=TAG_NUTS_MOMENTUM)[0]
         v0 = _box_muller(un, d)
         if sm is not None:
             v0 = v0 * sm  # v ~ N(0, M)
@@ -1423,7 +1437,13 @@ def nuts_scratch_rows(max_depth: int) -> int:
 # them. The base tile is the energy's preset one; where the layout does not
 # fit a block's 227 KB, the chains a block halve (the threads with them) down
 # to one mma n-tile of 8 columns, and where even that does not fit the
-# parameter matrix moves to a device buffer ("off").
+# parameter matrix moves to a device buffer ("off"). Past that the
+# intermediate's K rows run in chunks (``chunk`` rows at a time, the
+# parameter matrix off chip, a chain's threads doubled up to 1,024 a block
+# until an owner holds at most 4 groups of four dims, NUTS 16 dims), and
+# where even 8 columns of X and G do not fit beside a chunk they and the
+# mass move to the block's slice of the device buffer (``xg_off``). The rule
+# refuses no shape: the device buffer is the limit.
 #: shared memory on the H100: what a block may opt into, an SM's, and what
 #: an SM reserves for each resident block
 SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
@@ -1431,19 +1451,27 @@ SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
 #: logreg MJHMC 4 chains, its 8 columns one mma n-tile)
 _BASE_TILES = {ProductOfTSpec: (8, 96, 4), SparseCodingSpec: (16, 256, 2),
                LogregSpec: (8, 128, 3)}
+#: a chunk's rows at most, an owner's groups of four dims (mm_kernel) and
+#: dims (NUTS) at most where a chunked tile's threads grow, a block's threads
+#: at most (kChunkMax, kOwnerGroups, kOwnerDims, kMaxThreads)
+CHUNK_MAX, OWNER_GROUPS, OWNER_DIMS, MAX_THREADS = 512, 4, 16, 1024
 
 
 class TileRule(NamedTuple):
     """A tile of the matmul kernels: chains and threads a block, the
     blocks an SM asked of ``__launch_bounds__``, the parameter matrix in a
     device buffer (``off``), NUTS's tree state in shared memory
-    (``onchip``)."""
+    (``onchip``), the rows of a chunk of the intermediate (``chunk``, 0:
+    all at once) and X, G and the mass in the block's slice of the device
+    buffer (``xg_off``)."""
 
     chains: int
     threads: int
     minb: int
     off: bool
     onchip: bool
+    chunk: int = 0
+    xg_off: bool = False
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -1472,11 +1500,25 @@ def _minb(spec, floats: int) -> int:
     return 1 if fit < 1 else min(_BASE_TILES[type(spec)][2], fit)
 
 
+def _chunked_minb(spec, floats: int, threads: int) -> int:
+    """A chunked tile's MINB (chunked_minb): at most 1,024 / T."""
+    return min(_minb(spec, floats), max(1, MAX_THREADS // threads))
+
+
+def _chunks(k: int, owners: int):
+    """A chunked tile's candidate chunks, largest first (chunk_quantum,
+    chunk_start): multiples of 16 and of a column's owners, at most
+    ``CHUNK_MAX`` and k rounded up."""
+    q = owners // math.gcd(owners, 16) * 16
+    return range(min(_round_up(k, q), max(CHUNK_MAX // q, 1) * q), q - 1, -q)
+
+
 class MmGeometry(NamedTuple):
     """mm_kernel's layout on a tile (mm_geom): columns, operand row stride,
     a chain's threads (rows' owners) and its dims' owners, groups of four
-    dims and rows an owner holds, the padded dims and rows, and the shared
-    memory in floats."""
+    dims and rows (of a chunk, where chunked) an owner holds, the padded
+    dims and rows (a chunk's), the shared memory in floats, and the block's
+    slice of the device buffer where X and G live there."""
 
     columns: int
     ld: int
@@ -1487,50 +1529,72 @@ class MmGeometry(NamedTuple):
     dp: int
     kp: int
     floats: int
+    slice: int = 0
 
 
 def mm_geometry(spec, variant: str, branches: bool, chains: int, threads: int,
-                off: bool) -> MmGeometry:
+                off: bool, chunk: int = 0, xg_off: bool = False) -> MmGeometry:
     d, k = mm_shape(spec)
     nc = 2 * chains if variant == "mjhmc" else chains
     ry = threads // chains
     groups = _cdiv(d, 4)
     ng = _cdiv(groups, ry)
     r = _cdiv(groups, ng)
-    nk = _cdiv(k, ry)
-    dp, kp, ld = 4 * r * ng, ry * nk, nc + 4
+    nk = chunk // ry if chunk else _cdiv(k, ry)
+    dp, kp, ld = 4 * r * ng, chunk or ry * nk, nc + 4
     f32 = spec.precision == "highest" and not off
     params = 0 if off else param_floats(spec)
-    # the f32 copies, X, G, Y and Z (none at sparse coding, whose Y is the
-    # residual operand), the mass, then the bf16 fragments, 16-byte aligned
-    mass = ((params if f32 else 0) + dp * ld + dp * nc
+    # the f32 copies, X, G (none where xg_off), Y and Z (none at sparse
+    # coding, whose Y is the residual operand), the mass, then the bf16
+    # fragments, 16-byte aligned
+    mass = ((params if f32 else 0) + (0 if xg_off else dp * ld + dp * nc)
             + (kp * ld if isinstance(spec, SparseCodingSpec) else kp * nc + kp * ld))
-    frag = _round_up(mass + (2 * dp if branches else 0), 4)
+    frag = _round_up(mass + (2 * dp if branches and not xg_off else 0), 4)
     red = frag + (0 if f32 else params)
     return MmGeometry(nc, ld, ry, r, ng, nk, dp, kp,
-                      red + (4 if variant == "mjhmc" else 3) * threads)
+                      red + (4 if variant == "mjhmc" else 3) * threads,
+                      dp * (ld + nc + 2) if xg_off else 0)
+
+
+def _grown(threads: int, owners_of, most: int) -> int:
+    """A chunked tile's threads: doubled while an owner holds more than
+    ``most`` (``owners_of(threads)``) and the block stays within 1,024."""
+    while 2 * threads <= MAX_THREADS and owners_of(threads) > most:
+        threads *= 2
+    return threads
 
 
 def mm_tile_rule(spec, variant: str) -> TileRule:
     """mm_kernel's tile of ``variant`` on the spec at its shape and
-    precision (mm_rule; the layout with the branches must fit). Raises
-    ``NotImplementedError`` where no tile fits, even off chip."""
+    precision (mm_rule; the layout with the branches must fit). Every shape
+    has one: past the whole tile on chip or with the parameter matrix off
+    chip, the chunked tiles."""
     ch0, t0, _ = _BASE_TILES[type(spec)]
     if isinstance(spec, LogregSpec) and variant == "mjhmc":
         ch0 = 4
+    cols = (lambda ch: 2 * ch) if variant == "mjhmc" else (lambda ch: ch)
     for off in (False, True):
         ch = ch0
-        while (2 * ch if variant == "mjhmc" else ch) >= 8:
+        while cols(ch) >= 8:
             t = _round_up(t0 // ch0 * ch, 32)
             floats = mm_geometry(spec, variant, True, ch, t, off).floats
             if 4 * floats <= SMEM_BLOCK:
                 return TileRule(ch, t, _minb(spec, floats), off, False)
             ch //= 2
-    raise NotImplementedError(
-        f"no tile of the matmul kernel fits {type(spec).__name__} at {mm_shape(spec)}: the "
-        f"{variant} tile of 8 columns takes {4 * floats} bytes of shared memory with the "
-        f"parameter matrix off chip, over the {SMEM_BLOCK} a block may hold (d + k past "
-        f"about 2,700; ROADMAP.md, queue 2 item 4: the d- and k-row intermediates off chip)")
+    d, k = mm_shape(spec)
+    ch8 = 4 if variant == "mjhmc" else 8
+    for xg_off in (False, True):
+        ch = ch8 if xg_off else ch0
+        while cols(ch) >= 8:
+            t = _grown(_round_up(t0 // ch0 * ch, 32),
+                       lambda t: _cdiv(_cdiv(d, 4), t // ch), OWNER_GROUPS)
+            for kc in _chunks(k, t // ch):
+                floats = mm_geometry(spec, variant, True, ch, t, True, kc, xg_off).floats
+                if 4 * floats <= SMEM_BLOCK:
+                    return TileRule(ch, t, _chunked_minb(spec, floats, t), True, False, kc,
+                                    xg_off)
+            ch //= 2
+    raise AssertionError(f"no tile of the matmul kernel at {mm_shape(spec)}")  # unreachable
 
 
 def mm_smem_bytes(spec, variant: str, branches: bool) -> int:
@@ -1538,21 +1602,36 @@ def mm_smem_bytes(spec, variant: str, branches: bool) -> int:
     the spec's shape and precision, with the branches (the mass) or without
     (mirror of MmLayout::kFloats on the tile rule's tile)."""
     rule = mm_tile_rule(spec, variant)
-    return 4 * mm_geometry(spec, variant, branches, rule.chains, rule.threads, rule.off).floats
+    return 4 * mm_geometry(spec, variant, branches, rule.chains, rule.threads, rule.off,
+                           rule.chunk, rule.xg_off).floats
 
 
-def mm_scratch(spec, variant: str, device) -> Tensor | None:
-    """mm_kernel's device buffer, the parameter matrix where the tile rule
-    puts it off chip (``param_floats``); None for the others."""
-    if not mm_tile_rule(spec, variant).off:
-        return None
-    return torch.empty((param_floats(spec),), dtype=torch.float32, device=device)
+def mm_scratch_floats(spec, variant: str, n: int) -> int:
+    """Floats of mm_kernel's device buffer for ``n`` chains: the parameter
+    matrix where the tile rule puts it off chip (``param_floats``), then,
+    where X and G live there, each block's slice (MmGeom::slice); 0 where
+    the tile needs none."""
+    rule = mm_tile_rule(spec, variant)
+    if not rule.off:
+        return 0
+    geom = mm_geometry(spec, variant, True, rule.chains, rule.threads, True, rule.chunk,
+                       rule.xg_off)
+    return param_floats(spec) + _cdiv(n, rule.chains) * geom.slice
+
+
+def mm_scratch(spec, variant: str, n: int, device) -> Tensor | None:
+    """mm_kernel's device buffer for ``n`` chains (``mm_scratch_floats``);
+    None where the tile needs none."""
+    floats = mm_scratch_floats(spec, variant, n)
+    return torch.empty((floats,), dtype=torch.float32, device=device) if floats else None
 
 
 class NutsGeometry(NamedTuple):
     """The matmul NUTS kernel's layout on a tile (nuts_geom): owners a
-    column, dims and rows an owner holds, the padded dims and rows, the
-    floats before the tree state, and whether the tree state is on chip."""
+    column, dims and rows (of a chunk, where chunked) an owner holds, the
+    padded dims and rows (a chunk's), the floats before the tree state,
+    whether the tree state is on chip, and the block's slice of the device
+    buffer where X and G live there."""
 
     owners: int
     dims: int
@@ -1563,70 +1642,98 @@ class NutsGeometry(NamedTuple):
     chains: int
     threads: int
     onchip: bool
+    slice: int = 0
 
     def floats(self, max_depth: int) -> int:
         tree = nuts_scratch_rows(max_depth) * self.dp * self.chains if self.onchip else 0
         return self.tree + tree + (5 + 2 * (max_depth - 1)) * self.threads
 
 
-def nuts_mm_geometry(spec, chains: int, threads: int, off: bool, onchip: bool) -> NutsGeometry:
+def nuts_mm_geometry(spec, chains: int, threads: int, off: bool, onchip: bool,
+                     chunk: int = 0, xg_off: bool = False) -> NutsGeometry:
     d, k = mm_shape(spec)
     r = threads // chains
-    ne, nk = _cdiv(d, r), _cdiv(k, r)
-    dp, kp = r * ne, r * nk
+    ne = _cdiv(d, r)
+    nk = chunk // r if chunk else _cdiv(k, r)
+    dp, kp = r * ne, chunk or r * nk
     f32 = spec.precision == "highest" and not off
     params = 0 if off else param_floats(spec)
-    # the f32 copies, the patch, X and G, Y and Z (none at sparse coding),
-    # the mass, then the bf16 fragments, 16-byte aligned
-    mass = ((params if f32 else 0) + _round_up(k, 4) + 2 * dp * chains
+    # the f32 copies, the patch (none where chunked), X and G (none where
+    # xg_off), Y and Z (none at sparse coding), the mass (none where
+    # xg_off), then the bf16 fragments, 16-byte aligned
+    mass = ((params if f32 else 0) + (0 if chunk else _round_up(k, 4))
+            + (0 if xg_off else 2 * dp * chains)
             + kp * chains * (1 if isinstance(spec, SparseCodingSpec) else 2))
-    tree = _round_up(mass + 2 * dp, 4) + (0 if f32 else params)
-    return NutsGeometry(r, ne, nk, dp, kp, tree, chains, threads, onchip)
+    tree = _round_up(mass + (0 if xg_off else 2 * dp), 4) + (0 if f32 else params)
+    return NutsGeometry(r, ne, nk, dp, kp, tree, chains, threads, onchip,
+                        _round_up(dp * (2 * chains + 2), 4) if xg_off else 0)
 
 
 def nuts_mm_tile_rule(spec) -> TileRule:
     """The matmul NUTS kernel's tile on the spec at its shape and precision
     (nuts_rule; the layout at max_depth 12 must fit, the tree state on chip
-    where it fits there too). Raises ``NotImplementedError`` where no tile
-    fits, even off chip."""
+    where it fits there too). Every shape has one, as ``mm_tile_rule``'s."""
     nc0, t0, _ = _BASE_TILES[type(spec)]
+    top = NUTS_MM_MAX_DEPTH
     for off in (False, True):
         nc = nc0
         while nc >= 8:
             t = _round_up(t0 // nc0 * nc, 32)
-            floats = nuts_mm_geometry(spec, nc, t, off, False).floats(NUTS_MM_MAX_DEPTH)
+            floats = nuts_mm_geometry(spec, nc, t, off, False).floats(top)
             if 4 * floats <= SMEM_BLOCK:
-                onchip = 4 * nuts_mm_geometry(spec, nc, t, off, True).floats(
-                    NUTS_MM_MAX_DEPTH) <= SMEM_BLOCK
+                onchip = 4 * nuts_mm_geometry(spec, nc, t, off, True).floats(top) <= SMEM_BLOCK
                 minb = _minb(spec, nuts_mm_geometry(spec, nc, t, off, onchip).floats(1))
                 return TileRule(nc, t, minb, off, onchip)
             nc //= 2
-    raise NotImplementedError(
-        f"no tile of the matmul NUTS kernel fits {type(spec).__name__} at {mm_shape(spec)}: "
-        f"8 chains take {4 * floats} bytes of shared memory at max_depth {NUTS_MM_MAX_DEPTH} "
-        f"with the parameter matrix off chip, over the {SMEM_BLOCK} a block may hold (d + k "
-        f"past about 3,100; ROADMAP.md, queue 2 item 4: the d- and k-row intermediates off "
-        f"chip)")
+    d, k = mm_shape(spec)
+    for xg_off in (False, True):
+        nc = 8 if xg_off else nc0
+        while nc >= 8:
+            t = _grown(_round_up(t0 // nc0 * nc, 32), lambda t: _cdiv(d, t // nc), OWNER_DIMS)
+            for kc in _chunks(k, t // nc):
+                geom = lambda onchip: nuts_mm_geometry(spec, nc, t, True, onchip, kc, xg_off)
+                if 4 * geom(False).floats(top) > SMEM_BLOCK:
+                    continue
+                onchip = 4 * geom(True).floats(top) <= SMEM_BLOCK
+                return TileRule(nc, t, _chunked_minb(spec, geom(onchip).floats(1), t), True,
+                                onchip, kc, xg_off)
+            nc //= 2
+    raise AssertionError(f"no tile of the matmul NUTS kernel at {mm_shape(spec)}")  # unreachable
 
 
 def nuts_mm_geometry_of(spec) -> NutsGeometry:
     """The NUTS layout on the tile rule's tile."""
     rule = nuts_mm_tile_rule(spec)
-    return nuts_mm_geometry(spec, rule.chains, rule.threads, rule.off, rule.onchip)
+    return nuts_mm_geometry(spec, rule.chains, rule.threads, rule.off, rule.onchip, rule.chunk,
+                            rule.xg_off)
+
+
+def nuts_scratch_floats(spec, max_depth: int, n: int) -> int:
+    """Floats of the matmul NUTS kernel's device buffer for ``n`` chains:
+    the parameter matrix where it is off chip (``param_floats``), the tree
+    state (rows, DP, n) where it is not in shared memory, then, where X and
+    G live there, each block's slice (16-byte aligned); 0 where none."""
+    rule = nuts_mm_tile_rule(spec)
+    geom = nuts_mm_geometry_of(spec)
+    floats = ((param_floats(spec) if rule.off else 0)
+              + (0 if rule.onchip else nuts_scratch_rows(max_depth) * geom.dp * n))
+    if rule.xg_off:
+        floats = _round_up(floats, 4) + _cdiv(n, rule.chains) * geom.slice
+    return floats
 
 
 def nuts_scratch(spec, max_depth: int, n: int, device) -> Tensor | None:
-    """The matmul NUTS kernel's device buffer: the tree state, (rows, DP,
-    n) in the padded dims, where it does not live in shared memory; where
-    the parameter matrix is off chip, a flat buffer of the parameter matrix
-    (``param_floats``) and then that tree state. None where neither."""
+    """The matmul NUTS kernel's device buffer (``nuts_scratch_floats``):
+    the tree state (rows, DP, n) where it alone is there, else flat; None
+    where the tile needs none."""
     rule = nuts_mm_tile_rule(spec)
-    geom = nuts_mm_geometry_of(spec)
-    tree = () if rule.onchip else (nuts_scratch_rows(max_depth), geom.dp, n)
     if not rule.off:
-        return None if rule.onchip else torch.empty(tree, dtype=torch.float32, device=device)
-    return torch.empty((param_floats(spec) + math.prod(tree) * (not rule.onchip),),
-                       dtype=torch.float32, device=device)
+        if rule.onchip:
+            return None
+        tree = (nuts_scratch_rows(max_depth), nuts_mm_geometry_of(spec).dp, n)
+        return torch.empty(tree, dtype=torch.float32, device=device)
+    return torch.empty((nuts_scratch_floats(spec, max_depth, n),), dtype=torch.float32,
+                       device=device)
 
 
 def nuts_mm_smem_bytes(spec, max_depth: int) -> int:
@@ -1731,7 +1838,11 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             extra = (prof.data_ptr(),)
         else:
             scratch = (nuts_scratch(spec, m, n, x.device) if variant == "nuts"
-                       else mm_scratch(spec, variant, x.device))
+                       else mm_scratch(spec, variant, n, x.device))
+            # control's and MALT's instances have the branches always
+            _check_buffer(entries, spec, variant,
+                          variant != "mjhmc" or mass is not None or integrator == "two_stage",
+                          m, n, scratch)
             fn, extra = entries.launch, ()
         rc = fn(
             spec.energy_id, d, spec.aux_rows(), int(getattr(spec, "stub_dots", False)),
@@ -1917,6 +2028,18 @@ NUTS_PROF_PHASES = ("kick_drift", "contraction_1", "contraction_2", "energy_half
                     "barrier_waits", "other", "leaf_steps")
 
 
+def _nuts_tile_report(entries: MmEntries, spec, max_depth: int) -> tuple:
+    """All seven numbers the NUTS tile entry writes (``nuts_mm_tile``'s
+    four, then its device buffer's: floats of a block's slice, the
+    parameter matrix's, the tree state's a chain)."""
+    out = (ctypes.c_int * 7)()
+    rc = entries.nuts_tile(spec.energy_id, PRECISIONS.index(spec.precision), max_depth, out)
+    if rc != 0:
+        raise RuntimeError(f"mjhmc_mm_nuts_tile: no NUTS instance of {type(spec).__name__} "
+                           f"at {spec.precision} (CUDA error {rc})")
+    return tuple(out)
+
+
 def nuts_mm_tile(spec, max_depth: int) -> tuple:
     """(chains, threads, shared-memory bytes) of a block of the matmul NUTS
     instances of ``spec`` at its shape, precision and ``max_depth``, and the
@@ -1924,13 +2047,7 @@ def nuts_mm_tile(spec, max_depth: int) -> tuple:
     reports them (``mjhmc_mm_nuts_tile``, or an on-demand instance's
     ``mjhmc_mm_od_nuts_tile``; ``nuts_mm_tile_rule`` and
     ``nuts_mm_smem_bytes`` mirror the first three)."""
-    out = (ctypes.c_int * 4)()
-    rc = mm_library("nuts", spec, *mm_shape(spec)).nuts_tile(
-        spec.energy_id, PRECISIONS.index(spec.precision), max_depth, out)
-    if rc != 0:
-        raise RuntimeError(f"mjhmc_mm_nuts_tile: no NUTS instance of {type(spec).__name__} "
-                           f"at {spec.precision} (CUDA error {rc})")
-    return tuple(out)
+    return _nuts_tile_report(mm_library("nuts", spec, *mm_shape(spec)), spec, max_depth)[:4]
 
 
 def nuts_mm_profile(spec, x, v, g, u, seed, epsilon, num_iters, max_depth) -> Tensor:
@@ -1962,16 +2079,57 @@ def mm_tile(spec, variant: str, branches: bool = False) -> tuple:
     blocks of it an SM holds at once, as the instance that runs it reports
     them (``mjhmc_mm_tile``, or an on-demand instance's ``mjhmc_mm_od_tile``;
     ``mm_tile_rule`` and ``mm_smem_bytes`` mirror the first three)."""
-    out = (ctypes.c_int * 4)()
     sweep_run = variant == "mjhmc" and not branches
-    rc = mm_library(variant, spec, *mm_shape(spec), sweep_run).tile(
-        spec.energy_id, PRECISIONS.index(spec.precision), KERNEL_VARIANTS[variant],
-        int(branches), out)
+    return _tile_report(mm_library(variant, spec, *mm_shape(spec), sweep_run), spec, variant,
+                        branches)[:4]
+
+
+def _tile_report(entries: MmEntries, spec, variant: str, branches: bool) -> tuple:
+    """All seven numbers mm_kernel's tile entry writes (``mm_tile``'s four,
+    then its device buffer's: floats of a block's slice, the parameter
+    matrix's, 0)."""
+    out = (ctypes.c_int * 7)()
+    rc = entries.tile(spec.energy_id, PRECISIONS.index(spec.precision), KERNEL_VARIANTS[variant],
+                      int(branches), out)
     if rc != 0:
         raise RuntimeError(f"mjhmc_mm_tile: no {variant} instance of {type(spec).__name__} at "
                            f"{spec.precision}{' with the branches' if branches else ''} "
                            f"(CUDA error {rc})")
     return tuple(out)
+
+
+#: {(the tile entry's address, energy, shape, precision, variant, branches,
+#: max_depth): the instance's tile report}, read once a key
+#: (``_check_buffer``)
+_TILE_REPORTS: dict = {}
+
+
+def _check_buffer(entries: MmEntries, spec, variant: str, branches: bool, max_depth: int,
+                  n: int, scratch: Tensor | None) -> None:
+    """Refuse a launch whose device buffer is not the one the instance
+    indexes for ``n`` chains, as its tile entry reports it: the parameter
+    matrix where off chip, NUTS's tree state where off chip (16-byte
+    aligned before the slices), then a slice a block where X and G live
+    there. The mirror sizes the buffer (``mm_scratch``, ``nuts_scratch``);
+    this holds it to the compiled layout, so that a drift between the two
+    raises instead of writing past the buffer."""
+    nuts = variant == "nuts"
+    entry = ctypes.cast(entries.nuts_tile if nuts else entries.tile, ctypes.c_void_p).value
+    key = (entry, spec.energy_id, mm_shape(spec), spec.precision, variant, branches,
+           max_depth if nuts else 0)
+    if key not in _TILE_REPORTS:
+        _TILE_REPORTS[key] = (_nuts_tile_report(entries, spec, max_depth) if nuts
+                              else _tile_report(entries, spec, variant, branches))
+    chains, slice_, params, tree = (_TILE_REPORTS[key][i] for i in (0, 4, 5, 6))
+    want = params + tree * n
+    if slice_:
+        want = (_round_up(want, 4) if nuts else want) + _cdiv(n, chains) * slice_
+    have = 0 if scratch is None else scratch.numel()
+    if have != want:
+        raise RuntimeError(
+            f"the {variant} instance of {type(spec).__name__} at {mm_shape(spec)} indexes a "
+            f"device buffer of {want} floats for {n} chains (tile report "
+            f"{_TILE_REPORTS[key]}); the mirror allocated {have}")
 
 
 def mm_profile(spec, variant, x, v, g, u, seed, epsilon, beta, num_iters, m) -> Tensor:

@@ -213,27 +213,46 @@ def test_scratch_holds_the_parameter_matrix_off_chip():
     spec = cm.energy_spec_for(_pair("sparse_coding 288x144")[1])
     params = cm.param_floats(spec)
     assert params == 2 * 2 * (144 * 288 // 2)  # bf16x3: hi and lo of both contractions
-    assert cm.mm_scratch(spec, "mjhmc", "meta").shape == (params,)
+    assert cm.mm_scratch(spec, "mjhmc", 100, "meta").shape == (params,)
     geom = cm.nuts_mm_geometry_of(spec)
     assert cm.nuts_scratch(spec, 8, 100, "meta").shape == (
         params + cm.nuts_scratch_rows(8) * geom.dp * 100,)
     small = cm.energy_spec_for(_pair("product_of_t 10x13")[1])
-    assert cm.mm_scratch(small, "control", "meta") is None
+    assert cm.mm_scratch(small, "control", 100, "meta") is None
     assert cm.nuts_scratch(small, 8, 100, "meta") is None
 
 
 def test_a_shape_no_tile_holds_is_refused():
-    """Where no tile fits even with the parameter matrix off chip, the
-    wrapper refuses before any build, naming the bytes and the open item."""
-    spec = cm.energy_spec_for(tmodels.LogisticRegression(ndims=4, nobs=20000))
-    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
-        cm.mm_tile_rule(spec, "control")
-    for rule in (lambda: cm.mm_tile_rule(spec, "mjhmc"), lambda: cm.nuts_mm_tile_rule(spec)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 2 item 4"):
-            rule()
+    """No shape is refused by the tile rule any more: where no tile holds
+    the 8-column layout even with the parameter matrix off chip (logreg 4 ×
+    20,000 and 124 × 32,561), the rule chunks the k rows, and where even X
+    and G pass a block beside a chunk (sparse coding 1,024 × 4,096), they
+    move to the device buffer; the wrappers' buffers are the geometry's,
+    so the allocation is the only limit. The launch then refuses only what
+    is not a cuda tensor."""
+    cases = ((tmodels.LogisticRegression(ndims=4, nobs=20000), False),
+             (tmodels.LogisticRegression(ndims=124, nobs=32561), False),
+             (tmodels.SparseCoding(npixels=1024, nbasis=4096, phi_source="gabor"), True))
+    for dist, xg in cases:
+        spec = cm.energy_spec_for(dist)
+        for rule in [cm.mm_tile_rule(spec, b) for b in ("mjhmc", "control", "malt")] + [
+                cm.nuts_mm_tile_rule(spec)]:
+            assert rule.off and rule.chunk > 0 and rule.xg_off == xg, rule
+        for body in ("mjhmc", "control", "malt"):
+            rule = cm.mm_tile_rule(spec, body)
+            g = cm.mm_geometry(spec, body, True, rule.chains, rule.threads, True, rule.chunk,
+                               rule.xg_off)
+            assert cm.mm_scratch(spec, body, 4096, "meta").numel() == (
+                cm.param_floats(spec) + (4096 // rule.chains) * g.slice)
+        geom = cm.nuts_mm_geometry_of(spec)
+        tree = 0 if cm.nuts_mm_tile_rule(spec).onchip else cm.nuts_scratch_rows(8) * geom.dp * 64
+        assert cm.nuts_scratch(spec, 8, 64, "meta").numel() == (
+            -(-(cm.param_floats(spec) + tree) // 4) * 4 + 8 * geom.slice if xg
+            else cm.param_floats(spec) + tree)
+    spec = cm.energy_spec_for(cases[0][0])
     x = torch.zeros((4, 8), device="meta")
     z = torch.zeros(8, device="meta")
-    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
+    with pytest.raises(ValueError, match="takes cuda tensors"):
         cm.cuda_mjhmc_mm_run(spec, x, x, x, z, z, z, 5, 0.1, 0.2, 2, 3, variant="control")
 
 

@@ -83,10 +83,12 @@ def test_hash_parameters_and_init_match_jax(name, kw, scale):
 
 
 def test_pretrained_phi_is_read_by_path():
-    """The config-5 dictionary comes from the JAX package's shipped file, read
-    with NumPy; without it the Gabor bank is the fallback, as in JAX."""
+    """The config-5 dictionary comes from the port's own copy of the shipped
+    file (``mjhmc_tpu_torch/data``), read with NumPy, and equals JAX's;
+    without it the Gabor bank is the fallback, as in JAX."""
     td = tmodels.SparseCoding()
     assert td.uses_pretrained_phi and tsc._phi_path(64, 128).exists()
+    assert tsc._phi_path(64, 128).parent.parent.name == "mjhmc_tpu_torch"
     np.testing.assert_array_equal(tsc.load_pretrained(64, 128),
                                   jmodels.SparseCoding()._phi)
     assert tsc.load_pretrained(16, 24) is None

@@ -126,17 +126,19 @@ def test_nuts_plain_philox_statistics():
 @pytest.mark.parametrize("ndims", [1, 2, 50])
 def test_nuts_sums_over_dims_in_kernel_order(ndims):
     """The plain versions of the elementwise energies and the NUTS tree
-    sum over dims row after row from 0, as the kernels do; with at most two
-    rows that is torch's sum."""
-    t = torch.as_tensor(np.random.default_rng(ndims).normal(size=(3, ndims, 257)),
-                        dtype=torch.float32)
-    want = np.zeros((3, 257), np.float32)
-    for row in t.numpy().transpose(1, 0, 2):
-        want = want + row
-    got = cm._sum_dims_in_order(t)
-    np.testing.assert_array_equal(got.numpy(), want)
-    if ndims <= 2:
-        assert torch.equal(got, t.sum(dim=-2))
+    sum over dims row after row from 0, as the kernels do, at any number of
+    columns (one chain included); with at most two rows that is torch's
+    sum."""
+    for cols in (1, 3, 257):
+        t = torch.as_tensor(np.random.default_rng(ndims).normal(size=(3, ndims, cols)),
+                            dtype=torch.float32)
+        want = np.zeros((3, cols), np.float32)
+        for row in t.numpy().transpose(1, 0, 2):
+            want = want + row
+        got = cm._sum_dims_in_order(t)
+        np.testing.assert_array_equal(got.numpy(), want)
+        if ndims <= 2:
+            assert torch.equal(got, t.sum(dim=-2))
     g = cm.GaussianSpec(tuple(np.linspace(0.5, 2.0, ndims)))
     p = torch.as_tensor(g.param_vector(ndims))[:, None]
     np.testing.assert_array_equal(g.u_sum(t, p).numpy(),
