@@ -36,11 +36,16 @@ kernels' per-iteration ones, from their PROF instances (clock64() stamps),
 and phase 2 holds the NUTS, elementwise NUTS and mm_kernel tiles the
 library reports (chains, threads and shared bytes a block) and the
 elementwise MJHMC, control and MALT groupings (lanes a chain, threads a
-block) to the wrappers' mirror. Phases 9-10 also run elementwise NUTS at
-its depth cap (12, and ``CudaNUTS`` at 11 and 12) bit for bit against its
+block) to the wrappers' mirror, the NUTS tiles at depths 1-31 (past 12 the
+matmul kernel's DEEP instances). Phases 9-10 also run elementwise NUTS at
+max_depth 14 (and ``CudaNUTS`` at 13 and 14) bit for bit against its
 plain version, check
-that a real share of its trees entered their last round, and see the
-matmul kernel refuse 11; phases 11 and 29
+that a real share of its trees entered their last round, and see both
+kernels refuse 32 (2^32 − 1 leaves would pass an int32); phase 21 holds
+the matmul kernel's trees at max_depth 14 (on its DEEP instances, the
+stack rows and span slots past 12 in the device buffer) and at 12 (on
+those every shallower tree runs) to its plain version and times one depth-12, -13 and -14 launch at product of t's 4,096 chains,
+phase 44 a9a's chunked tile at max_depth 13; phases 11 and 29
 print the share of the warps' leaf slots that ran a live leaf. Phase 15 also runs each matmul preset's MJHMC, control and MALT at
 a width that leaves mm_kernel's last tile partly empty (4,093, 8,185 and
 2,045 chains). Phase 38 drives slices B and E: ``bench_ess.main`` rows at
@@ -74,8 +79,9 @@ ms and the rows' host seconds are then not those of a card alone), then
 printed). Phase 41 drives slice H's third part: one boundary-audited
 ``bench_ess._tune`` round on the card and ``_candidates`` over its table,
 ``_arbitrate_nuts`` on product of t's engine NUTS row with one more
-``measure`` at max_depth 12 (the matmul NUTS kernel's deepest trees, which
-phase 21 holds to its plain version), ``bench_ess --table`` and
+``measure`` at max_depth 12 and one at 14 (the matmul NUTS kernel's
+deepest trees, on its DEEP instances, which phase 21 holds to its plain
+version), ``bench_ess --table`` and
 ``bench_two_stage`` on gauss2d, and holds ``bench_heads.sharded_path_receipt``
 as phase 39's ``bench_heads.main`` ran it (8 gloo ranks on the host's CPU:
 its wall is no card number). Phase 42 runs the elementwise engine at any D:
@@ -94,8 +100,10 @@ coding at 1,024 × 4,096 (k in chunks, X, G and the mass in the device
 buffer), every body run and stream against its plain version with phase
 43's allowances (NUTS at max_depth 4, logreg also 8), JAX's Laplace oracle
 and phase 43's moments check at those shapes, each
-instance's ms an iteration, and the dictionary learner on the card;
-phase 34's ``bench_scaling`` runs with ``--profile`` and prints the
+instance's ms an iteration (first, alone on the card), and the dictionary
+learner on the card, and a9a's tree at max_depth 13, whose plain runs (three
+processes on the card) run beside phase 44's checks, statistics and
+learner, so their host seconds are not those of a card alone; phase 34's ``bench_scaling`` runs with ``--profile`` and prints the
 ``collective_time_fraction`` line. Phase 2 also
 runs the plain NUTS of phases 22 and 42 on the CPU (``PLAIN_NUTS``) and
 waits for it and for the on-demand builds, so nothing of it overlaps a
@@ -147,9 +155,24 @@ TC_SRC = "bench_mfu.py:94"  # measure_mxu_ceiling's kernel
 NUTS_VARIANT = "nuts (_make_step_nuts, mjhmc_tpu/ops/pallas_mjhmc.py:1011)"
 STUB_VARIANT = "stub_dots (MatmulEnergySpec._dot, mjhmc_tpu/ops/pallas_mjhmc.py:282)"
 NUTS_EPS, NUTS_DEPTH = 0.3, 7  # the dossier's gauss2d NUTS row
-#: gauss2d NUTS at the elementwise kernel's cap (phases 9-10): ε small
-#: enough that trees reach rounds 11 and 12 (1,024 chains, 2 iterations)
-DEEP_EPS = 0.001
+#: gauss2d NUTS past the matmul kernel's tile depth on the elementwise
+#: kernel (phases 9-10; 1,024 chains, one iteration): at max_depth 14 and
+#: this ε every fixed-uniform tree runs the 16,383 leaves of the cap and in
+#: Philox mode ~0.57 of the trees begin round 14, ~0.37 turn in rounds
+#: 12-14 (the plain version on the CPU); CudaNUTS runs at 13 and 14
+EW_DEEP_DEPTH, EW_DEEP_EPS = 14, 5e-4
+#: phase 21's matmul trees past the tile depth (``MM_NUTS_DEEP``) and the
+#: depths of its timed product-of-t launch
+MM_DEEP_DEPTH = 14
+MM_DEEP_TIMED = (12, 13, 14)
+#: phase 44's chunked tile (a9a, one tile of chains, Philox, one iteration
+#: from the posterior's bulk) past the tile depth: every a9a tree turned
+#: after 127-511 leaves at ε 0.0015-0.004 (the plain version on the CPU, 8
+#: chains), so it turns after 0.44-0.51 time units and at this ε every tree
+#: runs the 8,191 leaves of round 13
+PAST_DEEP_DEPTH, PAST_DEEP_EPS = 13, 4e-5
+#: the depths at which phase 2 holds every NUTS tile to the mirror
+NUTS_TILE_DEPTHS = (1, 8, 10, 11, 12, 13, 14, 31)
 CLI_NUTS_DEPTH = 8  # max_depth of `sample --sampler nuts` (at the config's eps)
 #: the dossier's --steps here (its default is 20,000): the engine rows time
 #: 2,000 and 10,000 jump iterations
@@ -322,7 +345,8 @@ def mm_sass(_build, library=None):
     """{instance: (HMMA instructions in its SASS, a digest of its SASS)} of
     every matmul kernel of a built library (the current build's by
     default), the instance named from its mangled template arguments (a
-    shape other than its energy's preset's named too). The library's
+    shape other than its energy's preset's named too; NUTS's DEEP instances
+    "deep"). The library's
     cubins are extracted
     (``cuobjdump -xelf``) and those holding matmul kernels disassembled
     (``cuobjdump -sass``), one process each, all at once; a digest covers a
@@ -359,12 +383,13 @@ def mm_sass(_build, library=None):
                         if mm:  # E, VAR, EMIT, STUB, BR, P, PROF
                             body, emit, stub, br, prec, prof = (bodies[a[1]], a[2], a[3], a[4],
                                                                 a[5], a[6])
-                        else:  # E, EMIT, BR, P, PROF
+                        else:  # E, EMIT, BR, P, PROF, DEEP
                             body, emit, stub, br, prec, prof = "nuts", a[1], 0, a[2], a[3], a[4]
+                        deep = not mm and len(a) > 5 and a[5]
                         label = (f"{names[a[0]]}{shape} {body} "
                                  f"{'stream' if emit else 'run'}"
                                  f"{' stub' if stub else ''}{' branches' if br else ''}"
-                                 f"{' prof' if prof else ''} "
+                                 f"{' prof' if prof else ''}{' deep' if deep else ''} "
                                  f"{('highest', 'bf16x3', 'bf16x2', 'default')[prec]}")
                         out[label] = 0
                         digests[label] = hashlib.sha256()
@@ -580,7 +605,10 @@ def nuts_checks(cm):
     """The NUTS run and stream kernels vs their plain version, in
     fixed-uniform mode and in Philox mode, at the main path's shapes (the
     dossier's gauss2d row and the CLI's, both at 10,240 chains), on the
-    rough well and on the D=50 instances; returns (max|dx| run, stream)."""
+    rough well and on the D=50 instances, and gauss2d past the matmul
+    kernel's tile depth (fixed-uniform at EW_DEEP_DEPTH; CudaNUTS.run at one
+    less and CudaNUTS.sample at it, Philox, bit for bit); returns (max|dx|
+    run, stream, the CudaNUTS calls' numbers)."""
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
     from mjhmc_tpu_torch.models import Gaussian, ProductOfT, RoughWell
 
@@ -588,9 +616,11 @@ def nuts_checks(cm):
     cases = (  # name, distribution, eps, max_depth, chains, fixed-uniform and Philox iterations
         ("gauss2d", g2, NUTS_EPS, NUTS_DEPTH, 10_240, 5, 5),
         ("gauss2d", g2, BENCHMARK_CONFIGS["gauss2d"].epsilon, CLI_NUTS_DEPTH, 10_240, 5, 5),
-        # the elementwise kernel's cap, deeper than the matmul kernel's (one
-        # iteration each: the plain version pays a host sync a leaf)
-        ("gauss2d", g2, DEEP_EPS, cm.NUTS_MAX_DEPTH, 1024, 1, 1),
+        # past the matmul kernel's tile depth, its stack rows 12-13 (one
+        # fixed-uniform iteration: the plain version pays a host sync a
+        # leaf); it runs every stack row of a depth-12 tree. Its Philox
+        # mode is CudaNUTS.sample's at this depth below (no iteration here)
+        ("gauss2d", g2, EW_DEEP_EPS, EW_DEEP_DEPTH, 1024, 1, 0),
         ("rough_well", RoughWell(), 1.0, NUTS_DEPTH, 4096, 1, 5),
         # the D=50 instance as `sample --config gauss50d --sampler nuts` runs it
         ("gauss50d", Gaussian(ndims=50, log_conditioning=4.0),
@@ -598,6 +628,7 @@ def nuts_checks(cm):
     )
     run_err = stream_err = 0.0
     for cname, dist, eps, depth, n, iters, piters in cases:
+        t_case = time.perf_counter()
         spec = cm.energy_spec_for(dist)
         what = f"NUTS {cname} ({n} chains, eps {eps}, max_depth {depth})"
         nuts = dict(variant="nuts")
@@ -622,12 +653,19 @@ def nuts_checks(cm):
                                                   f"{what} stream xs"))
         leaves = float(r.evals.double().mean()) / iters
         deep = ""
-        if depth == cm.NUTS_MAX_DEPTH:
+        if depth == EW_DEEP_DEPTH:
             last = check_last_round(what, rounds_begun(es_r), depth)
-            deep = f"; {last:.4f} of trees began round {depth}"
+            identical = all(torch.equal(getattr(k, f), getattr(r, f))
+                            for f in ("x", "v", "grad", "u", "evals")) and torch.equal(xs_k, xs_r)
+            check(identical, f"{what}: not bit-identical to the plain version")
+            deep = (f"; bit-identical; {last:.4f} of trees began round {depth} "
+                    f"({time.perf_counter() - t_case:.3g} s)")
         phase("9 nuts fixed-uniform", f"{what}, {iters} iterations, {leaves:.4g} "
               f"leaves/iteration: leaf counts and stream es exact; w == steps, ws == 1; "
               f"x,v,g,u and stream xs rtol 1e-4 on every chain{deep}")
+        if not piters:
+            continue
+        t_case = time.perf_counter()
 
         # Philox mode: rounds go both ways; every iteration's tree compared
         seed = 12345
@@ -655,48 +693,82 @@ def nuts_checks(cm):
         share = float(both.double().mean())
         check(share > 0.01, f"{what}: only {share:.4f} of chains built rounds both ways "
               "and agree with the plain version")
-        deep = ""
-        if depth == cm.NUTS_MAX_DEPTH:
-            last = check_last_round(what, started, depth)
-            deep = f"; {last:.4f} of trees began round {depth}"
         phase("10 nuts philox", f"{what}, {piters} iterations: leaf counts and stream es equal "
               f"on {same:.5f} of chains; x,v,g,u and every emitted x within rtol 1e-4 on "
               f"{share_agree:.5f} (bit-identical on {float(identical.double().mean()):.5f}); "
               f"{share:.4f} of chains built rounds in both directions and agree; "
-              f"{int(started.max())} rounds at most{deep}")
+              f"{int(started.max())} rounds at most")
 
-    # CudaNUTS at the deepest trees, from its own state and seed, against the
-    # plain version; past the cap the matmul kernel refuses them too
-    for depth in (cm.NUTS_MAX_DEPTH - 1, cm.NUTS_MAX_DEPTH):
-        eng = cm.CudaNUTS(g2, epsilon=DEEP_EPS, num_leapfrog_steps=depth, nbatch=1024, seed=6)
+    # CudaNUTS past the matmul kernel's tile depth, from its own state and
+    # seed, against the plain version: run at 13, sample (the stream) at 14;
+    # the main path, its counts from 0 just before the engine's call, read
+    # just after; the engine's launch and the plain call timed by CUDA events
+    deep = {}
+    for depth, stream in ((EW_DEEP_DEPTH - 1, False), (EW_DEEP_DEPTH, True)):
+        t_case = time.perf_counter()
+        eng = cm.CudaNUTS(g2, epsilon=EW_DEEP_EPS, num_leapfrog_steps=depth, nbatch=1024, seed=6)
         st = tuple(t.clone() for t in (eng.x, eng.v, eng.g, eng.u, eng.h_back, eng.back_valid))
         gen = torch.Generator()
         gen.set_state(eng._seed_gen.get_state())
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
-        out = eng.run(1)
-        ref = cm.run_reference(eng.spec, *st, seed, DEEP_EPS, 0.0, 1, depth, variant="nuts")
-        check(all(torch.equal(a, b) for a, b in zip(out, ref)),
-              f"CudaNUTS gauss2d max_depth {depth}: not bit-identical to the plain version")
+        got, ref = {}, {}
+        cm.reset_counts()
+        if stream:
+            ms = events_ms(lambda: got.update(s=eng.sample(1, return_evals=True)))
+            plain_ms = events_ms(lambda: ref.update(s=cm.stream_reference(
+                eng.spec, *st, seed, EW_DEEP_EPS, 0.0, 1, 1, depth, variant="nuts")))
+            xs, _, es = got["s"]
+            out, r = eng.last_out, ref["s"][3]
+            same = (torch.equal(xs, ref["s"][0]) and torch.equal(es, ref["s"][2])
+                    and all(torch.equal(a, b) for a, b in zip(out, r)))
+            pairs = [(xs, ref["s"][0])]
+        else:
+            ms = events_ms(lambda: got.update(s=eng.run(1)))
+            plain_ms = events_ms(lambda: ref.update(s=cm.run_reference(
+                eng.spec, *st, seed, EW_DEEP_EPS, 0.0, 1, depth, variant="nuts")))
+            out, r = got["s"], ref["s"]
+            same = all(torch.equal(a, b) for a, b in zip(out, r))
+            pairs = []
+        # the largest |kernel − plain| over x, v, g, u (and the stream's xs)
+        err = max(float((a - b).abs().max())
+                  for a, b in pairs + [(getattr(out, f), getattr(r, f))
+                                       for f in ("x", "v", "grad", "u")])
+        wrapper = cm.cuda_mjhmc_stream_run if stream else cm.cuda_mjhmc_run
+        launched = wrapper.deep_nuts_launches
+        check(launched == 1, f"CudaNUTS gauss2d max_depth {depth}: {launched} launches past "
+              "max_depth 10")
+        check(same, f"CudaNUTS gauss2d max_depth {depth}: not bit-identical to the plain version")
         # a tree of 2^(depth-1) leaves or more began its last round
         entered = float((out.evals >= 2**(depth - 1)).double().mean())
         check(entered >= 0.1, f"CudaNUTS gauss2d max_depth {depth}: only {entered:.4f} of "
               f"chains began round {depth} (< 0.1): the deepest stack rows went untested")
-        phase("10 nuts philox", f"CudaNUTS gauss2d (1024 chains, eps {DEEP_EPS}, max_depth "
-              f"{depth}, 1 iteration): bit-identical to the plain version; "
-              f"{float(out.evals.double().mean()):.5g} leaves/iteration; {entered:.4f} of "
-              f"chains began round {depth}")
+        deep["stream" if stream else "run"] = dict(launches=launched, err=err, ms=ms,
+                                                   plain_ms=plain_ms,
+                                                   depth=depth, leaves=int(out.evals.sum()))
+        phase("10 nuts philox", f"CudaNUTS gauss2d (1024 chains, eps {EW_DEEP_EPS}, max_depth "
+              f"{depth}, 1 iteration, {'sample' if stream else 'run'}): bit-identical to the "
+              f"plain version; {float(out.evals.double().mean()):.5g} leaves/iteration; "
+              f"{entered:.4f} of chains began round {depth}; kernel {ms:.6g} ms, plain version "
+              f"{plain_ms:.6g} ms ({time.perf_counter() - t_case:.3g} s)")
+    # past the last depth whose leaf counts fit an int32 both kernels refuse
     pot = cm.energy_spec_for(ProductOfT())
     pst = initial_state(ProductOfT(), 8, seed=1)
-    try:
-        cm.cuda_mjhmc_mm_run(pot, *pst, 5, 0.12, 0.0, 2, cm.NUTS_MM_MAX_DEPTH + 1, variant="nuts")
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    check(f"max_depth 1..{cm.NUTS_MM_MAX_DEPTH}" in refused,
-          f"the matmul NUTS kernel must refuse max_depth {cm.NUTS_MM_MAX_DEPTH + 1}: {refused!r}")
-    phase("10 nuts philox", f"matmul NUTS at max_depth {cm.NUTS_MM_MAX_DEPTH + 1}: refused "
-          f"({refused})")
-    return run_err, stream_err
+    g2st = initial_state(g2, 8, seed=1)
+    for name, call, cap in (
+            ("matmul", lambda m: cm.cuda_mjhmc_mm_run(pot, *pst, 5, 0.12, 0.0, 2, m,
+                                                      variant="nuts"), cm.NUTS_MM_MAX_DEPTH),
+            ("elementwise", lambda m: cm.cuda_mjhmc_stream_run(
+                cm.energy_spec_for(g2), *g2st, 5, 0.1, 0.0, 2, 1, m, variant="nuts"),
+             cm.NUTS_MAX_DEPTH)):
+        try:
+            call(cap + 1)
+            refused = ""
+        except NotImplementedError as e:
+            refused = str(e)
+        check(cap == 31 and f"max_depth 1..{cap}" in refused and "int32" in refused,
+              f"the {name} NUTS kernel must refuse max_depth {cap + 1}: {refused!r}")
+        phase("10 nuts philox", f"{name} NUTS at max_depth {cap + 1}: refused ({refused})")
+    return run_err, stream_err, deep
 
 
 def nuts_timing_and_stats(cm, card):
@@ -1390,18 +1462,33 @@ def mm_nuts_checks(cm):
     return errs
 
 
-#: phase 21's trees past round 10 (max_depth 12, the depth JAX's NUTS
-#: arbitration extends to): (config, precision, (fixed-uniform, Philox)
-#: chains, (fixed-uniform, Philox) ε), one iteration each. Fixed-uniform
-#: momenta (5.9 in every dim) carry product of t's trees to the 4,095-leaf
-#: cap and sparse coding's past round 11; Philox momenta turn sooner, so
-#: sparse coding's ε is smaller there, over two of its tiles
-MM_NUTS_DEEP = (("product_of_t", "highest", (16, 16), (0.001, 0.002)),
-                ("product_of_t", "default", (16, 16), (0.001, 0.002)),
-                ("sparse_coding", "bf16x3", (16, 32), (0.002, 0.00005)))
+#: phase 21's trees past the tile depth (max_depth 14, MM_DEEP_DEPTH: the
+#: DEEP instances, their stack rows and span slots past 12 in the device
+#: buffer) and at 12 (the instances every tree to 12 without a mass runs: product of t at `highest` and sparse coding's
+#: scratch tile at `bf16x3` fixed-uniform at the ε of the parent's depth-12
+#: cases, and product of t `default`'s timed launch): (config, precision,
+#: fixed-uniform, chains, ε, max_depth), one iteration each. The depth-14
+#: trees span the time the depth-12 cases' did (ε a quarter of theirs): at
+#: product of t's ε 0.001 the fixed-uniform trees' 16,383 leaves carry the
+#: chains so far into the tails that one-ulp nudges of x alone move 13 of
+#: the 16 past rtol 1e-4 at `default` on the H100 (PERF.md §6), and a case
+#: like that cannot tell a wrong kernel. Fixed-uniform momenta (5.9 in every
+#: dim) carry every product-of-t tree to the 16,383-leaf cap and every
+#: sparse-coding tree into round 14 (a quarter to the cap); Philox momenta
+#: turn sooner (the plain version on the CPU: product of t 11 of 16 trees
+#: at the cap, 4 turned in round 12; sparse coding, over two of its tiles
+#: at a smaller ε, 9 of 32 at the cap, none short of round 13)
+MM_NUTS_DEEP = (("product_of_t", "highest", False, 16, 0.0005, MM_DEEP_DEPTH),
+                ("product_of_t", "default", True, 16, 0.00025, MM_DEEP_DEPTH),
+                ("product_of_t", "default", False, 16, 0.0005, MM_DEEP_DEPTH),
+                ("sparse_coding", "bf16x3", True, 16, 0.0005, MM_DEEP_DEPTH),
+                ("sparse_coding", "bf16x3", False, 32, 0.000005, MM_DEEP_DEPTH),
+                ("product_of_t", "highest", True, 16, 0.001, 12),
+                ("sparse_coding", "bf16x3", True, 16, 0.002, 12),
+                ("product_of_t", "default", False, 16, 0.002, 12))
 
 
-def deep_plain(cname, prec, arrays, seed, eps, fixed, nudge=0.0):
+def deep_plain(cname, prec, arrays, seed, eps, fixed, depth, nudge=0.0):
     """One plain run of a ``MM_NUTS_DEEP`` case on the CPU, a worker
     process's job: ``arrays`` the (x, v, g, u, h_back, valid) NumPy start,
     x moved one ulp toward ``nudge`` (±inf) where it is not 0. Returns
@@ -1415,44 +1502,45 @@ def deep_plain(cname, prec, arrays, seed, eps, fixed, nudge=0.0):
     if nudge:
         st[0] = torch.nextafter(st[0], torch.full_like(st[0], nudge))
     t0 = time.perf_counter()
-    xs, _, es, r = cm.stream_reference(spec, *st, seed, eps, 0.0, 1, 1, cm.NUTS_MM_MAX_DEPTH,
-                                       fixed, variant="nuts")
+    xs, _, es, r = cm.stream_reference(spec, *st, seed, eps, 0.0, 1, 1, depth, fixed,
+                                       variant="nuts")
     ms = (time.perf_counter() - t0) * 1e3
     return xs.numpy(), es.numpy(), tuple(t.numpy() for t in r), ms
 
 
 def mm_nuts_deep_checks(cm, meanwhile):
-    """Phase 21 at max_depth 12: ``nuts_mm_kernel``, run and stream, against
-    its plain version on ``MM_NUTS_DEEP``'s cases (tree rows on chip for
-    product of t, in the device scratch for sparse coding), both random
-    modes, with ``mm_nuts_checks``'s allowances; fails unless some tree
-    began round 11 and some ran the 2¹² − 1 leaves of the cap. The plain
-    version runs on the CPU, each case in a worker process of its own (its
-    cost is per leaf, the chains are few), started before ``meanwhile()``
-    (the rest of phase 21's checks, on the card meanwhile), and its
-    one-ulp-nudged runs only where the counts or states fall outside the
-    0.1% allowance without them. Returns ({label: max |dx|}, {label: (run
-    ms, stream ms, plain ms, leaves)}, what ``meanwhile`` returned), the
-    product-of-t Philox cases' times by CUDA events (one launch each) and
-    the host clock (the plain stream)."""
+    """Phase 21 past the tile depth: ``nuts_mm_kernel``, run and stream,
+    against its plain version on ``MM_NUTS_DEEP``'s cases (tree rows on chip
+    for product of t, the rows past 12 in the device scratch; all of them
+    there for sparse coding), both random modes, with ``mm_nuts_checks``'s
+    allowances; fails unless some tree began the last round and some ran
+    the 2^max_depth − 1 leaves of the cap. The plain
+    version runs on the CPU in worker processes (its cost is per leaf, the
+    chains are few), a run a job: every case's run and its two one-ulp-nudged
+    runs are submitted before ``meanwhile()`` (the rest of phase 21's checks,
+    on the card meanwhile); a case's nudged runs are read only where its
+    counts or states fall outside the 0.1% allowance without them, and those
+    not yet started are cancelled where they are not. Returns ({label: max |dx|}, {max_depth:
+    (run ms, stream ms, plain ms, leaves, chains, ε)}, what ``meanwhile``
+    returned), the product-of-t `default` Philox cases' times by CUDA
+    events (one launch each) and the host clock (the plain stream)."""
     import multiprocessing
 
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 
-    depth = cm.NUTS_MM_MAX_DEPTH
+    t0 = time.perf_counter()
     cases = []
-    for cname, prec, chains, eps_modes in MM_NUTS_DEEP:
+    for cname, prec, fixed, n, eps, depth in MM_NUTS_DEEP:
         dist = BENCHMARK_CONFIGS[cname].make_distribution()
         spec = at(cm.energy_spec_for(dist), prec)
-        for fixed, seed, n, eps in ((True, 7, chains[0], eps_modes[0]),
-                                    (False, 12345, chains[1], eps_modes[1])):
-            st = initial_state(dist, n, seed=1 if fixed else 2)
-            args = (spec, *st, seed, eps, 0.0)
-            k = cm.cuda_mjhmc_mm_run(*args, 1, depth, fixed_uniform=fixed, variant="nuts")
-            stream = cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, depth, fixed_uniform=fixed,
-                                                 variant="nuts")
-            job = (cname, prec, tuple(t.cpu().numpy() for t in st), seed, eps, fixed)
-            cases.append((cname, prec, n, fixed, eps, args, k, stream, job))
+        seed = 7 if fixed else 12345
+        st = initial_state(dist, n, seed=1 if fixed else 2)
+        args = (spec, *st, seed, eps, 0.0)
+        k = cm.cuda_mjhmc_mm_run(*args, 1, depth, fixed_uniform=fixed, variant="nuts")
+        stream = cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, depth, fixed_uniform=fixed,
+                                             variant="nuts")
+        job = (cname, prec, tuple(t.cpu().numpy() for t in st), seed, eps, fixed, depth)
+        cases.append((cname, prec, n, fixed, eps, depth, args, k, stream, job))
 
     def plain(out):
         xs, es, r, ms = out
@@ -1461,23 +1549,27 @@ def mm_nuts_deep_checks(cm, meanwhile):
 
     errs, times = {}, {}
     with concurrent.futures.ProcessPoolExecutor(
-            min(len(cases), os.cpu_count() or 1),
+            max(1, (os.cpu_count() or 2) - 1),
             mp_context=multiprocessing.get_context("spawn")) as pool:
         base = [pool.submit(deep_plain, *c[-1]) for c in cases]
+        every = [[pool.submit(deep_plain, *c[-1], to) for to in (math.inf, -math.inf)]
+                 for c in cases]
         other = meanwhile()
         refs = [plain(f.result()) for f in base]
         outside = []
         for c, (xs_r, es_r, r, _) in zip(cases, refs):
-            k, (xs_k, _, es_k, _) = c[6], c[7]
+            k, (xs_k, _, es_k, _) = c[7], c[8]
             same = (k.evals == r.evals) & (es_k == es_r).all(dim=0)
             within = chains_within(k, r) & stream_within(xs_k, xs_r)
             outside.append((same, within))
-        nudged = {i: [pool.submit(deep_plain, *c[-1], to) for to in (math.inf, -math.inf)]
-                  for i, (c, (same, within)) in enumerate(zip(cases, outside))
+        nudged = {i: every[i] for i, (c, (same, within)) in enumerate(zip(cases, outside))
                   if int((~same).sum()) > 0.001 * c[2] or int((same & ~within).sum()) > 0.001 * c[2]}
+        for i, runs in enumerate(every):
+            for f in runs if i not in nudged else ():
+                f.cancel()
         for i, (c, (xs_r, es_r, r, plain_ms), (same, within)) in enumerate(
                 zip(cases, refs, outside)):
-            cname, prec, n, fixed, eps, args, k, (xs_k, ws_k, es_k, so_k), _ = c
+            cname, prec, n, fixed, eps, depth, args, k, (xs_k, ws_k, es_k, so_k), _ = c
             mode = "fixed-uniform" if fixed else "Philox"
             what = f"NUTS {cname} {prec} ({n} chains, eps {eps}, max_depth {depth}, {mode})"
             check(bool((k.w == 1).all()) and bool((ws_k == 1).all())
@@ -1500,63 +1592,71 @@ def mm_nuts_deep_checks(cm, meanwhile):
             check(out_n <= allow_states, f"{what}: {out_n} chains with equal counts outside "
                   f"rtol 1e-4, {allow_states:g} allowed")
             began = rounds_begun(es_r.cpu())
-            r11, r12 = (float((began >= j).double().mean()) for j in (11, 12))
+            r_before, r_last = (float((began >= j).double().mean()) for j in (depth - 1, depth))
             cap = float((r.evals == 2**depth - 1).double().mean())
-            check(r11 > 0 and cap > 0, f"{what}: {r11:.4f} of trees began round 11 and "
-                  f"{cap:.4f} ran the {2**depth - 1}-leaf cap: rounds 11-12 went untested")
+            check(r_last > 0 and cap > 0, f"{what}: {r_last:.4f} of trees began round {depth} "
+                  f"and {cap:.4f} ran the {2**depth - 1}-leaf cap: the deepest rounds went "
+                  "untested")
             ok = same & within
             dx = (k.x - r.x).abs()
             err = float(dx[:, ok].max()) if bool(ok.any()) else float(dx.max())
-            label = f"{cname} {prec}"
+            label = f"{cname} {prec} max_depth {depth}"
             errs[label] = max(errs.get(label, 0.0), err)
             leaves = float(r.evals.double().mean())
-            if cname == "product_of_t" and not fixed:
-                times[label] = (
+            if cname == "product_of_t" and prec == "default" and not fixed:
+                times[depth] = (
                     events_ms(lambda: cm.cuda_mjhmc_mm_run(*args, 1, depth, variant="nuts")),
                     events_ms(lambda: cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, depth,
                                                                   variant="nuts")),
-                    plain_ms, leaves)
+                    plain_ms, leaves, n, eps)
             phase("21 mm nuts", f"{what}, 1 iteration, {leaves:.5g} leaves/iteration: leaf "
                   f"counts and stream es equal on {1 - differ / n:.5f} of chains; x,v,g,u and "
                   f"stream xs rtol 1e-4 on all but {out_n} of those (max|dx| {err:.3g}); "
-                  f"trees that began round 11 {r11:.4f}, round 12 {r12:.4f}, ran the "
-                  f"{2**depth - 1}-leaf cap {cap:.4f}; one-ulp nudges of x: {note} "
-                  f"(the plain version on the CPU, {plain_ms / 1e3:.3g} s)")
+                  f"trees that began round {depth - 1} {r_before:.4f}, round {depth} "
+                  f"{r_last:.4f}, ran the {2**depth - 1}-leaf cap {cap:.4f}; one-ulp nudges "
+                  f"of x: {note} (the plain version on the CPU, {plain_ms / 1e3:.3g} s)")
     stop_children()  # the spawn pool's resource tracker
+    phase("21 mm nuts", f"the trees past round 10 took {time.perf_counter() - t0:.4g} s, the "
+          "rest of phase 21's checks beside their plain runs")
     return errs, times, other
 
 
 def mm_nuts_deep_timing(cm, card):
-    """One depth-12 launch of ``nuts_mm_kernel`` on product of t at the
-    preset's chains and JAX default precision (4,096, one bf16 pass), ε
-    0.002 (Philox), after a warm one: CUDA events, the trees' leaves, the
-    blocks an SM holds at depths 10-12 (``nuts_mm_tile``)."""
+    """One launch of ``nuts_mm_kernel`` at each of MM_DEEP_TIMED's depths
+    (12 on the instance every shallower tree runs, 13-14 on the DEEP one) on
+    product of t at the preset's chains and JAX default precision (4,096,
+    one bf16 pass), ε 0.002 (Philox), each after a warm one: CUDA events,
+    the trees' leaves, the bound, the blocks an SM holds at depths 10-14
+    (``nuts_mm_tile``). Returns {max_depth: its record}."""
     from mjhmc_tpu_torch.bench_mfu import PASSES
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 
-    depth, n, eps = cm.NUTS_MM_MAX_DEPTH, BENCHMARK_CONFIGS["product_of_t"].nbatch, 0.002
+    n, eps = BENCHMARK_CONFIGS["product_of_t"].nbatch, 0.002
     dist = BENCHMARK_CONFIGS["product_of_t"].make_distribution()
     spec = cm.energy_spec_for(dist)
     st = initial_state(dist, n, seed=3)
-    call = functools.partial(cm.cuda_mjhmc_mm_run, spec, *st, 99, eps, 0.0, 1, depth,
-                             variant="nuts")
-    call()
-    out = None
+    blocks = {dd: cm.nuts_mm_tile(spec, dd)[3] for dd in (10, 11, 12, 13, 14)}
+    recs = {}
+    for depth in MM_DEEP_TIMED:
+        call = functools.partial(cm.cuda_mjhmc_mm_run, spec, *st, 99, eps, 0.0, 1, depth,
+                                 variant="nuts")
+        call()
+        out = None
 
-    def run():
-        nonlocal out
-        out = call()
-    ms = events_ms(run)
-    leaves = float(out.evals.double().mean())
-    blocks = {dd: cm.nuts_mm_tile(spec, dd)[3] for dd in (10, 11, 12)}
-    bnd = bound("product_of_t", "nuts", 36, 36, n, 1, int(out.evals.sum()),
-                passes=PASSES[spec.precision])
-    phase("21 mm nuts", f"nuts_mm_kernel product_of_t {spec.precision} ({n} chains, eps {eps}, "
-          f"max_depth {depth}, Philox), one launch of 1 iteration: {ms:.6g} ms, "
-          f"{leaves:.5g} leaves a chain (deepest {int(out.evals.max())}), bound {bnd[0]:.4g} ms "
-          f"({bnd[1]}); blocks an SM at max_depth 10/11/12: {blocks} [{card}]")
-    return dict(ms=ms, leaves=leaves, bound=bnd, blocks=blocks, n=n, eps=eps,
-                precision=spec.precision)
+        def run():
+            nonlocal out
+            out = call()
+        ms = events_ms(run)
+        leaves = float(out.evals.double().mean())
+        bnd = bound("product_of_t", "nuts", 36, 36, n, 1, int(out.evals.sum()),
+                    passes=PASSES[spec.precision])
+        phase("21 mm nuts", f"nuts_mm_kernel product_of_t {spec.precision} ({n} chains, eps "
+              f"{eps}, max_depth {depth}, Philox), one launch of 1 iteration: {ms:.6g} ms, "
+              f"{leaves:.5g} leaves a chain (deepest {int(out.evals.max())}), bound "
+              f"{bnd[0]:.4g} ms ({bnd[1]}); blocks an SM at max_depth 10-14: {blocks} [{card}]")
+        recs[depth] = dict(ms=ms, leaves=leaves, bound=bnd, blocks=blocks, n=n, eps=eps,
+                           precision=spec.precision)
+    return recs
 
 
 def leaf_slot_share(es, depth, tile):
@@ -4300,9 +4400,11 @@ def tune_rows(cm, card, rows):
 def nuts_arbitration_row(cm, card, rows):
     """``_arbitrate_nuts`` on product of t's ``nuts-engine`` row at the
     preset ε (its depth grid measured on the engine), then one ``measure``
-    at max_depth 12, so that the depth-12 kernels run on this path whatever
-    depth wins. Counts set to 0 just before, read just after: returns the
-    wrappers' max_depth 11-12 launches (run, stream)."""
+    at max_depth 12 and one at MM_DEEP_DEPTH, so that the depth-12 kernels
+    and the deeper trees run on this path whatever depth wins. Counts set to
+    0 just before each ``measure``, read just after: returns the wrappers'
+    max_depth 11-12 launches (run, stream) and their launches at
+    MM_DEEP_DEPTH."""
     from mjhmc_tpu_torch import bench_ess
     from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
 
@@ -4314,19 +4416,28 @@ def nuts_arbitration_row(cm, card, rows):
                                                        cfg.epsilon, None)
     rec = bench_ess.measure("product_of_t", "nuts-engine", 600, 200, cfg.epsilon, None, 12,
                             trials=1, device="cuda")
+    wrappers = (cm.cuda_mjhmc_mm_run, cm.cuda_mjhmc_mm_stream_run)
+    deep = tuple(w.deep_nuts_launches for w in wrappers)
+    cm.reset_counts()
+    rec_deep = bench_ess.measure("product_of_t", "nuts-engine", 600, 200, cfg.epsilon, None,
+                                 MM_DEEP_DEPTH, trials=1, device="cuda")
+    past12 = tuple(w.deep_nuts_launches for w in wrappers)
     seconds = time.perf_counter() - t0
-    deep = (cm.cuda_mjhmc_mm_run.deep_nuts_launches, cm.cuda_mjhmc_mm_stream_run.deep_nuts_launches)
     check(depth in (4, 6, 8, 10, 12) and set(rates) >= {"d4", "d6", "d8", "d10"}
           and all(v > 0 for v in rates.values()) and rec["value"] > 0
-          and rec["detail"]["num_leapfrog_steps"] == 12,
-          f"_arbitrate_nuts: depth {depth}, rates {rates}, depth-12 record {rec['value']}")
+          and rec["detail"]["num_leapfrog_steps"] == 12 and rec_deep["value"] > 0
+          and rec_deep["detail"]["num_leapfrog_steps"] == MM_DEEP_DEPTH,
+          f"_arbitrate_nuts: depth {depth}, rates {rates}, depth-12 record {rec['value']}, "
+          f"depth-{MM_DEEP_DEPTH} record {rec_deep['value']}")
     check(deep[0] >= 1 and deep[1] >= 2, f"the depth-12 kernels did not run: {deep}")
+    check(past12[0] >= 1 and past12[1] >= 2, f"the depth-{MM_DEEP_DEPTH} kernels did not run: {past12}")
     _row41(f"_arbitrate_nuts product_of_t nuts-engine (4,096 chains, eps {cfg.epsilon}, "
            f"{cm.energy_spec_for(cfg.make_distribution()).precision}): depth {depth}, "
            f"{boundary}, ESS/s by depth {json.dumps(rates)}; measure(..., m=12) "
-           f"{rec['value']:.6g} ESS/s; max_depth 11-12 launches (run, stream) {deep}",
-           seconds, card, rows, "_arbitrate_nuts")
-    return deep
+           f"{rec['value']:.6g} ESS/s; max_depth 11-12 launches (run, stream) {deep}; "
+           f"measure(..., m={MM_DEEP_DEPTH}) {rec_deep['value']:.6g} ESS/s, its launches past "
+           f"12 (run, stream) {past12}", seconds, card, rows, "_arbitrate_nuts")
+    return deep, past12
 
 
 def table_rows(cm, card, rows, tmp):
@@ -4399,11 +4510,12 @@ def sharded_smc_row(card, rec):
 
 def ess_table_and_tune(cm, card, sharded):
     """Phase 41, slice H part 3 on the card: one ``_tune`` round and
-    ``_candidates``; ``_arbitrate_nuts`` with a depth-12 ``measure`` (the
-    matmul NUTS kernel at max_depth 12); ``bench_ess --table`` and
-    ``bench_two_stage`` on gauss2d; the sharded SMC receipt (``sharded``,
-    from phase 39). Returns ({row: host seconds}, the max_depth 11-12
-    launches (run, stream))."""
+    ``_candidates``; ``_arbitrate_nuts`` with a depth-12 and a depth-14
+    ``measure`` (the matmul NUTS kernel at max_depth 12, and past the tile
+    depth on its DEEP instances); ``bench_ess --table`` and ``bench_two_stage`` on gauss2d;
+    the sharded SMC receipt (``sharded``, from phase 39). Returns ({row:
+    host seconds}, (the max_depth 11-12 launches (run, stream), the
+    launches past 12))."""
     import tempfile
 
     rows = {}
@@ -4584,7 +4696,7 @@ def any_d_tiles(cm, card):
                   f"{want}")
             tiles[f"{body} {label}"] = got
         for mass in (False, True):
-            for depth in (1, CLI_NUTS_DEPTH, cm.NUTS_MAX_DEPTH):
+            for depth in (1, CLI_NUTS_DEPTH, 12, 31):
                 got = cm.nuts_tile(spec, d, depth, n, mass)
                 threads = cm.nuts_threads(d, n, sms)
                 want = (threads, cm.nuts_smem_bytes(d, threads, depth))
@@ -4996,7 +5108,8 @@ def any_mm_builds(_build, done, card, name="43 any (d, k)"):
 def any_mm_tiles(cm, card, cases=None, name="43 any (d, k)"):
     """Each on-demand instance's tile as it reports it against the tile
     rule's mirror: mm_kernel's (chains, threads, shared bytes) with and
-    without the branches, NUTS's at max_depth 1, 8 and 12; the blocks an SM
+    without the branches, NUTS's at max_depth 1, 8, 12 and 31 (past 12 the
+    DEEP instance's tile, as those trees run); the blocks an SM
     holds at least 1; of phase 43's (``cases`` None), the parameter matrix
     off chip at (288, 144) only."""
     tiles = {}
@@ -5004,7 +5117,7 @@ def any_mm_tiles(cm, card, cases=None, name="43 any (d, k)"):
         key = f"{label} {spec.precision} {body}"
         if body == "nuts":
             rule = cm.nuts_mm_tile_rule(spec)
-            for depth in (1, CLI_NUTS_DEPTH, cm.NUTS_MM_MAX_DEPTH):
+            for depth in (1, CLI_NUTS_DEPTH, cm.NUTS_MM_TILE_DEPTH, cm.NUTS_MM_MAX_DEPTH):
                 got = cm.nuts_mm_tile(spec, depth)
                 want = (rule.chains, rule.threads, cm.nuts_mm_smem_bytes(spec, depth))
                 check(got[:3] == want and got[3] >= 1, f"NUTS tile of {key} (max_depth {depth}): "
@@ -5522,7 +5635,8 @@ def past_cases(cm):
 
 def past_instances(cm, _build):
     """{(label, precision, body): the on-demand instance} of phase 44: every
-    one chunked (and xg at sparse coding), none compiled ahead."""
+    one chunked (and xg at sparse coding), none compiled ahead (a9a's NUTS
+    instance also runs ``past_deep_check``'s tree past 12)."""
     out = {}
     for label, _, spec, body, _, _ in past_cases(cm):
         check(not cm.mm_compiled_ahead(spec, sweep_run=False), f"{label} is in the library")
@@ -5533,6 +5647,134 @@ def past_instances(cm, _build):
             cm.KERNEL_VARIANTS[body], spec.energy_id, *cm.mm_shape(spec),
             cm.PRECISIONS.index(spec.precision), rule.off, rule.chunk, rule.xg_off)
     return out
+
+
+def past_deep_plain(arrays, seed, eps, depth, nudge=0.0):
+    """One plain run of ``past_deep_check``'s case on the card, a worker
+    process's job: ``arrays`` the (x, v, g, u, h_back, valid) NumPy start,
+    x moved one ulp toward ``nudge`` (±inf) where it is not 0. Returns
+    (RunOut's fields as NumPy arrays, host ms of the synchronised run)."""
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    torch.set_num_threads(1)
+    spec = cm.energy_spec_for(past_dist("logreg 124x32561"))
+    st = [torch.from_numpy(a).to(DEV) for a in arrays]
+    if nudge:
+        st[0] = torch.nextafter(st[0], torch.full_like(st[0], nudge))
+    t0 = time.perf_counter()
+    r = cm.run_reference(spec, *st, seed, eps, 0.0, 1, depth, variant="nuts")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return tuple(t.cpu().numpy() for t in r), ms
+
+
+def start_past_deep(cm):
+    """Phase 44 past the tile depth, its plain runs: CudaNUTS at a9a's shape
+    (its chunked tile) at PAST_DEEP_DEPTH and PAST_DEEP_EPS, one tile of
+    chains, one iteration from the posterior's bulk (``past_state``). The
+    plain run and the two one-ulp-nudged ones (a few ms of host time a leaf,
+    8,191 leaves) start at once, each in a process of its own on the card,
+    to run beside phase 44's checks, statistics and learner; no kernel is
+    timed beside them. Returns what ``past_deep_check`` takes: the engine,
+    its start and seed, the pool and the runs."""
+    import multiprocessing
+
+    dist = past_dist("logreg 124x32561")
+    n = cm.nuts_mm_tile_rule(cm.energy_spec_for(dist)).chains
+    eng = cm.CudaNUTS(dist, epsilon=PAST_DEEP_EPS, num_leapfrog_steps=PAST_DEEP_DEPTH, nbatch=n,
+                      seed=11, device=DEV)
+    eng.x, eng.v, eng.g, eng.u, eng.h_back, eng.back_valid = past_state(dist, n, seed=5)
+    st = tuple(t.clone() for t in (eng.x, eng.v, eng.g, eng.u, eng.h_back, eng.back_valid))
+    gen = torch.Generator()
+    gen.set_state(eng._seed_gen.get_state())
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
+    arrays = tuple(t.cpu().numpy() for t in st)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"))
+    runs = [pool.submit(past_deep_plain, arrays, seed, PAST_DEEP_EPS, PAST_DEEP_DEPTH, to)
+            for to in (0.0, math.inf, -math.inf)]
+    return dict(eng=eng, seed=seed, pool=pool, runs=runs, t0=time.perf_counter())
+
+
+def past_deep_check(cm, card, started):
+    """Phase 44 past the tile depth, held: ``start_past_deep``'s plain runs
+    awaited, then the engine's launch (its chunked tile's DEEP instance)
+    timed alone, against the plain run from the same state and
+    seed, with phase 21's allowances (leaf counts equal on all but 0.1% of
+    the chains, or as many as one-ulp nudges of x change in the plain
+    version alone; x, v, g, u within rtol 1e-4 on those, all but 0.1% or as
+    many as the nudges move; the nudged runs read only where the counts or
+    states pass 0.1% of the chains). Fails unless some tree began round
+    PAST_DEEP_DEPTH. The engine's call is the main path: the counts from 0
+    just before, read just after. Returns the kernels line's numbers."""
+    from mjhmc_tpu_torch.bench_mfu import PASSES
+
+    t0 = time.perf_counter()
+    label = "logreg 124x32561"
+    eng, seed = started["eng"], started["seed"]
+    spec = eng.spec
+    rule = cm.nuts_mm_tile_rule(spec)
+    n, depth, eps = rule.chains, PAST_DEEP_DEPTH, PAST_DEEP_EPS
+    tiles = {}
+    for dd in (13, 14, 31):  # the tile past 12 against the mirror
+        got = cm.nuts_mm_tile(spec, dd)
+        want = (rule.chains, rule.threads, cm.nuts_mm_smem_bytes(spec, dd))
+        check(got[:3] == want and got[3] >= 1, f"NUTS tile of {label} at max_depth {dd}: "
+              f"the instance's {got}, the mirror's {want}")
+        tiles[dd] = got
+    with started["pool"]:
+        (r, plain_ms), *nudged = (f.result() for f in started["runs"])
+    stop_children()  # the spawn pool's resource tracker
+    t_plain = time.perf_counter()
+    got = {}
+    cm.reset_counts()
+    ms = events_ms(lambda: got.update(o=eng.run(1)))
+    launched = cm.cuda_mjhmc_mm_run.deep_nuts_launches
+    check(launched == 1, f"CudaNUTS {label} max_depth {depth}: {launched} launches past "
+          "max_depth 10")
+    k = got["o"]
+    r = cm.RunOut(*(torch.from_numpy(t).to(DEV) for t in r))
+    same = k.evals == r.evals
+    within = chains_within(k, r)
+    differ, outside = int((~same).sum()), int((same & ~within).sum())
+    flips, drift = torch.zeros_like(same), torch.zeros_like(same)
+    nudges_run = max(differ, outside) > 0.001 * n
+    for r_n, _ in nudged if nudges_run else ():
+        r_n = cm.RunOut(*(torch.from_numpy(t).to(DEV) for t in r_n))
+        same_n = r_n.evals == r.evals
+        flips |= ~same_n
+        drift |= same_n & ~chains_within(r_n, r)
+    what = f"CudaNUTS {label} at {spec.precision} ({n} chains, eps {eps}, max_depth {depth})"
+    allow_counts = max(0.001 * n, int(flips.sum()))
+    allow_states = max(0.001 * n, int(drift.sum()))
+    check(differ <= allow_counts, f"{what}: leaf counts differ on {differ} chains, "
+          f"{allow_counts:g} allowed")
+    check(outside <= allow_states, f"{what}: {outside} chains with equal counts outside rtol "
+          f"1e-4, {allow_states:g} allowed")
+    began = float((r.evals >= 2**(depth - 1)).double().mean())
+    cap = float((r.evals == 2**depth - 1).double().mean())
+    check(began > 0, f"{what}: no tree began round {depth}: the deepest rounds went untested")
+    ok = same & within
+    dx = (k.x - r.x).abs()
+    err = float(dx[:, ok].max()) if bool(ok.any()) else float(dx.max())
+    d, kk = cm.mm_shape(spec)
+    bnd = bound("logreg", "nuts", d, kk, n, 1, int(r.evals.sum()),
+                passes=PASSES.get(spec.precision, 0))
+    phase("44 past one block", f"{what}, run, 1 iteration, {float(r.evals.double().mean()):.5g} "
+          f"leaves a chain: leaf counts equal on {1 - differ / n:.5f} of chains; x,v,g,u rtol "
+          f"1e-4 on all but {outside} of those (max|dx| {err:.3g}); "
+          + (f"one-ulp nudges of x change {int(flips.sum())} chains' counts and move "
+             f"{int(drift.sum())} more past rtol 1e-4 in the plain version alone; "
+             if nudges_run else "the nudged runs not needed (within 0.1%); ")
+          + f"trees that began round {depth} {began:.4f}, ran the {2**depth - 1}-leaf cap "
+          f"{cap:.4f}; kernel {ms:.6g} ms, plain version {plain_ms:.6g} ms (host clock, "
+          f"beside the two nudged runs and phase 44's checks, statistics and learner), bound "
+          f"{bnd[0]:.4g} ms ({bnd[1]}); the tile at max_depth 13/14/31 (chains, threads, "
+          f"shared bytes, blocks an SM) = mirror: {json.dumps(tiles)}; the plain runs took "
+          f"{t_plain - started['t0']:.3g} s from their start, {t_plain - t0:.3g} s of it "
+          f"awaited here, the rest {time.perf_counter() - t_plain:.3g} s [{card}]")
+    return dict(launches=launched, err=err, ms=ms, plain_ms=plain_ms, bound=bnd, n=n, eps=eps,
+                precision=spec.precision, leaves=float(r.evals.double().mean()))
 
 
 def learner_row(card):
@@ -5574,7 +5816,8 @@ def learner_row(card):
 
 
 def past_stats(cm, card):
-    """Phase 44's statistics, alone on the card: JAX's
+    """Phase 44's statistics (beside a9a's deep plain runs, not beside
+    phase 39): JAX's
     logreg Laplace oracle at a9a's shape (CudaMJHMC from the model's init, ε
     from the Laplace variances, β 0.15, M 10, 2,048 chains,
     PAST_LAPLACE_ITERS; median var/Laplace within 0.25) and phase 43's
@@ -5683,14 +5926,24 @@ def past_phase(cm, _build, card, done):
     tiles against the mirror, every instance against its plain version at
     the configurations' widths (``any_mm_checks`` with phase 43's
     allowances, from ``past_state``; NUTS at max_depth 4, logreg also at 8),
-    the timings, the statistics (``past_stats``; alone on the card: beside
-    phase 39 their kernels slowed its rows) and the learner. Returns (errors, timing rows, nvcc seconds, instances, the
-    statistics' launches)."""
+    the timings (first, alone on the card), the statistics (``past_stats``;
+    not beside phase 39: their kernels slowed its rows) and the learner, and
+    a9a's tree past the tile depth, whose plain runs (``start_past_deep``)
+    run beside the checks, the statistics and the learner. Returns (errors,
+    timing rows, nvcc seconds, instances, the statistics' launches, the
+    tree past the tile depth's numbers)."""
     t0 = time.perf_counter()
     cases = past_cases(cm)
     seconds = any_mm_builds(_build, done, card, "44 past one block")
     any_mm_tiles(cm, card, cases, "44 past one block")
     deeper = {label: spec[5] for label, spec in PAST_SHAPES.items()}
+    rows = {}
+    for label in PAST_SHAPES:
+        rows.update(any_mm_timing(cm, card, [c for c in cases if c[0] == label],
+                                  PAST_SHAPES[label][2], PAST_ITERS[1], PAST_NUTS_DEPTH,
+                                  "44 past one block timing", past_state))
+    t_timing = time.perf_counter()
+    started = start_past_deep(cm)
     errs = {}
     for label, (_, _, n, _, _, _, nuts_held) in PAST_SHAPES.items():
         for nuts in (False, True):
@@ -5699,20 +5952,17 @@ def past_phase(cm, _build, card, done):
                 n, nuts_held if nuts else PAST_ITERS[0], PAST_NUTS_DEPTH, "44 past one block",
                 past_state, deeper, philox=not nuts or nuts_held > 1))
     t_checks = time.perf_counter()
-    rows = {}
-    for label in PAST_SHAPES:
-        rows.update(any_mm_timing(cm, card, [c for c in cases if c[0] == label],
-                                  PAST_SHAPES[label][2], PAST_ITERS[1], PAST_NUTS_DEPTH,
-                                  "44 past one block timing", past_state))
-    t_timing = time.perf_counter()
     stats = past_stats(cm, card)
     t_stats = time.perf_counter()
     learner_row(card)
-    phase("44 past one block", f"phase 44 took {time.perf_counter() - t0:.4g} s: the checks "
-          f"{t_checks - t0:.4g}, the timings {t_timing - t_checks:.4g}, the statistics "
-          f"{t_stats - t_timing:.4g} (launches {json.dumps(stats)}), the learner "
-          f"{time.perf_counter() - t_stats:.4g} [{card}]")
-    return errs, rows, seconds, past_instances(cm, _build), stats
+    t_learner = time.perf_counter()
+    deep = past_deep_check(cm, card, started)
+    phase("44 past one block", f"phase 44 took {time.perf_counter() - t0:.4g} s: the timings "
+          f"{t_timing - t0:.4g}, then beside the plain runs of the tree past the tile depth "
+          f"the checks {t_checks - t_timing:.4g}, the statistics {t_stats - t_checks:.4g} "
+          f"(launches {json.dumps(stats)}) and the learner {t_learner - t_stats:.4g}, then "
+          f"that tree {time.perf_counter() - t_learner:.4g} [{card}]")
+    return errs, rows, seconds, past_instances(cm, _build), stats, deep
 
 
 T0 = time.perf_counter()
@@ -5796,7 +6046,7 @@ def main() -> int:
     for dist in (ProductOfT(), SparseCoding(), BENCHMARK_CONFIGS["logreg"].make_distribution()):
         spec = cm.energy_spec_for(dist)
         for prec in ("highest", spec.precision):
-            for depth in (1, MM_NUTS_DEPTH, 10, 11, cm.NUTS_MM_MAX_DEPTH):
+            for depth in NUTS_TILE_DEPTHS:
                 got = cm.nuts_mm_tile(at(spec, prec), depth)
                 want = (*cm.nuts_mm_tile_rule(at(spec, prec))[:2],
                         cm.nuts_mm_smem_bytes(at(spec, prec), depth))
@@ -5837,7 +6087,7 @@ def main() -> int:
     for cname, dist, n in ew:
         spec, d = cm.energy_spec_for(dist), dist.ndims
         for mass in (False, True):
-            for depth in (1, CLI_NUTS_DEPTH, cm.NUTS_MAX_DEPTH):
+            for depth in NUTS_TILE_DEPTHS:
                 got = cm.nuts_tile(spec, d, depth, n, mass)
                 threads = cm.nuts_threads(d, n, sms)
                 want = (threads, cm.nuts_smem_bytes(d, threads, depth))
@@ -5872,10 +6122,11 @@ def main() -> int:
               f"sinf's on {int((o[0] != o[2]).sum())}, the cosine from cosf's on "
               f"{int((o[1] != o[3]).sum())}")
     # 12 instances (4 bodies, run and stream, MJHMC and NUTS with and without
-    # the branches) per preset at two precisions, the stub, the sweep's 4,
-    # the NUTS run's PROF instance per preset at its JAX default and
-    # mm_kernel's 3 (MJHMC and MALT on sparse coding, MALT on logreg)
-    check(len(hmma) == 3 * 2 * 12 + 1 + 4 + 3 + 3 and all(
+    # the branches) and NUTS's 2 DEEP ones (run and stream) per preset at two
+    # precisions, the stub, the sweep's 4, the NUTS run's PROF instance per
+    # preset at its JAX default and mm_kernel's 3 (MJHMC and MALT on sparse
+    # coding, MALT on logreg)
+    check(len(hmma) == 3 * 2 * (12 + 2) + 1 + 4 + 3 + 3 and all(
         (c > 0) != label.endswith("highest") for label, c in hmma.items()),
         "every bf16 matmul instance must run HMMA and no full-f32 one")
     # phase 40's plain rows: their process imports beside phases 3-38 and
@@ -6087,7 +6338,7 @@ def main() -> int:
 
     # ---- 8-12. ceiling probes, NUTS and the stub vs their plain versions --
     fma_err, fma_plain_ms, tc_err, tc_plain_ms = ceiling_checks(ce)
-    nuts_run_err, nuts_stream_err = nuts_checks(cm)
+    nuts_run_err, nuts_stream_err, ew_deep = nuts_checks(cm)
     nuts_ms = nuts_timing_and_stats(cm, card)
     stub_err, stub_plain_ms = stub_checks(cm)
 
@@ -6362,30 +6613,66 @@ def main() -> int:
                                  plain_stream_ms if stream else plain_ms,
                                  bound(cname, body, d, k, n, iters, grads, iters if stream else 0),
                                  **extra))
-    # max_depth 12 on the matmul NUTS kernel: launched on phase 41's NUTS
-    # arbitration; held and timed (16 chains, with the plain version) in
-    # phase 21, and timed at the preset's 4,096 chains
+    # the matmul NUTS kernel past round 10: max_depth 12 on the instance
+    # every shallower tree runs, MM_DEEP_DEPTH on the DEEP one;
+    # launched on phase 41's NUTS arbitration and measures; held and timed
+    # (16 chains, with the plain version) in phase 21, and timed at the
+    # preset's 4,096 chains at MM_DEEP_TIMED's depths
     from mjhmc_tpu_torch.bench_mfu import PASSES
 
-    pot = "product_of_t default"
-    for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
-        plain_ms, leaves = deep_times[pot][2:]
-        n16 = MM_NUTS_DEEP[1][2][1]
+    deep12, past12 = deep_launches
+    for depth, launches in ((12, deep12), (MM_DEEP_DEPTH, past12)):
+        run16, stream16, plain_ms, leaves, n16, eps16 = deep_times[depth]
+        pre = deep_preset[depth]
+        cases = {key: v for key, v in deep_err.items() if key.endswith(f" max_depth {depth}")}
+        deeper = depth > cm.NUTS_MM_TILE_DEPTH
+        for idx, (suffix, src) in enumerate((("run", MM_RUN_SRC), ("stream", MM_STREAM_SRC))):
+            kernels.append(entry(
+                f"nuts_mm_{suffix}[product_of_t, default, max_depth {depth}]", MM_KERNEL_SRC,
+                src, launches[idx], max(cases.values()), (run16, stream16)[idx], plain_ms,
+                bound("product_of_t", "nuts", 36, 36, n16, 1, int(leaves * n16), idx,
+                      passes=PASSES["default"]),
+                launches_from=f"phase 41: _arbitrate_nuts and measure(..., m={depth}), "
+                              "product_of_t nuts-engine"
+                              + (" (the launches past 12)" if deeper else ""),
+                variant=NUTS_VARIANT, energy=MM_ENERGIES["product_of_t"], precision="default",
+                instance=("the library's DEEP instance (the branches; stack rows and span slots "
+                          "past 12 in the device buffer)" if deeper else "the library's"),
+                max_abs_err_by_case=cases,
+                shape=f"product_of_t, {n16} chains, max_depth {depth}, eps {eps16}, Philox, 1 "
+                      f"iteration, {leaves:.5g} leaves a chain; ms per launch; plain_ms the "
+                      "plain stream's, on the CPU",
+                preset_ms=pre["ms"], preset_bound_ms=pre["bound"][0],
+                preset_ms_by_depth={dd: deep_preset[dd]["ms"] for dd in MM_DEEP_TIMED},
+                preset_shape=f"product_of_t, {pre['n']} chains, eps {pre['eps']}, 1 iteration, "
+                             f"{pre['leaves']:.5g} leaves a chain",
+                blocks_per_sm_by_depth=pre["blocks"]))
+    # the elementwise NUTS kernel past 12 (the same instance at every
+    # depth): CudaNUTS on gauss2d, bit-identical to the plain version
+    for key, src in (("run", RUN_SRC), ("stream", STREAM_SRC)):
+        rec = ew_deep[key]
         kernels.append(entry(
-            f"nuts_mm_{suffix}[product_of_t, default, max_depth 12]", MM_KERNEL_SRC, src,
-            deep_launches[idx], max(deep_err.values()), deep_times[pot][idx], plain_ms,
-            bound("product_of_t", "nuts", 36, 36, n16, 1, int(leaves * n16), idx,
-                  passes=PASSES["default"]),
-            launches_from="phase 41: _arbitrate_nuts and measure(..., m=12), product_of_t "
-                          "nuts-engine", variant=NUTS_VARIANT, energy=MM_ENERGIES["product_of_t"],
-            precision="default", max_abs_err_by_case=deep_err,
-            shape=f"product_of_t, {n16} chains, max_depth 12, eps "
-                  f"{MM_NUTS_DEEP[1][3][1]}, Philox, 1 iteration, {leaves:.5g} leaves a chain; "
-                  "ms per launch; plain_ms the plain stream's, on the CPU",
-            preset_ms=deep_preset["ms"], preset_bound_ms=deep_preset["bound"][0],
-            preset_shape=f"product_of_t, {deep_preset['n']} chains, eps {deep_preset['eps']}, "
-                         f"1 iteration, {deep_preset['leaves']:.5g} leaves a chain",
-            blocks_per_sm_by_depth=deep_preset["blocks"]))
+            f"nuts_{key}[gauss2d, max_depth {rec['depth']}]", KERNEL_SRC, src, rec["launches"],
+            rec["err"], rec["ms"], rec["plain_ms"],
+            bound("gauss2d", "nuts", 2, 0, 1024, 1, rec["leaves"], int(key == "stream")),
+            variant=NUTS_VARIANT,
+            launches_from=f"phase 10: CudaNUTS.{'sample' if key == 'stream' else 'run'}",
+            shape=f"gauss2d, 1024 chains, max_depth {rec['depth']}, eps {EW_DEEP_EPS}, Philox, 1 "
+                  "iteration, ms per launch; bit-identical to the plain version on the card"))
+    # the chunked tile past 12 (a9a's shape, on demand): CudaNUTS.run
+    pd = past44[5]
+    deep_inst = past44[3][("logreg 124x32561", pd["precision"], "nuts")]
+    kernels.append(entry(
+        f"nuts_mm_run[logreg 124x32561, {pd['precision']}, max_depth {PAST_DEEP_DEPTH}]",
+        MM_ONDEMAND_SRC, MM_RUN_SRC, pd["launches"], pd["err"], pd["ms"], pd["plain_ms"],
+        pd["bound"], variant=NUTS_VARIANT, energy=MM_ENERGIES["logreg"],
+        precision=pd["precision"], instance="on demand, its DEEP instance",
+        nvcc_s=past44[2][deep_inst],
+        launches_from="phase 44: CudaNUTS.run", parameter_matrix="device memory",
+        chunk_rows=cm.nuts_mm_tile_rule(cm.energy_spec_for(past_dist("logreg 124x32561"))).chunk,
+        shape=f"logreg 124x32561, {pd['n']} chains (one tile), max_depth {PAST_DEEP_DEPTH}, eps "
+              f"{pd['eps']}, Philox, 1 iteration, {pd['leaves']:.5g} leaves a chain, ms per "
+              "launch; plain_ms the plain run's on the card"))
     kernels += zoo_entries(entry, zoo_err, zoo_ident, zoo_cli_res, zoo_ms)
     kernels += precision_entries(entry, prec_err, sweep, prec_ms, dossier["ceilings"],
                                  main_runs)

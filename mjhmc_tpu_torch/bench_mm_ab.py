@@ -32,7 +32,11 @@ elementwise instance's ptxas registers and spill stores. ``--only hold``
 holds the D=50 rough well's MJHMC, MALT and control against the plain
 version after 3 and 5 iterations, field by field, beside what a one-ulp
 nudge of x does to the plain version alone (``run_hold``, under
-``"profile"``). ``--only`` runs one group. ``--compare`` prints, case by
+``"profile"``). ``--only deep`` times one launch of the matmul NUTS run
+and stream at ``DEEP_DEPTHS`` (those the checkout's kernel takes) on
+product of t at its preset's 4,096 chains and JAX default precision, ε
+0.002, Philox (``mm_deep/`` cases: their outputs' hash, best of three
+launches). ``--only`` runs one group. ``--compare`` prints, case by
 case, how many distinct outputs the records hold and their times. To
 compare a parent,
 unpack it with ``git archive`` into a directory that ``.gitignore`` lists
@@ -62,6 +66,11 @@ EW_NUTS = {"gauss2d": (10_240, 0.3, 7, 200), "rough_well": (4096, 1.0, 7, 200),
            "gauss50d": (4096, None, 8, 30), "funnel": (1024, None, 8, 60),
            "banana": (2048, None, 8, 100), "mog": (1024, None, 8, 200),
            "eight_schools": (1024, None, 8, 100), "eight_schools_nc": (1024, None, 8, 100)}
+
+
+#: the matmul NUTS trees of ``--only deep``: max_depth 12 on the instance
+#: every shallower tree runs, 13 and 14 past the tile depth
+DEEP_DEPTHS = (12, 13, 14)
 
 
 def _ms(fn, iters):
@@ -111,6 +120,40 @@ def run_cases() -> dict:
                         run_ms=_ms(lambda: cm.cuda_mjhmc_mm_run(*args, iters, m, **opts), iters),
                         stream_ms=_ms(lambda: cm.cuda_mjhmc_mm_stream_run(*args, iters, 1, m,
                                                                           **opts), iters))
+    return res
+
+
+def run_deep_cases() -> dict:
+    """{case: dict(out, run_ms, stream_ms, iters)} of the matmul NUTS at
+    ``DEEP_DEPTHS``: one launch of one iteration each, best of three."""
+    from mjhmc_tpu_torch.config import BENCHMARK_CONFIGS
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    cfg = BENCHMARK_CONFIGS["product_of_t"]
+    dist = cfg.make_distribution()
+    spec = cm.energy_spec_for(dist)
+    n = cfg.nbatch
+    gen = torch.Generator().manual_seed(3)
+    x = dist.init_x(gen, n, "cuda")
+    v = torch.randn(x.shape, generator=gen).to("cuda")
+    u, g = dist.potential_and_grad(x)
+    z = torch.zeros(n, device="cuda")
+    res = {}
+    for depth in (dd for dd in DEEP_DEPTHS if dd <= cm.NUTS_MM_MAX_DEPTH):
+        args = (spec, x, v, g, u, z, z, 99, 0.002, 0.0)
+        out = cm.cuda_mjhmc_mm_run(*args, 1, depth, variant="nuts")
+        xs, ws, es, so = cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, depth, variant="nuts")
+        digest = hashlib.sha256()
+        for t in (*out, xs, ws, es, *so):
+            digest.update(t.cpu().numpy().tobytes())
+        res[f"mm_deep/product_of_t/nuts/{spec.precision}/max_depth {depth}"] = dict(
+            out=digest.hexdigest(), iters=1,
+            leaves=float(out.evals.double().mean()),
+            run_ms=min(_ms(lambda: cm.cuda_mjhmc_mm_run(*args, 1, depth, variant="nuts"), 1)
+                       for _ in range(3)),
+            stream_ms=min(_ms(lambda: cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, depth,
+                                                                  variant="nuts"), 1)
+                          for _ in range(3)))
     return res
 
 
@@ -558,10 +601,11 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", help="the record's name")
     ap.add_argument("--out", default="chiprun_out/ab", help="directory of the records")
     ap.add_argument("--compare", nargs="+", metavar="RECORD", help="compare records instead")
-    ap.add_argument("--only", choices=("mm", "ew_nuts", "ew", "hold"),
+    ap.add_argument("--only", choices=("mm", "ew_nuts", "ew", "hold", "deep"),
                     help="run one group of cases and its breakdowns: the matmul bodies, the "
-                    "elementwise NUTS, the elementwise MJHMC, control and MALT, or the D=50 "
-                    "rough well held against the plain version (run_hold)")
+                    "elementwise NUTS, the elementwise MJHMC, control and MALT, the D=50 "
+                    "rough well held against the plain version (run_hold), or the matmul "
+                    "NUTS's deep trees (run_deep_cases)")
     args = ap.parse_args(argv)
     if args.compare:
         recs = {}
@@ -588,6 +632,8 @@ def main(argv=None) -> int:
         prof["ptxas"] = ew_ptxas()
     if args.only in (None, "hold"):
         prof.update(run_hold())
+    if args.only in (None, "deep"):
+        res.update(run_deep_cases())
     res["profile"] = prof
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"{args.tag}.json"), "w") as f:

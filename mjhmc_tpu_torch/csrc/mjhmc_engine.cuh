@@ -1043,7 +1043,11 @@ MJHMC_UNROLL_DIMS(K)
 // is the plain version's and the tree decisions agree with it bit for bit.
 namespace nuts {
 
-constexpr int kMaxDepth = 12;
+// the deepest tree: its 2^31 − 1 leaves, the lane's leaf count and every
+// tree position (2^jj − 1 + i, jj ≤ 30) fit an int32, as JAX's leaf counters
+// are (a launch asks for the shared memory of its own depth: at D 10 and 32
+// threads, rows(31)·D·32·4 = 96,000 bytes a block)
+constexpr int kMaxDepth = 31;
 constexpr float kDivThreshold = 1000.0f;
 // the tree rows live in shared memory up to this many dims
 constexpr int kOnChipDims = 10;

@@ -47,11 +47,12 @@ Instance launcher(int precision, int variant) {
 }  // namespace mjhmc
 
 // Plain C entry for ctypes. variant 0 runs MJHMC, 1 NUTS (m is max_depth,
-// beta unused), 2 control HMC (beta is the corruption fraction), 3 MALT
+// 1..nuts::kMaxDepth, past nuts::kTileDepth on the DEEP instance; beta
+// unused), 2 control HMC (beta is the corruption fraction), 3 MALT
 // (beta is the friction gamma); precision 0 full f32 (FP32 FMA), 1 bf16x3,
 // 2 bf16x2, 3 one bf16 pass (tensor cores); mass is (2, ndims) (M^-1,
 // sqrt(M)) or NULL; two_stage != 0 takes the two-stage integrator (MJHMC
-// and control); scratch is NUTS's (nuts::rows(m), ndims, n) tree state.
+// and control); scratch is NUTS's device buffer (cuda_mjhmc.nuts_scratch).
 // xs/ws/es == NULL runs without emissions; stub != 0 runs the stub_dots
 // ablation (no contraction, so no precision). Instances: product of t (d,
 // k) = (36, 36), sparse coding (d, p) = (128, 64) and logistic regression
@@ -106,7 +107,7 @@ extern "C" int mjhmc_mm_nuts_profile(
     unsigned int seed, float eps, float beta, int fixed_uniform, void* stream,
     unsigned long long* prof) {
   using namespace mjhmc::mm;
-  if (n <= 0 || m <= 0 || m > nuts::kMaxDepth || stub || variant != kNuts || mass ||
+  if (n <= 0 || m <= 0 || m > nuts::kTileDepth || stub || variant != kNuts || mass ||
       two_stage || xs || !prof)
     return cudaErrorInvalidValue;
   Args a{p0, p1, k0, k1, k2, k3, x, v, g, u, h_back, valid,
@@ -125,9 +126,10 @@ extern "C" int mjhmc_mm_nuts_profile(
 
 // The tile of the NUTS instances of (energy, precision) at max_depth: out[0]
 // chains a block, out[1] threads a block, out[2] shared-memory bytes a
-// block, out[3] blocks an SM holds at once (the run without a mass), then
-// the device buffer: out[4] floats of a block's slice, out[5] the parameter
-// matrix's, out[6] the tree state's a chain (mjhmc_mm_engine.cuh,
+// block, out[3] blocks an SM holds at once (the run without a mass; past
+// nuts::kTileDepth the DEEP run), then the device buffer:
+// out[4] floats of a block's slice, out[5] the parameter matrix's, out[6]
+// the tree state's a chain, out[7] a block's span slots (mjhmc_mm_engine.cuh,
 // nuts_tile_at).
 // Returns cudaErrorInvalidValue where no such instance is compiled.
 extern "C" int mjhmc_mm_nuts_tile(int energy, int precision, int max_depth, int* out) {

@@ -1423,20 +1423,32 @@ MJHMC_MM_UNROLL_OWNED(NE)
 // The tree state (both endpoints' x, v, g in the trajectory frame, the
 // subtree proposal's x, g and the 2(max_depth − 1) U-turn stack rows,
 // nuts::rows) is rows(max_depth)·DP floats a chain. It lives in shared
-// memory where the tile's fits beside the rest at max_depth 12 (the tile
-// rule's onchip: product of t 25 KB and logreg 11 KB a tile at max_depth 8),
-// else (sparse coding, 11 KB a chain) in the (rows, DP, n) scratch buffer in
-// device memory that the wrapper allocates (after the parameter matrix where
-// that is off chip), where an owner's loads are independent (all in flight
-// at once) and a warp's are coalesced across the tile's chains. max_depth
-// runs 1..kMaxDepth (12, JAX's arbitration edge) at run time, and a launch
-// takes the shared memory of its own max_depth (NutsLayout::floats): each
-// depth adds 2·D·NC floats of stack (on chip) and 2·T of column-sum slots,
-// so trees past 10 may hold fewer blocks an SM (product of t at highest
-// three where it holds four up to 10) while shallower launches keep theirs.
-// Round jj's leaves are tree positions 2^jj − 1 .. 2^(jj+1) − 2 (at most
-// 4,094), span slots kSpan + 2(mm − 1) for mm ≤ jj < max_depth, so no loop
-// or slot assumes a depth. The elementwise arithmetic rounds one IEEE
+// memory where the tile's fits beside the rest at max_depth 12 (kTileDepth;
+// the tile rule's onchip: product of t 25 KB and logreg 11 KB a tile at
+// max_depth 8), else (sparse coding, 11 KB a chain) in the (rows, DP, n)
+// scratch buffer in device memory that the wrapper allocates (after the
+// parameter matrix where that is off chip), where an owner's loads are
+// independent (all in flight at once) and a warp's are coalesced across the
+// tile's chains. max_depth runs 1..kMaxDepth (31: a tree's 2^31 − 1 leaves
+// and every tree position fit an int32, as JAX's leaf counters are) at run
+// time, and a launch up to kTileDepth takes the shared memory of its own
+// max_depth (NutsLayout::floats): each depth adds 2·D·NC floats of stack
+// (on chip) and 2·T of column-sum slots, so trees past 10 may hold fewer
+// blocks an SM (product of t at highest three where it holds four up to
+// 10) while shallower launches keep theirs. The tile rule sizes every tile
+// at kTileDepth, so a deeper tree runs on the same tile: its launch takes the
+// DEEP instance (the branch instance, M = I where no mass is given, which
+// multiplies by 1 exactly; instantiated beside the others, launch_body_at),
+// whose shared memory is the layout at kTileDepth and whose stack rows and
+// span slots past it (2(max_depth − kTileDepth) of each, mm ≥ kTileDepth)
+// live in the device scratch: the rows (rows,
+// DP, n) coalesced across chains as sparse coding's tree state is (that
+// state grows by them where it is in the scratch already), the slots a
+// block's [slot][T] after them. Those spans close once in 4,096 leaves or
+// fewer, so their device-memory round trips are rare. Round jj's leaves are
+// tree positions 2^jj − 1 .. 2^(jj+1) − 2 (at most 2^31 − 2), span slots
+// kSpan + 2(mm − 1) for mm ≤ jj < max_depth, so no loop or slot assumes a
+// depth. The elementwise arithmetic rounds one IEEE
 // operation at a time, as the plain version does; the contractions and the
 // column sums add in other orders than torch.matmul and the plain version's
 // sums, so trees are held to the plain version at a tolerance, not bit for
@@ -1454,7 +1466,10 @@ MJHMC_MM_UNROLL_OWNED(NE)
 // and the spills).
 namespace nuts {
 
-constexpr int kMaxDepth = 12;
+// the deepest tree (2^31 − 1 leaves: its leaf counts and tree positions fit
+// an int32), and the depth whose layout the tile rule fits on chip
+constexpr int kMaxDepth = 31;
+constexpr int kTileDepth = 12;
 constexpr float kDivThreshold = 1000.0f;
 // tree rows: the tree endpoints, the subtree proposal, then the stack
 // (x, v of span row mm at kStack + 2(mm − 1))
@@ -1466,6 +1481,11 @@ __host__ __device__ constexpr int rows(int max_depth) { return kStack + 2 * (max
 // leaf. A slot is written again only after a barrier that follows its reads.
 enum Slot { kEndM = 0, kEndP, kE1, kE2, kHalf, kSpan };
 __host__ __device__ constexpr int slots(int max_depth) { return kSpan + 2 * (max_depth - 1); }
+// the stack rows and the span slots a DEEP launch keeps in the device
+// scratch: those of the spans mm ≥ kTileDepth
+__host__ __device__ constexpr int deep_rows(int max_depth) {
+  return max_depth > kTileDepth ? 2 * (max_depth - kTileDepth) : 0;
+}
 
 // jnp.logaddexp: max + log1p(exp(−|Δ|)), or a + b where Δ is NaN
 __device__ __forceinline__ float logaddexp(float a, float b) {
@@ -1545,33 +1565,33 @@ __host__ __device__ constexpr NutsGeom nuts_geom(int E, int P, bool OFF, bool ON
   return m;
 }
 // The NUTS tile of energy E at (D, K) and precision P (the tile rule above;
-// the layout at max_depth 12 must fit)
+// the layout at kTileDepth must fit)
 __host__ __device__ constexpr TileRule nuts_rule(int E, int P, int D, int K) {
   const int nc0 = base_chains(E, kNuts), t0 = base_threads(E);
   for (int off = 0; off < 2; ++off)
     for (int nc = nc0; nc >= 8; nc /= 2) {
       const int t = round_up(t0 / nc0 * nc, 32);
-      if (4 * nuts_geom(E, P, off != 0, false, D, K, nc, t).floats(nuts::kMaxDepth) >
+      if (4 * nuts_geom(E, P, off != 0, false, D, K, nc, t).floats(nuts::kTileDepth) >
           kSmemBlock)
         continue;
       const bool onchip =
-          4 * nuts_geom(E, P, off != 0, true, D, K, nc, t).floats(nuts::kMaxDepth) <= kSmemBlock;
+          4 * nuts_geom(E, P, off != 0, true, D, K, nc, t).floats(nuts::kTileDepth) <= kSmemBlock;
       return {nc, t, minb_for(E, nuts_geom(E, P, off != 0, onchip, D, K, nc, t).floats(1)),
               off != 0, onchip};
     }
   // chunked k, the parameter matrix off chip (mm_rule's), the tree state on
-  // chip where it fits beside the rest at max_depth 12
+  // chip where it fits beside the rest at kTileDepth
   for (int xg = 0; xg < 2; ++xg)
     for (int nc = xg ? 8 : nc0; nc >= 8; nc /= 2) {
       int t = round_up(t0 / nc0 * nc, 32);
       while (2 * t <= kMaxThreads && cdiv(D, t / nc) > kOwnerDims) t *= 2;
       const int q = chunk_quantum(t / nc);
       for (int kc = chunk_start(K, q); kc >= q; kc -= q) {
-        if (4 * nuts_geom(E, P, true, false, D, K, nc, t, kc, xg != 0).floats(nuts::kMaxDepth) >
+        if (4 * nuts_geom(E, P, true, false, D, K, nc, t, kc, xg != 0).floats(nuts::kTileDepth) >
             kSmemBlock)
           continue;
         const bool onchip = 4 * nuts_geom(E, P, true, true, D, K, nc, t, kc, xg != 0)
-                                    .floats(nuts::kMaxDepth) <= kSmemBlock;
+                                    .floats(nuts::kTileDepth) <= kSmemBlock;
         const int floats = nuts_geom(E, P, true, onchip, D, K, nc, t, kc, xg != 0).floats(1);
         return {nc, t, chunked_minb(E, floats, t), true, onchip, kc, xg != 0};
       }
@@ -1613,10 +1633,15 @@ struct NutsLayout {
   __host__ __device__ static constexpr int floats(int max_depth) {
     return red(max_depth) + nuts::slots(max_depth) * T;
   }
-  static_assert(floats(nuts::kMaxDepth) == M.floats(nuts::kMaxDepth), "nuts_geom's floats");
+  static_assert(floats(nuts::kTileDepth) == M.floats(nuts::kTileDepth), "nuts_geom's floats");
 };
 
-template <int E, int D, int K, bool EMIT, bool BR, int P, bool PROF>
+// DEEP: the instance for trees past kTileDepth (the shared memory of the
+// layout at kTileDepth, the stack rows and span slots past it in a.scratch),
+// kept apart from the others: its accesses that branch between the two
+// memories cost trees to kTileDepth 11-17% (product of t with a mass,
+// PERF.md §6 PR 21)
+template <int E, int D, int K, bool EMIT, bool BR, int P, bool PROF, bool DEEP = false>
 __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>::MINB)
     nuts_mm_kernel(Args a) {
   using namespace nuts;
@@ -1636,14 +1661,35 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
   float* Y = sm + L::Y;
   float* IM = sm + L::MASS;  // [DP] M^-1, then [DP] sqrt(M)
   const int max_depth = a.m;
+  // the depth whose layout the shared memory holds
+  int chip_depth = max_depth;
+  if constexpr (DEEP) chip_depth = min(max_depth, kTileDepth);
   float* tree_s = sm + L::TREE;           // ONCHIP: [rows][DP][NC]
-  float* red = sm + L::red(max_depth);    // [slots][T]
+  float* red = sm + L::red(chip_depth);   // [slots][T]
   // KC: the intermediate's rows in chunks; XG: X, G and the mass in the
   // block's slice of a.scratch, after the parameter matrix and the tree
-  // state there (nuts_geom)
+  // state there (nuts_geom); DEEP: the tree rows past kTileDepth's where the
+  // rest are on chip (after the parameter matrix where OFF), and a block's
+  // span slots past kTileDepth's after the slices (ops/cuda_mjhmc.py,
+  // nuts_scratch_floats, mirrors this)
   constexpr int KC = L::KC;
   constexpr bool XG = L::XG;
-  if constexpr (XG) {
+  constexpr size_t kHead = OFF ? Params<D, K, P>::kFloats : 0;
+  float* deep_tree = nullptr;
+  float* deep_red = nullptr;
+  if constexpr (DEEP) {
+    const size_t tree_floats =
+        (size_t)(TL::ONCHIP ? deep_rows(max_depth) : rows(max_depth)) * DP * a.n;
+    const size_t slices = (kHead + tree_floats + 3) / 4 * 4;
+    deep_tree = a.scratch + kHead;
+    deep_red = a.scratch + slices + (XG ? (size_t)gridDim.x * L::SLICE : 0) +
+               (size_t)blockIdx.x * deep_rows(max_depth) * T;
+    if constexpr (XG) {
+      X = a.scratch + slices + (size_t)blockIdx.x * L::SLICE;
+      G = X + DP * NC;
+      IM = G + DP * NC;
+    }
+  } else if constexpr (XG) {
     const size_t tree_floats = TL::ONCHIP ? 0 : (size_t)rows(max_depth) * DP * a.n;
     X = a.scratch + (Params<D, K, P>::kFloats + tree_floats + 3) / 4 * 4 +
         (size_t)blockIdx.x * L::SLICE;
@@ -1681,8 +1727,36 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
     else
       return a.scratch[((size_t)rr * DP + i) * n + chain];
   };
-  auto put = [&](int s, float part) { red[s * T + tid] = part; };
-  auto col_sum = [&](int s) { return column_sum<T, NC>(red, s, c); };
+  // DEEP: the stack rows past kTileDepth's where the rest are on chip, and
+  // the span slots past kTileDepth's, in a.scratch. Each access below
+  // branches between the two memories, so that every load and store keeps
+  // its own address space (a reference that may point to either would
+  // take generic loads and stores at every leaf)
+  auto deep_row = [&](int rr) { return DEEP && TL::ONCHIP && rr >= rows(kTileDepth); };
+  auto deep_at = [&](int rr, int i) -> float& {
+    return deep_tree[((size_t)(rr - rows(kTileDepth)) * DP + i) * n + chain];
+  };
+  auto stack = [&](int rr, int i) -> float {
+    if (deep_row(rr)) return deep_at(rr, i);
+    return tree(rr, i);
+  };
+  auto set_stack = [&](int rr, int i, float v) {
+    if (deep_row(rr))
+      deep_at(rr, i) = v;
+    else
+      tree(rr, i) = v;
+  };
+  auto put = [&](int s, float part) {
+    if (DEEP && s >= slots(kTileDepth))
+      deep_red[(s - slots(kTileDepth)) * T + tid] = part;
+    else
+      red[s * T + tid] = part;
+  };
+  auto col_sum = [&](int s) {
+    if (DEEP && s >= slots(kTileDepth))
+      return column_sum<T, NC>(deep_red, s - slots(kTileDepth), c);
+    return column_sum<T, NC>(red, s, c);
+  };
   // acc + ((xa − xb)·w)·M^-1 of dim i (a U-turn projection's term)
   auto proj = [&](float acc, float xa, float xb, float w, int i) {
     return __fadd_rn(acc, __fmul_rn(__fmul_rn(__fsub_rn(xa, xb), w), im(i)));
@@ -1866,7 +1940,7 @@ MJHMC_MM_UNROLL_OWNED(NE)
 MJHMC_MM_UNROLL_OWNED(NE)
             for (int k = 0; k < NE; ++k) {
               const int i = dim(k);
-              const float sx = tree(row, i), sv = tree(row + 1, i);
+              const float sx = stack(row, i), sv = stack(row + 1, i);
               d1 = proj(d1, xt[k], sx, sv, i);
               d2 = proj(d2, xt[k], sx, vt[k], i);
             }
@@ -1913,8 +1987,8 @@ MJHMC_MM_UNROLL_OWNED(NE)
               tree(kGS, i) = gt[k];
             }
             for (int mm = 1; mm <= jj && (leaf & ((1 << mm) - 1)) == 0; ++mm) {
-              tree(kStack + 2 * (mm - 1), i) = xt[k];
-              tree(kStack + 2 * (mm - 1) + 1, i) = vt[k];
+              set_stack(kStack + 2 * (mm - 1), i, xt[k]);
+              set_stack(kStack + 2 * (mm - 1) + 1, i, vt[k]);
             }
           }
           prof.mark(kPhStack);
@@ -2010,14 +2084,16 @@ MJHMC_MM_UNROLL_OWNED(NE)
 
 // NUTS of energy E at (D, K) and precision P, run or stream (EMIT), without
 // (BR=false) or with an inverse mass; the PROF instance writes the breakdown
-// to a.prof. OFF: the parameter matrix into the head of a.scratch first
-template <int E, int D, int K, int P, bool EMIT, bool BR, bool PROF = false>
+// to a.prof; the DEEP instance (BR=true) takes the trees past kTileDepth,
+// and only those. OFF: the parameter matrix into the head of a.scratch first
+template <int E, int D, int K, int P, bool EMIT, bool BR, bool PROF = false, bool DEEP = false>
 cudaError_t launch_nuts(const Args& a, cudaStream_t stream) {
   using L = NutsLayout<E, D, K, P>;
   using TL = NutsTile<E, D, K, P>;
-  if ((!TL::ONCHIP || TL::OFF) && !a.scratch) return cudaErrorInvalidValue;
-  const int bytes = L::floats(a.m) * (int)sizeof(float);
-  void (*kernel)(Args) = nuts_mm_kernel<E, D, K, EMIT, BR, P, PROF>;
+  if ((a.m > nuts::kTileDepth) != DEEP || ((!TL::ONCHIP || TL::OFF || DEEP) && !a.scratch))
+    return cudaErrorInvalidValue;
+  const int bytes = L::floats(DEEP ? nuts::kTileDepth : a.m) * (int)sizeof(float);
+  void (*kernel)(Args) = nuts_mm_kernel<E, D, K, EMIT, BR, P, PROF, DEEP>;
   // above 48 KB a block's shared memory must be asked for
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -2075,11 +2151,15 @@ cudaError_t tile_of(int* out) {
 // Step body VAR of energy E at (D, K) and precision P, run or stream (emit):
 // MJHMC and NUTS without a mass and with the leapfrog take their fast-path
 // instances (BR=false; NUTS takes no other integrator), the rest the BR=true
-// ones. Only VAR's kernels are instantiated.
+// ones; NUTS trees past nuts::kTileDepth its DEEP ones. Only VAR's kernels
+// are instantiated.
 template <int E, int D, int K, int P, int VAR>
 cudaError_t launch_body_at(const Args& a, bool emit, cudaStream_t s) {
   const bool fast = !a.mass && !a.two_stage;
   if constexpr (VAR == kNuts) {
+    if (a.m > nuts::kTileDepth)
+      return emit ? launch_nuts<E, D, K, P, true, true, false, true>(a, s)
+                  : launch_nuts<E, D, K, P, false, true, false, true>(a, s);
     if (fast)
       return emit ? launch_nuts<E, D, K, P, true, false>(a, s)
                   : launch_nuts<E, D, K, P, false, false>(a, s);
@@ -2129,7 +2209,10 @@ cudaError_t launch_mm_prof(const Args& a, cudaStream_t s) {
 // holds at once (the card's occupancy query, which counts registers too);
 // then, as tile_of's out[4..6], the device buffer it indexes: floats of a
 // block's slice, the parameter matrix's floats, and the tree state's floats
-// a chain where it is off chip
+// a chain where it is off chip; out[7] a block's span slots there. Past
+// kTileDepth it is the DEEP instance's tile, as those launches run: the
+// layout at kTileDepth, the tree rows past it where the rest are on chip,
+// and the span slots past it (0 up to kTileDepth)
 template <int E, int P>
 cudaError_t launch_nuts_prof(const Args& a, cudaStream_t s) {
   return launch_nuts<E, Shape<E>::D, Shape<E>::K, P, false, false, true>(a, s);
@@ -2137,13 +2220,16 @@ cudaError_t launch_nuts_prof(const Args& a, cudaStream_t s) {
 template <int E, int D, int K, int P>
 cudaError_t nuts_tile_at(int max_depth, int* out) {
   using L = NutsLayout<E, D, K, P>;
+  const bool deep = max_depth > nuts::kTileDepth;
   out[0] = L::NC;
   out[1] = L::T;
-  out[2] = L::floats(max_depth) * (int)sizeof(float);
+  out[2] = L::floats(deep ? nuts::kTileDepth : max_depth) * (int)sizeof(float);
   out[4] = L::SLICE;
   out[5] = L::TL::OFF ? Params<D, K, P>::kFloats : 0;
-  out[6] = L::TL::ONCHIP ? 0 : nuts::rows(max_depth) * L::DP;
-  void (*kernel)(Args) = nuts_mm_kernel<E, D, K, false, false, P, false>;
+  out[6] = (L::TL::ONCHIP ? nuts::deep_rows(max_depth) : nuts::rows(max_depth)) * L::DP;
+  out[7] = nuts::deep_rows(max_depth) * L::T;
+  void (*kernel)(Args) = deep ? nuts_mm_kernel<E, D, K, false, true, P, false, true>
+                              : nuts_mm_kernel<E, D, K, false, false, P, false>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[2]);
   if (err != cudaSuccess) return err;
@@ -2153,7 +2239,6 @@ template <int E, int P>
 cudaError_t nuts_tile(int max_depth, int* out) {
   return nuts_tile_at<E, Shape<E>::D, Shape<E>::K, P>(max_depth, out);
 }
-
 // The precision sweep's instances: the MJHMC leapfrog run without a mass
 // of energy E at the preset's shape and precision P (anything else is
 // refused)

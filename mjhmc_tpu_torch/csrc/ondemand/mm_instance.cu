@@ -9,7 +9,8 @@
 // precision) the library has no instance for is launched, as a Pallas
 // kernel is traced at the shape it is called at: MJHMC's and NUTS's
 // instances with and without the branches, run and stream; control's and
-// MALT's one each. The tile rule (TileRule) picks the tile and whether the
+// MALT's one each, and NUTS's DEEP run and stream (trees past
+// nuts::kTileDepth). The tile rule (TileRule) picks the tile and whether the
 // parameter matrix fits on chip; the macro states the mode the wrappers'
 // mirror (cuda_mjhmc.mm_tile_rule, nuts_mm_tile_rule) expects (and the
 // chunk and the X/G mode), and a build whose rule disagrees fails. Its C entries take the library's arguments

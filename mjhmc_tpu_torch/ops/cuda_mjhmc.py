@@ -89,12 +89,23 @@ NEG_INF = -1e30
 #: the uniform every draw takes in fixed-uniform mode (Pallas interpret mode
 #: returns zero bits, and _uniform turns those into 2⁻²⁵)
 FIXED_UNIFORM = 2.0**-25
-#: deepest tree each NUTS kernel holds a U-turn stack for: the elementwise
-#: kernel's (csrc/mjhmc_engine.cuh, nuts::kMaxDepth) and the matmul kernel's
-#: (csrc/mjhmc_mm_engine.cuh)
-NUTS_MAX_DEPTH = 12
-NUTS_MM_MAX_DEPTH = 12
+#: deepest tree each NUTS kernel takes: the elementwise kernel's
+#: (csrc/mjhmc_engine.cuh, nuts::kMaxDepth) and the matmul kernel's
+#: (csrc/mjhmc_mm_engine.cuh). A tree of max_depth 31 has 2^31 − 1 leaves,
+#: and its leaf counts and tree positions fit an int32, as the JAX kernel's
+#: are; past it those would wrap, so the kernels refuse
+NUTS_MAX_DEPTH = 31
+NUTS_MM_MAX_DEPTH = 31
+#: the depth at which the matmul NUTS tile rule fits the layout on chip
+#: (nuts::kTileDepth); a deeper tree runs on the same tile, on the DEEP
+#: instance (compiled beside the others of the body), with its stack rows and
+#: span slots past this depth in the device buffer (``nuts_scratch``)
+NUTS_MM_TILE_DEPTH = 12
 NUTS_DIV_THRESHOLD = 1000.0
+#: tree positions whose leaf draws the plain NUTS makes in one Philox pass
+#: (a multiple of 4: whole leaf slots), and the leaves between its tests
+#: whether any chain of a round is still live
+NUTS_LEAF_WORDS, NUTS_LIVE_CHECK = 256, 16
 #: Philox counter tags (csrc/philox.cuh)
 TAG_NUTS_MOMENTUM, TAG_NUTS_ROUND, TAG_NUTS_LEAF = 1, 2, 3
 TAG_CONTROL, TAG_MALT_REFRESH, TAG_MALT_NOISE, TAG_MALT_PAIRS = 4, 5, 6, 7
@@ -830,6 +841,18 @@ def philox_block(seed: int, nbatch: int, t: int, slot: int, tag: int, device) ->
     return philox4x32((chains, t, slot, tag), (int(seed) & _MASK32, 0))
 
 
+def philox_words(seed: int, nbatch: int, t: int, slots: range, tag: int, device) -> Tensor:
+    """The words of counters (chain, t, slot, tag) for every slot of
+    ``slots`` and chain, (4·len(slots), nbatch) int64: word k of the draw
+    family at row k − 4·slots.start (output k % 4 of slot k // 4), as
+    ``philox_block`` gives them one slot at a time."""
+    kw = dict(dtype=torch.int64, device=device)
+    words = philox4x32((torch.arange(nbatch, **kw)[None, :], t,
+                        torch.arange(slots.start, slots.stop, **kw)[:, None], tag),
+                       (int(seed) & _MASK32, 0))
+    return torch.stack(words, dim=1).reshape(4 * len(slots), nbatch)
+
+
 def philox_uniforms(seed: int, iterations: range, nbatch: int, nwords: int,
                     device, tag: int = 0) -> Tensor:
     """(len(iterations), nwords, nbatch) float32 uniforms in (0, 1) of the
@@ -1264,6 +1287,14 @@ def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             return (None,) * 4
         return philox_block(seed, n, t, slot, tag, dev)
 
+    def leaf_words(t, k):
+        """The words of tree positions k .. k + NUTS_LEAF_WORDS − 1 (k a
+        multiple of 4), NUTS_LEAF_WORDS / 4 leaf slots drawn in one pass."""
+        if fixed_uniform:
+            return None
+        return philox_words(seed, n, t, range(k // 4, (k + NUTS_LEAF_WORDS) // 4),
+                            TAG_NUTS_LEAF, dev)
+
     acc = _Acc(x, u, thin, emit)
     ones = torch.ones_like(u)
     v0 = v
@@ -1298,7 +1329,10 @@ def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
             sx, sv = [None] * jj, [None] * jj
             for i in range(1 << jj):
                 act = ~done & ~stop
-                if not bool(act.any()):
+                # a leaf where no chain is live changes nothing, so the
+                # host waits on the device for this test once in
+                # NUTS_LIVE_CHECK leaves only
+                if i % NUTS_LIVE_CHECK == 0 and not bool(act.any()):
                     break
                 vh = vc - he * gc
                 xn = xc + epsilon * (vh if im is None else im * vh)
@@ -1315,9 +1349,10 @@ def _reference_nuts(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
                 lw_leaf = torch.where(act & ~div, -dh, NEG_INF)
                 lw_new = _logaddexp(log_w_sub, lw_leaf)
                 k = (1 << jj) - 1 + i
-                if i == 0 or k % 4 == 0:
-                    bits = draw(t, k // 4, TAG_NUTS_LEAF)
-                lu = torch.log(unif(bits[k % 4]))
+                if i == 0 or k % NUTS_LEAF_WORDS == 0:
+                    k_words = k - k % 4
+                    words = leaf_words(t, k_words)
+                lu = torch.log(unif(None if fixed_uniform else words[k - k_words]))
                 take = act & ~div & (lu < lw_leaf - lw_new)
                 xs, us, gs = (torch.where(take, a, b) for a, b in ((xc, xs), (ul, us), (gc, gs)))
                 log_w_sub = torch.where(act, lw_new, log_w_sub)
@@ -1645,8 +1680,11 @@ class NutsGeometry(NamedTuple):
     slice: int = 0
 
     def floats(self, max_depth: int) -> int:
-        tree = nuts_scratch_rows(max_depth) * self.dp * self.chains if self.onchip else 0
-        return self.tree + tree + (5 + 2 * (max_depth - 1)) * self.threads
+        """Shared floats a block at ``max_depth`` (past NUTS_MM_TILE_DEPTH,
+        the layout at it)."""
+        m = min(max_depth, NUTS_MM_TILE_DEPTH)
+        tree = nuts_scratch_rows(m) * self.dp * self.chains if self.onchip else 0
+        return self.tree + tree + (5 + 2 * (m - 1)) * self.threads
 
 
 def nuts_mm_geometry(spec, chains: int, threads: int, off: bool, onchip: bool,
@@ -1671,10 +1709,11 @@ def nuts_mm_geometry(spec, chains: int, threads: int, off: bool, onchip: bool,
 
 def nuts_mm_tile_rule(spec) -> TileRule:
     """The matmul NUTS kernel's tile on the spec at its shape and precision
-    (nuts_rule; the layout at max_depth 12 must fit, the tree state on chip
-    where it fits there too). Every shape has one, as ``mm_tile_rule``'s."""
+    (nuts_rule; the layout at NUTS_MM_TILE_DEPTH must fit, the tree state on
+    chip where it fits there too; every depth runs on this tile). Every
+    shape has one, as ``mm_tile_rule``'s."""
     nc0, t0, _ = _BASE_TILES[type(spec)]
-    top = NUTS_MM_MAX_DEPTH
+    top = NUTS_MM_TILE_DEPTH
     for off in (False, True):
         nc = nc0
         while nc >= 8:
@@ -1708,17 +1747,30 @@ def nuts_mm_geometry_of(spec) -> NutsGeometry:
                             rule.xg_off)
 
 
+def nuts_deep_rows(max_depth: int) -> int:
+    """The stack rows a chain and the span slots a thread that a launch
+    past NUTS_MM_TILE_DEPTH keeps in the device buffer: x and v, and the two
+    U-turn projections, of each span of 2^mm leaves, mm ≥ the tile depth
+    (mirror of nuts::deep_rows)."""
+    return 2 * max(0, max_depth - NUTS_MM_TILE_DEPTH)
+
+
 def nuts_scratch_floats(spec, max_depth: int, n: int) -> int:
     """Floats of the matmul NUTS kernel's device buffer for ``n`` chains:
     the parameter matrix where it is off chip (``param_floats``), the tree
-    state (rows, DP, n) where it is not in shared memory, then, where X and
-    G live there, each block's slice (16-byte aligned); 0 where none."""
+    state (rows, DP, n) where it is not in shared memory (else, past
+    NUTS_MM_TILE_DEPTH, its stack rows past it), then, where X and G live
+    there, each block's slice (16-byte aligned), then, past
+    NUTS_MM_TILE_DEPTH, each block's span slots past it ([slot][threads],
+    after the same alignment); 0 where none."""
     rule = nuts_mm_tile_rule(spec)
     geom = nuts_mm_geometry_of(spec)
-    floats = ((param_floats(spec) if rule.off else 0)
-              + (0 if rule.onchip else nuts_scratch_rows(max_depth) * geom.dp * n))
-    if rule.xg_off:
-        floats = _round_up(floats, 4) + _cdiv(n, rule.chains) * geom.slice
+    deep = nuts_deep_rows(max_depth)
+    rows = deep if rule.onchip else nuts_scratch_rows(max_depth)
+    floats = (param_floats(spec) if rule.off else 0) + rows * geom.dp * n
+    if rule.xg_off or deep:
+        floats = _round_up(floats, 4) + _cdiv(n, rule.chains) * (
+            (geom.slice if rule.xg_off else 0) + deep * rule.threads)
     return floats
 
 
@@ -1727,13 +1779,13 @@ def nuts_scratch(spec, max_depth: int, n: int, device) -> Tensor | None:
     the tree state (rows, DP, n) where it alone is there, else flat; None
     where the tile needs none."""
     rule = nuts_mm_tile_rule(spec)
-    if not rule.off:
-        if rule.onchip:
-            return None
+    floats = nuts_scratch_floats(spec, max_depth, n)
+    if not floats:
+        return None
+    if not rule.off and not rule.onchip and not nuts_deep_rows(max_depth):
         tree = (nuts_scratch_rows(max_depth), nuts_mm_geometry_of(spec).dp, n)
         return torch.empty(tree, dtype=torch.float32, device=device)
-    return torch.empty((nuts_scratch_floats(spec, max_depth, n),), dtype=torch.float32,
-                       device=device)
+    return torch.empty((floats,), dtype=torch.float32, device=device)
 
 
 def nuts_mm_smem_bytes(spec, max_depth: int) -> int:
@@ -1743,7 +1795,7 @@ def nuts_mm_smem_bytes(spec, max_depth: int) -> int:
     at "highest", else its bf16 A fragments; none off chip), the patch, X
     and G, Y and Z (no Z at sparse coding), the mass, the tree state where
     it is on chip, and the column sums' partials (5 + 2(max_depth − 1) slots
-    of one float a thread)."""
+    of one float a thread); past NUTS_MM_TILE_DEPTH, the bytes at it."""
     return 4 * nuts_mm_geometry_of(spec).floats(max_depth)
 
 
@@ -1771,7 +1823,7 @@ def _launch(spec, x, v, g, u, h_back, back_valid, seed, epsilon, beta,
     if variant == "nuts" and not 1 <= m <= cap:
         raise NotImplementedError(
             f"the {'matmul' if matmul else 'elementwise'} NUTS kernel holds trees of "
-            f"max_depth 1..{cap}, not {m}")
+            f"max_depth 1..{cap} (2^max_depth − 1 leaves fit an int32), not {m}")
     if x.device.type != "cuda":
         raise ValueError(
             f"the CUDA engine takes cuda tensors (or cpu ones for its plain "
@@ -2029,10 +2081,10 @@ NUTS_PROF_PHASES = ("kick_drift", "contraction_1", "contraction_2", "energy_half
 
 
 def _nuts_tile_report(entries: MmEntries, spec, max_depth: int) -> tuple:
-    """All seven numbers the NUTS tile entry writes (``nuts_mm_tile``'s
+    """All eight numbers the NUTS tile entry writes (``nuts_mm_tile``'s
     four, then its device buffer's: floats of a block's slice, the
-    parameter matrix's, the tree state's a chain)."""
-    out = (ctypes.c_int * 7)()
+    parameter matrix's, the tree state's a chain, a block's span slots)."""
+    out = (ctypes.c_int * 8)()
     rc = entries.nuts_tile(spec.energy_id, PRECISIONS.index(spec.precision), max_depth, out)
     if rc != 0:
         raise RuntimeError(f"mjhmc_mm_nuts_tile: no NUTS instance of {type(spec).__name__} "
@@ -2112,7 +2164,8 @@ def _check_buffer(entries: MmEntries, spec, variant: str, branches: bool, max_de
     aligned before the slices), then a slice a block where X and G live
     there. The mirror sizes the buffer (``mm_scratch``, ``nuts_scratch``);
     this holds it to the compiled layout, so that a drift between the two
-    raises instead of writing past the buffer."""
+    raises instead of writing past the buffer. Past NUTS_MM_TILE_DEPTH, the
+    span slots a block follow (16-byte aligned, after the slices)."""
     nuts = variant == "nuts"
     entry = ctypes.cast(entries.nuts_tile if nuts else entries.tile, ctypes.c_void_p).value
     key = (entry, spec.energy_id, mm_shape(spec), spec.precision, variant, branches,
@@ -2120,10 +2173,12 @@ def _check_buffer(entries: MmEntries, spec, variant: str, branches: bool, max_de
     if key not in _TILE_REPORTS:
         _TILE_REPORTS[key] = (_nuts_tile_report(entries, spec, max_depth) if nuts
                               else _tile_report(entries, spec, variant, branches))
-    chains, slice_, params, tree = (_TILE_REPORTS[key][i] for i in (0, 4, 5, 6))
+    report = _TILE_REPORTS[key]
+    chains, slice_, params, tree = (report[i] for i in (0, 4, 5, 6))
+    slots = report[7] if nuts else 0
     want = params + tree * n
-    if slice_:
-        want = (_round_up(want, 4) if nuts else want) + _cdiv(n, chains) * slice_
+    if slice_ or slots:
+        want = (_round_up(want, 4) if nuts else want) + _cdiv(n, chains) * (slice_ + slots)
     have = 0 if scratch is None else scratch.numel()
     if have != want:
         raise RuntimeError(
@@ -2151,7 +2206,7 @@ def mm_profile(spec, variant, x, v, g, u, seed, epsilon, beta, num_iters, m) -> 
 #: each wrapper's launch counts: one per step body (``launches`` is MJHMC's,
 #: ``stub_launches`` the stubbed matmul kernel's), and the launches that
 #: took the two-stage integrator or an inverse mass, NUTS's at max_depth 11
-#: or 12, (matmul kernel, not the stub) those at each dot precision and
+#: or deeper, (matmul kernel, not the stub) those at each dot precision and
 #: those made for a rank of a chain mesh (``sharded_cuda_mjhmc_run``),
 #: counted besides
 COUNTS = ("launches", "control_launches", "malt_launches", "nuts_launches",
@@ -2449,8 +2504,9 @@ class CudaMJHMC:
 @dataclasses.dataclass
 class CudaNUTS(CudaMJHMC):
     """Fused NUTS engine (counterpart of ``PallasNUTS``), on either kernel:
-    ``num_leapfrog_steps`` is max_depth (default 8, at most 12 on either
-    kernel: ``NUTS_MAX_DEPTH``, ``NUTS_MM_MAX_DEPTH``), ``beta`` is unused. Emissions are post-transition
+    ``num_leapfrog_steps`` is max_depth (default 8, at most 31 on either
+    kernel, ``NUTS_MAX_DEPTH``, ``NUTS_MM_MAX_DEPTH``: 2^31 − 1 leaves, whose
+    counts fit an int32), ``beta`` is unused. Emissions are post-transition
     positions with weight 1; ``evals`` counts the integrated leaves of each
     chain exactly."""
 

@@ -198,7 +198,8 @@ def test_tile_rule_fits_and_goes_off_chip_only_where_it_must(label):
             assert rule.off == (label == "sparse_coding 288x144"
                                 and spec.precision in ("highest", "bf16x3"))
         rule = cm.nuts_mm_tile_rule(spec)
-        assert cm.nuts_mm_smem_bytes(spec, cm.NUTS_MM_MAX_DEPTH) <= cm.SMEM_BLOCK
+        at12 = cm.nuts_mm_smem_bytes(spec, cm.NUTS_MM_TILE_DEPTH)
+        assert at12 <= cm.SMEM_BLOCK and cm.nuts_mm_smem_bytes(spec, 31) == at12
         assert rule.off == (label == "sparse_coding 288x144"
                             and spec.precision in ("highest", "bf16x3"))
     if label == "sparse_coding 200x100":  # on chip only with a smaller tile

@@ -78,7 +78,8 @@ def test_chunked_tiles_at_the_slice_shapes(label, precision):
             assert g.columns == 8 and g.slice == g.dp * (g.ld + g.columns + 2)
     rule = cm.nuts_mm_tile_rule(spec)
     assert rule.off and rule.chunk > 0 and rule.xg_off == xg and rule.chunk % 16 == 0
-    assert cm.nuts_mm_smem_bytes(spec, cm.NUTS_MM_MAX_DEPTH) <= cm.SMEM_BLOCK
+    at12 = cm.nuts_mm_smem_bytes(spec, cm.NUTS_MM_TILE_DEPTH)
+    assert at12 <= cm.SMEM_BLOCK and cm.nuts_mm_smem_bytes(spec, 31) == at12
     if xg:
         assert rule.chains == 8 and not rule.onchip
 

@@ -187,10 +187,11 @@ def test_matmul_nuts_routes_and_refuses():
     with pytest.raises(NotImplementedError, match="leapfrog"):
         cm.CudaNUTS(td, integrator="two_stage", device="cpu")
     meta = tuple(t.to("meta") for t in ts)
-    with pytest.raises(NotImplementedError, match="max_depth 1..12"):
-        cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, 13, variant="nuts")
-    with pytest.raises(ValueError, match="cuda tensors"):
-        cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, 4, variant="nuts")
+    with pytest.raises(NotImplementedError, match="max_depth 1..31"):
+        cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, 32, variant="nuts")
+    for depth in (4, 13):
+        with pytest.raises(ValueError, match="cuda tensors"):
+            cm.cuda_mjhmc_mm_run(tspec, *meta, 5, 0.12, 0.0, 2, depth, variant="nuts")
     assert cm.nuts_scratch_rows(8) == 22  # 6 endpoint rows, 2 proposal rows, 2·7 stack rows
 
 
@@ -216,9 +217,12 @@ def _preset_spec(name, precision=None):
 def test_nuts_scratch_only_where_the_tree_leaves_shared_memory(name):
     """The wrapper allocates the NUTS tree state in device memory, (rows, d,
     n), for sparse coding only (11 KB a chain at max_depth 8); product of t
-    and logreg keep it in shared memory and get none, at every depth."""
+    and logreg keep it in shared memory and get none, at every depth to the
+    tile depth (12). Past it every preset's buffer holds the stack rows past
+    12 (sparse coding's tree state grows by them), then each block's span
+    slots past 12, flat."""
     spec = _preset_spec(name)
-    for depth in range(1, cm.NUTS_MM_MAX_DEPTH + 1):
+    for depth in range(1, cm.NUTS_MM_TILE_DEPTH + 1):
         scratch = cm.nuts_scratch(spec, depth, 100, "meta")
         if name == "sparse_coding":
             assert scratch.shape == (cm.nuts_scratch_rows(depth), 128, 100)
@@ -226,6 +230,16 @@ def test_nuts_scratch_only_where_the_tree_leaves_shared_memory(name):
         else:
             assert scratch is None
     assert cm.nuts_mm_tile_rule(spec).onchip == (name != "sparse_coding")
+    rule = cm.nuts_mm_tile_rule(spec)
+    dp = cm.nuts_mm_geometry_of(spec).dp
+    for depth in (13, 14, cm.NUTS_MM_MAX_DEPTH):
+        deep = 2 * (depth - 12)
+        rows = cm.nuts_scratch_rows(depth) if name == "sparse_coding" else deep
+        tree = rows * dp * 100
+        want = -(-tree // 4) * 4 + -(-100 // rule.chains) * deep * rule.threads
+        scratch = cm.nuts_scratch(spec, depth, 100, "meta")
+        assert cm.nuts_deep_rows(depth) == deep
+        assert scratch.shape == (want,) and scratch.dtype == torch.float32
 
 
 @pytest.mark.parametrize("name,precision", NUTS_INSTANCES,

@@ -51,19 +51,20 @@ SMS, PRESET_CHAINS = 132, (1024, 2048, 4096, 10_240, 102_400)
 @pytest.mark.parametrize("spec,d", INSTANCES, ids=[f"{s.__name__}-{d}" for s, d in INSTANCES])
 def test_tree_rows_fit_shared_memory_or_scratch(spec, d):
     """Up to 10 dims the tree rows of a one-warp block stay under a block's
-    227 KB at every depth up to the cap, four blocks fit an SM even at the
-    cap, the bytes grow with the depth, and no scratch is allocated; past
-    10 dims (16, 50, 128) they take no shared memory and a (rows, d, n)
-    scratch buffer in device memory instead."""
+    227 KB at every depth up to the cap (31: 96,000 bytes at D 10), four
+    blocks fit an SM up to max_depth 12, the bytes grow with the depth, and
+    no scratch is allocated; past 10 dims (16, 50, 128) they take no shared
+    memory and a (rows, d, n) scratch buffer in device memory instead."""
     assert cm.NUTS_THREADS == 32
     rows = [cm.nuts_tree_rows(depth) for depth in range(1, cm.NUTS_MAX_DEPTH + 1)]
     assert rows[0] == 15 and all(b - a == 2 for a, b in zip(rows, rows[1:]))
+    assert rows[-1] == 75 and cm.NUTS_MAX_DEPTH == 31
     for depth in range(1, cm.NUTS_MAX_DEPTH + 1):
         full = cm.nuts_smem_bytes(d, cm.NUTS_THREADS, depth)
         scratch = cm.nuts_tree_scratch(d, depth, 100, "meta")
         if d <= cm.NUTS_ON_CHIP_DIMS:
             assert full == cm.nuts_tree_rows(depth) * d * cm.NUTS_THREADS * 4 < SMEM_BLOCK
-            assert 4 * (full + SMEM_RESERVED) <= SMEM_SM
+            assert depth > 12 or 4 * (full + SMEM_RESERVED) <= SMEM_SM
             assert cm.nuts_smem_bytes(d, 1, depth) * cm.NUTS_THREADS == full
             assert scratch is None
         else:
@@ -96,32 +97,41 @@ def test_blocks_follow_the_schedule(n):
 
 
 def test_depth_caps_per_kernel():
-    """Both kernels take trees to max_depth 12 and refuse 13, each with its
-    own message."""
-    assert (cm.NUTS_MAX_DEPTH, cm.NUTS_MM_MAX_DEPTH) == (12, 12)
+    """Both kernels take trees to max_depth 31 (2^31 − 1 leaves, whose
+    counts fit an int32) and refuse 32, each with its own message naming the
+    int32 edge."""
+    assert (cm.NUTS_MAX_DEPTH, cm.NUTS_MM_MAX_DEPTH) == (31, 31)
     g = tmodels.Gaussian(ndims=2, log_conditioning=1.0)
     spec = cm.energy_spec_for(g)
     x = torch.zeros((2, 64), device="meta")
     z = torch.zeros(64, device="meta")
     st = (x, x, x, z, z, z)
-    for depth in (11, 12):  # past the cap check, then refused for the device
+    for depth in (11, 12, 13, 31):  # past the cap check, then refused for the device
         with pytest.raises(ValueError, match="cuda tensors"):
             cm.cuda_mjhmc_run(spec, *st, 5, 0.1, 0.0, 2, depth, variant="nuts")
-    with pytest.raises(NotImplementedError, match="elementwise NUTS kernel .* max_depth 1..12"):
-        cm.cuda_mjhmc_run(spec, *st, 5, 0.1, 0.0, 2, 13, variant="nuts")
-    with pytest.raises(NotImplementedError, match="max_depth 1..12"):
+        with pytest.raises(ValueError, match="cuda tensors"):
+            cm.cuda_mjhmc_stream_run(spec, *st, 5, 0.1, 0.0, 2, 1, depth, variant="nuts")
+    edge = r"max_depth 1..31 \(2\^max_depth − 1 leaves fit an int32\), not 32"
+    with pytest.raises(NotImplementedError, match="elementwise NUTS kernel .* " + edge):
+        cm.cuda_mjhmc_run(spec, *st, 5, 0.1, 0.0, 2, 32, variant="nuts")
+    with pytest.raises(NotImplementedError, match=edge):
+        cm.cuda_mjhmc_stream_run(spec, *st, 5, 0.1, 0.0, 2, 1, 32, variant="nuts")
+    with pytest.raises(NotImplementedError, match="max_depth 1..31"):
         cm.cuda_mjhmc_stream_run(spec, *st, 5, 0.1, 0.0, 2, 1, 0, variant="nuts")
     for mspec in (cm.energy_spec_for(tmodels.ProductOfT()),
                   cm.energy_spec_for(tmodels.SparseCoding())):
         xm = torch.zeros((mspec.dist.ndims, 64), device="meta")
-        for depth in (11, 12):
+        for depth in (11, 12, 13, 31):
             with pytest.raises(ValueError, match="cuda tensors"):
                 cm.cuda_mjhmc_mm_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, depth,
                                      variant="nuts")
-        with pytest.raises(NotImplementedError, match="matmul NUTS kernel .* max_depth 1..12"):
-            cm.cuda_mjhmc_mm_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, 13, variant="nuts")
-        with pytest.raises(NotImplementedError, match="max_depth 1..12"):
-            cm.cuda_mjhmc_mm_stream_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, 1, 13,
+            with pytest.raises(ValueError, match="cuda tensors"):
+                cm.cuda_mjhmc_mm_stream_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, 1,
+                                            depth, variant="nuts")
+        with pytest.raises(NotImplementedError, match="matmul NUTS kernel .* " + edge):
+            cm.cuda_mjhmc_mm_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, 32, variant="nuts")
+        with pytest.raises(NotImplementedError, match=edge):
+            cm.cuda_mjhmc_mm_stream_run(mspec, xm, xm, xm, z, z, z, 5, 0.12, 0.0, 2, 1, 32,
                                         variant="nuts")
 
 
