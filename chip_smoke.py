@@ -97,8 +97,13 @@ phase 43's statistics), and each instance's ms an iteration. Phase 44 runs
 the matmul engine past one block's shared memory (``PAST_SHAPES``): logistic
 regression at LIBSVM a9a's shape (124 × 32,561, k rows in chunks) and sparse
 coding at 1,024 × 4,096 (k in chunks, X, G and the mass in the device
-buffer), every body run and stream against its plain version with phase
-43's allowances (NUTS at max_depth 4, logreg also 8), JAX's Laplace oracle
+buffer; a9a's tiles at "default" keep a ring of chunks in shared memory
+and, with few chains, split one tile over a thread block cluster), their
+tiles with each launch's cluster size and the clusters the card holds,
+every body run and stream against its plain version with phase 43's
+allowances (NUTS at max_depth 4, logreg also 8; each run launched twice,
+one hash of its outputs; a9a's control also at "bf16x3", a split tile with
+lo fragments, one iteration), JAX's Laplace oracle
 and phase 43's moments check at those shapes, each
 instance's ms an iteration (first, alone on the card), and the dictionary
 learner on the card, and a9a's tree at max_depth 13, whose plain runs (three
@@ -1467,7 +1472,10 @@ def mm_nuts_checks(cm):
 #: buffer) and at 12 (the instances every tree to 12 without a mass runs: product of t at `highest` and sparse coding's
 #: scratch tile at `bf16x3` fixed-uniform at the ε of the parent's depth-12
 #: cases, and product of t `default`'s timed launch): (config, precision,
-#: fixed-uniform, chains, ε, max_depth), one iteration each. The depth-14
+#: fixed-uniform, chains, ε, max_depth), one iteration each. Product of t
+#: runs at 14 in Philox mode only: its fixed-uniform tree at 14 (16,383
+#: leaves at ε 0.00025) was the phase's longest plain run, and the same
+#: DEEP instance runs its Philox case and the timed launches. The depth-14
 #: trees span the time the depth-12 cases' did (ε a quarter of theirs): at
 #: product of t's ε 0.001 the fixed-uniform trees' 16,383 leaves carry the
 #: chains so far into the tails that one-ulp nudges of x alone move 13 of
@@ -1479,7 +1487,6 @@ def mm_nuts_checks(cm):
 #: at the cap, 4 turned in round 12; sparse coding, over two of its tiles
 #: at a smaller ε, 9 of 32 at the cap, none short of round 13)
 MM_NUTS_DEEP = (("product_of_t", "highest", False, 16, 0.0005, MM_DEEP_DEPTH),
-                ("product_of_t", "default", True, 16, 0.00025, MM_DEEP_DEPTH),
                 ("product_of_t", "default", False, 16, 0.0005, MM_DEEP_DEPTH),
                 ("sparse_coding", "bf16x3", True, 16, 0.0005, MM_DEEP_DEPTH),
                 ("sparse_coding", "bf16x3", False, 32, 0.000005, MM_DEEP_DEPTH),
@@ -5105,13 +5112,17 @@ def any_mm_builds(_build, done, card, name="43 any (d, k)"):
     return seconds
 
 
-def any_mm_tiles(cm, card, cases=None, name="43 any (d, k)"):
+def any_mm_tiles(cm, card, cases=None, name="43 any (d, k)", chains=None):
     """Each on-demand instance's tile as it reports it against the tile
     rule's mirror: mm_kernel's (chains, threads, shared bytes) with and
     without the branches, NUTS's at max_depth 1, 8, 12 and 31 (past 12 the
     DEEP instance's tile, as those trees run); the blocks an SM
     holds at least 1; of phase 43's (``cases`` None), the parameter matrix
-    off chip at (288, 144) only."""
+    off chip at (288, 144) only. A tile with a ring (its stages and whether
+    it may split, as the instance reports them, against the mirror's): the
+    clusters of 2, 4, 8 and 16 CTAs the card holds at once
+    (cudaOccupancyMaxActiveClusters) and the cluster size and mode of its
+    launch at ``chains[label]`` chains and at one tile (``cm.cluster_of``)."""
     tiles = {}
     for label, _, spec, body, _, _ in any_mm_cases(cm) if cases is None else cases:
         key = f"{label} {spec.precision} {body}"
@@ -5136,7 +5147,18 @@ def any_mm_tiles(cm, card, cases=None, name="43 any (d, k)"):
         tiles[f"{key} parameter matrix"] = "device memory" if rule.off else "shared memory"
         if rule.chunk:
             tiles[f"{key} chunk"] = (f"{rule.chunk} rows, X and G in "
-                                     f"{'device memory' if rule.xg_off else 'shared memory'}")
+                                     f"{'device memory' if rule.xg_off else 'shared memory'}"
+                                     + (f", a ring of {rule.stages} stages" if rule.stages else ""))
+        for nc in ((chains or {}).get(label, rule.chains), rule.chains) if rule.stages else ():
+            cl = cm.cluster_of(spec, body, nc, PAST_DEEP_DEPTH if nc == rule.chains else 12)
+            splits = cm.nuts_splits(rule) if body == "nuts" else cm.mm_splits(rule)
+            check(cl is not None and cl["stages"] == rule.stages and cl["splits"] == splits
+                  and (cl["c"] == 1 or cl["held"][cl["c"]] >= 1), f"{key}: the instance's "
+                  f"cluster {cl}, the mirror's {rule.stages} stages, split {splits}")
+            tiles[f"{key} cluster at {nc} chains"] = (
+                (f"clusters of {cl['c']} CTAs, one tile split over each" if cl['split']
+                 else "a CTA a tile") + f", grid {cl['grid']}; clusters the card holds of 2/4/8/16: "
+                f"{'/'.join(str(v) for v in cl['held'].values())}")
     phase(name, f"on-demand tiles (chains, threads, shared bytes a block, blocks an "
           f"SM), instance = mirror: {json.dumps(tiles)} [{card}]")
 
@@ -5217,7 +5239,7 @@ def start_any_mm_deep(cm):
 
 def any_mm_checks(cm, card, deep, cases=None, n=ANY_MM_CHAINS, held=ANY_MM_ITERS[0],
                   nuts_depth=ANY_MM_NUTS_DEPTH, name="43 any (d, k)", start=initial_state,
-                  deeper=None, philox=True):
+                  deeper=None, philox=True, repeat=False):
     """Phase 43: every on-demand instance, run and stream kernels, against
     its plain version on the card at ANY_MM_CHAINS chains, from v ~ N(0, I):
     first U and the gradient at ε = 0 (``any_mm_energy_check``: U to f32
@@ -5246,7 +5268,8 @@ def any_mm_checks(cm, card, deep, cases=None, n=ANY_MM_CHAINS, held=ANY_MM_ITERS
     iterations ``held``, NUTS depth, phase ``name`` and ``start`` state
     (default ``initial_state``), ``deeper``: {label: NUTS max_depths}
     held on the card in one more fixed-uniform iteration each, and
-    ``philox`` (False: the fixed-uniform mode alone)."""
+    ``philox`` (False: the fixed-uniform mode alone) and ``repeat`` (each
+    mode's run launched twice: one hash of every output)."""
     out = {}
     for label, dist, spec, body, eps, m0 in any_mm_cases(cm) if cases is None else cases:
         nuts, mj = body == "nuts", body == "mjhmc"
@@ -5271,6 +5294,10 @@ def any_mm_checks(cm, card, deep, cases=None, n=ANY_MM_CHAINS, held=ANY_MM_ITERS
             k = cm.cuda_mjhmc_mm_run(*args, iters, m, fixed_uniform=fixed, **kw)
             xs_k, ws_k, es_k, so_k = cm.cuda_mjhmc_mm_stream_run(*args, iters, 1, m,
                                                                  fixed_uniform=fixed, **kw)
+            if repeat:  # the sums' order is fixed: a launch repeats bit for bit
+                again = cm.cuda_mjhmc_mm_run(*args, iters, m, fixed_uniform=fixed, **kw)
+                check(all(torch.equal(a, b) for a, b in zip(k, again)),
+                      f"{label} {body} at {spec.precision}: two launches differ")
 
             def plain(x_to=None, e_to=None, parts=1, st=st, seed=seed, m=m, iters=iters,
                       fixed=fixed, on_cpu=on_cpu):
@@ -5341,7 +5368,8 @@ def any_mm_checks(cm, card, deep, cases=None, n=ANY_MM_CHAINS, held=ANY_MM_ITERS
                   + (f"the perturbed plain runs change {int(flips.sum())} chains' decisions and "
                      f"move {int(drift.sum())} more (limits {allow_dec:.4g}, "
                      f"{allow_states:.4g})" if perturbed else "no perturbed runs needed")
-                  + (f"; eps 0: U rtol {u_rel:.3g}, gradient {g_rel:.3g}" if i == 0 else ""))
+                  + (f"; eps 0: U rtol {u_rel:.3g}, gradient {g_rel:.3g}" if i == 0 else "")
+                  + ("; two launches, one hash" if repeat else ""))
         out[(label, spec.precision, body)] = (max(errs), u_rel, g_rel)
     return out
 
@@ -5562,6 +5590,11 @@ PAST_SHAPES = {
                                 0.006, 5, (), 1),
 }
 PAST_NUTS_DEPTH = 4
+#: a split tile at a precision with lo fragments, held one iteration beside
+#: the cases above: a9a's control at "bf16x3" (32 columns, split over a
+#: cluster at 2,048 chains; its B fragments hi and lo, its A fragments' lo
+#: copy in every stage)
+PAST_SPLIT = ("logreg 124x32561", "bf16x3", "control")
 #: (iterations held, iterations timed) of phase 44
 PAST_ITERS = (2, 10)
 #: the a9a-shape Laplace oracle (JAX's, tests/test_pallas_engine.py:548-557,
@@ -5633,12 +5666,21 @@ def past_cases(cm):
     return out
 
 
+def past_split_case(cm):
+    """PAST_SPLIT as a ``past_cases`` entry."""
+    label, precision, body = PAST_SPLIT
+    dist = past_dist(label)
+    spec = dataclasses.replace(cm.energy_spec_for(dist), precision=precision)
+    return label, dist, spec, body, past_eps(label), PAST_SHAPES[label][4]
+
+
 def past_instances(cm, _build):
-    """{(label, precision, body): the on-demand instance} of phase 44: every
-    one chunked (and xg at sparse coding), none compiled ahead (a9a's NUTS
-    instance also runs ``past_deep_check``'s tree past 12)."""
+    """{(label, precision, body): the on-demand instance} of phase 44 and
+    PAST_SPLIT's: every one chunked (and xg at sparse coding), none compiled
+    ahead (a9a's NUTS instance also runs ``past_deep_check``'s tree past
+    12)."""
     out = {}
-    for label, _, spec, body, _, _ in past_cases(cm):
+    for label, _, spec, body, _, _ in [*past_cases(cm), past_split_case(cm)]:
         check(not cm.mm_compiled_ahead(spec, sweep_run=False), f"{label} is in the library")
         rule = cm.nuts_mm_tile_rule(spec) if body == "nuts" else cm.mm_tile_rule(spec, body)
         check(rule.off and rule.chunk > 0 and rule.xg_off == label.startswith("sparse"),
@@ -5935,7 +5977,9 @@ def past_phase(cm, _build, card, done):
     t0 = time.perf_counter()
     cases = past_cases(cm)
     seconds = any_mm_builds(_build, done, card, "44 past one block")
-    any_mm_tiles(cm, card, cases, "44 past one block")
+    split = past_split_case(cm)
+    any_mm_tiles(cm, card, [*cases, split], "44 past one block",
+                 {label: spec[2] for label, spec in PAST_SHAPES.items()})
     deeper = {label: spec[5] for label, spec in PAST_SHAPES.items()}
     rows = {}
     for label in PAST_SHAPES:
@@ -5950,7 +5994,9 @@ def past_phase(cm, _build, card, done):
             errs.update(any_mm_checks(
                 cm, card, {}, [c for c in cases if c[0] == label and (c[3] == "nuts") == nuts],
                 n, nuts_held if nuts else PAST_ITERS[0], PAST_NUTS_DEPTH, "44 past one block",
-                past_state, deeper, philox=not nuts or nuts_held > 1))
+                past_state, deeper, philox=not nuts or nuts_held > 1, repeat=True))
+    errs.update(any_mm_checks(cm, card, {}, [split], PAST_SHAPES[split[0]][2], 1,
+                              PAST_NUTS_DEPTH, "44 past one block", past_state, {}, repeat=True))
     t_checks = time.perf_counter()
     stats = past_stats(cm, card)
     t_stats = time.perf_counter()

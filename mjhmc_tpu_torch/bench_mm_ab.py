@@ -36,7 +36,17 @@ nudge of x does to the plain version alone (``run_hold``, under
 and stream at ``DEEP_DEPTHS`` (those the checkout's kernel takes) on
 product of t at its preset's 4,096 chains and JAX default precision, ε
 0.002, Philox (``mm_deep/`` cases: their outputs' hash, best of three
-launches). ``--only`` runs one group. ``--compare`` prints, case by
+launches). ``--only past`` runs the matmul engine past one block's shared
+memory (``past/`` cases, ``PAST_CASES``): every body at logistic regression
+at LIBSVM a9a's shape (124 × 32,561, 2,048 chains) and sparse coding 1,024
+× 4,096 (1,024 chains) at their JAX default precisions, NUTS at max_depth
+4, their outputs' hash of a two-iteration run and stream and the ms of ten,
+and a9a's one tile of NUTS (8 chains) at max_depth 13, one launch each;
+beside each case the ms of the two contractions of one gradient at its
+shape and precision as ``torch.matmul`` (``matmul_ms``, CUDA events), a
+yardstick of the card's matmul rate that the port never calls. It uses only
+calls an older checkout also has, and builds the cases' on-demand instances
+first, all at once. ``--only`` runs one group. ``--compare`` prints, case by
 case, how many distinct outputs the records hold and their times. To
 compare a parent,
 unpack it with ``git archive`` into a directory that ``.gitignore`` lists
@@ -154,6 +164,131 @@ def run_deep_cases() -> dict:
             stream_ms=min(_ms(lambda: cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, depth,
                                                                   variant="nuts"), 1)
                           for _ in range(3)))
+    return res
+
+
+#: ``--only past``: label -> (model, its arguments, chains, ε or None for a
+#: quarter of the smallest Laplace standard deviation, M); NUTS at
+#: PAST_NUTS_DEPTH; iterations held (hashed) and timed; the one-tile NUTS
+#: launch's chains, max_depth and ε
+PAST_CASES = {
+    "logreg 124x32561": ("LogisticRegression", dict(ndims=124, nobs=32561), 2048, None, 10),
+    "sparse_coding 4096x1024": ("SparseCoding",
+                                dict(npixels=1024, nbasis=4096, phi_source="gabor"), 1024,
+                                0.006, 5),
+}
+PAST_NUTS_DEPTH = 4
+PAST_ITERS = (2, 10)
+PAST_TILE = (8, 13, 4e-5)
+
+
+def past_state(dist, n, seed):
+    """(x, v, g, u, h_back, valid) on the card: logreg from its MAP plus
+    N(0, the Laplace variances), else from the model's init."""
+    import numpy as np
+
+    from mjhmc_tpu_torch.models import LogisticRegression
+
+    gen = torch.Generator().manual_seed(seed)
+    if isinstance(dist, LogisticRegression):
+        rng = np.random.default_rng(seed)
+        x = (dist.map_estimate()[:, None]
+             + np.sqrt(dist.laplace_var())[:, None] * rng.standard_normal((dist.ndims, n)))
+        x = torch.as_tensor(x, dtype=torch.float32, device="cuda").contiguous()
+    else:
+        x = dist.init_x(gen, n, "cuda").contiguous()
+    v = torch.randn(x.shape, generator=gen).to("cuda")
+    u, g = dist.potential_and_grad(x)
+    z = torch.zeros(n, device="cuda")
+    return x, v, g.contiguous(), u.contiguous(), z, z.clone()
+
+
+def matmul_ms(cm, spec, columns: int, reps: int = 20) -> float:
+    """ms of one gradient's two contractions of ``spec`` over ``columns``
+    columns as torch.matmul: (k, d)·(d, columns) then (d, k)·(k, columns),
+    bf16 operands with f32 accumulation once at one bf16 pass, three times
+    (hi·hi, hi·lo, lo·hi) at bf16x3, f32 at "highest"; best of ``reps``."""
+    d, k = cm.mm_shape(spec)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a1 = torch.randn((k, d), device="cuda", generator=gen)
+    a2 = a1.t().contiguous()
+    b1 = torch.randn((d, columns), device="cuda", generator=gen)
+    b2 = torch.randn((k, columns), device="cuda", generator=gen)
+    if spec.precision == "highest":
+        pairs = [(a1, b1), (a2, b2)]
+    else:
+        pairs = []
+        for a, b in ((a1, b1), (a2, b2)):
+            ah, bh = a.bfloat16(), b.bfloat16()
+            pairs.append((ah, bh))
+            if spec.precision == "bf16x3":
+                al, bl = (a - ah.float()).bfloat16(), (b - bh.float()).bfloat16()
+                pairs += [(ah, bl), (al, bh)]
+    fn = lambda: [torch.matmul(a, b) for a, b in pairs]  # noqa: E731
+    fn()
+    return min(_ms(fn, 1) for _ in range(reps))
+
+
+def run_past_cases() -> dict:
+    """{case: dict(out, run_ms, stream_ms, iters, matmul_ms)} of ``--only
+    past``, the on-demand instances built first, all at once."""
+    import concurrent.futures
+    import math
+
+    from mjhmc_tpu_torch import models
+    from mjhmc_tpu_torch.ops import _build
+    from mjhmc_tpu_torch.ops import cuda_mjhmc as cm
+
+    cases = []
+    for label, (name, kw, n, eps, m) in PAST_CASES.items():
+        dist = getattr(models, name)(**kw)
+        if eps is None:
+            eps = round(0.25 * math.sqrt(float(dist.laplace_var().min())), 4)
+        cases.append((label, dist, cm.energy_spec_for(dist), n, eps, m))
+    keys = set()
+    for _, _, spec, _, _, _ in cases:
+        for body, _ in BODIES:
+            rule = cm.nuts_mm_tile_rule(spec) if body == "nuts" else cm.mm_tile_rule(spec, body)
+            keys.add(_build.mm_instance(cm.KERNEL_VARIANTS[body], spec.energy_id,
+                                        *cm.mm_shape(spec), cm.PRECISIONS.index(spec.precision),
+                                        rule.off, rule.chunk, rule.xg_off))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(_build.build_instance, keys))
+    res = {}
+    for label, dist, spec, n, eps, m in cases:
+        st = past_state(dist, n, seed=4)
+        for body, beta in BODIES:
+            nuts = body == "nuts"
+            depth = PAST_NUTS_DEPTH if nuts else m
+            args = (spec, *st, 77, eps, beta)
+            out = cm.cuda_mjhmc_mm_run(*args, PAST_ITERS[0], depth, variant=body)
+            xs, ws, es, so = cm.cuda_mjhmc_mm_stream_run(*args, PAST_ITERS[0], 1, depth,
+                                                         variant=body)
+            digest = hashlib.sha256()
+            for t in (*out, xs, ws, es, *so):
+                digest.update(t.cpu().numpy().tobytes())
+            iters = PAST_ITERS[1]
+            res[f"past/{label}/{body}/{spec.precision}"] = dict(
+                out=digest.hexdigest(), iters=iters, chains=n,
+                run_ms=_ms(lambda: cm.cuda_mjhmc_mm_run(*args, iters, depth, variant=body),
+                           iters),
+                stream_ms=_ms(lambda: cm.cuda_mjhmc_mm_stream_run(*args, iters, 1, depth,
+                                                                  variant=body), iters),
+                matmul_ms=matmul_ms(cm, spec, 2 * n if body == "mjhmc" else n))
+    label, dist, spec = cases[0][:3]
+    n, depth, eps = PAST_TILE
+    st = past_state(dist, n, seed=5)
+    args = (spec, *st, 11, eps, 0.0)
+    got = {}
+    run_ms = _ms(lambda: got.update(o=cm.cuda_mjhmc_mm_run(*args, 1, depth, variant="nuts")), 1)
+    stream_ms = _ms(lambda: got.update(s=cm.cuda_mjhmc_mm_stream_run(*args, 1, 1, depth,
+                                                                      variant="nuts")), 1)
+    digest = hashlib.sha256()
+    for t in (*got["o"], *got["s"][:3], *got["s"][3]):
+        digest.update(t.cpu().numpy().tobytes())
+    res[f"past/{label}/nuts/{spec.precision}/{n} chains max_depth {depth}"] = dict(
+        out=digest.hexdigest(), iters=1, chains=n, run_ms=run_ms, stream_ms=stream_ms,
+        leaves=float(got["o"].evals.double().mean()), matmul_ms=matmul_ms(cm, spec, n))
     return res
 
 
@@ -601,11 +736,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", help="the record's name")
     ap.add_argument("--out", default="chiprun_out/ab", help="directory of the records")
     ap.add_argument("--compare", nargs="+", metavar="RECORD", help="compare records instead")
-    ap.add_argument("--only", choices=("mm", "ew_nuts", "ew", "hold", "deep"),
+    ap.add_argument("--only", choices=("mm", "ew_nuts", "ew", "hold", "deep", "past"),
                     help="run one group of cases and its breakdowns: the matmul bodies, the "
                     "elementwise NUTS, the elementwise MJHMC, control and MALT, the D=50 "
-                    "rough well held against the plain version (run_hold), or the matmul "
-                    "NUTS's deep trees (run_deep_cases)")
+                    "rough well held against the plain version (run_hold), the matmul "
+                    "NUTS's deep trees (run_deep_cases), or the matmul engine past one "
+                    "block's shared memory (run_past_cases)")
     args = ap.parse_args(argv)
     if args.compare:
         recs = {}
@@ -634,6 +770,8 @@ def main(argv=None) -> int:
         prof.update(run_hold())
     if args.only in (None, "deep"):
         res.update(run_deep_cases())
+    if args.only in (None, "past"):
+        res.update(run_past_cases())
     res["profile"] = prof
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"{args.tag}.json"), "w") as f:
@@ -645,7 +783,8 @@ def main(argv=None) -> int:
             for key, p in rec.items():
                 print(args.tag, "profile", key, json.dumps(p))
         else:
-            print(args.tag, case, f"run {rec['run_ms']:.6g} stream {rec['stream_ms']:.6g}")
+            print(args.tag, case, f"run {rec['run_ms']:.6g} stream {rec['stream_ms']:.6g}"
+                  + (f" matmul {rec['matmul_ms']:.6g}" if "matmul_ms" in rec else ""))
     return 0
 
 

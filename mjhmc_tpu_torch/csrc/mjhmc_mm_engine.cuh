@@ -85,13 +85,41 @@
 // Past one block (TileRule::kc > 0, where even the 8-column tile's Y and Z
 // pass the 227 KB with the parameter matrix off chip: logreg at LIBSVM
 // a9a's 124 × 32,561, sparse coding at 1,024 × 4,096) the K rows run in
-// chunks (gradient_chunks, contract_part): Y and Z hold one chunk, the
-// threads add its rows' energy terms to their partials after its first
-// contraction, and its share of the second is added into G; where even 8
-// columns of X and G pass the block beside a chunk (TileRule::xg), they and
-// the mass live in the block's slice of a.scratch. What bounds these: each
-// block reads the whole parameter matrix from L2 (or device memory) once a
-// gradient, so the reads grow with the blocks, not the chains' work.
+// chunks: Y and Z hold one chunk, the threads add its rows' energy terms to
+// their partials after its first contraction, and its share of the second
+// is added into G; where even 8 columns of X and G pass the block beside a
+// chunk (TileRule::xg), they and the mass live in the block's slice of
+// a.scratch. At the bf16 precisions with X and G on chip (TileRule::ns >
+// 0; gradient_ring) the fragments reach the tensor cores through a ring of
+// ns stages in shared memory (Ring): the device buffer holds them in the
+// order a gradient reads them (Stream, stream_params_kernel), each stage
+// one bulk copy (cp.async.bulk) completing on an mbarrier, started by one
+// thread while the warps run mma.sync on the stages that have arrived. The
+// tile is wide (kRingColumns = 32 columns, so each A fragment feeds four
+// mma n-tiles; NUTS's 8 chains on kRingThreads threads). The launch
+// (cudaLaunchKernelEx, ClusterPlan) is chosen from the chain count: with
+// few tiles (no more than the card holds clusters of two; e.g. a9a's
+// control and MALT at 2,048 chains, NUTS on one tile of 8), each tile runs
+// on a cluster of C CTAs alike, each taking every C-th chunk, and they add
+// G's and the energy terms' partials over distributed shared memory in rank
+// order after a cluster barrier (no atomics: runs repeat bit for bit), rank
+// 0 alone writing device memory; else a CTA a tile. The f32 (kHighest)
+// chunked tiles and the XG tiles read their chunks from device memory
+// (gradient_chunks, contract_part).
+//
+// What bounds the ring's tiles (PERF.md §5-§6 have the byte model and the
+// PROF breakdowns): a gradient streams the whole fragment set,
+// 2·pad16(K)·pad16(D)·2 bytes at one bf16 copy (a9a 16.7 MB), through every
+// tile's shared memory, read from L2 once a tile, or 1/C of it into each
+// CTA of a split tile; the rereads grow with the tiles, a quarter as many
+// as the parent's at a9a's widths. Not the bytes but the instructions set
+// the pace on the H100: the first contraction's epilogue on K rows × NC
+// columns (the sigmoid, the energy term where wanted, each element into
+// ZB's bf16 fragments), 25-40% of a9a's cycles; the producing thread's wait
+// for every warp to release a stage before it refills the slot (a barrier
+// a stage); and, at 8 columns (NUTS), the mma.sync work of one n-tile an A
+// fragment. They replace the same TPU kernels as the rest of this header
+// (_mjhmc_mm_kernel, _mjhmc_mm_stream_kernel) on the shapes past one block.
 //
 // NUTS (nuts_mm_kernel, below) has its own tile and layout and shares
 // load_params, contract, gradient_tile, gradient_chunks and column_sum.
@@ -113,6 +141,9 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 #include "mma_bf16.cuh"
 #include "phase_clock.cuh"
@@ -734,6 +765,512 @@ __device__ __forceinline__ void gradient_chunks(const float* A1, const float* A2
   }
 }
 
+// ---------------------------------------------------------------------------
+// The chunked tiles at the bf16 precisions (TileRule::kc > 0, ns > 0): a
+// cluster of C CTAs and a ring of chunks of the parameter matrix in shared
+// memory. Thread block clusters, mbarriers and bulk copies, in PTX.
+namespace cl {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+// the cluster barrier: every thread of every CTA arrives (release) and
+// waits (acquire); arrive and wait alternate in each thread
+__device__ __forceinline__ void arrive() { asm volatile("barrier.cluster.arrive;" ::: "memory"); }
+__device__ __forceinline__ void wait() { asm volatile("barrier.cluster.wait;" ::: "memory"); }
+__device__ __forceinline__ void sync() {
+  arrive();
+  wait();
+}
+// a float of CTA r's shared memory at the offset of p in this one (read
+// between cluster barriers, which order them; the compiler may batch those
+// loads)
+__device__ __forceinline__ float ld_f32(const float* p, uint32_t r) {
+  uint32_t ra;
+  float v;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(ra) : "r"(smem_addr(p)), "r"(r));
+  asm("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(ra));
+  return v;
+}
+__device__ __forceinline__ void bar_init(uint64_t* b, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)), "r"(count)
+               : "memory");
+}
+// this phase's arrival of the barrier's one local arriver, and the bytes the
+// copies that complete it bring
+__device__ __forceinline__ void bar_arm(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(b)),
+               "r"(bytes)
+               : "memory");
+}
+// an arrival on the barrier; it releases this thread's reads of the
+// stage's slot
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(smem_addr(b))
+      : "memory");
+}
+// wait until the phase of the given parity has completed; a wait past ~10 s
+// (2^34 cycles) traps, so that a fault in the ring ends the launch with an
+// error instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
+  const uint32_t addr = smem_addr(b);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) asm volatile("trap;");
+  } while (!done);
+}
+// bytes from global src into this CTA's shared dst, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+}  // namespace cl
+
+// The ring's stages: a stage holds, for one round of the warps (warp w the
+// round's m-tile w) and up to SK consecutive k-tiles, the bf16 A fragments
+// of a contraction (hi, then lo at bf16x3), 512 bytes each. SK fills
+// kStageBytes at the tile's warps (at least one k-tile); a tile keeps 2 to
+// kMaxStages of them in flight
+constexpr int kStageBytes = 16384, kMaxStages = 4, kMinStages = 2;
+__host__ __device__ constexpr int frag_copies(int P) {
+  return P == kHighest ? 0 : P == kBf16x3 ? 2 : 1;
+}
+__host__ __device__ constexpr int stage_k(int T, int P) {
+  return max_of(1, kStageBytes / (T / 32 * 512 * max_of(frag_copies(P), 1)));
+}
+__host__ __device__ constexpr int stage_words(int T, int P) {
+  return T / 32 * stage_k(T, P) * frag_copies(P) * 128;
+}
+
+// The chunked instances' fragments in the device buffer, in the order a
+// gradient reads them (stream_params_kernel writes them so, once a launch):
+// chunk after chunk of KC rows of K, each its contraction 1 (m-tiles over
+// the chunk's rows, k-tiles over D) then its contraction 2 (m-tiles over
+// D, k-tiles over the chunk's rows); a contraction in rounds of W m-tiles,
+// a round in blocks of SK k-tiles, a block [copy][k-tile][m-tile of the
+// round] of 512-byte fragments: so each stage is one contiguous bulk copy
+template <int D, int K, int KC, int T, int P>
+struct Stream {
+  static constexpr int W = T / 32, CP = frag_copies(P), SK = stage_k(T, P);
+  static constexpr int MTD = pad16(D) / 16, MTK = pad16(K) / 16, TQF = KC / 16,
+                       NQ = cdiv(K, KC);
+  static_assert(KC % 16 == 0 && CP > 0, "a ring of bf16 fragments, chunks of whole k-tiles");
+  // chunk q's k-row tiles (its last is ragged)
+  __host__ __device__ static constexpr int tiles(int q) { return min_of(TQF, MTK - q * TQF); }
+  // the first fragment of stage (q, seg, round i, block b), and its count
+  __host__ __device__ static constexpr size_t at(int q, int seg, int i, int b) {
+    const int tq = tiles(q), rows = seg ? MTD : tq, depth = seg ? tq : MTD;
+    const int wi = min_of(W, rows - i * W);
+    return (size_t)q * 2 * TQF * MTD * CP + (seg ? (size_t)tq * MTD * CP : 0) +
+           ((size_t)i * W * depth + (size_t)b * wi * SK) * CP;
+  }
+  __host__ __device__ static constexpr int frags(int q, int seg, int i, int b) {
+    const int tq = tiles(q), rows = seg ? MTD : tq, depth = seg ? tq : MTD;
+    return min_of(W, rows - i * W) * min_of(SK, depth - b * SK) * CP;
+  }
+  // the fragment (copy cp) of contraction c's (m-tile mt, k-tile kt)
+  __host__ __device__ static constexpr size_t of(int c, int mt, int kt, int cp) {
+    const int kq = c == 1 ? mt : kt, q = kq / TQF, t = kq % TQF, tq = tiles(q);
+    const int m = c == 1 ? t : mt, k = c == 1 ? kt : t;
+    const int rows = c == 1 ? tq : MTD, depth = c == 1 ? MTD : tq;
+    const int i = m / W, w = m % W, wi = min_of(W, rows - i * W);
+    const int b = k / SK, kk = k % SK, sb = min_of(SK, depth - b * SK);
+    return at(q, c - 1, i, b) + (size_t)(cp * sb + kk) * wi + w;
+  }
+};
+
+// The parameter matrix's fragments into the device buffer in Stream order
+// (the chunked instances' params_kernel), once a launch
+template <int E, int D, int K, int P, int KC, int T>
+__global__ void __launch_bounds__(256) stream_params_kernel(Args a) {
+  using S = Stream<D, K, KC, T, P>;
+  constexpr int W = Params<D, K, P>::kWords;
+  uint32_t* frag = reinterpret_cast<uint32_t*>(a.scratch);
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < 2 * W; w += gridDim.x * blockDim.x) {
+    const int c = w < W ? 1 : 2, wi = w % W;
+    const int kt_count = pad16(c == 1 ? D : K) / 16;
+    const int h = wi % 4, lane = (wi / 4) % 32, blk = wi / 128;
+    const int mt = blk / kt_count, kt = blk % kt_count, g = lane / 4, q = lane % 4;
+    const int m = 16 * mt + g + 8 * (h & 1), k = 16 * kt + 8 * (h >> 1) + 2 * q;
+    uint32_t hi, lo;
+    split_bf16(param_at<E, D, K>(a, c, m, k), param_at<E, D, K>(a, c, m, k + 1), hi, lo);
+    frag[S::of(c, mt, kt, 0) * 128 + lane * 4 + h] = hi;
+    if constexpr (P == kBf16x3) frag[S::of(c, mt, kt, 1) * 128 + lane * 4 + h] = lo;
+  }
+}
+
+// The ring of NS stages in a CTA's shared memory: full[s] completes when
+// stage s's bytes have arrived, empty[s] when every warp of the CTA has
+// released it. Every thread counts the stages it has taken (g); thread 0
+// arms and copies the stage NS ahead, so up to NS stages are in flight. A
+// gradient's stages are copied only once it has begun (a NUTS leaf may not
+// run), so the ring drains at each gradient's end. The launch's cluster
+// (csize CTAs, read from the launch) is 1, or the CTAs that split one tile.
+template <int D, int K, int KC, int T, int P, int NS>
+struct Ring {
+  using S = Stream<D, K, KC, T, P>;
+  static constexpr int SW4 = stage_words(T, P) / 4;  // a slot's uint4
+  uint64_t* full;
+  uint64_t* empty;
+  uint4* slots;
+  const uint4* stream;  // the device buffer's fragments
+  uint32_t g = 0, armed = 0, rank = 0, csize = 1;
+  // thread 0: the next stage to arm (chunk, segment, round, block) and the
+  // chunk step
+  int q = 0, seg = 0, i = 0, b = 0, step = 1;
+
+  // the barriers, before any copy or arrival reaches them
+  __device__ __forceinline__ void init(float* base, const float* params) {
+    slots = reinterpret_cast<uint4*>(base);
+    full = reinterpret_cast<uint64_t*>(base + NS * 4 * SW4);
+    empty = full + NS;
+    stream = reinterpret_cast<const uint4*>(params);
+    rank = cl::rank();
+    csize = cl::size();
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < NS; ++s) {
+        cl::bar_init(full + s, 1);
+        cl::bar_init(empty + s, T / 32);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // thread 0: arm and copy the next stage of the gradient, once every warp
+  // has released its slot
+  __device__ __forceinline__ void produce() {
+    if (q >= S::NQ) return;
+    const uint32_t s = armed % NS;
+    const uint32_t bytes = S::frags(q, seg, i, b) * 512u;
+    cl::bar_arm(full + s, bytes);
+    if (armed >= (uint32_t)NS) cl::bar_wait(empty + s, (armed / NS - 1) & 1);
+    cl::bulk_copy(slots + s * SW4, stream + S::at(q, seg, i, b) * 32, bytes, full + s);
+    ++armed;
+    const int tq = S::tiles(q);
+    if (++b < cdiv(seg ? tq : S::MTD, S::SK)) return;
+    b = 0;
+    if (++i < cdiv(seg ? S::MTD : tq, S::W)) return;
+    i = 0;
+    if (++seg < 2) return;
+    seg = 0;
+    q += step;
+  }
+  // a gradient's start: its first stages (this CTA's chunks first, first +
+  // step, ...)
+  __device__ __forceinline__ void prime(int first, int stride) {
+    if (threadIdx.x == 0) {
+      q = first;
+      seg = i = b = 0;
+      step = stride;
+      for (int s = 0; s < NS; ++s) produce();
+    }
+  }
+  __device__ __forceinline__ const uint4* take() {
+    cl::bar_wait(full + g % NS, (g / NS) & 1);
+    return slots + (g % NS) * SW4;
+  }
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) cl::bar_arrive(empty + g % NS);
+    ++g;
+    if (threadIdx.x == 0) produce();
+  }
+  // a split CTA's last act: no CTA leaves while another may still read its
+  // shared memory (the wait of the last gradient's arrival)
+  __device__ __forceinline__ void finish() {
+    if (csize > 1) cl::wait();
+  }
+};
+// the kernels' ring object: an empty one on the tiles without a ring (an
+// unused Ring object moved ten unchunked mm_kernel instances' SASS)
+struct NoRing {};
+template <bool R, class T> struct RingIf { using type = NoRing; };
+template <class T> struct RingIf<true, T> { using type = T; };
+// the shared-memory floats of the ring: its stages and their two barriers
+// each; and the partials a split tile adds over the cluster: G's [DP][NC]
+// and two energy partials a thread
+__host__ __device__ constexpr int ring_floats(int T, int P, int NS) {
+  return NS ? NS * (stage_words(T, P) + 4) : 0;
+}
+__host__ __device__ constexpr int split_floats(int DP, int NC, int T) { return DP * NC + 2 * T; }
+
+// The B operands of the ring's contractions, split into bf16 once: per
+// (k-tile, n-tile) and lane of an m16n8k16 B fragment the hi registers
+// (rows 2q..2q+1 and 2q+8..2q+9 of column g) and, past one bf16 pass, the lo
+// ones, BW words a lane (b_words). XB holds contraction 1's (X, D deep),
+// filled at each gradient's start; ZB contraction 2's (a chunk's rows of
+// dU/dy, r or σ(z)), written by contraction 1's epilogue element by element
+__host__ __device__ constexpr int b_words(int P) { return P == kDefault ? 2 : 4; }
+__host__ __device__ constexpr int xb_floats(int D, int NC, int P) {
+  return pad16(D) / 16 * (NC / 8) * 32 * b_words(P);
+}
+__host__ __device__ constexpr int zb_floats(int KC, int NC, int P) {
+  return KC / 16 * (NC / 8) * 32 * b_words(P);
+}
+// element (r, c) of a B operand (r < 16·k-tiles, c < NC) into its fragments
+template <int NC, int P>
+__device__ __forceinline__ void put_b(uint32_t* B, int r, int c, float v) {
+  constexpr int BW = b_words(P);
+  const int rr = r & 15, lane = (c & 7) * 4 + ((rr & 7) >> 1);
+  const size_t w = ((size_t)((r >> 4) * (NC / 8) + (c >> 3)) * 32 + lane) * BW + (rr >> 3);
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(B);
+  const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+  h[2 * w + (rr & 1)] = hi;
+  if constexpr (BW == 4) h[2 * (w + 2) + (rr & 1)] = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+// gradient_chunks on the ring (the chunked tiles at the bf16 precisions):
+// the same chunks, epilogues and sums, each contraction's A fragments taken
+// stage by stage from the ring, warp w the m-tile w of each round (every
+// n-tile of it), its B fragments split once (XB, ZB); a stage's products
+// accumulate in the mma and are added into the round's sums in
+// round-to-nearest (mma.sync's own f32 accumulation truncates; across the
+// hundreds or thousands of k-tiles of these depths it would bias the sums).
+// Split (a cluster of C > 1 CTAs): this CTA takes the chunks rank, rank +
+// C, ... into its partial GP [DP][NC] (put() its energy partials into EP
+// [2][T]), then, after a cluster barrier, every CTA adds the cluster's
+// partials in rank order into G, finishing the gradient, and hands take(j,
+// e) each slot j's sum e of its energy partials; a CTA's next gradient
+// writes GP only after every CTA has read it. Else (C = 1): every chunk,
+// into G, as gradient_chunks does. Y keeps the chunk's rows as
+// gradient_chunks writes them where something reads them (the energy
+// terms; sparse coding's residual); Z (dU/dy, σ(z)) lives only in ZB.
+template <int E, int D, int K, int KC, int NC, int LDX, int LDY, int T, int P, bool RN,
+          bool TERMS, int NS, class Rows, class Between, class After, class Put, class Take>
+__device__ __forceinline__ void gradient_ring(Ring<D, K, KC, T, P, NS>& ring,
+                                              const float* patch,
+                                              const float* X, float* Y, uint32_t* XB,
+                                              uint32_t* ZB, float* G, float* GP, float* EP,
+                                              const Args& a, bool want_u, Rows rows,
+                                              Between between, After after, Put put, Take take) {
+  using S = Stream<D, K, KC, T, P>;
+  constexpr int W = S::W, SK = S::SK, MTD = S::MTD, NQ = S::NQ, NT = NC / 8, BW = b_words(P);
+  constexpr int K4 = round_up(K, 4), D4 = round_up(D, 4);
+  static_assert(NC % 8 == 0, "n-tiles of 8 columns");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, qd = lane % 4;
+  const bool split = ring.csize > 1;
+  const int first = split ? (int)ring.rank : 0, step = split ? (int)ring.csize : 1;
+  float* GA = split ? GP : G;  // where contraction 2 adds
+  // X's fragments, D deep (0 past D), before any warp reads them
+  for (int idx = threadIdx.x; idx < MTD * NT * 32; idx += T) {
+    const int ln = idx % 32, col = (idx / 32) % NT * 8 + ln / 4;
+    const int k = 16 * (idx / 32 / NT) + 2 * (ln % 4);
+    auto x_at = [&](int kk) { return kk < D ? X[kk * LDX + col] : 0.f; };
+    uint32_t h0, l0, h1, l1;
+    split_bf16(x_at(k), x_at(k + 1), h0, l0);
+    split_bf16(x_at(k + 8), x_at(k + 9), h1, l1);
+    if constexpr (BW == 4)
+      reinterpret_cast<uint4*>(XB)[idx] = make_uint4(h0, h1, l0, l1);
+    else
+      reinterpret_cast<uint2*>(XB)[idx] = make_uint2(h0, h1);
+  }
+  __syncthreads();
+  if (split) {
+    cl::wait();  // every CTA has read GP and EP of the last gradient
+    if (first >= NQ)
+      for (int idx = threadIdx.x; idx < D4 * NC; idx += T) GP[idx] = 0.f;
+  }
+  ring.prime(first, step);
+  // one stage of the warp's m-tile: its sb k-tiles (from kt0 of B's) into
+  // the round's sums
+  auto stage = [&](const uint4* st, int wi, int sb, int kt0, const uint32_t* B,
+                   float (&hh)[NT][4], float (&hl)[NT][4], float (&lh)[NT][4]) {
+    float th[NT][4] = {}, tl[NT][4] = {}, tm[NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < SK; ++kk) {
+      if (kk < sb) {
+        const uint4 av = st[(kk * wi + warp) * 32 + lane];
+        const uint32_t ah[4] = {av.x, av.y, av.z, av.w};
+        uint32_t al[4] = {};
+        if constexpr (P == kBf16x3) {
+          const uint4 lv = st[((sb + kk) * wi + warp) * 32 + lane];
+          al[0] = lv.x, al[1] = lv.y, al[2] = lv.z, al[3] = lv.w;
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const size_t at = ((size_t)(kt0 + kk) * NT + nt) * 32 + lane;
+          uint32_t b[4];
+          if constexpr (BW == 4) {
+            const uint4 bv = reinterpret_cast<const uint4*>(B)[at];
+            b[0] = bv.x, b[1] = bv.y, b[2] = bv.z, b[3] = bv.w;
+          } else {
+            const uint2 bv = reinterpret_cast<const uint2*>(B)[at];
+            b[0] = bv.x, b[1] = bv.y, b[2] = b[3] = 0u;
+          }
+          mma_bf16(th[nt], ah, b[0], b[1]);
+          if constexpr (P != kDefault) mma_bf16(tl[nt], ah, b[2], b[3]);
+          if constexpr (P == kBf16x3) mma_bf16(tm[nt], al, b[0], b[1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        hh[nt][h] += th[nt][h];
+        if constexpr (P != kDefault) hl[nt][h] += tl[nt][h];
+        if constexpr (P == kBf16x3) lh[nt][h] += tm[nt][h];
+      }
+  };
+  auto value = [&](const float (&hh)[NT][4], const float (&hl)[NT][4], const float (&lh)[NT][4],
+                   int nt, int h) {
+    float v = hh[nt][h];
+    if constexpr (P == kBf16x3) v = hh[nt][h] + (hl[nt][h] + lh[nt][h]);
+    if constexpr (P == kBf16x2) v = hh[nt][h] + hl[nt][h];
+    return v;
+  };
+  // the gradient's last step on an added element (rg, c): sparse coding's
+  // λ·a/√(a²+ε) − σ⁻²·Φᵀr, logreg's Xsᵀσ(z) + θ/σ₀²
+  auto close = [&](int rg, int c, float s) {
+    if constexpr (E == kSparseCoding) {
+      const float av = X[rg * LDX + c];
+      const float sq = sqrtf(add_<RN>(mul_<RN>(av, av), a.k3));
+      s = sub_<RN>(mul_<RN>(a.k0, div_<RN>(av, sq)), mul_<RN>(a.k1, s));
+    } else if constexpr (E == kLogreg) {
+      s = add_<RN>(s, mul_<RN>(X[rg * LDX + c], a.k0));
+    }
+    return s;
+  };
+  for (int q = first; q < NQ; q += step) {
+    const int k0 = q * KC, tq = S::tiles(q);
+    const bool first_q = q == first, last_q = !split && q == NQ - 1;
+    // contraction 1: the chunk's rows of y, r or z (D deep), contraction 2's
+    // operand into ZB (0 past K)
+    for (int i = 0; i < cdiv(tq, W); ++i) {
+      const int wi = min_of(W, tq - i * W);
+      float hh[NT][4] = {}, hl[NT][4] = {}, lh[NT][4] = {};
+      for (int b = 0; b < cdiv(MTD, SK); ++b) {
+        const uint4* st = ring.take();
+        if (warp < wi) stage(st, wi, min_of(SK, MTD - b * SK), b * SK, XB, hh, hl, lh);
+        ring.release();
+      }
+      if (warp < wi)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int rg = 16 * (q * S::TQF + i * W + warp) + gq + 8 * (h >> 1), rl = rg - k0;
+            const int c = nt * 8 + 2 * qd + (h & 1);
+            const float v = value(hh, hl, lh, nt, h);
+            float bv = 0.f;  // the operand of contraction 2
+            if constexpr (E == kProductOfT) {  // y, log1p(y²/ν) where wanted, dU/dy
+              if (rg < K4) {
+                if constexpr (!TERMS)
+                  Y[rl * LDY + c] = v;
+                else if (want_u)
+                  Y[rl * LDY + c] = log1pf(v * v * a.k3);
+              }
+              bv = div_<RN>(mul_<RN>(a.k0, v), add_<RN>(a.k1, mul_<RN>(v, v)));
+            } else if constexpr (E == kSparseCoding) {  // the residual, 0 on padded rows
+              bv = sub_<RN>(rg < K ? patch[rg] : 0.f, v);
+              if (rg < K4) Y[rl * LDY + c] = bv;
+            } else {  // z, softplus(z) where wanted, σ(z)
+              // one exponential for both: σ(z) = 1/(1 + e) for z ≥ 0 and
+              // e/(1 + e) below, e = exp(−|z|)
+              const float e = expf(-fabsf(v));
+              if (rg < K4) {
+                if constexpr (!TERMS)
+                  Y[rl * LDY + c] = v;
+                else if (want_u)
+                  Y[rl * LDY + c] = fmaxf(v, 0.f) + log1pf(e);
+              }
+              const float den = add_<RN>(1.0f, e);
+              bv = v >= 0.f ? div_<RN>(1.0f, den) : div_<RN>(e, den);
+            }
+            put_b<NC, P>(ZB, rl, c, rg < K ? bv : 0.f);
+          }
+    }
+    between();
+    rows(k0);
+    // contraction 2: the chunk's share of the gradient (the chunk's rows deep)
+    for (int i = 0; i < cdiv(MTD, W); ++i) {
+      const int wi = min_of(W, MTD - i * W);
+      float hh[NT][4] = {}, hl[NT][4] = {}, lh[NT][4] = {};
+      for (int b = 0; b < cdiv(tq, SK); ++b) {
+        const uint4* st = ring.take();
+        if (warp < wi) stage(st, wi, min_of(SK, tq - b * SK), b * SK, ZB, hh, hl, lh);
+        ring.release();
+      }
+      if (warp < wi)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int rg = 16 * (i * W + warp) + gq + 8 * (h >> 1);
+            const int c = nt * 8 + 2 * qd + (h & 1);
+            const float v = value(hh, hl, lh, nt, h);
+            if (rg >= D4) continue;
+            float s = first_q ? v : add_<RN>(GA[rg * NC + c], v);
+            if (last_q) s = close(rg, c, s);
+            GA[rg * NC + c] = s;
+          }
+    }
+    if (q + step < NQ) after();
+  }
+  if (split) {
+    // the cluster's partials, added in rank order by every CTA alike
+    put(EP);
+    cl::sync();
+    for (int idx = threadIdx.x; idx < D4 * NC; idx += T) {
+      float s = cl::ld_f32(GP + idx, 0);
+      for (uint32_t r = 1; r < ring.csize; ++r) s = add_<RN>(s, cl::ld_f32(GP + idx, r));
+      G[idx] = close(idx / NC, idx % NC, s);
+    }
+    for (int j = 0; j < 2; ++j) {
+      float e = cl::ld_f32(EP + j * T + threadIdx.x, 0);
+      for (uint32_t r = 1; r < ring.csize; ++r)
+        e = add_<RN>(e, cl::ld_f32(EP + j * T + threadIdx.x, r));
+      take(j, e);
+    }
+    cl::arrive();  // this CTA's reads of GP and EP are done
+  }
+}
+
+// The plan of a ring tile's launch (ops/cuda_mjhmc.py::cluster_plan mirrors
+// it), from the tiles of the chain count and the clusters the card holds at
+// once at C = 2, 4, 8 and 16 (held[0..3], cudaOccupancyMaxActiveClusters at
+// the tile's threads and shared bytes): where the tile may split and the
+// card holds a cluster of two for every tile, each tile runs on a cluster
+// of its own, the largest C of which the card holds one a tile, its C CTAs
+// splitting the chunks; else a CTA a tile (C = 1). (On the H100 clusters of
+// 2-8 CTAs that shared each stage by multicast, each its own tile, ran no
+// faster than single CTAs: PERF.md §6.)
+struct ClusterPlan {
+  int c, grid;
+};
+constexpr int kClusterSizes[4] = {2, 4, 8, 16};
+inline ClusterPlan cluster_plan(int tiles, const int* held, bool split) {
+  if (split && tiles <= held[0])
+    for (int s = 3; s >= 0; --s)
+      if (held[s] >= tiles) return {kClusterSizes[s], tiles * kClusterSizes[s]};
+  return {1, tiles};
+}
+
 // The sum down column c of slot s of red, where each of a block's T threads
 // put one partial at red[s·T + tid] and a column's owners are the threads
 // c, c + NC, ...: their T / NC partials added in that order
@@ -772,13 +1309,31 @@ MJHMC_MM_UNROLL_OWNED(T/NC)
 // (d in the thousands), X, G and the mass move to the block's slice of the
 // device scratch (xg), the tile is the 8-column one, and the rule has no
 // refusal left: past that the device scratch is the limit. MINB there is
-// at most 1,024 / T, so that a thread keeps 64 registers.
+// at most 1,024 / T, so that a thread keeps 64 registers. At the bf16
+// precisions a chunked tile with X and G on chip also holds a ring of ns
+// stages (Ring, 2 to kMaxStages) and, where a tile may split over a cluster
+// (NUTS: its tree state on chip too), the cluster's partials
+// (split_floats); mm_kernel's tile starts from kRingColumns columns and
+// NUTS's from kRingThreads threads (both threads at least kRingThreads):
+// mm_kernel takes the most blocks an SM that any ring and chunk give, then
+// the largest kc, then the most stages; NUTS its tree state on chip where
+// it fits, then the most stages, then the largest kc. A ring's kc is also a
+// multiple of 16 rows for each warp (ring_quantum), so that every round of
+// a chunk's first contraction is whole. The XG tiles (8 columns) and
+// kHighest's take no ring: at 8 columns a ring's stage feeds one mma n-tile
+// a fragment, and its handoff cost more than the loads it hid (PERF.md §6).
 constexpr int kChunkMax = 512, kOwnerGroups = 4, kOwnerDims = 16, kMaxThreads = 1024;
+// the ring's tiles with X and G on chip: kRingColumns columns a block (each
+// A fragment feeds four mma n-tiles), kRingThreads threads (a warp for each
+// of a9a's eight m-tiles of its second contraction) and more where an
+// owner would hold more than kOwnerGroups groups
+constexpr int kRingColumns = 32, kRingThreads = 256;
 struct TileRule {
   int ch, t, minb;
   bool off, onchip;
-  int kc;   // rows of a chunk of the intermediate (0: all K at once)
-  bool xg;  // X, G and the mass in the block's slice of the device scratch
+  int kc;      // rows of a chunk of the intermediate (0: all K at once)
+  bool xg;     // X, G and the mass in the block's slice of the device scratch
+  int ns = 0;  // the ring's stages (0: none; the chunks read from device memory)
 };
 __host__ __device__ constexpr int base_chains(int E, int VAR) {
   return E == kProductOfT ? 8 : E == kSparseCoding ? 16 : VAR == kMjhmc ? 4 : 8;
@@ -823,17 +1378,27 @@ __host__ __device__ constexpr int chunk_quantum(int owners) {
 __host__ __device__ constexpr int chunk_start(int K, int q) {
   return min_of(round_up(K, q), max_of(kChunkMax / q, 1) * q);
 }
+__host__ __device__ constexpr int ring_quantum(int owners, int T) {
+  return chunk_quantum(owners) / gcd_of(chunk_quantum(owners), 16 * (T / 32)) * 16 * (T / 32);
+}
 
 struct MmGeom {
   int nc, ld, ry, r, ng, nk, dp, kp;
   int a1, a2, x, g, y, z, mass, frag, red, slots, floats;
   int slice;  // xg: the block's floats of the device scratch (X, G, the mass)
+  // NS > 0: the ring (Ring's layout), the B fragments ZB and XB, the split
+  // partials
+  int ring, zb, xb, gp;
 };
 // ... KC > 0: Y and Z hold a chunk of KC rows (kp = KC, nk = KC / RY);
 // XG: X [DP][LD], G [DP][NC] and the mass [2DP] in the block's slice of the
-// device scratch, none of them in shared memory
+// device scratch, none of them in shared memory; NS > 0 (never with XG): no
+// f32 Z (its fragments are in ZB), and after the fragments the ring
+// (ring_floats), ZB, XB and the split partials (split_floats), then the
+// partial sums
 __host__ __device__ constexpr MmGeom mm_geom(int E, int VAR, int P, bool BR, bool OFF, int D,
-                                             int K, int CH, int T, int KC = 0, bool XG = false) {
+                                             int K, int CH, int T, int KC = 0, bool XG = false,
+                                             int NS = 0) {
   MmGeom m{};
   m.nc = VAR == kMjhmc ? 2 * CH : CH;
   m.ld = m.nc + 4;
@@ -852,9 +1417,13 @@ __host__ __device__ constexpr MmGeom mm_geom(int E, int VAR, int P, bool BR, boo
   m.g = m.x + (XG ? 0 : m.dp * m.ld);
   m.y = m.g + (XG ? 0 : m.dp * m.nc);
   m.z = m.y + m.kp * (E == kSparseCoding ? m.ld : m.nc);
-  m.mass = m.z + (E != kSparseCoding ? m.kp * m.ld : 0);
+  m.mass = m.z + (E != kSparseCoding && !NS ? m.kp * m.ld : 0);
   m.frag = (m.mass + (BR && !XG ? 2 * m.dp : 0) + 3) / 4 * 4;
-  m.red = m.frag + 2 * copies * (pad16(K) * pad16(D) / 2);
+  m.ring = m.frag + 2 * copies * (pad16(K) * pad16(D) / 2);
+  m.zb = m.ring + ring_floats(T, P, NS);
+  m.xb = m.zb + (NS ? zb_floats(KC, m.nc, P) : 0);
+  m.gp = m.xb + (NS ? xb_floats(D, m.nc, P) : 0);
+  m.red = m.gp + (NS ? split_floats(m.dp, m.nc, T) : 0);
   m.slots = VAR == kMjhmc ? 4 : 3;
   m.floats = m.red + m.slots * T;
   m.slice = XG ? m.dp * (m.ld + m.nc + 2) : 0;
@@ -870,20 +1439,39 @@ __host__ __device__ constexpr TileRule mm_rule(int E, int VAR, int P, int D, int
       const int floats = mm_geom(E, VAR, P, true, off != 0, D, K, ch, t).floats;
       if (4 * floats <= kSmemBlock) return {ch, t, minb_for(E, floats), off != 0, false};
     }
-  // chunked k, the parameter matrix off chip: X and G on chip, then (xg)
-  // in the device scratch on the 8-column tile
+  // chunked k, the parameter matrix off chip: X and G on chip, at the bf16
+  // precisions with a ring beside them (pass 0), else without (1), then
+  // (xg, pass 2) in the device scratch on the 8-column tile; without a
+  // ring, the largest kc that fits
   const int ch8 = VAR == kMjhmc ? 4 : 8;
-  for (int xg = 0; xg < 2; ++xg)
-    for (int ch = xg ? ch8 : ch0; (VAR == kMjhmc ? 2 * ch : ch) >= 8; ch /= 2) {
-      int t = round_up(t0 / ch0 * ch, 32);
+  const int wide = VAR == kMjhmc ? kRingColumns / 2 : kRingColumns;
+  for (int pass = P == kHighest ? 1 : 0; pass < 3; ++pass) {
+    const int xg = pass == 2;
+    const int ns_hi = pass ? 0 : kMaxStages, ns_lo = ns_hi ? kMinStages : 0;
+    for (int ch = xg ? ch8 : ns_hi ? wide : ch0; (VAR == kMjhmc ? 2 * ch : ch) >= 8; ch /= 2) {
+      int t = ns_hi ? max_of(kRingThreads, round_up(ch, 32)) : round_up(t0 / ch0 * ch, 32);
       while (2 * t <= kMaxThreads && cdiv(cdiv(D, 4), t / ch) > kOwnerGroups) t *= 2;
-      const int q = chunk_quantum(t / ch);
-      for (int kc = chunk_start(K, q); kc >= q; kc -= q) {
-        const int floats = mm_geom(E, VAR, P, true, true, D, K, ch, t, kc, xg != 0).floats;
-        if (4 * floats <= kSmemBlock)
-          return {ch, t, chunked_minb(E, floats, t), true, false, kc, xg != 0};
+      if (!ns_hi) {
+        const int q = chunk_quantum(t / ch);
+        for (int kc = chunk_start(K, q); kc >= q; kc -= q) {
+          const int floats = mm_geom(E, VAR, P, true, true, D, K, ch, t, kc, xg != 0).floats;
+          if (4 * floats <= kSmemBlock)
+            return {ch, t, chunked_minb(E, floats, t), true, false, kc, xg != 0};
+        }
+        continue;
       }
+      const int q = ring_quantum(t / ch, t);
+      const int least = mm_geom(E, VAR, P, true, true, D, K, ch, t, q, false, ns_lo).floats;
+      if (4 * least > kSmemBlock) continue;
+      const int best = chunked_minb(E, least, t);
+      for (int kc = chunk_start(K, q); kc >= q; kc -= q)
+        for (int ns = ns_hi; ns >= ns_lo; --ns) {
+          const int floats = mm_geom(E, VAR, P, true, true, D, K, ch, t, kc, false, ns).floats;
+          if (4 * floats <= kSmemBlock && chunked_minb(E, floats, t) == best)
+            return {ch, t, best, true, false, kc, false, ns};
+        }
     }
+  }
   return {0, 0, 0, true, false};
 }
 
@@ -897,7 +1485,7 @@ template <int E, int D, int K, int VAR, int P>
 struct MmTile {
   static constexpr TileRule rule = mm_rule(E, VAR, P, D, K);
   static_assert(rule.ch > 0, "no tile of mm_kernel fits this shape, even off chip");
-  static constexpr int CH = rule.ch, T = rule.t, MINB = rule.minb, KC = rule.kc;
+  static constexpr int CH = rule.ch, T = rule.t, MINB = rule.minb, KC = rule.kc, NS = rule.ns;
   static constexpr bool OFF = rule.off, XG = rule.xg;
   static constexpr int NC = VAR == kMjhmc ? 2 * CH : CH;
 };
@@ -906,8 +1494,9 @@ struct MmTile {
 template <int E, int D, int K, int VAR, int P, bool BR>
 struct MmLayout {
   using TL = MmTile<E, D, K, VAR, P>;
-  static constexpr MmGeom M = mm_geom(E, VAR, P, BR, TL::OFF, D, K, TL::CH, TL::T, TL::KC, TL::XG);
-  static constexpr int CH = TL::CH, NC = TL::NC, T = TL::T, KC = TL::KC;
+  static constexpr MmGeom M =
+      mm_geom(E, VAR, P, BR, TL::OFF, D, K, TL::CH, TL::T, TL::KC, TL::XG, TL::NS);
+  static constexpr int CH = TL::CH, NC = TL::NC, T = TL::T, KC = TL::KC, NS = TL::NS;
   static constexpr bool OFF = TL::OFF, XG = TL::XG;
   static constexpr int LD = M.ld, RY = M.ry, R = M.r, NG = M.ng, NK = M.nk, DP = M.dp,
                        KP = M.kp, SLICE = M.slice;
@@ -917,7 +1506,9 @@ struct MmLayout {
   static_assert(NC % 8 == 0, "mma.sync n-tiles of 8 columns");
   static constexpr int A1 = M.a1, A2 = M.a2, X = M.x, G = M.g, Y = M.y, Z = M.z,
                        MASS = M.mass, FRAG = M.frag, RED = M.red, SLOTS = M.slots,
-                       kFloats = M.floats;
+                       kFloats = M.floats, RING = M.ring, ZB = M.zb, XB = M.xb, GP = M.gp;
+  // a tile that may split over a cluster (the ring's tiles)
+  static constexpr bool SPLITS = NS > 0;
 };
 
 // The PROF instances' phases of an iteration (ops/cuda_mjhmc.py,
@@ -971,10 +1562,22 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
     G = X + DP * LD;
     IM = G + DP * NC;
   }
+  // the ring's tiles (NS > 0): a cluster of C CTAs a tile (ClusterPlan);
+  // past one, they run their tile alike and its rank 0 alone writes to
+  // device memory
+  constexpr bool RING = L::NS > 0;
+  typename RingIf<RING, Ring<D, K, RING ? KC : 16, T, RING ? P : kDefault, RING ? L::NS : 1>>::type
+      ring;
+  uint32_t tile = blockIdx.x;
+  bool writer = true;
+  if constexpr (RING) {
+    tile = blockIdx.x / cl::size();
+    writer = cl::rank() == 0;
+  }
 
   const int tid = threadIdx.x, c = tid % CH, r = tid / CH;
   const bool owner = r < R;  // of dims (every thread owns rows)
-  const uint32_t chain = blockIdx.x * CH + c;
+  const uint32_t chain = tile * CH + c;
   const bool live = chain < (uint32_t)a.n;
   const size_t n = a.n;
   const float eps = a.eps, he = 0.5f * a.eps;
@@ -988,6 +1591,10 @@ __global__ void __launch_bounds__(MmTile<E, D, K, VAR, P>::T, MmTile<E, D, K, VA
     for (int idx = tid; idx < (DP - D4) * NC; idx += T) G[D4 * NC + idx] = 0.f;
   load_params<E, D, K, DP, T, BR, P, OFF>(a, sm + L::A1, sm + L::A2, nullptr, IM,
                                           reinterpret_cast<uint32_t*>(sm + L::FRAG));
+  if constexpr (RING) {
+    ring.init(sm + L::RING, a.scratch);
+    if (ring.csize > 1) cl::arrive();  // pairs the first gradient's wait
+  }
   const float* A1 = sm + L::A1;
   const float* A2 = sm + L::A2;
   const uint32_t* frag = reinterpret_cast<const uint32_t*>(sm + L::FRAG);
@@ -1132,12 +1739,26 @@ MJHMC_MM_UNROLL_OWNED(NE)
       if (want_u)
 #pragma unroll
         for (int q = 0; q < NT; ++q) eacc[q] = 0.f;
-      gradient_chunks<E, D, K, KC, NC, LD, LY, LD, T, P, false, true>(
-          A1, A2, frag, a.p1, X, Y, Z, G, a, want_u,
-          [&](int k0) {
-            if (want_u) chunk_terms(k0);
-          },
-          [&] { prof.sync(kMmContract1); }, [&] { prof.sync(kMmContract2); });
+      auto rows = [&](int k0) {
+        if (want_u) chunk_terms(k0);
+      };
+      if constexpr (RING)
+        gradient_ring<E, D, K, KC, NC, LD, LY, T, P, false, true, L::NS>(
+            ring, a.p1, X, Y, reinterpret_cast<uint32_t*>(sm + L::XB),
+            reinterpret_cast<uint32_t*>(sm + L::ZB), G, sm + L::GP, sm + L::GP + DP * NC, a,
+            want_u, rows,
+            [&] { prof.sync(kMmContract1); }, [&] { prof.sync(kMmContract2); },
+            [&](float* ep) {
+              for (int q = 0; q < NT; ++q) ep[q * T + tid] = eacc[q];
+            },
+            [&](int j, float e) {
+              for (int q = 0; q < NT; ++q)
+                if (want_u && q == j) eacc[q] = e;
+            });
+      else
+        gradient_chunks<E, D, K, KC, NC, LD, LY, LD, T, P, false, true>(
+            A1, A2, frag, a.p1, X, Y, Z, G, a, want_u, rows, [&] { prof.sync(kMmContract1); },
+            [&] { prof.sync(kMmContract2); });
     } else {
       gradient_tile<E, D, K, NC, LD, T, STUB, P, false, true>(
           A1, A2, frag, a.p1, X, Y, Z, G, a, want_u,
@@ -1282,7 +1903,7 @@ MJHMC_MM_UNROLL_OWNED(NE)
 
       evals += valid > 0.5f ? m_cost : 2 * m_cost;
       kadd(w, wc, dwell);
-      if (emit_now && live && r == 0) {
+      if (emit_now && live && r == 0 && writer) {
         a.ws[emit_row * n + chain] = dwell;
         a.es[emit_row * n + chain] = evals;
       }
@@ -1293,9 +1914,10 @@ MJHMC_MM_UNROLL_OWNED(NE)
           kadd(wx[k], wxc[k], dwell * x[k]);
           kadd(wx2[k], wx2c[k], dwell * x[k] * x[k]);
           if constexpr (PAD) {
-            if (emit_now && live && dim(k) < D) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+            if (emit_now && live && writer && dim(k) < D)
+              a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
           } else {
-            if (emit_now && live) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+            if (emit_now && live && writer) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
           }
         }
       if (is_l) {
@@ -1337,7 +1959,7 @@ MJHMC_MM_UNROLL_OWNED(NG)
       }
       evals += m_cost;
       kadd(w, wc, 1.f);
-      if (emit_now && live && r == 0) {
+      if (emit_now && live && r == 0 && writer) {
         a.ws[emit_row * n + chain] = 1.f;
         a.es[emit_row * n + chain] = evals;
       }
@@ -1347,16 +1969,17 @@ MJHMC_MM_UNROLL_OWNED(NE)
           kadd(wx[k], wxc[k], x[k]);
           kadd(wx2[k], wx2c[k], x[k] * x[k]);
           if constexpr (PAD) {
-            if (emit_now && live && dim(k) < D) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+            if (emit_now && live && writer && dim(k) < D)
+              a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
           } else {
-            if (emit_now && live) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+            if (emit_now && live && writer) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
           }
         }
     }
     prof.mark(kMmDecide);
   }
 
-  if (owner && live)
+  if (owner && live && writer)
 MJHMC_MM_UNROLL_OWNED(NE)
     for (int k = 0; k < NE; ++k) {
       if constexpr (PAD) {
@@ -1369,13 +1992,14 @@ MJHMC_MM_UNROLL_OWNED(NE)
       a.wx[gi] = wx[k];
       a.wx2[gi] = wx2[k];
     }
-  if (r == 0 && live) {
+  if (r == 0 && live && writer) {
     a.uo[chain] = u;
     a.hbo[chain] = h_back;
     a.valido[chain] = valid;
     a.w[chain] = w;
     a.evals[chain] = evals;
   }
+  if constexpr (RING) ring.finish();
   prof.mark(kMmOther);
   prof.write(a, T);
 }
@@ -1529,7 +2153,8 @@ struct NutsGeom {
   int r, ne, nk, dp, kp, nc, t;
   int a1, a2, patch, x, g, y, z, mass, frag, tree;
   bool onchip;
-  int slice;  // xg: the block's floats of the device scratch
+  int slice;             // xg: the block's floats of the device scratch
+  int ring, zb, xb, gp;  // NS > 0: mm_geom's
   __host__ __device__ constexpr int red(int max_depth) const {
     return tree + (onchip ? nuts::rows(max_depth) * dp * nc : 0);
   }
@@ -1539,7 +2164,7 @@ struct NutsGeom {
 };
 __host__ __device__ constexpr NutsGeom nuts_geom(int E, int P, bool OFF, bool ONCHIP, int D,
                                                  int K, int NC, int T, int KC = 0,
-                                                 bool XG = false) {
+                                                 bool XG = false, int NS = 0) {
   NutsGeom m{};
   m.nc = NC;
   m.t = T;
@@ -1557,9 +2182,13 @@ __host__ __device__ constexpr NutsGeom nuts_geom(int E, int P, bool OFF, bool ON
   m.g = m.x + (XG ? 0 : m.dp * NC);
   m.y = m.g + (XG ? 0 : m.dp * NC);
   m.z = m.y + m.kp * NC;
-  m.mass = m.z + (E != kSparseCoding ? m.kp * NC : 0);
+  m.mass = m.z + (E != kSparseCoding && !NS ? m.kp * NC : 0);
   m.frag = (m.mass + (XG ? 0 : 2 * m.dp) + 3) / 4 * 4;  // 16-byte aligned
-  m.tree = m.frag + 2 * copies * (pad16(K) * pad16(D) / 2);
+  m.ring = m.frag + 2 * copies * (pad16(K) * pad16(D) / 2);
+  m.zb = m.ring + ring_floats(T, P, NS);
+  m.xb = m.zb + (NS ? zb_floats(KC, NC, P) : 0);
+  m.gp = m.xb + (NS ? xb_floats(D, NC, P) : 0);
+  m.tree = m.gp + (NS && ONCHIP ? split_floats(m.dp, NC, T) : 0);
   m.onchip = ONCHIP;
   m.slice = XG ? round_up(m.dp * (2 * NC + 2), 4) : 0;  // 16-byte aligned
   return m;
@@ -1579,22 +2208,35 @@ __host__ __device__ constexpr TileRule nuts_rule(int E, int P, int D, int K) {
       return {nc, t, minb_for(E, nuts_geom(E, P, off != 0, onchip, D, K, nc, t).floats(1)),
               off != 0, onchip};
     }
-  // chunked k, the parameter matrix off chip (mm_rule's), the tree state on
-  // chip where it fits beside the rest at kTileDepth
-  for (int xg = 0; xg < 2; ++xg)
-    for (int nc = xg ? 8 : nc0; nc >= 8; nc /= 2) {
+  // chunked k, the parameter matrix off chip (mm_rule's passes): without a
+  // ring the largest kc, the tree state on chip where it fits beside the
+  // rest at kTileDepth; with one the tree state on chip where any ring and
+  // chunk let it fit, then the most stages, then the largest kc
+  for (int pass = P == kHighest ? 1 : 0; pass < 3; ++pass)
+    for (int nc = pass == 2 ? 8 : nc0; nc >= 8; nc /= 2) {
+      const int xg = pass == 2;
+      const bool ring = pass == 0;
       int t = round_up(t0 / nc0 * nc, 32);
+      if (ring) t = max_of(t, kRingThreads);
       while (2 * t <= kMaxThreads && cdiv(D, t / nc) > kOwnerDims) t *= 2;
-      const int q = chunk_quantum(t / nc);
-      for (int kc = chunk_start(K, q); kc >= q; kc -= q) {
-        if (4 * nuts_geom(E, P, true, false, D, K, nc, t, kc, xg != 0).floats(nuts::kTileDepth) >
-            kSmemBlock)
-          continue;
-        const bool onchip = 4 * nuts_geom(E, P, true, true, D, K, nc, t, kc, xg != 0)
-                                    .floats(nuts::kTileDepth) <= kSmemBlock;
-        const int floats = nuts_geom(E, P, true, onchip, D, K, nc, t, kc, xg != 0).floats(1);
-        return {nc, t, chunked_minb(E, floats, t), true, onchip, kc, xg != 0};
-      }
+      const int q = ring ? ring_quantum(t / nc, t) : chunk_quantum(t / nc);
+      for (int onchip = 1; onchip >= 0; --onchip)
+        for (int ns = ring ? kMaxStages : 0; ns >= (ring ? kMinStages : 0); --ns)
+          for (int kc = chunk_start(K, q); kc >= q; kc -= q) {
+            if (!ring && onchip) {
+              // the largest kc off chip decides; then on chip if it fits
+              if (4 * nuts_geom(E, P, true, false, D, K, nc, t, kc, xg != 0).floats(
+                          nuts::kTileDepth) > kSmemBlock)
+                continue;
+              const bool on = 4 * nuts_geom(E, P, true, true, D, K, nc, t, kc, xg != 0)
+                                      .floats(nuts::kTileDepth) <= kSmemBlock;
+              const int floats = nuts_geom(E, P, true, on, D, K, nc, t, kc, xg != 0).floats(1);
+              return {nc, t, chunked_minb(E, floats, t), true, on, kc, xg != 0};
+            }
+            const NutsGeom m = nuts_geom(E, P, true, onchip != 0, D, K, nc, t, kc, xg != 0, ns);
+            if (4 * m.floats(nuts::kTileDepth) <= kSmemBlock)
+              return {nc, t, chunked_minb(E, m.floats(1), t), true, onchip != 0, kc, xg != 0, ns};
+          }
     }
   return {0, 0, 0, true, false};
 }
@@ -1608,7 +2250,7 @@ template <int E, int D, int K, int P>
 struct NutsTile {
   static constexpr TileRule rule = nuts_rule(E, P, D, K);
   static_assert(rule.ch > 0, "no tile of nuts_mm_kernel fits this shape, even off chip");
-  static constexpr int NC = rule.ch, T = rule.t, MINB = rule.minb, KC = rule.kc;
+  static constexpr int NC = rule.ch, T = rule.t, MINB = rule.minb, KC = rule.kc, NS = rule.ns;
   static constexpr bool OFF = rule.off, ONCHIP = rule.onchip, XG = rule.xg;
 };
 
@@ -1617,10 +2259,14 @@ template <int E, int D, int K, int P>
 struct NutsLayout {
   using TL = NutsTile<E, D, K, P>;
   static constexpr NutsGeom M =
-      nuts_geom(E, P, TL::OFF, TL::ONCHIP, D, K, TL::NC, TL::T, TL::KC, TL::XG);
+      nuts_geom(E, P, TL::OFF, TL::ONCHIP, D, K, TL::NC, TL::T, TL::KC, TL::XG, TL::NS);
   static constexpr int NC = TL::NC, T = TL::T, R = M.r, NE = M.ne, NK = M.nk, DP = M.dp,
-                       KP = M.kp, KC = TL::KC, SLICE = M.slice;
+                       KP = M.kp, KC = TL::KC, SLICE = M.slice, NS = TL::NS, RING = M.ring,
+                       ZB = M.zb, XB = M.xb, GP = M.gp;
   static constexpr bool XG = TL::XG;
+  // a tile that may split over a cluster (the ring's tiles with the tree
+  // state on chip)
+  static constexpr bool SPLITS = NS > 0 && TL::ONCHIP;
   static_assert(T % NC == 0 && DP >= D && (KC ? KC % 16 == 0 && KC % R == 0 && TL::OFF : KP >= K),
                 "a thread's elements in one column");
   static_assert(NC % 8 == 0, "mma.sync n-tiles of 8 columns");
@@ -1677,6 +2323,7 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
   constexpr size_t kHead = OFF ? Params<D, K, P>::kFloats : 0;
   float* deep_tree = nullptr;
   float* deep_red = nullptr;
+  uint32_t* XB = reinterpret_cast<uint32_t*>(sm + L::XB);  // the ring's tiles: X's fragments
   if constexpr (DEEP) {
     const size_t tree_floats =
         (size_t)(TL::ONCHIP ? deep_rows(max_depth) : rows(max_depth)) * DP * a.n;
@@ -1697,8 +2344,19 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
     IM = G + DP * NC;
   }
 
+  // the ring's tiles (NS > 0): mm_kernel's
+  constexpr bool RING = L::NS > 0;
+  typename RingIf<RING, Ring<D, K, RING ? KC : 16, T, RING ? P : kDefault, RING ? L::NS : 1>>::type
+      ring;
+  int tile = blockIdx.x;
+  bool writer = true;
+  if constexpr (RING) {
+    tile = blockIdx.x / cl::size();
+    writer = cl::rank() == 0;
+  }
+
   const int tid = threadIdx.x, c = tid % NC, r = tid / NC;
-  const int chain = blockIdx.x * NC + c;
+  const int chain = tile * NC + c;
   const size_t n = a.n;
   const bool chain_live = chain < a.n;
   const float eps = a.eps, he = 0.5f * a.eps;
@@ -1714,6 +2372,10 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
   load_params<E, D, K, DP, T, BR, P, OFF>(a, sm + L::A1, sm + L::A2,
                                           KC > 0 ? nullptr : sm + L::PATCH, IM,
                                           reinterpret_cast<uint32_t*>(sm + L::FRAG));
+  if constexpr (RING) {
+    ring.init(sm + L::RING, a.scratch);
+    if (ring.csize > 1) cl::arrive();  // pairs the first gradient's wait
+  }
 
   auto dim = [&](int k) { return r + k * R; };  // the thread's k-th dim
   auto im = [&](int i) { return BR ? IM[i] : 1.f; };
@@ -1736,15 +2398,21 @@ __global__ void __launch_bounds__(NutsTile<E, D, K, P>::T, NutsTile<E, D, K, P>:
   auto deep_at = [&](int rr, int i) -> float& {
     return deep_tree[((size_t)(rr - rows(kTileDepth)) * DP + i) * n + chain];
   };
+  // (the ring's tiles: a split tile's rows are its rank 0's, read past L1)
   auto stack = [&](int rr, int i) -> float {
-    if (deep_row(rr)) return deep_at(rr, i);
+    if constexpr (RING) {
+      if (deep_row(rr)) return __ldcg(&deep_at(rr, i));
+    } else {
+      if (deep_row(rr)) return deep_at(rr, i);
+    }
     return tree(rr, i);
   };
   auto set_stack = [&](int rr, int i, float v) {
-    if (deep_row(rr))
-      deep_at(rr, i) = v;
-    else
+    if (deep_row(rr)) {
+      if (writer) deep_at(rr, i) = v;
+    } else {
       tree(rr, i) = v;
+    }
   };
   auto put = [&](int s, float part) {
     if (DEEP && s >= slots(kTileDepth))
@@ -1792,13 +2460,14 @@ MJHMC_MM_UNROLL_OWNED(NE)
       g[k] = in ? a.g[gi] : 0.f;
       wx[k] = wxc[k] = wx2[k] = wx2c[k] = 0.f;
       xt[k] = vt[k] = gt[k] = 0.f;
-      if (in && a.num_iters == 0) a.vo[gi] = a.v[gi];
+      if (in && writer && a.num_iters == 0) a.vo[gi] = a.v[gi];
     } else {
       x[k] = chain_live ? a.x[gi] : 0.f;
       g[k] = chain_live ? a.g[gi] : 0.f;
       wx[k] = wxc[k] = wx2[k] = wx2c[k] = 0.f;
       xt[k] = vt[k] = gt[k] = 0.f;
-      if (chain_live && a.num_iters == 0) a.vo[gi] = a.v[gi];  // each iteration writes its v0
+      // each iteration writes its v0
+      if (chain_live && writer && a.num_iters == 0) a.vo[gi] = a.v[gi];
     }
   }
   // the chain's scalars, kept alike by its R owners
@@ -1822,9 +2491,9 @@ MJHMC_MM_UNROLL_OWNED(NE)
                                 BR ? IM[DP + i] : 1.f, key);
         if constexpr (PAD) {  // a padded dim draws no momentum
           v0 = i < D ? v0 : 0.f;
-          if (i < D) a.vo[(size_t)i * n + chain] = v0;
+          if (i < D && writer) a.vo[(size_t)i * n + chain] = v0;
         } else {
-          a.vo[(size_t)i * n + chain] = v0;
+          if (writer) a.vo[(size_t)i * n + chain] = v0;
         }
         tree(kXM, i) = tree(kXP, i) = x[k];
         tree(kVM, i) = tree(kVP, i) = v0;
@@ -1876,7 +2545,16 @@ MJHMC_MM_UNROLL_OWNED(NE)
         if (!prof.sync_or(kPhKickDrift, act)) break;
         prof.count(kPhLeaves);
         // the leaf's gradient, rounded one operation at a time
-        if constexpr (KC > 0) {
+        if constexpr (KC > 0 && RING) {
+          e2c = 0.f;
+          gradient_ring<E, D, K, KC, NC, NC, NC, T, P, true, false, L::NS>(
+              ring, a.p1, X, Y, XB, reinterpret_cast<uint32_t*>(sm + L::ZB), G, sm + L::GP,
+              sm + L::GP + DP * NC, a, false,
+              chunk_terms, [&] { prof.sync(kPhContract1); }, [&] { prof.sync(kPhContract2); },
+              [&](float* ep) { ep[tid] = e2c; }, [&](int j, float e) {
+                if (j == 0) e2c = e;
+              });
+        } else if constexpr (KC > 0) {
           e2c = 0.f;
           gradient_chunks<E, D, K, KC, NC, NC, NC, NC, T, P, true, false>(
               a.scratch, a.scratch + Params<D, K, P>::kF32_1,
@@ -2040,7 +2718,7 @@ MJHMC_MM_UNROLL_OWNED(NE)
     if (chain_live) {
       evals += nl;
       kadd(w, wc, 1.f);
-      if (emit_now && r == 0) {
+      if (emit_now && r == 0 && writer) {
         a.ws[emit_row * n + chain] = 1.f;
         a.es[emit_row * n + chain] = evals;
       }
@@ -2049,16 +2727,16 @@ MJHMC_MM_UNROLL_OWNED(NE)
         kadd(wx[k], wxc[k], x[k]);
         kadd(wx2[k], wx2c[k], x[k] * x[k]);
         if constexpr (PAD) {
-          if (emit_now && dim(k) < D) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+          if (emit_now && writer && dim(k) < D) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
         } else {
-          if (emit_now) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
+          if (emit_now && writer) a.xs[(emit_row * D + dim(k)) * n + chain] = x[k];
         }
       }
     }
     prof.mark(kPhOther);
   }
 
-  if (chain_live) {
+  if (chain_live && writer) {
 MJHMC_MM_UNROLL_OWNED(NE)
     for (int k = 0; k < NE; ++k) {
       if constexpr (PAD) {
@@ -2078,8 +2756,100 @@ MJHMC_MM_UNROLL_OWNED(NE)
       a.evals[chain] = evals;
     }
   }
+  if constexpr (RING) ring.finish();
   prof.mark(kPhOther);
   prof.write(a, T);
+}
+
+// The clusters of C = 2, 4, 8 and 16 CTAs of kernel (T threads, bytes of
+// shared memory a block) the card holds at once (0 where it holds none or
+// refuses the size)
+inline void clusters_held(void (*kernel)(Args), int T, int bytes, int* held) {
+  for (int j = 0; j < 4; ++j) {
+    const int c = kClusterSizes[j];
+    held[j] = 0;
+    if (c > 8 && cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
+                     cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    cudaLaunchAttribute at{};
+    at.id = cudaLaunchAttributeClusterDimension;
+    at.val.clusterDim.x = c;
+    at.val.clusterDim.y = at.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg{};
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(T);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.attrs = &at;
+    cfg.numAttrs = 1;
+    if (cudaOccupancyMaxActiveClusters(&held[j], kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();
+      held[j] = 0;
+    }
+  }
+}
+// ... asked once for each device, kernel and shared bytes (a NUTS launch's
+// bytes follow its max_depth), since NUTS and the adaptive loops launch an
+// iteration at a time
+inline void clusters_held_once(void (*kernel)(Args), int T, int bytes, int* held) {
+  struct Seen {
+    int device;
+    void (*kernel)(Args);
+    int bytes, held[4];
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int device = 0;
+  cudaGetDevice(&device);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& e : seen)
+    if (e.device == device && e.kernel == kernel && e.bytes == bytes) {
+      for (int j = 0; j < 4; ++j) held[j] = e.held[j];
+      return;
+    }
+  Seen e{device, kernel, bytes, {}};
+  clusters_held(kernel, T, bytes, e.held);
+  seen.push_back(e);
+  for (int j = 0; j < 4; ++j) held[j] = e.held[j];
+}
+// The chunks' fragments into the device buffer (Stream order), then kernel
+// on the clusters its plan gives for the chains' tiles (ClusterPlan). A
+// launch that the card refuses returns its error; there is no other route
+template <int E, int D, int K, int P, int KC, int T>
+cudaError_t launch_clustered(void (*kernel)(Args), Args a, int chains, int bytes, bool splits,
+                             cudaStream_t stream) {
+  if (!a.scratch) return cudaErrorInvalidValue;
+  const int blocks = min_of(cdiv(Params<D, K, P>::kFloats, 256), 1024);
+  stream_params_kernel<E, D, K, P, KC, T><<<blocks, 256, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int held[4] = {};
+  if (splits) clusters_held_once(kernel, T, bytes, held);
+  const ClusterPlan plan = cluster_plan(cdiv(a.n, chains), held, splits);
+  cudaLaunchAttribute at{};
+  at.id = cudaLaunchAttributeClusterDimension;
+  at.val.clusterDim.x = plan.c;
+  at.val.clusterDim.y = at.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(plan.grid);
+  cfg.blockDim = dim3(T);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+// The cluster entries of a tile report (tile_of, nuts_tile_at): out[8] the
+// ring's stages (0: no cluster), out[9] whether a tile may split,
+// out[10..13] the clusters of C = 2, 4, 8, 16 the card holds at once
+template <int NS>
+void cluster_report(void (*kernel)(Args), int T, int bytes, bool splits, int* out) {
+  out[8] = NS;
+  out[9] = NS > 0 && splits;
+  for (int j = 0; j < 4; ++j) out[10 + j] = 0;
+  if constexpr (NS > 0) clusters_held(kernel, T, bytes, out + 10);
 }
 
 // NUTS of energy E at (D, K) and precision P, run or stream (EMIT), without
@@ -2098,12 +2868,16 @@ cudaError_t launch_nuts(const Args& a, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  if constexpr (TL::OFF) {
-    err = launch_params<E, D, K, P>(a, stream);
-    if (err != cudaSuccess) return err;
+  if constexpr (L::NS > 0) {
+    return launch_clustered<E, D, K, P, L::KC, L::T>(kernel, a, L::NC, bytes, L::SPLITS, stream);
+  } else {
+    if constexpr (TL::OFF) {
+      err = launch_params<E, D, K, P>(a, stream);
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<(a.n + L::NC - 1) / L::NC, L::T, bytes, stream>>>(a);
+    return cudaGetLastError();
   }
-  kernel<<<(a.n + L::NC - 1) / L::NC, L::T, bytes, stream>>>(a);
-  return cudaGetLastError();
 }
 
 // mm_kernel's body VAR of energy E at (D, K) and precision P; OFF: the
@@ -2117,12 +2891,16 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  if constexpr (L::OFF) {
-    err = launch_params<E, D, K, P>(a, stream);
-    if (err != cudaSuccess) return err;
+  if constexpr (L::NS > 0) {
+    return launch_clustered<E, D, K, P, L::KC, L::T>(kernel, a, L::CH, bytes, L::SPLITS, stream);
+  } else {
+    if constexpr (L::OFF) {
+      err = launch_params<E, D, K, P>(a, stream);
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<(a.n + L::CH - 1) / L::CH, L::T, bytes, stream>>>(a);
+    return cudaGetLastError();
   }
-  kernel<<<(a.n + L::CH - 1) / L::CH, L::T, bytes, stream>>>(a);
-  return cudaGetLastError();
 }
 
 // The tile of mm_kernel's run of body VAR at (D, K) and precision P (BR:
@@ -2131,7 +2909,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // (the card's occupancy query, which counts registers too); and the device
 // buffer (a.scratch) it indexes: out[4] floats of a block's slice (X, G
 // and the mass where XG, else 0), out[5] the parameter matrix's floats at
-// its head (0 where on chip), out[6] 0 (NUTS's tree floats a chain)
+// its head (0 where on chip), out[6] 0 (NUTS's tree floats a chain), out[7]
+// 0 (NUTS's span slots a block); out[8..13] cluster_report's
 template <int E, int D, int K, int VAR, bool BR, int P>
 cudaError_t tile_of(int* out) {
   using L = MmLayout<E, D, K, VAR, P, BR>;
@@ -2140,11 +2919,12 @@ cudaError_t tile_of(int* out) {
   out[2] = L::kFloats * (int)sizeof(float);
   out[4] = L::SLICE;
   out[5] = L::OFF ? Params<D, K, P>::kFloats : 0;
-  out[6] = 0;
+  out[6] = out[7] = 0;
   void (*kernel)(Args) = mm_kernel<E, D, K, VAR, false, false, BR, P, false>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[2]);
   if (err != cudaSuccess) return err;
+  cluster_report<L::NS>(kernel, L::T, out[2], L::SPLITS, out);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, L::T, out[2]);
 }
 
@@ -2212,7 +2992,8 @@ cudaError_t launch_mm_prof(const Args& a, cudaStream_t s) {
 // a chain where it is off chip; out[7] a block's span slots there. Past
 // kTileDepth it is the DEEP instance's tile, as those launches run: the
 // layout at kTileDepth, the tree rows past it where the rest are on chip,
-// and the span slots past it (0 up to kTileDepth)
+// and the span slots past it (0 up to kTileDepth); out[8..13]
+// cluster_report's
 template <int E, int P>
 cudaError_t launch_nuts_prof(const Args& a, cudaStream_t s) {
   return launch_nuts<E, Shape<E>::D, Shape<E>::K, P, false, false, true>(a, s);
@@ -2233,6 +3014,7 @@ cudaError_t nuts_tile_at(int max_depth, int* out) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[2]);
   if (err != cudaSuccess) return err;
+  cluster_report<L::NS>(kernel, L::T, out[2], L::SPLITS, out);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, L::T, out[2]);
 }
 template <int E, int P>

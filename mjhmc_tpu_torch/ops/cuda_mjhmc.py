@@ -1478,7 +1478,16 @@ def nuts_scratch_rows(max_depth: int) -> int:
 # until an owner holds at most 4 groups of four dims, NUTS 16 dims), and
 # where even 8 columns of X and G do not fit beside a chunk they and the
 # mass move to the block's slice of the device buffer (``xg_off``). The rule
-# refuses no shape: the device buffer is the limit.
+# refuses no shape: the device buffer is the limit. At the bf16 precisions a
+# chunked tile with X and G on chip also keeps a ring of ``stages`` chunks of
+# the parameter matrix's fragments in shared memory, and a tile may split
+# over a cluster of CTAs (``cluster_plan``); mm_kernel's tile starts from
+# ``RING_COLUMNS`` columns and both kernels' from ``RING_THREADS`` threads.
+# mm_kernel takes the most blocks an SM any ring and chunk give, then the
+# largest chunk, then the most stages; NUTS its tree state on chip where it
+# fits, then the most stages, then the largest chunk; a ring's chunk is a
+# multiple of 16 rows for each warp too. The ``xg_off`` tiles and "highest"
+# take no ring.
 #: shared memory on the H100: what a block may opt into, an SM's, and what
 #: an SM reserves for each resident block
 SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
@@ -1490,6 +1499,14 @@ _BASE_TILES = {ProductOfTSpec: (8, 96, 4), SparseCodingSpec: (16, 256, 2),
 #: dims (NUTS) at most where a chunked tile's threads grow, a block's threads
 #: at most (kChunkMax, kOwnerGroups, kOwnerDims, kMaxThreads)
 CHUNK_MAX, OWNER_GROUPS, OWNER_DIMS, MAX_THREADS = 512, 4, 16, 1024
+#: the ring of the chunked tiles at the bf16 precisions: a stage's bytes at
+#: most (kStageBytes; at least one k-tile of each warp's fragments), its
+#: stages (kMaxStages, kMinStages) and the cluster sizes (kClusterSizes)
+STAGE_BYTES, MAX_STAGES, MIN_STAGES = 16384, 4, 2
+CLUSTER_SIZES = (2, 4, 8, 16)
+#: the ring's tiles with X and G on chip: columns and threads a block
+#: (kRingColumns, kRingThreads)
+RING_COLUMNS, RING_THREADS = 32, 256
 
 
 class TileRule(NamedTuple):
@@ -1497,8 +1514,9 @@ class TileRule(NamedTuple):
     blocks an SM asked of ``__launch_bounds__``, the parameter matrix in a
     device buffer (``off``), NUTS's tree state in shared memory
     (``onchip``), the rows of a chunk of the intermediate (``chunk``, 0:
-    all at once) and X, G and the mass in the block's slice of the device
-    buffer (``xg_off``)."""
+    all at once), X, G and the mass in the block's slice of the device
+    buffer (``xg_off``) and the stages of the chunks' ring (``stages``, 0:
+    none)."""
 
     chains: int
     threads: int
@@ -1507,6 +1525,7 @@ class TileRule(NamedTuple):
     onchip: bool
     chunk: int = 0
     xg_off: bool = False
+    stages: int = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -1540,11 +1559,48 @@ def _chunked_minb(spec, floats: int, threads: int) -> int:
     return min(_minb(spec, floats), max(1, MAX_THREADS // threads))
 
 
-def _chunks(k: int, owners: int):
+def frag_copies(precision: str) -> int:
+    """The bf16 copies of the parameter matrix's fragments: hi (and lo at
+    "bf16x3"); none at "highest"."""
+    return {"highest": 0, "bf16x3": 2}.get(precision, 1)
+
+
+def stage_k(threads: int, precision: str) -> int:
+    """k-tiles a stage of the ring holds of each warp's fragments
+    (stage_k): STAGE_BYTES of 512-byte fragments over the warps, at least
+    one."""
+    return max(1, STAGE_BYTES // (threads // 32 * 512 * max(frag_copies(precision), 1)))
+
+
+def ring_floats(threads: int, precision: str, stages: int) -> int:
+    """Shared floats of the ring (ring_floats): the stages and their two
+    barriers each."""
+    if not stages:
+        return 0
+    words = threads // 32 * stage_k(threads, precision) * frag_copies(precision) * 128
+    return stages * (words + 4)
+
+
+def b_floats(rows: int, columns: int, precision: str) -> int:
+    """Shared floats of a B operand split into bf16 fragments (xb_floats,
+    zb_floats): ``rows`` padded to 16, hi and, past one bf16 pass, lo."""
+    return _cdiv(rows, 16) * (columns // 8) * 32 * (2 if precision == "default" else 4)
+
+
+def split_floats(dp: int, columns: int, threads: int) -> int:
+    """Shared floats of a split tile's partials (split_floats): G's and two
+    energy partials a thread."""
+    return dp * columns + 2 * threads
+
+
+def _chunks(k: int, owners: int, threads: int = 0):
     """A chunked tile's candidate chunks, largest first (chunk_quantum,
-    chunk_start): multiples of 16 and of a column's owners, at most
+    chunk_start): multiples of 16 and of a column's owners (with a ring's
+    ``threads``, of 16 rows for each warp too: ring_quantum), at most
     ``CHUNK_MAX`` and k rounded up."""
     q = owners // math.gcd(owners, 16) * 16
+    if threads:
+        q = math.lcm(q, 16 * (threads // 32))
     return range(min(_round_up(k, q), max(CHUNK_MAX // q, 1) * q), q - 1, -q)
 
 
@@ -1568,7 +1624,7 @@ class MmGeometry(NamedTuple):
 
 
 def mm_geometry(spec, variant: str, branches: bool, chains: int, threads: int,
-                off: bool, chunk: int = 0, xg_off: bool = False) -> MmGeometry:
+                off: bool, chunk: int = 0, xg_off: bool = False, stages: int = 0) -> MmGeometry:
     d, k = mm_shape(spec)
     nc = 2 * chains if variant == "mjhmc" else chains
     ry = threads // chains
@@ -1580,12 +1636,18 @@ def mm_geometry(spec, variant: str, branches: bool, chains: int, threads: int,
     f32 = spec.precision == "highest" and not off
     params = 0 if off else param_floats(spec)
     # the f32 copies, X, G (none where xg_off), Y and Z (none at sparse
-    # coding, whose Y is the residual operand), the mass, then the bf16
-    # fragments, 16-byte aligned
+    # coding, whose Y is the residual operand; none with a ring, whose Z is
+    # in ZB), the mass, then the bf16 fragments, 16-byte aligned
     mass = ((params if f32 else 0) + (0 if xg_off else dp * ld + dp * nc)
-            + (kp * ld if isinstance(spec, SparseCodingSpec) else kp * nc + kp * ld))
+            + (kp * ld if isinstance(spec, SparseCodingSpec)
+               else kp * nc + (0 if stages else kp * ld)))
     frag = _round_up(mass + (2 * dp if branches and not xg_off else 0), 4)
+    # then (a ring's tiles) the ring, ZB, XB and a split tile's partials
     red = frag + (0 if f32 else params)
+    if stages:
+        red += (ring_floats(threads, spec.precision, stages)
+                + b_floats(chunk, nc, spec.precision) + b_floats(d, nc, spec.precision)
+                + split_floats(dp, nc, threads))
     return MmGeometry(nc, ld, ry, r, ng, nk, dp, kp,
                       red + (4 if variant == "mjhmc" else 3) * threads,
                       dp * (ld + nc + 2) if xg_off else 0)
@@ -1603,7 +1665,7 @@ def mm_tile_rule(spec, variant: str) -> TileRule:
     """mm_kernel's tile of ``variant`` on the spec at its shape and
     precision (mm_rule; the layout with the branches must fit). Every shape
     has one: past the whole tile on chip or with the parameter matrix off
-    chip, the chunked tiles."""
+    chip, the chunked tiles (at the bf16 precisions with their ring)."""
     ch0, t0, _ = _BASE_TILES[type(spec)]
     if isinstance(spec, LogregSpec) and variant == "mjhmc":
         ch0 = 4
@@ -1618,16 +1680,34 @@ def mm_tile_rule(spec, variant: str) -> TileRule:
             ch //= 2
     d, k = mm_shape(spec)
     ch8 = 4 if variant == "mjhmc" else 8
-    for xg_off in (False, True):
-        ch = ch8 if xg_off else ch0
+    wide = RING_COLUMNS // 2 if variant == "mjhmc" else RING_COLUMNS
+    # X and G on chip with a ring (the bf16 precisions), then without, then
+    # (xg_off) in the device buffer
+    for ring, xg_off in ((True, False), (False, False), (False, True)):
+        if ring and spec.precision == "highest":
+            continue
+        ch = ch8 if xg_off else wide if ring else ch0
         while cols(ch) >= 8:
-            t = _grown(_round_up(t0 // ch0 * ch, 32),
-                       lambda t: _cdiv(_cdiv(d, 4), t // ch), OWNER_GROUPS)
-            for kc in _chunks(k, t // ch):
-                floats = mm_geometry(spec, variant, True, ch, t, True, kc, xg_off).floats
-                if 4 * floats <= SMEM_BLOCK:
-                    return TileRule(ch, t, _chunked_minb(spec, floats, t), True, False, kc,
-                                    xg_off)
+            t = max(RING_THREADS, _round_up(ch, 32)) if ring else _round_up(t0 // ch0 * ch, 32)
+            t = _grown(t, lambda t: _cdiv(_cdiv(d, 4), t // ch), OWNER_GROUPS)
+            floats = lambda kc, ns: mm_geometry(spec, variant, True, ch, t, True, kc, xg_off,
+                                                ns).floats
+            if not ring:  # the largest chunk that fits
+                for kc in _chunks(k, t // ch):
+                    if 4 * floats(kc, 0) <= SMEM_BLOCK:
+                        return TileRule(ch, t, _chunked_minb(spec, floats(kc, 0), t), True,
+                                        False, kc, xg_off)
+                ch //= 2
+                continue
+            kcs = _chunks(k, t // ch, t)
+            least = floats(kcs[-1], MIN_STAGES)
+            if 4 * least <= SMEM_BLOCK:
+                best = _chunked_minb(spec, least, t)
+                for kc in kcs:
+                    for ns in range(MAX_STAGES, MIN_STAGES - 1, -1):
+                        f = floats(kc, ns)
+                        if 4 * f <= SMEM_BLOCK and _chunked_minb(spec, f, t) == best:
+                            return TileRule(ch, t, best, True, False, kc, xg_off, ns)
             ch //= 2
     raise AssertionError(f"no tile of the matmul kernel at {mm_shape(spec)}")  # unreachable
 
@@ -1638,20 +1718,57 @@ def mm_smem_bytes(spec, variant: str, branches: bool) -> int:
     (mirror of MmLayout::kFloats on the tile rule's tile)."""
     rule = mm_tile_rule(spec, variant)
     return 4 * mm_geometry(spec, variant, branches, rule.chains, rule.threads, rule.off,
-                           rule.chunk, rule.xg_off).floats
+                           rule.chunk, rule.xg_off, rule.stages).floats
+
+
+def mm_splits(rule: TileRule) -> bool:
+    """Whether mm_kernel's tile may split over a cluster (MmLayout::SPLITS):
+    the ring's tiles."""
+    return rule.stages > 0
+
+
+def nuts_splits(rule: TileRule) -> bool:
+    """Whether the NUTS tile may split over a cluster (NutsLayout::SPLITS):
+    the ring's tiles with the tree state on chip."""
+    return rule.stages > 0 and rule.onchip
+
+
+def cluster_plan(tiles: int, held, splits: bool) -> tuple:
+    """(C, split, grid) of a ring tile's launch (cluster_plan in the
+    header): ``held`` the clusters of C = 2, 4, 8 and 16 CTAs the card holds
+    at once at the tile's threads and shared bytes (the instance's tile
+    report, entries 10-13). Where the tile may split and the card holds a
+    cluster of two for every tile, each tile takes a cluster of the largest
+    C the card holds one of a tile, its CTAs splitting the chunks; else a
+    CTA a tile."""
+    if splits and tiles <= held[0]:
+        for s in (3, 2, 1, 0):
+            if held[s] >= tiles:
+                return CLUSTER_SIZES[s], True, tiles * CLUSTER_SIZES[s]
+    return 1, False, tiles
+
+
+def launched_blocks(rule: TileRule, n: int, splits: bool) -> int:
+    """The most blocks a launch of the tile for ``n`` chains runs: its
+    tiles, or, where it may split, 16 CTAs a tile (``cluster_plan``'s
+    largest), so that the device buffer does not depend on the card's
+    cluster occupancy."""
+    tiles = _cdiv(n, rule.chains)
+    return CLUSTER_SIZES[-1] * tiles if splits else tiles
 
 
 def mm_scratch_floats(spec, variant: str, n: int) -> int:
     """Floats of mm_kernel's device buffer for ``n`` chains: the parameter
     matrix where the tile rule puts it off chip (``param_floats``), then,
-    where X and G live there, each block's slice (MmGeom::slice); 0 where
-    the tile needs none."""
+    where X and G live there, each block's slice (MmGeom::slice) for as
+    many blocks as a launch may run (``launched_blocks``); 0 where the tile
+    needs none."""
     rule = mm_tile_rule(spec, variant)
     if not rule.off:
         return 0
     geom = mm_geometry(spec, variant, True, rule.chains, rule.threads, True, rule.chunk,
-                       rule.xg_off)
-    return param_floats(spec) + _cdiv(n, rule.chains) * geom.slice
+                       rule.xg_off, rule.stages)
+    return param_floats(spec) + launched_blocks(rule, n, mm_splits(rule)) * geom.slice
 
 
 def mm_scratch(spec, variant: str, n: int, device) -> Tensor | None:
@@ -1688,7 +1805,7 @@ class NutsGeometry(NamedTuple):
 
 
 def nuts_mm_geometry(spec, chains: int, threads: int, off: bool, onchip: bool,
-                     chunk: int = 0, xg_off: bool = False) -> NutsGeometry:
+                     chunk: int = 0, xg_off: bool = False, stages: int = 0) -> NutsGeometry:
     d, k = mm_shape(spec)
     r = threads // chains
     ne = _cdiv(d, r)
@@ -1701,8 +1818,14 @@ def nuts_mm_geometry(spec, chains: int, threads: int, off: bool, onchip: bool,
     # xg_off), then the bf16 fragments, 16-byte aligned
     mass = ((params if f32 else 0) + (0 if chunk else _round_up(k, 4))
             + (0 if xg_off else 2 * dp * chains)
-            + kp * chains * (1 if isinstance(spec, SparseCodingSpec) else 2))
+            + kp * chains * (1 if isinstance(spec, SparseCodingSpec) or stages else 2))
+    # then the fragments and (a ring's tiles) the ring, ZB, XB and (the tree
+    # state on chip) a split tile's partials
     tree = _round_up(mass + (0 if xg_off else 2 * dp), 4) + (0 if f32 else params)
+    if stages:
+        tree += (ring_floats(threads, spec.precision, stages)
+                 + b_floats(chunk, chains, spec.precision) + b_floats(d, chains, spec.precision)
+                 + (split_floats(dp, chains, threads) if onchip else 0))
     return NutsGeometry(r, ne, nk, dp, kp, tree, chains, threads, onchip,
                         _round_up(dp * (2 * chains + 2), 4) if xg_off else 0)
 
@@ -1725,17 +1848,32 @@ def nuts_mm_tile_rule(spec) -> TileRule:
                 return TileRule(nc, t, minb, off, onchip)
             nc //= 2
     d, k = mm_shape(spec)
-    for xg_off in (False, True):
+    for ring, xg_off in ((True, False), (False, False), (False, True)):
+        if ring and spec.precision == "highest":
+            continue
         nc = 8 if xg_off else nc0
         while nc >= 8:
-            t = _grown(_round_up(t0 // nc0 * nc, 32), lambda t: _cdiv(d, t // nc), OWNER_DIMS)
-            for kc in _chunks(k, t // nc):
-                geom = lambda onchip: nuts_mm_geometry(spec, nc, t, True, onchip, kc, xg_off)
-                if 4 * geom(False).floats(top) > SMEM_BLOCK:
-                    continue
-                onchip = 4 * geom(True).floats(top) <= SMEM_BLOCK
-                return TileRule(nc, t, _chunked_minb(spec, geom(onchip).floats(1), t), True,
-                                onchip, kc, xg_off)
+            t = _round_up(t0 // nc0 * nc, 32)
+            if ring:
+                t = max(t, RING_THREADS)
+            t = _grown(t, lambda t: _cdiv(d, t // nc), OWNER_DIMS)
+            geom = lambda onchip, kc, ns: nuts_mm_geometry(spec, nc, t, True, onchip, kc,
+                                                           xg_off, ns)
+            if not ring:  # the largest chunk, the tree state on chip where it fits too
+                for kc in _chunks(k, t // nc):
+                    if 4 * geom(False, kc, 0).floats(top) > SMEM_BLOCK:
+                        continue
+                    onchip = 4 * geom(True, kc, 0).floats(top) <= SMEM_BLOCK
+                    return TileRule(nc, t, _chunked_minb(spec, geom(onchip, kc, 0).floats(1), t),
+                                    True, onchip, kc, xg_off)
+            else:
+                for onchip in (True, False):
+                    for ns in range(MAX_STAGES, MIN_STAGES - 1, -1):
+                        for kc in _chunks(k, t // nc, t):
+                            g = geom(onchip, kc, ns)
+                            if 4 * g.floats(top) <= SMEM_BLOCK:
+                                return TileRule(nc, t, _chunked_minb(spec, g.floats(1), t), True,
+                                                onchip, kc, xg_off, ns)
             nc //= 2
     raise AssertionError(f"no tile of the matmul NUTS kernel at {mm_shape(spec)}")  # unreachable
 
@@ -1744,7 +1882,7 @@ def nuts_mm_geometry_of(spec) -> NutsGeometry:
     """The NUTS layout on the tile rule's tile."""
     rule = nuts_mm_tile_rule(spec)
     return nuts_mm_geometry(spec, rule.chains, rule.threads, rule.off, rule.onchip, rule.chunk,
-                            rule.xg_off)
+                            rule.xg_off, rule.stages)
 
 
 def nuts_deep_rows(max_depth: int) -> int:
@@ -1762,14 +1900,15 @@ def nuts_scratch_floats(spec, max_depth: int, n: int) -> int:
     NUTS_MM_TILE_DEPTH, its stack rows past it), then, where X and G live
     there, each block's slice (16-byte aligned), then, past
     NUTS_MM_TILE_DEPTH, each block's span slots past it ([slot][threads],
-    after the same alignment); 0 where none."""
+    after the same alignment), for as many blocks as a launch may run
+    (``launched_blocks``); 0 where none."""
     rule = nuts_mm_tile_rule(spec)
     geom = nuts_mm_geometry_of(spec)
     deep = nuts_deep_rows(max_depth)
     rows = deep if rule.onchip else nuts_scratch_rows(max_depth)
     floats = (param_floats(spec) if rule.off else 0) + rows * geom.dp * n
     if rule.xg_off or deep:
-        floats = _round_up(floats, 4) + _cdiv(n, rule.chains) * (
+        floats = _round_up(floats, 4) + launched_blocks(rule, n, nuts_splits(rule)) * (
             (geom.slice if rule.xg_off else 0) + deep * rule.threads)
     return floats
 
@@ -2080,11 +2219,17 @@ NUTS_PROF_PHASES = ("kick_drift", "contraction_1", "contraction_2", "energy_half
                     "barrier_waits", "other", "leaf_steps")
 
 
+#: the numbers a tile entry writes (the header's tile_of, nuts_tile_at)
+TILE_REPORT = 14
+
+
 def _nuts_tile_report(entries: MmEntries, spec, max_depth: int) -> tuple:
-    """All eight numbers the NUTS tile entry writes (``nuts_mm_tile``'s
+    """All the numbers the NUTS tile entry writes (``nuts_mm_tile``'s
     four, then its device buffer's: floats of a block's slice, the
-    parameter matrix's, the tree state's a chain, a block's span slots)."""
-    out = (ctypes.c_int * 8)()
+    parameter matrix's, the tree state's a chain, a block's span slots; then
+    the cluster's: the ring's stages, whether a tile may split, and the
+    clusters of 2, 4, 8 and 16 CTAs the card holds at once)."""
+    out = (ctypes.c_int * TILE_REPORT)()
     rc = entries.nuts_tile(spec.energy_id, PRECISIONS.index(spec.precision), max_depth, out)
     if rc != 0:
         raise RuntimeError(f"mjhmc_mm_nuts_tile: no NUTS instance of {type(spec).__name__} "
@@ -2137,10 +2282,10 @@ def mm_tile(spec, variant: str, branches: bool = False) -> tuple:
 
 
 def _tile_report(entries: MmEntries, spec, variant: str, branches: bool) -> tuple:
-    """All seven numbers mm_kernel's tile entry writes (``mm_tile``'s four,
+    """All the numbers mm_kernel's tile entry writes (``mm_tile``'s four,
     then its device buffer's: floats of a block's slice, the parameter
-    matrix's, 0)."""
-    out = (ctypes.c_int * 7)()
+    matrix's, 0, 0; then the cluster's, as ``_nuts_tile_report``'s)."""
+    out = (ctypes.c_int * TILE_REPORT)()
     rc = entries.tile(spec.energy_id, PRECISIONS.index(spec.precision), KERNEL_VARIANTS[variant],
                       int(branches), out)
     if rc != 0:
@@ -2148,6 +2293,23 @@ def _tile_report(entries: MmEntries, spec, variant: str, branches: bool) -> tupl
                            f"{spec.precision}{' with the branches' if branches else ''} "
                            f"(CUDA error {rc})")
     return tuple(out)
+
+
+def cluster_of(spec, variant: str, n: int, max_depth: int = NUTS_MM_TILE_DEPTH,
+               branches: bool = True) -> dict | None:
+    """The cluster launch of ``variant``'s tile of the spec for ``n``
+    chains, from its instance's tile report (the ring's stages, whether a
+    tile may split, the clusters of each size the card holds at once) and
+    ``cluster_plan``: a dict of those and the plan's C, split and grid;
+    None where the tile has no ring (no cluster)."""
+    entries = mm_library(variant, spec, *mm_shape(spec))
+    rep = (_nuts_tile_report(entries, spec, max_depth) if variant == "nuts"
+           else _tile_report(entries, spec, variant, branches))
+    if not rep[8]:
+        return None
+    c, split, grid = cluster_plan(_cdiv(n, rep[0]), rep[10:14], bool(rep[9]))
+    return dict(stages=rep[8], splits=bool(rep[9]), held=dict(zip(CLUSTER_SIZES, rep[10:14])),
+                c=c, split=split, grid=grid)
 
 
 #: {(the tile entry's address, energy, shape, precision, variant, branches,
@@ -2165,7 +2327,9 @@ def _check_buffer(entries: MmEntries, spec, variant: str, branches: bool, max_de
     there. The mirror sizes the buffer (``mm_scratch``, ``nuts_scratch``);
     this holds it to the compiled layout, so that a drift between the two
     raises instead of writing past the buffer. Past NUTS_MM_TILE_DEPTH, the
-    span slots a block follow (16-byte aligned, after the slices)."""
+    span slots a block follow (16-byte aligned, after the slices). A
+    clustered tile's blocks are as many as any plan may launch
+    (``launched_blocks``)."""
     nuts = variant == "nuts"
     entry = ctypes.cast(entries.nuts_tile if nuts else entries.tile, ctypes.c_void_p).value
     key = (entry, spec.energy_id, mm_shape(spec), spec.precision, variant, branches,
@@ -2174,11 +2338,13 @@ def _check_buffer(entries: MmEntries, spec, variant: str, branches: bool, max_de
         _TILE_REPORTS[key] = (_nuts_tile_report(entries, spec, max_depth) if nuts
                               else _tile_report(entries, spec, variant, branches))
     report = _TILE_REPORTS[key]
-    chains, slice_, params, tree = (report[i] for i in (0, 4, 5, 6))
+    chains, slice_, params, tree, stages, splits = (report[i] for i in (0, 4, 5, 6, 8, 9))
     slots = report[7] if nuts else 0
     want = params + tree * n
     if slice_ or slots:
-        want = (_round_up(want, 4) if nuts else want) + _cdiv(n, chains) * (slice_ + slots)
+        blocks = launched_blocks(TileRule(chains, 0, 0, True, False, stages=stages), n,
+                                 bool(splits))
+        want = (_round_up(want, 4) if nuts else want) + blocks * (slice_ + slots)
     have = 0 if scratch is None else scratch.numel()
     if have != want:
         raise RuntimeError(

@@ -180,7 +180,10 @@ def _specs():
 #: chunk, xg_off), shared bytes a block at max_depth 1 and their growth a
 #: depth, the device buffer's floats for 1,000 chains at max_depth 1 and
 #: their growth a depth), as the mirror gave them before the port took
-#: trees past 12 (both grow linearly in the depth to 12)
+#: trees past 12 (both grow linearly in the depth to 12); the chunked tiles
+#: with X and G on chip at the bf16 precisions as the ring gives them
+#: (``RING_STAGES``: its stages, 256 threads, the stages beside the tree and
+#: the buffer's blocks as many as a cluster plan may launch)
 PARENT_LAYOUT = {
     "product_of_t highest": ((8, 96, 4, False, True, 0, False), 26544, 3072, 0, 0),
     "product_of_t bf16x3": ((8, 96, 4, False, True, 0, False), 34608, 3072, 0, 0),
@@ -235,13 +238,16 @@ PARENT_LAYOUT = {
     "sparse_coding 288x144 default": ((8, 128, 1, False, False, 0, False), 194368, 1024,
                                       2304000, 576000),
     "logreg 4x20000 highest": ((8, 128, 3, True, True, 512, False), 40576, 2048, 160000, 0),
-    "logreg 4x20000 bf16x3": ((8, 128, 3, True, True, 512, False), 40576, 2048, 640000, 0),
-    "logreg 4x20000 bf16x2": ((8, 128, 3, True, True, 512, False), 40576, 2048, 320000, 0),
-    "logreg 4x20000 default": ((8, 128, 3, True, True, 512, False), 40576, 2048, 320000, 0),
+    "logreg 4x20000 bf16x3": ((8, 256, 1, True, True, 512, False), 117568, 4096, 640000, 0),
+    "logreg 4x20000 bf16x2": ((8, 256, 1, True, True, 512, False), 117568, 4096, 320000, 0),
+    "logreg 4x20000 default": ((8, 256, 2, True, True, 512, False), 109120, 4096, 320000, 0),
     "logreg 124x32561 highest": ((8, 128, 2, True, True, 512, False), 77312, 9216, 8075500, 0),
-    "logreg 124x32561 bf16x3": ((8, 128, 2, True, True, 512, False), 77312, 9216, 8339456, 0),
-    "logreg 124x32561 bf16x2": ((8, 128, 2, True, True, 512, False), 77312, 9216, 4169728, 0),
-    "logreg 124x32561 default": ((8, 128, 2, True, True, 512, False), 77312, 9216, 4169728, 0),
+    "logreg 124x32561 bf16x3": ((8, 256, 2, True, True, 128, False), 114736, 10240, 8339456,
+                                0),
+    "logreg 124x32561 bf16x2": ((8, 256, 2, True, True, 128, False), 114736, 10240, 4169728,
+                                0),
+    "logreg 124x32561 default": ((8, 256, 1, True, True, 256, False), 116784, 10240, 4169728,
+                                 0),
     "sparse_coding 4096x1024 highest": ((8, 1024, 1, True, False, 512, True), 36864, 8192,
                                         50372608, 8192000),
     "sparse_coding 4096x1024 bf16x3": ((8, 1024, 1, True, False, 512, True), 36864, 8192,
@@ -251,6 +257,10 @@ PARENT_LAYOUT = {
     "sparse_coding 4096x1024 default": ((8, 1024, 1, True, False, 512, True), 36864, 8192,
                                         46178304, 8192000),
 }
+#: the ring's stages of the chunked bf16 tiles above (the rest have none)
+RING_STAGES = {"logreg 4x20000 bf16x3": 4, "logreg 4x20000 bf16x2": 4,
+               "logreg 4x20000 default": 4, "logreg 124x32561 bf16x3": 3,
+               "logreg 124x32561 bf16x2": 3, "logreg 124x32561 default": 3}
 SPECS = _specs()
 
 
@@ -266,7 +276,7 @@ def test_tile_mirror_keeps_the_parents_layout_to_max_depth_12(key):
     still fits the layout at NUTS_MM_TILE_DEPTH (12)."""
     spec = _spec(key)
     rule, smem1, dsmem, scratch1, dscratch = PARENT_LAYOUT[key]
-    assert tuple(cm.nuts_mm_tile_rule(spec)) == rule
+    assert tuple(cm.nuts_mm_tile_rule(spec)) == (*rule, RING_STAGES.get(key, 0))
     assert cm.NUTS_MM_TILE_DEPTH == 12
     for depth in range(1, 13):
         assert cm.nuts_mm_smem_bytes(spec, depth) == smem1 + (depth - 1) * dsmem, depth
@@ -288,7 +298,7 @@ def test_deep_trees_keep_the_tile_and_add_their_rows_to_the_buffer(key):
     at12 = cm.nuts_mm_smem_bytes(spec, 12)
     params = cm.param_floats(spec) if rule.off else 0
     n = 1000
-    blocks = -(-n // rule.chains)
+    blocks = cm.launched_blocks(rule, n, cm.nuts_splits(rule))  # the tiles, but with a ring
     for depth in (13, 14, 31):
         deep = 2 * (depth - 12)
         assert cm.nuts_deep_rows(depth) == deep
@@ -377,7 +387,7 @@ def test_buffer_check_holds_the_deep_slots(label):
     deep = 2 * (depth - 12)
     tree = (deep if rule.onchip else cm.nuts_scratch_rows(depth)) * geom.dp
     report = (rule.chains, rule.threads, 0, 1, geom.slice if rule.xg_off else 0, params, tree,
-              deep * rule.threads)
+              deep * rule.threads, rule.stages, int(cm.nuts_splits(rule)), 66, 32, 16, 7)
     buf = cm.nuts_scratch(spec, depth, n, "meta")
     cm._check_buffer(entries(report), spec, "nuts", False, depth, n, buf)
     for bad in ((*report[:7], report[7] - 1),
